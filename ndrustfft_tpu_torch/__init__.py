@@ -1,0 +1,19 @@
+"""ndrustfft_tpu_torch: the n-D spectral transforms of ``ndrustfft_tpu`` in
+PyTorch, with hand-written CUDA kernels for Hopper (H100).
+
+The real spectral step of a pseudo-spectral solver runs on the card through
+three kernels (``ops/hopper``): C2C along a middle axis, and R2C / C2R of
+contiguous rows. Everything else runs the plain torch engine, or raises
+``NotImplementedError`` on a CUDA tensor where the JAX package would use a
+Pallas kernel that is not ported yet (see ``api._route`` and ROADMAP.md).
+"""
+
+from .api import ndfft, ndfft_r2c, ndifft, ndifft_r2c
+from .config import config
+from .handlers import FftHandler, R2cFftHandler
+from .normalization import Normalization
+
+__all__ = [
+    "ndfft", "ndifft", "ndfft_r2c", "ndifft_r2c",
+    "FftHandler", "R2cFftHandler", "Normalization", "config",
+]

@@ -1,0 +1,420 @@
+"""Public functions over ``torch.Tensor``: ``ndfft``, ``ndifft``,
+``ndfft_r2c`` and ``ndifft_r2c``, with the JAX package's signatures and
+error strings.
+
+Every call picks its route in one pure function, :func:`_route`. Its gates
+mirror the JAX package's TPU gates (``cols >= 128``, ``batch >= 128``, the
+twostep split with m <= 128), so that every route has a JAX counterpart:
+
+* a route whose JAX counterpart is one of the three ported kernels runs
+  that kernel's wrapper (``ops/hopper``): the CUDA kernel on a CUDA tensor,
+  its plain version on a CPU tensor;
+* a route whose JAX counterpart is a Pallas kernel not ported yet raises
+  ``NotImplementedError`` on a CUDA tensor, naming the kernel and its
+  ``ROADMAP.md`` item, and runs the torch engine on a CPU tensor;
+* a route whose JAX counterpart is the XLA engine runs the torch engine.
+"""
+
+from __future__ import annotations
+
+import math
+import sys
+from functools import lru_cache
+
+import torch
+
+from .config import config
+from .handlers import FftHandler, R2cFftHandler
+from .normalization import Normalization
+from .ops import engine as _engine
+from .ops.hopper import fft as _kfft
+from .ops.hopper import rfft as _krfft
+from .plan import MAX_BASE_RADIX, factorize, get_c2c_plan, get_r2c_plan
+
+__all__ = ["ndfft", "ndifft", "ndfft_r2c", "ndifft_r2c"]
+
+# routes that run a ported kernel, and the engine
+C2C_AXIS_MID = "c2c_axis_mid"
+R2C_NAT = "r2c_nat"
+C2R_NAT = "c2r_nat"
+ENGINE = "engine"
+
+# Pallas kernels of the JAX package on routes not ported yet:
+# key -> (kernel, ROADMAP.md item)
+UNPORTED = {
+    "dense_mid": ("fft.py::_kernel_axis_mid_dense", "K4"),
+    "bts2_wide": ("fft.py::_kernel_axis_mid_bts2 with a butterfly factor "
+                  "outside {2, 4, 8, 16}", "K1b"),
+    "generic_mid": ("fft.py::_kernel_axis_mid", "K6"),
+    "fourstep": ("fft.py::_kernel_exit_mul and _kernel_lane_store_t", "K7"),
+    "lane_last": ("fft.py::_kernel_lane_last", "K8"),
+    "twostep": ("fft.py::_kernel_twostep", "K10"),
+    "bluestein": ("fft.py::_kernel_axis_mid_blue and the engine's Bluestein",
+                  "K11"),
+    "r2c_packed": ("rfft.py::_r2c_kernel", "K15"),
+    "r2c_mid": ("rfft.py::_r2c_kernel_mid", "K16"),
+    "c2r_mid": ("rfft.py::_c2r_kernel_mid", "K17"),
+    "r2c_dense_mid": ("rfft.py::_r2c_dense_kernel", "K20"),
+    "c2r_dense_mid": ("rfft.py::_c2r_dense_kernel", "K21"),
+    "rfft_nat_wide": ("rfft.py::_r2c_kernel_nat / _c2r_kernel_nat with a "
+                      "half length outside 128 * {2, 4, 8, 16}", "K1b"),
+}
+
+# the JAX package's TPU gates
+_MIN_COLS = 128          # api._mid_dims
+_MIN_BATCH = 128         # engine.c2c / r2c / c2r
+_MAX_N = 65536           # fft._MAX_N
+_FOURSTEP_MAX_N = 1 << 22
+_DENSE_RFFT_MAX = 1100   # rfft._DENSE_RFFT_MAX
+
+
+def _check_size(got: int, expected: int, what: str = "fft"):
+    if got != expected:
+        raise ValueError(f"Size mismatch in {what}, got {got} expected {expected}")
+
+
+def _norm_axis(axis: int, ndim: int) -> int:
+    if not -ndim <= axis < ndim:
+        raise ValueError(f"axis {axis} out of bounds for {ndim}-d array")
+    return axis % ndim
+
+
+@lru_cache(maxsize=4096)
+def _auto_handler(cls, n):
+    return cls(n)
+
+
+def _plan_log(kind, n, axis, route):
+    if config.debug_plan_log:
+        print(f"[ndrustfft_tpu_torch] {kind} n={n} axis={axis} -> {route}",
+              file=sys.stderr)
+
+
+# --------------------------------------------------------------------------
+# The JAX package's kernel gates, as pure functions of n
+# --------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=None)
+def _twostep_split(n: int):
+    """(m, f) with m in {128, 256} dividing n and f = n/m <= 256, minimal
+    m + f; or None (fft._twostep_split)."""
+    cands = [d for d in (128, 256) if n % d == 0 and n // d <= 256]
+    if not cands:
+        return None
+    m = min(cands, key=lambda d: d + n // d)
+    return m, n // m
+
+
+@lru_cache(maxsize=None)
+def _lane_factor(n: int):
+    """fft._lane_factor: the lane DFT factor of the lane-last kernels."""
+    if n <= 256:
+        return n
+    divs = [d for d in range(1, 257) if n % d == 0]
+    preds = [lambda d: d % 128 == 0 and d >= 128]
+    if n > 1024:
+        preds.append(lambda d: d % 8 == 0 and d >= 64)
+    preds += [lambda d: d >= 64, lambda d: d > 1]
+    for pred in preds:
+        for f in sorted((d for d in divs if pred(d)), reverse=True):
+            if factorize(n // f) is not None:
+                return f
+    return None
+
+
+def _kernel_ok(n: int) -> bool:
+    """fft.pallas_supported for a float32 Cooley-Tukey plan."""
+    if factorize(n) is None or n < 2 or n > _MAX_N:
+        return False
+    f = _lane_factor(n)
+    return f is not None and not (n > 1024 and f % 8)
+
+
+def _mid_stage_ok(k: int) -> bool:
+    ts = _twostep_split(k)
+    return k <= 256 or (ts is not None and ts[0] <= MAX_BASE_RADIX)
+
+
+@lru_cache(maxsize=None)
+def _fourstep_split(n: int):
+    """fft.fourstep_split: (n1, n2) with both stages kernel-bodied, or None."""
+    best = None
+    d = 1
+    while d * d <= n:
+        if n % d == 0:
+            for n1, n2 in ((n // d, d), (d, n // d)):
+                if (n1 <= 4096 and n2 <= 16384 and _mid_stage_ok(n1)
+                        and _mid_stage_ok(n2) and _lane_factor(n2) is not None):
+                    if best is None or n1 + n2 < best[0] + best[1]:
+                        best = (n1, n2)
+        d += 1
+    return best
+
+
+def _nat_f(n: int):
+    """Butterfly factor of the half-length core of the natural-layout R2C/C2R
+    kernels for even n (rfft.rfft_nat_supported / _nat_ts), or None."""
+    h = n // 2
+    if n % 2 or n < 2 or not _kernel_ok(h):
+        return None
+    ts = _twostep_split(h)
+    if h >= 256 and ts is not None and ts[0] <= MAX_BASE_RADIX:
+        return ts[1]
+    return None
+
+
+def _lane_c2c(n: int, batch: int) -> str:
+    """Route of a float32 C2C along the last axis of (batch, n)
+    (engine.c2c): four-step, lane-last kernels, or the engine."""
+    if n > _MAX_N:
+        ok = n <= _FOURSTEP_MAX_N and _fourstep_split(n) is not None
+        return "fourstep" if ok else ENGINE
+    if batch >= _MIN_BATCH and _kernel_ok(n):
+        return "twostep" if n > 256 and _twostep_split(n) else "lane_last"
+    return ENGINE
+
+
+def _mid_dims(shape, axis):
+    """(nb, cols) for the axis-mid kernels, or None when ineligible."""
+    if axis >= len(shape) - 1:
+        return None
+    cols = math.prod(shape[axis + 1:])
+    if cols < _MIN_COLS:
+        return None
+    return math.prod(shape[:axis]), cols
+
+
+def _route(kind: str, shape, axis: int, dtype: torch.dtype, device_type: str,
+           n: int | None = None) -> str:
+    """The route of one call: C2C_AXIS_MID, R2C_NAT, C2R_NAT or ENGINE.
+
+    ``kind`` is "fft", "ifft", "r2c" or "c2r"; ``shape``, ``axis`` and
+    ``dtype`` are the input's; ``n`` is the real length of a "c2r" (default
+    2 * (m - 1)). On ``device_type == "cuda"`` a route through a Pallas
+    kernel that is not ported raises ``NotImplementedError``; on "cpu" it is
+    ENGINE. Other devices always take ENGINE."""
+    shape = tuple(shape)
+    axis = _norm_axis(axis, len(shape))
+    if n is None:
+        n = shape[axis] if kind != "c2r" else 2 * (shape[axis] - 1)
+    if factorize(n) is None:
+        route = "bluestein"
+    elif dtype not in (torch.float32, torch.complex64):
+        route = ENGINE
+    else:
+        route = _route_f32(kind, shape, axis, n)
+    if route in (C2C_AXIS_MID, R2C_NAT, C2R_NAT, ENGINE):
+        return route if device_type in ("cuda", "cpu") else ENGINE
+    if device_type == "cuda":
+        kernel, item = UNPORTED[route]
+        raise NotImplementedError(
+            f"{kind} n={n} axis={axis} shape={shape}: the JAX package runs "
+            f"this on the Pallas kernel {kernel}, which has no CUDA port yet "
+            f"(ROADMAP.md item {item})")
+    return ENGINE
+
+
+def _route_f32(kind, shape, axis, n):
+    dims = _mid_dims(shape, axis)
+    batch = math.prod(shape) // max(shape[axis], 1)
+    if kind in ("fft", "ifft"):
+        if dims is not None and _kernel_ok(n):
+            ts = _twostep_split(n)
+            use_ts = n > 256 and ts is not None and ts[0] <= MAX_BASE_RADIX
+            if n <= 256 or (not use_ts and n <= 512):
+                return "dense_mid"
+            if not use_ts:
+                return "generic_mid"
+            return C2C_AXIS_MID if ts[1] in _kfft.C2C_F else "bts2_wide"
+        return _lane_c2c(n, batch)
+    f = _nat_f(n)
+    if kind == "r2c":
+        if dims is not None:
+            if f is not None:
+                return "r2c_mid"
+            if 4 <= n <= _DENSE_RFFT_MAX:
+                return "r2c_dense_mid"
+        if n % 2:
+            return _lane_c2c(n, (batch + 1) // 2 if batch >= 2 else 1)
+        if batch >= _MIN_BATCH and f is not None:
+            return R2C_NAT if f in _kfft.CORE_F else "rfft_nat_wide"
+        if batch >= _MIN_BATCH and _kernel_ok(n // 2):
+            return "r2c_packed"
+        return _lane_c2c(n // 2, batch)
+    if kind == "c2r":
+        if n == 1:
+            return ENGINE
+        if dims is not None:
+            if f is not None:
+                return "c2r_mid"
+            if 4 <= n <= _DENSE_RFFT_MAX:
+                return "c2r_dense_mid"
+        if batch >= _MIN_BATCH and f is not None:
+            return C2R_NAT if f in _kfft.CORE_F else "rfft_nat_wide"
+        return _lane_c2c(n, batch)
+    raise ValueError(f"unknown transform kind {kind!r}")
+
+
+# --------------------------------------------------------------------------
+# Implementations
+# --------------------------------------------------------------------------
+
+
+def _c2c_norm_scale(handler, sign):
+    """Fusable scalar for the transform's normalization, or None: the
+    forward is never normalized; Default (1/n) and scalar policies ride the
+    kernel constants of the inverse. Custom callables cannot fuse."""
+    if sign != +1:
+        return None
+    norm = handler.norm
+    if norm.kind == "default":
+        return 1.0 / handler.n
+    if norm.kind == "scalar":
+        return norm.value
+    return None
+
+
+def _apply_custom(fn, y, axis):
+    """Apply a ``Normalization.custom`` callable with the transform axis last."""
+    if axis == y.ndim - 1:
+        return fn(y)
+    return fn(y.movedim(axis, -1)).movedim(-1, axis)
+
+
+def _unnormalized(handler):
+    return handler.normalization(Normalization.NONE)
+
+
+def _check_grad(x):
+    if x.requires_grad and x.device.type == "cuda":
+        raise NotImplementedError(
+            "the CUDA kernels have no backward yet (ROADMAP.md, queue 1 "
+            "item 8: autograd)")
+
+
+def _c2c_impl(x, handler, axis, sign):
+    axis = _norm_axis(axis, x.ndim)
+    _check_size(x.shape[axis], handler.n)
+    if sign == +1 and handler.norm.kind == "custom":
+        y = _c2c_impl(x, _unnormalized(handler), axis, sign)
+        return _apply_custom(handler.norm.fn, y, axis)
+    _check_grad(x)
+    n = handler.n
+    kind = "fft" if sign < 0 else "ifft"
+    route = _route(kind, x.shape, axis, x.dtype, x.device.type)
+    _plan_log(kind, n, axis, route)
+    scale = _c2c_norm_scale(handler, sign)
+    if route == C2C_AXIS_MID:
+        nb, cols = _mid_dims(x.shape, axis)
+        y = _kfft.c2c_axis_mid(x.reshape(nb, n, cols).contiguous(), sign, scale)
+        return y.reshape(x.shape)
+    y = _engine.c2c(x.movedim(axis, -1), get_c2c_plan(n, sign), scale)
+    return y.movedim(-1, axis)
+
+
+def _r2c_impl(x, handler, axis):
+    axis = _norm_axis(axis, x.ndim)
+    _check_size(x.shape[axis], handler.n)
+    if x.is_complex():
+        raise TypeError("ndfft_r2c expects a real input array")
+    _check_grad(x)
+    n, m = handler.n, handler.m
+    route = _route("r2c", x.shape, axis, x.dtype, x.device.type)
+    _plan_log("r2c", n, axis, route)
+    xm = x.movedim(axis, -1)
+    if route == R2C_NAT:
+        lead = xm.shape[:-1]
+        y = _krfft.r2c_nat(xm.reshape(-1, n).contiguous()).reshape(lead + (m,))
+    else:
+        y = _engine.r2c(xm, get_r2c_plan(n))
+    return y.movedim(-1, axis)
+
+
+def _c2r_impl(xhat, handler, axis):
+    axis = _norm_axis(axis, xhat.ndim)
+    n, m = handler.n, handler.m
+    _check_size(xhat.shape[axis], m)
+    if handler.norm.kind == "custom":
+        # the reference's order: normalize the spectrum, then zero the
+        # DC/Nyquist imaginary parts, then invert
+        xh = _apply_custom(handler.norm.fn, xhat, axis)
+        return _c2r_impl(xh, _unnormalized(handler), axis)
+    _check_grad(xhat)
+    norm = handler.norm
+    scale = None
+    if norm.kind == "default":
+        scale = 1.0 / n
+    elif norm.kind == "scalar":
+        scale = norm.value
+    route = _route("c2r", xhat.shape, axis, xhat.dtype, xhat.device.type, n=n)
+    _plan_log("c2r", n, axis, route)
+    sm = xhat.movedim(axis, -1)
+    if route == C2R_NAT:
+        lead = sm.shape[:-1]
+        y = _krfft.c2r_nat(sm.reshape(-1, m).contiguous(), n, scale)
+        y = y.reshape(lead + (n,))
+    else:
+        y = _engine.c2r(sm, n, scale=scale, mask_dc_nyq=True)
+    return y.movedim(-1, axis)
+
+
+# --------------------------------------------------------------------------
+# Public functions
+# --------------------------------------------------------------------------
+
+
+def _as_tensor(x) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+
+
+def _prep_complex(x):
+    x = _as_tensor(x)
+    if not x.is_complex():
+        x = x.to(torch.complex128 if x.dtype == torch.float64 else torch.complex64)
+    return x
+
+
+def _prep_real(x):
+    x = _as_tensor(x)
+    if x.is_complex():
+        return x  # rejected with a clear error by _r2c_impl
+    if x.dtype not in (torch.float32, torch.float64):
+        x = x.to(torch.float32)
+    return x
+
+
+def ndfft(x, handler: FftHandler | None = None, axis: int = -1):
+    """n-D complex-to-complex forward FFT along ``axis`` (unnormalized);
+    ``handler=None`` plans for ``x.shape[axis]``."""
+    x = _prep_complex(x)
+    h = handler or _auto_handler(FftHandler, x.shape[_norm_axis(axis, x.ndim)])
+    return _c2c_impl(x, h, axis, -1)
+
+
+def ndifft(x, handler: FftHandler | None = None, axis: int = -1):
+    """n-D C2C inverse FFT along ``axis``; the handler's normalization is
+    applied after the transform (Default = 1/n)."""
+    x = _prep_complex(x)
+    h = handler or _auto_handler(FftHandler, x.shape[_norm_axis(axis, x.ndim)])
+    return _c2c_impl(x, h, axis, +1)
+
+
+def ndfft_r2c(x, handler: R2cFftHandler | None = None, axis: int = -1):
+    """Real-to-complex FFT along ``axis``: real length n -> m = n//2 + 1 bins."""
+    x = _prep_real(x)
+    h = handler or _auto_handler(R2cFftHandler, x.shape[_norm_axis(axis, x.ndim)])
+    return _r2c_impl(x, h, axis)
+
+
+def ndifft_r2c(x, handler: R2cFftHandler | None = None, axis: int = -1,
+               n: int | None = None):
+    """Complex-to-real inverse FFT along ``axis``: m bins -> n reals. The
+    normalization is applied to the spectrum first, then the DC (and, for
+    even n, Nyquist) imaginary parts are zeroed, then the transform runs.
+    Without a handler, ``n`` defaults to 2*(m-1)."""
+    x = _prep_complex(x)
+    if handler is None:
+        m = x.shape[_norm_axis(axis, x.ndim)]
+        handler = _auto_handler(R2cFftHandler, n if n is not None else 2 * (m - 1))
+    return _c2r_impl(x, handler, axis)

@@ -1,0 +1,98 @@
+// Kernel 1: C2C along the middle axis of a (B, n, L) complex64 tensor.
+//
+// Replaces ndrustfft_tpu/ops/pallas/fft.py::_kernel_axis_mid_bts2 (built by
+// _build_call_axis_mid, core _bts2_core) for n = 128 * F, F in {4, 8, 16}.
+//
+// One block per (b, tile of C columns). The block reads its n x C tile of
+// torch's interleaved complex64 straight into shared memory (float2 loads;
+// the TPU kernel's separate re/im planes and the real/imag/complex boundary
+// passes do not exist here), runs the shared bts2 core (bts2_core.cuh) on it,
+// and writes the tile back, so device memory is read once and written once.
+// The last column tile may be ragged (L = 257, 513 on the slice): loads past
+// L read zeros and stores past L are masked. The normalization scale is
+// folded into the Wq constants on the host. The bound and the levers are in
+// bts2_core.cuh.
+#include "bts2_core.cuh"
+
+namespace ndfft {
+
+template <int F, int C>
+__global__ void __launch_bounds__(kThreads)
+c2c_axis_mid_kernel(const float2* __restrict__ x, float2* __restrict__ y,
+                    const float2* __restrict__ wq, long long L, long long tiles,
+                    float sign) {
+  constexpr int N = F * kM;
+  extern __shared__ float2 s[];
+  const long long bb = blockIdx.x / tiles;
+  const long long col0 = (blockIdx.x % tiles) * C;
+  const int valid = (int)min((long long)C, L - col0);
+  const float2* xb = x + bb * N * L + col0;
+  for (int idx = threadIdx.x; idx < N * C; idx += kThreads) {
+    const int t = idx / C;
+    const int c = idx % C;
+    s[idx] = c < valid ? xb[t * L + c] : make_float2(0.f, 0.f);
+  }
+  __syncthreads();
+  Bts2<F, C, false>::run(s, wq, sign);
+  float2* yb = y + bb * N * L + col0;
+  for (int idx = threadIdx.x; idx < N * C; idx += kThreads) {
+    const int t = idx / C;
+    const int c = idx % C;
+    if (c < valid) yb[t * L + c] = s[idx];
+  }
+}
+
+template <int F, int C>
+static cudaError_t launch_c2c(const float2* x, float2* y, const float2* wq,
+                              long long B, long long L, float sign,
+                              cudaStream_t stream) {
+  if constexpr (F * kM * C > kSmemElems) {
+    return cudaErrorInvalidValue;
+  } else {
+    const long long tiles = (L + C - 1) / C;
+    const int smem = F * kM * C * (int)sizeof(float2);
+    cudaError_t e = cudaFuncSetAttribute(
+        c2c_axis_mid_kernel<F, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return e;
+    c2c_axis_mid_kernel<F, C><<<(unsigned)(B * tiles), kThreads, smem, stream>>>(
+        x, y, wq, L, tiles, sign);
+    return cudaGetLastError();
+  }
+}
+
+template <int F>
+static cudaError_t dispatch_c(int C, const float2* x, float2* y,
+                              const float2* wq, long long B, long long L,
+                              float sign, cudaStream_t stream) {
+  switch (C) {
+    case 1: return launch_c2c<F, 1>(x, y, wq, B, L, sign, stream);
+    case 2: return launch_c2c<F, 2>(x, y, wq, B, L, sign, stream);
+    case 4: return launch_c2c<F, 4>(x, y, wq, B, L, sign, stream);
+    case 8: return launch_c2c<F, 8>(x, y, wq, B, L, sign, stream);
+    case 16: return launch_c2c<F, 16>(x, y, wq, B, L, sign, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace ndfft
+
+// x, y: (B, n, L) complex64, contiguous; wq: (F, 128, 128) complex64.
+// C: columns per block, a power of two with n * C <= 8192.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int ndfft_c2c_axis_mid(const void* x, void* y, const void* wq,
+                                  long long B, int n, long long L, int C,
+                                  int sign, void* stream) {
+  using namespace ndfft;
+  const float2* xp = static_cast<const float2*>(x);
+  float2* yp = static_cast<float2*>(y);
+  const float2* wp = static_cast<const float2*>(wq);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float sg = sign < 0 ? -1.f : 1.f;
+  switch (n) {
+    case 4 * kM: return dispatch_c<4>(C, xp, yp, wp, B, L, sg, st);
+    case 8 * kM: return dispatch_c<8>(C, xp, yp, wp, B, L, sg, st);
+    case 16 * kM: return dispatch_c<16>(C, xp, yp, wp, B, L, sg, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -1,0 +1,175 @@
+// Kernels 2 and 3: R2C and C2R of contiguous rows, even n = 2h, h = 128 * F.
+//
+// Kernel 2 replaces ndrustfft_tpu/ops/pallas/rfft.py::_r2c_kernel_nat
+// (built by _build_r2c_nat); kernel 3 replaces rfft.py::_c2r_kernel_nat
+// (built by _build_c2r_nat). Both run the shared bts2 core (bts2_core.cuh)
+// as the half-length FFT, on R rows of the block held in shared memory.
+//
+// A real row of n floats IS the interleaved complex row z[t] = x[2t] +
+// i*x[2t+1] of length h, so R consecutive rows are one contiguous float2
+// copy into shared memory: no de-interleave pass. The TPU kernel ran
+// [z | conj z] through one FFT to avoid a gather of the mirror Z[(h-k) % h];
+// on Hopper that mirror is a shared-memory read, so each row takes one FFT_h.
+//
+//   R2C:  Z = FFT_h(z);  Fe = (Z[k] + conj Z[-k]) / 2;  Fo = -i (Z[k] - conj Z[-k]) / 2
+//         X[k] = Fe + W_n^k Fo  (k < h),   X[h] = Re Z[0] - Im Z[0]
+//   C2R:  S[0] and S[h] lose their imaginary parts (the reference's order:
+//         scale, then DC/Nyquist imag = 0, then invert; the scale is linear
+//         and real, so it rides the constants A and B),
+//         G[k] = A[k] S[k] + B[k] conj S[h-k],  A = s (1 + i u), B = s (1 - i u),
+//         u = W_n^{-k}; z = IFFT_h(G) unnormalized; x[2t] = Re z, x[2t+1] = Im z.
+//         (The usual 1/2 of the unpack and the factor 2 of the half-length
+//         inverse cancel, so A and B carry neither.)
+// The bound is that of the core: stage 2's dense DFT-128 on the FP32 CUDA
+// cores (bts2_core.cuh).
+#include "bts2_core.cuh"
+
+namespace ndfft {
+
+template <int F, int R>
+__global__ void __launch_bounds__(kThreads)
+r2c_nat_kernel(const float2* __restrict__ x, float2* __restrict__ out,
+               const float2* __restrict__ wq, const float2* __restrict__ tw,
+               long long T) {
+  constexpr int H = F * kM;
+  extern __shared__ float2 s[];
+  const long long row0 = (long long)blockIdx.x * R;
+  const int valid = (int)min((long long)R, T - row0);
+  const float2* xb = x + row0 * H;
+  for (int idx = threadIdx.x; idx < R * H; idx += kThreads)
+    s[idx] = idx < valid * H ? xb[idx] : make_float2(0.f, 0.f);
+  __syncthreads();
+  Bts2<F, R, true>::run(s, wq, -1.f);
+  float2* ob = out + row0 * (H + 1);
+  for (int idx = threadIdx.x; idx < valid * (H + 1); idx += kThreads) {
+    const int r = idx / (H + 1);
+    const int k = idx % (H + 1);
+    const float2* z = s + r * H;
+    float2 X;
+    if (k == H) {
+      X = make_float2(z[0].x - z[0].y, 0.f);
+    } else {
+      const float2 zk = z[k];
+      const float2 zm = z[(H - k) % H];
+      const float2 fe = make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
+      const float2 fo = make_float2(0.5f * (zk.y + zm.y), -0.5f * (zk.x - zm.x));
+      const float2 w = __ldg(tw + k);
+      X = make_float2(fe.x + (fo.x * w.x - fo.y * w.y),
+                      fe.y + (fo.x * w.y + fo.y * w.x));
+    }
+    ob[idx] = X;
+  }
+}
+
+template <int F, int R>
+__global__ void __launch_bounds__(kThreads)
+c2r_nat_kernel(const float2* __restrict__ spec, float2* __restrict__ out,
+               const float2* __restrict__ wq, const float4* __restrict__ ab,
+               long long T) {
+  constexpr int H = F * kM;
+  extern __shared__ float2 s[];
+  const long long row0 = (long long)blockIdx.x * R;
+  const int valid = (int)min((long long)R, T - row0);
+  const float2* sb = spec + row0 * (H + 1);
+  for (int idx = threadIdx.x; idx < R * H; idx += kThreads) {
+    const int r = idx / H;
+    const int k = idx % H;
+    float2 g = make_float2(0.f, 0.f);
+    if (r < valid) {
+      float2 sk = sb[r * (H + 1) + k];
+      float2 sm = sb[r * (H + 1) + (H - k)];  // k = 0: the Nyquist bin S[h]
+      if (k == 0) {  // DC imag forced to 0; the Nyquist imag is ignored
+        sk.y = 0.f;
+        sm.y = 0.f;
+      }
+      const float4 c = __ldg(ab + k);  // (A.re, A.im, B.re, B.im)
+      g.x = c.x * sk.x - c.y * sk.y + c.z * sm.x + c.w * sm.y;
+      g.y = c.x * sk.y + c.y * sk.x + c.w * sm.x - c.z * sm.y;
+    }
+    s[idx] = g;
+  }
+  __syncthreads();
+  Bts2<F, R, true>::run(s, wq, 1.f);
+  float2* ob = out + row0 * H;
+  for (int idx = threadIdx.x; idx < valid * H; idx += kThreads) ob[idx] = s[idx];
+}
+
+template <int F, int R>
+static cudaError_t launch_rfft(bool inverse, const void* in, void* out,
+                               const float2* wq, const void* extra,
+                               long long T, cudaStream_t stream) {
+  if constexpr (F * kM * R > kSmemElems) {
+    return cudaErrorInvalidValue;
+  } else {
+    const int smem = F * kM * R * (int)sizeof(float2);
+    const unsigned blocks = (unsigned)((T + R - 1) / R);
+    cudaError_t e;
+    if (inverse) {
+      e = cudaFuncSetAttribute(c2r_nat_kernel<F, R>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return e;
+      c2r_nat_kernel<F, R><<<blocks, kThreads, smem, stream>>>(
+          static_cast<const float2*>(in), static_cast<float2*>(out), wq,
+          static_cast<const float4*>(extra), T);
+    } else {
+      e = cudaFuncSetAttribute(r2c_nat_kernel<F, R>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return e;
+      r2c_nat_kernel<F, R><<<blocks, kThreads, smem, stream>>>(
+          static_cast<const float2*>(in), static_cast<float2*>(out), wq,
+          static_cast<const float2*>(extra), T);
+    }
+    return cudaGetLastError();
+  }
+}
+
+template <int F>
+static cudaError_t dispatch_r(int R, bool inverse, const void* in, void* out,
+                              const float2* wq, const void* extra, long long T,
+                              cudaStream_t stream) {
+  switch (R) {
+    case 1: return launch_rfft<F, 1>(inverse, in, out, wq, extra, T, stream);
+    case 2: return launch_rfft<F, 2>(inverse, in, out, wq, extra, T, stream);
+    case 4: return launch_rfft<F, 4>(inverse, in, out, wq, extra, T, stream);
+    case 8: return launch_rfft<F, 8>(inverse, in, out, wq, extra, T, stream);
+    case 16: return launch_rfft<F, 16>(inverse, in, out, wq, extra, T, stream);
+    case 32: return launch_rfft<F, 32>(inverse, in, out, wq, extra, T, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+static int rfft_entry(bool inverse, const void* in, void* out, const void* wq,
+                      const void* extra, long long T, int n, int R,
+                      void* stream) {
+  const float2* wp = static_cast<const float2*>(wq);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (n / 2) {
+    case 2 * kM: return dispatch_r<2>(R, inverse, in, out, wp, extra, T, st);
+    case 4 * kM: return dispatch_r<4>(R, inverse, in, out, wp, extra, T, st);
+    case 8 * kM: return dispatch_r<8>(R, inverse, in, out, wp, extra, T, st);
+    case 16 * kM: return dispatch_r<16>(R, inverse, in, out, wp, extra, T, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace ndfft
+
+// x: (T, n) float32 rows; out: (T, n/2 + 1) complex64; wq: (F, 128, 128)
+// complex64 for h = n/2, sign -1; tw: (h,) complex64, W_n^k.
+// R: rows per block, a power of two with (n/2) * R <= 8192.
+extern "C" int ndfft_r2c_nat(const void* x, void* out, const void* wq,
+                             const void* tw, long long T, int n, int R,
+                             void* stream) {
+  if (n % 2) return (int)cudaErrorInvalidValue;
+  return ndfft::rfft_entry(false, x, out, wq, tw, T, n, R, stream);
+}
+
+// spec: (T, n/2 + 1) complex64; out: (T, n) float32; wq: (F, 128, 128)
+// complex64 for h = n/2, sign +1, unscaled; ab: (h, 4) float32 rows
+// (A.re, A.im, B.re, B.im) with the scale folded in.
+extern "C" int ndfft_c2r_nat(const void* spec, void* out, const void* wq,
+                             const void* ab, long long T, int n, int R,
+                             void* stream) {
+  if (n % 2) return (int)cudaErrorInvalidValue;
+  return ndfft::rfft_entry(true, spec, out, wq, ab, T, n, R, stream);
+}

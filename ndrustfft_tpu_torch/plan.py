@@ -1,0 +1,156 @@
+"""Plan layer: factorization and plan-time twiddle/DFT constants.
+
+The PyTorch counterpart of ``ndrustfft_tpu/plan.py``. Constants stay numpy
+float64 masters built with the same integer phase reduction, so every table
+is bit-identical to the JAX package's; the kernel wrappers cast them to
+float32 and move them to the input's device once (see ``ops/hopper``).
+
+Plans for n with a prime factor above ``MAX_BASE_RADIX`` need Bluestein
+(chirp-z), which this package does not carry yet: building one raises
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import Optional
+
+import numpy as np
+
+# Largest factor the planner emits; the JAX package's default
+# ``config.max_base_radix``. The kernel gates in ``api._route`` mirror it.
+MAX_BASE_RADIX = 128
+
+
+def prime_factors(n: int) -> list[int]:
+    fs = []
+    d = 2
+    while d * d <= n:
+        while n % d == 0:
+            fs.append(d)
+            n //= d
+        d += 1 if d == 2 else 2
+    if n > 1:
+        fs.append(n)
+    return fs
+
+
+def _greedy_partition(primes: list[int], k: int,
+                      max_base: int) -> Optional[list[int]]:
+    """Group prime factors into k buckets of product <= max_base, balanced."""
+    buckets = [1] * k
+    for p in sorted(primes, reverse=True):
+        order = sorted(range(k), key=lambda i: buckets[i])
+        for i in order:
+            if buckets[i] * p <= max_base:
+                buckets[i] *= p
+                break
+        else:
+            return None
+    return [b for b in buckets if b > 1] or [1]
+
+
+@lru_cache(maxsize=None)
+def factorize(n: int, max_base: int = MAX_BASE_RADIX) -> Optional[tuple[int, ...]]:
+    """Factor n into a few factors each <= max_base (largest first), or None
+    when n has a prime factor > max_base (Bluestein territory)."""
+    if n <= 0:
+        raise ValueError(f"transform length must be positive, got {n}")
+    if n == 1:
+        return (1,)
+    pf = prime_factors(n)
+    if max(pf) > max_base:
+        return None
+    k = 1
+    while max_base**k < n:
+        k += 1
+    while True:
+        parts = _greedy_partition(pf, k, max_base)
+        if parts is not None:
+            return tuple(sorted(parts, reverse=True))
+        k += 1
+
+
+def _cis(num, den: int, sign: int):
+    """exp(sign * 1j * pi * num / den) with integer phase reduction mod 2*den."""
+    num = np.asarray(num, dtype=np.int64) % (2 * den)
+    ang = (np.pi / den) * num.astype(np.float64)
+    if sign < 0:
+        ang = -ang
+    return np.cos(ang), np.sin(ang)
+
+
+def dft_matrix(f: int, sign: int):
+    """(f, f) DFT matrix W[t, k] = exp(sign*2j*pi*t*k/f), split re/im."""
+    tk = np.outer(np.arange(f, dtype=np.int64), np.arange(f, dtype=np.int64))
+    return _cis(2 * tk, f, sign)
+
+
+def stage_twiddle(f: int, m: int, sign: int):
+    """(f, m) twiddle W_n^{j*p} for n = f*m, split re/im."""
+    jp = np.outer(np.arange(f, dtype=np.int64), np.arange(m, dtype=np.int64))
+    return _cis(2 * jp, f * m, sign)
+
+
+class C2CPlan:
+    """Mixed-radix schedule for a length-n C2C FFT in one direction.
+
+    ``stages`` is a list of (f, m, Wf(re, im), tw(re, im)); ``base`` is the
+    (re, im) dense DFT matrix of the last factor.
+    """
+
+    __slots__ = ("n", "sign", "kind", "stages", "base")
+
+    def __init__(self, n: int, sign: int):
+        assert sign in (-1, 1)
+        self.n = n
+        self.sign = sign
+        factors = factorize(n)
+        if factors is None:
+            raise NotImplementedError(
+                f"n={n} has a prime factor above {MAX_BASE_RADIX} and needs a "
+                "Bluestein plan, which is not ported yet (ROADMAP.md, "
+                "queue 1 item 6: Bluestein)")
+        self.kind = "ct"
+        self.stages = []
+        rem = n
+        for f in factors[:-1]:
+            m = rem // f
+            self.stages.append((f, m, dft_matrix(f, sign),
+                                stage_twiddle(f, m, sign)))
+            rem = m
+        self.base = dft_matrix(factors[-1], sign)
+
+    def __repr__(self):
+        fs = [f for f, _, _, _ in self.stages] + [self.base[0].shape[0]]
+        return f"C2CPlan(n={self.n}, sign={self.sign}, factors={fs})"
+
+
+@lru_cache(maxsize=512)
+def get_c2c_plan(n: int, sign: int) -> C2CPlan:
+    return C2CPlan(n, sign)
+
+
+class R2CPlan:
+    """R2C forward schedule. Even n: half-size complex FFT plus the unpack
+    twiddle W_n^k. Odd n: full C2C of the complexified input, truncated to
+    m = n//2 + 1 bins."""
+
+    __slots__ = ("n", "m", "half", "sub", "unpack_tw")
+
+    def __init__(self, n: int):
+        self.n = n
+        self.m = n // 2 + 1
+        self.half = n % 2 == 0 and n >= 2
+        if self.half:
+            self.sub = get_c2c_plan(n // 2, -1)
+            k = np.arange(self.m, dtype=np.int64)
+            self.unpack_tw = _cis(2 * k, n, -1)
+        else:
+            self.sub = get_c2c_plan(n, -1)
+            self.unpack_tw = None
+
+
+@lru_cache(maxsize=512)
+def get_r2c_plan(n: int) -> R2CPlan:
+    return R2CPlan(n)

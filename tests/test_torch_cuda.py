@@ -1,0 +1,69 @@
+"""ndrustfft_tpu_torch's CUDA kernels on the card (marker ``cuda``).
+
+Every test skips where ``torch.cuda.is_available()`` is false. This file
+imports neither jax nor the JAX package, so on a machine with a card and no
+JAX it runs without the repository's conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerance: 5e-6 of max |plain| (kernel and plain version are both float32).
+"""
+
+import pytest
+import torch
+
+import ndrustfft_tpu_torch as nd
+from ndrustfft_tpu_torch.ops.hopper import fft as kfft
+from ndrustfft_tpu_torch.ops.hopper import rfft as krfft
+
+torch.set_num_threads(1)
+
+TOL = 5e-6
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def test_kernels_match_plain(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.view_as_complex(torch.randn(2, 1024, 257, 2, generator=g, device=dev))
+    for sign, scale in ((-1, None), (+1, 1 / 1024)):
+        assert _rel(kfft.c2c_axis_mid(x, sign, scale),
+                    kfft.c2c_axis_mid_plain(x, sign, scale)) <= TOL
+    r = torch.randn(130, 512, generator=g, device=dev)
+    assert _rel(krfft.r2c_nat(r), krfft.r2c_nat_plain(r)) <= TOL
+    s = krfft.r2c_nat_plain(r)
+    assert _rel(krfft.c2r_nat(s, 512, 0.5), krfft.c2r_nat_plain(s, 512, 0.5)) <= TOL
+
+
+def test_step_runs_on_the_kernels(dev):
+    x = torch.randn(512, 512, device=dev)
+    hr, hc = nd.R2cFftHandler(512), nd.FftHandler(512)
+    before = (kfft.c2c_axis_mid.launches, krfft.r2c_nat.launches,
+              krfft.c2r_nat.launches)
+    back = nd.ndifft_r2c(nd.ndifft(nd.ndfft(nd.ndfft_r2c(x, hr, axis=1), hc, axis=0),
+                                   hc, axis=0), hr, axis=1)
+    after = (kfft.c2c_axis_mid.launches, krfft.r2c_nat.launches,
+             krfft.c2r_nat.launches)
+    assert [a - b for a, b in zip(after, before)] == [2, 1, 1]
+    assert _rel(back, x) <= 1e-5
+
+
+def test_unported_route_and_grad_raise(dev):
+    with pytest.raises(NotImplementedError, match="_kernel_axis_mid_dense"):
+        nd.ndfft(torch.zeros(128, 128, dtype=torch.complex64, device=dev), axis=0)
+    with pytest.raises(NotImplementedError, match="autograd"):
+        nd.ndfft_r2c(torch.zeros(512, 512, device=dev, requires_grad=True), axis=1)
+    y = nd.ndfft(torch.ones(4, 8, dtype=torch.complex128, device=dev), axis=1)
+    assert abs(complex(y[0, 0]) - 8.0) < 1e-12      # complex128: the engine
