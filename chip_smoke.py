@@ -8,23 +8,40 @@ without the final line):
   1. require a CUDA device; print the card's name and power limit;
   2. build the CUDA kernels from ndrustfft_tpu_torch/csrc (nvcc, sm_90a);
   3. each kernel against its plain PyTorch version on the card, at the
-     slice's shapes (ragged column and row tiles included);
-  4. the real spectral step through ndfft_r2c / ndfft / ndifft / ndifft_r2c:
-     the 512^2 and 1024^2 flagship and a 512^3 grid, against
-     torch.fft.rfftn in float64 (oracle only), with the round trip; the
-     kernels' launch counters must account for every leg and the torch
-     engine must not run;
+     slices' shapes (ragged column and row tiles included);
+  4. two main paths through the public functions, each with every launch
+     counter set to 0 just before it and read just after; the counters
+     must account for every leg and the torch engine must not run:
+     a. the real spectral step through ndfft_r2c / ndfft / ndifft /
+        ndifft_r2c: the 512^2 and 1024^2 flagship and a 512^3 grid, against
+        torch.fft.rfftn in float64 (oracle only), with the round trip;
+     b. the DCT/DST family through nddct1..4 / nddst2..3: the reference's
+        dct2d grid (DCT-I along axis 0 of n x n, n = 129, 265, 513, 1025),
+        the 1024^2 DCT-II/III and DST-II/III pairs on both axes with
+        DCT-IV along axis 0, against scipy.fft in float64, and the Neumann
+        Poisson solve on a 512^3 cell-centred grid (DCT-II on axes 2, 1, 0,
+        division by the cosine-basis eigenvalues, DCT-III back) against a
+        float64 torch.fft Makhoul lowering (oracle only) and the analytic
+        solution;
   5. times with CUDA events (median over --reps runs after warm-up): each
-     kernel against its plain version, and the steps against
-     torch.fft.rfftn / irfftn.
-The line before the last is the card as nvidia-smi names it; the last line
-is {"ok": true, "device": {...}}.
+     kernel against its plain version and, where one PyTorch call computes
+     the same function, that call (the yardstick, never on the port's
+     path); the steps against torch.fft.rfftn / irfftn, and the DCT pair
+     and Poisson solve against the same compositions through a float32
+     torch.fft Makhoul lowering.
+The kernels line gives each kernel's launches on its main path, its largest
+error against its plain version, its times, and its bound: the larger of
+the bytes it must move (each input read once, each output written once)
+over 3.35 TB/s and its FP32 operations over 67 TFLOP/s (H100 SXM data
+sheet, 700 W). The line before the last is the card as nvidia-smi names it;
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import statistics
@@ -35,6 +52,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 TOL_KERNEL = 5e-6    # kernel vs plain, relative to max |plain| (both float32)
 TOL_STEP = 1e-5      # step vs float64 oracle and round trip, relative
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, 700 W
+FP32_FLOP_PER_S = 67e12     # FP32 outside the tensor cores, same source
 
 
 def emit(**kw):
@@ -58,6 +77,55 @@ def rel_err(got, ref) -> float:
 
 def abs_err(got, ref) -> float:
     return float((got - ref).abs().max())
+
+
+def bound(nbytes: float, flops: float):
+    """(ms, "bytes" or "operations"): the least time for the work."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def work(name: str, shape):
+    """(bytes, FP32 operations) of one kernel call at ``shape``: inputs
+    (constants included) read once, outputs written once; 5 n log2 n per
+    complex and 2.5 n log2 n per real FFT of length n, the dense DCT's
+    2 n^2 per column."""
+    if name == "c2c_axis_mid":
+        b, n, cols = shape
+        return 16 * b * n * cols + 8 * n * 128, 5 * n * math.log2(n) * b * cols
+    if name in ("r2c_nat", "c2r_nat"):
+        t, w = shape
+        n = w if name == "r2c_nat" else 2 * (w - 1)
+        return 4 * t * n + 8 * t * (n // 2 + 1) + 8 * n * 64, 2.5 * n * math.log2(n) * t
+    if name == "dct_dense_mid":
+        b, n, cols = shape
+        return 8 * b * n * cols + 4 * n * n, 2 * n * n * b * cols
+    t, n = shape            # dct2_nat, dct3_nat
+    return 8 * t * n + 8 * n * 64 + 16 * n, 2.5 * n * math.log2(n) * t
+
+
+def makhoul_dct(x, axis: int, dct_type: int):
+    """scipy.fft.dct(x, type=2 or 3, axis) through torch.fft (Makhoul), in
+    x's precision: the oracle (float64) and the yardstick (float32), never
+    the port's path."""
+    import torch
+
+    xm = x.movedim(axis, -1)
+    n = xm.shape[-1]
+    k = torch.arange(n, device=x.device, dtype=x.dtype)
+    w = torch.polar(torch.ones_like(k), -math.pi * k / (2 * n))
+    if dct_type == 2:
+        v = torch.cat([xm[..., 0::2], xm[..., 1::2].flip(-1)], dim=-1)
+        y = 2 * (torch.fft.fft(v) * w).real
+    else:
+        c = torch.cat([xm[..., :1] * 0.5, xm[..., 1:]], dim=-1)
+        u = 2 * torch.fft.fft(c * w).real
+        y = torch.empty_like(u)
+        h = (n + 1) // 2
+        y[..., 0::2] = u[..., :h]
+        y[..., 1::2] = u[..., h:].flip(-1)
+    return y.movedim(-1, axis)
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -93,6 +161,7 @@ def main() -> int:
     import ndrustfft_tpu_torch as nd
     from ndrustfft_tpu_torch.ops import engine
     from ndrustfft_tpu_torch.ops.hopper import _build
+    from ndrustfft_tpu_torch.ops.hopper import dct as kdct
     from ndrustfft_tpu_torch.ops.hopper import fft as kfft
     from ndrustfft_tpu_torch.ops.hopper import rfft as krfft
 
@@ -125,13 +194,19 @@ def main() -> int:
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
     spills = [sum(map(int, s)) for s in
               re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+    spilling = {}   # entry function -> spill bytes, from ptxas -v
+    for entry in log.split("Compiling entry function '")[1:]:
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
+        if m and sum(map(int, m.groups())):
+            spilling[entry.split("'")[0]] = sum(map(int, m.groups()))
     emit(phase="build", seconds=time.perf_counter() - t0,
          nvcc_seconds=_build.build_seconds, library=lib_path.name,
          max_registers=max(regs, default=None),
-         spill_bytes=sum(spills))
+         spill_bytes=sum(spills), spilling=spilling)
 
     # ---- 3. kernels against their plain versions
-    errs = {"c2c_axis_mid": 0.0, "r2c_nat": 0.0, "c2r_nat": 0.0}
+    errs = {"c2c_axis_mid": 0.0, "r2c_nat": 0.0, "c2r_nat": 0.0,
+            "dct_dense_mid": 0.0, "dct2_nat": 0.0, "dct3_nat": 0.0}
     k1_shapes = [(1, 512, 257), (1, 1024, 513), (3, 2048, 130), (512, 512, 257),
                  (1, 512, 512 * 257)]
     for shape in k1_shapes:
@@ -171,8 +246,37 @@ def main() -> int:
         if not rel <= TOL_KERNEL:
             raise AssertionError(f"c2r_nat {(t, n)}: {rel}")
         del x, s, got, ref
+    for shape in ((1, 129, 129), (3, 265, 130), (1, 1025, 1025), (512, 512, 512),
+                  (1, 512, 512 * 512)):
+        x = randn(*shape)
+        for t in (1, 2, 3, 4):
+            got = kdct.dct_dense_mid(x, t, 2.0)
+            ref = kdct.dct_dense_mid_plain(x, t, 2.0)
+            torch.cuda.synchronize()
+            rel = abs_err(got, ref) / float(ref.abs().max())
+            errs["dct_dense_mid"] = max(errs["dct_dense_mid"], abs_err(got, ref))
+            emit(phase="kernel_vs_plain", kernel="dct_dense_mid", shape=shape,
+                 dct_type=t, rel_err=rel)
+            if not rel <= TOL_KERNEL:
+                raise AssertionError(f"dct_dense_mid {shape} type {t}: {rel}")
+            del got, ref
+        del x
+    for t, n in ((130, 512), (1024, 1024), (7, 2048), (512 * 512, 512)):
+        x = randn(t, n)
+        for name, kern, plain in (("dct2_nat", kdct.dct2_nat, kdct.dct2_nat_plain),
+                                  ("dct3_nat", kdct.dct3_nat, kdct.dct3_nat_plain)):
+            got = kern(x, 2.0)
+            ref = plain(x, 2.0)
+            torch.cuda.synchronize()
+            rel = abs_err(got, ref) / float(ref.abs().max())
+            errs[name] = max(errs[name], abs_err(got, ref))
+            emit(phase="kernel_vs_plain", kernel=name, shape=(t, n), rel_err=rel)
+            if not rel <= TOL_KERNEL:
+                raise AssertionError(f"{name} {(t, n)}: {rel}")
+            del got, ref
+        del x
 
-    # ---- 4. the spectral step through the public functions
+    # ---- 4a. the spectral step through the public functions
     def step2(x, hr, hc):
         vhat = nd.ndfft(nd.ndfft_r2c(x, hr, axis=1), hc, axis=0)
         return vhat, nd.ndifft_r2c(nd.ndifft(vhat, hc, axis=0), hr, axis=1)
@@ -185,28 +289,38 @@ def main() -> int:
                              axis=2)
 
     wrappers = {"c2c_axis_mid": kfft.c2c_axis_mid, "r2c_nat": krfft.r2c_nat,
-                "c2r_nat": krfft.c2r_nat}
+                "c2r_nat": krfft.c2r_nat, "dct_dense_mid": kdct.dct_dense_mid,
+                "dct2_nat": kdct.dct2_nat, "dct3_nat": kdct.dct3_nat}
     engine_fns = (engine.c2c, engine.r2c, engine.c2r)
+
+    def reset_counts():
+        for w in wrappers.values():
+            w.launches = 0
+        for f in engine_fns:
+            f.calls = 0
+
+    def read_counts(path, expected):
+        torch.cuda.synchronize()
+        got = {k: w.launches for k, w in wrappers.items()}
+        engine_calls = sum(f.calls for f in engine_fns)
+        emit(phase="main_path", path=path, launches=got, engine_calls=engine_calls)
+        if got != expected or engine_calls:
+            raise AssertionError(f"{path}: launches {got} (expected {expected}), "
+                                 f"engine calls {engine_calls}")
+        return got
+
     inputs = {n: randn(n, n) for n in (512, 1024)}
     x3 = randn(512, 512, 512)
-    for w in wrappers.values():
-        w.launches = 0
-    for f in engine_fns:
-        f.calls = 0
+    reset_counts()
     outs = {}
     for n, x in inputs.items():
         outs[n] = step2(x, nd.R2cFftHandler(n), nd.FftHandler(n))
     h512r, h512c = nd.R2cFftHandler(512), nd.FftHandler(512)
     v3 = fwd3(x3, h512r, h512c)
     back3 = inv3(v3, h512r, h512c)
-    torch.cuda.synchronize()
-    launches = {k: w.launches for k, w in wrappers.items()}
-    engine_calls = sum(f.calls for f in engine_fns)
-    emit(phase="main_path", launches=launches, engine_calls=engine_calls)
-    expected = {"c2c_axis_mid": 8, "r2c_nat": 3, "c2r_nat": 3}
-    if launches != expected or engine_calls:
-        raise AssertionError(f"launches {launches} (expected {expected}), "
-                             f"engine calls {engine_calls}")
+    launches = read_counts("spectral_step", {
+        "c2c_axis_mid": 8, "r2c_nat": 3, "c2r_nat": 3,
+        "dct_dense_mid": 0, "dct2_nat": 0, "dct3_nat": 0})
     for n, x in inputs.items():
         vhat, back = outs[n]
         ref = torch.fft.rfftn(x.double())
@@ -228,33 +342,150 @@ def main() -> int:
     del outs, v3, back3
     torch.cuda.empty_cache()
 
-    # ---- 5. times (each kernel against its plain version; steps against torch.fft)
+    # ---- 4b. the DCT/DST family through the public functions
+    import scipy.fft as sfft
+
+    def host64(t):
+        return t.double().cpu().numpy()
+
+    def check(what, got, want, tol=TOL_STEP, **kw):
+        err = float(abs(host64(got) - want).max() / abs(want).max())
+        emit(phase="dct_path", check=what, rel_err=err,
+             finite=bool(torch.isfinite(got).all()), shape=list(got.shape), **kw)
+        if not err <= tol:
+            raise AssertionError(f"{what}: {err}")
+
+    grid = {n: randn(n, n) for n in (129, 265, 513, 1025)}
+    xp = randn(1024, 1024)
+    hd, hs = nd.DctHandler(1024), nd.DstHandler(1024)
+    inv_1024 = nd.Normalization.scalar(1.0 / 1024)
+    hdi, hsi = hd.normalization(inv_1024), hs.normalization(inv_1024)
+
+    def dct_pair(x):
+        f = nd.nddct2(nd.nddct2(x, hd, axis=1), hd, axis=0)
+        return f, nd.nddct3(nd.nddct3(f, hdi, axis=0), hdi, axis=1)
+
+    def dst_pair(x):
+        f = nd.nddst2(nd.nddst2(x, hs, axis=1), hs, axis=0)
+        return f, nd.nddst3(nd.nddst3(f, hsi, axis=0), hsi, axis=1)
+
+    # Neumann Poisson -lap u = f on [0, 1]^3, cell centres x_i = (i + 1/2)/n:
+    # u = sum_m amp cos(a pi x) cos(b pi y) cos(c pi z) is a sum of DCT-II
+    # basis vectors with eigenvalues pi^2 (a^2 + b^2 + c^2), so the spectral
+    # solve reproduces it to roundoff
+    n3 = 512
+    modes = ((1, 2, 3, 1.0), (5, 3, 2, 0.5))
+    xc = (torch.arange(n3, device=dev, dtype=torch.float64) + 0.5) / n3
+
+    def modal_field(weight):
+        out = torch.zeros(n3, n3, n3, device=dev, dtype=torch.float64)
+        for a, b, c, amp in modes:
+            out += (amp * weight(a, b, c) * torch.cos(a * math.pi * xc)[:, None, None]
+                    * torch.cos(b * math.pi * xc)[None, :, None]
+                    * torch.cos(c * math.pi * xc)[None, None, :])
+        return out
+
+    u_exact = modal_field(lambda a, b, c: 1.0)
+    f3 = modal_field(lambda a, b, c: math.pi ** 2 * (a * a + b * b + c * c)).float()
+    k2 = (torch.arange(n3, device=dev, dtype=torch.float32) * math.pi) ** 2
+    inv_lam = 1.0 / (k2[:, None, None] + k2[None, :, None] + k2[None, None, :])
+    inv_lam[0, 0, 0] = 0.0          # the zero mode is pinned to 0
+    hp = nd.DctHandler(n3)
+    hpi = hp.normalization(nd.Normalization.scalar(1.0 / n3))
+
+    def poisson(f):
+        fh = nd.nddct2(nd.nddct2(nd.nddct2(f, hp, axis=2), hp, axis=1), hp, axis=0)
+        uh = fh * inv_lam
+        return fh, nd.nddct3(nd.nddct3(nd.nddct3(uh, hpi, axis=0), hpi, axis=1),
+                             hpi, axis=2)
+
+    def yardstick_poisson(f):
+        fh = makhoul_dct(makhoul_dct(makhoul_dct(f, 2, 2), 1, 2), 0, 2)
+        u = fh * inv_lam
+        for ax in (0, 1, 2):
+            u = makhoul_dct(u, ax, 3) / (2 * n3)
+        return u
+
+    reset_counts()
+    grid_out = {n: nd.nddct1(x, nd.DctHandler(n), axis=0) for n, x in grid.items()}
+    pair = dct_pair(xp)
+    y4 = nd.nddct4(xp, hd, axis=0)
+    spair = dst_pair(xp)
+    fh3, u3 = poisson(f3)
+    dct_launches = read_counts("dct_family", {
+        "c2c_axis_mid": 0, "r2c_nat": 0, "c2r_nat": 0,
+        "dct_dense_mid": 4 + 5 + 4, "dct2_nat": 2 + 1, "dct3_nat": 2 + 1})
+    launches.update({k: dct_launches[k] for k in ("dct_dense_mid", "dct2_nat", "dct3_nat")})
+    for n, y in grid_out.items():
+        check("dct1_axis0", y, sfft.dct(host64(grid[n]), type=1, axis=0), grid=[n, n])
+    x64 = host64(xp)
+    check("dct2_both_axes", pair[0], sfft.dctn(x64, type=2), grid=[1024, 1024])
+    check("dct3_roundtrip", pair[1], x64, grid=[1024, 1024])
+    check("dct4_axis0", y4, sfft.dct(x64, type=4, axis=0), grid=[1024, 1024])
+    check("dst2_both_axes", spair[0], sfft.dstn(x64, type=2), grid=[1024, 1024])
+    check("dst3_roundtrip", spair[1], x64, grid=[1024, 1024])
+    del grid_out, pair, y4, spair
+    f64 = f3.double()
+    ref_fh = makhoul_dct(makhoul_dct(makhoul_dct(f64, 2, 2), 1, 2), 0, 2)
+    del f64
+    fwd = float((fh3.double() - ref_fh).abs().max() / ref_fh.abs().max())
+    del ref_fh
+    sol = float((u3.double() - u_exact).abs().max() / u_exact.abs().max())
+    emit(phase="dct_path", check="poisson_512^3", fwd_rel_err=fwd, solution_rel_err=sol,
+         finite=bool(torch.isfinite(u3).all()), shape=list(u3.shape))
+    if not (fwd <= TOL_STEP and sol <= TOL_STEP):
+        raise AssertionError(f"512^3 Poisson: forward {fwd}, solution {sol}")
+    del fh3, u3, u_exact
+    torch.cuda.empty_cache()
+
+    # ---- 5. times: each kernel against its plain version and, at the main
+    # path's shape, the PyTorch call that computes the same function (the
+    # yardstick); the steps against torch.fft
     reps = args.reps
     timing = {}
     main_shapes = {"c2c_axis_mid": (1, 512, 512 * 257), "r2c_nat": (512 * 512, 512),
-                   "c2r_nat": (512 * 512, 257)}
+                   "c2r_nat": (512 * 512, 257), "dct_dense_mid": (1, 512, 512 * 512),
+                   "dct2_nat": (512 * 512, 512), "dct3_nat": (512 * 512, 512)}
+
+    def time_kernel(name, shape, kern, plain, library=None):
+        t_plain = cuda_ms(plain, reps)
+        t_k = cuda_ms(kern, reps)
+        t_lib = (cuda_ms(library, reps)
+                 if library is not None and shape == main_shapes[name] else None)
+        timing[(name, shape)] = (t_k, t_plain, t_lib)
+        emit(phase="time", kernel=name, shape=shape, ms=t_k, plain_ms=t_plain,
+             library_ms=t_lib, card=card)
+
     for shape in ((1, 512, 257), (1, 1024, 513), (512, 512, 257), (1, 512, 512 * 257)):
         x = crandn(*shape)
         s = 1.0 / shape[1]
-        t_plain = cuda_ms(lambda: kfft.c2c_axis_mid_plain(x, +1, s), reps)
-        t_k = cuda_ms(lambda: kfft.c2c_axis_mid(x, +1, s), reps)
-        timing[("c2c_axis_mid", shape)] = (t_k, t_plain)
-        emit(phase="time", kernel="c2c_axis_mid", shape=shape, ms=t_k,
-             plain_ms=t_plain, card=card)
+        time_kernel("c2c_axis_mid", shape, lambda: kfft.c2c_axis_mid(x, +1, s),
+                    lambda: kfft.c2c_axis_mid_plain(x, +1, s),
+                    lambda: torch.fft.ifft(x, dim=1))
     for t, n in ((512, 512), (1024, 1024), (512 * 512, 512)):
         x = randn(t, n)
         sp = crandn(t, n // 2 + 1)
-        t_plain = cuda_ms(lambda: krfft.r2c_nat_plain(x), reps)
-        t_k = cuda_ms(lambda: krfft.r2c_nat(x), reps)
-        timing[("r2c_nat", (t, n))] = (t_k, t_plain)
-        emit(phase="time", kernel="r2c_nat", shape=(t, n), ms=t_k,
-             plain_ms=t_plain, card=card)
-        t_plain = cuda_ms(lambda: krfft.c2r_nat_plain(sp, n, 1.0 / n), reps)
-        t_k = cuda_ms(lambda: krfft.c2r_nat(sp, n, 1.0 / n), reps)
-        timing[("c2r_nat", (t, n // 2 + 1))] = (t_k, t_plain)
-        emit(phase="time", kernel="c2r_nat", shape=(t, n // 2 + 1), ms=t_k,
-             plain_ms=t_plain, card=card)
+        time_kernel("r2c_nat", (t, n), lambda: krfft.r2c_nat(x),
+                    lambda: krfft.r2c_nat_plain(x), lambda: torch.fft.rfft(x, dim=1))
+        time_kernel("c2r_nat", (t, n // 2 + 1), lambda: krfft.c2r_nat(sp, n, 1.0 / n),
+                    lambda: krfft.c2r_nat_plain(sp, n, 1.0 / n),
+                    lambda: torch.fft.irfft(sp, n=n, dim=1))
     del x, sp
+    for shape in ((1, 129, 129), (1, 1025, 1025), (512, 512, 512), (1, 512, 512 * 512)):
+        x = randn(*shape)
+        m_s = kdct.dct_dense_mid_plain(
+            torch.eye(shape[1], device=dev)[None], 2, 2.0)[0]   # 2 M, (k, t)
+        time_kernel("dct_dense_mid", shape, lambda: kdct.dct_dense_mid(x, 2, 2.0),
+                    lambda: kdct.dct_dense_mid_plain(x, 2, 2.0),
+                    lambda: torch.matmul(m_s, x))
+    del x
+    for t, n in ((1024, 1024), (512 * 512, 512)):
+        x = randn(t, n)
+        time_kernel("dct2_nat", (t, n), lambda: kdct.dct2_nat(x, 2.0),
+                    lambda: kdct.dct2_nat_plain(x, 2.0))
+        time_kernel("dct3_nat", (t, n), lambda: kdct.dct3_nat(x, 2.0),
+                    lambda: kdct.dct3_nat_plain(x, 2.0))
+    del x
     for n, x in inputs.items():
         hr, hc = nd.R2cFftHandler(n), nd.FftHandler(n)
         t_port = cuda_ms(lambda: step2(x, hr, hc), reps)
@@ -268,6 +499,23 @@ def main() -> int:
                       reps, 2)
     emit(phase="time", step=[512, 512, 512], ms=t_port, torch_fft_ms=t_torch,
          peak_bytes=peak, card=card)
+    del x3
+    torch.cuda.empty_cache()
+
+    def yardstick_pair(x):
+        f = makhoul_dct(makhoul_dct(x, 1, 2), 0, 2)
+        return makhoul_dct(makhoul_dct(f, 0, 3), 1, 3) / (2 * 1024) ** 2
+
+    t_port = cuda_ms(lambda: dct_pair(xp), reps)
+    t_yard = cuda_ms(lambda: yardstick_pair(xp), reps)
+    emit(phase="time", dct_pair=[1024, 1024], ms=t_port, torch_fft_makhoul_ms=t_yard,
+         card=card)
+    torch.cuda.reset_peak_memory_stats()
+    t_port = cuda_ms(lambda: poisson(f3), reps, 2)
+    peak = torch.cuda.max_memory_allocated()
+    t_yard = cuda_ms(lambda: yardstick_poisson(f3), reps, 2)
+    emit(phase="time", poisson=[n3, n3, n3], ms=t_port, torch_fft_makhoul_ms=t_yard,
+         peak_bytes=peak, card=card)
 
     sources = {
         "c2c_axis_mid": ("ndrustfft_tpu_torch/csrc/fft_axis_mid.cu",
@@ -276,13 +524,22 @@ def main() -> int:
                     "ndrustfft_tpu/ops/pallas/rfft.py:242"),
         "c2r_nat": ("ndrustfft_tpu_torch/csrc/rfft_nat.cu",
                     "ndrustfft_tpu/ops/pallas/rfft.py:323"),
+        "dct_dense_mid": ("ndrustfft_tpu_torch/csrc/dct_dense.cu",
+                          "ndrustfft_tpu/ops/pallas/dct.py:545"),
+        "dct2_nat": ("ndrustfft_tpu_torch/csrc/dct_nat.cu",
+                     "ndrustfft_tpu/ops/pallas/dct.py:190"),
+        "dct3_nat": ("ndrustfft_tpu_torch/csrc/dct_nat.cu",
+                     "ndrustfft_tpu/ops/pallas/dct.py:208"),
     }
     kernels = []
     for name, (src, rep) in sources.items():
-        t_k, t_plain = timing[(name, main_shapes[name])]
+        t_k, t_plain, t_lib = timing[(name, main_shapes[name])]
+        bound_ms, bound_by = bound(*work(name, main_shapes[name]))
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": launches[name],
-                        "max_abs_err": errs[name], "ms": t_k, "plain_ms": t_plain})
+                        "max_abs_err": errs[name], "ms": t_k, "plain_ms": t_plain,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": t_lib, "shape": list(main_shapes[name])})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Public functions over ``torch.Tensor``: ``ndfft``, ``ndifft``,
-``ndfft_r2c`` and ``ndifft_r2c``, with the JAX package's signatures and
-error strings.
+``ndfft_r2c``, ``ndifft_r2c``, ``nddct1``..``nddct4`` and
+``nddst1``..``nddst4``, with the JAX package's signatures and error strings.
 
 Every call picks its route in one pure function, :func:`_route`. Its gates
 mirror the JAX package's TPU gates (``cols >= 128``, ``batch >= 128``, the
@@ -13,6 +13,10 @@ twostep split with m <= 128), so that every route has a JAX counterpart:
   ``NotImplementedError`` on a CUDA tensor, naming the kernel and its
   ``ROADMAP.md`` item, and runs the torch engine on a CPU tensor;
 * a route whose JAX counterpart is the XLA engine runs the torch engine.
+
+A non-tensor input (numpy array, list, scalar) goes to the CUDA device, as
+the JAX package puts it on its default device; a CPU tensor is how a caller
+asks for the CPU.
 """
 
 from __future__ import annotations
@@ -24,20 +28,31 @@ from functools import lru_cache
 import torch
 
 from .config import config
-from .handlers import FftHandler, R2cFftHandler
+from .handlers import DctHandler, DstHandler, FftHandler, R2cFftHandler
 from .normalization import Normalization
+from .ops import dct as _dct
+from .ops import dst as _dst
 from .ops import engine as _engine
+from .ops.hopper import dct as _kdct
 from .ops.hopper import fft as _kfft
 from .ops.hopper import rfft as _krfft
 from .plan import MAX_BASE_RADIX, factorize, get_c2c_plan, get_r2c_plan
 
-__all__ = ["ndfft", "ndifft", "ndfft_r2c", "ndifft_r2c"]
+__all__ = ["ndfft", "ndifft", "ndfft_r2c", "ndifft_r2c",
+           "nddct1", "nddct2", "nddct3", "nddct4",
+           "nddst1", "nddst2", "nddst3", "nddst4"]
 
 # routes that run a ported kernel, and the engine
 C2C_AXIS_MID = "c2c_axis_mid"
 R2C_NAT = "r2c_nat"
 C2R_NAT = "c2r_nat"
+DCT_DENSE_MID = "dct_dense_mid"
+DCT2_NAT = "dct2_nat"
+DCT3_NAT = "dct3_nat"
 ENGINE = "engine"
+_RUNNABLE = (C2C_AXIS_MID, R2C_NAT, C2R_NAT, DCT_DENSE_MID, DCT2_NAT, DCT3_NAT,
+             ENGINE)
+_R2R_KINDS = tuple(f"{f}{t}" for f in ("dct", "dst") for t in (1, 2, 3, 4))
 
 # Pallas kernels of the JAX package on routes not ported yet:
 # key -> (kernel, ROADMAP.md item)
@@ -58,14 +73,26 @@ UNPORTED = {
     "c2r_dense_mid": ("rfft.py::_c2r_dense_kernel", "K21"),
     "rfft_nat_wide": ("rfft.py::_r2c_kernel_nat / _c2r_kernel_nat with a "
                       "half length outside 128 * {2, 4, 8, 16}", "K1b"),
+    "r2c_packed_mid": ("rfft.py::_r2c_kernel_packed_mid", "K18"),
+    "dct1_mid": ("rfft.py::_dct1_kernel_mid", "K19"),
+    "dct2_mid": ("dct.py::_dct2_kernel_mid", "K25"),
+    "dct3_mid": ("dct.py::_dct3_kernel_mid", "K26"),
+    "dct23_blue_mid": ("fft.py::_kernel_axis_mid_blue_rr", "K12"),
+    "dct4_mid": ("dct.py::_dct4_kernel_mid", "K28"),
+    "dct_nat_wide": ("dct.py::_dct2_kernel / _dct3_kernel with a half length "
+                     "outside 128 * {1, 2, 4, 8, 16}", "K1b"),
 }
 
 # the JAX package's TPU gates
 _MIN_COLS = 128          # api._mid_dims
 _MIN_BATCH = 128         # engine.c2c / r2c / c2r
 _MAX_N = 65536           # fft._MAX_N
+_VMEM_MAX_N = int(0.8 * 100 * 1024 * 1024) // (8 * 128 * 4)  # fft._LIVE_COPIES bound
 _FOURSTEP_MAX_N = 1 << 22
 _DENSE_RFFT_MAX = 1100   # rfft._DENSE_RFFT_MAX
+_DENSE_DCT_MAX = 1100    # dct._DENSE_DCT_MAX
+_BLUE_MAX_M = 16384      # fft._BLUE_MAX_M
+_BLUE_VMEM_M = int(0.8 * 100 * 1024 * 1024) // (12 * 128 * 4)   # fft.blue_mid_supported
 
 
 def _check_size(got: int, expected: int, what: str = "fft"):
@@ -124,8 +151,9 @@ def _lane_factor(n: int):
 
 
 def _kernel_ok(n: int) -> bool:
-    """fft.pallas_supported for a float32 Cooley-Tukey plan."""
-    if factorize(n) is None or n < 2 or n > _MAX_N:
+    """fft.pallas_supported for a float32 Cooley-Tukey plan (n <= 20480,
+    its VMEM working-set bound)."""
+    if factorize(n) is None or n < 2 or n > min(_MAX_N, _VMEM_MAX_N):
         return False
     f = _lane_factor(n)
     return f is not None and not (n > 1024 and f % 8)
@@ -164,15 +192,37 @@ def _nat_f(n: int):
     return None
 
 
+def _ts_ok(n: int) -> bool:
+    """A {128, 256} twostep split of n with m <= 128 (dct_pallas_supported's
+    and dct4_mid_supported's split test)."""
+    ts = _twostep_split(n)
+    return ts is not None and ts[0] <= MAX_BASE_RADIX
+
+
+def _blue_mid_ok(n: int) -> bool:
+    """fft.blue_mid_supported for a Bluestein length n (blue_kernel_M and the
+    kernel's VMEM bound)."""
+    need = 2 * n - 1
+    big = -(-need // 128) * 128
+    return need <= 256 or big <= min(_BLUE_MAX_M, _BLUE_VMEM_M)
+
+
 def _lane_c2c(n: int, batch: int) -> str:
     """Route of a float32 C2C along the last axis of (batch, n)
-    (engine.c2c): four-step, lane-last kernels, or the engine."""
-    if n > _MAX_N:
+    (engine.c2c): four-step beyond the single kernel's range, lane-last
+    kernels, or the engine."""
+    if n > min(_MAX_N, _VMEM_MAX_N):
         ok = n <= _FOURSTEP_MAX_N and _fourstep_split(n) is not None
         return "fourstep" if ok else ENGINE
     if batch >= _MIN_BATCH and _kernel_ok(n):
         return "twostep" if n > 256 and _twostep_split(n) else "lane_last"
     return ENGINE
+
+
+def _lane_fft(n: int, batch: int) -> str:
+    """Route of the engine's C2C of length n over ``batch`` rows, Bluestein
+    lengths included."""
+    return "bluestein" if factorize(n) is None else _lane_c2c(n, batch)
 
 
 def _mid_dims(shape, axis):
@@ -187,24 +237,30 @@ def _mid_dims(shape, axis):
 
 def _route(kind: str, shape, axis: int, dtype: torch.dtype, device_type: str,
            n: int | None = None) -> str:
-    """The route of one call: C2C_AXIS_MID, R2C_NAT, C2R_NAT or ENGINE.
+    """The route of one call: one of the ported kernels' routes (C2C_AXIS_MID,
+    R2C_NAT, C2R_NAT, DCT_DENSE_MID, DCT2_NAT, DCT3_NAT) or ENGINE.
 
-    ``kind`` is "fft", "ifft", "r2c" or "c2r"; ``shape``, ``axis`` and
-    ``dtype`` are the input's; ``n`` is the real length of a "c2r" (default
-    2 * (m - 1)). On ``device_type == "cuda"`` a route through a Pallas
-    kernel that is not ported raises ``NotImplementedError``; on "cpu" it is
-    ENGINE. Other devices always take ENGINE."""
+    ``kind`` is "fft", "ifft", "r2c", "c2r", "dct1".."dct4" or
+    "dst1".."dst4"; ``shape``, ``axis`` and ``dtype`` are the input's; ``n``
+    is the real length of a "c2r" (default 2 * (m - 1)). On
+    ``device_type == "cuda"`` a route through a Pallas kernel that is not
+    ported raises ``NotImplementedError``; on "cpu" it is ENGINE. Other
+    devices always take ENGINE."""
     shape = tuple(shape)
     axis = _norm_axis(axis, len(shape))
-    if n is None:
-        n = shape[axis] if kind != "c2r" else 2 * (shape[axis] - 1)
-    if factorize(n) is None:
-        route = "bluestein"
-    elif dtype not in (torch.float32, torch.complex64):
-        route = ENGINE
+    if kind in _R2R_KINDS:
+        n = shape[axis]
+        route = ENGINE if dtype != torch.float32 else _route_r2r(kind, shape, axis, n)
     else:
-        route = _route_f32(kind, shape, axis, n)
-    if route in (C2C_AXIS_MID, R2C_NAT, C2R_NAT, ENGINE):
+        if n is None:
+            n = shape[axis] if kind != "c2r" else 2 * (shape[axis] - 1)
+        if factorize(n) is None:
+            route = "bluestein"
+        elif dtype not in (torch.float32, torch.complex64):
+            route = ENGINE
+        else:
+            route = _route_f32(kind, shape, axis, n)
+    if route in _RUNNABLE:
         return route if device_type in ("cuda", "cpu") else ENGINE
     if device_type == "cuda":
         kernel, item = UNPORTED[route]
@@ -254,6 +310,75 @@ def _route_f32(kind, shape, axis, n):
             return C2R_NAT if f in _kfft.CORE_F else "rfft_nat_wide"
         return _lane_c2c(n, batch)
     raise ValueError(f"unknown transform kind {kind!r}")
+
+
+def _packed_lane(h: int, batch: int) -> str:
+    """Route of engine.r2c_packed with half length h (DCT-I: h = n - 1,
+    DST-I: h = n + 1): kernel 15 at batch >= 128, else the inner C2C."""
+    if batch >= _MIN_BATCH and _kernel_ok(h):
+        return "r2c_packed"
+    return _lane_fft(h, batch)
+
+
+def _dct_lane(t: int, n: int, batch: int) -> str:
+    """Route of the DCT-<t> lowering along the last axis of (batch, n)
+    (ops/dct.py of the JAX package): kernels 23/24 for DCT-II/III at
+    batch >= 128 and dct_pallas_supported(n), else the inner FFT's route."""
+    if t == 1:
+        return _packed_lane(n - 1, batch) if n >= 2 else ENGINE
+    if n == 1:
+        return ENGINE
+    if t in (2, 3) and batch >= _MIN_BATCH and n % 2 == 0 and _ts_ok(n):
+        h = n // 2
+        if h % _kfft.M == 0 and h // _kfft.M in _kdct.DCT_F:
+            return DCT2_NAT if t == 2 else DCT3_NAT
+        return "dct_nat_wide"
+    if factorize(n) is None:
+        return "bluestein"
+    if t == 2:
+        # kernel 2 never serves here: every n whose half length it takes
+        # passed the kernel-23 gate above
+        return _route_f32("r2c", (batch, n), 1, n)
+    return _lane_c2c(n, 2 * batch if t == 4 else batch)
+
+
+def _route_r2r(kind, shape, axis, n):
+    """Route of a float32 DCT or DST (the gates of the JAX package's
+    _dct_impl and _dst_impl, in their order). DST-2/3/4 take the same-type
+    DCT's route; DST-1 has its own."""
+    t = int(kind[3])
+    dims = _mid_dims(shape, axis)
+    batch = math.prod(shape) // max(n, 1)
+    if kind == "dst1":
+        if dims is not None and _nat_f(2 * n + 2) is not None:
+            return "r2c_packed_mid"
+        return _packed_lane(n + 1, batch)
+    if dims is not None:
+        if 2 <= n <= _DENSE_DCT_MAX:
+            return DCT_DENSE_MID
+        if t == 1:
+            if n % 2 and n >= 5 and _nat_f(2 * (n - 1)) is not None:
+                return "dct1_mid"
+            if _nat_f(2 * n - 2) is not None:
+                return "r2c_packed_mid"
+        elif t in (2, 3):
+            if n % 2 == 0 and _ts_ok(n):
+                return "dct2_mid" if t == 2 else "dct3_mid"
+            if factorize(n) is None and _blue_mid_ok(n):
+                return "dct23_blue_mid"
+        elif n % 2 == 0:
+            if _ts_ok(n // 2):
+                return "dct4_mid"
+            m = n // 2
+            if factorize(m) is not None and _kernel_ok(m):
+                # the JAX package's half-length C2C composite (its
+                # api.py:512-546); kernel 1's m = 512/1024/2048 never
+                # reaches here (those n take K28)
+                return _route_f32("fft", shape[:axis] + (m,) + shape[axis + 1:],
+                                  axis, m)
+            if factorize(m) is None and _blue_mid_ok(m):
+                return "bluestein"
+    return _dct_lane(t, n, batch)
 
 
 # --------------------------------------------------------------------------
@@ -359,13 +484,88 @@ def _c2r_impl(xhat, handler, axis):
     return y.movedim(-1, axis)
 
 
+def _dct_scale(norm):
+    """The policy's scalar, applied to the input before a DCT or DST and
+    folded into the constants: Default x2 (scipy's values), scalar v, NONE
+    None (the rustdct convention)."""
+    if norm.kind == "default":
+        return 2.0
+    if norm.kind == "scalar":
+        return norm.value
+    return None
+
+
+def _dct_impl(x, handler, axis, dct_type):
+    axis = _norm_axis(axis, x.ndim)
+    _check_size(x.shape[axis], handler.n, what="dct")
+    if x.is_complex():
+        raise TypeError("nddct expects a real input array")
+    if handler.norm.kind == "custom":
+        # the policy applies to the input before the transform
+        x2 = _apply_custom(handler.norm.fn, x, axis)
+        return _dct_impl(x2, _unnormalized(handler), axis, dct_type)
+    _check_grad(x)
+    n = handler.n
+    kind = f"dct{dct_type}"
+    route = _route(kind, x.shape, axis, x.dtype, x.device.type)
+    _plan_log(kind, n, axis, route)
+    scale = _dct_scale(handler.norm)
+    if route == DCT_DENSE_MID:
+        nb, cols = _mid_dims(x.shape, axis)
+        y = _kdct.dct_dense_mid(x.reshape(nb, n, cols).contiguous(), dct_type, scale)
+        return y.reshape(x.shape)
+    xm = x.movedim(axis, -1)
+    if route in (DCT2_NAT, DCT3_NAT):
+        fn = _kdct.dct2_nat if route == DCT2_NAT else _kdct.dct3_nat
+        y = fn(xm.reshape(-1, n).contiguous(), scale).reshape(xm.shape)
+    else:
+        y = _dct.DCT_FNS[dct_type](xm, scale)
+    return y.movedim(-1, axis)
+
+
+def _dst_impl(x, handler, axis, dst_type):
+    """DST-1..4 along ``axis``. Types 2-4 are flip/sign conjugations of the
+    same-type DCT along the original axis, so they take its routes and
+    kernels; DST-1 runs the packed odd-extension lowering."""
+    axis = _norm_axis(axis, x.ndim)
+    n = handler.n
+    _check_size(x.shape[axis], n, what="dst")
+    if x.is_complex():
+        raise TypeError("nddst expects a real input array")
+    norm = handler.norm
+    if norm.kind == "custom":
+        # on the original input, before the conjugation
+        x2 = _apply_custom(norm.fn, x, axis)
+        return _dst_impl(x2, _unnormalized(handler), axis, dst_type)
+    if dst_type == 1:
+        _check_grad(x)
+        route = _route("dst1", x.shape, axis, x.dtype, x.device.type)
+        _plan_log("dst1", n, axis, route)
+        return _dst.dst1(x.movedim(axis, -1), _dct_scale(norm)).movedim(-1, axis)
+    shape = [1] * x.ndim
+    shape[axis] = n
+    alt = _dst.alt_tensor(n, x.dtype, x.device).reshape(shape)
+    dh = DctHandler(n).normalization(norm)
+    if dst_type == 2:
+        return _dct_impl(x * alt, dh, axis, 2).flip(axis)
+    return _dct_impl(x.flip(axis), dh, axis, dst_type) * alt
+
+
 # --------------------------------------------------------------------------
 # Public functions
 # --------------------------------------------------------------------------
 
 
 def _as_tensor(x) -> torch.Tensor:
-    return x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+    """A tensor keeps its device; anything else goes to the CUDA device."""
+    if isinstance(x, torch.Tensor):
+        return x
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "ndrustfft_tpu_torch: a non-tensor input goes to the CUDA device "
+            "(torch.device('cuda')), and there is none; pass a torch.Tensor "
+            "on the CPU to run there")
+    return torch.as_tensor(x, device="cuda")
 
 
 def _prep_complex(x):
@@ -418,3 +618,26 @@ def ndifft_r2c(x, handler: R2cFftHandler | None = None, axis: int = -1,
         m = x.shape[_norm_axis(axis, x.ndim)]
         handler = _auto_handler(R2cFftHandler, n if n is not None else 2 * (m - 1))
     return _c2r_impl(x, handler, axis)
+
+
+def _make_r2r(family: str, t: int, impl, handler_cls):
+    def f(x, handler=None, axis: int = -1):
+        x = _prep_real(x)
+        h = handler or _auto_handler(handler_cls, x.shape[_norm_axis(axis, x.ndim)])
+        return impl(x, h, axis, t)
+
+    roman = ("I", "II", "III", "IV")[t - 1]
+    f.__name__ = f.__qualname__ = f"nd{family}{t}"
+    f.__doc__ = (
+        f"Real-to-real {family.upper()}-{roman} along ``axis``. With the Default "
+        f"normalization (applied to the input, x2) the output equals "
+        f"scipy.fft.{family}(x, type={t}); with Normalization.NONE it is the "
+        f"rustdct convention (scipy / 2). ``handler=None`` plans for "
+        f"``x.shape[axis]``.")
+    return f
+
+
+nddct1, nddct2, nddct3, nddct4 = (_make_r2r("dct", t, _dct_impl, DctHandler)
+                                  for t in (1, 2, 3, 4))
+nddst1, nddst2, nddst3, nddst4 = (_make_r2r("dst", t, _dst_impl, DstHandler)
+                                  for t in (1, 2, 3, 4))

@@ -1,4 +1,5 @@
-// Shared n-leading DIF core of the three Hopper kernels (n = m * F, m = 128).
+// Shared n-leading DIF core of the Hopper FFT and DCT kernels (n = m * F,
+// m = 128).
 //
 // Replaces, for the CUDA port, the core that the JAX package's Pallas kernels
 // share: ndrustfft_tpu/ops/pallas/fft.py::_bts2_core with bfly_dft_leading
@@ -64,7 +65,7 @@ __device__ __forceinline__ int bitrev(int q) {
   return r;
 }
 
-// F-point DFT (F in {1, 2, 4, 8, 16}) of v in place, natural output order:
+// F-point DFT (F in {2, 4, 8, 16}) of v in place, natural output order:
 // radix-2 DIF levels with W_{2s}^k = exp(sign * 2 pi i k / (2s)), then the
 // bit-reversal permutation (the natural-order output of bfly_dft_leading).
 template <int F>
@@ -105,55 +106,67 @@ __device__ __forceinline__ void dft_leading(float2 (&v)[F], float sign) {
 // kRows == true:  element (t, c) at s[c * n + t]   (C contiguous rows, kernels 2-3)
 // wq: (F, m, m) complex constants in device memory, wq[(q*m + b)*m + p'].
 // All kThreads threads of the block must call it; it ends with a barrier.
+// For n = 128 (F = 1, the DCT kernels' n = 256 rows) stage 1 is the identity
+// and the block's threads split into G = 2 groups, each taking half of the
+// columns in stage 2; for n >= 256, G = 1 and every thread takes all C.
 template <int F, int C, bool kRows>
 struct Bts2 {
   static constexpr int N = F * kM;
   static constexpr int ST = kRows ? 1 : C;  // stride of the transform index
   static constexpr int SC = kRows ? N : 1;  // stride of the column index
-  static constexpr int P = N / kThreads;    // stage-2 (q, p') pairs per thread
-  static_assert(N % kThreads == 0, "n must be a multiple of the block size");
+  static constexpr int G = N >= kThreads ? 1 : kThreads / N;  // column groups
+  static constexpr int P = N * G / kThreads;  // stage-2 (q, p') pairs per thread
+  static constexpr int CG = (C + G - 1) / G;  // columns per group
+  static_assert((N * G) % kThreads == 0, "n must divide or be a multiple of the block size");
   static_assert(N * C <= kSmemElems, "tile exceeds the shared-memory budget");
 
   __device__ static void run(float2* s, const float2* __restrict__ wq,
                              float sign) {
-    // stage 1: F-point DFT over the leading planes a, for each (b, c)
-    for (int idx = threadIdx.x; idx < kM * C; idx += kThreads) {
-      const int b = kRows ? idx % kM : idx / C;
-      const int c = kRows ? idx / kM : idx % C;
-      float2 v[F];
+    if constexpr (F > 1) {
+      // stage 1: F-point DFT over the leading planes a, for each (b, c)
+      for (int idx = threadIdx.x; idx < kM * C; idx += kThreads) {
+        const int b = kRows ? idx % kM : idx / C;
+        const int c = kRows ? idx / kM : idx % C;
+        float2 v[F];
 #pragma unroll
-      for (int a = 0; a < F; ++a) v[a] = s[(a * kM + b) * ST + c * SC];
-      dft_leading<F>(v, sign);
+        for (int a = 0; a < F; ++a) v[a] = s[(a * kM + b) * ST + c * SC];
+        dft_leading<F>(v, sign);
 #pragma unroll
-      for (int q = 0; q < F; ++q) s[(q * kM + b) * ST + c * SC] = v[q];
+        for (int q = 0; q < F; ++q) s[(q * kM + b) * ST + c * SC] = v[q];
+      }
+      __syncthreads();
     }
-    __syncthreads();
     // stage 2: per-q dense product b -> p' with the folded constants
-    float2 acc[P][C];
+    const int lane = G == 1 ? (int)threadIdx.x : (int)threadIdx.x % N;
+    const int c0 = G == 1 ? 0 : ((int)threadIdx.x / N) * CG;
+    float2 acc[P][CG];
 #pragma unroll
     for (int j = 0; j < P; ++j) {
-      const int idx = j * kThreads + threadIdx.x;
+      const int idx = j * kThreads + lane;
       const int q = idx / kM;
       const int p = idx % kM;
 #pragma unroll
-      for (int c = 0; c < C; ++c) acc[j][c] = make_float2(0.f, 0.f);
+      for (int c = 0; c < CG; ++c) acc[j][c] = make_float2(0.f, 0.f);
       const float2* __restrict__ w = wq + (size_t)q * kM * kM + p;
       const float2* y = s + q * kM * ST;
 #pragma unroll 4
       for (int b = 0; b < kM; ++b) {
         const float2 wv = __ldg(w + b * kM);
 #pragma unroll
-        for (int c = 0; c < C; ++c) cmac(acc[j][c], y[b * ST + c * SC], wv);
+        for (int c = 0; c < CG; ++c)
+          if (G == 1 || c0 + c < C)
+            cmac(acc[j][c], y[b * ST + (c0 + c) * SC], wv);
       }
     }
     __syncthreads();
     // exit: the (p', q) order IS k = q + F*p'
 #pragma unroll
     for (int j = 0; j < P; ++j) {
-      const int idx = j * kThreads + threadIdx.x;
+      const int idx = j * kThreads + lane;
       const int k = idx / kM + F * (idx % kM);
 #pragma unroll
-      for (int c = 0; c < C; ++c) s[k * ST + c * SC] = acc[j][c];
+      for (int c = 0; c < CG; ++c)
+        if (G == 1 || c0 + c < C) s[k * ST + (c0 + c) * SC] = acc[j][c];
     }
     __syncthreads();
   }

@@ -1,6 +1,8 @@
-"""Plan-caching handlers: ``FftHandler`` and ``R2cFftHandler``.
+"""Plan-caching handlers: ``FftHandler``, ``R2cFftHandler``, ``DctHandler``
+and ``DstHandler``.
 
-Construction builds the transform plans for length ``n`` eagerly;
+Construction of an FFT handler builds its plans for length ``n`` eagerly;
+the DCT and DST handlers plan their FFT schedules at first use.
 ``.normalization(...)`` returns a new handler with another policy. Handlers
 are immutable and hash by (type, n, normalization), as in the JAX package.
 """
@@ -80,3 +82,15 @@ class R2cFftHandler(_HandlerBase):
         self.m = n // 2 + 1
         get_r2c_plan(n)
         get_c2c_plan(n, +1)
+
+
+class DctHandler(_HandlerBase):
+    """DCT-1/2/3/4 for axis length n; one handler serves all four types.
+    The policy applies to the input before the transform; Default (x2)
+    gives scipy.fft.dct's values, Normalization.NONE the rustdct convention
+    (scipy / 2)."""
+
+
+class DstHandler(_HandlerBase):
+    """DST-1/2/3/4 for axis length n, with :class:`DctHandler`'s policy
+    rules (Default gives scipy.fft.dst's values)."""

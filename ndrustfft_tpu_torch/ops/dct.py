@@ -1,0 +1,134 @@
+"""DCT types 1-4 lowered to the torch engine's FFTs (the JAX package's
+``ops/dct.py`` without its Pallas branches).
+
+Each type is lowered with pre/post twiddles in the rustdct convention
+(scipy's unnormalized dct / 2; the Default normalization's x2 gives scipy's
+values):
+
+  DCT-I   y[k] = (x0 + (-1)^k x_{n-1})/2 + sum_{t=1}^{n-2} x_t cos(pi t k/(n-1))
+          == Re(FFT_{2n-2}(even extension))[k] / 2
+  DCT-II  y[k] = sum_t x_t cos(pi k (2t+1) / (2n))
+          == Re(e^{-i pi k/(2n)} FFT_n(Makhoul permutation of x)[k])
+  DCT-III y[k] = x0/2 + sum_{t>=1} x_t cos(pi t (2k+1) / (2n))
+          == unperm(Re(FFT_n(c e^{-i pi t/(2n)}))), c = x with x0 halved
+  DCT-IV  y[k] = sum_t x_t cos(pi (2k+1)(2t+1) / (4n))
+          == two n-point FFTs of pre-modulated copies, post-twiddled
+
+All transforms run batched along the LAST axis of real tensors, in float32
+or float64; ``scale`` multiplies the result and rides the constants. These
+are the routes for float64, small batches and CPU tensors; on a CUDA tensor
+the API sends each shape that the JAX package gives a Pallas kernel to the
+ported kernel or raises (``api._route``).
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from ..plan import _cis, get_c2c_plan, get_r2c_plan
+from .engine import c2c, const, r2c, r2c_packed
+
+
+def _cplx(x: torch.Tensor) -> torch.dtype:
+    return torch.complex128 if x.dtype == torch.float64 else torch.complex64
+
+
+@lru_cache(maxsize=512)
+def _half_twiddle(n: int):
+    """e^{-i pi k/(2n)}, k = 0..n-1 (the DCT-II post and DCT-III pre twiddle)."""
+    return _cis(np.arange(n, dtype=np.int64), 2 * n, -1)
+
+
+def evenodd_perm(x: torch.Tensor) -> torch.Tensor:
+    """Makhoul permutation [x0, x2, .., x_odd descending] along the last axis."""
+    return torch.cat([x[..., 0::2], x[..., 1::2].flip(-1)], dim=-1)
+
+
+def evenodd_unperm(u: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`evenodd_perm`: z[2t] = u[t], z[2t+1] = u[n-1-t]."""
+    n = u.shape[-1]
+    ceil = (n + 1) // 2
+    evens = u[..., :ceil]
+    odds = u[..., ceil:].flip(-1)
+    if n % 2:
+        odds = torch.cat([odds, odds[..., :1]], dim=-1)  # dummy slot
+    z = torch.stack([evens, odds], dim=-1).reshape(u.shape[:-1] + (2 * ceil,))
+    return z[..., :n]
+
+
+def dct1(x: torch.Tensor, scale=None) -> torch.Tensor:
+    """(..., n) real -> scale * DCT-I; requires n >= 2. The even extension's
+    even/odd sample streams feed the packed half-size R2C directly."""
+    n = x.shape[-1]
+    if n < 2:
+        raise ValueError(f"DCT-I requires length >= 2, got {n}")
+    xe = torch.cat([x[..., 0::2], x[..., 2:n - 1:2].flip(-1)], dim=-1)
+    xo = torch.cat([x[..., 1::2], x[..., 1:n - 2 + (n % 2):2].flip(-1)], dim=-1)
+    spec = r2c_packed(xe, xo, get_r2c_plan(2 * n - 2))   # m = n bins exactly
+    return (0.5 if scale is None else 0.5 * scale) * spec.real
+
+
+def dct2(x: torch.Tensor, scale=None) -> torch.Tensor:
+    """(..., n) real -> scale * DCT-II (Makhoul, one n-point R2C)."""
+    n = x.shape[-1]
+    s = 1.0 if scale is None else scale
+    if n == 1:
+        return x * s if scale is not None else x
+    m = n // 2 + 1
+    v = r2c(evenodd_perm(x), get_r2c_plan(n))
+    full = torch.cat([v, v[..., 1:n - m + 1].flip(-1).conj()], dim=-1)
+    w = _half_twiddle(n)
+    return (full * const((w[0] * s, w[1] * s), full.dtype, x.device)).real
+
+
+def dct3(x: torch.Tensor, scale=None) -> torch.Tensor:
+    """(..., n) real -> scale * DCT-III (x0 halved), the transpose of the
+    Makhoul DCT-II: one n-point complex FFT."""
+    n = x.shape[-1]
+    s = 1.0 if scale is None else scale
+    if n == 1:
+        return (0.5 * s) * x
+    pre = _half_twiddle(n)
+    c = torch.cat([x[..., :1] * 0.5, x[..., 1:]], dim=-1)
+    u = c * const((pre[0] * s, pre[1] * s), _cplx(x), x.device)
+    return evenodd_unperm(c2c(u, get_c2c_plan(n, -1)).real)
+
+
+@lru_cache(maxsize=512)
+def _dct4_consts(n: int):
+    t = np.arange(n, dtype=np.int64)
+    pre_a = _cis(t, 2 * n, -1)                       # e^{-i pi t/(2n)}
+    w = _cis(2 * t, 2 * n, -1)                       # e^{-i pi t/n}
+    pre_b = (pre_a[0] * w[0] - pre_a[1] * w[1],      # pre * w
+             pre_a[0] * w[1] + pre_a[1] * w[0])
+    ne, no = (n + 1) // 2, n // 2
+    post_e = _cis(4 * np.arange(ne, dtype=np.int64) + 1, 4 * n, -1)   # post[2j]
+    post_o = _cis(4 * np.arange(no, dtype=np.int64) + 3, 4 * n, -1)   # post[2j+1]
+    return pre_a, pre_b, post_e, post_o
+
+
+def dct4(x: torch.Tensor, scale=None) -> torch.Tensor:
+    """(..., n) real -> scale * DCT-IV: the 2n-point zero-padded lowering
+    folded into two n-point FFTs (even and odd output bins) in one call."""
+    n = x.shape[-1]
+    s = 1.0 if scale is None else scale
+    if n == 1:
+        return x * (np.cos(np.pi / 4) * s)
+    pre_a, pre_b, post_e, post_o = _dct4_consts(n)
+    cd = _cplx(x)
+    u = torch.stack([x * const(pre_a, cd, x.device),
+                     x * const(pre_b, cd, x.device)], dim=-2)     # (..., 2, n)
+    f = c2c(u, get_c2c_plan(n, -1))
+    ne, no = (n + 1) // 2, n // 2
+    ye = (f[..., 0, :ne] * const((post_e[0] * s, post_e[1] * s), cd, x.device)).real
+    yo = (f[..., 1, :no] * const((post_o[0] * s, post_o[1] * s), cd, x.device)).real
+    if no < ne:
+        yo = torch.cat([yo, yo[..., :1]], dim=-1)   # dummy slot
+    y = torch.stack([ye, yo], dim=-1).reshape(x.shape[:-1] + (2 * ne,))
+    return y[..., :n]
+
+
+DCT_FNS = {1: dct1, 2: dct2, 3: dct3, 4: dct4}

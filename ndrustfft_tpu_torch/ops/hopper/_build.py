@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, at first use, under
-``build/ndrustfft_tpu_torch/`` at the root of the checkout (or under
-``$NDRUSTFFT_TORCH_BUILD_DIR``). The library's name carries a hash of the
-sources, so an edited source is rebuilt. It is loaded with ``ctypes``; every
-pointer and the stream pass as ``c_void_p``.
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process for ``sm_90a``,
+all started together, and the objects are linked into one shared library
+with a plain C interface, at first use, under ``build/ndrustfft_tpu_torch/``
+at the root of the checkout (or under ``$NDRUSTFFT_TORCH_BUILD_DIR``). The
+library's name carries a hash of the sources, so an edited source is
+rebuilt. It is loaded with ``ctypes``; every pointer and the stream pass as
+``c_void_p``.
 
 A missing ``nvcc``, a failed build or a library that does not load raises:
 there is no other route for a CUDA tensor.
@@ -24,8 +25,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,6 +36,9 @@ _SIGNATURES = {
     "ndfft_c2c_axis_mid": [_P, _P, _P, _LL, _I, _LL, _I, _I, _P],
     "ndfft_r2c_nat": [_P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_c2r_nat": [_P, _P, _P, _P, _LL, _I, _I, _P],
+    "ndfft_dct_dense_mid": [_P, _P, _P, _LL, _I, _LL, _I, _P],
+    "ndfft_dct2_nat": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
+    "ndfft_dct3_nat": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -75,25 +79,42 @@ def library_path() -> Path:
     return build_dir() / f"libndfft_hopper_{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands as parallel processes; (cmd, returncode, output) each."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    return [(cmd, p.returncode, out) for cmd, p, out in zip(cmds, procs, outs)]
+
+
 def build() -> Path:
     """Compile the kernels if this source hash has no library yet; return
-    the library's path. The compiler's output goes to ``nvcc.log`` beside it."""
+    the library's path. The compilers' output goes to ``nvcc.log`` beside it."""
     global build_seconds
     out = library_path()
     if out.exists():
         return out
     cu, _ = _sources()
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *[str(p) for p in cu]]
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [out.parent / f"{tag}.{p.stem}.o" for p in cu]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+    results = _run_all([[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o),
+                         str(p)] for p, o in zip(cu, objs)])
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if all(rc == 0 for _, rc, _ in results):
+        results += _run_all([[nvcc, *ARCH, "-shared", "-o", str(tmp),
+                              *map(str, objs)]])
+    (out.parent / "nvcc.log").write_text("".join(
+        " ".join(cmd) + "\n" + text for cmd, _, text in results))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    failed = [(cmd, rc, text) for cmd, rc, text in results if rc != 0]
+    if failed:
+        cmd, rc, text = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {cmd[-1]}\n{text[-4000:]}")
     os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     return out

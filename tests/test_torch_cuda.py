@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import ndrustfft_tpu_torch as nd
+from ndrustfft_tpu_torch.ops.hopper import dct as kdct
 from ndrustfft_tpu_torch.ops.hopper import fft as kfft
 from ndrustfft_tpu_torch.ops.hopper import rfft as krfft
 
@@ -67,3 +68,34 @@ def test_unported_route_and_grad_raise(dev):
         nd.ndfft_r2c(torch.zeros(512, 512, device=dev, requires_grad=True), axis=1)
     y = nd.ndfft(torch.ones(4, 8, dtype=torch.complex128, device=dev), axis=1)
     assert abs(complex(y[0, 0]) - 8.0) < 1e-12      # complex128: the engine
+
+
+def test_dct_kernels_match_plain(dev):
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(2, 265, 130, generator=g, device=dev)
+    for t in (1, 2, 3, 4):
+        assert _rel(kdct.dct_dense_mid(x, t, 2.0), kdct.dct_dense_mid_plain(x, t, 2.0)) <= TOL
+    r = torch.randn(130, 1024, generator=g, device=dev)
+    assert _rel(kdct.dct2_nat(r, 2.0), kdct.dct2_nat_plain(r, 2.0)) <= TOL
+    assert _rel(kdct.dct3_nat(r, 0.5), kdct.dct3_nat_plain(r, 0.5)) <= TOL
+    r = torch.randn(7, 256, generator=g, device=dev)
+    assert _rel(kdct.dct2_nat(r), kdct.dct2_nat_plain(r)) <= TOL
+    assert _rel(kdct.dct3_nat(r), kdct.dct3_nat_plain(r)) <= TOL
+
+
+def test_dct_pair_runs_on_the_kernels(dev):
+    x = torch.randn(1024, 1024, device=dev)
+    h = nd.DctHandler(1024)
+    hi = h.normalization(nd.Normalization.scalar(1 / 1024))
+    fns = (kdct.dct_dense_mid, kdct.dct2_nat, kdct.dct3_nat)
+    before = [f.launches for f in fns]
+    y = nd.nddct2(nd.nddct2(x, h, axis=1), h, axis=0)
+    back = nd.nddct3(nd.nddct3(y, hi, axis=0), hi, axis=1)
+    assert [f.launches - b for f, b in zip(fns, before)] == [2, 1, 1]
+    assert _rel(back, x) <= 1e-5
+
+
+def test_unported_dct_route_raises(dev):
+    with pytest.raises(NotImplementedError, match="_dct2_kernel_mid"):
+        nd.nddct2(torch.zeros(2048, 128, device=dev), axis=0)
+    assert nd.nddct2([1.0, 2.0, 3.0]).device.type == "cuda"   # non-tensor input

@@ -1,0 +1,141 @@
+"""ndrustfft_tpu_torch.api._route for the DCT and DST kinds: which kernel
+each call takes on a CUDA tensor, which unported Pallas kernel a route
+raises for, and the gates against the JAX package's own gate functions.
+_route is pure, so no card and no memory is needed."""
+
+import pytest
+import torch
+
+import jax.numpy as jnp
+from ndrustfft_tpu import config as ref_config
+from ndrustfft_tpu import plan as ref_plan
+from ndrustfft_tpu.ops.pallas import dct as ref_pdct
+from ndrustfft_tpu.ops.pallas import fft as ref_pfft
+from ndrustfft_tpu.ops.pallas import rfft as ref_prfft
+
+from ndrustfft_tpu_torch import api
+
+torch.set_num_threads(1)
+
+F32, F64 = torch.float32, torch.float64
+
+
+@pytest.mark.parametrize("kind,shape,axis,want", [
+    # the reference's dct2d grid: DCT-I along axis 0 of n x n
+    ("dct1", (129, 129), 0, api.DCT_DENSE_MID),
+    ("dct1", (265, 265), 0, api.DCT_DENSE_MID),
+    ("dct1", (513, 513), 0, api.DCT_DENSE_MID),
+    ("dct1", (1025, 1025), 0, api.DCT_DENSE_MID),
+    # the 1024^2 DCT-II/III and DST-II/III pairs, DCT-IV along axis 0
+    ("dct2", (1024, 1024), 1, api.DCT2_NAT),
+    ("dct2", (1024, 1024), 0, api.DCT_DENSE_MID),
+    ("dct3", (1024, 1024), 0, api.DCT_DENSE_MID),
+    ("dct3", (1024, 1024), -1, api.DCT3_NAT),
+    ("dct4", (1024, 1024), 0, api.DCT_DENSE_MID),
+    ("dst2", (1024, 1024), 1, api.DCT2_NAT),
+    ("dst3", (1024, 1024), 0, api.DCT_DENSE_MID),
+    ("dst4", (1024, 1024), 0, api.DCT_DENSE_MID),
+    # every leg of the 512^3 Neumann solve
+    ("dct2", (512, 512, 512), 2, api.DCT2_NAT),
+    ("dct2", (512, 512, 512), 1, api.DCT_DENSE_MID),
+    ("dct2", (512, 512, 512), 0, api.DCT_DENSE_MID),
+    ("dct3", (512, 512, 512), 0, api.DCT_DENSE_MID),
+    ("dct3", (512, 512, 512), 1, api.DCT_DENSE_MID),
+    ("dct3", (512, 512, 512), 2, api.DCT3_NAT),
+    # the kernels' other sizes: n = 2 and odd n dense, K23/K24 at 256 and 4096
+    ("dct4", (2, 128), 0, api.DCT_DENSE_MID),
+    ("dct1", (3, 1100, 128), 1, api.DCT_DENSE_MID),
+    ("dct2", (128, 256), 1, api.DCT2_NAT),
+    ("dst3", (200, 4096), 1, api.DCT3_NAT),
+    # a middle axis with cols < 128 moves the axis last, as the JAX package does
+    ("dct2", (200, 512, 64), 1, api.DCT2_NAT),
+    # what the JAX package leaves to XLA runs the torch engine
+    ("dct2", (100, 512), 1, api.ENGINE),          # batch < 128
+    ("dct4", (60, 512), 1, api.ENGINE),            # 2 * 60 rows < 128
+    ("dct1", (100, 5), 1, api.ENGINE),
+    ("dct1", (4, 1), 1, api.ENGINE),               # n = 1: the lowering raises
+    ("dct3", (300, 1), 1, api.ENGINE),
+    ("dct2", (512, 100), 0, api.ENGINE),           # cols < 128 and batch < 128
+    ("dst1", (100, 12), 1, api.ENGINE),
+])
+def test_route_on_cuda(kind, shape, axis, want):
+    assert api._route(kind, shape, axis, F32, "cuda") == want
+
+
+@pytest.mark.parametrize("kind", [f"{f}{t}" for f in ("dct", "dst") for t in (1, 2, 3, 4)])
+def test_float64_takes_the_engine(kind):
+    assert api._route(kind, (1024, 1024), 0, F64, "cuda") == api.ENGINE
+    assert api._route(kind, (1024, 1024), 1, F64, "cuda") == api.ENGINE
+
+
+@pytest.mark.parametrize("kind,shape,axis,kernel,item", [
+    ("dct2", (2048, 128), 0, "_dct2_kernel_mid", "K25"),
+    ("dst2", (1152, 200), 0, "_dct2_kernel_mid", "K25"),
+    ("dct3", (4096, 128), 0, "_dct3_kernel_mid", "K26"),
+    ("dct2", (2053, 128), 0, "_kernel_axis_mid_blue_rr", "K12"),
+    ("dct3", (1109, 128), 0, "_kernel_axis_mid_blue_rr", "K12"),
+    ("dct1", (1153, 128), 0, "_dct1_kernel_mid", "K19"),
+    ("dct1", (2049, 256), 0, "_dct1_kernel_mid", "K19"),
+    ("dst1", (1023, 128), 0, "_r2c_kernel_packed_mid", "K18"),
+    ("dct4", (2048, 128), 0, "_dct4_kernel_mid", "K28"),
+    ("dst4", (1200, 128), 0, "_kernel_axis_mid", "K6"),           # composite, m = 600
+    ("dct4", (2 * 1031, 128), 0, "_kernel_axis_mid_blue", "K11"),  # composite, m prime
+    ("dct2", (128, 384), 1, "_dct2_kernel / _dct3_kernel", "K1b"),
+    ("dct3", (128, 128), 1, "_dct2_kernel / _dct3_kernel", "K1b"),
+    ("dct2", (128, 8192), 1, "_dct2_kernel / _dct3_kernel", "K1b"),
+    ("dct1", (256, 513), 1, "_r2c_kernel", "K15"),
+    ("dst1", (256, 511), 1, "_r2c_kernel", "K15"),
+    ("dct1", (256, 1025), 1, "_r2c_kernel", "K15"),               # h = 1024
+    ("dct4", (64, 1024), 1, "_kernel_twostep", "K10"),            # 2 * 64 rows
+    ("dct4", (256, 32768), 1, "_kernel_exit_mul", "K7"),          # four-step
+    ("dct3", (256, 200), 1, "_kernel_lane_last", "K8"),
+    ("dct4", (64, 1000), 1, "_kernel_lane_last", "K8"),           # 2 * 64 rows
+    ("dct2", (256, 300), 1, "_r2c_kernel", "K15"),                # r2c of even n
+    ("dct2", (256, 301), 1, "_kernel_lane_last", "K8"),           # odd: row pairs
+    ("dct2", (1200, 1100), 0, "_r2c_kernel", "K15"),              # mid, n > 1100
+    ("dct3", (256, 263), 1, "_kernel_axis_mid_blue", "K11"),      # Bluestein n
+])
+def test_unported_route_raises_on_cuda(kind, shape, axis, kernel, item):
+    with pytest.raises(NotImplementedError, match=kernel) as exc:
+        api._route(kind, shape, axis, F32, "cuda")
+    assert f"ROADMAP.md item {item})" in str(exc.value)
+    assert api._route(kind, shape, axis, F32, "cpu") == api.ENGINE
+
+
+def test_dct_routes_never_take_the_fft_kernels():
+    """K1-K3 serve no DCT/DST route: every length whose DCT route would
+    reach them takes K23/K24/K28 first (api._dct_lane, _route_r2r)."""
+    for n in range(2, 5000, 3):
+        for kind in ("dct1", "dct2", "dct3", "dct4", "dst1"):
+            for shape, axis in (((n, 256), 0), ((256, n), 1)):
+                try:
+                    route = api._route(kind, shape, axis, F32, "cuda")
+                except NotImplementedError:
+                    continue
+                assert route in (api.DCT_DENSE_MID, api.DCT2_NAT, api.DCT3_NAT,
+                                 api.ENGINE), (kind, shape, axis, route)
+
+
+@pytest.fixture
+def _jax_gates():
+    old = ref_config.pallas_interpret
+    ref_config.pallas_interpret = True   # the gates' backend test passes on the CPU
+    yield
+    ref_config.pallas_interpret = old
+
+
+def test_gates_match_the_jax_package(_jax_gates):
+    f32 = jnp.float32
+    for n in list(range(2, 1300)) + [2048, 2049, 2053, 4096, 4097, 8192, 16384, 32768,
+                                     32770, 65536]:
+        assert (n % 2 == 0 and api._ts_ok(n)) == ref_pdct.dct_pallas_supported(n, f32), n
+        if n >= 4 and n % 2 == 0:
+            assert api._ts_ok(n // 2) == ref_pdct.dct4_mid_supported(n, f32), n
+        assert (2 <= n <= api._DENSE_DCT_MAX) == ref_pdct.dct_dense_mid_supported(n, f32)
+        want_k19 = ref_prfft.dct1_mid_supported(n, f32)
+        assert (n % 2 == 1 and n >= 5 and api._nat_f(2 * (n - 1)) is not None) == want_k19
+        plan = ref_plan.get_c2c_plan(n, -1)
+        if plan.kind == "bluestein":
+            assert api._blue_mid_ok(n) == ref_pfft.blue_mid_supported(plan, f32), n
+        else:
+            assert api._kernel_ok(n) == ref_pfft.pallas_supported(plan, f32), n

@@ -143,3 +143,40 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("NDRUSTFFT_TORCH_BUILD_DIR", str(tmp_path / "build"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
+
+
+def _fake_nvcc(tmp_path, fail_on=None):
+    """A stand-in nvcc that writes its -o target (and fails on one source)."""
+    script = tmp_path / "bin" / "nvcc"
+    script.parent.mkdir()
+    fail = f'case "$*" in *{fail_on}*) echo "error in {fail_on}"; exit 2;; esac\n' if fail_on else ""
+    script.write_text('#!/bin/sh\n' + fail + 'while [ $# -gt 0 ]; do\n'
+                      '  if [ "$1" = "-o" ]; then shift; echo built > "$1"; fi; shift\n'
+                      'done\necho "ptxas info    : Used 32 registers"\n')
+    script.chmod(0o755)
+    return script.parent
+
+
+def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
+    from ndrustfft_tpu_torch.ops.hopper import _build
+
+    monkeypatch.setenv("PATH", str(_fake_nvcc(tmp_path)))
+    monkeypatch.setenv("NDRUSTFFT_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    out = _build.build()
+    assert out == _build.library_path() and out.read_text() == "built\n"
+    lines = [ln for ln in (out.parent / "nvcc.log").read_text().splitlines()
+             if ln.startswith(str(tmp_path))]
+    cu = sorted(p.name for p in _build.CSRC.glob("*.cu"))
+    assert sorted(ln.split()[-1].rsplit("/", 1)[-1] for ln in lines[:-1]) == cu
+    assert " -c " in lines[0] and " -shared " in lines[-1]
+    assert sorted(p.name for p in out.parent.iterdir()) == sorted([out.name, "nvcc.log"])
+
+
+def test_build_failure_names_the_source(monkeypatch, tmp_path):
+    from ndrustfft_tpu_torch.ops.hopper import _build
+
+    monkeypatch.setenv("PATH", str(_fake_nvcc(tmp_path, fail_on="dct_nat.cu")))
+    monkeypatch.setenv("NDRUSTFFT_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="dct_nat.cu"):
+        _build.build()
+    assert not _build.library_path().exists()

@@ -139,3 +139,9 @@ def test_package_never_imports_jax():
             "('jax', 'jaxlib', 'ndrustfft_tpu')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True,
                    cwd=str(PKG.parent), timeout=120)
+
+
+def test_chip_smoke_never_imports_jax():
+    mods = list(_imports(PKG.parent / "chip_smoke.py"))
+    assert "torch" in mods
+    assert not [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "ndrustfft_tpu")]

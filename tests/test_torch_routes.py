@@ -78,7 +78,7 @@ def test_kernel_routes_stand_on_cpu_and_other_devices_take_the_engine():
 
 def test_route_rejects_unknown_kind_and_axis():
     with pytest.raises(ValueError):
-        api._route("dct2", (512, 512), 0, F32, "cuda")
+        api._route("dct5", (512, 512), 0, F32, "cuda")
     with pytest.raises(ValueError, match="out of bounds"):
         api._route("fft", (512, 512), 2, C64, "cuda")
 
