@@ -9,7 +9,7 @@ without the final line):
   2. build the CUDA kernels from ndrustfft_tpu_torch/csrc (nvcc, sm_90a);
   3. each kernel against its plain PyTorch version on the card, at the
      slices' shapes (ragged column and row tiles included);
-  4. two main paths through the public functions, each with every launch
+  4. the main paths through the public functions, each with every launch
      counter set to 0 just before it and read just after; the counters
      must account for every leg and the torch engine must not run:
      a. the real spectral step through ndfft_r2c / ndfft / ndifft /
@@ -23,18 +23,25 @@ without the final line):
         division by the cosine-basis eigenvalues, DCT-III back) against a
         float64 torch.fft Makhoul lowering (oracle only) and the analytic
         solution;
+     c. the complex n-D transform through ndfft / ndifft: ndfft along every
+        axis and ndifft back (Default normalization) of 1024^2, 256^3 and
+        512^3 complex64 fields, and the reference's fft2d protocol (C2C
+        along axis 0 of n x n, n = 128, 264, 512, 1024), against
+        torch.fft.fftn in complex128 (oracle only), with the round trip;
   5. times with CUDA events (median over --reps runs after warm-up): each
      kernel against its plain version and, where one PyTorch call computes
      the same function, that call (the yardstick, never on the port's
-     path); the steps against torch.fft.rfftn / irfftn, and the DCT pair
-     and Poisson solve against the same compositions through a float32
-     torch.fft Makhoul lowering.
+     path); the steps against torch.fft.rfftn / irfftn, the DCT pair and
+     Poisson solve against the same compositions through a float32
+     torch.fft Makhoul lowering, and the complex paths against
+     torch.fft.fftn / ifftn.
 The kernels line gives each kernel's launches on its main path, its largest
 error against its plain version, its times, and its bound: the larger of
 the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its FP32 operations over 67 TFLOP/s (H100 SXM data
-sheet, 700 W). The line before the last is the card as nvidia-smi names it;
-the last line is {"ok": true, "device": {...}}.
+sheet, 700 W). Its launches are the sum over the main paths of phase 4.
+The line before the last is the card as nvidia-smi names it; the last line
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -90,7 +97,9 @@ def work(name: str, shape):
     """(bytes, FP32 operations) of one kernel call at ``shape``: inputs
     (constants included) read once, outputs written once; 5 n log2 n per
     complex and 2.5 n log2 n per real FFT of length n, the dense DCT's
-    2 n^2 per column."""
+    2 n^2 per column. The dense complex DFT (K4, K8) counts what the
+    function needs, a length-n FFT per column or row, not its product's
+    8 n^2."""
     if name == "c2c_axis_mid":
         b, n, cols = shape
         return 16 * b * n * cols + 8 * n * 128, 5 * n * math.log2(n) * b * cols
@@ -101,6 +110,13 @@ def work(name: str, shape):
     if name == "dct_dense_mid":
         b, n, cols = shape
         return 8 * b * n * cols + 4 * n * n, 2 * n * n * b * cols
+    if name == "c2c_rows":
+        t, n = shape
+        return 16 * t * n + 8 * n * 128, 5 * n * math.log2(n) * t
+    if name in ("c2c_dense_rows", "c2c_dense_mid"):
+        n = shape[-1] if name == "c2c_dense_rows" else shape[1]
+        outputs = math.prod(shape) // n
+        return 16 * outputs * n + 8 * n * n, 5 * n * math.log2(n) * outputs
     t, n = shape            # dct2_nat, dct3_nat
     return 8 * t * n + 8 * n * 64 + 16 * n, 2.5 * n * math.log2(n) * t
 
@@ -206,9 +222,11 @@ def main() -> int:
 
     # ---- 3. kernels against their plain versions
     errs = {"c2c_axis_mid": 0.0, "r2c_nat": 0.0, "c2r_nat": 0.0,
-            "dct_dense_mid": 0.0, "dct2_nat": 0.0, "dct3_nat": 0.0}
+            "dct_dense_mid": 0.0, "dct2_nat": 0.0, "dct3_nat": 0.0,
+            "c2c_rows": 0.0, "c2c_dense_rows": 0.0, "c2c_dense_mid": 0.0}
     k1_shapes = [(1, 512, 257), (1, 1024, 513), (3, 2048, 130), (512, 512, 257),
-                 (1, 512, 512 * 257)]
+                 (1, 512, 512 * 257), (1, 512, 512), (1, 1024, 1024), (512, 512, 512),
+                 (1, 512, 512 * 512)]
     for shape in k1_shapes:
         x = crandn(*shape)
         for sign, scale in ((-1, None), (+1, 1.0 / shape[1])):
@@ -246,8 +264,8 @@ def main() -> int:
         if not rel <= TOL_KERNEL:
             raise AssertionError(f"c2r_nat {(t, n)}: {rel}")
         del x, s, got, ref
-    for shape in ((1, 129, 129), (3, 265, 130), (1, 1025, 1025), (512, 512, 512),
-                  (1, 512, 512 * 512)):
+    for shape in ((1, 129, 129), (3, 265, 130), (1, 265, 265), (1, 513, 513),
+                  (1, 1024, 1024), (1, 1025, 1025), (512, 512, 512), (1, 512, 512 * 512)):
         x = randn(*shape)
         for t in (1, 2, 3, 4):
             got = kdct.dct_dense_mid(x, t, 2.0)
@@ -276,6 +294,34 @@ def main() -> int:
             del got, ref
         del x
 
+    # the complex transform's kernels: ragged rows and edges, then the main
+    # path's shapes (phase 4c)
+    c2c_checks = (
+        ("c2c_rows", kfft.c2c_rows, kfft.c2c_rows_plain,
+         ((130, 512), (128, 1024), (66, 2048), (1024, 1024), (512 * 512, 512))),
+        ("c2c_dense_rows", kfft.c2c_dense_rows, kfft.c2c_dense_rows_plain,
+         ((130, 128), (200, 200), (131, 256), (256 * 256, 256))),
+        ("c2c_dense_mid", kfft.c2c_dense_mid, kfft.c2c_dense_mid_plain,
+         ((1, 128, 128), (1, 264, 264), (3, 200, 257), (2, 500, 130), (256, 256, 256),
+          (1, 256, 256 * 256))),
+    )
+    for name, kern, plain, shapes in c2c_checks:
+        for shape in shapes:
+            x = crandn(*shape)
+            n = shape[-1] if x.dim() == 2 else shape[1]
+            for sign, scale in ((-1, None), (+1, None), (-1, 1.0 / n), (+1, 1.0 / n)):
+                got = kern(x, sign, scale)
+                ref = plain(x, sign, scale)
+                torch.cuda.synchronize()
+                rel = abs_err(got, ref) / float(ref.abs().max())
+                errs[name] = max(errs[name], abs_err(got, ref))
+                emit(phase="kernel_vs_plain", kernel=name, shape=shape, sign=sign,
+                     scale=scale, rel_err=rel)
+                if not rel <= TOL_KERNEL:
+                    raise AssertionError(f"{name} {shape} sign {sign} scale {scale}: {rel}")
+                del got, ref
+            del x
+
     # ---- 4a. the spectral step through the public functions
     def step2(x, hr, hc):
         vhat = nd.ndfft(nd.ndfft_r2c(x, hr, axis=1), hc, axis=0)
@@ -290,7 +336,9 @@ def main() -> int:
 
     wrappers = {"c2c_axis_mid": kfft.c2c_axis_mid, "r2c_nat": krfft.r2c_nat,
                 "c2r_nat": krfft.c2r_nat, "dct_dense_mid": kdct.dct_dense_mid,
-                "dct2_nat": kdct.dct2_nat, "dct3_nat": kdct.dct3_nat}
+                "dct2_nat": kdct.dct2_nat, "dct3_nat": kdct.dct3_nat,
+                "c2c_rows": kfft.c2c_rows, "c2c_dense_rows": kfft.c2c_dense_rows,
+                "c2c_dense_mid": kfft.c2c_dense_mid}
     engine_fns = (engine.c2c, engine.r2c, engine.c2r)
 
     def reset_counts():
@@ -299,15 +347,21 @@ def main() -> int:
         for f in engine_fns:
             f.calls = 0
 
-    def read_counts(path, expected):
+    launches = dict.fromkeys(wrappers, 0)   # the sum over the main paths
+
+    def read_counts(path, **expected):
+        """Check the launches since reset_counts() against ``expected`` (every
+        kernel not named: 0) and no engine call; add them to ``launches``."""
         torch.cuda.synchronize()
         got = {k: w.launches for k, w in wrappers.items()}
+        want = {k: expected.get(k, 0) for k in wrappers}
         engine_calls = sum(f.calls for f in engine_fns)
         emit(phase="main_path", path=path, launches=got, engine_calls=engine_calls)
-        if got != expected or engine_calls:
-            raise AssertionError(f"{path}: launches {got} (expected {expected}), "
+        if got != want or engine_calls:
+            raise AssertionError(f"{path}: launches {got} (expected {want}), "
                                  f"engine calls {engine_calls}")
-        return got
+        for k, v in got.items():
+            launches[k] += v
 
     inputs = {n: randn(n, n) for n in (512, 1024)}
     x3 = randn(512, 512, 512)
@@ -318,9 +372,7 @@ def main() -> int:
     h512r, h512c = nd.R2cFftHandler(512), nd.FftHandler(512)
     v3 = fwd3(x3, h512r, h512c)
     back3 = inv3(v3, h512r, h512c)
-    launches = read_counts("spectral_step", {
-        "c2c_axis_mid": 8, "r2c_nat": 3, "c2r_nat": 3,
-        "dct_dense_mid": 0, "dct2_nat": 0, "dct3_nat": 0})
+    read_counts("spectral_step", c2c_axis_mid=8, r2c_nat=3, c2r_nat=3)
     for n, x in inputs.items():
         vhat, back = outs[n]
         ref = torch.fft.rfftn(x.double())
@@ -412,10 +464,7 @@ def main() -> int:
     y4 = nd.nddct4(xp, hd, axis=0)
     spair = dst_pair(xp)
     fh3, u3 = poisson(f3)
-    dct_launches = read_counts("dct_family", {
-        "c2c_axis_mid": 0, "r2c_nat": 0, "c2r_nat": 0,
-        "dct_dense_mid": 4 + 5 + 4, "dct2_nat": 2 + 1, "dct3_nat": 2 + 1})
-    launches.update({k: dct_launches[k] for k in ("dct_dense_mid", "dct2_nat", "dct3_nat")})
+    read_counts("dct_family", dct_dense_mid=4 + 5 + 4, dct2_nat=2 + 1, dct3_nat=2 + 1)
     for n, y in grid_out.items():
         check("dct1_axis0", y, sfft.dct(host64(grid[n]), type=1, axis=0), grid=[n, n])
     x64 = host64(xp)
@@ -438,6 +487,64 @@ def main() -> int:
     del fh3, u3, u_exact
     torch.cuda.empty_cache()
 
+    # ---- 4c. the complex n-D transform through ndfft / ndifft on every axis
+    def fftn_all(x, hs):
+        for axis, h in enumerate(hs):
+            x = nd.ndfft(x, h, axis=axis)
+        return x
+
+    def ifftn_all(y, hs):
+        for axis in reversed(range(len(hs))):
+            y = nd.ndifft(y, hs[axis], axis=axis)
+        return y
+
+    def check_c2c(what, got, x, back, dims=None, **kw):
+        ref = torch.fft.fftn(x.to(torch.complex128), dim=dims)
+        fwd = rel_err(got, ref)
+        del ref
+        rt = abs_err(back, x) / float(x.abs().max())
+        emit(phase="c2c_path", check=what, fwd_rel_err=fwd, roundtrip_rel_err=rt,
+             finite=bool(torch.isfinite(torch.view_as_real(back)).all()),
+             shape=list(got.shape), **kw)
+        if not (fwd <= TOL_STEP and rt <= TOL_STEP):
+            raise AssertionError(f"{what} {kw}: fwd {fwd}, round trip {rt}")
+
+    # grid -> expected launches: 1024^2 K10 (F = 8) on axis 1 and K1 on
+    # axis 0; 256^3 K8 on axis 2 and K4 on axes 1 and 0; 512^3 K10 (F = 4)
+    # on axis 2 and K1 on axes 1 and 0
+    c2c_grids = {(1024, 1024): dict(c2c_rows=2, c2c_axis_mid=2),
+                 (256, 256, 256): dict(c2c_dense_rows=2, c2c_dense_mid=4),
+                 (512, 512, 512): dict(c2c_rows=2, c2c_axis_mid=4)}
+    c2c_inputs = {}
+    for grid_shape, expected in c2c_grids.items():
+        x = crandn(*grid_shape)
+        hs = [nd.FftHandler(n) for n in grid_shape]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()    # the input and earlier phases' tensors
+        reset_counts()
+        y = fftn_all(x, hs)
+        back = ifftn_all(y, hs)
+        read_counts("c2c_" + "x".join(map(str, grid_shape)), **expected)
+        peak = torch.cuda.max_memory_allocated()
+        check_c2c("fftn_ifftn", y, x, back, grid=list(grid_shape), peak_bytes=peak,
+                  base_bytes=base)
+        c2c_inputs[grid_shape] = x
+        del y, back
+        torch.cuda.empty_cache()
+
+    # the reference's fft2d protocol: forward C2C along axis 0 of n x n
+    # (K4 at 128 and 264, K1 at 512 and 1024); the inverse that checks the
+    # round trip runs after the counted window
+    fft2d_inputs = {n: crandn(n, n) for n in (128, 264, 512, 1024)}
+    reset_counts()
+    fft2d_out = {n: nd.ndfft(x, nd.FftHandler(n), axis=0) for n, x in fft2d_inputs.items()}
+    read_counts("fft2d", c2c_dense_mid=2, c2c_axis_mid=2)
+    for n, x in fft2d_inputs.items():
+        back = nd.ndifft(fft2d_out[n], nd.FftHandler(n), axis=0)
+        check_c2c("fft2d_axis0", fft2d_out[n], x, back, dims=(0,), grid=[n, n])
+    del fft2d_out
+
     # ---- 5. times: each kernel against its plain version and, at the main
     # path's shape, the PyTorch call that computes the same function (the
     # yardstick); the steps against torch.fft
@@ -445,7 +552,9 @@ def main() -> int:
     timing = {}
     main_shapes = {"c2c_axis_mid": (1, 512, 512 * 257), "r2c_nat": (512 * 512, 512),
                    "c2r_nat": (512 * 512, 257), "dct_dense_mid": (1, 512, 512 * 512),
-                   "dct2_nat": (512 * 512, 512), "dct3_nat": (512 * 512, 512)}
+                   "dct2_nat": (512 * 512, 512), "dct3_nat": (512 * 512, 512),
+                   "c2c_rows": (512 * 512, 512), "c2c_dense_rows": (256 * 256, 256),
+                   "c2c_dense_mid": (1, 256, 256 * 256)}
 
     def time_kernel(name, shape, kern, plain, library=None):
         t_plain = cuda_ms(plain, reps)
@@ -456,7 +565,8 @@ def main() -> int:
         emit(phase="time", kernel=name, shape=shape, ms=t_k, plain_ms=t_plain,
              library_ms=t_lib, card=card)
 
-    for shape in ((1, 512, 257), (1, 1024, 513), (512, 512, 257), (1, 512, 512 * 257)):
+    for shape in ((1, 512, 257), (1, 1024, 513), (512, 512, 257), (1, 512, 512 * 257),
+                  (1, 1024, 1024), (512, 512, 512), (1, 512, 512 * 512)):
         x = crandn(*shape)
         s = 1.0 / shape[1]
         time_kernel("c2c_axis_mid", shape, lambda: kfft.c2c_axis_mid(x, +1, s),
@@ -502,6 +612,36 @@ def main() -> int:
     del x3
     torch.cuda.empty_cache()
 
+    for name, kern, plain, shapes in (
+            ("c2c_rows", kfft.c2c_rows, kfft.c2c_rows_plain,
+             ((1024, 1024), (512 * 512, 512))),
+            ("c2c_dense_rows", kfft.c2c_dense_rows, kfft.c2c_dense_rows_plain,
+             ((128, 256), (256 * 256, 256))),
+            ("c2c_dense_mid", kfft.c2c_dense_mid, kfft.c2c_dense_mid_plain,
+             ((1, 128, 128), (1, 264, 264), (256, 256, 256), (1, 256, 256 * 256)))):
+        for shape in shapes:
+            x = crandn(*shape)
+            dim = -1 if len(shape) == 2 else 1
+            time_kernel(name, shape, lambda: kern(x, -1), lambda: plain(x, -1),
+                        lambda: torch.fft.fft(x, dim=dim))
+    del x
+    for grid_shape, x in c2c_inputs.items():
+        hs = [nd.FftHandler(n) for n in grid_shape]
+        torch.cuda.reset_peak_memory_stats()
+        t_port = cuda_ms(lambda: ifftn_all(fftn_all(x, hs), hs), reps, 2)
+        peak = torch.cuda.max_memory_allocated()
+        t_torch = cuda_ms(lambda: torch.fft.ifftn(torch.fft.fftn(x)), reps, 2)
+        emit(phase="time", c2c_fftn_ifftn=list(grid_shape), ms=t_port,
+             torch_fft_ms=t_torch, peak_bytes=peak, card=card)
+    del c2c_inputs
+    for n, x in fft2d_inputs.items():
+        h = nd.FftHandler(n)
+        t_port = cuda_ms(lambda: nd.ndfft(x, h, axis=0), reps)
+        t_torch = cuda_ms(lambda: torch.fft.fft(x, dim=0), reps)
+        emit(phase="time", fft2d_axis0=[n, n], ms=t_port, torch_fft_ms=t_torch, card=card)
+    del fft2d_inputs
+    torch.cuda.empty_cache()
+
     def yardstick_pair(x):
         f = makhoul_dct(makhoul_dct(x, 1, 2), 0, 2)
         return makhoul_dct(makhoul_dct(f, 0, 3), 1, 3) / (2 * 1024) ** 2
@@ -530,6 +670,12 @@ def main() -> int:
                      "ndrustfft_tpu/ops/pallas/dct.py:190"),
         "dct3_nat": ("ndrustfft_tpu_torch/csrc/dct_nat.cu",
                      "ndrustfft_tpu/ops/pallas/dct.py:208"),
+        "c2c_rows": ("ndrustfft_tpu_torch/csrc/fft_rows.cu",
+                     "ndrustfft_tpu/ops/pallas/fft.py:743"),
+        "c2c_dense_rows": ("ndrustfft_tpu_torch/csrc/fft_dense.cu",
+                           "ndrustfft_tpu/ops/pallas/fft.py:521"),
+        "c2c_dense_mid": ("ndrustfft_tpu_torch/csrc/fft_dense.cu",
+                          "ndrustfft_tpu/ops/pallas/fft.py:1565"),
     }
     kernels = []
     for name, (src, rep) in sources.items():

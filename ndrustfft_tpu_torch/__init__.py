@@ -3,9 +3,11 @@ PyTorch, with hand-written CUDA kernels for Hopper (H100).
 
 The real spectral step of a pseudo-spectral solver runs on the card through
 three kernels (``ops/hopper``): C2C along a middle axis, and R2C / C2R of
-contiguous rows. The DCT/DST family runs through three more: a dense DCT of
-any type along a middle axis (n <= 1100), and DCT-II / DCT-III of contiguous
-rows. Everything else runs the plain torch engine, or raises
+contiguous rows. The complex n-D transform (``ndfft``/``ndifft`` on every
+axis) adds three: C2C of contiguous rows, and a dense C2C product (n <= 512)
+along a middle axis or along rows. The DCT/DST family runs through three
+more: a dense DCT of any type along a middle axis (n <= 1100), and DCT-II /
+DCT-III of contiguous rows. Everything else runs the plain torch engine, or raises
 ``NotImplementedError`` on a CUDA tensor where the JAX package would use a
 Pallas kernel that is not ported yet (see ``api._route`` and ROADMAP.md).
 """

@@ -6,13 +6,19 @@ Every call picks its route in one pure function, :func:`_route`. Its gates
 mirror the JAX package's TPU gates (``cols >= 128``, ``batch >= 128``, the
 twostep split with m <= 128), so that every route has a JAX counterpart:
 
-* a route whose JAX counterpart is one of the three ported kernels runs
-  that kernel's wrapper (``ops/hopper``): the CUDA kernel on a CUDA tensor,
-  its plain version on a CPU tensor;
+* a route whose JAX counterpart is a ported kernel runs that kernel's
+  wrapper (``ops/hopper``): the CUDA kernel on a CUDA tensor, its plain
+  version on a CPU tensor;
 * a route whose JAX counterpart is a Pallas kernel not ported yet raises
   ``NotImplementedError`` on a CUDA tensor, naming the kernel and its
   ``ROADMAP.md`` item, and runs the torch engine on a CPU tensor;
 * a route whose JAX counterpart is the XLA engine runs the torch engine.
+
+A route name is runnable per kind, not globally: the C2C kernels of the
+lane-last and dense routes (K10, K8, K4) serve ``ndfft``/``ndifft`` only.
+The other kinds' lowerings that reach those names for an inner C2C (odd-n
+R2C, C2R without a natural-layout factor, the DCT lanes) still raise on a
+CUDA tensor.
 
 A non-tensor input (numpy array, list, scalar) goes to the CUDA device, as
 the JAX package puts it on its default device; a CPU tensor is how a caller
@@ -44,26 +50,33 @@ __all__ = ["ndfft", "ndifft", "ndfft_r2c", "ndifft_r2c",
 
 # routes that run a ported kernel, and the engine
 C2C_AXIS_MID = "c2c_axis_mid"
+C2C_ROWS = "c2c_rows"
+C2C_DENSE_ROWS = "c2c_dense_rows"
+C2C_DENSE_MID = "c2c_dense_mid"
 R2C_NAT = "r2c_nat"
 C2R_NAT = "c2r_nat"
 DCT_DENSE_MID = "dct_dense_mid"
 DCT2_NAT = "dct2_nat"
 DCT3_NAT = "dct3_nat"
 ENGINE = "engine"
-_RUNNABLE = (C2C_AXIS_MID, R2C_NAT, C2R_NAT, DCT_DENSE_MID, DCT2_NAT, DCT3_NAT,
-             ENGINE)
+_RUNNABLE = (C2C_AXIS_MID, C2C_ROWS, C2C_DENSE_ROWS, C2C_DENSE_MID, R2C_NAT,
+             C2R_NAT, DCT_DENSE_MID, DCT2_NAT, DCT3_NAT, ENGINE)
+_C2C_KINDS = ("fft", "ifft")
 _R2R_KINDS = tuple(f"{f}{t}" for f in ("dct", "dst") for t in (1, 2, 3, 4))
 
 # Pallas kernels of the JAX package on routes not ported yet:
 # key -> (kernel, ROADMAP.md item)
 UNPORTED = {
-    "dense_mid": ("fft.py::_kernel_axis_mid_dense", "K4"),
     "bts2_wide": ("fft.py::_kernel_axis_mid_bts2 with a butterfly factor "
                   "outside {2, 4, 8, 16}", "K1b"),
     "generic_mid": ("fft.py::_kernel_axis_mid", "K6"),
     "fourstep": ("fft.py::_kernel_exit_mul and _kernel_lane_store_t", "K7"),
     "lane_last": ("fft.py::_kernel_lane_last", "K8"),
+    "lane_last_wide": ("fft.py::_kernel_lane_last at n > 256",
+                       "K8 (n > 256 without a split)"),
     "twostep": ("fft.py::_kernel_twostep", "K10"),
+    "twostep_wide": ("fft.py::_kernel_twostep with a butterfly factor outside "
+                     "{4, 8, 16}", "K1b"),
     "bluestein": ("fft.py::_kernel_axis_mid_blue and the engine's Bluestein",
                   "K11"),
     "r2c_packed": ("rfft.py::_r2c_kernel", "K15"),
@@ -238,7 +251,8 @@ def _mid_dims(shape, axis):
 def _route(kind: str, shape, axis: int, dtype: torch.dtype, device_type: str,
            n: int | None = None) -> str:
     """The route of one call: one of the ported kernels' routes (C2C_AXIS_MID,
-    R2C_NAT, C2R_NAT, DCT_DENSE_MID, DCT2_NAT, DCT3_NAT) or ENGINE.
+    C2C_ROWS, C2C_DENSE_ROWS, C2C_DENSE_MID, R2C_NAT, C2R_NAT, DCT_DENSE_MID,
+    DCT2_NAT, DCT3_NAT) or ENGINE.
 
     ``kind`` is "fft", "ifft", "r2c", "c2r", "dct1".."dct4" or
     "dst1".."dst4"; ``shape``, ``axis`` and ``dtype`` are the input's; ``n``
@@ -260,15 +274,36 @@ def _route(kind: str, shape, axis: int, dtype: torch.dtype, device_type: str,
             route = ENGINE
         else:
             route = _route_f32(kind, shape, axis, n)
+            if kind in _C2C_KINDS:
+                route = _c2c_kernel_route(route, n)
     if route in _RUNNABLE:
         return route if device_type in ("cuda", "cpu") else ENGINE
     if device_type == "cuda":
         kernel, item = UNPORTED[route]
+        # K10/K8 serve ndfft/ndifft only; another kind's lowering that
+        # reaches them for its inner C2C is not wired through them yet
+        inner = (f" (the inner C2C of this {kind} lowering)"
+                 if kind not in _C2C_KINDS and route in ("twostep", "lane_last") else "")
         raise NotImplementedError(
             f"{kind} n={n} axis={axis} shape={shape}: the JAX package runs "
-            f"this on the Pallas kernel {kernel}, which has no CUDA port yet "
-            f"(ROADMAP.md item {item})")
+            f"this{inner} on the Pallas kernel {kernel}, which has no CUDA port "
+            f"for it yet (ROADMAP.md item {item})")
     return ENGINE
+
+
+def _c2c_kernel_route(route: str, n: int) -> str:
+    """The port's route for the JAX package's C2C route of ``ndfft``/``ndifft``
+    at length n: kernel 10 for the twostep split with F in {4, 8, 16}, kernel
+    8 for the dense lane DFT (n <= 256), kernel 4 for the dense mid product;
+    else the UNPORTED key."""
+    if route == "twostep":
+        return C2C_ROWS if n % _kfft.M == 0 and n // _kfft.M in _kfft.C2C_F \
+            else "twostep_wide"
+    if route == "lane_last":
+        return C2C_DENSE_ROWS if n <= 256 else "lane_last_wide"
+    if route == "dense_mid":
+        return C2C_DENSE_MID
+    return route
 
 
 def _route_f32(kind, shape, axis, n):
@@ -430,11 +465,19 @@ def _c2c_impl(x, handler, axis, sign):
     route = _route(kind, x.shape, axis, x.dtype, x.device.type)
     _plan_log(kind, n, axis, route)
     scale = _c2c_norm_scale(handler, sign)
-    if route == C2C_AXIS_MID:
+    if route in (C2C_AXIS_MID, C2C_DENSE_MID):
         nb, cols = _mid_dims(x.shape, axis)
-        y = _kfft.c2c_axis_mid(x.reshape(nb, n, cols).contiguous(), sign, scale)
+        fn = _kfft.c2c_axis_mid if route == C2C_AXIS_MID else _kfft.c2c_dense_mid
+        y = fn(x.reshape(nb, n, cols).contiguous(), sign, scale)
         return y.reshape(x.shape)
-    y = _engine.c2c(x.movedim(axis, -1), get_c2c_plan(n, sign), scale)
+    # the row routes and the engine take the axis last (a no-op for the last
+    # axis; a middle axis with < 128 columns moves, as the JAX package does)
+    xm = x.movedim(axis, -1)
+    if route in (C2C_ROWS, C2C_DENSE_ROWS):
+        fn = _kfft.c2c_rows if route == C2C_ROWS else _kfft.c2c_dense_rows
+        y = fn(xm.reshape(-1, n).contiguous(), sign, scale).reshape(xm.shape)
+    else:
+        y = _engine.c2c(xm, get_c2c_plan(n, sign), scale)
     return y.movedim(-1, axis)
 
 

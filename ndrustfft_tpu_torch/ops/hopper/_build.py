@@ -34,6 +34,8 @@ _LL = ctypes.c_longlong
 # C entry points and their argument types (see csrc/*.cu)
 _SIGNATURES = {
     "ndfft_c2c_axis_mid": [_P, _P, _P, _LL, _I, _LL, _I, _I, _P],
+    "ndfft_c2c_rows": [_P, _P, _P, _LL, _I, _I, _I, _P],
+    "ndfft_c2c_dense": [_P, _P, _P, _LL, _I, _LL, _I, _I, _P],
     "ndfft_r2c_nat": [_P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_c2r_nat": [_P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_dct_dense_mid": [_P, _P, _P, _LL, _I, _LL, _I, _P],

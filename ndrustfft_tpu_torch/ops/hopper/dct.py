@@ -24,8 +24,8 @@ import torch
 
 from ...plan import _cis
 from . import _build
-from .fft import M, check_cuda, device_wq, num_sms
-from .rfft import _device_ab, _device_tw, block_rows, c2r_nat_plain, r2c_nat_plain
+from .fft import M, block_rows, check_cuda, dense_tile, device_wq, num_sms
+from .rfft import _device_ab, _device_tw, c2r_nat_plain, r2c_nat_plain
 
 DCT_F = (1, 2, 4, 8, 16)   # half-length factors F of kernels 23/24 (h = 128 F)
 
@@ -75,13 +75,6 @@ def dct_dense_mid_plain(x: torch.Tensor, dct_type: int, scale=None) -> torch.Ten
     s = 1.0 if scale is None else float(scale)
     w = _device_dense(x.shape[1], dct_type, s, x.device)
     return torch.einsum("tk,btc->bkc", w, x)
-
-
-def dense_tile(n: int, nb: int, cols: int, sms: int) -> int:
-    """Micro-tile of kernel 27: 8 (128 x 128 block tiles) when that grid
-    gives every SM two blocks, else 4 (64 x 64)."""
-    blocks = -(-n // 128) * -(-cols // 128) * nb
-    return 8 if blocks >= 2 * sms else 4
 
 
 def dct_dense_mid(x: torch.Tensor, dct_type: int, scale=None) -> torch.Tensor:

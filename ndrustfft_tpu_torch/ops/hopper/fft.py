@@ -1,11 +1,19 @@
-"""Kernel 1: C2C along the middle axis of (B, n, L) complex64, n = 128 * F.
+"""The C2C kernels on complex64.
 
-The CUDA kernel is ``csrc/fft_axis_mid.cu`` on the shared core
-``csrc/bts2_core.cuh``; it replaces the JAX package's
-``ops/pallas/fft.py::_kernel_axis_mid_bts2``. This module holds its host-built
-constants (:func:`bts2_consts`), its plain PyTorch version
-(:func:`c2c_axis_mid_plain`) and its wrapper (:func:`c2c_axis_mid`), whose
-``launches`` attribute counts kernel launches.
+* Kernel 1, :func:`c2c_axis_mid`: C2C along the middle axis of (B, n, L),
+  n = 128 * F (``csrc/fft_axis_mid.cu`` on the shared core
+  ``csrc/bts2_core.cuh``; replaces the JAX package's
+  ``ops/pallas/fft.py::_kernel_axis_mid_bts2``).
+* Kernel 10, :func:`c2c_rows`: C2C of contiguous (T, n) rows, n = 128 * F
+  (``csrc/fft_rows.cu`` on the same core; replaces ``fft.py::_kernel_twostep``).
+* Kernels 4 and 8, :func:`c2c_dense_mid` and :func:`c2c_dense_rows`: C2C of
+  length n <= 512 as one dense product with the scaled DFT matrix, along the
+  middle axis of (B, n, L) or along contiguous (T, n) rows
+  (``csrc/fft_dense.cu``; replace ``fft.py::_kernel_axis_mid_dense`` and the
+  dense lane DFT of ``fft.py::_kernel_lane_last``).
+
+This module holds their host-built constants, their plain PyTorch versions
+and their wrappers, whose ``launches`` attributes count kernel launches.
 """
 
 from __future__ import annotations
@@ -20,8 +28,9 @@ from . import _build
 
 M = 128                 # stage-2 DFT length of the core
 CORE_F = (2, 4, 8, 16)  # butterfly factors the core instantiates
-C2C_F = (4, 8, 16)      # factors kernel 1 takes (n = 512, 1024, 2048)
+C2C_F = (4, 8, 16)      # factors kernels 1 and 10 take (n = 512, 1024, 2048)
 SMEM_ELEMS = 8192       # complex elements of one block's tile (64 KB)
+DENSE_MAX_N = 512       # longest transform kernels 4 and 8 take
 
 
 def bts2_consts(n: int, sign: int, scale: float = 1.0):
@@ -84,6 +93,16 @@ def num_sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def block_rows(h: int, rows: int, sms: int) -> int:
+    """Rows per block of the row kernels: the largest power of two whose
+    h x R tile fits the shared-memory budget, halved while the grid would
+    leave SMs idle."""
+    r = SMEM_ELEMS // h
+    while r > 1 and -(-rows // r) < sms:
+        r //= 2
+    return r
+
+
 def block_cols(n: int, groups: int, cols: int, sms: int) -> int:
     """Columns per block: the largest power of two whose n x C tile fits the
     shared-memory budget, halved while the grid of ``groups`` times the
@@ -92,6 +111,13 @@ def block_cols(n: int, groups: int, cols: int, sms: int) -> int:
     while c > 1 and groups * -(-cols // c) < sms:
         c //= 2
     return c
+
+
+def dense_tile(n: int, nb: int, cols: int, sms: int) -> int:
+    """Micro-tile of the dense products (kernels 4, 8 and 27): 8 (128 x 128
+    block tiles) when that grid gives every SM two blocks, else 4 (64 x 64)."""
+    blocks = -(-n // 128) * -(-cols // 128) * nb
+    return 8 if blocks >= 2 * sms else 4
 
 
 def check_cuda(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
@@ -135,3 +161,148 @@ def c2c_axis_mid(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
 
 
 c2c_axis_mid.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Kernel 10: C2C of contiguous rows on the bts2 core
+# --------------------------------------------------------------------------
+
+
+def c2c_rows_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
+    """Plain version of kernel 10: the core's plain version on a (T, n, 1)
+    view, with kernel 1's constants."""
+    t, n = x.shape
+    s = 1.0 if scale is None else float(scale)
+    return bts2_plain(x.reshape(t, n, 1), device_wq(n, sign, s, x.device),
+                      sign).reshape(t, n)
+
+
+def _check_rows(x: torch.Tensor, what: str) -> None:
+    if x.dim() != 2:
+        raise ValueError(f"{what}: expected (T, n), got {tuple(x.shape)}")
+
+
+def c2c_rows(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
+    """C2C of the rows of a (T, n) complex64 tensor, n = 128 * F with F in
+    {4, 8, 16}, times ``scale``. A CPU tensor runs the plain version; a CUDA
+    tensor launches kernel 10 or raises."""
+    _check_rows(x, "c2c_rows")
+    t, n = x.shape
+    if n % M or n // M not in C2C_F:
+        raise ValueError(f"c2c_rows: n={n} is not 128 * F, F in {C2C_F}")
+    if x.device.type == "cpu":
+        return c2c_rows_plain(x, sign, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"c2c_rows: unsupported device {x.device}")
+    check_cuda(x, torch.complex64, "c2c_rows")
+    s = 1.0 if scale is None else float(scale)
+    wq = device_wq(n, sign, s, x.device)
+    y = torch.empty_like(x)
+    if t == 0:
+        return y
+    r = block_rows(n, t, num_sms(x.device))
+    with torch.cuda.device(x.device):
+        err = _build.lib().ndfft_c2c_rows(
+            x.data_ptr(), y.data_ptr(), wq.data_ptr(), t, n, r, sign,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "c2c_rows")
+    c2c_rows.launches += 1
+    return y
+
+
+c2c_rows.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Kernels 4 and 8: the dense DFT product
+# --------------------------------------------------------------------------
+
+
+def dense_consts(n: int, sign: int, scale: float = 1.0) -> np.ndarray:
+    """(n, n) complex64 W[t, k] = scale * exp(sign 2 pi i t k / n), each part
+    built in float64 and rounded once (the JAX package's dense tables at the
+    "highest" tier), in C order. W is symmetric; the kernel reads W[t, k] at
+    t * n + k."""
+    wr, wi = dft_matrix(n, sign)
+    w = np.empty((n, n), np.complex64)
+    w.real = wr * scale
+    w.imag = wi * scale
+    return np.ascontiguousarray(w)
+
+
+@lru_cache(maxsize=64)
+def _device_dense(n: int, sign: int, scale: float, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(dense_consts(n, sign, scale)).to(device)
+
+
+def c2c_dense_mid_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
+    """Plain version of kernel 4: Y[b, k, c] = sum_t W[k, t] X[b, t, c]."""
+    s = 1.0 if scale is None else float(scale)
+    return torch.einsum("kt,btc->bkc", _device_dense(x.shape[1], sign, s, x.device), x)
+
+
+def c2c_dense_rows_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
+    """Plain version of kernel 8: Y[r, k] = sum_t X[r, t] W[t, k]."""
+    s = 1.0 if scale is None else float(scale)
+    return torch.einsum("rt,tk->rk", x, _device_dense(x.shape[1], sign, s, x.device))
+
+
+def _dense_launch(x: torch.Tensor, sign: int, scale, nb: int, n: int, cols: int,
+                  rows_layout: bool, what: str) -> torch.Tensor:
+    check_cuda(x, torch.complex64, what)
+    s = 1.0 if scale is None else float(scale)
+    w = _device_dense(n, sign, s, x.device)
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    tm = dense_tile(n, nb, cols, num_sms(x.device))
+    with torch.cuda.device(x.device):
+        err = _build.lib().ndfft_c2c_dense(
+            w.data_ptr(), x.data_ptr(), y.data_ptr(), nb, n, cols, tm,
+            int(rows_layout), torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, what)
+    return y
+
+
+def _check_dense_n(n: int, what: str) -> None:
+    if not 1 <= n <= DENSE_MAX_N:
+        raise ValueError(f"{what}: n={n} is outside 1 ... {DENSE_MAX_N}")
+
+
+def c2c_dense_mid(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
+    """C2C along dim 1 of a (B, n, L) complex64 tensor, n <= 512, as one
+    dense product, times ``scale``. A CPU tensor runs the plain version; a
+    CUDA tensor launches kernel 4 or raises."""
+    if x.dim() != 3:
+        raise ValueError(f"c2c_dense_mid: expected (B, n, L), got {tuple(x.shape)}")
+    nb, n, cols = x.shape
+    _check_dense_n(n, "c2c_dense_mid")
+    if x.device.type == "cpu":
+        return c2c_dense_mid_plain(x, sign, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"c2c_dense_mid: unsupported device {x.device}")
+    y = _dense_launch(x, sign, scale, nb, n, cols, False, "c2c_dense_mid")
+    c2c_dense_mid.launches += 1
+    return y
+
+
+c2c_dense_mid.launches = 0
+
+
+def c2c_dense_rows(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
+    """C2C of the rows of a (T, n) complex64 tensor, n <= 512, as one dense
+    product, times ``scale``. A CPU tensor runs the plain version; a CUDA
+    tensor launches kernel 8 or raises."""
+    _check_rows(x, "c2c_dense_rows")
+    t, n = x.shape
+    _check_dense_n(n, "c2c_dense_rows")
+    if x.device.type == "cpu":
+        return c2c_dense_rows_plain(x, sign, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"c2c_dense_rows: unsupported device {x.device}")
+    y = _dense_launch(x, sign, scale, 1, n, t, True, "c2c_dense_rows")
+    c2c_dense_rows.launches += 1
+    return y
+
+
+c2c_dense_rows.launches = 0

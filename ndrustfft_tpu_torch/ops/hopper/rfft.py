@@ -16,7 +16,7 @@ import torch
 
 from ...plan import _cis
 from . import _build
-from .fft import CORE_F, M, SMEM_ELEMS, bts2_plain, check_cuda, device_wq, num_sms
+from .fft import CORE_F, M, block_rows, bts2_plain, check_cuda, device_wq, num_sms
 
 
 def unpack_twiddle(n: int):
@@ -90,15 +90,6 @@ def c2r_nat_plain(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
     z = bts2_plain(g.reshape(t, h, 1), device_wq(h, +1, 1.0, s.device),
                    +1).reshape(t, h)
     return torch.view_as_real(z).reshape(t, n)
-
-
-def block_rows(h: int, rows: int, sms: int) -> int:
-    """Rows per block: the largest power of two whose h x R tile fits the
-    shared-memory budget, halved while the grid would leave SMs idle."""
-    r = SMEM_ELEMS // h
-    while r > 1 and -(-rows // r) < sms:
-        r //= 2
-    return r
 
 
 def _check_n(n: int, what: str) -> None:

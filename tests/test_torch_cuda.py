@@ -62,8 +62,8 @@ def test_step_runs_on_the_kernels(dev):
 
 
 def test_unported_route_and_grad_raise(dev):
-    with pytest.raises(NotImplementedError, match="_kernel_axis_mid_dense"):
-        nd.ndfft(torch.zeros(128, 128, dtype=torch.complex64, device=dev), axis=0)
+    with pytest.raises(NotImplementedError, match="_r2c_kernel_mid"):
+        nd.ndfft_r2c(torch.zeros(512, 512, device=dev), axis=0)
     with pytest.raises(NotImplementedError, match="autograd"):
         nd.ndfft_r2c(torch.zeros(512, 512, device=dev, requires_grad=True), axis=1)
     y = nd.ndfft(torch.ones(4, 8, dtype=torch.complex128, device=dev), axis=1)
@@ -99,3 +99,47 @@ def test_unported_dct_route_raises(dev):
     with pytest.raises(NotImplementedError, match="_dct2_kernel_mid"):
         nd.nddct2(torch.zeros(2048, 128, device=dev), axis=0)
     assert nd.nddct2([1.0, 2.0, 3.0]).device.type == "cuda"   # non-tensor input
+
+
+def test_c2c_kernels_match_plain(dev):
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def crandn(*shape):
+        return torch.view_as_complex(torch.randn(*shape, 2, generator=g, device=dev))
+
+    for t, n in ((130, 512), (128, 1024), (66, 2048)):
+        x = crandn(t, n)
+        for sign, scale in ((-1, None), (+1, 1 / n)):
+            assert _rel(kfft.c2c_rows(x, sign, scale),
+                        kfft.c2c_rows_plain(x, sign, scale)) <= TOL
+    for t, n in ((130, 128), (200, 200), (131, 256)):
+        x = crandn(t, n)
+        for sign, scale in ((-1, None), (+1, 1 / n)):
+            assert _rel(kfft.c2c_dense_rows(x, sign, scale),
+                        kfft.c2c_dense_rows_plain(x, sign, scale)) <= TOL
+    for shape in ((1, 128, 128), (1, 264, 264), (3, 200, 257), (2, 500, 130)):
+        x = crandn(*shape)
+        for sign, scale in ((-1, None), (+1, 1 / shape[1])):
+            assert _rel(kfft.c2c_dense_mid(x, sign, scale),
+                        kfft.c2c_dense_mid_plain(x, sign, scale)) <= TOL
+
+
+def test_complex_transform_runs_on_the_kernels(dev):
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.view_as_complex(torch.randn(1024, 1024, 2, generator=g, device=dev))
+    h = nd.FftHandler(1024)
+    fns = (kfft.c2c_rows, kfft.c2c_axis_mid, kfft.c2c_dense_rows, kfft.c2c_dense_mid)
+    before = [f.launches for f in fns]
+    y = nd.ndfft(nd.ndfft(x, h, axis=1), h, axis=0)
+    back = nd.ndifft(nd.ndifft(y, h, axis=0), h, axis=1)
+    assert [f.launches - b for f, b in zip(fns, before)] == [2, 2, 0, 0]
+    ref = torch.fft.fftn(x.to(torch.complex128))
+    assert _rel(y.to(torch.complex128), ref) <= 1e-5
+    assert _rel(back, x) <= 1e-5
+    z = torch.view_as_complex(torch.randn(128, 256, 2, generator=g, device=dev))
+    before = [f.launches for f in fns]
+    w = nd.ndfft(nd.ndfft(z, axis=1), axis=0)       # K8, then K4
+    assert [f.launches - b for f, b in zip(fns, before)] == [0, 0, 1, 1]
+    assert _rel(w.to(torch.complex128), torch.fft.fftn(z.to(torch.complex128))) <= 1e-5
+    with pytest.raises(NotImplementedError, match="inner C2C of this r2c lowering"):
+        nd.ndfft_r2c(torch.zeros(256, 201, device=dev), axis=1)

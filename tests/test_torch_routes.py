@@ -38,19 +38,37 @@ C64, F32 = torch.complex64, torch.float32
     ("c2r", (100, 257), 1, C64, 512, api.ENGINE),
     ("fft", (64, 1024), 1, C64, None, api.ENGINE),        # lane-last, batch < 128
     ("c2r", (200, 1), 1, C64, 1, api.ENGINE),
+    # the complex n-D transform: the reference's fft2d rows (K4), lane-last
+    # C2C on rows (K10 with F = 4, 8, 16; K8 for n <= 256)
+    ("fft", (128, 128), 0, C64, None, api.C2C_DENSE_MID),
+    ("ifft", (264, 264), 0, C64, None, api.C2C_DENSE_MID),
+    ("fft", (256, 1024), 1, C64, None, api.C2C_ROWS),
+    ("fft", (256, 256), 1, C64, None, api.C2C_DENSE_ROWS),
+    ("ifft", (1024, 1024), 1, C64, None, api.C2C_ROWS),
+    ("fft", (512, 512, 512), 2, C64, None, api.C2C_ROWS),
+    ("ifft", (130, 2048), -1, C64, None, api.C2C_ROWS),
+    ("ifft", (66, 2048), -1, C64, None, api.ENGINE),            # batch < 128
+    ("fft", (256, 256, 256), 2, C64, None, api.C2C_DENSE_ROWS),
+    ("fft", (256, 256, 256), 1, C64, None, api.C2C_DENSE_MID),
+    ("ifft", (256, 256, 256), 0, C64, None, api.C2C_DENSE_MID),
+    ("fft", (130, 2), 1, C64, None, api.C2C_DENSE_ROWS),
+    ("fft", (3, 500, 130), 1, C64, None, api.C2C_DENSE_MID),   # no split, n <= 512
+    ("fft", (512, 256, 64), 1, C64, None, api.C2C_DENSE_ROWS),  # cols < 128: axis moves
 ])
 def test_route_on_cuda(kind, shape, axis, dtype, n, want):
     assert api._route(kind, shape, axis, dtype, "cuda", n=n) == want
 
 
 @pytest.mark.parametrize("kind,shape,axis,n,kernel,item", [
-    ("fft", (128, 128), 0, None, "_kernel_axis_mid_dense", "K4"),
-    ("ifft", (264, 264), 0, None, "_kernel_axis_mid_dense", "K4"),
+    ("fft", (256, 384), 1, None, "_kernel_twostep with a butterfly", "K1b"),
+    ("ifft", (128, 4096), 1, None, "_kernel_twostep with a butterfly", "K1b"),
     ("fft", (384, 256), 0, None, "_kernel_axis_mid_bts2", "K1b"),
     ("fft", (4096, 128), 0, None, "_kernel_axis_mid_bts2", "K1b"),
     ("fft", (600, 256), 0, None, "_kernel_axis_mid", "K6"),
-    ("fft", (256, 1024), 1, None, "_kernel_twostep", "K10"),
-    ("fft", (256, 256), 1, None, "_kernel_lane_last", "K8"),
+    ("fft", (256, 264), 1, None, "_kernel_lane_last at n > 256",
+     "K8 (n > 256 without a split)"),
+    ("ifft", (128, 600), 1, None, "_kernel_lane_last at n > 256",
+     "K8 (n > 256 without a split)"),
     ("fft", (2, 1 << 17), 1, None, "_kernel_exit_mul", "K7"),
     ("fft", (509, 256), 0, None, "_kernel_axis_mid_blue", "K11"),
     ("r2c", (512, 512), 0, None, "_r2c_kernel_mid", "K16"),
@@ -70,10 +88,50 @@ def test_unported_route_raises_on_cuda(kind, shape, axis, n, kernel, item):
     assert api._route(kind, shape, axis, dtype, "cpu", n=n) == api.ENGINE
 
 
+# The other kinds' lowerings reach the C2C route names for an inner C2C;
+# the C2C kernels serve ndfft/ndifft only, so these still raise on a CUDA
+# tensor, naming the lowering, and never run the engine there
+@pytest.mark.parametrize("kind,shape,axis,n,kernel,item", [
+    ("r2c", (256, 201), 1, None, "_kernel_lane_last", "K8"),      # odd n: full C2C
+    ("r2c", (256, 255), -1, None, "_kernel_lane_last", "K8"),
+    ("c2r", (256, 101), 1, 200, "_kernel_lane_last", "K8"),       # no natural factor
+    ("c2r", (128, 321), 1, 640, "_kernel_twostep", "K10"),
+    ("dct3", (256, 200), 1, None, "_kernel_lane_last", "K8"),
+    ("dct4", (128, 256), 1, None, "_kernel_lane_last", "K8"),
+    ("dct4", (256, 1024), 1, None, "_kernel_twostep", "K10"),
+    ("dst4", (128, 256), 1, None, "_kernel_lane_last", "K8"),
+    ("dct2", (256, 301), 1, None, "_kernel_lane_last", "K8"),     # odd: the R2C's C2C
+])
+def test_other_kinds_inner_c2c_still_raises_on_cuda(kind, shape, axis, n, kernel, item):
+    dtype = C64 if kind == "c2r" else F32
+    with pytest.raises(NotImplementedError, match=f"inner C2C of this {kind} lowering") as exc:
+        api._route(kind, shape, axis, dtype, "cuda", n=n)
+    assert kernel in str(exc.value)
+    assert str(exc.value).endswith(f"(ROADMAP.md item {item})")
+    assert api._route(kind, shape, axis, dtype, "cpu", n=n) == api.ENGINE
+
+
+def test_c2c_kernel_routes_serve_fft_and_ifft_only():
+    for kind in ("r2c", "c2r", "dct1", "dct2", "dct3", "dct4", "dst1", "dst2", "dst3",
+                 "dst4"):
+        for n in (2, 3, 128, 200, 201, 256, 264, 512, 640, 1000, 1024, 2048):
+            for shape, axis in (((n, 256), 0), ((256, n), 1), ((130, n), 1)):
+                dtype = C64 if kind == "c2r" else F32
+                try:
+                    route = api._route(kind, shape, axis, dtype, "cuda")
+                except NotImplementedError:
+                    continue
+                assert route not in (api.C2C_ROWS, api.C2C_DENSE_ROWS,
+                                     api.C2C_DENSE_MID), (kind, shape, axis)
+
+
 def test_kernel_routes_stand_on_cpu_and_other_devices_take_the_engine():
     assert api._route("fft", (512, 257), 0, C64, "cpu") == api.C2C_AXIS_MID
     assert api._route("fft", (512, 257), 0, C64, "meta") == api.ENGINE
     assert api._route("fft", (128, 128), 0, C64, "meta") == api.ENGINE
+    assert api._route("fft", (128, 128), 0, C64, "cpu") == api.C2C_DENSE_MID
+    assert api._route("fft", (128, 1024), 1, C64, "cpu") == api.C2C_ROWS
+    assert api._route("fft", (128, 100), 1, C64, "cpu") == api.C2C_DENSE_ROWS
 
 
 def test_route_rejects_unknown_kind_and_axis():
