@@ -28,13 +28,22 @@ without the final line):
         512^3 complex64 fields, and the reference's fft2d protocol (C2C
         along axis 0 of n x n, n = 128, 264, 512, 1024), against
         torch.fft.fftn in complex128 (oracle only), with the round trip;
+     d. real transforms along a middle axis through ndfft_r2c /
+        ndifft_r2c: the reference's rfft2d protocol (R2C along axis 0 of
+        n x n, n = 128, 264, 512, 1024, and back), and the 512^3 and 256^3
+        real steps with the real axis first (R2C along axis 0, C2C along
+        axes 1 and 2, and the inverse chain), against torch.fft.rfft(dim=0)
+        and torch.fft.rfftn(dim=(1, 2, 0)) in float64 (oracle only), with
+        the round trip;
   5. times with CUDA events (median over --reps runs after warm-up): each
      kernel against its plain version and, where one PyTorch call computes
      the same function, that call (the yardstick, never on the port's
      path); the steps against torch.fft.rfftn / irfftn, the DCT pair and
      Poisson solve against the same compositions through a float32
-     torch.fft Makhoul lowering, and the complex paths against
-     torch.fft.fftn / ifftn.
+     torch.fft Makhoul lowering, the complex paths against
+     torch.fft.fftn / ifftn, the real-axis-first steps against
+     torch.fft.rfftn / irfftn over the same dims and the rfft2d forward
+     against torch.fft.rfft(dim=0).
 The kernels line gives each kernel's launches on its main path, its largest
 error against its plain version, its times, and its bound: the larger of
 the bytes it must move (each input read once, each output written once)
@@ -97,9 +106,9 @@ def work(name: str, shape):
     """(bytes, FP32 operations) of one kernel call at ``shape``: inputs
     (constants included) read once, outputs written once; 5 n log2 n per
     complex and 2.5 n log2 n per real FFT of length n, the dense DCT's
-    2 n^2 per column. The dense complex DFT (K4, K8) counts what the
-    function needs, a length-n FFT per column or row, not its product's
-    8 n^2."""
+    2 n^2 per column. The dense complex DFT (K4, K8) and the dense R2C/C2R
+    (K20, K21) count what the function needs, a length-n FFT per column or
+    row, not their products' 8 n^2 and 4 n (n/2 + 1)."""
     if name == "c2c_axis_mid":
         b, n, cols = shape
         return 16 * b * n * cols + 8 * n * 128, 5 * n * math.log2(n) * b * cols
@@ -110,6 +119,15 @@ def work(name: str, shape):
     if name == "dct_dense_mid":
         b, n, cols = shape
         return 8 * b * n * cols + 4 * n * n, 2 * n * n * b * cols
+    if name in ("r2c_mid", "c2r_mid", "r2c_dense_mid", "c2r_dense_mid"):
+        b, w, cols = shape      # (B, n, L) real in, or (B, m, L) spectrum in
+        n = w if name.startswith("r2c") else 2 * (w - 1)
+        m = n // 2 + 1
+        if name.endswith("dense_mid"):
+            table = 4 * n * 2 * m
+        else:                   # wq, then tw or the (h, 4) ab rows
+            table = 8 * (n // 2) * 128 + (8 if name == "r2c_mid" else 16) * (n // 2)
+        return 4 * b * n * cols + 8 * b * m * cols + table, 2.5 * n * math.log2(n) * b * cols
     if name == "c2c_rows":
         t, n = shape
         return 16 * t * n + 8 * n * 128, 5 * n * math.log2(n) * t
@@ -223,10 +241,11 @@ def main() -> int:
     # ---- 3. kernels against their plain versions
     errs = {"c2c_axis_mid": 0.0, "r2c_nat": 0.0, "c2r_nat": 0.0,
             "dct_dense_mid": 0.0, "dct2_nat": 0.0, "dct3_nat": 0.0,
-            "c2c_rows": 0.0, "c2c_dense_rows": 0.0, "c2c_dense_mid": 0.0}
+            "c2c_rows": 0.0, "c2c_dense_rows": 0.0, "c2c_dense_mid": 0.0,
+            "r2c_mid": 0.0, "c2r_mid": 0.0, "r2c_dense_mid": 0.0, "c2r_dense_mid": 0.0}
     k1_shapes = [(1, 512, 257), (1, 1024, 513), (3, 2048, 130), (512, 512, 257),
                  (1, 512, 512 * 257), (1, 512, 512), (1, 1024, 1024), (512, 512, 512),
-                 (1, 512, 512 * 512)]
+                 (1, 512, 512 * 512), (257, 512, 512)]
     for shape in k1_shapes:
         x = crandn(*shape)
         for sign, scale in ((-1, None), (+1, 1.0 / shape[1])):
@@ -298,12 +317,13 @@ def main() -> int:
     # path's shapes (phase 4c)
     c2c_checks = (
         ("c2c_rows", kfft.c2c_rows, kfft.c2c_rows_plain,
-         ((130, 512), (128, 1024), (66, 2048), (1024, 1024), (512 * 512, 512))),
+         ((130, 512), (128, 1024), (66, 2048), (1024, 1024), (512 * 512, 512),
+          (257 * 512, 512))),
         ("c2c_dense_rows", kfft.c2c_dense_rows, kfft.c2c_dense_rows_plain,
-         ((130, 128), (200, 200), (131, 256), (256 * 256, 256))),
+         ((130, 128), (200, 200), (131, 256), (256 * 256, 256), (129 * 256, 256))),
         ("c2c_dense_mid", kfft.c2c_dense_mid, kfft.c2c_dense_mid_plain,
          ((1, 128, 128), (1, 264, 264), (3, 200, 257), (2, 500, 130), (256, 256, 256),
-          (1, 256, 256 * 256))),
+          (1, 256, 256 * 256), (129, 256, 256))),
     )
     for name, kern, plain, shapes in c2c_checks:
         for shape in shapes:
@@ -322,6 +342,36 @@ def main() -> int:
                 del got, ref
             del x
 
+    # the middle-axis R2C/C2R kernels: the main paths' shapes (phase 4d),
+    # axis 1 of 512^3, ragged and odd ones; the C2R spectra carry DC and
+    # Nyquist imaginary parts that must be ignored
+    rfft_mid_checks = (
+        ("r2c_mid", "c2r_mid", krfft.r2c_mid, krfft.r2c_mid_plain, krfft.c2r_mid,
+         krfft.c2r_mid_plain, ((1, 512, 512 * 512), (512, 512, 512), (1, 1024, 1024),
+                               (1, 512, 512), (3, 2048, 200), (2, 4096, 130))),
+        ("r2c_dense_mid", "c2r_dense_mid", krfft.r2c_dense_mid, krfft.r2c_dense_mid_plain,
+         krfft.c2r_dense_mid, krfft.c2r_dense_mid_plain,
+         ((1, 128, 128), (1, 264, 264), (1, 256, 256 * 256), (2, 201, 130), (1, 1100, 130))),
+    )
+    for r2c_name, c2r_name, r2c, r2c_plain, c2r, c2r_plain, shapes in rfft_mid_checks:
+        for shape in shapes:
+            nb, n, cols = shape
+            x = randn(*shape)
+            s = crandn(nb, n // 2 + 1, cols)
+            s[:, 0] += 100j
+            s[:, -1] += 100j
+            for name, got, ref in ((r2c_name, r2c(x), r2c_plain(x)),
+                                   (c2r_name, c2r(s, n, 1.0 / n), c2r_plain(s, n, 1.0 / n)),
+                                   (c2r_name, c2r(s, n, None), c2r_plain(s, n, None))):
+                torch.cuda.synchronize()
+                rel = abs_err(got, ref) / float(ref.abs().max())
+                errs[name] = max(errs[name], abs_err(got, ref))
+                emit(phase="kernel_vs_plain", kernel=name, shape=shape, rel_err=rel)
+                if not rel <= TOL_KERNEL:
+                    raise AssertionError(f"{name} {shape}: {rel}")
+                del got, ref
+            del x, s
+
     # ---- 4a. the spectral step through the public functions
     def step2(x, hr, hc):
         vhat = nd.ndfft(nd.ndfft_r2c(x, hr, axis=1), hc, axis=0)
@@ -338,7 +388,9 @@ def main() -> int:
                 "c2r_nat": krfft.c2r_nat, "dct_dense_mid": kdct.dct_dense_mid,
                 "dct2_nat": kdct.dct2_nat, "dct3_nat": kdct.dct3_nat,
                 "c2c_rows": kfft.c2c_rows, "c2c_dense_rows": kfft.c2c_dense_rows,
-                "c2c_dense_mid": kfft.c2c_dense_mid}
+                "c2c_dense_mid": kfft.c2c_dense_mid, "r2c_mid": krfft.r2c_mid,
+                "c2r_mid": krfft.c2r_mid, "r2c_dense_mid": krfft.r2c_dense_mid,
+                "c2r_dense_mid": krfft.c2r_dense_mid}
     engine_fns = (engine.c2c, engine.r2c, engine.c2r)
 
     def reset_counts():
@@ -545,6 +597,61 @@ def main() -> int:
         check_c2c("fft2d_axis0", fft2d_out[n], x, back, dims=(0,), grid=[n, n])
     del fft2d_out
 
+    # ---- 4d. real transforms along a middle axis through ndfft_r2c /
+    # ndifft_r2c: the rfft2d protocol (K20/K21 at 128 and 264, K16/K17 at
+    # 512 and 1024), then the real steps with the real axis first
+    def check_r2c_mid(what, spec, x, back, dims, **kw):
+        ref = torch.fft.rfftn(x.double(), dim=dims)
+        fwd = rel_err(spec, ref)
+        del ref
+        rt = abs_err(back, x) / float(x.abs().max())
+        emit(phase="r2c_mid_path", check=what, fwd_rel_err=fwd, roundtrip_rel_err=rt,
+             finite=bool(torch.isfinite(back).all()), shape=list(spec.shape), **kw)
+        if not (fwd <= TOL_STEP and rt <= TOL_STEP):
+            raise AssertionError(f"{what} {kw}: fwd {fwd}, round trip {rt}")
+
+    rfft2d_inputs = {n: randn(n, n) for n in (128, 264, 512, 1024)}
+    reset_counts()
+    rfft2d_out = {}
+    for n, x in rfft2d_inputs.items():
+        h = nd.R2cFftHandler(n)
+        spec = nd.ndfft_r2c(x, h, axis=0)
+        rfft2d_out[n] = spec, nd.ndifft_r2c(spec, h, axis=0)
+    read_counts("rfft2d", r2c_dense_mid=2, c2r_dense_mid=2, r2c_mid=2, c2r_mid=2)
+    for n, x in rfft2d_inputs.items():
+        spec, back = rfft2d_out[n]
+        check_r2c_mid("rfft2d_axis0", spec, x, back, (0,), grid=[n, n])
+    del rfft2d_out, spec, back
+
+    def fwd_first(x, hr, hc):
+        return nd.ndfft(nd.ndfft(nd.ndfft_r2c(x, hr, axis=0), hc, axis=1), hc, axis=2)
+
+    def inv_first(v, hr, hc):
+        return nd.ndifft_r2c(nd.ndifft(nd.ndifft(v, hc, axis=2), hc, axis=1), hr, axis=0)
+
+    # grid -> expected launches: 512^3 K16, K1 at (257, 512, 512), K10 on
+    # 131584 rows, K17; 256^3 K20, K4 at (129, 256, 256), K8 on 33024 rows, K21
+    first_grids = {512: dict(r2c_mid=1, c2c_axis_mid=2, c2c_rows=2, c2r_mid=1),
+                   256: dict(r2c_dense_mid=1, c2c_dense_mid=2, c2c_dense_rows=2,
+                             c2r_dense_mid=1)}
+    first_inputs = {}
+    for n, expected in first_grids.items():
+        x = randn(n, n, n)
+        hr, hc = nd.R2cFftHandler(n), nd.FftHandler(n)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        v = fwd_first(x, hr, hc)
+        back = inv_first(v, hr, hc)
+        read_counts(f"real_axis_first_{n}^3", **expected)
+        peak = torch.cuda.max_memory_allocated()
+        check_r2c_mid("step_real_axis_first", v, x, back, (1, 2, 0), grid=[n, n, n],
+                      peak_bytes=peak, base_bytes=base)
+        first_inputs[n] = x
+        del v, back
+        torch.cuda.empty_cache()
+
     # ---- 5. times: each kernel against its plain version and, at the main
     # path's shape, the PyTorch call that computes the same function (the
     # yardstick); the steps against torch.fft
@@ -554,7 +661,9 @@ def main() -> int:
                    "c2r_nat": (512 * 512, 257), "dct_dense_mid": (1, 512, 512 * 512),
                    "dct2_nat": (512 * 512, 512), "dct3_nat": (512 * 512, 512),
                    "c2c_rows": (512 * 512, 512), "c2c_dense_rows": (256 * 256, 256),
-                   "c2c_dense_mid": (1, 256, 256 * 256)}
+                   "c2c_dense_mid": (1, 256, 256 * 256), "r2c_mid": (1, 512, 512 * 512),
+                   "c2r_mid": (1, 257, 512 * 512), "r2c_dense_mid": (1, 256, 256 * 256),
+                   "c2r_dense_mid": (1, 129, 256 * 256)}
 
     def time_kernel(name, shape, kern, plain, library=None):
         t_plain = cuda_ms(plain, reps)
@@ -566,7 +675,7 @@ def main() -> int:
              library_ms=t_lib, card=card)
 
     for shape in ((1, 512, 257), (1, 1024, 513), (512, 512, 257), (1, 512, 512 * 257),
-                  (1, 1024, 1024), (512, 512, 512), (1, 512, 512 * 512)):
+                  (1, 1024, 1024), (512, 512, 512), (1, 512, 512 * 512), (257, 512, 512)):
         x = crandn(*shape)
         s = 1.0 / shape[1]
         time_kernel("c2c_axis_mid", shape, lambda: kfft.c2c_axis_mid(x, +1, s),
@@ -614,11 +723,12 @@ def main() -> int:
 
     for name, kern, plain, shapes in (
             ("c2c_rows", kfft.c2c_rows, kfft.c2c_rows_plain,
-             ((1024, 1024), (512 * 512, 512))),
+             ((1024, 1024), (512 * 512, 512), (257 * 512, 512))),
             ("c2c_dense_rows", kfft.c2c_dense_rows, kfft.c2c_dense_rows_plain,
-             ((128, 256), (256 * 256, 256))),
+             ((128, 256), (256 * 256, 256), (129 * 256, 256))),
             ("c2c_dense_mid", kfft.c2c_dense_mid, kfft.c2c_dense_mid_plain,
-             ((1, 128, 128), (1, 264, 264), (256, 256, 256), (1, 256, 256 * 256)))):
+             ((1, 128, 128), (1, 264, 264), (256, 256, 256), (1, 256, 256 * 256),
+              (129, 256, 256)))):
         for shape in shapes:
             x = crandn(*shape)
             dim = -1 if len(shape) == 2 else 1
@@ -640,6 +750,42 @@ def main() -> int:
         t_torch = cuda_ms(lambda: torch.fft.fft(x, dim=0), reps)
         emit(phase="time", fft2d_axis0=[n, n], ms=t_port, torch_fft_ms=t_torch, card=card)
     del fft2d_inputs
+    torch.cuda.empty_cache()
+
+    # the middle-axis R2C/C2R kernels, the real-axis-first steps and rfft2d
+    for r2c_name, c2r_name, r2c, r2c_plain, c2r, c2r_plain, shapes in (
+            ("r2c_mid", "c2r_mid", krfft.r2c_mid, krfft.r2c_mid_plain, krfft.c2r_mid,
+             krfft.c2r_mid_plain, ((1, 512, 512), (1, 1024, 1024), (512, 512, 512),
+                                   (1, 512, 512 * 512))),
+            ("r2c_dense_mid", "c2r_dense_mid", krfft.r2c_dense_mid,
+             krfft.r2c_dense_mid_plain, krfft.c2r_dense_mid, krfft.c2r_dense_mid_plain,
+             ((1, 128, 128), (1, 264, 264), (1, 256, 256 * 256)))):
+        for nb, n, cols in shapes:
+            x = randn(nb, n, cols)
+            sp = crandn(nb, n // 2 + 1, cols)
+            time_kernel(r2c_name, (nb, n, cols), lambda: r2c(x), lambda: r2c_plain(x),
+                        lambda: torch.fft.rfft(x, dim=1))
+            time_kernel(c2r_name, (nb, n // 2 + 1, cols), lambda: c2r(sp, n, 1.0 / n),
+                        lambda: c2r_plain(sp, n, 1.0 / n),
+                        lambda: torch.fft.irfft(sp, n=n, dim=1))
+    del x, sp
+    for n, x in first_inputs.items():
+        hr, hc = nd.R2cFftHandler(n), nd.FftHandler(n)
+        torch.cuda.reset_peak_memory_stats()
+        t_port = cuda_ms(lambda: inv_first(fwd_first(x, hr, hc), hr, hc), reps, 2)
+        peak = torch.cuda.max_memory_allocated()
+        t_torch = cuda_ms(lambda: torch.fft.irfftn(torch.fft.rfftn(x, dim=(1, 2, 0)),
+                                                   s=x.shape[1:] + x.shape[:1],
+                                                   dim=(1, 2, 0)), reps, 2)
+        emit(phase="time", step_real_axis_first=[n, n, n], ms=t_port, torch_fft_ms=t_torch,
+             peak_bytes=peak, card=card)
+    del first_inputs
+    for n, x in rfft2d_inputs.items():
+        h = nd.R2cFftHandler(n)
+        t_port = cuda_ms(lambda: nd.ndfft_r2c(x, h, axis=0), reps)
+        t_torch = cuda_ms(lambda: torch.fft.rfft(x, dim=0), reps)
+        emit(phase="time", rfft2d_axis0=[n, n], ms=t_port, torch_fft_ms=t_torch, card=card)
+    del rfft2d_inputs
     torch.cuda.empty_cache()
 
     def yardstick_pair(x):
@@ -676,6 +822,14 @@ def main() -> int:
                            "ndrustfft_tpu/ops/pallas/fft.py:521"),
         "c2c_dense_mid": ("ndrustfft_tpu_torch/csrc/fft_dense.cu",
                           "ndrustfft_tpu/ops/pallas/fft.py:1565"),
+        "r2c_mid": ("ndrustfft_tpu_torch/csrc/rfft_mid.cu",
+                    "ndrustfft_tpu/ops/pallas/rfft.py:443"),
+        "c2r_mid": ("ndrustfft_tpu_torch/csrc/rfft_mid.cu",
+                    "ndrustfft_tpu/ops/pallas/rfft.py:470"),
+        "r2c_dense_mid": ("ndrustfft_tpu_torch/csrc/rfft_dense.cu",
+                          "ndrustfft_tpu/ops/pallas/rfft.py:882"),
+        "c2r_dense_mid": ("ndrustfft_tpu_torch/csrc/rfft_dense.cu",
+                          "ndrustfft_tpu/ops/pallas/rfft.py:898"),
     }
     kernels = []
     for name, (src, rep) in sources.items():

@@ -55,12 +55,17 @@ C2C_DENSE_ROWS = "c2c_dense_rows"
 C2C_DENSE_MID = "c2c_dense_mid"
 R2C_NAT = "r2c_nat"
 C2R_NAT = "c2r_nat"
+R2C_MID = "r2c_mid"
+C2R_MID = "c2r_mid"
+R2C_DENSE_MID = "r2c_dense_mid"
+C2R_DENSE_MID = "c2r_dense_mid"
 DCT_DENSE_MID = "dct_dense_mid"
 DCT2_NAT = "dct2_nat"
 DCT3_NAT = "dct3_nat"
 ENGINE = "engine"
 _RUNNABLE = (C2C_AXIS_MID, C2C_ROWS, C2C_DENSE_ROWS, C2C_DENSE_MID, R2C_NAT,
-             C2R_NAT, DCT_DENSE_MID, DCT2_NAT, DCT3_NAT, ENGINE)
+             C2R_NAT, R2C_MID, C2R_MID, R2C_DENSE_MID, C2R_DENSE_MID, DCT_DENSE_MID,
+             DCT2_NAT, DCT3_NAT, ENGINE)
 _C2C_KINDS = ("fft", "ifft")
 _R2R_KINDS = tuple(f"{f}{t}" for f in ("dct", "dst") for t in (1, 2, 3, 4))
 
@@ -80,12 +85,9 @@ UNPORTED = {
     "bluestein": ("fft.py::_kernel_axis_mid_blue and the engine's Bluestein",
                   "K11"),
     "r2c_packed": ("rfft.py::_r2c_kernel", "K15"),
-    "r2c_mid": ("rfft.py::_r2c_kernel_mid", "K16"),
-    "c2r_mid": ("rfft.py::_c2r_kernel_mid", "K17"),
-    "r2c_dense_mid": ("rfft.py::_r2c_dense_kernel", "K20"),
-    "c2r_dense_mid": ("rfft.py::_c2r_dense_kernel", "K21"),
-    "rfft_nat_wide": ("rfft.py::_r2c_kernel_nat / _c2r_kernel_nat with a "
-                      "half length outside 128 * {2, 4, 8, 16}", "K1b"),
+    "rfft_nat_wide": ("rfft.py::_r2c_kernel_nat / _c2r_kernel_nat (or "
+                      "_r2c_kernel_mid / _c2r_kernel_mid) with a half length "
+                      "outside 128 * {2, 4, 8, 16}", "K1b"),
     "r2c_packed_mid": ("rfft.py::_r2c_kernel_packed_mid", "K18"),
     "dct1_mid": ("rfft.py::_dct1_kernel_mid", "K19"),
     "dct2_mid": ("dct.py::_dct2_kernel_mid", "K25"),
@@ -102,7 +104,6 @@ _MIN_BATCH = 128         # engine.c2c / r2c / c2r
 _MAX_N = 65536           # fft._MAX_N
 _VMEM_MAX_N = int(0.8 * 100 * 1024 * 1024) // (8 * 128 * 4)  # fft._LIVE_COPIES bound
 _FOURSTEP_MAX_N = 1 << 22
-_DENSE_RFFT_MAX = 1100   # rfft._DENSE_RFFT_MAX
 _DENSE_DCT_MAX = 1100    # dct._DENSE_DCT_MAX
 _BLUE_MAX_M = 16384      # fft._BLUE_MAX_M
 _BLUE_VMEM_M = int(0.8 * 100 * 1024 * 1024) // (12 * 128 * 4)   # fft.blue_mid_supported
@@ -251,8 +252,9 @@ def _mid_dims(shape, axis):
 def _route(kind: str, shape, axis: int, dtype: torch.dtype, device_type: str,
            n: int | None = None) -> str:
     """The route of one call: one of the ported kernels' routes (C2C_AXIS_MID,
-    C2C_ROWS, C2C_DENSE_ROWS, C2C_DENSE_MID, R2C_NAT, C2R_NAT, DCT_DENSE_MID,
-    DCT2_NAT, DCT3_NAT) or ENGINE.
+    C2C_ROWS, C2C_DENSE_ROWS, C2C_DENSE_MID, R2C_NAT, C2R_NAT, R2C_MID,
+    C2R_MID, R2C_DENSE_MID, C2R_DENSE_MID, DCT_DENSE_MID, DCT2_NAT, DCT3_NAT)
+    or ENGINE.
 
     ``kind`` is "fft", "ifft", "r2c", "c2r", "dct1".."dct4" or
     "dst1".."dst4"; ``shape``, ``axis`` and ``dtype`` are the input's; ``n``
@@ -268,10 +270,8 @@ def _route(kind: str, shape, axis: int, dtype: torch.dtype, device_type: str,
     else:
         if n is None:
             n = shape[axis] if kind != "c2r" else 2 * (shape[axis] - 1)
-        if factorize(n) is None:
-            route = "bluestein"
-        elif dtype not in (torch.float32, torch.complex64):
-            route = ENGINE
+        if dtype not in (torch.float32, torch.complex64):
+            route = ENGINE if factorize(n) is not None else "bluestein"
         else:
             route = _route_f32(kind, shape, axis, n)
             if kind in _C2C_KINDS:
@@ -306,9 +306,31 @@ def _c2c_kernel_route(route: str, n: int) -> str:
     return route
 
 
+def _rfft_mid(kind: str, n: int):
+    """Route of a float32 R2C/C2R along a middle axis with >= 128 columns
+    (the JAX package's rfft_nat_supported, then rfft_dense_mid_supported):
+    K16/K17 for a natural-layout half length whose factor the core takes,
+    else K1b; K20/K21 for 4 <= n <= 1100 (any n, Bluestein lengths
+    included: the dense product needs no plan); else None."""
+    f = _nat_f(n)
+    if f is not None:
+        if f not in _kfft.CORE_F:
+            return "rfft_nat_wide"
+        return R2C_MID if kind == "r2c" else C2R_MID
+    if _krfft.DENSE_MIN_N <= n <= _krfft.DENSE_MAX_N:
+        return R2C_DENSE_MID if kind == "r2c" else C2R_DENSE_MID
+    return None
+
+
 def _route_f32(kind, shape, axis, n):
     dims = _mid_dims(shape, axis)
     batch = math.prod(shape) // max(shape[axis], 1)
+    if kind in ("r2c", "c2r") and dims is not None:
+        route = _rfft_mid(kind, n)
+        if route is not None:
+            return route
+    if factorize(n) is None:
+        return "bluestein"
     if kind in ("fft", "ifft"):
         if dims is not None and _kernel_ok(n):
             ts = _twostep_split(n)
@@ -321,11 +343,6 @@ def _route_f32(kind, shape, axis, n):
         return _lane_c2c(n, batch)
     f = _nat_f(n)
     if kind == "r2c":
-        if dims is not None:
-            if f is not None:
-                return "r2c_mid"
-            if 4 <= n <= _DENSE_RFFT_MAX:
-                return "r2c_dense_mid"
         if n % 2:
             return _lane_c2c(n, (batch + 1) // 2 if batch >= 2 else 1)
         if batch >= _MIN_BATCH and f is not None:
@@ -336,11 +353,6 @@ def _route_f32(kind, shape, axis, n):
     if kind == "c2r":
         if n == 1:
             return ENGINE
-        if dims is not None:
-            if f is not None:
-                return "c2r_mid"
-            if 4 <= n <= _DENSE_RFFT_MAX:
-                return "c2r_dense_mid"
         if batch >= _MIN_BATCH and f is not None:
             return C2R_NAT if f in _kfft.CORE_F else "rfft_nat_wide"
         return _lane_c2c(n, batch)
@@ -490,6 +502,12 @@ def _r2c_impl(x, handler, axis):
     n, m = handler.n, handler.m
     route = _route("r2c", x.shape, axis, x.dtype, x.device.type)
     _plan_log("r2c", n, axis, route)
+    if route in (R2C_MID, R2C_DENSE_MID):
+        # along a middle axis in place: no moveaxis, as the JAX package does
+        nb, cols = _mid_dims(x.shape, axis)
+        fn = _krfft.r2c_mid if route == R2C_MID else _krfft.r2c_dense_mid
+        y = fn(x.reshape(nb, n, cols).contiguous())
+        return y.reshape(x.shape[:axis] + (m,) + x.shape[axis + 1:])
     xm = x.movedim(axis, -1)
     if route == R2C_NAT:
         lead = xm.shape[:-1]
@@ -517,6 +535,11 @@ def _c2r_impl(xhat, handler, axis):
         scale = norm.value
     route = _route("c2r", xhat.shape, axis, xhat.dtype, xhat.device.type, n=n)
     _plan_log("c2r", n, axis, route)
+    if route in (C2R_MID, C2R_DENSE_MID):
+        nb, cols = _mid_dims(xhat.shape, axis)
+        fn = _krfft.c2r_mid if route == C2R_MID else _krfft.c2r_dense_mid
+        y = fn(xhat.reshape(nb, m, cols).contiguous(), n, scale)
+        return y.reshape(xhat.shape[:axis] + (n,) + xhat.shape[axis + 1:])
     sm = xhat.movedim(axis, -1)
     if route == C2R_NAT:
         lead = sm.shape[:-1]

@@ -62,8 +62,8 @@ def test_step_runs_on_the_kernels(dev):
 
 
 def test_unported_route_and_grad_raise(dev):
-    with pytest.raises(NotImplementedError, match="_r2c_kernel_mid"):
-        nd.ndfft_r2c(torch.zeros(512, 512, device=dev), axis=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item K15"):
+        nd.ndfft_r2c(torch.zeros(256, 256, device=dev), axis=1)
     with pytest.raises(NotImplementedError, match="autograd"):
         nd.ndfft_r2c(torch.zeros(512, 512, device=dev, requires_grad=True), axis=1)
     y = nd.ndfft(torch.ones(4, 8, dtype=torch.complex128, device=dev), axis=1)
@@ -143,3 +143,39 @@ def test_complex_transform_runs_on_the_kernels(dev):
     assert _rel(w.to(torch.complex128), torch.fft.fftn(z.to(torch.complex128))) <= 1e-5
     with pytest.raises(NotImplementedError, match="inner C2C of this r2c lowering"):
         nd.ndfft_r2c(torch.zeros(256, 201, device=dev), axis=1)
+
+
+def test_mid_rfft_kernels_match_plain(dev):
+    g = torch.Generator(device=dev).manual_seed(4)
+    for shape in ((2, 512, 130), (1, 1024, 257), (3, 2048, 200), (2, 4096, 130)):
+        nb, n, cols = shape
+        x = torch.randn(*shape, generator=g, device=dev)
+        assert _rel(krfft.r2c_mid(x), krfft.r2c_mid_plain(x)) <= TOL
+        s = torch.view_as_complex(torch.randn(nb, n // 2 + 1, cols, 2, generator=g, device=dev))
+        for scale in (None, 1 / n):
+            assert _rel(krfft.c2r_mid(s, n, scale), krfft.c2r_mid_plain(s, n, scale)) <= TOL
+    for shape in ((1, 128, 128), (2, 201, 130), (1, 264, 264), (1, 1100, 130)):
+        nb, n, cols = shape
+        x = torch.randn(*shape, generator=g, device=dev)
+        assert _rel(krfft.r2c_dense_mid(x), krfft.r2c_dense_mid_plain(x)) <= TOL
+        s = torch.view_as_complex(torch.randn(nb, n // 2 + 1, cols, 2, generator=g, device=dev))
+        for scale in (None, 1 / n):
+            assert _rel(krfft.c2r_dense_mid(s, n, scale),
+                        krfft.c2r_dense_mid_plain(s, n, scale)) <= TOL
+
+
+def test_rfft2d_runs_on_the_mid_kernels(dev):
+    g = torch.Generator(device=dev).manual_seed(5)
+    fns = (krfft.r2c_mid, krfft.c2r_mid, krfft.r2c_dense_mid, krfft.c2r_dense_mid)
+    for n, want in ((128, [0, 0, 1, 1]), (264, [0, 0, 1, 1]), (512, [1, 1, 0, 0]),
+                    (1024, [1, 1, 0, 0])):
+        x = torch.randn(n, n, generator=g, device=dev)
+        h = nd.R2cFftHandler(n)
+        before = [f.launches for f in fns]
+        y = nd.ndfft_r2c(x, h, axis=0)
+        back = nd.ndifft_r2c(y, h, axis=0)
+        assert [f.launches - b for f, b in zip(fns, before)] == want
+        assert _rel(y.to(torch.complex128), torch.fft.rfft(x.double(), dim=0)) <= 1e-5
+        assert _rel(back, x) <= 1e-5
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item K1b"):
+        nd.ndfft_r2c(torch.zeros(768, 256, device=dev), axis=0)

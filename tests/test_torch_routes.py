@@ -54,6 +54,27 @@ C64, F32 = torch.complex64, torch.float32
     ("fft", (130, 2), 1, C64, None, api.C2C_DENSE_ROWS),
     ("fft", (3, 500, 130), 1, C64, None, api.C2C_DENSE_MID),   # no split, n <= 512
     ("fft", (512, 256, 64), 1, C64, None, api.C2C_DENSE_ROWS),  # cols < 128: axis moves
+    # R2C/C2R along a middle axis: the reference's rfft2d protocol along
+    # axis 0 (K20/K21 at 128 and 264, K16/K17 at 512 and 1024), the R2C and
+    # C2R legs of the 512^3 and 256^3 steps with the real axis first, axis 1
+    # of 512^3, F = 16 and odd n
+    ("r2c", (128, 128), 0, F32, None, api.R2C_DENSE_MID),
+    ("c2r", (65, 128), 0, C64, 128, api.C2R_DENSE_MID),
+    ("r2c", (264, 264), 0, F32, None, api.R2C_DENSE_MID),
+    ("c2r", (133, 264), 0, C64, 264, api.C2R_DENSE_MID),
+    ("r2c", (512, 512), 0, F32, None, api.R2C_MID),
+    ("c2r", (257, 512), 0, C64, 512, api.C2R_MID),
+    ("r2c", (1024, 1024), 0, F32, None, api.R2C_MID),
+    ("c2r", (513, 1024), 0, C64, 1024, api.C2R_MID),
+    ("r2c", (512, 512, 512), 0, F32, None, api.R2C_MID),
+    ("c2r", (257, 512, 512), 0, C64, 512, api.C2R_MID),
+    ("r2c", (256, 256, 256), 0, F32, None, api.R2C_DENSE_MID),
+    ("c2r", (129, 256, 256), 0, C64, 256, api.C2R_DENSE_MID),
+    ("r2c", (512, 512, 512), 1, F32, None, api.R2C_MID),
+    ("r2c", (3, 4096, 130), 1, F32, None, api.R2C_MID),
+    ("c2r", (2, 101, 130), 1, C64, 201, api.C2R_DENSE_MID),
+    ("r2c", (131, 130), 0, F32, None, api.R2C_DENSE_MID),     # a Bluestein length
+    ("r2c", (512, 512, 100), 1, F32, None, api.R2C_NAT),       # cols < 128: axis moves
 ])
 def test_route_on_cuda(kind, shape, axis, dtype, n, want):
     assert api._route(kind, shape, axis, dtype, "cuda", n=n) == want
@@ -71,11 +92,13 @@ def test_route_on_cuda(kind, shape, axis, dtype, n, want):
      "K8 (n > 256 without a split)"),
     ("fft", (2, 1 << 17), 1, None, "_kernel_exit_mul", "K7"),
     ("fft", (509, 256), 0, None, "_kernel_axis_mid_blue", "K11"),
-    ("r2c", (512, 512), 0, None, "_r2c_kernel_mid", "K16"),
+    # a middle axis whose half length has a factor outside the core's
+    # {2, 4, 8, 16}: F = 3 (n = 768) and F = 32 (n = 8192)
+    ("r2c", (768, 256), 0, None, "_r2c_kernel_mid", "K1b"),
     ("r2c", (256, 256), 1, None, "_r2c_kernel", "K15"),
-    ("r2c", (129, 256), 0, None, "_r2c_dense_kernel", "K20"),
-    ("c2r", (257, 512), 0, 512, "_c2r_kernel_mid", "K17"),
-    ("c2r", (65, 512), 0, 128, "_c2r_dense_kernel", "K21"),
+    ("r2c", (8192, 128), 0, None, "_r2c_kernel_mid", "K1b"),
+    ("c2r", (385, 256), 0, 768, "_c2r_kernel_mid", "K1b"),
+    ("c2r", (4097, 128), 0, 8192, "_c2r_kernel_mid", "K1b"),
     ("r2c", (256, 8192), 1, None, "_r2c_kernel_nat", "K1b"),
 ])
 def test_unported_route_raises_on_cuda(kind, shape, axis, n, kernel, item):
