@@ -35,6 +35,17 @@ without the final line):
         axes 1 and 2, and the inverse chain), against torch.fft.rfft(dim=0)
         and torch.fft.rfftn(dim=(1, 2, 0)) in float64 (oracle only), with
         the round trip;
+     e. the lane lowerings along the last axis: the 256^3 and 128^3 real
+        steps (R2C along axis 2 on kernel 15, C2C along axes 1 and 0, the
+        inverse chain with the C2R's Hermitian extension on kernel 8) and
+        the odd 129^3 R2C/C2R (row pairs on kernel 8) against
+        torch.fft.rfftn / rfft in float64 (oracle only), with the round
+        trip; the Chebyshev DCT-I on all three axes of 129^3 and along the
+        last axis of n x n (n = 129, 513, 1025) with DST-I beside it (kernel
+        15 on the core), DCT-IV/DST-IV along the last axis of 1024^2 and
+        512^3 (kernel 10), DCT-III and DCT-II of 200^2 (kernel 8, kernel
+        15's dense product), against scipy.fft in float64; and a DCT-I at
+        n = 265 (kernel 8 at n > 256 without a split) still raises;
   5. times with CUDA events (median over --reps runs after warm-up): each
      kernel against its plain version and, where one PyTorch call computes
      the same function, that call (the yardstick, never on the port's
@@ -43,7 +54,10 @@ without the final line):
      torch.fft Makhoul lowering, the complex paths against
      torch.fft.fftn / ifftn, the real-axis-first steps against
      torch.fft.rfftn / irfftn over the same dims and the rfft2d forward
-     against torch.fft.rfft(dim=0).
+     against torch.fft.rfft(dim=0), the real-axis-last 256^3 and 128^3
+     steps against torch.fft.rfftn / irfftn, each with its public calls
+     timed one by one and the C2R's Hermitian extension and kernel 8
+     apart.
 The kernels line gives each kernel's launches on its main path, its largest
 error against its plain version, its times, and its bound: the larger of
 the bytes it must move (each input read once, each output written once)
@@ -67,6 +81,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 TOL_KERNEL = 5e-6    # kernel vs plain, relative to max |plain| (both float32)
+TOL_PACKED = 2e-6    # kernel 15 vs plain: sums of at most 2048 terms
 TOL_STEP = 1e-5      # step vs float64 oracle and round trip, relative
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, 700 W
 FP32_FLOP_PER_S = 67e12     # FP32 outside the tensor cores, same source
@@ -112,10 +127,14 @@ def work(name: str, shape):
     if name == "c2c_axis_mid":
         b, n, cols = shape
         return 16 * b * n * cols + 8 * n * 128, 5 * n * math.log2(n) * b * cols
-    if name in ("r2c_nat", "c2r_nat"):
+    if name in ("r2c_nat", "c2r_nat", "r2c_packed"):
         t, w = shape
-        n = w if name == "r2c_nat" else 2 * (w - 1)
+        n = w if name != "c2r_nat" else 2 * (w - 1)
         return 4 * t * n + 8 * t * (n // 2 + 1) + 8 * n * 64, 2.5 * n * math.log2(n) * t
+    if name == "r2c_packed_dense":
+        t, n = shape            # kernel 20's (n, 2m) float32 table
+        m = n // 2 + 1
+        return 4 * t * n + 8 * t * m + 4 * n * 2 * m, 2.5 * n * math.log2(n) * t
     if name == "dct_dense_mid":
         b, n, cols = shape
         return 8 * b * n * cols + 4 * n * n, 2 * n * n * b * cols
@@ -242,7 +261,8 @@ def main() -> int:
     errs = {"c2c_axis_mid": 0.0, "r2c_nat": 0.0, "c2r_nat": 0.0,
             "dct_dense_mid": 0.0, "dct2_nat": 0.0, "dct3_nat": 0.0,
             "c2c_rows": 0.0, "c2c_dense_rows": 0.0, "c2c_dense_mid": 0.0,
-            "r2c_mid": 0.0, "c2r_mid": 0.0, "r2c_dense_mid": 0.0, "c2r_dense_mid": 0.0}
+            "r2c_mid": 0.0, "c2r_mid": 0.0, "r2c_dense_mid": 0.0, "c2r_dense_mid": 0.0,
+            "r2c_packed": 0.0, "r2c_packed_dense": 0.0}
     k1_shapes = [(1, 512, 257), (1, 1024, 513), (3, 2048, 130), (512, 512, 257),
                  (1, 512, 512 * 257), (1, 512, 512), (1, 1024, 1024), (512, 512, 512),
                  (1, 512, 512 * 512), (257, 512, 512)]
@@ -372,6 +392,30 @@ def main() -> int:
                 del got, ref
             del x, s
 
+    # kernel 15: the core at every factor F = 1 ... 16 and the dense product,
+    # at ragged row counts and at the main paths' shapes (phase 4e)
+    packed_checks = (
+        ("r2c_packed", krfft.r2c_packed, krfft.r2c_packed_plain,
+         ((7, 256), (130, 512), (3, 1024), (33, 2048), (5, 4096), (256 * 256, 256),
+          (129 * 129, 256), (129, 256), (513, 1024), (1025, 2048), (256, 256),
+          (511, 1024))),
+        ("r2c_packed_dense", krfft.r2c_packed_dense, krfft.r2c_packed_dense_plain,
+         ((130, 128), (128 * 128, 128), (131, 258), (3, 200), (200, 200), (7, 2),
+          (129, 512))),
+    )
+    for name, kern, plain, shapes in packed_checks:
+        for shape in shapes:
+            x = randn(*shape)
+            got = kern(x)
+            ref = plain(x)
+            torch.cuda.synchronize()
+            rel = abs_err(got, ref) / float(ref.abs().max())
+            errs[name] = max(errs[name], abs_err(got, ref))
+            emit(phase="kernel_vs_plain", kernel=name, shape=shape, rel_err=rel)
+            if not rel <= TOL_PACKED:
+                raise AssertionError(f"{name} {shape}: {rel}")
+            del x, got, ref
+
     # ---- 4a. the spectral step through the public functions
     def step2(x, hr, hc):
         vhat = nd.ndfft(nd.ndfft_r2c(x, hr, axis=1), hc, axis=0)
@@ -390,14 +434,13 @@ def main() -> int:
                 "c2c_rows": kfft.c2c_rows, "c2c_dense_rows": kfft.c2c_dense_rows,
                 "c2c_dense_mid": kfft.c2c_dense_mid, "r2c_mid": krfft.r2c_mid,
                 "c2r_mid": krfft.c2r_mid, "r2c_dense_mid": krfft.r2c_dense_mid,
-                "c2r_dense_mid": krfft.c2r_dense_mid}
-    engine_fns = (engine.c2c, engine.r2c, engine.c2r)
+                "c2r_dense_mid": krfft.c2r_dense_mid, "r2c_packed": krfft.r2c_packed,
+                "r2c_packed_dense": krfft.r2c_packed_dense}
 
     def reset_counts():
         for w in wrappers.values():
             w.launches = 0
-        for f in engine_fns:
-            f.calls = 0
+        engine.c2c.calls = 0     # the torch engine's runs, every lowering's
 
     launches = dict.fromkeys(wrappers, 0)   # the sum over the main paths
 
@@ -407,7 +450,7 @@ def main() -> int:
         torch.cuda.synchronize()
         got = {k: w.launches for k, w in wrappers.items()}
         want = {k: expected.get(k, 0) for k in wrappers}
-        engine_calls = sum(f.calls for f in engine_fns)
+        engine_calls = engine.c2c.calls
         emit(phase="main_path", path=path, launches=got, engine_calls=engine_calls)
         if got != want or engine_calls:
             raise AssertionError(f"{path}: launches {got} (expected {want}), "
@@ -652,6 +695,107 @@ def main() -> int:
         del v, back
         torch.cuda.empty_cache()
 
+    # ---- 4e. the lane lowerings along the last axis: the real steps with
+    # the real axis last (kernel 15, then kernel 8 after the C2R's Hermitian
+    # extension), the odd grid's row pairs, the Chebyshev DCT-I / DST-I and
+    # the DCT-II/III/IV lanes
+    def check_lane(what, got, ref, back=None, x=None, **kw):
+        fwd = rel_err(got, ref)
+        rt = abs_err(back, x) / float(x.abs().max()) if back is not None else None
+        emit(phase="lane_path", check=what, fwd_rel_err=fwd, roundtrip_rel_err=rt,
+             finite=bool(torch.isfinite(torch.view_as_real(got) if got.is_complex()
+                                         else got).all()), shape=list(got.shape), **kw)
+        if not (fwd <= TOL_STEP and (rt is None or rt <= TOL_STEP)):
+            raise AssertionError(f"{what} {kw}: fwd {fwd}, round trip {rt}")
+
+    # grid -> expected launches: 256^3 K15 on the core (h = 128, 65536
+    # rows), K4 at (256, 256, 129) and (1, 256, 33024), K8 on 65536 rows
+    # after the extension; 128^3 K15's dense product (h = 64, 16384 rows),
+    # K8 on 8320 rows (axis 1 has 65 < 128 columns and moves), K4 at
+    # (1, 128, 8320), K8 on 16384 rows after the extension
+    last_grids = {256: dict(r2c_packed=1, c2c_dense_mid=4, c2c_dense_rows=1),
+                  128: dict(r2c_packed_dense=1, c2c_dense_rows=3, c2c_dense_mid=2)}
+    last_inputs = {}
+    for n, expected in last_grids.items():
+        x = randn(n, n, n)
+        hr, hc = nd.R2cFftHandler(n), nd.FftHandler(n)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        v = fwd3(x, hr, hc)
+        back = inv3(v, hr, hc)
+        read_counts(f"real_axis_last_{n}^3", **expected)
+        peak = torch.cuda.max_memory_allocated()
+        check_lane("step_real_axis_last", v, torch.fft.rfftn(x.double()), back, x,
+                   grid=[n, n, n], peak_bytes=peak, base_bytes=base)
+        last_inputs[n] = x
+        del v, back
+        torch.cuda.empty_cache()
+
+    # the odd grid: R2C of 16641 rows of 129 as 8321 row pairs on K8, and the
+    # C2R's extension on K8
+    xo3 = randn(129, 129, 129)
+    h129 = nd.R2cFftHandler(129)
+    reset_counts()
+    vo = nd.ndfft_r2c(xo3, h129, axis=2)
+    backo = nd.ndifft_r2c(vo, h129, axis=2)
+    read_counts("odd_129^3", c2c_dense_rows=2)
+    check_lane("r2c_odd_last", vo, torch.fft.rfft(xo3.double(), dim=2), backo, xo3,
+               grid=[129, 129, 129])
+    del vo, backo
+
+    # Chebyshev: DCT-I along every axis of 129^3 (K27 on axes 0 and 1, K15
+    # at h = 128 on axis 2) and along the last axis of n x n at h = 128,
+    # 512, 1024; DST-I at n = 127 (h = 128) and 511 (h = 512)
+    cheb = {n: randn(n, n) for n in (129, 513, 1025)}
+    dst_in = {127: randn(256, 127), 511: randn(511, 511)}
+    h129d = nd.DctHandler(129)
+    reset_counts()
+    c3 = nd.nddct1(nd.nddct1(nd.nddct1(xo3, h129d, axis=0), h129d, axis=1), h129d, axis=2)
+    cheb_out = {n: nd.nddct1(x, nd.DctHandler(n), axis=1) for n, x in cheb.items()}
+    dst_out = {n: nd.nddst1(x, nd.DstHandler(n), axis=1) for n, x in dst_in.items()}
+    read_counts("chebyshev", dct_dense_mid=2, r2c_packed=1 + 3 + 2)
+    check("dct1_129^3_all_axes", c3, sfft.dctn(host64(xo3), type=1), grid=[129] * 3)
+    for n, y in cheb_out.items():
+        check("dct1_last_axis", y, sfft.dct(host64(cheb[n]), type=1, axis=1), grid=[n, n])
+    for n, y in dst_out.items():
+        check("dst1_last_axis", y, sfft.dst(host64(dst_in[n]), type=1, axis=1),
+              grid=list(dst_in[n].shape))
+    del c3, cheb_out, dst_out, xo3
+    try:
+        nd.nddct1(randn(265, 265), axis=1)
+    except NotImplementedError as e:    # K15 at h = 264: K8 wide, not ported
+        emit(phase="lane_path", check="dct1_265_raises", error=str(e))
+        if "K8 (n > 256 without a split)" not in str(e):
+            raise
+    else:
+        raise AssertionError("nddct1 at n = 265 along the last axis ran on the card")
+
+    # the DCT lanes: DCT-IV / DST-IV of 1024^2 (K10 on 2048 rows of 1024)
+    # and DCT-IV of 512^3 (K10 on 524288 rows of 512, a 2.1 GB intermediate);
+    # DCT-III of 200^2 (K8 on 200 rows) and DCT-II of 200^2 (K15's dense
+    # product at h = 100)
+    x200 = randn(200, 200)
+    x4 = randn(512, 512, 512)
+    hd512 = nd.DctHandler(512)
+    hd1024, hs1024 = nd.DctHandler(1024), nd.DstHandler(1024)
+    reset_counts()
+    d4 = nd.nddct4(xp, hd1024, axis=1)
+    s4 = nd.nddst4(xp, hs1024, axis=1)
+    d4_3 = nd.nddct4(x4, hd512, axis=2)
+    d3 = nd.nddct3(x200, axis=1)
+    d2 = nd.nddct2(x200, axis=1)
+    read_counts("dct_lanes", c2c_rows=3, c2c_dense_rows=1, r2c_packed_dense=1)
+    check("dct4_last_axis", d4, sfft.dct(x64, type=4, axis=1), grid=[1024, 1024])
+    check("dst4_last_axis", s4, sfft.dst(x64, type=4, axis=1), grid=[1024, 1024])
+    check("dct4_512^3_last_axis", d4_3,
+          sfft.dct(host64(x4), type=4, axis=2, workers=os.cpu_count()), grid=[512] * 3)
+    check("dct3_last_axis", d3, sfft.dct(host64(x200), type=3, axis=1), grid=[200, 200])
+    check("dct2_last_axis", d2, sfft.dct(host64(x200), type=2, axis=1), grid=[200, 200])
+    del d4, s4, d4_3, d3, d2, x4
+    torch.cuda.empty_cache()
+
     # ---- 5. times: each kernel against its plain version and, at the main
     # path's shape, the PyTorch call that computes the same function (the
     # yardstick); the steps against torch.fft
@@ -663,7 +807,8 @@ def main() -> int:
                    "c2c_rows": (512 * 512, 512), "c2c_dense_rows": (256 * 256, 256),
                    "c2c_dense_mid": (1, 256, 256 * 256), "r2c_mid": (1, 512, 512 * 512),
                    "c2r_mid": (1, 257, 512 * 512), "r2c_dense_mid": (1, 256, 256 * 256),
-                   "c2r_dense_mid": (1, 129, 256 * 256)}
+                   "c2r_dense_mid": (1, 129, 256 * 256), "r2c_packed": (256 * 256, 256),
+                   "r2c_packed_dense": (128 * 128, 128)}
 
     def time_kernel(name, shape, kern, plain, library=None):
         t_plain = cuda_ms(plain, reps)
@@ -780,6 +925,47 @@ def main() -> int:
         emit(phase="time", step_real_axis_first=[n, n, n], ms=t_port, torch_fft_ms=t_torch,
              peak_bytes=peak, card=card)
     del first_inputs
+    # kernel 15 and the real-axis-last steps
+    for name, kern, plain, shapes in (
+            ("r2c_packed", krfft.r2c_packed, krfft.r2c_packed_plain,
+             ((256 * 256, 256), (129 * 129, 256), (1025, 2048))),
+            ("r2c_packed_dense", krfft.r2c_packed_dense, krfft.r2c_packed_dense_plain,
+             ((128 * 128, 128), (200, 200)))):
+        for shape in shapes:
+            x = randn(*shape)
+            time_kernel(name, shape, lambda: kern(x), lambda: plain(x),
+                        lambda: torch.fft.rfft(x, dim=1))
+    del x
+    for n, x in last_inputs.items():
+        hr, hc = nd.R2cFftHandler(n), nd.FftHandler(n)
+        torch.cuda.reset_peak_memory_stats()
+        t_port = cuda_ms(lambda: inv3(fwd3(x, hr, hc), hr, hc), reps, 2)
+        peak = torch.cuda.max_memory_allocated()
+        t_torch = cuda_ms(lambda: torch.fft.irfftn(torch.fft.rfftn(x), s=x.shape), reps, 2)
+        emit(phase="time", step_real_axis_last=[n, n, n], ms=t_port, torch_fft_ms=t_torch,
+             peak_bytes=peak, card=card)
+        # where the step's time goes: each public call on its own input, and
+        # the C2R's two parts (the Hermitian extension, then K8)
+        a = nd.ndfft_r2c(x, hr, axis=2)
+        b = nd.ndfft(a, hc, axis=1)
+        v = nd.ndfft(b, hc, axis=0)
+        w0 = nd.ndifft(v, hc, axis=0)
+        w = nd.ndifft(w0, hc, axis=1)
+        e = engine.hermitian_extension(w, n).reshape(-1, n)
+        legs = {"r2c_axis2": lambda: nd.ndfft_r2c(x, hr, axis=2),
+                "fft_axis1": lambda: nd.ndfft(a, hc, axis=1),
+                "fft_axis0": lambda: nd.ndfft(b, hc, axis=0),
+                "ifft_axis0": lambda: nd.ndifft(v, hc, axis=0),
+                "ifft_axis1": lambda: nd.ndifft(w0, hc, axis=1),
+                "c2r_axis2": lambda: nd.ndifft_r2c(w, hr, axis=2),
+                "c2r_extension": lambda: engine.hermitian_extension(w, n),
+                "c2r_k8": lambda: kfft.c2c_dense_rows(e, +1, 1.0 / n)}
+        leg_ms = {k: cuda_ms(f, reps) for k, f in legs.items()}
+        emit(phase="time", breakdown=f"step_real_axis_last_{n}^3", step_ms=t_port,
+             legs_ms=leg_ms, sum_public_ms=sum(leg_ms[k] for k in list(legs)[:6]),
+             card=card)
+        del a, b, v, w0, w, e
+    del last_inputs
     for n, x in rfft2d_inputs.items():
         h = nd.R2cFftHandler(n)
         t_port = cuda_ms(lambda: nd.ndfft_r2c(x, h, axis=0), reps)
@@ -830,6 +1016,10 @@ def main() -> int:
                           "ndrustfft_tpu/ops/pallas/rfft.py:882"),
         "c2r_dense_mid": ("ndrustfft_tpu_torch/csrc/rfft_dense.cu",
                           "ndrustfft_tpu/ops/pallas/rfft.py:898"),
+        "r2c_packed": ("ndrustfft_tpu_torch/csrc/rfft_nat.cu",
+                       "ndrustfft_tpu/ops/pallas/rfft.py:163"),
+        "r2c_packed_dense": ("ndrustfft_tpu_torch/csrc/rfft_dense.cu",
+                             "ndrustfft_tpu/ops/pallas/rfft.py:163"),
     }
     kernels = []
     for name, (src, rep) in sources.items():

@@ -14,11 +14,13 @@ twostep split with m <= 128), so that every route has a JAX counterpart:
   ``ROADMAP.md`` item, and runs the torch engine on a CPU tensor;
 * a route whose JAX counterpart is the XLA engine runs the torch engine.
 
-A route name is runnable per kind, not globally: the C2C kernels of the
-lane-last and dense routes (K10, K8, K4) serve ``ndfft``/``ndifft`` only.
-The other kinds' lowerings that reach those names for an inner C2C (odd-n
-R2C, C2R without a natural-layout factor, the DCT lanes) still raise on a
-CUDA tensor.
+The gates and the route names live in ``gates.py``. The other kinds' lane
+lowerings take one route name each: R2C_PACKED (the packed R2C, K15, of R2C,
+DCT-I, DST-I and DCT-II rows), R2C_ROWPAIR (odd-length R2C and DCT-II rows
+paired into one C2C), C2R_LANE (the Hermitian extension and its C2C) and
+DCT_LANE (the DCT-III/IV lowerings' C2C); each C2C is K10 or K8. The route
+and the lowering in ``ops/engine.py`` are decided by the same function of
+``gates.py``; the launch counters show which kernel ran.
 
 A non-tensor input (numpy array, list, scalar) goes to the CUDA device, as
 the JAX package puts it on its default device; a CPU tensor is how a caller
@@ -34,6 +36,13 @@ from functools import lru_cache
 import torch
 
 from .config import config
+from .gates import (
+    C2C_AXIS_MID, C2C_DENSE_MID, C2C_DENSE_ROWS, C2C_ROWS, C2R_DENSE_MID, C2R_LANE,
+    C2R_MID, C2R_NAT, DCT2_NAT, DCT3_NAT, DCT_DENSE_MID, DCT_LANE, ENGINE, MIN_BATCH,
+    R2C_DENSE_MID, R2C_MID, R2C_NAT, R2C_PACKED, R2C_ROWPAIR, _c2c_kernel_route,
+    _kernel_ok, _lane_c2c, _nat_f, _twostep_split, c2r_lane_route, inner_c2c_route,
+    packed_lane, r2c_lane_route, unported,
+)
 from .handlers import DctHandler, DstHandler, FftHandler, R2cFftHandler
 from .normalization import Normalization
 from .ops import dct as _dct
@@ -48,62 +57,14 @@ __all__ = ["ndfft", "ndifft", "ndfft_r2c", "ndifft_r2c",
            "nddct1", "nddct2", "nddct3", "nddct4",
            "nddst1", "nddst2", "nddst3", "nddst4"]
 
-# routes that run a ported kernel, and the engine
-C2C_AXIS_MID = "c2c_axis_mid"
-C2C_ROWS = "c2c_rows"
-C2C_DENSE_ROWS = "c2c_dense_rows"
-C2C_DENSE_MID = "c2c_dense_mid"
-R2C_NAT = "r2c_nat"
-C2R_NAT = "c2r_nat"
-R2C_MID = "r2c_mid"
-C2R_MID = "c2r_mid"
-R2C_DENSE_MID = "r2c_dense_mid"
-C2R_DENSE_MID = "c2r_dense_mid"
-DCT_DENSE_MID = "dct_dense_mid"
-DCT2_NAT = "dct2_nat"
-DCT3_NAT = "dct3_nat"
-ENGINE = "engine"
 _RUNNABLE = (C2C_AXIS_MID, C2C_ROWS, C2C_DENSE_ROWS, C2C_DENSE_MID, R2C_NAT,
              C2R_NAT, R2C_MID, C2R_MID, R2C_DENSE_MID, C2R_DENSE_MID, DCT_DENSE_MID,
-             DCT2_NAT, DCT3_NAT, ENGINE)
+             DCT2_NAT, DCT3_NAT, R2C_PACKED, R2C_ROWPAIR, C2R_LANE, DCT_LANE, ENGINE)
 _C2C_KINDS = ("fft", "ifft")
 _R2R_KINDS = tuple(f"{f}{t}" for f in ("dct", "dst") for t in (1, 2, 3, 4))
 
-# Pallas kernels of the JAX package on routes not ported yet:
-# key -> (kernel, ROADMAP.md item)
-UNPORTED = {
-    "bts2_wide": ("fft.py::_kernel_axis_mid_bts2 with a butterfly factor "
-                  "outside {2, 4, 8, 16}", "K1b"),
-    "generic_mid": ("fft.py::_kernel_axis_mid", "K6"),
-    "fourstep": ("fft.py::_kernel_exit_mul and _kernel_lane_store_t", "K7"),
-    "lane_last": ("fft.py::_kernel_lane_last", "K8"),
-    "lane_last_wide": ("fft.py::_kernel_lane_last at n > 256",
-                       "K8 (n > 256 without a split)"),
-    "twostep": ("fft.py::_kernel_twostep", "K10"),
-    "twostep_wide": ("fft.py::_kernel_twostep with a butterfly factor outside "
-                     "{4, 8, 16}", "K1b"),
-    "bluestein": ("fft.py::_kernel_axis_mid_blue and the engine's Bluestein",
-                  "K11"),
-    "r2c_packed": ("rfft.py::_r2c_kernel", "K15"),
-    "rfft_nat_wide": ("rfft.py::_r2c_kernel_nat / _c2r_kernel_nat (or "
-                      "_r2c_kernel_mid / _c2r_kernel_mid) with a half length "
-                      "outside 128 * {2, 4, 8, 16}", "K1b"),
-    "r2c_packed_mid": ("rfft.py::_r2c_kernel_packed_mid", "K18"),
-    "dct1_mid": ("rfft.py::_dct1_kernel_mid", "K19"),
-    "dct2_mid": ("dct.py::_dct2_kernel_mid", "K25"),
-    "dct3_mid": ("dct.py::_dct3_kernel_mid", "K26"),
-    "dct23_blue_mid": ("fft.py::_kernel_axis_mid_blue_rr", "K12"),
-    "dct4_mid": ("dct.py::_dct4_kernel_mid", "K28"),
-    "dct_nat_wide": ("dct.py::_dct2_kernel / _dct3_kernel with a half length "
-                     "outside 128 * {1, 2, 4, 8, 16}", "K1b"),
-}
-
-# the JAX package's TPU gates
+# the JAX package's TPU gates beyond those of gates.py
 _MIN_COLS = 128          # api._mid_dims
-_MIN_BATCH = 128         # engine.c2c / r2c / c2r
-_MAX_N = 65536           # fft._MAX_N
-_VMEM_MAX_N = int(0.8 * 100 * 1024 * 1024) // (8 * 128 * 4)  # fft._LIVE_COPIES bound
-_FOURSTEP_MAX_N = 1 << 22
 _DENSE_DCT_MAX = 1100    # dct._DENSE_DCT_MAX
 _BLUE_MAX_M = 16384      # fft._BLUE_MAX_M
 _BLUE_VMEM_M = int(0.8 * 100 * 1024 * 1024) // (12 * 128 * 4)   # fft.blue_mid_supported
@@ -132,78 +93,8 @@ def _plan_log(kind, n, axis, route):
 
 
 # --------------------------------------------------------------------------
-# The JAX package's kernel gates, as pure functions of n
+# The JAX package's kernel gates that only the API takes
 # --------------------------------------------------------------------------
-
-
-@lru_cache(maxsize=None)
-def _twostep_split(n: int):
-    """(m, f) with m in {128, 256} dividing n and f = n/m <= 256, minimal
-    m + f; or None (fft._twostep_split)."""
-    cands = [d for d in (128, 256) if n % d == 0 and n // d <= 256]
-    if not cands:
-        return None
-    m = min(cands, key=lambda d: d + n // d)
-    return m, n // m
-
-
-@lru_cache(maxsize=None)
-def _lane_factor(n: int):
-    """fft._lane_factor: the lane DFT factor of the lane-last kernels."""
-    if n <= 256:
-        return n
-    divs = [d for d in range(1, 257) if n % d == 0]
-    preds = [lambda d: d % 128 == 0 and d >= 128]
-    if n > 1024:
-        preds.append(lambda d: d % 8 == 0 and d >= 64)
-    preds += [lambda d: d >= 64, lambda d: d > 1]
-    for pred in preds:
-        for f in sorted((d for d in divs if pred(d)), reverse=True):
-            if factorize(n // f) is not None:
-                return f
-    return None
-
-
-def _kernel_ok(n: int) -> bool:
-    """fft.pallas_supported for a float32 Cooley-Tukey plan (n <= 20480,
-    its VMEM working-set bound)."""
-    if factorize(n) is None or n < 2 or n > min(_MAX_N, _VMEM_MAX_N):
-        return False
-    f = _lane_factor(n)
-    return f is not None and not (n > 1024 and f % 8)
-
-
-def _mid_stage_ok(k: int) -> bool:
-    ts = _twostep_split(k)
-    return k <= 256 or (ts is not None and ts[0] <= MAX_BASE_RADIX)
-
-
-@lru_cache(maxsize=None)
-def _fourstep_split(n: int):
-    """fft.fourstep_split: (n1, n2) with both stages kernel-bodied, or None."""
-    best = None
-    d = 1
-    while d * d <= n:
-        if n % d == 0:
-            for n1, n2 in ((n // d, d), (d, n // d)):
-                if (n1 <= 4096 and n2 <= 16384 and _mid_stage_ok(n1)
-                        and _mid_stage_ok(n2) and _lane_factor(n2) is not None):
-                    if best is None or n1 + n2 < best[0] + best[1]:
-                        best = (n1, n2)
-        d += 1
-    return best
-
-
-def _nat_f(n: int):
-    """Butterfly factor of the half-length core of the natural-layout R2C/C2R
-    kernels for even n (rfft.rfft_nat_supported / _nat_ts), or None."""
-    h = n // 2
-    if n % 2 or n < 2 or not _kernel_ok(h):
-        return None
-    ts = _twostep_split(h)
-    if h >= 256 and ts is not None and ts[0] <= MAX_BASE_RADIX:
-        return ts[1]
-    return None
 
 
 def _ts_ok(n: int) -> bool:
@@ -221,24 +112,6 @@ def _blue_mid_ok(n: int) -> bool:
     return need <= 256 or big <= min(_BLUE_MAX_M, _BLUE_VMEM_M)
 
 
-def _lane_c2c(n: int, batch: int) -> str:
-    """Route of a float32 C2C along the last axis of (batch, n)
-    (engine.c2c): four-step beyond the single kernel's range, lane-last
-    kernels, or the engine."""
-    if n > min(_MAX_N, _VMEM_MAX_N):
-        ok = n <= _FOURSTEP_MAX_N and _fourstep_split(n) is not None
-        return "fourstep" if ok else ENGINE
-    if batch >= _MIN_BATCH and _kernel_ok(n):
-        return "twostep" if n > 256 and _twostep_split(n) else "lane_last"
-    return ENGINE
-
-
-def _lane_fft(n: int, batch: int) -> str:
-    """Route of the engine's C2C of length n over ``batch`` rows, Bluestein
-    lengths included."""
-    return "bluestein" if factorize(n) is None else _lane_c2c(n, batch)
-
-
 def _mid_dims(shape, axis):
     """(nb, cols) for the axis-mid kernels, or None when ineligible."""
     if axis >= len(shape) - 1:
@@ -253,8 +126,9 @@ def _route(kind: str, shape, axis: int, dtype: torch.dtype, device_type: str,
            n: int | None = None) -> str:
     """The route of one call: one of the ported kernels' routes (C2C_AXIS_MID,
     C2C_ROWS, C2C_DENSE_ROWS, C2C_DENSE_MID, R2C_NAT, C2R_NAT, R2C_MID,
-    C2R_MID, R2C_DENSE_MID, C2R_DENSE_MID, DCT_DENSE_MID, DCT2_NAT, DCT3_NAT)
-    or ENGINE.
+    C2R_MID, R2C_DENSE_MID, C2R_DENSE_MID, DCT_DENSE_MID, DCT2_NAT, DCT3_NAT,
+    and the lane lowerings' R2C_PACKED, R2C_ROWPAIR, C2R_LANE, DCT_LANE) or
+    ENGINE.
 
     ``kind`` is "fft", "ifft", "r2c", "c2r", "dct1".."dct4" or
     "dst1".."dst4"; ``shape``, ``axis`` and ``dtype`` are the input's; ``n``
@@ -279,31 +153,8 @@ def _route(kind: str, shape, axis: int, dtype: torch.dtype, device_type: str,
     if route in _RUNNABLE:
         return route if device_type in ("cuda", "cpu") else ENGINE
     if device_type == "cuda":
-        kernel, item = UNPORTED[route]
-        # K10/K8 serve ndfft/ndifft only; another kind's lowering that
-        # reaches them for its inner C2C is not wired through them yet
-        inner = (f" (the inner C2C of this {kind} lowering)"
-                 if kind not in _C2C_KINDS and route in ("twostep", "lane_last") else "")
-        raise NotImplementedError(
-            f"{kind} n={n} axis={axis} shape={shape}: the JAX package runs "
-            f"this{inner} on the Pallas kernel {kernel}, which has no CUDA port "
-            f"for it yet (ROADMAP.md item {item})")
+        raise unported(route, f"{kind} n={n} axis={axis} shape={shape}", kind)
     return ENGINE
-
-
-def _c2c_kernel_route(route: str, n: int) -> str:
-    """The port's route for the JAX package's C2C route of ``ndfft``/``ndifft``
-    at length n: kernel 10 for the twostep split with F in {4, 8, 16}, kernel
-    8 for the dense lane DFT (n <= 256), kernel 4 for the dense mid product;
-    else the UNPORTED key."""
-    if route == "twostep":
-        return C2C_ROWS if n % _kfft.M == 0 and n // _kfft.M in _kfft.C2C_F \
-            else "twostep_wide"
-    if route == "lane_last":
-        return C2C_DENSE_ROWS if n <= 256 else "lane_last_wide"
-    if route == "dense_mid":
-        return C2C_DENSE_MID
-    return route
 
 
 def _rfft_mid(kind: str, n: int):
@@ -341,41 +192,24 @@ def _route_f32(kind, shape, axis, n):
                 return "generic_mid"
             return C2C_AXIS_MID if ts[1] in _kfft.C2C_F else "bts2_wide"
         return _lane_c2c(n, batch)
-    f = _nat_f(n)
     if kind == "r2c":
-        if n % 2:
-            return _lane_c2c(n, (batch + 1) // 2 if batch >= 2 else 1)
-        if batch >= _MIN_BATCH and f is not None:
-            return R2C_NAT if f in _kfft.CORE_F else "rfft_nat_wide"
-        if batch >= _MIN_BATCH and _kernel_ok(n // 2):
-            return "r2c_packed"
-        return _lane_c2c(n // 2, batch)
+        return r2c_lane_route(n, batch)
     if kind == "c2r":
-        if n == 1:
-            return ENGINE
-        if batch >= _MIN_BATCH and f is not None:
-            return C2R_NAT if f in _kfft.CORE_F else "rfft_nat_wide"
-        return _lane_c2c(n, batch)
+        return c2r_lane_route(n, batch)
     raise ValueError(f"unknown transform kind {kind!r}")
-
-
-def _packed_lane(h: int, batch: int) -> str:
-    """Route of engine.r2c_packed with half length h (DCT-I: h = n - 1,
-    DST-I: h = n + 1): kernel 15 at batch >= 128, else the inner C2C."""
-    if batch >= _MIN_BATCH and _kernel_ok(h):
-        return "r2c_packed"
-    return _lane_fft(h, batch)
 
 
 def _dct_lane(t: int, n: int, batch: int) -> str:
     """Route of the DCT-<t> lowering along the last axis of (batch, n)
     (ops/dct.py of the JAX package): kernels 23/24 for DCT-II/III at
-    batch >= 128 and dct_pallas_supported(n), else the inner FFT's route."""
+    batch >= 128 and dct_pallas_supported(n), else the inner FFT's route:
+    the R2C's for DCT-I and DCT-II, the C2C's over batch (DCT-III) or
+    2 * batch (DCT-IV) rows."""
     if t == 1:
-        return _packed_lane(n - 1, batch) if n >= 2 else ENGINE
+        return packed_lane(n - 1, batch) if n >= 2 else ENGINE
     if n == 1:
         return ENGINE
-    if t in (2, 3) and batch >= _MIN_BATCH and n % 2 == 0 and _ts_ok(n):
+    if t in (2, 3) and batch >= MIN_BATCH and n % 2 == 0 and _ts_ok(n):
         h = n // 2
         if h % _kfft.M == 0 and h // _kfft.M in _kdct.DCT_F:
             return DCT2_NAT if t == 2 else DCT3_NAT
@@ -385,8 +219,8 @@ def _dct_lane(t: int, n: int, batch: int) -> str:
     if t == 2:
         # kernel 2 never serves here: every n whose half length it takes
         # passed the kernel-23 gate above
-        return _route_f32("r2c", (batch, n), 1, n)
-    return _lane_c2c(n, 2 * batch if t == 4 else batch)
+        return r2c_lane_route(n, batch)
+    return inner_c2c_route(n, 2 * batch if t == 4 else batch, DCT_LANE)
 
 
 def _route_r2r(kind, shape, axis, n):
@@ -399,7 +233,7 @@ def _route_r2r(kind, shape, axis, n):
     if kind == "dst1":
         if dims is not None and _nat_f(2 * n + 2) is not None:
             return "r2c_packed_mid"
-        return _packed_lane(n + 1, batch)
+        return packed_lane(n + 1, batch)
     if dims is not None:
         if 2 <= n <= _DENSE_DCT_MAX:
             return DCT_DENSE_MID
@@ -482,14 +316,10 @@ def _c2c_impl(x, handler, axis, sign):
         fn = _kfft.c2c_axis_mid if route == C2C_AXIS_MID else _kfft.c2c_dense_mid
         y = fn(x.reshape(nb, n, cols).contiguous(), sign, scale)
         return y.reshape(x.shape)
-    # the row routes and the engine take the axis last (a no-op for the last
-    # axis; a middle axis with < 128 columns moves, as the JAX package does)
-    xm = x.movedim(axis, -1)
-    if route in (C2C_ROWS, C2C_DENSE_ROWS):
-        fn = _kfft.c2c_rows if route == C2C_ROWS else _kfft.c2c_dense_rows
-        y = fn(xm.reshape(-1, n).contiguous(), sign, scale).reshape(xm.shape)
-    else:
-        y = _engine.c2c(xm, get_c2c_plan(n, sign), scale)
+    # the row routes (K10, K8) and the engine take the axis last (a no-op for
+    # the last axis; a middle axis with < 128 columns moves, as the JAX
+    # package does); engine.c2c dispatches on the same gates.lane_c2c_route
+    y = _engine.c2c(x.movedim(axis, -1), get_c2c_plan(n, sign), scale)
     return y.movedim(-1, axis)
 
 
@@ -508,13 +338,8 @@ def _r2c_impl(x, handler, axis):
         fn = _krfft.r2c_mid if route == R2C_MID else _krfft.r2c_dense_mid
         y = fn(x.reshape(nb, n, cols).contiguous())
         return y.reshape(x.shape[:axis] + (m,) + x.shape[axis + 1:])
-    xm = x.movedim(axis, -1)
-    if route == R2C_NAT:
-        lead = xm.shape[:-1]
-        y = _krfft.r2c_nat(xm.reshape(-1, n).contiguous()).reshape(lead + (m,))
-    else:
-        y = _engine.r2c(xm, get_r2c_plan(n))
-    return y.movedim(-1, axis)
+    # the lane lowering: K2, K15 or the row pairs on K8 (engine.r2c)
+    return _engine.r2c(x.movedim(axis, -1), get_r2c_plan(n)).movedim(-1, axis)
 
 
 def _c2r_impl(xhat, handler, axis):
@@ -540,13 +365,8 @@ def _c2r_impl(xhat, handler, axis):
         fn = _krfft.c2r_mid if route == C2R_MID else _krfft.c2r_dense_mid
         y = fn(xhat.reshape(nb, m, cols).contiguous(), n, scale)
         return y.reshape(xhat.shape[:axis] + (n,) + xhat.shape[axis + 1:])
-    sm = xhat.movedim(axis, -1)
-    if route == C2R_NAT:
-        lead = sm.shape[:-1]
-        y = _krfft.c2r_nat(sm.reshape(-1, m).contiguous(), n, scale)
-        y = y.reshape(lead + (n,))
-    else:
-        y = _engine.c2r(sm, n, scale=scale, mask_dc_nyq=True)
+    # the lane lowering: K3, or the Hermitian extension on K10/K8 (engine.c2r)
+    y = _engine.c2r(xhat.movedim(axis, -1), n, scale=scale)
     return y.movedim(-1, axis)
 
 

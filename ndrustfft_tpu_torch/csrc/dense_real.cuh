@@ -1,5 +1,6 @@
 // The register-tiled float32 product of the dense real kernels: kernel 27
-// (dct_dense.cu) and kernels 20 and 21 (rfft_dense.cu). For each batch b,
+// (dct_dense.cu), kernels 20 and 21 and kernel 15's dense product
+// (rfft_dense.cu). For each batch b,
 //
 //   Y(b, k, c) = sum_{t < red} W[t, k] * X(b, t, c),    k < rows, c < L,
 //
@@ -9,10 +10,14 @@
 // (B, n, L) float32 and the rectangular R2C/C2R products whose result or
 // operand is torch's interleaved complex64. Op provides
 //
+//   static constexpr bool kRows;   // X(b, t, c) contiguous in t, not in c
 //   __device__ float load(long long b, int t, long long c) const;   // X(b, t, c)
 //   __device__ void store(long long b, int k, long long c, float v) const;
 //
-// and is called only in range (t < red, k < rows, c < L).
+// and is called only in range (t < red, k < rows, c < L). With kRows (kernel
+// 15's rows, where c indexes a row and t runs along it), eight neighbouring
+// threads load the eight t of one row's chunk, as kernel 8 does, instead of
+// one t of 32 rows a stride of n apart.
 //
 // What bounds it on this card: the product's 2 * red * rows FLOPs per column
 // on the FP32 CUDA cores (67 TFLOP/s peak, data sheet, 700 W), far above
@@ -61,7 +66,9 @@ dense_real_kernel(const float* __restrict__ w, Op op, int rows, int red,
         const int t = t0 + e / BM;
         const int cc = e % BM;
         ra[i] = (t < red && k0 + cc < rows) ? __ldg(w + (long long)t * rows + k0 + cc) : 0.f;
-        rb[i] = (t < red && c0 + cc < L) ? op.load(b, t, c0 + cc) : 0.f;
+        const int tb = Op::kRows ? t0 + e % kBK : t;
+        const long long cb = c0 + (Op::kRows ? e / kBK : cc);
+        rb[i] = (tb < red && cb < L) ? op.load(b, tb, cb) : 0.f;
       }
     };
     auto store = [&](int buf) {
@@ -69,7 +76,11 @@ dense_real_kernel(const float* __restrict__ w, Op op, int rows, int red,
       for (int i = 0; i < LPT; ++i) {
         const int e = i * kDenseThreads + tid;
         As[buf][e / BM][e % BM] = ra[i];
-        Bs[buf][e / BM][e % BM] = rb[i];
+        if constexpr (Op::kRows) {
+          Bs[buf][e % kBK][e / kBK] = rb[i];
+        } else {
+          Bs[buf][e / BM][e % BM] = rb[i];
+        }
       }
     };
     float acc[TM][TM];

@@ -5,6 +5,14 @@
 // (built by _build_c2r_nat). Both run the shared bts2 core (bts2_core.cuh)
 // as the half-length FFT, on R rows of the block held in shared memory.
 //
+// The R2C is also kernel 15 at h = 128 * F, F in {1, 2, 4, 8, 16}: it
+// replaces rfft.py::_r2c_kernel (built by _build_r2c, called by r2c_pallas),
+// which takes the even/odd streams of rows that the lane lowerings build
+// (the R2C of n = 256, the DCT-I and DST-I extensions). Those streams are
+// this kernel's natural row read as complex pairs, so K15 here is the same
+// function at one more factor: F = 1 (the 256^3 step's n = 256, DCT-I at
+// n = 129), with up to R = 64 rows of 128 in the block's 64 KB.
+//
 // A real row of n floats IS the interleaved complex row z[t] = x[2t] +
 // i*x[2t+1] of length h, so R consecutive rows are one contiguous float2
 // copy into shared memory: no de-interleave pass. The TPU kernel ran
@@ -134,6 +142,7 @@ static cudaError_t dispatch_r(int R, bool inverse, const void* in, void* out,
     case 8: return launch_rfft<F, 8>(inverse, in, out, wq, extra, T, stream);
     case 16: return launch_rfft<F, 16>(inverse, in, out, wq, extra, T, stream);
     case 32: return launch_rfft<F, 32>(inverse, in, out, wq, extra, T, stream);
+    case 64: return launch_rfft<F, 64>(inverse, in, out, wq, extra, T, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -144,6 +153,7 @@ static int rfft_entry(bool inverse, const void* in, void* out, const void* wq,
   const float2* wp = static_cast<const float2*>(wq);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (n / 2) {
+    case kM: return dispatch_r<1>(R, inverse, in, out, wp, extra, T, st);
     case 2 * kM: return dispatch_r<2>(R, inverse, in, out, wp, extra, T, st);
     case 4 * kM: return dispatch_r<4>(R, inverse, in, out, wp, extra, T, st);
     case 8 * kM: return dispatch_r<8>(R, inverse, in, out, wp, extra, T, st);
@@ -154,9 +164,9 @@ static int rfft_entry(bool inverse, const void* in, void* out, const void* wq,
 
 }  // namespace ndfft
 
-// x: (T, n) float32 rows; out: (T, n/2 + 1) complex64; wq: (F, 128, 128)
-// complex64 for h = n/2, sign -1; tw: (h,) complex64, W_n^k.
-// R: rows per block, a power of two with (n/2) * R <= 8192.
+// x: (T, n) float32 rows, 8-byte aligned; out: (T, n/2 + 1) complex64; wq:
+// (F, 128, 128) complex64 for h = n/2, sign -1; tw: (h,) complex64, W_n^k.
+// R: rows per block, a power of two with (n/2) * R <= 8192. Kernels 2 and 15.
 extern "C" int ndfft_r2c_nat(const void* x, void* out, const void* wq,
                              const void* tw, long long T, int n, int R,
                              void* stream) {

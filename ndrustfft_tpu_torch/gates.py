@@ -1,0 +1,256 @@
+"""The JAX package's TPU kernel gates as pure functions of the length and the
+batch, and the names of the port's routes.
+
+Each lane lowering has one route function here (:func:`lane_c2c_route`,
+:func:`r2c_lane_route`, :func:`c2r_lane_route`, :func:`packed_lane`):
+``api._route`` names a whole call's route from it, and the lowering in
+``ops/engine.py`` dispatches on the same function, so both agree on which
+kernel a call reaches. A route whose JAX counterpart is a Pallas kernel not
+ported yet is a key of :data:`UNPORTED`; :func:`unported` builds its error.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+from .ops.hopper import fft as _kfft
+from .ops.hopper import rfft as _krfft
+from .plan import MAX_BASE_RADIX, factorize
+
+# routes that run a ported kernel, and the engine
+C2C_AXIS_MID = "c2c_axis_mid"
+C2C_ROWS = "c2c_rows"
+C2C_DENSE_ROWS = "c2c_dense_rows"
+C2C_DENSE_MID = "c2c_dense_mid"
+R2C_NAT = "r2c_nat"
+C2R_NAT = "c2r_nat"
+R2C_MID = "r2c_mid"
+C2R_MID = "c2r_mid"
+R2C_DENSE_MID = "r2c_dense_mid"
+C2R_DENSE_MID = "c2r_dense_mid"
+DCT_DENSE_MID = "dct_dense_mid"
+DCT2_NAT = "dct2_nat"
+DCT3_NAT = "dct3_nat"
+# the lane lowerings of the other kinds: K15 (the packed R2C of even-length
+# rows: R2C, DCT-I, DST-I, DCT-II), the row pairs' C2C (odd-length R2C and
+# DCT-II), the Hermitian extension's C2C (C2R) and the DCT-III/IV lowerings'
+# C2C; each C2C is K10 or K8, as lane_c2c_route picks, and the launch
+# counters show which
+R2C_PACKED = "r2c_packed"
+R2C_ROWPAIR = "r2c_rowpair"
+C2R_LANE = "c2r_lane"
+DCT_LANE = "dct_lane"
+ENGINE = "engine"
+
+# Pallas kernels of the JAX package on routes not ported yet:
+# key -> (kernel, ROADMAP.md item)
+UNPORTED = {
+    "bts2_wide": ("fft.py::_kernel_axis_mid_bts2 with a butterfly factor "
+                  "outside {2, 4, 8, 16}", "K1b"),
+    "generic_mid": ("fft.py::_kernel_axis_mid", "K6"),
+    "fourstep": ("fft.py::_kernel_exit_mul and _kernel_lane_store_t", "K7"),
+    "lane_last_wide": ("fft.py::_kernel_lane_last at n > 256",
+                       "K8 (n > 256 without a split)"),
+    "twostep_wide": ("fft.py::_kernel_twostep with a butterfly factor outside "
+                     "{4, 8, 16}", "K1b"),
+    "bluestein": ("fft.py::_kernel_axis_mid_blue and the engine's Bluestein",
+                  "K11"),
+    "r2c_packed_wide": ("rfft.py::_r2c_kernel at a half length > 256 without a "
+                        "split (its half-length FFT is fft.py::_kernel_lane_last's "
+                        "generic schedule)", "K8 (n > 256 without a split)"),
+    "r2c_packed_f": ("rfft.py::_r2c_kernel with a twostep half-length FFT whose "
+                     "butterfly factor is outside {1, 2, 4, 8, 16}", "K1b"),
+    "rfft_nat_wide": ("rfft.py::_r2c_kernel_nat / _c2r_kernel_nat (or "
+                      "_r2c_kernel_mid / _c2r_kernel_mid) with a half length "
+                      "outside 128 * {2, 4, 8, 16}", "K1b"),
+    "r2c_packed_mid": ("rfft.py::_r2c_kernel_packed_mid", "K18"),
+    "dct1_mid": ("rfft.py::_dct1_kernel_mid", "K19"),
+    "dct2_mid": ("dct.py::_dct2_kernel_mid", "K25"),
+    "dct3_mid": ("dct.py::_dct3_kernel_mid", "K26"),
+    "dct23_blue_mid": ("fft.py::_kernel_axis_mid_blue_rr", "K12"),
+    "dct4_mid": ("dct.py::_dct4_kernel_mid", "K28"),
+    "dct_nat_wide": ("dct.py::_dct2_kernel / _dct3_kernel with a half length "
+                     "outside 128 * {1, 2, 4, 8, 16}", "K1b"),
+}
+
+# the keys that name the C2C kernel of a lowering's inner transform
+_C2C_KEYS = ("fourstep", "lane_last_wide", "twostep_wide")
+
+
+def unported(key: str, what: str, kind: str = "fft") -> NotImplementedError:
+    """The error of a call ``what`` whose route is the UNPORTED ``key``."""
+    kernel, item = UNPORTED[key]
+    inner = (f" (the inner C2C of this {kind} lowering)"
+             if kind not in ("fft", "ifft") and key in _C2C_KEYS else "")
+    return NotImplementedError(
+        f"{what}: the JAX package runs this{inner} on the Pallas kernel {kernel}, "
+        f"which has no CUDA port for it yet (ROADMAP.md item {item})")
+
+
+# the JAX package's TPU gates
+MIN_BATCH = 128          # engine.c2c / r2c / c2r
+_MAX_N = 65536           # fft._MAX_N
+_VMEM_MAX_N = int(0.8 * 100 * 1024 * 1024) // (8 * 128 * 4)  # fft._LIVE_COPIES bound
+_FOURSTEP_MAX_N = 1 << 22
+
+
+@lru_cache(maxsize=None)
+def _twostep_split(n: int):
+    """(m, f) with m in {128, 256} dividing n and f = n/m <= 256, minimal
+    m + f; or None (fft._twostep_split)."""
+    cands = [d for d in (128, 256) if n % d == 0 and n // d <= 256]
+    if not cands:
+        return None
+    m = min(cands, key=lambda d: d + n // d)
+    return m, n // m
+
+
+@lru_cache(maxsize=None)
+def _lane_factor(n: int):
+    """fft._lane_factor: the lane DFT factor of the lane-last kernels."""
+    if n <= 256:
+        return n
+    divs = [d for d in range(1, 257) if n % d == 0]
+    preds = [lambda d: d % 128 == 0 and d >= 128]
+    if n > 1024:
+        preds.append(lambda d: d % 8 == 0 and d >= 64)
+    preds += [lambda d: d >= 64, lambda d: d > 1]
+    for pred in preds:
+        for f in sorted((d for d in divs if pred(d)), reverse=True):
+            if factorize(n // f) is not None:
+                return f
+    return None
+
+
+def _kernel_ok(n: int) -> bool:
+    """fft.pallas_supported for a float32 Cooley-Tukey plan (n <= 20480,
+    its VMEM working-set bound)."""
+    if factorize(n) is None or n < 2 or n > min(_MAX_N, _VMEM_MAX_N):
+        return False
+    f = _lane_factor(n)
+    return f is not None and not (n > 1024 and f % 8)
+
+
+def _mid_stage_ok(k: int) -> bool:
+    ts = _twostep_split(k)
+    return k <= 256 or (ts is not None and ts[0] <= MAX_BASE_RADIX)
+
+
+@lru_cache(maxsize=None)
+def _fourstep_split(n: int):
+    """fft.fourstep_split: (n1, n2) with both stages kernel-bodied, or None."""
+    best = None
+    d = 1
+    while d * d <= n:
+        if n % d == 0:
+            for n1, n2 in ((n // d, d), (d, n // d)):
+                if (n1 <= 4096 and n2 <= 16384 and _mid_stage_ok(n1)
+                        and _mid_stage_ok(n2) and _lane_factor(n2) is not None):
+                    if best is None or n1 + n2 < best[0] + best[1]:
+                        best = (n1, n2)
+        d += 1
+    return best
+
+
+def _nat_f(n: int):
+    """Butterfly factor of the half-length core of the natural-layout R2C/C2R
+    kernels for even n (rfft.rfft_nat_supported / _nat_ts), or None."""
+    h = n // 2
+    if n % 2 or n < 2 or not _kernel_ok(h):
+        return None
+    ts = _twostep_split(h)
+    if h >= 256 and ts is not None and ts[0] <= MAX_BASE_RADIX:
+        return ts[1]
+    return None
+
+
+def _lane_c2c(n: int, batch: int) -> str:
+    """Route of a float32 C2C along the last axis of (batch, n)
+    (engine.c2c): four-step beyond the single kernel's range, lane-last
+    kernels, or the engine."""
+    if n > min(_MAX_N, _VMEM_MAX_N):
+        ok = n <= _FOURSTEP_MAX_N and _fourstep_split(n) is not None
+        return "fourstep" if ok else ENGINE
+    if batch >= MIN_BATCH and _kernel_ok(n):
+        return "twostep" if n > 256 and _twostep_split(n) else "lane_last"
+    return ENGINE
+
+
+def _lane_fft(n: int, batch: int) -> str:
+    """Route of the engine's C2C of length n over ``batch`` rows, Bluestein
+    lengths included."""
+    return "bluestein" if factorize(n) is None else _lane_c2c(n, batch)
+
+
+def _c2c_kernel_route(route: str, n: int) -> str:
+    """The port's route for the JAX package's C2C route at length n: kernel
+    10 for the twostep split with F in {4, 8, 16}, kernel 8 for the dense
+    lane DFT (n <= 256), kernel 4 for the dense mid product; else the
+    UNPORTED key."""
+    if route == "twostep":
+        return C2C_ROWS if n % _kfft.M == 0 and n // _kfft.M in _kfft.C2C_F \
+            else "twostep_wide"
+    if route == "lane_last":
+        return C2C_DENSE_ROWS if n <= 256 else "lane_last_wide"
+    if route == "dense_mid":
+        return C2C_DENSE_MID
+    return route
+
+
+def lane_c2c_route(n: int, batch: int) -> str:
+    """C2C_ROWS, C2C_DENSE_ROWS, ENGINE or the UNPORTED key of a float32 C2C
+    of length n over ``batch`` contiguous rows."""
+    return _c2c_kernel_route(_lane_c2c(n, batch), n)
+
+
+def inner_c2c_route(n: int, batch: int, lowering: str) -> str:
+    """The route of a lowering whose inner transform is a C2C of length n
+    over ``batch`` rows: ``lowering`` where K10 or K8 takes it, else ENGINE
+    or the UNPORTED key."""
+    route = lane_c2c_route(n, batch)
+    return lowering if route in (C2C_ROWS, C2C_DENSE_ROWS) else route
+
+
+def packed_route(h: int) -> str:
+    """Kernel 15 at half length h, as the JAX package picks its half-length
+    FFT (rfft._half_fft_consts): the dense lane DFT for h <= 256, the
+    twostep core for h > 256 with a split, else the generic lane schedule.
+    R2C_PACKED where the port's kernel takes h, else the UNPORTED key."""
+    if _krfft.packed_core(h) or h <= _krfft.PACKED_DENSE_MAX_H:
+        return R2C_PACKED
+    ts = _twostep_split(h)
+    return "r2c_packed_f" if ts is not None and ts[0] <= MAX_BASE_RADIX \
+        else "r2c_packed_wide"
+
+
+def packed_lane(h: int, batch: int) -> str:
+    """Route of engine.r2c_packed with half length h (R2C: h = n/2, DCT-I:
+    h = n - 1, DST-I: h = n + 1): kernel 15 at batch >= 128, else the inner
+    C2C."""
+    if batch >= MIN_BATCH and _kernel_ok(h):
+        return packed_route(h)
+    return _lane_fft(h, batch)
+
+
+def r2c_lane_route(n: int, batch: int) -> str:
+    """Route of engine.r2c of length n over ``batch`` float32 rows: the row
+    pairs' C2C for odd n, kernel 2 where its core's factor allows, else
+    kernel 15 (:func:`packed_lane`)."""
+    if n % 2:
+        pairs = (batch + 1) // 2 if batch >= 2 else 1
+        return inner_c2c_route(n, pairs, R2C_ROWPAIR)
+    f = _nat_f(n)
+    if batch >= MIN_BATCH and f is not None:
+        return R2C_NAT if f in _kfft.CORE_F else "rfft_nat_wide"
+    return packed_lane(n // 2, batch)
+
+
+def c2r_lane_route(n: int, batch: int) -> str:
+    """Route of engine.c2r to length n over ``batch`` complex64 rows: kernel
+    3 where its core's factor allows, else the Hermitian extension's C2C."""
+    if n == 1:
+        return ENGINE
+    f = _nat_f(n)
+    if batch >= MIN_BATCH and f is not None:
+        return C2R_NAT if f in _kfft.CORE_F else "rfft_nat_wide"
+    return inner_c2c_route(n, batch, C2R_LANE)

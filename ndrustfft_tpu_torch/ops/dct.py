@@ -15,10 +15,12 @@ values):
           == two n-point FFTs of pre-modulated copies, post-twiddled
 
 All transforms run batched along the LAST axis of real tensors, in float32
-or float64; ``scale`` multiplies the result and rides the constants. These
-are the routes for float64, small batches and CPU tensors; on a CUDA tensor
-the API sends each shape that the JAX package gives a Pallas kernel to the
-ported kernel or raises (``api._route``).
+or float64; ``scale`` multiplies the result and rides the constants. Their
+inner transforms dispatch as the JAX package's do (``ops/engine.py``): DCT-I
+and DST-I hand their extension rows to kernel 15, DCT-II its permuted rows
+to the R2C (kernel 15, or the row pairs on kernel 8 for odd n), DCT-III and
+DCT-IV their rows to kernel 10 or 8. The API sends DCT-II/III of the lengths
+kernels 23/24 take to those kernels first (``api._route``).
 """
 
 from __future__ import annotations
@@ -60,14 +62,14 @@ def evenodd_unperm(u: torch.Tensor) -> torch.Tensor:
 
 
 def dct1(x: torch.Tensor, scale=None) -> torch.Tensor:
-    """(..., n) real -> scale * DCT-I; requires n >= 2. The even extension's
-    even/odd sample streams feed the packed half-size R2C directly."""
+    """(..., n) real -> scale * DCT-I; requires n >= 2. The even extension
+    [x, x[n-2], .., x[1]] is one row of length 2n - 2 for the packed R2C (its
+    interleaved even/odd streams are the JAX package's xe and xo)."""
     n = x.shape[-1]
     if n < 2:
         raise ValueError(f"DCT-I requires length >= 2, got {n}")
-    xe = torch.cat([x[..., 0::2], x[..., 2:n - 1:2].flip(-1)], dim=-1)
-    xo = torch.cat([x[..., 1::2], x[..., 1:n - 2 + (n % 2):2].flip(-1)], dim=-1)
-    spec = r2c_packed(xe, xo, get_r2c_plan(2 * n - 2))   # m = n bins exactly
+    ext = torch.cat([x, x[..., 1:n - 1].flip(-1)], dim=-1)
+    spec = r2c_packed(ext, get_r2c_plan(2 * n - 2))   # m = n bins exactly
     return (0.5 if scale is None else 0.5 * scale) * spec.real
 
 
@@ -121,7 +123,7 @@ def dct4(x: torch.Tensor, scale=None) -> torch.Tensor:
     cd = _cplx(x)
     u = torch.stack([x * const(pre_a, cd, x.device),
                      x * const(pre_b, cd, x.device)], dim=-2)     # (..., 2, n)
-    f = c2c(u, get_c2c_plan(n, -1))
+    f = c2c(u, get_c2c_plan(n, -1))       # one C2C over 2 * batch rows
     ne, no = (n + 1) // 2, n // 2
     ye = (f[..., 0, :ne] * const((post_e[0] * s, post_e[1] * s), cd, x.device)).real
     yo = (f[..., 1, :no] * const((post_o[0] * s, post_o[1] * s), cd, x.device)).real

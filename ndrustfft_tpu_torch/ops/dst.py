@@ -11,8 +11,8 @@ axis):
   DST-IV  (x)[k] = (-1)^k DCT-IV (flip(x))[k]
 
 DST-I is the imaginary part of the FFT of the odd extension [0, x, 0,
--flip(x)] (length 2n+2), whose even/odd sample streams feed the packed
-half-size R2C directly:
+-flip(x)] (length 2n+2), one row for the packed R2C (kernel 15 on the
+card):
 
   DST-I   y[k] = sum_t x_t sin(pi (t+1)(k+1)/(n+1))
           == -Im(FFT_{2n+2}(odd extension))[k+1] / 2
@@ -50,14 +50,8 @@ def dst1(x: torch.Tensor, scale=None) -> torch.Tensor:
     """(..., n) real -> scale * DST-I along the last axis."""
     n = x.shape[-1]
     z = torch.zeros_like(x[..., :1])
-    xe_, xo_ = x[..., 1::2], x[..., 0::2]
-    if n % 2 == 0:
-        xe = torch.cat([z, xe_, -xe_.flip(-1)], dim=-1)
-        xo = torch.cat([xo_, z, -xo_.flip(-1)], dim=-1)
-    else:
-        xe = torch.cat([z, xe_, z, -xe_.flip(-1)], dim=-1)
-        xo = torch.cat([xo_, -xo_.flip(-1)], dim=-1)
-    spec = r2c_packed(xe, xo, get_r2c_plan(2 * n + 2))   # m = n + 2 bins
+    ext = torch.cat([z, x, z, -x.flip(-1)], dim=-1)
+    spec = r2c_packed(ext, get_r2c_plan(2 * n + 2))   # m = n + 2 bins
     s = -0.5 if scale is None else -0.5 * scale
     return s * spec.imag[..., 1:n + 1]
 

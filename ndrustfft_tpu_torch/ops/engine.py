@@ -1,13 +1,20 @@
-"""Mixed-radix FFT engine in plain PyTorch (the JAX package's ``ops/engine.py``).
+"""The lane lowerings (the JAX package's ``ops/engine.py``): C2C, R2C and
+C2R along the LAST axis, which the caller moves there.
 
-Complex tensors throughout; the transformed axis is the LAST axis, and the
-caller moves it there. Every stage is an einsum with a plan constant or an
-elementwise twiddle, so the engine runs on any device and in float32 or
-float64. It is the plain version of the whole slice, and the route for the
-shapes the JAX package itself leaves to XLA (float64/complex128, and
-batches or column counts below the kernels' gates). ``c2c``, ``r2c`` and
-``c2r`` count their calls in a ``calls`` attribute, so that a run can show
-that the engine stayed off a path.
+Each entry point dispatches on its route function in ``gates.py``, the one
+that ``api._route`` names a call's route by: :func:`c2c` to kernel 10 or 8
+of contiguous rows, :func:`r2c` to kernel 2, kernel 15 or the row pairs of
+an odd length, :func:`c2r` to kernel 3 or the Hermitian extension and
+:func:`c2c`. Where the JAX package runs XLA (float64/complex128, batches
+below the kernels' gates), and for an unported route on a CPU tensor, the
+mixed-radix engine runs: every stage an einsum with a plan constant or an
+elementwise twiddle, on any device and in float32 or float64. Every lowering
+reaches the engine through :func:`c2c`, which refuses a CUDA tensor whose
+route names a kernel not ported yet.
+
+``c2c.calls`` counts the engine's runs, so that a run can show that the
+engine stayed off a path; ``r2c.calls`` and ``c2r.calls`` count entries to
+those lowerings, so that a run can show that a call stayed off them.
 """
 
 from __future__ import annotations
@@ -17,7 +24,10 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .. import gates
 from ..plan import C2CPlan, R2CPlan, get_c2c_plan
+from .hopper import fft as _kfft
+from .hopper import rfft as _krfft
 
 
 def real_dtype(cplx_dtype: torch.dtype) -> torch.dtype:
@@ -73,9 +83,29 @@ def _ct_at(x, stages, base, depth):
     return out.reshape(shape[:ax] + (f * m,) + shape[ax + 1:])
 
 
+def _kernel_device(x: torch.Tensor) -> bool:
+    """The devices whose tensors the kernel routes take (a CPU tensor runs
+    the kernels' plain versions); any other device runs the engine."""
+    return x.device.type in ("cuda", "cpu")
+
+
+def _rows(x: torch.Tensor) -> int:
+    return x.numel() // x.shape[-1] if x.shape[-1] else 0
+
+
 def c2c(x: torch.Tensor, plan: C2CPlan, scale=None) -> torch.Tensor:
     """Batched C2C FFT along the last axis, unnormalized; ``scale`` (a
-    python float) multiplies the result."""
+    python float) multiplies the result, folded into the kernel constants.
+    complex64 over >= 128 rows takes kernel 10 (n = 512, 1024, 2048) or
+    kernel 8 (n <= 256); another kernel-eligible n raises on a CUDA tensor."""
+    n = plan.n
+    if x.dtype == torch.complex64 and _kernel_device(x):
+        route = gates.lane_c2c_route(n, _rows(x))
+        if route in (gates.C2C_ROWS, gates.C2C_DENSE_ROWS):
+            fn = _kfft.c2c_rows if route == gates.C2C_ROWS else _kfft.c2c_dense_rows
+            return fn(x.reshape(-1, n).contiguous(), plan.sign, scale).reshape(x.shape)
+        if route != gates.ENGINE and x.device.type == "cuda":
+            raise gates.unported(route, f"c2c n={n} rows={_rows(x)}")
     c2c.calls += 1
     stages, base = _plan_consts(plan.n, plan.sign, x.dtype, x.device)
     y = ct_valued(x, stages, base)
@@ -90,22 +120,56 @@ c2c.calls = 0
 def r2c(x: torch.Tensor, plan: R2CPlan) -> torch.Tensor:
     """Real (..., n) -> half-spectrum (..., m), m = n//2 + 1, unnormalized.
 
-    Even n packs z[t] = x[2t] + i*x[2t+1] into one half-size C2C and
-    unpacks; odd n runs a full C2C of the complexified input and truncates.
-    """
+    Even n: float32 over >= 128 rows takes kernel 2 where its core's factor
+    allows, else :func:`r2c_packed`. Odd n pairs the rows into one complex
+    C2C (:func:`_r2c_rowpair`); a single row runs the C2C of the
+    complexified input and truncates."""
     r2c.calls += 1
+    n = plan.n
     if not plan.half:
+        if _rows(x) >= 2:
+            return _r2c_rowpair(x, plan)
         z = torch.complex(x, torch.zeros_like(x))
         return c2c(z, plan.sub)[..., :plan.m]
-    return r2c_packed(x[..., 0::2], x[..., 1::2], plan)
+    if x.dtype == torch.float32 and _kernel_device(x) \
+            and gates.r2c_lane_route(n, _rows(x)) == gates.R2C_NAT:
+        y = _krfft.r2c_nat(x.reshape(-1, n).contiguous())
+        return y.reshape(x.shape[:-1] + (plan.m,))
+    return r2c_packed(x, plan)
 
 
 r2c.calls = 0
 
 
-def r2c_packed(xe: torch.Tensor, xo: torch.Tensor, plan: R2CPlan) -> torch.Tensor:
-    """Half-spectrum from pre-split even/odd sample streams (..., h)."""
-    z = c2c(torch.complex(xe, xo), plan.sub)              # FFT_h of xe + i*xo
+def _r2c_rowpair(x: torch.Tensor, plan: R2CPlan) -> torch.Tensor:
+    """Odd-n R2C of >= 2 rows: rows a and b ride one complex C2C of
+    z = a + i b, and A = (Z + conj ZM) / 2, B = -i (Z - conj ZM) / 2 with
+    ZM[k] = Z[(n - k) % n]; half the C2C work of complexifying each row."""
+    n, m = plan.n, plan.m
+    lead = x.shape[:-1]
+    xf = x.reshape(-1, n)
+    if xf.shape[0] % 2:
+        xf = torch.cat([xf, torch.zeros_like(xf[:1])], dim=0)
+    z = c2c(torch.complex(xf[0::2], xf[1::2]), plan.sub)
+    zk = z[:, :m]
+    zm = torch.cat([z[:, :1], z[:, n - m + 1:].flip(-1)], dim=-1).conj()  # conj Z[(n-k) % n]
+    a = 0.5 * (zk + zm)
+    b = -0.5j * (zk - zm)
+    return torch.stack([a, b], dim=1).reshape(-1, m)[:_rows(x)].reshape(lead + (m,))
+
+
+def r2c_packed(x: torch.Tensor, plan: R2CPlan) -> torch.Tensor:
+    """Half-spectrum of real rows (..., n), n even, by the half-length C2C of
+    z[t] = x[2t] + i x[2t+1] and the unpack: kernel 15 for float32 over
+    >= 128 rows (the rows go to it whole: a contiguous float32 row of length
+    2h is the complex row z), else :func:`c2c` and the unpack."""
+    n, m = plan.n, plan.m
+    h = n // 2
+    if x.dtype == torch.float32 and _kernel_device(x) \
+            and gates.packed_lane(h, _rows(x)) == gates.R2C_PACKED:
+        fn = _krfft.r2c_packed if _krfft.packed_core(h) else _krfft.r2c_packed_dense
+        return fn(x.reshape(-1, n).contiguous()).reshape(x.shape[:-1] + (m,))
+    z = c2c(torch.complex(x[..., 0::2], x[..., 1::2]), plan.sub)   # FFT_h of xe + i*xo
     first = z[..., :1]
     zk = torch.cat([z, first], dim=-1)                      # Z[k], k = 0..h
     zm = torch.cat([first, z[..., 1:].flip(-1), first], dim=-1)  # Z[(h-k) % h]
@@ -115,29 +179,38 @@ def r2c_packed(xe: torch.Tensor, xo: torch.Tensor, plan: R2CPlan) -> torch.Tenso
     return fe + tw * fo
 
 
-def c2r(s: torch.Tensor, n: int, scale=None, mask_dc_nyq=True) -> torch.Tensor:
-    """Half-spectrum (..., m) -> real (..., n) by Hermitian extension + C2C.
+def hermitian_extension(s: torch.Tensor, n: int) -> torch.Tensor:
+    """The full spectrum (..., n) of a half-spectrum (..., m), m = n//2 + 1,
+    with the DC (and, for even n, Nyquist) imaginary parts set to zero."""
+    m = n // 2 + 1
+    mask = torch.ones(m, dtype=real_dtype(s.dtype), device=s.device)
+    mask[0] = 0.0
+    if n % 2 == 0:
+        mask[m - 1] = 0.0
+    s = torch.complex(s.real, s.imag * mask)
+    # bins m..n-1 are conj(X[n-k]): indices n-m..1 == flip of bins 1..n-m
+    return torch.cat([s, s[..., 1:n - m + 1].flip(-1).conj()], dim=-1)
+
+
+def c2r(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
+    """Half-spectrum (..., m) -> real (..., n): kernel 3 for complex64 over
+    >= 128 rows where its core's factor allows, else
+    :func:`hermitian_extension` and :func:`c2c`.
 
     The order is the reference's: ``scale`` on the spectrum first, then the
     DC (and, for even n, Nyquist) imaginary parts set to zero, then the
-    unnormalized inverse."""
+    unnormalized inverse. The scale is a real scalar, so it commutes with
+    the mask and rides the inverse C2C's constants."""
     c2r.calls += 1
     m = n // 2 + 1
-    rdt = real_dtype(s.dtype)
     if n == 1:
         y = s[..., :1].real
         return y * scale if scale is not None else y
-    if scale is not None:
-        s = s * scale
-    if mask_dc_nyq:
-        mask = torch.ones(m, dtype=rdt, device=s.device)
-        mask[0] = 0.0
-        if n % 2 == 0:
-            mask[m - 1] = 0.0
-        s = torch.complex(s.real, s.imag * mask)
-    # bins m..n-1 are conj(X[n-k]): indices n-m..1 == flip of bins 1..n-m
-    e = torch.cat([s, s[..., 1:n - m + 1].flip(-1).conj()], dim=-1)
-    return c2c(e, get_c2c_plan(n, +1)).real
+    if s.dtype == torch.complex64 and _kernel_device(s) \
+            and gates.c2r_lane_route(n, _rows(s)) == gates.C2R_NAT:
+        y = _krfft.c2r_nat(s.reshape(-1, m).contiguous(), n, scale)
+        return y.reshape(s.shape[:-1] + (n,))
+    return c2c(hermitian_extension(s, n), get_c2c_plan(n, +1), scale).real
 
 
 c2r.calls = 0

@@ -42,6 +42,7 @@ _SIGNATURES = {
     "ndfft_c2r_mid": [_P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_r2c_dense_mid": [_P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_c2r_dense_mid": [_P, _P, _P, _LL, _I, _LL, _I, _P],
+    "ndfft_r2c_dense_rows": [_P, _P, _P, _LL, _I, _I, _P],
     "ndfft_dct_dense_mid": [_P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_dct2_nat": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_dct3_nat": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],

@@ -13,6 +13,12 @@
   4 <= n <= 1100, odd n included (``csrc/rfft_dense.cu`` on the dense loop
   ``csrc/dense_real.cuh``; replace ``rfft.py::_r2c_dense_kernel`` and
   ``_c2r_dense_kernel``).
+* Kernel 15, the packed R2C of contiguous (T, n) rows (replaces
+  ``rfft.py::_r2c_kernel``), in two CUDA kernels by half length h = n/2:
+  :func:`r2c_packed` for h = 128 * F, F in {1, 2, 4, 8, 16}, is kernel 2's
+  code (``csrc/rfft_nat.cu``) with F = 1 added; :func:`r2c_packed_dense`
+  for every other h <= 256 is kernel 20's real product with its table, in
+  the row layout (``csrc/rfft_dense.cu``).
 
 This module holds their host-built constants, their plain PyTorch versions
 and their wrappers, whose ``launches`` attributes count kernel launches.
@@ -33,6 +39,15 @@ from .fft import (CORE_F, M, block_cols, block_rows, bts2_plain, check_cuda, den
 # lengths kernels 20 and 21 take: the JAX package's rfft_dense_mid_supported
 # (its _DENSE_RFFT_MAX), which the routes mirror
 DENSE_MIN_N, DENSE_MAX_N = 4, 1100
+# half lengths kernel 15 takes: the core's factors (h = 128 * F), and the
+# dense lane DFT's h <= 256 (the JAX package's _half_fft_consts)
+PACKED_F = (1, 2, 4, 8, 16)
+PACKED_DENSE_MAX_H = 256
+
+
+def packed_core(h: int) -> bool:
+    """Kernel 15 runs the bts2 core (:func:`r2c_packed`) at half length h."""
+    return h % M == 0 and h // M in PACKED_F
 
 
 def unpack_twiddle(n: int):
@@ -132,19 +147,15 @@ def _check_n(n: int, what: str) -> None:
         raise ValueError(f"{what}: n={n} is not 2 * 128 * F, F in {CORE_F}")
 
 
-def r2c_nat(x: torch.Tensor) -> torch.Tensor:
-    """R2C of the rows of a (T, n) float32 tensor -> (T, n/2+1) complex64.
-    A CPU tensor runs the plain version; a CUDA tensor launches kernel 2 or
-    raises."""
-    if x.dim() != 2:
-        raise ValueError(f"r2c_nat: expected (T, n), got {tuple(x.shape)}")
+def _launch_r2c_rows(x: torch.Tensor, wrapper) -> torch.Tensor:
+    """Kernel 2's code on the rows of a (T, n) float32 CUDA tensor, h = n/2
+    = 128 * F, for ``wrapper`` (kernel 2's or kernel 15's), whose launch
+    count it adds one to where it launches."""
+    what = wrapper.__name__
+    check_cuda(x, torch.float32, what)
+    if x.data_ptr() % 8:       # the kernel reads rows as float2
+        x = x.clone()
     t, n = x.shape
-    _check_n(n, "r2c_nat")
-    if x.device.type == "cpu":
-        return r2c_nat_plain(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"r2c_nat: unsupported device {x.device}")
-    check_cuda(x, torch.float32, "r2c_nat")
     h = n // 2
     wq = device_wq(h, -1, 1.0, x.device)
     tw = _device_tw(n, x.device)
@@ -156,9 +167,23 @@ def r2c_nat(x: torch.Tensor) -> torch.Tensor:
         err = _build.lib().ndfft_r2c_nat(
             x.data_ptr(), out.data_ptr(), wq.data_ptr(), tw.data_ptr(), t, n, r,
             torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "r2c_nat")
-    r2c_nat.launches += 1
+    _build.check(err, what)
+    wrapper.launches += 1
     return out
+
+
+def r2c_nat(x: torch.Tensor) -> torch.Tensor:
+    """R2C of the rows of a (T, n) float32 tensor -> (T, n/2+1) complex64.
+    A CPU tensor runs the plain version; a CUDA tensor launches kernel 2 or
+    raises."""
+    if x.dim() != 2:
+        raise ValueError(f"r2c_nat: expected (T, n), got {tuple(x.shape)}")
+    _check_n(x.shape[1], "r2c_nat")
+    if x.device.type == "cpu":
+        return r2c_nat_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"r2c_nat: unsupported device {x.device}")
+    return _launch_r2c_rows(x, r2c_nat)
 
 
 r2c_nat.launches = 0
@@ -422,3 +447,83 @@ def c2r_dense_mid(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
 
 
 c2r_dense_mid.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Kernel 15: the packed R2C of contiguous rows
+# --------------------------------------------------------------------------
+
+
+def _check_packed(x: torch.Tensor, what: str) -> None:
+    """Rank and type, on every device: the plain versions take what the
+    kernels take."""
+    if x.dim() != 2:
+        raise ValueError(f"{what}: expected (T, n), got {tuple(x.shape)}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{what}: expected torch.float32, got {x.dtype}")
+
+
+def r2c_packed_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`r2c_packed`: kernel 2's (the core's plain
+    version on the row as its complex pairs, then the unpack)."""
+    return r2c_nat_plain(x)
+
+
+def r2c_packed(x: torch.Tensor) -> torch.Tensor:
+    """R2C of the rows of a (T, n) float32 tensor -> (T, h+1) complex64,
+    h = n/2 = 128 * F with F in {1, 2, 4, 8, 16}. A CPU tensor runs the
+    plain version; a CUDA tensor launches kernel 15 on the core or raises."""
+    _check_packed(x, "r2c_packed")
+    n = x.shape[1]
+    if n % 2 or not packed_core(n // 2):
+        raise ValueError(f"r2c_packed: n={n} is not 2 * 128 * F, F in {PACKED_F}")
+    if x.device.type == "cpu":
+        return r2c_packed_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"r2c_packed: unsupported device {x.device}")
+    return _launch_r2c_rows(x, r2c_packed)
+
+
+r2c_packed.launches = 0
+
+
+def r2c_packed_dense_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`r2c_packed_dense`: Y[r, j] = sum_t x[r, t]
+    W[t, j] with kernel 20's table, columns j < m the real and j >= m the
+    imaginary parts."""
+    n = x.shape[1]
+    m = n // 2 + 1
+    y = x @ _device_dense("r2c", n, 1.0, x.device)
+    return torch.complex(y[:, :m], y[:, m:])
+
+
+def r2c_packed_dense(x: torch.Tensor) -> torch.Tensor:
+    """R2C of the rows of a (T, n) float32 tensor -> (T, n/2+1) complex64 as
+    one real product, n even, n <= 512. A CPU tensor runs the plain version;
+    a CUDA tensor launches kernel 15's dense product or raises."""
+    _check_packed(x, "r2c_packed_dense")
+    t, n = x.shape
+    if n % 2 or not 2 <= n <= 2 * PACKED_DENSE_MAX_H:
+        raise ValueError(f"r2c_packed_dense: n={n} is not even in 2 ... "
+                         f"{2 * PACKED_DENSE_MAX_H}")
+    if x.device.type == "cpu":
+        return r2c_packed_dense_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"r2c_packed_dense: unsupported device {x.device}")
+    check_cuda(x, torch.float32, "r2c_packed_dense")
+    m = n // 2 + 1
+    out = torch.empty((t, m), dtype=torch.complex64, device=x.device)
+    if t == 0:
+        return out
+    w = _device_dense("r2c", n, 1.0, x.device)
+    tm = dense_tile(2 * m, 1, t, num_sms(x.device))
+    with torch.cuda.device(x.device):
+        err = _build.lib().ndfft_r2c_dense_rows(
+            w.data_ptr(), x.data_ptr(), out.data_ptr(), t, n, tm,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "r2c_packed_dense")
+    r2c_packed_dense.launches += 1
+    return out
+
+
+r2c_packed_dense.launches = 0

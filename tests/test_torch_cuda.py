@@ -6,7 +6,8 @@ JAX it runs without the repository's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerance: 5e-6 of max |plain| (kernel and plain version are both float32).
+Tolerance: 5e-6 of max |plain| (kernel and plain version are both float32);
+2e-6 for kernel 15.
 """
 
 import pytest
@@ -62,8 +63,9 @@ def test_step_runs_on_the_kernels(dev):
 
 
 def test_unported_route_and_grad_raise(dev):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item K15"):
-        nd.ndfft_r2c(torch.zeros(256, 256, device=dev), axis=1)
+    with pytest.raises(NotImplementedError,
+                       match=r"_r2c_kernel at a half length > 256.*item K8 \(n > 256"):
+        nd.ndfft_r2c(torch.zeros(256, 600, device=dev), axis=1)
     with pytest.raises(NotImplementedError, match="autograd"):
         nd.ndfft_r2c(torch.zeros(512, 512, device=dev, requires_grad=True), axis=1)
     y = nd.ndfft(torch.ones(4, 8, dtype=torch.complex128, device=dev), axis=1)
@@ -142,7 +144,7 @@ def test_complex_transform_runs_on_the_kernels(dev):
     assert [f.launches - b for f, b in zip(fns, before)] == [0, 0, 1, 1]
     assert _rel(w.to(torch.complex128), torch.fft.fftn(z.to(torch.complex128))) <= 1e-5
     with pytest.raises(NotImplementedError, match="inner C2C of this r2c lowering"):
-        nd.ndfft_r2c(torch.zeros(256, 201, device=dev), axis=1)
+        nd.ndfft_r2c(torch.zeros(256, 265, device=dev), axis=1)
 
 
 def test_mid_rfft_kernels_match_plain(dev):
@@ -179,3 +181,32 @@ def test_rfft2d_runs_on_the_mid_kernels(dev):
         assert _rel(back, x) <= 1e-5
     with pytest.raises(NotImplementedError, match="ROADMAP.md item K1b"):
         nd.ndfft_r2c(torch.zeros(768, 256, device=dev), axis=0)
+
+
+def test_packed_r2c_kernels_match_plain(dev):
+    g = torch.Generator(device=dev).manual_seed(6)
+    for t, h in ((130, 64), (7, 128), (16641, 128), (131, 129), (3, 100), (10, 512),
+                 (129, 1024)):
+        x = torch.randn(t, 2 * h, generator=g, device=dev)
+        if krfft.packed_core(h):
+            got, want = krfft.r2c_packed(x), krfft.r2c_packed_plain(x)
+        else:
+            got, want = krfft.r2c_packed_dense(x), krfft.r2c_packed_dense_plain(x)
+        assert got.shape == (t, h + 1)
+        assert _rel(got, want) <= 2e-6
+
+
+def test_real_step_128_cubed_runs_on_the_kernels(dev):
+    """The 128^3 real step with the real axis last: K15's dense product,
+    K8 on the moved axis 1 (65 < 128 columns), K4 along axis 0, and K8
+    after the C2R's Hermitian extension."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(128, 128, 128, generator=g, device=dev)
+    hr, hc = nd.R2cFftHandler(128), nd.FftHandler(128)
+    fns = (krfft.r2c_packed_dense, kfft.c2c_dense_rows, kfft.c2c_dense_mid)
+    before = [f.launches for f in fns]
+    v = nd.ndfft(nd.ndfft(nd.ndfft_r2c(x, hr, axis=2), hc, axis=1), hc, axis=0)
+    back = nd.ndifft_r2c(nd.ndifft(nd.ndifft(v, hc, axis=0), hc, axis=1), hr, axis=2)
+    assert [f.launches - b for f, b in zip(fns, before)] == [1, 3, 2]
+    assert _rel(v.to(torch.complex128), torch.fft.rfftn(x.double())) <= 1e-5
+    assert _rel(back, x) <= 1e-5

@@ -57,6 +57,16 @@ F32, F64 = torch.float32, torch.float64
     ("dct3", (300, 1), 1, api.ENGINE),
     ("dct2", (512, 100), 0, api.ENGINE),           # cols < 128 and batch < 128
     ("dst1", (100, 12), 1, api.ENGINE),
+    # the lane lowerings on K15, K10 and K8
+    ("dct1", (256, 513), 1, api.R2C_PACKED),                   # h = 512: the core, F = 4
+    ("dst1", (256, 511), 1, api.R2C_PACKED),
+    ("dct1", (256, 1025), 1, api.R2C_PACKED),                  # h = 1024
+    ("dct1", (256, 130), 1, api.R2C_PACKED),                   # h = 129: the dense product
+    ("dst1", (3, 129, 128), 1, api.R2C_PACKED),                # mid without K18: axis moves
+    ("dct4", (64, 1024), 1, api.DCT_LANE),                 # K10 on 2 * 64 rows
+    ("dct3", (256, 200), 1, api.DCT_LANE),                 # K8
+    ("dct2", (256, 300), 1, api.R2C_PACKED),                   # r2c of even n
+    ("dst2", (256, 129), 1, api.R2C_ROWPAIR),                  # odd: row pairs
 ])
 def test_route_on_cuda(kind, shape, axis, want):
     assert api._route(kind, shape, axis, F32, "cuda") == want
@@ -83,16 +93,18 @@ def test_float64_takes_the_engine(kind):
     ("dct2", (128, 384), 1, "_dct2_kernel / _dct3_kernel", "K1b"),
     ("dct3", (128, 128), 1, "_dct2_kernel / _dct3_kernel", "K1b"),
     ("dct2", (128, 8192), 1, "_dct2_kernel / _dct3_kernel", "K1b"),
-    ("dct1", (256, 513), 1, "_r2c_kernel", "K15"),
-    ("dst1", (256, 511), 1, "_r2c_kernel", "K15"),
-    ("dct1", (256, 1025), 1, "_r2c_kernel", "K15"),               # h = 1024
-    ("dct4", (64, 1024), 1, "_kernel_twostep", "K10"),            # 2 * 64 rows
+    ("dct1", (256, 265), 1, "_r2c_kernel at a half length > 256",  # h = 264
+     "K8 (n > 256 without a split)"),
+    ("dct1", (256, 385), 1, "_r2c_kernel with a twostep", "K1b"),  # h = 384: F = 3
+    ("dct2", (256, 1200), 1, "_r2c_kernel at a half length > 256",  # h = 600
+     "K8 (n > 256 without a split)"),
     ("dct4", (256, 32768), 1, "_kernel_exit_mul", "K7"),          # four-step
-    ("dct3", (256, 200), 1, "_kernel_lane_last", "K8"),
-    ("dct4", (64, 1000), 1, "_kernel_lane_last", "K8"),           # 2 * 64 rows
-    ("dct2", (256, 300), 1, "_r2c_kernel", "K15"),                # r2c of even n
-    ("dct2", (256, 301), 1, "_kernel_lane_last", "K8"),           # odd: row pairs
-    ("dct2", (1200, 1100), 0, "_r2c_kernel", "K15"),              # mid, n > 1100
+    ("dct4", (64, 1000), 1, "_kernel_lane_last",                  # 2 * 64 rows
+     "K8 (n > 256 without a split)"),
+    ("dct2", (256, 301), 1, "_kernel_lane_last",                  # odd: row pairs
+     "K8 (n > 256 without a split)"),
+    ("dct2", (1200, 1100), 0, "_r2c_kernel at a half length > 256",  # mid, n > 1100
+     "K8 (n > 256 without a split)"),
     ("dct3", (256, 263), 1, "_kernel_axis_mid_blue", "K11"),      # Bluestein n
 ])
 def test_unported_route_raises_on_cuda(kind, shape, axis, kernel, item):
@@ -104,7 +116,8 @@ def test_unported_route_raises_on_cuda(kind, shape, axis, kernel, item):
 
 def test_dct_routes_never_take_the_fft_kernels():
     """K1-K3 serve no DCT/DST route: every length whose DCT route would
-    reach them takes K23/K24/K28 first (api._dct_lane, _route_r2r)."""
+    reach them takes K23/K24/K28 first (api._dct_lane, _route_r2r). The
+    lane lowerings reach K15, K10 and K8 under their own route names."""
     for n in range(2, 5000, 3):
         for kind in ("dct1", "dct2", "dct3", "dct4", "dst1"):
             for shape, axis in (((n, 256), 0), ((256, n), 1)):
@@ -113,6 +126,7 @@ def test_dct_routes_never_take_the_fft_kernels():
                 except NotImplementedError:
                     continue
                 assert route in (api.DCT_DENSE_MID, api.DCT2_NAT, api.DCT3_NAT,
+                                 api.R2C_PACKED, api.R2C_ROWPAIR, api.DCT_LANE,
                                  api.ENGINE), (kind, shape, axis, route)
 
 

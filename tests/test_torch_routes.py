@@ -95,7 +95,9 @@ def test_route_on_cuda(kind, shape, axis, dtype, n, want):
     # a middle axis whose half length has a factor outside the core's
     # {2, 4, 8, 16}: F = 3 (n = 768) and F = 32 (n = 8192)
     ("r2c", (768, 256), 0, None, "_r2c_kernel_mid", "K1b"),
-    ("r2c", (256, 256), 1, None, "_r2c_kernel", "K15"),
+    # the packed R2C (K15) at a half length > 256 without a split
+    ("r2c", (256, 600), 1, None, "_r2c_kernel at a half length > 256",
+     "K8 (n > 256 without a split)"),
     ("r2c", (8192, 128), 0, None, "_r2c_kernel_mid", "K1b"),
     ("c2r", (385, 256), 0, 768, "_c2r_kernel_mid", "K1b"),
     ("c2r", (4097, 128), 0, 8192, "_c2r_kernel_mid", "K1b"),
@@ -111,19 +113,51 @@ def test_unported_route_raises_on_cuda(kind, shape, axis, n, kernel, item):
     assert api._route(kind, shape, axis, dtype, "cpu", n=n) == api.ENGINE
 
 
-# The other kinds' lowerings reach the C2C route names for an inner C2C;
-# the C2C kernels serve ndfft/ndifft only, so these still raise on a CUDA
+# The other kinds' lane lowerings, one route name each: the packed R2C
+# (K15), the row pairs (odd n), the Hermitian extension (C2R) and the
+# DCT-III/IV lowerings, whose C2C is K10 or K8; the motivating calls (the
+# 256^3 and 128^3 steps' real legs along the last axis, odd grids, the
+# Chebyshev DCT-I/DST-I and the DCT-IV lanes) among them
+@pytest.mark.parametrize("kind,shape,axis,n,want", [
+    ("r2c", (256, 201), 1, None, api.R2C_ROWPAIR),               # odd n: row pairs
+    ("r2c", (256, 255), -1, None, api.R2C_ROWPAIR),
+    ("c2r", (256, 101), 1, 200, api.C2R_LANE),                   # no natural factor: K8
+    ("dct3", (256, 200), 1, None, api.DCT_LANE),                 # K8
+    ("dct4", (128, 256), 1, None, api.DCT_LANE),                 # K8
+    ("dct4", (256, 1024), 1, None, api.DCT_LANE),                # K10
+    ("dst4", (128, 256), 1, None, api.DCT_LANE),
+    ("r2c", (256, 256), 1, None, api.R2C_PACKED),                # h = 128: the core, F = 1
+    ("r2c", (256, 256, 256), 2, None, api.R2C_PACKED),
+    ("c2r", (256, 256, 129), 2, 256, api.C2R_LANE),
+    ("r2c", (128, 128, 128), 2, None, api.R2C_PACKED),           # h = 64: the dense product
+    ("c2r", (128, 128, 65), 2, 128, api.C2R_LANE),
+    ("r2c", (129, 129, 129), 2, None, api.R2C_ROWPAIR),
+    ("c2r", (129, 129, 65), 2, 129, api.C2R_LANE),
+    ("r2c", (255, 255), 1, None, api.R2C_ROWPAIR),
+    ("dct1", (129, 129), 1, None, api.R2C_PACKED),
+    ("dct1", (129, 129, 129), 2, None, api.R2C_PACKED),
+    ("dct1", (1025, 1025), 1, None, api.R2C_PACKED),             # h = 1024: the core, F = 8
+    ("dst1", (256, 511), 1, None, api.R2C_PACKED),
+    ("dct4", (1024, 1024), 1, None, api.DCT_LANE),
+    ("dst4", (512, 512, 512), 2, None, api.DCT_LANE),
+    ("dct2", (256, 200), 1, None, api.R2C_PACKED),               # no K23 split
+    ("dct2", (256, 201), 1, None, api.R2C_ROWPAIR),
+])
+def test_lane_lowerings_run_on_cuda(kind, shape, axis, n, want):
+    dtype = C64 if kind == "c2r" else F32
+    assert api._route(kind, shape, axis, dtype, "cuda", n=n) == want
+    assert api._route(kind, shape, axis, dtype, "cpu", n=n) == want
+
+
+# The lane lowerings whose inner C2C has no CUDA port still raise on a CUDA
 # tensor, naming the lowering, and never run the engine there
 @pytest.mark.parametrize("kind,shape,axis,n,kernel,item", [
-    ("r2c", (256, 201), 1, None, "_kernel_lane_last", "K8"),      # odd n: full C2C
-    ("r2c", (256, 255), -1, None, "_kernel_lane_last", "K8"),
-    ("c2r", (256, 101), 1, 200, "_kernel_lane_last", "K8"),       # no natural factor
-    ("c2r", (128, 321), 1, 640, "_kernel_twostep", "K10"),
-    ("dct3", (256, 200), 1, None, "_kernel_lane_last", "K8"),
-    ("dct4", (128, 256), 1, None, "_kernel_lane_last", "K8"),
-    ("dct4", (256, 1024), 1, None, "_kernel_twostep", "K10"),
-    ("dst4", (128, 256), 1, None, "_kernel_lane_last", "K8"),
-    ("dct2", (256, 301), 1, None, "_kernel_lane_last", "K8"),     # odd: the R2C's C2C
+    ("r2c", (256, 265), 1, None, "_kernel_lane_last", "K8 (n > 256 without a split)"),
+    ("c2r", (256, 151), 1, 300, "_kernel_lane_last", "K8 (n > 256 without a split)"),
+    ("c2r", (128, 321), 1, 640, "_kernel_twostep", "K1b"),      # F = 5
+    ("dct4", (256, 1000), 1, None, "_kernel_lane_last", "K8 (n > 256 without a split)"),
+    ("dct2", (256, 301), 1, None, "_kernel_lane_last",          # odd: the row pairs' C2C
+     "K8 (n > 256 without a split)"),
 ])
 def test_other_kinds_inner_c2c_still_raises_on_cuda(kind, shape, axis, n, kernel, item):
     dtype = C64 if kind == "c2r" else F32
@@ -135,6 +169,8 @@ def test_other_kinds_inner_c2c_still_raises_on_cuda(kind, shape, axis, n, kernel
 
 
 def test_c2c_kernel_routes_serve_fft_and_ifft_only():
+    """The C2C route names stay the complex transform's: another kind's
+    lowering that reaches K10/K8 takes a route named for that lowering."""
     for kind in ("r2c", "c2r", "dct1", "dct2", "dct3", "dct4", "dst1", "dst2", "dst3",
                  "dst4"):
         for n in (2, 3, 128, 200, 201, 256, 264, 512, 640, 1000, 1024, 2048):
