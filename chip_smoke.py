@@ -44,8 +44,19 @@ without the final line):
         last axis of n x n (n = 129, 513, 1025) with DST-I beside it (kernel
         15 on the core), DCT-IV/DST-IV along the last axis of 1024^2 and
         512^3 (kernel 10), DCT-III and DCT-II of 200^2 (kernel 8, kernel
-        15's dense product), against scipy.fft in float64; and a DCT-I at
-        n = 265 (kernel 8 at n > 256 without a split) still raises;
+        15's dense product), against scipy.fft in float64;
+     f. the generic two-factor schedule (kernel 8 at n > 256 without a
+        split, kernel 6 along a middle axis, kernel 15 at such a half
+        length): the 600^3 real step with the real axis last (kernel 15 at
+        h = 300, kernel 6 four times, kernel 8 at n = 600 after the C2R's
+        Hermitian extension) against torch.fft.rfftn in float64 (oracle
+        only), with the round trip; ndfft/ndifft along the last axis of
+        264^2 and along axis 0 of 1200 x 256, ndfft_r2c at 530 (odd h) and
+        ndifft_r2c at 300, DCT-I at 265 and DST-I at 263, DCT-II/III of
+        600^2, DCT-IV of 1000^2 along the last axis, and the DCT-IV/DST-IV
+        composite along axis 0 of 1200 x 600 (kernel 6), against float64
+        torch.fft / scipy.fft; and ndfft at n = 384 along the last axis
+        (K1b) still raises;
   5. times with CUDA events (median over --reps runs after warm-up): each
      kernel against its plain version and, where one PyTorch call computes
      the same function, that call (the yardstick, never on the port's
@@ -57,7 +68,7 @@ without the final line):
      against torch.fft.rfft(dim=0), the real-axis-last 256^3 and 128^3
      steps against torch.fft.rfftn / irfftn, each with its public calls
      timed one by one and the C2R's Hermitian extension and kernel 8
-     apart.
+     apart, and the same for the 600^3 step.
 The kernels line gives each kernel's launches on its main path, its largest
 error against its plain version, its times, and its bound: the larger of
 the bytes it must move (each input read once, each output written once)
@@ -81,7 +92,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 TOL_KERNEL = 5e-6    # kernel vs plain, relative to max |plain| (both float32)
-TOL_PACKED = 2e-6    # kernel 15 vs plain: sums of at most 2048 terms
+TOL_PACKED = 2e-6    # kernel 15 (core, dense) vs plain: sums of at most 2048 terms
 TOL_STEP = 1e-5      # step vs float64 oracle and round trip, relative
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, 700 W
 FP32_FLOP_PER_S = 67e12     # FP32 outside the tensor cores, same source
@@ -150,6 +161,18 @@ def work(name: str, shape):
     if name == "c2c_rows":
         t, n = shape
         return 16 * t * n + 8 * n * 128, 5 * n * math.log2(n) * t
+    if name in ("c2c_generic_rows", "c2c_generic_mid", "r2c_packed_generic"):
+        from ndrustfft_tpu_torch.ops.hopper.fft import generic_split
+        if name == "r2c_packed_generic":
+            t, n = shape        # tables of h, and the unpack twiddle
+            h = n // 2
+            m, f = generic_split(h)
+            return (4 * t * n + 8 * t * (h + 1) + 8 * (m * m + f * f + m * f + h),
+                    2.5 * n * math.log2(n) * t)
+        n = shape[-1] if name == "c2c_generic_rows" else shape[1]
+        m, f = generic_split(n)
+        outputs = math.prod(shape) // n
+        return 16 * outputs * n + 8 * (m * m + f * f + m * f), 5 * n * math.log2(n) * outputs
     if name in ("c2c_dense_rows", "c2c_dense_mid"):
         n = shape[-1] if name == "c2c_dense_rows" else shape[1]
         outputs = math.prod(shape) // n
@@ -262,7 +285,8 @@ def main() -> int:
             "dct_dense_mid": 0.0, "dct2_nat": 0.0, "dct3_nat": 0.0,
             "c2c_rows": 0.0, "c2c_dense_rows": 0.0, "c2c_dense_mid": 0.0,
             "r2c_mid": 0.0, "c2r_mid": 0.0, "r2c_dense_mid": 0.0, "c2r_dense_mid": 0.0,
-            "r2c_packed": 0.0, "r2c_packed_dense": 0.0}
+            "r2c_packed": 0.0, "r2c_packed_dense": 0.0, "c2c_generic_rows": 0.0,
+            "c2c_generic_mid": 0.0, "r2c_packed_generic": 0.0}
     k1_shapes = [(1, 512, 257), (1, 1024, 513), (3, 2048, 130), (512, 512, 257),
                  (1, 512, 512 * 257), (1, 512, 512), (1, 1024, 1024), (512, 512, 512),
                  (1, 512, 512 * 512), (257, 512, 512)]
@@ -344,6 +368,15 @@ def main() -> int:
         ("c2c_dense_mid", kfft.c2c_dense_mid, kfft.c2c_dense_mid_plain,
          ((1, 128, 128), (1, 264, 264), (3, 200, 257), (2, 500, 130), (256, 256, 256),
           (1, 256, 256 * 256), (129, 256, 256))),
+        # the generic schedule: ragged rows and column tiles, m with two
+        # planner factors (11352 = 129 * 88), the largest m (19272 = 219 * 88),
+        # the largest tile (20480), and the main paths' shapes (phase 4f)
+        ("c2c_generic_rows", kfft.c2c_generic_rows, kfft.c2c_generic_rows_plain,
+         ((130, 264), (7, 600), (129, 1200), (3, 11352), (2, 19272), (2, 20480),
+          (264, 264), (300, 300), (530, 530), (2000, 1000), (600 * 600, 600))),
+        ("c2c_generic_mid", kfft.c2c_generic_mid, kfft.c2c_generic_mid_plain,
+         ((2, 520, 129), (3, 600, 301), (1, 11352, 5), (1, 19272, 3), (1, 20480, 3),
+          (1, 1200, 256), (1, 600, 600), (600, 600, 301), (1, 600, 600 * 301))),
     )
     for name, kern, plain, shapes in c2c_checks:
         for shape in shapes:
@@ -392,8 +425,9 @@ def main() -> int:
                 del got, ref
             del x, s
 
-    # kernel 15: the core at every factor F = 1 ... 16 and the dense product,
-    # at ragged row counts and at the main paths' shapes (phase 4e)
+    # kernel 15: the core at every factor F = 1 ... 16, the dense product and
+    # the generic schedule, at ragged row counts and at the main paths'
+    # shapes (phases 4e and 4f)
     packed_checks = (
         ("r2c_packed", krfft.r2c_packed, krfft.r2c_packed_plain,
          ((7, 256), (130, 512), (3, 1024), (33, 2048), (5, 4096), (256 * 256, 256),
@@ -402,8 +436,13 @@ def main() -> int:
         ("r2c_packed_dense", krfft.r2c_packed_dense, krfft.r2c_packed_dense_plain,
          ((130, 128), (128 * 128, 128), (131, 258), (3, 200), (200, 200), (7, 2),
           (129, 512))),
+        # the generic schedule: odd h (265), m with two factors (h = 11352),
+        # the DCT-I/DST-I extensions (h = 264) and the 600^3 step's R2C
+        ("r2c_packed_generic", krfft.r2c_packed_generic, krfft.r2c_packed_generic_plain,
+         ((130, 530), (7, 600), (2, 2 * 11352), (265, 528), (600, 600), (600 * 600, 600))),
     )
     for name, kern, plain, shapes in packed_checks:
+        tol = TOL_KERNEL if name == "r2c_packed_generic" else TOL_PACKED
         for shape in shapes:
             x = randn(*shape)
             got = kern(x)
@@ -412,7 +451,7 @@ def main() -> int:
             rel = abs_err(got, ref) / float(ref.abs().max())
             errs[name] = max(errs[name], abs_err(got, ref))
             emit(phase="kernel_vs_plain", kernel=name, shape=shape, rel_err=rel)
-            if not rel <= TOL_PACKED:
+            if not rel <= tol:
                 raise AssertionError(f"{name} {shape}: {rel}")
             del x, got, ref
 
@@ -435,7 +474,10 @@ def main() -> int:
                 "c2c_dense_mid": kfft.c2c_dense_mid, "r2c_mid": krfft.r2c_mid,
                 "c2r_mid": krfft.c2r_mid, "r2c_dense_mid": krfft.r2c_dense_mid,
                 "c2r_dense_mid": krfft.c2r_dense_mid, "r2c_packed": krfft.r2c_packed,
-                "r2c_packed_dense": krfft.r2c_packed_dense}
+                "r2c_packed_dense": krfft.r2c_packed_dense,
+                "c2c_generic_rows": kfft.c2c_generic_rows,
+                "c2c_generic_mid": kfft.c2c_generic_mid,
+                "r2c_packed_generic": krfft.r2c_packed_generic}
 
     def reset_counts():
         for w in wrappers.values():
@@ -763,14 +805,6 @@ def main() -> int:
         check("dst1_last_axis", y, sfft.dst(host64(dst_in[n]), type=1, axis=1),
               grid=list(dst_in[n].shape))
     del c3, cheb_out, dst_out, xo3
-    try:
-        nd.nddct1(randn(265, 265), axis=1)
-    except NotImplementedError as e:    # K15 at h = 264: K8 wide, not ported
-        emit(phase="lane_path", check="dct1_265_raises", error=str(e))
-        if "K8 (n > 256 without a split)" not in str(e):
-            raise
-    else:
-        raise AssertionError("nddct1 at n = 265 along the last axis ran on the card")
 
     # the DCT lanes: DCT-IV / DST-IV of 1024^2 (K10 on 2048 rows of 1024)
     # and DCT-IV of 512^3 (K10 on 524288 rows of 512, a 2.1 GB intermediate);
@@ -796,6 +830,71 @@ def main() -> int:
     del d4, s4, d4_3, d3, d2, x4
     torch.cuda.empty_cache()
 
+    # ---- 4f. the generic two-factor schedule: the 600^3 real step with the
+    # real axis last (K15 at h = 300 on 360000 rows, K6 at (600, 600, 301)
+    # and (1, 600, 180600) forward and back, K8 at n = 600 on 360000 rows
+    # after the C2R's Hermitian extension: 0.86 GB per field, a 1.73 GB
+    # extension), then the reference's sizes and lengths without a split
+    n6 = 600
+    x600 = randn(n6, n6, n6)
+    h600r, h600c = nd.R2cFftHandler(n6), nd.FftHandler(n6)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    v = fwd3(x600, h600r, h600c)
+    back = inv3(v, h600r, h600c)
+    read_counts("real_axis_last_600^3", r2c_packed_generic=1, c2c_generic_mid=4,
+                c2c_generic_rows=1)
+    peak = torch.cuda.max_memory_allocated()
+    check_lane("step_real_axis_last", v, torch.fft.rfftn(x600.double()), back, x600,
+               grid=[n6] * 3, peak_bytes=peak, base_bytes=base)
+    del v, back
+    torch.cuda.empty_cache()
+
+    # K8 at 264 (m = 2, f = 132), 300, 600 and 1000 on rows; K6 along axis 0
+    # at 1200 and in the DCT-IV/DST-IV composite (m = 600); K15 at h = 265
+    # (odd), 264 (the DCT-I/DST-I extensions) and 300 (DCT-II)
+    g264, g1200 = crandn(264, 264), crandn(1200, 256)
+    x530, x300, x265, x263 = randn(530, 530), randn(300, 300), randn(265, 265), randn(263, 263)
+    x600_2, x1000, x1200 = randn(600, 600), randn(1000, 1000), randn(1200, 600)
+    s300 = torch.fft.rfft(x300.double()).to(torch.complex64)    # a Hermitian input
+    h264, h1200 = nd.FftHandler(264), nd.FftHandler(1200)
+    reset_counts()
+    y264 = nd.ndfft(g264, h264, axis=1)
+    b264 = nd.ndifft(y264, h264, axis=1)
+    y1200 = nd.ndfft(g1200, h1200, axis=0)
+    b1200 = nd.ndifft(y1200, h1200, axis=0)
+    s530 = nd.ndfft_r2c(x530, nd.R2cFftHandler(530), axis=1)
+    b300 = nd.ndifft_r2c(s300, nd.R2cFftHandler(300), axis=1)
+    gen_out = {"dct1_265": (nd.nddct1(x265, axis=1), sfft.dct, x265, 1, 1),
+               "dst1_263": (nd.nddst1(x263, axis=1), sfft.dst, x263, 1, 1),
+               "dct2_600": (nd.nddct2(x600_2, axis=1), sfft.dct, x600_2, 2, 1),
+               "dct3_600": (nd.nddct3(x600_2, axis=1), sfft.dct, x600_2, 3, 1),
+               "dct4_1000": (nd.nddct4(x1000, axis=1), sfft.dct, x1000, 4, 1),
+               "dct4_axis0_1200x600": (nd.nddct4(x1200, axis=0), sfft.dct, x1200, 4, 0),
+               "dst4_axis0_1200x600": (nd.nddst4(x1200, axis=0), sfft.dst, x1200, 4, 0)}
+    read_counts("generic_lanes", c2c_generic_rows=2 + 1 + 1 + 1, c2c_generic_mid=2 + 2,
+                r2c_packed_generic=1 + 1 + 1 + 1)
+    check_c2c("fft_last_axis", y264, g264, b264, dims=(1,), grid=[264, 264])
+    check_c2c("fft_axis0", y1200, g1200, b1200, dims=(0,), grid=[1200, 256])
+    check_lane("r2c_last_axis_odd_h", s530, torch.fft.rfft(x530.double(), dim=1),
+               grid=[530, 530])
+    check_lane("c2r_last_axis", b300, torch.fft.irfft(s300.to(torch.complex128), n=300, dim=1),
+               b300, x300, grid=[300, 300])
+    for what, (y, fn, x, t, axis) in gen_out.items():
+        check(what, y, fn(host64(x), type=t, axis=axis), grid=list(x.shape))
+    del g264, g1200, y264, b264, y1200, b1200, s530, b300, gen_out
+    try:
+        nd.ndfft(crandn(256, 384), axis=1)
+    except NotImplementedError as e:    # the core at F = 3: K1b, not ported
+        emit(phase="generic_path", check="fft_384_raises", error=str(e))
+        if "ROADMAP.md item K1b" not in str(e):
+            raise
+    else:
+        raise AssertionError("ndfft at n = 384 along the last axis ran on the card")
+    torch.cuda.empty_cache()
+
     # ---- 5. times: each kernel against its plain version and, at the main
     # path's shape, the PyTorch call that computes the same function (the
     # yardstick); the steps against torch.fft
@@ -808,7 +907,8 @@ def main() -> int:
                    "c2c_dense_mid": (1, 256, 256 * 256), "r2c_mid": (1, 512, 512 * 512),
                    "c2r_mid": (1, 257, 512 * 512), "r2c_dense_mid": (1, 256, 256 * 256),
                    "c2r_dense_mid": (1, 129, 256 * 256), "r2c_packed": (256 * 256, 256),
-                   "r2c_packed_dense": (128 * 128, 128)}
+                   "r2c_packed_dense": (128 * 128, 128), "c2c_generic_rows": (600 * 600, 600),
+                   "c2c_generic_mid": (600, 600, 301), "r2c_packed_generic": (600 * 600, 600)}
 
     def time_kernel(name, shape, kern, plain, library=None):
         t_plain = cuda_ms(plain, reps)
@@ -936,6 +1036,25 @@ def main() -> int:
             time_kernel(name, shape, lambda: kern(x), lambda: plain(x),
                         lambda: torch.fft.rfft(x, dim=1))
     del x
+    # the generic schedule, and the 600^3 step among the real-axis-last steps
+    for name, kern, plain, shapes in (
+            ("c2c_generic_rows", kfft.c2c_generic_rows, kfft.c2c_generic_rows_plain,
+             ((600 * 600, 600), (264, 264), (2000, 1000))),
+            ("c2c_generic_mid", kfft.c2c_generic_mid, kfft.c2c_generic_mid_plain,
+             ((600, 600, 301), (1, 600, 600 * 301), (1, 1200, 256)))):
+        for shape in shapes:
+            x = crandn(*shape)
+            dim = -1 if len(shape) == 2 else 1
+            time_kernel(name, shape, lambda: kern(x, -1), lambda: plain(x, -1),
+                        lambda: torch.fft.fft(x, dim=dim))
+        del x
+    for shape in ((600 * 600, 600), (530, 530)):
+        x = randn(*shape)
+        time_kernel("r2c_packed_generic", shape, lambda: krfft.r2c_packed_generic(x),
+                    lambda: krfft.r2c_packed_generic_plain(x), lambda: torch.fft.rfft(x, dim=1))
+    del x
+    torch.cuda.empty_cache()
+    last_inputs[n6] = x600
     for n, x in last_inputs.items():
         hr, hc = nd.R2cFftHandler(n), nd.FftHandler(n)
         torch.cuda.reset_peak_memory_stats()
@@ -952,6 +1071,7 @@ def main() -> int:
         w0 = nd.ndifft(v, hc, axis=0)
         w = nd.ndifft(w0, hc, axis=1)
         e = engine.hermitian_extension(w, n).reshape(-1, n)
+        k8 = kfft.c2c_dense_rows if n <= 256 else kfft.c2c_generic_rows
         legs = {"r2c_axis2": lambda: nd.ndfft_r2c(x, hr, axis=2),
                 "fft_axis1": lambda: nd.ndfft(a, hc, axis=1),
                 "fft_axis0": lambda: nd.ndfft(b, hc, axis=0),
@@ -959,13 +1079,13 @@ def main() -> int:
                 "ifft_axis1": lambda: nd.ndifft(w0, hc, axis=1),
                 "c2r_axis2": lambda: nd.ndifft_r2c(w, hr, axis=2),
                 "c2r_extension": lambda: engine.hermitian_extension(w, n),
-                "c2r_k8": lambda: kfft.c2c_dense_rows(e, +1, 1.0 / n)}
+                "c2r_k8": lambda: k8(e, +1, 1.0 / n)}
         leg_ms = {k: cuda_ms(f, reps) for k, f in legs.items()}
         emit(phase="time", breakdown=f"step_real_axis_last_{n}^3", step_ms=t_port,
              legs_ms=leg_ms, sum_public_ms=sum(leg_ms[k] for k in list(legs)[:6]),
              card=card)
         del a, b, v, w0, w, e
-    del last_inputs
+    del last_inputs, x600
     for n, x in rfft2d_inputs.items():
         h = nd.R2cFftHandler(n)
         t_port = cuda_ms(lambda: nd.ndfft_r2c(x, h, axis=0), reps)
@@ -1020,6 +1140,12 @@ def main() -> int:
                        "ndrustfft_tpu/ops/pallas/rfft.py:163"),
         "r2c_packed_dense": ("ndrustfft_tpu_torch/csrc/rfft_dense.cu",
                              "ndrustfft_tpu/ops/pallas/rfft.py:163"),
+        "c2c_generic_rows": ("ndrustfft_tpu_torch/csrc/fft_generic.cu",
+                             "ndrustfft_tpu/ops/pallas/fft.py:521"),
+        "c2c_generic_mid": ("ndrustfft_tpu_torch/csrc/fft_generic.cu",
+                            "ndrustfft_tpu/ops/pallas/fft.py:1794"),
+        "r2c_packed_generic": ("ndrustfft_tpu_torch/csrc/rfft_generic.cu",
+                               "ndrustfft_tpu/ops/pallas/rfft.py:163"),
     }
     kernels = []
     for name, (src, rep) in sources.items():

@@ -5,9 +5,11 @@ The real spectral step of a pseudo-spectral solver runs on the card through
 three kernels (``ops/hopper``): C2C along a middle axis, and R2C / C2R of
 contiguous rows. The complex n-D transform (``ndfft``/``ndifft`` on every
 axis) adds three: C2C of contiguous rows, and a dense C2C product (n <= 512)
-along a middle axis or along rows. The DCT/DST family runs through three
-more: a dense DCT of any type along a middle axis (n <= 1100), and DCT-II /
-DCT-III of contiguous rows. Everything else runs the plain torch engine, or raises
+along a middle axis or along rows; lengths above 256 without a {128, 256}
+split take the generic two-factor schedule, along rows or a middle axis.
+The DCT/DST family runs through three more: a dense DCT of any type along a
+middle axis (n <= 1100), and DCT-II / DCT-III of contiguous rows. Everything
+else runs the plain torch engine, or raises
 ``NotImplementedError`` on a CUDA tensor where the JAX package would use a
 Pallas kernel that is not ported yet (see ``api._route`` and ROADMAP.md).
 """

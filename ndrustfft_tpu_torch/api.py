@@ -18,9 +18,11 @@ The gates and the route names live in ``gates.py``. The other kinds' lane
 lowerings take one route name each: R2C_PACKED (the packed R2C, K15, of R2C,
 DCT-I, DST-I and DCT-II rows), R2C_ROWPAIR (odd-length R2C and DCT-II rows
 paired into one C2C), C2R_LANE (the Hermitian extension and its C2C) and
-DCT_LANE (the DCT-III/IV lowerings' C2C); each C2C is K10 or K8. The route
-and the lowering in ``ops/engine.py`` are decided by the same function of
-``gates.py``; the launch counters show which kernel ran.
+DCT_LANE (the DCT-III/IV lowerings' C2C); each C2C is K10 or K8 (dense, or
+the generic schedule above 256). The route and the lowering in
+``ops/engine.py`` are decided by the same function of ``gates.py``; the
+launch counters show which kernel ran. DCT4_HALF_MID is the DCT-IV/DST-IV
+composite along a middle axis, its half-length C2C on K6.
 
 A non-tensor input (numpy array, list, scalar) goes to the CUDA device, as
 the JAX package puts it on its default device; a CPU tensor is how a caller
@@ -37,8 +39,9 @@ import torch
 
 from .config import config
 from .gates import (
-    C2C_AXIS_MID, C2C_DENSE_MID, C2C_DENSE_ROWS, C2C_ROWS, C2R_DENSE_MID, C2R_LANE,
-    C2R_MID, C2R_NAT, DCT2_NAT, DCT3_NAT, DCT_DENSE_MID, DCT_LANE, ENGINE, MIN_BATCH,
+    C2C_AXIS_MID, C2C_DENSE_MID, C2C_DENSE_ROWS, C2C_GENERIC_MID, C2C_GENERIC_ROWS, C2C_ROWS,
+    C2R_DENSE_MID, C2R_LANE, C2R_MID, C2R_NAT, DCT2_NAT, DCT3_NAT, DCT4_HALF_MID,
+    DCT_DENSE_MID, DCT_LANE, ENGINE, MIN_BATCH,
     R2C_DENSE_MID, R2C_MID, R2C_NAT, R2C_PACKED, R2C_ROWPAIR, _c2c_kernel_route,
     _kernel_ok, _lane_c2c, _nat_f, _twostep_split, c2r_lane_route, inner_c2c_route,
     packed_lane, r2c_lane_route, unported,
@@ -57,9 +60,10 @@ __all__ = ["ndfft", "ndifft", "ndfft_r2c", "ndifft_r2c",
            "nddct1", "nddct2", "nddct3", "nddct4",
            "nddst1", "nddst2", "nddst3", "nddst4"]
 
-_RUNNABLE = (C2C_AXIS_MID, C2C_ROWS, C2C_DENSE_ROWS, C2C_DENSE_MID, R2C_NAT,
-             C2R_NAT, R2C_MID, C2R_MID, R2C_DENSE_MID, C2R_DENSE_MID, DCT_DENSE_MID,
-             DCT2_NAT, DCT3_NAT, R2C_PACKED, R2C_ROWPAIR, C2R_LANE, DCT_LANE, ENGINE)
+_RUNNABLE = (C2C_AXIS_MID, C2C_ROWS, C2C_DENSE_ROWS, C2C_DENSE_MID, C2C_GENERIC_ROWS,
+             C2C_GENERIC_MID, R2C_NAT, C2R_NAT, R2C_MID, C2R_MID, R2C_DENSE_MID,
+             C2R_DENSE_MID, DCT_DENSE_MID, DCT2_NAT, DCT3_NAT, DCT4_HALF_MID, R2C_PACKED,
+             R2C_ROWPAIR, C2R_LANE, DCT_LANE, ENGINE)
 _C2C_KINDS = ("fft", "ifft")
 _R2R_KINDS = tuple(f"{f}{t}" for f in ("dct", "dst") for t in (1, 2, 3, 4))
 
@@ -125,10 +129,11 @@ def _mid_dims(shape, axis):
 def _route(kind: str, shape, axis: int, dtype: torch.dtype, device_type: str,
            n: int | None = None) -> str:
     """The route of one call: one of the ported kernels' routes (C2C_AXIS_MID,
-    C2C_ROWS, C2C_DENSE_ROWS, C2C_DENSE_MID, R2C_NAT, C2R_NAT, R2C_MID,
-    C2R_MID, R2C_DENSE_MID, C2R_DENSE_MID, DCT_DENSE_MID, DCT2_NAT, DCT3_NAT,
-    and the lane lowerings' R2C_PACKED, R2C_ROWPAIR, C2R_LANE, DCT_LANE) or
-    ENGINE.
+    C2C_ROWS, C2C_DENSE_ROWS, C2C_DENSE_MID, C2C_GENERIC_ROWS,
+    C2C_GENERIC_MID, R2C_NAT, C2R_NAT, R2C_MID, C2R_MID, R2C_DENSE_MID,
+    C2R_DENSE_MID, DCT_DENSE_MID, DCT2_NAT, DCT3_NAT, the DCT-IV composite
+    DCT4_HALF_MID, and the lane lowerings' R2C_PACKED, R2C_ROWPAIR, C2R_LANE,
+    DCT_LANE) or ENGINE.
 
     ``kind`` is "fft", "ifft", "r2c", "c2r", "dct1".."dct4" or
     "dst1".."dst4"; ``shape``, ``axis`` and ``dtype`` are the input's; ``n``
@@ -189,7 +194,7 @@ def _route_f32(kind, shape, axis, n):
             if n <= 256 or (not use_ts and n <= 512):
                 return "dense_mid"
             if not use_ts:
-                return "generic_mid"
+                return C2C_GENERIC_MID
             return C2C_AXIS_MID if ts[1] in _kfft.C2C_F else "bts2_wide"
         return _lane_c2c(n, batch)
     if kind == "r2c":
@@ -253,10 +258,9 @@ def _route_r2r(kind, shape, axis, n):
             m = n // 2
             if factorize(m) is not None and _kernel_ok(m):
                 # the JAX package's half-length C2C composite (its
-                # api.py:512-546); kernel 1's m = 512/1024/2048 never
-                # reaches here (those n take K28)
-                return _route_f32("fft", shape[:axis] + (m,) + shape[axis + 1:],
-                                  axis, m)
+                # api.py:512-546); m > 550 has no split here (those n take
+                # K28), so the C2C is K6's generic schedule
+                return DCT4_HALF_MID
             if factorize(m) is None and _blue_mid_ok(m):
                 return "bluestein"
     return _dct_lane(t, n, batch)
@@ -299,6 +303,11 @@ def _check_grad(x):
             "item 8: autograd)")
 
 
+# the C2C kernels along a middle axis, by route
+_MID_KERNELS = {C2C_AXIS_MID: _kfft.c2c_axis_mid, C2C_DENSE_MID: _kfft.c2c_dense_mid,
+                C2C_GENERIC_MID: _kfft.c2c_generic_mid}
+
+
 def _c2c_impl(x, handler, axis, sign):
     axis = _norm_axis(axis, x.ndim)
     _check_size(x.shape[axis], handler.n)
@@ -311,10 +320,9 @@ def _c2c_impl(x, handler, axis, sign):
     route = _route(kind, x.shape, axis, x.dtype, x.device.type)
     _plan_log(kind, n, axis, route)
     scale = _c2c_norm_scale(handler, sign)
-    if route in (C2C_AXIS_MID, C2C_DENSE_MID):
+    if route in _MID_KERNELS:
         nb, cols = _mid_dims(x.shape, axis)
-        fn = _kfft.c2c_axis_mid if route == C2C_AXIS_MID else _kfft.c2c_dense_mid
-        y = fn(x.reshape(nb, n, cols).contiguous(), sign, scale)
+        y = _MID_KERNELS[route](x.reshape(nb, n, cols).contiguous(), sign, scale)
         return y.reshape(x.shape)
     # the row routes (K10, K8) and the engine take the axis last (a no-op for
     # the last axis; a middle axis with < 128 columns moves, as the JAX
@@ -396,9 +404,11 @@ def _dct_impl(x, handler, axis, dct_type):
     route = _route(kind, x.shape, axis, x.dtype, x.device.type)
     _plan_log(kind, n, axis, route)
     scale = _dct_scale(handler.norm)
-    if route == DCT_DENSE_MID:
+    if route in (DCT_DENSE_MID, DCT4_HALF_MID):
         nb, cols = _mid_dims(x.shape, axis)
-        y = _kdct.dct_dense_mid(x.reshape(nb, n, cols).contiguous(), dct_type, scale)
+        x3 = x.reshape(nb, n, cols).contiguous()
+        y = (_kdct.dct_dense_mid(x3, dct_type, scale) if route == DCT_DENSE_MID
+             else _dct.dct4_half_mid(x3, scale))
         return y.reshape(x.shape)
     xm = x.movedim(axis, -1)
     if route in (DCT2_NAT, DCT3_NAT):

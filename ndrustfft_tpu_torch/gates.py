@@ -22,6 +22,8 @@ C2C_AXIS_MID = "c2c_axis_mid"
 C2C_ROWS = "c2c_rows"
 C2C_DENSE_ROWS = "c2c_dense_rows"
 C2C_DENSE_MID = "c2c_dense_mid"
+C2C_GENERIC_ROWS = "c2c_generic_rows"
+C2C_GENERIC_MID = "c2c_generic_mid"
 R2C_NAT = "r2c_nat"
 C2R_NAT = "c2r_nat"
 R2C_MID = "r2c_mid"
@@ -34,12 +36,15 @@ DCT3_NAT = "dct3_nat"
 # the lane lowerings of the other kinds: K15 (the packed R2C of even-length
 # rows: R2C, DCT-I, DST-I, DCT-II), the row pairs' C2C (odd-length R2C and
 # DCT-II), the Hermitian extension's C2C (C2R) and the DCT-III/IV lowerings'
-# C2C; each C2C is K10 or K8, as lane_c2c_route picks, and the launch
-# counters show which
+# C2C; each C2C is K10 or K8 (dense or generic), as lane_c2c_route picks,
+# and the launch counters show which
 R2C_PACKED = "r2c_packed"
 R2C_ROWPAIR = "r2c_rowpair"
 C2R_LANE = "c2r_lane"
 DCT_LANE = "dct_lane"
+# the DCT-IV/DST-IV composite along a middle axis: the half-length C2C on K6
+# between two elementwise chirps
+DCT4_HALF_MID = "dct4_half_mid"
 ENGINE = "engine"
 
 # Pallas kernels of the JAX package on routes not ported yet:
@@ -47,17 +52,11 @@ ENGINE = "engine"
 UNPORTED = {
     "bts2_wide": ("fft.py::_kernel_axis_mid_bts2 with a butterfly factor "
                   "outside {2, 4, 8, 16}", "K1b"),
-    "generic_mid": ("fft.py::_kernel_axis_mid", "K6"),
     "fourstep": ("fft.py::_kernel_exit_mul and _kernel_lane_store_t", "K7"),
-    "lane_last_wide": ("fft.py::_kernel_lane_last at n > 256",
-                       "K8 (n > 256 without a split)"),
     "twostep_wide": ("fft.py::_kernel_twostep with a butterfly factor outside "
                      "{4, 8, 16}", "K1b"),
     "bluestein": ("fft.py::_kernel_axis_mid_blue and the engine's Bluestein",
                   "K11"),
-    "r2c_packed_wide": ("rfft.py::_r2c_kernel at a half length > 256 without a "
-                        "split (its half-length FFT is fft.py::_kernel_lane_last's "
-                        "generic schedule)", "K8 (n > 256 without a split)"),
     "r2c_packed_f": ("rfft.py::_r2c_kernel with a twostep half-length FFT whose "
                      "butterfly factor is outside {1, 2, 4, 8, 16}", "K1b"),
     "rfft_nat_wide": ("rfft.py::_r2c_kernel_nat / _c2r_kernel_nat (or "
@@ -74,7 +73,7 @@ UNPORTED = {
 }
 
 # the keys that name the C2C kernel of a lowering's inner transform
-_C2C_KEYS = ("fourstep", "lane_last_wide", "twostep_wide")
+_C2C_KEYS = ("fourstep", "twostep_wide")
 
 
 def unported(key: str, what: str, kind: str = "fft") -> NotImplementedError:
@@ -105,29 +104,12 @@ def _twostep_split(n: int):
     return m, n // m
 
 
-@lru_cache(maxsize=None)
-def _lane_factor(n: int):
-    """fft._lane_factor: the lane DFT factor of the lane-last kernels."""
-    if n <= 256:
-        return n
-    divs = [d for d in range(1, 257) if n % d == 0]
-    preds = [lambda d: d % 128 == 0 and d >= 128]
-    if n > 1024:
-        preds.append(lambda d: d % 8 == 0 and d >= 64)
-    preds += [lambda d: d >= 64, lambda d: d > 1]
-    for pred in preds:
-        for f in sorted((d for d in divs if pred(d)), reverse=True):
-            if factorize(n // f) is not None:
-                return f
-    return None
-
-
 def _kernel_ok(n: int) -> bool:
     """fft.pallas_supported for a float32 Cooley-Tukey plan (n <= 20480,
     its VMEM working-set bound)."""
     if factorize(n) is None or n < 2 or n > min(_MAX_N, _VMEM_MAX_N):
         return False
-    f = _lane_factor(n)
+    f = _kfft.lane_factor(n)
     return f is not None and not (n > 1024 and f % 8)
 
 
@@ -145,7 +127,7 @@ def _fourstep_split(n: int):
         if n % d == 0:
             for n1, n2 in ((n // d, d), (d, n // d)):
                 if (n1 <= 4096 and n2 <= 16384 and _mid_stage_ok(n1)
-                        and _mid_stage_ok(n2) and _lane_factor(n2) is not None):
+                        and _mid_stage_ok(n2) and _kfft.lane_factor(n2) is not None):
                     if best is None or n1 + n2 < best[0] + best[1]:
                         best = (n1, n2)
         d += 1
@@ -184,22 +166,22 @@ def _lane_fft(n: int, batch: int) -> str:
 
 def _c2c_kernel_route(route: str, n: int) -> str:
     """The port's route for the JAX package's C2C route at length n: kernel
-    10 for the twostep split with F in {4, 8, 16}, kernel 8 for the dense
-    lane DFT (n <= 256), kernel 4 for the dense mid product; else the
-    UNPORTED key."""
+    10 for the twostep split with F in {4, 8, 16}, kernel 8 for the lane
+    schedule (its dense lane DFT at n <= 256, the generic schedule above),
+    kernel 4 for the dense mid product; else the UNPORTED key."""
     if route == "twostep":
         return C2C_ROWS if n % _kfft.M == 0 and n // _kfft.M in _kfft.C2C_F \
             else "twostep_wide"
     if route == "lane_last":
-        return C2C_DENSE_ROWS if n <= 256 else "lane_last_wide"
+        return C2C_DENSE_ROWS if n <= 256 else C2C_GENERIC_ROWS
     if route == "dense_mid":
         return C2C_DENSE_MID
     return route
 
 
 def lane_c2c_route(n: int, batch: int) -> str:
-    """C2C_ROWS, C2C_DENSE_ROWS, ENGINE or the UNPORTED key of a float32 C2C
-    of length n over ``batch`` contiguous rows."""
+    """C2C_ROWS, C2C_DENSE_ROWS, C2C_GENERIC_ROWS, ENGINE or the UNPORTED key
+    of a float32 C2C of length n over ``batch`` contiguous rows."""
     return _c2c_kernel_route(_lane_c2c(n, batch), n)
 
 
@@ -208,19 +190,20 @@ def inner_c2c_route(n: int, batch: int, lowering: str) -> str:
     over ``batch`` rows: ``lowering`` where K10 or K8 takes it, else ENGINE
     or the UNPORTED key."""
     route = lane_c2c_route(n, batch)
-    return lowering if route in (C2C_ROWS, C2C_DENSE_ROWS) else route
+    return lowering if route in (C2C_ROWS, C2C_DENSE_ROWS, C2C_GENERIC_ROWS) else route
 
 
 def packed_route(h: int) -> str:
-    """Kernel 15 at half length h, as the JAX package picks its half-length
-    FFT (rfft._half_fft_consts): the dense lane DFT for h <= 256, the
-    twostep core for h > 256 with a split, else the generic lane schedule.
-    R2C_PACKED where the port's kernel takes h, else the UNPORTED key."""
-    if _krfft.packed_core(h) or h <= _krfft.PACKED_DENSE_MAX_H:
-        return R2C_PACKED
+    """Kernel 15 at half length h (<= 20480), as the JAX package picks its
+    half-length FFT (rfft._half_fft_consts): the dense lane DFT for
+    h <= 256, the twostep core for h > 256 with a split, else the generic
+    lane schedule. R2C_PACKED where the port's kernel takes h, else the
+    UNPORTED key."""
     ts = _twostep_split(h)
-    return "r2c_packed_f" if ts is not None and ts[0] <= MAX_BASE_RADIX \
-        else "r2c_packed_wide"
+    if h > _krfft.PACKED_DENSE_MAX_H and ts is not None and ts[0] <= MAX_BASE_RADIX \
+            and not _krfft.packed_core(h):
+        return "r2c_packed_f"
+    return R2C_PACKED
 
 
 def packed_lane(h: int, batch: int) -> str:

@@ -20,7 +20,8 @@ inner transforms dispatch as the JAX package's do (``ops/engine.py``): DCT-I
 and DST-I hand their extension rows to kernel 15, DCT-II its permuted rows
 to the R2C (kernel 15, or the row pairs on kernel 8 for odd n), DCT-III and
 DCT-IV their rows to kernel 10 or 8. The API sends DCT-II/III of the lengths
-kernels 23/24 take to those kernels first (``api._route``).
+kernels 23/24 take to those kernels first (``api._route``), and DCT-IV along a
+middle axis beyond the dense kernel's lengths to :func:`dct4_half_mid`.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 
 from ..plan import _cis, get_c2c_plan, get_r2c_plan
 from .engine import c2c, const, r2c, r2c_packed
+from .hopper.fft import c2c_generic_mid
 
 
 def _cplx(x: torch.Tensor) -> torch.dtype:
@@ -131,6 +133,36 @@ def dct4(x: torch.Tensor, scale=None) -> torch.Tensor:
         yo = torch.cat([yo, yo[..., :1]], dim=-1)   # dummy slot
     y = torch.stack([ye, yo], dim=-1).reshape(x.shape[:-1] + (2 * ne,))
     return y[..., :n]
+
+
+@lru_cache(maxsize=64)
+def _dct4_half_consts(n: int, s: float):
+    """The composite's entry chirp s e^{-i pi (4t+1)/(4n)} and exit chirp
+    (cos, sin)(pi k/n), t, k < n/2, as (m, 1) float64 columns: the JAX
+    package's expressions, rounded to float32 by the caller."""
+    v = np.arange(n // 2).reshape(-1, 1)
+    w = s * np.exp(-1j * np.pi * (4 * v + 1) / (4 * n))
+    return w.real, w.imag, np.cos(np.pi * v / n), np.sin(np.pi * v / n)
+
+
+def dct4_half_mid(x: torch.Tensor, scale=None) -> torch.Tensor:
+    """scale * DCT-IV along dim 1 of a (B, n, L) float32 tensor, n even, by
+    the JAX package's half-length composite (its api.py:512-546), m = n/2:
+    c_t = s (x[2t] + i x[n-1-2t]) e^{-i pi (4t+1)/(4n)}, D = FFT_m(c) along
+    dim 1 on kernel 6, y[2k] = Re(D_k e^{-i pi k/n}) and
+    y[n-1-2k] = -Im(D_k e^{-i pi k/n}). The chirps are elementwise torch ops,
+    as the JAX package leaves them to XLA."""
+    nb, n, cols = x.shape
+    s = 1.0 if scale is None else float(scale)
+    wr, wi, pr, pq = (torch.as_tensor(np.asarray(a, np.float32), device=x.device)
+                      for a in _dct4_half_consts(n, s))
+    xe = x[:, 0::2, :]
+    xon = x.flip(1)[:, 0::2, :]
+    c = torch.complex(xe * wr - xon * wi, xe * wi + xon * wr)
+    y = c2c_generic_mid(c, -1)
+    evens = y.real * pr + y.imag * pq
+    odds = (y.real * pq - y.imag * pr).flip(1)
+    return torch.stack([evens, odds], dim=2).reshape(nb, n, cols)
 
 
 DCT_FNS = {1: dct1, 2: dct2, 3: dct3, 4: dct4}

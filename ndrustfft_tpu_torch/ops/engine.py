@@ -3,9 +3,9 @@ C2R along the LAST axis, which the caller moves there.
 
 Each entry point dispatches on its route function in ``gates.py``, the one
 that ``api._route`` names a call's route by: :func:`c2c` to kernel 10 or 8
-of contiguous rows, :func:`r2c` to kernel 2, kernel 15 or the row pairs of
-an odd length, :func:`c2r` to kernel 3 or the Hermitian extension and
-:func:`c2c`. Where the JAX package runs XLA (float64/complex128, batches
+(dense or generic) of contiguous rows, :func:`r2c` to kernel 2, kernel 15
+or the row pairs of an odd length, :func:`c2r` to kernel 3 or the
+Hermitian extension and :func:`c2c`. Where the JAX package runs XLA (float64/complex128, batches
 below the kernels' gates), and for an unported route on a CPU tensor, the
 mixed-radix engine runs: every stage an einsum with a plan constant or an
 elementwise twiddle, on any device and in float32 or float64. Every lowering
@@ -93,16 +93,23 @@ def _rows(x: torch.Tensor) -> int:
     return x.numel() // x.shape[-1] if x.shape[-1] else 0
 
 
+# the C2C kernels of contiguous rows, by route
+_ROW_KERNELS = {gates.C2C_ROWS: _kfft.c2c_rows, gates.C2C_DENSE_ROWS: _kfft.c2c_dense_rows,
+                gates.C2C_GENERIC_ROWS: _kfft.c2c_generic_rows}
+
+
 def c2c(x: torch.Tensor, plan: C2CPlan, scale=None) -> torch.Tensor:
     """Batched C2C FFT along the last axis, unnormalized; ``scale`` (a
     python float) multiplies the result, folded into the kernel constants.
     complex64 over >= 128 rows takes kernel 10 (n = 512, 1024, 2048) or
-    kernel 8 (n <= 256); another kernel-eligible n raises on a CUDA tensor."""
+    kernel 8 (its dense lane DFT at n <= 256, the generic schedule at
+    256 < n <= 20480 without a split); another kernel-eligible n raises on
+    a CUDA tensor."""
     n = plan.n
     if x.dtype == torch.complex64 and _kernel_device(x):
         route = gates.lane_c2c_route(n, _rows(x))
-        if route in (gates.C2C_ROWS, gates.C2C_DENSE_ROWS):
-            fn = _kfft.c2c_rows if route == gates.C2C_ROWS else _kfft.c2c_dense_rows
+        fn = _ROW_KERNELS.get(route)
+        if fn is not None:
             return fn(x.reshape(-1, n).contiguous(), plan.sign, scale).reshape(x.shape)
         if route != gates.ENGINE and x.device.type == "cuda":
             raise gates.unported(route, f"c2c n={n} rows={_rows(x)}")
@@ -162,12 +169,15 @@ def r2c_packed(x: torch.Tensor, plan: R2CPlan) -> torch.Tensor:
     """Half-spectrum of real rows (..., n), n even, by the half-length C2C of
     z[t] = x[2t] + i x[2t+1] and the unpack: kernel 15 for float32 over
     >= 128 rows (the rows go to it whole: a contiguous float32 row of length
-    2h is the complex row z), else :func:`c2c` and the unpack."""
+    2h is the complex row z; the core, the dense product or the generic
+    schedule by h), else :func:`c2c` and the unpack."""
     n, m = plan.n, plan.m
     h = n // 2
     if x.dtype == torch.float32 and _kernel_device(x) \
             and gates.packed_lane(h, _rows(x)) == gates.R2C_PACKED:
-        fn = _krfft.r2c_packed if _krfft.packed_core(h) else _krfft.r2c_packed_dense
+        fn = (_krfft.r2c_packed if _krfft.packed_core(h) else
+              _krfft.r2c_packed_dense if h <= _krfft.PACKED_DENSE_MAX_H else
+              _krfft.r2c_packed_generic)
         return fn(x.reshape(-1, n).contiguous()).reshape(x.shape[:-1] + (m,))
     z = c2c(torch.complex(x[..., 0::2], x[..., 1::2]), plan.sub)   # FFT_h of xe + i*xo
     first = z[..., :1]

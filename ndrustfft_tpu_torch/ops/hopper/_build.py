@@ -46,6 +46,8 @@ _SIGNATURES = {
     "ndfft_dct_dense_mid": [_P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_dct2_nat": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_dct3_nat": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
+    "ndfft_c2c_generic": [_P, _P, _P, _P, _P, _LL, _I, _I, _LL, _I, _I, _P],
+    "ndfft_r2c_generic": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

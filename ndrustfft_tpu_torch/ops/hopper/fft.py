@@ -11,6 +11,11 @@
   middle axis of (B, n, L) or along contiguous (T, n) rows
   (``csrc/fft_dense.cu``; replace ``fft.py::_kernel_axis_mid_dense`` and the
   dense lane DFT of ``fft.py::_kernel_lane_last``).
+* Kernels 8 (n > 256) and 6, :func:`c2c_generic_rows` and
+  :func:`c2c_generic_mid`: the generic two-factor schedule n = m * f with
+  f = :func:`lane_factor` (n), along contiguous rows or the middle axis
+  (``csrc/fft_generic.cu`` on the core ``csrc/fft_generic.cuh``; replace
+  ``fft.py::_kernel_lane_last`` with m > 1 and ``fft.py::_kernel_axis_mid``).
 
 This module holds their host-built constants, their plain PyTorch versions
 and their wrappers, whose ``launches`` attributes count kernel launches.
@@ -23,7 +28,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ...plan import dft_matrix, stage_twiddle
+from ...plan import dft_matrix, factorize, stage_twiddle
 from . import _build
 
 M = 128                 # stage-2 DFT length of the core
@@ -31,6 +36,10 @@ CORE_F = (2, 4, 8, 16)  # butterfly factors the core instantiates
 C2C_F = (4, 8, 16)      # factors kernels 1 and 10 take (n = 512, 1024, 2048)
 SMEM_ELEMS = 8192       # complex elements of one block's tile (64 KB)
 DENSE_MAX_N = 512       # longest transform kernels 4 and 8 take
+GENERIC_MAX_N = 20480   # the JAX package's kernel bound (fft._LIVE_COPIES)
+GENERIC_MAX_M = 224     # longest DFT-m of the generic core (7 values per lane)
+GENERIC_SMEM = 96 * 1024    # a block's tile when a transform fits (2 blocks/SM)
+MAX_SMEM = 232448           # the most dynamic shared memory a block may use
 
 
 def bts2_consts(n: int, sign: int, scale: float = 1.0):
@@ -306,3 +315,169 @@ def c2c_dense_rows(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
 
 
 c2c_dense_rows.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Kernels 8 (n > 256) and 6: the generic two-factor schedule
+# --------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=None)
+def lane_factor(n: int):
+    """The JAX package's ``fft._lane_factor``: the lane DFT factor f <= 256
+    of the generic schedule (m = n / f must factor), or None."""
+    if n <= 256:
+        return n
+    divs = [d for d in range(1, 257) if n % d == 0]
+    preds = [lambda d: d % 128 == 0 and d >= 128]
+    if n > 1024:
+        preds.append(lambda d: d % 8 == 0 and d >= 64)
+    preds += [lambda d: d >= 64, lambda d: d > 1]
+    for pred in preds:
+        for f in sorted((d for d in divs if pred(d)), reverse=True):
+            if factorize(n // f) is not None:
+                return f
+    return None
+
+
+def generic_split(n: int):
+    """(m, f) of the generic schedule at n, or None where the generic
+    kernels do not take n (n <= 256, n > 20480, no lane factor, m > 224)."""
+    if not 256 < n <= GENERIC_MAX_N:
+        return None
+    f = lane_factor(n)
+    if f is None or n // f > GENERIC_MAX_M:
+        return None
+    return n // f, f
+
+
+def generic_consts(n: int, sign: int, scale: float = 1.0):
+    """((re, im) of the (m, m) DFT-m, of the (f, f) DFT-f times ``scale``,
+    of the (m, f) twiddle tw[p, j] = W_n^{j p}), float32 and C-contiguous.
+
+    Built by the JAX package's ``_plan_consts`` expressions in float64 and
+    rounded once, so the DFT-f and tw are its lane table and twiddle, and
+    the DFT-m its base table where m has one planner factor, bit for bit.
+    The kernels run DFT-m as one dense product, also where the planner
+    splits m in two (m > 128, n >= 11352)."""
+    f = lane_factor(n)
+    m = n // f
+    wm = dft_matrix(m, sign)
+    wr, wi = dft_matrix(f, sign)
+    tr, ti = stage_twiddle(f, m, sign)                 # (f, m)[j, p]
+    return (tuple(np.ascontiguousarray(a, np.float32) for a in wm),
+            (np.asarray(wr * scale, np.float32), np.asarray(wi * scale, np.float32)),
+            (np.ascontiguousarray(tr.T, np.float32), np.ascontiguousarray(ti.T, np.float32)))
+
+
+@lru_cache(maxsize=64)
+def device_generic(n: int, sign: int, scale: float, device: torch.device):
+    """:func:`generic_consts` as complex64 tensors (wm, wf, tw) on ``device``."""
+    return tuple(torch.complex(torch.from_numpy(re), torch.from_numpy(im)).to(device)
+                 for re, im in generic_consts(n, sign, scale))
+
+
+def _generic_schedule(x: torch.Tensor, n: int, sign: int, scale) -> torch.Tensor:
+    """The two-factor schedule along dim 1 of a (B, n, L) tensor: the DFT-m
+    over t' (t = f t' + j), the twiddle, the DFT-f over j; k = q m + p."""
+    s = 1.0 if scale is None else float(scale)
+    wm, wf, tw = device_generic(n, sign, s, x.device)
+    m, f = wm.shape[0], wf.shape[0]
+    nb, _, cols = x.shape
+    a = torch.einsum("tp,btjc->bpjc", wm, x.reshape(nb, m, f, cols)) * tw[:, :, None]
+    return torch.einsum("jq,bpjc->bqpc", wf, a).reshape(nb, n, cols)
+
+
+def c2c_generic_rows_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
+    """Plain version of kernel 8 at n > 256: the schedule on each row."""
+    t, n = x.shape
+    return _generic_schedule(x.reshape(t, n, 1), n, sign, scale).reshape(t, n)
+
+
+def c2c_generic_mid_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
+    """Plain version of kernel 6: the schedule along dim 1 of (B, n, L)."""
+    return _generic_schedule(x, x.shape[1], sign, scale)
+
+
+def generic_bytes(n: int, rows: bool) -> int:
+    """Shared-memory bytes of one transform in a generic block's tile: the
+    (m, f) matrix with an odd row pitch in the row layout, n in the column
+    layout."""
+    m, f = generic_split(n)
+    return 8 * m * (f | 1) if rows else 8 * n
+
+
+def generic_block(n: int, groups: int, count: int, sms: int, rows: bool) -> int:
+    """Transforms per block of the generic kernels: as many as
+    GENERIC_SMEM holds (at least one), halved while the grid of ``groups``
+    times the tiles would leave SMs idle, then spread evenly over the tiles
+    so that a ragged last tile is as full as the others."""
+    v = max(1, GENERIC_SMEM // generic_bytes(n, rows))
+    while v > 1 and groups * -(-count // v) < sms:
+        v //= 2
+    return -(-count // -(-count // v))
+
+
+def _check_generic_n(n: int, what: str):
+    mf = generic_split(n)
+    if mf is None:
+        raise ValueError(f"{what}: n={n} has no generic schedule (256 < n <= "
+                         f"{GENERIC_MAX_N}, a lane factor, m <= {GENERIC_MAX_M})")
+    return mf
+
+
+def _generic_launch(x: torch.Tensor, sign: int, scale, nb: int, n: int, count: int,
+                    rows: bool, what: str) -> torch.Tensor:
+    check_cuda(x, torch.complex64, what)
+    m, f = generic_split(n)
+    s = 1.0 if scale is None else float(scale)
+    wm, wf, tw = device_generic(n, sign, s, x.device)
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    v = generic_block(n, nb, count, num_sms(x.device), rows)
+    with torch.cuda.device(x.device):
+        err = _build.lib().ndfft_c2c_generic(
+            x.data_ptr(), y.data_ptr(), wm.data_ptr(), wf.data_ptr(), tw.data_ptr(),
+            nb, m, f, count, v, int(rows), torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, what)
+    return y
+
+
+def c2c_generic_rows(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
+    """C2C of the rows of a (T, n) complex64 tensor, 256 < n <= 20480, on
+    the generic schedule, times ``scale``. A CPU tensor runs the plain
+    version; a CUDA tensor launches kernel 8's generic form or raises."""
+    _check_rows(x, "c2c_generic_rows")
+    t, n = x.shape
+    _check_generic_n(n, "c2c_generic_rows")
+    if x.device.type == "cpu":
+        return c2c_generic_rows_plain(x, sign, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"c2c_generic_rows: unsupported device {x.device}")
+    y = _generic_launch(x, sign, scale, 1, n, t, True, "c2c_generic_rows")
+    c2c_generic_rows.launches += 1
+    return y
+
+
+c2c_generic_rows.launches = 0
+
+
+def c2c_generic_mid(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
+    """C2C along dim 1 of a (B, n, L) complex64 tensor, 256 < n <= 20480,
+    on the generic schedule, times ``scale``. A CPU tensor runs the plain
+    version; a CUDA tensor launches kernel 6 or raises."""
+    if x.dim() != 3:
+        raise ValueError(f"c2c_generic_mid: expected (B, n, L), got {tuple(x.shape)}")
+    nb, n, cols = x.shape
+    _check_generic_n(n, "c2c_generic_mid")
+    if x.device.type == "cpu":
+        return c2c_generic_mid_plain(x, sign, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"c2c_generic_mid: unsupported device {x.device}")
+    y = _generic_launch(x, sign, scale, nb, n, cols, False, "c2c_generic_mid")
+    c2c_generic_mid.launches += 1
+    return y
+
+
+c2c_generic_mid.launches = 0

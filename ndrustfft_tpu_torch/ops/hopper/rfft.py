@@ -14,11 +14,13 @@
   ``csrc/dense_real.cuh``; replace ``rfft.py::_r2c_dense_kernel`` and
   ``_c2r_dense_kernel``).
 * Kernel 15, the packed R2C of contiguous (T, n) rows (replaces
-  ``rfft.py::_r2c_kernel``), in two CUDA kernels by half length h = n/2:
+  ``rfft.py::_r2c_kernel``), in three CUDA kernels by half length h = n/2:
   :func:`r2c_packed` for h = 128 * F, F in {1, 2, 4, 8, 16}, is kernel 2's
   code (``csrc/rfft_nat.cu``) with F = 1 added; :func:`r2c_packed_dense`
   for every other h <= 256 is kernel 20's real product with its table, in
-  the row layout (``csrc/rfft_dense.cu``).
+  the row layout (``csrc/rfft_dense.cu``); :func:`r2c_packed_generic` for
+  h > 256 without a split is kernel 8's generic schedule with the unpack
+  as its epilogue (``csrc/rfft_generic.cu``).
 
 This module holds their host-built constants, their plain PyTorch versions
 and their wrappers, whose ``launches`` attributes count kernel launches.
@@ -33,8 +35,9 @@ import torch
 
 from ...plan import _cis
 from . import _build
-from .fft import (CORE_F, M, block_cols, block_rows, bts2_plain, check_cuda, dense_tile,
-                  device_wq, num_sms)
+from .fft import (CORE_F, GENERIC_MAX_N, M, block_cols, block_rows, bts2_plain,
+                  c2c_generic_rows_plain, check_cuda, dense_tile, device_generic, device_wq,
+                  generic_block, generic_split, num_sms)
 
 # lengths kernels 20 and 21 take: the JAX package's rfft_dense_mid_supported
 # (its _DENSE_RFFT_MAX), which the routes mirror
@@ -527,3 +530,48 @@ def r2c_packed_dense(x: torch.Tensor) -> torch.Tensor:
 
 
 r2c_packed_dense.launches = 0
+
+
+def r2c_packed_generic_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`r2c_packed_generic`: kernel 8's generic plain
+    version on the row read as its complex pairs z, then the unpack."""
+    t, n = x.shape
+    z = torch.view_as_complex(x.reshape(t, n // 2, 2).contiguous())
+    return _unpack(c2c_generic_rows_plain(z, -1), _device_tw(n, x.device), -1)
+
+
+def r2c_packed_generic(x: torch.Tensor) -> torch.Tensor:
+    """R2C of the rows of a (T, n) float32 tensor -> (T, h+1) complex64 at a
+    half length h = n/2 the generic schedule takes (256 < h <= 20480, odd h
+    included). A CPU tensor runs the plain version; a CUDA tensor launches
+    kernel 15's generic form or raises."""
+    _check_packed(x, "r2c_packed_generic")
+    t, n = x.shape
+    h = n // 2
+    if n % 2 or generic_split(h) is None:
+        raise ValueError(f"r2c_packed_generic: n={n} is not 2 h with a generic "
+                         f"schedule of h (256 < h <= {GENERIC_MAX_N})")
+    if x.device.type == "cpu":
+        return r2c_packed_generic_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"r2c_packed_generic: unsupported device {x.device}")
+    check_cuda(x, torch.float32, "r2c_packed_generic")
+    if x.data_ptr() % 8:       # the kernel reads rows as float2
+        x = x.clone()
+    m, f = generic_split(h)
+    wm, wf, tw = device_generic(h, -1, 1.0, x.device)
+    u = _device_tw(n, x.device)
+    out = torch.empty((t, h + 1), dtype=torch.complex64, device=x.device)
+    if t == 0:
+        return out
+    v = generic_block(h, 1, t, num_sms(x.device), True)
+    with torch.cuda.device(x.device):
+        err = _build.lib().ndfft_r2c_generic(
+            x.data_ptr(), out.data_ptr(), wm.data_ptr(), wf.data_ptr(), tw.data_ptr(),
+            u.data_ptr(), t, m, f, v, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "r2c_packed_generic")
+    r2c_packed_generic.launches += 1
+    return out
+
+
+r2c_packed_generic.launches = 0

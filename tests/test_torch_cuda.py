@@ -7,7 +7,7 @@ JAX it runs without the repository's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerance: 5e-6 of max |plain| (kernel and plain version are both float32);
-2e-6 for kernel 15.
+2e-6 for kernel 15 on the core and its dense product.
 """
 
 import pytest
@@ -63,9 +63,8 @@ def test_step_runs_on_the_kernels(dev):
 
 
 def test_unported_route_and_grad_raise(dev):
-    with pytest.raises(NotImplementedError,
-                       match=r"_r2c_kernel at a half length > 256.*item K8 \(n > 256"):
-        nd.ndfft_r2c(torch.zeros(256, 600, device=dev), axis=1)
+    with pytest.raises(NotImplementedError, match=r"_kernel_twostep.*item K1b\)"):
+        nd.ndfft(torch.zeros(256, 384, dtype=torch.complex64, device=dev), axis=1)
     with pytest.raises(NotImplementedError, match="autograd"):
         nd.ndfft_r2c(torch.zeros(512, 512, device=dev, requires_grad=True), axis=1)
     y = nd.ndfft(torch.ones(4, 8, dtype=torch.complex128, device=dev), axis=1)
@@ -143,8 +142,9 @@ def test_complex_transform_runs_on_the_kernels(dev):
     w = nd.ndfft(nd.ndfft(z, axis=1), axis=0)       # K8, then K4
     assert [f.launches - b for f, b in zip(fns, before)] == [0, 0, 1, 1]
     assert _rel(w.to(torch.complex128), torch.fft.fftn(z.to(torch.complex128))) <= 1e-5
-    with pytest.raises(NotImplementedError, match="inner C2C of this r2c lowering"):
-        nd.ndfft_r2c(torch.zeros(256, 265, device=dev), axis=1)
+    with pytest.raises(NotImplementedError, match="inner C2C of this c2r lowering"):
+        nd.ndifft_r2c(torch.zeros(128, 321, dtype=torch.complex64, device=dev), axis=1,
+                      n=640)
 
 
 def test_mid_rfft_kernels_match_plain(dev):
@@ -208,5 +208,49 @@ def test_real_step_128_cubed_runs_on_the_kernels(dev):
     v = nd.ndfft(nd.ndfft(nd.ndfft_r2c(x, hr, axis=2), hc, axis=1), hc, axis=0)
     back = nd.ndifft_r2c(nd.ndifft(nd.ndifft(v, hc, axis=0), hc, axis=1), hr, axis=2)
     assert [f.launches - b for f, b in zip(fns, before)] == [1, 3, 2]
+    assert _rel(v.to(torch.complex128), torch.fft.rfftn(x.double())) <= 1e-5
+    assert _rel(back, x) <= 1e-5
+
+
+def test_generic_kernels_match_plain(dev):
+    """Kernel 8's generic schedule, kernel 6 and kernel 15's generic form:
+    odd and even h, ragged rows and column tiles, m with two planner factors
+    (11352 = 129 * 88), the largest m (19272 = 219 * 88: 7 outputs per lane
+    in pass 1) and the largest tile (20480 = 80 * 256, 164 KB)."""
+    g = torch.Generator(device=dev).manual_seed(8)
+
+    def crandn(*shape):
+        return torch.view_as_complex(torch.randn(*shape, 2, generator=g, device=dev))
+
+    for t, n in ((130, 264), (7, 600), (129, 1200), (3, 11352), (2, 19272), (2, 20480)):
+        x = crandn(t, n)
+        for sign, scale in ((-1, None), (+1, 1 / n)):
+            assert _rel(kfft.c2c_generic_rows(x, sign, scale),
+                        kfft.c2c_generic_rows_plain(x, sign, scale)) <= TOL
+    for shape in ((1, 600, 130), (2, 520, 129), (3, 600, 301), (1, 11352, 5), (1, 19272, 3),
+                  (1, 20480, 3)):
+        x = crandn(*shape)
+        for sign, scale in ((-1, None), (+1, 1 / shape[1])):
+            assert _rel(kfft.c2c_generic_mid(x, sign, scale),
+                        kfft.c2c_generic_mid_plain(x, sign, scale)) <= TOL
+    for t, n in ((130, 530), (7, 600), (2, 2 * 11352)):
+        x = torch.randn(t, n, generator=g, device=dev)
+        got = krfft.r2c_packed_generic(x)
+        assert got.shape == (t, n // 2 + 1)
+        assert _rel(got, krfft.r2c_packed_generic_plain(x)) <= TOL
+
+
+def test_real_step_600_runs_on_the_generic_kernels(dev):
+    """The 600^2 real step with the real axis last: kernel 15 at h = 300,
+    kernel 6 along axis 0 and back, kernel 8 at n = 600 after the C2R's
+    Hermitian extension."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(600, 600, generator=g, device=dev)
+    hr, hc = nd.R2cFftHandler(600), nd.FftHandler(600)
+    fns = (krfft.r2c_packed_generic, kfft.c2c_generic_mid, kfft.c2c_generic_rows)
+    before = [f.launches for f in fns]
+    v = nd.ndfft(nd.ndfft_r2c(x, hr, axis=1), hc, axis=0)
+    back = nd.ndifft_r2c(nd.ndifft(v, hc, axis=0), hr, axis=1)
+    assert [f.launches - b for f, b in zip(fns, before)] == [1, 2, 1]
     assert _rel(v.to(torch.complex128), torch.fft.rfftn(x.double())) <= 1e-5
     assert _rel(back, x) <= 1e-5

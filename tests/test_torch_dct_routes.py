@@ -67,6 +67,14 @@ F32, F64 = torch.float32, torch.float64
     ("dct3", (256, 200), 1, api.DCT_LANE),                 # K8
     ("dct2", (256, 300), 1, api.R2C_PACKED),                   # r2c of even n
     ("dst2", (256, 129), 1, api.R2C_ROWPAIR),                  # odd: row pairs
+    # the generic schedule: the DCT-IV composite on K6 (m = 600), K15 at
+    # h = 264 and 600, K8 inside DCT-IV (2 * 64 rows) and the row pairs
+    ("dst4", (1200, 128), 0, api.DCT4_HALF_MID),
+    ("dct1", (256, 265), 1, api.R2C_PACKED),
+    ("dct2", (256, 1200), 1, api.R2C_PACKED),
+    ("dct4", (64, 1000), 1, api.DCT_LANE),
+    ("dct2", (256, 301), 1, api.R2C_ROWPAIR),
+    ("dct2", (1200, 1100), 0, api.R2C_PACKED),                 # mid, n > 1100: axis moves
 ])
 def test_route_on_cuda(kind, shape, axis, want):
     assert api._route(kind, shape, axis, F32, "cuda") == want
@@ -88,23 +96,12 @@ def test_float64_takes_the_engine(kind):
     ("dct1", (2049, 256), 0, "_dct1_kernel_mid", "K19"),
     ("dst1", (1023, 128), 0, "_r2c_kernel_packed_mid", "K18"),
     ("dct4", (2048, 128), 0, "_dct4_kernel_mid", "K28"),
-    ("dst4", (1200, 128), 0, "_kernel_axis_mid", "K6"),           # composite, m = 600
     ("dct4", (2 * 1031, 128), 0, "_kernel_axis_mid_blue", "K11"),  # composite, m prime
     ("dct2", (128, 384), 1, "_dct2_kernel / _dct3_kernel", "K1b"),
     ("dct3", (128, 128), 1, "_dct2_kernel / _dct3_kernel", "K1b"),
     ("dct2", (128, 8192), 1, "_dct2_kernel / _dct3_kernel", "K1b"),
-    ("dct1", (256, 265), 1, "_r2c_kernel at a half length > 256",  # h = 264
-     "K8 (n > 256 without a split)"),
     ("dct1", (256, 385), 1, "_r2c_kernel with a twostep", "K1b"),  # h = 384: F = 3
-    ("dct2", (256, 1200), 1, "_r2c_kernel at a half length > 256",  # h = 600
-     "K8 (n > 256 without a split)"),
     ("dct4", (256, 32768), 1, "_kernel_exit_mul", "K7"),          # four-step
-    ("dct4", (64, 1000), 1, "_kernel_lane_last",                  # 2 * 64 rows
-     "K8 (n > 256 without a split)"),
-    ("dct2", (256, 301), 1, "_kernel_lane_last",                  # odd: row pairs
-     "K8 (n > 256 without a split)"),
-    ("dct2", (1200, 1100), 0, "_r2c_kernel at a half length > 256",  # mid, n > 1100
-     "K8 (n > 256 without a split)"),
     ("dct3", (256, 263), 1, "_kernel_axis_mid_blue", "K11"),      # Bluestein n
 ])
 def test_unported_route_raises_on_cuda(kind, shape, axis, kernel, item):
@@ -117,7 +114,8 @@ def test_unported_route_raises_on_cuda(kind, shape, axis, kernel, item):
 def test_dct_routes_never_take_the_fft_kernels():
     """K1-K3 serve no DCT/DST route: every length whose DCT route would
     reach them takes K23/K24/K28 first (api._dct_lane, _route_r2r). The
-    lane lowerings reach K15, K10 and K8 under their own route names."""
+    lane lowerings reach K15, K10 and K8, and the DCT-IV composite K6, under
+    their own route names."""
     for n in range(2, 5000, 3):
         for kind in ("dct1", "dct2", "dct3", "dct4", "dst1"):
             for shape, axis in (((n, 256), 0), ((256, n), 1)):
@@ -126,8 +124,8 @@ def test_dct_routes_never_take_the_fft_kernels():
                 except NotImplementedError:
                     continue
                 assert route in (api.DCT_DENSE_MID, api.DCT2_NAT, api.DCT3_NAT,
-                                 api.R2C_PACKED, api.R2C_ROWPAIR, api.DCT_LANE,
-                                 api.ENGINE), (kind, shape, axis, route)
+                                 api.DCT4_HALF_MID, api.R2C_PACKED, api.R2C_ROWPAIR,
+                                 api.DCT_LANE, api.ENGINE), (kind, shape, axis, route)
 
 
 @pytest.fixture

@@ -49,12 +49,13 @@ def test_small_shapes_every_axis_match_reference(name, shape, axis, dtype):
 # float32 shapes whose port routes on the CPU run the kernels' plain
 # versions: the dense DCT along a middle axis of (3, 129, 128) with DST-I's
 # packed R2C (K15, h = 130) on the moved axis, and DCT-II/III of 130 rows of
-# 512 with DCT-IV's C2C on K10; DCT-I and DST-I of rows of 512 (h = 511 and
-# 513, no split: K8 wide) take the engine
+# 512 with DCT-IV's C2C on K10; DCT-I and DST-I of rows of 512 take kernel
+# 15's generic schedule (h = 511 and 513, no split)
 _ROUTES = {(3, 129, 128): {**dict.fromkeys(["dct1", "dct2", "dct3", "dct4", "dst2",
                                             "dst3", "dst4"], api.DCT_DENSE_MID),
                            "dst1": api.R2C_PACKED},
-           (130, 512): {"dct2": api.DCT2_NAT, "dst2": api.DCT2_NAT,
+           (130, 512): {"dct1": api.R2C_PACKED, "dst1": api.R2C_PACKED,
+                        "dct2": api.DCT2_NAT, "dst2": api.DCT2_NAT,
                         "dct3": api.DCT3_NAT, "dst3": api.DCT3_NAT,
                         "dct4": api.DCT_LANE, "dst4": api.DCT_LANE}}
 

@@ -196,7 +196,8 @@ def test_gates_match_the_jax_package():
 def test_packed_route_follows_the_jax_half_fft(h):
     """Kernel 15's three half-length FFTs (rfft._half_fft_consts): the dense
     lane DFT (generic schedule with one stage) for h <= 256, the twostep core
-    for h > 256 with a split, the generic schedule otherwise."""
+    for h > 256 with a split, the generic schedule otherwise; the port takes
+    all but the twostep core at factors outside its set."""
     if not gates._kernel_ok(h):
         return
     _, meta = ref_prfft._half_fft_consts(h, -1, jnp.float32, "highest")
@@ -208,4 +209,4 @@ def test_packed_route_follows_the_jax_half_fft(h):
     else:
         dense = meta[4] == 1                   # m == 1: one lane DFT of length h
         assert dense == (h <= krfft.PACKED_DENSE_MAX_H), h
-        assert route == (gates.R2C_PACKED if dense else "r2c_packed_wide"), h
+        assert route == gates.R2C_PACKED, h

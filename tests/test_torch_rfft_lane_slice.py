@@ -127,14 +127,14 @@ def test_engine_stays_off_the_lane_routes(spectra):
 
 
 # (function, n) -> the route of (256, n) along the last axis; "K11" marks a
-# Bluestein half length (no plan in the port yet), "K8 wide" a lowering whose
-# inner C2C is kernel 8 at n > 256 without a split (the engine on the CPU)
+# Bluestein half length (no plan in the port yet); at 513 the generic
+# schedule serves every lowering (K15 at h = 512, K8 at n = 513)
 _DCT_ROUTES = {
     129: (api.R2C_PACKED, api.R2C_ROWPAIR, api.DCT_LANE, api.DCT_LANE),
     130: (api.R2C_PACKED, api.R2C_PACKED, api.DCT_LANE, api.DCT_LANE),
     200: ("K11", api.R2C_PACKED, api.DCT_LANE, api.DCT_LANE),
     256: (api.R2C_PACKED, api.DCT2_NAT, api.DCT3_NAT, api.DCT_LANE),
-    513: (api.R2C_PACKED, "K8 wide", "K8 wide", "K8 wide"),
+    513: (api.R2C_PACKED, api.R2C_ROWPAIR, api.DCT_LANE, api.DCT_LANE),
 }
 _DST1_ROUTES = {129: api.R2C_PACKED, 130: "K11", 200: api.R2C_PACKED, 256: "K11",
                 513: "K11"}
@@ -157,13 +157,7 @@ def test_r2r_lanes_match_reference(name, n):
         with pytest.raises(NotImplementedError, match="ROADMAP.md item K11"):
             api._route(name[2:], shape, 1, F32, "cuda")
         return          # no Bluestein plan in the port on any device yet
-    if want_route == "K8 wide":
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP.md item K8 \(n > 256 without a split\)"):
-            api._route(name[2:], shape, 1, F32, "cuda")
-        assert api._route(name[2:], shape, 1, F32, "cpu") == api.ENGINE
-    else:
-        _both_routes(name[2:], shape, 1, F32, want_route)
+    _both_routes(name[2:], shape, 1, F32, want_route)
     x = _real(shape)
     _close(getattr(port, name)(torch.from_numpy(x)),
            getattr(ref, name)(jnp.asarray(x)), TOL[np.float32])

@@ -54,6 +54,11 @@ C64, F32 = torch.complex64, torch.float32
     ("fft", (130, 2), 1, C64, None, api.C2C_DENSE_ROWS),
     ("fft", (3, 500, 130), 1, C64, None, api.C2C_DENSE_MID),   # no split, n <= 512
     ("fft", (512, 256, 64), 1, C64, None, api.C2C_DENSE_ROWS),  # cols < 128: axis moves
+    # n > 256 without a split: K8's generic schedule on rows (the reference's
+    # 264, 600), K6 along a middle axis (n > 512)
+    ("fft", (600, 256), 0, C64, None, api.C2C_GENERIC_MID),
+    ("fft", (256, 264), 1, C64, None, api.C2C_GENERIC_ROWS),
+    ("ifft", (128, 600), 1, C64, None, api.C2C_GENERIC_ROWS),
     # R2C/C2R along a middle axis: the reference's rfft2d protocol along
     # axis 0 (K20/K21 at 128 and 264, K16/K17 at 512 and 1024), the R2C and
     # C2R legs of the 512^3 and 256^3 steps with the real axis first, axis 1
@@ -85,19 +90,11 @@ def test_route_on_cuda(kind, shape, axis, dtype, n, want):
     ("ifft", (128, 4096), 1, None, "_kernel_twostep with a butterfly", "K1b"),
     ("fft", (384, 256), 0, None, "_kernel_axis_mid_bts2", "K1b"),
     ("fft", (4096, 128), 0, None, "_kernel_axis_mid_bts2", "K1b"),
-    ("fft", (600, 256), 0, None, "_kernel_axis_mid", "K6"),
-    ("fft", (256, 264), 1, None, "_kernel_lane_last at n > 256",
-     "K8 (n > 256 without a split)"),
-    ("ifft", (128, 600), 1, None, "_kernel_lane_last at n > 256",
-     "K8 (n > 256 without a split)"),
     ("fft", (2, 1 << 17), 1, None, "_kernel_exit_mul", "K7"),
     ("fft", (509, 256), 0, None, "_kernel_axis_mid_blue", "K11"),
     # a middle axis whose half length has a factor outside the core's
     # {2, 4, 8, 16}: F = 3 (n = 768) and F = 32 (n = 8192)
     ("r2c", (768, 256), 0, None, "_r2c_kernel_mid", "K1b"),
-    # the packed R2C (K15) at a half length > 256 without a split
-    ("r2c", (256, 600), 1, None, "_r2c_kernel at a half length > 256",
-     "K8 (n > 256 without a split)"),
     ("r2c", (8192, 128), 0, None, "_r2c_kernel_mid", "K1b"),
     ("c2r", (385, 256), 0, 768, "_c2r_kernel_mid", "K1b"),
     ("c2r", (4097, 128), 0, 8192, "_c2r_kernel_mid", "K1b"),
@@ -142,6 +139,13 @@ def test_unported_route_raises_on_cuda(kind, shape, axis, n, kernel, item):
     ("dst4", (512, 512, 512), 2, None, api.DCT_LANE),
     ("dct2", (256, 200), 1, None, api.R2C_PACKED),               # no K23 split
     ("dct2", (256, 201), 1, None, api.R2C_ROWPAIR),
+    # the generic schedule inside the lowerings: K15 at h = 300, the row
+    # pairs (265, 301), the Hermitian extension (300) and DCT-IV (1000) on K8
+    ("r2c", (256, 600), 1, None, api.R2C_PACKED),
+    ("r2c", (256, 265), 1, None, api.R2C_ROWPAIR),
+    ("c2r", (256, 151), 1, 300, api.C2R_LANE),
+    ("dct4", (256, 1000), 1, None, api.DCT_LANE),
+    ("dct2", (256, 301), 1, None, api.R2C_ROWPAIR),
 ])
 def test_lane_lowerings_run_on_cuda(kind, shape, axis, n, want):
     dtype = C64 if kind == "c2r" else F32
@@ -152,12 +156,8 @@ def test_lane_lowerings_run_on_cuda(kind, shape, axis, n, want):
 # The lane lowerings whose inner C2C has no CUDA port still raise on a CUDA
 # tensor, naming the lowering, and never run the engine there
 @pytest.mark.parametrize("kind,shape,axis,n,kernel,item", [
-    ("r2c", (256, 265), 1, None, "_kernel_lane_last", "K8 (n > 256 without a split)"),
-    ("c2r", (256, 151), 1, 300, "_kernel_lane_last", "K8 (n > 256 without a split)"),
     ("c2r", (128, 321), 1, 640, "_kernel_twostep", "K1b"),      # F = 5
-    ("dct4", (256, 1000), 1, None, "_kernel_lane_last", "K8 (n > 256 without a split)"),
-    ("dct2", (256, 301), 1, None, "_kernel_lane_last",          # odd: the row pairs' C2C
-     "K8 (n > 256 without a split)"),
+    ("dct4", (256, 32768), 1, None, "_kernel_exit_mul", "K7"),  # four-step
 ])
 def test_other_kinds_inner_c2c_still_raises_on_cuda(kind, shape, axis, n, kernel, item):
     dtype = C64 if kind == "c2r" else F32
@@ -180,8 +180,9 @@ def test_c2c_kernel_routes_serve_fft_and_ifft_only():
                     route = api._route(kind, shape, axis, dtype, "cuda")
                 except NotImplementedError:
                     continue
-                assert route not in (api.C2C_ROWS, api.C2C_DENSE_ROWS,
-                                     api.C2C_DENSE_MID), (kind, shape, axis)
+                assert route not in (api.C2C_ROWS, api.C2C_DENSE_ROWS, api.C2C_DENSE_MID,
+                                     api.C2C_GENERIC_ROWS, api.C2C_GENERIC_MID), \
+                    (kind, shape, axis)
 
 
 def test_kernel_routes_stand_on_cpu_and_other_devices_take_the_engine():
