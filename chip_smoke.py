@@ -55,8 +55,20 @@ without the final line):
         ndifft_r2c at 300, DCT-I at 265 and DST-I at 263, DCT-II/III of
         600^2, DCT-IV of 1000^2 along the last axis, and the DCT-IV/DST-IV
         composite along axis 0 of 1200 x 600 (kernel 6), against float64
-        torch.fft / scipy.fft; and ndfft at n = 384 along the last axis
-        (K1b) still raises;
+        torch.fft / scipy.fft;
+     g. the bts2 core at any butterfly factor (the wide core of kernels 1,
+        10, 2/15 and 3): the 768^3 real step with the real axis last
+        (kernel 2 at h = 384, F = 3; kernel 1 at F = 6 four times; kernel
+        3) against torch.fft.rfftn in float64 (oracle only), with the
+        round trip; the 4096^2 complex round trip (kernels 10 and 1 at
+        F = 32) against torch.fft.fftn in complex128; the 4096^2 real step
+        (kernel 1 at the ragged (1, 4096, 2049)), ndfft/ndifft at 384, 1152,
+        16256 (F = 127, prime) and 20480 along the last axis and at 640 and
+        20480 along axis 0, ndfft_r2c/ndifft_r2c at 1536 and 40960, DCT-I
+        at 769 (kernel 15 at h = 768), DCT-IV at 768 and the C2R's
+        extension to 640 (kernel 10 inside), against float64 torch.fft /
+        scipy.fft; and DCT-II at 768 along the last axis (K23/K24) and
+        the R2C at 768 along axis 0 (K16/K17) still raise (K1b);
   5. times with CUDA events (median over --reps runs after warm-up): each
      kernel against its plain version and, where one PyTorch call computes
      the same function, that call (the yardstick, never on the port's
@@ -68,12 +80,16 @@ without the final line):
      against torch.fft.rfft(dim=0), the real-axis-last 256^3 and 128^3
      steps against torch.fft.rfftn / irfftn, each with its public calls
      timed one by one and the C2R's Hermitian extension and kernel 8
-     apart, and the same for the 600^3 step.
+     apart, and the same for the 600^3 step; the wide core's kernels at
+     the paths' shapes, the 768^3 step (each public call timed alone) and
+     the 4096^2 complex round trip against torch.fft.
 The kernels line gives each kernel's launches on its main path, its largest
 error against its plain version, its times, and its bound: the larger of
 the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its FP32 operations over 67 TFLOP/s (H100 SXM data
-sheet, 700 W). Its launches are the sum over the main paths of phase 4.
+sheet, 700 W). Its launches are the sum over the main paths of phase 4;
+kernels 1, 2, 3, 10 and 15 on the bts2 core are two rows each, the fixed
+core (launches - wide_launches) and the wide one (wide_launches).
 The line before the last is the card as nvidia-smi names it; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -134,7 +150,15 @@ def work(name: str, shape):
     complex and 2.5 n log2 n per real FFT of length n, the dense DCT's
     2 n^2 per column. The dense complex DFT (K4, K8) and the dense R2C/C2R
     (K20, K21) count what the function needs, a length-n FFT per column or
-    row, not their products' 8 n^2 and 4 n (n/2 + 1)."""
+    row, not their products' 8 n^2 and 4 n (n/2 + 1). A kernel on the wide
+    core reads the fixed core's tables and its (F, F) DFT-F table."""
+    if name.endswith("_wide"):
+        base = name[:-len("_wide")]
+        nbytes, flops = work(base, shape)
+        length = shape[1] - 1 if base == "c2r_nat" else \
+            shape[1] // 2 if base in ("r2c_nat", "r2c_packed") else shape[1]
+        f = length // 128
+        return nbytes + 8 * f * f, flops
     if name == "c2c_axis_mid":
         b, n, cols = shape
         return 16 * b * n * cols + 8 * n * 128, 5 * n * math.log2(n) * b * cols
@@ -286,7 +310,9 @@ def main() -> int:
             "c2c_rows": 0.0, "c2c_dense_rows": 0.0, "c2c_dense_mid": 0.0,
             "r2c_mid": 0.0, "c2r_mid": 0.0, "r2c_dense_mid": 0.0, "c2r_dense_mid": 0.0,
             "r2c_packed": 0.0, "r2c_packed_dense": 0.0, "c2c_generic_rows": 0.0,
-            "c2c_generic_mid": 0.0, "r2c_packed_generic": 0.0}
+            "c2c_generic_mid": 0.0, "r2c_packed_generic": 0.0, "c2c_axis_mid_wide": 0.0,
+            "c2c_rows_wide": 0.0, "r2c_nat_wide": 0.0, "c2r_nat_wide": 0.0,
+            "r2c_packed_wide": 0.0}
     k1_shapes = [(1, 512, 257), (1, 1024, 513), (3, 2048, 130), (512, 512, 257),
                  (1, 512, 512 * 257), (1, 512, 512), (1, 1024, 1024), (512, 512, 512),
                  (1, 512, 512 * 512), (257, 512, 512)]
@@ -455,6 +481,56 @@ def main() -> int:
                 raise AssertionError(f"{name} {shape}: {rel}")
             del x, got, ref
 
+    # the wide core (F outside the fixed core's factors): the main paths'
+    # shapes (phase 4g), ragged column and row tiles, prime F = 127 and the
+    # largest F = 160 (one column or row per block); the C2R spectra carry
+    # DC and Nyquist imaginary parts that must be ignored
+    def check_wide(name, kern, got_fn, ref_fn, shape, **kw):
+        before = kern.wide_launches
+        got = got_fn()
+        ref = ref_fn()
+        torch.cuda.synchronize()
+        if kern.wide_launches != before + 1:
+            raise AssertionError(f"{name} {shape}: not launched on the wide core")
+        rel = abs_err(got, ref) / float(ref.abs().max())
+        errs[name] = max(errs[name], abs_err(got, ref))
+        emit(phase="kernel_vs_plain", kernel=name, shape=shape, rel_err=rel, **kw)
+        if not rel <= TOL_KERNEL:
+            raise AssertionError(f"{name} {shape} {kw}: {rel}")
+
+    for name, kern, plain, shapes in (
+            ("c2c_axis_mid_wide", kfft.c2c_axis_mid, kfft.c2c_axis_mid_plain,
+             ((768, 768, 385), (1, 768, 295680), (1, 4096, 4096), (1, 4096, 2049),
+              (3, 640, 129), (1, 640, 256), (1, 16256, 128), (1, 20480, 128))),
+            ("c2c_rows_wide", kfft.c2c_rows, kfft.c2c_rows_plain,
+             ((4096, 4096), (1536, 768), (128, 384), (7, 1152), (128, 1152), (128, 640),
+              (128, 16256), (128, 20480)))):
+        for shape in shapes:
+            x = crandn(*shape)
+            for sign, scale in ((-1, None), (+1, 1.0 / shape[1])):
+                check_wide(name, kern, lambda: kern(x, sign, scale),
+                           lambda: plain(x, sign, scale), shape, sign=sign, scale=scale)
+            del x
+    for t, n in ((589824, 768), (128, 1536), (7, 1536), (5, 2 * 16256), (128, 40960)):
+        x = randn(t, n)
+        s = crandn(t, n // 2 + 1)
+        s[:, 0] += 100j
+        s[:, -1] += 100j
+        check_wide("r2c_nat_wide", krfft.r2c_nat, lambda: krfft.r2c_nat(x),
+                   lambda: krfft.r2c_nat_plain(x), (t, n))
+        for scale in (1.0 / n, None):
+            check_wide("c2r_nat_wide", krfft.c2r_nat, lambda: krfft.c2r_nat(s, n, scale),
+                       lambda: krfft.c2r_nat_plain(s, n, scale), (t, n // 2 + 1), scale=scale)
+        del x, s
+    # kernel 15 at h = 128 * F is kernel 2's code: the DCT-I path's (769,
+    # 1536), a ragged few rows, F = 127 and 160
+    for shape in ((769, 1536), (3, 768), (5, 2 * 16256), (2, 40960)):
+        x = randn(*shape)
+        check_wide("r2c_packed_wide", krfft.r2c_packed, lambda: krfft.r2c_packed(x),
+                   lambda: krfft.r2c_packed_plain(x), shape)
+        del x
+    torch.cuda.empty_cache()
+
     # ---- 4a. the spectral step through the public functions
     def step2(x, hr, hc):
         vhat = nd.ndfft(nd.ndfft_r2c(x, hr, axis=1), hc, axis=0)
@@ -478,20 +554,30 @@ def main() -> int:
                 "c2c_generic_rows": kfft.c2c_generic_rows,
                 "c2c_generic_mid": kfft.c2c_generic_mid,
                 "r2c_packed_generic": krfft.r2c_packed_generic}
+    # the wide core's launches, counted apart by the same wrappers (their
+    # ``launches`` count every launch, the wide ones included)
+    wide = {"c2c_axis_mid_wide": kfft.c2c_axis_mid, "c2c_rows_wide": kfft.c2c_rows,
+            "r2c_nat_wide": krfft.r2c_nat, "c2r_nat_wide": krfft.c2r_nat,
+            "r2c_packed_wide": krfft.r2c_packed}
+
+    def count(name):
+        return wide[name].wide_launches if name in wide else wrappers[name].launches
 
     def reset_counts():
         for w in wrappers.values():
             w.launches = 0
+        for w in wide.values():
+            w.wide_launches = 0
         engine.c2c.calls = 0     # the torch engine's runs, every lowering's
 
-    launches = dict.fromkeys(wrappers, 0)   # the sum over the main paths
+    launches = dict.fromkeys(list(wrappers) + list(wide), 0)   # the sum over the main paths
 
     def read_counts(path, **expected):
         """Check the launches since reset_counts() against ``expected`` (every
         kernel not named: 0) and no engine call; add them to ``launches``."""
         torch.cuda.synchronize()
-        got = {k: w.launches for k, w in wrappers.items()}
-        want = {k: expected.get(k, 0) for k in wrappers}
+        got = {k: count(k) for k in launches}
+        want = {k: expected.get(k, 0) for k in launches}
         engine_calls = engine.c2c.calls
         emit(phase="main_path", path=path, launches=got, engine_calls=engine_calls)
         if got != want or engine_calls:
@@ -885,14 +971,108 @@ def main() -> int:
     for what, (y, fn, x, t, axis) in gen_out.items():
         check(what, y, fn(host64(x), type=t, axis=axis), grid=list(x.shape))
     del g264, g1200, y264, b264, y1200, b1200, s530, b300, gen_out
-    try:
-        nd.ndfft(crandn(256, 384), axis=1)
-    except NotImplementedError as e:    # the core at F = 3: K1b, not ported
-        emit(phase="generic_path", check="fft_384_raises", error=str(e))
-        if "ROADMAP.md item K1b" not in str(e):
-            raise
-    else:
-        raise AssertionError("ndfft at n = 384 along the last axis ran on the card")
+    torch.cuda.empty_cache()
+
+    # ---- 4g. the bts2 core at any butterfly factor: the 768^3 real step
+    # with the real axis last (the 3/2-dealiased grid of a 512^3-mode DNS;
+    # K2 at h = 384, F = 3, on 589824 rows; K1 at F = 6 at (768, 768, 385)
+    # and (1, 768, 295680) forward and back; K3: 1.81 GB per field, 1.82 GB
+    # per spectrum), then the 4096^2 complex round trip (K10 on 4096 rows
+    # and K1 at (1, 4096, 4096), F = 32)
+    n7 = 768
+    x768 = randn(n7, n7, n7)
+    h768r, h768c = nd.R2cFftHandler(n7), nd.FftHandler(n7)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    v = fwd3(x768, h768r, h768c)
+    back = inv3(v, h768r, h768c)
+    read_counts("real_axis_last_768^3", r2c_nat=1, r2c_nat_wide=1, c2c_axis_mid=4,
+                c2c_axis_mid_wide=4, c2r_nat=1, c2r_nat_wide=1)
+    peak = torch.cuda.max_memory_allocated()
+    check_lane("step_real_axis_last", v, torch.fft.rfftn(x768.double()), back, x768,
+               grid=[n7] * 3, peak_bytes=peak, base_bytes=base)
+    del v, back
+    torch.cuda.empty_cache()
+
+    def fft2_last_first(x, h):
+        return nd.ndfft(nd.ndfft(x, h, axis=1), h, axis=0)
+
+    def ifft2_first_last(y, h):
+        return nd.ndifft(nd.ndifft(y, h, axis=0), h, axis=1)
+
+    x4k = crandn(4096, 4096)
+    h4k = nd.FftHandler(4096)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    y4k = fft2_last_first(x4k, h4k)
+    b4k = ifft2_first_last(y4k, h4k)
+    read_counts("c2c_4096x4096", c2c_rows=2, c2c_rows_wide=2, c2c_axis_mid=2,
+                c2c_axis_mid_wide=2)
+    peak = torch.cuda.max_memory_allocated()
+    check_c2c("fftn_ifftn", y4k, x4k, b4k, grid=[4096, 4096], peak_bytes=peak,
+              base_bytes=base)
+    del y4k, b4k
+
+    # the other lengths the wide core opens: the 4096^2 real step (K2/K3 at
+    # F = 16 on the fixed core, K1 wide at the ragged (1, 4096, 2049)); C2C
+    # of 128 rows at 384, 1152, 16256 (F = 127) and 20480 (F = 160); along
+    # axis 0 at 640 (F = 5) and 20480 (one column per block); R2C/C2R of
+    # 128 rows at 1536 (h = 768) and 40960 (h = 20480); DCT-I at 769 (K15
+    # at h = 768), DCT-IV at 768 (K10 at F = 6 on 1536 rows) and the C2R's
+    # Hermitian extension to 640 (K10 at F = 5)
+    xr4k = randn(4096, 4096)
+    hr4k = nd.R2cFftHandler(4096)
+    rows_in = {n: crandn(128, n) for n in (384, 1152, 16256, 20480)}
+    cols_in = {n: crandn(n, c) for n, c in ((640, 256), (20480, 128))}
+    real_in = {n: randn(128, n) for n in (1536, 40960)}
+    x769, x768_2 = randn(769, 769), randn(768, 768)
+    s640 = torch.fft.rfft(randn(128, 640).double()).to(torch.complex64)   # Hermitian
+    reset_counts()
+    v4k = nd.ndfft(nd.ndfft_r2c(xr4k, hr4k, axis=1), h4k, axis=0)
+    r4k = nd.ndifft_r2c(nd.ndifft(v4k, h4k, axis=0), hr4k, axis=1)
+    rows_out = {n: (lambda y: (y, nd.ndifft(y, axis=1)))(nd.ndfft(x, axis=1))
+                for n, x in rows_in.items()}
+    cols_out = {n: (lambda y: (y, nd.ndifft(y, axis=0)))(nd.ndfft(x, axis=0))
+                for n, x in cols_in.items()}
+    real_out = {n: (lambda y: (y, nd.ndifft_r2c(y, axis=1)))(nd.ndfft_r2c(x, axis=1))
+                for n, x in real_in.items()}
+    d1 = nd.nddct1(x769, axis=1)
+    d4 = nd.nddct4(x768_2, axis=1)
+    b640 = nd.ndifft_r2c(s640, axis=1, n=640)
+    read_counts("wide_lanes", r2c_nat=1 + 2, r2c_nat_wide=2, c2c_axis_mid=2 + 4,
+                c2c_axis_mid_wide=2 + 4, c2r_nat=1 + 2, c2r_nat_wide=2,
+                c2c_rows=8 + 1 + 1, c2c_rows_wide=8 + 1 + 1, r2c_packed=1, r2c_packed_wide=1)
+    check_r2c_mid("step_4096^2_real_axis_last", v4k, xr4k, r4k, (0, 1), grid=[4096, 4096])
+    for n, (y, b) in rows_out.items():
+        check_c2c("fft_last_axis", y, rows_in[n], b, dims=(1,), grid=[128, n])
+    for n, (y, b) in cols_out.items():
+        check_c2c("fft_axis0", y, cols_in[n], b, dims=(0,), grid=list(cols_in[n].shape))
+    for n, (y, b) in real_out.items():
+        check_lane("r2c_last_axis", y, torch.fft.rfft(real_in[n].double(), dim=1), b,
+                   real_in[n], grid=[128, n])
+    check("dct1_769", d1, sfft.dct(host64(x769), type=1, axis=1), grid=[769, 769])
+    check("dct4_768", d4, sfft.dct(host64(x768_2), type=4, axis=1), grid=[768, 768])
+    check_lane("c2r_extension_640", b640,
+               torch.fft.irfft(s640.to(torch.complex128), n=640, dim=1), grid=[128, 640])
+    del v4k, r4k, rows_out, cols_out, real_out, d1, d4, b640, rows_in, cols_in, real_in
+
+    # DCT-II/III along the last axis at n = 768 (K23/K24 at h = 384) and the
+    # R2C along a middle axis at n = 768 (K16/K17 at h = 384) have no wide
+    # form yet: they raise, before any launch
+    for what, call in (("dct2_768_last_axis_raises", lambda: nd.nddct2(x768_2, axis=1)),
+                       ("r2c_768_axis0_raises", lambda: nd.ndfft_r2c(x768_2[:, :256], axis=0))):
+        try:
+            call()
+        except NotImplementedError as e:
+            emit(phase="wide_path", check=what, error=str(e))
+            if "ROADMAP.md item K1b" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{what}: ran on the card")
     torch.cuda.empty_cache()
 
     # ---- 5. times: each kernel against its plain version and, at the main
@@ -908,7 +1088,10 @@ def main() -> int:
                    "c2r_mid": (1, 257, 512 * 512), "r2c_dense_mid": (1, 256, 256 * 256),
                    "c2r_dense_mid": (1, 129, 256 * 256), "r2c_packed": (256 * 256, 256),
                    "r2c_packed_dense": (128 * 128, 128), "c2c_generic_rows": (600 * 600, 600),
-                   "c2c_generic_mid": (600, 600, 301), "r2c_packed_generic": (600 * 600, 600)}
+                   "c2c_generic_mid": (600, 600, 301), "r2c_packed_generic": (600 * 600, 600),
+                   "c2c_axis_mid_wide": (768, 768, 385), "c2c_rows_wide": (4096, 4096),
+                   "r2c_nat_wide": (768 * 768, 768), "c2r_nat_wide": (768 * 768, 385),
+                   "r2c_packed_wide": (769, 1536)}
 
     def time_kernel(name, shape, kern, plain, library=None):
         t_plain = cuda_ms(plain, reps)
@@ -1094,6 +1277,63 @@ def main() -> int:
     del rfft2d_inputs
     torch.cuda.empty_cache()
 
+    # the wide core: each kernel at the paths' shapes (phase 4g), the 768^3
+    # step with each public call timed alone, and the 4096^2 round trip
+    for name, kern, plain, dim, shapes in (
+            ("c2c_axis_mid_wide", kfft.c2c_axis_mid, kfft.c2c_axis_mid_plain, 1,
+             ((768, 768, 385), (1, 768, 295680), (1, 4096, 4096), (1, 4096, 2049))),
+            ("c2c_rows_wide", kfft.c2c_rows, kfft.c2c_rows_plain, -1,
+             ((4096, 4096), (1536, 768), (128, 20480)))):
+        for shape in shapes:
+            x = crandn(*shape)
+            time_kernel(name, shape, lambda: kern(x, -1), lambda: plain(x, -1),
+                        lambda: torch.fft.fft(x, dim=dim))
+        del x
+    for t, n in ((768 * 768, 768), (128, 40960)):
+        x = randn(t, n)
+        sp = crandn(t, n // 2 + 1)
+        time_kernel("r2c_nat_wide", (t, n), lambda: krfft.r2c_nat(x),
+                    lambda: krfft.r2c_nat_plain(x), lambda: torch.fft.rfft(x, dim=1))
+        time_kernel("c2r_nat_wide", (t, n // 2 + 1), lambda: krfft.c2r_nat(sp, n, 1.0 / n),
+                    lambda: krfft.c2r_nat_plain(sp, n, 1.0 / n),
+                    lambda: torch.fft.irfft(sp, n=n, dim=1))
+        del x, sp
+    x = randn(769, 1536)
+    time_kernel("r2c_packed_wide", (769, 1536), lambda: krfft.r2c_packed(x),
+                lambda: krfft.r2c_packed_plain(x), lambda: torch.fft.rfft(x, dim=1))
+    del x
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_port = cuda_ms(lambda: inv3(fwd3(x768, h768r, h768c), h768r, h768c), reps, 2)
+    peak = torch.cuda.max_memory_allocated()
+    t_torch = cuda_ms(lambda: torch.fft.irfftn(torch.fft.rfftn(x768), s=x768.shape), reps, 2)
+    emit(phase="time", step_real_axis_last=[n7] * 3, ms=t_port, torch_fft_ms=t_torch,
+         peak_bytes=peak, card=card)
+    a = nd.ndfft_r2c(x768, h768r, axis=2)
+    b = nd.ndfft(a, h768c, axis=1)
+    v = nd.ndfft(b, h768c, axis=0)
+    w0 = nd.ndifft(v, h768c, axis=0)
+    w = nd.ndifft(w0, h768c, axis=1)
+    legs = {"r2c_axis2": lambda: nd.ndfft_r2c(x768, h768r, axis=2),
+            "fft_axis1": lambda: nd.ndfft(a, h768c, axis=1),
+            "fft_axis0": lambda: nd.ndfft(b, h768c, axis=0),
+            "ifft_axis0": lambda: nd.ndifft(v, h768c, axis=0),
+            "ifft_axis1": lambda: nd.ndifft(w0, h768c, axis=1),
+            "c2r_axis2": lambda: nd.ndifft_r2c(w, h768r, axis=2)}
+    leg_ms = {k: cuda_ms(f, reps) for k, f in legs.items()}
+    emit(phase="time", breakdown=f"step_real_axis_last_{n7}^3", step_ms=t_port,
+         legs_ms=leg_ms, sum_public_ms=sum(leg_ms.values()), card=card)
+    del a, b, v, w0, w, x768
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_port = cuda_ms(lambda: ifft2_first_last(fft2_last_first(x4k, h4k), h4k), reps, 2)
+    peak = torch.cuda.max_memory_allocated()
+    t_torch = cuda_ms(lambda: torch.fft.ifftn(torch.fft.fftn(x4k)), reps, 2)
+    emit(phase="time", c2c_fftn_ifftn=[4096, 4096], ms=t_port, torch_fft_ms=t_torch,
+         peak_bytes=peak, card=card)
+    del x4k
+    torch.cuda.empty_cache()
+
     def yardstick_pair(x):
         f = makhoul_dct(makhoul_dct(x, 1, 2), 0, 2)
         return makhoul_dct(makhoul_dct(f, 0, 3), 1, 3) / (2 * 1024) ** 2
@@ -1146,13 +1386,25 @@ def main() -> int:
                             "ndrustfft_tpu/ops/pallas/fft.py:1794"),
         "r2c_packed_generic": ("ndrustfft_tpu_torch/csrc/rfft_generic.cu",
                                "ndrustfft_tpu/ops/pallas/rfft.py:163"),
+        "c2c_axis_mid_wide": ("ndrustfft_tpu_torch/csrc/fft_axis_mid.cu",
+                              "ndrustfft_tpu/ops/pallas/fft.py:1124"),
+        "c2c_rows_wide": ("ndrustfft_tpu_torch/csrc/fft_rows.cu",
+                          "ndrustfft_tpu/ops/pallas/fft.py:743"),
+        "r2c_nat_wide": ("ndrustfft_tpu_torch/csrc/rfft_nat.cu",
+                         "ndrustfft_tpu/ops/pallas/rfft.py:242"),
+        "c2r_nat_wide": ("ndrustfft_tpu_torch/csrc/rfft_nat.cu",
+                         "ndrustfft_tpu/ops/pallas/rfft.py:323"),
+        "r2c_packed_wide": ("ndrustfft_tpu_torch/csrc/rfft_nat.cu",
+                            "ndrustfft_tpu/ops/pallas/rfft.py:163"),
     }
     kernels = []
     for name, (src, rep) in sources.items():
         t_k, t_plain, t_lib = timing[(name, main_shapes[name])]
         bound_ms, bound_by = bound(*work(name, main_shapes[name]))
+        # a wrapper's ``launches`` counts its wide launches too
+        fixed = launches[name] - launches.get(name + "_wide", 0)
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": launches[name],
+                        "replaces": rep, "launches": fixed,
                         "max_abs_err": errs[name], "ms": t_k, "plain_ms": t_plain,
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": t_lib, "shape": list(main_shapes[name])})

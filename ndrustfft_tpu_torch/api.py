@@ -165,13 +165,14 @@ def _route(kind: str, shape, axis: int, dtype: torch.dtype, device_type: str,
 def _rfft_mid(kind: str, n: int):
     """Route of a float32 R2C/C2R along a middle axis with >= 128 columns
     (the JAX package's rfft_nat_supported, then rfft_dense_mid_supported):
-    K16/K17 for a natural-layout half length whose factor the core takes,
-    else K1b; K20/K21 for 4 <= n <= 1100 (any n, Bluestein lengths
-    included: the dense product needs no plan); else None."""
+    K16/K17 for a natural-layout half length whose factor the fixed core
+    takes, else K1b (the middle-axis kernels have no wide form yet);
+    K20/K21 for 4 <= n <= 1100 (any n, Bluestein lengths included: the
+    dense product needs no plan); else None."""
     f = _nat_f(n)
     if f is not None:
         if f not in _kfft.CORE_F:
-            return "rfft_nat_wide"
+            return "rfft_mid_wide"
         return R2C_MID if kind == "r2c" else C2R_MID
     if _krfft.DENSE_MIN_N <= n <= _krfft.DENSE_MAX_N:
         return R2C_DENSE_MID if kind == "r2c" else C2R_DENSE_MID
@@ -193,9 +194,7 @@ def _route_f32(kind, shape, axis, n):
             use_ts = n > 256 and ts is not None and ts[0] <= MAX_BASE_RADIX
             if n <= 256 or (not use_ts and n <= 512):
                 return "dense_mid"
-            if not use_ts:
-                return C2C_GENERIC_MID
-            return C2C_AXIS_MID if ts[1] in _kfft.C2C_F else "bts2_wide"
+            return C2C_AXIS_MID if use_ts else C2C_GENERIC_MID
         return _lane_c2c(n, batch)
     if kind == "r2c":
         return r2c_lane_route(n, batch)

@@ -32,12 +32,61 @@ namespace ndfft {
 constexpr int kM = 128;        // stage-2 DFT length m
 constexpr int kThreads = 256;  // threads per block of every kernel
 constexpr int kSmemElems = 8192;  // float2 elements of a block's tile (64 KB)
+constexpr long long kMaxSmemBytes = 232448;   // dynamic shared memory of a block
 
 __device__ __forceinline__ void cmac(float2& acc, float2 a, float2 w) {
   acc.x = fmaf(a.x, w.x, acc.x);
   acc.x = fmaf(-a.y, w.y, acc.x);
   acc.y = fmaf(a.x, w.y, acc.y);
   acc.y = fmaf(a.y, w.x, acc.y);
+}
+
+// The R2C unpack of V rows of Z in place: row r at ob + r * (h + 1) holds
+// Z[k] in its first h slots and gets
+//   X[k] = (Z[k] + C[k]) / 2 - i W_n^k (Z[k] - C[k]) / 2,  k < h,
+//   X[h] = Re Z[0] - Im Z[0],  C[k] = conj Z[(h - k) mod h],
+// with u[k] = W_n^k. Each thread takes one mirror pair {k, (h - k) mod h},
+// both read before both are written, so the rows update in place without a
+// second buffer; k = 0 pairs with itself and writes X[h]. The pair loop
+// k <= h/2 covers odd h. Call it behind a block barrier that follows the
+// writes of Z.
+__device__ __forceinline__ void r2c_unpack_rows(float2* ob, int h, int V,
+                                                const float2* __restrict__ u) {
+  const int pairs = h / 2 + 1;
+  for (int idx = threadIdx.x; idx < pairs * V; idx += blockDim.x) {
+    float2* row = ob + (long long)(idx / pairs) * (h + 1);
+    const int k = idx % pairs;
+    const int k2 = (h - k) % h;
+    const float2 za = row[k];
+    const float2 zb = row[k2];
+    // X at k from Z[k] = a and Z[h - k] = b, with C = conj b
+    auto unpack = [](float2 a, float2 b, float2 w) {
+      const float fer = 0.5f * (a.x + b.x);
+      const float fei = 0.5f * (a.y - b.y);
+      const float for_ = 0.5f * (a.y + b.y);    // Re(-i/2 (Z - C))
+      const float foi = -0.5f * (a.x - b.x);    // Im(-i/2 (Z - C))
+      return make_float2(fer + for_ * w.x - foi * w.y, fei + for_ * w.y + foi * w.x);
+    };
+    row[k] = unpack(za, zb, __ldg(u + k));
+    if (k2 != k) row[k2] = unpack(zb, za, __ldg(u + k2));
+    if (k == 0) row[h] = make_float2(za.x - za.y, 0.f);
+  }
+}
+
+// The C2R pre-pass at bin k < h of a spectrum row S (h + 1 bins):
+// G[k] = A[k] S[k] + B[k] conj S[h - k], with the DC imaginary part forced
+// to 0 and the Nyquist one ignored; ab[k] = (A.re, A.im, B.re, B.im).
+__device__ __forceinline__ float2 c2r_pre(const float2* srow, const float4* __restrict__ ab,
+                                          int h, int k) {
+  float2 sk = srow[k];
+  float2 sm = srow[h - k];  // k = 0: the Nyquist bin S[h]
+  if (k == 0) {
+    sk.y = 0.f;
+    sm.y = 0.f;
+  }
+  const float4 c = __ldg(ab + k);
+  return make_float2(c.x * sk.x - c.y * sk.y + c.z * sm.x + c.w * sm.y,
+                     c.x * sk.y + c.y * sk.x + c.w * sm.x - c.z * sm.y);
 }
 
 // cos and sin of 2*pi*j/16 for j = 0..7 (folded to constants after unrolling)

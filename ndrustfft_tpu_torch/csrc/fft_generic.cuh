@@ -44,7 +44,6 @@ namespace ndfft {
 
 constexpr int kGenPM = 7;   // outputs p per lane in pass 1 (m <= 7 * 32)
 constexpr int kGenQB = 4;   // outputs q per thread in pass 2
-constexpr long long kMaxSmemBytes = 232448;   // dynamic shared memory of a block
 
 struct GenTile {
   int m, f, V, F1;

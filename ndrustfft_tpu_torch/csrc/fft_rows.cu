@@ -1,5 +1,6 @@
-// Kernel 10: C2C of contiguous rows of a (T, n) complex64 tensor, n = 128 * F,
-// F in {4, 8, 16}.
+// Kernel 10: C2C of contiguous rows of a (T, n) complex64 tensor, n = 128 * F:
+// F in {4, 8, 16} on the fixed core, every other F <= 160 on the wide core
+// (bts2_wide.cuh, c2c_rows_wide_kernel below).
 //
 // Replaces ndrustfft_tpu/ops/pallas/fft.py::_kernel_twostep (built by
 // _build_call_twostep, math _twostep_math) for the port's split m = 128.
@@ -23,7 +24,7 @@
 // halving R (rows per block) while the grid would leave SMs idle
 // (ops/hopper/fft.py::block_rows). The last block's rows are ragged when
 // T % R != 0: loads past T read zeros and stores past T are masked.
-#include "bts2_core.cuh"
+#include "bts2_wide.cuh"
 
 namespace ndfft {
 
@@ -62,6 +63,28 @@ static cudaError_t launch_rows(const float2* x, float2* y, const float2* wq,
   }
 }
 
+// Kernel 10 at every other butterfly factor, on the wide core
+// (bts2_wide.cuh) in its row layout: the T rows spread evenly over the
+// tiles of at most C rows, each tile one contiguous copy into shared memory;
+// the core writes the outputs to y.
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+c2c_rows_wide_kernel(const float2* __restrict__ x, float2* __restrict__ y,
+                     const float2* __restrict__ wq, const float2* __restrict__ wf, int F,
+                     long long T, long long tiles) {
+  const int n = F * kM;
+  extern __shared__ float2 smem[];
+  const WideSmem sm(smem, n, C);
+  long long row0;
+  int valid;
+  wide_tile(T, tiles, blockIdx.x, row0, valid);
+  const float2* xb = x + row0 * n;
+  for (int idx = threadIdx.x; idx < valid * n; idx += kThreads) sm.s[idx] = xb[idx];
+  wide_load_row(sm.wt, wf, F);
+  __syncthreads();
+  Bts2Wide<C, true>{n, F}.run(sm.s, sm.ys, sm.wt, wq, valid, y + row0 * n, n, 1);
+}
+
 template <int F>
 static cudaError_t dispatch_rows(int R, const float2* x, float2* y,
                                  const float2* wq, long long T, float sign,
@@ -97,4 +120,24 @@ extern "C" int ndfft_c2c_rows(const void* x, void* y, const void* wq,
     case 16 * kM: return (int)dispatch_rows<16>(R, xp, yp, wp, T, sg, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Kernel 10 on the wide core, n = 128 * F with 1 <= F <= 160. x, y: (T, n)
+// complex64, contiguous; wq as above; wf: (F, F) complex64 DFT-F of the
+// transform's sign (ops/hopper/fft.py::wide_consts). C: rows per tile, a
+// power of two <= 16 whose tile fits (bts2_wide.cuh::wide_smem_bytes).
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int ndfft_c2c_rows_wide(const void* x, void* y, const void* wq, const void* wf,
+                                   long long T, int n, int C, void* stream) {
+  using namespace ndfft;
+  const float2* xp = static_cast<const float2*>(x);
+  float2* yp = static_cast<float2*>(y);
+  const float2* wqp = static_cast<const float2*>(wq);
+  const float2* wfp = static_cast<const float2*>(wf);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)wide_dispatch(C, [&](auto cc) {
+    constexpr int kC = decltype(cc)::value;
+    return wide_launch<kC>(c2c_rows_wide_kernel<kC>, n, 1, T, st, xp, yp, wqp, wfp, n / kM,
+                           T);
+  });
 }

@@ -15,8 +15,7 @@
 //
 // in one pass: pass 2 writes Z into the output row's first h slots, and
 // after a block barrier each thread takes one mirror pair {k, (h - k) mod h}
-// (both read before both are written, so the pairs update the row in place
-// without a second buffer); k = 0 pairs with itself and writes X[h]. The
+// (bts2_core.cuh::r2c_unpack_rows, shared with kernel 2's wide form). The
 // bound is the core's (fft_generic.cuh): at (360000, 600) 131 GFLOP of
 // dense products against 1.73 GB of HBM traffic; the epilogue adds the row's
 // round trip through L2.
@@ -38,25 +37,7 @@ r2c_generic_kernel(const float2* __restrict__ x, float2* y,
   gen_pass1<true>(s, g, wm, tw);
   gen_pass2<true>(s, g, wf, yb, h + 1);
   __syncthreads();   // Z of every row of the block is in device memory
-  const int pairs = h / 2 + 1;
-  for (int idx = threadIdx.x; idx < pairs * g.V; idx += blockDim.x) {
-    float2* row = yb + (long long)(idx / pairs) * (h + 1);
-    const int k = idx % pairs;
-    const int k2 = (h - k) % h;
-    const float2 za = row[k];
-    const float2 zb = row[k2];
-    // X at k from Z[k] = a and Z[h - k] = b, with C = conj b
-    auto unpack = [&](float2 a, float2 b, float2 w) {
-      const float fer = 0.5f * (a.x + b.x);
-      const float fei = 0.5f * (a.y - b.y);
-      const float for_ = 0.5f * (a.y + b.y);    // Re(-i/2 (Z - C))
-      const float foi = -0.5f * (a.x - b.x);    // Im(-i/2 (Z - C))
-      return make_float2(fer + for_ * w.x - foi * w.y, fei + for_ * w.y + foi * w.x);
-    };
-    row[k] = unpack(za, zb, __ldg(u + k));
-    if (k2 != k) row[k2] = unpack(zb, za, __ldg(u + k2));
-    if (k == 0) row[h] = make_float2(za.x - za.y, 0.f);
-  }
+  r2c_unpack_rows(yb, h, g.V, u);
 }
 
 }  // namespace ndfft

@@ -5,7 +5,7 @@
 // (built by _build_c2r_nat). Both run the shared bts2 core (bts2_core.cuh)
 // as the half-length FFT, on R rows of the block held in shared memory.
 //
-// The R2C is also kernel 15 at h = 128 * F, F in {1, 2, 4, 8, 16}: it
+// The R2C is also kernel 15 at h = 128 * F (both cores): it
 // replaces rfft.py::_r2c_kernel (built by _build_r2c, called by r2c_pallas),
 // which takes the even/odd streams of rows that the lane lowerings build
 // (the R2C of n = 256, the DCT-I and DST-I extensions). Those streams are
@@ -30,7 +30,11 @@
 //         inverse cancel, so A and B carry neither.)
 // The bound is that of the core: stage 2's dense DFT-128 on the FP32 CUDA
 // cores (bts2_core.cuh).
-#include "bts2_core.cuh"
+//
+// At every other F <= 160 (h = 384, 640, 768 ... 20480) both run on the wide
+// core (bts2_wide.cuh): r2c_nat_wide_kernel and c2r_nat_wide_kernel below,
+// with the same pre- and post-passes, A/B constants and DC/Nyquist rule.
+#include "bts2_wide.cuh"
 
 namespace ndfft {
 
@@ -82,24 +86,60 @@ c2r_nat_kernel(const float2* __restrict__ spec, float2* __restrict__ out,
   for (int idx = threadIdx.x; idx < R * H; idx += kThreads) {
     const int r = idx / H;
     const int k = idx % H;
-    float2 g = make_float2(0.f, 0.f);
-    if (r < valid) {
-      float2 sk = sb[r * (H + 1) + k];
-      float2 sm = sb[r * (H + 1) + (H - k)];  // k = 0: the Nyquist bin S[h]
-      if (k == 0) {  // DC imag forced to 0; the Nyquist imag is ignored
-        sk.y = 0.f;
-        sm.y = 0.f;
-      }
-      const float4 c = __ldg(ab + k);  // (A.re, A.im, B.re, B.im)
-      g.x = c.x * sk.x - c.y * sk.y + c.z * sm.x + c.w * sm.y;
-      g.y = c.x * sk.y + c.y * sk.x + c.w * sm.x - c.z * sm.y;
-    }
-    s[idx] = g;
+    s[idx] = r < valid ? c2r_pre(sb + r * (H + 1), ab, H, k) : make_float2(0.f, 0.f);
   }
   __syncthreads();
   Bts2<F, R, true>::run(s, wq, 1.f);
   float2* ob = out + row0 * H;
   for (int idx = threadIdx.x; idx < valid * H; idx += kThreads) ob[idx] = s[idx];
+}
+
+// Kernels 2 (and so 15) and 3 at every other butterfly factor, on the wide
+// core (bts2_wide.cuh) in its row layout, with the pre- and post-passes
+// above. The wide core keeps its tile and writes Z to device memory, so the
+// R2C's unpack, which needs Z[k] and Z[(h - k) mod h] (plane (F - q) mod F),
+// runs after a block barrier on the output rows in place, one mirror pair
+// per thread (bts2_core.cuh::r2c_unpack_rows, as kernel 15's generic form
+// does); the C2R's pre-pass fills the tile and the core writes z, the real
+// row as its complex pairs, straight to the output.
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+r2c_nat_wide_kernel(const float2* __restrict__ x, float2* out, const float2* __restrict__ wq,
+                    const float2* __restrict__ wf, const float2* __restrict__ tw, int F,
+                    long long T, long long tiles) {
+  const int H = F * kM;
+  extern __shared__ float2 smem[];
+  const WideSmem sm(smem, H, C);
+  long long row0;
+  int valid;
+  wide_tile(T, tiles, blockIdx.x, row0, valid);
+  const float2* xb = x + row0 * H;
+  for (int idx = threadIdx.x; idx < valid * H; idx += kThreads) sm.s[idx] = xb[idx];
+  wide_load_row(sm.wt, wf, F);
+  __syncthreads();
+  float2* ob = out + row0 * (H + 1);
+  // ends with a barrier: Z of every row of the tile is in device memory
+  Bts2Wide<C, true>{H, F}.run(sm.s, sm.ys, sm.wt, wq, valid, ob, H + 1, 1);
+  r2c_unpack_rows(ob, H, valid, tw);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+c2r_nat_wide_kernel(const float2* __restrict__ spec, float2* __restrict__ out,
+                    const float2* __restrict__ wq, const float2* __restrict__ wf,
+                    const float4* __restrict__ ab, int F, long long T, long long tiles) {
+  const int H = F * kM;
+  extern __shared__ float2 smem[];
+  const WideSmem sm(smem, H, C);
+  long long row0;
+  int valid;
+  wide_tile(T, tiles, blockIdx.x, row0, valid);
+  const float2* sb = spec + row0 * (H + 1);
+  for (int idx = threadIdx.x; idx < valid * H; idx += kThreads)
+    sm.s[idx] = c2r_pre(sb + (idx / H) * (H + 1), ab, H, idx % H);
+  wide_load_row(sm.wt, wf, F);
+  __syncthreads();
+  Bts2Wide<C, true>{H, F}.run(sm.s, sm.ys, sm.wt, wq, valid, out + row0 * H, H, 1);
 }
 
 template <int F, int R>
@@ -182,4 +222,38 @@ extern "C" int ndfft_c2r_nat(const void* spec, void* out, const void* wq,
                              void* stream) {
   if (n % 2) return (int)cudaErrorInvalidValue;
   return ndfft::rfft_entry(true, spec, out, wq, ab, T, n, R, stream);
+}
+
+// Kernels 2 and 15 on the wide core, h = n/2 = 128 * F with 1 <= F <= 160:
+// x, out, wq and tw as for ndfft_r2c_nat; wf: (F, F) complex64 DFT-F, sign
+// -1. C: rows per tile, a power of two <= 16 whose tile fits
+// (bts2_wide.cuh::wide_smem_bytes).
+extern "C" int ndfft_r2c_nat_wide(const void* x, void* out, const void* wq, const void* wf,
+                                  const void* tw, long long T, int n, int C, void* stream) {
+  using namespace ndfft;
+  if (n % 2) return (int)cudaErrorInvalidValue;
+  const int h = n / 2;
+  return (int)wide_dispatch(C, [&](auto cc) {
+    constexpr int kC = decltype(cc)::value;
+    return wide_launch<kC>(r2c_nat_wide_kernel<kC>, h, 1, T, static_cast<cudaStream_t>(stream),
+                           static_cast<const float2*>(x), static_cast<float2*>(out),
+                           static_cast<const float2*>(wq), static_cast<const float2*>(wf),
+                           static_cast<const float2*>(tw), h / kM, T);
+  });
+}
+
+// Kernel 3 on the wide core: spec, out, wq and ab as for ndfft_c2r_nat; wf:
+// (F, F) complex64 DFT-F, sign +1; C as above.
+extern "C" int ndfft_c2r_nat_wide(const void* spec, void* out, const void* wq, const void* wf,
+                                  const void* ab, long long T, int n, int C, void* stream) {
+  using namespace ndfft;
+  if (n % 2) return (int)cudaErrorInvalidValue;
+  const int h = n / 2;
+  return (int)wide_dispatch(C, [&](auto cc) {
+    constexpr int kC = decltype(cc)::value;
+    return wide_launch<kC>(c2r_nat_wide_kernel<kC>, h, 1, T, static_cast<cudaStream_t>(stream),
+                           static_cast<const float2*>(spec), static_cast<float2*>(out),
+                           static_cast<const float2*>(wq), static_cast<const float2*>(wf),
+                           static_cast<const float4*>(ab), h / kM, T);
+  });
 }

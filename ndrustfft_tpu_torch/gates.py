@@ -14,7 +14,6 @@ from __future__ import annotations
 from functools import lru_cache
 
 from .ops.hopper import fft as _kfft
-from .ops.hopper import rfft as _krfft
 from .plan import MAX_BASE_RADIX, factorize
 
 # routes that run a ported kernel, and the engine
@@ -50,18 +49,11 @@ ENGINE = "engine"
 # Pallas kernels of the JAX package on routes not ported yet:
 # key -> (kernel, ROADMAP.md item)
 UNPORTED = {
-    "bts2_wide": ("fft.py::_kernel_axis_mid_bts2 with a butterfly factor "
-                  "outside {2, 4, 8, 16}", "K1b"),
     "fourstep": ("fft.py::_kernel_exit_mul and _kernel_lane_store_t", "K7"),
-    "twostep_wide": ("fft.py::_kernel_twostep with a butterfly factor outside "
-                     "{4, 8, 16}", "K1b"),
     "bluestein": ("fft.py::_kernel_axis_mid_blue and the engine's Bluestein",
                   "K11"),
-    "r2c_packed_f": ("rfft.py::_r2c_kernel with a twostep half-length FFT whose "
-                     "butterfly factor is outside {1, 2, 4, 8, 16}", "K1b"),
-    "rfft_nat_wide": ("rfft.py::_r2c_kernel_nat / _c2r_kernel_nat (or "
-                      "_r2c_kernel_mid / _c2r_kernel_mid) with a half length "
-                      "outside 128 * {2, 4, 8, 16}", "K1b"),
+    "rfft_mid_wide": ("rfft.py::_r2c_kernel_mid / _c2r_kernel_mid with a half "
+                      "length outside 128 * {2, 4, 8, 16}", "K1b"),
     "r2c_packed_mid": ("rfft.py::_r2c_kernel_packed_mid", "K18"),
     "dct1_mid": ("rfft.py::_dct1_kernel_mid", "K19"),
     "dct2_mid": ("dct.py::_dct2_kernel_mid", "K25"),
@@ -73,7 +65,7 @@ UNPORTED = {
 }
 
 # the keys that name the C2C kernel of a lowering's inner transform
-_C2C_KEYS = ("fourstep", "twostep_wide")
+_C2C_KEYS = ("fourstep",)
 
 
 def unported(key: str, what: str, kind: str = "fft") -> NotImplementedError:
@@ -166,12 +158,12 @@ def _lane_fft(n: int, batch: int) -> str:
 
 def _c2c_kernel_route(route: str, n: int) -> str:
     """The port's route for the JAX package's C2C route at length n: kernel
-    10 for the twostep split with F in {4, 8, 16}, kernel 8 for the lane
-    schedule (its dense lane DFT at n <= 256, the generic schedule above),
-    kernel 4 for the dense mid product; else the UNPORTED key."""
+    10 for the twostep split (n = 128 * F, the fixed or the wide core),
+    kernel 8 for the lane schedule (its dense lane DFT at n <= 256, the
+    generic schedule above), kernel 4 for the dense mid product; else the
+    UNPORTED key."""
     if route == "twostep":
-        return C2C_ROWS if n % _kfft.M == 0 and n // _kfft.M in _kfft.C2C_F \
-            else "twostep_wide"
+        return C2C_ROWS
     if route == "lane_last":
         return C2C_DENSE_ROWS if n <= 256 else C2C_GENERIC_ROWS
     if route == "dense_mid":
@@ -193,47 +185,36 @@ def inner_c2c_route(n: int, batch: int, lowering: str) -> str:
     return lowering if route in (C2C_ROWS, C2C_DENSE_ROWS, C2C_GENERIC_ROWS) else route
 
 
-def packed_route(h: int) -> str:
-    """Kernel 15 at half length h (<= 20480), as the JAX package picks its
-    half-length FFT (rfft._half_fft_consts): the dense lane DFT for
-    h <= 256, the twostep core for h > 256 with a split, else the generic
-    lane schedule. R2C_PACKED where the port's kernel takes h, else the
-    UNPORTED key."""
-    ts = _twostep_split(h)
-    if h > _krfft.PACKED_DENSE_MAX_H and ts is not None and ts[0] <= MAX_BASE_RADIX \
-            and not _krfft.packed_core(h):
-        return "r2c_packed_f"
-    return R2C_PACKED
-
-
 def packed_lane(h: int, batch: int) -> str:
     """Route of engine.r2c_packed with half length h (R2C: h = n/2, DCT-I:
-    h = n - 1, DST-I: h = n + 1): kernel 15 at batch >= 128, else the inner
-    C2C."""
+    h = n - 1, DST-I: h = n + 1): kernel 15 at batch >= 128, at every h the
+    JAX kernel takes (rfft._half_fft_consts: the core at h = 128 * F, the
+    dense lane DFT at other h <= 256, the generic schedule above), else the
+    inner C2C."""
     if batch >= MIN_BATCH and _kernel_ok(h):
-        return packed_route(h)
+        return R2C_PACKED
     return _lane_fft(h, batch)
 
 
 def r2c_lane_route(n: int, batch: int) -> str:
     """Route of engine.r2c of length n over ``batch`` float32 rows: the row
-    pairs' C2C for odd n, kernel 2 where its core's factor allows, else
-    kernel 15 (:func:`packed_lane`)."""
+    pairs' C2C for odd n, kernel 2 at a natural-layout half length (h =
+    128 * F, the fixed or the wide core), else kernel 15
+    (:func:`packed_lane`)."""
     if n % 2:
         pairs = (batch + 1) // 2 if batch >= 2 else 1
         return inner_c2c_route(n, pairs, R2C_ROWPAIR)
-    f = _nat_f(n)
-    if batch >= MIN_BATCH and f is not None:
-        return R2C_NAT if f in _kfft.CORE_F else "rfft_nat_wide"
+    if batch >= MIN_BATCH and _nat_f(n) is not None:
+        return R2C_NAT
     return packed_lane(n // 2, batch)
 
 
 def c2r_lane_route(n: int, batch: int) -> str:
     """Route of engine.c2r to length n over ``batch`` complex64 rows: kernel
-    3 where its core's factor allows, else the Hermitian extension's C2C."""
+    3 at a natural-layout half length (the fixed or the wide core), else the
+    Hermitian extension's C2C."""
     if n == 1:
         return ENGINE
-    f = _nat_f(n)
-    if batch >= MIN_BATCH and f is not None:
-        return C2R_NAT if f in _kfft.CORE_F else "rfft_nat_wide"
+    if batch >= MIN_BATCH and _nat_f(n) is not None:
+        return C2R_NAT
     return inner_c2c_route(n, batch, C2R_LANE)

@@ -101,10 +101,10 @@ _ROW_KERNELS = {gates.C2C_ROWS: _kfft.c2c_rows, gates.C2C_DENSE_ROWS: _kfft.c2c_
 def c2c(x: torch.Tensor, plan: C2CPlan, scale=None) -> torch.Tensor:
     """Batched C2C FFT along the last axis, unnormalized; ``scale`` (a
     python float) multiplies the result, folded into the kernel constants.
-    complex64 over >= 128 rows takes kernel 10 (n = 512, 1024, 2048) or
-    kernel 8 (its dense lane DFT at n <= 256, the generic schedule at
-    256 < n <= 20480 without a split); another kernel-eligible n raises on
-    a CUDA tensor."""
+    complex64 over >= 128 rows takes kernel 10 (256 < n = 128 * F <= 20480,
+    on the fixed or the wide core) or kernel 8 (its dense lane DFT at
+    n <= 256, the generic schedule at 256 < n <= 20480 without a split);
+    another kernel-eligible n raises on a CUDA tensor."""
     n = plan.n
     if x.dtype == torch.complex64 and _kernel_device(x):
         route = gates.lane_c2c_route(n, _rows(x))
@@ -127,10 +127,10 @@ c2c.calls = 0
 def r2c(x: torch.Tensor, plan: R2CPlan) -> torch.Tensor:
     """Real (..., n) -> half-spectrum (..., m), m = n//2 + 1, unnormalized.
 
-    Even n: float32 over >= 128 rows takes kernel 2 where its core's factor
-    allows, else :func:`r2c_packed`. Odd n pairs the rows into one complex
-    C2C (:func:`_r2c_rowpair`); a single row runs the C2C of the
-    complexified input and truncates."""
+    Even n: float32 over >= 128 rows takes kernel 2 at a natural-layout
+    half length (h = 128 * F >= 256), else :func:`r2c_packed`. Odd n pairs
+    the rows into one complex C2C (:func:`_r2c_rowpair`); a single row runs
+    the C2C of the complexified input and truncates."""
     r2c.calls += 1
     n = plan.n
     if not plan.half:
@@ -204,7 +204,7 @@ def hermitian_extension(s: torch.Tensor, n: int) -> torch.Tensor:
 
 def c2r(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
     """Half-spectrum (..., m) -> real (..., n): kernel 3 for complex64 over
-    >= 128 rows where its core's factor allows, else
+    >= 128 rows at a natural-layout half length, else
     :func:`hermitian_extension` and :func:`c2c`.
 
     The order is the reference's: ``scale`` on the spectrum first, then the

@@ -48,6 +48,10 @@ _SIGNATURES = {
     "ndfft_dct3_nat": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_c2c_generic": [_P, _P, _P, _P, _P, _LL, _I, _I, _LL, _I, _I, _P],
     "ndfft_r2c_generic": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P],
+    "ndfft_c2c_axis_mid_wide": [_P, _P, _P, _P, _LL, _I, _LL, _I, _P],
+    "ndfft_c2c_rows_wide": [_P, _P, _P, _P, _LL, _I, _I, _P],
+    "ndfft_r2c_nat_wide": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
+    "ndfft_c2r_nat_wide": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -2,10 +2,12 @@
 
 * Kernel 1, :func:`c2c_axis_mid`: C2C along the middle axis of (B, n, L),
   n = 128 * F (``csrc/fft_axis_mid.cu`` on the shared core
-  ``csrc/bts2_core.cuh``; replaces the JAX package's
-  ``ops/pallas/fft.py::_kernel_axis_mid_bts2``).
+  ``csrc/bts2_core.cuh`` for F in {4, 8, 16}, on its runtime-F form
+  ``csrc/bts2_wide.cuh`` for every other F <= 160; replaces the JAX
+  package's ``ops/pallas/fft.py::_kernel_axis_mid_bts2``).
 * Kernel 10, :func:`c2c_rows`: C2C of contiguous (T, n) rows, n = 128 * F
-  (``csrc/fft_rows.cu`` on the same core; replaces ``fft.py::_kernel_twostep``).
+  (``csrc/fft_rows.cu`` on the same two cores; replaces
+  ``fft.py::_kernel_twostep``).
 * Kernels 4 and 8, :func:`c2c_dense_mid` and :func:`c2c_dense_rows`: C2C of
   length n <= 512 as one dense product with the scaled DFT matrix, along the
   middle axis of (B, n, L) or along contiguous (T, n) rows
@@ -18,11 +20,14 @@
   ``fft.py::_kernel_lane_last`` with m > 1 and ``fft.py::_kernel_axis_mid``).
 
 This module holds their host-built constants, their plain PyTorch versions
-and their wrappers, whose ``launches`` attributes count kernel launches.
+and their wrappers, whose ``launches`` attributes count kernel launches
+(kernels 1 and 10 also count the wide core's launches apart, in
+``wide_launches``).
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from functools import lru_cache
 
 import numpy as np
@@ -32,14 +37,26 @@ from ...plan import dft_matrix, factorize, stage_twiddle
 from . import _build
 
 M = 128                 # stage-2 DFT length of the core
-CORE_F = (2, 4, 8, 16)  # butterfly factors the core instantiates
-C2C_F = (4, 8, 16)      # factors kernels 1 and 10 take (n = 512, 1024, 2048)
+CORE_F = (2, 4, 8, 16)  # butterfly factors the fixed core instantiates
+C2C_F = (4, 8, 16)      # factors kernels 1 and 10 take on the fixed core
 SMEM_ELEMS = 8192       # complex elements of one block's tile (64 KB)
 DENSE_MAX_N = 512       # longest transform kernels 4 and 8 take
 GENERIC_MAX_N = 20480   # the JAX package's kernel bound (fft._LIVE_COPIES)
 GENERIC_MAX_M = 224     # longest DFT-m of the generic core (7 values per lane)
 GENERIC_SMEM = 96 * 1024    # a block's tile when a transform fits (2 blocks/SM)
 MAX_SMEM = 232448           # the most dynamic shared memory a block may use
+WIDE_SLOTS = 4              # planes per group of the wide core (bts2_wide.cuh)
+WIDE_MAX_C = 16             # transforms per tile of the wide core
+WQ_CACHE_BYTES = 256 << 20  # device Wq tables kept (21 MB each at n = 20480)
+
+
+def core_f(n: int):
+    """The butterfly factor F of n = 128 * F where the bts2 core (fixed or
+    wide) takes n: 128 <= n <= 20480 with a plan (prime factors <= 128), as
+    the JAX package's kernel gate and twostep split take it; else None."""
+    if n % M or not M <= n <= GENERIC_MAX_N or factorize(n) is None:
+        return None
+    return n // M
 
 
 def bts2_consts(n: int, sign: int, scale: float = 1.0):
@@ -62,30 +79,54 @@ def bts2_consts(n: int, sign: int, scale: float = 1.0):
     return re, im
 
 
-@lru_cache(maxsize=64)
+_WQ_CACHE: OrderedDict = OrderedDict()
+
+
 def device_wq(n: int, sign: int, scale: float, device: torch.device) -> torch.Tensor:
-    """:func:`bts2_consts` as a (F, m, m) complex64 tensor on ``device``."""
-    re, im = bts2_consts(n, sign, scale)
+    """:func:`bts2_consts` as a (F, m, m) complex64 tensor on ``device``,
+    from a cache of the most recently used tables that holds at most
+    WQ_CACHE_BYTES (and always the newest table)."""
+    key = (n, sign, scale, device)
+    wq = _WQ_CACHE.pop(key, None)
+    if wq is None:
+        re, im = bts2_consts(n, sign, scale)
+        wq = torch.complex(torch.from_numpy(re), torch.from_numpy(im)).to(device)
+    _WQ_CACHE[key] = wq
+    held = sum(t.numel() * t.element_size() for t in _WQ_CACHE.values())
+    while held > WQ_CACHE_BYTES and len(_WQ_CACHE) > 1:
+        _, old = _WQ_CACHE.popitem(last=False)
+        held -= old.numel() * old.element_size()
+    return wq
+
+
+def wide_consts(n: int, sign: int):
+    """(F, F) float32 (re, im) of the stage-1 DFT-F, F = n / 128, C-contiguous:
+    the JAX package's ``_bts2_consts`` Wf, built in float64 by the same
+    expression and rounded once (the stage-2 scale rides Wq, not Wf). Its
+    phase is reduced mod F, so entry (a, q) is entry (1, (a q) mod F) bit
+    for bit: the wide core reads row 1."""
+    re, im = dft_matrix(n // M, sign)
+    return np.ascontiguousarray(re, np.float32), np.ascontiguousarray(im, np.float32)
+
+
+@lru_cache(maxsize=64)
+def device_wide(n: int, sign: int, device: torch.device) -> torch.Tensor:
+    """:func:`wide_consts` as a (F, F) complex64 tensor on ``device``."""
+    re, im = wide_consts(n, sign)
     return torch.complex(torch.from_numpy(re), torch.from_numpy(im)).to(device)
 
 
-@lru_cache(maxsize=64)
-def _dft_f(f: int, sign: int, device: torch.device) -> torch.Tensor:
-    re, im = dft_matrix(f, sign)
-    return torch.complex(torch.from_numpy(re.astype(np.float32)),
-                         torch.from_numpy(im.astype(np.float32))).to(device)
-
-
 def bts2_plain(x: torch.Tensor, wq: torch.Tensor, sign: int) -> torch.Tensor:
-    """Plain version of the core: the length-n transform along dim 1 of a
-    (B, n, L) complex tensor, n = F * m, with stage-2 constants ``wq``.
+    """Plain version of the core (fixed or wide): the length-n transform
+    along dim 1 of a (B, n, L) complex tensor, n = F * m, with stage-2
+    constants ``wq``.
 
     Stage 1 is the F-point DFT over the leading planes a (t = a*m + b),
     stage 2 the per-q product with Wq, and the (p', q) order of the result
     is k = q + F*p'."""
     nb, n, cols = x.shape
     f = wq.shape[0]
-    y = torch.einsum("aq,bamc->bqmc", _dft_f(f, sign, x.device),
+    y = torch.einsum("aq,bamc->bqmc", device_wide(n, sign, x.device),
                      x.reshape(nb, f, M, cols))
     z = torch.einsum("qmp,bqmc->bpqc", wq, y)
     return z.reshape(nb, n, cols)
@@ -122,6 +163,27 @@ def block_cols(n: int, groups: int, cols: int, sms: int) -> int:
     return c
 
 
+def wide_bytes(n: int, c: int) -> int:
+    """Dynamic shared memory of a wide-core tile of ``c`` transforms of
+    length n (csrc/bts2_wide.cuh::wide_smem_bytes): the tile, the Y scratch
+    of WIDE_SLOTS planes and the row W_F^k."""
+    return 8 * (c * (n + WIDE_SLOTS * M) + n // M)
+
+
+def wide_block(n: int, groups: int, count: int, sms: int) -> int:
+    """Transforms per tile of the wide core: the largest power of two up to
+    WIDE_MAX_C whose tile fits GENERIC_SMEM (two blocks per SM; at least one
+    transform, up to MAX_SMEM at n = 20480), halved while the grid of
+    ``groups`` times the tiles would leave SMs idle. The kernels spread the
+    ``count`` transforms evenly over the tiles."""
+    c = WIDE_MAX_C
+    while c > 1 and wide_bytes(n, c) > GENERIC_SMEM:
+        c //= 2
+    while c > 1 and groups * -(-count // c) < sms:
+        c //= 2
+    return c
+
+
 def dense_tile(n: int, nb: int, cols: int, sms: int) -> int:
     """Micro-tile of the dense products (kernels 4, 8 and 27): 8 (128 x 128
     block tiles) when that grid gives every SM two blocks, else 4 (64 x 64)."""
@@ -140,15 +202,31 @@ def check_cuda(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
             "queue 1 item 8: autograd)")
 
 
+def check_core_n(n: int, what: str) -> int:
+    """F of n = 128 * F where the bts2 core takes n (:func:`core_f`), or
+    raise."""
+    f = core_f(n)
+    if f is None:
+        raise ValueError(f"{what}: n={n} is not 128 * F with a twostep split and a "
+                         f"plan (128 <= n <= {GENERIC_MAX_N}, prime factors <= 128)")
+    return f
+
+
+def count_launch(wrapper, wide: bool) -> None:
+    """One launch of ``wrapper``'s kernel: on the wide core if ``wide``."""
+    wrapper.launches += 1
+    wrapper.wide_launches += wide
+
+
 def c2c_axis_mid(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
-    """C2C along dim 1 of a (B, n, L) complex64 tensor, n = 128 * F with F
-    in {4, 8, 16}, times ``scale``. A CPU tensor runs the plain version; a
-    CUDA tensor launches kernel 1 or raises."""
+    """C2C along dim 1 of a (B, n, L) complex64 tensor, n = 128 * F
+    (:func:`core_f`), times ``scale``. A CPU tensor runs the plain version;
+    a CUDA tensor launches kernel 1 (on the fixed core for F in {4, 8, 16},
+    else on the wide core) or raises."""
     if x.dim() != 3:
         raise ValueError(f"c2c_axis_mid: expected (B, n, L), got {tuple(x.shape)}")
     nb, n, cols = x.shape
-    if n % M or n // M not in C2C_F:
-        raise ValueError(f"c2c_axis_mid: n={n} is not 128 * F, F in {C2C_F}")
+    f = check_core_n(n, "c2c_axis_mid")
     if x.device.type == "cpu":
         return c2c_axis_mid_plain(x, sign, scale)
     if x.device.type != "cuda":
@@ -159,17 +237,25 @@ def c2c_axis_mid(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    c = block_cols(n, nb, cols, num_sms(x.device))
+    wide = f not in C2C_F
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = _build.lib().ndfft_c2c_axis_mid(
-            x.data_ptr(), y.data_ptr(), wq.data_ptr(), nb, n, cols, c, sign,
-            torch.cuda.current_stream(x.device).cuda_stream)
+        if wide:
+            err = _build.lib().ndfft_c2c_axis_mid_wide(
+                x.data_ptr(), y.data_ptr(), wq.data_ptr(),
+                device_wide(n, sign, x.device).data_ptr(), nb, n, cols,
+                wide_block(n, nb, cols, num_sms(x.device)), stream)
+        else:
+            err = _build.lib().ndfft_c2c_axis_mid(
+                x.data_ptr(), y.data_ptr(), wq.data_ptr(), nb, n, cols,
+                block_cols(n, nb, cols, num_sms(x.device)), sign, stream)
     _build.check(err, "c2c_axis_mid")
-    c2c_axis_mid.launches += 1
+    count_launch(c2c_axis_mid, wide)
     return y
 
 
 c2c_axis_mid.launches = 0
+c2c_axis_mid.wide_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -192,13 +278,13 @@ def _check_rows(x: torch.Tensor, what: str) -> None:
 
 
 def c2c_rows(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
-    """C2C of the rows of a (T, n) complex64 tensor, n = 128 * F with F in
-    {4, 8, 16}, times ``scale``. A CPU tensor runs the plain version; a CUDA
-    tensor launches kernel 10 or raises."""
+    """C2C of the rows of a (T, n) complex64 tensor, n = 128 * F
+    (:func:`core_f`), times ``scale``. A CPU tensor runs the plain version;
+    a CUDA tensor launches kernel 10 (on the fixed core for F in {4, 8, 16},
+    else on the wide core) or raises."""
     _check_rows(x, "c2c_rows")
     t, n = x.shape
-    if n % M or n // M not in C2C_F:
-        raise ValueError(f"c2c_rows: n={n} is not 128 * F, F in {C2C_F}")
+    f = check_core_n(n, "c2c_rows")
     if x.device.type == "cpu":
         return c2c_rows_plain(x, sign, scale)
     if x.device.type != "cuda":
@@ -209,17 +295,25 @@ def c2c_rows(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
     y = torch.empty_like(x)
     if t == 0:
         return y
-    r = block_rows(n, t, num_sms(x.device))
+    wide = f not in C2C_F
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = _build.lib().ndfft_c2c_rows(
-            x.data_ptr(), y.data_ptr(), wq.data_ptr(), t, n, r, sign,
-            torch.cuda.current_stream(x.device).cuda_stream)
+        if wide:
+            err = _build.lib().ndfft_c2c_rows_wide(
+                x.data_ptr(), y.data_ptr(), wq.data_ptr(),
+                device_wide(n, sign, x.device).data_ptr(), t, n,
+                wide_block(n, 1, t, num_sms(x.device)), stream)
+        else:
+            err = _build.lib().ndfft_c2c_rows(
+                x.data_ptr(), y.data_ptr(), wq.data_ptr(), t, n,
+                block_rows(n, t, num_sms(x.device)), sign, stream)
     _build.check(err, "c2c_rows")
-    c2c_rows.launches += 1
+    count_launch(c2c_rows, wide)
     return y
 
 
 c2c_rows.launches = 0
+c2c_rows.wide_launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -2,8 +2,10 @@
 
 * Kernels 2 and 3, :func:`r2c_nat` and :func:`c2r_nat`: R2C and C2R of
   contiguous (T, n) rows, even n, h = n/2 = 128 * F (``csrc/rfft_nat.cu`` on
-  the shared core ``csrc/bts2_core.cuh``; replace the JAX package's
-  ``ops/pallas/rfft.py::_r2c_kernel_nat`` and ``_c2r_kernel_nat``).
+  the shared core ``csrc/bts2_core.cuh`` for F in {1, 2, 4, 8, 16}, on its
+  runtime-F form ``csrc/bts2_wide.cuh`` for every other F <= 160; replace
+  the JAX package's ``ops/pallas/rfft.py::_r2c_kernel_nat`` and
+  ``_c2r_kernel_nat``).
 * Kernels 16 and 17, :func:`r2c_mid` and :func:`c2r_mid`: the same two along
   the middle axis of (B, n, L), kernel 1's column-tile layout of the core
   (``csrc/rfft_mid.cu``; replace ``rfft.py::_r2c_kernel_mid`` and
@@ -15,15 +17,17 @@
   ``_c2r_dense_kernel``).
 * Kernel 15, the packed R2C of contiguous (T, n) rows (replaces
   ``rfft.py::_r2c_kernel``), in three CUDA kernels by half length h = n/2:
-  :func:`r2c_packed` for h = 128 * F, F in {1, 2, 4, 8, 16}, is kernel 2's
-  code (``csrc/rfft_nat.cu``) with F = 1 added; :func:`r2c_packed_dense`
+  :func:`r2c_packed` for h = 128 * F is kernel 2's code
+  (``csrc/rfft_nat.cu``, both cores, with F = 1 added); :func:`r2c_packed_dense`
   for every other h <= 256 is kernel 20's real product with its table, in
   the row layout (``csrc/rfft_dense.cu``); :func:`r2c_packed_generic` for
   h > 256 without a split is kernel 8's generic schedule with the unpack
   as its epilogue (``csrc/rfft_generic.cu``).
 
 This module holds their host-built constants, their plain PyTorch versions
-and their wrappers, whose ``launches`` attributes count kernel launches.
+and their wrappers, whose ``launches`` attributes count kernel launches
+(kernels 2, 3 and 15 on the core also count the wide core's launches apart,
+in ``wide_launches``).
 """
 
 from __future__ import annotations
@@ -36,21 +40,23 @@ import torch
 from ...plan import _cis
 from . import _build
 from .fft import (CORE_F, GENERIC_MAX_N, M, block_cols, block_rows, bts2_plain,
-                  c2c_generic_rows_plain, check_cuda, dense_tile, device_generic, device_wq,
-                  generic_block, generic_split, num_sms)
+                  c2c_generic_rows_plain, check_cuda, core_f, count_launch,
+                  dense_tile, device_generic, device_wide, device_wq, generic_block,
+                  generic_split, num_sms, wide_block)
 
 # lengths kernels 20 and 21 take: the JAX package's rfft_dense_mid_supported
 # (its _DENSE_RFFT_MAX), which the routes mirror
 DENSE_MIN_N, DENSE_MAX_N = 4, 1100
-# half lengths kernel 15 takes: the core's factors (h = 128 * F), and the
-# dense lane DFT's h <= 256 (the JAX package's _half_fft_consts)
+# half-length factors the fixed core of kernels 2, 3 and 15 instantiates
+# (every other h = 128 * F runs on the wide core), and the dense lane DFT's
+# h <= 256 (the JAX package's _half_fft_consts)
 PACKED_F = (1, 2, 4, 8, 16)
 PACKED_DENSE_MAX_H = 256
 
 
 def packed_core(h: int) -> bool:
     """Kernel 15 runs the bts2 core (:func:`r2c_packed`) at half length h."""
-    return h % M == 0 and h // M in PACKED_F
+    return core_f(h) is not None
 
 
 def unpack_twiddle(n: int):
@@ -145,15 +151,27 @@ def c2r_nat_plain(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
 
 
 def _check_n(n: int, what: str) -> None:
+    """n = 2 * 128 * F with F in the fixed core's CORE_F (kernels 16, 17)."""
     h = n // 2
     if n % 2 or h % M or h // M not in CORE_F:
         raise ValueError(f"{what}: n={n} is not 2 * 128 * F, F in {CORE_F}")
 
 
+def _check_nat(n: int, what: str) -> int:
+    """F of the half length h = n/2 = 128 * F where the bts2 core (fixed or
+    wide) takes h (kernels 2, 3 and 15), or raise."""
+    f = None if n % 2 else core_f(n // 2)
+    if f is None:
+        raise ValueError(f"{what}: n={n} is not 2 h with h = 128 * F, a twostep split "
+                         f"and a plan (128 <= h <= {GENERIC_MAX_N})")
+    return f
+
+
 def _launch_r2c_rows(x: torch.Tensor, wrapper) -> torch.Tensor:
     """Kernel 2's code on the rows of a (T, n) float32 CUDA tensor, h = n/2
     = 128 * F, for ``wrapper`` (kernel 2's or kernel 15's), whose launch
-    count it adds one to where it launches."""
+    counts it adds one to where it launches: the fixed core for F in
+    PACKED_F, else the wide core."""
     what = wrapper.__name__
     check_cuda(x, torch.float32, what)
     if x.data_ptr() % 8:       # the kernel reads rows as float2
@@ -165,23 +183,30 @@ def _launch_r2c_rows(x: torch.Tensor, wrapper) -> torch.Tensor:
     out = torch.empty((t, h + 1), dtype=torch.complex64, device=x.device)
     if t == 0:
         return out
-    r = block_rows(h, t, num_sms(x.device))
+    wide = h // M not in PACKED_F
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = _build.lib().ndfft_r2c_nat(
-            x.data_ptr(), out.data_ptr(), wq.data_ptr(), tw.data_ptr(), t, n, r,
-            torch.cuda.current_stream(x.device).cuda_stream)
+        if wide:
+            err = _build.lib().ndfft_r2c_nat_wide(
+                x.data_ptr(), out.data_ptr(), wq.data_ptr(),
+                device_wide(h, -1, x.device).data_ptr(), tw.data_ptr(), t, n,
+                wide_block(h, 1, t, num_sms(x.device)), stream)
+        else:
+            err = _build.lib().ndfft_r2c_nat(
+                x.data_ptr(), out.data_ptr(), wq.data_ptr(), tw.data_ptr(), t, n,
+                block_rows(h, t, num_sms(x.device)), stream)
     _build.check(err, what)
-    wrapper.launches += 1
+    count_launch(wrapper, wide)
     return out
 
 
 def r2c_nat(x: torch.Tensor) -> torch.Tensor:
-    """R2C of the rows of a (T, n) float32 tensor -> (T, n/2+1) complex64.
-    A CPU tensor runs the plain version; a CUDA tensor launches kernel 2 or
-    raises."""
+    """R2C of the rows of a (T, n) float32 tensor -> (T, n/2+1) complex64,
+    h = n/2 = 128 * F. A CPU tensor runs the plain version; a CUDA tensor
+    launches kernel 2 or raises."""
     if x.dim() != 2:
         raise ValueError(f"r2c_nat: expected (T, n), got {tuple(x.shape)}")
-    _check_n(x.shape[1], "r2c_nat")
+    _check_nat(x.shape[1], "r2c_nat")
     if x.device.type == "cpu":
         return r2c_nat_plain(x)
     if x.device.type != "cuda":
@@ -190,13 +215,16 @@ def r2c_nat(x: torch.Tensor) -> torch.Tensor:
 
 
 r2c_nat.launches = 0
+r2c_nat.wide_launches = 0
 
 
 def c2r_nat(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
     """C2R of the rows of a (T, n/2+1) complex64 spectrum -> (T, n) float32,
-    times ``scale``; the DC and Nyquist imaginary parts are ignored. A CPU
-    tensor runs the plain version; a CUDA tensor launches kernel 3 or raises."""
-    _check_n(n, "c2r_nat")
+    h = n/2 = 128 * F, times ``scale``; the DC and Nyquist imaginary parts
+    are ignored. A CPU tensor runs the plain version; a CUDA tensor launches
+    kernel 3 (on the fixed core for F in PACKED_F, else on the wide core) or
+    raises."""
+    f = _check_nat(n, "c2r_nat")
     h = n // 2
     if s.dim() != 2 or s.shape[1] != h + 1:
         raise ValueError(f"c2r_nat: expected (T, {h + 1}), got {tuple(s.shape)}")
@@ -212,17 +240,25 @@ def c2r_nat(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
     out = torch.empty((t, n), dtype=torch.float32, device=s.device)
     if t == 0:
         return out
-    r = block_rows(h, t, num_sms(s.device))
+    wide = f not in PACKED_F
+    stream = torch.cuda.current_stream(s.device).cuda_stream
     with torch.cuda.device(s.device):
-        err = _build.lib().ndfft_c2r_nat(
-            s.data_ptr(), out.data_ptr(), wq.data_ptr(), ab.data_ptr(), t, n, r,
-            torch.cuda.current_stream(s.device).cuda_stream)
+        if wide:
+            err = _build.lib().ndfft_c2r_nat_wide(
+                s.data_ptr(), out.data_ptr(), wq.data_ptr(),
+                device_wide(h, +1, s.device).data_ptr(), ab.data_ptr(), t, n,
+                wide_block(h, 1, t, num_sms(s.device)), stream)
+        else:
+            err = _build.lib().ndfft_c2r_nat(
+                s.data_ptr(), out.data_ptr(), wq.data_ptr(), ab.data_ptr(), t, n,
+                block_rows(h, t, num_sms(s.device)), stream)
     _build.check(err, "c2r_nat")
-    c2r_nat.launches += 1
+    count_launch(c2r_nat, wide)
     return out
 
 
 c2r_nat.launches = 0
+c2r_nat.wide_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -474,12 +510,11 @@ def r2c_packed_plain(x: torch.Tensor) -> torch.Tensor:
 
 def r2c_packed(x: torch.Tensor) -> torch.Tensor:
     """R2C of the rows of a (T, n) float32 tensor -> (T, h+1) complex64,
-    h = n/2 = 128 * F with F in {1, 2, 4, 8, 16}. A CPU tensor runs the
-    plain version; a CUDA tensor launches kernel 15 on the core or raises."""
+    h = n/2 = 128 * F (:func:`packed_core`). A CPU tensor runs the plain
+    version; a CUDA tensor launches kernel 15 on the core (fixed for F in
+    PACKED_F, else wide) or raises."""
     _check_packed(x, "r2c_packed")
-    n = x.shape[1]
-    if n % 2 or not packed_core(n // 2):
-        raise ValueError(f"r2c_packed: n={n} is not 2 * 128 * F, F in {PACKED_F}")
+    _check_nat(x.shape[1], "r2c_packed")
     if x.device.type == "cpu":
         return r2c_packed_plain(x)
     if x.device.type != "cuda":
@@ -488,6 +523,7 @@ def r2c_packed(x: torch.Tensor) -> torch.Tensor:
 
 
 r2c_packed.launches = 0
+r2c_packed.wide_launches = 0
 
 
 def r2c_packed_dense_plain(x: torch.Tensor) -> torch.Tensor:

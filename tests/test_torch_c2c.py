@@ -157,8 +157,8 @@ def test_c2c_wrappers_on_cpu_count_no_launch():
 
 
 @pytest.mark.parametrize("call", [
-    lambda: kfft.c2c_rows(torch.zeros(3, 384, dtype=torch.complex64), -1),
-    lambda: kfft.c2c_rows(torch.zeros(3, 4096, dtype=torch.complex64), -1),
+    lambda: kfft.c2c_rows(torch.zeros(3, 200, dtype=torch.complex64), -1),       # no split
+    lambda: kfft.c2c_rows(torch.zeros(3, 131 * 128, dtype=torch.complex64), -1),  # no plan
     lambda: kfft.c2c_rows(torch.zeros(1, 3, 512, dtype=torch.complex64), -1),
     lambda: kfft.c2c_dense_rows(torch.zeros(3, 513, dtype=torch.complex64), -1),
     lambda: kfft.c2c_dense_rows(torch.zeros(512, dtype=torch.complex64), -1),

@@ -63,8 +63,15 @@ def test_step_runs_on_the_kernels(dev):
 
 
 def test_unported_route_and_grad_raise(dev):
-    with pytest.raises(NotImplementedError, match=r"_kernel_twostep.*item K1b\)"):
-        nd.ndfft(torch.zeros(256, 384, dtype=torch.complex64, device=dev), axis=1)
+    # n = 384 (F = 3) runs on kernel 10's wide core; DCT-II at n = 768
+    # (h = 384, K23 outside its factors) still raises
+    x = torch.view_as_complex(torch.randn(256, 384, 2, device=dev))
+    before = kfft.c2c_rows.wide_launches
+    y = nd.ndfft(x, axis=1)
+    assert kfft.c2c_rows.wide_launches - before == 1
+    assert _rel(y.to(torch.complex128), torch.fft.fft(x.to(torch.complex128), dim=1)) <= 1e-5
+    with pytest.raises(NotImplementedError, match=r"_dct2_kernel.*item K1b\)"):
+        nd.nddct2(torch.zeros(256, 768, device=dev), axis=1)
     with pytest.raises(NotImplementedError, match="autograd"):
         nd.ndfft_r2c(torch.zeros(512, 512, device=dev, requires_grad=True), axis=1)
     y = nd.ndfft(torch.ones(4, 8, dtype=torch.complex128, device=dev), axis=1)
@@ -142,9 +149,13 @@ def test_complex_transform_runs_on_the_kernels(dev):
     w = nd.ndfft(nd.ndfft(z, axis=1), axis=0)       # K8, then K4
     assert [f.launches - b for f, b in zip(fns, before)] == [0, 0, 1, 1]
     assert _rel(w.to(torch.complex128), torch.fft.fftn(z.to(torch.complex128))) <= 1e-5
-    with pytest.raises(NotImplementedError, match="inner C2C of this c2r lowering"):
-        nd.ndifft_r2c(torch.zeros(128, 321, dtype=torch.complex64, device=dev), axis=1,
-                      n=640)
+    # the C2R's Hermitian extension at n = 640 runs its C2C on kernel 10's
+    # wide core (F = 5)
+    s = torch.fft.rfft(torch.randn(128, 640, generator=g, device=dev, dtype=torch.float64))
+    before = kfft.c2c_rows.wide_launches
+    r = nd.ndifft_r2c(s.to(torch.complex64), axis=1, n=640)
+    assert kfft.c2c_rows.wide_launches - before == 1
+    assert _rel(r.double(), torch.fft.irfft(s, n=640, dim=1)) <= 1e-5
 
 
 def test_mid_rfft_kernels_match_plain(dev):
@@ -252,5 +263,57 @@ def test_real_step_600_runs_on_the_generic_kernels(dev):
     v = nd.ndfft(nd.ndfft_r2c(x, hr, axis=1), hc, axis=0)
     back = nd.ndifft_r2c(nd.ndifft(v, hc, axis=0), hr, axis=1)
     assert [f.launches - b for f, b in zip(fns, before)] == [1, 2, 1]
+    assert _rel(v.to(torch.complex128), torch.fft.rfftn(x.double())) <= 1e-5
+    assert _rel(back, x) <= 1e-5
+
+
+def test_wide_kernels_match_plain(dev):
+    """Kernels 1, 10, 2, 3 and 15 on the wide core: odd, even and prime F
+    (3, 5, 6, 9, 32, 127, 160), ragged column and row tiles, and one column
+    or row per block at n = 16256 and 20480."""
+    g = torch.Generator(device=dev).manual_seed(10)
+
+    def crandn(*shape):
+        return torch.view_as_complex(torch.randn(*shape, 2, generator=g, device=dev))
+
+    fns = (kfft.c2c_axis_mid, kfft.c2c_rows, krfft.r2c_nat, krfft.c2r_nat, krfft.r2c_packed)
+    before = [f.wide_launches for f in fns]
+    for shape in ((2, 768, 130), (1, 640, 129), (3, 384, 385), (1, 4096, 33), (1, 16256, 3),
+                  (1, 20480, 2)):
+        x = crandn(*shape)
+        for sign, scale in ((-1, None), (+1, 1 / shape[1])):
+            assert _rel(kfft.c2c_axis_mid(x, sign, scale),
+                        kfft.c2c_axis_mid_plain(x, sign, scale)) <= TOL
+    for t, n in ((130, 384), (7, 1152), (33, 4096), (3, 16256), (2, 20480)):
+        x = crandn(t, n)
+        for sign, scale in ((-1, None), (+1, 1 / n)):
+            assert _rel(kfft.c2c_rows(x, sign, scale),
+                        kfft.c2c_rows_plain(x, sign, scale)) <= TOL
+    for t, n in ((130, 768), (7, 1536), (5, 2 * 16256), (2, 40960)):
+        x = torch.randn(t, n, generator=g, device=dev)
+        got = krfft.r2c_nat(x)
+        assert got.shape == (t, n // 2 + 1)
+        assert _rel(got, krfft.r2c_nat_plain(x)) <= TOL
+        assert _rel(krfft.r2c_packed(x), krfft.r2c_packed_plain(x)) <= TOL
+        s = crandn(t, n // 2 + 1)
+        s[:, 0] += 100j      # DC and Nyquist imaginary parts that must be ignored
+        s[:, -1] += 100j
+        for scale in (None, 1 / n):
+            assert _rel(krfft.c2r_nat(s, n, scale), krfft.c2r_nat_plain(s, n, scale)) <= TOL
+    assert [f.wide_launches - b for f, b in zip(fns, before)] == [12, 10, 4, 8, 4]
+
+
+def test_real_step_768_runs_on_the_wide_kernels(dev):
+    """The 768^2 real step with the real axis last: kernel 2 at h = 384
+    (F = 3), kernel 1 at (1, 768, 385) (F = 6) forward and back, kernel 3."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(768, 768, generator=g, device=dev)
+    hr, hc = nd.R2cFftHandler(768), nd.FftHandler(768)
+    fns = (krfft.r2c_nat, kfft.c2c_axis_mid, krfft.c2r_nat)
+    before = [(f.launches, f.wide_launches) for f in fns]
+    v = nd.ndfft(nd.ndfft_r2c(x, hr, axis=1), hc, axis=0)
+    back = nd.ndifft_r2c(nd.ndifft(v, hc, axis=0), hr, axis=1)
+    assert [(f.launches - a, f.wide_launches - b) for f, (a, b) in zip(fns, before)] == \
+        [(1, 1), (2, 2), (1, 1)]
     assert _rel(v.to(torch.complex128), torch.fft.rfftn(x.double())) <= 1e-5
     assert _rel(back, x) <= 1e-5

@@ -75,6 +75,7 @@ F32, F64 = torch.float32, torch.float64
     ("dct4", (64, 1000), 1, api.DCT_LANE),
     ("dct2", (256, 301), 1, api.R2C_ROWPAIR),
     ("dct2", (1200, 1100), 0, api.R2C_PACKED),                 # mid, n > 1100: axis moves
+    ("dct1", (256, 385), 1, api.R2C_PACKED),                   # h = 384: the wide core, F = 3
 ])
 def test_route_on_cuda(kind, shape, axis, want):
     assert api._route(kind, shape, axis, F32, "cuda") == want
@@ -100,7 +101,6 @@ def test_float64_takes_the_engine(kind):
     ("dct2", (128, 384), 1, "_dct2_kernel / _dct3_kernel", "K1b"),
     ("dct3", (128, 128), 1, "_dct2_kernel / _dct3_kernel", "K1b"),
     ("dct2", (128, 8192), 1, "_dct2_kernel / _dct3_kernel", "K1b"),
-    ("dct1", (256, 385), 1, "_r2c_kernel with a twostep", "K1b"),  # h = 384: F = 3
     ("dct4", (256, 32768), 1, "_kernel_exit_mul", "K7"),          # four-step
     ("dct3", (256, 263), 1, "_kernel_axis_mid_blue", "K11"),      # Bluestein n
 ])

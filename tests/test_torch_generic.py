@@ -146,7 +146,7 @@ def test_every_generic_route_is_a_length_the_kernels_take():
                 assert kfft.generic_split(n) is not None, (n, route)
                 counts[route] += 1
         packed = (gates._kernel_ok(n) and not krfft.packed_core(n)
-                  and gates.packed_route(n) == gates.R2C_PACKED)
+                  and gates.packed_lane(n, gates.MIN_BATCH) == gates.R2C_PACKED)
         if packed:
             assert kfft.generic_split(n) is not None, n
             counts["packed"] += 1

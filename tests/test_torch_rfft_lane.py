@@ -197,15 +197,14 @@ def test_packed_route_follows_the_jax_half_fft(h):
     """Kernel 15's three half-length FFTs (rfft._half_fft_consts): the dense
     lane DFT (generic schedule with one stage) for h <= 256, the twostep core
     for h > 256 with a split, the generic schedule otherwise; the port takes
-    all but the twostep core at factors outside its set."""
+    all three, the core at every factor (fixed or wide)."""
     if not gates._kernel_ok(h):
         return
     _, meta = ref_prfft._half_fft_consts(h, -1, jnp.float32, "highest")
-    route = gates.packed_route(h)
+    route = gates.packed_lane(h, gates.MIN_BATCH)
     if meta[0] == "ts":
-        f = meta[2]
-        assert route == (gates.R2C_PACKED if f in krfft.PACKED_F else "r2c_packed_f"), h
-        assert route != gates.R2C_PACKED or krfft.packed_core(h)
+        assert route == gates.R2C_PACKED, h
+        assert krfft.packed_core(h) and meta[2] == h // kfft.M, h
     else:
         dense = meta[4] == 1                   # m == 1: one lane DFT of length h
         assert dense == (h <= krfft.PACKED_DENSE_MAX_H), h

@@ -80,16 +80,19 @@ C64, F32 = torch.complex64, torch.float32
     ("c2r", (2, 101, 130), 1, C64, 201, api.C2R_DENSE_MID),
     ("r2c", (131, 130), 0, F32, None, api.R2C_DENSE_MID),     # a Bluestein length
     ("r2c", (512, 512, 100), 1, F32, None, api.R2C_NAT),       # cols < 128: axis moves
+    # butterfly factors outside {4, 8, 16}: K10 and K1 on the wide core
+    # (F = 3 at n = 384, F = 32 at n = 4096), K2 at h = 4096 (F = 32)
+    ("fft", (256, 384), 1, C64, None, api.C2C_ROWS),
+    ("ifft", (128, 4096), 1, C64, None, api.C2C_ROWS),
+    ("fft", (384, 256), 0, C64, None, api.C2C_AXIS_MID),
+    ("fft", (4096, 128), 0, C64, None, api.C2C_AXIS_MID),
+    ("r2c", (256, 8192), 1, F32, None, api.R2C_NAT),
 ])
 def test_route_on_cuda(kind, shape, axis, dtype, n, want):
     assert api._route(kind, shape, axis, dtype, "cuda", n=n) == want
 
 
 @pytest.mark.parametrize("kind,shape,axis,n,kernel,item", [
-    ("fft", (256, 384), 1, None, "_kernel_twostep with a butterfly", "K1b"),
-    ("ifft", (128, 4096), 1, None, "_kernel_twostep with a butterfly", "K1b"),
-    ("fft", (384, 256), 0, None, "_kernel_axis_mid_bts2", "K1b"),
-    ("fft", (4096, 128), 0, None, "_kernel_axis_mid_bts2", "K1b"),
     ("fft", (2, 1 << 17), 1, None, "_kernel_exit_mul", "K7"),
     ("fft", (509, 256), 0, None, "_kernel_axis_mid_blue", "K11"),
     # a middle axis whose half length has a factor outside the core's
@@ -98,7 +101,6 @@ def test_route_on_cuda(kind, shape, axis, dtype, n, want):
     ("r2c", (8192, 128), 0, None, "_r2c_kernel_mid", "K1b"),
     ("c2r", (385, 256), 0, 768, "_c2r_kernel_mid", "K1b"),
     ("c2r", (4097, 128), 0, 8192, "_c2r_kernel_mid", "K1b"),
-    ("r2c", (256, 8192), 1, None, "_r2c_kernel_nat", "K1b"),
 ])
 def test_unported_route_raises_on_cuda(kind, shape, axis, n, kernel, item):
     dtype = F32 if kind == "r2c" else C64
@@ -146,6 +148,8 @@ def test_unported_route_raises_on_cuda(kind, shape, axis, n, kernel, item):
     ("c2r", (256, 151), 1, 300, api.C2R_LANE),
     ("dct4", (256, 1000), 1, None, api.DCT_LANE),
     ("dct2", (256, 301), 1, None, api.R2C_ROWPAIR),
+    # the Hermitian extension's C2C at n = 640 on K10's wide core (F = 5)
+    ("c2r", (128, 321), 1, 640, api.C2R_LANE),
 ])
 def test_lane_lowerings_run_on_cuda(kind, shape, axis, n, want):
     dtype = C64 if kind == "c2r" else F32
@@ -156,7 +160,6 @@ def test_lane_lowerings_run_on_cuda(kind, shape, axis, n, want):
 # The lane lowerings whose inner C2C has no CUDA port still raise on a CUDA
 # tensor, naming the lowering, and never run the engine there
 @pytest.mark.parametrize("kind,shape,axis,n,kernel,item", [
-    ("c2r", (128, 321), 1, 640, "_kernel_twostep", "K1b"),      # F = 5
     ("dct4", (256, 32768), 1, None, "_kernel_exit_mul", "K7"),  # four-step
 ])
 def test_other_kinds_inner_c2c_still_raises_on_cuda(kind, shape, axis, n, kernel, item):
