@@ -67,8 +67,23 @@ without the final line):
         20480 along axis 0, ndfft_r2c/ndifft_r2c at 1536 and 40960, DCT-I
         at 769 (kernel 15 at h = 768), DCT-IV at 768 and the C2R's
         extension to 640 (kernel 10 inside), against float64 torch.fft /
-        scipy.fft; and DCT-II at 768 along the last axis (K23/K24) and
-        the R2C at 768 along axis 0 (K16/K17) still raise (K1b);
+        scipy.fft;
+     h. DCT-II/III on every axis at every length (kernels 25/26 along a
+        middle axis, kernels 23/24 and 16/17 on the wide core and in the
+        n-point form): the 3-D Neumann Poisson solve at 1536^3 float32
+        (DCT-II along axes 2, 1, 0 on K23 and K25 at h = 768, F = 6;
+        division by the eigenvalues in place, slab by slab; DCT-III back on
+        K26 and K24), its forward spectrum against the exact sparse values
+        and its solution against the analytic one, slab by slab in float64;
+        the DCT-II/III pair along both axes of 2048^2 (K23-K26 on the fixed
+        core), nddct2/nddct3 along axis 0 at 1152 (n-point) and 1280
+        (wide) and along the last axis at 128, 384 (n-point) and 768
+        (wide), nddst2 along axis 0 at 1536, and the R2C/C2R along axis 0
+        at 768 and 1280 (K16/K17 wide) against float64 scipy.fft /
+        torch.fft; then each kernel of the solve at its 1536^3 shape
+        against its plain version on the same input, slice by slice (the
+        plain version does not fit whole), their times, and the solve's
+        time against a float32 torch.fft Makhoul solve (in slabs, to fit);
   5. times with CUDA events (median over --reps runs after warm-up): each
      kernel against its plain version and, where one PyTorch call computes
      the same function, that call (the yardstick, never on the port's
@@ -88,8 +103,10 @@ error against its plain version, its times, and its bound: the larger of
 the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its FP32 operations over 67 TFLOP/s (H100 SXM data
 sheet, 700 W). Its launches are the sum over the main paths of phase 4;
-kernels 1, 2, 3, 10 and 15 on the bts2 core are two rows each, the fixed
-core (launches - wide_launches) and the wide one (wide_launches).
+kernels 1, 2, 3, 10, 15, 16 and 17 on the bts2 core are two rows each, the
+fixed core (launches - wide_launches) and the wide one (wide_launches), and
+kernels 23 to 26 three: the fixed core, the wide core's half length and
+the n-point form (npoint_launches).
 The line before the last is the card as nvidia-smi names it; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -151,12 +168,23 @@ def work(name: str, shape):
     2 n^2 per column. The dense complex DFT (K4, K8) and the dense R2C/C2R
     (K20, K21) count what the function needs, a length-n FFT per column or
     row, not their products' 8 n^2 and 4 n (n/2 + 1). A kernel on the wide
-    core reads the fixed core's tables and its (F, F) DFT-F table."""
+    core reads the fixed core's tables and its (F, F) DFT-F table. A DCT-II/III
+    kernel (rows or a middle axis) reads and writes n reals per transform and
+    does a real FFT's 2.5 n log2 n, in every form; its tables are the core's
+    Wq for its core length (n/2, or n in the n-point form) and its twiddles."""
+    if name.startswith(("dct2_", "dct3_")):
+        form = name.split("_")[2] if name.count("_") == 2 else "fixed"
+        n = shape[1]
+        transforms = math.prod(shape) // n
+        core = n if form == "npoint" else n // 2
+        f = core // 128
+        tables = 8 * core * 128 + 16 * n + (0 if form == "fixed" else 8 * f * f)
+        return 8 * transforms * n + tables, 2.5 * n * math.log2(n) * transforms
     if name.endswith("_wide"):
         base = name[:-len("_wide")]
         nbytes, flops = work(base, shape)
-        length = shape[1] - 1 if base == "c2r_nat" else \
-            shape[1] // 2 if base in ("r2c_nat", "r2c_packed") else shape[1]
+        length = shape[1] - 1 if base in ("c2r_nat", "c2r_mid") else \
+            shape[1] // 2 if base in ("r2c_nat", "r2c_packed", "r2c_mid") else shape[1]
         f = length // 128
         return nbytes + 8 * f * f, flops
     if name == "c2c_axis_mid":
@@ -201,8 +229,7 @@ def work(name: str, shape):
         n = shape[-1] if name == "c2c_dense_rows" else shape[1]
         outputs = math.prod(shape) // n
         return 16 * outputs * n + 8 * n * n, 5 * n * math.log2(n) * outputs
-    t, n = shape            # dct2_nat, dct3_nat
-    return 8 * t * n + 8 * n * 64 + 16 * n, 2.5 * n * math.log2(n) * t
+    raise ValueError(f"no work model for {name}")
 
 
 def makhoul_dct(x, axis: int, dct_type: int):
@@ -312,7 +339,10 @@ def main() -> int:
             "r2c_packed": 0.0, "r2c_packed_dense": 0.0, "c2c_generic_rows": 0.0,
             "c2c_generic_mid": 0.0, "r2c_packed_generic": 0.0, "c2c_axis_mid_wide": 0.0,
             "c2c_rows_wide": 0.0, "r2c_nat_wide": 0.0, "c2r_nat_wide": 0.0,
-            "r2c_packed_wide": 0.0}
+            "r2c_packed_wide": 0.0, "r2c_mid_wide": 0.0, "c2r_mid_wide": 0.0,
+            "dct2_nat_wide": 0.0, "dct3_nat_wide": 0.0, "dct2_nat_npoint": 0.0,
+            "dct3_nat_npoint": 0.0, "dct2_mid": 0.0, "dct3_mid": 0.0, "dct2_mid_wide": 0.0,
+            "dct3_mid_wide": 0.0, "dct2_mid_npoint": 0.0, "dct3_mid_npoint": 0.0}
     k1_shapes = [(1, 512, 257), (1, 1024, 513), (3, 2048, 130), (512, 512, 257),
                  (1, 512, 512 * 257), (1, 512, 512), (1, 1024, 1024), (512, 512, 512),
                  (1, 512, 512 * 512), (257, 512, 512)]
@@ -485,13 +515,15 @@ def main() -> int:
     # shapes (phase 4g), ragged column and row tiles, prime F = 127 and the
     # largest F = 160 (one column or row per block); the C2R spectra carry
     # DC and Nyquist imaginary parts that must be ignored
-    def check_wide(name, kern, got_fn, ref_fn, shape, **kw):
-        before = kern.wide_launches
+    def check_wide(name, kern, got_fn, ref_fn, shape, attr="wide_launches", **kw):
+        """got_fn() (a launch counted in ``attr``: the wide core, the fixed
+        core's ``launches`` or the n-point form's) against ref_fn()."""
+        before = getattr(kern, attr)
         got = got_fn()
         ref = ref_fn()
         torch.cuda.synchronize()
-        if kern.wide_launches != before + 1:
-            raise AssertionError(f"{name} {shape}: not launched on the wide core")
+        if getattr(kern, attr) != before + 1:
+            raise AssertionError(f"{name} {shape}: not launched as {attr}")
         rel = abs_err(got, ref) / float(ref.abs().max())
         errs[name] = max(errs[name], abs_err(got, ref))
         emit(phase="kernel_vs_plain", kernel=name, shape=shape, rel_err=rel, **kw)
@@ -529,6 +561,45 @@ def main() -> int:
         check_wide("r2c_packed_wide", krfft.r2c_packed, lambda: krfft.r2c_packed(x),
                    lambda: krfft.r2c_packed_plain(x), shape)
         del x
+    # kernels 16/17 on the wide core (phase 4h's 768 and 1280 along axis 0,
+    # ragged columns, h = 20480 with one column per tile) and kernels 23 to
+    # 26 in each form: the fixed core, the wide core's half length and the
+    # n-point form, at phase 4h's shapes and at ragged tiles, prime F = 131
+    # and the largest tiles (n-point F = 159, half length F = 128); the 1536^3
+    # shapes are checked in phase 4h
+    for shape in ((1, 768, 768), (1, 1280, 1280), (2, 1280, 130), (1, 40960, 2)):
+        nb, n, cols = shape
+        x = randn(*shape)
+        s = crandn(nb, n // 2 + 1, cols)
+        s[:, 0] += 100j
+        s[:, -1] += 100j
+        check_wide("r2c_mid_wide", krfft.r2c_mid, lambda: krfft.r2c_mid(x),
+                   lambda: krfft.r2c_mid_plain(x), shape)
+        for scale in (1.0 / n, None):
+            check_wide("c2r_mid_wide", krfft.c2r_mid, lambda: krfft.c2r_mid(s, n, scale),
+                       lambda: krfft.c2r_mid_plain(s, n, scale), (nb, n // 2 + 1, cols),
+                       scale=scale)
+        del x, s
+    dct_forms = (
+        ("nat", "launches", ((2048, 2048), (130, 1024))),
+        ("nat_wide", "wide_launches", ((768, 768), (1536, 1536), (7, 1536), (3, 32768))),
+        ("nat_npoint", "npoint_launches", ((128, 128), (384, 384), (3, 1152),
+                                           (2, 128 * 131), (2, 128 * 159))),
+        ("mid", "launches", ((1, 2048, 2048), (2, 4096, 33), (3, 512, 130))),
+        ("mid_wide", "wide_launches", ((1, 1280, 1280), (1, 1536, 1536), (2, 1280, 130),
+                                       (1, 32768, 2))),
+        ("mid_npoint", "npoint_launches", ((1, 1152, 1152), (2, 1152, 130), (3, 384, 385),
+                                           (1, 128 * 159, 3))))
+    for form, attr, shapes in dct_forms:
+        for t in (2, 3):
+            kern = getattr(kdct, f"dct{t}_{form.split('_')[0]}")
+            plain = getattr(kdct, f"{kern.__name__}_plain")
+            for shape in shapes:
+                x = randn(*shape)
+                for scale in (2.0, None):
+                    check_wide(f"dct{t}_{form}", kern, lambda: kern(x, scale),
+                               lambda: plain(x, scale), shape, attr=attr, scale=scale)
+                del x
     torch.cuda.empty_cache()
 
     # ---- 4a. the spectral step through the public functions
@@ -553,24 +624,30 @@ def main() -> int:
                 "r2c_packed_dense": krfft.r2c_packed_dense,
                 "c2c_generic_rows": kfft.c2c_generic_rows,
                 "c2c_generic_mid": kfft.c2c_generic_mid,
-                "r2c_packed_generic": krfft.r2c_packed_generic}
-    # the wide core's launches, counted apart by the same wrappers (their
-    # ``launches`` count every launch, the wide ones included)
-    wide = {"c2c_axis_mid_wide": kfft.c2c_axis_mid, "c2c_rows_wide": kfft.c2c_rows,
-            "r2c_nat_wide": krfft.r2c_nat, "c2r_nat_wide": krfft.c2r_nat,
-            "r2c_packed_wide": krfft.r2c_packed}
+                "r2c_packed_generic": krfft.r2c_packed_generic,
+                "dct2_mid": kdct.dct2_mid, "dct3_mid": kdct.dct3_mid}
+    # the wide core's launches and the DCT kernels' n-point ones, counted
+    # apart by the same wrappers (their ``launches`` count every launch)
+    forms = {f"{name}_{form}": (wrappers[name], f"{form}_launches")
+             for name in ("c2c_axis_mid", "c2c_rows", "r2c_nat", "c2r_nat", "r2c_packed",
+                          "r2c_mid", "c2r_mid", "dct2_nat", "dct3_nat", "dct2_mid",
+                          "dct3_mid")
+             for form in ("wide", "npoint") if form == "wide" or name.startswith("dct")}
 
     def count(name):
-        return wide[name].wide_launches if name in wide else wrappers[name].launches
+        if name in forms:
+            wrapper, attr = forms[name]
+            return getattr(wrapper, attr)
+        return wrappers[name].launches
 
     def reset_counts():
         for w in wrappers.values():
             w.launches = 0
-        for w in wide.values():
-            w.wide_launches = 0
+        for w, attr in forms.values():
+            setattr(w, attr, 0)
         engine.c2c.calls = 0     # the torch engine's runs, every lowering's
 
-    launches = dict.fromkeys(list(wrappers) + list(wide), 0)   # the sum over the main paths
+    launches = dict.fromkeys(list(wrappers) + list(forms), 0)   # the sum over the main paths
 
     def read_counts(path, **expected):
         """Check the launches since reset_counts() against ``expected`` (every
@@ -586,6 +663,8 @@ def main() -> int:
         for k, v in got.items():
             launches[k] += v
 
+    timing = {}     # (kernel, shape) -> (ms, plain ms, library ms or None)
+    reps_big = 3    # runs of each 1536^3 time (phase 4h), after one warm-up
     inputs = {n: randn(n, n) for n in (512, 1024)}
     x3 = randn(512, 512, 512)
     reset_counts()
@@ -1060,26 +1139,238 @@ def main() -> int:
                torch.fft.irfft(s640.to(torch.complex128), n=640, dim=1), grid=[128, 640])
     del v4k, r4k, rows_out, cols_out, real_out, d1, d4, b640, rows_in, cols_in, real_in
 
-    # DCT-II/III along the last axis at n = 768 (K23/K24 at h = 384) and the
-    # R2C along a middle axis at n = 768 (K16/K17 at h = 384) have no wide
-    # form yet: they raise, before any launch
-    for what, call in (("dct2_768_last_axis_raises", lambda: nd.nddct2(x768_2, axis=1)),
-                       ("r2c_768_axis0_raises", lambda: nd.ndfft_r2c(x768_2[:, :256], axis=0))):
-        try:
-            call()
-        except NotImplementedError as e:
-            emit(phase="wide_path", check=what, error=str(e))
-            if "ROADMAP.md item K1b" not in str(e):
-                raise
-        else:
-            raise AssertionError(f"{what}: ran on the card")
+    del x768_2
+    torch.cuda.empty_cache()
+
+    # ---- 4h. DCT-II/III on every axis at every length: the 3-D Neumann
+    # Poisson solve at 1536^3 float32, the 3/2-dealiased grid of a
+    # 1024^3-mode box (K23 at h = 768, F = 6, on 2359296 rows; K25 at
+    # (1536, 1536, 1536) and (1, 1536, 2359296) on the wide core; K26 twice
+    # and K24 back; 14.5 GB per field). The solve holds the right-hand side
+    # and at most two more fields; the eigenvalue division, the checks and
+    # the analytic fields go slab by slab along axis 0, never as whole
+    # float64 fields (29 GB each).
+    n8 = 1536
+    modes8 = ((1, 2, 3, 1.0), (5, 3, 2, 0.5))
+    x8 = (torch.arange(n8, device=dev, dtype=torch.float64) + 0.5) / n8
+    cos8 = {m: torch.cos(m * math.pi * x8) for mode in modes8 for m in mode[:3]}
+    k2_8 = (torch.arange(n8, device=dev, dtype=torch.float32) * math.pi) ** 2
+    slab = 32           # slabs along axis 0 per pass (0.3 GB of float32)
+
+    def slabs():
+        return [(i0, min(i0 + slab, n8)) for i0 in range(0, n8, slab)]
+
+    def eig(a, b, c):
+        return math.pi ** 2 * (a * a + b * b + c * c)
+
+    def modal_slab(i0, i1, weight):
+        out = torch.zeros(i1 - i0, n8, n8, device=dev, dtype=torch.float64)
+        for a, b, c, amp in modes8:
+            out += (amp * weight(a, b, c) * cos8[a][i0:i1, None, None]
+                    * cos8[b][None, :, None] * cos8[c][None, None, :])
+        return out
+
+    def divide_by_eigenvalues(fh):
+        """fh / pi^2 (a^2 + b^2 + c^2) in place, slab by slab; the zero mode
+        is pinned to 0."""
+        for i0, i1 in slabs():
+            lam = k2_8[i0:i1, None, None] + k2_8[None, :, None] + k2_8[None, None, :]
+            if i0 == 0:
+                lam[0, 0, 0] = math.inf
+            fh[i0:i1].div_(lam)
+
+    h8 = nd.DctHandler(n8)
+    h8i = h8.normalization(nd.Normalization.scalar(1.0 / n8))
+
+    def solve8(f, on_spectrum=None):
+        """-lap u = f: DCT-II along axes 2, 1, 0, the division, DCT-III back
+        along axes 0, 1, 2, each intermediate freed as soon as it is used."""
+        a = nd.nddct2(f, h8, axis=2)
+        b = nd.nddct2(a, h8, axis=1)
+        del a
+        fh = nd.nddct2(b, h8, axis=0)
+        del b
+        if on_spectrum is not None:
+            on_spectrum(fh)
+        divide_by_eigenvalues(fh)
+        d = nd.nddct3(fh, h8i, axis=0)
+        del fh
+        e = nd.nddct3(d, h8i, axis=1)
+        del d
+        return nd.nddct3(e, h8i, axis=2)
+
+    fwd8 = {}
+
+    def check_spectrum8(fh):
+        """The forward spectrum against its exact values: mode (a, b, c) of
+        f at n^3 (scipy's DCT-II on every axis), zero elsewhere."""
+        err = 0.0
+        for i0, i1 in slabs():
+            d = fh[i0:i1].double()
+            for a, b, c, amp in modes8:
+                if i0 <= a < i1:
+                    d[a - i0, b, c] -= amp * eig(a, b, c) * n8 ** 3
+            err = max(err, float(d.abs().max()))
+        fwd8["rel_err"] = err / max(abs(amp) * eig(a, b, c) * n8 ** 3
+                                    for a, b, c, amp in modes8)
+
+    def solution_err8(u):
+        err, peak, finite = 0.0, 0.0, True
+        for i0, i1 in slabs():
+            want = modal_slab(i0, i1, lambda a, b, c: 1.0)
+            err = max(err, float((u[i0:i1].double() - want).abs().max()))
+            peak = max(peak, float(want.abs().max()))
+            finite = finite and bool(torch.isfinite(u[i0:i1]).all())
+        return err / peak, finite
+
+    f8 = torch.empty(n8, n8, n8, device=dev)
+    for i0, i1 in slabs():
+        f8[i0:i1] = modal_slab(i0, i1, eig)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()    # the right-hand side and earlier phases' tensors
+    reset_counts()
+    u8 = solve8(f8, check_spectrum8)
+    read_counts("neumann_1536^3", dct2_nat=1, dct2_nat_wide=1, dct2_mid=2, dct2_mid_wide=2,
+                dct3_mid=2, dct3_mid_wide=2, dct3_nat=1, dct3_nat_wide=1)
+    peak = torch.cuda.max_memory_allocated()
+    sol, finite = solution_err8(u8)
+    emit(phase="dct_path", check="poisson_1536^3", fwd_rel_err=fwd8["rel_err"],
+         solution_rel_err=sol, finite=finite, shape=list(u8.shape), peak_bytes=peak,
+         base_bytes=base)
+    if not (fwd8["rel_err"] <= TOL_STEP and sol <= TOL_STEP):
+        raise AssertionError(f"1536^3 Poisson: forward {fwd8['rel_err']}, solution {sol}")
+    del u8
+    torch.cuda.empty_cache()
+
+    # the shorter checks: the DCT-II/III pair along both axes of 2048^2 (the
+    # fixed core of K23-K26, F = 8), nddct2/nddct3 along axis 0 at 1152
+    # (n-point) and 1280 (wide) and along the last axis at 128, 384
+    # (n-point) and 768 (wide), nddst2 along axis 0 at 1536 (wide), and the
+    # R2C/C2R along axis 0 at 768 and 1280 (K16/K17 on the wide core)
+    x2k = randn(2048, 2048)
+    h2k = nd.DctHandler(2048)
+    h2ki = h2k.normalization(nd.Normalization.scalar(1.0 / 2048))
+    sq = {n: randn(n, n) for n in (128, 384, 768, 1152, 1280, 1536)}
+    reset_counts()
+    f2k = nd.nddct2(nd.nddct2(x2k, h2k, axis=1), h2k, axis=0)
+    b2k = nd.nddct3(nd.nddct3(f2k, h2ki, axis=0), h2ki, axis=1)
+    mid_out = {(n, t): getattr(nd, f"nddct{t}")(sq[n], axis=0)
+               for n in (1152, 1280) for t in (2, 3)}
+    last_out = {(n, t): getattr(nd, f"nddct{t}")(sq[n], axis=1)
+                for n in (128, 384, 768) for t in (2, 3)}
+    dst_out = nd.nddst2(sq[1536], axis=0)
+    rfft_out = {}
+    for n in (768, 1280):
+        spec = nd.ndfft_r2c(sq[n], axis=0)
+        rfft_out[n] = spec, nd.ndifft_r2c(spec, axis=0)
+    read_counts("dct_mid_lanes", dct2_nat=1 + 3, dct2_nat_wide=1, dct2_nat_npoint=2,
+                dct3_nat=1 + 3, dct3_nat_wide=1, dct3_nat_npoint=2,
+                dct2_mid=1 + 2 + 1, dct2_mid_wide=1 + 1, dct2_mid_npoint=1,
+                dct3_mid=1 + 2, dct3_mid_wide=1, dct3_mid_npoint=1,
+                r2c_mid=2, r2c_mid_wide=2, c2r_mid=2, c2r_mid_wide=2)
+    x64 = host64(x2k)
+    check("dct2_both_axes", f2k, sfft.dctn(x64, type=2), grid=[2048, 2048])
+    check("dct3_roundtrip", b2k, x64, grid=[2048, 2048])
+    for (n, t), y in mid_out.items():
+        check(f"dct{t}_axis0", y, sfft.dct(host64(sq[n]), type=t, axis=0), grid=[n, n])
+    for (n, t), y in last_out.items():
+        check(f"dct{t}_last_axis", y, sfft.dct(host64(sq[n]), type=t, axis=1), grid=[n, n])
+    check("dst2_axis0", dst_out, sfft.dst(host64(sq[1536]), type=2, axis=0), grid=[1536, 1536])
+    for n, (spec, back) in rfft_out.items():
+        check_r2c_mid("rfft_axis0_wide", spec, sq[n], back, (0,), grid=[n, n])
+    del x2k, f2k, b2k, mid_out, last_out, dst_out, rfft_out, spec, back
+
+    # each kernel of the solve at its 1536^3 shape against its plain version
+    # on the same input: the kernel on the whole tensor, the plain version
+    # on 64 slices along a batch axis (it takes ~10x the field's memory);
+    # then their times (the plain version's over the same 64 slices)
+    reps8 = max(2, min(reps_big, args.reps))
+    x8r = randn(n8, n8, n8)
+    legs8 = (("dct2_nat_wide", kdct.dct2_nat, (n8 * n8, n8), 0, 2.0),
+             ("dct3_nat_wide", kdct.dct3_nat, (n8 * n8, n8), 0, 1.0 / n8),
+             ("dct2_mid_wide", kdct.dct2_mid, (n8, n8, n8), 0, 2.0),
+             ("dct2_mid_wide", kdct.dct2_mid, (1, n8, n8 * n8), 2, 2.0),
+             ("dct3_mid_wide", kdct.dct3_mid, (n8, n8, n8), 0, 1.0 / n8),
+             ("dct3_mid_wide", kdct.dct3_mid, (1, n8, n8 * n8), 2, 1.0 / n8))
+    for name, kern, shape, dim, scale in legs8:
+        x = x8r.view(shape)
+        plain = getattr(kdct, f"{kern.__name__}_plain")
+        step = shape[dim] // 64
+        parts = [x.narrow(dim, i0, step) for i0 in range(0, shape[dim], step)]
+        before = kern.wide_launches
+        y = kern(x, scale)
+        torch.cuda.synchronize()
+        if kern.wide_launches != before + 1:
+            raise AssertionError(f"{name} {shape}: not launched on the wide core")
+        err, peak_ref = 0.0, 0.0
+        for i0, part in zip(range(0, shape[dim], step), parts):
+            ref = plain(part, scale)
+            err = max(err, abs_err(y.narrow(dim, i0, step), ref))
+            peak_ref = max(peak_ref, float(ref.abs().max()))
+            del ref
+        del y
+        rel = err / peak_ref
+        errs[name] = max(errs[name], err)
+        emit(phase="kernel_vs_plain", kernel=name, shape=shape, rel_err=rel, sliced_dim=dim)
+        if not rel <= TOL_KERNEL:
+            raise AssertionError(f"{name} {shape}: {rel}")
+        def plain_slices():
+            for part in parts:
+                plain(part, scale)
+
+        t_k = cuda_ms(lambda: kern(x, scale), reps8, 1)
+        t_plain = cuda_ms(plain_slices, reps8, 1)
+        timing[(name, shape)] = (t_k, t_plain, None)
+        emit(phase="time", kernel=name, shape=shape, ms=t_k, plain_ms=t_plain,
+             library_ms=None, plain_in_slices=len(parts), card=card)
+        del x, parts, part      # the last slice too: a view keeps x8r alive
+    del x8r
+    torch.cuda.empty_cache()
+
+    # the solve's time, and a float32 torch.fft Makhoul solve (the
+    # yardstick, never on the port's path) in slabs of 32 along another axis,
+    # so that its complex FFTs fit beside the fields
+    def makhoul_into(x, axis, dct_type, scale=1.0):
+        other = 1 if axis == 0 else 0
+        out = torch.empty_like(x)
+        for i0, i1 in slabs():
+            idx = (slice(None),) * other + (slice(i0, i1),)
+            out[idx] = makhoul_dct(x[idx], axis, dct_type).mul_(scale)
+        return out
+
+    def yardstick8(f):
+        a = makhoul_into(f, 2, 2)
+        b = makhoul_into(a, 1, 2)
+        del a
+        fh = makhoul_into(b, 0, 2)
+        del b
+        divide_by_eigenvalues(fh)
+        d = makhoul_into(fh, 0, 3, 1.0 / (2 * n8))
+        del fh
+        e = makhoul_into(d, 1, 3, 1.0 / (2 * n8))
+        del d
+        return makhoul_into(e, 2, 3, 1.0 / (2 * n8))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_port = cuda_ms(lambda: solve8(f8), reps8, 1)
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t_yard = cuda_ms(lambda: yardstick8(f8), reps8, 1)
+    peak_yard = torch.cuda.max_memory_allocated()
+    yard_sol, _ = solution_err8(yardstick8(f8))
+    emit(phase="time", poisson=[n8] * 3, ms=t_port, torch_fft_makhoul_ms=t_yard,
+         peak_bytes=peak, yardstick_peak_bytes=peak_yard,
+         yardstick_solution_rel_err=yard_sol, card=card)
+    del f8
     torch.cuda.empty_cache()
 
     # ---- 5. times: each kernel against its plain version and, at the main
     # path's shape, the PyTorch call that computes the same function (the
-    # yardstick); the steps against torch.fft
+    # yardstick); the steps against torch.fft (the 1536^3 solve's kernels
+    # and the solve itself are timed in phase 4h, beside their fields)
     reps = args.reps
-    timing = {}
     main_shapes = {"c2c_axis_mid": (1, 512, 512 * 257), "r2c_nat": (512 * 512, 512),
                    "c2r_nat": (512 * 512, 257), "dct_dense_mid": (1, 512, 512 * 512),
                    "dct2_nat": (512 * 512, 512), "dct3_nat": (512 * 512, 512),
@@ -1091,7 +1382,13 @@ def main() -> int:
                    "c2c_generic_mid": (600, 600, 301), "r2c_packed_generic": (600 * 600, 600),
                    "c2c_axis_mid_wide": (768, 768, 385), "c2c_rows_wide": (4096, 4096),
                    "r2c_nat_wide": (768 * 768, 768), "c2r_nat_wide": (768 * 768, 385),
-                   "r2c_packed_wide": (769, 1536)}
+                   "r2c_packed_wide": (769, 1536), "r2c_mid_wide": (1, 1280, 1280),
+                   "c2r_mid_wide": (1, 641, 1280), "dct2_nat_wide": (1536 * 1536, 1536),
+                   "dct3_nat_wide": (1536 * 1536, 1536), "dct2_nat_npoint": (384, 384),
+                   "dct3_nat_npoint": (384, 384), "dct2_mid": (1, 2048, 2048),
+                   "dct3_mid": (1, 2048, 2048), "dct2_mid_wide": (1, 1536, 1536 * 1536),
+                   "dct3_mid_wide": (1, 1536, 1536 * 1536), "dct2_mid_npoint": (1, 1152, 1152),
+                   "dct3_mid_npoint": (1, 1152, 1152)}
 
     def time_kernel(name, shape, kern, plain, library=None):
         t_plain = cuda_ms(plain, reps)
@@ -1338,6 +1635,30 @@ def main() -> int:
         f = makhoul_dct(makhoul_dct(x, 1, 2), 0, 2)
         return makhoul_dct(makhoul_dct(f, 0, 3), 1, 3) / (2 * 1024) ** 2
 
+    # kernels 16/17 on the wide core and kernels 23 to 26 in their fixed and
+    # n-point forms at phase 4h's shapes (the wide DCT forms at 1536^3 were
+    # timed there); K16/K17's yardstick is torch.fft.rfft / irfft along the
+    # axis, the DCTs have no single PyTorch call
+    for n in (768, 1280):
+        x = randn(1, n, n)
+        sp = crandn(1, n // 2 + 1, n)
+        time_kernel("r2c_mid_wide", (1, n, n), lambda: krfft.r2c_mid(x),
+                    lambda: krfft.r2c_mid_plain(x), lambda: torch.fft.rfft(x, dim=1))
+        time_kernel("c2r_mid_wide", (1, n // 2 + 1, n), lambda: krfft.c2r_mid(sp, n, 1.0 / n),
+                    lambda: krfft.c2r_mid_plain(sp, n, 1.0 / n),
+                    lambda: torch.fft.irfft(sp, n=n, dim=1))
+        del x, sp
+    for name, kern, plain, shapes in (
+            ("dct2_nat_npoint", kdct.dct2_nat, kdct.dct2_nat_plain, ((128, 128), (384, 384))),
+            ("dct3_nat_npoint", kdct.dct3_nat, kdct.dct3_nat_plain, ((128, 128), (384, 384))),
+            ("dct2_mid", kdct.dct2_mid, kdct.dct2_mid_plain, ((1, 2048, 2048),)),
+            ("dct3_mid", kdct.dct3_mid, kdct.dct3_mid_plain, ((1, 2048, 2048),)),
+            ("dct2_mid_npoint", kdct.dct2_mid, kdct.dct2_mid_plain, ((1, 1152, 1152),)),
+            ("dct3_mid_npoint", kdct.dct3_mid, kdct.dct3_mid_plain, ((1, 1152, 1152),))):
+        for shape in shapes:
+            x = randn(*shape)
+            time_kernel(name, shape, lambda: kern(x, 2.0), lambda: plain(x, 2.0))
+            del x
     t_port = cuda_ms(lambda: dct_pair(xp), reps)
     t_yard = cuda_ms(lambda: yardstick_pair(xp), reps)
     emit(phase="time", dct_pair=[1024, 1024], ms=t_port, torch_fft_makhoul_ms=t_yard,
@@ -1396,13 +1717,38 @@ def main() -> int:
                          "ndrustfft_tpu/ops/pallas/rfft.py:323"),
         "r2c_packed_wide": ("ndrustfft_tpu_torch/csrc/rfft_nat.cu",
                             "ndrustfft_tpu/ops/pallas/rfft.py:163"),
+        "r2c_mid_wide": ("ndrustfft_tpu_torch/csrc/rfft_mid.cu",
+                         "ndrustfft_tpu/ops/pallas/rfft.py:443"),
+        "c2r_mid_wide": ("ndrustfft_tpu_torch/csrc/rfft_mid.cu",
+                         "ndrustfft_tpu/ops/pallas/rfft.py:470"),
+        "dct2_nat_wide": ("ndrustfft_tpu_torch/csrc/dct_nat.cu",
+                          "ndrustfft_tpu/ops/pallas/dct.py:190"),
+        "dct3_nat_wide": ("ndrustfft_tpu_torch/csrc/dct_nat.cu",
+                          "ndrustfft_tpu/ops/pallas/dct.py:208"),
+        "dct2_nat_npoint": ("ndrustfft_tpu_torch/csrc/dct_nat.cu",
+                            "ndrustfft_tpu/ops/pallas/dct.py:190"),
+        "dct3_nat_npoint": ("ndrustfft_tpu_torch/csrc/dct_nat.cu",
+                            "ndrustfft_tpu/ops/pallas/dct.py:208"),
+        "dct2_mid": ("ndrustfft_tpu_torch/csrc/dct_mid.cu",
+                     "ndrustfft_tpu/ops/pallas/dct.py:333"),
+        "dct3_mid": ("ndrustfft_tpu_torch/csrc/dct_mid.cu",
+                     "ndrustfft_tpu/ops/pallas/dct.py:351"),
+        "dct2_mid_wide": ("ndrustfft_tpu_torch/csrc/dct_mid.cu",
+                          "ndrustfft_tpu/ops/pallas/dct.py:333"),
+        "dct3_mid_wide": ("ndrustfft_tpu_torch/csrc/dct_mid.cu",
+                          "ndrustfft_tpu/ops/pallas/dct.py:351"),
+        "dct2_mid_npoint": ("ndrustfft_tpu_torch/csrc/dct_mid.cu",
+                            "ndrustfft_tpu/ops/pallas/dct.py:333"),
+        "dct3_mid_npoint": ("ndrustfft_tpu_torch/csrc/dct_mid.cu",
+                            "ndrustfft_tpu/ops/pallas/dct.py:351"),
     }
     kernels = []
     for name, (src, rep) in sources.items():
         t_k, t_plain, t_lib = timing[(name, main_shapes[name])]
         bound_ms, bound_by = bound(*work(name, main_shapes[name]))
-        # a wrapper's ``launches`` counts its wide launches too
-        fixed = launches[name] - launches.get(name + "_wide", 0)
+        # a wrapper's ``launches`` counts its wide and n-point launches too
+        fixed = (launches[name] - launches.get(name + "_wide", 0)
+                 - launches.get(name + "_npoint", 0))
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": fixed,
                         "max_abs_err": errs[name], "ms": t_k, "plain_ms": t_plain,

@@ -40,7 +40,8 @@ import torch
 from .config import config
 from .gates import (
     C2C_AXIS_MID, C2C_DENSE_MID, C2C_DENSE_ROWS, C2C_GENERIC_MID, C2C_GENERIC_ROWS, C2C_ROWS,
-    C2R_DENSE_MID, C2R_LANE, C2R_MID, C2R_NAT, DCT2_NAT, DCT3_NAT, DCT4_HALF_MID,
+    C2R_DENSE_MID, C2R_LANE, C2R_MID, C2R_NAT, DCT2_MID, DCT2_NAT, DCT3_MID, DCT3_NAT,
+    DCT4_HALF_MID,
     DCT_DENSE_MID, DCT_LANE, ENGINE, MIN_BATCH,
     R2C_DENSE_MID, R2C_MID, R2C_NAT, R2C_PACKED, R2C_ROWPAIR, _c2c_kernel_route,
     _kernel_ok, _lane_c2c, _nat_f, _twostep_split, c2r_lane_route, inner_c2c_route,
@@ -62,8 +63,8 @@ __all__ = ["ndfft", "ndifft", "ndfft_r2c", "ndifft_r2c",
 
 _RUNNABLE = (C2C_AXIS_MID, C2C_ROWS, C2C_DENSE_ROWS, C2C_DENSE_MID, C2C_GENERIC_ROWS,
              C2C_GENERIC_MID, R2C_NAT, C2R_NAT, R2C_MID, C2R_MID, R2C_DENSE_MID,
-             C2R_DENSE_MID, DCT_DENSE_MID, DCT2_NAT, DCT3_NAT, DCT4_HALF_MID, R2C_PACKED,
-             R2C_ROWPAIR, C2R_LANE, DCT_LANE, ENGINE)
+             C2R_DENSE_MID, DCT_DENSE_MID, DCT2_NAT, DCT3_NAT, DCT2_MID, DCT3_MID,
+             DCT4_HALF_MID, R2C_PACKED, R2C_ROWPAIR, C2R_LANE, DCT_LANE, ENGINE)
 _C2C_KINDS = ("fft", "ifft")
 _R2R_KINDS = tuple(f"{f}{t}" for f in ("dct", "dst") for t in (1, 2, 3, 4))
 
@@ -131,9 +132,9 @@ def _route(kind: str, shape, axis: int, dtype: torch.dtype, device_type: str,
     """The route of one call: one of the ported kernels' routes (C2C_AXIS_MID,
     C2C_ROWS, C2C_DENSE_ROWS, C2C_DENSE_MID, C2C_GENERIC_ROWS,
     C2C_GENERIC_MID, R2C_NAT, C2R_NAT, R2C_MID, C2R_MID, R2C_DENSE_MID,
-    C2R_DENSE_MID, DCT_DENSE_MID, DCT2_NAT, DCT3_NAT, the DCT-IV composite
-    DCT4_HALF_MID, and the lane lowerings' R2C_PACKED, R2C_ROWPAIR, C2R_LANE,
-    DCT_LANE) or ENGINE.
+    C2R_DENSE_MID, DCT_DENSE_MID, DCT2_NAT, DCT3_NAT, DCT2_MID, DCT3_MID, the
+    DCT-IV composite DCT4_HALF_MID, and the lane lowerings' R2C_PACKED,
+    R2C_ROWPAIR, C2R_LANE, DCT_LANE) or ENGINE.
 
     ``kind`` is "fft", "ifft", "r2c", "c2r", "dct1".."dct4" or
     "dst1".."dst4"; ``shape``, ``axis`` and ``dtype`` are the input's; ``n``
@@ -165,14 +166,10 @@ def _route(kind: str, shape, axis: int, dtype: torch.dtype, device_type: str,
 def _rfft_mid(kind: str, n: int):
     """Route of a float32 R2C/C2R along a middle axis with >= 128 columns
     (the JAX package's rfft_nat_supported, then rfft_dense_mid_supported):
-    K16/K17 for a natural-layout half length whose factor the fixed core
-    takes, else K1b (the middle-axis kernels have no wide form yet);
+    K16/K17 for a natural-layout half length (the fixed or the wide core);
     K20/K21 for 4 <= n <= 1100 (any n, Bluestein lengths included: the
     dense product needs no plan); else None."""
-    f = _nat_f(n)
-    if f is not None:
-        if f not in _kfft.CORE_F:
-            return "rfft_mid_wide"
+    if _nat_f(n) is not None:
         return R2C_MID if kind == "r2c" else C2R_MID
     if _krfft.DENSE_MIN_N <= n <= _krfft.DENSE_MAX_N:
         return R2C_DENSE_MID if kind == "r2c" else C2R_DENSE_MID
@@ -203,6 +200,13 @@ def _route_f32(kind, shape, axis, n):
     raise ValueError(f"unknown transform kind {kind!r}")
 
 
+def _dct23_kernel(n: int, route: str) -> str:
+    """``route`` (kernels 23/24 or 25/26) at a length dct_pallas_supported
+    takes (n = 128 * k, k <= 256), or the UNPORTED key of the n-point form
+    beyond the wide core (odd k > 160)."""
+    return route if _kdct.dct_form(n) is not None else "dct23_long"
+
+
 def _dct_lane(t: int, n: int, batch: int) -> str:
     """Route of the DCT-<t> lowering along the last axis of (batch, n)
     (ops/dct.py of the JAX package): kernels 23/24 for DCT-II/III at
@@ -214,10 +218,7 @@ def _dct_lane(t: int, n: int, batch: int) -> str:
     if n == 1:
         return ENGINE
     if t in (2, 3) and batch >= MIN_BATCH and n % 2 == 0 and _ts_ok(n):
-        h = n // 2
-        if h % _kfft.M == 0 and h // _kfft.M in _kdct.DCT_F:
-            return DCT2_NAT if t == 2 else DCT3_NAT
-        return "dct_nat_wide"
+        return _dct23_kernel(n, DCT2_NAT if t == 2 else DCT3_NAT)
     if factorize(n) is None:
         return "bluestein"
     if t == 2:
@@ -248,7 +249,7 @@ def _route_r2r(kind, shape, axis, n):
                 return "r2c_packed_mid"
         elif t in (2, 3):
             if n % 2 == 0 and _ts_ok(n):
-                return "dct2_mid" if t == 2 else "dct3_mid"
+                return _dct23_kernel(n, DCT2_MID if t == 2 else DCT3_MID)
             if factorize(n) is None and _blue_mid_ok(n):
                 return "dct23_blue_mid"
         elif n % 2 == 0:
@@ -388,6 +389,13 @@ def _dct_scale(norm):
     return None
 
 
+# the DCT routes along a middle axis: fn(x3, dct_type, scale) on (B, n, L)
+_MID_DCT = {DCT_DENSE_MID: _kdct.dct_dense_mid,
+            DCT4_HALF_MID: lambda x3, t, scale: _dct.dct4_half_mid(x3, scale),
+            DCT2_MID: lambda x3, t, scale: _kdct.dct2_mid(x3, scale),
+            DCT3_MID: lambda x3, t, scale: _kdct.dct3_mid(x3, scale)}
+
+
 def _dct_impl(x, handler, axis, dct_type):
     axis = _norm_axis(axis, x.ndim)
     _check_size(x.shape[axis], handler.n, what="dct")
@@ -403,11 +411,10 @@ def _dct_impl(x, handler, axis, dct_type):
     route = _route(kind, x.shape, axis, x.dtype, x.device.type)
     _plan_log(kind, n, axis, route)
     scale = _dct_scale(handler.norm)
-    if route in (DCT_DENSE_MID, DCT4_HALF_MID):
+    if route in _MID_DCT:
+        # along a middle axis in place: no moveaxis, as the JAX package does
         nb, cols = _mid_dims(x.shape, axis)
-        x3 = x.reshape(nb, n, cols).contiguous()
-        y = (_kdct.dct_dense_mid(x3, dct_type, scale) if route == DCT_DENSE_MID
-             else _dct.dct4_half_mid(x3, scale))
+        y = _MID_DCT[route](x.reshape(nb, n, cols).contiguous(), dct_type, scale)
         return y.reshape(x.shape)
     xm = x.movedim(axis, -1)
     if route in (DCT2_NAT, DCT3_NAT):

@@ -41,45 +41,57 @@ __device__ __forceinline__ void cmac(float2& acc, float2 a, float2 w) {
   acc.y = fmaf(a.y, w.x, acc.y);
 }
 
-// The R2C unpack of V rows of Z in place: row r at ob + r * (h + 1) holds
-// Z[k] in its first h slots and gets
+// X[k] of the R2C unpack from a = Z[k], b = Z[(h - k) mod h] and
+// w = W_n^k: X[k] = (Z[k] + C[k]) / 2 - i W_n^k (Z[k] - C[k]) / 2 with
+// C = conj b.
+__device__ __forceinline__ float2 r2c_unpack_one(float2 a, float2 b, float2 w) {
+  const float fer = 0.5f * (a.x + b.x);
+  const float fei = 0.5f * (a.y - b.y);
+  const float for_ = 0.5f * (a.y + b.y);    // Re(-i/2 (Z - C))
+  const float foi = -0.5f * (a.x - b.x);    // Im(-i/2 (Z - C))
+  return make_float2(fer + for_ * w.x - foi * w.y, fei + for_ * w.y + foi * w.x);
+}
+
+// The R2C unpack of V transforms of Z in place: bin k of transform c at
+// ob + c * cs + k * ks holds Z[k] for k < h and gets
 //   X[k] = (Z[k] + C[k]) / 2 - i W_n^k (Z[k] - C[k]) / 2,  k < h,
 //   X[h] = Re Z[0] - Im Z[0],  C[k] = conj Z[(h - k) mod h],
 // with u[k] = W_n^k. Each thread takes one mirror pair {k, (h - k) mod h},
-// both read before both are written, so the rows update in place without a
+// both read before both are written, so the bins update in place without a
 // second buffer; k = 0 pairs with itself and writes X[h]. The pair loop
-// k <= h/2 covers odd h. Call it behind a block barrier that follows the
-// writes of Z.
-__device__ __forceinline__ void r2c_unpack_rows(float2* ob, int h, int V,
-                                                const float2* __restrict__ u) {
+// k <= h/2 covers odd h. kColsFast: consecutive threads take consecutive
+// transforms (a column tile, cs = 1), else consecutive pairs (rows). Call
+// it behind a block barrier that follows the writes of Z.
+template <bool kColsFast>
+__device__ __forceinline__ void r2c_unpack(float2* ob, int h, int V, long long cs,
+                                           long long ks, const float2* __restrict__ u) {
   const int pairs = h / 2 + 1;
   for (int idx = threadIdx.x; idx < pairs * V; idx += blockDim.x) {
-    float2* row = ob + (long long)(idx / pairs) * (h + 1);
-    const int k = idx % pairs;
+    float2* col = ob + (kColsFast ? idx % V : idx / pairs) * cs;
+    const int k = kColsFast ? idx / V : idx % pairs;
     const int k2 = (h - k) % h;
-    const float2 za = row[k];
-    const float2 zb = row[k2];
-    // X at k from Z[k] = a and Z[h - k] = b, with C = conj b
-    auto unpack = [](float2 a, float2 b, float2 w) {
-      const float fer = 0.5f * (a.x + b.x);
-      const float fei = 0.5f * (a.y - b.y);
-      const float for_ = 0.5f * (a.y + b.y);    // Re(-i/2 (Z - C))
-      const float foi = -0.5f * (a.x - b.x);    // Im(-i/2 (Z - C))
-      return make_float2(fer + for_ * w.x - foi * w.y, fei + for_ * w.y + foi * w.x);
-    };
-    row[k] = unpack(za, zb, __ldg(u + k));
-    if (k2 != k) row[k2] = unpack(zb, za, __ldg(u + k2));
-    if (k == 0) row[h] = make_float2(za.x - za.y, 0.f);
+    const float2 za = col[k * ks];
+    const float2 zb = col[k2 * ks];
+    col[k * ks] = r2c_unpack_one(za, zb, __ldg(u + k));
+    if (k2 != k) col[k2 * ks] = r2c_unpack_one(zb, za, __ldg(u + k2));
+    if (k == 0) col[h * ks] = make_float2(za.x - za.y, 0.f);
   }
 }
 
-// The C2R pre-pass at bin k < h of a spectrum row S (h + 1 bins):
-// G[k] = A[k] S[k] + B[k] conj S[h - k], with the DC imaginary part forced
-// to 0 and the Nyquist one ignored; ab[k] = (A.re, A.im, B.re, B.im).
+// The unpack of V contiguous rows of Z: row r at ob + r * (h + 1).
+__device__ __forceinline__ void r2c_unpack_rows(float2* ob, int h, int V,
+                                                const float2* __restrict__ u) {
+  r2c_unpack<false>(ob, h, V, h + 1, 1, u);
+}
+
+// The C2R pre-pass at bin k < h of a spectrum S (h + 1 bins, bin j at
+// srow[j * ks]): G[k] = A[k] S[k] + B[k] conj S[h - k], with the DC
+// imaginary part forced to 0 and the Nyquist one ignored;
+// ab[k] = (A.re, A.im, B.re, B.im).
 __device__ __forceinline__ float2 c2r_pre(const float2* srow, const float4* __restrict__ ab,
-                                          int h, int k) {
-  float2 sk = srow[k];
-  float2 sm = srow[h - k];  // k = 0: the Nyquist bin S[h]
+                                          int h, int k, long long ks = 1) {
+  float2 sk = srow[k * ks];
+  float2 sm = srow[(h - k) * ks];  // k = 0: the Nyquist bin S[h]
   if (k == 0) {
     sk.y = 0.f;
     sm.y = 0.f;

@@ -103,6 +103,15 @@ struct Bts2Wide {
   __device__ void run(const float2* s, float2* ys, const float2* wt,
                       const float2* __restrict__ wq, int V, float2* out, long long cs,
                       long long ks) const {
+    run(s, ys, wt, wq, V, [=](int c, long long k, float2 z) { out[c * cs + k * ks] = z; });
+  }
+
+  // The same with the store of output k of transform c left to
+  // store(c, k, value): the real transforms' and the DCTs' epilogues, which
+  // write real rows or a permuted order.
+  template <class Store>
+  __device__ void run(const float2* s, float2* ys, const float2* wt,
+                      const float2* __restrict__ wq, int V, Store&& store) const {
     const int units = (F + 1) / 2;
     const int astep = kRows ? kM : kM * C;   // stride of a in the tile
     for (int u0 = 0; u0 < units; u0 += 2) {
@@ -178,12 +187,25 @@ struct Bts2Wide {
         const long long k = q + (long long)F * p;
 #pragma unroll
         for (int c = 0; c < C; ++c)
-          if (c < V) out[c * cs + k * ks] = acc[c];
+          if (c < V) store(c, k, acc[c]);
       }
       __syncthreads();
     }
   }
 };
+
+// Fill the tile s of a wide block (layout as Bts2Wide's, nt elements per
+// transform) with fn(t, c) for the V valid transforms; consecutive threads
+// take consecutive elements of a row (kRows) or consecutive transforms of a
+// column tile, so that the loads from device memory coalesce. No barrier.
+template <int C, bool kRows, class Fn>
+__device__ __forceinline__ void wide_fill(float2* s, int nt, int V, Fn&& fn) {
+  for (int idx = threadIdx.x; idx < nt * V; idx += kThreads) {
+    const int t = kRows ? idx % nt : idx / V;
+    const int c = kRows ? idx / nt : idx % V;
+    s[kRows ? c * nt + t : t * C + c] = fn(t, c);
+  }
+}
 
 // The transforms [first, first + count) of tile `tile` of `tiles`: the
 // `total` transforms spread evenly, so that no tile is a short tail.

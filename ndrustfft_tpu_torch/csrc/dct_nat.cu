@@ -1,5 +1,9 @@
 // Kernels 23 and 24: DCT-II and DCT-III of contiguous float32 rows, even
-// n = 2h, h = 128 * F, F in {1, 2, 4, 8, 16} (n = 256 ... 4096).
+// n = 128 * k, k <= 256 (the JAX gate's split (128, k)): on the fixed core
+// below for n = 2h, h = 128 * F, F in {1, 2, 4, 8, 16} (n = 256 ... 4096),
+// on the wide core (dct_wide.cuh, entries at the end of this file) at every
+// other n up to 20480: the half-length form for even k (h = 128 * k/2), the
+// n-point form for odd k (n = 128, 384, 640 ...).
 //
 // Kernel 23 replaces ndrustfft_tpu/ops/pallas/dct.py::_dct2_kernel (built by
 // _build_dct2, called by dct2_pallas); kernel 24 replaces dct.py::_dct3_kernel
@@ -27,7 +31,7 @@
 // What bounds them on this card is the core's stage 2 (a dense DFT-128 on the
 // FP32 CUDA cores, see bts2_core.cuh); the kernel adds one n-element
 // permutation pass in shared memory and an O(n) epilogue per row.
-#include "bts2_core.cuh"
+#include "dct_wide.cuh"
 
 namespace ndfft {
 
@@ -243,4 +247,31 @@ extern "C" int ndfft_dct3_nat(const void* x, void* y, const void* wq,
                               const void* ab, const void* pre, long long T,
                               int n, int R, void* stream) {
   return ndfft::dct_entry(true, x, y, wq, ab, pre, T, n, R, stream);
+}
+
+// Kernels 23 (type3 = 0) and 24 (type3 = 1) on the wide core in the row
+// layout, half-length form: n = 2h, h = 128 * F, 1 <= F <= 160. x, y: (T, n)
+// float32; wq: (F, 128, 128) complex64 for h (sign -1 for DCT-II, +1 for
+// DCT-III, unscaled); wf: (F, F) DFT-F of the same sign; c1: tw (h,) W_n^k
+// (DCT-II) or ab (h, 4) kernel-3 rows at scale 1 (DCT-III); c2: post (n,)
+// s e^{-i pi k / 2n} (DCT-II) or pre (h + 1,) (s/2) e^{+i pi k / 2n}
+// (DCT-III). C: rows per tile, a power of two <= 16 whose tile fits
+// (bts2_wide.cuh::wide_smem_bytes). Returns the cudaError_t of the launch.
+extern "C" int ndfft_dct_nat_wide(int type3, const void* x, void* y, const void* wq,
+                                  const void* wf, const void* c1, const void* c2, long long T,
+                                  int n, int C, void* stream) {
+  return ndfft::dct_wide_launch<true>(type3 != 0, false, x, y, wq, wf, c1, c2, 1, n, T, C,
+                                      stream);
+}
+
+// Kernels 23 and 24 in the n-point form: n = 128 * F, 1 <= F <= 160 (odd F
+// on the routes). wq: (F, 128, 128) complex64 for n, sign -1, unscaled; wf:
+// (F, F) DFT-F, sign -1; c: post (n,) s e^{-i pi k / 2n} (DCT-II) or the
+// n-point pre (n,) s e^{-i pi t / 2n} with entry 0 halved (DCT-III). C as
+// above.
+extern "C" int ndfft_dct_nat_npoint(int type3, const void* x, void* y, const void* wq,
+                                    const void* wf, const void* c, long long T, int n, int C,
+                                    void* stream) {
+  return ndfft::dct_wide_launch<true>(type3 != 0, true, x, y, wq, wf, nullptr, c, 1, n, T, C,
+                                      stream);
 }

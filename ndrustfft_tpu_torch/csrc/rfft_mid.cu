@@ -1,5 +1,7 @@
 // Kernels 16 and 17: R2C and C2R along the middle axis of a (B, n, L)
-// tensor, even n = 2h, h = 128 * F, F in {2, 4, 8, 16} (n = 512 ... 4096).
+// tensor, even n = 2h, h = 128 * F: F in {2, 4, 8, 16} on the fixed core,
+// every other F <= 160 on the wide core (r2c_mid_wide_kernel and
+// c2r_mid_wide_kernel at the end of this file).
 //
 // Kernel 16 replaces ndrustfft_tpu/ops/pallas/rfft.py::_r2c_kernel_mid
 // (built by _build_r2c_mid); kernel 17 replaces rfft.py::_c2r_kernel_mid
@@ -25,7 +27,20 @@
 // comes from the host (ops/hopper/rfft.py), so the kernels do no twiddle
 // work. The bound is that of the core: stage 2's dense DFT-128 on the FP32
 // CUDA cores (bts2_core.cuh); the device memory is read once and written once.
-#include "bts2_core.cuh"
+//
+// On the wide core (bts2_wide.cuh) the tile stays intact and the core writes
+// each output straight to device memory, so no column holds its whole
+// spectrum Z in shared memory when the R2C's unpack needs the mirror
+// Z[(h - k) mod h]. The wide R2C writes Z into the output's first h rows of
+// its own columns, and after the core's closing block barrier each thread
+// unpacks one mirror pair {k, h - k} of one column in place
+// (bts2_core.cuh::r2c_unpack, consecutive threads on consecutive columns:
+// the rows stay coalesced and were written by this block a moment before,
+// so L2 serves the reread). The wide C2R needs no mirror after the core: its
+// pre-pass reads rows k and h - k from device memory into the tile, and the
+// core's store callback writes Re z[l] and Im z[l] to real rows 2l and
+// 2l + 1.
+#include "bts2_wide.cuh"
 
 namespace ndfft {
 
@@ -175,6 +190,58 @@ static int mid_entry(bool inverse, const void* in, void* out, const void* wq,
   }
 }
 
+// Kernel 16 on the wide core: the column tile of z, the core with Z written
+// into the output rows 0 .. h - 1, then the unpack of each column in place.
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+r2c_mid_wide_kernel(const float* __restrict__ x, float2* out, const float2* __restrict__ wq,
+                    const float2* __restrict__ wf, const float2* __restrict__ tw, int F,
+                    long long L, long long tiles) {
+  const int H = F * kM;
+  extern __shared__ float2 smem[];
+  const WideSmem sm(smem, H, C);
+  const long long bb = blockIdx.x / tiles;
+  long long col0;
+  int valid;
+  wide_tile(L, tiles, blockIdx.x % tiles, col0, valid);
+  const float* xb = x + bb * 2 * H * L + col0;
+  wide_fill<C, false>(sm.s, H, valid, [&](int t, int c) {
+    return make_float2(xb[(2 * t) * L + c], xb[(2 * t + 1) * L + c]);
+  });
+  wide_load_row(sm.wt, wf, F);
+  __syncthreads();
+  float2* ob = out + bb * (H + 1) * L + col0;
+  // ends with a barrier: Z of every column of the tile is in device memory
+  Bts2Wide<C, false>{H, F}.run(sm.s, sm.ys, sm.wt, wq, valid, ob, 1, L);
+  r2c_unpack<true>(ob, H, valid, 1, L, tw);
+}
+
+// Kernel 17 on the wide core: the pre-pass from rows k and h - k of the
+// spectrum, the core, and z stored as the real rows 2l and 2l + 1.
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+c2r_mid_wide_kernel(const float2* __restrict__ spec, float* __restrict__ out,
+                    const float2* __restrict__ wq, const float2* __restrict__ wf,
+                    const float4* __restrict__ ab, int F, long long L, long long tiles) {
+  const int H = F * kM;
+  extern __shared__ float2 smem[];
+  const WideSmem sm(smem, H, C);
+  const long long bb = blockIdx.x / tiles;
+  long long col0;
+  int valid;
+  wide_tile(L, tiles, blockIdx.x % tiles, col0, valid);
+  const float2* sb = spec + bb * (H + 1) * L + col0;
+  wide_fill<C, false>(sm.s, H, valid,
+                      [&](int k, int c) { return c2r_pre(sb + c, ab, H, k, L); });
+  wide_load_row(sm.wt, wf, F);
+  __syncthreads();
+  float* ob = out + bb * 2 * H * L + col0;
+  Bts2Wide<C, false>{H, F}.run(sm.s, sm.ys, sm.wt, wq, valid, [=](int c, long long l, float2 z) {
+    ob[2 * l * L + c] = z.x;
+    ob[(2 * l + 1) * L + c] = z.y;
+  });
+}
+
 }  // namespace ndfft
 
 // x: (B, n, L) float32; out: (B, n/2 + 1, L) complex64; wq: (F, 128, 128)
@@ -194,4 +261,40 @@ extern "C" int ndfft_c2r_mid(const void* spec, void* out, const void* wq,
                              const void* ab, long long B, int n, long long L,
                              int C, void* stream) {
   return ndfft::mid_entry(true, spec, out, wq, ab, B, n, L, C, stream);
+}
+
+// Kernel 16 on the wide core, h = n/2 = 128 * F with 1 <= F <= 160: x, out,
+// wq and tw as for ndfft_r2c_mid; wf: (F, F) complex64 DFT-F, sign -1. C:
+// columns per tile, a power of two <= 16 whose tile fits
+// (bts2_wide.cuh::wide_smem_bytes). Returns the cudaError_t of the launch.
+extern "C" int ndfft_r2c_mid_wide(const void* x, void* out, const void* wq, const void* wf,
+                                  const void* tw, long long B, int n, long long L, int C,
+                                  void* stream) {
+  using namespace ndfft;
+  if (n % 2) return (int)cudaErrorInvalidValue;
+  const int h = n / 2;
+  return (int)wide_dispatch(C, [&](auto cc) {
+    constexpr int kC = decltype(cc)::value;
+    return wide_launch<kC>(r2c_mid_wide_kernel<kC>, h, B, L, static_cast<cudaStream_t>(stream),
+                           static_cast<const float*>(x), static_cast<float2*>(out),
+                           static_cast<const float2*>(wq), static_cast<const float2*>(wf),
+                           static_cast<const float2*>(tw), h / kM, L);
+  });
+}
+
+// Kernel 17 on the wide core: spec, out, wq and ab as for ndfft_c2r_mid; wf:
+// (F, F) complex64 DFT-F, sign +1; C as above.
+extern "C" int ndfft_c2r_mid_wide(const void* spec, void* out, const void* wq, const void* wf,
+                                  const void* ab, long long B, int n, long long L, int C,
+                                  void* stream) {
+  using namespace ndfft;
+  if (n % 2) return (int)cudaErrorInvalidValue;
+  const int h = n / 2;
+  return (int)wide_dispatch(C, [&](auto cc) {
+    constexpr int kC = decltype(cc)::value;
+    return wide_launch<kC>(c2r_mid_wide_kernel<kC>, h, B, L, static_cast<cudaStream_t>(stream),
+                           static_cast<const float2*>(spec), static_cast<float*>(out),
+                           static_cast<const float2*>(wq), static_cast<const float2*>(wf),
+                           static_cast<const float4*>(ab), h / kM, L);
+  });
 }

@@ -32,6 +32,8 @@ C2R_DENSE_MID = "c2r_dense_mid"
 DCT_DENSE_MID = "dct_dense_mid"
 DCT2_NAT = "dct2_nat"
 DCT3_NAT = "dct3_nat"
+DCT2_MID = "dct2_mid"
+DCT3_MID = "dct3_mid"
 # the lane lowerings of the other kinds: K15 (the packed R2C of even-length
 # rows: R2C, DCT-I, DST-I, DCT-II), the row pairs' C2C (odd-length R2C and
 # DCT-II), the Hermitian extension's C2C (C2R) and the DCT-III/IV lowerings'
@@ -52,16 +54,12 @@ UNPORTED = {
     "fourstep": ("fft.py::_kernel_exit_mul and _kernel_lane_store_t", "K7"),
     "bluestein": ("fft.py::_kernel_axis_mid_blue and the engine's Bluestein",
                   "K11"),
-    "rfft_mid_wide": ("rfft.py::_r2c_kernel_mid / _c2r_kernel_mid with a half "
-                      "length outside 128 * {2, 4, 8, 16}", "K1b"),
     "r2c_packed_mid": ("rfft.py::_r2c_kernel_packed_mid", "K18"),
     "dct1_mid": ("rfft.py::_dct1_kernel_mid", "K19"),
-    "dct2_mid": ("dct.py::_dct2_kernel_mid", "K25"),
-    "dct3_mid": ("dct.py::_dct3_kernel_mid", "K26"),
     "dct23_blue_mid": ("fft.py::_kernel_axis_mid_blue_rr", "K12"),
     "dct4_mid": ("dct.py::_dct4_kernel_mid", "K28"),
-    "dct_nat_wide": ("dct.py::_dct2_kernel / _dct3_kernel with a half length "
-                     "outside 128 * {1, 2, 4, 8, 16}", "K1b"),
+    "dct23_long": ("dct.py::_dct2_kernel / _dct3_kernel (and their _mid forms) at "
+                   "n = 128 * k with odd k > 160, n > 20480", "K23-K26 long"),
 }
 
 # the keys that name the C2C kernel of a lowering's inner transform

@@ -52,6 +52,13 @@ _SIGNATURES = {
     "ndfft_c2c_rows_wide": [_P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_r2c_nat_wide": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_c2r_nat_wide": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
+    "ndfft_r2c_mid_wide": [_P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
+    "ndfft_c2r_mid_wide": [_P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
+    "ndfft_dct_nat_wide": [_I, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
+    "ndfft_dct_nat_npoint": [_I, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
+    "ndfft_dct_mid": [_I, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
+    "ndfft_dct_mid_wide": [_I, _P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
+    "ndfft_dct_mid_npoint": [_I, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
 }
 
 _lock = threading.Lock()

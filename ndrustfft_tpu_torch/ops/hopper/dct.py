@@ -1,16 +1,33 @@
-"""Kernels 23, 24 and 27: the DCT kernels.
+"""Kernels 23 to 27: the DCT kernels.
 
 * Kernel 27, :func:`dct_dense_mid`: any DCT type along the middle axis of a
   (B, n, L) float32 tensor as one dense product with the scaled type matrix
   (``csrc/dct_dense.cu``; replaces the JAX package's
   ``ops/pallas/dct.py::_dct_dense_kernel``).
 * Kernels 23 and 24, :func:`dct2_nat` and :func:`dct3_nat`: DCT-II and
-  DCT-III of contiguous float32 rows by the Makhoul lowering on the bts2
-  core's half-length real FFT (``csrc/dct_nat.cu``; replace
-  ``dct.py::_dct2_kernel`` and ``_dct3_kernel``).
+  DCT-III of contiguous float32 rows by the Makhoul lowering
+  (``csrc/dct_nat.cu``; replace ``dct.py::_dct2_kernel`` and
+  ``_dct3_kernel``).
+* Kernels 25 and 26, :func:`dct2_mid` and :func:`dct3_mid`: the same two
+  along the middle axis of (B, n, L) (``csrc/dct_mid.cu``; replace
+  ``dct.py::_dct2_kernel_mid`` and ``_dct3_kernel_mid``).
+
+Kernels 23 to 26 take every even n = 128 * k that the JAX gate
+``dct_pallas_supported`` sends to them (split (128, k)) up to 20480, in the
+form :func:`dct_form` names: the half length h = n/2 = 128 * F for even k
+(the real FFT of kernels 2/3 or 16/17: the fixed bts2 core for F in
+:data:`DCT_F` (rows) or ``CORE_F`` (middle axis), the wide core
+``csrc/bts2_wide.cuh`` otherwise), and the n-point FFT on the wide core for
+odd k, where h = 64 k is no multiple of 128 (``csrc/dct_wide.cuh``).
+
+What bounds them, and what the designs do about it, is in the sources'
+header comments: the core's dense DFT-128 on the FP32 cores; device memory
+read once and written once; every constant built on the host.
 
 This module holds their host-built constants, their plain PyTorch versions
-and their wrappers, whose ``launches`` attributes count kernel launches. All
+and their wrappers, whose ``launches`` attributes count kernel launches
+(kernels 23 to 26 also count the wide core's half-length launches apart, in
+``wide_launches``, and the n-point ones in ``npoint_launches``). All
 transforms are in the rustdct convention (scipy's unnormalized DCT / 2)
 times ``scale``.
 """
@@ -24,10 +41,12 @@ import torch
 
 from ...plan import _cis
 from . import _build
-from .fft import M, block_rows, check_cuda, dense_tile, device_wq, num_sms
-from .rfft import _device_ab, _device_tw, c2r_nat_plain, r2c_nat_plain
+from .fft import (CORE_F, GENERIC_MAX_N, M, block_cols, block_rows, bts2_plain, check_cuda,
+                  dense_tile, device_wide, device_wq, num_sms, wide_block)
+from .rfft import _device_ab, _device_tw, c2r_mid_plain, r2c_mid_plain
 
-DCT_F = (1, 2, 4, 8, 16)   # half-length factors F of kernels 23/24 (h = 128 F)
+DCT_F = (1, 2, 4, 8, 16)   # half-length factors F of kernels 23/24's fixed core
+WIDE_MAX_F = GENERIC_MAX_N // M   # 160: the wide core's largest factor
 
 
 # --------------------------------------------------------------------------
@@ -110,8 +129,20 @@ dct_dense_mid.launches = 0
 
 
 # --------------------------------------------------------------------------
-# Kernels 23 and 24: the Makhoul lowering on the half-length real FFT
+# Kernels 23 to 26: the Makhoul lowering on the bts2 core
 # --------------------------------------------------------------------------
+
+
+def dct_form(n: int):
+    """("half", F) where kernels 23 to 26 run the half-length real FFT,
+    n = 2h with h = 128 * F (k = n / 128 even); ("npoint", F) where they run
+    the n-point FFT, n = 128 * F with odd F; None where F > 160 (the wide
+    core's bound: n-point n > 20480) or n is no multiple of 128."""
+    if n <= 0 or n % M:
+        return None
+    k = n // M
+    form, f = ("half", k // 2) if k % 2 == 0 else ("npoint", k)
+    return (form, f) if f <= WIDE_MAX_F else None
 
 
 def makhoul_perm(n: int) -> np.ndarray:
@@ -136,10 +167,25 @@ def dct3_pre(n: int, scale: float = 1.0):
             np.asarray(qi * (0.5 * scale), np.float32))
 
 
+def dct3_pre_npoint(n: int, scale: float = 1.0):
+    """(re, im) float32 of the n-point DCT-III's input twiddle scale *
+    e^{-i pi t/(2n)}, t = 0..n-1, entry 0 halved (the x0 halving): the JAX
+    kernel's separable pre twiddle (dct.py:_build_dct3) as one table, with
+    its h0 mask and the scale folded in."""
+    wr, wi = _cis(np.arange(n, dtype=np.int64), 2 * n, -1)
+    half = np.ones(n)
+    half[0] = 0.5
+    return (np.asarray(wr * half * scale, np.float32),
+            np.asarray(wi * half * scale, np.float32))
+
+
+_TWIDDLES = {"post": dct2_post, "pre": dct3_pre, "pre_npoint": dct3_pre_npoint}
+
+
 @lru_cache(maxsize=64)
 def _device_twiddle(kind: str, n: int, scale: float,
                     device: torch.device) -> torch.Tensor:
-    re, im = (dct2_post if kind == "post" else dct3_pre)(n, scale)
+    re, im = _TWIDDLES[kind](n, scale)
     return torch.complex(torch.from_numpy(re), torch.from_numpy(im)).to(device)
 
 
@@ -150,92 +196,166 @@ def _device_index(kind: str, n: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(idx)).to(device)
 
 
+def _scale(scale) -> float:
+    return 1.0 if scale is None else float(scale)
+
+
+def _dct2_plain(x: torch.Tensor, scale) -> torch.Tensor:
+    """scale * DCT-II along dim 1 of a (B, n, L) float32 tensor in the form
+    the kernels take at n (:func:`dct_form`): the Makhoul permutation, then
+    the half-length R2C (kernel 16's plain version) with the Hermitian unfold,
+    or the n-point FFT (the core's plain version); then the post twiddle."""
+    n = x.shape[1]
+    post = _device_twiddle("post", n, _scale(scale), x.device)[:, None]
+    v = x[:, _device_index("perm", n, x.device)]
+    if dct_form(n)[0] == "npoint":
+        z = bts2_plain(v.to(torch.complex64), device_wq(n, -1, 1.0, x.device), -1)
+        return (z * post).real
+    h = n // 2
+    spec = r2c_mid_plain(v)
+    full = torch.cat([spec, spec[:, 1:h].flip(1).conj()], dim=1)
+    return (full * post).real
+
+
+def _dct3_plain(x: torch.Tensor, scale) -> torch.Tensor:
+    """scale * DCT-III along dim 1 of a (B, n, L) float32 tensor in the
+    kernels' form at n: S[k] = Q[k] (x[k] - i x[n-k]) and kernel 17's C2R
+    (half length), or the n-point FFT of the pre-twiddled column (its real
+    part); then the un-permutation y[2t] = u[t], y[2t+1] = u[n-1-t]."""
+    nb, n, cols = x.shape
+    s = _scale(scale)
+    if dct_form(n)[0] == "npoint":
+        w = x * _device_twiddle("pre_npoint", n, s, x.device)[:, None]
+        u = bts2_plain(w, device_wq(n, -1, 1.0, x.device), -1).real
+    else:
+        h = n // 2
+        xz = torch.cat([x, x.new_zeros(nb, 1, cols)], dim=1)     # x[n] = 0
+        k = torch.arange(h + 1, device=x.device)
+        spec = (_device_twiddle("pre", n, s, x.device)[:, None]
+                * torch.complex(xz[:, k], -xz[:, n - k]))
+        u = c2r_mid_plain(spec, n, None)
+    return u[:, _device_index("unperm", n, x.device)]
+
+
 def dct2_nat_plain(x: torch.Tensor, scale=None) -> torch.Tensor:
     """Plain version of kernel 23: (T, n) float32 -> scale * DCT-II of each
-    row: Makhoul permutation, kernel 2's R2C, Hermitian unfold, post twiddle."""
-    n = x.shape[1]
-    h = n // 2
-    s = 1.0 if scale is None else float(scale)
-    spec = r2c_nat_plain(x[:, _device_index("perm", n, x.device)])
-    full = torch.cat([spec, spec[:, 1:h].flip(-1).conj()], dim=1)
-    return (full * _device_twiddle("post", n, s, x.device)).real
+    row (:func:`_dct2_plain` on the rows as (T, n, 1))."""
+    return _dct2_plain(x[:, :, None], scale)[:, :, 0]
 
 
 def dct3_nat_plain(x: torch.Tensor, scale=None) -> torch.Tensor:
     """Plain version of kernel 24: (T, n) float32 -> scale * DCT-III of each
-    row: S[k] = Q[k] (x[k] - i x[n-k]), kernel 3's C2R, un-permutation."""
-    t, n = x.shape
-    h = n // 2
-    s = 1.0 if scale is None else float(scale)
-    xz = torch.cat([x, x.new_zeros(t, 1)], dim=1)          # x[n] = 0
-    k = torch.arange(h + 1, device=x.device)
-    spec = _device_twiddle("pre", n, s, x.device) * torch.complex(xz[:, k], -xz[:, n - k])
-    u = c2r_nat_plain(spec, n, None)
-    return u[:, _device_index("unperm", n, x.device)]
+    row (:func:`_dct3_plain` on the rows as (T, n, 1))."""
+    return _dct3_plain(x[:, :, None], scale)[:, :, 0]
 
 
-def _check_nat(x: torch.Tensor, what: str) -> None:
-    if x.dim() != 2:
-        raise ValueError(f"{what}: expected (T, n), got {tuple(x.shape)}")
+def dct2_mid_plain(x: torch.Tensor, scale=None) -> torch.Tensor:
+    """Plain version of kernel 25: scale * DCT-II along dim 1 of (B, n, L)."""
+    return _dct2_plain(x, scale)
+
+
+def dct3_mid_plain(x: torch.Tensor, scale=None) -> torch.Tensor:
+    """Plain version of kernel 26: scale * DCT-III along dim 1 of (B, n, L)."""
+    return _dct3_plain(x, scale)
+
+
+def _check_form(x: torch.Tensor, rows: bool, what: str):
+    """The rank the wrapper takes and the form of its length, or raise."""
+    if x.dim() != (2 if rows else 3):
+        want = "(T, n)" if rows else "(B, n, L)"
+        raise ValueError(f"{what}: expected {want}, got {tuple(x.shape)}")
     n = x.shape[1]
-    h = n // 2
-    if n % 2 or h % M or h // M not in DCT_F:
-        raise ValueError(f"{what}: n={n} is not 2 * 128 * F, F in {DCT_F}")
+    form = dct_form(n)
+    if form is None:
+        raise ValueError(f"{what}: n={n} is not 128 * k with k even (k <= 320) or odd "
+                         f"(k <= {WIDE_MAX_F})")
+    return form
 
 
-def _launch_nat(x: torch.Tensor, entry: str, wq, c1, c2) -> torch.Tensor:
-    t, n = x.shape
-    if x.data_ptr() % 8:       # the kernels read rows as float2
+def _launch(wrapper, x: torch.Tensor, scale, type3: bool, rows: bool) -> torch.Tensor:
+    """Kernel 23/24 (``rows``: x is (T, n)) or 25/26 (x is (B, n, L)) on a
+    CUDA tensor: the fixed core, the wide core's half-length form or its
+    n-point form, by :func:`dct_form`; adds one to the wrapper's counts."""
+    what = wrapper.__name__
+    check_cuda(x, torch.float32, what)
+    n = x.shape[1]
+    form, f = dct_form(n)
+    npoint = form == "npoint"
+    fixed = not npoint and f in (DCT_F if rows else CORE_F)
+    if fixed and rows and x.data_ptr() % 8:    # the fixed kernels read rows as float2
         x = x.clone()
     y = torch.empty_like(x)
-    if t == 0:
+    if x.numel() == 0:
         return y
-    r = block_rows(n // 2, t, num_sms(x.device))
-    with torch.cuda.device(x.device):
-        err = getattr(_build.lib(), entry)(
-            x.data_ptr(), y.data_ptr(), wq.data_ptr(), c1.data_ptr(),
-            c2.data_ptr(), t, n, r, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, entry)
+    dev = x.device
+    s = _scale(scale)
+    core = n if npoint else n // 2          # the length of the core's transform
+    sign = +1 if type3 and not npoint else -1
+    wq = device_wq(core, sign, 1.0, dev)
+    if npoint:
+        c1 = None
+        c2 = _device_twiddle("pre_npoint" if type3 else "post", n, s, dev)
+    else:
+        c1 = _device_ab(n, 1.0, dev) if type3 else _device_tw(n, dev)
+        c2 = _device_twiddle("pre" if type3 else "post", n, s, dev)
+    nb, cols = (1, x.shape[0]) if rows else (x.shape[0], x.shape[2])
+    sms = num_sms(dev)
+    lib = _build.lib()
+    ptrs = (x.data_ptr(), y.data_ptr(), wq.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        if fixed and rows:
+            err = getattr(lib, "ndfft_dct3_nat" if type3 else "ndfft_dct2_nat")(
+                *ptrs, c1.data_ptr(), c2.data_ptr(), cols, n, block_rows(core, cols, sms),
+                stream)
+        elif fixed:
+            err = lib.ndfft_dct_mid(int(type3), *ptrs, c1.data_ptr(), c2.data_ptr(), nb, n,
+                                    cols, block_cols(core, nb, cols, sms), stream)
+        else:
+            wf = device_wide(core, sign, dev).data_ptr()
+            c = wide_block(core, nb, cols, sms)
+            shape = (cols, n) if rows else (nb, n, cols)
+            entry = f"ndfft_dct_{'nat' if rows else 'mid'}_{'npoint' if npoint else 'wide'}"
+            consts = (c2.data_ptr(),) if npoint else (c1.data_ptr(), c2.data_ptr())
+            err = getattr(lib, entry)(int(type3), *ptrs, wf, *consts, *shape, c, stream)
+    _build.check(err, what)
+    wrapper.launches += 1
+    wrapper.wide_launches += not (fixed or npoint)
+    wrapper.npoint_launches += npoint
     return y
 
 
-def dct2_nat(x: torch.Tensor, scale=None) -> torch.Tensor:
-    """scale * DCT-II of the rows of a (T, n) float32 tensor, n = 256 ...
-    4096 a power of two. A CPU tensor runs the plain version; a CUDA tensor
-    launches kernel 23 or raises."""
-    _check_nat(x, "dct2_nat")
-    if x.device.type == "cpu":
-        return dct2_nat_plain(x, scale)
-    if x.device.type != "cuda":
-        raise ValueError(f"dct2_nat: unsupported device {x.device}")
-    check_cuda(x, torch.float32, "dct2_nat")
-    n = x.shape[1]
-    s = 1.0 if scale is None else float(scale)
-    y = _launch_nat(x, "ndfft_dct2_nat", device_wq(n // 2, -1, 1.0, x.device),
-                    _device_tw(n, x.device), _device_twiddle("post", n, s, x.device))
-    dct2_nat.launches += 1
-    return y
+def _dct_wrapper(name: str, plain, type3: bool, rows: bool, doc: str):
+    def wrapper(x: torch.Tensor, scale=None) -> torch.Tensor:
+        _check_form(x, rows, name)
+        if x.device.type == "cpu":
+            return plain(x, scale)
+        if x.device.type != "cuda":
+            raise ValueError(f"{name}: unsupported device {x.device}")
+        return _launch(wrapper, x, scale, type3, rows)
+
+    wrapper.__name__ = wrapper.__qualname__ = name
+    wrapper.__doc__ = doc + (
+        " A CPU tensor runs the plain version; a CUDA tensor launches the kernel "
+        "(the fixed core, the wide core's half-length form or the n-point form, "
+        "by dct_form(n)) or raises.")
+    wrapper.launches = wrapper.wide_launches = wrapper.npoint_launches = 0
+    return wrapper
 
 
-dct2_nat.launches = 0
-
-
-def dct3_nat(x: torch.Tensor, scale=None) -> torch.Tensor:
-    """scale * DCT-III of the rows of a (T, n) float32 tensor, n = 256 ...
-    4096 a power of two. A CPU tensor runs the plain version; a CUDA tensor
-    launches kernel 24 or raises."""
-    _check_nat(x, "dct3_nat")
-    if x.device.type == "cpu":
-        return dct3_nat_plain(x, scale)
-    if x.device.type != "cuda":
-        raise ValueError(f"dct3_nat: unsupported device {x.device}")
-    check_cuda(x, torch.float32, "dct3_nat")
-    n = x.shape[1]
-    s = 1.0 if scale is None else float(scale)
-    y = _launch_nat(x, "ndfft_dct3_nat", device_wq(n // 2, +1, 1.0, x.device),
-                    _device_ab(n, 1.0, x.device), _device_twiddle("pre", n, s, x.device))
-    dct3_nat.launches += 1
-    return y
-
-
-dct3_nat.launches = 0
+dct2_nat = _dct_wrapper(
+    "dct2_nat", dct2_nat_plain, False, True,
+    "scale * DCT-II of the rows of a (T, n) float32 tensor (kernel 23), n = 128 * k "
+    "(dct_form).")
+dct3_nat = _dct_wrapper(
+    "dct3_nat", dct3_nat_plain, True, True,
+    "scale * DCT-III of the rows of a (T, n) float32 tensor (kernel 24), n = 128 * k "
+    "(dct_form).")
+dct2_mid = _dct_wrapper(
+    "dct2_mid", dct2_mid_plain, False, False,
+    "scale * DCT-II along dim 1 of a (B, n, L) float32 tensor (kernel 25), n = 128 * k "
+    "(dct_form).")
+dct3_mid = _dct_wrapper(
+    "dct3_mid", dct3_mid_plain, True, False,
+    "scale * DCT-III along dim 1 of a (B, n, L) float32 tensor (kernel 26), n = 128 * k "
+    "(dct_form).")

@@ -8,7 +8,8 @@
   ``_c2r_kernel_nat``).
 * Kernels 16 and 17, :func:`r2c_mid` and :func:`c2r_mid`: the same two along
   the middle axis of (B, n, L), kernel 1's column-tile layout of the core
-  (``csrc/rfft_mid.cu``; replace ``rfft.py::_r2c_kernel_mid`` and
+  (``csrc/rfft_mid.cu``, the fixed core for F in {2, 4, 8, 16}, the wide core
+  for every other F <= 160; replace ``rfft.py::_r2c_kernel_mid`` and
   ``_c2r_kernel_mid``).
 * Kernels 20 and 21, :func:`r2c_dense_mid` and :func:`c2r_dense_mid`: R2C and
   C2R along the middle axis as one real product with a host table,
@@ -26,8 +27,8 @@
 
 This module holds their host-built constants, their plain PyTorch versions
 and their wrappers, whose ``launches`` attributes count kernel launches
-(kernels 2, 3 and 15 on the core also count the wide core's launches apart,
-in ``wide_launches``).
+(kernels 2, 3, 15, 16 and 17 on the core also count the wide core's launches
+apart, in ``wide_launches``).
 """
 
 from __future__ import annotations
@@ -150,16 +151,9 @@ def c2r_nat_plain(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
     return torch.view_as_real(z).reshape(t, n)
 
 
-def _check_n(n: int, what: str) -> None:
-    """n = 2 * 128 * F with F in the fixed core's CORE_F (kernels 16, 17)."""
-    h = n // 2
-    if n % 2 or h % M or h // M not in CORE_F:
-        raise ValueError(f"{what}: n={n} is not 2 * 128 * F, F in {CORE_F}")
-
-
 def _check_nat(n: int, what: str) -> int:
     """F of the half length h = n/2 = 128 * F where the bts2 core (fixed or
-    wide) takes h (kernels 2, 3 and 15), or raise."""
+    wide) takes h (kernels 2, 3, 15, 16 and 17), or raise."""
     f = None if n % 2 else core_f(n // 2)
     if f is None:
         raise ValueError(f"{what}: n={n} is not 2 h with h = 128 * F, a twostep split "
@@ -262,7 +256,7 @@ c2r_nat.wide_launches = 0
 
 
 # --------------------------------------------------------------------------
-# Kernels 16 and 17: along the middle axis on the bts2 core
+# Kernels 16 and 17: along the middle axis on the bts2 core (fixed or wide)
 # --------------------------------------------------------------------------
 
 
@@ -298,24 +292,39 @@ def _check_mid(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
         raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
 
 
-def _launch_mid(entry: str, inp: torch.Tensor, out: torch.Tensor, n: int, wq,
+def _launch_mid(wrapper, inp: torch.Tensor, out: torch.Tensor, n: int, sign: int,
                 extra) -> None:
+    """Kernel 16 or 17 (``wrapper``'s) on (B, n, L): the fixed core for F in
+    CORE_F, else the wide core; adds one to the wrapper's launch counts."""
     nb, _, cols = inp.shape
-    c = block_cols(n // 2, nb, cols, num_sms(inp.device))
+    h = n // 2
+    wide = h // M not in CORE_F
+    entry = f"ndfft_{wrapper.__name__}" + ("_wide" if wide else "")
+    wq = device_wq(h, sign, 1.0, inp.device)
+    sms = num_sms(inp.device)
+    stream = torch.cuda.current_stream(inp.device).cuda_stream
     with torch.cuda.device(inp.device):
-        err = getattr(_build.lib(), entry)(
-            inp.data_ptr(), out.data_ptr(), wq.data_ptr(), extra.data_ptr(), nb, n,
-            cols, c, torch.cuda.current_stream(inp.device).cuda_stream)
+        if wide:
+            err = getattr(_build.lib(), entry)(
+                inp.data_ptr(), out.data_ptr(), wq.data_ptr(),
+                device_wide(h, sign, inp.device).data_ptr(), extra.data_ptr(), nb, n, cols,
+                wide_block(h, nb, cols, sms), stream)
+        else:
+            err = getattr(_build.lib(), entry)(
+                inp.data_ptr(), out.data_ptr(), wq.data_ptr(), extra.data_ptr(), nb, n,
+                cols, block_cols(h, nb, cols, sms), stream)
     _build.check(err, entry)
+    count_launch(wrapper, wide)
 
 
 def r2c_mid(x: torch.Tensor) -> torch.Tensor:
     """R2C along dim 1 of a (B, n, L) float32 tensor -> (B, n/2+1, L)
-    complex64, n = 2 * 128 * F with F in {2, 4, 8, 16}. A CPU tensor runs the
-    plain version; a CUDA tensor launches kernel 16 or raises."""
+    complex64, h = n/2 = 128 * F (:func:`_check_nat`). A CPU tensor runs the
+    plain version; a CUDA tensor launches kernel 16 (on the fixed core for F
+    in {2, 4, 8, 16}, else on the wide core) or raises."""
     _check_mid(x, torch.float32, "r2c_mid")
     nb, n, cols = x.shape
-    _check_n(n, "r2c_mid")
+    _check_nat(n, "r2c_mid")
     if x.device.type == "cpu":
         return r2c_mid_plain(x)
     if x.device.type != "cuda":
@@ -324,22 +333,22 @@ def r2c_mid(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((nb, n // 2 + 1, cols), dtype=torch.complex64, device=x.device)
     if x.numel() == 0:
         return out
-    _launch_mid("ndfft_r2c_mid", x, out, n, device_wq(n // 2, -1, 1.0, x.device),
-                _device_tw(n, x.device))
-    r2c_mid.launches += 1
+    _launch_mid(r2c_mid, x, out, n, -1, _device_tw(n, x.device))
     return out
 
 
 r2c_mid.launches = 0
+r2c_mid.wide_launches = 0
 
 
 def c2r_mid(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
     """C2R along dim 1 of a (B, n/2+1, L) complex64 spectrum -> (B, n, L)
     float32, times ``scale``; the DC and Nyquist imaginary parts are ignored.
-    n = 2 * 128 * F with F in {2, 4, 8, 16}. A CPU tensor runs the plain
-    version; a CUDA tensor launches kernel 17 or raises."""
+    h = n/2 = 128 * F (:func:`_check_nat`). A CPU tensor runs the plain
+    version; a CUDA tensor launches kernel 17 (on the fixed core for F in
+    {2, 4, 8, 16}, else on the wide core) or raises."""
     _check_mid(s, torch.complex64, "c2r_mid")
-    _check_n(n, "c2r_mid")
+    _check_nat(n, "c2r_mid")
     nb, m, cols = s.shape
     if m != n // 2 + 1:
         raise ValueError(f"c2r_mid: expected (B, {n // 2 + 1}, L), got {tuple(s.shape)}")
@@ -352,13 +361,12 @@ def c2r_mid(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
     out = torch.empty((nb, n, cols), dtype=torch.float32, device=s.device)
     if s.numel() == 0:
         return out
-    _launch_mid("ndfft_c2r_mid", s, out, n, device_wq(n // 2, +1, 1.0, s.device),
-                _device_ab(n, sc, s.device))
-    c2r_mid.launches += 1
+    _launch_mid(c2r_mid, s, out, n, +1, _device_ab(n, sc, s.device))
     return out
 
 
 c2r_mid.launches = 0
+c2r_mid.wide_launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -64,14 +64,19 @@ def test_step_runs_on_the_kernels(dev):
 
 def test_unported_route_and_grad_raise(dev):
     # n = 384 (F = 3) runs on kernel 10's wide core; DCT-II at n = 768
-    # (h = 384, K23 outside its factors) still raises
+    # (h = 384) on kernel 23's wide form; n = 128 * 161 (odd k > 160) raises
     x = torch.view_as_complex(torch.randn(256, 384, 2, device=dev))
     before = kfft.c2c_rows.wide_launches
     y = nd.ndfft(x, axis=1)
     assert kfft.c2c_rows.wide_launches - before == 1
     assert _rel(y.to(torch.complex128), torch.fft.fft(x.to(torch.complex128), dim=1)) <= 1e-5
-    with pytest.raises(NotImplementedError, match=r"_dct2_kernel.*item K1b\)"):
-        nd.nddct2(torch.zeros(256, 768, device=dev), axis=1)
+    r = torch.randn(256, 768, device=dev)
+    before = kdct.dct2_nat.wide_launches
+    y = nd.nddct2(r, axis=1)
+    assert kdct.dct2_nat.wide_launches - before == 1
+    assert _rel(y, kdct.dct2_nat_plain(r, 2.0)) <= TOL
+    with pytest.raises(NotImplementedError, match=r"_dct2_kernel.*item K23-K26 long\)"):
+        nd.nddct2(torch.zeros(128, 128 * 161, device=dev), axis=1)
     with pytest.raises(NotImplementedError, match="autograd"):
         nd.ndfft_r2c(torch.zeros(512, 512, device=dev, requires_grad=True), axis=1)
     y = nd.ndfft(torch.ones(4, 8, dtype=torch.complex128, device=dev), axis=1)
@@ -104,8 +109,15 @@ def test_dct_pair_runs_on_the_kernels(dev):
 
 
 def test_unported_dct_route_raises(dev):
-    with pytest.raises(NotImplementedError, match="_dct2_kernel_mid"):
-        nd.nddct2(torch.zeros(2048, 128, device=dev), axis=0)
+    # DCT-II along axis 0 at 2048 runs kernel 25 on the fixed core (it raised
+    # before the kernel was ported); the n-point form past 20480 still raises
+    x = torch.randn(2048, 128, device=dev)
+    before = kdct.dct2_mid.launches
+    y = nd.nddct2(x, axis=0)
+    assert kdct.dct2_mid.launches - before == 1
+    assert _rel(y, kdct.dct2_mid_plain(x[None], 2.0)[0]) <= TOL
+    with pytest.raises(NotImplementedError, match="_mid forms"):
+        nd.nddct2(torch.zeros(128 * 161, 128, device=dev), axis=0)
     assert nd.nddct2([1.0, 2.0, 3.0]).device.type == "cuda"   # non-tensor input
 
 
@@ -190,8 +202,16 @@ def test_rfft2d_runs_on_the_mid_kernels(dev):
         assert [f.launches - b for f, b in zip(fns, before)] == want
         assert _rel(y.to(torch.complex128), torch.fft.rfft(x.double(), dim=0)) <= 1e-5
         assert _rel(back, x) <= 1e-5
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item K1b"):
-        nd.ndfft_r2c(torch.zeros(768, 256, device=dev), axis=0)
+    # n = 768 (h = 384, F = 3): kernels 16 and 17 on the wide core
+    x = torch.randn(768, 256, generator=g, device=dev)
+    h = nd.R2cFftHandler(768)
+    before = [krfft.r2c_mid.wide_launches, krfft.c2r_mid.wide_launches]
+    y = nd.ndfft_r2c(x, h, axis=0)
+    back = nd.ndifft_r2c(y, h, axis=0)
+    assert [krfft.r2c_mid.wide_launches - before[0],
+            krfft.c2r_mid.wide_launches - before[1]] == [1, 1]
+    assert _rel(y, krfft.r2c_mid_plain(x[None])[0]) <= TOL
+    assert _rel(back, x) <= 1e-5
 
 
 def test_packed_r2c_kernels_match_plain(dev):
@@ -317,3 +337,69 @@ def test_real_step_768_runs_on_the_wide_kernels(dev):
         [(1, 1), (2, 2), (1, 1)]
     assert _rel(v.to(torch.complex128), torch.fft.rfftn(x.double())) <= 1e-5
     assert _rel(back, x) <= 1e-5
+
+
+def test_dct23_kernels_match_plain_in_every_form(dev):
+    """Kernels 23 to 26 in their three forms (fixed core, the wide core's
+    half length, the n-point form) and kernels 16/17 on the wide core:
+    ragged row and column tiles, prime F = 131, the largest tiles (n-point
+    F = 159, half length F = 128 and 160: one transform per tile)."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    forms = {"fixed": 0, "wide": 0, "npoint": 0}
+
+    def check(wrapper, plain, x, scale):
+        before = (wrapper.launches, wrapper.wide_launches, wrapper.npoint_launches)
+        got = wrapper(x, scale)
+        assert _rel(got, plain(x, scale)) <= TOL, (wrapper.__name__, tuple(x.shape))
+        d = [a - b for a, b in zip((wrapper.launches, wrapper.wide_launches,
+                                    wrapper.npoint_launches), before)]
+        assert d[0] == 1 and d[1] + d[2] <= 1
+        forms["wide" if d[1] else "npoint" if d[2] else "fixed"] += 1
+
+    for t, n in ((130, 128), (7, 384), (130, 768), (33, 1536), (3, 1152), (2, 128 * 159),
+                 (2, 128 * 131), (3, 32768), (130, 1024)):
+        x = torch.randn(t, n, generator=g, device=dev)
+        check(kdct.dct2_nat, kdct.dct2_nat_plain, x, 2.0)
+        check(kdct.dct3_nat, kdct.dct3_nat_plain, x, 0.5)
+    for shape in ((1, 512, 130), (2, 2048, 130), (1, 4096, 33), (2, 1280, 130), (1, 1536, 129),
+                  (2, 1152, 130), (1, 128 * 159, 3), (1, 32768, 2), (3, 384, 385)):
+        x = torch.randn(*shape, generator=g, device=dev)
+        check(kdct.dct2_mid, kdct.dct2_mid_plain, x, 2.0)
+        check(kdct.dct3_mid, kdct.dct3_mid_plain, x, None)
+    assert forms == {"fixed": 8, "wide": 12, "npoint": 16}
+    before = [krfft.r2c_mid.wide_launches, krfft.c2r_mid.wide_launches]
+    for shape in ((2, 768, 130), (1, 1280, 129), (1, 40960, 2)):
+        x = torch.randn(*shape, generator=g, device=dev)
+        assert _rel(krfft.r2c_mid(x), krfft.r2c_mid_plain(x)) <= TOL
+        s = torch.view_as_complex(torch.randn(shape[0], shape[1] // 2 + 1, shape[2], 2,
+                                              generator=g, device=dev))
+        s[:, 0] += 100j      # DC and Nyquist imaginary parts that must be ignored
+        s[:, -1] += 100j
+        for scale in (None, 1 / shape[1]):
+            assert _rel(krfft.c2r_mid(s, shape[1], scale),
+                        krfft.c2r_mid_plain(s, shape[1], scale)) <= TOL
+    assert [krfft.r2c_mid.wide_launches - before[0],
+            krfft.c2r_mid.wide_launches - before[1]] == [3, 6]
+
+
+def test_neumann_2d_runs_on_the_dct_kernels(dev):
+    """A 2-D Neumann solve at 1280 x 768 (K25 and K23/K24 on the wide core)
+    against its analytic solution."""
+    n0, n1 = 1280, 768
+    x0 = (torch.arange(n0, device=dev, dtype=torch.float64) + 0.5) / n0
+    x1 = (torch.arange(n1, device=dev, dtype=torch.float64) + 0.5) / n1
+    u = torch.cos(3 * torch.pi * x0)[:, None] * torch.cos(5 * torch.pi * x1)[None, :]
+    f = (torch.pi ** 2 * (9 + 25) * u).float()
+    h0, h1 = nd.DctHandler(n0), nd.DctHandler(n1)
+    h0i = h0.normalization(nd.Normalization.scalar(1 / n0))
+    h1i = h1.normalization(nd.Normalization.scalar(1 / n1))
+    fns = (kdct.dct2_mid, kdct.dct3_mid, kdct.dct2_nat, kdct.dct3_nat)
+    before = [f.wide_launches for f in fns]
+    fh = nd.nddct2(nd.nddct2(f, h1, axis=1), h0, axis=0)
+    k0 = (torch.arange(n0, device=dev, dtype=torch.float32) * torch.pi) ** 2
+    k1 = (torch.arange(n1, device=dev, dtype=torch.float32) * torch.pi) ** 2
+    lam = k0[:, None] + k1[None, :]
+    lam[0, 0] = float("inf")             # the zero mode is pinned to 0
+    got = nd.nddct3(nd.nddct3(fh / lam, h0i, axis=0), h1i, axis=1)
+    assert [f.wide_launches - b for f, b in zip(fns, before)] == [1, 1, 1, 1]
+    assert _rel(got.double(), u) <= 1e-5

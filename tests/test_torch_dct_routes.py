@@ -76,6 +76,16 @@ F32, F64 = torch.float32, torch.float64
     ("dct2", (256, 301), 1, api.R2C_ROWPAIR),
     ("dct2", (1200, 1100), 0, api.R2C_PACKED),                 # mid, n > 1100: axis moves
     ("dct1", (256, 385), 1, api.R2C_PACKED),                   # h = 384: the wide core, F = 3
+    # DCT-II/III (and DST-II/III) along a middle axis above K27's cap: K25/K26
+    # on the fixed core (2048, 4096) and in the n-point form (1152)
+    ("dct2", (2048, 128), 0, api.DCT2_MID),
+    ("dst2", (1152, 200), 0, api.DCT2_MID),
+    ("dct3", (4096, 128), 0, api.DCT3_MID),
+    # K23/K24 beyond the fixed core's half lengths: the n-point form (384 and
+    # 128, odd k) and the wide core's half length (8192: h = 4096, F = 32)
+    ("dct2", (128, 384), 1, api.DCT2_NAT),
+    ("dct3", (128, 128), 1, api.DCT3_NAT),
+    ("dct2", (128, 8192), 1, api.DCT2_NAT),
 ])
 def test_route_on_cuda(kind, shape, axis, want):
     assert api._route(kind, shape, axis, F32, "cuda") == want
@@ -88,9 +98,6 @@ def test_float64_takes_the_engine(kind):
 
 
 @pytest.mark.parametrize("kind,shape,axis,kernel,item", [
-    ("dct2", (2048, 128), 0, "_dct2_kernel_mid", "K25"),
-    ("dst2", (1152, 200), 0, "_dct2_kernel_mid", "K25"),
-    ("dct3", (4096, 128), 0, "_dct3_kernel_mid", "K26"),
     ("dct2", (2053, 128), 0, "_kernel_axis_mid_blue_rr", "K12"),
     ("dct3", (1109, 128), 0, "_kernel_axis_mid_blue_rr", "K12"),
     ("dct1", (1153, 128), 0, "_dct1_kernel_mid", "K19"),
@@ -98,9 +105,10 @@ def test_float64_takes_the_engine(kind):
     ("dst1", (1023, 128), 0, "_r2c_kernel_packed_mid", "K18"),
     ("dct4", (2048, 128), 0, "_dct4_kernel_mid", "K28"),
     ("dct4", (2 * 1031, 128), 0, "_kernel_axis_mid_blue", "K11"),  # composite, m prime
-    ("dct2", (128, 384), 1, "_dct2_kernel / _dct3_kernel", "K1b"),
-    ("dct3", (128, 128), 1, "_dct2_kernel / _dct3_kernel", "K1b"),
-    ("dct2", (128, 8192), 1, "_dct2_kernel / _dct3_kernel", "K1b"),
+    # the n-point form beyond the wide core: n = 128 * k, odd k > 160
+    ("dct2", (128, 128 * 161), 1, "_dct2_kernel / _dct3_kernel", "K23-K26 long"),
+    ("dst3", (128, 128 * 255), 1, "_dct2_kernel / _dct3_kernel", "K23-K26 long"),
+    ("dct3", (128 * 161, 128), 0, "_dct2_kernel / _dct3_kernel", "K23-K26 long"),
     ("dct4", (256, 32768), 1, "_kernel_exit_mul", "K7"),          # four-step
     ("dct3", (256, 263), 1, "_kernel_axis_mid_blue", "K11"),      # Bluestein n
 ])
@@ -113,7 +121,7 @@ def test_unported_route_raises_on_cuda(kind, shape, axis, kernel, item):
 
 def test_dct_routes_never_take_the_fft_kernels():
     """K1-K3 serve no DCT/DST route: every length whose DCT route would
-    reach them takes K23/K24/K28 first (api._dct_lane, _route_r2r). The
+    reach them takes K23-K26/K28 first (api._dct_lane, _route_r2r). The
     lane lowerings reach K15, K10 and K8, and the DCT-IV composite K6, under
     their own route names."""
     for n in range(2, 5000, 3):
@@ -124,7 +132,7 @@ def test_dct_routes_never_take_the_fft_kernels():
                 except NotImplementedError:
                     continue
                 assert route in (api.DCT_DENSE_MID, api.DCT2_NAT, api.DCT3_NAT,
-                                 api.DCT4_HALF_MID, api.R2C_PACKED, api.R2C_ROWPAIR,
+                                 api.DCT2_MID, api.DCT3_MID, api.DCT4_HALF_MID, api.R2C_PACKED, api.R2C_ROWPAIR,
                                  api.DCT_LANE, api.ENGINE), (kind, shape, axis, route)
 
 

@@ -192,13 +192,13 @@ def test_mid_wrappers_on_cpu_count_no_launch():
 
 @pytest.mark.parametrize("call", [
     lambda: krfft.r2c_mid(torch.zeros(512, 3)),                                   # rank
-    lambda: krfft.r2c_mid(torch.zeros(1, 768, 3)),                                # F = 3
-    lambda: krfft.r2c_mid(torch.zeros(1, 8192, 3)),                               # F = 32
+    lambda: krfft.r2c_mid(torch.zeros(1, 2 * 131 * 128, 3)),                      # no plan
+    lambda: krfft.r2c_mid(torch.zeros(1, 2 * 161 * 128, 3)),                      # F > 160
     lambda: krfft.r2c_mid(torch.zeros(1, 513, 3)),                                # odd
     lambda: krfft.r2c_mid(torch.zeros(1, 512, 3, device="meta")),                 # device
     lambda: krfft.c2r_mid(torch.zeros(257, 3, dtype=C64), 512),
     lambda: krfft.c2r_mid(torch.zeros(1, 256, 3, dtype=C64), 512),                # m != n/2+1
-    lambda: krfft.c2r_mid(torch.zeros(1, 385, 3, dtype=C64), 768),
+    lambda: krfft.c2r_mid(torch.zeros(1, 193, 3, dtype=C64), 384),                # h = 192
     lambda: krfft.c2r_mid(torch.zeros(1, 257, 3, dtype=C64, device="meta"), 512),
     lambda: krfft.r2c_dense_mid(torch.zeros(201, 3)),
     lambda: krfft.r2c_dense_mid(torch.zeros(1, 3, 3)),                            # n < 4
@@ -251,11 +251,8 @@ def test_mid_gates_match_the_jax_package(kind):
         nat = ref_rfft.rfft_nat_supported(ref_plan.get_r2c_plan(n), f32)
         dense = ref_rfft.rfft_dense_mid_supported(n, f32)
         got = _port_route(kind, n)
-        if nat:
-            f = n // 2 // 128
-            want = ((api.R2C_MID if kind == "r2c" else api.C2R_MID)
-                    if f in (2, 4, 8, 16) else "K1b")
-            assert got == want, (n, got)
+        if nat:     # K16/K17 at every factor: the fixed core or the wide one
+            assert got == (api.R2C_MID if kind == "r2c" else api.C2R_MID), (n, got)
         elif dense:
             assert got == (api.R2C_DENSE_MID if kind == "r2c" else api.C2R_DENSE_MID), (n, got)
         else:
@@ -266,12 +263,12 @@ def test_mid_gates_match_the_jax_package(kind):
                                     ("r2c", 1536), ("c2r", 6144)])
 def test_mid_route_outside_the_core_factors_raises(kind, n):
     """The JAX package runs these half lengths (F = 3, 32, 6, 24) on kernels
-    16/17 with stage 1 as a dot; the port's core has no such factor, so a
-    CUDA tensor raises naming K1b and never launches, and a CPU tensor takes
-    the engine."""
+    16/17 with stage 1 as a dot; the port runs them on the wide core, so a
+    CUDA tensor takes K16/K17 and raises nothing, and a CPU tensor runs the
+    same wrappers' plain versions, which match the float64 FFT."""
     shape = (n, 256) if kind == "r2c" else (n // 2 + 1, 256)
     dtype = F32 if kind == "r2c" else C64
-    with pytest.raises(NotImplementedError, match="_kernel_mid") as exc:
-        api._route(kind, shape, 0, dtype, "cuda", n=n)
-    assert str(exc.value).endswith("(ROADMAP.md item K1b)")
-    assert api._route(kind, shape, 0, dtype, "cpu", n=n) == api.ENGINE
+    want = api.R2C_MID if kind == "r2c" else api.C2R_MID
+    assert api._route(kind, shape, 0, dtype, "cuda", n=n) == want
+    assert api._route(kind, shape, 0, dtype, "cpu", n=n) == want
+    assert krfft.core_f(n // 2) not in krfft.CORE_F

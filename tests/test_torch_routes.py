@@ -87,6 +87,12 @@ C64, F32 = torch.complex64, torch.float32
     ("fft", (384, 256), 0, C64, None, api.C2C_AXIS_MID),
     ("fft", (4096, 128), 0, C64, None, api.C2C_AXIS_MID),
     ("r2c", (256, 8192), 1, F32, None, api.R2C_NAT),
+    # a middle axis whose half length has a factor outside the fixed core's
+    # {2, 4, 8, 16}: F = 3 (n = 768) and F = 32 (n = 8192), on the wide core
+    ("r2c", (768, 256), 0, F32, None, api.R2C_MID),
+    ("r2c", (8192, 128), 0, F32, None, api.R2C_MID),
+    ("c2r", (385, 256), 0, C64, 768, api.C2R_MID),
+    ("c2r", (4097, 128), 0, C64, 8192, api.C2R_MID),
 ])
 def test_route_on_cuda(kind, shape, axis, dtype, n, want):
     assert api._route(kind, shape, axis, dtype, "cuda", n=n) == want
@@ -95,12 +101,11 @@ def test_route_on_cuda(kind, shape, axis, dtype, n, want):
 @pytest.mark.parametrize("kind,shape,axis,n,kernel,item", [
     ("fft", (2, 1 << 17), 1, None, "_kernel_exit_mul", "K7"),
     ("fft", (509, 256), 0, None, "_kernel_axis_mid_blue", "K11"),
-    # a middle axis whose half length has a factor outside the core's
-    # {2, 4, 8, 16}: F = 3 (n = 768) and F = 32 (n = 8192)
-    ("r2c", (768, 256), 0, None, "_r2c_kernel_mid", "K1b"),
-    ("r2c", (8192, 128), 0, None, "_r2c_kernel_mid", "K1b"),
-    ("c2r", (385, 256), 0, 768, "_c2r_kernel_mid", "K1b"),
-    ("c2r", (4097, 128), 0, 8192, "_c2r_kernel_mid", "K1b"),
+    # a middle-axis R2C/C2R whose length needs Bluestein beyond K20/K21's cap
+    ("r2c", (2 * 1031, 128), 0, None, "_kernel_axis_mid_blue", "K11"),
+    ("c2r", (1032, 128), 0, 2 * 1031, "_kernel_axis_mid_blue", "K11"),
+    ("r2c", (1153, 256), 0, None, "_kernel_axis_mid_blue", "K11"),
+    ("c2r", (1154, 128), 0, 2 * 1153, "_kernel_axis_mid_blue", "K11"),
 ])
 def test_unported_route_raises_on_cuda(kind, shape, axis, n, kernel, item):
     dtype = F32 if kind == "r2c" else C64

@@ -10,8 +10,8 @@ JAX package on the CPU:
 * ``wide_consts`` and ``bts2_consts`` bit for bit against ``_bts2_consts``
   (its Wf and Wq), C-contiguous;
 * the wrappers' checks, launch counters, tile sizes and the Wq cache;
-* the routes: over n = 2 ... 20480 no C2C, last-axis R2C, C2R or DCT-I
-  raises K1b; K16/K17 at wide F and K23/K24 outside their factors still do.
+* the routes: over n = 2 ... 20480 no C2C, R2C, C2R, DCT-I, DCT-II or
+  DCT-III raises K1b, and no DCT-II/III raises K25/K26.
 
 Tolerance: max |port - JAX| <= 5e-6 * max |JAX| at the JAX package's
 "highest" tier, where each side measures ~5e-7 against a float64 oracle.
@@ -226,25 +226,27 @@ def _raise_item(kind, shape, axis, dtype, n=None):
 
 def test_no_c2c_rfft_lane_or_dct1_length_raises_k1b():
     """Over n = 2 ... 20480 on (128, n) rows and along the middle axis of
-    (4, n, 128): C2C, the last-axis R2C and C2R and DCT-I never raise K1b
-    (the wide core takes every n = 128 * F the JAX gates reach); the
-    middle-axis R2C raises K1b exactly at a natural-layout half length
-    outside the fixed core's factors (K16/K17), DCT-II along the last axis
-    exactly where K23's split has h outside 128 * {1, 2, 4, 8, 16}."""
-    wide = {"k16": 0, "k23": 0, "c2c_wide": 0}
+    (4, n, 128): no C2C, R2C, C2R, DCT-I, DCT-II or DCT-III raises K1b (the
+    wide core takes every n = 128 * F the JAX gates reach, K16/K17 and
+    K23/K24 included), and no DCT-II/III raises K25/K26; the middle-axis R2C
+    takes K16 at every natural-layout half length, and DCT-II takes K23 (rows)
+    and K25 (middle axis) exactly where dct_pallas_supported's split holds."""
+    wide = {"k16": 0, "k23": 0, "k25": 0, "c2c_wide": 0}
     for n in range(2, 20481):
         for shape, axis in (((128, n), 1), ((4, n, 128), 1)):
             assert _raise_item("fft", shape, axis, C64) != "K1b", n
-        assert _raise_item("r2c", (128, n), 1, F32) != "K1b", n
-        assert _raise_item("c2r", (128, n // 2 + 1), 1, C64, n) != "K1b", n
-        assert _raise_item("dct1", (128, n), 1, F32) != "K1b", n
-        f = api._nat_f(n)
-        k16 = f is not None and f not in kfft.CORE_F
-        assert (_raise_item("r2c", (4, n, 128), 1, F32) == "K1b") == k16, n
-        h = n // 2
-        k23 = n % 2 == 0 and api._ts_ok(n) and not (h % 128 == 0 and h // 128 in kdct.DCT_F)
-        assert (_raise_item("dct2", (128, n), 1, F32) == "K1b") == k23, n
-        wide["k16"] += k16
-        wide["k23"] += k23
+            assert _raise_item("r2c", shape, axis, F32) != "K1b", n
+            assert _raise_item("c2r", shape[:axis] + (n // 2 + 1,) + shape[axis + 1:], axis,
+                               C64, n) != "K1b", n
+            for kind in ("dct1", "dct2", "dct3", "dst2", "dst3"):
+                assert _raise_item(kind, shape, axis, F32) not in ("K1b", "K25", "K26"), n
+        k16 = api._nat_f(n) is not None
+        assert (_raise_item("r2c", (4, n, 128), 1, F32) == api.R2C_MID) == k16, n
+        k23 = n % 2 == 0 and api._ts_ok(n)
+        assert (_raise_item("dct2", (128, n), 1, F32) == api.DCT2_NAT) == k23, n
+        assert (_raise_item("dct2", (4, n, 128), 1, F32) == api.DCT2_MID) == (k23 and n > 1100), n
+        wide["k16"] += k16 and api._nat_f(n) not in kfft.CORE_F
+        wide["k23"] += k23 and not (n % 256 == 0 and n // 256 in kdct.DCT_F)
+        wide["k25"] += k23 and n > 1100
         wide["c2c_wide"] += kfft.core_f(n) not in (None, 4, 8, 16) and n > 256
-    assert wide == {"k16": 75, "k23": 155, "c2c_wide": 149}
+    assert wide == {"k16": 75, "k23": 155, "k25": 152, "c2c_wide": 149}
