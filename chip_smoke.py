@@ -84,6 +84,21 @@ without the final line):
         against its plain version on the same input, slice by slice (the
         plain version does not fit whole), their times, and the solve's
         time against a float32 torch.fft Makhoul solve (in slabs, to fit);
+     i. DST-I, DCT-I and DCT-IV along a middle axis (kernels 18, 19 and 28)
+        through the multi-axis functions: the Dirichlet Poisson solve on the
+        1023^3 interior of a 1024^3 grid (dstn / idstn of type 1: K18 at
+        h = 1024 on axes 0 and 1, K15 on axis 2), the vertex-centred Neumann
+        solve on 2049 x 2049 x 257 (dctn / idctn of type 1: K19 on axes 0
+        and 1) and the mixed Neumann-Dirichlet cell-centred solve on
+        2048 x 2048 x 256 (type 4: K28 on axes 0 and 1, the DCT-IV lane on
+        axis 2), each forward spectrum against its exact sparse values and
+        each solution against the analytic one, slab by slab in float64;
+        DST-I, DCT-I, DCT-IV and DST-IV along axis 0 at 255 ... 40960
+        against float64 scipy.fft, and DCT-IV at 41216 raising (dct4_long);
+        each solve kernel at its shape against its plain version slice by
+        slice, their times (K18 against torch.fft.rfft of the interleaved
+        column), the solves' times and the Dirichlet solve against a
+        float32 torch.fft DST-I solve (in slabs, to fit);
   5. times with CUDA events (median over --reps runs after warm-up): each
      kernel against its plain version and, where one PyTorch call computes
      the same function, that call (the yardstick, never on the port's
@@ -103,8 +118,9 @@ error against its plain version, its times, and its bound: the larger of
 the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its FP32 operations over 67 TFLOP/s (H100 SXM data
 sheet, 700 W). Its launches are the sum over the main paths of phase 4;
-kernels 1, 2, 3, 10, 15, 16 and 17 on the bts2 core are two rows each, the
-fixed core (launches - wide_launches) and the wide one (wide_launches), and
+kernels 1, 2, 3, 10, 15, 16, 17, 18, 19 and 28 on the bts2 core are two rows
+each, the fixed core (launches - wide_launches) and the wide one
+(wide_launches), and
 kernels 23 to 26 three: the fixed core, the wide core's half length and
 the n-point form (npoint_launches).
 The line before the last is the card as nvidia-smi names it; the last line
@@ -127,6 +143,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 TOL_KERNEL = 5e-6    # kernel vs plain, relative to max |plain| (both float32)
 TOL_PACKED = 2e-6    # kernel 15 (core, dense) vs plain: sums of at most 2048 terms
 TOL_STEP = 1e-5      # step vs float64 oracle and round trip, relative
+# the forms that a wrapper counts apart beside ``launches`` (which counts
+# every launch): ``wide_launches`` and, for the DCT-II/III kernels,
+# ``npoint_launches``
+FORMS = ("wide", "npoint")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, 700 W
 FP32_FLOP_PER_S = 67e12     # FP32 outside the tensor cores, same source
 
@@ -180,6 +200,21 @@ def work(name: str, shape):
         f = core // 128
         tables = 8 * core * 128 + 16 * n + (0 if form == "fixed" else 8 * f * f)
         return 8 * transforms * n + tables, 2.5 * n * math.log2(n) * transforms
+    if name.startswith(("r2c_packed_mid", "dct1_mid", "dct4_mid")):
+        # K18: two (B, h, L) streams in, (B, h + 1, L) complex out; K19 and
+        # K28: (B, n, L) in and out; the core's Wq and a twiddle of its
+        # length, the wide core's DFT-F, and K19 wide's (B, h, L) complex64
+        # workspace, written once and read once
+        b, w, cols = shape
+        k18, k28 = name.startswith("r2c"), name.startswith("dct4")
+        core = w if k18 else w // 2 if k28 else w - 1
+        io = 8 * b * core * cols + 8 * b * (core + 1) * cols if k18 else 8 * b * w * cols
+        tables = 8 * core * 128 + (16 if k28 else 8) * core
+        if name.endswith("_wide"):
+            tables += 8 * (core // 128) ** 2
+            io += 16 * b * core * cols if name.startswith("dct1") else 0
+        flops = (5 * core * math.log2(core) if k28 else 2.5 * 2 * core * math.log2(2 * core))
+        return io + tables, flops * b * cols
     if name.endswith("_wide"):
         base = name[:-len("_wide")]
         nbytes, flops = work(base, shape)
@@ -286,6 +321,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     import ndrustfft_tpu_torch as nd
+    from ndrustfft_tpu_torch.ops import dst as tdst
     from ndrustfft_tpu_torch.ops import engine
     from ndrustfft_tpu_torch.ops.hopper import _build
     from ndrustfft_tpu_torch.ops.hopper import dct as kdct
@@ -342,7 +378,9 @@ def main() -> int:
             "r2c_packed_wide": 0.0, "r2c_mid_wide": 0.0, "c2r_mid_wide": 0.0,
             "dct2_nat_wide": 0.0, "dct3_nat_wide": 0.0, "dct2_nat_npoint": 0.0,
             "dct3_nat_npoint": 0.0, "dct2_mid": 0.0, "dct3_mid": 0.0, "dct2_mid_wide": 0.0,
-            "dct3_mid_wide": 0.0, "dct2_mid_npoint": 0.0, "dct3_mid_npoint": 0.0}
+            "dct3_mid_wide": 0.0, "dct2_mid_npoint": 0.0, "dct3_mid_npoint": 0.0,
+            "r2c_packed_mid": 0.0, "r2c_packed_mid_wide": 0.0, "dct1_mid": 0.0,
+            "dct1_mid_wide": 0.0, "dct4_mid": 0.0, "dct4_mid_wide": 0.0}
     k1_shapes = [(1, 512, 257), (1, 1024, 513), (3, 2048, 130), (512, 512, 257),
                  (1, 512, 512 * 257), (1, 512, 512), (1, 1024, 1024), (512, 512, 512),
                  (1, 512, 512 * 512), (257, 512, 512)]
@@ -511,25 +549,86 @@ def main() -> int:
                 raise AssertionError(f"{name} {shape}: {rel}")
             del x, got, ref
 
-    # the wide core (F outside the fixed core's factors): the main paths'
-    # shapes (phase 4g), ragged column and row tiles, prime F = 127 and the
-    # largest F = 160 (one column or row per block); the C2R spectra carry
-    # DC and Nyquist imaginary parts that must be ignored
-    def check_wide(name, kern, got_fn, ref_fn, shape, attr="wide_launches", **kw):
-        """got_fn() (a launch counted in ``attr``: the wide core, the fixed
-        core's ``launches`` or the n-point form's) against ref_fn()."""
-        before = getattr(kern, attr)
+    def form_counts(kern):
+        return [kern.launches] + [getattr(kern, f"{f}_launches", 0) for f in FORMS]
+
+    def assert_launched(name, kern, before, shape):
+        """One launch of ``kern`` since ``before`` (its form_counts), in the
+        form that ``name`` ends with, or on the fixed core where it names
+        none."""
+        form = name.rsplit("_", 1)[-1]
+        want = [1] + [int(f == form) for f in FORMS]
+        got = [now - then for now, then in zip(form_counts(kern), before)]
+        if got != want:
+            raise AssertionError(f"{name} {shape}: launches {got}, expected {want}")
+
+    def check_form(name, kern, got_fn, ref_fn, shape, **kw):
+        """got_fn() (one launch of ``kern`` in the form ``name`` names)
+        against ref_fn()."""
+        before = form_counts(kern)
         got = got_fn()
         ref = ref_fn()
         torch.cuda.synchronize()
-        if getattr(kern, attr) != before + 1:
-            raise AssertionError(f"{name} {shape}: not launched as {attr}")
+        assert_launched(name, kern, before, shape)
         rel = abs_err(got, ref) / float(ref.abs().max())
         errs[name] = max(errs[name], abs_err(got, ref))
         emit(phase="kernel_vs_plain", kernel=name, shape=shape, rel_err=rel, **kw)
         if not rel <= TOL_KERNEL:
             raise AssertionError(f"{name} {shape} {kw}: {rel}")
 
+    sliced = {}     # kernel -> the solve shapes that check_sliced timed
+
+    def check_sliced(name, kern, plain, ins, dim, extra, reps, tol=TOL_KERNEL, library=None,
+                     timed=True):
+        """kern(*ins, *extra) on the whole tensors (one launch, in the form
+        that ``name`` names) against plain on 64 slices of them along the
+        batch axis ``dim`` (the plain versions take ~10x their input's
+        memory); then, if ``timed``, the kernel's time, the plain version's
+        over the same slices and library()'s (the yardstick) into
+        ``timing``."""
+        shape = tuple(ins[0].shape)
+        step = -(-shape[dim] // 64)
+        cuts = [(i0, min(step, shape[dim] - i0)) for i0 in range(0, shape[dim], step)]
+
+        def plain_cut(i0, size):
+            return plain(*[t.narrow(dim, i0, size) for t in ins], *extra)
+
+        before = form_counts(kern)
+        y = kern(*ins, *extra)
+        torch.cuda.synchronize()
+        assert_launched(name, kern, before, shape)
+        err, peak_ref = 0.0, 0.0
+        for i0, size in cuts:
+            ref = plain_cut(i0, size)
+            err = max(err, abs_err(y.narrow(dim, i0, size), ref))
+            peak_ref = max(peak_ref, float(ref.abs().max()))
+            del ref
+        del y
+        rel = err / peak_ref
+        errs[name] = max(errs[name], err)
+        emit(phase="kernel_vs_plain", kernel=name, shape=shape, rel_err=rel, sliced_dim=dim,
+             extra=list(extra))
+        if not rel <= tol:
+            raise AssertionError(f"{name} {shape} {extra}: {rel}")
+        if not timed:
+            return
+
+        def plain_cuts():
+            for cut in cuts:
+                plain_cut(*cut)
+
+        t_k = cuda_ms(lambda: kern(*ins, *extra), reps, 1)
+        t_plain = cuda_ms(plain_cuts, reps, 1)
+        t_lib = cuda_ms(library, reps, 1) if library is not None else None
+        timing[(name, shape)] = (t_k, t_plain, t_lib)
+        sliced.setdefault(name, []).append(shape)
+        emit(phase="time", kernel=name, shape=shape, ms=t_k, plain_ms=t_plain,
+             library_ms=t_lib, plain_in_slices=len(cuts), card=card)
+
+    # the wide core (F outside the fixed core's factors): the main paths'
+    # shapes (phase 4g), ragged column and row tiles, prime F = 127 and the
+    # largest F = 160 (one column or row per block); the C2R spectra carry
+    # DC and Nyquist imaginary parts that must be ignored
     for name, kern, plain, shapes in (
             ("c2c_axis_mid_wide", kfft.c2c_axis_mid, kfft.c2c_axis_mid_plain,
              ((768, 768, 385), (1, 768, 295680), (1, 4096, 4096), (1, 4096, 2049),
@@ -540,7 +639,7 @@ def main() -> int:
         for shape in shapes:
             x = crandn(*shape)
             for sign, scale in ((-1, None), (+1, 1.0 / shape[1])):
-                check_wide(name, kern, lambda: kern(x, sign, scale),
+                check_form(name, kern, lambda: kern(x, sign, scale),
                            lambda: plain(x, sign, scale), shape, sign=sign, scale=scale)
             del x
     for t, n in ((589824, 768), (128, 1536), (7, 1536), (5, 2 * 16256), (128, 40960)):
@@ -548,17 +647,17 @@ def main() -> int:
         s = crandn(t, n // 2 + 1)
         s[:, 0] += 100j
         s[:, -1] += 100j
-        check_wide("r2c_nat_wide", krfft.r2c_nat, lambda: krfft.r2c_nat(x),
+        check_form("r2c_nat_wide", krfft.r2c_nat, lambda: krfft.r2c_nat(x),
                    lambda: krfft.r2c_nat_plain(x), (t, n))
         for scale in (1.0 / n, None):
-            check_wide("c2r_nat_wide", krfft.c2r_nat, lambda: krfft.c2r_nat(s, n, scale),
+            check_form("c2r_nat_wide", krfft.c2r_nat, lambda: krfft.c2r_nat(s, n, scale),
                        lambda: krfft.c2r_nat_plain(s, n, scale), (t, n // 2 + 1), scale=scale)
         del x, s
     # kernel 15 at h = 128 * F is kernel 2's code: the DCT-I path's (769,
     # 1536), a ragged few rows, F = 127 and 160
     for shape in ((769, 1536), (3, 768), (5, 2 * 16256), (2, 40960)):
         x = randn(*shape)
-        check_wide("r2c_packed_wide", krfft.r2c_packed, lambda: krfft.r2c_packed(x),
+        check_form("r2c_packed_wide", krfft.r2c_packed, lambda: krfft.r2c_packed(x),
                    lambda: krfft.r2c_packed_plain(x), shape)
         del x
     # kernels 16/17 on the wide core (phase 4h's 768 and 1280 along axis 0,
@@ -573,33 +672,60 @@ def main() -> int:
         s = crandn(nb, n // 2 + 1, cols)
         s[:, 0] += 100j
         s[:, -1] += 100j
-        check_wide("r2c_mid_wide", krfft.r2c_mid, lambda: krfft.r2c_mid(x),
+        check_form("r2c_mid_wide", krfft.r2c_mid, lambda: krfft.r2c_mid(x),
                    lambda: krfft.r2c_mid_plain(x), shape)
         for scale in (1.0 / n, None):
-            check_wide("c2r_mid_wide", krfft.c2r_mid, lambda: krfft.c2r_mid(s, n, scale),
+            check_form("c2r_mid_wide", krfft.c2r_mid, lambda: krfft.c2r_mid(s, n, scale),
                        lambda: krfft.c2r_mid_plain(s, n, scale), (nb, n // 2 + 1, cols),
                        scale=scale)
         del x, s
     dct_forms = (
-        ("nat", "launches", ((2048, 2048), (130, 1024))),
-        ("nat_wide", "wide_launches", ((768, 768), (1536, 1536), (7, 1536), (3, 32768))),
-        ("nat_npoint", "npoint_launches", ((128, 128), (384, 384), (3, 1152),
-                                           (2, 128 * 131), (2, 128 * 159))),
-        ("mid", "launches", ((1, 2048, 2048), (2, 4096, 33), (3, 512, 130))),
-        ("mid_wide", "wide_launches", ((1, 1280, 1280), (1, 1536, 1536), (2, 1280, 130),
-                                       (1, 32768, 2))),
-        ("mid_npoint", "npoint_launches", ((1, 1152, 1152), (2, 1152, 130), (3, 384, 385),
-                                           (1, 128 * 159, 3))))
-    for form, attr, shapes in dct_forms:
+        ("nat", ((2048, 2048), (130, 1024))),
+        ("nat_wide", ((768, 768), (1536, 1536), (7, 1536), (3, 32768))),
+        ("nat_npoint", ((128, 128), (384, 384), (3, 1152), (2, 128 * 131), (2, 128 * 159))),
+        ("mid", ((1, 2048, 2048), (2, 4096, 33), (3, 512, 130))),
+        ("mid_wide", ((1, 1280, 1280), (1, 1536, 1536), (2, 1280, 130), (1, 32768, 2))),
+        ("mid_npoint", ((1, 1152, 1152), (2, 1152, 130), (3, 384, 385), (1, 128 * 159, 3))))
+    for form, shapes in dct_forms:
         for t in (2, 3):
             kern = getattr(kdct, f"dct{t}_{form.split('_')[0]}")
             plain = getattr(kdct, f"{kern.__name__}_plain")
             for shape in shapes:
                 x = randn(*shape)
                 for scale in (2.0, None):
-                    check_wide(f"dct{t}_{form}", kern, lambda: kern(x, scale),
-                               lambda: plain(x, scale), shape, attr=attr, scale=scale)
+                    check_form(f"dct{t}_{form}", kern, lambda: kern(x, scale),
+                               lambda: plain(x, scale), shape, scale=scale)
                 del x
+    # kernels 18, 19 and 28 on the fixed core and on the wide core: phase
+    # 4i's lengths, ragged column tiles, the prime F = 131 (K28) and the
+    # largest tiles (F = 160, one column per tile); the solves' shapes are
+    # checked in phase 4i, slice by slice
+    for name, shapes in (
+            ("r2c_packed_mid", ((2, 256, 130), (1, 1024, 1023), (1, 1024, 130), (3, 2048, 33))),
+            ("r2c_packed_mid_wide", ((1, 384, 383), (1, 1536, 1535), (2, 1152, 130),
+                                     (1, 20480, 128)))):
+        for shape in shapes:
+            xe, xo = randn(*shape), randn(*shape)
+            for scale in (-1.0, None):
+                check_form(name, krfft.r2c_packed_mid, lambda: krfft.r2c_packed_mid(xe, xo, scale),
+                           lambda: krfft.r2c_packed_mid_plain(xe, xo, scale), shape, scale=scale)
+            del xe, xo
+    for name, kern, plain, scales, shapes in (
+            ("dct1_mid", krfft.dct1_mid, krfft.dct1_mid_plain, (1.0, 0.5),
+             ((1, 2049, 2049), (2, 2049, 130), (1, 1025, 257))),
+            ("dct1_mid_wide", krfft.dct1_mid, krfft.dct1_mid_plain, (1.0, 0.5),
+             ((1, 1153, 1153), (1, 1537, 1537), (2, 1153, 130), (1, 20481, 128))),
+            ("dct4_mid", kdct.dct4_mid, kdct.dct4_mid_plain, (2.0, None),
+             ((1, 2048, 2048), (1, 4096, 1024), (2, 2048, 130), (1, 1024, 257))),
+            ("dct4_mid_wide", kdct.dct4_mid, kdct.dct4_mid_plain, (2.0, None),
+             ((1, 1280, 1280), (1, 1536, 1536), (2, 1280, 130), (1, 256 * 131, 3),
+              (1, 40960, 128)))):
+        for shape in shapes:
+            x = randn(*shape)
+            for scale in scales:
+                check_form(name, kern, lambda: kern(x, scale), lambda: plain(x, scale), shape,
+                           scale=scale)
+            del x
     torch.cuda.empty_cache()
 
     # ---- 4a. the spectral step through the public functions
@@ -625,14 +751,17 @@ def main() -> int:
                 "c2c_generic_rows": kfft.c2c_generic_rows,
                 "c2c_generic_mid": kfft.c2c_generic_mid,
                 "r2c_packed_generic": krfft.r2c_packed_generic,
-                "dct2_mid": kdct.dct2_mid, "dct3_mid": kdct.dct3_mid}
+                "dct2_mid": kdct.dct2_mid, "dct3_mid": kdct.dct3_mid,
+                "r2c_packed_mid": krfft.r2c_packed_mid, "dct1_mid": krfft.dct1_mid,
+                "dct4_mid": kdct.dct4_mid}
     # the wide core's launches and the DCT kernels' n-point ones, counted
     # apart by the same wrappers (their ``launches`` count every launch)
     forms = {f"{name}_{form}": (wrappers[name], f"{form}_launches")
              for name in ("c2c_axis_mid", "c2c_rows", "r2c_nat", "c2r_nat", "r2c_packed",
                           "r2c_mid", "c2r_mid", "dct2_nat", "dct3_nat", "dct2_mid",
-                          "dct3_mid")
-             for form in ("wide", "npoint") if form == "wide" or name.startswith("dct")}
+                          "dct3_mid", "r2c_packed_mid", "dct1_mid", "dct4_mid")
+             for form in FORMS
+             if form == "wide" or name.startswith(("dct2", "dct3"))}
 
     def count(name):
         if name in forms:
@@ -1282,9 +1411,7 @@ def main() -> int:
     del x2k, f2k, b2k, mid_out, last_out, dst_out, rfft_out, spec, back
 
     # each kernel of the solve at its 1536^3 shape against its plain version
-    # on the same input: the kernel on the whole tensor, the plain version
-    # on 64 slices along a batch axis (it takes ~10x the field's memory);
-    # then their times (the plain version's over the same 64 slices)
+    # on the same input, slice by slice, and their times
     reps8 = max(2, min(reps_big, args.reps))
     x8r = randn(n8, n8, n8)
     legs8 = (("dct2_nat_wide", kdct.dct2_nat, (n8 * n8, n8), 0, 2.0),
@@ -1294,37 +1421,8 @@ def main() -> int:
              ("dct3_mid_wide", kdct.dct3_mid, (n8, n8, n8), 0, 1.0 / n8),
              ("dct3_mid_wide", kdct.dct3_mid, (1, n8, n8 * n8), 2, 1.0 / n8))
     for name, kern, shape, dim, scale in legs8:
-        x = x8r.view(shape)
-        plain = getattr(kdct, f"{kern.__name__}_plain")
-        step = shape[dim] // 64
-        parts = [x.narrow(dim, i0, step) for i0 in range(0, shape[dim], step)]
-        before = kern.wide_launches
-        y = kern(x, scale)
-        torch.cuda.synchronize()
-        if kern.wide_launches != before + 1:
-            raise AssertionError(f"{name} {shape}: not launched on the wide core")
-        err, peak_ref = 0.0, 0.0
-        for i0, part in zip(range(0, shape[dim], step), parts):
-            ref = plain(part, scale)
-            err = max(err, abs_err(y.narrow(dim, i0, step), ref))
-            peak_ref = max(peak_ref, float(ref.abs().max()))
-            del ref
-        del y
-        rel = err / peak_ref
-        errs[name] = max(errs[name], err)
-        emit(phase="kernel_vs_plain", kernel=name, shape=shape, rel_err=rel, sliced_dim=dim)
-        if not rel <= TOL_KERNEL:
-            raise AssertionError(f"{name} {shape}: {rel}")
-        def plain_slices():
-            for part in parts:
-                plain(part, scale)
-
-        t_k = cuda_ms(lambda: kern(x, scale), reps8, 1)
-        t_plain = cuda_ms(plain_slices, reps8, 1)
-        timing[(name, shape)] = (t_k, t_plain, None)
-        emit(phase="time", kernel=name, shape=shape, ms=t_k, plain_ms=t_plain,
-             library_ms=None, plain_in_slices=len(parts), card=card)
-        del x, parts, part      # the last slice too: a view keeps x8r alive
+        check_sliced(name, kern, getattr(kdct, f"{kern.__name__}_plain"), [x8r.view(shape)],
+                     dim, (scale,), reps8)
     del x8r
     torch.cuda.empty_cache()
 
@@ -1366,6 +1464,266 @@ def main() -> int:
     del f8
     torch.cuda.empty_cache()
 
+    # ---- 4i. DST-I, DCT-I and DCT-IV along a middle axis (K18, K19, K28)
+    # through the multi-axis functions. The main path: the Dirichlet Poisson
+    # solve on the 1023^3 interior of a 1024^3 grid (dstn / idstn of type 1:
+    # K15 at h = 1024 on axis 2, K18 at h = 1024, F = 8, at (1023, 1024, 1023)
+    # and (1, 1024, 1046529); 4.28 GB per field), its forward spectrum
+    # against the exact sparse values and its solution against the analytic
+    # one, slab by slab in float64. Then the vertex-centred Neumann solve on
+    # 2049 x 2049 x 257 (dctn / idctn of type 1: K19 fixed, F = 16, on axes 0
+    # and 1, K15 at h = 256 on axis 2), the mixed Neumann-Dirichlet
+    # cell-centred solve on 2048 x 2048 x 256 (type 4: K28 fixed, F = 8, on
+    # axes 0 and 1, the DCT-IV lane's K8 on 2 x 4194304 rows of 256 on axis
+    # 2), the lengths against float64 scipy.fft, each solve kernel at its
+    # shape against its plain version slice by slice, and the times.
+    def slab_ranges(n, step=32):
+        return [(i0, min(i0 + step, n)) for i0 in range(0, n, step)]
+
+    def poisson_solve(path, grid, modes, basis, lam, shift, spec_scale, fwd, inv, expected):
+        """-lap_h u = f for u = sum amp * basis_0(a) basis_1(b) basis_2(c):
+        f = sum amp * eig(a, b, c) * the same mode, built slab by slab; the
+        solve fwd, division by the eigenvalues in place, inv, with the
+        launches counted; the spectrum (exact: amp * eig * spec_scale at
+        (a, b, c)) and the solution checked slab by slab in float64.
+        basis[i](m): mode m on axis i (float64); lam[i]: float64 eigenvalue
+        of index k on axis i, mode m at index k = m - shift (the sines start
+        at m = 1); a zero eigenvalue (the Neumann zero mode) pins that mode
+        of u to 0. Returns f and the solve as a function of f."""
+        l32 = [v.float() for v in lam]
+
+        def eig(a, b, c):
+            return float(lam[0][a - shift] + lam[1][b - shift] + lam[2][c - shift])
+
+        def modal(i0, i1, weight):
+            out = torch.zeros(i1 - i0, grid[1], grid[2], device=dev, dtype=torch.float64)
+            for a, b, c, amp in modes:
+                out += (amp * weight(a, b, c) * basis[0](a)[i0:i1, None, None]
+                        * basis[1](b)[None, :, None] * basis[2](c)[None, None, :])
+            return out
+
+        def divide(fh):
+            for i0, i1 in slab_ranges(grid[0]):
+                lam3 = l32[0][i0:i1, None, None] + l32[1][None, :, None] + l32[2][None, None, :]
+                lam3[lam3 == 0] = math.inf    # the zero mode of u is pinned to 0
+                fh[i0:i1].div_(lam3)
+            return fh
+
+        def solve(f, on_spectrum=None):
+            fh = fwd(f)
+            if on_spectrum is not None:
+                on_spectrum(fh)
+            return inv(divide(fh))
+
+        spec = {}
+
+        def check_spectrum(fh):
+            err = 0.0
+            for i0, i1 in slab_ranges(grid[0]):
+                d = fh[i0:i1].double()
+                for a, b, c, amp in modes:
+                    if i0 <= a - shift < i1:
+                        d[a - shift - i0, b - shift, c - shift] -= amp * eig(a, b, c) * spec_scale
+                err = max(err, float(d.abs().max()))
+            spec["rel_err"] = err / max(abs(amp) * eig(a, b, c) * spec_scale
+                                        for a, b, c, amp in modes)
+
+        f = torch.empty(*grid, device=dev)
+        for i0, i1 in slab_ranges(grid[0]):
+            f[i0:i1] = modal(i0, i1, eig)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        u = solve(f, check_spectrum)
+        read_counts(path, **expected)
+        peak = torch.cuda.max_memory_allocated()
+        err, ref_peak, finite = 0.0, 0.0, True
+        for i0, i1 in slab_ranges(grid[0]):
+            want = modal(i0, i1, lambda a, b, c: 1.0)
+            err = max(err, float((u[i0:i1].double() - want).abs().max()))
+            ref_peak = max(ref_peak, float(want.abs().max()))
+            finite = finite and bool(torch.isfinite(u[i0:i1]).all())
+        sol = err / ref_peak
+        emit(phase="packed_mid_path", check=path, fwd_rel_err=spec["rel_err"],
+             solution_rel_err=sol, finite=finite, shape=list(u.shape), peak_bytes=peak,
+             base_bytes=base)
+        if not (spec["rel_err"] <= TOL_STEP and sol <= TOL_STEP and finite):
+            raise AssertionError(f"{path}: forward {spec['rel_err']}, solution {sol}")
+        return f, solve
+
+    def grid_pts(n, offset, den):
+        return (torch.arange(n, device=dev, dtype=torch.float64) + offset) / den
+
+    def eigs(n, shift, den):
+        """(2 - 2 cos(pi (k + shift) / den)) den^2 over k = 0 .. n - 1: the
+        3-point Laplacian's eigenvalue on a grid of spacing 1 / den."""
+        return (2 - 2 * torch.cos(math.pi * (torch.arange(n, device=dev, dtype=torch.float64)
+                                             + shift) / den)) * den * den
+
+    n9 = 1023
+    pts9 = grid_pts(n9, 1, n9 + 1)
+    f9, solve9 = poisson_solve(
+        "dirichlet_1023^3", (n9,) * 3, ((1, 2, 3, 1.0), (5, 3, 2, 0.5), (100, 7, 300, 0.25)),
+        [lambda m: torch.sin(m * math.pi * pts9)] * 3, [eigs(n9, 1, n9 + 1)] * 3, 1,
+        float(n9 + 1) ** 3, lambda f: nd.dstn(f, 1), lambda fh: nd.idstn(fh, 1),
+        dict(r2c_packed=2, r2c_packed_mid=4))
+
+    # the yardstick, never on the port's path: scipy's DST-I through float32
+    # torch.fft (-Im of the R2C of the odd extension) along each axis, in
+    # slabs of 64 along another axis so that the extension fits
+    def dst1_fft(x, axis, scale):
+        other = 1 if axis == 0 else 0
+        n = x.shape[axis]
+        out = torch.empty_like(x)
+        for i0, i1 in slab_ranges(x.shape[other], 64):
+            idx = (slice(None),) * other + (slice(i0, i1),)
+            xs = x[idx].movedim(axis, -1)
+            z = torch.zeros_like(xs[..., :1])
+            ext = torch.cat([z, xs, z, -xs.flip(-1)], dim=-1)
+            out[idx] = (torch.fft.rfft(ext).imag[..., 1:n + 1] * -scale).movedim(-1, axis)
+        return out
+
+    lam9 = eigs(n9, 1, n9 + 1).float()
+
+    def yardstick9(f):
+        fh = dst1_fft(dst1_fft(dst1_fft(f, 0, 1.0), 1, 1.0), 2, 1.0)
+        for i0, i1 in slab_ranges(n9):
+            fh[i0:i1].div_(lam9[i0:i1, None, None] + lam9[None, :, None] + lam9[None, None, :])
+        inv_scale = 1.0 / (2 * (n9 + 1))
+        return dst1_fft(dst1_fft(dst1_fft(fh, 0, inv_scale), 1, inv_scale), 2, inv_scale)
+
+    reps9 = max(2, min(reps_big, args.reps))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_port = cuda_ms(lambda: solve9(f9), reps9, 1)
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t_yard = cuda_ms(lambda: yardstick9(f9), reps9, 1)
+    peak_yard = torch.cuda.max_memory_allocated()
+    y9 = yardstick9(f9)
+    u9 = solve9(f9)
+    yard_vs_port = abs_err(y9, u9) / float(u9.abs().max())
+    del y9, u9
+    emit(phase="time", dirichlet=[n9] * 3, ms=t_port, torch_fft_dst1_ms=t_yard,
+         peak_bytes=peak, yardstick_peak_bytes=peak_yard, yardstick_vs_port=yard_vs_port,
+         card=card)
+    # where the solve's time goes: each forward leg alone (the inverse legs
+    # do the same work) and the axis-0 leg's stream assembly; K15 alone on
+    # the axis-2 leg's extension rows is timed with the solve kernels below
+    h9 = nd.DstHandler(n9)
+    a9 = nd.nddst1(f9, h9, axis=0)
+    b9 = nd.nddst1(a9, h9, axis=1)
+    legs = {"dst1_axis0": lambda: nd.nddst1(f9, h9, axis=0),
+            "dst1_axis1": lambda: nd.nddst1(a9, h9, axis=1),
+            "dst1_axis2": lambda: nd.nddst1(b9, h9, axis=2),
+            "streams_axis0": lambda: tdst.dst1_streams(f9.reshape(1, n9, n9 * n9))}
+    leg_ms = {k: cuda_ms(fn, reps9, 1) for k, fn in legs.items()}
+    del a9, b9
+    emit(phase="time", breakdown="dirichlet_1023^3", solve_ms=t_port, legs_ms=leg_ms,
+         card=card)
+    del f9
+    torch.cuda.empty_cache()
+
+    nn_grid = (2049, 2049, 257)
+    nn_pts = [grid_pts(n, 0, n - 1) for n in nn_grid]
+    f_nn, solve_nn = poisson_solve(
+        "neumann_2049^2x257", nn_grid, ((1, 2, 3, 1.0), (5, 3, 2, 0.5), (300, 40, 100, 0.25)),
+        [lambda m, p=p: torch.cos(m * math.pi * p) for p in nn_pts],
+        [eigs(n, 0, n - 1) for n in nn_grid], 0, float(2048 * 2048 * 256),
+        lambda f: nd.dctn(f, 1), lambda fh: nd.idctn(fh, 1), dict(dct1_mid=4, r2c_packed=2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_port = cuda_ms(lambda: solve_nn(f_nn), reps9, 1)
+    emit(phase="time", neumann_vertex=list(nn_grid), ms=t_port,
+         peak_bytes=torch.cuda.max_memory_allocated(), card=card)
+    del f_nn
+    torch.cuda.empty_cache()
+
+    mx_grid = (2048, 2048, 256)
+    mx_pts = [grid_pts(n, 0.5, n) for n in mx_grid]
+    f_mx, solve_mx = poisson_solve(
+        "mixed_2048^2x256", mx_grid, ((1, 2, 3, 1.0), (5, 3, 2, 0.5), (300, 40, 100, 0.25)),
+        [lambda m, p=p: torch.cos((m + 0.5) * math.pi * p) for p in mx_pts],
+        [eigs(n, 0.5, n) for n in mx_grid], 0, float(2048 * 2048 * 256),
+        lambda f: nd.dctn(f, 4), lambda fh: nd.idctn(fh, 4), dict(dct4_mid=4, c2c_dense_rows=2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_port = cuda_ms(lambda: solve_mx(f_mx), reps9, 1)
+    emit(phase="time", mixed_cell=list(mx_grid), ms=t_port,
+         peak_bytes=torch.cuda.max_memory_allocated(), card=card)
+    del f_mx
+    torch.cuda.empty_cache()
+
+    # the lengths along axis 0 against float64 scipy.fft: DST-I at 255
+    # (F = 2), 383 (F = 3, wide), 1535, 20479 (F = 160) and 1023 with a
+    # ragged L = 130; DCT-I at 1153 (F = 9), 1537, 20481 and the bench row
+    # 2049^2; DCT-IV at 1280 (F = 5), 1536, 4096 (F = 16), 40960 (F = 160)
+    # and the bench row 2048^2; DST-IV at 2048; DCT-IV at 41216 raises
+    try:
+        nd.nddct4(torch.zeros(41216, 128, device=dev), axis=0)
+    except NotImplementedError as exc:
+        if "dct4_long" not in str(exc):
+            raise
+        emit(phase="packed_mid_path", check="dct4_41216_raises", message=str(exc))
+    else:
+        raise AssertionError("DCT-IV at n = 41216 along axis 0 did not raise")
+    len_in = {(kind, shape): randn(*shape) for kind, shapes in (
+        ("dst1", ((255, 255), (383, 383), (1535, 1535), (20479, 128), (1023, 130))),
+        ("dct1", ((1153, 1153), (1537, 1537), (20481, 128), (2049, 2049))),
+        ("dct4", ((1280, 1280), (1536, 1536), (4096, 1024), (40960, 128), (2048, 2048))),
+        ("dst4", ((2048, 2048),))) for shape in shapes}
+    reset_counts()
+    len_out = {key: getattr(nd, f"nd{key[0]}")(x, axis=0) for key, x in len_in.items()}
+    read_counts("packed_mid_lengths", r2c_packed_mid=5, r2c_packed_mid_wide=3, dct1_mid=4,
+                dct1_mid_wide=3, dct4_mid=6, dct4_mid_wide=3)
+    for (kind, shape), y in len_out.items():
+        oracle = sfft.dct if kind.startswith("dct") else sfft.dst
+        check(f"{kind}_axis0", y, oracle(host64(len_in[(kind, shape)]), type=int(kind[3]),
+                                         axis=0), grid=list(shape))
+    del len_in, len_out
+
+    # each kernel of the solves at its shape against its plain version on
+    # the same input, slice by slice, and their times: K18 at both of the
+    # Dirichlet solve's shapes, K15 at its axis-2 leg's (1023^2 rows of the
+    # 2048-point extension) and the Neumann solve's (2049^2 rows of 512),
+    # K19 and K28 at theirs, and K8 at the mixed solve's DCT-IV lane (2 x
+    # 2048^2 rows of 256, 2^31 complex values) in both directions. The
+    # yardsticks: K18's the torch.fft.rfft of the interleaved column, K15's
+    # torch.fft.rfft and K8's torch.fft.fft of the rows; the DCTs have none.
+    def interleaved_rfft(xe, xo):
+        col = torch.stack([xe, xo], dim=2).reshape(xe.shape[0], 2 * xe.shape[1], xe.shape[2])
+        return lambda: torch.fft.rfft(col, dim=1)
+
+    legs9 = (("r2c_packed_mid", krfft.r2c_packed_mid, krfft.r2c_packed_mid_plain,
+              ((n9, n9 + 1, n9),) * 2, 0, (-1.0,), interleaved_rfft),
+             ("r2c_packed_mid", krfft.r2c_packed_mid, krfft.r2c_packed_mid_plain,
+              ((1, n9 + 1, n9 * n9),) * 2, 2, (-1.0,), interleaved_rfft),
+             ("r2c_packed", krfft.r2c_packed, krfft.r2c_packed_plain,
+              ((n9 * n9, 2 * (n9 + 1)),), 0, (), lambda x: lambda: torch.fft.rfft(x, dim=1)),
+             ("r2c_packed", krfft.r2c_packed, krfft.r2c_packed_plain,
+              ((2049 * 2049, 512),), 0, (), lambda x: lambda: torch.fft.rfft(x, dim=1)),
+             ("dct1_mid", krfft.dct1_mid, krfft.dct1_mid_plain, (nn_grid,), 0, (1.0,), None),
+             ("dct1_mid", krfft.dct1_mid, krfft.dct1_mid_plain, ((1, 2049, 2049 * 257),), 2,
+              (1.0,), None),
+             ("dct4_mid", kdct.dct4_mid, kdct.dct4_mid_plain, (mx_grid,), 0, (2.0,), None),
+             ("dct4_mid", kdct.dct4_mid, kdct.dct4_mid_plain, ((1, 2048, 2048 * 256),), 2,
+              (2.0,), None))
+    for name, kern, plain, shapes, dim, fargs, library in legs9:
+        ins = [randn(*shape) for shape in shapes]
+        check_sliced(name, kern, plain, ins, dim, fargs, reps9,
+                     tol=TOL_PACKED if name == "r2c_packed" else TOL_KERNEL,
+                     library=library and library(*ins))
+        del ins
+        torch.cuda.empty_cache()
+    x = crandn(2 * 2048 * 2048, 256)
+    for sign, scale in ((-1, None), (+1, 1.0 / 256)):
+        check_sliced("c2c_dense_rows", kfft.c2c_dense_rows, kfft.c2c_dense_rows_plain, [x], 0,
+                     (sign, scale), reps9, library=lambda: torch.fft.fft(x, dim=1),
+                     timed=sign < 0)
+    del x
+    torch.cuda.empty_cache()
+
     # ---- 5. times: each kernel against its plain version and, at the main
     # path's shape, the PyTorch call that computes the same function (the
     # yardstick); the steps against torch.fft (the 1536^3 solve's kernels
@@ -1388,7 +1746,10 @@ def main() -> int:
                    "dct3_nat_npoint": (384, 384), "dct2_mid": (1, 2048, 2048),
                    "dct3_mid": (1, 2048, 2048), "dct2_mid_wide": (1, 1536, 1536 * 1536),
                    "dct3_mid_wide": (1, 1536, 1536 * 1536), "dct2_mid_npoint": (1, 1152, 1152),
-                   "dct3_mid_npoint": (1, 1152, 1152)}
+                   "dct3_mid_npoint": (1, 1152, 1152), "r2c_packed_mid": (1023, 1024, 1023),
+                   "r2c_packed_mid_wide": (1, 1536, 1535), "dct1_mid": (2049, 2049, 257),
+                   "dct1_mid_wide": (1, 1537, 1537), "dct4_mid": (2048, 2048, 256),
+                   "dct4_mid_wide": (1, 1536, 1536)}
 
     def time_kernel(name, shape, kern, plain, library=None):
         t_plain = cuda_ms(plain, reps)
@@ -1659,6 +2020,22 @@ def main() -> int:
             x = randn(*shape)
             time_kernel(name, shape, lambda: kern(x, 2.0), lambda: plain(x, 2.0))
             del x
+    # kernels 18, 19 and 28 on the wide core at phase 4i's lengths (their
+    # fixed forms were timed there, at the solves' shapes); K18's yardstick
+    # is torch.fft.rfft of the interleaved column
+    xe, xo = randn(1, 1536, 1535), randn(1, 1536, 1535)
+    col = torch.stack([xe, xo], dim=2).reshape(1, 3072, 1535)
+    time_kernel("r2c_packed_mid_wide", (1, 1536, 1535),
+                lambda: krfft.r2c_packed_mid(xe, xo, -1.0),
+                lambda: krfft.r2c_packed_mid_plain(xe, xo, -1.0),
+                lambda: torch.fft.rfft(col, dim=1))
+    del xe, xo, col
+    for name, kern, plain, shape, scale in (
+            ("dct1_mid_wide", krfft.dct1_mid, krfft.dct1_mid_plain, (1, 1537, 1537), 1.0),
+            ("dct4_mid_wide", kdct.dct4_mid, kdct.dct4_mid_plain, (1, 1536, 1536), 2.0)):
+        x = randn(*shape)
+        time_kernel(name, shape, lambda: kern(x, scale), lambda: plain(x, scale))
+        del x
     t_port = cuda_ms(lambda: dct_pair(xp), reps)
     t_yard = cuda_ms(lambda: yardstick_pair(xp), reps)
     emit(phase="time", dct_pair=[1024, 1024], ms=t_port, torch_fft_makhoul_ms=t_yard,
@@ -1741,6 +2118,18 @@ def main() -> int:
                             "ndrustfft_tpu/ops/pallas/dct.py:333"),
         "dct3_mid_npoint": ("ndrustfft_tpu_torch/csrc/dct_mid.cu",
                             "ndrustfft_tpu/ops/pallas/dct.py:351"),
+        "r2c_packed_mid": ("ndrustfft_tpu_torch/csrc/rfft_packed_mid.cu",
+                           "ndrustfft_tpu/ops/pallas/rfft.py:627"),
+        "r2c_packed_mid_wide": ("ndrustfft_tpu_torch/csrc/rfft_packed_mid.cu",
+                                "ndrustfft_tpu/ops/pallas/rfft.py:627"),
+        "dct1_mid": ("ndrustfft_tpu_torch/csrc/dct1_mid.cu",
+                     "ndrustfft_tpu/ops/pallas/rfft.py:724"),
+        "dct1_mid_wide": ("ndrustfft_tpu_torch/csrc/dct1_mid.cu",
+                          "ndrustfft_tpu/ops/pallas/rfft.py:724"),
+        "dct4_mid": ("ndrustfft_tpu_torch/csrc/dct4_mid.cu",
+                     "ndrustfft_tpu/ops/pallas/dct.py:670"),
+        "dct4_mid_wide": ("ndrustfft_tpu_torch/csrc/dct4_mid.cu",
+                          "ndrustfft_tpu/ops/pallas/dct.py:670"),
     }
     kernels = []
     for name, (src, rep) in sources.items():
@@ -1749,11 +2138,16 @@ def main() -> int:
         # a wrapper's ``launches`` counts its wide and n-point launches too
         fixed = (launches[name] - launches.get(name + "_wide", 0)
                  - launches.get(name + "_npoint", 0))
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": fixed,
-                        "max_abs_err": errs[name], "ms": t_k, "plain_ms": t_plain,
-                        "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": t_lib, "shape": list(main_shapes[name])})
+        row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
+               "launches": fixed, "max_abs_err": errs[name], "ms": t_k, "plain_ms": t_plain,
+               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": t_lib,
+               "shape": list(main_shapes[name])}
+        # the same numbers at the shapes of phases 4h and 4i's solves
+        row["solve_shapes"] = [
+            dict(zip(("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
+                     (list(shape), *timing[(name, shape)], *bound(*work(name, shape)))))
+            for shape in sliced.get(name, ())]
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,31 +1,38 @@
 """ndrustfft_tpu_torch: the n-D spectral transforms of ``ndrustfft_tpu`` in
 PyTorch, with hand-written CUDA kernels for Hopper (H100).
 
-The real spectral step of a pseudo-spectral solver runs on the card through
-three kernels (``ops/hopper``): C2C along a middle axis, and R2C / C2R of
-contiguous rows. The complex n-D transform (``ndfft``/``ndifft`` on every
-axis) adds three: C2C of contiguous rows, and a dense C2C product (n <= 512)
-along a middle axis or along rows; lengths above 256 without a {128, 256}
-split take the generic two-factor schedule, along rows or a middle axis.
-The DCT/DST family runs through three more: a dense DCT of any type along a
-middle axis (n <= 1100), and DCT-II / DCT-III of contiguous rows. Everything
-else runs the plain torch engine, or raises
-``NotImplementedError`` on a CUDA tensor where the JAX package would use a
-Pallas kernel that is not ported yet (see ``api._route`` and ROADMAP.md).
+The public surface is the JAX package's: ``ndfft``/``ndifft``,
+``ndfft_r2c``/``ndifft_r2c``, ``nddct1..4`` and ``nddst1..4`` along one axis
+(``api.py``), their ``_par`` twins (the serial functions: the port has no
+sharded input), and the multi-axis ``fftn`` ... ``idstn`` (``ndapi.py``).
+
+On a CUDA tensor every call runs the route ``api._route`` names: a CUDA
+kernel of ``ops/hopper`` (the bts2 core at n = 128 * F, the dense products,
+the generic two-factor schedule, the R2C/C2R and DCT kernels along rows and
+along a middle axis), the plain torch engine where the JAX package runs
+XLA, or ``NotImplementedError`` where the JAX package would use a Pallas
+kernel that is not ported yet (ROADMAP.md). A CPU tensor runs each kernel's
+plain PyTorch version.
 """
 
 from .api import (
-    nddct1, nddct2, nddct3, nddct4, nddst1, nddst2, nddst3, nddst4, ndfft,
-    ndfft_r2c, ndifft, ndifft_r2c,
+    nddct1, nddct1_par, nddct2, nddct2_par, nddct3, nddct3_par, nddct4, nddct4_par, nddst1,
+    nddst1_par, nddst2, nddst2_par, nddst3, nddst3_par, nddst4, nddst4_par, ndfft,
+    ndfft_par, ndfft_r2c, ndfft_r2c_par, ndifft, ndifft_par, ndifft_r2c, ndifft_r2c_par,
 )
 from .config import config
 from .handlers import DctHandler, DstHandler, FftHandler, R2cFftHandler
+from .ndapi import dctn, dstn, fftn, idctn, idstn, ifftn, irfftn, rfftn
 from .normalization import Normalization
 
 __all__ = [
     "ndfft", "ndifft", "ndfft_r2c", "ndifft_r2c",
     "nddct1", "nddct2", "nddct3", "nddct4",
     "nddst1", "nddst2", "nddst3", "nddst4",
+    "ndfft_par", "ndifft_par", "ndfft_r2c_par", "ndifft_r2c_par",
+    "nddct1_par", "nddct2_par", "nddct3_par", "nddct4_par",
+    "nddst1_par", "nddst2_par", "nddst3_par", "nddst4_par",
+    "fftn", "ifftn", "rfftn", "irfftn", "dctn", "idctn", "dstn", "idstn",
     "FftHandler", "R2cFftHandler", "DctHandler", "DstHandler",
     "Normalization", "config",
 ]

@@ -22,7 +22,10 @@ DCT_LANE (the DCT-III/IV lowerings' C2C); each C2C is K10 or K8 (dense, or
 the generic schedule above 256). The route and the lowering in
 ``ops/engine.py`` are decided by the same function of ``gates.py``; the
 launch counters show which kernel ran. DCT4_HALF_MID is the DCT-IV/DST-IV
-composite along a middle axis, its half-length C2C on K6.
+composite along a middle axis, its half-length C2C on K6; R2C_PACKED_MID
+(DST-I's odd-extension streams on K18), DCT1_MID (K19) and DCT4_MID (the
+fused DCT-IV/DST-IV, K28) run along a middle axis in place. The ``_par``
+names are the serial functions (the port has no sharded input).
 
 A non-tensor input (numpy array, list, scalar) goes to the CUDA device, as
 the JAX package puts it on its default device; a CPU tensor is how a caller
@@ -40,10 +43,10 @@ import torch
 from .config import config
 from .gates import (
     C2C_AXIS_MID, C2C_DENSE_MID, C2C_DENSE_ROWS, C2C_GENERIC_MID, C2C_GENERIC_ROWS, C2C_ROWS,
-    C2R_DENSE_MID, C2R_LANE, C2R_MID, C2R_NAT, DCT2_MID, DCT2_NAT, DCT3_MID, DCT3_NAT,
-    DCT4_HALF_MID,
-    DCT_DENSE_MID, DCT_LANE, ENGINE, MIN_BATCH,
-    R2C_DENSE_MID, R2C_MID, R2C_NAT, R2C_PACKED, R2C_ROWPAIR, _c2c_kernel_route,
+    C2R_DENSE_MID, C2R_LANE, C2R_MID, C2R_NAT, DCT1_MID, DCT2_MID, DCT2_NAT, DCT3_MID,
+    DCT3_NAT, DCT4_HALF_MID, DCT4_MID, DCT_DENSE_MID, DCT_LANE, ENGINE, MIN_BATCH,
+    R2C_DENSE_MID, R2C_MID, R2C_NAT, R2C_PACKED, R2C_PACKED_MID, R2C_ROWPAIR,
+    _c2c_kernel_route,
     _kernel_ok, _lane_c2c, _nat_f, _twostep_split, c2r_lane_route, inner_c2c_route,
     packed_lane, r2c_lane_route, unported,
 )
@@ -59,12 +62,16 @@ from .plan import MAX_BASE_RADIX, factorize, get_c2c_plan, get_r2c_plan
 
 __all__ = ["ndfft", "ndifft", "ndfft_r2c", "ndifft_r2c",
            "nddct1", "nddct2", "nddct3", "nddct4",
-           "nddst1", "nddst2", "nddst3", "nddst4"]
+           "nddst1", "nddst2", "nddst3", "nddst4",
+           "ndfft_par", "ndifft_par", "ndfft_r2c_par", "ndifft_r2c_par",
+           "nddct1_par", "nddct2_par", "nddct3_par", "nddct4_par",
+           "nddst1_par", "nddst2_par", "nddst3_par", "nddst4_par"]
 
 _RUNNABLE = (C2C_AXIS_MID, C2C_ROWS, C2C_DENSE_ROWS, C2C_DENSE_MID, C2C_GENERIC_ROWS,
              C2C_GENERIC_MID, R2C_NAT, C2R_NAT, R2C_MID, C2R_MID, R2C_DENSE_MID,
              C2R_DENSE_MID, DCT_DENSE_MID, DCT2_NAT, DCT3_NAT, DCT2_MID, DCT3_MID,
-             DCT4_HALF_MID, R2C_PACKED, R2C_ROWPAIR, C2R_LANE, DCT_LANE, ENGINE)
+             DCT4_HALF_MID, R2C_PACKED_MID, DCT1_MID, DCT4_MID, R2C_PACKED, R2C_ROWPAIR,
+             C2R_LANE, DCT_LANE, ENGINE)
 _C2C_KINDS = ("fft", "ifft")
 _R2R_KINDS = tuple(f"{f}{t}" for f in ("dct", "dst") for t in (1, 2, 3, 4))
 
@@ -133,8 +140,9 @@ def _route(kind: str, shape, axis: int, dtype: torch.dtype, device_type: str,
     C2C_ROWS, C2C_DENSE_ROWS, C2C_DENSE_MID, C2C_GENERIC_ROWS,
     C2C_GENERIC_MID, R2C_NAT, C2R_NAT, R2C_MID, C2R_MID, R2C_DENSE_MID,
     C2R_DENSE_MID, DCT_DENSE_MID, DCT2_NAT, DCT3_NAT, DCT2_MID, DCT3_MID, the
-    DCT-IV composite DCT4_HALF_MID, and the lane lowerings' R2C_PACKED,
-    R2C_ROWPAIR, C2R_LANE, DCT_LANE) or ENGINE.
+    DCT-IV composite DCT4_HALF_MID, R2C_PACKED_MID, DCT1_MID, DCT4_MID, and
+    the lane lowerings' R2C_PACKED, R2C_ROWPAIR, C2R_LANE, DCT_LANE) or
+    ENGINE.
 
     ``kind`` is "fft", "ifft", "r2c", "c2r", "dct1".."dct4" or
     "dst1".."dst4"; ``shape``, ``axis`` and ``dtype`` are the input's; ``n``
@@ -237,16 +245,17 @@ def _route_r2r(kind, shape, axis, n):
     batch = math.prod(shape) // max(n, 1)
     if kind == "dst1":
         if dims is not None and _nat_f(2 * n + 2) is not None:
-            return "r2c_packed_mid"
+            return R2C_PACKED_MID
         return packed_lane(n + 1, batch)
     if dims is not None:
         if 2 <= n <= _DENSE_DCT_MAX:
             return DCT_DENSE_MID
         if t == 1:
+            # the JAX package's packed DCT-I branch (its api.py:393-409) has
+            # no route here: its half length n - 1 = 128 * F means an odd n,
+            # which K19 takes
             if n % 2 and n >= 5 and _nat_f(2 * (n - 1)) is not None:
-                return "dct1_mid"
-            if _nat_f(2 * n - 2) is not None:
-                return "r2c_packed_mid"
+                return DCT1_MID
         elif t in (2, 3):
             if n % 2 == 0 and _ts_ok(n):
                 return _dct23_kernel(n, DCT2_MID if t == 2 else DCT3_MID)
@@ -254,7 +263,7 @@ def _route_r2r(kind, shape, axis, n):
                 return "dct23_blue_mid"
         elif n % 2 == 0:
             if _ts_ok(n // 2):
-                return "dct4_mid"
+                return DCT4_MID if _kdct.dct4_f(n) is not None else "dct4_long"
             m = n // 2
             if factorize(m) is not None and _kernel_ok(m):
                 # the JAX package's half-length C2C composite (its
@@ -299,8 +308,8 @@ def _unnormalized(handler):
 def _check_grad(x):
     if x.requires_grad and x.device.type == "cuda":
         raise NotImplementedError(
-            "the CUDA kernels have no backward yet (ROADMAP.md, queue 1 "
-            "item 8: autograd)")
+            "the CUDA kernels have no backward yet (ROADMAP.md §1, "
+            "autograd)")
 
 
 # the C2C kernels along a middle axis, by route
@@ -389,11 +398,16 @@ def _dct_scale(norm):
     return None
 
 
-# the DCT routes along a middle axis: fn(x3, dct_type, scale) on (B, n, L)
+# the DCT routes along a middle axis: fn(x3, dct_type, scale) on (B, n, L);
+# kernel 19 takes 0.5 * the policy's scalar (1 for NONE), as the JAX package
+# passes it
 _MID_DCT = {DCT_DENSE_MID: _kdct.dct_dense_mid,
             DCT4_HALF_MID: lambda x3, t, scale: _dct.dct4_half_mid(x3, scale),
             DCT2_MID: lambda x3, t, scale: _kdct.dct2_mid(x3, scale),
-            DCT3_MID: lambda x3, t, scale: _kdct.dct3_mid(x3, scale)}
+            DCT3_MID: lambda x3, t, scale: _kdct.dct3_mid(x3, scale),
+            DCT1_MID: lambda x3, t, scale: _krfft.dct1_mid(
+                x3, 0.5 * (1.0 if scale is None else scale)),
+            DCT4_MID: lambda x3, t, scale: _kdct.dct4_mid(x3, scale)}
 
 
 def _dct_impl(x, handler, axis, dct_type):
@@ -443,6 +457,16 @@ def _dst_impl(x, handler, axis, dst_type):
         _check_grad(x)
         route = _route("dst1", x.shape, axis, x.dtype, x.device.type)
         _plan_log("dst1", n, axis, route)
+        if route == R2C_PACKED_MID:
+            # along a middle axis in place, as the JAX package does (its
+            # api.py:600-621): the odd extension's streams, kernel 18 with
+            # -0.5 * the policy's scalar, and the imaginary rows 1 .. n
+            nb, cols = _mid_dims(x.shape, axis)
+            xe, xo = _dst.dst1_streams(x.reshape(nb, n, cols))
+            s = _dct_scale(norm)
+            spec = _krfft.r2c_packed_mid(xe, xo, -0.5 * (1.0 if s is None else s))
+            del xe, xo
+            return spec.imag[:, 1:n + 1].reshape(x.shape)
         return _dst.dst1(x.movedim(axis, -1), _dct_scale(norm)).movedim(-1, axis)
     shape = [1] * x.ndim
     shape[axis] = n
@@ -543,3 +567,11 @@ nddct1, nddct2, nddct3, nddct4 = (_make_r2r("dct", t, _dct_impl, DctHandler)
                                   for t in (1, 2, 3, 4))
 nddst1, nddst2, nddst3, nddst4 = (_make_r2r("dst", t, _dst_impl, DstHandler)
                                   for t in (1, 2, 3, 4))
+
+# The JAX package's ``_par`` twins (its api.py:1720-1731) run its sharded
+# pencil path on a mesh-sharded input and are the serial functions on any
+# other. The port has no sharded input (ROADMAP.md, "Distributed"), so each
+# is its serial function.
+ndfft_par, ndifft_par, ndfft_r2c_par, ndifft_r2c_par = ndfft, ndifft, ndfft_r2c, ndifft_r2c
+nddct1_par, nddct2_par, nddct3_par, nddct4_par = nddct1, nddct2, nddct3, nddct4
+nddst1_par, nddst2_par, nddst3_par, nddst4_par = nddst1, nddst2, nddst3, nddst4

@@ -27,6 +27,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace ndfft {
 
 constexpr int kM = 128;        // stage-2 DFT length m
@@ -43,39 +45,52 @@ __device__ __forceinline__ void cmac(float2& acc, float2 a, float2 w) {
 
 // X[k] of the R2C unpack from a = Z[k], b = Z[(h - k) mod h] and
 // w = W_n^k: X[k] = (Z[k] + C[k]) / 2 - i W_n^k (Z[k] - C[k]) / 2 with
-// C = conj b.
-__device__ __forceinline__ float2 r2c_unpack_one(float2 a, float2 b, float2 w) {
-  const float fer = 0.5f * (a.x + b.x);
-  const float fei = 0.5f * (a.y - b.y);
-  const float for_ = 0.5f * (a.y + b.y);    // Re(-i/2 (Z - C))
-  const float foi = -0.5f * (a.x - b.x);    // Im(-i/2 (Z - C))
+// C = conj b; `half` = 0.5 * scale gives scale * X[k] (the packed kernels
+// 18 and 19 fold their scale into it).
+__device__ __forceinline__ float2 r2c_unpack_one(float2 a, float2 b, float2 w,
+                                                 float half = 0.5f) {
+  const float fer = half * (a.x + b.x);
+  const float fei = half * (a.y - b.y);
+  const float for_ = half * (a.y + b.y);    // Re(-i/2 (Z - C))
+  const float foi = -half * (a.x - b.x);    // Im(-i/2 (Z - C))
   return make_float2(fer + for_ * w.x - foi * w.y, fei + for_ * w.y + foi * w.x);
 }
 
-// The R2C unpack of V transforms of Z in place: bin k of transform c at
-// ob + c * cs + k * ks holds Z[k] for k < h and gets
+// The R2C unpack of V transforms of Z: bin k of transform c at
+// zb + c * cs + k * ks holds Z[k] for k < h, and store(c, k, X[k]) takes
 //   X[k] = (Z[k] + C[k]) / 2 - i W_n^k (Z[k] - C[k]) / 2,  k < h,
 //   X[h] = Re Z[0] - Im Z[0],  C[k] = conj Z[(h - k) mod h],
-// with u[k] = W_n^k. Each thread takes one mirror pair {k, (h - k) mod h},
-// both read before both are written, so the bins update in place without a
-// second buffer; k = 0 pairs with itself and writes X[h]. The pair loop
-// k <= h/2 covers odd h. kColsFast: consecutive threads take consecutive
-// transforms (a column tile, cs = 1), else consecutive pairs (rows). Call
-// it behind a block barrier that follows the writes of Z.
+// with u[k] = W_n^k, all times `scale`. Each thread takes one mirror pair
+// {k, (h - k) mod h} and reads both bins before it stores either, so the
+// store may write the bins in place without a second buffer; k = 0 pairs
+// with itself and also stores X[h]. The pair loop k <= h/2 covers odd h.
+// kColsFast: consecutive threads take consecutive transforms (a column tile,
+// cs = 1), else consecutive pairs (rows). Call it behind a block barrier
+// that follows the writes of Z.
+template <bool kColsFast, class Store>
+__device__ __forceinline__ void r2c_unpack(const float2* zb, int h, int V, long long cs,
+                                           long long ks, const float2* __restrict__ u,
+                                           float scale, Store&& store) {
+  const int pairs = h / 2 + 1;
+  const float half = 0.5f * scale;
+  for (int idx = threadIdx.x; idx < pairs * V; idx += blockDim.x) {
+    const int c = kColsFast ? idx % V : idx / pairs;
+    const int k = kColsFast ? idx / V : idx % pairs;
+    const int k2 = (h - k) % h;
+    const float2 za = zb[c * cs + k * ks];
+    const float2 zm = zb[c * cs + k2 * ks];
+    store(c, k, r2c_unpack_one(za, zm, __ldg(u + k), half));
+    if (k2 != k) store(c, k2, r2c_unpack_one(zm, za, __ldg(u + k2), half));
+    if (k == 0) store(c, h, make_float2(scale * (za.x - za.y), 0.f));
+  }
+}
+
+// The same in place: X[k] replaces Z[k], X[h] goes to bin h.
 template <bool kColsFast>
 __device__ __forceinline__ void r2c_unpack(float2* ob, int h, int V, long long cs,
                                            long long ks, const float2* __restrict__ u) {
-  const int pairs = h / 2 + 1;
-  for (int idx = threadIdx.x; idx < pairs * V; idx += blockDim.x) {
-    float2* col = ob + (kColsFast ? idx % V : idx / pairs) * cs;
-    const int k = kColsFast ? idx / V : idx % pairs;
-    const int k2 = (h - k) % h;
-    const float2 za = col[k * ks];
-    const float2 zb = col[k2 * ks];
-    col[k * ks] = r2c_unpack_one(za, zb, __ldg(u + k));
-    if (k2 != k) col[k2 * ks] = r2c_unpack_one(zb, za, __ldg(u + k2));
-    if (k == 0) col[h * ks] = make_float2(za.x - za.y, 0.f);
-  }
+  r2c_unpack<kColsFast>(ob, h, V, cs, ks, u, 1.f,
+                        [=](int c, int k, float2 x) { ob[c * cs + k * ks] = x; });
 }
 
 // The unpack of V contiguous rows of Z: row r at ob + r * (h + 1).
@@ -232,5 +247,77 @@ struct Bts2 {
     __syncthreads();
   }
 };
+
+// Fill the column tile s of a fixed-core block (element (t, c) at
+// s[t * C + c], h rows) with fn(t, c) for the V valid columns and zeros
+// past them; consecutive threads take consecutive columns of a row, so that
+// the loads from device memory coalesce. No barrier.
+template <int C, class Fn>
+__device__ __forceinline__ void fixed_fill(float2* s, int h, int V, Fn&& fn) {
+  for (int idx = threadIdx.x; idx < h * C; idx += kThreads) {
+    const int t = idx / C;
+    const int c = idx % C;
+    s[idx] = c < V ? fn(t, c) : make_float2(0.f, 0.f);
+  }
+}
+
+// The first column and the count of valid columns of a fixed-core block
+// (one block per (b, tile of C columns), the last tile ragged), and its b.
+template <int C>
+__device__ __forceinline__ long long fixed_tile(long long L, long long tiles, long long& col0,
+                                                int& valid) {
+  col0 = (blockIdx.x % tiles) * C;
+  valid = (int)min((long long)C, L - col0);
+  return blockIdx.x / tiles;
+}
+
+// fn(std::integral_constant<int, F>{}, std::integral_constant<int, C>{})
+// for a fixed-core column tile: h = 128 * F with F in {2, 4, 8, 16} and
+// F >= kMinF, C in {1, 2, ..., 32} with h * C <= kSmemElems. Any other h or C
+// returns an error, and only the tiles that fit are instantiated.
+template <int kMinF, class Fn>
+cudaError_t fixed_dispatch(int h, int C, Fn&& fn) {
+  auto with_f = [&](auto f) -> cudaError_t {
+    constexpr int F = decltype(f)::value;
+    auto go = [&](auto c) -> cudaError_t {
+      if constexpr (F < kMinF || F * kM * decltype(c)::value > kSmemElems) {
+        return cudaErrorInvalidValue;
+      } else {
+        return fn(f, c);
+      }
+    };
+    switch (C) {
+      case 1: return go(std::integral_constant<int, 1>{});
+      case 2: return go(std::integral_constant<int, 2>{});
+      case 4: return go(std::integral_constant<int, 4>{});
+      case 8: return go(std::integral_constant<int, 8>{});
+      case 16: return go(std::integral_constant<int, 16>{});
+      case 32: return go(std::integral_constant<int, 32>{});
+      default: return cudaErrorInvalidValue;
+    }
+  };
+  switch (h) {
+    case 2 * kM: return with_f(std::integral_constant<int, 2>{});
+    case 4 * kM: return with_f(std::integral_constant<int, 4>{});
+    case 8 * kM: return with_f(std::integral_constant<int, 8>{});
+    case 16 * kM: return with_f(std::integral_constant<int, 16>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Launch kernel(args..., tiles) on B times the tiles of L columns, C per
+// tile, with the tile (F * 128 * C complex values) as dynamic shared memory.
+// A grid the card cannot take returns an error.
+template <int F, int C, class... KArgs, class... Args>
+cudaError_t fixed_launch(void (*kernel)(KArgs...), long long B, long long L,
+                         cudaStream_t stream, Args... args) {
+  const long long tiles = (L + C - 1) / C;
+  if (B < 1 || L < 1 || B * tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int smem = F * kM * C * (int)sizeof(float2);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<(unsigned)(B * tiles), kThreads, smem, stream>>>(args..., tiles);
+  return cudaGetLastError();
+}
 
 }  // namespace ndfft

@@ -1,0 +1,144 @@
+// Kernel 28: DCT-IV along the middle axis of a (B, n, L) float32 tensor,
+// even n = 2 hl, hl = 128 * F: F in {4, 8, 16} on the fixed core, every other
+// F <= 160 on the wide core (dct4_mid_wide_kernel at the end of this file).
+// The routes send n > 1100 here (n = 1280 ... 40960); kernel 27 takes the
+// shorter lengths.
+//
+// Replaces ndrustfft_tpu/ops/pallas/dct.py::_dct4_kernel_mid (built by
+// _build_dct4_mid, called by dct4_pallas_mid). It computes scale * DCT-IV
+// in the rustdct convention by the half-length complex factorization
+//   c_s = w_s (x[2s] + i x[n-1-2s]),  w_s = e^{-i pi (4s+1) / (4n)},
+//   D = FFT_hl(c),
+//   y[2k] = scale * Re(D_k e^{-i pi k / n}),
+//   y[n-1-2k] = -scale * Im(D_k e^{-i pi k / n}),
+// the algebra of the port's composite ops/dct.py::dct4_half_mid, fused into
+// one kernel: the load reads rows 2s and n - 1 - 2s and applies the entry
+// chirp (a host table), the core is kernel 1's C2C in the column layout
+// (bts2_core.cuh, bts2_wide.cuh), and the store applies the exit chirp
+// (scale * (cos, sin)(pi k / n), a host table, the scale folded in as the
+// JAX kernel folds it) and writes both outputs of each k as two row stores.
+// Each output is written once; there is no mirror and no workspace.
+//
+// The TPU kernel runs four real twostep pipelines (dct.py:610-640): the
+// separable chirps folded into its stage constants and a sign-+1 copy of
+// the transform, only to avoid flips and strided slices under Mosaic. Here
+// the reversed row n - 1 - 2s is one more coalesced row load and the
+// interleaved outputs are plain row stores, so one complex FFT per column
+// does.
+//
+// What bounds it: the core's stage 2, a dense DFT-128 on the FP32 CUDA cores
+// (bts2_core.cuh, bts2_wide.cuh); device memory is read once and written
+// once, the loads and stores are whole rows of the tile's columns, and every
+// constant comes from the host (ops/hopper/dct.py).
+#include "bts2_wide.cuh"
+
+namespace ndfft {
+
+// c_s = w_s (x[2s] + i x[n-1-2s]) from the column at xc (element t at
+// xc[t * L]).
+__device__ __forceinline__ float2 dct4_entry(const float* xc, long long L, int n, int s,
+                                             const float2* __restrict__ chirp) {
+  const float a = xc[(long long)(2 * s) * L];
+  const float b = xc[(long long)(n - 1 - 2 * s) * L];
+  const float2 w = __ldg(chirp + s);
+  return make_float2(a * w.x - b * w.y, a * w.y + b * w.x);
+}
+
+// y[2k] and y[n-1-2k] of the column at yc from D_k and p = the exit chirp
+// scale * (cos, sin)(pi k / n).
+__device__ __forceinline__ void dct4_exit(float* yc, long long L, int n, long long k, float2 d,
+                                          float2 p) {
+  yc[2 * k * L] = d.x * p.x + d.y * p.y;
+  yc[(n - 1 - 2 * k) * L] = d.x * p.y - d.y * p.x;
+}
+
+template <int F, int C>
+__global__ void __launch_bounds__(kThreads)
+dct4_mid_kernel(const float* __restrict__ x, float* __restrict__ y,
+                const float2* __restrict__ wq, const float2* __restrict__ chirp,
+                const float2* __restrict__ post, long long L, long long tiles) {
+  constexpr int HL = F * kM;
+  constexpr int NN = 2 * HL;
+  extern __shared__ float2 s[];
+  long long col0;
+  int valid;
+  const long long bb = fixed_tile<C>(L, tiles, col0, valid);
+  const float* xb = x + bb * NN * L + col0;
+  fixed_fill<C>(s, HL, valid, [&](int t, int c) { return dct4_entry(xb + c, L, NN, t, chirp); });
+  __syncthreads();
+  Bts2<F, C, false>::run(s, wq, -1.f);
+  float* yb = y + bb * NN * L + col0;
+  for (int idx = threadIdx.x; idx < HL * C; idx += kThreads) {
+    const int k = idx / C;
+    const int c = idx % C;
+    if (c < valid) dct4_exit(yb + c, L, NN, k, s[idx], __ldg(post + k));
+  }
+}
+
+// Kernel 28 on the wide core: the chirped column tile, the core, and the
+// exit chirp and interleave in the core's store callback.
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+dct4_mid_wide_kernel(const float* __restrict__ x, float* __restrict__ y,
+                     const float2* __restrict__ wq, const float2* __restrict__ wf,
+                     const float2* __restrict__ chirp, const float2* __restrict__ post, int F,
+                     long long L, long long tiles) {
+  const int HL = F * kM, NN = 2 * HL;
+  extern __shared__ float2 smem[];
+  const WideSmem sm(smem, HL, C);
+  const long long bb = blockIdx.x / tiles;
+  long long col0;
+  int valid;
+  wide_tile(L, tiles, blockIdx.x % tiles, col0, valid);
+  const float* xb = x + bb * NN * L + col0;
+  wide_fill<C, false>(sm.s, HL, valid,
+                      [&](int t, int c) { return dct4_entry(xb + c, L, NN, t, chirp); });
+  wide_load_row(sm.wt, wf, F);
+  __syncthreads();
+  float* yb = y + bb * NN * L + col0;
+  Bts2Wide<C, false>{HL, F}.run(sm.s, sm.ys, sm.wt, wq, valid, [=](int c, long long k, float2 d) {
+    dct4_exit(yb + c, L, NN, k, d, __ldg(post + k));
+  });
+}
+
+}  // namespace ndfft
+
+// Kernel 28 on the fixed core: x, y: (B, n, L) float32, contiguous, n = 2 hl,
+// hl = 128 * F, F in {4, 8, 16}; wq: (F, 128, 128) complex64 for hl, sign -1,
+// unscaled; chirp: (hl,) complex64 e^{-i pi (4s+1)/(4n)}; post: (hl,)
+// complex64 scale * (cos, sin)(pi k / n). C: columns per block, a power of
+// two with hl * C <= 8192. Returns the cudaError_t of the launch (0 on
+// success).
+extern "C" int ndfft_dct4_mid(const void* x, void* y, const void* wq, const void* chirp,
+                              const void* post, long long B, int n, long long L, int C,
+                              void* stream) {
+  using namespace ndfft;
+  if (n % 2) return (int)cudaErrorInvalidValue;
+  return (int)fixed_dispatch<4>(n / 2, C, [&](auto f, auto c) {
+    constexpr int kF = decltype(f)::value, kC = decltype(c)::value;
+    return fixed_launch<kF, kC>(dct4_mid_kernel<kF, kC>, B, L, static_cast<cudaStream_t>(stream),
+                                static_cast<const float*>(x), static_cast<float*>(y),
+                                static_cast<const float2*>(wq), static_cast<const float2*>(chirp),
+                                static_cast<const float2*>(post), L);
+  });
+}
+
+// Kernel 28 on the wide core, hl = n / 2 = 128 * F with 1 <= F <= 160: x, y,
+// wq, chirp and post as above; wf: (F, F) complex64 DFT-F, sign -1. C:
+// columns per tile, a power of two <= 16 whose tile fits
+// (bts2_wide.cuh::wide_smem_bytes).
+extern "C" int ndfft_dct4_mid_wide(const void* x, void* y, const void* wq, const void* wf,
+                                   const void* chirp, const void* post, long long B, int n,
+                                   long long L, int C, void* stream) {
+  using namespace ndfft;
+  if (n % 2) return (int)cudaErrorInvalidValue;
+  const int hl = n / 2;
+  return (int)wide_dispatch(C, [&](auto cc) {
+    constexpr int kC = decltype(cc)::value;
+    return wide_launch<kC>(dct4_mid_wide_kernel<kC>, hl, B, L, static_cast<cudaStream_t>(stream),
+                           static_cast<const float*>(x), static_cast<float*>(y),
+                           static_cast<const float2*>(wq), static_cast<const float2*>(wf),
+                           static_cast<const float2*>(chirp), static_cast<const float2*>(post),
+                           hl / kM, L);
+  });
+}

@@ -47,17 +47,13 @@ dct2_mid_kernel(const float* __restrict__ x, float* __restrict__ y,
   constexpr int H = F * kM;
   constexpr int NN = 2 * H;
   extern __shared__ float2 s[];
-  const long long bb = blockIdx.x / tiles;
-  const long long col0 = (blockIdx.x % tiles) * C;
-  const int valid = (int)min((long long)C, L - col0);
+  long long col0;
+  int valid;
+  const long long bb = fixed_tile<C>(L, tiles, col0, valid);
   const float* xb = x + bb * NN * L + col0;
-  for (int idx = threadIdx.x; idx < H * C; idx += kThreads) {
-    const int t = idx / C;
-    const int c = idx % C;
-    s[idx] = c < valid ? make_float2(xb[makhoul_src(2 * t, NN) * L + c],
-                                     xb[makhoul_src(2 * t + 1, NN) * L + c])
-                       : make_float2(0.f, 0.f);
-  }
+  fixed_fill<C>(s, H, valid, [&](int t, int c) {
+    return make_float2(xb[makhoul_src(2 * t, NN) * L + c], xb[makhoul_src(2 * t + 1, NN) * L + c]);
+  });
   __syncthreads();
   Bts2<F, C, false>::run(s, wq, -1.f);
   float* yb = y + bb * NN * L + col0;
@@ -86,33 +82,27 @@ dct3_mid_kernel(const float* __restrict__ x, float* __restrict__ y,
   constexpr int H = F * kM;
   constexpr int NN = 2 * H;
   extern __shared__ float2 s[];
-  const long long bb = blockIdx.x / tiles;
-  const long long col0 = (blockIdx.x % tiles) * C;
-  const int valid = (int)min((long long)C, L - col0);
+  long long col0;
+  int valid;
+  const long long bb = fixed_tile<C>(L, tiles, col0, valid);
   const float* xb = x + bb * NN * L + col0;
-  for (int idx = threadIdx.x; idx < H * C; idx += kThreads) {
-    const int k = idx / C;
-    const int c = idx % C;
-    float2 g = make_float2(0.f, 0.f);
-    if (c < valid) {
-      const auto spec = [&](int j) {   // S[j] = Q[j] (x[j] - i x[n - j]), x[n] = 0
-        const float a = xb[j * L + c];
-        const float b = j == 0 ? 0.f : xb[(NN - j) * L + c];
-        const float2 q = __ldg(pre + j);
-        return make_float2(a * q.x + b * q.y, a * q.y - b * q.x);
-      };
-      float2 sk = spec(k);
-      float2 sm = spec(H - k);
-      if (k == 0) {   // S[0] and S[h] are real; drop their rounding residue
-        sk.y = 0.f;
-        sm.y = 0.f;
-      }
-      const float4 cf = __ldg(ab + k);   // (A.re, A.im, B.re, B.im)
-      g = make_float2(cf.x * sk.x - cf.y * sk.y + cf.z * sm.x + cf.w * sm.y,
-                      cf.x * sk.y + cf.y * sk.x + cf.w * sm.x - cf.z * sm.y);
+  fixed_fill<C>(s, H, valid, [&](int k, int c) {
+    const auto spec = [&](int j) {   // S[j] = Q[j] (x[j] - i x[n - j]), x[n] = 0
+      const float a = xb[j * L + c];
+      const float b = j == 0 ? 0.f : xb[(NN - j) * L + c];
+      const float2 q = __ldg(pre + j);
+      return make_float2(a * q.x + b * q.y, a * q.y - b * q.x);
+    };
+    float2 sk = spec(k);
+    float2 sm = spec(H - k);
+    if (k == 0) {   // S[0] and S[h] are real; drop their rounding residue
+      sk.y = 0.f;
+      sm.y = 0.f;
     }
-    s[idx] = g;
-  }
+    const float4 cf = __ldg(ab + k);   // (A.re, A.im, B.re, B.im)
+    return make_float2(cf.x * sk.x - cf.y * sk.y + cf.z * sm.x + cf.w * sm.y,
+                       cf.x * sk.y + cf.y * sk.x + cf.w * sm.x - cf.z * sm.y);
+  });
   __syncthreads();
   Bts2<F, C, false>::run(s, wq, 1.f);
   // u[j] = component j % 2 of z[j / 2]; y[2t] = u[t], y[2t+1] = u[n-1-t]
@@ -124,50 +114,6 @@ dct3_mid_kernel(const float* __restrict__ x, float* __restrict__ y,
     if (c >= valid) continue;
     const int j = r % 2 ? NN - 1 - r / 2 : r / 2;
     yb[r * L + c] = u[((j >> 1) * C + c) * 2 + (j & 1)];
-  }
-}
-
-template <int F, int C>
-static cudaError_t launch_mid(bool type3, const float* x, float* y, const float2* wq,
-                              const void* c1, const float2* c2, long long B, long long L,
-                              cudaStream_t stream) {
-  if constexpr (F * kM * C > kSmemElems) {
-    return cudaErrorInvalidValue;
-  } else {
-    const long long tiles = (L + C - 1) / C;
-    if (B * tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-    const unsigned blocks = (unsigned)(B * tiles);
-    const int smem = F * kM * C * (int)sizeof(float2);
-    cudaError_t e;
-    if (type3) {
-      e = cudaFuncSetAttribute(dct3_mid_kernel<F, C>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e != cudaSuccess) return e;
-      dct3_mid_kernel<F, C><<<blocks, kThreads, smem, stream>>>(
-          x, y, wq, static_cast<const float4*>(c1), c2, L, tiles);
-    } else {
-      e = cudaFuncSetAttribute(dct2_mid_kernel<F, C>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e != cudaSuccess) return e;
-      dct2_mid_kernel<F, C><<<blocks, kThreads, smem, stream>>>(
-          x, y, wq, static_cast<const float2*>(c1), c2, L, tiles);
-    }
-    return cudaGetLastError();
-  }
-}
-
-template <int F>
-static cudaError_t dispatch_mid(int C, bool type3, const float* x, float* y,
-                                const float2* wq, const void* c1, const float2* c2,
-                                long long B, long long L, cudaStream_t stream) {
-  switch (C) {
-    case 1: return launch_mid<F, 1>(type3, x, y, wq, c1, c2, B, L, stream);
-    case 2: return launch_mid<F, 2>(type3, x, y, wq, c1, c2, B, L, stream);
-    case 4: return launch_mid<F, 4>(type3, x, y, wq, c1, c2, B, L, stream);
-    case 8: return launch_mid<F, 8>(type3, x, y, wq, c1, c2, B, L, stream);
-    case 16: return launch_mid<F, 16>(type3, x, y, wq, c1, c2, B, L, stream);
-    case 32: return launch_mid<F, 32>(type3, x, y, wq, c1, c2, B, L, stream);
-    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -188,15 +134,14 @@ extern "C" int ndfft_dct_mid(int type3, const void* x, void* y, const void* wq,
   const float2* wp = static_cast<const float2*>(wq);
   const float2* c2p = static_cast<const float2*>(c2);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool t3 = type3 != 0;
   if (n % 2) return (int)cudaErrorInvalidValue;
-  switch (n / 2) {
-    case 2 * kM: return dispatch_mid<2>(C, t3, xp, yp, wp, c1, c2p, B, L, st);
-    case 4 * kM: return dispatch_mid<4>(C, t3, xp, yp, wp, c1, c2p, B, L, st);
-    case 8 * kM: return dispatch_mid<8>(C, t3, xp, yp, wp, c1, c2p, B, L, st);
-    case 16 * kM: return dispatch_mid<16>(C, t3, xp, yp, wp, c1, c2p, B, L, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)fixed_dispatch<2>(n / 2, C, [&](auto f, auto c) {
+    constexpr int kF = decltype(f)::value, kC = decltype(c)::value;
+    return type3 ? fixed_launch<kF, kC>(dct3_mid_kernel<kF, kC>, B, L, st, xp, yp, wp,
+                                        static_cast<const float4*>(c1), c2p, L)
+                 : fixed_launch<kF, kC>(dct2_mid_kernel<kF, kC>, B, L, st, xp, yp, wp,
+                                        static_cast<const float2*>(c1), c2p, L);
+  });
 }
 
 // Kernels 25 and 26 on the wide core, half-length form: n = 2h, h = 128 * F,

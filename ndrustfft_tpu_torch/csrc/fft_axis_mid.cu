@@ -21,19 +21,15 @@ namespace ndfft {
 template <int F, int C>
 __global__ void __launch_bounds__(kThreads)
 c2c_axis_mid_kernel(const float2* __restrict__ x, float2* __restrict__ y,
-                    const float2* __restrict__ wq, long long L, long long tiles,
-                    float sign) {
+                    const float2* __restrict__ wq, float sign, long long L,
+                    long long tiles) {
   constexpr int N = F * kM;
   extern __shared__ float2 s[];
-  const long long bb = blockIdx.x / tiles;
-  const long long col0 = (blockIdx.x % tiles) * C;
-  const int valid = (int)min((long long)C, L - col0);
+  long long col0;
+  int valid;
+  const long long bb = fixed_tile<C>(L, tiles, col0, valid);
   const float2* xb = x + bb * N * L + col0;
-  for (int idx = threadIdx.x; idx < N * C; idx += kThreads) {
-    const int t = idx / C;
-    const int c = idx % C;
-    s[idx] = c < valid ? xb[t * L + c] : make_float2(0.f, 0.f);
-  }
+  fixed_fill<C>(s, N, valid, [&](int t, int c) { return xb[t * L + c]; });
   __syncthreads();
   Bts2<F, C, false>::run(s, wq, sign);
   float2* yb = y + bb * N * L + col0;
@@ -41,25 +37,6 @@ c2c_axis_mid_kernel(const float2* __restrict__ x, float2* __restrict__ y,
     const int t = idx / C;
     const int c = idx % C;
     if (c < valid) yb[t * L + c] = s[idx];
-  }
-}
-
-template <int F, int C>
-static cudaError_t launch_c2c(const float2* x, float2* y, const float2* wq,
-                              long long B, long long L, float sign,
-                              cudaStream_t stream) {
-  if constexpr (F * kM * C > kSmemElems) {
-    return cudaErrorInvalidValue;
-  } else {
-    const long long tiles = (L + C - 1) / C;
-    const int smem = F * kM * C * (int)sizeof(float2);
-    cudaError_t e = cudaFuncSetAttribute(
-        c2c_axis_mid_kernel<F, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return e;
-    c2c_axis_mid_kernel<F, C><<<(unsigned)(B * tiles), kThreads, smem, stream>>>(
-        x, y, wq, L, tiles, sign);
-    return cudaGetLastError();
   }
 }
 
@@ -91,20 +68,6 @@ c2c_axis_mid_wide_kernel(const float2* __restrict__ x, float2* __restrict__ y,
   Bts2Wide<C, false>{n, F}.run(sm.s, sm.ys, sm.wt, wq, valid, y + bb * n * L + col0, 1, L);
 }
 
-template <int F>
-static cudaError_t dispatch_c(int C, const float2* x, float2* y,
-                              const float2* wq, long long B, long long L,
-                              float sign, cudaStream_t stream) {
-  switch (C) {
-    case 1: return launch_c2c<F, 1>(x, y, wq, B, L, sign, stream);
-    case 2: return launch_c2c<F, 2>(x, y, wq, B, L, sign, stream);
-    case 4: return launch_c2c<F, 4>(x, y, wq, B, L, sign, stream);
-    case 8: return launch_c2c<F, 8>(x, y, wq, B, L, sign, stream);
-    case 16: return launch_c2c<F, 16>(x, y, wq, B, L, sign, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace ndfft
 
 // x, y: (B, n, L) complex64, contiguous; wq: (F, 128, 128) complex64.
@@ -114,17 +77,13 @@ extern "C" int ndfft_c2c_axis_mid(const void* x, void* y, const void* wq,
                                   long long B, int n, long long L, int C,
                                   int sign, void* stream) {
   using namespace ndfft;
-  const float2* xp = static_cast<const float2*>(x);
-  float2* yp = static_cast<float2*>(y);
-  const float2* wp = static_cast<const float2*>(wq);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float sg = sign < 0 ? -1.f : 1.f;
-  switch (n) {
-    case 4 * kM: return dispatch_c<4>(C, xp, yp, wp, B, L, sg, st);
-    case 8 * kM: return dispatch_c<8>(C, xp, yp, wp, B, L, sg, st);
-    case 16 * kM: return dispatch_c<16>(C, xp, yp, wp, B, L, sg, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)fixed_dispatch<4>(n, C, [&](auto f, auto c) {
+    constexpr int kF = decltype(f)::value, kC = decltype(c)::value;
+    return fixed_launch<kF, kC>(c2c_axis_mid_kernel<kF, kC>, B, L,
+                                static_cast<cudaStream_t>(stream), static_cast<const float2*>(x),
+                                static_cast<float2*>(y), static_cast<const float2*>(wq),
+                                sign < 0 ? -1.f : 1.f, L);
+  });
 }
 
 // Kernel 1 on the wide core, n = 128 * F with 1 <= F <= 160. x, y: (B, n, L)

@@ -46,6 +46,11 @@ DCT_LANE = "dct_lane"
 # the DCT-IV/DST-IV composite along a middle axis: the half-length C2C on K6
 # between two elementwise chirps
 DCT4_HALF_MID = "dct4_half_mid"
+# along a middle axis: DST-I's packed R2C of the odd-extension streams (K18),
+# DCT-I on its even extension (K19) and the fused DCT-IV/DST-IV (K28)
+R2C_PACKED_MID = "r2c_packed_mid"
+DCT1_MID = "dct1_mid"
+DCT4_MID = "dct4_mid"
 ENGINE = "engine"
 
 # Pallas kernels of the JAX package on routes not ported yet:
@@ -54,10 +59,9 @@ UNPORTED = {
     "fourstep": ("fft.py::_kernel_exit_mul and _kernel_lane_store_t", "K7"),
     "bluestein": ("fft.py::_kernel_axis_mid_blue and the engine's Bluestein",
                   "K11"),
-    "r2c_packed_mid": ("rfft.py::_r2c_kernel_packed_mid", "K18"),
-    "dct1_mid": ("rfft.py::_dct1_kernel_mid", "K19"),
     "dct23_blue_mid": ("fft.py::_kernel_axis_mid_blue_rr", "K12"),
-    "dct4_mid": ("dct.py::_dct4_kernel_mid", "K28"),
+    "dct4_long": ("dct.py::_dct4_kernel_mid at n = 256 * F with F > 160, n > 40960 "
+                  "(dct4_long)", "K28 long"),
     "dct23_long": ("dct.py::_dct2_kernel / _dct3_kernel (and their _mid forms) at "
                    "n = 128 * k with odd k > 160, n > 20480", "K23-K26 long"),
 }

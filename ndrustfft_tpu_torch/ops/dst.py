@@ -52,8 +52,23 @@ def dst1(x: torch.Tensor, scale=None) -> torch.Tensor:
     z = torch.zeros_like(x[..., :1])
     ext = torch.cat([z, x, z, -x.flip(-1)], dim=-1)
     spec = r2c_packed(ext, get_r2c_plan(2 * n + 2))   # m = n + 2 bins
+    del ext     # freed before the output is made: each is twice the input
     s = -0.5 if scale is None else -0.5 * scale
     return s * spec.imag[..., 1:n + 1]
+
+
+def dst1_streams(x3: torch.Tensor):
+    """The even and odd samples (xe, xo) of the odd extension
+    [0, x, 0, -flip(x)] along dim 1 of (B, n, L), each (B, n + 1, L): kernel
+    18's input for DST-I along a middle axis, assembled as the JAX package
+    assembles it in XLA (its api.py:612-619), for odd or even n."""
+    z = x3.new_zeros(x3.shape[0], 1, x3.shape[2])
+    xe_, xo_ = x3[:, 1::2], x3[:, 0::2]
+    if x3.shape[1] % 2 == 0:
+        return (torch.cat([z, xe_, -xe_.flip(1)], dim=1),
+                torch.cat([xo_, z, -xo_.flip(1)], dim=1))
+    return (torch.cat([z, xe_, z, -xe_.flip(1)], dim=1),
+            torch.cat([xo_, -xo_.flip(1)], dim=1))
 
 
 def dst2(x: torch.Tensor, scale=None) -> torch.Tensor:

@@ -6,7 +6,7 @@ with a plain C interface, at first use, under ``build/ndrustfft_tpu_torch/``
 at the root of the checkout (or under ``$NDRUSTFFT_TORCH_BUILD_DIR``). The
 library's name carries a hash of the sources, so an edited source is
 rebuilt. It is loaded with ``ctypes``; every pointer and the stream pass as
-``c_void_p``.
+``c_void_p``, a scale as ``c_float``.
 
 A missing ``nvcc``, a failed build or a library that does not load raises:
 there is no other route for a CUDA tensor.
@@ -31,6 +31,7 @@ NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 # C entry points and their argument types (see csrc/*.cu)
 _SIGNATURES = {
     "ndfft_c2c_axis_mid": [_P, _P, _P, _LL, _I, _LL, _I, _I, _P],
@@ -59,6 +60,12 @@ _SIGNATURES = {
     "ndfft_dct_mid": [_I, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_dct_mid_wide": [_I, _P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_dct_mid_npoint": [_I, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
+    "ndfft_r2c_packed_mid": [_P, _P, _P, _P, _P, _F, _LL, _I, _LL, _I, _P],
+    "ndfft_r2c_packed_mid_wide": [_P, _P, _P, _P, _P, _P, _F, _LL, _I, _LL, _I, _P],
+    "ndfft_dct1_mid": [_P, _P, _P, _P, _F, _LL, _I, _LL, _I, _P],
+    "ndfft_dct1_mid_wide": [_P, _P, _P, _P, _P, _P, _F, _LL, _I, _LL, _I, _P],
+    "ndfft_dct4_mid": [_P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
+    "ndfft_dct4_mid_wide": [_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
 }
 
 _lock = threading.Lock()

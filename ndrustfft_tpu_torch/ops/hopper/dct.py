@@ -11,6 +11,11 @@
 * Kernels 25 and 26, :func:`dct2_mid` and :func:`dct3_mid`: the same two
   along the middle axis of (B, n, L) (``csrc/dct_mid.cu``; replace
   ``dct.py::_dct2_kernel_mid`` and ``_dct3_kernel_mid``).
+* Kernel 28, :func:`dct4_mid`: DCT-IV along the middle axis of (B, n, L),
+  n = 2 hl with hl = 128 * F, F <= 160, as one complex FFT of length hl
+  per column between an entry and an exit chirp (``csrc/dct4_mid.cu``, the
+  fixed core for F in {4, 8, 16}, the wide core otherwise; replaces
+  ``dct.py::_dct4_kernel_mid``).
 
 Kernels 23 to 26 take every even n = 128 * k that the JAX gate
 ``dct_pallas_supported`` sends to them (split (128, k)) up to 20480, in the
@@ -26,8 +31,9 @@ read once and written once; every constant built on the host.
 
 This module holds their host-built constants, their plain PyTorch versions
 and their wrappers, whose ``launches`` attributes count kernel launches
-(kernels 23 to 26 also count the wide core's half-length launches apart, in
-``wide_launches``, and the n-point ones in ``npoint_launches``). All
+(kernels 23 to 26 and 28 also count the wide core's (half-length) launches
+apart, in ``wide_launches``, and kernels 23 to 26 the n-point ones in
+``npoint_launches``). All
 transforms are in the rustdct convention (scipy's unnormalized DCT / 2)
 times ``scale``.
 """
@@ -41,8 +47,9 @@ import torch
 
 from ...plan import _cis
 from . import _build
-from .fft import (CORE_F, GENERIC_MAX_N, M, block_cols, block_rows, bts2_plain, check_cuda,
-                  dense_tile, device_wide, device_wq, num_sms, wide_block)
+from .fft import (C2C_F, CORE_F, GENERIC_MAX_N, M, block_cols, block_rows, bts2_plain,
+                  check_cuda, count_launch, dense_tile, device_wide, device_wq, num_sms,
+                  wide_block)
 from .rfft import _device_ab, _device_tw, c2r_mid_plain, r2c_mid_plain
 
 DCT_F = (1, 2, 4, 8, 16)   # half-length factors F of kernels 23/24's fixed core
@@ -359,3 +366,100 @@ dct3_mid = _dct_wrapper(
     "dct3_mid", dct3_mid_plain, True, False,
     "scale * DCT-III along dim 1 of a (B, n, L) float32 tensor (kernel 26), n = 128 * k "
     "(dct_form).")
+
+
+# --------------------------------------------------------------------------
+# Kernel 28: DCT-IV along a middle axis
+# --------------------------------------------------------------------------
+
+
+def dct4_f(n: int):
+    """F of the half length hl = n/2 = 128 * F where kernel 28 takes n
+    (1 <= F <= 160: the JAX gate dct4_mid_supported's split (128, F) up to
+    the wide core's bound), else None. Beyond F = 160 (40960 < n <= 65536)
+    is the UNPORTED key ``dct4_long``."""
+    if n % 2 or (n // 2) % M:
+        return None
+    f = n // 2 // M
+    return f if 1 <= f <= WIDE_MAX_F else None
+
+
+def dct4_chirp(n: int):
+    """(re, im) float32 of kernel 28's entry chirp e^{-i pi (4s+1)/(4n)},
+    s = 0..n/2-1: the JAX package's composite expression (its
+    api.py:530-531) at scale 1, rounded once."""
+    sv = np.arange(n // 2)
+    w = np.exp(-1j * np.pi * (4 * sv + 1) / (4 * n))
+    return np.asarray(w.real, np.float32), np.asarray(w.imag, np.float32)
+
+
+def dct4_post(n: int, scale: float = 1.0):
+    """(re, im) float32 of kernel 28's exit chirp scale * (cos, sin)(pi k/n),
+    k = 0..n/2-1: the JAX kernel's table expressions (dct.py:_build_dct4_mid),
+    rounded once."""
+    kv = np.arange(n // 2)
+    return (np.asarray(scale * np.cos(np.pi * kv / n), np.float32),
+            np.asarray(scale * np.sin(np.pi * kv / n), np.float32))
+
+
+@lru_cache(maxsize=64)
+def _device_dct4(kind: str, n: int, scale: float, device: torch.device) -> torch.Tensor:
+    re, im = dct4_chirp(n) if kind == "chirp" else dct4_post(n, scale)
+    return torch.complex(torch.from_numpy(re), torch.from_numpy(im)).to(device)
+
+
+def dct4_mid_plain(x: torch.Tensor, scale=None) -> torch.Tensor:
+    """Plain version of kernel 28: scale * DCT-IV along dim 1 of (B, n, L):
+    c_s = w_s (x[2s] + i x[n-1-2s]), D = the core's plain version of c, then
+    y[2k] = Re(D_k p_k*) and y[n-1-2k] = -Im(D_k p_k*) with the exit chirp
+    p_k = scale e^{i pi k/n}."""
+    nb, n, cols = x.shape
+    w = _device_dct4("chirp", n, 1.0, x.device)[:, None]
+    p = _device_dct4("post", n, _scale(scale), x.device)[:, None]
+    d = bts2_plain(torch.complex(x[:, 0::2], x.flip(1)[:, 0::2]) * w,
+                   device_wq(n // 2, -1, 1.0, x.device), -1)
+    evens = d.real * p.real + d.imag * p.imag
+    odds = (d.real * p.imag - d.imag * p.real).flip(1)
+    return torch.stack([evens, odds], dim=2).reshape(nb, n, cols)
+
+
+def dct4_mid(x: torch.Tensor, scale=None) -> torch.Tensor:
+    """scale * DCT-IV (the rustdct convention) along dim 1 of a (B, n, L)
+    float32 tensor, n = 2 hl, hl = 128 * F, F <= 160 (:func:`dct4_f`). A CPU
+    tensor runs the plain version; a CUDA tensor launches kernel 28 (on the
+    fixed core for F in {4, 8, 16}, else on the wide core) or raises."""
+    if x.dim() != 3:
+        raise ValueError(f"dct4_mid: expected (B, n, L), got {tuple(x.shape)}")
+    nb, n, cols = x.shape
+    f = dct4_f(n)
+    if f is None:
+        raise ValueError(f"dct4_mid: n={n} is not 2 * 128 * F with F <= {WIDE_MAX_F}")
+    if x.device.type == "cpu":
+        return dct4_mid_plain(x, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"dct4_mid: unsupported device {x.device}")
+    check_cuda(x, torch.float32, "dct4_mid")
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    dev = x.device
+    hl = n // 2
+    wide = f not in C2C_F
+    consts = (device_wq(hl, -1, 1.0, dev).data_ptr(),)
+    if wide:
+        consts += (device_wide(hl, -1, dev).data_ptr(),)
+    consts += (_device_dct4("chirp", n, 1.0, dev).data_ptr(),
+               _device_dct4("post", n, _scale(scale), dev).data_ptr())
+    sms = num_sms(dev)
+    tile = wide_block(hl, nb, cols, sms) if wide else block_cols(hl, nb, cols, sms)
+    entry = "ndfft_dct4_mid_wide" if wide else "ndfft_dct4_mid"
+    with torch.cuda.device(dev):
+        err = getattr(_build.lib(), entry)(x.data_ptr(), y.data_ptr(), *consts, nb, n, cols,
+                                           tile, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, entry)
+    count_launch(dct4_mid, wide)
+    return y
+
+
+dct4_mid.launches = 0
+dct4_mid.wide_launches = 0

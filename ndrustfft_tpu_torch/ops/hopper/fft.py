@@ -198,8 +198,8 @@ def check_cuda(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
         raise ValueError(f"{what}: expected a contiguous tensor")
     if t.requires_grad:
         raise NotImplementedError(
-            f"{what}: the CUDA kernels have no backward yet (ROADMAP.md, "
-            "queue 1 item 8: autograd)")
+            f"{what}: the CUDA kernels have no backward yet (ROADMAP.md §1, "
+            "autograd)")
 
 
 def check_core_n(n: int, what: str) -> int:

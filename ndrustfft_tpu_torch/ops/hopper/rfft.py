@@ -16,6 +16,13 @@
   4 <= n <= 1100, odd n included (``csrc/rfft_dense.cu`` on the dense loop
   ``csrc/dense_real.cuh``; replace ``rfft.py::_r2c_dense_kernel`` and
   ``_c2r_dense_kernel``).
+* Kernels 18 and 19, :func:`r2c_packed_mid` and :func:`dct1_mid`: kernel
+  16's code on a column built otherwise, along the middle axis
+  (``csrc/rfft_packed_mid.cu`` and ``csrc/dct1_mid.cu``, the fixed core for
+  F in {2, 4, 8, 16}, the wide core for every other F <= 160; replace
+  ``rfft.py::_r2c_kernel_packed_mid`` and ``_dct1_kernel_mid``): the packed
+  R2C of two (B, h, L) streams, z = xe + i xo (DST-I's odd extension), and
+  DCT-I of (B, h + 1, L) on its even extension, both times a scale.
 * Kernel 15, the packed R2C of contiguous (T, n) rows (replaces
   ``rfft.py::_r2c_kernel``), in three CUDA kernels by half length h = n/2:
   :func:`r2c_packed` for h = 128 * F is kernel 2's code
@@ -27,8 +34,8 @@
 
 This module holds their host-built constants, their plain PyTorch versions
 and their wrappers, whose ``launches`` attributes count kernel launches
-(kernels 2, 3, 15, 16 and 17 on the core also count the wide core's launches
-apart, in ``wide_launches``).
+(kernels 2, 3, 15, 16, 17, 18 and 19 on the core also count the wide
+core's launches apart, in ``wide_launches``).
 """
 
 from __future__ import annotations
@@ -367,6 +374,132 @@ def c2r_mid(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
 
 c2r_mid.launches = 0
 c2r_mid.wide_launches = 0
+
+
+# --------------------------------------------------------------------------
+# Kernels 18 and 19: kernel 16's code on the DST-I streams and the DCT-I
+# extension
+# --------------------------------------------------------------------------
+
+
+def r2c_packed_mid_plain(xe: torch.Tensor, xo: torch.Tensor, scale=None) -> torch.Tensor:
+    """Plain version of kernel 18: (B, h, L) float32 streams -> scale * the
+    R2C of length 2h of the column with even samples xe and odd samples xo,
+    (B, h+1, L) complex64: the core's plain version on xe + i xo, then the
+    unpack with the mirror row."""
+    h = xe.shape[1]
+    zz = bts2_plain(torch.complex(xe, xo), device_wq(h, -1, 1.0, xe.device), -1)
+    spec = _unpack(zz, _device_tw(2 * h, xe.device), 1)
+    return spec if scale is None else spec * float(scale)
+
+
+def dct1_mid_plain(x: torch.Tensor, scale=None) -> torch.Tensor:
+    """Plain version of kernel 19: (B, n, L) float32 -> scale * Re of the R2C
+    of length 2h of the even extension [x, x[h-1], .., x[1]] along dim 1,
+    h = n - 1: the core's plain version on the extension's pairs, then the
+    unpack's real rows."""
+    nb, n, cols = x.shape
+    h = n - 1
+    ext = torch.cat([x, x[:, 1:h].flip(1)], dim=1).reshape(nb, h, 2, cols)
+    zz = bts2_plain(torch.complex(ext[:, :, 0], ext[:, :, 1]),
+                    device_wq(h, -1, 1.0, x.device), -1)
+    re = _unpack(zz, _device_tw(2 * h, x.device), 1).real
+    return re if scale is None else re * float(scale)
+
+
+def _check_half(h: int, what: str, name: str) -> int:
+    """F of the half length h = 128 * F that kernels 18 and 19 take
+    (:func:`~.fft.core_f`), or raise."""
+    f = core_f(h)
+    if f is None:
+        raise ValueError(f"{what}: {name}={h} is not 128 * F with a plan "
+                         f"(128 <= {name} <= {GENERIC_MAX_N})")
+    return f
+
+
+def _launch_packed_mid(wrapper, ptrs, dev: torch.device, h: int, length: int, nb: int,
+                       cols: int, scale: float, workspace=None) -> None:
+    """Kernel 18 or 19 (``wrapper``'s) on the column tiles of (B, length, L)
+    with half length h: the fixed core for F in CORE_F, else the wide core
+    (kernel 19's with its (B, h, L) complex64 ``workspace``); adds one to the
+    wrapper's counts. ``ptrs``: the input pointers and the output's."""
+    wide = h // M not in CORE_F
+    entry = f"ndfft_{wrapper.__name__}" + ("_wide" if wide else "")
+    wq = device_wq(h, -1, 1.0, dev).data_ptr()
+    tw = _device_tw(2 * h, dev).data_ptr()
+    sms = num_sms(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        if wide:
+            ws = () if workspace is None else (workspace.data_ptr(),)
+            err = getattr(_build.lib(), entry)(
+                *ptrs, *ws, wq, device_wide(h, -1, dev).data_ptr(), tw, scale, nb, length,
+                cols, wide_block(h, nb, cols, sms), stream)
+        else:
+            err = getattr(_build.lib(), entry)(
+                *ptrs, wq, tw, scale, nb, length, cols, block_cols(h, nb, cols, sms), stream)
+    _build.check(err, entry)
+    count_launch(wrapper, wide)
+
+
+def r2c_packed_mid(xe: torch.Tensor, xo: torch.Tensor, scale=None) -> torch.Tensor:
+    """scale * the R2C of length 2h along dim 1 of the column whose even
+    samples are xe and whose odd samples are xo, two (B, h, L) float32
+    tensors -> (B, h+1, L) complex64, h = 128 * F. A CPU tensor runs the
+    plain version; a CUDA tensor launches kernel 18 (on the fixed core for F
+    in {2, 4, 8, 16}, else on the wide core) or raises."""
+    _check_mid(xe, torch.float32, "r2c_packed_mid")
+    _check_mid(xo, torch.float32, "r2c_packed_mid")
+    if xe.shape != xo.shape or xe.device != xo.device:
+        raise ValueError(f"r2c_packed_mid: streams {tuple(xe.shape)} on {xe.device} and "
+                         f"{tuple(xo.shape)} on {xo.device} differ")
+    nb, h, cols = xe.shape
+    _check_half(h, "r2c_packed_mid", "h")
+    if xe.device.type == "cpu":
+        return r2c_packed_mid_plain(xe, xo, scale)
+    if xe.device.type != "cuda":
+        raise ValueError(f"r2c_packed_mid: unsupported device {xe.device}")
+    check_cuda(xe, torch.float32, "r2c_packed_mid")
+    check_cuda(xo, torch.float32, "r2c_packed_mid")
+    out = torch.empty((nb, h + 1, cols), dtype=torch.complex64, device=xe.device)
+    if xe.numel() == 0:
+        return out
+    _launch_packed_mid(r2c_packed_mid, (xe.data_ptr(), xo.data_ptr(), out.data_ptr()),
+                       xe.device, h, h, nb, cols, 1.0 if scale is None else float(scale))
+    return out
+
+
+r2c_packed_mid.launches = 0
+r2c_packed_mid.wide_launches = 0
+
+
+def dct1_mid(x: torch.Tensor, scale=None) -> torch.Tensor:
+    """scale * Re of the R2C of length 2h of the even extension along dim 1
+    of a (B, n, L) float32 tensor (2 * scale * the rustdct DCT-I), odd
+    n = h + 1, h = 128 * F. A CPU tensor runs the plain version; a CUDA tensor
+    launches kernel 19 (on the fixed core for F in {2, 4, 8, 16}, else on the
+    wide core with a (B, h, L) complex64 workspace) or raises."""
+    _check_mid(x, torch.float32, "dct1_mid")
+    nb, n, cols = x.shape
+    _check_half(n - 1, "dct1_mid", "n - 1")
+    if x.device.type == "cpu":
+        return dct1_mid_plain(x, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"dct1_mid: unsupported device {x.device}")
+    check_cuda(x, torch.float32, "dct1_mid")
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    h = n - 1
+    ws = (None if h // M in CORE_F else
+          torch.empty((nb, h, cols), dtype=torch.complex64, device=x.device))
+    _launch_packed_mid(dct1_mid, (x.data_ptr(), y.data_ptr()), x.device, h, n, nb, cols,
+                       1.0 if scale is None else float(scale), ws)
+    return y
+
+
+dct1_mid.launches = 0
+dct1_mid.wide_launches = 0
 
 
 # --------------------------------------------------------------------------

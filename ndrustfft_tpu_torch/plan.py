@@ -109,8 +109,8 @@ class C2CPlan:
         if factors is None:
             raise NotImplementedError(
                 f"n={n} has a prime factor above {MAX_BASE_RADIX} and needs a "
-                "Bluestein plan, which is not ported yet (ROADMAP.md, "
-                "queue 1 item 6: Bluestein)")
+                "Bluestein plan, which is not ported yet (ROADMAP.md §1, "
+                "Slice D: Bluestein)")
         self.kind = "ct"
         self.stages = []
         rem = n

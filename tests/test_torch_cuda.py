@@ -37,6 +37,14 @@ def _rel(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
+def _dst1_oracle(x):
+    """scipy's DST-I along dim 0 through torch.fft: -Im of the FFT of the
+    odd extension [0, x, 0, -flip(x)] at bins 1 .. n (an oracle only)."""
+    z = torch.zeros_like(x[:1])
+    ext = torch.cat([z, x, z, -x.flip(0)], dim=0)
+    return -torch.fft.rfft(ext, dim=0).imag[1:x.shape[0] + 1]
+
+
 def test_kernels_match_plain(dev):
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.view_as_complex(torch.randn(2, 1024, 257, 2, generator=g, device=dev))
@@ -77,6 +85,15 @@ def test_unported_route_and_grad_raise(dev):
     assert _rel(y, kdct.dct2_nat_plain(r, 2.0)) <= TOL
     with pytest.raises(NotImplementedError, match=r"_dct2_kernel.*item K23-K26 long\)"):
         nd.nddct2(torch.zeros(128, 128 * 161, device=dev), axis=1)
+    # DST-I along axis 0 at 1023 runs kernel 18 (it raised before the kernel
+    # was ported); DCT-IV past n = 40960 still raises (dct4_long)
+    r = torch.randn(1023, 128, device=dev)
+    before = krfft.r2c_packed_mid.launches
+    y = nd.nddst1(r, axis=0)
+    assert krfft.r2c_packed_mid.launches - before == 1
+    assert _rel(y.double(), _dst1_oracle(r.double())) <= 1e-5
+    with pytest.raises(NotImplementedError, match=r"dct4_long.*item K28 long\)"):
+        nd.nddct4(torch.zeros(256 * 161, 128, device=dev), axis=0)
     with pytest.raises(NotImplementedError, match="autograd"):
         nd.ndfft_r2c(torch.zeros(512, 512, device=dev, requires_grad=True), axis=1)
     y = nd.ndfft(torch.ones(4, 8, dtype=torch.complex128, device=dev), axis=1)
@@ -119,6 +136,17 @@ def test_unported_dct_route_raises(dev):
     with pytest.raises(NotImplementedError, match="_mid forms"):
         nd.nddct2(torch.zeros(128 * 161, 128, device=dev), axis=0)
     assert nd.nddct2([1.0, 2.0, 3.0]).device.type == "cuda"   # non-tensor input
+    # DCT-I at 2049 and DCT-IV at 2048 along axis 0 run kernels 19 and 28
+    # (they raised before the kernels were ported); 65536 raises dct4_long
+    x1 = torch.randn(2049, 128, device=dev)
+    before = (krfft.dct1_mid.launches, kdct.dct4_mid.launches)
+    y1 = nd.nddct1(x1, axis=0)
+    y4 = nd.nddct4(x, axis=0)
+    assert (krfft.dct1_mid.launches - before[0], kdct.dct4_mid.launches - before[1]) == (1, 1)
+    assert _rel(y1, krfft.dct1_mid_plain(x1[None], 1.0)[0]) <= TOL
+    assert _rel(y4, kdct.dct4_mid_plain(x[None], 2.0)[0]) <= TOL
+    with pytest.raises(NotImplementedError, match="item K28 long"):
+        nd.nddst4(torch.zeros(65536, 128, device=dev), axis=0)
 
 
 def test_c2c_kernels_match_plain(dev):
@@ -403,3 +431,46 @@ def test_neumann_2d_runs_on_the_dct_kernels(dev):
     got = nd.nddct3(nd.nddct3(fh / lam, h0i, axis=0), h1i, axis=1)
     assert [f.wide_launches - b for f, b in zip(fns, before)] == [1, 1, 1, 1]
     assert _rel(got.double(), u) <= 1e-5
+
+
+def test_packed_mid_kernels_match_plain_in_both_forms(dev):
+    """Kernels 18, 19 and 28 on the fixed core and on the wide core: ragged
+    column tiles, prime F = 131 (K28), the largest tiles (F = 160: one
+    column per tile), and K19's workspace."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    fns = (krfft.r2c_packed_mid, krfft.dct1_mid, kdct.dct4_mid)
+    before = [(f.launches, f.wide_launches) for f in fns]
+    for shape in ((2, 256, 130), (1, 1024, 257), (3, 2048, 33), (1, 384, 385), (2, 1152, 130),
+                  (1, 20480, 3)):
+        xe = torch.randn(*shape, generator=g, device=dev)
+        xo = torch.randn(*shape, generator=g, device=dev)
+        for scale in (None, -1.0):
+            assert _rel(krfft.r2c_packed_mid(xe, xo, scale),
+                        krfft.r2c_packed_mid_plain(xe, xo, scale)) <= TOL, shape
+    for shape in ((2, 2049, 130), (1, 1025, 257), (2, 1153, 130), (1, 1537, 129),
+                  (1, 20481, 3)):
+        x = torch.randn(*shape, generator=g, device=dev)
+        for scale in (1.0, 0.25):
+            assert _rel(krfft.dct1_mid(x, scale), krfft.dct1_mid_plain(x, scale)) <= TOL, shape
+    for shape in ((2, 2048, 130), (1, 4096, 33), (1, 1024, 257), (2, 1280, 130),
+                  (1, 1536, 129), (1, 256 * 131, 3), (1, 40960, 2)):
+        x = torch.randn(*shape, generator=g, device=dev)
+        for scale in (2.0, None):
+            assert _rel(kdct.dct4_mid(x, scale), kdct.dct4_mid_plain(x, scale)) <= TOL, shape
+    assert [(f.launches - a, f.wide_launches - b) for f, (a, b) in zip(fns, before)] == \
+        [(12, 6), (10, 6), (14, 8)]
+
+
+def test_dirichlet_pair_runs_on_the_kernels(dev):
+    """The 1023 x 1023 DST-I pair: kernel 18 at (1, 1024, 1023) along axis
+    0 and kernel 15 at h = 1024 along axis 1, forward and back."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    x = torch.randn(1023, 1023, generator=g, device=dev)
+    fns = (krfft.r2c_packed_mid, krfft.r2c_packed)
+    before = [f.launches for f in fns]
+    y = nd.dstn(x, 1)
+    back = nd.idstn(y, 1)
+    assert [f.launches - b for f, b in zip(fns, before)] == [2, 2]
+    ref = _dst1_oracle(_dst1_oracle(x.double()).T).T
+    assert _rel(y.double(), ref) <= 1e-5
+    assert _rel(back, x) <= 1e-5

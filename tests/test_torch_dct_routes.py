@@ -86,6 +86,12 @@ F32, F64 = torch.float32, torch.float64
     ("dct2", (128, 384), 1, api.DCT2_NAT),
     ("dct3", (128, 128), 1, api.DCT3_NAT),
     ("dct2", (128, 8192), 1, api.DCT2_NAT),
+    # along a middle axis above K27's cap: DCT-I on K19 (the wide core at
+    # 1153, the fixed one at 2049), DST-I on K18 (h = 1024), DCT-IV on K28
+    ("dct1", (1153, 128), 0, api.DCT1_MID),
+    ("dct1", (2049, 256), 0, api.DCT1_MID),
+    ("dst1", (1023, 128), 0, api.R2C_PACKED_MID),
+    ("dct4", (2048, 128), 0, api.DCT4_MID),
 ])
 def test_route_on_cuda(kind, shape, axis, want):
     assert api._route(kind, shape, axis, F32, "cuda") == want
@@ -100,10 +106,9 @@ def test_float64_takes_the_engine(kind):
 @pytest.mark.parametrize("kind,shape,axis,kernel,item", [
     ("dct2", (2053, 128), 0, "_kernel_axis_mid_blue_rr", "K12"),
     ("dct3", (1109, 128), 0, "_kernel_axis_mid_blue_rr", "K12"),
-    ("dct1", (1153, 128), 0, "_dct1_kernel_mid", "K19"),
-    ("dct1", (2049, 256), 0, "_dct1_kernel_mid", "K19"),
-    ("dst1", (1023, 128), 0, "_r2c_kernel_packed_mid", "K18"),
-    ("dct4", (2048, 128), 0, "_dct4_kernel_mid", "K28"),
+    # K28 beyond the wide core: n = 256 * F with F > 160 (dct4_long)
+    ("dct4", (256 * 161, 128), 0, "_dct4_kernel_mid", "K28 long"),
+    ("dst4", (65536, 128), 0, "_dct4_kernel_mid", "K28 long"),
     ("dct4", (2 * 1031, 128), 0, "_kernel_axis_mid_blue", "K11"),  # composite, m prime
     # the n-point form beyond the wide core: n = 128 * k, odd k > 160
     ("dct2", (128, 128 * 161), 1, "_dct2_kernel / _dct3_kernel", "K23-K26 long"),
@@ -122,8 +127,9 @@ def test_unported_route_raises_on_cuda(kind, shape, axis, kernel, item):
 def test_dct_routes_never_take_the_fft_kernels():
     """K1-K3 serve no DCT/DST route: every length whose DCT route would
     reach them takes K23-K26/K28 first (api._dct_lane, _route_r2r). The
-    lane lowerings reach K15, K10 and K8, and the DCT-IV composite K6, under
-    their own route names."""
+    lane lowerings reach K15, K10 and K8, the DCT-IV composite K6, and the
+    middle-axis DST-I, DCT-I and DCT-IV K18, K19 and K28, under their own
+    route names."""
     for n in range(2, 5000, 3):
         for kind in ("dct1", "dct2", "dct3", "dct4", "dst1"):
             for shape, axis in (((n, 256), 0), ((256, n), 1)):
@@ -133,7 +139,8 @@ def test_dct_routes_never_take_the_fft_kernels():
                     continue
                 assert route in (api.DCT_DENSE_MID, api.DCT2_NAT, api.DCT3_NAT,
                                  api.DCT2_MID, api.DCT3_MID, api.DCT4_HALF_MID, api.R2C_PACKED, api.R2C_ROWPAIR,
-                                 api.DCT_LANE, api.ENGINE), (kind, shape, axis, route)
+                                 api.DCT_LANE, api.R2C_PACKED_MID, api.DCT1_MID,
+                                 api.DCT4_MID, api.ENGINE), (kind, shape, axis, route)
 
 
 @pytest.fixture
