@@ -99,6 +99,20 @@ without the final line):
         slice, their times (K18 against torch.fft.rfft of the interleaved
         column), the solves' times and the Dirichlet solve against a
         float32 torch.fft DST-I solve (in slabs, to fit);
+     j. Bluestein lengths (a prime factor above 128; kernels 11 and 12, the
+        lane's chirp-z on kernel 10): the 509^3 complex64 round trip (fftn /
+        ifftn: K11 fixed, F = 8, on axes 0 and 1; the engine's chirp-z on
+        axis 2, its sub-FFTs on K10 at M = 1024) against torch.fft.fftn in
+        complex128 with the round trip, its time against torch.fft.fftn +
+        ifftn and each forward leg's; the 2049^2 x 256 cell-centred Neumann
+        solve (dctn / idctn of type 2: K12 wide, F = 33, on axes 0 and 1;
+        K23/K24 on axis 2) against its exact spectrum and analytic solution,
+        its time and peak memory against a float32 torch.fft Makhoul solve
+        (in slabs, to fit); ndfft, R2C/C2R, DCT-I..IV and DST-I/II at
+        Bluestein lengths 131 ... 6781 on both axis kinds against float64
+        torch.fft / scipy.fft, and ndfft at 10007 raising the four-step key;
+        K11, K12 and K10 at the main paths' shapes against their plain
+        versions slice by slice, with their times;
   5. times with CUDA events (median over --reps runs after warm-up): each
      kernel against its plain version and, where one PyTorch call computes
      the same function, that call (the yardstick, never on the port's
@@ -118,9 +132,10 @@ error against its plain version, its times, and its bound: the larger of
 the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its FP32 operations over 67 TFLOP/s (H100 SXM data
 sheet, 700 W). Its launches are the sum over the main paths of phase 4;
-kernels 1, 2, 3, 10, 15, 16, 17, 18, 19 and 28 on the bts2 core are two rows
-each, the fixed core (launches - wide_launches) and the wide one
-(wide_launches), and
+kernels 1, 2, 3, 10, 11, 12, 15, 16, 17, 18, 19 and 28 on the bts2 core are
+two rows each, the fixed core (launches - wide_launches) and the wide one
+(wide_launches; K11 and K12 rows also give the bound of their two length-M
+FFTs per column, ``length_m_bound_ms``), and
 kernels 23 to 26 three: the fixed core, the wide core's half length and
 the n-point form (npoint_launches).
 The line before the last is the card as nvidia-smi names it; the last line
@@ -181,7 +196,7 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def work(name: str, shape):
+def work(name: str, shape, length_m: bool = False):
     """(bytes, FP32 operations) of one kernel call at ``shape``: inputs
     (constants included) read once, outputs written once; 5 n log2 n per
     complex and 2.5 n log2 n per real FFT of length n, the dense DCT's
@@ -191,7 +206,22 @@ def work(name: str, shape):
     core reads the fixed core's tables and its (F, F) DFT-F table. A DCT-II/III
     kernel (rows or a middle axis) reads and writes n reals per transform and
     does a real FFT's 2.5 n log2 n, in every form; its tables are the core's
-    Wq for its core length (n/2, or n in the n-point form) and its twiddles."""
+    Wq for its core length (n/2, or n in the n-point form) and its twiddles.
+    The chirp-z kernels (K11, K12) read and write 16 or 8 bytes per element
+    and do the function's 5 n log2 n or 2.5 n log2 n per column; their tables
+    are the two chirps, H and both cores' Wq (and DFT-F) at the convolution
+    length M. ``length_m``: their operations as two complex FFTs of length M
+    per column instead."""
+    if "blue" in name:
+        b, n, cols = shape
+        k11 = name.startswith("c2c")
+        mk = -(-(2 * n - 1) // 128) * 128
+        f = mk // 128
+        wide = 2 * 8 * f * f if name.endswith("_wide") else 0
+        tables = (8 if k11 else 16) * n + 8 * mk + 2 * 8 * mk * 128 + wide
+        flops = (2 * 5 * mk * math.log2(mk) if length_m
+                 else (5 if k11 else 2.5) * n * math.log2(n))
+        return (16 if k11 else 8) * b * n * cols + tables, flops * b * cols
     if name.startswith(("dct2_", "dct3_")):
         form = name.split("_")[2] if name.count("_") == 2 else "fixed"
         n = shape[1]
@@ -380,7 +410,8 @@ def main() -> int:
             "dct3_nat_npoint": 0.0, "dct2_mid": 0.0, "dct3_mid": 0.0, "dct2_mid_wide": 0.0,
             "dct3_mid_wide": 0.0, "dct2_mid_npoint": 0.0, "dct3_mid_npoint": 0.0,
             "r2c_packed_mid": 0.0, "r2c_packed_mid_wide": 0.0, "dct1_mid": 0.0,
-            "dct1_mid_wide": 0.0, "dct4_mid": 0.0, "dct4_mid_wide": 0.0}
+            "dct1_mid_wide": 0.0, "dct4_mid": 0.0, "dct4_mid_wide": 0.0, "c2c_blue_mid": 0.0,
+            "c2c_blue_mid_wide": 0.0, "dct23_blue_mid": 0.0, "dct23_blue_mid_wide": 0.0}
     k1_shapes = [(1, 512, 257), (1, 1024, 513), (3, 2048, 130), (512, 512, 257),
                  (1, 512, 512 * 257), (1, 512, 512), (1, 1024, 1024), (512, 512, 512),
                  (1, 512, 512 * 512), (257, 512, 512)]
@@ -726,6 +757,30 @@ def main() -> int:
                 check_form(name, kern, lambda: kern(x, scale), lambda: plain(x, scale), shape,
                            scale=scale)
             del x
+    # kernels 11 and 12 on the fixed core (F = 8, 16: n = 509, 1021) and on
+    # the wide core with its second tile (F = 3, 17, 33 and the routes'
+    # largest, 106, one column per tile: n = 131, 1031, 2049, 6781), ragged
+    # column tiles (L = 130), both signs and the scale 1/n (K11), DCT-II with
+    # scale 2 and DCT-III unscaled (K12); the main paths' shapes are checked
+    # in phase 4j, slice by slice
+    for name, shapes in (("fixed", ((2, 509, 130), (1, 1021, 257), (1, 509, 4096))),
+                         ("wide", ((2, 131, 130), (1, 1031, 130), (1, 2049, 130),
+                                   (1, 6781, 128)))):
+        k11 = "c2c_blue_mid" + ("_wide" if name == "wide" else "")
+        k12 = "dct23_blue_mid" + ("_wide" if name == "wide" else "")
+        for shape in shapes:
+            x = crandn(*shape)
+            for sign, scale in ((-1, None), (+1, 1.0 / shape[1])):
+                check_form(k11, kfft.c2c_blue_mid, lambda: kfft.c2c_blue_mid(x, sign, scale),
+                           lambda: kfft.c2c_blue_mid_plain(x, sign, scale), shape, sign=sign,
+                           scale=scale)
+            r = x.real.contiguous()
+            del x
+            for t, scale in ((2, 2.0), (3, None)):
+                check_form(k12, kdct.dct23_blue_mid, lambda: kdct.dct23_blue_mid(r, t, scale),
+                           lambda: kdct.dct23_blue_mid_plain(r, t, scale), shape,
+                           dct_type=t, scale=scale)
+            del r
     torch.cuda.empty_cache()
 
     # ---- 4a. the spectral step through the public functions
@@ -753,15 +808,17 @@ def main() -> int:
                 "r2c_packed_generic": krfft.r2c_packed_generic,
                 "dct2_mid": kdct.dct2_mid, "dct3_mid": kdct.dct3_mid,
                 "r2c_packed_mid": krfft.r2c_packed_mid, "dct1_mid": krfft.dct1_mid,
-                "dct4_mid": kdct.dct4_mid}
+                "dct4_mid": kdct.dct4_mid, "c2c_blue_mid": kfft.c2c_blue_mid,
+                "dct23_blue_mid": kdct.dct23_blue_mid}
     # the wide core's launches and the DCT kernels' n-point ones, counted
     # apart by the same wrappers (their ``launches`` count every launch)
     forms = {f"{name}_{form}": (wrappers[name], f"{form}_launches")
              for name in ("c2c_axis_mid", "c2c_rows", "r2c_nat", "c2r_nat", "r2c_packed",
                           "r2c_mid", "c2r_mid", "dct2_nat", "dct3_nat", "dct2_mid",
-                          "dct3_mid", "r2c_packed_mid", "dct1_mid", "dct4_mid")
+                          "dct3_mid", "r2c_packed_mid", "dct1_mid", "dct4_mid",
+                          "c2c_blue_mid", "dct23_blue_mid")
              for form in FORMS
-             if form == "wide" or name.startswith(("dct2", "dct3"))}
+             if form == "wide" or name.startswith(("dct2_", "dct3_"))}
 
     def count(name):
         if name in forms:
@@ -1724,6 +1781,179 @@ def main() -> int:
     del x
     torch.cuda.empty_cache()
 
+    # ---- 4j. Bluestein lengths (a prime factor above 128): the fused chirp-z
+    # along a middle axis (K11, K12) and the lane's chirp-z on K10. The main
+    # paths: the 509^3 complex64 round trip (fftn / ifftn, 1.06 GB per
+    # field: K11 fixed, F = 8, M = 1024, on axes 0 and 1 at (1, 509, 259081)
+    # and (509, 509, 509); axis 2 on the engine's chirp-z, its two sub-FFTs
+    # on K10 fixed over 259081 rows of 1024), against torch.fft.fftn in
+    # complex128 with the round trip; and the 2049^2 x 256 cell-centred
+    # Neumann solve (dctn / idctn of type 2, 4.30 GB per field: K12 wide,
+    # F = 33, M = 4224, on axes 0 and 1 at (1, 2049, 524544) and (2049, 2049,
+    # 256); K23/K24 at n = 256 on axis 2), its spectrum against the exact
+    # sparse values and its solution against the analytic one. Then the
+    # lengths against float64 torch.fft / scipy.fft, the four-step raise,
+    # each kernel of the main paths against its plain version slice by
+    # slice, and the times.
+    n10 = 509
+    x10 = crandn(n10, n10, n10)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    y10 = nd.fftn(x10)
+    back10 = nd.ifftn(y10)
+    read_counts("c2c_509^3", c2c_blue_mid=4, c2c_rows=4)
+    peak = torch.cuda.max_memory_allocated()
+    check_c2c("fftn_ifftn", y10, x10, back10, grid=[n10] * 3, peak_bytes=peak, base_bytes=base)
+    del y10, back10
+    torch.cuda.empty_cache()
+    reps10 = max(2, min(reps_big, args.reps))
+    t_port = cuda_ms(lambda: nd.ifftn(nd.fftn(x10)), reps10, 1)
+    t_torch = cuda_ms(lambda: torch.fft.ifftn(torch.fft.fftn(x10)), reps10, 1)
+    h10 = nd.FftHandler(n10)
+    legs = {f"fft_axis{a}": (lambda a=a: nd.ndfft(x10, h10, axis=a)) for a in range(3)}
+    leg_ms = {k: cuda_ms(fn, reps10, 1) for k, fn in legs.items()}
+    emit(phase="time", c2c_fftn_ifftn=[n10] * 3, ms=t_port, torch_fft_ms=t_torch,
+         legs_ms=leg_ms, card=card)
+
+    nb_grid = (2049, 2049, 256)
+    nb_pts = [grid_pts(n, 0.5, n) for n in nb_grid]
+    f_nb, solve_nb = poisson_solve(
+        "neumann_2049^2x256", nb_grid, ((1, 2, 3, 1.0), (5, 3, 2, 0.5), (300, 40, 100, 0.25)),
+        [lambda m, p=p: torch.cos(m * math.pi * p) for p in nb_pts],
+        [eigs(n, 0, n) for n in nb_grid], 0, float(2049 * 2049 * 256),
+        lambda f: nd.dctn(f, 2), lambda fh: nd.idctn(fh, 2),
+        dict(dct23_blue_mid=4, dct23_blue_mid_wide=4, dct2_nat=1, dct3_nat=1))
+
+    # the yardstick, never on the port's path: the same solve through the
+    # float32 torch.fft Makhoul lowering (makhoul_dct) along each axis, in
+    # slabs of 32 along another axis so that its complex FFTs fit
+    def makhoul_slabs(x, axis, dct_type, scale=1.0):
+        other = 1 if axis == 0 else 0
+        out = torch.empty_like(x)
+        for i0, i1 in slab_ranges(x.shape[other]):
+            idx = (slice(None),) * other + (slice(i0, i1),)
+            out[idx] = makhoul_dct(x[idx], axis, dct_type).mul_(scale)
+        return out
+
+    lam_nb = [eigs(n, 0, n).float() for n in nb_grid]
+
+    def yardstick10(f):
+        fh = makhoul_slabs(makhoul_slabs(makhoul_slabs(f, 2, 2), 1, 2), 0, 2)
+        for i0, i1 in slab_ranges(nb_grid[0]):
+            lam3 = (lam_nb[0][i0:i1, None, None] + lam_nb[1][None, :, None]
+                    + lam_nb[2][None, None, :])
+            lam3[lam3 == 0] = math.inf
+            fh[i0:i1].div_(lam3)
+        for axis in (0, 1, 2):
+            fh = makhoul_slabs(fh, axis, 3, 1.0 / (2 * nb_grid[axis]))
+        return fh
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t_port = cuda_ms(lambda: solve_nb(f_nb), reps10, 1)
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t_yard = cuda_ms(lambda: yardstick10(f_nb), reps10, 1)
+    peak_yard = torch.cuda.max_memory_allocated()
+    y_nb = yardstick10(f_nb)
+    u_nb = solve_nb(f_nb)
+    yard_vs_port = abs_err(y_nb, u_nb) / float(u_nb.abs().max())
+    del y_nb, u_nb
+    hb = nd.DctHandler(2049)
+    legs = {"dct2_axis0": lambda: nd.nddct2(f_nb, hb, axis=0),
+            "dct2_axis1": lambda: nd.nddct2(f_nb, hb, axis=1),
+            "dct2_axis2": lambda: nd.nddct2(f_nb, nd.DctHandler(256), axis=2),
+            "perm_axis0": lambda: torch.cat([f_nb[0::2], f_nb[1::2].flip(0)], dim=0)}
+    leg_ms = {k: cuda_ms(fn, reps10, 1) for k, fn in legs.items()}
+    emit(phase="time", neumann_cell=list(nb_grid), ms=t_port, torch_fft_makhoul_ms=t_yard,
+         peak_bytes=peak, base_bytes=base, yardstick_peak_bytes=peak_yard,
+         yardstick_vs_port=yard_vs_port, legs_ms=leg_ms, card=card)
+    del f_nb
+    torch.cuda.empty_cache()
+
+    # the lengths against float64 oracles: ndfft along axis 0 at 131 (K11
+    # wide, F = 3), 1021 (fixed, F = 16), 1031 (wide, F = 17) and 6781 (F =
+    # 106, the largest tile); along the last axis at 131 (K10 wide at M =
+    # 384) and 2049 (M = 4608, F = 36); R2C/C2R at 2062 along axis 0 (the
+    # lane after a moveaxis: h = 1031, M = 2304; the C2R's extension at M =
+    # 4608) and at 263 along the last axis (row pairs, M = 768); DCT-II/III
+    # and DST-II at 2049 along axis 0 (K12 wide); DCT-IV at 2042 along axis
+    # 0 (the composite's C2C on K11 fixed, m = 1021); DCT-I at 1032 and DST-I
+    # at 1030 along the last axis (the packed lowering's C2C at h = 1031 on
+    # the lane's chirp-z, M = 2304, F = 18); ndfft at 10007 along the last
+    # axis raises the four-step key (M = 20736 > 20480)
+    try:
+        nd.ndfft(torch.zeros(128, 10007, dtype=torch.complex64, device=dev))
+    except NotImplementedError as exc:
+        if "_kernel_exit_mul" not in str(exc):
+            raise
+        emit(phase="blue_path", check="fft_10007_raises", message=str(exc))
+    else:
+        raise AssertionError("ndfft at n = 10007 along the last axis did not raise")
+    c_in = {(n, 0): crandn(n, 1024) for n in (131, 1021, 1031, 6781)}
+    c_in.update({(n, 1): crandn(256, n) for n in (131, 2049)})
+    r_in = {(2062, 0): randn(2062, 256), (263, 1): randn(256, 263)}
+    # Hermitian half-spectra of other real inputs (torch.fft only builds them)
+    s_in = {key: torch.fft.rfft(randn(*x.shape), dim=key[1]) for key, x in r_in.items()}
+    d_in = {kind: randn(*shape) for kind, shape in (
+        ("dct2", (2049, 256)), ("dct3", (2049, 256)), ("dst2", (2049, 256)),
+        ("dct4", (2042, 256)), ("dct1", (256, 1032)), ("dst1", (256, 1030)))}
+    reset_counts()
+    c_out = {key: nd.ndfft(x, axis=key[1]) for key, x in c_in.items()}
+    r_out = {key: nd.ndfft_r2c(x, axis=key[1]) for key, x in r_in.items()}
+    s_out = {key: nd.ndifft_r2c(s, nd.R2cFftHandler(key[0]), axis=key[1])
+             for key, s in s_in.items()}
+    d_out = {kind: getattr(nd, f"nd{kind}")(x, axis=0 if x.shape[0] > 1024 else 1)
+             for kind, x in d_in.items()}
+    read_counts("blue_lengths", c2c_blue_mid=5, c2c_blue_mid_wide=3, c2c_rows=16,
+                c2c_rows_wide=16, dct23_blue_mid=3, dct23_blue_mid_wide=3)
+    for (n, axis), y in c_out.items():
+        x = c_in[(n, axis)]
+        check_c2c("fft_length", y, x, nd.ndifft(y, axis=axis), dims=(axis,), n=n, axis=axis)
+    for (n, axis), y in r_out.items():
+        x = r_in[(n, axis)]
+        check_r2c_mid("r2c_length", y, x, nd.ndifft_r2c(y, nd.R2cFftHandler(n), axis=axis),
+                      (axis,), n=n, axis=axis)
+        want = torch.fft.irfft(s_in[(n, axis)].to(torch.complex128), n=n, dim=axis)
+        check("c2r_length", s_out[(n, axis)], host64(want), n=n, axis=axis)
+    for kind, y in d_out.items():
+        axis = 0 if d_in[kind].shape[0] > 1024 else 1
+        oracle = sfft.dct if kind.startswith("dct") else sfft.dst
+        check(f"{kind}_length", y, oracle(host64(d_in[kind]), type=int(kind[3]), axis=axis),
+              grid=list(d_in[kind].shape), axis=axis)
+    del c_in, c_out, r_in, r_out, s_in, s_out, d_in, d_out
+
+    # each kernel of the main paths at its shape against its plain version,
+    # slice by slice, and their times: K11 at both of the round trip's
+    # shapes (its yardstick torch.fft.fft along the axis), K10 at the lane's
+    # (259081, 1024) rows in both directions, K12 at both of the solve's
+    # shapes (no single PyTorch call computes it)
+    legs10 = (("c2c_blue_mid", kfft.c2c_blue_mid, kfft.c2c_blue_mid_plain,
+               (1, n10, n10 * n10), 2, True, lambda x: lambda: torch.fft.fft(x, dim=1)),
+              ("c2c_blue_mid", kfft.c2c_blue_mid, kfft.c2c_blue_mid_plain,
+               (n10, n10, n10), 0, True, lambda x: lambda: torch.fft.fft(x, dim=1)),
+              ("dct23_blue_mid_wide", kdct.dct23_blue_mid, kdct.dct23_blue_mid_plain,
+               (1, 2049, 2049 * 256), 2, False, None),
+              ("dct23_blue_mid_wide", kdct.dct23_blue_mid, kdct.dct23_blue_mid_plain,
+               nb_grid, 0, False, None))
+    for name, kern, plain, shape, dim, cplx, library in legs10:
+        x = crandn(*shape) if cplx else randn(*shape)
+        check_sliced(name, kern, plain, [x], dim, (-1, None) if cplx else (2, 2.0), reps10,
+                     library=library and library(x))
+        if not cplx:
+            check_sliced(name, kern, plain, [x], dim, (3, None), reps10, timed=False)
+        del x
+        torch.cuda.empty_cache()
+    x = crandn(n10 * n10, 1024)
+    for sign, scale in ((-1, None), (+1, 1.0 / 1024)):
+        check_sliced("c2c_rows", kfft.c2c_rows, kfft.c2c_rows_plain, [x], 0, (sign, scale),
+                     reps10, library=lambda: torch.fft.fft(x, dim=1), timed=sign < 0)
+    del x, x10
+    torch.cuda.empty_cache()
+
     # ---- 5. times: each kernel against its plain version and, at the main
     # path's shape, the PyTorch call that computes the same function (the
     # yardstick); the steps against torch.fft (the 1536^3 solve's kernels
@@ -1749,7 +1979,9 @@ def main() -> int:
                    "dct3_mid_npoint": (1, 1152, 1152), "r2c_packed_mid": (1023, 1024, 1023),
                    "r2c_packed_mid_wide": (1, 1536, 1535), "dct1_mid": (2049, 2049, 257),
                    "dct1_mid_wide": (1, 1537, 1537), "dct4_mid": (2048, 2048, 256),
-                   "dct4_mid_wide": (1, 1536, 1536)}
+                   "dct4_mid_wide": (1, 1536, 1536), "c2c_blue_mid": (1, 509, 509 * 509),
+                   "c2c_blue_mid_wide": (1, 1031, 1024), "dct23_blue_mid": (1, 1021, 1024),
+                   "dct23_blue_mid_wide": (1, 2049, 2049 * 256)}
 
     def time_kernel(name, shape, kern, plain, library=None):
         t_plain = cuda_ms(plain, reps)
@@ -2036,6 +2268,17 @@ def main() -> int:
         x = randn(*shape)
         time_kernel(name, shape, lambda: kern(x, scale), lambda: plain(x, scale))
         del x
+    # kernel 11 on the wide core at phase 4j's length 1031 (F = 17; its fixed
+    # form and kernel 12's wide form were timed there, at the main paths'
+    # shapes) and kernel 12 on the fixed core at 1021 (F = 16), which the
+    # routes never send there (they send it n > 1100, F >= 18)
+    x = crandn(1, 1031, 1024)
+    time_kernel("c2c_blue_mid_wide", (1, 1031, 1024), lambda: kfft.c2c_blue_mid(x, -1),
+                lambda: kfft.c2c_blue_mid_plain(x, -1), lambda: torch.fft.fft(x, dim=1))
+    x = randn(1, 1021, 1024)
+    time_kernel("dct23_blue_mid", (1, 1021, 1024), lambda: kdct.dct23_blue_mid(x, 2, 2.0),
+                lambda: kdct.dct23_blue_mid_plain(x, 2, 2.0))
+    del x
     t_port = cuda_ms(lambda: dct_pair(xp), reps)
     t_yard = cuda_ms(lambda: yardstick_pair(xp), reps)
     emit(phase="time", dct_pair=[1024, 1024], ms=t_port, torch_fft_makhoul_ms=t_yard,
@@ -2130,6 +2373,14 @@ def main() -> int:
                      "ndrustfft_tpu/ops/pallas/dct.py:670"),
         "dct4_mid_wide": ("ndrustfft_tpu_torch/csrc/dct4_mid.cu",
                           "ndrustfft_tpu/ops/pallas/dct.py:670"),
+        "c2c_blue_mid": ("ndrustfft_tpu_torch/csrc/fft_blue_mid.cu",
+                         "ndrustfft_tpu/ops/pallas/fft.py:1277"),
+        "c2c_blue_mid_wide": ("ndrustfft_tpu_torch/csrc/fft_blue_mid.cu",
+                              "ndrustfft_tpu/ops/pallas/fft.py:1277"),
+        "dct23_blue_mid": ("ndrustfft_tpu_torch/csrc/fft_blue_mid.cu",
+                           "ndrustfft_tpu/ops/pallas/fft.py:1473"),
+        "dct23_blue_mid_wide": ("ndrustfft_tpu_torch/csrc/fft_blue_mid.cu",
+                                "ndrustfft_tpu/ops/pallas/fft.py:1473"),
     }
     kernels = []
     for name, (src, rep) in sources.items():
@@ -2142,7 +2393,12 @@ def main() -> int:
                "launches": fixed, "max_abs_err": errs[name], "ms": t_k, "plain_ms": t_plain,
                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": t_lib,
                "shape": list(main_shapes[name])}
-        # the same numbers at the shapes of phases 4h and 4i's solves
+        if "blue" in name:
+            # the work of the chirp-z's two length-M FFTs per column, beside
+            # the function's own (the bound above)
+            nbytes, m_flops = work(name, main_shapes[name], length_m=True)
+            row["length_m_bound_ms"], row["length_m_bound_by"] = bound(nbytes, m_flops)
+        # the same numbers at the shapes of phases 4h, 4i and 4j's main paths
         row["solve_shapes"] = [
             dict(zip(("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
                      (list(shape), *timing[(name, shape)], *bound(*work(name, shape)))))

@@ -22,10 +22,15 @@ DCT_LANE (the DCT-III/IV lowerings' C2C); each C2C is K10 or K8 (dense, or
 the generic schedule above 256). The route and the lowering in
 ``ops/engine.py`` are decided by the same function of ``gates.py``; the
 launch counters show which kernel ran. DCT4_HALF_MID is the DCT-IV/DST-IV
-composite along a middle axis, its half-length C2C on K6; R2C_PACKED_MID
+composite along a middle axis, its half-length C2C on K6 (K11 at a
+Bluestein half length); R2C_PACKED_MID
 (DST-I's odd-extension streams on K18), DCT1_MID (K19) and DCT4_MID (the
-fused DCT-IV/DST-IV, K28) run along a middle axis in place. The ``_par``
-names are the serial functions (the port has no sharded input).
+fused DCT-IV/DST-IV, K28) run along a middle axis in place. A Bluestein
+length (a prime factor above 128) takes C2C_BLUE_MID (the fused chirp-z,
+K11) or DCT23_BLUE_MID (its real-to-real DCT-II/III form, K12) along a
+middle axis where the JAX package runs those kernels, and elsewhere
+BLUESTEIN_LANE: the engine's chirp-z, whose sub-FFTs run on K10 or K8.
+The ``_par`` names are the serial functions (the port has no sharded input).
 
 A non-tensor input (numpy array, list, scalar) goes to the CUDA device, as
 the JAX package puts it on its default device; a CPU tensor is how a caller
@@ -42,13 +47,15 @@ import torch
 
 from .config import config
 from .gates import (
-    C2C_AXIS_MID, C2C_DENSE_MID, C2C_DENSE_ROWS, C2C_GENERIC_MID, C2C_GENERIC_ROWS, C2C_ROWS,
+    BLUESTEIN_LANE, C2C_AXIS_MID, C2C_BLUE_MID, C2C_DENSE_MID, C2C_DENSE_ROWS, C2C_GENERIC_MID,
+    C2C_GENERIC_ROWS, C2C_ROWS,
     C2R_DENSE_MID, C2R_LANE, C2R_MID, C2R_NAT, DCT1_MID, DCT2_MID, DCT2_NAT, DCT3_MID,
-    DCT3_NAT, DCT4_HALF_MID, DCT4_MID, DCT_DENSE_MID, DCT_LANE, ENGINE, MIN_BATCH,
+    DCT3_NAT, DCT4_HALF_MID, DCT4_MID, DCT23_BLUE_MID, DCT_DENSE_MID, DCT_LANE, ENGINE,
+    MIN_BATCH,
     R2C_DENSE_MID, R2C_MID, R2C_NAT, R2C_PACKED, R2C_PACKED_MID, R2C_ROWPAIR,
     _c2c_kernel_route,
     _kernel_ok, _lane_c2c, _nat_f, _twostep_split, c2r_lane_route, inner_c2c_route,
-    packed_lane, r2c_lane_route, unported,
+    lane_c2c_route, packed_lane, r2c_lane_route, unported,
 )
 from .handlers import DctHandler, DstHandler, FftHandler, R2cFftHandler
 from .normalization import Normalization
@@ -71,14 +78,13 @@ _RUNNABLE = (C2C_AXIS_MID, C2C_ROWS, C2C_DENSE_ROWS, C2C_DENSE_MID, C2C_GENERIC_
              C2C_GENERIC_MID, R2C_NAT, C2R_NAT, R2C_MID, C2R_MID, R2C_DENSE_MID,
              C2R_DENSE_MID, DCT_DENSE_MID, DCT2_NAT, DCT3_NAT, DCT2_MID, DCT3_MID,
              DCT4_HALF_MID, R2C_PACKED_MID, DCT1_MID, DCT4_MID, R2C_PACKED, R2C_ROWPAIR,
-             C2R_LANE, DCT_LANE, ENGINE)
+             C2R_LANE, DCT_LANE, C2C_BLUE_MID, DCT23_BLUE_MID, BLUESTEIN_LANE, ENGINE)
 _C2C_KINDS = ("fft", "ifft")
 _R2R_KINDS = tuple(f"{f}{t}" for f in ("dct", "dst") for t in (1, 2, 3, 4))
 
 # the JAX package's TPU gates beyond those of gates.py
 _MIN_COLS = 128          # api._mid_dims
 _DENSE_DCT_MAX = 1100    # dct._DENSE_DCT_MAX
-_BLUE_MAX_M = 16384      # fft._BLUE_MAX_M
 _BLUE_VMEM_M = int(0.8 * 100 * 1024 * 1024) // (12 * 128 * 4)   # fft.blue_mid_supported
 
 
@@ -118,10 +124,9 @@ def _ts_ok(n: int) -> bool:
 
 def _blue_mid_ok(n: int) -> bool:
     """fft.blue_mid_supported for a Bluestein length n (blue_kernel_M and the
-    kernel's VMEM bound)."""
-    need = 2 * n - 1
-    big = -(-need // 128) * 128
-    return need <= 256 or big <= min(_BLUE_MAX_M, _BLUE_VMEM_M)
+    kernel's VMEM bound: n <= 6784, M <= 13568)."""
+    mk = _kfft.blue_kernel_M(n)
+    return mk is not None and mk <= _BLUE_VMEM_M
 
 
 def _mid_dims(shape, axis):
@@ -140,9 +145,9 @@ def _route(kind: str, shape, axis: int, dtype: torch.dtype, device_type: str,
     C2C_ROWS, C2C_DENSE_ROWS, C2C_DENSE_MID, C2C_GENERIC_ROWS,
     C2C_GENERIC_MID, R2C_NAT, C2R_NAT, R2C_MID, C2R_MID, R2C_DENSE_MID,
     C2R_DENSE_MID, DCT_DENSE_MID, DCT2_NAT, DCT3_NAT, DCT2_MID, DCT3_MID, the
-    DCT-IV composite DCT4_HALF_MID, R2C_PACKED_MID, DCT1_MID, DCT4_MID, and
-    the lane lowerings' R2C_PACKED, R2C_ROWPAIR, C2R_LANE, DCT_LANE) or
-    ENGINE.
+    DCT-IV composite DCT4_HALF_MID, R2C_PACKED_MID, DCT1_MID, DCT4_MID, the
+    chirp-z C2C_BLUE_MID and DCT23_BLUE_MID, and the lane lowerings'
+    R2C_PACKED, R2C_ROWPAIR, C2R_LANE, DCT_LANE, BLUESTEIN_LANE) or ENGINE.
 
     ``kind`` is "fft", "ifft", "r2c", "c2r", "dct1".."dct4" or
     "dst1".."dst4"; ``shape``, ``axis`` and ``dtype`` are the input's; ``n``
@@ -159,7 +164,7 @@ def _route(kind: str, shape, axis: int, dtype: torch.dtype, device_type: str,
         if n is None:
             n = shape[axis] if kind != "c2r" else 2 * (shape[axis] - 1)
         if dtype not in (torch.float32, torch.complex64):
-            route = ENGINE if factorize(n) is not None else "bluestein"
+            route = ENGINE      # the JAX package's XLA, Bluestein lengths included
         else:
             route = _route_f32(kind, shape, axis, n)
             if kind in _C2C_KINDS:
@@ -191,9 +196,12 @@ def _route_f32(kind, shape, axis, n):
         route = _rfft_mid(kind, n)
         if route is not None:
             return route
-    if factorize(n) is None:
-        return "bluestein"
     if kind in ("fft", "ifft"):
+        if factorize(n) is None:
+            # the JAX package's _c2c_impl: the fused chirp-z along a middle
+            # axis (its api.py:172-190), else the lane lowering after a moveaxis
+            mid = dims is not None and _blue_mid_ok(n)
+            return C2C_BLUE_MID if mid else lane_c2c_route(n, batch)
         if dims is not None and _kernel_ok(n):
             ts = _twostep_split(n)
             use_ts = n > 256 and ts is not None and ts[0] <= MAX_BASE_RADIX
@@ -227,8 +235,6 @@ def _dct_lane(t: int, n: int, batch: int) -> str:
         return ENGINE
     if t in (2, 3) and batch >= MIN_BATCH and n % 2 == 0 and _ts_ok(n):
         return _dct23_kernel(n, DCT2_NAT if t == 2 else DCT3_NAT)
-    if factorize(n) is None:
-        return "bluestein"
     if t == 2:
         # kernel 2 never serves here: every n whose half length it takes
         # passed the kernel-23 gate above
@@ -260,18 +266,18 @@ def _route_r2r(kind, shape, axis, n):
             if n % 2 == 0 and _ts_ok(n):
                 return _dct23_kernel(n, DCT2_MID if t == 2 else DCT3_MID)
             if factorize(n) is None and _blue_mid_ok(n):
-                return "dct23_blue_mid"
+                return DCT23_BLUE_MID
         elif n % 2 == 0:
             if _ts_ok(n // 2):
                 return DCT4_MID if _kdct.dct4_f(n) is not None else "dct4_long"
             m = n // 2
-            if factorize(m) is not None and _kernel_ok(m):
+            if factorize(m) is not None and _kernel_ok(m) or \
+                    factorize(m) is None and _blue_mid_ok(m):
                 # the JAX package's half-length C2C composite (its
                 # api.py:512-546); m > 550 has no split here (those n take
-                # K28), so the C2C is K6's generic schedule
+                # K28), so the C2C is K6's generic schedule, or K11 at a
+                # Bluestein m
                 return DCT4_HALF_MID
-            if factorize(m) is None and _blue_mid_ok(m):
-                return "bluestein"
     return _dct_lane(t, n, batch)
 
 
@@ -314,7 +320,7 @@ def _check_grad(x):
 
 # the C2C kernels along a middle axis, by route
 _MID_KERNELS = {C2C_AXIS_MID: _kfft.c2c_axis_mid, C2C_DENSE_MID: _kfft.c2c_dense_mid,
-                C2C_GENERIC_MID: _kfft.c2c_generic_mid}
+                C2C_GENERIC_MID: _kfft.c2c_generic_mid, C2C_BLUE_MID: _kfft.c2c_blue_mid}
 
 
 def _c2c_impl(x, handler, axis, sign):
@@ -333,9 +339,10 @@ def _c2c_impl(x, handler, axis, sign):
         nb, cols = _mid_dims(x.shape, axis)
         y = _MID_KERNELS[route](x.reshape(nb, n, cols).contiguous(), sign, scale)
         return y.reshape(x.shape)
-    # the row routes (K10, K8) and the engine take the axis last (a no-op for
-    # the last axis; a middle axis with < 128 columns moves, as the JAX
-    # package does); engine.c2c dispatches on the same gates.lane_c2c_route
+    # the row routes (K10, K8), the lane Bluestein and the engine take the
+    # axis last (a no-op for the last axis; a middle axis with < 128 columns
+    # moves, as the JAX package does); engine.c2c dispatches on the same
+    # gates.lane_c2c_route
     y = _engine.c2c(x.movedim(axis, -1), get_c2c_plan(n, sign), scale)
     return y.movedim(-1, axis)
 
@@ -407,7 +414,8 @@ _MID_DCT = {DCT_DENSE_MID: _kdct.dct_dense_mid,
             DCT3_MID: lambda x3, t, scale: _kdct.dct3_mid(x3, scale),
             DCT1_MID: lambda x3, t, scale: _krfft.dct1_mid(
                 x3, 0.5 * (1.0 if scale is None else scale)),
-            DCT4_MID: lambda x3, t, scale: _kdct.dct4_mid(x3, scale)}
+            DCT4_MID: lambda x3, t, scale: _kdct.dct4_mid(x3, scale),
+            DCT23_BLUE_MID: _dct.dct23_blue_mid}
 
 
 def _dct_impl(x, handler, axis, dct_type):

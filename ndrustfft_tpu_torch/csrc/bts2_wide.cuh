@@ -230,14 +230,13 @@ cudaError_t wide_dispatch(int C, Fn&& fn) {
 }
 
 // Launch kernel(args..., tiles) on `groups` times the tiles of `total`
-// transforms of length n, C per tile, with the dynamic shared memory of
-// wide_smem_bytes. A grid or a tile the card cannot take returns an error.
+// transforms of length n, C per tile, with `smem` bytes of dynamic shared
+// memory. A grid or a tile the card cannot take returns an error.
 template <int C, class... KArgs, class... Args>
-cudaError_t wide_launch(void (*kernel)(KArgs...), int n, long long groups, long long total,
-                        cudaStream_t stream, Args... args) {
+cudaError_t wide_launch_smem(void (*kernel)(KArgs...), int n, long long smem, long long groups,
+                             long long total, cudaStream_t stream, Args... args) {
   const long long tiles = (total + C - 1) / C;
   const long long blocks = groups * tiles;
-  const long long smem = wide_smem_bytes(n, C);
   if (n % kM || n / kM < 1 || n / kM > kWideMaxF || groups < 1 || total < 1 ||
       blocks > 0x7fffffffLL || smem > kMaxSmemBytes)
     return cudaErrorInvalidValue;
@@ -246,6 +245,13 @@ cudaError_t wide_launch(void (*kernel)(KArgs...), int n, long long groups, long 
   if (e != cudaSuccess) return e;
   kernel<<<(unsigned)blocks, kThreads, (size_t)smem, stream>>>(args..., tiles);
   return cudaGetLastError();
+}
+
+// wide_launch_smem with the shared memory of wide_smem_bytes (one tile).
+template <int C, class... KArgs, class... Args>
+cudaError_t wide_launch(void (*kernel)(KArgs...), int n, long long groups, long long total,
+                        cudaStream_t stream, Args... args) {
+  return wide_launch_smem<C>(kernel, n, wide_smem_bytes(n, C), groups, total, stream, args...);
 }
 
 // The shared memory of a wide block: the tile (n x C), the Y scratch and the

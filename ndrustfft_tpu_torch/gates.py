@@ -14,7 +14,7 @@ from __future__ import annotations
 from functools import lru_cache
 
 from .ops.hopper import fft as _kfft
-from .plan import MAX_BASE_RADIX, factorize
+from .plan import MAX_BASE_RADIX, blue_sub_len, factorize
 
 # routes that run a ported kernel, and the engine
 C2C_AXIS_MID = "c2c_axis_mid"
@@ -51,15 +51,19 @@ DCT4_HALF_MID = "dct4_half_mid"
 R2C_PACKED_MID = "r2c_packed_mid"
 DCT1_MID = "dct1_mid"
 DCT4_MID = "dct4_mid"
+# Bluestein lengths (a prime factor above 128): the fused chirp-z C2C along
+# a middle axis (K11), its real-to-real DCT-II/III form (K12), and along the
+# last axis the engine's chirp-z, whose two length-M sub-FFTs run on K10 or
+# K8 (the route of every lane lowering at such a length)
+C2C_BLUE_MID = "c2c_blue_mid"
+DCT23_BLUE_MID = "dct23_blue_rr_mid"
+BLUESTEIN_LANE = "bluestein_lane"
 ENGINE = "engine"
 
 # Pallas kernels of the JAX package on routes not ported yet:
 # key -> (kernel, ROADMAP.md item)
 UNPORTED = {
     "fourstep": ("fft.py::_kernel_exit_mul and _kernel_lane_store_t", "K7"),
-    "bluestein": ("fft.py::_kernel_axis_mid_blue and the engine's Bluestein",
-                  "K11"),
-    "dct23_blue_mid": ("fft.py::_kernel_axis_mid_blue_rr", "K12"),
     "dct4_long": ("dct.py::_dct4_kernel_mid at n = 256 * F with F > 160, n > 40960 "
                   "(dct4_long)", "K28 long"),
     "dct23_long": ("dct.py::_dct2_kernel / _dct3_kernel (and their _mid forms) at "
@@ -152,12 +156,6 @@ def _lane_c2c(n: int, batch: int) -> str:
     return ENGINE
 
 
-def _lane_fft(n: int, batch: int) -> str:
-    """Route of the engine's C2C of length n over ``batch`` rows, Bluestein
-    lengths included."""
-    return "bluestein" if factorize(n) is None else _lane_c2c(n, batch)
-
-
 def _c2c_kernel_route(route: str, n: int) -> str:
     """The port's route for the JAX package's C2C route at length n: kernel
     10 for the twostep split (n = 128 * F, the fixed or the wide core),
@@ -173,18 +171,28 @@ def _c2c_kernel_route(route: str, n: int) -> str:
     return route
 
 
+_ROW_ROUTES = (C2C_ROWS, C2C_DENSE_ROWS, C2C_GENERIC_ROWS)
+
+
 def lane_c2c_route(n: int, batch: int) -> str:
-    """C2C_ROWS, C2C_DENSE_ROWS, C2C_GENERIC_ROWS, ENGINE or the UNPORTED key
-    of a float32 C2C of length n over ``batch`` contiguous rows."""
+    """C2C_ROWS, C2C_DENSE_ROWS, C2C_GENERIC_ROWS, BLUESTEIN_LANE, ENGINE or
+    the UNPORTED key of a float32 C2C of length n over ``batch`` contiguous
+    rows. A Bluestein length takes the route of its sub-FFTs of length
+    M = blue_sub_len(n) over the same rows (engine._bluestein):
+    BLUESTEIN_LANE where K10 or K8 takes M, else ENGINE (below 128 rows)
+    or the four-step key (M > 20480)."""
+    if factorize(n) is None:
+        route = lane_c2c_route(blue_sub_len(n), batch)
+        return BLUESTEIN_LANE if route in _ROW_ROUTES else route
     return _c2c_kernel_route(_lane_c2c(n, batch), n)
 
 
 def inner_c2c_route(n: int, batch: int, lowering: str) -> str:
     """The route of a lowering whose inner transform is a C2C of length n
-    over ``batch`` rows: ``lowering`` where K10 or K8 takes it, else ENGINE
-    or the UNPORTED key."""
+    over ``batch`` rows: ``lowering`` where K10 or K8 takes it, else
+    BLUESTEIN_LANE, ENGINE or the UNPORTED key."""
     route = lane_c2c_route(n, batch)
-    return lowering if route in (C2C_ROWS, C2C_DENSE_ROWS, C2C_GENERIC_ROWS) else route
+    return lowering if route in _ROW_ROUTES else route
 
 
 def packed_lane(h: int, batch: int) -> str:
@@ -192,10 +200,10 @@ def packed_lane(h: int, batch: int) -> str:
     h = n - 1, DST-I: h = n + 1): kernel 15 at batch >= 128, at every h the
     JAX kernel takes (rfft._half_fft_consts: the core at h = 128 * F, the
     dense lane DFT at other h <= 256, the generic schedule above), else the
-    inner C2C."""
+    inner C2C's route (:func:`lane_c2c_route`)."""
     if batch >= MIN_BATCH and _kernel_ok(h):
         return R2C_PACKED
-    return _lane_fft(h, batch)
+    return lane_c2c_route(h, batch)
 
 
 def r2c_lane_route(n: int, batch: int) -> str:

@@ -1,11 +1,9 @@
 """Plan-caching handlers: ``FftHandler``, ``R2cFftHandler``, ``DctHandler``
 and ``DstHandler``.
 
-Construction of an FFT handler builds its plans for length ``n`` eagerly,
-except an R2C handler whose length needs Bluestein (not ported yet): the
-dense middle-axis R2C/C2R kernels need no plan, so it plans at first use
-of a route that does. The DCT and DST handlers plan their FFT schedules at
-first use.
+Construction of an FFT handler builds its plans for length ``n`` eagerly
+(Bluestein's chirp-z plan where n has a prime factor above 128). The DCT
+and DST handlers plan their FFT schedules at first use.
 ``.normalization(...)`` returns a new handler with another policy. Handlers
 are immutable and hash by (type, n, normalization), as in the JAX package.
 """
@@ -15,7 +13,7 @@ from __future__ import annotations
 import copy
 
 from .normalization import Normalization
-from .plan import factorize, get_c2c_plan, get_r2c_plan
+from .plan import get_c2c_plan, get_r2c_plan
 
 
 class _HandlerBase:
@@ -83,9 +81,8 @@ class R2cFftHandler(_HandlerBase):
     def __init__(self, n: int):
         super().__init__(n)
         self.m = n // 2 + 1
-        if factorize(n) is not None:
-            get_r2c_plan(n)
-            get_c2c_plan(n, +1)
+        get_r2c_plan(n)
+        get_c2c_plan(n, +1)
 
 
 class DctHandler(_HandlerBase):

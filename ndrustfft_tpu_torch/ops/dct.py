@@ -19,9 +19,11 @@ or float64; ``scale`` multiplies the result and rides the constants. Their
 inner transforms dispatch as the JAX package's do (``ops/engine.py``): DCT-I
 and DST-I hand their extension rows to kernel 15, DCT-II its permuted rows
 to the R2C (kernel 15, or the row pairs on kernel 8 for odd n), DCT-III and
-DCT-IV their rows to kernel 10 or 8. The API sends DCT-II/III of the lengths
-kernels 23/24 take to those kernels first (``api._route``), and DCT-IV along a
-middle axis beyond the dense kernel's lengths to :func:`dct4_half_mid`.
+DCT-IV their rows to kernel 10 or 8 (at a Bluestein length, the chirp-z's
+sub-FFTs). The API sends DCT-II/III of the lengths kernels 23/24 take to
+those kernels first (``api._route``), DCT-II/III along a middle axis at a
+Bluestein length to :func:`dct23_blue_mid`, and DCT-IV along a middle axis
+beyond the dense kernel's lengths to :func:`dct4_half_mid`.
 """
 
 from __future__ import annotations
@@ -31,9 +33,10 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..plan import _cis, get_c2c_plan, get_r2c_plan
+from ..plan import _cis, factorize, get_c2c_plan, get_r2c_plan
 from .engine import c2c, const, r2c, r2c_packed
-from .hopper.fft import c2c_generic_mid
+from .hopper.dct import dct23_blue_mid as _k12
+from .hopper.fft import c2c_blue_mid, c2c_generic_mid
 
 
 def _cplx(x: torch.Tensor) -> torch.dtype:
@@ -151,7 +154,8 @@ def dct4_half_mid(x: torch.Tensor, scale=None) -> torch.Tensor:
     """scale * DCT-IV along dim 1 of a (B, n, L) float32 tensor, n even, by
     the JAX package's half-length composite (its api.py:512-546), m = n/2:
     c_t = s (x[2t] + i x[n-1-2t]) e^{-i pi (4t+1)/(4n)}, D = FFT_m(c) along
-    dim 1 on kernel 6, y[2k] = Re(D_k e^{-i pi k/n}) and
+    dim 1 on kernel 6 (kernel 11 where m is a Bluestein length),
+    y[2k] = Re(D_k e^{-i pi k/n}) and
     y[n-1-2k] = -Im(D_k e^{-i pi k/n}). The chirps are elementwise torch ops,
     as the JAX package leaves them to XLA."""
     nb, n, cols = x.shape
@@ -161,10 +165,28 @@ def dct4_half_mid(x: torch.Tensor, scale=None) -> torch.Tensor:
     xe = x[:, 0::2, :]
     xon = x.flip(1)[:, 0::2, :]
     c = torch.complex(xe * wr - xon * wi, xe * wi + xon * wr)
-    y = c2c_generic_mid(c, -1)
+    y = (c2c_generic_mid if factorize(n // 2) is not None else c2c_blue_mid)(c, -1)
     evens = y.real * pr + y.imag * pq
     odds = (y.real * pq - y.imag * pr).flip(1)
     return torch.stack([evens, odds], dim=2).reshape(nb, n, cols)
+
+
+def dct23_blue_mid(x: torch.Tensor, dct_type: int, scale=None) -> torch.Tensor:
+    """scale * DCT-II or DCT-III along dim 1 of a (B, n, L) float32 tensor at
+    a Bluestein length, the JAX package's Makhoul lowering around kernel 12
+    (its api.py:438-471): DCT-II permutes x (evens, then the odds reversed)
+    before the kernel; DCT-III un-permutes the kernel's output (z[2t] = u[t],
+    z[2t+1] = u[n-1-t]) after it. The permutations are torch ops, as the JAX
+    package leaves them to XLA."""
+    if dct_type == 2:
+        v = torch.cat([x[:, 0::2], x[:, 1::2].flip(1)], dim=1)
+        return _k12(v, 2, scale)
+    u = _k12(x, 3, scale)
+    half = (x.shape[1] + 1) // 2
+    z = torch.empty_like(u)
+    z[:, 0::2] = u[:, :half]
+    z[:, 1::2] = u[:, half:].flip(1)
+    return z
 
 
 DCT_FNS = {1: dct1, 2: dct2, 3: dct3, 4: dct4}

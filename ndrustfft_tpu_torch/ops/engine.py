@@ -3,10 +3,12 @@ C2R along the LAST axis, which the caller moves there.
 
 Each entry point dispatches on its route function in ``gates.py``, the one
 that ``api._route`` names a call's route by: :func:`c2c` to kernel 10 or 8
-(dense or generic) of contiguous rows, :func:`r2c` to kernel 2, kernel 15
-or the row pairs of an odd length, :func:`c2r` to kernel 3 or the
-Hermitian extension and :func:`c2c`. Where the JAX package runs XLA (float64/complex128, batches
-below the kernels' gates), and for an unported route on a CPU tensor, the
+(dense or generic) of contiguous rows, or for a Bluestein plan to the
+chirp-z :func:`_bluestein`, whose two sub-FFTs are again :func:`c2c`;
+:func:`r2c` to kernel 2, kernel 15 or the row pairs of an odd length;
+:func:`c2r` to kernel 3 or the Hermitian extension and :func:`c2c`. Where
+the JAX package runs XLA (float64/complex128, batches below the kernels'
+gates), and for an unported route on a CPU tensor, the
 mixed-radix engine runs: every stage an einsum with a plan constant or an
 elementwise twiddle, on any device and in float32 or float64. Every lowering
 reaches the engine through :func:`c2c`, which refuses a CUDA tensor whose
@@ -104,8 +106,11 @@ def c2c(x: torch.Tensor, plan: C2CPlan, scale=None) -> torch.Tensor:
     complex64 over >= 128 rows takes kernel 10 (256 < n = 128 * F <= 20480,
     on the fixed or the wide core) or kernel 8 (its dense lane DFT at
     n <= 256, the generic schedule at 256 < n <= 20480 without a split);
-    another kernel-eligible n raises on a CUDA tensor."""
+    another kernel-eligible n raises on a CUDA tensor. A Bluestein plan runs
+    :func:`_bluestein` first, on any dtype and device."""
     n = plan.n
+    if plan.kind == "bluestein":
+        return _bluestein(x, plan, scale)
     if x.dtype == torch.complex64 and _kernel_device(x):
         route = gates.lane_c2c_route(n, _rows(x))
         fn = _ROW_KERNELS.get(route)
@@ -122,6 +127,32 @@ def c2c(x: torch.Tensor, plan: C2CPlan, scale=None) -> torch.Tensor:
 
 
 c2c.calls = 0
+
+
+@lru_cache(maxsize=64)
+def _blue_consts(n: int, sign: int, dtype: torch.dtype, device: torch.device):
+    plan = get_c2c_plan(n, sign)
+    return (const(plan.chirp_a, dtype, device), const(plan.H, dtype, device),
+            const(plan.chirp_b, dtype, device))
+
+
+def _bluestein(x: torch.Tensor, plan: C2CPlan, scale=None) -> torch.Tensor:
+    """Chirp-z (the JAX package's ``engine._bluestein``):
+    X[k] = b[k] IFFT_M(FFT_M(x a, zero-padded to M) H)[k], k < n. The
+    chirps, the pad, the H product and the slice are torch ops, as the JAX
+    package leaves them to XLA; both length-M sub-FFTs are :func:`c2c` over
+    the same rows (K10 or K8 where ``gates.lane_c2c_route`` takes M, M =
+    128 * s with s 3-smooth), the user scale folded into the inverse's as
+    scale / M."""
+    n, M = plan.n, plan.M
+    a, h, b = _blue_consts(n, plan.sign, x.dtype, x.device)
+    xa = x.new_zeros(x.shape[:-1] + (M,))
+    torch.mul(x, a, out=xa[..., :n])
+    f = c2c(xa, plan.sub_fwd)
+    del xa
+    f.mul_(h)
+    s = 1.0 / M if scale is None else float(scale) / M
+    return c2c(f, plan.sub_inv, s)[..., :n] * b
 
 
 def r2c(x: torch.Tensor, plan: R2CPlan) -> torch.Tensor:

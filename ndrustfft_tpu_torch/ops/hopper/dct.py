@@ -16,6 +16,11 @@
   per column between an entry and an exit chirp (``csrc/dct4_mid.cu``, the
   fixed core for F in {4, 8, 16}, the wide core otherwise; replaces
   ``dct.py::_dct4_kernel_mid``).
+* Kernel 12, :func:`dct23_blue_mid`: the Makhoul DCT-II/III core along the
+  middle axis of a real (B, n, L) tensor at a Bluestein length, kernel 11's
+  fused chirp-z on a real column with Re(z b) out, the Makhoul twiddles
+  (and DCT-III's c0/2) folded into the chirps (``csrc/fft_blue_mid.cu``;
+  replaces ``fft.py::_kernel_axis_mid_blue_rr``).
 
 Kernels 23 to 26 take every even n = 128 * k that the JAX gate
 ``dct_pallas_supported`` sends to them (split (128, k)) up to 20480, in the
@@ -31,8 +36,8 @@ read once and written once; every constant built on the host.
 
 This module holds their host-built constants, their plain PyTorch versions
 and their wrappers, whose ``launches`` attributes count kernel launches
-(kernels 23 to 26 and 28 also count the wide core's (half-length) launches
-apart, in ``wide_launches``, and kernels 23 to 26 the n-point ones in
+(kernels 12, 23 to 26 and 28 also count the wide core's (half-length)
+launches apart, in ``wide_launches``, and kernels 23 to 26 the n-point ones in
 ``npoint_launches``). All
 transforms are in the rustdct convention (scipy's unnormalized DCT / 2)
 times ``scale``.
@@ -45,11 +50,12 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ...plan import _cis
+from ...plan import _cis, blue_h, chirp
 from . import _build
-from .fft import (C2C_F, CORE_F, GENERIC_MAX_N, M, block_cols, block_rows, bts2_plain,
-                  check_cuda, count_launch, dense_tile, device_wide, device_wq, num_sms,
-                  wide_block)
+from .fft import (C2C_F, CORE_F, GENERIC_MAX_N, M, block_cols, block_rows, blue_kernel_M,
+                  blue_launch, bts2_consts, bts2_plain, check_blue_n, check_cuda, chirp_z_plain,
+                  count_launch, dense_tile, device_wide, device_wq, f32_pair, num_sms,
+                  pair_tensor, wide_block)
 from .rfft import _device_ab, _device_tw, c2r_mid_plain, r2c_mid_plain
 
 DCT_F = (1, 2, 4, 8, 16)   # half-length factors F of kernels 23/24's fixed core
@@ -463,3 +469,86 @@ def dct4_mid(x: torch.Tensor, scale=None) -> torch.Tensor:
 
 dct4_mid.launches = 0
 dct4_mid.wide_launches = 0
+
+
+# --------------------------------------------------------------------------
+# Kernel 12: the real-to-real chirp-z of the Makhoul DCT-II/III
+# --------------------------------------------------------------------------
+
+
+def _blue_rr_chirps(n: int, dct_type: int, scale: float):
+    """Kernel 12's entry and exit constants (a, b), complex128: the chirp
+    exp(-i pi t^2 / n), with w_t scale (w_t = e^{-i pi t/(2n)}) folded into b
+    for DCT-II, into a for DCT-III with a[0] halved (the Makhoul c0/2): the
+    JAX package's ``_blue_rr_consts_cached`` expressions."""
+    car, cai = chirp(n, -1)
+    a = car + 1j * cai
+    b = a.copy()
+    w = _cis(np.arange(n, dtype=np.int64), 2 * n, -1)
+    tw = (w[0] + 1j * w[1]) * scale
+    if dct_type == 2:
+        b = b * tw
+    else:
+        a = a * tw
+        a[0] *= 0.5
+    return a, b
+
+
+def blue_rr_consts(n: int, dct_type: int, scale: float = 1.0):
+    """Kernel 12's tables at n, float32 (re, im) pairs: a, b
+    (:func:`_blue_rr_chirps`), H of the sign -1 chirp, the forward core's Wq
+    (sign -1) and the inverse core's (sign +1, 1/M). Built by the JAX
+    package's ``_blue_rr_consts_cached`` expressions in float64 and rounded
+    once, so each is its table bit for bit."""
+    mk = blue_kernel_M(n)
+    a, b = _blue_rr_chirps(n, dct_type, scale)
+    return (f32_pair((a.real, a.imag)), f32_pair((b.real, b.imag)),
+            f32_pair(blue_h(n, -1, mk)), bts2_consts(mk, -1, 1.0), bts2_consts(mk, +1, 1.0 / mk))
+
+
+@lru_cache(maxsize=64)
+def _device_blue_rr(n: int, dct_type: int, scale: float, device: torch.device):
+    """(a, b, H) of :func:`blue_rr_consts` as complex64 tensors on ``device``."""
+    a, b = _blue_rr_chirps(n, dct_type, scale)
+    return (pair_tensor((a.real, a.imag), device), pair_tensor((b.real, b.imag), device),
+            pair_tensor(blue_h(n, -1, blue_kernel_M(n)), device))
+
+
+def dct23_blue_mid_plain(x: torch.Tensor, dct_type: int, scale=None) -> torch.Tensor:
+    """Plain version of kernel 12: Re(b . the chirp-z convolution of x a)
+    along dim 1 of (B, n, L) (ops/hopper/fft.py::chirp_z_plain)."""
+    a, b, h = _device_blue_rr(x.shape[1], dct_type, _scale(scale), x.device)
+    z = chirp_z_plain(x * a[:, None], h, 1.0) * b[:, None]
+    return z.real.contiguous()
+
+
+def dct23_blue_mid(x: torch.Tensor, dct_type: int, scale=None) -> torch.Tensor:
+    """The Makhoul DCT-II/III core along dim 1 of a real (B, n, L) float32
+    tensor at a Bluestein length n (ops/hopper/fft.py::blue_f): for
+    DCT-II, scale Re(w_k FFT_n(v)[k]) of the even/odd-permuted v; for
+    DCT-III, Re(FFT_n(c w scale)) of x with c0 halved, still to be
+    un-permuted. The caller owns the permutation (ops/dct.py::
+    dct23_blue_mid). A CPU tensor runs the plain version; a CUDA tensor
+    launches kernel 12 (on the fixed core for F in {4, 8, 16}, else on the
+    wide core) or raises."""
+    if x.dim() != 3:
+        raise ValueError(f"dct23_blue_mid: expected (B, n, L), got {tuple(x.shape)}")
+    if dct_type not in (2, 3):
+        raise ValueError(f"dct23_blue_mid: no chirp-z DCT-{dct_type}")
+    nb, n, cols = x.shape
+    f = check_blue_n(n, "dct23_blue_mid")
+    if x.device.type == "cpu":
+        return dct23_blue_mid_plain(x, dct_type, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"dct23_blue_mid: unsupported device {x.device}")
+    check_cuda(x, torch.float32, "dct23_blue_mid")
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    a, b, h = _device_blue_rr(n, dct_type, _scale(scale), x.device)
+    blue_launch(dct23_blue_mid, "ndfft_dct23_blue_mid", x, y, (a, b), h, 1.0, f)
+    return y
+
+
+dct23_blue_mid.launches = 0
+dct23_blue_mid.wide_launches = 0

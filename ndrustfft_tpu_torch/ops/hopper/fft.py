@@ -18,10 +18,17 @@
   f = :func:`lane_factor` (n), along contiguous rows or the middle axis
   (``csrc/fft_generic.cu`` on the core ``csrc/fft_generic.cuh``; replace
   ``fft.py::_kernel_lane_last`` with m > 1 and ``fft.py::_kernel_axis_mid``).
+* Kernel 11, :func:`c2c_blue_mid`: Bluestein's chirp-z C2C along the
+  middle axis of (B, n, L) for a length n with a prime factor above 128,
+  fused into one pass: the chirped column zero-padded to M = 128 * F, the
+  core's FFT_M, the product with H, the inverse core and the exit chirp
+  (``csrc/fft_blue_mid.cu`` on the fixed core for F in {4, 8, 16}, on the
+  wide core with a second tile otherwise; replaces
+  ``fft.py::_kernel_axis_mid_blue``).
 
 This module holds their host-built constants, their plain PyTorch versions
 and their wrappers, whose ``launches`` attributes count kernel launches
-(kernels 1 and 10 also count the wide core's launches apart, in
+(kernels 1, 10 and 11 also count the wide core's launches apart, in
 ``wide_launches``).
 """
 
@@ -33,7 +40,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ...plan import dft_matrix, factorize, stage_twiddle
+from ...plan import blue_h, chirp, dft_matrix, factorize, stage_twiddle
 from . import _build
 
 M = 128                 # stage-2 DFT length of the core
@@ -170,14 +177,14 @@ def wide_bytes(n: int, c: int) -> int:
     return 8 * (c * (n + WIDE_SLOTS * M) + n // M)
 
 
-def wide_block(n: int, groups: int, count: int, sms: int) -> int:
+def wide_block(n: int, groups: int, count: int, sms: int, nbytes=wide_bytes) -> int:
     """Transforms per tile of the wide core: the largest power of two up to
-    WIDE_MAX_C whose tile fits GENERIC_SMEM (two blocks per SM; at least one
-    transform, up to MAX_SMEM at n = 20480), halved while the grid of
-    ``groups`` times the tiles would leave SMs idle. The kernels spread the
-    ``count`` transforms evenly over the tiles."""
+    WIDE_MAX_C whose tile (``nbytes(n, c)``) fits GENERIC_SMEM (two blocks
+    per SM; at least one transform, up to MAX_SMEM at n = 20480), halved
+    while the grid of ``groups`` times the tiles would leave SMs idle. The
+    kernels spread the ``count`` transforms evenly over the tiles."""
     c = WIDE_MAX_C
-    while c > 1 and wide_bytes(n, c) > GENERIC_SMEM:
+    while c > 1 and nbytes(n, c) > GENERIC_SMEM:
         c //= 2
     while c > 1 and groups * -(-count // c) < sms:
         c //= 2
@@ -575,3 +582,152 @@ def c2c_generic_mid(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
 
 
 c2c_generic_mid.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Kernel 11: Bluestein's chirp-z C2C along a middle axis
+# --------------------------------------------------------------------------
+
+BLUE_MAX_M = 16384      # the JAX package's fft._BLUE_MAX_M
+
+
+def blue_kernel_M(n: int):
+    """The JAX package's ``fft.blue_kernel_M``: the convolution length of the
+    fused chirp-z at n, 2n - 1 where that is at most 256, else the smallest
+    multiple of 128 >= 2n - 1 up to 16384; else None."""
+    need = 2 * n - 1
+    if need <= 256:
+        return need
+    mk = -(-need // M) * M
+    return mk if mk <= BLUE_MAX_M else None
+
+
+def blue_bytes(mk: int, c: int) -> int:
+    """Dynamic shared memory of a wide chirp-z tile of ``c`` columns at
+    convolution length mk (csrc/fft_blue_mid.cu::blue_wide_smem_bytes): the
+    wide core's tile, Y scratch and row W_F^k, and a second tile that the
+    forward core's store fills with FFT_M times H for the inverse core."""
+    return 8 * (c * (2 * mk + WIDE_SLOTS * M) + mk // M)
+
+
+def blue_f(n: int):
+    """F of the convolution length M = 128 * F where kernels 11 and 12 take
+    n: a length above 128 whose blue_kernel_M has a tile of one column
+    within a block's shared memory (F <= 111; the routes send F <= 106),
+    else None."""
+    mk = blue_kernel_M(n)
+    if n <= M or mk is None or blue_bytes(mk, 1) > MAX_SMEM:
+        return None
+    return mk // M
+
+
+def check_blue_n(n: int, what: str) -> int:
+    f = blue_f(n)
+    if f is None:
+        raise ValueError(f"{what}: n={n} has no fused chirp-z tile (128 < n, "
+                         f"M = 128 * ceil((2n - 1) / 128) <= {M * 111})")
+    return f
+
+
+def blue_consts(n: int, sign: int, scale: float = 1.0):
+    """Kernel 11's tables at n, float32 (re, im) pairs: the entry and exit
+    chirp exp(sign i pi t^2 / n) (t < n), H = FFT_M of the wrapped inverse
+    chirp (M = blue_kernel_M(n)), the forward core's Wq (sign -1) and the
+    inverse core's (sign +1, the user scale and 1/M folded in). Built by
+    the JAX package's ``_blue_consts`` expressions in float64 and rounded
+    once, so each is its table bit for bit."""
+    mk = blue_kernel_M(n)
+    return (f32_pair(chirp(n, sign)), f32_pair(blue_h(n, sign, mk)),
+            bts2_consts(mk, -1, 1.0), bts2_consts(mk, +1, scale / mk))
+
+
+def f32_pair(pair):
+    """A float64 (re, im) pair rounded once to float32."""
+    return tuple(np.asarray(v, np.float32) for v in pair)
+
+
+def pair_tensor(pair, device: torch.device) -> torch.Tensor:
+    """A (re, im) pair, each part rounded once to float32, as a complex64
+    tensor on ``device``."""
+    re, im = f32_pair(pair)
+    return torch.complex(torch.from_numpy(re), torch.from_numpy(im)).to(device)
+
+
+@lru_cache(maxsize=64)
+def _device_blue(n: int, sign: int, device: torch.device):
+    """The chirp and H of :func:`blue_consts` as complex64 tensors on
+    ``device``."""
+    return (pair_tensor(chirp(n, sign), device),
+            pair_tensor(blue_h(n, sign, blue_kernel_M(n)), device))
+
+
+def chirp_z_plain(xa: torch.Tensor, h: torch.Tensor, scale: float) -> torch.Tensor:
+    """The fused chirp-z's convolution on the chirped (B, n, L) column xa:
+    zero-padded to M = len(h), the core's plain forward transform, times H,
+    the core's plain inverse with scale / M, rows k < n."""
+    nb, n, cols = xa.shape
+    mk = h.shape[0]
+    pad = torch.cat([xa, xa.new_zeros(nb, mk - n, cols)], dim=1)
+    f = bts2_plain(pad, device_wq(mk, -1, 1.0, xa.device), -1) * h[:, None]
+    return bts2_plain(f, device_wq(mk, +1, scale / mk, xa.device), +1)[:, :n]
+
+
+def c2c_blue_mid_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
+    """Plain version of kernel 11 on any device: x a, the convolution of
+    :func:`chirp_z_plain`, times the exit chirp b = a."""
+    a, h = _device_blue(x.shape[1], sign, x.device)
+    s = 1.0 if scale is None else float(scale)
+    return chirp_z_plain(x * a[:, None], h, s) * a[:, None]
+
+
+def blue_launch(wrapper, entry: str, x: torch.Tensor, y: torch.Tensor, chirps, h: torch.Tensor,
+                scale: float, f: int) -> None:
+    """Launch the fixed (F in {4, 8, 16}) or the wide form of kernel 11 or
+    12 (``entry`` and ``entry + "_wide"``) on (B, n, L) tensors x and y,
+    with the chirp tensors ``chirps`` and H, and count the launch."""
+    nb, n, cols = x.shape
+    dev = x.device
+    mk = f * M
+    wide = f not in C2C_F
+    ptrs = [t.data_ptr() for t in (*chirps, h)]
+    ptrs.append(device_wq(mk, -1, 1.0, dev).data_ptr())
+    if wide:
+        ptrs.append(device_wide(mk, -1, dev).data_ptr())
+    ptrs.append(device_wq(mk, +1, scale / mk, dev).data_ptr())
+    if wide:
+        ptrs.append(device_wide(mk, +1, dev).data_ptr())
+    sms = num_sms(dev)
+    tile = wide_block(mk, nb, cols, sms, blue_bytes) if wide else block_cols(mk, nb, cols, sms)
+    name = entry + ("_wide" if wide else "")
+    with torch.cuda.device(dev):
+        err = getattr(_build.lib(), name)(x.data_ptr(), y.data_ptr(), *ptrs, nb, n, mk, cols,
+                                          tile, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, name)
+    count_launch(wrapper, wide)
+
+
+def c2c_blue_mid(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
+    """C2C of Bluestein length n along dim 1 of a (B, n, L) complex64 tensor
+    (:func:`blue_f`), times ``scale``, as one fused chirp-z pass. A CPU
+    tensor runs the plain version; a CUDA tensor launches kernel 11 (on the
+    fixed core for F in {4, 8, 16}, else on the wide core) or raises."""
+    if x.dim() != 3:
+        raise ValueError(f"c2c_blue_mid: expected (B, n, L), got {tuple(x.shape)}")
+    nb, n, cols = x.shape
+    f = check_blue_n(n, "c2c_blue_mid")
+    if x.device.type == "cpu":
+        return c2c_blue_mid_plain(x, sign, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"c2c_blue_mid: unsupported device {x.device}")
+    check_cuda(x, torch.complex64, "c2c_blue_mid")
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    a, h = _device_blue(n, sign, x.device)
+    blue_launch(c2c_blue_mid, "ndfft_c2c_blue_mid", x, y, (a,), h,
+                1.0 if scale is None else float(scale), f)
+    return y
+
+
+c2c_blue_mid.launches = 0
+c2c_blue_mid.wide_launches = 0

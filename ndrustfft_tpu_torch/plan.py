@@ -5,9 +5,10 @@ float64 masters built with the same integer phase reduction, so every table
 is bit-identical to the JAX package's; the kernel wrappers cast them to
 float32 and move them to the input's device once (see ``ops/hopper``).
 
-Plans for n with a prime factor above ``MAX_BASE_RADIX`` need Bluestein
-(chirp-z), which this package does not carry yet: building one raises
-``NotImplementedError``.
+Every n plans: a length with a prime factor above ``MAX_BASE_RADIX`` takes
+Bluestein's chirp-z plan, whose two sub-FFTs have the smooth length
+:func:`blue_sub_len` (n). The JAX package's native planner is not carried:
+its tables are these numpy expressions, bit for bit.
 """
 
 from __future__ import annotations
@@ -71,6 +72,39 @@ def factorize(n: int, max_base: int = MAX_BASE_RADIX) -> Optional[tuple[int, ...
         k += 1
 
 
+def next_smooth(n: int) -> int:
+    """Smallest 3-smooth number (2^a * 3^b) >= n."""
+    best = 1
+    while best < n:
+        best *= 2
+    p3 = 1
+    while True:
+        p2 = 1
+        while p2 * p3 < n:
+            p2 *= 2
+        best = min(best, p2 * p3)
+        if p3 >= n:  # include the pure power of 3 >= n, then stop
+            break
+        p3 *= 3
+    return best
+
+
+def blue_sub_len(n: int) -> int:
+    """Bluestein convolution length M >= 2n - 1 for transform size n: the
+    3-smooth ``next_smooth`` (2n - 1) where it is at most 256 or a multiple
+    of 128, else 128 * next_smooth(ceil((2n - 1) / 128)) while that factor
+    is at most 512, so that both sub-FFTs have a {128, 256} split (the JAX
+    package's ``plan.blue_sub_len``)."""
+    need = 2 * n - 1
+    M = next_smooth(need)
+    if M <= 256 or M % 128 == 0:
+        return M
+    s = next_smooth(-(-need // 128))
+    if s <= 512:
+        return 128 * s
+    return M
+
+
 def _cis(num, den: int, sign: int):
     """exp(sign * 1j * pi * num / den) with integer phase reduction mod 2*den."""
     num = np.asarray(num, dtype=np.int64) % (2 * den)
@@ -92,14 +126,40 @@ def stage_twiddle(f: int, m: int, sign: int):
     return _cis(2 * jp, f * m, sign)
 
 
-class C2CPlan:
-    """Mixed-radix schedule for a length-n C2C FFT in one direction.
+def chirp(n: int, sign: int, length: Optional[int] = None):
+    """exp(sign * 1j * pi * t^2 / n) for t in [0, length), split re/im."""
+    t = np.arange(n if length is None else length, dtype=np.int64)
+    return _cis(t * t, n, sign)
 
-    ``stages`` is a list of (f, m, Wf(re, im), tw(re, im)); ``base`` is the
-    (re, im) dense DFT matrix of the last factor.
+
+def blue_h(n: int, sign: int, M: int):
+    """(re, im) float64 of H = FFT_M of the wrapped inverse chirp
+    h[u] = exp(-sign * 1j * pi * u^2 / n), u < n, mirrored into the tail
+    (h_pad[M - u] = h[u]), computed by numpy in float64 as the JAX
+    package's plan and kernel tables compute it."""
+    hr = np.zeros(M)
+    hi = np.zeros(M)
+    cr, ci = chirp(n, -sign)
+    hr[:n], hi[:n] = cr, ci
+    hr[M - n + 1:] = cr[1:][::-1]
+    hi[M - n + 1:] = ci[1:][::-1]
+    H = np.fft.fft(hr + 1j * hi)
+    return H.real.copy(), H.imag.copy()
+
+
+class C2CPlan:
+    """Schedule for a length-n C2C FFT in one direction.
+
+    kind "ct": ``stages`` is a list of (f, m, Wf(re, im), tw(re, im)) and
+    ``base`` the (re, im) dense DFT matrix of the last factor.
+    kind "bluestein" (n has a prime factor above ``MAX_BASE_RADIX``):
+    ``chirp_a`` = ``chirp_b`` = chirp(n, sign), ``H`` (:func:`blue_h`) of
+    length ``M`` = :func:`blue_sub_len` (n), and the sub-FFT plans
+    ``sub_fwd``/``sub_inv`` of length M.
     """
 
-    __slots__ = ("n", "sign", "kind", "stages", "base")
+    __slots__ = ("n", "sign", "kind", "stages", "base", "M",
+                 "chirp_a", "chirp_b", "H", "sub_fwd", "sub_inv")
 
     def __init__(self, n: int, sign: int):
         assert sign in (-1, 1)
@@ -107,10 +167,14 @@ class C2CPlan:
         self.sign = sign
         factors = factorize(n)
         if factors is None:
-            raise NotImplementedError(
-                f"n={n} has a prime factor above {MAX_BASE_RADIX} and needs a "
-                "Bluestein plan, which is not ported yet (ROADMAP.md §1, "
-                "Slice D: Bluestein)")
+            self.kind = "bluestein"
+            self.M = M = blue_sub_len(n)
+            self.chirp_a = chirp(n, sign)
+            self.chirp_b = chirp(n, sign)
+            self.H = blue_h(n, sign, M)
+            self.sub_fwd = get_c2c_plan(M, -1)
+            self.sub_inv = get_c2c_plan(M, +1)
+            return
         self.kind = "ct"
         self.stages = []
         rem = n
@@ -122,6 +186,8 @@ class C2CPlan:
         self.base = dft_matrix(factors[-1], sign)
 
     def __repr__(self):
+        if self.kind == "bluestein":
+            return f"C2CPlan(n={self.n}, sign={self.sign}, bluestein M={self.M})"
         fs = [f for f, _, _, _ in self.stages] + [self.base[0].shape[0]]
         return f"C2CPlan(n={self.n}, sign={self.sign}, factors={fs})"
 

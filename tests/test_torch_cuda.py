@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import ndrustfft_tpu_torch as nd
+from ndrustfft_tpu_torch.ops import engine
 from ndrustfft_tpu_torch.ops.hopper import dct as kdct
 from ndrustfft_tpu_torch.ops.hopper import fft as kfft
 from ndrustfft_tpu_torch.ops.hopper import rfft as krfft
@@ -474,3 +475,53 @@ def test_dirichlet_pair_runs_on_the_kernels(dev):
     ref = _dst1_oracle(_dst1_oracle(x.double()).T).T
     assert _rel(y.double(), ref) <= 1e-5
     assert _rel(back, x) <= 1e-5
+
+
+def test_blue_kernels_match_plain_in_both_forms(dev):
+    """Kernels 11 and 12 on the fixed core (M = 1024, 2048: F = 8, 16) and on
+    the wide core with its second tile (F = 3, 17, 33 and the routes'
+    largest, 106: one column per tile), ragged column tiles, both signs and
+    the scale 1/n."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    fns = (kfft.c2c_blue_mid, kdct.dct23_blue_mid)
+    before = [(f.launches, f.wide_launches) for f in fns]
+    for shape in ((2, 509, 130), (1, 1021, 257), (2, 131, 130), (1, 1031, 129),
+                  (1, 2049, 33), (1, 6781, 3)):
+        x = torch.view_as_complex(torch.randn(*shape, 2, generator=g, device=dev))
+        for sign, scale in ((-1, None), (+1, 1.0 / shape[1])):
+            assert _rel(kfft.c2c_blue_mid(x, sign, scale),
+                        kfft.c2c_blue_mid_plain(x, sign, scale)) <= TOL, (shape, sign)
+    for shape in ((2, 1021, 130), (1, 1153, 257), (1, 2049, 130)):
+        x = torch.randn(*shape, generator=g, device=dev)
+        for t, scale in ((2, 2.0), (3, None)):
+            assert _rel(kdct.dct23_blue_mid(x, t, scale),
+                        kdct.dct23_blue_mid_plain(x, t, scale)) <= TOL, (shape, t)
+    assert [(f.launches - a, f.wide_launches - b) for f, (a, b) in zip(fns, before)] == \
+        [(12, 8), (6, 4)]
+
+
+def test_prime_lengths_run_on_the_blue_kernels(dev):
+    """ndfft/ndifft at 509 along axis 0 (kernel 11) and along the last axis
+    (the engine's chirp-z, its sub-FFTs on kernel 10 at M = 1024), against
+    torch.fft in complex128; the 2049 x 256 DCT-II/III pair along axis 0
+    (kernel 12, M = 4224 on the wide core) back to x."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    x = torch.view_as_complex(torch.randn(509, 256, 2, generator=g, device=dev))
+    ref = torch.fft.fft(x.to(torch.complex128), dim=0)
+    fns = (kfft.c2c_blue_mid, kfft.c2c_rows, kdct.dct23_blue_mid)
+    before = [f.launches for f in fns]
+    calls = engine.c2c.calls
+    y = nd.ndfft(x, axis=0)
+    back = nd.ndifft(y, axis=0)
+    assert _rel(y.to(torch.complex128), ref) <= 1e-5 and _rel(back, x) <= 1e-5
+    xt = x.T.contiguous()
+    y = nd.ndfft(xt, axis=1)
+    back = nd.ndifft(y, axis=1)
+    assert _rel(y.to(torch.complex128), ref.T) <= 1e-5 and _rel(back, xt) <= 1e-5
+    r = torch.randn(2049, 256, generator=g, device=dev)
+    h = nd.DctHandler(2049)
+    hi = h.normalization(nd.Normalization.scalar(1 / 2049))
+    back = nd.nddct3(nd.nddct2(r, h, axis=0), hi, axis=0)
+    assert _rel(back, r) <= 1e-5
+    assert [f.launches - b for f, b in zip(fns, before)] == [2, 4, 2]
+    assert engine.c2c.calls == calls

@@ -103,21 +103,32 @@ def test_float64_takes_the_engine(kind):
     assert api._route(kind, (1024, 1024), 1, F64, "cuda") == api.ENGINE
 
 
-@pytest.mark.parametrize("kind,shape,axis,kernel,item", [
-    ("dct2", (2053, 128), 0, "_kernel_axis_mid_blue_rr", "K12"),
-    ("dct3", (1109, 128), 0, "_kernel_axis_mid_blue_rr", "K12"),
+@pytest.mark.parametrize("kind,shape,axis,want", [
+    # Bluestein lengths, which raised K12 and K11 before they were ported:
+    # the chirp-z DCT-II/III along a middle axis (K12), the DCT-IV composite
+    # at a prime half length (its C2C on K11), the lane's chirp-z (K10)
+    ("dct2", (2053, 128), 0, api.DCT23_BLUE_MID),
+    ("dct3", (1109, 128), 0, api.DCT23_BLUE_MID),
     # K28 beyond the wide core: n = 256 * F with F > 160 (dct4_long)
-    ("dct4", (256 * 161, 128), 0, "_dct4_kernel_mid", "K28 long"),
-    ("dst4", (65536, 128), 0, "_dct4_kernel_mid", "K28 long"),
-    ("dct4", (2 * 1031, 128), 0, "_kernel_axis_mid_blue", "K11"),  # composite, m prime
+    ("dct4", (256 * 161, 128), 0, ("_dct4_kernel_mid", "K28 long")),
+    ("dst4", (65536, 128), 0, ("_dct4_kernel_mid", "K28 long")),
+    ("dct4", (2 * 1031, 128), 0, api.DCT4_HALF_MID),                  # composite, m prime
     # the n-point form beyond the wide core: n = 128 * k, odd k > 160
-    ("dct2", (128, 128 * 161), 1, "_dct2_kernel / _dct3_kernel", "K23-K26 long"),
-    ("dst3", (128, 128 * 255), 1, "_dct2_kernel / _dct3_kernel", "K23-K26 long"),
-    ("dct3", (128 * 161, 128), 0, "_dct2_kernel / _dct3_kernel", "K23-K26 long"),
-    ("dct4", (256, 32768), 1, "_kernel_exit_mul", "K7"),          # four-step
-    ("dct3", (256, 263), 1, "_kernel_axis_mid_blue", "K11"),      # Bluestein n
+    ("dct2", (128, 128 * 161), 1, ("_dct2_kernel / _dct3_kernel", "K23-K26 long")),
+    ("dst3", (128, 128 * 255), 1, ("_dct2_kernel / _dct3_kernel", "K23-K26 long")),
+    ("dct3", (128 * 161, 128), 0, ("_dct2_kernel / _dct3_kernel", "K23-K26 long")),
+    ("dct4", (256, 32768), 1, ("_kernel_exit_mul", "K7")),          # four-step
+    ("dct3", (256, 263), 1, api.BLUESTEIN_LANE),                    # Bluestein n
 ])
-def test_unported_route_raises_on_cuda(kind, shape, axis, kernel, item):
+def test_unported_route_raises_on_cuda(kind, shape, axis, want):
+    """A route whose kernel is not ported raises on a CUDA tensor and runs
+    the engine on a CPU tensor; a ported one (a route name) is the same on
+    both devices."""
+    if isinstance(want, str):
+        assert api._route(kind, shape, axis, F32, "cuda") == want
+        assert api._route(kind, shape, axis, F32, "cpu") == want
+        return
+    kernel, item = want
     with pytest.raises(NotImplementedError, match=kernel) as exc:
         api._route(kind, shape, axis, F32, "cuda")
     assert f"ROADMAP.md item {item})" in str(exc.value)
@@ -127,9 +138,10 @@ def test_unported_route_raises_on_cuda(kind, shape, axis, kernel, item):
 def test_dct_routes_never_take_the_fft_kernels():
     """K1-K3 serve no DCT/DST route: every length whose DCT route would
     reach them takes K23-K26/K28 first (api._dct_lane, _route_r2r). The
-    lane lowerings reach K15, K10 and K8, the DCT-IV composite K6, and the
-    middle-axis DST-I, DCT-I and DCT-IV K18, K19 and K28, under their own
-    route names."""
+    lane lowerings reach K15, K10 and K8, the DCT-IV composite K6 (K11 at a
+    Bluestein half length), the middle-axis DST-I, DCT-I and DCT-IV K18, K19
+    and K28, and a Bluestein length K12 or the lane's chirp-z, under their
+    own route names."""
     for n in range(2, 5000, 3):
         for kind in ("dct1", "dct2", "dct3", "dct4", "dst1"):
             for shape, axis in (((n, 256), 0), ((256, n), 1)):
@@ -140,7 +152,8 @@ def test_dct_routes_never_take_the_fft_kernels():
                 assert route in (api.DCT_DENSE_MID, api.DCT2_NAT, api.DCT3_NAT,
                                  api.DCT2_MID, api.DCT3_MID, api.DCT4_HALF_MID, api.R2C_PACKED, api.R2C_ROWPAIR,
                                  api.DCT_LANE, api.R2C_PACKED_MID, api.DCT1_MID,
-                                 api.DCT4_MID, api.ENGINE), (kind, shape, axis, route)
+                                 api.DCT4_MID, api.DCT23_BLUE_MID, api.BLUESTEIN_LANE,
+                                 api.ENGINE), (kind, shape, axis, route)
 
 
 @pytest.fixture

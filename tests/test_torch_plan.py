@@ -54,8 +54,14 @@ def test_c2c_plan_stages_bit_identical():
 
 
 def test_bluestein_plan_not_ported():
-    with pytest.raises(NotImplementedError, match="Bluestein"):
-        port_plan.C2CPlan(509, -1)
+    """A length with a prime factor above 128 plans Bluestein's chirp-z (it
+    raised before the plan was ported): its tables and sub-FFT length are
+    the JAX plan's bit for bit (every length in tests/test_torch_blue.py)."""
+    p, r = port_plan.C2CPlan(509, -1), ref_plan.C2CPlan(509, -1)
+    assert p.kind == r.kind == "bluestein" and p.M == r.M == 1024
+    for name in ("chirp_a", "chirp_b", "H"):
+        for a, b in zip(getattr(p, name), getattr(r, name)):
+            assert np.array_equal(a, b), name
 
 
 @pytest.mark.parametrize("n", [256, 512, 1024, 2048])

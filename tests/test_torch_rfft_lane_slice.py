@@ -126,18 +126,19 @@ def test_engine_stays_off_the_lane_routes(spectra):
     assert engine.c2c.calls == calls
 
 
-# (function, n) -> the route of (256, n) along the last axis; "K11" marks a
-# Bluestein half length (no plan in the port yet); at 513 the generic
-# schedule serves every lowering (K15 at h = 512, K8 at n = 513)
+# (function, n) -> the route of (256, n) along the last axis; a Bluestein
+# half length (199 for DCT-I at 200; 131, 257, 257 * 2 for DST-I at 130,
+# 256, 513) takes the lane's chirp-z, its sub-FFTs on K10; at 513 the
+# generic schedule serves every other lowering (K15 at h = 512, K8 at n = 513)
 _DCT_ROUTES = {
     129: (api.R2C_PACKED, api.R2C_ROWPAIR, api.DCT_LANE, api.DCT_LANE),
     130: (api.R2C_PACKED, api.R2C_PACKED, api.DCT_LANE, api.DCT_LANE),
-    200: ("K11", api.R2C_PACKED, api.DCT_LANE, api.DCT_LANE),
+    200: (api.BLUESTEIN_LANE, api.R2C_PACKED, api.DCT_LANE, api.DCT_LANE),
     256: (api.R2C_PACKED, api.DCT2_NAT, api.DCT3_NAT, api.DCT_LANE),
     513: (api.R2C_PACKED, api.R2C_ROWPAIR, api.DCT_LANE, api.DCT_LANE),
 }
-_DST1_ROUTES = {129: api.R2C_PACKED, 130: "K11", 200: api.R2C_PACKED, 256: "K11",
-                513: "K11"}
+_DST1_ROUTES = {129: api.R2C_PACKED, 130: api.BLUESTEIN_LANE, 200: api.R2C_PACKED,
+                256: api.BLUESTEIN_LANE, 513: api.BLUESTEIN_LANE}
 FNS = [f"nd{fam}{t}" for fam in ("dct", "dst") for t in (1, 2, 3, 4)]
 
 
@@ -152,12 +153,7 @@ def _want_route(name, n):
 @pytest.mark.parametrize("name", FNS)
 def test_r2r_lanes_match_reference(name, n):
     shape = (ROWS, n)
-    want_route = _want_route(name, n)
-    if want_route == "K11":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item K11"):
-            api._route(name[2:], shape, 1, F32, "cuda")
-        return          # no Bluestein plan in the port on any device yet
-    _both_routes(name[2:], shape, 1, F32, want_route)
+    _both_routes(name[2:], shape, 1, F32, _want_route(name, n))
     x = _real(shape)
     _close(getattr(port, name)(torch.from_numpy(x)),
            getattr(ref, name)(jnp.asarray(x)), TOL[np.float32])

@@ -193,12 +193,15 @@ def test_engine_stays_off_the_mid_routes():
 
 
 def test_bluestein_length_plans_at_first_use():
-    """A Bluestein length has no plan in the port yet: its R2C handler still
-    constructs (the dense middle-axis kernels need none, as above), and a
-    route that needs the plan raises when it is called."""
+    """A Bluestein length plans when its handler is built (the R2C handler
+    planned at first use, and the routes that need the plan raised, before
+    the plan was ported): the lane lowerings that run the chirp-z match the
+    JAX package."""
     h = port.R2cFftHandler(131)
     assert h.m == 66
-    with pytest.raises(NotImplementedError, match="Bluestein"):
-        port.ndfft_r2c(torch.zeros(4, 131), h, axis=1)
-    with pytest.raises(NotImplementedError, match="Bluestein"):
-        port.FftHandler(131)
+    x = _real((4, 131))
+    want = ref.ndfft_r2c(jnp.asarray(x), ref.R2cFftHandler(131), axis=1)
+    _close(port.ndfft_r2c(torch.from_numpy(x), h, axis=1), want)
+    z = (x + 1j * x[::-1]).astype(np.complex64)
+    _close(port.ndfft(torch.from_numpy(z), port.FftHandler(131), axis=1),
+           ref.ndfft(jnp.asarray(z), ref.FftHandler(131), axis=1))

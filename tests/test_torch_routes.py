@@ -98,22 +98,30 @@ def test_route_on_cuda(kind, shape, axis, dtype, n, want):
     assert api._route(kind, shape, axis, dtype, "cuda", n=n) == want
 
 
-@pytest.mark.parametrize("kind,shape,axis,n,kernel,item", [
-    ("fft", (2, 1 << 17), 1, None, "_kernel_exit_mul", "K7"),
-    ("fft", (509, 256), 0, None, "_kernel_axis_mid_blue", "K11"),
-    # a middle-axis R2C/C2R whose length needs Bluestein beyond K20/K21's cap
-    ("r2c", (2 * 1031, 128), 0, None, "_kernel_axis_mid_blue", "K11"),
-    ("c2r", (1032, 128), 0, 2 * 1031, "_kernel_axis_mid_blue", "K11"),
-    ("r2c", (1153, 256), 0, None, "_kernel_axis_mid_blue", "K11"),
-    ("c2r", (1154, 128), 0, 2 * 1153, "_kernel_axis_mid_blue", "K11"),
+@pytest.mark.parametrize("kind,shape,axis,n,want", [
+    ("fft", (2, 1 << 17), 1, None, ("_kernel_exit_mul", "K7")),
+    # Bluestein lengths, which raised K11 before it was ported: the fused
+    # chirp-z along a middle axis (K11), and for a middle-axis R2C/C2R beyond
+    # K20/K21's cap the lane's chirp-z after a moveaxis (sub-FFTs on K10)
+    ("fft", (509, 256), 0, None, api.C2C_BLUE_MID),
+    ("r2c", (2 * 1031, 128), 0, None, api.BLUESTEIN_LANE),
+    ("c2r", (1032, 128), 0, 2 * 1031, api.BLUESTEIN_LANE),
+    ("r2c", (1153, 256), 0, None, api.BLUESTEIN_LANE),
+    ("c2r", (1154, 128), 0, 2 * 1153, api.BLUESTEIN_LANE),
 ])
-def test_unported_route_raises_on_cuda(kind, shape, axis, n, kernel, item):
+def test_unported_route_raises_on_cuda(kind, shape, axis, n, want):
+    """A route whose kernel is not ported raises on a CUDA tensor and runs
+    the engine on a CPU tensor; a ported one (a route name) is the same on
+    both devices."""
     dtype = F32 if kind == "r2c" else C64
+    if isinstance(want, str):
+        assert api._route(kind, shape, axis, dtype, "cuda", n=n) == want
+        assert api._route(kind, shape, axis, dtype, "cpu", n=n) == want
+        return
+    kernel, item = want
     with pytest.raises(NotImplementedError, match=kernel) as exc:
         api._route(kind, shape, axis, dtype, "cuda", n=n)
     assert f"ROADMAP.md item {item})" in str(exc.value)
-    if kind == "fft" and shape[axis] == 509:
-        return   # Bluestein has no plan on any device
     assert api._route(kind, shape, axis, dtype, "cpu", n=n) == api.ENGINE
 
 
