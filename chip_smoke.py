@@ -110,9 +110,24 @@ without the final line):
         its time and peak memory against a float32 torch.fft Makhoul solve
         (in slabs, to fit); ndfft, R2C/C2R, DCT-I..IV and DST-I/II at
         Bluestein lengths 131 ... 6781 on both axis kinds against float64
-        torch.fft / scipy.fft, and ndfft at 10007 raising the four-step key;
-        K11, K12 and K10 at the main paths' shapes against their plain
-        versions slice by slice, with their times;
+        torch.fft / scipy.fft; K11, K12 and K10 at the main paths' shapes
+        against their plain versions slice by slice, with their times;
+     k. the four-step long C2C (kernel 7, the column FFT with the exit
+        twiddle, and kernel 13, the row FFT with the transposed store;
+        engine._fourstep): the 256 x 2^20 complex64 round trip along the
+        last axis (ndfft / ndifft: K7 fixed and K13 fixed, F = 8, split
+        (1024, 1024)) against complex128 torch.fft.fft on a slice of rows
+        and the round trip, its time and peak memory against torch.fft.fft
+        + ifft; the 32768^2 real spectral step (K2/K3 wide at h = 16384; the
+        C2C along axis 0 on the four-step (256, 128): K7 dense at
+        (16385, 256, 128), K13 wide, F = 1) against float64
+        torch.fft.rfftn with the round trip, its time against
+        torch.fft.rfftn + irfftn and each public leg's; ndfft at 10007 (the
+        lane's chirp-z at M = 20736 on the four-step), 36992 ... 786432 and
+        one row of 2^22, ndfft_r2c / ndifft_r2c at 65536, nddct4 at 32768
+        and nddct2 / nddct3 at 65536 against float64 torch.fft / scipy.fft;
+        K7 and K13 at the paths' shapes against their plain versions slice
+        by slice, with their times;
   5. times with CUDA events (median over --reps runs after warm-up): each
      kernel against its plain version and, where one PyTorch call computes
      the same function, that call (the yardstick, never on the port's
@@ -132,12 +147,13 @@ error against its plain version, its times, and its bound: the larger of
 the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its FP32 operations over 67 TFLOP/s (H100 SXM data
 sheet, 700 W). Its launches are the sum over the main paths of phase 4;
-kernels 1, 2, 3, 10, 11, 12, 15, 16, 17, 18, 19 and 28 on the bts2 core are
-two rows each, the fixed core (launches - wide_launches) and the wide one
-(wide_launches; K11 and K12 rows also give the bound of their two length-M
-FFTs per column, ``length_m_bound_ms``), and
+kernels 1, 2, 3, 10, 11, 12, 13, 15, 16, 17, 18, 19 and 28 on the bts2 core
+are two rows each, the fixed core (launches - wide_launches) and the wide
+one (wide_launches; K11 and K12 rows also give the bound of their two
+length-M FFTs per column, ``length_m_bound_ms``), and
 kernels 23 to 26 three: the fixed core, the wide core's half length and
-the n-point form (npoint_launches).
+the n-point form (npoint_launches); kernel 7 three: the fixed core, the
+wide core and the dense body (dense_launches).
 The line before the last is the card as nvidia-smi names it; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -159,9 +175,9 @@ TOL_KERNEL = 5e-6    # kernel vs plain, relative to max |plain| (both float32)
 TOL_PACKED = 2e-6    # kernel 15 (core, dense) vs plain: sums of at most 2048 terms
 TOL_STEP = 1e-5      # step vs float64 oracle and round trip, relative
 # the forms that a wrapper counts apart beside ``launches`` (which counts
-# every launch): ``wide_launches`` and, for the DCT-II/III kernels,
-# ``npoint_launches``
-FORMS = ("wide", "npoint")
+# every launch): ``wide_launches``, for the DCT-II/III kernels
+# ``npoint_launches`` and for kernel 7 ``dense_launches``
+FORMS = ("wide", "npoint", "dense")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, 700 W
 FP32_FLOP_PER_S = 67e12     # FP32 outside the tensor cores, same source
 
@@ -211,7 +227,21 @@ def work(name: str, shape, length_m: bool = False):
     and do the function's 5 n log2 n or 2.5 n log2 n per column; their tables
     are the two chirps, H and both cores' Wq (and DFT-F) at the convolution
     length M. ``length_m``: their operations as two complex FFTs of length M
-    per column instead."""
+    per column instead. The four-step's kernel 7 on (B, n1, n2) reads x and
+    the (n1, n2) exit twiddle and writes y, and does an n1-point complex FFT
+    per column and a complex product (6 FLOPs) per element; its tables are
+    its body's (the core's Wq at n1, or the dense body's (n1, n1) matrix).
+    Kernel 13 reads (B, n1, n2) and writes (B, n2, n1) with Wq at n2, and
+    does an n2-point complex FFT per row."""
+    if name.startswith(("fourstep_mid", "rows_store_t")):
+        b, n1, n2 = shape
+        io = 16 * b * n1 * n2
+        if name.startswith("rows_store_t"):
+            wide = 8 * (n2 // 128) ** 2 if name.endswith("_wide") else 0
+            return io + 8 * n2 * 128 + wide, 5 * n2 * math.log2(n2) * b * n1
+        body = (8 * n1 * n1 if name.endswith("_dense") else
+                8 * n1 * 128 + (8 * (n1 // 128) ** 2 if name.endswith("_wide") else 0))
+        return io + 8 * n1 * n2 + body, (5 * n1 * math.log2(n1) + 6 * n1) * b * n2
     if "blue" in name:
         b, n, cols = shape
         k11 = name.startswith("c2c")
@@ -411,7 +441,9 @@ def main() -> int:
             "dct3_mid_wide": 0.0, "dct2_mid_npoint": 0.0, "dct3_mid_npoint": 0.0,
             "r2c_packed_mid": 0.0, "r2c_packed_mid_wide": 0.0, "dct1_mid": 0.0,
             "dct1_mid_wide": 0.0, "dct4_mid": 0.0, "dct4_mid_wide": 0.0, "c2c_blue_mid": 0.0,
-            "c2c_blue_mid_wide": 0.0, "dct23_blue_mid": 0.0, "dct23_blue_mid_wide": 0.0}
+            "c2c_blue_mid_wide": 0.0, "dct23_blue_mid": 0.0, "dct23_blue_mid_wide": 0.0,
+            "fourstep_mid": 0.0, "fourstep_mid_wide": 0.0, "fourstep_mid_dense": 0.0,
+            "rows_store_t": 0.0, "rows_store_t_wide": 0.0}
     k1_shapes = [(1, 512, 257), (1, 1024, 513), (3, 2048, 130), (512, 512, 257),
                  (1, 512, 512 * 257), (1, 512, 512), (1, 1024, 1024), (512, 512, 512),
                  (1, 512, 512 * 512), (257, 512, 512)]
@@ -488,8 +520,12 @@ def main() -> int:
         ("c2c_rows", kfft.c2c_rows, kfft.c2c_rows_plain,
          ((130, 512), (128, 1024), (66, 2048), (1024, 1024), (512 * 512, 512),
           (257 * 512, 512))),
+        # K8 also at the four-step's no-split row passes of phase 4k: 128 * 144
+        # rows of 144 (10007's M = 20736), 128 * 256 rows of 160 (40960 along
+        # axis 0), 8 * 2176 rows of 17 (36992)
         ("c2c_dense_rows", kfft.c2c_dense_rows, kfft.c2c_dense_rows_plain,
-         ((130, 128), (200, 200), (131, 256), (256 * 256, 256), (129 * 256, 256))),
+         ((130, 128), (200, 200), (131, 256), (256 * 256, 256), (129 * 256, 256),
+          (128 * 144, 144), (128 * 256, 160), (8 * 2176, 17))),
         ("c2c_dense_mid", kfft.c2c_dense_mid, kfft.c2c_dense_mid_plain,
          ((1, 128, 128), (1, 264, 264), (3, 200, 257), (2, 500, 130), (256, 256, 256),
           (1, 256, 256 * 256), (129, 256, 256))),
@@ -781,6 +817,35 @@ def main() -> int:
                            lambda: kdct.dct23_blue_mid_plain(r, t, scale), shape,
                            dct_type=t, scale=scale)
             del r
+    # kernel 7 in each body: dense (n1 = 144, 256), fixed (512, F = 4; 1024,
+    # F = 8) and wide (384, 640, F = 3, 5; 2176 with n2 = 17, a one-tile
+    # column; 4096, F = 32), ragged column tiles (n2 = 17, 33, 130, 160);
+    # kernel 13 on the wide core (n2 = 128, 256, 384, 768: F = 1, 2, 3, 6)
+    # and the fixed one (1024, 2048), with n1 = 144 (a block's rows cross a
+    # batch boundary) and 1024; both signs, K13 with the scale 1/n. The main
+    # paths' shapes are checked in phase 4k, slice by slice
+    for name, shapes in (("fourstep_mid_dense", ((2, 144, 144), (1, 256, 160), (3, 256, 128))),
+                         ("fourstep_mid", ((3, 512, 130), (1, 1024, 1024), (2, 1024, 33))),
+                         ("fourstep_mid_wide", ((2, 384, 384), (1, 640, 256), (2, 2176, 17),
+                                                (1, 4096, 33)))):
+        for shape in shapes:
+            x = crandn(*shape)
+            for sign in (-1, +1):
+                check_form(name, kfft.fourstep_mid, lambda: kfft.fourstep_mid(x, sign),
+                           lambda: kfft.fourstep_mid_plain(x, sign), shape, sign=sign)
+            del x
+    for name, shapes in (("rows_store_t_wide", ((3, 144, 128), (2, 1024, 128), (3, 144, 256),
+                                                (3, 144, 384), (2, 144, 768))),
+                         ("rows_store_t", ((3, 144, 1024), (1, 1024, 1024), (3, 144, 2048),
+                                           (2, 1024, 2048)))):
+        for shape in shapes:
+            x = crandn(*shape)
+            n = shape[1] * shape[2]
+            for sign, scale in ((-1, None), (+1, 1.0 / n)):
+                check_form(name, kfft.rows_store_t, lambda: kfft.rows_store_t(x, sign, scale),
+                           lambda: kfft.rows_store_t_plain(x, sign, scale), shape, sign=sign,
+                           scale=scale)
+            del x
     torch.cuda.empty_cache()
 
     # ---- 4a. the spectral step through the public functions
@@ -809,16 +874,19 @@ def main() -> int:
                 "dct2_mid": kdct.dct2_mid, "dct3_mid": kdct.dct3_mid,
                 "r2c_packed_mid": krfft.r2c_packed_mid, "dct1_mid": krfft.dct1_mid,
                 "dct4_mid": kdct.dct4_mid, "c2c_blue_mid": kfft.c2c_blue_mid,
-                "dct23_blue_mid": kdct.dct23_blue_mid}
-    # the wide core's launches and the DCT kernels' n-point ones, counted
-    # apart by the same wrappers (their ``launches`` count every launch)
+                "dct23_blue_mid": kdct.dct23_blue_mid, "fourstep_mid": kfft.fourstep_mid,
+                "rows_store_t": kfft.rows_store_t}
+    # the wide core's launches, the DCT kernels' n-point ones and kernel 7's
+    # dense ones, counted apart by the same wrappers (their ``launches``
+    # count every launch)
     forms = {f"{name}_{form}": (wrappers[name], f"{form}_launches")
              for name in ("c2c_axis_mid", "c2c_rows", "r2c_nat", "c2r_nat", "r2c_packed",
                           "r2c_mid", "c2r_mid", "dct2_nat", "dct3_nat", "dct2_mid",
                           "dct3_mid", "r2c_packed_mid", "dct1_mid", "dct4_mid",
-                          "c2c_blue_mid", "dct23_blue_mid")
+                          "c2c_blue_mid", "dct23_blue_mid", "fourstep_mid", "rows_store_t")
              for form in FORMS
-             if form == "wide" or name.startswith(("dct2_", "dct3_"))}
+             if form == "wide" or form == "npoint" and name.startswith(("dct2_", "dct3_"))
+             or form == "dense" and name == "fourstep_mid"}
 
     def count(name):
         if name in forms:
@@ -1792,7 +1860,7 @@ def main() -> int:
     # F = 33, M = 4224, on axes 0 and 1 at (1, 2049, 524544) and (2049, 2049,
     # 256); K23/K24 at n = 256 on axis 2), its spectrum against the exact
     # sparse values and its solution against the analytic one. Then the
-    # lengths against float64 torch.fft / scipy.fft, the four-step raise,
+    # lengths against float64 torch.fft / scipy.fft,
     # each kernel of the main paths against its plain version slice by
     # slice, and the times.
     n10 = 509
@@ -1883,16 +1951,8 @@ def main() -> int:
     # and DST-II at 2049 along axis 0 (K12 wide); DCT-IV at 2042 along axis
     # 0 (the composite's C2C on K11 fixed, m = 1021); DCT-I at 1032 and DST-I
     # at 1030 along the last axis (the packed lowering's C2C at h = 1031 on
-    # the lane's chirp-z, M = 2304, F = 18); ndfft at 10007 along the last
-    # axis raises the four-step key (M = 20736 > 20480)
-    try:
-        nd.ndfft(torch.zeros(128, 10007, dtype=torch.complex64, device=dev))
-    except NotImplementedError as exc:
-        if "_kernel_exit_mul" not in str(exc):
-            raise
-        emit(phase="blue_path", check="fft_10007_raises", message=str(exc))
-    else:
-        raise AssertionError("ndfft at n = 10007 along the last axis did not raise")
+    # the lane's chirp-z, M = 2304, F = 18); ndfft at 10007 (M = 20736, on
+    # the four-step) is checked in phase 4k
     c_in = {(n, 0): crandn(n, 1024) for n in (131, 1021, 1031, 6781)}
     c_in.update({(n, 1): crandn(256, n) for n in (131, 2049)})
     r_in = {(2062, 0): randn(2062, 256), (263, 1): randn(256, 263)}
@@ -1954,6 +2014,159 @@ def main() -> int:
     del x, x10
     torch.cuda.empty_cache()
 
+    # ---- 4k. the four-step long C2C (engine._fourstep: K7, the column FFT
+    # of length n1 with the exit twiddle W_n^{k1 t2}, then K13, the row FFT
+    # of length n2 with the scale, stored transposed). Path A: the 256 x 2^20
+    # complex64 round trip along the last axis (ndfft, then ndifft with the
+    # Default norm; 2.15 GB per field; split (1024, 1024): K7 fixed, F = 8,
+    # at (256, 1024, 1024), K13 fixed, F = 8, over 262144 rows), the forward
+    # against complex128 torch.fft.fft on a slice of rows and the round trip
+    # against x; a batch of long 1-D fields, such as an ensemble of
+    # split-step runs. Path B: the 32768^2 float32 real spectral step (4.3 GB
+    # per field; R2C along the last axis on K2 wide, h = 16384, F = 128; the
+    # C2C along axis 0 after a moveaxis on the four-step (256, 128): K7
+    # dense at (16385, 256, 128), K13 wide, F = 1, over 4194560 rows; the
+    # inverse chain, C2R on K3 wide), against float64 torch.fft.rfftn and the
+    # round trip; a periodic 2-D Navier-Stokes step at 32768^2. Then the
+    # lengths against float64 oracles, each kernel at the paths' shapes
+    # against its plain version slice by slice, and the times.
+    n_a, b_a = 1 << 20, 256
+    xa = crandn(b_a, n_a)
+    ha = nd.FftHandler(n_a)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    ya = nd.ndfft(xa, ha, axis=1)
+    backa = nd.ndifft(ya, ha, axis=1)
+    read_counts("c2c_256x2^20", fourstep_mid=2, rows_store_t=2)
+    peak = torch.cuda.max_memory_allocated()
+    rows = slice(0, b_a, b_a // 8)
+    fwd = rel_err(ya[rows], torch.fft.fft(xa[rows].to(torch.complex128), dim=1))
+    rt = abs_err(backa, xa) / float(xa.abs().max())
+    emit(phase="fourstep_path", check="c2c_256x2^20", fwd_rel_err=fwd, fwd_rows=8,
+         roundtrip_rel_err=rt, finite=bool(torch.isfinite(torch.view_as_real(backa)).all()),
+         shape=list(ya.shape), peak_bytes=peak, base_bytes=base)
+    if not (fwd <= TOL_STEP and rt <= TOL_STEP):
+        raise AssertionError(f"256 x 2^20 round trip: fwd {fwd}, round trip {rt}")
+    del ya, backa
+    torch.cuda.empty_cache()
+    reps_a = max(5, min(reps_big, args.reps))
+    t_port = cuda_ms(lambda: nd.ndifft(nd.ndfft(xa, ha, axis=1), ha, axis=1), reps_a, 1)
+    t_torch = cuda_ms(lambda: torch.fft.ifft(torch.fft.fft(xa, dim=1), dim=1), reps_a, 1)
+    leg_ms = {"fft": cuda_ms(lambda: nd.ndfft(xa, ha, axis=1), reps_a, 1),
+              "torch_fft": cuda_ms(lambda: torch.fft.fft(xa, dim=1), reps_a, 1)}
+    emit(phase="time", c2c_rows_round_trip=[b_a, n_a], ms=t_port, torch_fft_ms=t_torch,
+         legs_ms=leg_ms, peak_bytes=peak, base_bytes=base, reps=reps_a, card=card)
+    del xa
+    torch.cuda.empty_cache()
+
+    n_b = 32768
+    xb = randn(n_b, n_b)
+    hbr, hbc = nd.R2cFftHandler(n_b), nd.FftHandler(n_b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    vb, backb = step2(xb, hbr, hbc)
+    read_counts("step_32768^2", r2c_nat=1, r2c_nat_wide=1, fourstep_mid=2,
+                fourstep_mid_dense=2, rows_store_t=2, rows_store_t_wide=2, c2r_nat=1,
+                c2r_nat_wide=1)
+    peak = torch.cuda.max_memory_allocated()
+    rt = abs_err(backb, xb) / float(xb.abs().max())
+    finite = bool(torch.isfinite(backb).all())
+    del backb
+    torch.cuda.empty_cache()
+    fwd = rel_err(vb, torch.fft.rfftn(xb.double()))
+    emit(phase="fourstep_path", check="step_32768^2", fwd_rel_err=fwd, roundtrip_rel_err=rt,
+         finite=finite, shape=list(vb.shape), peak_bytes=peak, base_bytes=base)
+    if not (fwd <= TOL_STEP and rt <= TOL_STEP):
+        raise AssertionError(f"32768^2 step: fwd {fwd}, round trip {rt}")
+    torch.cuda.empty_cache()
+    reps_b = max(2, min(reps_big, args.reps))
+    t_port = cuda_ms(lambda: step2(xb, hbr, hbc), reps_b, 1)
+    t_torch = cuda_ms(lambda: torch.fft.irfftn(torch.fft.rfftn(xb), s=xb.shape), reps_b, 1)
+    sb = nd.ndfft_r2c(xb, hbr, axis=1)
+    legs = {"r2c_axis1": lambda: nd.ndfft_r2c(xb, hbr, axis=1),
+            "fft_axis0": lambda: nd.ndfft(sb, hbc, axis=0),
+            "ifft_axis0": lambda: nd.ndifft(vb, hbc, axis=0),
+            "c2r_axis1": lambda: nd.ndifft_r2c(sb, hbr, axis=1)}
+    leg_ms = {k: cuda_ms(fn, reps_b, 1) for k, fn in legs.items()}
+    emit(phase="time", step=[n_b, n_b], ms=t_port, torch_fft_ms=t_torch, legs_ms=leg_ms,
+         peak_bytes=peak, base_bytes=base, reps=reps_b, card=card)
+    del xb, vb, sb
+    torch.cuda.empty_cache()
+
+    # the lengths against float64 oracles: ndfft at 10007 on 128 rows (the
+    # lane's chirp-z, its sub-FFTs at M = 20736 = (144, 144): K7 dense, then
+    # K8's rows of 144 and the swap); 40960 = (256, 160) along the last axis
+    # and along axis 0 of (40960, 128) (K7 dense, K8's rows of 160); 131072 =
+    # (512, 256: K7 fixed, F = 4; K13 wide, F = 2), 147456 = (384, 384: both
+    # wide, F = 3), 163840 = (640, 256: K7 wide, F = 5), 786432 = (1024,
+    # 768: K13 wide, F = 6) and 36992 = (2176, 17: K7 wide, F = 17, K8's rows
+    # of 17) over a few rows; one row of 2^22 = (2048, 2048: both fixed,
+    # F = 16); ndfft_r2c / ndifft_r2c at 65536 on 128 rows (the packed
+    # lane's C2C of 32768 and the Hermitian extension's of 65536: K7 dense,
+    # K13 wide); nddct4 at (256, 32768) and nddct2 / nddct3 at (128, 65536)
+    # (their C2Cs of 32768 and 65536: K7 dense, K13 wide)
+    c_in = {(10007, 1): crandn(128, 10007), (40960, 1): crandn(4, 40960),
+            (40960, 0): crandn(40960, 128), (131072, 1): crandn(8, 131072),
+            (147456, 1): crandn(64, 147456), (163840, 1): crandn(8, 163840),
+            (786432, 1): crandn(4, 786432), (36992, 1): crandn(8, 36992),
+            (1 << 22, 1): crandn(1, 1 << 22)}
+    r_in = randn(128, 65536)
+    s_in = torch.fft.rfft(randn(128, 65536), dim=1)
+    d_in = {kind: randn(*shape) for kind, shape in (
+        ("dct4", (256, 32768)), ("dct2", (128, 65536)), ("dct3", (128, 65536)))}
+    reset_counts()
+    c_out = {key: nd.ndfft(x, axis=key[1]) for key, x in c_in.items()}
+    r_out = nd.ndfft_r2c(r_in, axis=1)
+    s_out = nd.ndifft_r2c(s_in, nd.R2cFftHandler(65536), axis=1)
+    d_out = {kind: getattr(nd, f"nd{kind}")(x, axis=1) for kind, x in d_in.items()}
+    read_counts("fourstep_lengths", fourstep_mid=15, fourstep_mid_dense=9, fourstep_mid_wide=3,
+                rows_store_t=10, rows_store_t_wide=9, c2c_dense_rows=5)
+    for (n, axis), y in c_out.items():
+        x = c_in[(n, axis)]
+        check_c2c("fft_length", y, x, nd.ndifft(y, axis=axis), dims=(axis,), n=n, axis=axis)
+    check_r2c_mid("r2c_length", r_out, r_in, nd.ndifft_r2c(r_out, nd.R2cFftHandler(65536), axis=1),
+                  (1,), n=65536, axis=1)
+    want = torch.fft.irfft(s_in.to(torch.complex128), n=65536, dim=1)
+    check("c2r_length", s_out, host64(want), n=65536, axis=1)
+    for kind, y in d_out.items():
+        check(f"{kind}_length", y, sfft.dct(host64(d_in[kind]), type=int(kind[3]), axis=1),
+              grid=list(d_in[kind].shape), axis=1)
+    del c_in, c_out, r_in, r_out, s_in, s_out, d_in, d_out, want
+
+    # each kernel of the main paths at its shape against its plain version,
+    # slice by slice, and their times: K7 fixed and K13 fixed at path A's
+    # (256, 1024, 1024), K7 dense and K13 wide at path B's (16385, 256, 128);
+    # no single PyTorch call computes either function (library_ms null)
+    legs11 = (("fourstep_mid", kfft.fourstep_mid, kfft.fourstep_mid_plain, (b_a, 1024, 1024),
+               (-1,)),
+              ("rows_store_t", kfft.rows_store_t, kfft.rows_store_t_plain, (b_a, 1024, 1024),
+               (+1, 1.0 / n_a)),
+              ("fourstep_mid_dense", kfft.fourstep_mid, kfft.fourstep_mid_plain,
+               (n_b // 2 + 1, 256, 128), (-1,)),
+              ("rows_store_t_wide", kfft.rows_store_t, kfft.rows_store_t_plain,
+               (n_b // 2 + 1, 256, 128), (+1, 1.0 / n_b)))
+    for name, kern, plain, shape, fargs in legs11:
+        x = crandn(*shape)
+        check_sliced(name, kern, plain, [x], 0, fargs, reps_a)
+        del x
+        torch.cuda.empty_cache()
+    # K2 and K3 at path B's real legs (h = 16384, F = 128, one row per tile),
+    # checked but not timed here (their times are at phase 5's main shapes)
+    xb = randn(n_b, n_b)
+    check_sliced("r2c_nat_wide", krfft.r2c_nat, krfft.r2c_nat_plain, [xb], 0, (), reps_a,
+                 timed=False)
+    del xb
+    torch.cuda.empty_cache()
+    sb = crandn(n_b, n_b // 2 + 1)
+    check_sliced("c2r_nat_wide", krfft.c2r_nat, krfft.c2r_nat_plain, [sb], 0,
+                 (n_b, 1.0 / n_b), reps_a, timed=False)
+    del sb
+    torch.cuda.empty_cache()
+
     # ---- 5. times: each kernel against its plain version and, at the main
     # path's shape, the PyTorch call that computes the same function (the
     # yardstick); the steps against torch.fft (the 1536^3 solve's kernels
@@ -1981,7 +2194,10 @@ def main() -> int:
                    "dct1_mid_wide": (1, 1537, 1537), "dct4_mid": (2048, 2048, 256),
                    "dct4_mid_wide": (1, 1536, 1536), "c2c_blue_mid": (1, 509, 509 * 509),
                    "c2c_blue_mid_wide": (1, 1031, 1024), "dct23_blue_mid": (1, 1021, 1024),
-                   "dct23_blue_mid_wide": (1, 2049, 2049 * 256)}
+                   "dct23_blue_mid_wide": (1, 2049, 2049 * 256),
+                   "fourstep_mid": (256, 1024, 1024), "fourstep_mid_wide": (64, 384, 384),
+                   "fourstep_mid_dense": (16385, 256, 128), "rows_store_t": (256, 1024, 1024),
+                   "rows_store_t_wide": (16385, 256, 128)}
 
     def time_kernel(name, shape, kern, plain, library=None):
         t_plain = cuda_ms(plain, reps)
@@ -2278,6 +2494,12 @@ def main() -> int:
     x = randn(1, 1021, 1024)
     time_kernel("dct23_blue_mid", (1, 1021, 1024), lambda: kdct.dct23_blue_mid(x, 2, 2.0),
                 lambda: kdct.dct23_blue_mid_plain(x, 2, 2.0))
+    # kernel 7 on the wide core at phase 4k's length 147456 = (384, 384)
+    # over 64 rows (F = 3; the fixed and dense forms and kernel 13 were
+    # timed there, at the main paths' shapes)
+    x = crandn(64, 384, 384)
+    time_kernel("fourstep_mid_wide", (64, 384, 384), lambda: kfft.fourstep_mid(x, -1),
+                lambda: kfft.fourstep_mid_plain(x, -1))
     del x
     t_port = cuda_ms(lambda: dct_pair(xp), reps)
     t_yard = cuda_ms(lambda: yardstick_pair(xp), reps)
@@ -2381,14 +2603,24 @@ def main() -> int:
                            "ndrustfft_tpu/ops/pallas/fft.py:1473"),
         "dct23_blue_mid_wide": ("ndrustfft_tpu_torch/csrc/fft_blue_mid.cu",
                                 "ndrustfft_tpu/ops/pallas/fft.py:1473"),
+        "fourstep_mid": ("ndrustfft_tpu_torch/csrc/fft_fourstep.cu",
+                         "ndrustfft_tpu/ops/pallas/fft.py:1549"),
+        "fourstep_mid_wide": ("ndrustfft_tpu_torch/csrc/fft_fourstep.cu",
+                              "ndrustfft_tpu/ops/pallas/fft.py:1549"),
+        "fourstep_mid_dense": ("ndrustfft_tpu_torch/csrc/fft_dense.cu",
+                               "ndrustfft_tpu/ops/pallas/fft.py:1549"),
+        "rows_store_t": ("ndrustfft_tpu_torch/csrc/fft_fourstep.cu",
+                         "ndrustfft_tpu/ops/pallas/fft.py:1863"),
+        "rows_store_t_wide": ("ndrustfft_tpu_torch/csrc/fft_fourstep.cu",
+                              "ndrustfft_tpu/ops/pallas/fft.py:1863"),
     }
     kernels = []
     for name, (src, rep) in sources.items():
         t_k, t_plain, t_lib = timing[(name, main_shapes[name])]
         bound_ms, bound_by = bound(*work(name, main_shapes[name]))
-        # a wrapper's ``launches`` counts its wide and n-point launches too
-        fixed = (launches[name] - launches.get(name + "_wide", 0)
-                 - launches.get(name + "_npoint", 0))
+        # a wrapper's ``launches`` counts its wide, n-point and dense
+        # launches too
+        fixed = launches[name] - sum(launches.get(f"{name}_{f}", 0) for f in FORMS)
         row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
                "launches": fixed, "max_abs_err": errs[name], "ms": t_k, "plain_ms": t_plain,
                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": t_lib,

@@ -19,17 +19,21 @@ lowerings take one route name each: R2C_PACKED (the packed R2C, K15, of R2C,
 DCT-I, DST-I and DCT-II rows), R2C_ROWPAIR (odd-length R2C and DCT-II rows
 paired into one C2C), C2R_LANE (the Hermitian extension and its C2C) and
 DCT_LANE (the DCT-III/IV lowerings' C2C); each C2C is K10 or K8 (dense, or
-the generic schedule above 256). The route and the lowering in
-``ops/engine.py`` are decided by the same function of ``gates.py``; the
-launch counters show which kernel ran. DCT4_HALF_MID is the DCT-IV/DST-IV
-composite along a middle axis, its half-length C2C on K6 (K11 at a
-Bluestein half length); R2C_PACKED_MID
+the generic schedule above 256), or the four-step beyond 20480. The route
+and the lowering in ``ops/engine.py`` are decided by the same function of
+``gates.py``; the launch counters show which kernel ran. DCT4_HALF_MID is
+the DCT-IV/DST-IV composite along a middle axis, its half-length C2C on K6
+(K11 at a Bluestein half length); R2C_PACKED_MID
 (DST-I's odd-extension streams on K18), DCT1_MID (K19) and DCT4_MID (the
 fused DCT-IV/DST-IV, K28) run along a middle axis in place. A Bluestein
 length (a prime factor above 128) takes C2C_BLUE_MID (the fused chirp-z,
 K11) or DCT23_BLUE_MID (its real-to-real DCT-II/III form, K12) along a
 middle axis where the JAX package runs those kernels, and elsewhere
-BLUESTEIN_LANE: the engine's chirp-z, whose sub-FFTs run on K10 or K8.
+BLUESTEIN_LANE: the engine's chirp-z, whose sub-FFTs run on K10, K8 or the
+four-step. A C2C of length 20480 < n <= 2^22 with a four-step split takes
+C2C_FOURSTEP on every axis (a middle axis moves last, as in the JAX
+package): K7 along n1 with the exit twiddle, then K13 along n2 with the
+transposed store (or K8's rows and a swap).
 The ``_par`` names are the serial functions (the port has no sharded input).
 
 A non-tensor input (numpy array, list, scalar) goes to the CUDA device, as
@@ -47,8 +51,8 @@ import torch
 
 from .config import config
 from .gates import (
-    BLUESTEIN_LANE, C2C_AXIS_MID, C2C_BLUE_MID, C2C_DENSE_MID, C2C_DENSE_ROWS, C2C_GENERIC_MID,
-    C2C_GENERIC_ROWS, C2C_ROWS,
+    BLUESTEIN_LANE, C2C_AXIS_MID, C2C_BLUE_MID, C2C_DENSE_MID, C2C_DENSE_ROWS, C2C_FOURSTEP,
+    C2C_GENERIC_MID, C2C_GENERIC_ROWS, C2C_ROWS,
     C2R_DENSE_MID, C2R_LANE, C2R_MID, C2R_NAT, DCT1_MID, DCT2_MID, DCT2_NAT, DCT3_MID,
     DCT3_NAT, DCT4_HALF_MID, DCT4_MID, DCT23_BLUE_MID, DCT_DENSE_MID, DCT_LANE, ENGINE,
     MIN_BATCH,
@@ -78,7 +82,8 @@ _RUNNABLE = (C2C_AXIS_MID, C2C_ROWS, C2C_DENSE_ROWS, C2C_DENSE_MID, C2C_GENERIC_
              C2C_GENERIC_MID, R2C_NAT, C2R_NAT, R2C_MID, C2R_MID, R2C_DENSE_MID,
              C2R_DENSE_MID, DCT_DENSE_MID, DCT2_NAT, DCT3_NAT, DCT2_MID, DCT3_MID,
              DCT4_HALF_MID, R2C_PACKED_MID, DCT1_MID, DCT4_MID, R2C_PACKED, R2C_ROWPAIR,
-             C2R_LANE, DCT_LANE, C2C_BLUE_MID, DCT23_BLUE_MID, BLUESTEIN_LANE, ENGINE)
+             C2R_LANE, DCT_LANE, C2C_BLUE_MID, DCT23_BLUE_MID, BLUESTEIN_LANE, C2C_FOURSTEP,
+             ENGINE)
 _C2C_KINDS = ("fft", "ifft")
 _R2R_KINDS = tuple(f"{f}{t}" for f in ("dct", "dst") for t in (1, 2, 3, 4))
 
@@ -146,7 +151,8 @@ def _route(kind: str, shape, axis: int, dtype: torch.dtype, device_type: str,
     C2C_GENERIC_MID, R2C_NAT, C2R_NAT, R2C_MID, C2R_MID, R2C_DENSE_MID,
     C2R_DENSE_MID, DCT_DENSE_MID, DCT2_NAT, DCT3_NAT, DCT2_MID, DCT3_MID, the
     DCT-IV composite DCT4_HALF_MID, R2C_PACKED_MID, DCT1_MID, DCT4_MID, the
-    chirp-z C2C_BLUE_MID and DCT23_BLUE_MID, and the lane lowerings'
+    chirp-z C2C_BLUE_MID and DCT23_BLUE_MID, the four-step C2C_FOURSTEP
+    (K7 and K13, on any axis after a moveaxis), and the lane lowerings'
     R2C_PACKED, R2C_ROWPAIR, C2R_LANE, DCT_LANE, BLUESTEIN_LANE) or ENGINE.
 
     ``kind`` is "fft", "ifft", "r2c", "c2r", "dct1".."dct4" or
@@ -172,7 +178,7 @@ def _route(kind: str, shape, axis: int, dtype: torch.dtype, device_type: str,
     if route in _RUNNABLE:
         return route if device_type in ("cuda", "cpu") else ENGINE
     if device_type == "cuda":
-        raise unported(route, f"{kind} n={n} axis={axis} shape={shape}", kind)
+        raise unported(route, f"{kind} n={n} axis={axis} shape={shape}")
     return ENGINE
 
 

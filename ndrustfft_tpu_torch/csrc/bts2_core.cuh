@@ -43,6 +43,10 @@ __device__ __forceinline__ void cmac(float2& acc, float2 a, float2 w) {
   acc.y = fmaf(a.y, w.x, acc.y);
 }
 
+__device__ __forceinline__ float2 cmul(float2 a, float2 w) {
+  return make_float2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
+}
+
 // X[k] of the R2C unpack from a = Z[k], b = Z[(h - k) mod h] and
 // w = W_n^k: X[k] = (Z[k] + C[k]) / 2 - i W_n^k (Z[k] - C[k]) / 2 with
 // C = conj b; `half` = 0.5 * scale gives scale * X[k] (the packed kernels

@@ -45,18 +45,14 @@
 
 namespace ndfft {
 
-__device__ __forceinline__ float2 chirp_mul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
 // Kernel 11's load and store: complex64 in and out, b = a.
 struct BlueC2C {
   const float2* x;
   float2* y;
   const float2* a;
-  __device__ float2 load(long long off, int t) const { return chirp_mul(x[off], __ldg(a + t)); }
+  __device__ float2 load(long long off, int t) const { return cmul(x[off], __ldg(a + t)); }
   __device__ void store(long long off, int k, float2 z) const {
-    y[off] = chirp_mul(z, __ldg(a + k));
+    y[off] = cmul(z, __ldg(a + k));
   }
 };
 
@@ -94,7 +90,7 @@ blue_mid_kernel(IO io, const float2* __restrict__ h, const float2* __restrict__ 
   __syncthreads();
   Bts2<F, C, false>::run(s, wq_fwd, -1.f);
   for (int idx = threadIdx.x; idx < MM * C; idx += kThreads)
-    s[idx] = chirp_mul(s[idx], __ldg(h + idx / C));
+    s[idx] = cmul(s[idx], __ldg(h + idx / C));
   __syncthreads();
   Bts2<F, C, false>::run(s, wq_inv, 1.f);
   for (int idx = threadIdx.x; idx < n * C; idx += kThreads) {
@@ -134,7 +130,7 @@ blue_mid_wide_kernel(IO io, const float2* __restrict__ h, const float2* __restri
   __syncthreads();
   const Bts2Wide<C, false> core{MM, F};
   core.run(sm.s, sm.ys, sm.wt, wq_fwd, valid, [=](int c, long long k, float2 d) {
-    s2[k * C + c] = chirp_mul(d, __ldg(h + k));
+    s2[k * C + c] = cmul(d, __ldg(h + k));
   });
   // the core ends with a barrier: the row of the inverse may replace it
   wide_load_row(sm.wt, wf_inv, F);

@@ -34,17 +34,27 @@
 // slice), so the reduction edge and both output edges are masked. The 64 x 64
 // tile (TM = 4) serves grids that would leave SMs idle at 128 x 128 (the
 // reference's 128 and 264 grids: 1 and 9 blocks -> 4 and 25).
+//
+// Kernel 7's dense body: kernel 4 with the four-step's exit twiddle. The
+// JAX package's _kernel_exit_mul (ndrustfft_tpu/ops/pallas/fft.py:1549,
+// added by _add_exit_tw :1635 to the dense body's pallas_call :1724)
+// multiplies the (n1, L) output block by W_{n1 L}^{k1 t2} in VMEM; here the
+// epilogue multiplies each output Y[b, k, c] by tw[k * L + c] before its one
+// store (tw: the (n1, n2) table of ops/hopper/fft.py::fourstep_tw, read
+// once per batch b from L2: 8 MB at n = 2^20, 32 MB at 2^22), so the
+// twiddle costs no pass of its own. The template flag kTw compiles the
+// multiply in, so kernels 4 and 8 keep their epilogue (and registers).
 #include "bts2_core.cuh"
 
 namespace ndfft {
 
 constexpr int kDenseBK = 8;   // reduction chunk (t) staged in shared memory
 
-template <int TM, bool kRowsB>
+template <int TM, bool kRowsB, bool kTw>
 __global__ void __launch_bounds__(kThreads)
 c2c_dense_kernel(const float2* __restrict__ w, const float2* __restrict__ x,
-                 float2* __restrict__ y, int n, long long L, long long B,
-                 int ktiles) {
+                 float2* __restrict__ y, const float2* __restrict__ tw, int n,
+                 long long L, long long B, int ktiles) {
   constexpr int BM = 16 * TM;              // output rows (k) and columns (c)
   constexpr int HALF = TM / 2;             // each thread: 2 x 2 groups of HALF
   constexpr int LPT = kDenseBK * BM / kThreads;  // tile loads per thread
@@ -142,7 +152,8 @@ c2c_dense_kernel(const float2* __restrict__ w, const float2* __restrict__ x,
           if constexpr (kRowsB) {
             yb[c * n + k] = acc[i][j];
           } else {
-            yb[(long long)k * L + c] = acc[i][j];
+            const long long o = (long long)k * L + c;
+            yb[o] = kTw ? cmul(acc[i][j], __ldg(tw + o)) : acc[i][j];
           }
         }
       }
@@ -150,17 +161,17 @@ c2c_dense_kernel(const float2* __restrict__ w, const float2* __restrict__ x,
   }
 }
 
-template <int TM, bool kRowsB>
+template <int TM, bool kRowsB, bool kTw = false>
 static cudaError_t launch_c2c_dense(const float2* w, const float2* x, float2* y,
-                                    int n, long long L, long long B,
+                                    const float2* tw, int n, long long L, long long B,
                                     cudaStream_t stream) {
   constexpr int BM = 16 * TM;
   const int ktiles = (n + BM - 1) / BM;
   const long long blocks = (long long)ktiles * ((L + BM - 1) / BM);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const unsigned gy = (unsigned)(B < 65535 ? B : 65535);
-  c2c_dense_kernel<TM, kRowsB><<<dim3((unsigned)blocks, gy), kThreads, 0, stream>>>(
-      w, x, y, n, L, B, ktiles);
+  c2c_dense_kernel<TM, kRowsB, kTw><<<dim3((unsigned)blocks, gy), kThreads, 0, stream>>>(
+      w, x, y, tw, n, L, B, ktiles);
   return cudaGetLastError();
 }
 
@@ -168,22 +179,27 @@ static cudaError_t launch_c2c_dense(const float2* w, const float2* x, float2* y,
 
 // w: (n, n) complex64, w[t * n + k] = s W_n^{sign t k}; x, y: contiguous
 // complex64, (B, n, L) when rows == 0 (kernel 4) or (L, n) rows with B = 1
-// when rows == 1 (kernel 8). TM: the micro-tile, 8 (128 x 128 block tile) or
-// 4 (64 x 64). Returns the cudaError_t of the launch (0 on success).
-extern "C" int ndfft_c2c_dense(const void* w, const void* x, void* y,
+// when rows == 1 (kernel 8). tw: null, or with rows == 0 the (n, L)
+// complex64 exit twiddle of kernel 7 that multiplies every output. TM: the
+// micro-tile, 8 (128 x 128 block tile) or 4 (64 x 64). Returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int ndfft_c2c_dense(const void* w, const void* x, void* y, const void* tw,
                                long long B, int n, long long L, int TM, int rows,
                                void* stream) {
   using namespace ndfft;
   const float2* wp = static_cast<const float2*>(w);
   const float2* xp = static_cast<const float2*>(x);
   float2* yp = static_cast<float2*>(y);
+  const float2* twp = static_cast<const float2*>(tw);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n < 1 || B < 1 || L < 1 || (rows && B != 1)) return (int)cudaErrorInvalidValue;
+  if (n < 1 || B < 1 || L < 1 || (rows && (B != 1 || twp))) return (int)cudaErrorInvalidValue;
   if (TM == 8)
-    return (int)(rows ? launch_c2c_dense<8, true>(wp, xp, yp, n, L, B, st)
-                      : launch_c2c_dense<8, false>(wp, xp, yp, n, L, B, st));
+    return (int)(rows ? launch_c2c_dense<8, true>(wp, xp, yp, nullptr, n, L, B, st)
+                 : twp ? launch_c2c_dense<8, false, true>(wp, xp, yp, twp, n, L, B, st)
+                       : launch_c2c_dense<8, false>(wp, xp, yp, nullptr, n, L, B, st));
   if (TM == 4)
-    return (int)(rows ? launch_c2c_dense<4, true>(wp, xp, yp, n, L, B, st)
-                      : launch_c2c_dense<4, false>(wp, xp, yp, n, L, B, st));
+    return (int)(rows ? launch_c2c_dense<4, true>(wp, xp, yp, nullptr, n, L, B, st)
+                 : twp ? launch_c2c_dense<4, false, true>(wp, xp, yp, twp, n, L, B, st)
+                       : launch_c2c_dense<4, false>(wp, xp, yp, nullptr, n, L, B, st));
   return (int)cudaErrorInvalidValue;
 }

@@ -53,10 +53,6 @@ struct GenTile {
   }
 };
 
-__device__ __forceinline__ float2 cmul(float2 a, float2 w) {
-  return make_float2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
-}
-
 // Pass 1: for each line (j, c), the DFT-m over t' and the twiddle, in place
 // (B[p][j] lands where x[f p + j] was). A line is G lanes of one warp (G the
 // power of two >= m, at most 32), each lane holding outputs p = sub + i G;

@@ -5,8 +5,11 @@ Each lane lowering has one route function here (:func:`lane_c2c_route`,
 :func:`r2c_lane_route`, :func:`c2r_lane_route`, :func:`packed_lane`):
 ``api._route`` names a whole call's route from it, and the lowering in
 ``ops/engine.py`` dispatches on the same function, so both agree on which
-kernel a call reaches. A route whose JAX counterpart is a Pallas kernel not
-ported yet is a key of :data:`UNPORTED`; :func:`unported` builds its error.
+kernel a call reaches. Beyond the single kernels' range (n > 20480) a C2C
+takes the four-step, C2C_FOURSTEP (kernels 7 and 13), as does every
+lowering whose inner C2C has such a length. A route whose JAX counterpart
+is a Pallas kernel not ported yet is a key of :data:`UNPORTED`;
+:func:`unported` builds its error.
 """
 
 from __future__ import annotations
@@ -37,8 +40,9 @@ DCT3_MID = "dct3_mid"
 # the lane lowerings of the other kinds: K15 (the packed R2C of even-length
 # rows: R2C, DCT-I, DST-I, DCT-II), the row pairs' C2C (odd-length R2C and
 # DCT-II), the Hermitian extension's C2C (C2R) and the DCT-III/IV lowerings'
-# C2C; each C2C is K10 or K8 (dense or generic), as lane_c2c_route picks,
-# and the launch counters show which
+# C2C; each C2C is K10 or K8 (dense or generic) or the four-step (K7, K13;
+# also the packed R2C's half-length C2C beyond 20480), as lane_c2c_route
+# picks, and the launch counters show which
 R2C_PACKED = "r2c_packed"
 R2C_ROWPAIR = "r2c_rowpair"
 C2R_LANE = "c2r_lane"
@@ -53,34 +57,32 @@ DCT1_MID = "dct1_mid"
 DCT4_MID = "dct4_mid"
 # Bluestein lengths (a prime factor above 128): the fused chirp-z C2C along
 # a middle axis (K11), its real-to-real DCT-II/III form (K12), and along the
-# last axis the engine's chirp-z, whose two length-M sub-FFTs run on K10 or
-# K8 (the route of every lane lowering at such a length)
+# last axis the engine's chirp-z, whose two length-M sub-FFTs run on K10,
+# K8 or the four-step (the route of every lane lowering at such a length)
 C2C_BLUE_MID = "c2c_blue_mid"
 DCT23_BLUE_MID = "dct23_blue_rr_mid"
 BLUESTEIN_LANE = "bluestein_lane"
+# the four-step long C2C (engine._fourstep), 20480 < n <= 2^22 with a split
+# (n1, n2): K7 along n1 with the exit twiddle, then K13 along n2 with the
+# transposed store, or, where n2 has no twostep split, K8's rows and a swap
+C2C_FOURSTEP = "c2c_fourstep"
 ENGINE = "engine"
 
 # Pallas kernels of the JAX package on routes not ported yet:
 # key -> (kernel, ROADMAP.md item)
 UNPORTED = {
-    "fourstep": ("fft.py::_kernel_exit_mul and _kernel_lane_store_t", "K7"),
     "dct4_long": ("dct.py::_dct4_kernel_mid at n = 256 * F with F > 160, n > 40960 "
                   "(dct4_long)", "K28 long"),
     "dct23_long": ("dct.py::_dct2_kernel / _dct3_kernel (and their _mid forms) at "
                    "n = 128 * k with odd k > 160, n > 20480", "K23-K26 long"),
 }
 
-# the keys that name the C2C kernel of a lowering's inner transform
-_C2C_KEYS = ("fourstep",)
 
-
-def unported(key: str, what: str, kind: str = "fft") -> NotImplementedError:
+def unported(key: str, what: str) -> NotImplementedError:
     """The error of a call ``what`` whose route is the UNPORTED ``key``."""
     kernel, item = UNPORTED[key]
-    inner = (f" (the inner C2C of this {kind} lowering)"
-             if kind not in ("fft", "ifft") and key in _C2C_KEYS else "")
     return NotImplementedError(
-        f"{what}: the JAX package runs this{inner} on the Pallas kernel {kernel}, "
+        f"{what}: the JAX package runs this on the Pallas kernel {kernel}, "
         f"which has no CUDA port for it yet (ROADMAP.md item {item})")
 
 
@@ -160,27 +162,30 @@ def _c2c_kernel_route(route: str, n: int) -> str:
     """The port's route for the JAX package's C2C route at length n: kernel
     10 for the twostep split (n = 128 * F, the fixed or the wide core),
     kernel 8 for the lane schedule (its dense lane DFT at n <= 256, the
-    generic schedule above), kernel 4 for the dense mid product; else the
-    UNPORTED key."""
+    generic schedule above), kernel 4 for the dense mid product, kernels 7
+    and 13 for the four-step; else ``route``."""
     if route == "twostep":
         return C2C_ROWS
     if route == "lane_last":
         return C2C_DENSE_ROWS if n <= 256 else C2C_GENERIC_ROWS
     if route == "dense_mid":
         return C2C_DENSE_MID
+    if route == "fourstep":
+        return C2C_FOURSTEP
     return route
 
 
-_ROW_ROUTES = (C2C_ROWS, C2C_DENSE_ROWS, C2C_GENERIC_ROWS)
+_ROW_ROUTES = (C2C_ROWS, C2C_DENSE_ROWS, C2C_GENERIC_ROWS, C2C_FOURSTEP)
 
 
 def lane_c2c_route(n: int, batch: int) -> str:
-    """C2C_ROWS, C2C_DENSE_ROWS, C2C_GENERIC_ROWS, BLUESTEIN_LANE, ENGINE or
-    the UNPORTED key of a float32 C2C of length n over ``batch`` contiguous
-    rows. A Bluestein length takes the route of its sub-FFTs of length
-    M = blue_sub_len(n) over the same rows (engine._bluestein):
-    BLUESTEIN_LANE where K10 or K8 takes M, else ENGINE (below 128 rows)
-    or the four-step key (M > 20480)."""
+    """C2C_ROWS, C2C_DENSE_ROWS, C2C_GENERIC_ROWS, C2C_FOURSTEP,
+    BLUESTEIN_LANE or ENGINE of a float32 C2C of length n over ``batch``
+    contiguous rows. The four-step has no batch gate (the JAX package's
+    engine.c2c tests it first). A Bluestein length takes the route of its
+    sub-FFTs of length M = blue_sub_len(n) over the same rows
+    (engine._bluestein): BLUESTEIN_LANE where K10, K8 or the four-step
+    takes M, else ENGINE (below 128 rows, or M past the four-step)."""
     if factorize(n) is None:
         route = lane_c2c_route(blue_sub_len(n), batch)
         return BLUESTEIN_LANE if route in _ROW_ROUTES else route
@@ -189,21 +194,29 @@ def lane_c2c_route(n: int, batch: int) -> str:
 
 def inner_c2c_route(n: int, batch: int, lowering: str) -> str:
     """The route of a lowering whose inner transform is a C2C of length n
-    over ``batch`` rows: ``lowering`` where K10 or K8 takes it, else
-    BLUESTEIN_LANE, ENGINE or the UNPORTED key."""
+    over ``batch`` rows: ``lowering`` where K10, K8 or the four-step takes
+    it, else BLUESTEIN_LANE or ENGINE."""
     route = lane_c2c_route(n, batch)
     return lowering if route in _ROW_ROUTES else route
 
 
+def packed_kernel(h: int, batch: int) -> bool:
+    """Whether kernel 15 takes engine.r2c_packed with half length h over
+    ``batch`` rows: batch >= 128, at every h the JAX kernel takes
+    (rfft._half_fft_consts: the core at h = 128 * F, the dense lane DFT at
+    other h <= 256, the generic schedule above)."""
+    return batch >= MIN_BATCH and _kernel_ok(h)
+
+
 def packed_lane(h: int, batch: int) -> str:
     """Route of engine.r2c_packed with half length h (R2C: h = n/2, DCT-I:
-    h = n - 1, DST-I: h = n + 1): kernel 15 at batch >= 128, at every h the
-    JAX kernel takes (rfft._half_fft_consts: the core at h = 128 * F, the
-    dense lane DFT at other h <= 256, the generic schedule above), else the
-    inner C2C's route (:func:`lane_c2c_route`)."""
-    if batch >= MIN_BATCH and _kernel_ok(h):
+    h = n - 1, DST-I: h = n + 1): R2C_PACKED where kernel 15 takes it
+    (:func:`packed_kernel`), else the inner C2C's route: R2C_PACKED where
+    the four-step takes h (the half-length C2C and the unpack),
+    BLUESTEIN_LANE or ENGINE."""
+    if packed_kernel(h, batch):
         return R2C_PACKED
-    return lane_c2c_route(h, batch)
+    return inner_c2c_route(h, batch, R2C_PACKED)
 
 
 def r2c_lane_route(n: int, batch: int) -> str:

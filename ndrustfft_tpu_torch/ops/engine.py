@@ -3,16 +3,16 @@ C2R along the LAST axis, which the caller moves there.
 
 Each entry point dispatches on its route function in ``gates.py``, the one
 that ``api._route`` names a call's route by: :func:`c2c` to kernel 10 or 8
-(dense or generic) of contiguous rows, or for a Bluestein plan to the
+(dense or generic) of contiguous rows, beyond 20480 to the four-step
+:func:`_fourstep` (kernels 7 and 13), or for a Bluestein plan to the
 chirp-z :func:`_bluestein`, whose two sub-FFTs are again :func:`c2c`;
 :func:`r2c` to kernel 2, kernel 15 or the row pairs of an odd length;
 :func:`c2r` to kernel 3 or the Hermitian extension and :func:`c2c`. Where
 the JAX package runs XLA (float64/complex128, batches below the kernels'
-gates), and for an unported route on a CPU tensor, the
-mixed-radix engine runs: every stage an einsum with a plan constant or an
-elementwise twiddle, on any device and in float32 or float64. Every lowering
-reaches the engine through :func:`c2c`, which refuses a CUDA tensor whose
-route names a kernel not ported yet.
+gates, lengths past the four-step), the mixed-radix engine runs: every
+stage an einsum with a plan constant or an elementwise twiddle, on any
+device and in float32 or float64. Every lowering reaches the engine
+through :func:`c2c`.
 
 ``c2c.calls`` counts the engine's runs, so that a run can show that the
 engine stayed off a path; ``r2c.calls`` and ``c2r.calls`` count entries to
@@ -106,18 +106,19 @@ def c2c(x: torch.Tensor, plan: C2CPlan, scale=None) -> torch.Tensor:
     complex64 over >= 128 rows takes kernel 10 (256 < n = 128 * F <= 20480,
     on the fixed or the wide core) or kernel 8 (its dense lane DFT at
     n <= 256, the generic schedule at 256 < n <= 20480 without a split);
-    another kernel-eligible n raises on a CUDA tensor. A Bluestein plan runs
+    complex64 at 20480 < n <= 2^22 with a four-step split takes
+    :func:`_fourstep` over any number of rows. A Bluestein plan runs
     :func:`_bluestein` first, on any dtype and device."""
     n = plan.n
     if plan.kind == "bluestein":
         return _bluestein(x, plan, scale)
     if x.dtype == torch.complex64 and _kernel_device(x):
         route = gates.lane_c2c_route(n, _rows(x))
+        if route == gates.C2C_FOURSTEP:
+            return _fourstep(x, plan, scale)
         fn = _ROW_KERNELS.get(route)
         if fn is not None:
             return fn(x.reshape(-1, n).contiguous(), plan.sign, scale).reshape(x.shape)
-        if route != gates.ENGINE and x.device.type == "cuda":
-            raise gates.unported(route, f"c2c n={n} rows={_rows(x)}")
     c2c.calls += 1
     stages, base = _plan_consts(plan.n, plan.sign, x.dtype, x.device)
     y = ct_valued(x, stages, base)
@@ -127,6 +128,29 @@ def c2c(x: torch.Tensor, plan: C2CPlan, scale=None) -> torch.Tensor:
 
 
 c2c.calls = 0
+
+
+def _fourstep(x: torch.Tensor, plan: C2CPlan, scale=None) -> torch.Tensor:
+    """Four-step (Bailey) C2C of length n = n1 n2 (the JAX package's
+    ``engine._fourstep``), t = t1 n2 + t2 and k = k1 + n1 k2:
+    X[k1 + n1 k2] = sum_t2 W_n2^{t2 k2} W_n^{t2 k1} sum_t1 W_n1^{t1 k1} x[t1 n2 + t2].
+    Step 1+2 is kernel 7 on the (B, n1, n2) view, unscaled, the twiddle in
+    its store; step 3+4 is kernel 13 (n2 = 128 * F: the row FFT with the
+    scale, stored transposed as (B, n2, n1)), or, where n2 has no twostep
+    split (n2 <= 256), :func:`c2c` over the B n1 rows of n2 (kernel 8's
+    dense product, or the chirp-z at a prime n2; n1 >= 128 at every such
+    split) with the scale and the transpose as its own pass, as the JAX
+    package leaves it to XLA."""
+    n, sign = plan.n, plan.sign
+    n1, n2 = gates._fourstep_split(n)
+    b = _rows(x)
+    y = _kfft.fourstep_mid(x.reshape(b, n1, n2).contiguous(), sign)
+    if gates._twostep_split(n2) is not None:
+        y = _kfft.rows_store_t(y, sign, scale)
+    else:
+        y = c2c(y.reshape(b * n1, n2), get_c2c_plan(n2, sign), scale)
+        y = y.reshape(b, n1, n2).transpose(1, 2)
+    return y.reshape(x.shape)
 
 
 @lru_cache(maxsize=64)
@@ -142,8 +166,8 @@ def _bluestein(x: torch.Tensor, plan: C2CPlan, scale=None) -> torch.Tensor:
     chirps, the pad, the H product and the slice are torch ops, as the JAX
     package leaves them to XLA; both length-M sub-FFTs are :func:`c2c` over
     the same rows (K10 or K8 where ``gates.lane_c2c_route`` takes M, M =
-    128 * s with s 3-smooth), the user scale folded into the inverse's as
-    scale / M."""
+    128 * s with s 3-smooth, the four-step beyond 20480), the user scale
+    folded into the inverse's as scale / M."""
     n, M = plan.n, plan.M
     a, h, b = _blue_consts(n, plan.sign, x.dtype, x.device)
     xa = x.new_zeros(x.shape[:-1] + (M,))
@@ -205,7 +229,7 @@ def r2c_packed(x: torch.Tensor, plan: R2CPlan) -> torch.Tensor:
     n, m = plan.n, plan.m
     h = n // 2
     if x.dtype == torch.float32 and _kernel_device(x) \
-            and gates.packed_lane(h, _rows(x)) == gates.R2C_PACKED:
+            and gates.packed_kernel(h, _rows(x)):
         fn = (_krfft.r2c_packed if _krfft.packed_core(h) else
               _krfft.r2c_packed_dense if h <= _krfft.PACKED_DENSE_MAX_H else
               _krfft.r2c_packed_generic)

@@ -36,7 +36,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "ndfft_c2c_axis_mid": [_P, _P, _P, _LL, _I, _LL, _I, _I, _P],
     "ndfft_c2c_rows": [_P, _P, _P, _LL, _I, _I, _I, _P],
-    "ndfft_c2c_dense": [_P, _P, _P, _LL, _I, _LL, _I, _I, _P],
+    "ndfft_c2c_dense": [_P, _P, _P, _P, _LL, _I, _LL, _I, _I, _P],
     "ndfft_r2c_nat": [_P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_c2r_nat": [_P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_r2c_mid": [_P, _P, _P, _P, _LL, _I, _LL, _I, _P],
@@ -70,6 +70,10 @@ _SIGNATURES = {
     "ndfft_c2c_blue_mid_wide": [_P] * 8 + [_LL, _I, _I, _LL, _I, _P],
     "ndfft_dct23_blue_mid": [_P] * 7 + [_LL, _I, _I, _LL, _I, _P],
     "ndfft_dct23_blue_mid_wide": [_P] * 9 + [_LL, _I, _I, _LL, _I, _P],
+    "ndfft_fourstep_mid": [_P, _P, _P, _P, _LL, _I, _LL, _I, _I, _P],
+    "ndfft_fourstep_mid_wide": [_P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
+    "ndfft_rows_store_t": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    "ndfft_rows_store_t_wide": [_P, _P, _P, _P, _LL, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

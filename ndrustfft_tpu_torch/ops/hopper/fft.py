@@ -25,11 +25,20 @@
   (``csrc/fft_blue_mid.cu`` on the fixed core for F in {4, 8, 16}, on the
   wide core with a second tile otherwise; replaces
   ``fft.py::_kernel_axis_mid_blue``).
+* Kernels 7 and 13, :func:`fourstep_mid` and :func:`rows_store_t`: the two
+  passes of the four-step long C2C (``ops/engine.py::_fourstep``). Kernel 7
+  is the C2C of length n1 along dim 1 of the (B, n1, n2) view times the
+  exit twiddle W_n^{k1 t2} (kernel 1's kernels of ``csrc/c2c_tile.cuh``
+  with a twiddle store on either core, or kernel 4's dense product for
+  n1 <= 256; ``csrc/fft_fourstep.cu`` and ``csrc/fft_dense.cu``; replaces
+  ``fft.py::_kernel_exit_mul``). Kernel 13 is kernel 10's row C2C of
+  length n2 = 128 * F with the scale and a transposed store, (B, n2, n1)
+  (``csrc/fft_fourstep.cu``; replaces ``fft.py::_kernel_lane_store_t``).
 
 This module holds their host-built constants, their plain PyTorch versions
 and their wrappers, whose ``launches`` attributes count kernel launches
-(kernels 1, 10 and 11 also count the wide core's launches apart, in
-``wide_launches``).
+(kernels 1, 7, 10, 11 and 13 also count the wide core's launches apart, in
+``wide_launches``, and kernel 7 its dense body's, in ``dense_launches``).
 """
 
 from __future__ import annotations
@@ -54,7 +63,7 @@ GENERIC_SMEM = 96 * 1024    # a block's tile when a transform fits (2 blocks/SM)
 MAX_SMEM = 232448           # the most dynamic shared memory a block may use
 WIDE_SLOTS = 4              # planes per group of the wide core (bts2_wide.cuh)
 WIDE_MAX_C = 16             # transforms per tile of the wide core
-WQ_CACHE_BYTES = 256 << 20  # device Wq tables kept (21 MB each at n = 20480)
+WQ_CACHE_BYTES = 256 << 20  # device tables kept (Wq 21 MB at n = 20480, exit twiddle 32 MB at 2^22)
 
 
 def core_f(n: int):
@@ -86,24 +95,29 @@ def bts2_consts(n: int, sign: int, scale: float = 1.0):
     return re, im
 
 
+def lru_table(cache: OrderedDict, key, build, limit: int) -> torch.Tensor:
+    """``cache[key]``, built by ``build()`` if missing, from a cache of the
+    most recently used tables that holds at most ``limit`` bytes (and
+    always the newest table)."""
+    t = cache.pop(key, None)
+    if t is None:
+        t = build()
+    cache[key] = t
+    held = sum(v.numel() * v.element_size() for v in cache.values())
+    while held > limit and len(cache) > 1:
+        _, old = cache.popitem(last=False)
+        held -= old.numel() * old.element_size()
+    return t
+
+
 _WQ_CACHE: OrderedDict = OrderedDict()
 
 
 def device_wq(n: int, sign: int, scale: float, device: torch.device) -> torch.Tensor:
     """:func:`bts2_consts` as a (F, m, m) complex64 tensor on ``device``,
-    from a cache of the most recently used tables that holds at most
-    WQ_CACHE_BYTES (and always the newest table)."""
-    key = (n, sign, scale, device)
-    wq = _WQ_CACHE.pop(key, None)
-    if wq is None:
-        re, im = bts2_consts(n, sign, scale)
-        wq = torch.complex(torch.from_numpy(re), torch.from_numpy(im)).to(device)
-    _WQ_CACHE[key] = wq
-    held = sum(t.numel() * t.element_size() for t in _WQ_CACHE.values())
-    while held > WQ_CACHE_BYTES and len(_WQ_CACHE) > 1:
-        _, old = _WQ_CACHE.popitem(last=False)
-        held -= old.numel() * old.element_size()
-    return wq
+    from a cache of at most WQ_CACHE_BYTES (:func:`lru_table`)."""
+    return lru_table(_WQ_CACHE, (n, sign, scale, device),
+                     lambda: pair_tensor(bts2_consts(n, sign, scale), device), WQ_CACHE_BYTES)
 
 
 def wide_consts(n: int, sign: int):
@@ -358,7 +372,9 @@ def c2c_dense_rows_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor
 
 
 def _dense_launch(x: torch.Tensor, sign: int, scale, nb: int, n: int, cols: int,
-                  rows_layout: bool, what: str) -> torch.Tensor:
+                  rows_layout: bool, what: str, tw=None) -> torch.Tensor:
+    """Launch kernel 4 (or 8 with ``rows_layout``) on x; ``tw``: kernel 7's
+    (n, cols) exit twiddle, multiplied into the output in the epilogue."""
     check_cuda(x, torch.complex64, what)
     s = 1.0 if scale is None else float(scale)
     w = _device_dense(n, sign, s, x.device)
@@ -368,8 +384,8 @@ def _dense_launch(x: torch.Tensor, sign: int, scale, nb: int, n: int, cols: int,
     tm = dense_tile(n, nb, cols, num_sms(x.device))
     with torch.cuda.device(x.device):
         err = _build.lib().ndfft_c2c_dense(
-            w.data_ptr(), x.data_ptr(), y.data_ptr(), nb, n, cols, tm,
-            int(rows_layout), torch.cuda.current_stream(x.device).cuda_stream)
+            w.data_ptr(), x.data_ptr(), y.data_ptr(), None if tw is None else tw.data_ptr(),
+            nb, n, cols, tm, int(rows_layout), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, what)
     return y
 
@@ -731,3 +747,154 @@ def c2c_blue_mid(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
 
 c2c_blue_mid.launches = 0
 c2c_blue_mid.wide_launches = 0
+
+
+# --------------------------------------------------------------------------
+# Kernels 7 and 13: the four-step long C2C
+# --------------------------------------------------------------------------
+
+FOURSTEP_MAX_N1 = 4096      # the JAX package's fft._FOURSTEP_MAX_N1 (kernel 7's n1)
+FOURSTEP_MAX_N2 = 16384     # fft._FOURSTEP_MAX_N2 (kernel 13's n2)
+
+
+def fourstep_body(n1: int):
+    """The body of kernel 7 at n1, as the JAX package's _build_call_axis_mid
+    picks it for a four-step stage: "dense" (kernel 4's product) for
+    n1 <= 256, the bts2 core at n1 = 128 * F <= 4096, "fixed" for F in
+    {4, 8, 16} and "wide" otherwise; else None."""
+    if 1 <= n1 <= 256:
+        return "dense"
+    f = core_f(n1)
+    if f is None or n1 > FOURSTEP_MAX_N1:
+        return None
+    return "fixed" if f in C2C_F else "wide"
+
+
+def fourstep_tw(n1: int, n2: int, sign: int):
+    """(n1, n2) float32 (re, im) of the four-step's exit twiddle
+    W_n^{k1 t2}, n = n1 n2: the JAX package's ``_add_exit_tw`` constants,
+    ``stage_twiddle(n1, n2, sign)`` with each part rounded once."""
+    return f32_pair(stage_twiddle(n1, n2, sign))
+
+
+def device_fourstep_tw(n1: int, n2: int, sign: int, device: torch.device) -> torch.Tensor:
+    """:func:`fourstep_tw` as a (n1, n2) complex64 tensor on ``device``, kept
+    beside the Wq tables in the one device-table cache (:func:`device_wq`)."""
+    return lru_table(_WQ_CACHE, ("tw", n1, n2, sign, device),
+                     lambda: pair_tensor(fourstep_tw(n1, n2, sign), device), WQ_CACHE_BYTES)
+
+
+def _check_fourstep_n1(n1: int, what: str) -> str:
+    body = fourstep_body(n1)
+    if body is None:
+        raise ValueError(f"{what}: n1={n1} is neither <= 256 nor 128 * F <= "
+                         f"{FOURSTEP_MAX_N1} with a plan")
+    return body
+
+
+def fourstep_mid_plain(x: torch.Tensor, sign: int) -> torch.Tensor:
+    """Plain version of kernel 7: the plain version of its body (kernel 4's
+    or kernel 1's, unscaled) times the exit twiddle."""
+    nb, n1, n2 = x.shape
+    y = c2c_dense_mid_plain(x, sign) if n1 <= 256 else c2c_axis_mid_plain(x, sign)
+    return y * device_fourstep_tw(n1, n2, sign, x.device)
+
+
+def fourstep_mid(x: torch.Tensor, sign: int) -> torch.Tensor:
+    """Step 1+2 of the four-step: the unscaled C2C along dim 1 of a
+    (B, n1, n2) complex64 tensor, times W_n^{k1 t2} with n = n1 n2. A CPU
+    tensor runs the plain version; a CUDA tensor launches kernel 7 (kernel
+    4's dense body for n1 <= 256, else kernel 1's fixed or wide core) or
+    raises."""
+    if x.dim() != 3:
+        raise ValueError(f"fourstep_mid: expected (B, n1, n2), got {tuple(x.shape)}")
+    nb, n1, n2 = x.shape
+    body = _check_fourstep_n1(n1, "fourstep_mid")
+    if x.device.type == "cpu":
+        return fourstep_mid_plain(x, sign)
+    if x.device.type != "cuda":
+        raise ValueError(f"fourstep_mid: unsupported device {x.device}")
+    check_cuda(x, torch.complex64, "fourstep_mid")
+    tw = device_fourstep_tw(n1, n2, sign, x.device)
+    if body == "dense":
+        y = _dense_launch(x, sign, None, nb, n1, n2, False, "fourstep_mid", tw)
+    else:
+        wq = device_wq(n1, sign, 1.0, x.device)
+        y = torch.empty_like(x)
+        if x.numel() == 0:
+            return y
+        sms = num_sms(x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        with torch.cuda.device(x.device):
+            if body == "wide":
+                err = _build.lib().ndfft_fourstep_mid_wide(
+                    x.data_ptr(), y.data_ptr(), wq.data_ptr(),
+                    device_wide(n1, sign, x.device).data_ptr(), tw.data_ptr(), nb, n1, n2,
+                    wide_block(n1, nb, n2, sms), stream)
+            else:
+                err = _build.lib().ndfft_fourstep_mid(
+                    x.data_ptr(), y.data_ptr(), wq.data_ptr(), tw.data_ptr(), nb, n1, n2,
+                    block_cols(n1, nb, n2, sms), sign, stream)
+        _build.check(err, "fourstep_mid")
+    if x.numel():
+        count_launch(fourstep_mid, body == "wide")
+        fourstep_mid.dense_launches += body == "dense"
+    return y
+
+
+fourstep_mid.launches = 0
+fourstep_mid.wide_launches = 0
+fourstep_mid.dense_launches = 0
+
+
+def rows_store_t_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
+    """Plain version of kernel 13: kernel 10's plain version on the rows,
+    then the transpose."""
+    nb, n1, n2 = x.shape
+    y = c2c_rows_plain(x.reshape(nb * n1, n2), sign, scale)
+    return y.reshape(nb, n1, n2).transpose(1, 2).contiguous()
+
+
+def rows_store_t(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
+    """Step 3+4 of the four-step: the C2C of length n2 = 128 * F <= 16384
+    along dim 2 of a (B, n1, n2) complex64 tensor, times ``scale``, stored
+    transposed as (B, n2, n1). A CPU tensor runs the plain version; a CUDA
+    tensor launches kernel 13 (on the fixed core for F in {4, 8, 16}, else
+    on the wide core) or raises."""
+    if x.dim() != 3:
+        raise ValueError(f"rows_store_t: expected (B, n1, n2), got {tuple(x.shape)}")
+    nb, n1, n2 = x.shape
+    f = check_core_n(n2, "rows_store_t")
+    if n2 > FOURSTEP_MAX_N2:
+        raise ValueError(f"rows_store_t: n2={n2} > {FOURSTEP_MAX_N2}")
+    if x.device.type == "cpu":
+        return rows_store_t_plain(x, sign, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"rows_store_t: unsupported device {x.device}")
+    check_cuda(x, torch.complex64, "rows_store_t")
+    s = 1.0 if scale is None else float(scale)
+    wq = device_wq(n2, sign, s, x.device)
+    y = x.new_empty((nb, n2, n1))
+    t = nb * n1
+    if t == 0:
+        return y
+    wide = f not in C2C_F
+    sms = num_sms(x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        if wide:
+            err = _build.lib().ndfft_rows_store_t_wide(
+                x.data_ptr(), y.data_ptr(), wq.data_ptr(),
+                device_wide(n2, sign, x.device).data_ptr(), t, n1, n2,
+                wide_block(n2, 1, t, sms), stream)
+        else:
+            err = _build.lib().ndfft_rows_store_t(
+                x.data_ptr(), y.data_ptr(), wq.data_ptr(), t, n1, n2,
+                block_rows(n2, t, sms), sign, stream)
+    _build.check(err, "rows_store_t")
+    count_launch(rows_store_t, wide)
+    return y
+
+
+rows_store_t.launches = 0
+rows_store_t.wide_launches = 0

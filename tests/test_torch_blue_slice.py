@@ -17,8 +17,8 @@ plain versions:
   ``ndapi`` and the analytic solution;
 * the route sweep over n = 2 ... 20480: no route of any kind raises for
   want of kernel 11 or 12 or the engine's Bluestein; every Bluestein length
-  takes kernel 11 or 12, the lane's chirp-z, the engine below 128 rows, or
-  raises the four-step key where its sub-FFT length exceeds 20480.
+  takes kernel 11 or 12, the lane's chirp-z (its sub-FFTs on the four-step
+  where their length exceeds 20480), or the engine below 128 rows.
 
 Each case asserts the route it takes on a CUDA tensor (``api._route``).
 Tolerance: 5e-6 of max |JAX| in float32; 1e-5 of the analytic solution.
@@ -225,8 +225,10 @@ def test_no_route_needs_a_missing_bluestein_kernel():
     of (n, 128): no route is "bluestein" or "dct23_blue_mid" (those keys are
     gone) and no call raises for want of kernels 11 or 12. A Bluestein n
     takes C2C_BLUE_MID (n <= 6784 along a middle axis), DCT23_BLUE_MID, the
-    lane's chirp-z, the engine below 128 rows, or the four-step key exactly
-    where its sub-FFT length blue_sub_len(n) exceeds 20480."""
+    lane's chirp-z, or the engine below 128 rows except where its sub-FFT
+    length blue_sub_len(n) exceeds 20480: there the sub-FFTs take the
+    four-step, which has no batch gate, so every shape takes the lane's
+    chirp-z."""
     assert "bluestein" not in gates.UNPORTED and "dct23_blue_mid" not in gates.UNPORTED
     counts = {}
     for n in range(2, 20481):
@@ -242,13 +244,13 @@ def test_no_route_needs_a_missing_bluestein_kernel():
                 if axis == 0 and kfft.blue_f(n) is not None and n <= 6784:
                     assert route == api.C2C_BLUE_MID, (kind, n)
                 elif big:
-                    assert route == "fourstep", (kind, shape, n)
+                    assert route == api.BLUESTEIN_LANE, (kind, shape, n, route)
                 else:
                     want = api.ENGINE if shape[0] == 4 else api.BLUESTEIN_LANE
                     assert route == want, (kind, shape, n, route)
         if blue and 1100 < n <= 6784:
             for kind in ("dct2", "dct3", "dst2", "dst3"):
                 assert _route_or_key(kind, (n, 128), 0, n) == api.DCT23_BLUE_MID
-    # the keys left: the four-step (K7) and the DCT long forms
-    assert set(counts) - set(api._RUNNABLE) <= {"fourstep", "dct23_long", "dct4_long"}
-    assert counts["fourstep"] > 0 and counts[api.BLUESTEIN_LANE] > 0
+    # the keys left: the DCT long forms
+    assert set(counts) - set(api._RUNNABLE) <= {"dct23_long", "dct4_long"}
+    assert "fourstep" not in counts and counts[api.BLUESTEIN_LANE] > 0

@@ -525,3 +525,53 @@ def test_prime_lengths_run_on_the_blue_kernels(dev):
     assert _rel(back, r) <= 1e-5
     assert [f.launches - b for f, b in zip(fns, before)] == [2, 4, 2]
     assert engine.c2c.calls == calls
+
+
+def _fourstep_forms():
+    return (kfft.fourstep_mid.launches, kfft.fourstep_mid.wide_launches,
+            kfft.fourstep_mid.dense_launches, kfft.rows_store_t.launches,
+            kfft.rows_store_t.wide_launches)
+
+
+def test_fourstep_kernels_match_plain_in_each_form(dev):
+    """Kernel 7 in its dense (n1 = 144), fixed (512, 1024) and wide (384,
+    2176 with n2 = 17) bodies and kernel 13 on the fixed (n2 = 1024) and the
+    wide core (n2 = 128, F = 1, over rows that cross a batch boundary inside
+    a block), both signs, against their plain versions."""
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def crandn(*shape):
+        return torch.view_as_complex(torch.randn(*shape, 2, generator=g, device=dev))
+
+    before = _fourstep_forms()
+    for shape in ((2, 144, 160), (3, 512, 130), (1, 1024, 1024), (2, 384, 384), (2, 2176, 17)):
+        x = crandn(*shape)
+        for sign in (-1, +1):
+            assert _rel(kfft.fourstep_mid(x, sign), kfft.fourstep_mid_plain(x, sign)) <= TOL, \
+                (shape, sign)
+    for shape in ((3, 144, 1024), (3, 144, 128)):
+        x = crandn(*shape)
+        for sign, scale in ((-1, None), (+1, 1 / (shape[1] * shape[2]))):
+            y = kfft.rows_store_t(x, sign, scale)
+            assert y.shape == (shape[0], shape[2], shape[1])
+            assert _rel(y, kfft.rows_store_t_plain(x, sign, scale)) <= TOL, (shape, sign)
+    assert [a - b for a, b in zip(_fourstep_forms(), before)] == [10, 4, 2, 4, 2]
+
+
+def test_long_lengths_run_on_the_fourstep_kernels(dev):
+    """One row of 2^20 (K7 and K13 fixed, F = 8) and 40960 along axis 0 of
+    (40960, 128) (K7 dense, K8's rows of 160 and the swap) round trip
+    against torch.fft in complex128; ndfft at the prime 10007 runs the
+    lane's chirp-z with its sub-FFTs on the four-step (it raised before K7
+    was ported). The engine never runs."""
+    g = torch.Generator(device=dev).manual_seed(18)
+    calls = engine.c2c.calls
+    before = _fourstep_forms()
+    for shape, axis in (((1, 1 << 20), 1), ((40960, 128), 0), ((128, 10007), 1)):
+        x = torch.view_as_complex(torch.randn(*shape, 2, generator=g, device=dev))
+        y = nd.ndfft(x, axis=axis)
+        back = nd.ndifft(y, axis=axis)
+        ref = torch.fft.fft(x.to(torch.complex128), dim=axis)
+        assert _rel(y.to(torch.complex128), ref) <= 1e-5 and _rel(back, x) <= 1e-5, shape
+    assert [a - b for a, b in zip(_fourstep_forms(), before)] == [2 + 2 + 4, 0, 2 + 4, 2, 0]
+    assert engine.c2c.calls == calls

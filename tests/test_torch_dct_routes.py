@@ -117,7 +117,7 @@ def test_float64_takes_the_engine(kind):
     ("dct2", (128, 128 * 161), 1, ("_dct2_kernel / _dct3_kernel", "K23-K26 long")),
     ("dst3", (128, 128 * 255), 1, ("_dct2_kernel / _dct3_kernel", "K23-K26 long")),
     ("dct3", (128 * 161, 128), 0, ("_dct2_kernel / _dct3_kernel", "K23-K26 long")),
-    ("dct4", (256, 32768), 1, ("_kernel_exit_mul", "K7")),          # four-step
+    ("dct4", (256, 32768), 1, api.DCT_LANE),      # four-step (K7/K13, ported)
     ("dct3", (256, 263), 1, api.BLUESTEIN_LANE),                    # Bluestein n
 ])
 def test_unported_route_raises_on_cuda(kind, shape, axis, want):

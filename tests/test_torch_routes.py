@@ -99,7 +99,8 @@ def test_route_on_cuda(kind, shape, axis, dtype, n, want):
 
 
 @pytest.mark.parametrize("kind,shape,axis,n,want", [
-    ("fft", (2, 1 << 17), 1, None, ("_kernel_exit_mul", "K7")),
+    # a four-step length (K7 and K13, which raised before they were ported)
+    ("fft", (2, 1 << 17), 1, None, api.C2C_FOURSTEP),
     # Bluestein lengths, which raised K11 before it was ported: the fused
     # chirp-z along a middle axis (K11), and for a middle-axis R2C/C2R beyond
     # K20/K21's cap the lane's chirp-z after a moveaxis (sub-FFTs on K10)
@@ -170,18 +171,16 @@ def test_lane_lowerings_run_on_cuda(kind, shape, axis, n, want):
     assert api._route(kind, shape, axis, dtype, "cpu", n=n) == want
 
 
-# The lane lowerings whose inner C2C has no CUDA port still raise on a CUDA
-# tensor, naming the lowering, and never run the engine there
-@pytest.mark.parametrize("kind,shape,axis,n,kernel,item", [
-    ("dct4", (256, 32768), 1, None, "_kernel_exit_mul", "K7"),  # four-step
+# A lane lowering whose inner C2C is a four-step length (it raised on a CUDA
+# tensor before K7 and K13 were ported) takes the lowering's own route name
+# on both devices: its C2C runs the four-step
+@pytest.mark.parametrize("kind,shape,axis,n,want", [
+    ("dct4", (256, 32768), 1, None, api.DCT_LANE),  # four-step
 ])
-def test_other_kinds_inner_c2c_still_raises_on_cuda(kind, shape, axis, n, kernel, item):
+def test_other_kinds_inner_c2c_still_raises_on_cuda(kind, shape, axis, n, want):
     dtype = C64 if kind == "c2r" else F32
-    with pytest.raises(NotImplementedError, match=f"inner C2C of this {kind} lowering") as exc:
-        api._route(kind, shape, axis, dtype, "cuda", n=n)
-    assert kernel in str(exc.value)
-    assert str(exc.value).endswith(f"(ROADMAP.md item {item})")
-    assert api._route(kind, shape, axis, dtype, "cpu", n=n) == api.ENGINE
+    assert api._route(kind, shape, axis, dtype, "cuda", n=n) == want
+    assert api._route(kind, shape, axis, dtype, "cpu", n=n) == want
 
 
 def test_c2c_kernel_routes_serve_fft_and_ifft_only():
