@@ -128,6 +128,30 @@ without the final line):
         and nddct2 / nddct3 at 65536 against float64 torch.fft / scipy.fft;
         K7 and K13 at the paths' shapes against their plain versions slice
         by slice, with their times;
+     l. the fused spectral pipelines (kernel 14 IFFT(H FFT(x)), kernel 22
+        C2R(H R2C(x)), kernel 29 DCT-III(H DCT-II(x))) through
+        ndspectral_c2c / ndspectral_r2c / ndspectral_dct / ndspectral_dst,
+        three paths at 1024^3 float32: S1, the periodic pressure Poisson
+        solve (K2 on axis 2, K1 on axis 1, ndspectral_c2c on axis 0 with
+        the lane-varying G = 1/|k|^2: K14 fixed, F = 8; K1 and K3 back);
+        S2, a separable Gaussian LES test filter (ndspectral_r2c on axes 0
+        and 1: K22 fixed, h = 512; the composition K2, multiply, K3 on axis
+        2) and a spectral derivative (the complex multiplier i k, K22); S3,
+        the cell-centred Neumann Poisson solve (K23, K27, ndspectral_dct on
+        axis 0 with the lane-varying H = 1/lambda: K29 fixed, F = 4; K27,
+        K24), and ndspectral_dst along axis 0 of a 2048 x 4096 Dirichlet
+        field (K29 and the flip/sign conjugation); each against its
+        analytic field slab by slab in float64, its time against the
+        torch.fft yardstick (rfftn, multiply, irfftn; the float32 Makhoul
+        lowering for S3) and against the port's unfused composition (K1,
+        a torch multiply, K1; K16, multiply, K17; K27 or K25, multiply,
+        K27 or K26), each fused leg timed beside its unfused one; the
+        lengths K14, K22 and K29 open on the wide core and in the n-point
+        form (K14 at 384 ... 20480, K22 at 512 ... 40960, K29 at 256 ...
+        32768) against float64 oracles under Default, NONE and scalar
+        norms, and the spectral_dct_long raise at 20608; each fused kernel
+        at its path's shape against its plain version slice by slice (K29
+        also at the Dirichlet leg's F = 8);
   5. times with CUDA events (median over --reps runs after warm-up): each
      kernel against its plain version and, where one PyTorch call computes
      the same function, that call (the yardstick, never on the port's
@@ -147,12 +171,12 @@ error against its plain version, its times, and its bound: the larger of
 the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its FP32 operations over 67 TFLOP/s (H100 SXM data
 sheet, 700 W). Its launches are the sum over the main paths of phase 4;
-kernels 1, 2, 3, 10, 11, 12, 13, 15, 16, 17, 18, 19 and 28 on the bts2 core
-are two rows each, the fixed core (launches - wide_launches) and the wide
+kernels 1, 2, 3, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 22 and 28 on the
+bts2 core are two rows each, the fixed core (launches - wide_launches) and the wide
 one (wide_launches; K11 and K12 rows also give the bound of their two
 length-M FFTs per column, ``length_m_bound_ms``), and
-kernels 23 to 26 three: the fixed core, the wide core's half length and
-the n-point form (npoint_launches); kernel 7 three: the fixed core, the
+kernels 23 to 26 and 29 three: the fixed core, the wide core's half length
+and the n-point form (npoint_launches); kernel 7 three: the fixed core, the
 wide core and the dense body (dense_launches).
 The line before the last is the card as nvidia-smi names it; the last line
 is {"ok": true, "device": {...}}.
@@ -212,7 +236,7 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def work(name: str, shape, length_m: bool = False):
+def work(name: str, shape, length_m: bool = False, mult=None):
     """(bytes, FP32 operations) of one kernel call at ``shape``: inputs
     (constants included) read once, outputs written once; 5 n log2 n per
     complex and 2.5 n log2 n per real FFT of length n, the dense DCT's
@@ -232,7 +256,32 @@ def work(name: str, shape, length_m: bool = False):
     per column and a complex product (6 FLOPs) per element; its tables are
     its body's (the core's Wq at n1, or the dense body's (n1, n1) matrix).
     Kernel 13 reads (B, n1, n2) and writes (B, n2, n1) with Wq at n2, and
-    does an n2-point complex FFT per row."""
+    does an n2-point complex FFT per row. The fused spectral kernels (K14,
+    K22, K29) on (B, n, L) read x and their multiplier H (``mult`` = (hc,
+    complex): rows x hc, hc = 1 or L, float32 or complex64) and write y,
+    with both cores' tables (and K22's and K29's twiddles), and do two
+    transforms of their kind per column (two complex FFTs of n; two real
+    ones of n) and the multiply (6 FLOPs per
+    complex product, 2 per complex-by-real, 1 per real)."""
+    if name.startswith("spectral_"):
+        b, n, cols = shape
+        hc, cplx = mult or (1, False)
+        k14, k22 = name.startswith("spectral_c2c"), name.startswith("spectral_r2c")
+        rows = n // 2 + 1 if k22 else n
+        h_bytes = (8 if cplx else 4) * rows * hc
+        io = (16 if k14 else 8) * b * n * cols
+        npoint = name.endswith("_npoint")
+        core = n if k14 or npoint else n // 2
+        f = core // 128
+        tables = (1 if npoint else 2) * 8 * core * 128
+        tables += 8 * f * f * (1 if npoint else 2) if name.endswith(("_wide", "_npoint")) else 0
+        if k22:
+            tables += 8 * core + 16 * core                 # tw, ab
+        elif not k14:
+            tables += 8 * n + (8 * n if npoint else 8 * core + 16 * core + 8 * (core + 1))
+        fft = (5 if k14 else 2.5) * n * math.log2(n)
+        mult = (6 if cplx else 2) if (k14 or k22) else 1
+        return io + h_bytes + tables, (2 * fft + mult * rows) * b * cols
     if name.startswith(("fourstep_mid", "rows_store_t")):
         b, n1, n2 = shape
         io = 16 * b * n1 * n2
@@ -443,7 +492,10 @@ def main() -> int:
             "dct1_mid_wide": 0.0, "dct4_mid": 0.0, "dct4_mid_wide": 0.0, "c2c_blue_mid": 0.0,
             "c2c_blue_mid_wide": 0.0, "dct23_blue_mid": 0.0, "dct23_blue_mid_wide": 0.0,
             "fourstep_mid": 0.0, "fourstep_mid_wide": 0.0, "fourstep_mid_dense": 0.0,
-            "rows_store_t": 0.0, "rows_store_t_wide": 0.0}
+            "rows_store_t": 0.0, "rows_store_t_wide": 0.0, "spectral_c2c_mid": 0.0,
+            "spectral_c2c_mid_wide": 0.0, "spectral_r2c_mid": 0.0, "spectral_r2c_mid_wide": 0.0,
+            "spectral_dct_mid": 0.0, "spectral_dct_mid_wide": 0.0,
+            "spectral_dct_mid_npoint": 0.0}
     k1_shapes = [(1, 512, 257), (1, 1024, 513), (3, 2048, 130), (512, 512, 257),
                  (1, 512, 512 * 257), (1, 512, 512), (1, 1024, 1024), (512, 512, 512),
                  (1, 512, 512 * 512), (257, 512, 512)]
@@ -650,15 +702,18 @@ def main() -> int:
         """kern(*ins, *extra) on the whole tensors (one launch, in the form
         that ``name`` names) against plain on 64 slices of them along the
         batch axis ``dim`` (the plain versions take ~10x their input's
-        memory); then, if ``timed``, the kernel's time, the plain version's
-        over the same slices and library()'s (the yardstick) into
+        memory; a tuple gives each input its own axis, the output's is the
+        first input's); then, if ``timed``, the kernel's time, the plain
+        version's over the same slices and library()'s (the yardstick) into
         ``timing``."""
+        dims = dim if isinstance(dim, tuple) else (dim,) * len(ins)
+        dim = dims[0]
         shape = tuple(ins[0].shape)
         step = -(-shape[dim] // 64)
         cuts = [(i0, min(step, shape[dim] - i0)) for i0 in range(0, shape[dim], step)]
 
         def plain_cut(i0, size):
-            return plain(*[t.narrow(dim, i0, size) for t in ins], *extra)
+            return plain(*[t.narrow(d, i0, size) for t, d in zip(ins, dims)], *extra)
 
         before = form_counts(kern)
         y = kern(*ins, *extra)
@@ -674,7 +729,8 @@ def main() -> int:
         rel = err / peak_ref
         errs[name] = max(errs[name], err)
         emit(phase="kernel_vs_plain", kernel=name, shape=shape, rel_err=rel, sliced_dim=dim,
-             extra=list(extra))
+             extra=[e if isinstance(e, (int, float, type(None))) else list(e.shape)
+                    for e in extra])
         if not rel <= tol:
             raise AssertionError(f"{name} {shape} {extra}: {rel}")
         if not timed:
@@ -846,6 +902,55 @@ def main() -> int:
                            lambda: kfft.rows_store_t_plain(x, sign, scale), shape, sign=sign,
                            scale=scale)
             del x
+    # kernels 14, 22 and 29 in each form: the fixed core at every F of its
+    # factors (K14 at n = 512, 1024, 2048; K22 and K29 at h = n/2 = 256, 512,
+    # 1024, 2048), the wide core
+    # (K14 at 384, 640, 1280, 16256 (F = 127) and 20480 (F = 160); K22 at
+    # h = 384, 640, 20480; K29's half length at n = 256 (F = 1), 1280 and
+    # 32768 (F = 128)) and K29's n-point form (n = 128, 384, 1152, 20352:
+    # F = 1, 3, 9, 159); ragged column tiles (L = 130, 257), nb > 1, a
+    # broadcast and a lane-varying H, real and complex (K14, K22), the
+    # scales 1, 1/n and a scalar. The main paths' shapes are checked in
+    # phase 4l, slice by slice
+    for name, shapes in (("spectral_c2c_mid", ((2, 512, 130), (1, 1024, 257), (1, 2048, 64))),
+                         ("spectral_c2c_mid_wide", ((2, 384, 130), (1, 640, 130),
+                                                    (1, 1280, 257), (1, 16256, 8),
+                                                    (1, 20480, 3)))):
+        for nb, n, cols in shapes:
+            x = crandn(nb, n, cols)
+            for h, s in ((randn(n, 1), None), (crandn(n, cols), 1.0 / n), (randn(n, cols), 0.37)):
+                check_form(name, kfft.spectral_c2c_mid, lambda: kfft.spectral_c2c_mid(x, h, s),
+                           lambda: kfft.spectral_c2c_mid_plain(x, h, s), (nb, n, cols),
+                           h_shape=list(h.shape), h_complex=h.is_complex(), scale=s)
+            del x, h
+    for name, shapes in (("spectral_r2c_mid", ((2, 512, 130), (1, 1024, 257), (1, 2048, 130),
+                                               (1, 4096, 64))),
+                         ("spectral_r2c_mid_wide", ((2, 768, 130), (1, 1280, 130),
+                                                    (1, 40960, 3)))):
+        for nb, n, cols in shapes:
+            x = randn(nb, n, cols)
+            m = n // 2 + 1
+            for hr, hi, s in ((randn(m, 1), None, None), (randn(m, cols), randn(m, cols), 1.0 / n),
+                              (randn(m, 1), randn(m, 1), 0.37)):
+                check_form(name, krfft.spectral_r2c_mid,
+                           lambda: krfft.spectral_r2c_mid(x, hr, hi, n, s),
+                           lambda: krfft.spectral_r2c_mid_plain(x, hr, hi, n, s), (nb, n, cols),
+                           h_shape=list(hr.shape), h_complex=hi is not None, scale=s)
+            del x, hr, hi
+    for name, shapes in (("spectral_dct_mid", ((2, 512, 130), (1, 1024, 257), (1, 2048, 130),
+                                               (1, 4096, 64))),
+                         ("spectral_dct_mid_wide", ((2, 256, 130), (1, 1280, 130),
+                                                    (1, 32768, 3))),
+                         ("spectral_dct_mid_npoint", ((2, 128, 130), (2, 384, 130),
+                                                      (1, 1152, 130), (1, 20352, 3)))):
+        for nb, n, cols in shapes:
+            x = randn(nb, n, cols)
+            for hv, s2, s3 in ((randn(n, 1), 2.0, 2.0), (randn(n, cols), None, 0.37)):
+                check_form(name, kdct.spectral_dct_mid,
+                           lambda: kdct.spectral_dct_mid(x, hv, s2, s3),
+                           lambda: kdct.spectral_dct_mid_plain(x, hv, s2, s3), (nb, n, cols),
+                           h_shape=list(hv.shape), s2=s2, s3=s3)
+            del x, hv
     torch.cuda.empty_cache()
 
     # ---- 4a. the spectral step through the public functions
@@ -875,7 +980,9 @@ def main() -> int:
                 "r2c_packed_mid": krfft.r2c_packed_mid, "dct1_mid": krfft.dct1_mid,
                 "dct4_mid": kdct.dct4_mid, "c2c_blue_mid": kfft.c2c_blue_mid,
                 "dct23_blue_mid": kdct.dct23_blue_mid, "fourstep_mid": kfft.fourstep_mid,
-                "rows_store_t": kfft.rows_store_t}
+                "rows_store_t": kfft.rows_store_t, "spectral_c2c_mid": kfft.spectral_c2c_mid,
+                "spectral_r2c_mid": krfft.spectral_r2c_mid,
+                "spectral_dct_mid": kdct.spectral_dct_mid}
     # the wide core's launches, the DCT kernels' n-point ones and kernel 7's
     # dense ones, counted apart by the same wrappers (their ``launches``
     # count every launch)
@@ -883,9 +990,11 @@ def main() -> int:
              for name in ("c2c_axis_mid", "c2c_rows", "r2c_nat", "c2r_nat", "r2c_packed",
                           "r2c_mid", "c2r_mid", "dct2_nat", "dct3_nat", "dct2_mid",
                           "dct3_mid", "r2c_packed_mid", "dct1_mid", "dct4_mid",
-                          "c2c_blue_mid", "dct23_blue_mid", "fourstep_mid", "rows_store_t")
+                          "c2c_blue_mid", "dct23_blue_mid", "fourstep_mid", "rows_store_t",
+                          "spectral_c2c_mid", "spectral_r2c_mid", "spectral_dct_mid")
              for form in FORMS
-             if form == "wide" or form == "npoint" and name.startswith(("dct2_", "dct3_"))
+             if form == "wide" or form == "npoint" and name.startswith(("dct2_", "dct3_",
+                                                                         "spectral_dct"))
              or form == "dense" and name == "fourstep_mid"}
 
     def count(name):
@@ -2167,6 +2276,384 @@ def main() -> int:
     del sb
     torch.cuda.empty_cache()
 
+    # ---- 4l. the fused spectral pipelines (kernels 14, 22 and 29) through
+    # ndspectral_c2c / ndspectral_r2c / ndspectral_dct / ndspectral_dst: three
+    # paths at 1024^3 float32 (4.3 GB per field), each against its analytic
+    # field slab by slab in float64 (an exact finite sum of the transform's
+    # basis vectors, so the solve or filter reproduces it to roundoff). The
+    # fields are built slab by slab; no whole float64 field (8.6 GB) is made.
+    n_s = 1024
+    reps_s = max(2, min(reps_big, args.reps))
+    spectral_h = {}   # (kernel, shape) -> (hc, complex) of the multiplier timed there
+    two_pi = 2 * math.pi
+    grid_p = torch.arange(n_s, device=dev, dtype=torch.float64) / n_s          # periodic i / n
+    grid_c = (torch.arange(n_s, device=dev, dtype=torch.float64) + 0.5) / n_s  # cell centres
+
+    def slab(terms, i0, rows):
+        """Rows i0 .. i0 + rows of sum amp vx(x) vy(y) vz(z) over the terms
+        (amp, vx, vy, vz), float64."""
+        out = None
+        for amp, vx, vy, vz in terms:
+            t = amp * vx[i0:i0 + rows, None, None] * vy[None, :, None] * vz[None, None, :]
+            out = t if out is None else out.add_(t)
+        return out
+
+    def build(terms):
+        f = torch.empty(n_s, n_s, n_s, device=dev)
+        for i0 in range(0, n_s, 64):
+            f[i0:i0 + 64] = slab(terms, i0, 64)
+        return f
+
+    def check_field(what, got, terms, **kw):
+        err, peak = 0.0, 0.0
+        for i0 in range(0, n_s, 64):
+            want = slab(terms, i0, 64)
+            err = max(err, float((got[i0:i0 + 64].double() - want).abs().max()))
+            peak = max(peak, float(want.abs().max()))
+            del want
+        rel = err / peak
+        emit(phase="spectral_path", check=what, rel_err=rel,
+             finite=bool(torch.isfinite(got).all()), shape=list(got.shape), **kw)
+        if not rel <= TOL_STEP:
+            raise AssertionError(f"{what}: {rel}")
+
+    def run_path(name, fn, expected):
+        """fn() once between reset_counts() and read_counts(name, **expected),
+        with its peak device memory and the base of live tensors."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        out = fn()
+        read_counts(name, **expected)
+        return out, torch.cuda.max_memory_allocated(), base
+
+    hsr, hsc = nd.R2cFftHandler(n_s), nd.FftHandler(n_s)
+
+    # S1: the pressure Poisson solve of a periodic DNS projection step
+    # (examples/fused_filter.py case 5 in 3-D): -lap u = f on [0, 1)^3 with
+    # u = sum amp cos(2 pi a x) sin(2 pi b y) cos(2 pi c z); K2 (h = 512) on
+    # axis 2, K1 at (1024, 1024, 513) on axis 1, ndspectral_c2c on axis 0
+    # with the lane-varying real G = 1/|k|^2 of shape (1024, 1024, 513)
+    # (K14 fixed, F = 8, at (1, 1024, 525312); G is 2.15 GB), K1 and K3 back
+    p_modes = ((1, 2, 3, 1.0), (4, 1, 2, 0.5), (7, 5, 1, 0.25))
+
+    def p_terms(lap):
+        return [(amp * (two_pi ** 2 * (a * a + b * b + c * c) if lap else 1.0),
+                 torch.cos(two_pi * a * grid_p), torch.sin(two_pi * b * grid_p),
+                 torch.cos(two_pi * c * grid_p)) for a, b, c, amp in p_modes]
+
+    f1 = build(p_terms(True))
+    kc = torch.fft.fftfreq(n_s, 1.0 / n_s, device=dev) ** 2       # integer squares, exact
+    kr = torch.arange(n_s // 2 + 1, device=dev, dtype=torch.float32) ** 2
+    g1 = kc[:, None, None] + kc[None, :, None] + kr[None, None, :]
+    g1.mul_(two_pi ** 2).reciprocal_()
+    g1[0, 0, 0] = 0.0                # the mean is pinned to 0
+
+    def s1_solve(f, fused=True):
+        a = nd.ndfft_r2c(f, hsr, axis=2)
+        b = nd.ndfft(a, hsc, axis=1)
+        del a
+        if fused:
+            c = nd.ndspectral_c2c(b, g1, hsc, axis=0)
+        else:   # the port's unfused composition: K1, a torch multiply, K1
+            c = nd.ndifft(g1 * nd.ndfft(b, hsc, axis=0), hsc, axis=0)
+        del b
+        d = nd.ndifft(c, hsc, axis=1)
+        del c
+        return nd.ndifft_r2c(d, hsr, axis=2)
+
+    u1, peak, base = run_path("S1_periodic_poisson_1024^3", lambda: s1_solve(f1),
+                              dict(r2c_nat=1, c2c_axis_mid=2, spectral_c2c_mid=1, c2r_nat=1))
+    check_field("S1_periodic_poisson_1024^3", u1, p_terms(False), peak_bytes=peak,
+                base_bytes=base)
+    del u1
+    t_port = cuda_ms(lambda: s1_solve(f1), reps_s, 1)
+    t_unfused = cuda_ms(lambda: s1_solve(f1, False), reps_s, 1)
+    t_torch = cuda_ms(lambda: torch.fft.irfftn(torch.fft.rfftn(f1).mul_(g1), s=f1.shape),
+                      reps_s, 1)
+    # where the time goes: each public call on its own input (the inverse
+    # legs' inputs are the forward spectra: the same shapes and routes)
+    a1 = nd.ndfft_r2c(f1, hsr, axis=2)
+    b1 = nd.ndfft(a1, hsc, axis=1)
+    leg_ms = {"r2c_axis2_k2": cuda_ms(lambda: nd.ndfft_r2c(f1, hsr, axis=2), reps_s, 1),
+              "fft_axis1_k1": cuda_ms(lambda: nd.ndfft(a1, hsc, axis=1), reps_s, 1),
+              "fused_axis0_k14": cuda_ms(lambda: nd.ndspectral_c2c(b1, g1, hsc, axis=0),
+                                         reps_s, 1),
+              "unfused_axis0_k1_mul_k1": cuda_ms(
+                  lambda: nd.ndifft(g1 * nd.ndfft(b1, hsc, axis=0), hsc, axis=0), reps_s, 1),
+              "ifft_axis1_k1": cuda_ms(lambda: nd.ndifft(b1, hsc, axis=1), reps_s, 1),
+              "c2r_axis2_k3": cuda_ms(lambda: nd.ndifft_r2c(a1, hsr, axis=2), reps_s, 1)}
+    del a1
+    emit(phase="time", path="S1_periodic_poisson_1024^3", ms=t_port, torch_fft_ms=t_torch,
+         unfused_ms=t_unfused, legs_ms=leg_ms, peak_bytes=peak, base_bytes=base, reps=reps_s,
+         card=card)
+    del f1
+    torch.cuda.empty_cache()
+    b1 = b1.reshape(1, n_s, -1)
+    g1 = g1.reshape(n_s, -1)
+    spectral_h[("spectral_c2c_mid", tuple(b1.shape))] = (g1.shape[1], False)
+    check_sliced("spectral_c2c_mid", kfft.spectral_c2c_mid, kfft.spectral_c2c_mid_plain,
+                 [b1, g1], (2, 1), (1.0 / n_s,), reps_s)
+    del b1, g1
+    torch.cuda.empty_cache()
+
+    # S2: a separable Gaussian LES test filter, gain exp(-k^2 D^2 / 24) of the
+    # angular wavenumber k = 2 pi m at the test-filter width D = 2 / 1024
+    # (0.78 at m = 200, 0.19 at the Nyquist m = 512): ndspectral_r2c on axes
+    # 0 and 1 (K22 fixed, h = 512, F = 4, at (1, 1024, 1048576) and (1024,
+    # 1024, 1024)), on the last axis the composition (K2, the multiply, K3),
+    # as in the JAX package; then the spectral derivative d/dy of the
+    # filtered field (the complex multiplier i k along axis 1, K22)
+    delta = 2.0 / n_s
+    s_modes = ((200, 3, 7, 1.0), (5, 150, 40, 0.5), (2, 9, 300, 0.25))
+
+    def gain(m):
+        return math.exp(-(two_pi * m * delta) ** 2 / 24)
+
+    def s_terms(deriv):
+        return [(amp * gain(a) * gain(b) * gain(c) * (-two_pi * b if deriv else 1.0),
+                 torch.cos(two_pi * a * grid_p + 0.3),
+                 (torch.sin if deriv else torch.cos)(two_pi * b * grid_p),
+                 torch.cos(two_pi * c * grid_p + 0.1)) for a, b, c, amp in s_modes]
+
+    x2 = build([(amp, torch.cos(two_pi * a * grid_p + 0.3), torch.cos(two_pi * b * grid_p),
+                 torch.cos(two_pi * c * grid_p + 0.1)) for a, b, c, amp in s_modes])
+    m_r = torch.arange(n_s // 2 + 1, device=dev, dtype=torch.float64)
+    g_s = torch.exp(-(two_pi * m_r * delta) ** 2 / 24).float()          # (513,)
+    d_y = torch.complex(torch.zeros_like(g_s), (two_pi * m_r).float())  # i k
+
+    def s2_filter(x, fused=True):
+        if fused:
+            y = nd.ndspectral_r2c(x, g_s, hsr, axis=0)
+            y = nd.ndspectral_r2c(y, g_s, hsr, axis=1)
+        else:   # the port's unfused composition on axes 0 and 1: K16, multiply, K17
+            y = nd.ndifft_r2c(g_s[:, None, None] * nd.ndfft_r2c(x, hsr, axis=0), hsr, axis=0)
+            y = nd.ndifft_r2c(g_s[None, :, None] * nd.ndfft_r2c(y, hsr, axis=1), hsr, axis=1)
+        return nd.ndspectral_r2c(y, g_s, hsr, axis=2)
+
+    def s2_path():
+        y = s2_filter(x2)
+        return y, nd.ndspectral_r2c(y, d_y, hsr, axis=1)
+
+    (y2, dy2), peak, base = run_path("S2_les_filter_1024^3", s2_path,
+                                     dict(spectral_r2c_mid=3, r2c_nat=1, c2r_nat=1))
+    check_field("S2_les_filter_1024^3", y2, s_terms(False), peak_bytes=peak, base_bytes=base)
+    check_field("S2_derivative_y_1024^3", dy2, s_terms(True))
+    del dy2
+    gf = torch.exp(-(two_pi * torch.fft.fftfreq(n_s, 1.0 / n_s, device=dev).double() * delta)
+                   ** 2 / 24).float()
+
+    def torch_filter(x):
+        s = torch.fft.rfftn(x)
+        s.mul_(gf[:, None, None]).mul_(gf[None, :, None]).mul_(g_s[None, None, :])
+        return torch.fft.irfftn(s, s=x.shape)
+
+    t_port = cuda_ms(lambda: s2_filter(x2), reps_s, 1)
+    t_unfused = cuda_ms(lambda: s2_filter(x2, False), reps_s, 1)
+    t_torch = cuda_ms(lambda: torch_filter(x2), reps_s, 1)
+    leg_ms = {"fused_axis0_k22": cuda_ms(lambda: nd.ndspectral_r2c(x2, g_s, hsr, axis=0),
+                                         reps_s, 1),
+              "unfused_axis0_k16_mul_k17": cuda_ms(
+                  lambda: nd.ndifft_r2c(g_s[:, None, None] * nd.ndfft_r2c(x2, hsr, axis=0),
+                                        hsr, axis=0), reps_s, 1),
+              "fused_axis1_k22": cuda_ms(lambda: nd.ndspectral_r2c(x2, g_s, hsr, axis=1),
+                                         reps_s, 1),
+              "composed_axis2_k2_mul_k3": cuda_ms(
+                  lambda: nd.ndspectral_r2c(x2, g_s, hsr, axis=2), reps_s, 1),
+              "derivative_axis1_k22": cuda_ms(lambda: nd.ndspectral_r2c(y2, d_y, hsr, axis=1),
+                                              reps_s, 1)}
+    emit(phase="time", path="S2_les_filter_1024^3", ms=t_port, torch_fft_ms=t_torch,
+         unfused_ms=t_unfused, legs_ms=leg_ms, peak_bytes=peak, base_bytes=base, reps=reps_s,
+         card=card)
+    del y2
+    torch.cuda.empty_cache()
+    for shape in ((1, n_s, n_s * n_s), (n_s, n_s, n_s)):
+        check_sliced("spectral_r2c_mid", krfft.spectral_r2c_mid, krfft.spectral_r2c_mid_plain,
+                     [x2.reshape(shape)], 2 if shape[0] == 1 else 0,
+                     (g_s[:, None], None, n_s, 1.0 / n_s), reps_s)
+    del x2
+    torch.cuda.empty_cache()
+
+    # S3: the Neumann Poisson solve on the cell-centred grid x_i = (i + 1/2)/n
+    # of [0, 1]^3: u = sum amp cos(a pi x) cos(b pi y) cos(c pi z) with the
+    # cosine-basis eigenvalues pi^2 (a^2 + b^2 + c^2); nddct2 on axis 2 (K23,
+    # h = 512) and axis 1 (K27), ndspectral_dct on axis 0 with the
+    # lane-varying H = 1/lambda of shape 1024^3 (K29 fixed, F = 4, at (1,
+    # 1024, 1048576); H is 4.3 GB), nddct3 back on axes 1 (K27) and 2 (K24)
+    c_modes = ((1, 2, 3, 1.0), (5, 3, 2, 0.5), (40, 7, 11, 0.25))
+
+    def c_terms(lap):
+        return [(amp * (math.pi ** 2 * (a * a + b * b + c * c) if lap else 1.0),
+                 torch.cos(a * math.pi * grid_c), torch.cos(b * math.pi * grid_c),
+                 torch.cos(c * math.pi * grid_c)) for a, b, c, amp in c_modes]
+
+    f3s = build(c_terms(True))
+    kq = torch.arange(n_s, device=dev, dtype=torch.float32) ** 2
+    h3 = kq[:, None, None] + kq[None, :, None] + kq[None, None, :]
+    h3.mul_(math.pi ** 2).reciprocal_()
+    h3[0, 0, 0] = 0.0
+    hdn = nd.DctHandler(n_s)
+    hdni = hdn.normalization(nd.Normalization.scalar(1.0 / n_s))
+
+    def s3_solve(f, fused=True):
+        a = nd.nddct2(f, hdn, axis=2)
+        b = nd.nddct2(a, hdn, axis=1)
+        del a
+        if fused:
+            c = nd.ndspectral_dct(b, h3, hdn, hdni, axis=0)
+        else:   # the public composition: K27, a torch multiply, K27
+            c = nd.nddct3(h3 * nd.nddct2(b, hdn, axis=0), hdni, axis=0)
+        del b
+        d = nd.nddct3(c, hdni, axis=1)
+        del c
+        return nd.nddct3(d, hdni, axis=2)
+
+    def torch_neumann(f):
+        u = makhoul_dct(makhoul_dct(makhoul_dct(f, 2, 2), 1, 2), 0, 2)
+        u.mul_(h3)
+        for ax in (0, 1, 2):
+            u = makhoul_dct(u, ax, 3) / (2 * n_s)
+        return u
+
+    u3s, peak, base = run_path("S3_neumann_poisson_1024^3", lambda: s3_solve(f3s),
+                               dict(dct2_nat=1, dct_dense_mid=2, spectral_dct_mid=1, dct3_nat=1))
+    check_field("S3_neumann_poisson_1024^3", u3s, c_terms(False), peak_bytes=peak,
+                base_bytes=base)
+    del u3s
+    t_port = cuda_ms(lambda: s3_solve(f3s), reps_s, 1)
+    t_unfused = cuda_ms(lambda: s3_solve(f3s, False), reps_s, 1)
+    t_torch = cuda_ms(lambda: torch_neumann(f3s), reps_s, 1)
+    a3 = nd.nddct2(f3s, hdn, axis=2)
+    b3 = nd.nddct2(a3, hdn, axis=1)
+    b3k, h3k = b3.reshape(1, n_s, -1), h3.reshape(n_s, -1)
+    leg_ms = {"dct2_axis2_k23": cuda_ms(lambda: nd.nddct2(f3s, hdn, axis=2), reps_s, 1),
+              "dct2_axis1_k27": cuda_ms(lambda: nd.nddct2(a3, hdn, axis=1), reps_s, 1),
+              "dct3_axis1_k27": cuda_ms(lambda: nd.nddct3(b3, hdni, axis=1), reps_s, 1),
+              "dct3_axis2_k24": cuda_ms(lambda: nd.nddct3(a3, hdni, axis=2), reps_s, 1),
+              "fused_axis0_k29": cuda_ms(lambda: nd.ndspectral_dct(b3, h3, hdn, hdni, axis=0),
+                                         reps_s, 1),
+              "unfused_axis0_k25_mul_k26": cuda_ms(
+                  lambda: kdct.dct3_mid(h3k * kdct.dct2_mid(b3k, 2.0), 1.0 / n_s), reps_s, 1),
+              "public_axis0_k27_mul_k27": cuda_ms(
+                  lambda: nd.nddct3(h3 * nd.nddct2(b3, hdn, axis=0), hdni, axis=0), reps_s, 1)}
+    emit(phase="time", path="S3_neumann_poisson_1024^3", ms=t_port,
+         torch_fft_makhoul_ms=t_torch, unfused_ms=t_unfused, legs_ms=leg_ms, peak_bytes=peak,
+         base_bytes=base, reps=reps_s, card=card)
+    del f3s, a3, b3, h3
+    torch.cuda.empty_cache()
+    spectral_h[("spectral_dct_mid", tuple(b3k.shape))] = (h3k.shape[1], False)
+    check_sliced("spectral_dct_mid", kdct.spectral_dct_mid, kdct.spectral_dct_mid_plain,
+                 [b3k, h3k], (2, 1), (2.0, 1.0 / n_s), reps_s)
+    del b3k, h3k
+    torch.cuda.empty_cache()
+
+    # the Dirichlet twin through ndspectral_dst: -u'' = f along axis 0 of a
+    # 2048 x 4096 cell-centred field, u = sum amp sin(m pi x) cos(2 pi q y),
+    # H[k] = 1 / ((k + 1) pi)^2 (DST-II index k is frequency k + 1): K29
+    # fixed (F = 8) between the flip/sign conjugations
+    n_d, c_d = 2048, 4096
+    xd = (torch.arange(n_d, device=dev, dtype=torch.float64) + 0.5) / n_d
+    yd = torch.arange(c_d, device=dev, dtype=torch.float64) / c_d
+    d_modes = ((1, 1, 1.0), (7, 3, 0.5), (40, 5, 0.25))   # a stiffer mode's float32
+    # roundoff in f, over the lowest eigenvalue pi^2, would pass 1e-5 of u
+
+    def d_field(lap):
+        return sum(amp * (m * math.pi) ** (2 if lap else 0) * torch.sin(m * math.pi * xd)[:, None]
+                   * torch.cos(two_pi * q * yd)[None, :] for m, q, amp in d_modes)
+
+    fd = d_field(True).float()
+    hk = 1.0 / ((torch.arange(n_d, device=dev, dtype=torch.float64) + 1) * math.pi) ** 2
+    hsd = nd.DstHandler(n_d)
+    hsdi = hsd.normalization(nd.Normalization.scalar(1.0 / n_d))
+    ud, _, _ = run_path("dirichlet_dst_2048x4096",
+                        lambda: nd.ndspectral_dst(fd, hk.float(), hsd, hsdi, axis=0),
+                        dict(spectral_dct_mid=1))
+    want = d_field(False)
+    rel = float((ud.double() - want).abs().max() / want.abs().max())
+    emit(phase="spectral_path", check="dirichlet_dst_2048x4096", rel_err=rel,
+         finite=bool(torch.isfinite(ud).all()), shape=list(ud.shape))
+    if not rel <= TOL_STEP:
+        raise AssertionError(f"2048 x 4096 Dirichlet solve: {rel}")
+    del ud, want
+    # K29 at the Dirichlet leg's own instantiation (fixed, F = 8) against its
+    # plain version: the conjugated input alt * f, the flipped multiplier and
+    # the DST handlers' scalars, as ndspectral_dst hands them on
+    xdk = (tdst.alt_tensor(n_d, torch.float32, dev)[:, None] * fd).reshape(1, n_d, c_d)
+    check_sliced("spectral_dct_mid", kdct.spectral_dct_mid, kdct.spectral_dct_mid_plain,
+                 [xdk], 2, (hk.float().flip(0)[:, None], 2.0, 1.0 / n_d), reps_s, timed=False)
+    del fd, xdk
+
+    # the lengths K14, K22 and K29 open, against float64 oracles: K14 on the
+    # wide core at 384, 640, 1280 (along axis 1 of (2, n, 130)), 16256 (F =
+    # 127) and 20480 (F = 160); K22 at 512 and 4096 (fixed) and 768 (axis 1)
+    # and 40960 (wide, F = 160); K29 at 256 (the wide half form, F = 1), 384
+    # (axis 1) and 1152 and 20352 (the n-point form, F = 3, 9, 159) and 32768
+    # (the wide half form, F = 128); L = 130 (ragged), a broadcast and a
+    # lane-varying multiplier, real and complex, under Default, NONE and
+    # scalar norms. n = 20608 (n-point, F = 161) raises spectral_dct_long.
+    norms = {"default": nd.Normalization.DEFAULT, "none": nd.Normalization.NONE,
+             "scalar": nd.Normalization.scalar(0.37)}
+    c_cases = ((384, 0, "lane", "default"), (640, 0, "bcast", "none"),
+               (1280, 1, "lane", "scalar"), (16256, 0, "bcast", "default"),
+               (20480, 0, "lane", "default"))
+    r_cases = ((512, 0, "bcast", "default"), (768, 1, "lane", "none"),
+               (4096, 0, "lane", "scalar"), (40960, 0, "bcast", "default"))
+    d_cases = ((256, 0, "bcast", "default"), (384, 1, "lane", "none"),
+               (1152, 0, "lane", "scalar"), (20352, 0, "bcast", "default"),
+               (32768, 0, "lane", "none"))
+
+    def case_input(n, axis, lane, rows, cplx_x, cplx_h):
+        shape = (n, 130) if axis == 0 else (2, n, 130)
+        x = crandn(*shape) if cplx_x else randn(*shape)
+        hshape = (rows, 130) if lane == "lane" else (rows,)
+        h = crandn(*hshape) if cplx_h else randn(*hshape)
+        return x, h, h if lane == "lane" else h.reshape((rows,) + (1,) * (x.dim() - axis - 1))
+
+    outs = []
+    reset_counts()
+    for kind, cases in (("c2c", c_cases), ("r2c", r_cases), ("dct", d_cases)):
+        for n, axis, lane, norm in cases:
+            rows = n // 2 + 1 if kind == "r2c" else n
+            x, h, hb = case_input(n, axis, lane, rows, kind == "c2c", kind != "dct")
+            cls = {"c2c": nd.FftHandler, "r2c": nd.R2cFftHandler, "dct": nd.DctHandler}[kind]
+            hd_ = cls(n).normalization(norms[norm])
+            y = getattr(nd, f"ndspectral_{kind}")(x, h, hd_, axis=axis)
+            outs.append((kind, n, axis, lane, norm, x, hb, y))
+    read_counts("spectral_lengths", spectral_c2c_mid=5, spectral_c2c_mid_wide=5,
+                spectral_r2c_mid=4, spectral_r2c_mid_wide=2, spectral_dct_mid=5,
+                spectral_dct_mid_wide=2, spectral_dct_mid_npoint=3)
+    for kind, n, axis, lane, norm, x, hb, y in outs:
+        x64, h64 = x.to(torch.complex128 if kind == "c2c" else torch.float64), hb.to(
+            torch.complex128 if kind != "dct" else torch.float64)
+        if kind == "c2c":
+            s = {"default": 1.0 / n, "none": 1.0, "scalar": 0.37}[norm]
+            want = torch.fft.ifft(h64 * torch.fft.fft(x64, dim=axis), dim=axis) * (n * s)
+        elif kind == "r2c":
+            s = {"default": 1.0 / n, "none": 1.0, "scalar": 0.37}[norm]
+            want = torch.fft.irfft(h64 * torch.fft.rfft(x64, dim=axis), n=n, dim=axis) * (n * s)
+        else:   # each norm's scalar over scipy's 2: Default 1, NONE 1/2, scalar 0.37/2
+            s = {"default": 1.0, "none": 0.5, "scalar": 0.185}[norm]
+            want = makhoul_dct(h64 * makhoul_dct(x64, axis, 2), axis, 3) * (s * s)
+        rel = rel_err(y, want)
+        emit(phase="spectral_path", check=f"{kind}_length", n=n, axis=axis, multiplier=lane,
+             norm=norm, rel_err=rel, finite=bool(torch.isfinite(torch.view_as_real(y)
+                                                               if y.is_complex() else y).all()))
+        if not rel <= TOL_STEP:
+            raise AssertionError(f"ndspectral_{kind} n={n} axis={axis} {lane} {norm}: {rel}")
+    del outs, x, h, hb, y, x64, h64, want
+    try:
+        nd.ndspectral_dct(torch.zeros(128 * 161, 128, device=dev),
+                          torch.ones(128 * 161, device=dev), axis=0)
+    except NotImplementedError as e:
+        if "spectral_dct_long" not in str(e):
+            raise
+        emit(phase="spectral_path", check="spectral_dct_long_raises", n=128 * 161, error=str(e))
+    else:
+        raise AssertionError("ndspectral_dct at n = 20608 did not raise spectral_dct_long")
+    torch.cuda.empty_cache()
+
     # ---- 5. times: each kernel against its plain version and, at the main
     # path's shape, the PyTorch call that computes the same function (the
     # yardstick); the steps against torch.fft (the 1536^3 solve's kernels
@@ -2197,7 +2684,14 @@ def main() -> int:
                    "dct23_blue_mid_wide": (1, 2049, 2049 * 256),
                    "fourstep_mid": (256, 1024, 1024), "fourstep_mid_wide": (64, 384, 384),
                    "fourstep_mid_dense": (16385, 256, 128), "rows_store_t": (256, 1024, 1024),
-                   "rows_store_t_wide": (16385, 256, 128)}
+                   "rows_store_t_wide": (16385, 256, 128),
+                   "spectral_c2c_mid": (1, 1024, 1024 * 513),
+                   "spectral_c2c_mid_wide": (8, 1280, 8192),
+                   "spectral_r2c_mid": (1, 1024, 1024 * 1024),
+                   "spectral_r2c_mid_wide": (8, 768, 16384),
+                   "spectral_dct_mid": (1, 1024, 1024 * 1024),
+                   "spectral_dct_mid_wide": (8, 1280, 8192),
+                   "spectral_dct_mid_npoint": (8, 1152, 8192)}
 
     def time_kernel(name, shape, kern, plain, library=None):
         t_plain = cuda_ms(plain, reps)
@@ -2501,6 +2995,24 @@ def main() -> int:
     time_kernel("fourstep_mid_wide", (64, 384, 384), lambda: kfft.fourstep_mid(x, -1),
                 lambda: kfft.fourstep_mid_plain(x, -1))
     del x
+    # kernels 14, 22 and 29 in the forms the main paths do not take (their
+    # fixed forms were timed in phase 4l, at the paths' shapes), with a
+    # broadcast real multiplier: K14 wide at F = 10, K22 wide at h = 384
+    # (F = 3), K29's wide half form at F = 5 and its n-point form at F = 9
+    for name, kern, plain, shape, cplx, extra_of in (
+            ("spectral_c2c_mid_wide", kfft.spectral_c2c_mid, kfft.spectral_c2c_mid_plain,
+             (8, 1280, 8192), True, lambda n: (randn(n, 1), 1.0 / n)),
+            ("spectral_r2c_mid_wide", krfft.spectral_r2c_mid, krfft.spectral_r2c_mid_plain,
+             (8, 768, 16384), False, lambda n: (randn(n // 2 + 1, 1), None, n, 1.0 / n)),
+            ("spectral_dct_mid_wide", kdct.spectral_dct_mid, kdct.spectral_dct_mid_plain,
+             (8, 1280, 8192), False, lambda n: (randn(n, 1), 2.0, 1.0 / n)),
+            ("spectral_dct_mid_npoint", kdct.spectral_dct_mid, kdct.spectral_dct_mid_plain,
+             (8, 1152, 8192), False, lambda n: (randn(n, 1), 2.0, 1.0 / n))):
+        x = crandn(*shape) if cplx else randn(*shape)
+        extra = extra_of(shape[1])
+        time_kernel(name, shape, lambda: kern(x, *extra), lambda: plain(x, *extra))
+        del x, extra
+    torch.cuda.empty_cache()
     t_port = cuda_ms(lambda: dct_pair(xp), reps)
     t_yard = cuda_ms(lambda: yardstick_pair(xp), reps)
     emit(phase="time", dct_pair=[1024, 1024], ms=t_port, torch_fft_makhoul_ms=t_yard,
@@ -2613,11 +3125,26 @@ def main() -> int:
                          "ndrustfft_tpu/ops/pallas/fft.py:1863"),
         "rows_store_t_wide": ("ndrustfft_tpu_torch/csrc/fft_fourstep.cu",
                               "ndrustfft_tpu/ops/pallas/fft.py:1863"),
+        "spectral_c2c_mid": ("ndrustfft_tpu_torch/csrc/spectral_c2c_mid.cu",
+                             "ndrustfft_tpu/ops/pallas/fft.py:2000"),
+        "spectral_c2c_mid_wide": ("ndrustfft_tpu_torch/csrc/spectral_c2c_mid.cu",
+                                  "ndrustfft_tpu/ops/pallas/fft.py:2000"),
+        "spectral_r2c_mid": ("ndrustfft_tpu_torch/csrc/spectral_r2c_mid.cu",
+                             "ndrustfft_tpu/ops/pallas/rfft.py:1021"),
+        "spectral_r2c_mid_wide": ("ndrustfft_tpu_torch/csrc/spectral_r2c_mid.cu",
+                                  "ndrustfft_tpu/ops/pallas/rfft.py:1021"),
+        "spectral_dct_mid": ("ndrustfft_tpu_torch/csrc/spectral_dct_mid.cu",
+                             "ndrustfft_tpu/ops/pallas/dct.py:779"),
+        "spectral_dct_mid_wide": ("ndrustfft_tpu_torch/csrc/spectral_dct_mid.cu",
+                                  "ndrustfft_tpu/ops/pallas/dct.py:779"),
+        "spectral_dct_mid_npoint": ("ndrustfft_tpu_torch/csrc/spectral_dct_mid.cu",
+                                    "ndrustfft_tpu/ops/pallas/dct.py:779"),
     }
     kernels = []
     for name, (src, rep) in sources.items():
         t_k, t_plain, t_lib = timing[(name, main_shapes[name])]
-        bound_ms, bound_by = bound(*work(name, main_shapes[name]))
+        bound_ms, bound_by = bound(*work(name, main_shapes[name],
+                                         mult=spectral_h.get((name, main_shapes[name]))))
         # a wrapper's ``launches`` counts its wide, n-point and dense
         # launches too
         fixed = launches[name] - sum(launches.get(f"{name}_{f}", 0) for f in FORMS)
@@ -2633,7 +3160,8 @@ def main() -> int:
         # the same numbers at the shapes of phases 4h, 4i and 4j's main paths
         row["solve_shapes"] = [
             dict(zip(("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
-                     (list(shape), *timing[(name, shape)], *bound(*work(name, shape)))))
+                     (list(shape), *timing[(name, shape)],
+                      *bound(*work(name, shape, mult=spectral_h.get((name, shape)))))))
             for shape in sliced.get(name, ())]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,13 +4,19 @@ PyTorch, with hand-written CUDA kernels for Hopper (H100).
 The public surface is the JAX package's: ``ndfft``/``ndifft``,
 ``ndfft_r2c``/``ndifft_r2c``, ``nddct1..4`` and ``nddst1..4`` along one axis
 (``api.py``), their ``_par`` twins (the serial functions: the port has no
-sharded input), and the multi-axis ``fftn`` ... ``idstn`` (``ndapi.py``).
+sharded input), the fused spectral pipelines ``ndspectral_r2c``,
+``ndspectral_c2c``, ``ndspectral_dct`` and ``ndspectral_dst`` (a forward
+transform, a diagonal multiply by a multiplier H and the inverse along one
+axis; along a middle axis one pass of kernel 22, 14 or 29, the spectrum
+never in device memory), and the multi-axis ``fftn`` ... ``idstn``
+(``ndapi.py``).
 
 On a CUDA tensor every call runs the route ``api._route`` names: a CUDA
 kernel of ``ops/hopper`` (the bts2 core at n = 128 * F, the dense products,
 the generic two-factor schedule, the R2C/C2R and DCT kernels along rows and
 along a middle axis, Bluestein's chirp-z, and beyond n = 20480 the
-four-step's kernels 7 and 13), the plain torch engine where the JAX package runs
+four-step's kernels 7 and 13, the fused spectral kernels 14, 22 and 29),
+the plain torch engine where the JAX package runs
 XLA, or ``NotImplementedError`` where the JAX package would use a Pallas
 kernel that is not ported yet (ROADMAP.md). A CPU tensor runs each kernel's
 plain PyTorch version.
@@ -20,6 +26,7 @@ from .api import (
     nddct1, nddct1_par, nddct2, nddct2_par, nddct3, nddct3_par, nddct4, nddct4_par, nddst1,
     nddst1_par, nddst2, nddst2_par, nddst3, nddst3_par, nddst4, nddst4_par, ndfft,
     ndfft_par, ndfft_r2c, ndfft_r2c_par, ndifft, ndifft_par, ndifft_r2c, ndifft_r2c_par,
+    ndspectral_c2c, ndspectral_dct, ndspectral_dst, ndspectral_r2c,
 )
 from .config import config
 from .handlers import DctHandler, DstHandler, FftHandler, R2cFftHandler
@@ -33,6 +40,7 @@ __all__ = [
     "ndfft_par", "ndifft_par", "ndfft_r2c_par", "ndifft_r2c_par",
     "nddct1_par", "nddct2_par", "nddct3_par", "nddct4_par",
     "nddst1_par", "nddst2_par", "nddst3_par", "nddst4_par",
+    "ndspectral_r2c", "ndspectral_c2c", "ndspectral_dct", "ndspectral_dst",
     "fftn", "ifftn", "rfftn", "irfftn", "dctn", "idctn", "dstn", "idstn",
     "FftHandler", "R2cFftHandler", "DctHandler", "DstHandler",
     "Normalization", "config",

@@ -36,6 +36,15 @@ package): K7 along n1 with the exit twiddle, then K13 along n2 with the
 transposed store (or K8's rows and a swap).
 The ``_par`` names are the serial functions (the port has no sharded input).
 
+The fused spectral pipelines ``ndspectral_r2c``, ``ndspectral_c2c``,
+``ndspectral_dct`` and ``ndspectral_dst`` (a forward transform, a diagonal
+multiply and the inverse along one axis) take their route from
+:func:`_spectral_route`: along a middle axis, where the JAX package runs
+its fused Pallas kernel, one launch of K22, K14 or K29 (SPECTRAL_R2C_MID,
+SPECTRAL_C2C_MID, SPECTRAL_DCT_MID; the DST through K29 by the flip/sign
+conjugation); everywhere else COMPOSE, the exact composition of the
+public transforms on their own routes.
+
 A non-tensor input (numpy array, list, scalar) goes to the CUDA device, as
 the JAX package puts it on its default device; a CPU tensor is how a caller
 asks for the CPU.
@@ -53,10 +62,11 @@ from .config import config
 from .gates import (
     BLUESTEIN_LANE, C2C_AXIS_MID, C2C_BLUE_MID, C2C_DENSE_MID, C2C_DENSE_ROWS, C2C_FOURSTEP,
     C2C_GENERIC_MID, C2C_GENERIC_ROWS, C2C_ROWS,
-    C2R_DENSE_MID, C2R_LANE, C2R_MID, C2R_NAT, DCT1_MID, DCT2_MID, DCT2_NAT, DCT3_MID,
-    DCT3_NAT, DCT4_HALF_MID, DCT4_MID, DCT23_BLUE_MID, DCT_DENSE_MID, DCT_LANE, ENGINE,
-    MIN_BATCH,
+    C2R_DENSE_MID, C2R_LANE, C2R_MID, C2R_NAT, COMPOSE, DCT1_MID, DCT2_MID, DCT2_NAT,
+    DCT3_MID, DCT3_NAT, DCT4_HALF_MID, DCT4_MID, DCT23_BLUE_MID, DCT_DENSE_MID, DCT_LANE,
+    ENGINE, MIN_BATCH,
     R2C_DENSE_MID, R2C_MID, R2C_NAT, R2C_PACKED, R2C_PACKED_MID, R2C_ROWPAIR,
+    SPECTRAL_C2C_MID, SPECTRAL_DCT_MID, SPECTRAL_R2C_MID,
     _c2c_kernel_route,
     _kernel_ok, _lane_c2c, _nat_f, _twostep_split, c2r_lane_route, inner_c2c_route,
     lane_c2c_route, packed_lane, r2c_lane_route, unported,
@@ -76,7 +86,8 @@ __all__ = ["ndfft", "ndifft", "ndfft_r2c", "ndifft_r2c",
            "nddst1", "nddst2", "nddst3", "nddst4",
            "ndfft_par", "ndifft_par", "ndfft_r2c_par", "ndifft_r2c_par",
            "nddct1_par", "nddct2_par", "nddct3_par", "nddct4_par",
-           "nddst1_par", "nddst2_par", "nddst3_par", "nddst4_par"]
+           "nddst1_par", "nddst2_par", "nddst3_par", "nddst4_par",
+           "ndspectral_r2c", "ndspectral_c2c", "ndspectral_dct", "ndspectral_dst"]
 
 _RUNNABLE = (C2C_AXIS_MID, C2C_ROWS, C2C_DENSE_ROWS, C2C_DENSE_MID, C2C_GENERIC_ROWS,
              C2C_GENERIC_MID, R2C_NAT, C2R_NAT, R2C_MID, C2R_MID, R2C_DENSE_MID,
@@ -287,6 +298,49 @@ def _route_r2r(kind, shape, axis, n):
     return _dct_lane(t, n, batch)
 
 
+_SPECTRAL = {"r2c": SPECTRAL_R2C_MID, "c2c": SPECTRAL_C2C_MID, "dct": SPECTRAL_DCT_MID}
+
+
+def _spectral_route(kind: str, shape, axis: int, dtype: torch.dtype, device_type: str,
+                    fusable: bool = True) -> str:
+    """The route of a fused spectral call: SPECTRAL_R2C_MID (K22),
+    SPECTRAL_C2C_MID (K14) or SPECTRAL_DCT_MID (K29) where the JAX package
+    runs its fused kernel, else COMPOSE.
+
+    ``kind`` is "r2c", "c2c" or "dct"; ``shape``, ``axis`` and ``dtype`` are
+    the input's (n = shape[axis]); ``fusable``: no handler has a custom
+    norm and :func:`_spectral_mult_cols` takes the multiplier. The JAX gates
+    (its api.py:1141-1410): float32 (complex64 for "c2c"), a middle axis
+    with >= 128 columns, and the kernel's length gate: the natural-layout
+    R2C's ``rfft_nat_supported`` (:func:`gates._nat_f`), the twostep C2C's
+    ``spectral_c2c_mid_supported`` (n > 256 with the split (128, F), K1's
+    gate), the DCT's ``dct_pallas_supported`` (even n with the split
+    (128, k), k <= 256). A DCT length of the n-point form beyond the wide
+    core (odd k > 160) raises the UNPORTED key ``spectral_dct_long`` on
+    "cuda" and composes on "cpu"; other devices always compose. Pure: it
+    launches nothing."""
+    shape = tuple(shape)
+    axis = _norm_axis(axis, len(shape))
+    n = shape[axis]
+    want = torch.complex64 if kind == "c2c" else torch.float32
+    if (not fusable or dtype != want or _mid_dims(shape, axis) is None
+            or device_type not in ("cuda", "cpu")):
+        return COMPOSE
+    if kind == "r2c":
+        ok = _nat_f(n) is not None
+    elif kind == "c2c":
+        ts = _twostep_split(n)
+        ok = n > 256 and _kernel_ok(n) and ts is not None and ts[0] <= MAX_BASE_RADIX
+    else:
+        ok = n % 2 == 0 and _ts_ok(n)
+        if ok and _kdct.dct_form(n) is None:
+            if device_type == "cuda":
+                raise unported("spectral_dct_long", f"spectral_dct n={n} axis={axis} "
+                               f"shape={shape}")
+            return COMPOSE
+    return _SPECTRAL[kind] if ok else COMPOSE
+
+
 # --------------------------------------------------------------------------
 # Implementations
 # --------------------------------------------------------------------------
@@ -491,6 +545,98 @@ def _dst_impl(x, handler, axis, dst_type):
     return _dct_impl(x.flip(axis), dh, axis, dst_type) * alt
 
 
+def _spectral_mult_cols(x, mult, axis, rows):
+    """The fused kernels' multiplier layout, or None: 1 for a (rows,)
+    multiplier (broadcast over the other axes), the product of
+    x.shape[axis + 1:] for a lane-varying one of shape (rows,) +
+    x.shape[axis + 1:]; any other shape takes the exact composition (the
+    JAX package's api.py:1126-1138)."""
+    if mult.dim() == 1 and mult.shape[0] == rows:
+        return 1
+    if tuple(mult.shape) == (rows,) + tuple(x.shape[axis + 1:]):
+        return math.prod(x.shape[axis + 1:])
+    return None
+
+
+def _along(mult, axis, ndim):
+    """A 1-D multiplier reshaped to broadcast along ``axis``; any other as
+    it is (plain broadcasting)."""
+    if mult.dim() != 1:
+        return mult
+    shape = [1] * ndim
+    shape[axis] = mult.shape[0]
+    return mult.reshape(shape)
+
+
+def _spectral_fused(kind, x, mult, rows, axis, custom):
+    """The route of a spectral call and its multiplier's (rows, hc) view,
+    or (COMPOSE, None)."""
+    hc = _spectral_mult_cols(x, mult, axis, rows)
+    route = _spectral_route(kind, x.shape, axis, x.dtype, x.device.type,
+                            not custom and hc is not None)
+    if route == COMPOSE:
+        return route, None
+    _check_grad(x)
+    _check_grad(mult)
+    return route, mult.reshape(rows, hc)
+
+
+def _spectral_impl(x, mult, handler, axis):
+    """``c2r(mult * r2c(x))``: kernel 22 along a middle axis where the JAX
+    package fuses, else the exact composition."""
+    axis = _norm_axis(axis, x.ndim)
+    _check_size(x.shape[axis], handler.n)
+    n, m = handler.n, handler.m
+    norm = handler.norm
+    route, hm = _spectral_fused("r2c", x, mult, m, axis, norm.kind == "custom")
+    _plan_log("spectral", n, axis, route)
+    if route == COMPOSE:
+        return _c2r_impl(_along(mult, axis, x.ndim) * _r2c_impl(x, handler, axis), handler,
+                         axis)
+    nb, cols = _mid_dims(x.shape, axis)
+    hr = (hm.real if hm.is_complex() else hm).to(x.dtype)
+    hi = hm.imag.to(x.dtype) if hm.is_complex() else None
+    y = _krfft.spectral_r2c_mid(x.reshape(nb, n, cols).contiguous(), hr, hi, n,
+                                _c2c_norm_scale(handler, +1))
+    return y.reshape(x.shape)
+
+
+def _spectral_c2c_impl(x, mult, handler, axis):
+    """``ifft(mult * fft(x))``, the forward unnormalized: kernel 14 along a
+    middle axis where the JAX package fuses, else the exact composition."""
+    axis = _norm_axis(axis, x.ndim)
+    _check_size(x.shape[axis], handler.n)
+    n = handler.n
+    norm = handler.norm
+    route, hm = _spectral_fused("c2c", x, mult, n, axis, norm.kind == "custom")
+    _plan_log("spectral_c2c", n, axis, route)
+    if route == COMPOSE:
+        fwd = _c2c_impl(x, handler, axis, -1)
+        return _c2c_impl(_along(mult, axis, x.ndim) * fwd, handler, axis, +1)
+    nb, cols = _mid_dims(x.shape, axis)
+    hm = hm.to(torch.complex64) if hm.is_complex() else hm.to(torch.float32)
+    y = _kfft.spectral_c2c_mid(x.reshape(nb, n, cols).contiguous(), hm,
+                               _c2c_norm_scale(handler, +1))
+    return y.reshape(x.shape)
+
+
+def _spectral_dct_impl(x, mult, h2, h3, axis):
+    """``dct3(mult * dct2(x, h2), h3)``: kernel 29 along a middle axis where
+    the JAX package fuses, else the exact composition."""
+    axis = _norm_axis(axis, x.ndim)
+    _check_size(x.shape[axis], h2.n, what="dct")
+    n = h2.n
+    custom = "custom" in (h2.norm.kind, h3.norm.kind)
+    route, hm = _spectral_fused("dct", x, mult, n, axis, custom)
+    _plan_log("spectral_dct", n, axis, route)
+    if route == COMPOSE:
+        return _dct_impl(_along(mult, axis, x.ndim) * _dct_impl(x, h2, axis, 2), h3, axis, 3)
+    nb, cols = _mid_dims(x.shape, axis)
+    y = _kdct.spectral_dct_mid(x.reshape(nb, n, cols).contiguous(), hm.to(x.dtype),
+                               _dct_scale(h2.norm), _dct_scale(h3.norm))
+    return y.reshape(x.shape)
+
+
 # --------------------------------------------------------------------------
 # Public functions
 # --------------------------------------------------------------------------
@@ -581,6 +727,91 @@ nddct1, nddct2, nddct3, nddct4 = (_make_r2r("dct", t, _dct_impl, DctHandler)
                                   for t in (1, 2, 3, 4))
 nddst1, nddst2, nddst3, nddst4 = (_make_r2r("dst", t, _dst_impl, DstHandler)
                                   for t in (1, 2, 3, 4))
+
+def _as_mult(multiplier, x) -> torch.Tensor:
+    """The multiplier as a tensor on x's device (a tensor keeps its dtype)."""
+    if isinstance(multiplier, torch.Tensor):
+        return multiplier.to(x.device)
+    return torch.as_tensor(multiplier, device=x.device)
+
+
+def ndspectral_r2c(x, multiplier, handler: R2cFftHandler | None = None, axis: int = -1):
+    """The real spectral pipeline along ``axis``, exactly
+    ``ndifft_r2c(multiplier * ndfft_r2c(x, handler, axis), handler, axis)``:
+    the forward R2C, the diagonal multiply, the normalized inverse C2R (the
+    product's DC and Nyquist imaginary parts ignored). ``multiplier`` is
+    real or complex, of shape (m,) (broadcast over the other axes) or
+    (m,) + x.shape[axis + 1:] (lane-varying), m = n//2 + 1; along a middle
+    axis that is one pass of kernel 22, anything else broadcastable
+    composes. float64 always composes."""
+    x = _prep_real(x)
+    h = handler or _auto_handler(R2cFftHandler, x.shape[_norm_axis(axis, x.ndim)])
+    return _spectral_impl(x, _as_mult(multiplier, x), h, axis)
+
+
+def ndspectral_c2c(x, multiplier, handler: FftHandler | None = None, axis: int = -1):
+    """The complex spectral pipeline along ``axis``, exactly
+    ``ndifft(multiplier * ndfft(x, handler, axis), handler, axis)`` (the
+    forward unnormalized, the handler's norm at the inverse).
+    ``multiplier``: real or complex, (n,) or (n,) + x.shape[axis + 1:]; along
+    a middle axis that is one pass of kernel 14, anything else broadcastable
+    composes. complex128 always composes."""
+    x = _prep_complex(x)
+    h = handler or _auto_handler(FftHandler, x.shape[_norm_axis(axis, x.ndim)])
+    return _spectral_c2c_impl(x, _as_mult(multiplier, x), h, axis)
+
+
+def _spectral_r2r_prep(family, x, multiplier, handler, inv_handler, axis, cls):
+    """(x, axis, h2, h3, mult) of ndspectral_dct/dst, with the JAX package's
+    checks in its order: the handlers' sizes, then a complex multiplier."""
+    x = _prep_real(x)
+    axn = _norm_axis(axis, x.ndim)
+    h2 = handler or _auto_handler(cls, x.shape[axn])
+    h3 = inv_handler or h2
+    if h3.n != h2.n:
+        raise ValueError(f"Size mismatch in {family}, got {h3.n} expected {h2.n}")
+    mult = _as_mult(multiplier, x)
+    if mult.is_complex():
+        raise TypeError(f"ndspectral_{family} expects a real multiplier (the "
+                        f"{family.upper()} basis is real)")
+    return x, axn, h2, h3, mult
+
+
+def ndspectral_dct(x, multiplier, handler: DctHandler | None = None,
+                   inv_handler: DctHandler | None = None, axis: int = -1):
+    """The cosine-basis pipeline along ``axis``, exactly
+    ``nddct3(multiplier * nddct2(x, handler, axis), inv_handler, axis)``
+    (``inv_handler`` defaults to ``handler``; each handler's norm applies
+    before its transform). The real ``multiplier`` is (n,) or (n,) +
+    x.shape[axis + 1:]; along a middle axis that is one pass of kernel 29,
+    any other shape, odd n, the last axis or a custom norm composes.
+    float64 always composes."""
+    x, _, h2, h3, mult = _spectral_r2r_prep("dct", x, multiplier, handler, inv_handler, axis,
+                                            DctHandler)
+    return _spectral_dct_impl(x, mult, h2, h3, axis)
+
+
+def ndspectral_dst(x, multiplier, handler: DstHandler | None = None,
+                   inv_handler: DstHandler | None = None, axis: int = -1):
+    """The sine-basis pipeline along ``axis``, exactly
+    ``nddst3(multiplier * nddst2(x, handler, axis), inv_handler, axis)``,
+    through the DCT pipeline by the flip/sign conjugation (a = (-1)^t):
+    dst3(H dst2(x)) = a dct3(flip(H) dct2(a x)), flip along the frequency
+    axis (axis 0 of the multiplier). A custom norm or a multiplier of
+    another shape composes (the callable must see the true DST values), as
+    does float64."""
+    x, axn, h2, h3, mult = _spectral_r2r_prep("dst", x, multiplier, handler, inv_handler,
+                                              axis, DstHandler)
+    n = h2.n
+    _check_size(x.shape[axn], n, what="dst")
+    route, _ = _spectral_fused("dct", x, mult, n, axn, "custom" in (h2.norm.kind, h3.norm.kind))
+    if route == COMPOSE:
+        return _dst_impl(_along(mult, axn, x.ndim) * _dst_impl(x, h2, axn, 2), h3, axn, 3)
+    alt = _along(_dst.alt_tensor(n, x.dtype, x.device), axn, x.ndim)
+    d2 = DctHandler(n).normalization(h2.norm)
+    d3 = DctHandler(n).normalization(h3.norm)
+    return alt * _spectral_dct_impl(alt * x, mult.flip(0), d2, d3, axn)
+
 
 # The JAX package's ``_par`` twins (its api.py:1720-1731) run its sharded
 # pencil path on a mesh-sharded input and are the serial functions on any

@@ -103,6 +103,13 @@ __device__ __forceinline__ void r2c_unpack_rows(float2* ob, int h, int V,
   r2c_unpack<false>(ob, h, V, h + 1, 1, u);
 }
 
+// A sk + B conj sm with c = (A.re, A.im, B.re, B.im): one bin of the C2R
+// pre-pass from S[k] = sk and S[h - k] = sm.
+__device__ __forceinline__ float2 c2r_combine(float4 c, float2 sk, float2 sm) {
+  return make_float2(c.x * sk.x - c.y * sk.y + c.z * sm.x + c.w * sm.y,
+                     c.x * sk.y + c.y * sk.x + c.w * sm.x - c.z * sm.y);
+}
+
 // The C2R pre-pass at bin k < h of a spectrum S (h + 1 bins, bin j at
 // srow[j * ks]): G[k] = A[k] S[k] + B[k] conj S[h - k], with the DC
 // imaginary part forced to 0 and the Nyquist one ignored;
@@ -115,9 +122,7 @@ __device__ __forceinline__ float2 c2r_pre(const float2* srow, const float4* __re
     sk.y = 0.f;
     sm.y = 0.f;
   }
-  const float4 c = __ldg(ab + k);
-  return make_float2(c.x * sk.x - c.y * sk.y + c.z * sm.x + c.w * sm.y,
-                     c.x * sk.y + c.y * sk.x + c.w * sm.x - c.z * sm.y);
+  return c2r_combine(__ldg(ab + k), sk, sm);
 }
 
 // cos and sin of 2*pi*j/16 for j = 0..7 (folded to constants after unrolling)

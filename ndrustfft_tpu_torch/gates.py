@@ -66,6 +66,13 @@ BLUESTEIN_LANE = "bluestein_lane"
 # (n1, n2): K7 along n1 with the exit twiddle, then K13 along n2 with the
 # transposed store, or, where n2 has no twostep split, K8's rows and a swap
 C2C_FOURSTEP = "c2c_fourstep"
+# the fused spectral pipelines along a middle axis: IFFT(H FFT(x)) (K14),
+# C2R(H R2C(x)) (K22) and DCT-III(H DCT-II(x)) (K29); COMPOSE is a spectral
+# call that runs the exact composition of the public transforms instead
+SPECTRAL_C2C_MID = "spectral_c2c_mid"
+SPECTRAL_R2C_MID = "spectral_r2c_mid"
+SPECTRAL_DCT_MID = "spectral_dct_mid"
+COMPOSE = "compose"
 ENGINE = "engine"
 
 # Pallas kernels of the JAX package on routes not ported yet:
@@ -75,6 +82,8 @@ UNPORTED = {
                   "(dct4_long)", "K28 long"),
     "dct23_long": ("dct.py::_dct2_kernel / _dct3_kernel (and their _mid forms) at "
                    "n = 128 * k with odd k > 160, n > 20480", "K23-K26 long"),
+    "spectral_dct_long": ("dct.py::_spectral_dct_kernel_mid at n = 128 * k with odd "
+                          "k > 160, n > 20480 (spectral_dct_long)", "K23-K26 long"),
 }
 
 

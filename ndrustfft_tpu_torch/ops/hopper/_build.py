@@ -74,6 +74,13 @@ _SIGNATURES = {
     "ndfft_fourstep_mid_wide": [_P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_rows_store_t": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
     "ndfft_rows_store_t_wide": [_P, _P, _P, _P, _LL, _I, _I, _I, _P],
+    "ndfft_spectral_c2c_mid": [_P] * 4 + [_LL, _P, _P, _LL, _I, _LL, _I, _P],
+    "ndfft_spectral_c2c_mid_wide": [_P] * 4 + [_LL] + [_P] * 4 + [_LL, _I, _LL, _I, _P],
+    "ndfft_spectral_r2c_mid": [_P] * 4 + [_LL] + [_P] * 4 + [_LL, _I, _LL, _I, _P],
+    "ndfft_spectral_r2c_mid_wide": [_P] * 4 + [_LL] + [_P] * 6 + [_LL, _I, _LL, _I, _P],
+    "ndfft_spectral_dct_mid": [_P] * 3 + [_LL] + [_P] * 6 + [_LL, _I, _LL, _I, _P],
+    "ndfft_spectral_dct_mid_wide": [_P] * 3 + [_LL] + [_P] * 8 + [_LL, _I, _LL, _I, _P],
+    "ndfft_spectral_dct_mid_npoint": [_P] * 3 + [_LL] + [_P] * 4 + [_LL, _I, _LL, _I, _P],
 }
 
 _lock = threading.Lock()

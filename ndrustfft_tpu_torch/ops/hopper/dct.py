@@ -16,6 +16,11 @@
   per column between an entry and an exit chirp (``csrc/dct4_mid.cu``, the
   fixed core for F in {4, 8, 16}, the wide core otherwise; replaces
   ``dct.py::_dct4_kernel_mid``).
+* Kernel 29, :func:`spectral_dct_mid`: the fused pipeline
+  DCT-III(H * DCT-II(x)) along the middle axis of (B, n, L) in the forms of
+  :func:`dct_form`, kernel 25's forward, the multiply and kernel 26's
+  inverse on one column tile (``csrc/spectral_dct_mid.cu``; replaces
+  ``dct.py::_spectral_dct_kernel_mid``).
 * Kernel 12, :func:`dct23_blue_mid`: the Makhoul DCT-II/III core along the
   middle axis of a real (B, n, L) tensor at a Bluestein length, kernel 11's
   fused chirp-z on a real column with Re(z b) out, the Makhoul twiddles
@@ -36,9 +41,9 @@ read once and written once; every constant built on the host.
 
 This module holds their host-built constants, their plain PyTorch versions
 and their wrappers, whose ``launches`` attributes count kernel launches
-(kernels 12, 23 to 26 and 28 also count the wide core's (half-length)
-launches apart, in ``wide_launches``, and kernels 23 to 26 the n-point ones in
-``npoint_launches``). All
+(kernels 12, 23 to 26, 28 and 29 also count the wide core's (half-length)
+launches apart, in ``wide_launches``, and kernels 23 to 26 and 29 the n-point
+ones in ``npoint_launches``). All
 transforms are in the rustdct convention (scipy's unnormalized DCT / 2)
 times ``scale``.
 """
@@ -53,9 +58,9 @@ import torch
 from ...plan import _cis, blue_h, chirp
 from . import _build
 from .fft import (C2C_F, CORE_F, GENERIC_MAX_N, M, block_cols, block_rows, blue_kernel_M,
-                  blue_launch, bts2_consts, bts2_plain, check_blue_n, check_cuda, chirp_z_plain,
-                  count_launch, dense_tile, device_wide, device_wq, f32_pair, num_sms,
-                  pair_tensor, wide_block)
+                  blue_launch, bts2_consts, bts2_plain, check_blue_n, check_cuda, check_mult,
+                  chirp_z_plain, count_launch, dense_tile, device_wide, device_wq, f32_pair,
+                  mult_planes, num_sms, pair_tensor, wide_block)
 from .rfft import _device_ab, _device_tw, c2r_mid_plain, r2c_mid_plain
 
 DCT_F = (1, 2, 4, 8, 16)   # half-length factors F of kernels 23/24's fixed core
@@ -552,3 +557,75 @@ def dct23_blue_mid(x: torch.Tensor, dct_type: int, scale=None) -> torch.Tensor:
 
 dct23_blue_mid.launches = 0
 dct23_blue_mid.wide_launches = 0
+
+
+# --------------------------------------------------------------------------
+# Kernel 29: the fused cosine-basis pipeline along a middle axis
+# --------------------------------------------------------------------------
+
+
+def spectral_dct_mid_plain(x: torch.Tensor, hv: torch.Tensor, s2=None, s3=None) -> torch.Tensor:
+    """Plain version of kernel 29: kernel 25's plain version times s2, the
+    product with the real H ((n, 1) or (n, L)), kernel 26's times s3."""
+    return dct3_mid_plain(dct2_mid_plain(x, s2) * hv, s3)
+
+
+def spectral_dct_mid(x: torch.Tensor, hv: torch.Tensor, s2=None, s3=None) -> torch.Tensor:
+    """s3 * DCT-III(H * s2 * DCT-II(x)) (the rustdct convention) along dim 1
+    of a (B, n, L) float32 tensor, n = 128 * k in a form of :func:`dct_form`;
+    H is a float32 (n, 1) or (n, L) tensor. A CPU tensor runs the plain
+    version; a CUDA tensor launches kernel 29 (the fixed core at h = n/2 =
+    128 * F, F in {2, 4, 8, 16}; the wide core's half-length form at other
+    F; the n-point form at odd k) or raises."""
+    _check_form(x, False, "spectral_dct_mid")
+    nb, n, cols = x.shape
+    hc = check_mult(hv, x, n, "spectral_dct_mid")
+    if x.device.type == "cpu":
+        return spectral_dct_mid_plain(x, hv, s2, s3)
+    if x.device.type != "cuda":
+        raise ValueError(f"spectral_dct_mid: unsupported device {x.device}")
+    check_cuda(x, torch.float32, "spectral_dct_mid")
+    hv, _ = mult_planes(hv, None, "spectral_dct_mid")
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    dev = x.device
+    form, f = dct_form(n)
+    npoint = form == "npoint"
+    fixed = not npoint and f in CORE_F
+    a2, a3 = _scale(s2), _scale(s3)
+    post = _device_twiddle("post", n, a2, dev).data_ptr()
+    args = (x.data_ptr(), y.data_ptr(), hv.data_ptr(), hc)
+    sms = num_sms(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _build.lib()
+    with torch.cuda.device(dev):
+        if npoint:
+            err = lib.ndfft_spectral_dct_mid_npoint(
+                *args, device_wq(n, -1, 1.0, dev).data_ptr(), device_wide(n, -1, dev).data_ptr(),
+                post, _device_twiddle("pre_npoint", n, a3, dev).data_ptr(), nb, n, cols,
+                wide_block(n, nb, cols, sms), stream)
+        else:
+            h = n // 2
+            wq_fwd, wq_inv = device_wq(h, -1, 1.0, dev), device_wq(h, +1, 1.0, dev)
+            tw, ab = _device_tw(n, dev).data_ptr(), _device_ab(n, 1.0, dev).data_ptr()
+            pre = _device_twiddle("pre", n, a3, dev).data_ptr()
+            if fixed:
+                err = lib.ndfft_spectral_dct_mid(
+                    *args, wq_fwd.data_ptr(), tw, post, wq_inv.data_ptr(), ab, pre, nb, n, cols,
+                    block_cols(h, nb, cols, sms), stream)
+            else:
+                err = lib.ndfft_spectral_dct_mid_wide(
+                    *args, wq_fwd.data_ptr(), device_wide(h, -1, dev).data_ptr(), tw, post,
+                    wq_inv.data_ptr(), device_wide(h, +1, dev).data_ptr(), ab, pre, nb, n,
+                    cols, wide_block(h, nb, cols, sms), stream)
+    _build.check(err, "spectral_dct_mid")
+    spectral_dct_mid.launches += 1
+    spectral_dct_mid.wide_launches += not (fixed or npoint)
+    spectral_dct_mid.npoint_launches += npoint
+    return y
+
+
+spectral_dct_mid.launches = 0
+spectral_dct_mid.wide_launches = 0
+spectral_dct_mid.npoint_launches = 0

@@ -34,10 +34,15 @@
   ``fft.py::_kernel_exit_mul``). Kernel 13 is kernel 10's row C2C of
   length n2 = 128 * F with the scale and a transposed store, (B, n2, n1)
   (``csrc/fft_fourstep.cu``; replaces ``fft.py::_kernel_lane_store_t``).
+* Kernel 14, :func:`spectral_c2c_mid`: the fused pipeline IFFT(H * FFT(x))
+  along the middle axis of (B, n, L), n = 128 * F, the diagonal multiply
+  between two cores on one column tile (``csrc/spectral_c2c_mid.cu``, the
+  fixed core for F in {4, 8, 16}, the wide core otherwise; replaces
+  ``fft.py::_spectral_c2c_kernel_mid``).
 
 This module holds their host-built constants, their plain PyTorch versions
 and their wrappers, whose ``launches`` attributes count kernel launches
-(kernels 1, 7, 10, 11 and 13 also count the wide core's launches apart, in
+(kernels 1, 7, 10, 11, 13 and 14 also count the wide core's launches apart, in
 ``wide_launches``, and kernel 7 its dense body's, in ``dense_launches``).
 """
 
@@ -898,3 +903,91 @@ def rows_store_t(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
 
 rows_store_t.launches = 0
 rows_store_t.wide_launches = 0
+
+
+# --------------------------------------------------------------------------
+# Kernel 14: the fused complex spectral pipeline along a middle axis
+# --------------------------------------------------------------------------
+
+
+def check_mult(h: torch.Tensor, x: torch.Tensor, rows: int, what: str) -> int:
+    """The multiplier's column count hc of a fused spectral kernel: 1 for a
+    (rows, 1) multiplier broadcast over the columns of x (B, n, L), L for a
+    lane-varying (rows, L) one; else raise."""
+    cols = x.shape[2]
+    if h.dim() != 2 or h.shape[0] != rows or h.shape[1] not in (1, cols):
+        raise ValueError(f"{what}: expected a multiplier of shape ({rows}, 1) or ({rows}, "
+                         f"{cols}), got {tuple(h.shape)}")
+    if h.device != x.device:
+        raise ValueError(f"{what}: the multiplier is on {h.device}, x on {x.device}")
+    return h.shape[1]
+
+
+def mult_planes(hr: torch.Tensor, hi, what: str):
+    """The float32 planes of a multiplier as the kernels read them: hr and
+    hi (or None for a real multiplier), each contiguous."""
+    for p in (hr,) if hi is None else (hr, hi):
+        if p.dtype != torch.float32:
+            raise TypeError(f"{what}: expected a float32 multiplier plane, got {p.dtype}")
+        if p.requires_grad:
+            raise NotImplementedError(
+                f"{what}: the CUDA kernels have no backward yet (ROADMAP.md §1, autograd)")
+    return hr.contiguous(), None if hi is None else hi.contiguous()
+
+
+def spectral_c2c_mid_plain(x: torch.Tensor, h: torch.Tensor, scale=None) -> torch.Tensor:
+    """Plain version of kernel 14: the core's plain forward transform along
+    dim 1 of (B, n, L), times H ((n, 1) or (n, L), real or complex), the
+    core's plain inverse with ``scale`` folded into its constants."""
+    n = x.shape[1]
+    s = 1.0 if scale is None else float(scale)
+    z = bts2_plain(x, device_wq(n, -1, 1.0, x.device), -1) * h
+    return bts2_plain(z, device_wq(n, +1, s, x.device), +1)
+
+
+def spectral_c2c_mid(x: torch.Tensor, h: torch.Tensor, scale=None) -> torch.Tensor:
+    """IFFT(H * FFT(x)) along dim 1 of a (B, n, L) complex64 tensor, n = 128
+    * F (:func:`core_f`): the forward unnormalized, the inverse times
+    ``scale``; H is (n, 1) or (n, L), float32 or complex64. A CPU tensor runs
+    the plain version; a CUDA tensor launches kernel 14 (on the fixed core
+    for F in {4, 8, 16}, else on the wide core) or raises."""
+    if x.dim() != 3:
+        raise ValueError(f"spectral_c2c_mid: expected (B, n, L), got {tuple(x.shape)}")
+    nb, n, cols = x.shape
+    f = check_core_n(n, "spectral_c2c_mid")
+    hc = check_mult(h, x, n, "spectral_c2c_mid")
+    if x.device.type == "cpu":
+        return spectral_c2c_mid_plain(x, h, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"spectral_c2c_mid: unsupported device {x.device}")
+    check_cuda(x, torch.complex64, "spectral_c2c_mid")
+    hr, hi = mult_planes(*((h.real, h.imag) if h.is_complex() else (h, None)),
+                         "spectral_c2c_mid")
+    s = 1.0 if scale is None else float(scale)
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    dev = x.device
+    wide = f not in C2C_F
+    mult = (hr.data_ptr(), None if hi is None else hi.data_ptr(), hc)
+    wq_fwd, wq_inv = device_wq(n, -1, 1.0, dev), device_wq(n, +1, s, dev)
+    sms = num_sms(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        if wide:
+            err = _build.lib().ndfft_spectral_c2c_mid_wide(
+                x.data_ptr(), y.data_ptr(), *mult, wq_fwd.data_ptr(),
+                device_wide(n, -1, dev).data_ptr(), wq_inv.data_ptr(),
+                device_wide(n, +1, dev).data_ptr(), nb, n, cols, wide_block(n, nb, cols, sms),
+                stream)
+        else:
+            err = _build.lib().ndfft_spectral_c2c_mid(
+                x.data_ptr(), y.data_ptr(), *mult, wq_fwd.data_ptr(), wq_inv.data_ptr(), nb, n,
+                cols, block_cols(n, nb, cols, sms), stream)
+    _build.check(err, "spectral_c2c_mid")
+    count_launch(spectral_c2c_mid, wide)
+    return y
+
+
+spectral_c2c_mid.launches = 0
+spectral_c2c_mid.wide_launches = 0

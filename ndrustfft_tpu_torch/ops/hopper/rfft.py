@@ -31,10 +31,15 @@
   the row layout (``csrc/rfft_dense.cu``); :func:`r2c_packed_generic` for
   h > 256 without a split is kernel 8's generic schedule with the unpack
   as its epilogue (``csrc/rfft_generic.cu``).
+* Kernel 22, :func:`spectral_r2c_mid`: the fused pipeline C2R(H * R2C(x))
+  along the middle axis of (B, n, L), kernel 16's forward, the multiply and
+  kernel 17's inverse on one column tile (``csrc/spectral_r2c_mid.cu``, the
+  fixed core for F in {2, 4, 8, 16}, the wide core for every other F <= 160;
+  replaces ``rfft.py::_spectral_kernel_mid``).
 
 This module holds their host-built constants, their plain PyTorch versions
 and their wrappers, whose ``launches`` attributes count kernel launches
-(kernels 2, 3, 15, 16, 17, 18 and 19 on the core also count the wide
+(kernels 2, 3, 15, 16, 17, 18, 19 and 22 on the core also count the wide
 core's launches apart, in ``wide_launches``).
 """
 
@@ -48,9 +53,9 @@ import torch
 from ...plan import _cis
 from . import _build
 from .fft import (CORE_F, GENERIC_MAX_N, M, block_cols, block_rows, bts2_plain,
-                  c2c_generic_rows_plain, check_cuda, core_f, count_launch,
+                  c2c_generic_rows_plain, check_cuda, check_mult, core_f, count_launch,
                   dense_tile, device_generic, device_wide, device_wq, generic_block,
-                  generic_split, num_sms, wide_block)
+                  generic_split, mult_planes, num_sms, wide_block)
 
 # lengths kernels 20 and 21 take: the JAX package's rfft_dense_mid_supported
 # (its _DENSE_RFFT_MAX), which the routes mirror
@@ -374,6 +379,76 @@ def c2r_mid(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
 
 c2r_mid.launches = 0
 c2r_mid.wide_launches = 0
+
+
+# --------------------------------------------------------------------------
+# Kernel 22: the fused real spectral pipeline along a middle axis
+# --------------------------------------------------------------------------
+
+
+def spectral_r2c_mid_plain(x: torch.Tensor, hr: torch.Tensor, hi, n: int,
+                           scale=None) -> torch.Tensor:
+    """Plain version of kernel 22: kernel 16's plain version, the product
+    with H = hr + i hi ((m, 1) or (m, L), m = n/2 + 1; hi None for a real
+    H), then kernel 17's, which ignores the product's DC and Nyquist
+    imaginary parts (the JAX kernel's mask and its Nyquist row
+    Re(H[h]) X[h])."""
+    spec = r2c_mid_plain(x)
+    return c2r_mid_plain(spec * (hr if hi is None else torch.complex(hr, hi)), n, scale)
+
+
+def spectral_r2c_mid(x: torch.Tensor, hr: torch.Tensor, hi, n: int, scale=None) -> torch.Tensor:
+    """C2R(H * R2C(x)) along dim 1 of a (B, n, L) float32 tensor, times
+    ``scale`` (the C2R's), h = n/2 = 128 * F (:func:`_check_nat`); H =
+    hr + i hi, float32 planes of shape (n/2 + 1, 1) or (n/2 + 1, L), hi None
+    for a real H. A CPU tensor runs the plain version; a CUDA tensor
+    launches kernel 22 (on the fixed core for F in {2, 4, 8, 16}, else on
+    the wide core) or raises."""
+    _check_mid(x, torch.float32, "spectral_r2c_mid")
+    nb, _, cols = x.shape
+    f = _check_nat(n, "spectral_r2c_mid")
+    if x.shape[1] != n:
+        raise ValueError(f"spectral_r2c_mid: expected (B, {n}, L), got {tuple(x.shape)}")
+    hc = check_mult(hr, x, n // 2 + 1, "spectral_r2c_mid")
+    if hi is not None and hi.shape != hr.shape:
+        raise ValueError(f"spectral_r2c_mid: planes {tuple(hr.shape)} and {tuple(hi.shape)}")
+    if x.device.type == "cpu":
+        return spectral_r2c_mid_plain(x, hr, hi, n, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"spectral_r2c_mid: unsupported device {x.device}")
+    check_cuda(x, torch.float32, "spectral_r2c_mid")
+    hr, hi = mult_planes(hr, hi, "spectral_r2c_mid")
+    sc = 1.0 if scale is None else float(scale)
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    dev = x.device
+    h = n // 2
+    wide = f not in CORE_F
+    mult = (hr.data_ptr(), None if hi is None else hi.data_ptr(), hc)
+    wq_fwd, wq_inv = device_wq(h, -1, 1.0, dev), device_wq(h, +1, 1.0, dev)
+    tw, ab = _device_tw(n, dev), _device_ab(n, sc, dev)
+    sms = num_sms(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        if wide:
+            err = _build.lib().ndfft_spectral_r2c_mid_wide(
+                x.data_ptr(), y.data_ptr(), *mult, wq_fwd.data_ptr(),
+                device_wide(h, -1, dev).data_ptr(), tw.data_ptr(), wq_inv.data_ptr(),
+                device_wide(h, +1, dev).data_ptr(), ab.data_ptr(), nb, n, cols,
+                wide_block(h, nb, cols, sms), stream)
+        else:
+            err = _build.lib().ndfft_spectral_r2c_mid(
+                x.data_ptr(), y.data_ptr(), *mult, wq_fwd.data_ptr(), tw.data_ptr(),
+                wq_inv.data_ptr(), ab.data_ptr(), nb, n, cols, block_cols(h, nb, cols, sms),
+                stream)
+    _build.check(err, "spectral_r2c_mid")
+    count_launch(spectral_r2c_mid, wide)
+    return y
+
+
+spectral_r2c_mid.launches = 0
+spectral_r2c_mid.wide_launches = 0
 
 
 # --------------------------------------------------------------------------

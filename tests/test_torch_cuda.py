@@ -575,3 +575,80 @@ def test_long_lengths_run_on_the_fourstep_kernels(dev):
         assert _rel(y.to(torch.complex128), ref) <= 1e-5 and _rel(back, x) <= 1e-5, shape
     assert [a - b for a, b in zip(_fourstep_forms(), before)] == [2 + 2 + 4, 0, 2 + 4, 2, 0]
     assert engine.c2c.calls == calls
+
+
+def _spectral_forms():
+    return (kfft.spectral_c2c_mid.launches, kfft.spectral_c2c_mid.wide_launches,
+            krfft.spectral_r2c_mid.launches, krfft.spectral_r2c_mid.wide_launches,
+            kdct.spectral_dct_mid.launches, kdct.spectral_dct_mid.wide_launches,
+            kdct.spectral_dct_mid.npoint_launches)
+
+
+def test_spectral_kernels_match_plain_in_each_form(dev):
+    """Kernels 14, 22 and 29 on the fixed core and the wide core (K29 also
+    in the n-point form), ragged column tiles (L = 130, 17, 3), the largest
+    tiles (F = 160 for K14/K22, the n-point F = 159 and the half form
+    F = 128 for K29), broadcast and lane-varying H, real and complex
+    (K14, K22), against their plain versions."""
+    g = torch.Generator(device=dev).manual_seed(19)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    before = _spectral_forms()
+    for nb, n, cols in ((2, 512, 130), (1, 1024, 257), (2, 384, 130), (1, 640, 17),
+                        (1, 20480, 3)):
+        x = torch.complex(randn(nb, n, cols), randn(nb, n, cols))
+        for h, s in ((randn(n, 1), None), (torch.complex(randn(n, cols), randn(n, cols)), 1 / n)):
+            assert _rel(kfft.spectral_c2c_mid(x, h, s),
+                        kfft.spectral_c2c_mid_plain(x, h, s)) <= TOL, (n, cols)
+    for nb, n, cols in ((2, 512, 130), (1, 1024, 257), (2, 768, 130), (1, 40960, 2)):
+        x = randn(nb, n, cols)
+        m = n // 2 + 1
+        for hr, hi, s in ((randn(m, 1), None, 1 / n), (randn(m, cols), randn(m, cols), 0.5)):
+            assert _rel(krfft.spectral_r2c_mid(x, hr, hi, n, s),
+                        krfft.spectral_r2c_mid_plain(x, hr, hi, n, s)) <= TOL, (n, cols)
+    for nb, n, cols in ((2, 512, 130), (1, 2048, 64), (2, 256, 130), (1, 1280, 130),
+                        (1, 32768, 2), (2, 128, 130), (2, 384, 130), (1, 20352, 3)):
+        x = randn(nb, n, cols)
+        for hv, s2, s3 in ((randn(n, 1), 2.0, 2.0), (randn(n, cols), None, 0.37)):
+            assert _rel(kdct.spectral_dct_mid(x, hv, s2, s3),
+                        kdct.spectral_dct_mid_plain(x, hv, s2, s3)) <= TOL, (n, cols)
+    assert [a - b for a, b in zip(_spectral_forms(), before)] == [10, 6, 8, 4, 16, 6, 6]
+
+
+def test_spectral_functions_run_on_the_fused_kernels(dev):
+    """ndspectral_c2c / r2c / dct / dst along axis 0 take one fused launch
+    each and agree with the composition of the public transforms; along the
+    last axis they compose; n = 128 * 161 raises spectral_dct_long. The
+    engine never runs."""
+    g = torch.Generator(device=dev).manual_seed(20)
+    calls = engine.c2c.calls
+    before = _spectral_forms()
+    xc = torch.view_as_complex(torch.randn(1024, 130, 2, generator=g, device=dev))
+    hc = torch.randn(1024, 130, generator=g, device=dev)
+    y = nd.ndspectral_c2c(xc, hc, axis=0)
+    want = nd.ndifft(hc * nd.ndfft(xc, axis=0), axis=0)
+    assert _rel(y, want) <= 1e-5
+    xr = torch.randn(1024, 130, generator=g, device=dev)
+    hr = torch.complex(torch.randn(513, generator=g, device=dev),
+                       torch.randn(513, generator=g, device=dev))
+    y = nd.ndspectral_r2c(xr, hr, axis=0)
+    want = nd.ndifft_r2c(hr[:, None] * nd.ndfft_r2c(xr, axis=0), axis=0)
+    assert _rel(y, want) <= 1e-5
+    hd = torch.rand(1024, generator=g, device=dev)
+    inv = nd.DctHandler(1024).normalization(nd.Normalization.scalar(1 / 2048))
+    y = nd.ndspectral_dct(xr, hd, None, inv, axis=0)
+    want = nd.nddct3(hd[:, None] * nd.nddct2(xr, axis=0), inv, axis=0)
+    assert _rel(y, want) <= 1e-5
+    invs = nd.DstHandler(1024).normalization(nd.Normalization.scalar(1 / 2048))
+    y = nd.ndspectral_dst(xr, hd, None, invs, axis=0)
+    want = nd.nddst3(hd[:, None] * nd.nddst2(xr, axis=0), invs, axis=0)
+    assert _rel(y, want) <= 1e-5
+    assert [a - b for a, b in zip(_spectral_forms(), before)] == [1, 0, 1, 0, 2, 0, 0]
+    nd.ndspectral_r2c(xr.T.contiguous(), torch.ones(513, device=dev), axis=1)   # last axis
+    assert krfft.spectral_r2c_mid.launches - before[2] == 1
+    with pytest.raises(NotImplementedError, match="spectral_dct_long"):
+        nd.ndspectral_dct(torch.zeros(128 * 161, 128, device=dev),
+                          torch.ones(128 * 161, device=dev), axis=0)
+    assert engine.c2c.calls == calls
