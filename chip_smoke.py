@@ -94,7 +94,7 @@ without the final line):
         axis 2), each forward spectrum against its exact sparse values and
         each solution against the analytic one, slab by slab in float64;
         DST-I, DCT-I, DCT-IV and DST-IV along axis 0 at 255 ... 40960
-        against float64 scipy.fft, and DCT-IV at 41216 raising (dct4_long);
+        against float64 scipy.fft (DCT-IV at 41216 on K28's long form);
         each solve kernel at its shape against its plain version slice by
         slice, their times (K18 against torch.fft.rfft of the interleaved
         column), the solves' times and the Dirichlet solve against a
@@ -148,10 +148,25 @@ without the final line):
         K27 or K26), each fused leg timed beside its unfused one; the
         lengths K14, K22 and K29 open on the wide core and in the n-point
         form (K14 at 384 ... 20480, K22 at 512 ... 40960, K29 at 256 ...
-        32768) against float64 oracles under Default, NONE and scalar
-        norms, and the spectral_dct_long raise at 20608; each fused kernel
-        at its path's shape against its plain version slice by slice (K29
-        also at the Dirichlet leg's F = 8);
+        32768, and 20608 on the real tile) against float64 oracles under
+        Default, NONE and scalar norms; each fused kernel at its path's
+        shape against its plain version slice by slice (K29 also at the
+        Dirichlet leg's F = 8);
+     m. the long DCT forms (kernels 23 to 26 and 29 in the n-point form on
+        the wide core's real tile at n = 128 k, odd k > 160; kernel 28's
+        long form at n = 256 F, F > 160): G1, the cell-centred Neumann
+        Poisson solve on a 31104^2 grid (F = 243) through dctn / idctn of
+        type 2 (K23 and K25 long, then K26 and K24 long) and again with
+        ndspectral_dct on axis 0 and the lane-varying H = 1/lambda (K23,
+        K29 long, K24), its time against a float32 torch.fft Makhoul solve;
+        G2, the mixed Neumann-Dirichlet solve on 65536 x 8192 (DCT-IV on
+        axis 0: K28 long, F = 256; DCT-II/III on axis 1: K23/K24 wide);
+        each against its exact spectrum and analytic solution, with its
+        time and peak memory; DCT-II/III and DST-II/III at 20608 ... 32640,
+        DCT-IV/DST-IV at 41216 ... 65536 and ndspectral_dct /
+        ndspectral_dst at 20608 ... 32640 against float64 scipy.fft; each
+        long kernel at the paths' shapes against its plain version slice by
+        slice, with its time;
   5. times with CUDA events (median over --reps runs after warm-up): each
      kernel against its plain version and, where one PyTorch call computes
      the same function, that call (the yardstick, never on the port's
@@ -177,7 +192,9 @@ one (wide_launches; K11 and K12 rows also give the bound of their two
 length-M FFTs per column, ``length_m_bound_ms``), and
 kernels 23 to 26 and 29 three: the fixed core, the wide core's half length
 and the n-point form (npoint_launches); kernel 7 three: the fixed core, the
-wide core and the dense body (dense_launches).
+wide core and the dense body (dense_launches); kernel 28 three: the fixed
+core, the wide core and the long form (long_launches). The n-point rows
+give the long lengths' shapes (phase 4m) under ``solve_shapes``.
 The line before the last is the card as nvidia-smi names it; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -200,8 +217,9 @@ TOL_PACKED = 2e-6    # kernel 15 (core, dense) vs plain: sums of at most 2048 te
 TOL_STEP = 1e-5      # step vs float64 oracle and round trip, relative
 # the forms that a wrapper counts apart beside ``launches`` (which counts
 # every launch): ``wide_launches``, for the DCT-II/III kernels
-# ``npoint_launches`` and for kernel 7 ``dense_launches``
-FORMS = ("wide", "npoint", "dense")
+# ``npoint_launches``, for kernel 7 ``dense_launches`` and for kernel 28
+# ``long_launches``
+FORMS = ("wide", "npoint", "dense", "long")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, 700 W
 FP32_FLOP_PER_S = 67e12     # FP32 outside the tensor cores, same source
 
@@ -319,7 +337,7 @@ def work(name: str, shape, length_m: bool = False, mult=None):
         core = w if k18 else w // 2 if k28 else w - 1
         io = 8 * b * core * cols + 8 * b * (core + 1) * cols if k18 else 8 * b * w * cols
         tables = 8 * core * 128 + (16 if k28 else 8) * core
-        if name.endswith("_wide"):
+        if name.endswith(("_wide", "_long")):
             tables += 8 * (core // 128) ** 2
             io += 16 * b * core * cols if name.startswith("dct1") else 0
         flops = (5 * core * math.log2(core) if k28 else 2.5 * 2 * core * math.log2(2 * core))
@@ -489,7 +507,8 @@ def main() -> int:
             "dct3_nat_npoint": 0.0, "dct2_mid": 0.0, "dct3_mid": 0.0, "dct2_mid_wide": 0.0,
             "dct3_mid_wide": 0.0, "dct2_mid_npoint": 0.0, "dct3_mid_npoint": 0.0,
             "r2c_packed_mid": 0.0, "r2c_packed_mid_wide": 0.0, "dct1_mid": 0.0,
-            "dct1_mid_wide": 0.0, "dct4_mid": 0.0, "dct4_mid_wide": 0.0, "c2c_blue_mid": 0.0,
+            "dct1_mid_wide": 0.0, "dct4_mid": 0.0, "dct4_mid_wide": 0.0, "dct4_mid_long": 0.0,
+            "c2c_blue_mid": 0.0,
             "c2c_blue_mid_wide": 0.0, "dct23_blue_mid": 0.0, "dct23_blue_mid_wide": 0.0,
             "fourstep_mid": 0.0, "fourstep_mid_wide": 0.0, "fourstep_mid_dense": 0.0,
             "rows_store_t": 0.0, "rows_store_t_wide": 0.0, "spectral_c2c_mid": 0.0,
@@ -787,8 +806,10 @@ def main() -> int:
     # ragged columns, h = 20480 with one column per tile) and kernels 23 to
     # 26 in each form: the fixed core, the wide core's half length and the
     # n-point form, at phase 4h's shapes and at ragged tiles, prime F = 131
-    # and the largest tiles (n-point F = 159, half length F = 128); the 1536^3
-    # shapes are checked in phase 4h
+    # and the largest tiles (n-point F = 159, half length F = 128), and the
+    # n-point form's long lengths on the real tile (F = 161, 163 prime, 255:
+    # one column per tile); the 1536^3 and 31104^2 shapes are checked in
+    # phases 4h and 4m
     for shape in ((1, 768, 768), (1, 1280, 1280), (2, 1280, 130), (1, 40960, 2)):
         nb, n, cols = shape
         x = randn(*shape)
@@ -805,10 +826,12 @@ def main() -> int:
     dct_forms = (
         ("nat", ((2048, 2048), (130, 1024))),
         ("nat_wide", ((768, 768), (1536, 1536), (7, 1536), (3, 32768))),
-        ("nat_npoint", ((128, 128), (384, 384), (3, 1152), (2, 128 * 131), (2, 128 * 159))),
+        ("nat_npoint", ((128, 128), (384, 384), (3, 1152), (2, 128 * 131), (2, 128 * 159),
+                        (2, 128 * 161), (3, 128 * 255))),
         ("mid", ((1, 2048, 2048), (2, 4096, 33), (3, 512, 130))),
         ("mid_wide", ((1, 1280, 1280), (1, 1536, 1536), (2, 1280, 130), (1, 32768, 2))),
-        ("mid_npoint", ((1, 1152, 1152), (2, 1152, 130), (3, 384, 385), (1, 128 * 159, 3))))
+        ("mid_npoint", ((1, 1152, 1152), (2, 1152, 130), (3, 384, 385), (1, 128 * 159, 3),
+                        (1, 128 * 163, 130), (2, 128 * 255, 3))))
     for form, shapes in dct_forms:
         for t in (2, 3):
             kern = getattr(kdct, f"dct{t}_{form.split('_')[0]}")
@@ -821,8 +844,9 @@ def main() -> int:
                 del x
     # kernels 18, 19 and 28 on the fixed core and on the wide core: phase
     # 4i's lengths, ragged column tiles, the prime F = 131 (K28) and the
-    # largest tiles (F = 160, one column per tile); the solves' shapes are
-    # checked in phase 4i, slice by slice
+    # largest tiles (F = 160, one column per tile); K28's long form at F = 161,
+    # 163 (prime) and 256; the solves' shapes are checked in phases 4i and
+    # 4m, slice by slice
     for name, shapes in (
             ("r2c_packed_mid", ((2, 256, 130), (1, 1024, 1023), (1, 1024, 130), (3, 2048, 33))),
             ("r2c_packed_mid_wide", ((1, 384, 383), (1, 1536, 1535), (2, 1152, 130),
@@ -842,7 +866,9 @@ def main() -> int:
              ((1, 2048, 2048), (1, 4096, 1024), (2, 2048, 130), (1, 1024, 257))),
             ("dct4_mid_wide", kdct.dct4_mid, kdct.dct4_mid_plain, (2.0, None),
              ((1, 1280, 1280), (1, 1536, 1536), (2, 1280, 130), (1, 256 * 131, 3),
-              (1, 40960, 128)))):
+              (1, 40960, 128))),
+            ("dct4_mid_long", kdct.dct4_mid, kdct.dct4_mid_plain, (2.0, None),
+             ((1, 256 * 161, 130), (2, 256 * 163, 3), (1, 65536, 33)))):
         for shape in shapes:
             x = randn(*shape)
             for scale in scales:
@@ -908,7 +934,8 @@ def main() -> int:
     # (K14 at 384, 640, 1280, 16256 (F = 127) and 20480 (F = 160); K22 at
     # h = 384, 640, 20480; K29's half length at n = 256 (F = 1), 1280 and
     # 32768 (F = 128)) and K29's n-point form (n = 128, 384, 1152, 20352:
-    # F = 1, 3, 9, 159); ragged column tiles (L = 130, 257), nb > 1, a
+    # F = 1, 3, 9, 159; on the real tile 20608 and 32640: F = 161, 255);
+    # ragged column tiles (L = 130, 257), nb > 1, a
     # broadcast and a lane-varying H, real and complex (K14, K22), the
     # scales 1, 1/n and a scalar. The main paths' shapes are checked in
     # phase 4l, slice by slice
@@ -942,7 +969,8 @@ def main() -> int:
                          ("spectral_dct_mid_wide", ((2, 256, 130), (1, 1280, 130),
                                                     (1, 32768, 3))),
                          ("spectral_dct_mid_npoint", ((2, 128, 130), (2, 384, 130),
-                                                      (1, 1152, 130), (1, 20352, 3)))):
+                                                      (1, 1152, 130), (1, 20352, 3),
+                                                      (1, 128 * 161, 130), (1, 128 * 255, 3)))):
         for nb, n, cols in shapes:
             x = randn(nb, n, cols)
             for hv, s2, s3 in ((randn(n, 1), 2.0, 2.0), (randn(n, cols), None, 0.37)):
@@ -995,7 +1023,7 @@ def main() -> int:
              for form in FORMS
              if form == "wide" or form == "npoint" and name.startswith(("dct2_", "dct3_",
                                                                          "spectral_dct"))
-             or form == "dense" and name == "fourstep_mid"}
+             or form == "dense" and name == "fourstep_mid" or form == "long" and name == "dct4_mid"}
 
     def count(name):
         if name in forms:
@@ -1715,32 +1743,42 @@ def main() -> int:
         return [(i0, min(i0 + step, n)) for i0 in range(0, n, step)]
 
     def poisson_solve(path, grid, modes, basis, lam, shift, spec_scale, fwd, inv, expected):
-        """-lap_h u = f for u = sum amp * basis_0(a) basis_1(b) basis_2(c):
-        f = sum amp * eig(a, b, c) * the same mode, built slab by slab; the
-        solve fwd, division by the eigenvalues in place, inv, with the
-        launches counted; the spectrum (exact: amp * eig * spec_scale at
-        (a, b, c)) and the solution checked slab by slab in float64.
-        basis[i](m): mode m on axis i (float64); lam[i]: float64 eigenvalue
-        of index k on axis i, mode m at index k = m - shift (the sines start
-        at m = 1); a zero eigenvalue (the Neumann zero mode) pins that mode
-        of u to 0. Returns f and the solve as a function of f."""
+        """-lap_h u = f on a 3-D grid for u = sum amp * basis_0(a) basis_1(b)
+        basis_2(c) (modes (a, b, c, amp); on a 2-D grid (a, b, amp)): f = sum
+        amp * eig(a, b, c) * the same mode, built slab by slab; the solve
+        fwd, division by the eigenvalues in place, inv, with the launches
+        counted; the spectrum (exact: amp * eig * spec_scale at (a, b, c))
+        and the solution checked slab by slab in float64. basis[i](m): mode
+        m on axis i (float64); lam[i]: float64 eigenvalue of index k on axis
+        i, mode m at index k = m - shift (the sines start at m = 1); a zero
+        eigenvalue (the Neumann zero mode) pins that mode of u to 0. Returns
+        f and the solve as a function of f."""
         l32 = [v.float() for v in lam]
+        rank = len(grid)
+        step = 32 if rank == 3 else max(32, (1 << 25) // grid[1])   # rows per slab
 
-        def eig(a, b, c):
-            return float(lam[0][a - shift] + lam[1][b - shift] + lam[2][c - shift])
+        def along(v, i):
+            return v.reshape((1,) * i + (-1,) + (1,) * (rank - 1 - i))
+
+        def eig(*m):
+            return float(sum(lam[i][mi - shift] for i, mi in enumerate(m)))
 
         def modal(i0, i1, weight):
-            out = torch.zeros(i1 - i0, grid[1], grid[2], device=dev, dtype=torch.float64)
-            for a, b, c, amp in modes:
-                out += (amp * weight(a, b, c) * basis[0](a)[i0:i1, None, None]
-                        * basis[1](b)[None, :, None] * basis[2](c)[None, None, :])
+            out = torch.zeros(i1 - i0, *grid[1:], device=dev, dtype=torch.float64)
+            for *m, amp in modes:
+                term = amp * weight(*m) * along(basis[0](m[0])[i0:i1], 0)
+                for i in range(1, rank):
+                    term = term * along(basis[i](m[i]), i)
+                out += term
             return out
 
         def divide(fh):
-            for i0, i1 in slab_ranges(grid[0]):
-                lam3 = l32[0][i0:i1, None, None] + l32[1][None, :, None] + l32[2][None, None, :]
-                lam3[lam3 == 0] = math.inf    # the zero mode of u is pinned to 0
-                fh[i0:i1].div_(lam3)
+            for i0, i1 in slab_ranges(grid[0], step):
+                lam_s = along(l32[0][i0:i1], 0)
+                for i in range(1, rank):
+                    lam_s = lam_s + along(l32[i], i)
+                lam_s[lam_s == 0] = math.inf    # the zero mode of u is pinned to 0
+                fh[i0:i1].div_(lam_s)
             return fh
 
         def solve(f, on_spectrum=None):
@@ -1753,17 +1791,18 @@ def main() -> int:
 
         def check_spectrum(fh):
             err = 0.0
-            for i0, i1 in slab_ranges(grid[0]):
+            for i0, i1 in slab_ranges(grid[0], step):
                 d = fh[i0:i1].double()
-                for a, b, c, amp in modes:
-                    if i0 <= a - shift < i1:
-                        d[a - shift - i0, b - shift, c - shift] -= amp * eig(a, b, c) * spec_scale
+                for *m, amp in modes:
+                    if i0 <= m[0] - shift < i1:
+                        d[(m[0] - shift - i0,) + tuple(mi - shift for mi in m[1:])] -= \
+                            amp * eig(*m) * spec_scale
                 err = max(err, float(d.abs().max()))
-            spec["rel_err"] = err / max(abs(amp) * eig(a, b, c) * spec_scale
-                                        for a, b, c, amp in modes)
+                del d
+            spec["rel_err"] = err / max(abs(m[-1]) * eig(*m[:-1]) * spec_scale for m in modes)
 
         f = torch.empty(*grid, device=dev)
-        for i0, i1 in slab_ranges(grid[0]):
+        for i0, i1 in slab_ranges(grid[0], step):
             f[i0:i1] = modal(i0, i1, eig)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1773,8 +1812,8 @@ def main() -> int:
         read_counts(path, **expected)
         peak = torch.cuda.max_memory_allocated()
         err, ref_peak, finite = 0.0, 0.0, True
-        for i0, i1 in slab_ranges(grid[0]):
-            want = modal(i0, i1, lambda a, b, c: 1.0)
+        for i0, i1 in slab_ranges(grid[0], step):
+            want = modal(i0, i1, lambda *m: 1.0)
             err = max(err, float((u[i0:i1].double() - want).abs().max()))
             ref_peak = max(ref_peak, float(want.abs().max()))
             finite = finite and bool(torch.isfinite(u[i0:i1]).all())
@@ -1892,25 +1931,18 @@ def main() -> int:
     # the lengths along axis 0 against float64 scipy.fft: DST-I at 255
     # (F = 2), 383 (F = 3, wide), 1535, 20479 (F = 160) and 1023 with a
     # ragged L = 130; DCT-I at 1153 (F = 9), 1537, 20481 and the bench row
-    # 2049^2; DCT-IV at 1280 (F = 5), 1536, 4096 (F = 16), 40960 (F = 160)
-    # and the bench row 2048^2; DST-IV at 2048; DCT-IV at 41216 raises
-    try:
-        nd.nddct4(torch.zeros(41216, 128, device=dev), axis=0)
-    except NotImplementedError as exc:
-        if "dct4_long" not in str(exc):
-            raise
-        emit(phase="packed_mid_path", check="dct4_41216_raises", message=str(exc))
-    else:
-        raise AssertionError("DCT-IV at n = 41216 along axis 0 did not raise")
+    # 2049^2; DCT-IV at 1280 (F = 5), 1536, 4096 (F = 16), 40960 (F = 160),
+    # the bench row 2048^2 and 41216 (F = 161, the long form); DST-IV at 2048
     len_in = {(kind, shape): randn(*shape) for kind, shapes in (
         ("dst1", ((255, 255), (383, 383), (1535, 1535), (20479, 128), (1023, 130))),
         ("dct1", ((1153, 1153), (1537, 1537), (20481, 128), (2049, 2049))),
-        ("dct4", ((1280, 1280), (1536, 1536), (4096, 1024), (40960, 128), (2048, 2048))),
+        ("dct4", ((1280, 1280), (1536, 1536), (4096, 1024), (40960, 128), (2048, 2048),
+                  (41216, 128))),
         ("dst4", ((2048, 2048),))) for shape in shapes}
     reset_counts()
     len_out = {key: getattr(nd, f"nd{key[0]}")(x, axis=0) for key, x in len_in.items()}
     read_counts("packed_mid_lengths", r2c_packed_mid=5, r2c_packed_mid_wide=3, dct1_mid=4,
-                dct1_mid_wide=3, dct4_mid=6, dct4_mid_wide=3)
+                dct1_mid_wide=3, dct4_mid=7, dct4_mid_wide=3, dct4_mid_long=1)
     for (kind, shape), y in len_out.items():
         oracle = sfft.dct if kind.startswith("dct") else sfft.dst
         check(f"{kind}_axis0", y, oracle(host64(len_in[(kind, shape)]), type=int(kind[3]),
@@ -2590,9 +2622,9 @@ def main() -> int:
     # 127) and 20480 (F = 160); K22 at 512 and 4096 (fixed) and 768 (axis 1)
     # and 40960 (wide, F = 160); K29 at 256 (the wide half form, F = 1), 384
     # (axis 1) and 1152 and 20352 (the n-point form, F = 3, 9, 159) and 32768
-    # (the wide half form, F = 128); L = 130 (ragged), a broadcast and a
-    # lane-varying multiplier, real and complex, under Default, NONE and
-    # scalar norms. n = 20608 (n-point, F = 161) raises spectral_dct_long.
+    # (the wide half form, F = 128) and 20608 (the n-point form on the real
+    # tile, F = 161); L = 130 (ragged), a broadcast and a lane-varying
+    # multiplier, real and complex, under Default, NONE and scalar norms.
     norms = {"default": nd.Normalization.DEFAULT, "none": nd.Normalization.NONE,
              "scalar": nd.Normalization.scalar(0.37)}
     c_cases = ((384, 0, "lane", "default"), (640, 0, "bcast", "none"),
@@ -2602,7 +2634,7 @@ def main() -> int:
                (4096, 0, "lane", "scalar"), (40960, 0, "bcast", "default"))
     d_cases = ((256, 0, "bcast", "default"), (384, 1, "lane", "none"),
                (1152, 0, "lane", "scalar"), (20352, 0, "bcast", "default"),
-               (32768, 0, "lane", "none"))
+               (32768, 0, "lane", "none"), (20608, 0, "lane", "default"))
 
     def case_input(n, axis, lane, rows, cplx_x, cplx_h):
         shape = (n, 130) if axis == 0 else (2, n, 130)
@@ -2622,8 +2654,8 @@ def main() -> int:
             y = getattr(nd, f"ndspectral_{kind}")(x, h, hd_, axis=axis)
             outs.append((kind, n, axis, lane, norm, x, hb, y))
     read_counts("spectral_lengths", spectral_c2c_mid=5, spectral_c2c_mid_wide=5,
-                spectral_r2c_mid=4, spectral_r2c_mid_wide=2, spectral_dct_mid=5,
-                spectral_dct_mid_wide=2, spectral_dct_mid_npoint=3)
+                spectral_r2c_mid=4, spectral_r2c_mid_wide=2, spectral_dct_mid=6,
+                spectral_dct_mid_wide=2, spectral_dct_mid_npoint=4)
     for kind, n, axis, lane, norm, x, hb, y in outs:
         x64, h64 = x.to(torch.complex128 if kind == "c2c" else torch.float64), hb.to(
             torch.complex128 if kind != "dct" else torch.float64)
@@ -2643,15 +2675,154 @@ def main() -> int:
         if not rel <= TOL_STEP:
             raise AssertionError(f"ndspectral_{kind} n={n} axis={axis} {lane} {norm}: {rel}")
     del outs, x, h, hb, y, x64, h64, want
-    try:
-        nd.ndspectral_dct(torch.zeros(128 * 161, 128, device=dev),
-                          torch.ones(128 * 161, device=dev), axis=0)
-    except NotImplementedError as e:
-        if "spectral_dct_long" not in str(e):
-            raise
-        emit(phase="spectral_path", check="spectral_dct_long_raises", n=128 * 161, error=str(e))
-    else:
-        raise AssertionError("ndspectral_dct at n = 20608 did not raise spectral_dct_long")
+    torch.cuda.empty_cache()
+
+    # ---- 4m. the long DCT forms: kernels 23 to 26 and 29 in the n-point
+    # form on the wide core's real tile at n = 128 k with odd k > 160, and
+    # kernel 28's long form (two passes of the real tile) at n = 256 F with
+    # F > 160. G1: the cell-centred Neumann Poisson solve on a 31104^2 grid
+    # (31104 = 128 * 243, F = 243; 3.87 GB per field), the pressure solve of
+    # a wall-bounded 2-D box, through dctn / idctn of type 2 (K23 long over
+    # 31104 rows and K25 long at (1, 31104, 31104), then K26 and K24), and
+    # again with ndspectral_dct along axis 0 and the lane-varying
+    # H = 1/lambda between the axis-1 DCTs (K23, K29 long, K24); G2: the
+    # mixed Neumann-Dirichlet solve on a 65536 x 8192 cell-centred channel
+    # (2.15 GB per field; DCT-IV along axis 0 on K28 long at (1, 65536,
+    # 8192), F = 256; DCT-II/III along axis 1 on K23/K24 at the wide core's
+    # half length h = 4096). Each against its exact spectrum (G1, G2) and its
+    # analytic solution, slab by slab in float64, timed with its peak memory;
+    # G1 against a float32 torch.fft Makhoul solve. Then the lengths against
+    # float64 scipy.fft, and each long kernel at the paths' shapes against
+    # its plain version, slice by slice, with its time.
+    n_g1 = 31104
+    reps_g = 1      # each leg takes seconds: one timed run after one warm-up
+    g1_pts = grid_pts(n_g1, 0.5, n_g1)
+    g1_eig = eigs(n_g1, 0, n_g1)
+    g1_modes = ((1, 2, 1.0), (5, 3, 0.5), (300, 40, 0.25))
+    g1_basis = [lambda m: torch.cos(m * math.pi * g1_pts)] * 2
+    f_g1, solve_g1 = poisson_solve(
+        "neumann_31104^2", (n_g1, n_g1), g1_modes, g1_basis, [g1_eig, g1_eig], 0,
+        float(n_g1 * n_g1), lambda f: nd.dctn(f, 2), lambda fh: nd.idctn(fh, 2),
+        dict(dct2_nat=1, dct2_nat_npoint=1, dct2_mid=1, dct2_mid_npoint=1, dct3_mid=1,
+             dct3_mid_npoint=1, dct3_nat=1, dct3_nat_npoint=1))
+    h_g1 = g1_eig.float()[:, None] + g1_eig.float()[None, :]
+    h_g1.reciprocal_()
+    h_g1[0, 0] = 0.0     # the zero mode of u is pinned to 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t_g1 = cuda_ms(lambda: solve_g1(f_g1), reps_g, 1)
+    peak = torch.cuda.max_memory_allocated()
+
+    def g1_yardstick(f):
+        u = makhoul_dct(makhoul_dct(f, 1, 2), 0, 2)
+        u.mul_(h_g1)
+        return makhoul_dct(makhoul_dct(u, 0, 3), 1, 3) / (4.0 * n_g1 * n_g1)
+
+    t_yard = cuda_ms(lambda: g1_yardstick(f_g1), reps_g, 1)
+    emit(phase="time", path="G1_neumann_31104^2", ms=t_g1, torch_fft_makhoul_ms=t_yard,
+         peak_bytes=peak, base_bytes=base, reps=reps_g, card=card)
+    hg1 = nd.DctHandler(n_g1)
+    hg1i = hg1.normalization(nd.Normalization.scalar(1.0 / n_g1))
+
+    def g1_spectral(f):
+        a = nd.nddct2(f, hg1, axis=1)
+        b = nd.ndspectral_dct(a, h_g1, hg1, hg1i, axis=0)
+        del a
+        return nd.nddct3(b, hg1i, axis=1)
+
+    u_g1, peak, base = run_path("G1_spectral_neumann_31104^2", lambda: g1_spectral(f_g1),
+                                dict(dct2_nat=1, dct2_nat_npoint=1, spectral_dct_mid=1,
+                                     spectral_dct_mid_npoint=1, dct3_nat=1, dct3_nat_npoint=1))
+    err, ref_peak = 0.0, 0.0
+    for i0 in range(0, n_g1, 1024):
+        want = sum(amp * torch.cos(a * math.pi * g1_pts[i0:i0 + 1024])[:, None]
+                   * torch.cos(b * math.pi * g1_pts)[None, :] for a, b, amp in g1_modes)
+        err = max(err, float((u_g1[i0:i0 + 1024].double() - want).abs().max()))
+        ref_peak = max(ref_peak, float(want.abs().max()))
+        del want
+    rel = err / ref_peak
+    emit(phase="long_dct_path", check="G1_spectral_neumann_31104^2", solution_rel_err=rel,
+         finite=bool(torch.isfinite(u_g1).all()), shape=list(u_g1.shape), peak_bytes=peak,
+         base_bytes=base)
+    if not rel <= TOL_STEP:
+        raise AssertionError(f"G1 spectral solve: {rel}")
+    del u_g1
+    t_g1s = cuda_ms(lambda: g1_spectral(f_g1), reps_g, 1)
+    emit(phase="time", path="G1_spectral_neumann_31104^2", ms=t_g1s, reps=reps_g, card=card)
+    # the solve's kernels at their shapes against their plain versions
+    x_g1 = f_g1.view(1, n_g1, n_g1)
+    for name, kern, plain, x, dim, fargs in (
+            ("dct2_nat_npoint", kdct.dct2_nat, kdct.dct2_nat_plain, f_g1, 0, (2.0,)),
+            ("dct2_mid_npoint", kdct.dct2_mid, kdct.dct2_mid_plain, x_g1, 2, (2.0,)),
+            ("dct3_mid_npoint", kdct.dct3_mid, kdct.dct3_mid_plain, x_g1, 2, (1.0 / n_g1,)),
+            ("dct3_nat_npoint", kdct.dct3_nat, kdct.dct3_nat_plain, f_g1, 0, (1.0 / n_g1,))):
+        check_sliced(name, kern, plain, [x], dim, fargs, reps_g)
+    spectral_h[("spectral_dct_mid_npoint", tuple(x_g1.shape))] = (n_g1, False)
+    check_sliced("spectral_dct_mid_npoint", kdct.spectral_dct_mid, kdct.spectral_dct_mid_plain,
+                 [x_g1, h_g1], (2, 1), (2.0, 1.0 / n_g1), reps_g)
+    del f_g1, x_g1, h_g1, solve_g1
+    torch.cuda.empty_cache()
+
+    g2_grid = (65536, 8192)
+    g2_pts = [grid_pts(n, 0.5, n) for n in g2_grid]
+    f_g2, solve_g2 = poisson_solve(
+        "mixed_65536x8192", g2_grid, ((0, 2, 1.0), (5, 3, 0.5), (300, 40, 0.25)),
+        [lambda m: torch.cos((m + 0.5) * math.pi * g2_pts[0]),
+         lambda m: torch.cos(m * math.pi * g2_pts[1])],
+        [eigs(g2_grid[0], 0.5, g2_grid[0]), eigs(g2_grid[1], 0, g2_grid[1])], 0,
+        float(g2_grid[0] * g2_grid[1]),
+        lambda f: nd.dctn(nd.dctn(f, 4, axes=(0,)), 2, axes=(1,)),
+        lambda fh: nd.idctn(nd.idctn(fh, 2, axes=(1,)), 4, axes=(0,)),
+        dict(dct4_mid=2, dct4_mid_long=2, dct2_nat=1, dct2_nat_wide=1, dct3_nat=1,
+             dct3_nat_wide=1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t_g2 = cuda_ms(lambda: solve_g2(f_g2), reps_g, 1)
+    emit(phase="time", path="G2_mixed_65536x8192", ms=t_g2,
+         peak_bytes=torch.cuda.max_memory_allocated(), base_bytes=base, reps=reps_g, card=card)
+    check_sliced("dct4_mid_long", kdct.dct4_mid, kdct.dct4_mid_plain,
+                 [f_g2.view(1, *g2_grid)], 2, (2.0,), reps_g)
+    del f_g2, solve_g2
+    torch.cuda.empty_cache()
+
+    # the lengths against float64 scipy.fft: DCT-II/III and DST-II/III at
+    # 20608 (k = 161), 20864 (163, prime), 24192 (189) and 32640 (255) along
+    # axis 0 of (n, 130), axis 1 of (2, n, 130) and the last axis of
+    # (128, n); DCT-IV/DST-IV at 41216 (F = 161), 41728 (163, prime), 49152
+    # (192) and 65536 (256) along axis 0 of (n, 130) and axis 1 of
+    # (2, n, 130); ndspectral_dct / ndspectral_dst at 20608, 20864 and 32640
+    # along axis 0 with a broadcast and a lane-varying H; Default norms
+    len_cases = [(kind, shape, axis) for n in (20608, 20864, 24192, 32640)
+                 for kind in ("dct2", "dct3", "dst2", "dst3")
+                 for shape, axis in (((n, 130), 0), ((2, n, 130), 1), ((128, n), 1))]
+    len_cases += [(kind, shape, axis) for n in (41216, 41728, 49152, 65536)
+                  for kind in ("dct4", "dst4") for shape, axis in (((n, 130), 0),
+                                                                   ((2, n, 130), 1))]
+    len_in = [randn(*shape) for _, shape, _ in len_cases]
+    spec_cases = [(kind, n, lane) for n in (20608, 20864, 32640) for kind in ("dct", "dst")
+                  for lane in (False, True)]
+    spec_in = [(randn(n, 130), randn(n, 130) if lane else randn(n)) for _, n, lane in spec_cases]
+    reset_counts()
+    len_out = [getattr(nd, f"nd{kind}")(x, axis=axis) for (kind, _, axis), x in
+               zip(len_cases, len_in)]
+    spec_out = [getattr(nd, f"ndspectral_{kind}")(x, h, axis=0) for (kind, _, _), (x, h) in
+                zip(spec_cases, spec_in)]
+    read_counts("long_dct_lengths", dct2_mid=16, dct2_mid_npoint=16, dct3_mid=16,
+                dct3_mid_npoint=16, dct2_nat=8, dct2_nat_npoint=8, dct3_nat=8,
+                dct3_nat_npoint=8, dct4_mid=16, dct4_mid_long=16, spectral_dct_mid=12,
+                spectral_dct_mid_npoint=12)
+    for (kind, shape, axis), x, y in zip(len_cases, len_in, len_out):
+        oracle = sfft.dct if kind.startswith("dct") else sfft.dst
+        check(f"{kind}_long", y, oracle(host64(x), type=int(kind[3]), axis=axis), grid=list(shape),
+              axis=axis)
+    for (kind, n, lane), (x, h), y in zip(spec_cases, spec_in, spec_out):
+        oracle = sfft.dct if kind == "dct" else sfft.dst
+        h64 = host64(h) if lane else host64(h)[:, None]
+        want = oracle(h64 * oracle(host64(x), type=2, axis=0), type=3, axis=0)
+        check(f"spectral_{kind}_long", y, want, n=n, multiplier="lane" if lane else "bcast")
+    del len_in, len_out, spec_in, spec_out, x, y, h
     torch.cuda.empty_cache()
 
     # ---- 5. times: each kernel against its plain version and, at the main
@@ -2679,7 +2850,8 @@ def main() -> int:
                    "dct3_mid_npoint": (1, 1152, 1152), "r2c_packed_mid": (1023, 1024, 1023),
                    "r2c_packed_mid_wide": (1, 1536, 1535), "dct1_mid": (2049, 2049, 257),
                    "dct1_mid_wide": (1, 1537, 1537), "dct4_mid": (2048, 2048, 256),
-                   "dct4_mid_wide": (1, 1536, 1536), "c2c_blue_mid": (1, 509, 509 * 509),
+                   "dct4_mid_wide": (1, 1536, 1536), "dct4_mid_long": (1, 65536, 8192),
+                   "c2c_blue_mid": (1, 509, 509 * 509),
                    "c2c_blue_mid_wide": (1, 1031, 1024), "dct23_blue_mid": (1, 1021, 1024),
                    "dct23_blue_mid_wide": (1, 2049, 2049 * 256),
                    "fourstep_mid": (256, 1024, 1024), "fourstep_mid_wide": (64, 384, 384),
@@ -3106,6 +3278,8 @@ def main() -> int:
         "dct4_mid": ("ndrustfft_tpu_torch/csrc/dct4_mid.cu",
                      "ndrustfft_tpu/ops/pallas/dct.py:670"),
         "dct4_mid_wide": ("ndrustfft_tpu_torch/csrc/dct4_mid.cu",
+                          "ndrustfft_tpu/ops/pallas/dct.py:670"),
+        "dct4_mid_long": ("ndrustfft_tpu_torch/csrc/dct4_mid.cu",
                           "ndrustfft_tpu/ops/pallas/dct.py:670"),
         "c2c_blue_mid": ("ndrustfft_tpu_torch/csrc/fft_blue_mid.cu",
                          "ndrustfft_tpu/ops/pallas/fft.py:1277"),

@@ -15,11 +15,11 @@ On a CUDA tensor every call runs the route ``api._route`` names: a CUDA
 kernel of ``ops/hopper`` (the bts2 core at n = 128 * F, the dense products,
 the generic two-factor schedule, the R2C/C2R and DCT kernels along rows and
 along a middle axis, Bluestein's chirp-z, and beyond n = 20480 the
-four-step's kernels 7 and 13, the fused spectral kernels 14, 22 and 29),
-the plain torch engine where the JAX package runs
-XLA, or ``NotImplementedError`` where the JAX package would use a Pallas
-kernel that is not ported yet (ROADMAP.md). A CPU tensor runs each kernel's
-plain PyTorch version.
+four-step's kernels 7 and 13, the fused spectral kernels 14, 22 and 29,
+the DCT-II/III n-point and DCT-IV long forms on the wide core's real tile
+up to n = 32640 and 65536), or the plain torch engine where the JAX package
+runs XLA: every Pallas kernel of the JAX package has its CUDA port. A CPU
+tensor runs each kernel's plain PyTorch version.
 """
 
 from .api import (

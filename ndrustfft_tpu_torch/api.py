@@ -6,12 +6,10 @@ Every call picks its route in one pure function, :func:`_route`. Its gates
 mirror the JAX package's TPU gates (``cols >= 128``, ``batch >= 128``, the
 twostep split with m <= 128), so that every route has a JAX counterpart:
 
-* a route whose JAX counterpart is a ported kernel runs that kernel's
-  wrapper (``ops/hopper``): the CUDA kernel on a CUDA tensor, its plain
-  version on a CPU tensor;
-* a route whose JAX counterpart is a Pallas kernel not ported yet raises
-  ``NotImplementedError`` on a CUDA tensor, naming the kernel and its
-  ``ROADMAP.md`` item, and runs the torch engine on a CPU tensor;
+* a route whose JAX counterpart is a Pallas kernel runs that kernel's
+  ported wrapper (``ops/hopper``): the CUDA kernel on a CUDA tensor, its
+  plain version on a CPU tensor; every Pallas kernel has its port, so no
+  float32 route raises for want of a kernel;
 * a route whose JAX counterpart is the XLA engine runs the torch engine.
 
 The gates and the route names live in ``gates.py``. The other kinds' lane
@@ -69,7 +67,7 @@ from .gates import (
     SPECTRAL_C2C_MID, SPECTRAL_DCT_MID, SPECTRAL_R2C_MID,
     _c2c_kernel_route,
     _kernel_ok, _lane_c2c, _nat_f, _twostep_split, c2r_lane_route, inner_c2c_route,
-    lane_c2c_route, packed_lane, r2c_lane_route, unported,
+    lane_c2c_route, packed_lane, r2c_lane_route,
 )
 from .handlers import DctHandler, DstHandler, FftHandler, R2cFftHandler
 from .normalization import Normalization
@@ -89,12 +87,6 @@ __all__ = ["ndfft", "ndifft", "ndfft_r2c", "ndifft_r2c",
            "nddst1_par", "nddst2_par", "nddst3_par", "nddst4_par",
            "ndspectral_r2c", "ndspectral_c2c", "ndspectral_dct", "ndspectral_dst"]
 
-_RUNNABLE = (C2C_AXIS_MID, C2C_ROWS, C2C_DENSE_ROWS, C2C_DENSE_MID, C2C_GENERIC_ROWS,
-             C2C_GENERIC_MID, R2C_NAT, C2R_NAT, R2C_MID, C2R_MID, R2C_DENSE_MID,
-             C2R_DENSE_MID, DCT_DENSE_MID, DCT2_NAT, DCT3_NAT, DCT2_MID, DCT3_MID,
-             DCT4_HALF_MID, R2C_PACKED_MID, DCT1_MID, DCT4_MID, R2C_PACKED, R2C_ROWPAIR,
-             C2R_LANE, DCT_LANE, C2C_BLUE_MID, DCT23_BLUE_MID, BLUESTEIN_LANE, C2C_FOURSTEP,
-             ENGINE)
 _C2C_KINDS = ("fft", "ifft")
 _R2R_KINDS = tuple(f"{f}{t}" for f in ("dct", "dst") for t in (1, 2, 3, 4))
 
@@ -168,10 +160,9 @@ def _route(kind: str, shape, axis: int, dtype: torch.dtype, device_type: str,
 
     ``kind`` is "fft", "ifft", "r2c", "c2r", "dct1".."dct4" or
     "dst1".."dst4"; ``shape``, ``axis`` and ``dtype`` are the input's; ``n``
-    is the real length of a "c2r" (default 2 * (m - 1)). On
-    ``device_type == "cuda"`` a route through a Pallas kernel that is not
-    ported raises ``NotImplementedError``; on "cpu" it is ENGINE. Other
-    devices always take ENGINE."""
+    is the real length of a "c2r" (default 2 * (m - 1)). "cuda" and "cpu"
+    take the same route (one of ``gates.ROUTES``); other devices always
+    take ENGINE."""
     shape = tuple(shape)
     axis = _norm_axis(axis, len(shape))
     if kind in _R2R_KINDS:
@@ -186,11 +177,7 @@ def _route(kind: str, shape, axis: int, dtype: torch.dtype, device_type: str,
             route = _route_f32(kind, shape, axis, n)
             if kind in _C2C_KINDS:
                 route = _c2c_kernel_route(route, n)
-    if route in _RUNNABLE:
-        return route if device_type in ("cuda", "cpu") else ENGINE
-    if device_type == "cuda":
-        raise unported(route, f"{kind} n={n} axis={axis} shape={shape}")
-    return ENGINE
+    return route if device_type in ("cuda", "cpu") else ENGINE
 
 
 def _rfft_mid(kind: str, n: int):
@@ -233,13 +220,6 @@ def _route_f32(kind, shape, axis, n):
     raise ValueError(f"unknown transform kind {kind!r}")
 
 
-def _dct23_kernel(n: int, route: str) -> str:
-    """``route`` (kernels 23/24 or 25/26) at a length dct_pallas_supported
-    takes (n = 128 * k, k <= 256), or the UNPORTED key of the n-point form
-    beyond the wide core (odd k > 160)."""
-    return route if _kdct.dct_form(n) is not None else "dct23_long"
-
-
 def _dct_lane(t: int, n: int, batch: int) -> str:
     """Route of the DCT-<t> lowering along the last axis of (batch, n)
     (ops/dct.py of the JAX package): kernels 23/24 for DCT-II/III at
@@ -251,7 +231,7 @@ def _dct_lane(t: int, n: int, batch: int) -> str:
     if n == 1:
         return ENGINE
     if t in (2, 3) and batch >= MIN_BATCH and n % 2 == 0 and _ts_ok(n):
-        return _dct23_kernel(n, DCT2_NAT if t == 2 else DCT3_NAT)
+        return DCT2_NAT if t == 2 else DCT3_NAT
     if t == 2:
         # kernel 2 never serves here: every n whose half length it takes
         # passed the kernel-23 gate above
@@ -281,12 +261,12 @@ def _route_r2r(kind, shape, axis, n):
                 return DCT1_MID
         elif t in (2, 3):
             if n % 2 == 0 and _ts_ok(n):
-                return _dct23_kernel(n, DCT2_MID if t == 2 else DCT3_MID)
+                return DCT2_MID if t == 2 else DCT3_MID
             if factorize(n) is None and _blue_mid_ok(n):
                 return DCT23_BLUE_MID
         elif n % 2 == 0:
             if _ts_ok(n // 2):
-                return DCT4_MID if _kdct.dct4_f(n) is not None else "dct4_long"
+                return DCT4_MID
             m = n // 2
             if factorize(m) is not None and _kernel_ok(m) or \
                     factorize(m) is None and _blue_mid_ok(m):
@@ -315,10 +295,8 @@ def _spectral_route(kind: str, shape, axis: int, dtype: torch.dtype, device_type
     R2C's ``rfft_nat_supported`` (:func:`gates._nat_f`), the twostep C2C's
     ``spectral_c2c_mid_supported`` (n > 256 with the split (128, F), K1's
     gate), the DCT's ``dct_pallas_supported`` (even n with the split
-    (128, k), k <= 256). A DCT length of the n-point form beyond the wide
-    core (odd k > 160) raises the UNPORTED key ``spectral_dct_long`` on
-    "cuda" and composes on "cpu"; other devices always compose. Pure: it
-    launches nothing."""
+    (128, k), k <= 256); other devices always compose. Pure: it launches
+    nothing."""
     shape = tuple(shape)
     axis = _norm_axis(axis, len(shape))
     n = shape[axis]
@@ -333,11 +311,6 @@ def _spectral_route(kind: str, shape, axis: int, dtype: torch.dtype, device_type
         ok = n > 256 and _kernel_ok(n) and ts is not None and ts[0] <= MAX_BASE_RADIX
     else:
         ok = n % 2 == 0 and _ts_ok(n)
-        if ok and _kdct.dct_form(n) is None:
-            if device_type == "cuda":
-                raise unported("spectral_dct_long", f"spectral_dct n={n} axis={axis} "
-                               f"shape={shape}")
-            return COMPOSE
     return _SPECTRAL[kind] if ok else COMPOSE
 
 

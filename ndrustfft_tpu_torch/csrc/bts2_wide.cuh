@@ -1,5 +1,5 @@
 // The n-leading DIF core of the Hopper FFT kernels at any butterfly factor:
-// n = m * F, m = 128, F a runtime value (1 <= F <= 160, n <= 20480).
+// n = m * F, m = 128, F a runtime value (1 <= F <= 256, n <= 32768).
 //
 // Replaces, for the CUDA port, ndrustfft_tpu/ops/pallas/fft.py::_bts2_core
 // where its stage 1 is not a radix-2 butterfly (F outside {2, 4, 8, 16}: the
@@ -43,6 +43,26 @@
 // slots leaves threads idle in stage 2: half a plane per transform for odd
 // F. A radix split of F, 3xTF32 wgmma and TMA are later work.
 //
+// The tile of complex inputs holds 8 n bytes per transform, so one
+// transform fits a block up to F = 221 (n = 28288); the complex-input
+// kernels stop at F = 160 (n = 20480, the JAX package's kernel bound). The
+// DCT forms beyond it (n-point DCT-II/III at n = 128 k, odd k <= 255, and
+// DCT-IV's half length 128 F, F <= 256) have a real input: the DCT-II's
+// Makhoul row, the DCT-III's c (x with x0 halved) times a chirp, DCT-IV's
+// two real streams times a chirp. Their tile holds floats (4 n bytes,
+// 131 KB at n = 32768), and the stage-1 input policy (below) says how an
+// element enters the DFT-F: as it is (CplxIn), as a real value (RealIn:
+// a mirror pair is one complex sum and its conjugate, F FMAs per plane
+// instead of 2 F), or times a chirp w[a * 128 + b] = wa[a] * wb[b] that
+// is separable over the split (ChirpIn: wa, F values, in shared memory
+// beside the row W_F^k; wb[b] multiplies Y[q][b] after the sum), the fold
+// that the TPU kernels make in their stage constants
+// (ndrustfft_tpu/ops/pallas/dct.py::_fft_consts' pre_a and pre_b). At
+// F = 256 the Wq table is 32 MB, streamed from L2 once per tile, so a tile
+// of one transform reads 1 KB of Wq per output (every long form runs one
+// transform per tile): that stream and the column's two stages, not device
+// memory, bound them.
+//
 // Tile layouts (C = transforms of the tile, V <= C valid):
 //   kRows:  element (t, c) at s[c * n + t]   (contiguous rows: K10, K2, K3)
 //   cols:   element (t, c) at s[t * C + c]   (a column tile: K1)
@@ -55,13 +75,50 @@
 namespace ndfft {
 
 constexpr int kWideSlots = 4;      // planes per group: two units of up to two
-constexpr int kWideMaxF = 160;     // n <= 20480
+constexpr int kWideMaxF = 256;     // n <= 32768
 
 // Dynamic shared memory of a tile of C transforms of length n: the tile,
 // the Y scratch and the row W_F^k.
 inline long long wide_smem_bytes(int n, int C) {
   return (long long)sizeof(float2) * ((long long)C * (n + kWideSlots * kM) + n / kM);
 }
+
+// The same for a real tile (floats) with two rows of F values: W_F^k and
+// a chirp row wa (ChirpIn).
+inline long long wide_real_smem_bytes(int n, int C) {
+  return (long long)sizeof(float) * C * n +
+         (long long)sizeof(float2) * ((long long)C * kWideSlots * kM + 2 * (n / kM));
+}
+
+// Stage-1 input policies of Bts2Wide (see the header): the tile's element
+// type T, the complex value of element a of a column (operator()), and the
+// factor of Y[q][b] (post). kReal: the value is real (imaginary part 0).
+struct CplxIn {
+  using T = float2;
+  static constexpr bool kReal = false;
+  __device__ float2 operator()(float2 v, int) const { return v; }
+  __device__ float2 post(float2 y, int) const { return y; }
+};
+
+struct RealIn {
+  using T = float;
+  static constexpr bool kReal = true;
+  __device__ float2 operator()(float v, int) const { return make_float2(v, 0.f); }
+  __device__ float2 post(float2 y, int) const { return y; }
+};
+
+// w[a * 128 + b] = wa[a] * wb[b]: wa in shared memory, wb in device memory.
+struct ChirpIn {
+  using T = float;
+  static constexpr bool kReal = false;
+  const float2* wa;
+  const float2* __restrict__ wb;
+  __device__ float2 operator()(float v, int a) const {
+    const float2 w = wa[a];
+    return make_float2(v * w.x, v * w.y);
+  }
+  __device__ float2 post(float2 y, int b) const { return cmul(y, __ldg(wb + b)); }
+};
 
 // The planes of unit u (q2 < 0: a unit of one plane), and whether the unit
 // is a mirror pair {j, F - j}.
@@ -87,9 +144,11 @@ __device__ __forceinline__ void wide_load_row(float2* wt, const float2* __restri
   for (int k = threadIdx.x; k < F; k += blockDim.x) wt[k] = __ldg(wf + (F > 1 ? F : 0) + k);
 }
 
-template <int C, bool kRows>
+template <int C, bool kRows, class In = CplxIn>
 struct Bts2Wide {
+  using T = typename In::T;
   int n, F;
+  In in;
 
   __device__ int tpos(int t, int c) const { return kRows ? c * n + t : t * C + c; }
   __device__ static int ypos(int slot, int b, int c) {
@@ -100,7 +159,7 @@ struct Bts2Wide {
   // transform c goes to out[c * cs + k * ks]. ys: scratch of kWideSlots *
   // kM * C; wt: W_F^k in shared memory (wide_load_row, behind a barrier).
   // All kThreads threads of the block call it; it ends with a barrier.
-  __device__ void run(const float2* s, float2* ys, const float2* wt,
+  __device__ void run(const T* s, float2* ys, const float2* wt,
                       const float2* __restrict__ wq, int V, float2* out, long long cs,
                       long long ks) const {
     run(s, ys, wt, wq, V, [=](int c, long long k, float2 z) { out[c * cs + k * ks] = z; });
@@ -110,7 +169,7 @@ struct Bts2Wide {
   // store(c, k, value): the real transforms' and the DCTs' epilogues, which
   // write real rows or a permuted order.
   template <class Store>
-  __device__ void run(const float2* s, float2* ys, const float2* wt,
+  __device__ void run(const T* s, float2* ys, const float2* wt,
                       const float2* __restrict__ wq, int V, Store&& store) const {
     const int units = (F + 1) / 2;
     const int astep = kRows ? kM : kM * C;   // stride of a in the tile
@@ -125,28 +184,34 @@ struct Bts2Wide {
         int q1, q2;
         bool mirror;
         wide_unit(F, u, q1, q2, mirror);
-        const float2* xp = s + tpos(b, c);
+        const T* xp = s + tpos(b, c);
         if (mirror) {
           float sa = 0.f, sb = 0.f, sc = 0.f, sd = 0.f;
           int k = 0;
 #pragma unroll 4
           for (int a = 0; a < F; ++a) {
-            const float2 xv = xp[a * astep];
             const float2 w = wt[k];
-            sa = fmaf(xv.x, w.x, sa);
-            sb = fmaf(xv.y, w.y, sb);
-            sc = fmaf(xv.x, w.y, sc);
-            sd = fmaf(xv.y, w.x, sd);
+            if constexpr (In::kReal) {   // sb = sd = 0
+              const float xr = xp[a * astep];
+              sa = fmaf(xr, w.x, sa);
+              sc = fmaf(xr, w.y, sc);
+            } else {
+              const float2 xv = in(xp[a * astep], a);
+              sa = fmaf(xv.x, w.x, sa);
+              sb = fmaf(xv.y, w.y, sb);
+              sc = fmaf(xv.x, w.y, sc);
+              sd = fmaf(xv.y, w.x, sd);
+            }
             k += q1;
             if (k >= F) k -= F;
           }
-          ys[ypos(2 * uu, b, c)] = make_float2(sa - sb, sc + sd);
-          ys[ypos(2 * uu + 1, b, c)] = make_float2(sa + sb, sd - sc);
+          ys[ypos(2 * uu, b, c)] = in.post(make_float2(sa - sb, sc + sd), b);
+          ys[ypos(2 * uu + 1, b, c)] = in.post(make_float2(sa + sb, sd - sc), b);
         } else {
           float2 y1 = make_float2(0.f, 0.f), y2 = make_float2(0.f, 0.f);
           int k1 = 0, k2 = 0;
           for (int a = 0; a < F; ++a) {
-            const float2 xv = xp[a * astep];
+            const float2 xv = in(xp[a * astep], a);
             cmac(y1, xv, wt[k1]);
             k1 += q1;
             if (k1 >= F) k1 -= F;
@@ -156,8 +221,8 @@ struct Bts2Wide {
               if (k2 >= F) k2 -= F;
             }
           }
-          ys[ypos(2 * uu, b, c)] = y1;
-          if (q2 >= 0) ys[ypos(2 * uu + 1, b, c)] = y2;
+          ys[ypos(2 * uu, b, c)] = in.post(y1, b);
+          if (q2 >= 0) ys[ypos(2 * uu + 1, b, c)] = in.post(y2, b);
         }
       }
       __syncthreads();
@@ -198,8 +263,8 @@ struct Bts2Wide {
 // transform) with fn(t, c) for the V valid transforms; consecutive threads
 // take consecutive elements of a row (kRows) or consecutive transforms of a
 // column tile, so that the loads from device memory coalesce. No barrier.
-template <int C, bool kRows, class Fn>
-__device__ __forceinline__ void wide_fill(float2* s, int nt, int V, Fn&& fn) {
+template <int C, bool kRows, class T, class Fn>
+__device__ __forceinline__ void wide_fill(T* s, int nt, int V, Fn&& fn) {
   for (int idx = threadIdx.x; idx < nt * V; idx += kThreads) {
     const int t = kRows ? idx % nt : idx / V;
     const int c = kRows ? idx / nt : idx % V;
@@ -254,6 +319,15 @@ cudaError_t wide_launch(void (*kernel)(KArgs...), int n, long long groups, long 
   return wide_launch_smem<C>(kernel, n, wide_smem_bytes(n, C), groups, total, stream, args...);
 }
 
+// wide_launch_smem with the shared memory of wide_real_smem_bytes (one real
+// tile, WideRealSmem).
+template <int C, class... KArgs, class... Args>
+cudaError_t wide_launch_real(void (*kernel)(KArgs...), int n, long long groups, long long total,
+                             cudaStream_t stream, Args... args) {
+  return wide_launch_smem<C>(kernel, n, wide_real_smem_bytes(n, C), groups, total, stream,
+                             args...);
+}
+
 // The shared memory of a wide block: the tile (n x C), the Y scratch and the
 // row W_F^k, in that order.
 struct WideSmem {
@@ -261,5 +335,25 @@ struct WideSmem {
   __device__ WideSmem(float2* base, int n, int C)
       : s(base), ys(base + (size_t)n * C), wt(base + (size_t)C * (n + kWideSlots * kM)) {}
 };
+
+// The shared memory of a wide block on a real tile (wide_real_smem_bytes):
+// the tile (n x C floats), the Y scratch, the row W_F^k and the chirp row
+// wa (F values each).
+struct WideRealSmem {
+  float* s;
+  float2 *ys, *wt, *wa;
+  __device__ WideRealSmem(float2* base, int n, int C)
+      : s(reinterpret_cast<float*>(base)),
+        ys(base + (size_t)n * C / 2),
+        wt(ys + (size_t)kWideSlots * kM * C),
+        wa(wt + n / kM) {}
+};
+
+// Load wa[a] = chirp[a], a < F, into shared memory (the chirp row of
+// ChirpIn). All threads; no barrier.
+__device__ __forceinline__ void wide_load_chirp(float2* wa, const float2* __restrict__ chirp,
+                                                int F) {
+  for (int a = threadIdx.x; a < F; a += blockDim.x) wa[a] = __ldg(chirp + a);
+}
 
 }  // namespace ndfft

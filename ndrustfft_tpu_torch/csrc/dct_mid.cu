@@ -26,9 +26,11 @@
 //          (dct.py:351-373); here u is in shared memory, so no second pass.
 // * even k with h outside those factors (n = 1280, 1536, 2560 ...): the same
 //   passes on the wide core (dct_wide.cuh, column layout).
-// * odd k (n = 1152, 1408, 1664 ...; h = 64 k is not 128 * F): the n-point
-//   form on the wide core, as the TPU kernel computes at every n
-//   (dct_wide.cuh).
+// * odd k (n = 1152, 1408, 1664 ... 32640; h = 64 k is not 128 * F): the
+//   n-point form on the wide core's real tile, as the TPU kernel computes
+//   at every n (dct_wide.cuh). At odd k > 160 (n >= 20608) one column fills
+//   a block (131 KB at n = 32640) and each column streams the whole Wq
+//   table (F * 128 KB) from L2: these long forms are bound by that stream.
 //
 // What bounds them: the core's stage 2 on the FP32 CUDA cores
 // (bts2_core.cuh, bts2_wide.cuh); device memory is read once and written
@@ -155,8 +157,10 @@ extern "C" int ndfft_dct_mid_wide(int type3, const void* x, void* y, const void*
                                        stream);
 }
 
-// Kernels 25 and 26 in the n-point form: n = 128 * F, 1 <= F <= 160; wq, wf
-// and c as for ndfft_dct_nat_npoint. C as above.
+// Kernels 25 and 26 in the n-point form on the real tile: n = 128 * F,
+// 1 <= F <= 256; wq, wf and c as for ndfft_dct_nat_npoint. C: columns per
+// tile, a power of two <= 16 whose tile fits
+// (bts2_wide.cuh::wide_real_smem_bytes).
 extern "C" int ndfft_dct_mid_npoint(int type3, const void* x, void* y, const void* wq,
                                     const void* wf, const void* c, long long B, int n,
                                     long long L, int C, void* stream) {

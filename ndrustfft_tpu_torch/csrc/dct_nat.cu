@@ -2,8 +2,8 @@
 // n = 128 * k, k <= 256 (the JAX gate's split (128, k)): on the fixed core
 // below for n = 2h, h = 128 * F, F in {1, 2, 4, 8, 16} (n = 256 ... 4096),
 // on the wide core (dct_wide.cuh, entries at the end of this file) at every
-// other n up to 20480: the half-length form for even k (h = 128 * k/2), the
-// n-point form for odd k (n = 128, 384, 640 ...).
+// other n: the half-length form for even k (h = 128 * k/2), the n-point
+// form on a real tile for odd k (n = 128, 384, 640 ... 32640).
 //
 // Kernel 23 replaces ndrustfft_tpu/ops/pallas/dct.py::_dct2_kernel (built by
 // _build_dct2, called by dct2_pallas); kernel 24 replaces dct.py::_dct3_kernel
@@ -264,11 +264,12 @@ extern "C" int ndfft_dct_nat_wide(int type3, const void* x, void* y, const void*
                                       stream);
 }
 
-// Kernels 23 and 24 in the n-point form: n = 128 * F, 1 <= F <= 160 (odd F
-// on the routes). wq: (F, 128, 128) complex64 for n, sign -1, unscaled; wf:
-// (F, F) DFT-F, sign -1; c: post (n,) s e^{-i pi k / 2n} (DCT-II) or the
-// n-point pre (n,) s e^{-i pi t / 2n} with entry 0 halved (DCT-III). C as
-// above.
+// Kernels 23 and 24 in the n-point form on the real tile: n = 128 * F,
+// 1 <= F <= 256 (odd F <= 255 on the routes). wq: (F, 128, 128) complex64
+// for n, sign -1, unscaled; wf: (F, F) DFT-F, sign -1; c: post (n,)
+// s e^{-i pi k / 2n} (DCT-II) or the n-point chirp (F + 128,)
+// e^{-i pi a / 2F}, then s e^{-i pi b / 2n} (DCT-III). C: rows per tile, a
+// power of two <= 16 whose tile fits (bts2_wide.cuh::wide_real_smem_bytes).
 extern "C" int ndfft_dct_nat_npoint(int type3, const void* x, void* y, const void* wq,
                                     const void* wf, const void* c, long long T, int n, int C,
                                     void* stream) {

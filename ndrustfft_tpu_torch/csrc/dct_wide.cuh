@@ -17,12 +17,24 @@
 //              (kernel 3's pre-pass, DC and Nyquist imaginary parts 0);
 //              u = IFFT_h(G) read as a real row (u[2l] = Re z[l],
 //              u[2l+1] = Im z[l]); y[2t] = u[t], y[2t+1] = u[n-1-t].
-// * The n-point form, n = 128 * F with odd F (h = n/2 is not 128 * F), which
-//   is what the TPU kernels compute at every n (dct.py::_real_ts_core_x2):
+// * The n-point form, n = 128 * F with odd F <= 255 (h = n/2 is not
+//   128 * F), which is what the TPU kernels compute at every n
+//   (dct.py::_real_ts_core_x2):
 //     DCT-II:  Z = FFT_n(v) of the real Makhoul row v; y[k] = Re(P[k] Z[k]).
 //     DCT-III: Z = FFT_n(w), w[t] = s c[t] e^{-i pi t / 2n}, c = x with x0
 //              halved; u = Re Z; y[2t] = u[t], y[2t+1] = u[n-1-t]
 //              (u[t] = sum_j c[j] cos(pi j (4t + 1) / 2n)).
+//   Both inputs are real, so the tile holds floats (bts2_wide.cuh's real
+//   tile: 4 n bytes, 131 KB at n = 32640, where a complex tile of 261 KB
+//   would not fit a block): the DCT-II's v (RealIn), the DCT-III's c, whose
+//   twiddle is separable over t = a * 128 + b, e^{-i pi t / 2n} =
+//   e^{-i pi a / 2F} e^{-i pi b / 2n}: the a factor multiplies each element
+//   in stage 1 from a row in shared memory, the b factor (with s) multiplies
+//   Y[q][b] (ChirpIn), as the TPU kernel folds its pre_a and pre_b
+//   (dct.py::_build_dct3). Not taken: Z[n - k] = conj Z[k] for the real
+//   input would let stage 2 compute k <= n/2 only and halve its MACs and Wq
+//   reads; each output k here is one (q, p') item of the core, and the
+//   halving needs a store that writes k and n - k from one item.
 //
 // The wide core writes every output straight to device memory, so no
 // transform holds its whole spectrum in shared memory afterwards. Three of
@@ -185,7 +197,7 @@ dct3_wide_kernel(const float* __restrict__ x, float* __restrict__ y,
   });
 }
 
-// n-point DCT-II, n = 128 * F. post: (n,) P[k].
+// n-point DCT-II, n = 128 * F, on the real tile. post: (n,) P[k].
 template <int C, bool kRows>
 __global__ void __launch_bounds__(kThreads)
 dct2_npoint_kernel(const float* __restrict__ x, float* __restrict__ y,
@@ -193,43 +205,57 @@ dct2_npoint_kernel(const float* __restrict__ x, float* __restrict__ y,
                    const float2* __restrict__ post, int F, long long L, long long tiles) {
   const int n = F * kM;
   extern __shared__ float2 smem[];
-  const WideSmem sm(smem, n, C);
+  const WideRealSmem sm(smem, n, C);
   const DctTile<kRows> tl(n, L, tiles);
   const float* xb = x + tl.off;
-  wide_fill<C, kRows>(sm.s, n, tl.V, [&](int t, int c) {
-    return make_float2(xb[c * tl.cs + makhoul_src(t, n) * tl.ks], 0.f);
-  });
+  wide_fill<C, kRows>(sm.s, n, tl.V,
+                      [&](int t, int c) { return xb[c * tl.cs + makhoul_src(t, n) * tl.ks]; });
   wide_load_row(sm.wt, wf, F);
   __syncthreads();
   float* yb = y + tl.off;
   const long long cs = tl.cs, ks = tl.ks;
-  Bts2Wide<C, kRows>{n, F}.run(sm.s, sm.ys, sm.wt, wq, tl.V, [=](int c, long long k, float2 z) {
+  Bts2Wide<C, kRows, RealIn>{n, F}.run(sm.s, sm.ys, sm.wt, wq, tl.V,
+                                       [=](int c, long long k, float2 z) {
     const float2 p = __ldg(post + k);
     yb[c * cs + k * ks] = p.x * z.x - p.y * z.y;
   });
 }
 
-// n-point DCT-III, n = 128 * F. pre: (n,) s e^{-i pi t / 2n}, entry 0 halved.
+// The n-point DCT-III's tile: c = x with x0 halved, then the core on it
+// times the chirp (npoint_chirp: wa, then wb with the scale). The caller
+// has loaded the row W_F^k; the fill ends with a barrier.
+template <int C, bool kRows, class Store>
+__device__ __forceinline__ void dct3_npoint_core(const WideRealSmem& sm, const float* xb,
+                                                 const DctTile<kRows>& tl, int F,
+                                                 const float2* __restrict__ wq,
+                                                 const float2* __restrict__ chirp,
+                                                 Store&& store) {
+  const int n = F * kM;
+  wide_fill<C, kRows>(sm.s, n, tl.V, [&](int t, int c) {
+    const float v = xb[c * tl.cs + t * tl.ks];
+    return t == 0 ? 0.5f * v : v;
+  });
+  wide_load_chirp(sm.wa, chirp, F);
+  __syncthreads();
+  Bts2Wide<C, kRows, ChirpIn>{n, F, ChirpIn{sm.wa, chirp + F}}.run(sm.s, sm.ys, sm.wt, wq, tl.V,
+                                                                   store);
+}
+
+// n-point DCT-III, n = 128 * F, on the real tile. chirp: (F + 128,)
+// e^{-i pi a / 2F} (a < F), then s e^{-i pi b / 2n} (b < 128).
 template <int C, bool kRows>
 __global__ void __launch_bounds__(kThreads)
 dct3_npoint_kernel(const float* __restrict__ x, float* __restrict__ y,
                    const float2* __restrict__ wq, const float2* __restrict__ wf,
-                   const float2* __restrict__ pre, int F, long long L, long long tiles) {
+                   const float2* __restrict__ chirp, int F, long long L, long long tiles) {
   const int n = F * kM;
   extern __shared__ float2 smem[];
-  const WideSmem sm(smem, n, C);
+  const WideRealSmem sm(smem, n, C);
   const DctTile<kRows> tl(n, L, tiles);
-  const float* xb = x + tl.off;
-  wide_fill<C, kRows>(sm.s, n, tl.V, [&](int t, int c) {
-    const float a = xb[c * tl.cs + t * tl.ks];
-    const float2 w = __ldg(pre + t);
-    return make_float2(a * w.x, a * w.y);
-  });
   wide_load_row(sm.wt, wf, F);
-  __syncthreads();
   float* yb = y + tl.off;
   const long long cs = tl.cs, ks = tl.ks;
-  Bts2Wide<C, kRows>{n, F}.run(sm.s, sm.ys, sm.wt, wq, tl.V, [=](int c, long long k, float2 z) {
+  dct3_npoint_core<C, kRows>(sm, x + tl.off, tl, F, wq, chirp, [=](int c, long long k, float2 z) {
     yb[c * cs + interleave_dst(k, n) * ks] = z.x;
   });
 }
@@ -237,7 +263,7 @@ dct3_npoint_kernel(const float* __restrict__ x, float* __restrict__ y,
 // Launch one of the four kernels above on `groups` x `total` transforms of
 // length n (rows: groups = 1, total = T; middle axis: groups = B, total = L)
 // with C transforms per tile. type3 picks DCT-III; npoint the n-point form
-// (c1 unused; c2 = post or the n-point pre), else the half-length form
+// (c1 unused; c2 = post or the n-point chirp), else the half-length form
 // (c1 = tw or ab, c2 = post or pre). Returns the cudaError_t of the launch.
 template <bool kRows>
 static int dct_wide_launch(bool type3, bool npoint, const void* x, void* y, const void* wq,
@@ -255,10 +281,10 @@ static int dct_wide_launch(bool type3, bool npoint, const void* x, void* y, cons
   return (int)wide_dispatch(C, [&](auto cc) {
     constexpr int kC = decltype(cc)::value;
     if (npoint)
-      return type3 ? wide_launch<kC>(dct3_npoint_kernel<kC, kRows>, core, groups, total, st, xp,
-                                     yp, wqp, wfp, c2p, F, total)
-                   : wide_launch<kC>(dct2_npoint_kernel<kC, kRows>, core, groups, total, st, xp,
-                                     yp, wqp, wfp, c2p, F, total);
+      return type3 ? wide_launch_real<kC>(dct3_npoint_kernel<kC, kRows>, core, groups, total, st,
+                                          xp, yp, wqp, wfp, c2p, F, total)
+                   : wide_launch_real<kC>(dct2_npoint_kernel<kC, kRows>, core, groups, total, st,
+                                          xp, yp, wqp, wfp, c2p, F, total);
     return type3 ? wide_launch<kC>(dct3_wide_kernel<kC, kRows>, core, groups, total, st, xp, yp,
                                    wqp, wfp, static_cast<const float4*>(c1), c2p, F, total)
                  : wide_launch<kC>(dct2_wide_kernel<kC, kRows>, core, groups, total, st, xp, yp,

@@ -4,8 +4,7 @@
 // (dct_mid.cu, ops/hopper/dct.py::dct_form): the half length h = n/2 =
 // 128 * F for even k (the fixed core for F in {2, 4, 8, 16}, the wide core
 // for every other F <= 128, n = 256 included), the n-point form on the wide
-// core for odd k <= 159. Odd k > 160 (n >= 20608) is the UNPORTED key
-// spectral_dct_long, the wall of dct23_long.
+// core's real tile for odd k <= 255 (n <= 32640).
 //
 // Replaces ndrustfft_tpu/ops/pallas/dct.py::_spectral_dct_kernel_mid (built
 // by _build_spectral_dct_mid, called by spectral_dct_pallas_mid). It is the
@@ -30,6 +29,10 @@
 //     Z = FFT_n(v) of the real Makhoul row, w[k] = H[k] Re(P[k] Z[k]),
 //     Z' = FFT_n(w c), c[t] = s3 e^{-i pi t/2n} with c[0] halved,
 //     out[2t] = Re Z'[t], out[2t+1] = Re Z'[n-1-t].
+//   Both FFT inputs are real (v, and w before its chirp), so the n-point
+//   form runs on the wide core's real tile (kernels 25/26's n-point forms,
+//   dct_wide.cuh): 4 n bytes per column, which one block holds up to
+//   n = 32640 (k = 255), with the chirp c separable over t = a * 128 + b.
 //
 // The fixed half form keeps everything in shared memory: the pass reads x
 // and H once and writes y once, where the composition writes and reads the
@@ -186,38 +189,32 @@ spectral_dct_mid_wide_kernel(const float* __restrict__ x, float* y, SpecMult hm,
                                });
 }
 
-// The n-point form, n = 128 * F with odd F: both transforms are FFT_n of sign
-// -1 (wq, wf); post: (n,) P; pre: (n,) c.
+// The n-point form, n = 128 * F with odd F, on the real tile: both
+// transforms are FFT_n of sign -1 (wq, wf); post: (n,) P; chirp: (F + 128,)
+// the n-point DCT-III's chirp with s3 (dct_wide.cuh::dct3_npoint_kernel).
 template <int C>
 __global__ void __launch_bounds__(kThreads)
 spectral_dct_mid_npoint_kernel(const float* __restrict__ x, float* y, SpecMult hm,
                                const float2* __restrict__ wq, const float2* __restrict__ wf,
-                               const float2* __restrict__ post, const float2* __restrict__ pre,
+                               const float2* __restrict__ post, const float2* __restrict__ chirp,
                                int F, long long L, long long tiles) {
   const int n = F * kM;
   extern __shared__ float2 smem[];
-  const WideSmem sm(smem, n, C);
+  const WideRealSmem sm(smem, n, C);
   const DctTile<false> tl(n, L, tiles);
   const float* xb = x + tl.off;
   float* yb = y + tl.off;
   const long long col0 = tl.off % L;
-  wide_fill<C, false>(sm.s, n, tl.V, [&](int t, int c) {
-    return make_float2(xb[makhoul_src(t, n) * L + c], 0.f);
-  });
+  wide_fill<C, false>(sm.s, n, tl.V, [&](int t, int c) { return xb[makhoul_src(t, n) * L + c]; });
   wide_load_row(sm.wt, wf, F);
   __syncthreads();
   // ends with a barrier: w = H times the DCT-II of every column is in y
-  Bts2Wide<C, false>{n, F}.run(sm.s, sm.ys, sm.wt, wq, tl.V, [=](int c, long long k, float2 z) {
+  Bts2Wide<C, false, RealIn>{n, F}.run(sm.s, sm.ys, sm.wt, wq, tl.V,
+                                       [=](int c, long long k, float2 z) {
     const float2 p = __ldg(post + k);
     yb[k * L + c] = hm.re((int)k, col0 + c) * (p.x * z.x - p.y * z.y);
   });
-  wide_fill<C, false>(sm.s, n, tl.V, [&](int t, int c) {
-    const float a = yb[t * L + c];
-    const float2 w = __ldg(pre + t);
-    return make_float2(a * w.x, a * w.y);
-  });
-  __syncthreads();
-  Bts2Wide<C, false>{n, F}.run(sm.s, sm.ys, sm.wt, wq, tl.V, [=](int c, long long k, float2 z) {
+  dct3_npoint_core<C, false>(sm, yb, tl, F, wq, chirp, [=](int c, long long k, float2 z) {
     yb[interleave_dst(k, n) * L + c] = z.x;
   });
 }
@@ -275,23 +272,24 @@ extern "C" int ndfft_spectral_dct_mid_wide(const void* x, void* y, const void* h
   });
 }
 
-// The n-point form, n = 128 * F with 1 <= F <= 160: wq: (F, 128, 128)
-// complex64 for n, sign -1, unscaled; wf: its (F, F) DFT-F; post: (n,)
-// s2 e^{-i pi k/2n}; pre: (n,) s3 e^{-i pi t/2n} with entry 0 halved
-// (ops/hopper/dct.py::dct3_pre_npoint). C as for the wide form.
+// The n-point form on the real tile, n = 128 * F with 1 <= F <= 256: wq:
+// (F, 128, 128) complex64 for n, sign -1, unscaled; wf: its (F, F) DFT-F;
+// post: (n,) s2 e^{-i pi k/2n}; chirp: (F + 128,) e^{-i pi a/2F}, then
+// s3 e^{-i pi b/2n} (ops/hopper/dct.py::npoint_chirp). C: columns per tile,
+// a power of two <= 16 whose tile fits (bts2_wide.cuh::wide_real_smem_bytes).
 extern "C" int ndfft_spectral_dct_mid_npoint(const void* x, void* y, const void* hr, long long hc,
                                              const void* wq, const void* wf, const void* post,
-                                             const void* pre, long long B, int n, long long L,
+                                             const void* chirp, long long B, int n, long long L,
                                              int C, void* stream) {
   using namespace ndfft;
   const SpecMult hm = spec_mult(hr, nullptr, hc, L);
   if (hm.hr == nullptr || n % kM) return (int)cudaErrorInvalidValue;
   return (int)wide_dispatch(C, [&](auto cc) {
     constexpr int kC = decltype(cc)::value;
-    return wide_launch<kC>(spectral_dct_mid_npoint_kernel<kC>, n, B, L,
-                           static_cast<cudaStream_t>(stream), static_cast<const float*>(x),
-                           static_cast<float*>(y), hm, static_cast<const float2*>(wq),
-                           static_cast<const float2*>(wf), static_cast<const float2*>(post),
-                           static_cast<const float2*>(pre), n / kM, L);
+    return wide_launch_real<kC>(spectral_dct_mid_npoint_kernel<kC>, n, B, L,
+                                static_cast<cudaStream_t>(stream), static_cast<const float*>(x),
+                                static_cast<float*>(y), hm, static_cast<const float2*>(wq),
+                                static_cast<const float2*>(wf), static_cast<const float2*>(post),
+                                static_cast<const float2*>(chirp), n / kM, L);
   });
 }

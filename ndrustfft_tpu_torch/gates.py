@@ -7,9 +7,8 @@ Each lane lowering has one route function here (:func:`lane_c2c_route`,
 ``ops/engine.py`` dispatches on the same function, so both agree on which
 kernel a call reaches. Beyond the single kernels' range (n > 20480) a C2C
 takes the four-step, C2C_FOURSTEP (kernels 7 and 13), as does every
-lowering whose inner C2C has such a length. A route whose JAX counterpart
-is a Pallas kernel not ported yet is a key of :data:`UNPORTED`;
-:func:`unported` builds its error.
+lowering whose inner C2C has such a length. Every Pallas kernel of the JAX
+package has its CUDA port, so every route runs on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -75,25 +74,12 @@ SPECTRAL_DCT_MID = "spectral_dct_mid"
 COMPOSE = "compose"
 ENGINE = "engine"
 
-# Pallas kernels of the JAX package on routes not ported yet:
-# key -> (kernel, ROADMAP.md item)
-UNPORTED = {
-    "dct4_long": ("dct.py::_dct4_kernel_mid at n = 256 * F with F > 160, n > 40960 "
-                  "(dct4_long)", "K28 long"),
-    "dct23_long": ("dct.py::_dct2_kernel / _dct3_kernel (and their _mid forms) at "
-                   "n = 128 * k with odd k > 160, n > 20480", "K23-K26 long"),
-    "spectral_dct_long": ("dct.py::_spectral_dct_kernel_mid at n = 128 * k with odd "
-                          "k > 160, n > 20480 (spectral_dct_long)", "K23-K26 long"),
-}
-
-
-def unported(key: str, what: str) -> NotImplementedError:
-    """The error of a call ``what`` whose route is the UNPORTED ``key``."""
-    kernel, item = UNPORTED[key]
-    return NotImplementedError(
-        f"{what}: the JAX package runs this on the Pallas kernel {kernel}, "
-        f"which has no CUDA port for it yet (ROADMAP.md item {item})")
-
+# every route api._route returns (the spectral calls' are _spectral_route's)
+ROUTES = (C2C_AXIS_MID, C2C_ROWS, C2C_DENSE_ROWS, C2C_DENSE_MID, C2C_GENERIC_ROWS,
+          C2C_GENERIC_MID, R2C_NAT, C2R_NAT, R2C_MID, C2R_MID, R2C_DENSE_MID, C2R_DENSE_MID,
+          DCT_DENSE_MID, DCT2_NAT, DCT3_NAT, DCT2_MID, DCT3_MID, DCT4_HALF_MID, R2C_PACKED_MID,
+          DCT1_MID, DCT4_MID, R2C_PACKED, R2C_ROWPAIR, C2R_LANE, DCT_LANE, C2C_BLUE_MID,
+          DCT23_BLUE_MID, BLUESTEIN_LANE, C2C_FOURSTEP, ENGINE)
 
 # the JAX package's TPU gates
 MIN_BATCH = 128          # engine.c2c / r2c / c2r

@@ -12,10 +12,11 @@
   along the middle axis of (B, n, L) (``csrc/dct_mid.cu``; replace
   ``dct.py::_dct2_kernel_mid`` and ``_dct3_kernel_mid``).
 * Kernel 28, :func:`dct4_mid`: DCT-IV along the middle axis of (B, n, L),
-  n = 2 hl with hl = 128 * F, F <= 160, as one complex FFT of length hl
+  n = 2 hl with hl = 128 * F, F <= 256, as one complex FFT of length hl
   per column between an entry and an exit chirp (``csrc/dct4_mid.cu``, the
-  fixed core for F in {4, 8, 16}, the wide core otherwise; replaces
-  ``dct.py::_dct4_kernel_mid``).
+  fixed core for F in {4, 8, 16}, the wide core up to F = 160, and beyond
+  it the long form: the FFTs of the two real streams in two passes of the
+  wide core's real tile; replaces ``dct.py::_dct4_kernel_mid``).
 * Kernel 29, :func:`spectral_dct_mid`: the fused pipeline
   DCT-III(H * DCT-II(x)) along the middle axis of (B, n, L) in the forms of
   :func:`dct_form`, kernel 25's forward, the multiply and kernel 26's
@@ -28,12 +29,13 @@
   replaces ``fft.py::_kernel_axis_mid_blue_rr``).
 
 Kernels 23 to 26 take every even n = 128 * k that the JAX gate
-``dct_pallas_supported`` sends to them (split (128, k)) up to 20480, in the
+``dct_pallas_supported`` sends to them (split (128, k), k <= 256), in the
 form :func:`dct_form` names: the half length h = n/2 = 128 * F for even k
 (the real FFT of kernels 2/3 or 16/17: the fixed bts2 core for F in
 :data:`DCT_F` (rows) or ``CORE_F`` (middle axis), the wide core
-``csrc/bts2_wide.cuh`` otherwise), and the n-point FFT on the wide core for
-odd k, where h = 64 k is no multiple of 128 (``csrc/dct_wide.cuh``).
+``csrc/bts2_wide.cuh`` otherwise), and the n-point FFT on the wide core's
+real tile for odd k, where h = 64 k is no multiple of 128
+(``csrc/dct_wide.cuh``; one column fills a block at odd k > 160).
 
 What bounds them, and what the designs do about it, is in the sources'
 header comments: the core's dense DFT-128 on the FP32 cores; device memory
@@ -42,8 +44,9 @@ read once and written once; every constant built on the host.
 This module holds their host-built constants, their plain PyTorch versions
 and their wrappers, whose ``launches`` attributes count kernel launches
 (kernels 12, 23 to 26, 28 and 29 also count the wide core's (half-length)
-launches apart, in ``wide_launches``, and kernels 23 to 26 and 29 the n-point
-ones in ``npoint_launches``). All
+launches apart, in ``wide_launches``, kernels 23 to 26 and 29 the n-point
+ones in ``npoint_launches``, and kernel 28 its long form's in
+``long_launches``). All
 transforms are in the rustdct convention (scipy's unnormalized DCT / 2)
 times ``scale``.
 """
@@ -57,14 +60,14 @@ import torch
 
 from ...plan import _cis, blue_h, chirp
 from . import _build
-from .fft import (C2C_F, CORE_F, GENERIC_MAX_N, M, block_cols, block_rows, blue_kernel_M,
-                  blue_launch, bts2_consts, bts2_plain, check_blue_n, check_cuda, check_mult,
-                  chirp_z_plain, count_launch, dense_tile, device_wide, device_wq, f32_pair,
-                  mult_planes, num_sms, pair_tensor, wide_block)
+from .fft import (C2C_F, CORE_F, M, REAL_MAX_F, WIDE_MAX_F, block_cols, block_rows,
+                  blue_kernel_M, blue_launch, bts2_consts, bts2_plain, check_blue_n, check_cuda,
+                  check_mult, chirp_z_plain, count_launch, dense_tile, device_wide, device_wq,
+                  f32_pair, mult_planes, num_sms, pair_tensor, wide_block, wide_bytes,
+                  wide_real_bytes)
 from .rfft import _device_ab, _device_tw, c2r_mid_plain, r2c_mid_plain
 
 DCT_F = (1, 2, 4, 8, 16)   # half-length factors F of kernels 23/24's fixed core
-WIDE_MAX_F = GENERIC_MAX_N // M   # 160: the wide core's largest factor
 
 
 # --------------------------------------------------------------------------
@@ -153,14 +156,16 @@ dct_dense_mid.launches = 0
 
 def dct_form(n: int):
     """("half", F) where kernels 23 to 26 run the half-length real FFT,
-    n = 2h with h = 128 * F (k = n / 128 even); ("npoint", F) where they run
-    the n-point FFT, n = 128 * F with odd F; None where F > 160 (the wide
-    core's bound: n-point n > 20480) or n is no multiple of 128."""
+    n = 2h with h = 128 * F (k = n / 128 even, F <= 160: the wide core's
+    complex tile); ("npoint", F) where they run the n-point FFT on the real
+    tile, n = 128 * F with odd F <= 255 (n <= 32640); None beyond, or where
+    n is no multiple of 128."""
     if n <= 0 or n % M:
         return None
     k = n // M
-    form, f = ("half", k // 2) if k % 2 == 0 else ("npoint", k)
-    return (form, f) if f <= WIDE_MAX_F else None
+    if k % 2 == 0:
+        return ("half", k // 2) if k // 2 <= WIDE_MAX_F else None
+    return ("npoint", k) if k <= REAL_MAX_F else None
 
 
 def makhoul_perm(n: int) -> np.ndarray:
@@ -197,7 +202,23 @@ def dct3_pre_npoint(n: int, scale: float = 1.0):
             np.asarray(wi * half * scale, np.float32))
 
 
-_TWIDDLES = {"post": dct2_post, "pre": dct3_pre, "pre_npoint": dct3_pre_npoint}
+def npoint_chirp(n: int, scale: float = 1.0):
+    """(re, im) float32 of the n-point DCT-III's input twiddle in the
+    kernels' separable form, F + 128 values (F = n / 128): e^{-i pi a/(2F)}
+    for a < F, then scale * e^{-i pi b/(2n)} for b < 128, whose product at
+    t = a * 128 + b is :func:`dct3_pre_npoint`'s e^{-i pi t/(2n)} (the x0
+    halving is the kernels' load). Built by the JAX kernel's ``_cis``
+    expressions (``dct.py::_build_dct3``: the b part at scale 1 is its
+    ``b`` table's first 128 entries bit for bit) and rounded once."""
+    f = n // M
+    ar, ai = _cis(np.arange(f, dtype=np.int64), 2 * f, -1)
+    br, bi = _cis(np.arange(M, dtype=np.int64), 2 * n, -1)
+    return (np.concatenate([np.asarray(ar, np.float32), np.asarray(br * scale, np.float32)]),
+            np.concatenate([np.asarray(ai, np.float32), np.asarray(bi * scale, np.float32)]))
+
+
+_TWIDDLES = {"post": dct2_post, "pre": dct3_pre, "pre_npoint": dct3_pre_npoint,
+             "chirp_npoint": npoint_chirp}
 
 
 @lru_cache(maxsize=64)
@@ -285,8 +306,8 @@ def _check_form(x: torch.Tensor, rows: bool, what: str):
     n = x.shape[1]
     form = dct_form(n)
     if form is None:
-        raise ValueError(f"{what}: n={n} is not 128 * k with k even (k <= 320) or odd "
-                         f"(k <= {WIDE_MAX_F})")
+        raise ValueError(f"{what}: n={n} is not 128 * k with k even (k <= {2 * WIDE_MAX_F}) "
+                         f"or odd (k <= {REAL_MAX_F})")
     return form
 
 
@@ -312,7 +333,7 @@ def _launch(wrapper, x: torch.Tensor, scale, type3: bool, rows: bool) -> torch.T
     wq = device_wq(core, sign, 1.0, dev)
     if npoint:
         c1 = None
-        c2 = _device_twiddle("pre_npoint" if type3 else "post", n, s, dev)
+        c2 = _device_twiddle("chirp_npoint" if type3 else "post", n, s, dev)
     else:
         c1 = _device_ab(n, 1.0, dev) if type3 else _device_tw(n, dev)
         c2 = _device_twiddle("pre" if type3 else "post", n, s, dev)
@@ -331,7 +352,7 @@ def _launch(wrapper, x: torch.Tensor, scale, type3: bool, rows: bool) -> torch.T
                                     cols, block_cols(core, nb, cols, sms), stream)
         else:
             wf = device_wide(core, sign, dev).data_ptr()
-            c = wide_block(core, nb, cols, sms)
+            c = wide_block(core, nb, cols, sms, wide_real_bytes if npoint else wide_bytes)
             shape = (cols, n) if rows else (nb, n, cols)
             entry = f"ndfft_dct_{'nat' if rows else 'mid'}_{'npoint' if npoint else 'wide'}"
             consts = (c2.data_ptr(),) if npoint else (c1.data_ptr(), c2.data_ptr())
@@ -386,13 +407,12 @@ dct3_mid = _dct_wrapper(
 
 def dct4_f(n: int):
     """F of the half length hl = n/2 = 128 * F where kernel 28 takes n
-    (1 <= F <= 160: the JAX gate dct4_mid_supported's split (128, F) up to
-    the wide core's bound), else None. Beyond F = 160 (40960 < n <= 65536)
-    is the UNPORTED key ``dct4_long``."""
+    (1 <= F <= 256: the JAX gate dct4_mid_supported's split (128, F); the
+    long form beyond F = 160, n > 40960), else None."""
     if n % 2 or (n // 2) % M:
         return None
     f = n // 2 // M
-    return f if 1 <= f <= WIDE_MAX_F else None
+    return f if 1 <= f <= REAL_MAX_F else None
 
 
 def dct4_chirp(n: int):
@@ -413,9 +433,28 @@ def dct4_post(n: int, scale: float = 1.0):
             np.asarray(scale * np.sin(np.pi * kv / n), np.float32))
 
 
+def dct4_chirp_long(n: int):
+    """(re, im) float32 of kernel 28's entry chirp in its long form's
+    separable form, F + 128 values (hl = n/2 = 128 * F): e^{-i pi a 128/n}
+    = e^{-i pi a/(2F)} for a < F, then e^{-i pi/(4n)} e^{-i pi b/n} for
+    b < 128, whose product at s = a * 128 + b is :func:`dct4_chirp`'s
+    e^{-i pi (4s+1)/(4n)}. Built by the JAX kernel's expressions
+    (``dct.py::_build_dct4_mid``'s a and b; the b part is its b table's first
+    128 entries bit for bit) and rounded once."""
+    f = n // 2 // M
+    a = np.exp(-1j * np.pi * np.arange(f, dtype=np.float64) * M / n)
+    b = np.exp(-1j * np.pi / (4 * n)) * np.exp(-1j * np.pi * np.arange(M, dtype=np.float64) / n)
+    w = np.concatenate([a, b])
+    return np.asarray(w.real, np.float32), np.asarray(w.imag, np.float32)
+
+
+_DCT4_TABLES = {"chirp": lambda n, scale: dct4_chirp(n),
+                "chirp_long": lambda n, scale: dct4_chirp_long(n), "post": dct4_post}
+
+
 @lru_cache(maxsize=64)
 def _device_dct4(kind: str, n: int, scale: float, device: torch.device) -> torch.Tensor:
-    re, im = dct4_chirp(n) if kind == "chirp" else dct4_post(n, scale)
+    re, im = _DCT4_TABLES[kind](n, scale)
     return torch.complex(torch.from_numpy(re), torch.from_numpy(im)).to(device)
 
 
@@ -436,15 +475,17 @@ def dct4_mid_plain(x: torch.Tensor, scale=None) -> torch.Tensor:
 
 def dct4_mid(x: torch.Tensor, scale=None) -> torch.Tensor:
     """scale * DCT-IV (the rustdct convention) along dim 1 of a (B, n, L)
-    float32 tensor, n = 2 hl, hl = 128 * F, F <= 160 (:func:`dct4_f`). A CPU
+    float32 tensor, n = 2 hl, hl = 128 * F, F <= 256 (:func:`dct4_f`). A CPU
     tensor runs the plain version; a CUDA tensor launches kernel 28 (on the
-    fixed core for F in {4, 8, 16}, else on the wide core) or raises."""
+    fixed core for F in {4, 8, 16}, on the wide core up to F = 160, in the
+    long form beyond) or raises. The output is a new tensor (the long form
+    reads x after it has written y)."""
     if x.dim() != 3:
         raise ValueError(f"dct4_mid: expected (B, n, L), got {tuple(x.shape)}")
     nb, n, cols = x.shape
     f = dct4_f(n)
     if f is None:
-        raise ValueError(f"dct4_mid: n={n} is not 2 * 128 * F with F <= {WIDE_MAX_F}")
+        raise ValueError(f"dct4_mid: n={n} is not 2 * 128 * F with F <= {REAL_MAX_F}")
     if x.device.type == "cpu":
         return dct4_mid_plain(x, scale)
     if x.device.type != "cuda":
@@ -455,25 +496,32 @@ def dct4_mid(x: torch.Tensor, scale=None) -> torch.Tensor:
         return y
     dev = x.device
     hl = n // 2
-    wide = f not in C2C_F
+    long_form = f > WIDE_MAX_F
+    wide = f not in C2C_F and not long_form
     consts = (device_wq(hl, -1, 1.0, dev).data_ptr(),)
-    if wide:
+    if wide or long_form:
         consts += (device_wide(hl, -1, dev).data_ptr(),)
-    consts += (_device_dct4("chirp", n, 1.0, dev).data_ptr(),
+    consts += (_device_dct4("chirp_long" if long_form else "chirp", n, 1.0, dev).data_ptr(),
                _device_dct4("post", n, _scale(scale), dev).data_ptr())
     sms = num_sms(dev)
-    tile = wide_block(hl, nb, cols, sms) if wide else block_cols(hl, nb, cols, sms)
-    entry = "ndfft_dct4_mid_wide" if wide else "ndfft_dct4_mid"
+    if long_form:
+        tile, entry = wide_block(hl, nb, cols, sms, wide_real_bytes), "ndfft_dct4_mid_long"
+    elif wide:
+        tile, entry = wide_block(hl, nb, cols, sms), "ndfft_dct4_mid_wide"
+    else:
+        tile, entry = block_cols(hl, nb, cols, sms), "ndfft_dct4_mid"
     with torch.cuda.device(dev):
         err = getattr(_build.lib(), entry)(x.data_ptr(), y.data_ptr(), *consts, nb, n, cols,
                                            tile, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, entry)
     count_launch(dct4_mid, wide)
+    dct4_mid.long_launches += long_form
     return y
 
 
 dct4_mid.launches = 0
 dct4_mid.wide_launches = 0
+dct4_mid.long_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -576,7 +624,7 @@ def spectral_dct_mid(x: torch.Tensor, hv: torch.Tensor, s2=None, s3=None) -> tor
     H is a float32 (n, 1) or (n, L) tensor. A CPU tensor runs the plain
     version; a CUDA tensor launches kernel 29 (the fixed core at h = n/2 =
     128 * F, F in {2, 4, 8, 16}; the wide core's half-length form at other
-    F; the n-point form at odd k) or raises."""
+    F; the n-point form on the real tile at odd k <= 255) or raises."""
     _check_form(x, False, "spectral_dct_mid")
     nb, n, cols = x.shape
     hc = check_mult(hv, x, n, "spectral_dct_mid")
@@ -603,8 +651,8 @@ def spectral_dct_mid(x: torch.Tensor, hv: torch.Tensor, s2=None, s3=None) -> tor
         if npoint:
             err = lib.ndfft_spectral_dct_mid_npoint(
                 *args, device_wq(n, -1, 1.0, dev).data_ptr(), device_wide(n, -1, dev).data_ptr(),
-                post, _device_twiddle("pre_npoint", n, a3, dev).data_ptr(), nb, n, cols,
-                wide_block(n, nb, cols, sms), stream)
+                post, _device_twiddle("chirp_npoint", n, a3, dev).data_ptr(), nb, n, cols,
+                wide_block(n, nb, cols, sms, wide_real_bytes), stream)
         else:
             h = n // 2
             wq_fwd, wq_inv = device_wq(h, -1, 1.0, dev), device_wq(h, +1, 1.0, dev)

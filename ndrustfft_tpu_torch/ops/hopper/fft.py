@@ -68,7 +68,9 @@ GENERIC_SMEM = 96 * 1024    # a block's tile when a transform fits (2 blocks/SM)
 MAX_SMEM = 232448           # the most dynamic shared memory a block may use
 WIDE_SLOTS = 4              # planes per group of the wide core (bts2_wide.cuh)
 WIDE_MAX_C = 16             # transforms per tile of the wide core
-WQ_CACHE_BYTES = 256 << 20  # device tables kept (Wq 21 MB at n = 20480, exit twiddle 32 MB at 2^22)
+WQ_CACHE_BYTES = 256 << 20  # device tables kept (Wq 32 MB at n = 32768, exit twiddle 32 MB at 2^22)
+WIDE_MAX_F = GENERIC_MAX_N // M   # 160: the wide core's largest factor on a complex tile
+REAL_MAX_F = 256            # ... and on a real tile (csrc/bts2_wide.cuh::kWideMaxF)
 
 
 def core_f(n: int):
@@ -196,10 +198,18 @@ def wide_bytes(n: int, c: int) -> int:
     return 8 * (c * (n + WIDE_SLOTS * M) + n // M)
 
 
+def wide_real_bytes(n: int, c: int) -> int:
+    """Dynamic shared memory of a wide-core tile of ``c`` real transforms
+    of length n (csrc/bts2_wide.cuh::wide_real_smem_bytes): the tile of
+    floats, the Y scratch and two rows of F values (W_F^k and a chirp)."""
+    return 4 * c * n + 8 * (c * WIDE_SLOTS * M + 2 * (n // M))
+
+
 def wide_block(n: int, groups: int, count: int, sms: int, nbytes=wide_bytes) -> int:
     """Transforms per tile of the wide core: the largest power of two up to
     WIDE_MAX_C whose tile (``nbytes(n, c)``) fits GENERIC_SMEM (two blocks
-    per SM; at least one transform, up to MAX_SMEM at n = 20480), halved
+    per SM; at least one transform, up to MAX_SMEM: a complex tile at
+    n = 20480, a real one at n = 32768), halved
     while the grid of ``groups`` times the tiles would leave SMs idle. The
     kernels spread the ``count`` transforms evenly over the tiles."""
     c = WIDE_MAX_C

@@ -212,12 +212,7 @@ def _route_or_key(kind, shape, axis, n):
     dtype = C64 if kind in ("fft", "ifft", "c2r") else F32
     if kind == "c2r":
         shape = tuple(n // 2 + 1 if i == axis else s for i, s in enumerate(shape))
-    try:
-        return api._route(kind, shape, axis, dtype, "cuda", n=n if kind == "c2r" else None)
-    except NotImplementedError as exc:
-        keys = [k for k in gates.UNPORTED if k in str(exc) or gates.UNPORTED[k][0] in str(exc)]
-        assert keys, str(exc)
-        return keys[0]
+    return api._route(kind, shape, axis, dtype, "cuda", n=n if kind == "c2r" else None)
 
 
 def test_no_route_needs_a_missing_bluestein_kernel():
@@ -228,8 +223,8 @@ def test_no_route_needs_a_missing_bluestein_kernel():
     lane's chirp-z, or the engine below 128 rows except where its sub-FFT
     length blue_sub_len(n) exceeds 20480: there the sub-FFTs take the
     four-step, which has no batch gate, so every shape takes the lane's
-    chirp-z."""
-    assert "bluestein" not in gates.UNPORTED and "dct23_blue_mid" not in gates.UNPORTED
+    chirp-z. No route raises (the DCT long forms raised before they were
+    ported)."""
     counts = {}
     for n in range(2, 20481):
         blue = factorize(n) is None
@@ -251,6 +246,5 @@ def test_no_route_needs_a_missing_bluestein_kernel():
         if blue and 1100 < n <= 6784:
             for kind in ("dct2", "dct3", "dst2", "dst3"):
                 assert _route_or_key(kind, (n, 128), 0, n) == api.DCT23_BLUE_MID
-    # the keys left: the DCT long forms
-    assert set(counts) - set(api._RUNNABLE) <= {"dct23_long", "dct4_long"}
+    assert set(counts) <= set(gates.ROUTES)
     assert "fourstep" not in counts and counts[api.BLUESTEIN_LANE] > 0

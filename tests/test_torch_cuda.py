@@ -73,7 +73,8 @@ def test_step_runs_on_the_kernels(dev):
 
 def test_unported_route_and_grad_raise(dev):
     # n = 384 (F = 3) runs on kernel 10's wide core; DCT-II at n = 768
-    # (h = 384) on kernel 23's wide form; n = 128 * 161 (odd k > 160) raises
+    # (h = 384) on kernel 23's wide form; n = 128 * 161 (odd k > 160, which
+    # raised before the long forms were ported) on its n-point form
     x = torch.view_as_complex(torch.randn(256, 384, 2, device=dev))
     before = kfft.c2c_rows.wide_launches
     y = nd.ndfft(x, axis=1)
@@ -84,17 +85,24 @@ def test_unported_route_and_grad_raise(dev):
     y = nd.nddct2(r, axis=1)
     assert kdct.dct2_nat.wide_launches - before == 1
     assert _rel(y, kdct.dct2_nat_plain(r, 2.0)) <= TOL
-    with pytest.raises(NotImplementedError, match=r"_dct2_kernel.*item K23-K26 long\)"):
-        nd.nddct2(torch.zeros(128, 128 * 161, device=dev), axis=1)
+    r = torch.randn(128, 128 * 161, device=dev)
+    before = kdct.dct2_nat.npoint_launches
+    y = nd.nddct2(r, axis=1)
+    assert kdct.dct2_nat.npoint_launches - before == 1
+    assert _rel(y, kdct.dct2_nat_plain(r, 2.0)) <= TOL
     # DST-I along axis 0 at 1023 runs kernel 18 (it raised before the kernel
-    # was ported); DCT-IV past n = 40960 still raises (dct4_long)
+    # was ported); DCT-IV past n = 40960 runs kernel 28's long form (it
+    # raised before that form was ported)
     r = torch.randn(1023, 128, device=dev)
     before = krfft.r2c_packed_mid.launches
     y = nd.nddst1(r, axis=0)
     assert krfft.r2c_packed_mid.launches - before == 1
     assert _rel(y.double(), _dst1_oracle(r.double())) <= 1e-5
-    with pytest.raises(NotImplementedError, match=r"dct4_long.*item K28 long\)"):
-        nd.nddct4(torch.zeros(256 * 161, 128, device=dev), axis=0)
+    r = torch.randn(256 * 161, 128, device=dev)
+    before = kdct.dct4_mid.long_launches
+    y = nd.nddct4(r, axis=0)
+    assert kdct.dct4_mid.long_launches - before == 1
+    assert _rel(y, kdct.dct4_mid_plain(r[None], 2.0)[0]) <= TOL
     with pytest.raises(NotImplementedError, match="autograd"):
         nd.ndfft_r2c(torch.zeros(512, 512, device=dev, requires_grad=True), axis=1)
     y = nd.ndfft(torch.ones(4, 8, dtype=torch.complex128, device=dev), axis=1)
@@ -128,17 +136,22 @@ def test_dct_pair_runs_on_the_kernels(dev):
 
 def test_unported_dct_route_raises(dev):
     # DCT-II along axis 0 at 2048 runs kernel 25 on the fixed core (it raised
-    # before the kernel was ported); the n-point form past 20480 still raises
+    # before the kernel was ported); the n-point form past 20480 runs too (it
+    # raised before the long forms were ported)
     x = torch.randn(2048, 128, device=dev)
     before = kdct.dct2_mid.launches
     y = nd.nddct2(x, axis=0)
     assert kdct.dct2_mid.launches - before == 1
     assert _rel(y, kdct.dct2_mid_plain(x[None], 2.0)[0]) <= TOL
-    with pytest.raises(NotImplementedError, match="_mid forms"):
-        nd.nddct2(torch.zeros(128 * 161, 128, device=dev), axis=0)
+    x2 = torch.randn(128 * 161, 128, device=dev)
+    before = kdct.dct2_mid.npoint_launches
+    y = nd.nddct2(x2, axis=0)
+    assert kdct.dct2_mid.npoint_launches - before == 1
+    assert _rel(y, kdct.dct2_mid_plain(x2[None], 2.0)[0]) <= TOL
     assert nd.nddct2([1.0, 2.0, 3.0]).device.type == "cuda"   # non-tensor input
     # DCT-I at 2049 and DCT-IV at 2048 along axis 0 run kernels 19 and 28
-    # (they raised before the kernels were ported); 65536 raises dct4_long
+    # (they raised before the kernels were ported), and so does DST-IV at
+    # 65536 (the long form, F = 256; it raised before that form was ported)
     x1 = torch.randn(2049, 128, device=dev)
     before = (krfft.dct1_mid.launches, kdct.dct4_mid.launches)
     y1 = nd.nddct1(x1, axis=0)
@@ -146,8 +159,13 @@ def test_unported_dct_route_raises(dev):
     assert (krfft.dct1_mid.launches - before[0], kdct.dct4_mid.launches - before[1]) == (1, 1)
     assert _rel(y1, krfft.dct1_mid_plain(x1[None], 1.0)[0]) <= TOL
     assert _rel(y4, kdct.dct4_mid_plain(x[None], 2.0)[0]) <= TOL
-    with pytest.raises(NotImplementedError, match="item K28 long"):
-        nd.nddst4(torch.zeros(65536, 128, device=dev), axis=0)
+    x4 = torch.randn(65536, 128, device=dev)
+    before = kdct.dct4_mid.long_launches
+    y4 = nd.nddst4(x4, axis=0)
+    assert kdct.dct4_mid.long_launches - before == 1
+    alt = torch.ones(65536, 1, device=dev)
+    alt[1::2] = -1
+    assert _rel(y4, kdct.dct4_mid_plain(x4.flip(0)[None], 2.0)[0] * alt) <= TOL
 
 
 def test_c2c_kernels_match_plain(dev):
@@ -620,8 +638,9 @@ def test_spectral_kernels_match_plain_in_each_form(dev):
 def test_spectral_functions_run_on_the_fused_kernels(dev):
     """ndspectral_c2c / r2c / dct / dst along axis 0 take one fused launch
     each and agree with the composition of the public transforms; along the
-    last axis they compose; n = 128 * 161 raises spectral_dct_long. The
-    engine never runs."""
+    last axis they compose. The
+    engine never runs; n = 128 * 161 takes one launch of the n-point form
+    (it raised before the long forms were ported)."""
     g = torch.Generator(device=dev).manual_seed(20)
     calls = engine.c2c.calls
     before = _spectral_forms()
@@ -648,7 +667,49 @@ def test_spectral_functions_run_on_the_fused_kernels(dev):
     assert [a - b for a, b in zip(_spectral_forms(), before)] == [1, 0, 1, 0, 2, 0, 0]
     nd.ndspectral_r2c(xr.T.contiguous(), torch.ones(513, device=dev), axis=1)   # last axis
     assert krfft.spectral_r2c_mid.launches - before[2] == 1
-    with pytest.raises(NotImplementedError, match="spectral_dct_long"):
-        nd.ndspectral_dct(torch.zeros(128 * 161, 128, device=dev),
-                          torch.ones(128 * 161, device=dev), axis=0)
+    xl = torch.randn(128 * 161, 128, generator=g, device=dev)
+    hl = torch.rand(128 * 161, generator=g, device=dev)
+    before = kdct.spectral_dct_mid.npoint_launches
+    y = nd.ndspectral_dct(xl, hl, axis=0)
+    assert kdct.spectral_dct_mid.npoint_launches - before == 1
+    assert _rel(y, kdct.spectral_dct_mid_plain(xl[None], hl[:, None], 2.0, 2.0)[0]) <= TOL
     assert engine.c2c.calls == calls
+
+
+def test_long_forms_match_plain(dev):
+    """Kernels 23 to 26 and 29 in the n-point form on the real tile at odd
+    k > 160 (n = 20608, 20864 with the prime k = 163, 32640 = 128 * 255),
+    and kernel 28's long form at F = 161, 163 and 256 (n = 41216, 41728,
+    65536): one launch each, against the plain versions, with ragged
+    column tiles and a broadcast and a lane-varying H."""
+    g = torch.Generator(device=dev).manual_seed(23)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    before = [(f.launches, f.npoint_launches) for f in
+              (kdct.dct2_nat, kdct.dct3_nat, kdct.dct2_mid, kdct.dct3_mid,
+               kdct.spectral_dct_mid)]
+    for n in (20608, 20864, 32640):
+        x = randn(2, n, 130)
+        r = randn(3, n)
+        for scale in (2.0, None):
+            assert _rel(kdct.dct2_mid(x, scale), kdct.dct2_mid_plain(x, scale)) <= TOL, n
+            assert _rel(kdct.dct3_mid(x, scale), kdct.dct3_mid_plain(x, scale)) <= TOL, n
+            assert _rel(kdct.dct2_nat(r, scale), kdct.dct2_nat_plain(r, scale)) <= TOL, n
+            assert _rel(kdct.dct3_nat(r, scale), kdct.dct3_nat_plain(r, scale)) <= TOL, n
+        for hv, s2, s3 in ((randn(n, 1), 2.0, 1.0 / n), (randn(n, 130), None, 0.37)):
+            assert _rel(kdct.spectral_dct_mid(x, hv, s2, s3),
+                        kdct.spectral_dct_mid_plain(x, hv, s2, s3)) <= TOL, n
+    after = [(f.launches, f.npoint_launches) for f in
+             (kdct.dct2_nat, kdct.dct3_nat, kdct.dct2_mid, kdct.dct3_mid,
+              kdct.spectral_dct_mid)]
+    assert [(a - c, b - d) for (a, b), (c, d) in zip(after, before)] == \
+        [(6, 6)] * 4 + [(6, 6)]
+    before = (kdct.dct4_mid.launches, kdct.dct4_mid.long_launches, kdct.dct4_mid.wide_launches)
+    for n in (41216, 41728, 65536):
+        x = randn(2, n, 130)
+        for scale in (2.0, None):
+            assert _rel(kdct.dct4_mid(x, scale), kdct.dct4_mid_plain(x, scale)) <= TOL, n
+    after = (kdct.dct4_mid.launches, kdct.dct4_mid.long_launches, kdct.dct4_mid.wide_launches)
+    assert [a - b for a, b in zip(after, before)] == [6, 6, 0]

@@ -115,7 +115,7 @@ def test_wrappers_on_cpu_count_no_launch():
     lambda: kdct.dct_dense_mid(torch.zeros(1, 1, 3), 1),
     lambda: kdct.dct_dense_mid(torch.zeros(1, 5, 3, device="meta"), 2),
     lambda: kdct.dct2_nat(torch.zeros(2, 200)),             # not 128 * k
-    lambda: kdct.dct2_nat(torch.zeros(2, 128 * 161)),       # n-point beyond the wide core
+    lambda: kdct.dct2_nat(torch.zeros(2, 128 * 257)),       # n-point beyond the real tile
     lambda: kdct.dct3_nat(torch.zeros(2, 130)),
     lambda: kdct.dct3_nat(torch.zeros(2, 2, 256)),
     lambda: kdct.dct2_nat(torch.zeros(2, 256, device="meta")),

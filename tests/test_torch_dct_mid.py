@@ -174,21 +174,20 @@ def test_twiddles_bit_identical_to_the_jax_tables(n):
 
 
 def test_forms_cover_the_jax_gate():
-    """Every even n the JAX gate dct_pallas_supported takes up to 20480 has a
-    form; n = 128 k with odd k > 160 has none (the UNPORTED key)."""
+    """Every even n the JAX gate dct_pallas_supported takes has a form, odd
+    k > 160 included (the n-point form on the real tile; it had none before
+    the long form was ported)."""
     for n in range(2, 32770, 2):
         if ref_pdct.dct_pallas_supported(n, jnp.float32):
             form = kdct.dct_form(n)
             k = n // 128
-            assert (form is None) == (k % 2 == 1 and k > 160), n
-            if form is not None:
-                assert form == (("half", k // 2) if k % 2 == 0 else ("npoint", k)), n
+            assert form == (("half", k // 2) if k % 2 == 0 else ("npoint", k)), n
 
 
 @pytest.mark.parametrize("call", [
     lambda: kdct.dct2_mid(torch.zeros(1152, 3)),                        # rank
     lambda: kdct.dct2_mid(torch.zeros(1, 1100, 3)),                     # not 128 * k
-    lambda: kdct.dct3_mid(torch.zeros(1, 128 * 161, 3)),                # n-point, F > 160
+    lambda: kdct.dct3_mid(torch.zeros(1, 128 * 257, 3)),                # n-point, F > 256
     lambda: kdct.dct3_mid(torch.zeros(1, 1152, 3, device="meta")),      # device
     lambda: kdct.dct2_nat(torch.zeros(2, 1152, 3)),
 ])

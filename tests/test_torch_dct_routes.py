@@ -1,6 +1,6 @@
 """ndrustfft_tpu_torch.api._route for the DCT and DST kinds: which kernel
-each call takes on a CUDA tensor, which unported Pallas kernel a route
-raises for, and the gates against the JAX package's own gate functions.
+each call takes on a CUDA tensor (none raises), and the gates against the
+JAX package's own gate functions.
 _route is pure, so no card and no memory is needed."""
 
 import pytest
@@ -109,30 +109,24 @@ def test_float64_takes_the_engine(kind):
     # at a prime half length (its C2C on K11), the lane's chirp-z (K10)
     ("dct2", (2053, 128), 0, api.DCT23_BLUE_MID),
     ("dct3", (1109, 128), 0, api.DCT23_BLUE_MID),
-    # K28 beyond the wide core: n = 256 * F with F > 160 (dct4_long)
-    ("dct4", (256 * 161, 128), 0, ("_dct4_kernel_mid", "K28 long")),
-    ("dst4", (65536, 128), 0, ("_dct4_kernel_mid", "K28 long")),
+    # K28's long form, n = 256 * F with F > 160 (it raised dct4_long before
+    # that form was ported)
+    ("dct4", (256 * 161, 128), 0, api.DCT4_MID),
+    ("dst4", (65536, 128), 0, api.DCT4_MID),
     ("dct4", (2 * 1031, 128), 0, api.DCT4_HALF_MID),                  # composite, m prime
-    # the n-point form beyond the wide core: n = 128 * k, odd k > 160
-    ("dct2", (128, 128 * 161), 1, ("_dct2_kernel / _dct3_kernel", "K23-K26 long")),
-    ("dst3", (128, 128 * 255), 1, ("_dct2_kernel / _dct3_kernel", "K23-K26 long")),
-    ("dct3", (128 * 161, 128), 0, ("_dct2_kernel / _dct3_kernel", "K23-K26 long")),
+    # the n-point form on the real tile: n = 128 * k, odd k > 160 (it raised
+    # dct23_long before the long form was ported)
+    ("dct2", (128, 128 * 161), 1, api.DCT2_NAT),
+    ("dst3", (128, 128 * 255), 1, api.DCT3_NAT),
+    ("dct3", (128 * 161, 128), 0, api.DCT3_MID),
     ("dct4", (256, 32768), 1, api.DCT_LANE),      # four-step (K7/K13, ported)
     ("dct3", (256, 263), 1, api.BLUESTEIN_LANE),                    # Bluestein n
 ])
 def test_unported_route_raises_on_cuda(kind, shape, axis, want):
-    """A route whose kernel is not ported raises on a CUDA tensor and runs
-    the engine on a CPU tensor; a ported one (a route name) is the same on
-    both devices."""
-    if isinstance(want, str):
-        assert api._route(kind, shape, axis, F32, "cuda") == want
-        assert api._route(kind, shape, axis, F32, "cpu") == want
-        return
-    kernel, item = want
-    with pytest.raises(NotImplementedError, match=kernel) as exc:
-        api._route(kind, shape, axis, F32, "cuda")
-    assert f"ROADMAP.md item {item})" in str(exc.value)
-    assert api._route(kind, shape, axis, F32, "cpu") == api.ENGINE
+    """The routes that raised on a CUDA tensor while their kernels were not
+    ported: each is now a route name, the same on both devices."""
+    assert api._route(kind, shape, axis, F32, "cuda") == want
+    assert api._route(kind, shape, axis, F32, "cpu") == want
 
 
 def test_dct_routes_never_take_the_fft_kernels():
@@ -145,10 +139,7 @@ def test_dct_routes_never_take_the_fft_kernels():
     for n in range(2, 5000, 3):
         for kind in ("dct1", "dct2", "dct3", "dct4", "dst1"):
             for shape, axis in (((n, 256), 0), ((256, n), 1)):
-                try:
-                    route = api._route(kind, shape, axis, F32, "cuda")
-                except NotImplementedError:
-                    continue
+                route = api._route(kind, shape, axis, F32, "cuda")
                 assert route in (api.DCT_DENSE_MID, api.DCT2_NAT, api.DCT3_NAT,
                                  api.DCT2_MID, api.DCT3_MID, api.DCT4_HALF_MID, api.R2C_PACKED, api.R2C_ROWPAIR,
                                  api.DCT_LANE, api.R2C_PACKED_MID, api.DCT1_MID,

@@ -146,22 +146,16 @@ def _route_or_key(kind, shape, axis, n):
     dtype = C64 if kind in ("fft", "ifft", "c2r") else F32
     if kind == "c2r":
         shape = tuple(n // 2 + 1 if i == axis else s for i, s in enumerate(shape))
-    try:
-        return api._route(kind, shape, axis, dtype, "cuda", n=n if kind == "c2r" else None)
-    except NotImplementedError as exc:
-        keys = [k for k in gates.UNPORTED if gates.UNPORTED[k][0] in str(exc)]
-        assert keys, str(exc)
-        return keys[0]
+    return api._route(kind, shape, axis, dtype, "cuda", n=n if kind == "c2r" else None)
 
 
 def test_no_route_raises_the_four_step_key():
     """Over n = 2 ... 20480 on 128 rows, 4 rows and along axis 0 of (n, 128),
     over n = 20481 ... 65536 on 128 rows, and over a sample of n up to 2^22
-    on 4 rows, no call of any kind raises for want of kernels 7 and 13: the
-    keys left are the DCT long forms. Every four-step length of the complex
-    transform takes C2C_FOURSTEP, and the other kinds' lowerings their own
-    names."""
-    assert "fourstep" not in gates.UNPORTED
+    on 4 rows, no call of any kind raises for want of kernels 7 and 13 or
+    any other (the DCT long forms raised before they were ported). Every
+    four-step length of the complex transform takes C2C_FOURSTEP, and the
+    other kinds' lowerings their own names."""
     counts = {}
     grid = [(n, ((128, n), 1), ((4, n), 1), ((n, 128), 0)) for n in range(2, 20481)]
     grid += [(n, ((128, n), 1)) for n in range(20481, 65537)]
@@ -174,7 +168,8 @@ def test_no_route_raises_the_four_step_key():
                 counts[route] = counts.get(route, 0) + 1
                 if kind not in ("fft", "ifft"):
                     assert route != api.C2C_FOURSTEP, (kind, n)
-    assert set(counts) - set(api._RUNNABLE) <= {"dct23_long", "dct4_long"}
+    assert set(counts) <= set(gates.ROUTES)
+    assert counts[api.DCT4_MID] > 0 and counts[api.DCT2_MID] > 0
     assert counts[api.C2C_FOURSTEP] > 2 * 5000
 
 

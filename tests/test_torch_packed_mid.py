@@ -191,14 +191,16 @@ def test_dct4_chirps_bit_identical_to_the_jax_expressions(n, scale):
 
 
 def test_dct4_f_covers_the_jax_gate():
-    """Every even n that dct4_mid_supported takes has a factor F <= 160 or
-    is the UNPORTED dct4_long (40960 < n <= 65536)."""
+    """Every even n that dct4_mid_supported takes has a factor F <= 256, the
+    long form beyond F = 160 (40960 < n <= 65536, which had none before
+    that form was ported)."""
+    fs = []
     for n in range(4, 65537, 2):
         if ref_pdct.dct4_mid_supported(n, jnp.float32):
             f = kdct.dct4_f(n)
-            assert (f is None) == (n > 40960), n
-            if f is not None:
-                assert n == 256 * f, n
+            assert f is not None and n == 256 * f, n
+            fs.append(f)
+    assert max(fs) == 256 and sum(f > 160 for f in fs) == 96
 
 
 @pytest.mark.parametrize("call", [
@@ -209,7 +211,7 @@ def test_dct4_f_covers_the_jax_gate():
                                  torch.zeros(1, 256, 3, device="meta")),
     lambda: krfft.dct1_mid(torch.zeros(1, 1152, 3)),                  # n - 1 not 128 F
     lambda: krfft.dct1_mid(torch.zeros(1, 128 * 161 + 1, 3)),         # F > 160
-    lambda: kdct.dct4_mid(torch.zeros(1, 256 * 161, 3)),              # dct4_long
+    lambda: kdct.dct4_mid(torch.zeros(1, 256 * 257, 3)),              # F > 256
     lambda: kdct.dct4_mid(torch.zeros(1, 1000, 3)),
     lambda: kdct.dct4_mid(torch.zeros(1280, 3)),
 ])

@@ -13,7 +13,7 @@ the JAX package, whose Pallas kernels run in interpret mode:
   analytic solutions;
 * the route sweep over n = 2 ... 65536: no DST-I, DCT-I, DCT-IV or DST-IV
   along a middle axis raises K18, K19 or K28, and exactly the 96 lengths
-  40960 < n <= 65536 raise ``dct4_long``.
+  40960 < n <= 65536 take K28's long form.
 
 Tolerance: 5e-6 of max |JAX| in float32; 1e-5 of the analytic solution.
 """
@@ -160,27 +160,20 @@ def test_neumann_solve_matches_jax_and_the_analytic_solution():
     _close(got, u, 1e-5)
 
 
-def _route_or_item(kind, n):
-    try:
-        return api._route(kind, (n, 128), 0, F32, "cuda")
-    except NotImplementedError as exc:
-        return str(exc).rsplit("item ", 1)[1].rstrip(")")
-
-
 @pytest.mark.parametrize("kind,route,count", [
     ("dst1", api.R2C_PACKED_MID, 153), ("dct1", api.DCT1_MID, 146),
-    ("dct4", api.DCT4_MID, 156), ("dst4", api.DCT4_MID, 156)])
+    ("dct4", api.DCT4_MID, 252), ("dst4", api.DCT4_MID, 252)])
 def test_no_middle_axis_length_raises_k18_k19_or_k28(kind, route, count):
-    """Over n = 2 ... 65536 along axis 0 of (n, 128): DST-I takes K18 at
-    n = 128 F - 1 (F = 2 ... 160 with a plan), DCT-I K19 at n = 128 F + 1
-    (F = 9 ... 160 with a plan), DCT-IV and DST-IV K28 at n = 256 F
-    (F = 5 ... 160); only n = 256 F with F > 160 raises, as dct4_long."""
+    """Over n = 2 ... 65536 along axis 0 of (n, 128) nothing raises: DST-I
+    takes K18 at n = 128 F - 1 (F = 2 ... 160 with a plan), DCT-I K19 at
+    n = 128 F + 1 (F = 9 ... 160 with a plan), DCT-IV and DST-IV K28 at
+    n = 256 F (F = 5 ... 256; F > 160 is the long form, which raised
+    dct4_long before it was ported)."""
     got, long_ = 0, []
     for n in range(2, 65537):
-        r = _route_or_item(kind, n)
-        assert r not in ("K18", "K19", "K28"), (kind, n)
+        r = api._route(kind, (n, 128), 0, F32, "cuda")
         got += r == route
-        if r == "K28 long":
+        if r == api.DCT4_MID and n > 40960:
             long_.append(n)
     assert got == count
     assert long_ == ([256 * f for f in range(161, 257)] if kind in ("dct4", "dst4") else [])

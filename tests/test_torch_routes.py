@@ -111,19 +111,11 @@ def test_route_on_cuda(kind, shape, axis, dtype, n, want):
     ("c2r", (1154, 128), 0, 2 * 1153, api.BLUESTEIN_LANE),
 ])
 def test_unported_route_raises_on_cuda(kind, shape, axis, n, want):
-    """A route whose kernel is not ported raises on a CUDA tensor and runs
-    the engine on a CPU tensor; a ported one (a route name) is the same on
-    both devices."""
+    """The routes that raised on a CUDA tensor while their kernels were not
+    ported: each is now a route name, the same on both devices."""
     dtype = F32 if kind == "r2c" else C64
-    if isinstance(want, str):
-        assert api._route(kind, shape, axis, dtype, "cuda", n=n) == want
-        assert api._route(kind, shape, axis, dtype, "cpu", n=n) == want
-        return
-    kernel, item = want
-    with pytest.raises(NotImplementedError, match=kernel) as exc:
-        api._route(kind, shape, axis, dtype, "cuda", n=n)
-    assert f"ROADMAP.md item {item})" in str(exc.value)
-    assert api._route(kind, shape, axis, dtype, "cpu", n=n) == api.ENGINE
+    assert api._route(kind, shape, axis, dtype, "cuda", n=n) == want
+    assert api._route(kind, shape, axis, dtype, "cpu", n=n) == want
 
 
 # The other kinds' lane lowerings, one route name each: the packed R2C
@@ -191,10 +183,7 @@ def test_c2c_kernel_routes_serve_fft_and_ifft_only():
         for n in (2, 3, 128, 200, 201, 256, 264, 512, 640, 1000, 1024, 2048):
             for shape, axis in (((n, 256), 0), ((256, n), 1), ((130, n), 1)):
                 dtype = C64 if kind == "c2r" else F32
-                try:
-                    route = api._route(kind, shape, axis, dtype, "cuda")
-                except NotImplementedError:
-                    continue
+                route = api._route(kind, shape, axis, dtype, "cuda")
                 assert route not in (api.C2C_ROWS, api.C2C_DENSE_ROWS, api.C2C_DENSE_MID,
                                      api.C2C_GENERIC_ROWS, api.C2C_GENERIC_MID), \
                     (kind, shape, axis)

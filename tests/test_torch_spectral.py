@@ -149,11 +149,12 @@ def test_spectral_dct_mid_plain_matches_pallas(n, hkind, s2, s3):
 @pytest.mark.parametrize("n,form", [(128, ("npoint", 1)), (256, ("half", 1)),
                                     (384, ("npoint", 3)), (512, ("half", 2)),
                                     (1280, ("half", 5)), (20352, ("npoint", 159)),
-                                    (32768, ("half", 128)), (20608, None)])
+                                    (32768, ("half", 128)), (20608, ("npoint", 161)),
+                                    (32640, ("npoint", 255))])
 def test_dct_forms_of_the_fused_lengths(n, form):
     """K29 takes every n the JAX gate takes in dct_form's forms, n = 128 up
-    to the n-point F = 159 and the half form at k = 256; odd k > 160 has no
-    form (the UNPORTED key spectral_dct_long)."""
+    to the n-point F = 255 (odd k > 160 on the real tile, which had no form
+    before the long n-point form was ported) and the half form at k = 256."""
     assert ref_pdct.dct_pallas_supported(n, jnp.float32)
     assert kdct.dct_form(n) == form
 
@@ -256,7 +257,7 @@ C64 = torch.complex64
     lambda: krfft.spectral_r2c_mid(torch.zeros(1, 512, 3), torch.ones(257, 3),
                                    torch.ones(257, 1), 512),
     lambda: kdct.spectral_dct_mid(torch.zeros(1, 1100, 3), torch.ones(1100, 1)),
-    lambda: kdct.spectral_dct_mid(torch.zeros(1, 128 * 161, 3), torch.ones(128 * 161, 1)),
+    lambda: kdct.spectral_dct_mid(torch.zeros(1, 128 * 257, 3), torch.ones(128 * 257, 1)),
     lambda: kdct.spectral_dct_mid(torch.zeros(1, 512, 3), torch.ones(1, 512)),
     lambda: kdct.spectral_dct_mid(torch.zeros(1, 512, 3, device="meta"),
                                   torch.ones(512, 1, device="meta")),

@@ -14,9 +14,9 @@ package's (on the CPU the fused routes run the plain versions of kernels
 * a CPU gradient through the fused route against the composition's;
 * the five cases of ``examples/fused_filter.py`` as asserted results;
 * the route census: every kind over n = 2 ... 40960 along a middle axis of
-  128 columns on "cuda" launches nothing, raises only ``spectral_dct_long``
-  (and only where the n-point form passes the wide core), fuses exactly
-  where the JAX gates do, and its compositions' legs raise nothing.
+  128 columns on "cuda" launches nothing, raises nothing (the DCT's long
+  n-point lengths included), fuses exactly where the JAX gates do, and its
+  compositions' legs are routes of ``gates.ROUTES``.
 """
 
 import zlib
@@ -473,34 +473,29 @@ def _legs(kind, n):
 @pytest.mark.parametrize("kind", ["r2c", "c2c", "dct"])
 def test_route_census(kind, jax_interpret):
     """Every n = 2 ... 40960 along axis 1 of (1, n, 128) on "cuda": the route
-    is the fused one or COMPOSE, or the UNPORTED key spectral_dct_long at
-    exactly the DCT lengths n = 128 k with odd k > 160 that the JAX gate
-    takes; the composition's legs raise nothing. The fused route is taken
-    exactly where the JAX gate says: checked at every n for the DCT, and for
-    R2C and C2C at every n the port fuses, every n <= 2048 and every
-    multiple of 64 above (the JAX gates plan every length, ~4 minutes for
-    the whole sweep)."""
+    is the fused one or COMPOSE, and nothing raises (the DCT lengths
+    n = 128 k with odd k > 160, which raised spectral_dct_long before the
+    long n-point form was ported, fuse); the composition's legs are routes
+    of ``gates.ROUTES``. The fused route is taken exactly where the JAX gate
+    says: checked at every n for the DCT, and for R2C and C2C at every n the
+    port fuses, every n <= 2048 and every multiple of 64 above (the JAX
+    gates plan every length, ~4 minutes for the whole sweep)."""
     dtype = C64 if kind == "c2c" else F32
-    fused, raised = [], []
+    fused = []
     for n in range(2, _MAX_N + 1):
-        try:
-            route = api._spectral_route(kind, (1, n, 128), 1, dtype, "cuda")
-        except NotImplementedError as e:
-            assert "spectral_dct_long" in str(e) and "K23-K26 long" in str(e), n
-            raised.append(n)
-            continue
+        route = api._spectral_route(kind, (1, n, 128), 1, dtype, "cuda")
         if route == api.COMPOSE:
-            assert not set(_legs(kind, n)) & set(gates.UNPORTED), (kind, n)
+            assert set(_legs(kind, n)) <= set(gates.ROUTES), (kind, n)
         else:
             assert route == FUSED[kind], (kind, n)
             fused.append(n)
     if kind == "dct":
-        assert raised == [128 * k for k in range(161, 256, 2)]
         want = [n for n in range(2, _MAX_N + 1) if _jax_fuses(kind, n)]
-        assert fused == [n for n in want if n not in raised]
-        assert fused[0] == 128 and len(fused) == 208
+        assert fused == want
+        assert [n for n in fused if kdct.dct_form(n)[0] == "npoint" and n > 20480] == \
+            [128 * k for k in range(161, 256, 2)]
+        assert fused[0] == 128 and len(fused) == 208 + 48
         return
-    assert raised == []
     assert all(_jax_fuses(kind, n) for n in fused)
     sample = sorted(set(range(2, 2049)) | set(range(2048, _MAX_N + 1, 64)))
     assert [n for n in sample if _jax_fuses(kind, n)] == [n for n in sample if n in fused]
@@ -508,12 +503,15 @@ def test_route_census(kind, jax_interpret):
 
 
 def test_census_on_the_cpu_composes_the_long_dct():
-    """On a CPU tensor the long n-point DCT lengths compose (the public
-    DCTs' own CPU routes), as every unported key does there."""
-    assert api._spectral_route("dct", (1, 20608, 128), 1, F32, "cpu") == api.COMPOSE
-    assert api._spectral_route("dct", (1, 20352, 128), 1, F32, "cpu") == api.SPECTRAL_DCT_MID
-    assert "spectral_dct_long" in gates.UNPORTED
-    assert kdct.dct_form(20608) is None
+    """The long n-point DCT lengths fuse on a CPU tensor as on a CUDA one
+    (they composed on the CPU while the long form was not ported): one
+    route per call on both devices, kernel 29's n-point form."""
+    for n in (20352, 20608, 32640):
+        for device_type in ("cpu", "cuda"):
+            assert api._spectral_route("dct", (1, n, 128), 1, F32, device_type) == \
+                api.SPECTRAL_DCT_MID
+    assert not hasattr(gates, "UNPORTED")
+    assert kdct.dct_form(20608) == ("npoint", 161)
 
 
 @pytest.mark.parametrize("name", ["ndspectral_r2c", "ndspectral_c2c", "ndspectral_dct",

@@ -217,11 +217,8 @@ def test_wq_cache_holds_at_most_its_bytes(monkeypatch):
 
 
 def _raise_item(kind, shape, axis, dtype, n=None):
-    """The route on a CUDA tensor, or the ROADMAP item it raises with."""
-    try:
-        return api._route(kind, shape, axis, dtype, "cuda", n=n)
-    except NotImplementedError as exc:
-        return str(exc).rsplit("item ", 1)[1].rstrip(")")
+    """The route on a CUDA tensor (no route raises any more)."""
+    return api._route(kind, shape, axis, dtype, "cuda", n=n)
 
 
 def test_no_c2c_rfft_lane_or_dct1_length_raises_k1b():
