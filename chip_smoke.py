@@ -45,11 +45,11 @@ without the final line):
         15 on the core), DCT-IV/DST-IV along the last axis of 1024^2 and
         512^3 (kernel 10), DCT-III and DCT-II of 200^2 (kernel 8, kernel
         15's dense product), against scipy.fft in float64;
-     f. the generic two-factor schedule (kernel 8 at n > 256 without a
-        split, kernel 6 along a middle axis, kernel 15 at such a half
-        length): the 600^3 real step with the real axis last (kernel 15 at
-        h = 300, kernel 6 four times, kernel 8 at n = 600 after the C2R's
-        Hermitian extension) against torch.fft.rfftn in float64 (oracle
+     f. the lengths without a split (kernel 8 at n > 256 on the radix
+        core; the generic two-factor schedule of kernel 6 along a middle
+        axis and kernel 15 at such a half length): the 600^3 real step
+        with the real axis last (kernel 15 at h = 300, kernel 6 four times,
+        kernel 8 at n = 600 after the C2R's Hermitian extension) against torch.fft.rfftn in float64 (oracle
         only), with the round trip; ndfft/ndifft along the last axis of
         264^2 and along axis 0 of 1200 x 256, ndfft_r2c at 530 (odd h) and
         ndifft_r2c at 300, DCT-I at 265 and DST-I at 263, DCT-II/III of
@@ -57,11 +57,12 @@ without the final line):
         composite along axis 0 of 1200 x 600 (kernel 6), against float64
         torch.fft / scipy.fft;
      g. the bts2 core at any butterfly factor (the wide core of kernels 1,
-        10, 2/15 and 3): the 768^3 real step with the real axis last
-        (kernel 2 at h = 384, F = 3; kernel 1 at F = 6 four times; kernel
-        3) against torch.fft.rfftn in float64 (oracle only), with the
-        round trip; the 4096^2 complex round trip (kernels 10 and 1 at
-        F = 32) against torch.fft.fftn in complex128; the 4096^2 real step
+        2/15 and 3; kernel 10 at those F on the radix core): the 768^3 real
+        step with the real axis last (kernel 2 at h = 384, F = 3; kernel 1
+        at F = 6 four times; kernel 3) against torch.fft.rfftn in float64
+        (oracle only), with the round trip; the 4096^2 complex round trip
+        (kernel 10 on the radix core, kernel 1 at F = 32) against
+        torch.fft.fftn in complex128; the 4096^2 real step
         (kernel 1 at the ragged (1, 4096, 2049)), ndfft/ndifft at 384, 1152,
         16256 (F = 127, prime) and 20480 along the last axis and at 640 and
         20480 along axis 0, ndfft_r2c/ndifft_r2c at 1536 and 40960, DCT-I
@@ -167,6 +168,11 @@ without the final line):
         ndspectral_dst at 20608 ... 32640 against float64 scipy.fft; each
         long kernel at the paths' shapes against its plain version slice by
         slice, with its time;
+     n. the radix core's census: every length n in 257 ... 20480 whose
+        last-axis C2C over 128 rows the gates send to kernel 10 at F
+        outside {4, 8, 16} or to kernel 8's generic route (1731 lengths),
+        ndfft and ndifft on a (128, n) field against torch.fft in
+        complex128 (oracle only), within TOL_KERNEL of the oracle's peak;
   5. times with CUDA events (median over --reps runs after warm-up): each
      kernel against its plain version and, where one PyTorch call computes
      the same function, that call (the yardstick, never on the port's
@@ -178,18 +184,23 @@ without the final line):
      against torch.fft.rfft(dim=0), the real-axis-last 256^3 and 128^3
      steps against torch.fft.rfftn / irfftn, each with its public calls
      timed one by one and the C2R's Hermitian extension and kernel 8
-     apart, and the same for the 600^3 step; the wide core's kernels at
-     the paths' shapes, the 768^3 step (each public call timed alone) and
-     the 4096^2 complex round trip against torch.fft.
+     apart, and the same for the 600^3 step; the wide core's and the radix
+     core's kernels at the paths' shapes (the radix core against
+     torch.fft.fft at each), the 768^3 step and the 4096^2 complex round
+     trip (each public call timed alone) against torch.fft, and ndfft at
+     the Bluestein lengths 131 and 2049 along the last axis (the chirp-z's
+     sub-FFTs on the radix core) against torch.fft.fft.
 The kernels line gives each kernel's launches on its main path, its largest
 error against its plain version, its times, and its bound: the larger of
 the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its FP32 operations over 67 TFLOP/s (H100 SXM data
 sheet, 700 W). Its launches are the sum over the main paths of phase 4;
-kernels 1, 2, 3, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 22 and 28 on the
+kernels 1, 2, 3, 11, 12, 13, 14, 15, 16, 17, 18, 19, 22 and 28 on the
 bts2 core are two rows each, the fixed core (launches - wide_launches) and the wide
 one (wide_launches; K11 and K12 rows also give the bound of their two
-length-M FFTs per column, ``length_m_bound_ms``), and
+length-M FFTs per column, ``length_m_bound_ms``); kernel 10 two, the fixed
+core and the radix core (radix_launches); kernel 8 above n = 256 runs on the
+radix core (``c2c_generic_rows``); and
 kernels 23 to 26 and 29 three: the fixed core, the wide core's half length
 and the n-point form (npoint_launches); kernel 7 three: the fixed core, the
 wide core and the dense body (dense_launches); kernel 28 three: the fixed
@@ -217,9 +228,9 @@ TOL_PACKED = 2e-6    # kernel 15 (core, dense) vs plain: sums of at most 2048 te
 TOL_STEP = 1e-5      # step vs float64 oracle and round trip, relative
 # the forms that a wrapper counts apart beside ``launches`` (which counts
 # every launch): ``wide_launches``, for the DCT-II/III kernels
-# ``npoint_launches``, for kernel 7 ``dense_launches`` and for kernel 28
-# ``long_launches``
-FORMS = ("wide", "npoint", "dense", "long")
+# ``npoint_launches``, for kernel 7 ``dense_launches``, for kernel 28
+# ``long_launches`` and for kernel 10 ``radix_launches``
+FORMS = ("wide", "npoint", "dense", "long", "radix")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, 700 W
 FP32_FLOP_PER_S = 67e12     # FP32 outside the tensor cores, same source
 
@@ -269,8 +280,10 @@ def work(name: str, shape, length_m: bool = False, mult=None):
     and do the function's 5 n log2 n or 2.5 n log2 n per column; their tables
     are the two chirps, H and both cores' Wq (and DFT-F) at the convolution
     length M. ``length_m``: their operations as two complex FFTs of length M
-    per column instead. The four-step's kernel 7 on (B, n1, n2) reads x and
-    the (n1, n2) exit twiddle and writes y, and does an n1-point complex FFT
+    per column instead. Kernel 10 at F outside {4, 8, 16} and kernel 8
+    above n = 256 (the radix core) read x and the radix table (n entries and
+    each prime stage's row) and write y. The four-step's kernel 7 on
+    (B, n1, n2) reads x and the (n1, n2) exit twiddle and writes y, and does an n1-point complex FFT
     per column and a complex product (6 FLOPs) per element; its tables are
     its body's (the core's Wq at n1, or the dense body's (n1, n1) matrix).
     Kernel 13 reads (B, n1, n2) and writes (B, n2, n1) with Wq at n2, and
@@ -375,7 +388,11 @@ def work(name: str, shape, length_m: bool = False, mult=None):
     if name == "c2c_rows":
         t, n = shape
         return 16 * t * n + 8 * n * 128, 5 * n * math.log2(n) * t
-    if name in ("c2c_generic_rows", "c2c_generic_mid", "r2c_packed_generic"):
+    if name in ("c2c_rows_radix", "c2c_generic_rows"):
+        from ndrustfft_tpu_torch.ops.hopper.fft import radix_consts
+        t, n = shape            # the radix core's table: n entries and the prime rows
+        return 16 * t * n + 8 * len(radix_consts(n, -1)[0]), 5 * n * math.log2(n) * t
+    if name in ("c2c_generic_mid", "r2c_packed_generic"):
         from ndrustfft_tpu_torch.ops.hopper.fft import generic_split
         if name == "r2c_packed_generic":
             t, n = shape        # tables of h, and the unpack twiddle
@@ -383,7 +400,7 @@ def work(name: str, shape, length_m: bool = False, mult=None):
             m, f = generic_split(h)
             return (4 * t * n + 8 * t * (h + 1) + 8 * (m * m + f * f + m * f + h),
                     2.5 * n * math.log2(n) * t)
-        n = shape[-1] if name == "c2c_generic_rows" else shape[1]
+        n = shape[1]
         m, f = generic_split(n)
         outputs = math.prod(shape) // n
         return 16 * outputs * n + 8 * (m * m + f * f + m * f), 5 * n * math.log2(n) * outputs
@@ -448,6 +465,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     import ndrustfft_tpu_torch as nd
+    from ndrustfft_tpu_torch import gates
     from ndrustfft_tpu_torch.ops import dst as tdst
     from ndrustfft_tpu_torch.ops import engine
     from ndrustfft_tpu_torch.ops.hopper import _build
@@ -501,7 +519,7 @@ def main() -> int:
             "r2c_mid": 0.0, "c2r_mid": 0.0, "r2c_dense_mid": 0.0, "c2r_dense_mid": 0.0,
             "r2c_packed": 0.0, "r2c_packed_dense": 0.0, "c2c_generic_rows": 0.0,
             "c2c_generic_mid": 0.0, "r2c_packed_generic": 0.0, "c2c_axis_mid_wide": 0.0,
-            "c2c_rows_wide": 0.0, "r2c_nat_wide": 0.0, "c2r_nat_wide": 0.0,
+            "c2c_rows_radix": 0.0, "r2c_nat_wide": 0.0, "c2r_nat_wide": 0.0,
             "r2c_packed_wide": 0.0, "r2c_mid_wide": 0.0, "c2r_mid_wide": 0.0,
             "dct2_nat_wide": 0.0, "dct3_nat_wide": 0.0, "dct2_nat_npoint": 0.0,
             "dct3_nat_npoint": 0.0, "dct2_mid": 0.0, "dct3_mid": 0.0, "dct2_mid_wide": 0.0,
@@ -767,20 +785,24 @@ def main() -> int:
         emit(phase="time", kernel=name, shape=shape, ms=t_k, plain_ms=t_plain,
              library_ms=t_lib, plain_in_slices=len(cuts), card=card)
 
-    # the wide core (F outside the fixed core's factors): the main paths'
-    # shapes (phase 4g), ragged column and row tiles, prime F = 127 and the
-    # largest F = 160 (one column or row per block); the C2R spectra carry
-    # DC and Nyquist imaginary parts that must be ignored
-    for name, kern, plain, shapes in (
+    # the wide core (F outside the fixed core's factors) and kernel 10 at
+    # those F on the radix core: the main paths' shapes (phase 4g), ragged
+    # column and row tiles, prime F = 127 and the largest F = 160 (one column
+    # or row per block); the C2R spectra carry DC and Nyquist imaginary parts
+    # that must be ignored
+    for name, kern, plain, shapes, signs in (
             ("c2c_axis_mid_wide", kfft.c2c_axis_mid, kfft.c2c_axis_mid_plain,
              ((768, 768, 385), (1, 768, 295680), (1, 4096, 4096), (1, 4096, 2049),
-              (3, 640, 129), (1, 640, 256), (1, 16256, 128), (1, 20480, 128))),
-            ("c2c_rows_wide", kfft.c2c_rows, kfft.c2c_rows_plain,
+              (3, 640, 129), (1, 640, 256), (1, 16256, 128), (1, 20480, 128)),
+             ((-1, False), (+1, True))),
+            ("c2c_rows_radix", kfft.c2c_rows, kfft.c2c_rows_plain,
              ((4096, 4096), (1536, 768), (128, 384), (7, 1152), (128, 1152), (128, 640),
-              (128, 16256), (128, 20480)))):
+              (128, 16256), (128, 20480)),
+             ((-1, False), (+1, False), (-1, True), (+1, True)))):
         for shape in shapes:
             x = crandn(*shape)
-            for sign, scale in ((-1, None), (+1, 1.0 / shape[1])):
+            for sign, inv in signs:
+                scale = 1.0 / shape[1] if inv else None
                 check_form(name, kern, lambda: kern(x, sign, scale),
                            lambda: plain(x, sign, scale), shape, sign=sign, scale=scale)
             del x
@@ -1011,9 +1033,9 @@ def main() -> int:
                 "rows_store_t": kfft.rows_store_t, "spectral_c2c_mid": kfft.spectral_c2c_mid,
                 "spectral_r2c_mid": krfft.spectral_r2c_mid,
                 "spectral_dct_mid": kdct.spectral_dct_mid}
-    # the wide core's launches, the DCT kernels' n-point ones and kernel 7's
-    # dense ones, counted apart by the same wrappers (their ``launches``
-    # count every launch)
+    # the wide core's launches, the DCT kernels' n-point ones, kernel 7's
+    # dense ones and kernel 10's on the radix core, counted apart by the same
+    # wrappers (their ``launches`` count every launch)
     forms = {f"{name}_{form}": (wrappers[name], f"{form}_launches")
              for name in ("c2c_axis_mid", "c2c_rows", "r2c_nat", "c2r_nat", "r2c_packed",
                           "r2c_mid", "c2r_mid", "dct2_nat", "dct3_nat", "dct2_mid",
@@ -1021,8 +1043,8 @@ def main() -> int:
                           "c2c_blue_mid", "dct23_blue_mid", "fourstep_mid", "rows_store_t",
                           "spectral_c2c_mid", "spectral_r2c_mid", "spectral_dct_mid")
              for form in FORMS
-             if form == "wide" or form == "npoint" and name.startswith(("dct2_", "dct3_",
-                                                                         "spectral_dct"))
+             if form == "wide" and name != "c2c_rows" or form == "radix" and name == "c2c_rows"
+             or form == "npoint" and name.startswith(("dct2_", "dct3_", "spectral_dct"))
              or form == "dense" and name == "fourstep_mid" or form == "long" and name == "dct4_mid"}
 
     def count(name):
@@ -1480,7 +1502,7 @@ def main() -> int:
     reset_counts()
     y4k = fft2_last_first(x4k, h4k)
     b4k = ifft2_first_last(y4k, h4k)
-    read_counts("c2c_4096x4096", c2c_rows=2, c2c_rows_wide=2, c2c_axis_mid=2,
+    read_counts("c2c_4096x4096", c2c_rows=2, c2c_rows_radix=2, c2c_axis_mid=2,
                 c2c_axis_mid_wide=2)
     peak = torch.cuda.max_memory_allocated()
     check_c2c("fftn_ifftn", y4k, x4k, b4k, grid=[4096, 4096], peak_bytes=peak,
@@ -1515,7 +1537,7 @@ def main() -> int:
     b640 = nd.ndifft_r2c(s640, axis=1, n=640)
     read_counts("wide_lanes", r2c_nat=1 + 2, r2c_nat_wide=2, c2c_axis_mid=2 + 4,
                 c2c_axis_mid_wide=2 + 4, c2r_nat=1 + 2, c2r_nat_wide=2,
-                c2c_rows=8 + 1 + 1, c2c_rows_wide=8 + 1 + 1, r2c_packed=1, r2c_packed_wide=1)
+                c2c_rows=8 + 1 + 1, c2c_rows_radix=8 + 1 + 1, r2c_packed=1, r2c_packed_wide=1)
     check_r2c_mid("step_4096^2_real_axis_last", v4k, xr4k, r4k, (0, 1), grid=[4096, 4096])
     for n, (y, b) in rows_out.items():
         check_c2c("fft_last_axis", y, rows_in[n], b, dims=(1,), grid=[128, n])
@@ -2110,7 +2132,7 @@ def main() -> int:
     d_out = {kind: getattr(nd, f"nd{kind}")(x, axis=0 if x.shape[0] > 1024 else 1)
              for kind, x in d_in.items()}
     read_counts("blue_lengths", c2c_blue_mid=5, c2c_blue_mid_wide=3, c2c_rows=16,
-                c2c_rows_wide=16, dct23_blue_mid=3, dct23_blue_mid_wide=3)
+                c2c_rows_radix=16, dct23_blue_mid=3, dct23_blue_mid_wide=3)
     for (n, axis), y in c_out.items():
         x = c_in[(n, axis)]
         check_c2c("fft_length", y, x, nd.ndifft(y, axis=axis), dims=(axis,), n=n, axis=axis)
@@ -2825,6 +2847,38 @@ def main() -> int:
     del len_in, len_out, spec_in, spec_out, x, y, h
     torch.cuda.empty_cache()
 
+    # ---- 4n. the radix core's census: every length whose last-axis C2C over
+    # 128 rows takes kernel 10 off the fixed core (C2C_ROWS at F outside {4,
+    # 8, 16}) or kernel 8 above 256 (C2C_GENERIC_ROWS), as the gates name
+    # them over 257 ... 20480, through ndfft and ndifft on a (128, n) field,
+    # each against torch.fft in complex128 (an oracle only, run on the host,
+    # where a new length costs no cuFFT planning; compared on the card)
+    routes = {n: gates.lane_c2c_route(n, 128) for n in range(257, kfft.GENERIC_MAX_N + 1)}
+    census = [n for n, route in routes.items() if route == gates.C2C_GENERIC_ROWS
+              or route == gates.C2C_ROWS and n // kfft.M not in kfft.C2C_F]
+    rows_n = sum(routes[n] == gates.C2C_ROWS for n in census)
+    t0 = time.perf_counter()
+    worst = (0.0, None)
+    reset_counts()
+    for n in census:
+        x = crandn(128, n)
+        y = nd.ndfft(x, axis=1)
+        back = nd.ndifft(y, axis=1)
+        x64, y64 = (t.cpu().to(torch.complex128) for t in (x, y))
+        oracles = (torch.fft.fft(x64, dim=1).to(dev), torch.fft.ifft(y64, dim=1).to(dev))
+        for got, want in zip((y, back), oracles):
+            err = rel_err(got, want)
+            if not err <= TOL_KERNEL:
+                raise AssertionError(f"census n={n}: {err}")
+            worst = max(worst, (err, n))
+    read_counts("radix_census", c2c_rows=2 * rows_n, c2c_rows_radix=2 * rows_n,
+                c2c_generic_rows=2 * (len(census) - rows_n))
+    emit(phase="radix_census", lengths=len(census), c2c_rows_lengths=rows_n,
+         c2c_generic_rows_lengths=len(census) - rows_n, worst_rel_err=worst[0], worst_n=worst[1],
+         seconds=time.perf_counter() - t0)
+    del x, y, back, x64, y64, oracles
+    torch.cuda.empty_cache()
+
     # ---- 5. times: each kernel against its plain version and, at the main
     # path's shape, the PyTorch call that computes the same function (the
     # yardstick); the steps against torch.fft (the 1536^3 solve's kernels
@@ -2839,7 +2893,7 @@ def main() -> int:
                    "c2r_dense_mid": (1, 129, 256 * 256), "r2c_packed": (256 * 256, 256),
                    "r2c_packed_dense": (128 * 128, 128), "c2c_generic_rows": (600 * 600, 600),
                    "c2c_generic_mid": (600, 600, 301), "r2c_packed_generic": (600 * 600, 600),
-                   "c2c_axis_mid_wide": (768, 768, 385), "c2c_rows_wide": (4096, 4096),
+                   "c2c_axis_mid_wide": (768, 768, 385), "c2c_rows_radix": (4096, 4096),
                    "r2c_nat_wide": (768 * 768, 768), "c2r_nat_wide": (768 * 768, 385),
                    "r2c_packed_wide": (769, 1536), "r2c_mid_wide": (1, 1280, 1280),
                    "c2r_mid_wide": (1, 641, 1280), "dct2_nat_wide": (1536 * 1536, 1536),
@@ -2865,11 +2919,14 @@ def main() -> int:
                    "spectral_dct_mid_wide": (8, 1280, 8192),
                    "spectral_dct_mid_npoint": (8, 1152, 8192)}
 
+    # the radix core's kernels: the yardstick at every shape timed
+    library_every_shape = ("c2c_rows_radix", "c2c_generic_rows")
+
     def time_kernel(name, shape, kern, plain, library=None):
         t_plain = cuda_ms(plain, reps)
         t_k = cuda_ms(kern, reps)
-        t_lib = (cuda_ms(library, reps)
-                 if library is not None and shape == main_shapes[name] else None)
+        t_lib = (cuda_ms(library, reps) if library is not None and (
+            shape == main_shapes[name] or name in library_every_shape) else None)
         timing[(name, shape)] = (t_k, t_plain, t_lib)
         emit(phase="time", kernel=name, shape=shape, ms=t_k, plain_ms=t_plain,
              library_ms=t_lib, card=card)
@@ -2991,7 +3048,8 @@ def main() -> int:
             time_kernel(name, shape, lambda: kern(x), lambda: plain(x),
                         lambda: torch.fft.rfft(x, dim=1))
     del x
-    # the generic schedule, and the 600^3 step among the real-axis-last steps
+    # kernel 8 on the radix core, the generic schedule (kernel 6), and the
+    # 600^3 step among the real-axis-last steps
     for name, kern, plain, shapes in (
             ("c2c_generic_rows", kfft.c2c_generic_rows, kfft.c2c_generic_rows_plain,
              ((600 * 600, 600), (264, 264), (2000, 1000))),
@@ -3049,12 +3107,13 @@ def main() -> int:
     del rfft2d_inputs
     torch.cuda.empty_cache()
 
-    # the wide core: each kernel at the paths' shapes (phase 4g), the 768^3
-    # step with each public call timed alone, and the 4096^2 round trip
+    # the wide core and kernel 10's radix core: each kernel at the paths'
+    # shapes (phase 4g), the 768^3 step with each public call timed alone,
+    # and the 4096^2 round trip
     for name, kern, plain, dim, shapes in (
             ("c2c_axis_mid_wide", kfft.c2c_axis_mid, kfft.c2c_axis_mid_plain, 1,
              ((768, 768, 385), (1, 768, 295680), (1, 4096, 4096), (1, 4096, 2049))),
-            ("c2c_rows_wide", kfft.c2c_rows, kfft.c2c_rows_plain, -1,
+            ("c2c_rows_radix", kfft.c2c_rows, kfft.c2c_rows_plain, -1,
              ((4096, 4096), (1536, 768), (128, 20480)))):
         for shape in shapes:
             x = crandn(*shape)
@@ -3103,8 +3162,29 @@ def main() -> int:
     t_torch = cuda_ms(lambda: torch.fft.ifftn(torch.fft.fftn(x4k)), reps, 2)
     emit(phase="time", c2c_fftn_ifftn=[4096, 4096], ms=t_port, torch_fft_ms=t_torch,
          peak_bytes=peak, card=card)
-    del x4k
+    # where the round trip's time goes: each public call alone (K10 on the
+    # radix core along axis 1, K1 wide along axis 0)
+    y1 = nd.ndfft(x4k, h4k, axis=1)
+    y0 = nd.ndfft(y1, h4k, axis=0)
+    w0 = nd.ndifft(y0, h4k, axis=0)
+    legs = {"fft_axis1": lambda: nd.ndfft(x4k, h4k, axis=1),
+            "fft_axis0": lambda: nd.ndfft(y1, h4k, axis=0),
+            "ifft_axis0": lambda: nd.ndifft(y0, h4k, axis=0),
+            "ifft_axis1": lambda: nd.ndifft(w0, h4k, axis=1)}
+    leg_ms = {k: cuda_ms(f, reps) for k, f in legs.items()}
+    emit(phase="time", breakdown="c2c_fftn_ifftn_4096^2", round_trip_ms=t_port, legs_ms=leg_ms,
+         sum_public_ms=sum(leg_ms.values()), card=card)
+    del x4k, y1, y0, w0
     torch.cuda.empty_cache()
+    # the Bluestein lengths along the last axis (phase 4j): the lane's
+    # chirp-z, its two sub-FFTs of length M on kernel 10's radix core
+    # (M = 384 at n = 131, M = 4608 at n = 2049), against torch.fft.fft
+    for n in (131, 2049):
+        x = crandn(256, n)
+        t_port = cuda_ms(lambda: nd.ndfft(x, axis=1), reps)
+        t_torch = cuda_ms(lambda: torch.fft.fft(x, dim=1), reps)
+        emit(phase="time", blue_lane=[256, n], ms=t_port, torch_fft_ms=t_torch, card=card)
+    del x
 
     def yardstick_pair(x):
         f = makhoul_dct(makhoul_dct(x, 1, 2), 0, 2)
@@ -3227,7 +3307,7 @@ def main() -> int:
                        "ndrustfft_tpu/ops/pallas/rfft.py:163"),
         "r2c_packed_dense": ("ndrustfft_tpu_torch/csrc/rfft_dense.cu",
                              "ndrustfft_tpu/ops/pallas/rfft.py:163"),
-        "c2c_generic_rows": ("ndrustfft_tpu_torch/csrc/fft_generic.cu",
+        "c2c_generic_rows": ("ndrustfft_tpu_torch/csrc/fft_radix.cuh",
                              "ndrustfft_tpu/ops/pallas/fft.py:521"),
         "c2c_generic_mid": ("ndrustfft_tpu_torch/csrc/fft_generic.cu",
                             "ndrustfft_tpu/ops/pallas/fft.py:1794"),
@@ -3235,8 +3315,8 @@ def main() -> int:
                                "ndrustfft_tpu/ops/pallas/rfft.py:163"),
         "c2c_axis_mid_wide": ("ndrustfft_tpu_torch/csrc/fft_axis_mid.cu",
                               "ndrustfft_tpu/ops/pallas/fft.py:1124"),
-        "c2c_rows_wide": ("ndrustfft_tpu_torch/csrc/fft_rows.cu",
-                          "ndrustfft_tpu/ops/pallas/fft.py:743"),
+        "c2c_rows_radix": ("ndrustfft_tpu_torch/csrc/fft_radix.cuh",
+                           "ndrustfft_tpu/ops/pallas/fft.py:743"),
         "r2c_nat_wide": ("ndrustfft_tpu_torch/csrc/rfft_nat.cu",
                          "ndrustfft_tpu/ops/pallas/rfft.py:242"),
         "c2r_nat_wide": ("ndrustfft_tpu_torch/csrc/rfft_nat.cu",

@@ -1,10 +1,11 @@
-// Shared core of the generic-schedule kernels: K8 at n > 256 without a
-// {128, 256} split (fft_generic.cu, rows), K6 (fft_generic.cu, columns) and
-// K15 at such a half length (rfft_generic.cu, rows).
+// Shared core of the generic-schedule kernels: K6 (fft_generic.cu, columns)
+// and K15 at a half length without a {128, 256} split (rfft_generic.cu,
+// rows). K8's rows at such n moved to the mixed-radix row core
+// (fft_radix.cuh), which does O(n log n) work.
 //
 // Replaces, for the CUDA port, the schedule that the JAX package's Pallas
-// kernels _kernel_lane_last (m > 1), _kernel_axis_mid and _r2c_kernel's
-// generic half FFT share: ndrustfft_tpu/ops/pallas/fft.py::_axis0_core on the
+// kernels _kernel_axis_mid and _r2c_kernel's generic half FFT share (with
+// _kernel_lane_last at m > 1, now ported to fft_radix.cuh): ndrustfft_tpu/ops/pallas/fft.py::_axis0_core on the
 // constants of _plan_consts. A C2C of length n = m * f, f = _lane_factor(n)
 // <= 256, input index t = f t' + j, output index k = q m + p:
 //
@@ -28,8 +29,8 @@
 // up to 7 outputs p of one line j (one x load feeds them all), pass 2 each
 // thread 4 outputs q of one (p, transform) (one B load feeds them all), so
 // a MAC costs 4 FMAs and at most 1.25 loads, each load one shared address
-// or a contiguous run across the warp. Tensor cores (3xTF32 wgmma)
-// and a radix redesign are the levers for later work.
+// or a contiguous run across the warp. The lever for later work is the
+// mixed-radix row core (fft_radix.cuh) in K6's column layout and under K15.
 //
 // Tile layouts (c = transform of the block, V valid transforms):
 //   kRows:  B/x (r, j) of transform c at s[c * m * F1 + r * F1 + j], F1 = f | 1

@@ -1,0 +1,548 @@
+// The mixed-radix row core: a Stockham autosort FFT of contiguous complex64
+// rows in shared memory, for any n <= 20480 whose prime factors are at most
+// 127. Kernel 10 runs it at n = 128 * F with F outside the bts2 core's
+// {4, 8, 16} and kernel 8 at 256 < n <= 20480 (fft_rows_radix.cu).
+//
+// Replaces, for the CUDA port, the JAX package's
+// ndrustfft_tpu/ops/pallas/fft.py::_kernel_twostep (the twostep split
+// m = 128 at those F) and ::_kernel_lane_last with m > 1 (the generic lane
+// schedule). Both TPU kernels run dense DFT stages, cheap on a 128 x 128 MXU;
+// their first Hopper forms (bts2_wide.cuh: a dense DFT-F then a dense
+// DFT-128; fft_generic.cuh: two dense products) did 8 (128 + F) or
+// 8 (m + f) FP32 operations per output, 20-35x an FFT's 5 log2 n, and read
+// F * 128 KB of folded twiddles per tile from L2.
+//
+// What bounds it on this card: device memory. A row is read once and
+// written once, 16 n T bytes over 3.35 TB/s (0.080 ms at (4096, 4096)),
+// against about 5 n log2 n FP32 operations per row (0.015 ms of the
+// 67 TFLOP/s peak at that shape); the passes through shared memory, one
+// read and one write per element and stage, come next.
+//
+// The design. The host factors n (ops/hopper/fft.py::radix_plan) into at
+// most 8 stages: 16 while it divides the power of two, one 8, 4 or 2 for the
+// rest, a 9 for each pair of 3s, a 3, each 5 and 7, then each prime
+// 11 <= p <= 127 as a stage of its own. A block copies R contiguous rows into
+// shared memory with 16-byte loads (one float2 of padding after every 32, so
+// that the strided writes of the early stages fall in different banks).
+// The stage of radix r after stages whose radices multiply to L reads, for
+// butterfly i = q L + k of a row, x[i + j n / r] (j < r), multiplies by
+// W_{rL}^{j k} from the host's table (__ldg; no sincosf on the device), runs
+// the DFT-r in registers and writes y[q r L + m L + k] (Stockham: natural
+// order after the last stage, no final transpose). A thread holds all of its
+// butterflies (16 elements; 32 above n = 4096, 40 above 16384) in registers across the
+// stage's barrier, so the stage runs in place and the tile is 8 n R bytes.
+// The last stage multiplies by the scale and hands each output to the store
+// at k = i + m n / r: consecutive threads on consecutive bins, coalesced.
+// Codelets: 2, 4, 8, 16 by radix-2 splits with the W_16 constants folded at
+// compile time; 3, 5, 7, 9 by the conjugate-pair form below with constants;
+// a prime p >= 11 by the same form at run time, its coefficient row W_p^u
+// (u < p) in shared memory and the stage in two passes: the pairs
+// a_j = x_j + x_{p-j} and b_j = x_j - x_{p-j} in place, then each output pair
+//   X[m]     = x_0 + sum_j a_j Re W_p^{jm} + i sum_j b_j Im W_p^{jm},
+//   X[p - m] = x_0 + sum_j a_j Re W_p^{jm} - i sum_j b_j Im W_p^{jm},
+// 2 p FMAs per output where a dense DFT-p costs 4 p; only that stage pays
+// O(p). The plan puts the primes last, where the output pass writes device
+// memory and holds nothing.
+//
+// Left for later: cp.async or TMA prefetch of the next tile, twiddles
+// staged in shared memory, and the other routes that run dense stages
+// (kernel 13's rows, kernel 6's columns, kernel 15's generic form, kernel
+// 10's fixed core).
+#pragma once
+
+#include <cstdint>
+
+#include "bts2_core.cuh"
+
+namespace ndfft {
+
+constexpr int kRadixMaxStages = 8;  // stages of a plan
+constexpr int kRadixMaxP = 127;     // the largest prime stage
+constexpr int kRadixWideN = 4096;   // above it, a thread holds 32 or 40 elements
+
+struct RadixPlan {
+  int count;
+  int r[kRadixMaxStages];
+};
+
+// Elements a thread holds at n, and the block's launch bounds for it: 16
+// elements and 256 threads up to n = 4096 (a row of 4096 or a few shorter
+// rows a block), three blocks an SM (80 registers a thread); above it one
+// row a block, 32 elements to n = 16384 and 40 to 20480, at most 512
+// threads (128 registers). A 1024-thread bound left ptxas 32 registers and
+// spilled the butterflies; 640 threads left 96 and spilled more than 512.
+__host__ __device__ constexpr int radix_per_thread(int n) {
+  return n > 16384 ? 40 : n > kRadixWideN ? 32 : 16;
+}
+template <int kE>
+constexpr int kRadixMaxThreads = kE == 16 ? 256 : 512;
+template <int kE>
+constexpr int kRadixMinBlocks = kE == 16 ? 3 : 1;
+
+// The shared-memory slot of tile element q: one float2 of padding after
+// every 32 elements.
+__host__ __device__ __forceinline__ int rx_slot(int q) { return q + (q >> 5); }
+__host__ __device__ constexpr int rx_tile_slots(int elems) { return elems + (elems >> 5) + 1; }
+
+// A stage of radix r is a prime stage (not a codelet) for odd r >= 11.
+__host__ __device__ constexpr bool rx_prime(int r) { return r >= 11 && (r & 1); }
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+
+// cos(2 pi k / 16) and sin(2 pi k / 16), rounded once
+__host__ __device__ constexpr float rx_cos16(int k) {
+  switch (k & 15) {
+    case 0: return 1.f;
+    case 1: case 15: return 0.92387953251128674f;
+    case 2: case 14: return 0.70710678118654757f;
+    case 3: case 13: return 0.38268343236508978f;
+    case 4: case 12: return 0.f;
+    case 5: case 11: return -0.38268343236508978f;
+    case 6: case 10: return -0.70710678118654757f;
+    case 7: case 9: return -0.92387953251128674f;
+    default: return -1.f;
+  }
+}
+__host__ __device__ constexpr float rx_sin16(int k) { return rx_cos16(k + 12); }
+
+// a * W_16^K with W_16 = exp(kS 2 pi i / 16): the quarter turns as swaps
+template <int kS, int K>
+__device__ __forceinline__ float2 w16mul(float2 a) {
+  constexpr int k = K & 15;
+  if constexpr (k == 0) {
+    return a;
+  } else if constexpr (k == 4) {
+    return kS > 0 ? make_float2(-a.y, a.x) : make_float2(a.y, -a.x);
+  } else if constexpr (k == 8) {
+    return make_float2(-a.x, -a.y);
+  } else if constexpr (k == 12) {
+    return kS > 0 ? make_float2(a.y, -a.x) : make_float2(-a.y, a.x);
+  } else {
+    constexpr float c = rx_cos16(k), s = kS * rx_sin16(k);
+    return make_float2(a.x * c - a.y * s, a.x * s + a.y * c);
+  }
+}
+
+// The DFT-R of v in place, R a power of two <= 16: the DFTs of the even and
+// odd elements, combined with W_R^k.
+template <int R, int kS>
+struct Pow2Dft {
+  template <int K = 0>
+  __device__ __forceinline__ static void combine(float2 (&v)[R], const float2 (&e)[R / 2],
+                                                 const float2 (&o)[R / 2]) {
+    if constexpr (K < R / 2) {
+      const float2 t = w16mul<kS, K * (16 / R)>(o[K]);
+      v[K] = cadd(e[K], t);
+      v[K + R / 2] = csub(e[K], t);
+      combine<K + 1>(v, e, o);
+    }
+  }
+  __device__ __forceinline__ static void run(float2 (&v)[R]) {
+    float2 e[R / 2], o[R / 2];
+#pragma unroll
+    for (int j = 0; j < R / 2; ++j) {
+      e[j] = v[2 * j];
+      o[j] = v[2 * j + 1];
+    }
+    Pow2Dft<R / 2, kS>::run(e);
+    Pow2Dft<R / 2, kS>::run(o);
+    combine(v, e, o);
+  }
+};
+
+template <int kS>
+struct Pow2Dft<1, kS> {
+  __device__ __forceinline__ static void run(float2 (&)[1]) {}
+};
+
+// cos and sin of 2 pi u / P for P in {3, 5, 7, 9}, 0 <= u <= (P - 1) / 2,
+// rounded once (u = 0 arises at P = 9, from j m = 9)
+__host__ __device__ constexpr float rx_cos_odd(int p, int u) {
+  return u == 0   ? 1.f
+         : p == 3 ? -0.5f
+         : p == 5 ? (u == 1 ? 0.30901699437494745f : -0.80901699437494734f)
+         : p == 7 ? (u == 1 ? 0.62348980185873359f
+                     : u == 2 ? -0.22252093395631434f
+                              : -0.90096886790241903f)
+                  : (u == 1 ? 0.76604444311897801f
+                     : u == 2 ? 0.17364817766693041f
+                     : u == 3 ? -0.5f
+                              : -0.93969262078590832f);
+}
+__host__ __device__ constexpr float rx_sin_odd(int p, int u) {
+  return u == 0   ? 0.f
+         : p == 3 ? 0.86602540378443871f
+         : p == 5 ? (u == 1 ? 0.95105651629515353f : 0.58778525229247325f)
+         : p == 7 ? (u == 1 ? 0.78183148246802981f
+                     : u == 2 ? 0.97492791218182362f
+                              : 0.43388373911755823f)
+                  : (u == 1 ? 0.64278760968653925f
+                     : u == 2 ? 0.98480775301220802f
+                     : u == 3 ? 0.86602540378443871f
+                              : 0.34202014332566888f);
+}
+
+// The DFT-P of v in place, P in {3, 5, 7, 9}, in the conjugate-pair form
+// (the head note), its constants folded at compile time.
+template <int P, int kS>
+__device__ __forceinline__ void odd_dft(float2 (&v)[P]) {
+  constexpr int H = (P - 1) / 2;
+  float2 a[H], b[H];
+#pragma unroll
+  for (int j = 1; j <= H; ++j) {
+    a[j - 1] = cadd(v[j], v[P - j]);
+    b[j - 1] = csub(v[j], v[P - j]);
+  }
+  const float2 x0 = v[0];
+  float2 sum = x0;
+#pragma unroll
+  for (int j = 0; j < H; ++j) sum = cadd(sum, a[j]);
+  v[0] = sum;
+#pragma unroll
+  for (int m = 1; m <= H; ++m) {
+    float2 A = x0, B = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int j = 1; j <= H; ++j) {
+      const int u = (j * m) % P;
+      const float c = rx_cos_odd(P, u <= H ? u : P - u);
+      const float s = kS * (u <= H ? rx_sin_odd(P, u) : -rx_sin_odd(P, P - u));
+      A.x = fmaf(a[j - 1].x, c, A.x);
+      A.y = fmaf(a[j - 1].y, c, A.y);
+      B.x = fmaf(b[j - 1].x, s, B.x);
+      B.y = fmaf(b[j - 1].y, s, B.y);
+    }
+    v[m] = make_float2(A.x - B.y, A.y + B.x);
+    v[P - m] = make_float2(A.x + B.y, A.y - B.x);
+  }
+}
+
+template <int R, int kS>
+__device__ __forceinline__ void codelet(float2 (&v)[R]) {
+  if constexpr ((R & (R - 1)) == 0) {
+    Pow2Dft<R, kS>::run(v);
+  } else {
+    odd_dft<R, kS>(v);
+  }
+}
+
+// Where a thread works: its row of the tile and its place in the row.
+struct RadixCtx {
+  int n;           // transform length
+  int tr;          // threads per row
+  int t;           // this thread's index in its row
+  int base;        // tile element of the row's first element
+  bool active;     // the row is one of the tile's valid rows
+  long long row;   // the row's index in (T, n)
+};
+
+// One stage of a codelet radix R after stages whose radices multiply to L.
+// The thread takes butterflies i = t + u * tr = q L + k (u < ceil(kE / R),
+// i < n / R; k and q carried from t's without a division per butterfly),
+// holds them across the barrier and writes them in place; the last stage
+// stores to device memory.
+template <int R, int kE, int kS, class Io>
+__device__ __forceinline__ void radix_stage(float2* s, const float2* __restrict__ tw,
+                                            const RadixCtx& cx, int L, bool last, const Io& io,
+                                            float scale) {
+  constexpr int kB = (kE + R - 1) / R;
+  const int nb = cx.n / R;
+  const int q0 = cx.t / L, k0 = cx.t - q0 * L;
+  const int dq = cx.tr / L, dk = cx.tr - dq * L;   // the step of i, as (q, k)
+  const float2* __restrict__ w = tw + (L - 1);
+  float2 v[kB][R];
+  int o[kB];
+  int q = q0, k = k0;
+#pragma unroll
+  for (int u = 0; u < kB; ++u) {
+    const int i = cx.t + u * cx.tr;
+    o[u] = cx.base + q * L * R + k;
+    if (cx.active && i < nb) {
+#pragma unroll
+      for (int j = 0; j < R; ++j) v[u][j] = s[rx_slot(cx.base + i + j * nb)];
+      if (L > 1) {
+#pragma unroll
+        for (int j = 1; j < R; ++j) v[u][j] = cmul(v[u][j], __ldg(w + (j - 1) * L + k));
+      }
+      codelet<R, kS>(v[u]);
+    }
+    q += dq;
+    k += dk;
+    if (k >= L) {
+      k -= L;
+      ++q;
+    }
+  }
+  if (last) {
+#pragma unroll
+    for (int u = 0; u < kB; ++u) {
+      const int i = cx.t + u * cx.tr;
+      if (cx.active && i < nb) {
+#pragma unroll
+        for (int m = 0; m < R; ++m)
+          io.store(cx.row, i + m * nb, make_float2(scale * v[u][m].x, scale * v[u][m].y));
+      }
+    }
+    return;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < kB; ++u) {
+    const int i = cx.t + u * cx.tr;
+    if (cx.active && i < nb) {
+#pragma unroll
+      for (int m = 0; m < R; ++m) s[rx_slot(o[u] + m * L)] = v[u][m];
+    }
+  }
+  __syncthreads();
+}
+
+// `count` stages of radix R in a row, from stage `st` of a plan of `stages`.
+template <int R, int kE, int kS, class Io>
+__device__ __forceinline__ void radix_stages(int count, float2* s, const float2* __restrict__ tw,
+                                             const RadixCtx& cx, int& L, int& st, int stages,
+                                             const Io& io, float scale) {
+  for (int c = 0; c < count; ++c) {
+    radix_stage<R, kE, kS>(s, tw, cx, L, ++st == stages, io, scale);
+    L *= R;
+  }
+}
+
+// Output pair (m, p - m) of butterfly i of a prime stage whose pairs a_j, b_j
+// sit in place; cs is the coefficient row W_p^u.
+__device__ __forceinline__ void prime_pair(const float2* s, const float2* cs, int p, int nb,
+                                           int base, int i, int m, float2& xm, float2& xpm) {
+  const int h = (p - 1) / 2;
+  float2 A = s[rx_slot(base + i)], B = make_float2(0.f, 0.f);
+  int u = 0;
+  for (int j = 1; j <= h; ++j) {
+    u += m;
+    if (u >= p) u -= p;
+    const float2 w = cs[u];
+    const float2 a = s[rx_slot(base + i + j * nb)];
+    const float2 b = s[rx_slot(base + i + (p - j) * nb)];
+    A.x = fmaf(a.x, w.x, A.x);
+    A.y = fmaf(a.y, w.x, A.y);
+    B.x = fmaf(b.x, w.y, B.x);
+    B.y = fmaf(b.y, w.y, B.y);
+  }
+  xm = make_float2(A.x - B.y, A.y + B.x);
+  xpm = make_float2(A.x + B.y, A.y - B.x);
+}
+
+// One stage of an odd prime 11 <= p <= 127: the twiddled pairs in place,
+// then the outputs, m = 0 ... (p - 1) / 2 with X[p - m] beside X[m]; a
+// stage before the last holds its items (at most ceil(6 kE / 11) a thread)
+// across the barrier.
+template <int kE, class Io>
+__device__ __forceinline__ void prime_stage(float2* s, const float2* __restrict__ tw,
+                                            const float2* cs, int p, const RadixCtx& cx, int L,
+                                            bool last, const Io& io, float scale) {
+  const int h = (p - 1) / 2;
+  const int nb = cx.n / p;
+  if (cx.active) {
+    for (int it = cx.t; it < nb * h; it += cx.tr) {
+      const int j = 1 + it / nb;
+      const int i = it - (j - 1) * nb;
+      const int qa = rx_slot(cx.base + i + j * nb);
+      const int qb = rx_slot(cx.base + i + (p - j) * nb);
+      float2 xa = s[qa], xb = s[qb];
+      if (L > 1) {
+        const float2* __restrict__ w = tw + (L - 1) + i % L;
+        xa = cmul(xa, __ldg(w + (j - 1) * L));
+        xb = cmul(xb, __ldg(w + (p - j - 1) * L));
+      }
+      s[qa] = cadd(xa, xb);
+      s[qb] = csub(xa, xb);
+    }
+  }
+  __syncthreads();
+  const int items = nb * (h + 1);
+  if (last) {
+    if (cx.active) {
+      for (int it = cx.t; it < items; it += cx.tr) {
+        const int m = it / nb, i = it - m * nb;
+        float2 xm, xpm;
+        prime_pair(s, cs, p, nb, cx.base, i, m, xm, xpm);
+        io.store(cx.row, i + m * nb, make_float2(scale * xm.x, scale * xm.y));
+        if (m) io.store(cx.row, i + (p - m) * nb, make_float2(scale * xpm.x, scale * xpm.y));
+      }
+    }
+    return;
+  }
+  constexpr int kP = (6 * kE + 10) / 11;
+  float2 hold[kP][2];
+#pragma unroll
+  for (int u = 0; u < kP; ++u) {
+    const int it = cx.t + u * cx.tr;
+    if (cx.active && it < items) {
+      const int m = it / nb, i = it - m * nb;
+      prime_pair(s, cs, p, nb, cx.base, i, m, hold[u][0], hold[u][1]);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < kP; ++u) {
+    const int it = cx.t + u * cx.tr;
+    if (cx.active && it < items) {
+      const int m = it / nb, i = it - m * nb;
+      const int k = i % L;
+      const int o = cx.base + (i - k) * p + k;
+      s[rx_slot(o + m * L)] = hold[u][0];
+      if (m) s[rx_slot(o + (p - m) * L)] = hold[u][1];
+    }
+  }
+  __syncthreads();
+}
+
+// The order in which a plan's radices run (ops/hopper/fft.py::radix_plan):
+// 16, 8, 4, 2, 9, 3, 5, 7, then the primes ascending.
+__host__ __device__ constexpr int rx_rank(int r) {
+  return r == 16 ? 0 : r == 8 ? 1 : r == 4 ? 2 : r == 2 ? 3 : r == 9 ? 4 : r == 3 ? 5
+       : r == 5 ? 6 : r == 7 ? 7 : 8 + r;
+}
+
+// One block per tile of at most `rows` rows of (T, n), the T rows spread
+// evenly over the `tiles` blocks; tr = ceil(n / kE) threads per row. The
+// table: the stage twiddles at 0 ... n - 2, then each prime stage's
+// coefficient row (ops/hopper/fft.py::radix_consts). The tile's rows past
+// the valid ones are neither loaded nor stored. The stages run radix by
+// radix in the plan's order, each radix's stages in a loop of their own (no
+// run-time switch over the radix).
+template <int kE, int kS, class Io>
+__global__ void __launch_bounds__(kRadixMaxThreads<kE>, kRadixMinBlocks<kE>)
+radix_rows_kernel(const float2* __restrict__ x, Io io, const float2* __restrict__ tab,
+                  RadixPlan plan, int n, long long T, long long tiles, int rows, float scale) {
+  extern __shared__ float2 smem[];
+  const long long row0 = blockIdx.x * T / tiles;
+  const int valid = (int)((blockIdx.x + 1) * T / tiles - row0);
+  const int tr = (n + kE - 1) / kE;
+  const int c = (int)threadIdx.x / tr;
+  const RadixCtx cx{n, tr, (int)threadIdx.x - c * tr, c * n, c < valid, row0 + c};
+  float2* s = smem;
+  float2* cs = smem + rx_tile_slots(rows * n);
+  int count[8] = {0, 0, 0, 0, 0, 0, 0, 0};   // stages of 16, 8, 4, 2, 9, 3, 5, 7
+  for (int st = 0, off = n, pos = 0; st < plan.count; ++st) {
+    const int p = plan.r[st];
+    if (rx_prime(p)) {
+      for (int u = threadIdx.x; u < p; u += blockDim.x) cs[pos + u] = tab[off + u];
+      off += p;
+      pos += p;
+    } else {
+      const int rank = rx_rank(p);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) count[j] += rank == j;
+    }
+  }
+  // the valid rows: 16-byte loads from the first 16-byte boundary on, four
+  // in flight a thread
+  constexpr int kLoads = 4;
+  const float2* src = x + row0 * n;
+  const int total = valid * n;
+  const int head = (reinterpret_cast<uintptr_t>(src) & 15) ? 1 : 0;
+  const int pairs = (total - head) >> 1;
+  const float4* src4 = reinterpret_cast<const float4*>(src + head);
+  for (int q0 = threadIdx.x; q0 < pairs; q0 += kLoads * blockDim.x) {
+    float4 v[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int q = q0 + u * blockDim.x;
+      if (q < pairs) v[u] = __ldcs(src4 + q);
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int q = q0 + u * blockDim.x;
+      if (q < pairs) {
+        const int e = head + 2 * q;
+        s[rx_slot(e)] = make_float2(v[u].x, v[u].y);
+        s[rx_slot(e + 1)] = make_float2(v[u].z, v[u].w);
+      }
+    }
+  }
+  if (threadIdx.x == 0) {
+    if (head && total > 0) s[rx_slot(0)] = src[0];
+    if ((total - head) & 1) s[rx_slot(total - 1)] = src[total - 1];
+  }
+  __syncthreads();
+  int L = 1, st = 0;
+  const int stages = plan.count;
+  radix_stages<16, kE, kS>(count[0], s, tab, cx, L, st, stages, io, scale);
+  radix_stages<8, kE, kS>(count[1], s, tab, cx, L, st, stages, io, scale);
+  radix_stages<4, kE, kS>(count[2], s, tab, cx, L, st, stages, io, scale);
+  radix_stages<2, kE, kS>(count[3], s, tab, cx, L, st, stages, io, scale);
+  radix_stages<9, kE, kS>(count[4], s, tab, cx, L, st, stages, io, scale);
+  radix_stages<3, kE, kS>(count[5], s, tab, cx, L, st, stages, io, scale);
+  radix_stages<5, kE, kS>(count[6], s, tab, cx, L, st, stages, io, scale);
+  radix_stages<7, kE, kS>(count[7], s, tab, cx, L, st, stages, io, scale);
+  for (const float2* pc = cs; st < stages; pc += plan.r[st - 1]) {
+    const int p = plan.r[st];
+    prime_stage<kE>(s, tab, pc, p, cx, L, ++st == stages, io, scale);
+    L *= p;
+  }
+}
+
+// Dynamic shared memory of a block: the padded tile of `rows` rows and the
+// prime stages' coefficient rows.
+inline long long radix_smem_bytes(const RadixPlan& plan, int n, int rows) {
+  long long slots = rx_tile_slots(rows * n);
+  for (int st = 0; st < plan.count; ++st)
+    if (rx_prime(plan.r[st])) slots += plan.r[st];
+  return slots * (long long)sizeof(float2);
+}
+
+template <int kE, int kS, class Io>
+cudaError_t radix_launch_es(const float2* x, Io io, const float2* tab, const RadixPlan& plan,
+                            long long T, int n, int rows, float scale, cudaStream_t stream) {
+  const int tr = (n + kE - 1) / kE;
+  const int threads = (rows * tr + 31) / 32 * 32;
+  const long long smem = radix_smem_bytes(plan, n, rows);
+  const long long tiles = (T + rows - 1) / rows;
+  if (threads > kRadixMaxThreads<kE> || smem > kMaxSmemBytes || tiles > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(radix_rows_kernel<kE, kS, Io>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  radix_rows_kernel<kE, kS, Io><<<(unsigned)tiles, threads, (size_t)smem, stream>>>(
+      x, io, tab, plan, n, T, tiles, rows, scale);
+  return cudaGetLastError();
+}
+
+// The launcher. x: (T, n) complex64 rows, contiguous; tab: the plan's table
+// (complex64); radices: the plan (`stages` radices whose product is n, each
+// a codelet radix or an odd 11 <= p <= 127); rows: rows per block, at least
+// one, whose tile fits (radix_smem_bytes) and takes at most 256 threads
+// (512 above n = 4096). Returns the cudaError_t of the launch.
+template <class Io>
+cudaError_t radix_rows_launch(const float2* x, Io io, const float2* tab, const int* radices,
+                              int stages, long long T, int n, int rows, int sign, float scale,
+                              cudaStream_t stream) {
+  if (stages < 1 || stages > kRadixMaxStages || T < 1 || rows < 1 || n < 2 ||
+      n > 20480)
+    return cudaErrorInvalidValue;
+  RadixPlan plan{stages, {}};
+  long long prod = 1;
+  for (int st = 0; st < stages; ++st) {
+    const int r = radices[st];
+    const bool codelet_r = r == 2 || r == 4 || r == 8 || r == 16 || r == 3 || r == 5 ||
+                           r == 7 || r == 9;
+    if (!codelet_r && (!rx_prime(r) || r > kRadixMaxP)) return cudaErrorInvalidValue;
+    if (st > 0 && rx_rank(r) < rx_rank(plan.r[st - 1])) return cudaErrorInvalidValue;
+    plan.r[st] = r;
+    prod *= r;
+  }
+  if (prod != n) return cudaErrorInvalidValue;
+  const int e = radix_per_thread(n);
+  if (sign < 0)
+    return e == 40 ? radix_launch_es<40, -1>(x, io, tab, plan, T, n, rows, scale, stream)
+         : e == 32 ? radix_launch_es<32, -1>(x, io, tab, plan, T, n, rows, scale, stream)
+                   : radix_launch_es<16, -1>(x, io, tab, plan, T, n, rows, scale, stream);
+  return e == 40 ? radix_launch_es<40, 1>(x, io, tab, plan, T, n, rows, scale, stream)
+       : e == 32 ? radix_launch_es<32, 1>(x, io, tab, plan, T, n, rows, scale, stream)
+                 : radix_launch_es<16, 1>(x, io, tab, plan, T, n, rows, scale, stream);
+}
+
+}  // namespace ndfft

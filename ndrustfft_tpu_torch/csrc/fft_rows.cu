@@ -1,6 +1,6 @@
-// Kernel 10: C2C of contiguous rows of a (T, n) complex64 tensor, n = 128 * F:
-// F in {4, 8, 16} on the fixed core, every other F <= 160 on the wide core
-// (bts2_wide.cuh, c2c_tile.cuh::c2c_rows_wide_kernel).
+// Kernel 10: C2C of contiguous rows of a (T, n) complex64 tensor, n = 128 * F
+// with F in {4, 8, 16}, on the fixed core. Every other F runs on the
+// mixed-radix row core (fft_rows_radix.cu, fft_radix.cuh).
 //
 // Replaces ndrustfft_tpu/ops/pallas/fft.py::_kernel_twostep (built by
 // _build_call_twostep, math _twostep_math) for the port's split m = 128.
@@ -37,17 +37,4 @@ extern "C" int ndfft_c2c_rows(const void* x, void* y, const void* wq,
   return (int)rows_launch(static_cast<const float2*>(x), RowStore{static_cast<float2*>(y), n},
                           static_cast<const float2*>(wq), T, n, R, sign,
                           static_cast<cudaStream_t>(stream));
-}
-
-// Kernel 10 on the wide core, n = 128 * F with 1 <= F <= 160. x, y: (T, n)
-// complex64, contiguous; wq as above; wf: (F, F) complex64 DFT-F of the
-// transform's sign (ops/hopper/fft.py::wide_consts). C: rows per tile, a
-// power of two <= 16 whose tile fits (bts2_wide.cuh::wide_smem_bytes).
-// Returns the cudaError_t of the launch (0 on success).
-extern "C" int ndfft_c2c_rows_wide(const void* x, void* y, const void* wq, const void* wf,
-                                   long long T, int n, int C, void* stream) {
-  using namespace ndfft;
-  return (int)rows_wide_launch(static_cast<const float2*>(x), RowStore{static_cast<float2*>(y), n},
-                               static_cast<const float2*>(wq), static_cast<const float2*>(wf), T,
-                               n, C, static_cast<cudaStream_t>(stream));
 }

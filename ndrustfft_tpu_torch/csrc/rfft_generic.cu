@@ -7,8 +7,8 @@
 // kernel ran the rows [z; conj z] of the even/odd streams through its
 // length-h FFT and unpacked Z and C = conj Z[(h - k) mod h]. Here a
 // contiguous float32 row of length 2h is read as the complex row
-// z[t] = x[2t] + i x[2t + 1], the generic core (fft_generic.cuh) takes it as
-// kernel 8 takes a row, and the unpack is the epilogue:
+// z[t] = x[2t] + i x[2t + 1], the generic core (fft_generic.cuh) takes it in
+// its row layout, and the unpack is the epilogue:
 //
 //   X[k] = (Z[k] + C[k]) / 2 - i W_n^k (Z[k] - C[k]) / 2,  k < h,
 //   X[h] = Re Z[0] - Im Z[0],

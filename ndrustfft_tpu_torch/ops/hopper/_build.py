@@ -47,10 +47,10 @@ _SIGNATURES = {
     "ndfft_dct_dense_mid": [_P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_dct2_nat": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_dct3_nat": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
-    "ndfft_c2c_generic": [_P, _P, _P, _P, _P, _LL, _I, _I, _LL, _I, _I, _P],
+    "ndfft_c2c_generic": [_P, _P, _P, _P, _P, _LL, _I, _I, _LL, _I, _P],
     "ndfft_r2c_generic": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P],
     "ndfft_c2c_axis_mid_wide": [_P, _P, _P, _P, _LL, _I, _LL, _I, _P],
-    "ndfft_c2c_rows_wide": [_P, _P, _P, _P, _LL, _I, _I, _P],
+    "ndfft_c2c_rows_radix": [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _F, _P],
     "ndfft_r2c_nat_wide": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_c2r_nat_wide": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_r2c_mid_wide": [_P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],

@@ -6,18 +6,21 @@
   ``csrc/bts2_wide.cuh`` for every other F <= 160; replaces the JAX
   package's ``ops/pallas/fft.py::_kernel_axis_mid_bts2``).
 * Kernel 10, :func:`c2c_rows`: C2C of contiguous (T, n) rows, n = 128 * F
-  (``csrc/fft_rows.cu`` on the same two cores; replaces
-  ``fft.py::_kernel_twostep``).
+  (``csrc/fft_rows.cu`` on the fixed core for F in {4, 8, 16}; every other
+  F on the mixed-radix Stockham row core, ``csrc/fft_rows_radix.cu`` and
+  ``csrc/fft_radix.cuh``; replaces ``fft.py::_kernel_twostep``).
 * Kernels 4 and 8, :func:`c2c_dense_mid` and :func:`c2c_dense_rows`: C2C of
   length n <= 512 as one dense product with the scaled DFT matrix, along the
   middle axis of (B, n, L) or along contiguous (T, n) rows
   (``csrc/fft_dense.cu``; replace ``fft.py::_kernel_axis_mid_dense`` and the
   dense lane DFT of ``fft.py::_kernel_lane_last``).
-* Kernels 8 (n > 256) and 6, :func:`c2c_generic_rows` and
-  :func:`c2c_generic_mid`: the generic two-factor schedule n = m * f with
-  f = :func:`lane_factor` (n), along contiguous rows or the middle axis
-  (``csrc/fft_generic.cu`` on the core ``csrc/fft_generic.cuh``; replace
-  ``fft.py::_kernel_lane_last`` with m > 1 and ``fft.py::_kernel_axis_mid``).
+* Kernel 8 at n > 256, :func:`c2c_generic_rows`: the lengths that the JAX
+  package's lane kernel runs on its generic schedule, along contiguous rows,
+  on the radix row core (replaces ``fft.py::_kernel_lane_last`` with
+  m > 1). Kernel 6, :func:`c2c_generic_mid`: the generic two-factor
+  schedule n = m * f with f = :func:`lane_factor` (n) along the middle axis
+  (``csrc/fft_generic.cu`` on the core ``csrc/fft_generic.cuh``; replaces
+  ``fft.py::_kernel_axis_mid``).
 * Kernel 11, :func:`c2c_blue_mid`: Bluestein's chirp-z C2C along the
   middle axis of (B, n, L) for a length n with a prime factor above 128,
   fused into one pass: the chirped column zero-padded to M = 128 * F, the
@@ -42,19 +45,21 @@
 
 This module holds their host-built constants, their plain PyTorch versions
 and their wrappers, whose ``launches`` attributes count kernel launches
-(kernels 1, 7, 10, 11, 13 and 14 also count the wide core's launches apart, in
-``wide_launches``, and kernel 7 its dense body's, in ``dense_launches``).
+(kernels 1, 7, 11, 13 and 14 also count the wide core's launches apart, in
+``wide_launches``, kernel 7 its dense body's, in ``dense_launches``, and
+kernel 10 the radix core's, in ``radix_launches``).
 """
 
 from __future__ import annotations
 
+import ctypes
 from collections import OrderedDict
 from functools import lru_cache
 
 import numpy as np
 import torch
 
-from ...plan import blue_h, chirp, dft_matrix, factorize, stage_twiddle
+from ...plan import blue_h, chirp, dft_matrix, factorize, prime_factors, stage_twiddle
 from . import _build
 
 M = 128                 # stage-2 DFT length of the core
@@ -105,11 +110,13 @@ def bts2_consts(n: int, sign: int, scale: float = 1.0):
 def lru_table(cache: OrderedDict, key, build, limit: int) -> torch.Tensor:
     """``cache[key]``, built by ``build()`` if missing, from a cache of the
     most recently used tables that holds at most ``limit`` bytes (and
-    always the newest table)."""
+    always the newest table). A hit costs O(1); a miss counts the bytes
+    held."""
     t = cache.pop(key, None)
-    if t is None:
-        t = build()
-    cache[key] = t
+    if t is not None:
+        cache[key] = t
+        return t
+    t = cache[key] = build()
     held = sum(v.numel() * v.element_size() for v in cache.values())
     while held > limit and len(cache) > 1:
         _, old = cache.popitem(last=False)
@@ -295,17 +302,26 @@ c2c_axis_mid.wide_launches = 0
 
 
 # --------------------------------------------------------------------------
-# Kernel 10: C2C of contiguous rows on the bts2 core
+# Kernels 10 and 8 (n > 256): C2C of contiguous rows
 # --------------------------------------------------------------------------
 
 
-def c2c_rows_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
-    """Plain version of kernel 10: the core's plain version on a (T, n, 1)
-    view, with kernel 1's constants."""
+def _bts2_rows_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
+    """The bts2 core's plain version on the rows of a (T, n) tensor, n = 128
+    * F, on a (T, n, 1) view with kernel 1's constants: kernel 10's fixed
+    form and kernel 13's rows."""
     t, n = x.shape
     s = 1.0 if scale is None else float(scale)
     return bts2_plain(x.reshape(t, n, 1), device_wq(n, sign, s, x.device),
                       sign).reshape(t, n)
+
+
+def c2c_rows_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
+    """Plain version of kernel 10: the bts2 core's at F in {4, 8, 16}, the
+    radix core's (:func:`c2c_radix_rows_plain`) at every other F."""
+    if x.shape[1] // M in C2C_F:
+        return _bts2_rows_plain(x, sign, scale)
+    return c2c_radix_rows_plain(x, sign, scale)
 
 
 def _check_rows(x: torch.Tensor, what: str) -> None:
@@ -316,8 +332,9 @@ def _check_rows(x: torch.Tensor, what: str) -> None:
 def c2c_rows(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
     """C2C of the rows of a (T, n) complex64 tensor, n = 128 * F
     (:func:`core_f`), times ``scale``. A CPU tensor runs the plain version;
-    a CUDA tensor launches kernel 10 (on the fixed core for F in {4, 8, 16},
-    else on the wide core) or raises."""
+    a CUDA tensor launches kernel 10 (on the fixed bts2 core for F in {4, 8,
+    16}, else on the mixed-radix row core, counted in ``radix_launches``) or
+    raises."""
     _check_rows(x, "c2c_rows")
     t, n = x.shape
     f = check_core_n(n, "c2c_rows")
@@ -326,30 +343,164 @@ def c2c_rows(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"c2c_rows: unsupported device {x.device}")
     check_cuda(x, torch.complex64, "c2c_rows")
+    if f not in C2C_F:
+        y = _radix_launch(x, sign, scale, "c2c_rows")
+        c2c_rows.launches += t > 0
+        c2c_rows.radix_launches += t > 0
+        return y
     s = 1.0 if scale is None else float(scale)
     wq = device_wq(n, sign, s, x.device)
     y = torch.empty_like(x)
     if t == 0:
         return y
-    wide = f not in C2C_F
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        if wide:
-            err = _build.lib().ndfft_c2c_rows_wide(
-                x.data_ptr(), y.data_ptr(), wq.data_ptr(),
-                device_wide(n, sign, x.device).data_ptr(), t, n,
-                wide_block(n, 1, t, num_sms(x.device)), stream)
-        else:
-            err = _build.lib().ndfft_c2c_rows(
-                x.data_ptr(), y.data_ptr(), wq.data_ptr(), t, n,
-                block_rows(n, t, num_sms(x.device)), sign, stream)
+        err = _build.lib().ndfft_c2c_rows(
+            x.data_ptr(), y.data_ptr(), wq.data_ptr(), t, n,
+            block_rows(n, t, num_sms(x.device)), sign,
+            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "c2c_rows")
-    count_launch(c2c_rows, wide)
+    c2c_rows.launches += 1
     return y
 
 
 c2c_rows.launches = 0
-c2c_rows.wide_launches = 0
+c2c_rows.radix_launches = 0
+
+
+# --------------------------------------------------------------------------
+# The mixed-radix Stockham row core (kernel 10 at F outside {4, 8, 16},
+# kernel 8 at 256 < n <= 20480)
+# --------------------------------------------------------------------------
+
+RADIX_CODELETS = (16, 8, 4, 2, 9, 3, 5, 7)  # radices the kernel runs in registers
+RADIX_MAX_P = 127           # the largest prime stage (a generic odd-p codelet)
+RADIX_MAX_STAGES = 8        # csrc/fft_radix.cuh::kRadixMaxStages
+RADIX_TILE = 2560           # complex elements of a block's tile of several rows
+RADIX_WIDE_N = 4096         # above it, one row a block (csrc/fft_radix.cuh)
+RADIX_MAX_THREADS = 256     # threads of a block up to RADIX_WIDE_N, 16 elements each
+
+
+@lru_cache(maxsize=None)
+def radix_plan(n: int):
+    """The stages of the radix core at n, in the order the kernel runs them:
+    16 while 16 divides the power of two, then one 8, 4 or 2 for the rest of
+    it; a 9 for each pair of 3s and a 3 for the last odd one; each 5 and 7;
+    then each prime 11 <= p <= 127 as a stage of its own, ascending. None
+    where n has a prime factor above 127 or needs more than
+    RADIX_MAX_STAGES stages (no length that the two routes send)."""
+    if n < 2:
+        return None
+    pf = prime_factors(n)
+    if max(pf) > RADIX_MAX_P:
+        return None
+    e2, c3 = pf.count(2), pf.count(3)
+    plan = [16] * (e2 // 4) + ([1 << (e2 % 4)] if e2 % 4 else [])
+    plan += [9] * (c3 // 2) + [3] * (c3 % 2)
+    plan += [p for p in pf if p in (5, 7)] + [p for p in pf if p > 7]
+    return tuple(plan) if len(plan) <= RADIX_MAX_STAGES else None
+
+
+def radix_consts(n: int, sign: int):
+    """float32 (re, im) of the radix core's table at (n, sign), each entry
+    built in float64 and rounded once. Entries 0 ... n - 2 are the stage
+    twiddles: the stage of radix r after the stages whose radices multiply
+    to L holds W_{rL}^{j k} (1 <= j < r, 0 <= k < L) at L - 1 + (j - 1) L +
+    k, so stage i starts at L - 1 and the stages fill n - 1 entries. Entry
+    n - 1 is 1. After it, each prime stage p >= 11 holds its coefficient
+    row W_p^u, 0 <= u < p."""
+    plan = radix_plan(n)
+    re, im = [], []
+    lead = 1
+    for r in plan:
+        tr, ti = stage_twiddle(r, lead, sign)
+        re.append(tr[1:].ravel())
+        im.append(ti[1:].ravel())
+        lead *= r
+    re.append(np.ones(1))
+    im.append(np.zeros(1))
+    for p in plan:
+        if p not in RADIX_CODELETS:
+            wr, wi = dft_matrix(p, sign)
+            re.append(wr[1])
+            im.append(wi[1])
+    return np.concatenate(re).astype(np.float32), np.concatenate(im).astype(np.float32)
+
+
+def device_radix(n: int, sign: int, device: torch.device) -> torch.Tensor:
+    """:func:`radix_consts` as a complex64 tensor on ``device``, kept in the
+    one device-table cache (:func:`device_wq`)."""
+    return lru_table(_WQ_CACHE, ("radix", n, sign, device),
+                     lambda: pair_tensor(radix_consts(n, sign), device), WQ_CACHE_BYTES)
+
+
+@lru_cache(maxsize=64)
+def _radix_dft(r: int, sign: int, device: torch.device) -> torch.Tensor:
+    """The (r, r) DFT-r matrix of a codelet, complex64, rounded once."""
+    return pair_tensor(dft_matrix(r, sign), device)
+
+
+def c2c_radix_rows_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
+    """Plain version of the radix core: the C2C of each row of a (T, n)
+    tensor, times ``scale``, stage by stage as the kernel runs it, on the
+    same plan and table. A stage of radix r after the stages whose radices
+    multiply to L takes the row as (r, Q, L) [j, q, k] with Q = n / (r L),
+    multiplies by its twiddles W_{rL}^{j k}, and writes
+    y[q, m, k] = sum_j u[j, q, k] W_r^{j m} as the row (Stockham, natural
+    order after the last stage). A prime stage's DFT-p is its coefficient
+    row from the table (W_p^{(j m) mod p}); the codelets' DFT-r is the
+    matrix rounded once."""
+    t, n = x.shape
+    table = device_radix(n, sign, x.device)
+    plan = radix_plan(n)
+    lead = 1
+    primes = n
+    for r in plan:
+        tw = torch.cat([table.new_ones(1, lead),
+                        table[lead - 1:lead - 1 + (r - 1) * lead].reshape(r - 1, lead)])
+        if r not in RADIX_CODELETS:
+            row = table[primes:primes + r]
+            primes += r
+            idx = torch.arange(r, device=x.device)
+            dft = row[(idx[:, None] * idx[None, :]) % r]
+        else:
+            dft = _radix_dft(r, sign, x.device)
+        u = x.reshape(t, r, n // (r * lead), lead) * tw[:, None, :]
+        x = torch.einsum("jm,tjqk->tqmk", dft, u).reshape(t, n)
+        lead *= r
+    return x if scale is None else x * float(scale)
+
+
+def radix_block(n: int, count: int, sms: int) -> int:
+    """Rows per block of the radix core: as many as RADIX_TILE elements hold
+    (at least one) whose threads fit a block (a thread holds 16 elements up
+    to RADIX_WIDE_N; above it a block holds one row), halved while the grid
+    would leave SMs idle, then spread evenly over the tiles so that a ragged
+    last tile is as full as the others. (RADIX_TILE: tiles of 1 to 6 rows
+    at n = 600 ... 1200 timed on an H100 ran fastest, or nearly, at about
+    2400 elements.)"""
+    rows = max(1, min(RADIX_TILE // n, RADIX_MAX_THREADS // -(-n // 16)))
+    while rows > 1 and -(-count // rows) < sms:
+        rows //= 2
+    return -(-count // -(-count // rows))
+
+
+def _radix_launch(x: torch.Tensor, sign: int, scale, what: str) -> torch.Tensor:
+    """Launch the radix core on the (T, n) complex64 rows of x."""
+    t, n = x.shape
+    plan = radix_plan(n)
+    table = device_radix(n, sign, x.device)
+    y = torch.empty_like(x)
+    if t == 0:
+        return y
+    rows = radix_block(n, t, num_sms(x.device))
+    stages = (ctypes.c_int * RADIX_MAX_STAGES)(*plan)
+    with torch.cuda.device(x.device):
+        err = _build.lib().ndfft_c2c_rows_radix(
+            x.data_ptr(), y.data_ptr(), table.data_ptr(), stages, len(plan), t, n, rows,
+            sign, 1.0 if scale is None else float(scale),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, what)
+    return y
 
 
 # --------------------------------------------------------------------------
@@ -450,7 +601,8 @@ c2c_dense_rows.launches = 0
 
 
 # --------------------------------------------------------------------------
-# Kernels 8 (n > 256) and 6: the generic two-factor schedule
+# Kernel 8 at n > 256 on the radix core; kernel 6 (and kernel 15's generic
+# form, ops/hopper/rfft.py) on the generic two-factor schedule
 # --------------------------------------------------------------------------
 
 
@@ -509,7 +661,7 @@ def device_generic(n: int, sign: int, scale: float, device: torch.device):
                  for re, im in generic_consts(n, sign, scale))
 
 
-def _generic_schedule(x: torch.Tensor, n: int, sign: int, scale) -> torch.Tensor:
+def generic_schedule(x: torch.Tensor, n: int, sign: int, scale) -> torch.Tensor:
     """The two-factor schedule along dim 1 of a (B, n, L) tensor: the DFT-m
     over t' (t = f t' + j), the twiddle, the DFT-f over j; k = q m + p."""
     s = 1.0 if scale is None else float(scale)
@@ -520,15 +672,12 @@ def _generic_schedule(x: torch.Tensor, n: int, sign: int, scale) -> torch.Tensor
     return torch.einsum("jq,bpjc->bqpc", wf, a).reshape(nb, n, cols)
 
 
-def c2c_generic_rows_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
-    """Plain version of kernel 8 at n > 256: the schedule on each row."""
-    t, n = x.shape
-    return _generic_schedule(x.reshape(t, n, 1), n, sign, scale).reshape(t, n)
+c2c_generic_rows_plain = c2c_radix_rows_plain   # kernel 8 at n > 256 runs the radix core
 
 
 def c2c_generic_mid_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
     """Plain version of kernel 6: the schedule along dim 1 of (B, n, L)."""
-    return _generic_schedule(x, x.shape[1], sign, scale)
+    return generic_schedule(x, x.shape[1], sign, scale)
 
 
 def generic_bytes(n: int, rows: bool) -> int:
@@ -558,28 +707,11 @@ def _check_generic_n(n: int, what: str):
     return mf
 
 
-def _generic_launch(x: torch.Tensor, sign: int, scale, nb: int, n: int, count: int,
-                    rows: bool, what: str) -> torch.Tensor:
-    check_cuda(x, torch.complex64, what)
-    m, f = generic_split(n)
-    s = 1.0 if scale is None else float(scale)
-    wm, wf, tw = device_generic(n, sign, s, x.device)
-    y = torch.empty_like(x)
-    if x.numel() == 0:
-        return y
-    v = generic_block(n, nb, count, num_sms(x.device), rows)
-    with torch.cuda.device(x.device):
-        err = _build.lib().ndfft_c2c_generic(
-            x.data_ptr(), y.data_ptr(), wm.data_ptr(), wf.data_ptr(), tw.data_ptr(),
-            nb, m, f, count, v, int(rows), torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, what)
-    return y
-
-
 def c2c_generic_rows(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
-    """C2C of the rows of a (T, n) complex64 tensor, 256 < n <= 20480, on
-    the generic schedule, times ``scale``. A CPU tensor runs the plain
-    version; a CUDA tensor launches kernel 8's generic form or raises."""
+    """C2C of the rows of a (T, n) complex64 tensor, 256 < n <= 20480 with a
+    generic schedule (the lengths the JAX package's lane kernel takes),
+    times ``scale``. A CPU tensor runs the plain version; a CUDA tensor
+    launches kernel 8 on the radix core or raises."""
     _check_rows(x, "c2c_generic_rows")
     t, n = x.shape
     _check_generic_n(n, "c2c_generic_rows")
@@ -587,8 +719,9 @@ def c2c_generic_rows(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
         return c2c_generic_rows_plain(x, sign, scale)
     if x.device.type != "cuda":
         raise ValueError(f"c2c_generic_rows: unsupported device {x.device}")
-    y = _generic_launch(x, sign, scale, 1, n, t, True, "c2c_generic_rows")
-    c2c_generic_rows.launches += 1
+    check_cuda(x, torch.complex64, "c2c_generic_rows")
+    y = _radix_launch(x, sign, scale, "c2c_generic_rows")
+    c2c_generic_rows.launches += t > 0
     return y
 
 
@@ -607,7 +740,19 @@ def c2c_generic_mid(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
         return c2c_generic_mid_plain(x, sign, scale)
     if x.device.type != "cuda":
         raise ValueError(f"c2c_generic_mid: unsupported device {x.device}")
-    y = _generic_launch(x, sign, scale, nb, n, cols, False, "c2c_generic_mid")
+    check_cuda(x, torch.complex64, "c2c_generic_mid")
+    m, f = generic_split(n)
+    s = 1.0 if scale is None else float(scale)
+    wm, wf, tw = device_generic(n, sign, s, x.device)
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    v = generic_block(n, nb, cols, num_sms(x.device), False)
+    with torch.cuda.device(x.device):
+        err = _build.lib().ndfft_c2c_generic(
+            x.data_ptr(), y.data_ptr(), wm.data_ptr(), wf.data_ptr(), tw.data_ptr(),
+            nb, m, f, cols, v, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "c2c_generic_mid")
     c2c_generic_mid.launches += 1
     return y
 
@@ -863,10 +1008,10 @@ fourstep_mid.dense_launches = 0
 
 
 def rows_store_t_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
-    """Plain version of kernel 13: kernel 10's plain version on the rows,
-    then the transpose."""
+    """Plain version of kernel 13: the bts2 core's plain version on the rows
+    (kernel 10's before the radix core), then the transpose."""
     nb, n1, n2 = x.shape
-    y = c2c_rows_plain(x.reshape(nb * n1, n2), sign, scale)
+    y = _bts2_rows_plain(x.reshape(nb * n1, n2), sign, scale)
     return y.reshape(nb, n1, n2).transpose(1, 2).contiguous()
 
 

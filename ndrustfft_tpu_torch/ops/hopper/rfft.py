@@ -53,9 +53,9 @@ import torch
 from ...plan import _cis
 from . import _build
 from .fft import (CORE_F, GENERIC_MAX_N, M, block_cols, block_rows, bts2_plain,
-                  c2c_generic_rows_plain, check_cuda, check_mult, core_f, count_launch,
-                  dense_tile, device_generic, device_wide, device_wq, generic_block,
-                  generic_split, mult_planes, num_sms, wide_block)
+                  check_cuda, check_mult, core_f, count_launch, dense_tile, device_generic,
+                  device_wide, device_wq, generic_block, generic_schedule, generic_split,
+                  mult_planes, num_sms, wide_block)
 
 # lengths kernels 20 and 21 take: the JAX package's rfft_dense_mid_supported
 # (its _DENSE_RFFT_MAX), which the routes mirror
@@ -785,11 +785,14 @@ r2c_packed_dense.launches = 0
 
 
 def r2c_packed_generic_plain(x: torch.Tensor) -> torch.Tensor:
-    """Plain version of :func:`r2c_packed_generic`: kernel 8's generic plain
-    version on the row read as its complex pairs z, then the unpack."""
+    """Plain version of :func:`r2c_packed_generic`: the generic schedule on
+    the row read as its complex pairs z (h = n / 2 of them), then the
+    unpack."""
     t, n = x.shape
-    z = torch.view_as_complex(x.reshape(t, n // 2, 2).contiguous())
-    return _unpack(c2c_generic_rows_plain(z, -1), _device_tw(n, x.device), -1)
+    h = n // 2
+    z = torch.view_as_complex(x.reshape(t, h, 2).contiguous())
+    y = generic_schedule(z.reshape(t, h, 1), h, -1, None).reshape(t, h)
+    return _unpack(y, _device_tw(n, x.device), -1)
 
 
 def r2c_packed_generic(x: torch.Tensor) -> torch.Tensor:

@@ -72,13 +72,13 @@ def test_step_runs_on_the_kernels(dev):
 
 
 def test_unported_route_and_grad_raise(dev):
-    # n = 384 (F = 3) runs on kernel 10's wide core; DCT-II at n = 768
+    # n = 384 (F = 3) runs on kernel 10's radix core; DCT-II at n = 768
     # (h = 384) on kernel 23's wide form; n = 128 * 161 (odd k > 160, which
     # raised before the long forms were ported) on its n-point form
     x = torch.view_as_complex(torch.randn(256, 384, 2, device=dev))
-    before = kfft.c2c_rows.wide_launches
+    before = kfft.c2c_rows.radix_launches
     y = nd.ndfft(x, axis=1)
-    assert kfft.c2c_rows.wide_launches - before == 1
+    assert kfft.c2c_rows.radix_launches - before == 1
     assert _rel(y.to(torch.complex128), torch.fft.fft(x.to(torch.complex128), dim=1)) <= 1e-5
     r = torch.randn(256, 768, device=dev)
     before = kdct.dct2_nat.wide_launches
@@ -209,11 +209,11 @@ def test_complex_transform_runs_on_the_kernels(dev):
     assert [f.launches - b for f, b in zip(fns, before)] == [0, 0, 1, 1]
     assert _rel(w.to(torch.complex128), torch.fft.fftn(z.to(torch.complex128))) <= 1e-5
     # the C2R's Hermitian extension at n = 640 runs its C2C on kernel 10's
-    # wide core (F = 5)
+    # radix core (F = 5)
     s = torch.fft.rfft(torch.randn(128, 640, generator=g, device=dev, dtype=torch.float64))
-    before = kfft.c2c_rows.wide_launches
+    before = kfft.c2c_rows.radix_launches
     r = nd.ndifft_r2c(s.to(torch.complex64), axis=1, n=640)
-    assert kfft.c2c_rows.wide_launches - before == 1
+    assert kfft.c2c_rows.radix_launches - before == 1
     assert _rel(r.double(), torch.fft.irfft(s, n=640, dim=1)) <= 1e-5
 
 
@@ -335,16 +335,19 @@ def test_real_step_600_runs_on_the_generic_kernels(dev):
 
 
 def test_wide_kernels_match_plain(dev):
-    """Kernels 1, 10, 2, 3 and 15 on the wide core: odd, even and prime F
-    (3, 5, 6, 9, 32, 127, 160), ragged column and row tiles, and one column
-    or row per block at n = 16256 and 20480."""
+    """Kernels 1, 2, 3 and 15 on the wide core and kernel 10 at the same F on
+    the radix core: odd, even and prime F (3, 5, 6, 9, 32, 127, 160), ragged
+    column and row tiles, and one column or row per block at n = 16256 and
+    20480."""
     g = torch.Generator(device=dev).manual_seed(10)
 
     def crandn(*shape):
         return torch.view_as_complex(torch.randn(*shape, 2, generator=g, device=dev))
 
     fns = (kfft.c2c_axis_mid, kfft.c2c_rows, krfft.r2c_nat, krfft.c2r_nat, krfft.r2c_packed)
-    before = [f.wide_launches for f in fns]
+    forms = ("wide_launches", "radix_launches", "wide_launches", "wide_launches",
+             "wide_launches")
+    before = [getattr(f, a) for f, a in zip(fns, forms)]
     for shape in ((2, 768, 130), (1, 640, 129), (3, 384, 385), (1, 4096, 33), (1, 16256, 3),
                   (1, 20480, 2)):
         x = crandn(*shape)
@@ -367,7 +370,42 @@ def test_wide_kernels_match_plain(dev):
         s[:, -1] += 100j
         for scale in (None, 1 / n):
             assert _rel(krfft.c2r_nat(s, n, scale), krfft.c2r_nat_plain(s, n, scale)) <= TOL
-    assert [f.wide_launches - b for f, b in zip(fns, before)] == [12, 10, 4, 8, 4]
+    assert [getattr(f, a) - b for f, a, b in zip(fns, forms, before)] == [12, 10, 4, 8, 4]
+
+
+def _all_launches():
+    """{wrapper: launches} of every kernel wrapper of the port."""
+    return {f"{m.__name__}.{name}": fn.launches for m in (kfft, krfft, kdct)
+            for name, fn in vars(m).items() if callable(fn) and hasattr(fn, "launches")}
+
+
+def test_radix_kernel_matches_plain(dev):
+    """The mixed-radix row core behind kernel 10 at F = 3, 5, 9, 32, 127 and
+    160 and behind kernel 8 at n = 264, 600, 11352 and 20448 (the plans
+    (8, 3, 11), (8, 3, 5, 5), (8, 3, 11, 43), (16, 2, 9, 71)), with ragged
+    rows (row counts that do not divide into the tiles), both signs, with
+    and without 1/n; no other kernel runs."""
+    g = torch.Generator(device=dev).manual_seed(19)
+
+    def crandn(*shape):
+        return torch.view_as_complex(torch.randn(*shape, 2, generator=g, device=dev))
+
+    before = _all_launches()
+    radix = kfft.c2c_rows.radix_launches
+    for fn, plain, shapes in (
+            (kfft.c2c_rows, kfft.c2c_rows_plain,
+             ((131, 384), (7, 640), (1000, 1152), (33, 4096), (3, 16256), (5, 20480))),
+            (kfft.c2c_generic_rows, kfft.c2c_generic_rows_plain,
+             ((1001, 264), (7, 600), (3, 11352), (2, 20448)))):
+        for t, n in shapes:
+            x = crandn(t, n)
+            for sign, scale in ((-1, None), (+1, None), (-1, 1 / n), (+1, 1 / n)):
+                assert _rel(fn(x, sign, scale), plain(x, sign, scale)) <= TOL, (n, sign, scale)
+    after = _all_launches()
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert moved == {"ndrustfft_tpu_torch.ops.hopper.fft.c2c_rows": 24,
+                     "ndrustfft_tpu_torch.ops.hopper.fft.c2c_generic_rows": 16}
+    assert kfft.c2c_rows.radix_launches - radix == 24
 
 
 def test_real_step_768_runs_on_the_wide_kernels(dev):

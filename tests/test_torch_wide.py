@@ -178,14 +178,16 @@ def test_wide_wrappers_reject_what_the_kernels_do_not_take(call):
 
 
 def test_wide_wrappers_on_cpu_count_no_launch():
-    fns = (kfft.c2c_axis_mid, kfft.c2c_rows, krfft.r2c_nat, krfft.c2r_nat, krfft.r2c_packed)
+    fns = (kfft.c2c_axis_mid, krfft.r2c_nat, krfft.c2r_nat, krfft.r2c_packed)
     before = [(f.launches, f.wide_launches) for f in fns]
+    rows = kfft.c2c_rows.launches, kfft.c2c_rows.radix_launches
     kfft.c2c_axis_mid(torch.zeros(1, 384, 3, dtype=C64), -1)
     kfft.c2c_rows(torch.zeros(3, 640, dtype=C64), +1, 0.5)
     krfft.r2c_nat(torch.zeros(2, 768))
     krfft.c2r_nat(torch.zeros(2, 385, dtype=C64), 768)
     krfft.r2c_packed(torch.zeros(2, 768))
     assert [(f.launches, f.wide_launches) for f in fns] == before
+    assert (kfft.c2c_rows.launches, kfft.c2c_rows.radix_launches) == rows
 
 
 def test_wide_block_sizes():
