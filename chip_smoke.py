@@ -47,7 +47,8 @@ without the final line):
         15's dense product), against scipy.fft in float64;
      f. the lengths without a split (kernel 8 at n > 256 on the radix
         core; the generic two-factor schedule of kernel 6 along a middle
-        axis and kernel 15 at such a half length): the 600^3 real step
+        axis; kernel 15 at such a half length on the radix row core with
+        its unpack epilogue): the 600^3 real step
         with the real axis last (kernel 15 at h = 300, kernel 6 four times,
         kernel 8 at n = 600 after the C2R's Hermitian extension) against torch.fft.rfftn in float64 (oracle
         only), with the round trip; ndfft/ndifft along the last axis of
@@ -101,7 +102,8 @@ without the final line):
         column), the solves' times and the Dirichlet solve against a
         float32 torch.fft DST-I solve (in slabs, to fit);
      j. Bluestein lengths (a prime factor above 128; kernels 11 and 12, the
-        lane's chirp-z on kernel 10): the 509^3 complex64 round trip (fftn /
+        lane's chirp-z on kernel 10; kernel 11 off the fixed core on the
+        radix core's column tile): the 509^3 complex64 round trip (fftn /
         ifftn: K11 fixed, F = 8, on axes 0 and 1; the engine's chirp-z on
         axis 2, its sub-FFTs on K10 at M = 1024) against torch.fft.fftn in
         complex128 with the round trip, its time against torch.fft.fftn +
@@ -173,6 +175,13 @@ without the final line):
         outside {4, 8, 16} or to kernel 8's generic route (1731 lengths),
         ndfft and ndifft on a (128, n) field against torch.fft in
         complex128 (oracle only), within TOL_KERNEL of the oracle's peak;
+     o. the Bluestein census: for each of the 101 convolution factors F
+        that kernel 11 takes on the radix column tile, ndfft and ndifft
+        along axis 1 of a (1, n, 130) field at the smallest and the largest
+        n of that F, against torch.fft in complex128 (oracle only);
+     p. kernel 15's census: ndfft_r2c over (128, 2h) at each of the 1582
+        generic half lengths h (the radix row core with the unpack
+        epilogue), against torch.fft.rfft in float64 (oracle only);
   5. times with CUDA events (median over --reps runs after warm-up): each
      kernel against its plain version and, where one PyTorch call computes
      the same function, that call (the yardstick, never on the port's
@@ -187,20 +196,22 @@ without the final line):
      apart, and the same for the 600^3 step; the wide core's and the radix
      core's kernels at the paths' shapes (the radix core against
      torch.fft.fft at each), the 768^3 step and the 4096^2 complex round
-     trip (each public call timed alone) against torch.fft, and ndfft at
+     trip (each public call timed alone) against torch.fft, ndfft at
      the Bluestein lengths 131 and 2049 along the last axis (the chirp-z's
-     sub-FFTs on the radix core) against torch.fft.fft.
+     sub-FFTs on the radix core) against torch.fft.fft, and kernel 11's
+     radix column tile at (1, 1031, 1024) with each column count C.
 The kernels line gives each kernel's launches on its main path, its largest
 error against its plain version, its times, and its bound: the larger of
 the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its FP32 operations over 67 TFLOP/s (H100 SXM data
 sheet, 700 W). Its launches are the sum over the main paths of phase 4;
-kernels 1, 2, 3, 11, 12, 13, 14, 15, 16, 17, 18, 19, 22 and 28 on the
+kernels 1, 2, 3, 12, 13, 14, 15, 16, 17, 18, 19, 22 and 28 on the
 bts2 core are two rows each, the fixed core (launches - wide_launches) and the wide
 one (wide_launches; K11 and K12 rows also give the bound of their two
-length-M FFTs per column, ``length_m_bound_ms``); kernel 10 two, the fixed
-core and the radix core (radix_launches); kernel 8 above n = 256 runs on the
-radix core (``c2c_generic_rows``); and
+length-M FFTs per column, ``length_m_bound_ms``); kernels 10 and 11 two,
+the fixed core and the radix core (radix_launches); kernel 8 above n = 256
+and kernel 15's generic form run on the radix core (``c2c_generic_rows``,
+``r2c_packed_generic``); and
 kernels 23 to 26 and 29 three: the fixed core, the wide core's half length
 and the n-point form (npoint_launches); kernel 7 three: the fixed core, the
 wide core and the dense body (dense_launches); kernel 28 three: the fixed
@@ -229,7 +240,7 @@ TOL_STEP = 1e-5      # step vs float64 oracle and round trip, relative
 # the forms that a wrapper counts apart beside ``launches`` (which counts
 # every launch): ``wide_launches``, for the DCT-II/III kernels
 # ``npoint_launches``, for kernel 7 ``dense_launches``, for kernel 28
-# ``long_launches`` and for kernel 10 ``radix_launches``
+# ``long_launches`` and for kernels 10 and 11 ``radix_launches``
 FORMS = ("wide", "npoint", "dense", "long", "radix")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, 700 W
 FP32_FLOP_PER_S = 67e12     # FP32 outside the tensor cores, same source
@@ -279,10 +290,13 @@ def work(name: str, shape, length_m: bool = False, mult=None):
     The chirp-z kernels (K11, K12) read and write 16 or 8 bytes per element
     and do the function's 5 n log2 n or 2.5 n log2 n per column; their tables
     are the two chirps, H and both cores' Wq (and DFT-F) at the convolution
-    length M. ``length_m``: their operations as two complex FFTs of length M
+    length M (K11's radix form: the chirp, H and the radix table of M).
+    ``length_m``: their operations as two complex FFTs of length M
     per column instead. Kernel 10 at F outside {4, 8, 16} and kernel 8
     above n = 256 (the radix core) read x and the radix table (n entries and
-    each prime stage's row) and write y. The four-step's kernel 7 on
+    each prime stage's row) and write y; kernel 15's generic form reads the
+    (T, 2h) float32 rows, the radix table of h and the unpack twiddle and
+    writes (T, h + 1) complex64. The four-step's kernel 7 on
     (B, n1, n2) reads x and the (n1, n2) exit twiddle and writes y, and does an n1-point complex FFT
     per column and a complex product (6 FLOPs) per element; its tables are
     its body's (the core's Wq at n1, or the dense body's (n1, n1) matrix).
@@ -327,8 +341,12 @@ def work(name: str, shape, length_m: bool = False, mult=None):
         k11 = name.startswith("c2c")
         mk = -(-(2 * n - 1) // 128) * 128
         f = mk // 128
-        wide = 2 * 8 * f * f if name.endswith("_wide") else 0
-        tables = (8 if k11 else 16) * n + 8 * mk + 2 * 8 * mk * 128 + wide
+        if name.endswith("_radix"):
+            from ndrustfft_tpu_torch.ops.hopper.fft import radix_consts
+            tables = 8 * n + 8 * mk + 8 * len(radix_consts(mk, -1)[0])
+        else:
+            wide = 2 * 8 * f * f if name.endswith("_wide") else 0
+            tables = (8 if k11 else 16) * n + 8 * mk + 2 * 8 * mk * 128 + wide
         flops = (2 * 5 * mk * math.log2(mk) if length_m
                  else (5 if k11 else 2.5) * n * math.log2(n))
         return (16 if k11 else 8) * b * n * cols + tables, flops * b * cols
@@ -392,14 +410,14 @@ def work(name: str, shape, length_m: bool = False, mult=None):
         from ndrustfft_tpu_torch.ops.hopper.fft import radix_consts
         t, n = shape            # the radix core's table: n entries and the prime rows
         return 16 * t * n + 8 * len(radix_consts(n, -1)[0]), 5 * n * math.log2(n) * t
-    if name in ("c2c_generic_mid", "r2c_packed_generic"):
+    if name == "r2c_packed_generic":
+        from ndrustfft_tpu_torch.ops.hopper.fft import radix_consts
+        t, n = shape            # the radix table of h, and the unpack twiddle
+        h = n // 2
+        return (4 * t * n + 8 * t * (h + 1) + 8 * (len(radix_consts(h, -1)[0]) + h),
+                2.5 * n * math.log2(n) * t)
+    if name == "c2c_generic_mid":
         from ndrustfft_tpu_torch.ops.hopper.fft import generic_split
-        if name == "r2c_packed_generic":
-            t, n = shape        # tables of h, and the unpack twiddle
-            h = n // 2
-            m, f = generic_split(h)
-            return (4 * t * n + 8 * t * (h + 1) + 8 * (m * m + f * f + m * f + h),
-                    2.5 * n * math.log2(n) * t)
         n = shape[1]
         m, f = generic_split(n)
         outputs = math.prod(shape) // n
@@ -465,7 +483,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     import ndrustfft_tpu_torch as nd
-    from ndrustfft_tpu_torch import gates
+    from ndrustfft_tpu_torch import api, gates
     from ndrustfft_tpu_torch.ops import dst as tdst
     from ndrustfft_tpu_torch.ops import engine
     from ndrustfft_tpu_torch.ops.hopper import _build
@@ -527,7 +545,7 @@ def main() -> int:
             "r2c_packed_mid": 0.0, "r2c_packed_mid_wide": 0.0, "dct1_mid": 0.0,
             "dct1_mid_wide": 0.0, "dct4_mid": 0.0, "dct4_mid_wide": 0.0, "dct4_mid_long": 0.0,
             "c2c_blue_mid": 0.0,
-            "c2c_blue_mid_wide": 0.0, "dct23_blue_mid": 0.0, "dct23_blue_mid_wide": 0.0,
+            "c2c_blue_mid_radix": 0.0, "dct23_blue_mid": 0.0, "dct23_blue_mid_wide": 0.0,
             "fourstep_mid": 0.0, "fourstep_mid_wide": 0.0, "fourstep_mid_dense": 0.0,
             "rows_store_t": 0.0, "rows_store_t_wide": 0.0, "spectral_c2c_mid": 0.0,
             "spectral_c2c_mid_wide": 0.0, "spectral_r2c_mid": 0.0, "spectral_r2c_mid_wide": 0.0,
@@ -676,8 +694,8 @@ def main() -> int:
             del x, s
 
     # kernel 15: the core at every factor F = 1 ... 16, the dense product and
-    # the generic schedule, at ragged row counts and at the main paths'
-    # shapes (phases 4e and 4f)
+    # the generic form (the radix row core with the unpack epilogue), at
+    # ragged row counts and at the main paths' shapes (phases 4e and 4f)
     packed_checks = (
         ("r2c_packed", krfft.r2c_packed, krfft.r2c_packed_plain,
          ((7, 256), (130, 512), (3, 1024), (33, 2048), (5, 4096), (256 * 256, 256),
@@ -686,10 +704,13 @@ def main() -> int:
         ("r2c_packed_dense", krfft.r2c_packed_dense, krfft.r2c_packed_dense_plain,
          ((130, 128), (128 * 128, 128), (131, 258), (3, 200), (200, 200), (7, 2),
           (129, 512))),
-        # the generic schedule: odd h (265), m with two factors (h = 11352),
-        # the DCT-I/DST-I extensions (h = 264) and the 600^3 step's R2C
+        # the generic form: odd h (265), h = 300 at a ragged tile of several
+        # rows (601 rows, 8 a tile), 530, two prime stages (h = 11352), the
+        # longest h (20448, 40 elements a thread), the DCT-I/DST-I
+        # extensions (h = 264) and the 600^3 step's R2C
         ("r2c_packed_generic", krfft.r2c_packed_generic, krfft.r2c_packed_generic_plain,
-         ((130, 530), (7, 600), (2, 2 * 11352), (265, 528), (600, 600), (600 * 600, 600))),
+         ((130, 530), (7, 600), (601, 600), (5, 1060), (2, 2 * 11352), (3, 2 * 20448),
+          (265, 528), (600, 600), (600 * 600, 600))),
     )
     for name, kern, plain, shapes in packed_checks:
         tol = TOL_KERNEL if name == "r2c_packed_generic" else TOL_PACKED
@@ -897,16 +918,18 @@ def main() -> int:
                 check_form(name, kern, lambda: kern(x, scale), lambda: plain(x, scale), shape,
                            scale=scale)
             del x
-    # kernels 11 and 12 on the fixed core (F = 8, 16: n = 509, 1021) and on
-    # the wide core with its second tile (F = 3, 17, 33 and the routes'
-    # largest, 106, one column per tile: n = 131, 1031, 2049, 6781), ragged
-    # column tiles (L = 130), both signs and the scale 1/n (K11), DCT-II with
-    # scale 2 and DCT-III unscaled (K12); the main paths' shapes are checked
-    # in phase 4j, slice by slice
+    # kernels 11 and 12 on the fixed core (F = 8, 16: n = 509, 1021); at
+    # F = 3, 17, 33 and the routes' largest, 106 (n = 131, 1031, 2049, 6781)
+    # kernel 11 on the radix core's column tile and kernel 12 on the wide core
+    # with its second tile (one column per tile at F = 106); ragged column
+    # tiles (L = 130; L = 1030 over tiles of C = 4 columns at n = 131 and
+    # 2049), both signs and the scale 1/n (K11), DCT-II with scale 2 and
+    # DCT-III unscaled (K12); the main paths' shapes are checked in phase 4j,
+    # slice by slice
     for name, shapes in (("fixed", ((2, 509, 130), (1, 1021, 257), (1, 509, 4096))),
                          ("wide", ((2, 131, 130), (1, 1031, 130), (1, 2049, 130),
-                                   (1, 6781, 128)))):
-        k11 = "c2c_blue_mid" + ("_wide" if name == "wide" else "")
+                                   (1, 6781, 128), (1, 131, 1030), (1, 2049, 1030)))):
+        k11 = "c2c_blue_mid" + ("_radix" if name == "wide" else "")
         k12 = "dct23_blue_mid" + ("_wide" if name == "wide" else "")
         for shape in shapes:
             x = crandn(*shape)
@@ -1034,8 +1057,8 @@ def main() -> int:
                 "spectral_r2c_mid": krfft.spectral_r2c_mid,
                 "spectral_dct_mid": kdct.spectral_dct_mid}
     # the wide core's launches, the DCT kernels' n-point ones, kernel 7's
-    # dense ones and kernel 10's on the radix core, counted apart by the same
-    # wrappers (their ``launches`` count every launch)
+    # dense ones and kernels 10 and 11's on the radix core, counted apart by
+    # the same wrappers (their ``launches`` count every launch)
     forms = {f"{name}_{form}": (wrappers[name], f"{form}_launches")
              for name in ("c2c_axis_mid", "c2c_rows", "r2c_nat", "c2r_nat", "r2c_packed",
                           "r2c_mid", "c2r_mid", "dct2_nat", "dct3_nat", "dct2_mid",
@@ -1043,7 +1066,8 @@ def main() -> int:
                           "c2c_blue_mid", "dct23_blue_mid", "fourstep_mid", "rows_store_t",
                           "spectral_c2c_mid", "spectral_r2c_mid", "spectral_dct_mid")
              for form in FORMS
-             if form == "wide" and name != "c2c_rows" or form == "radix" and name == "c2c_rows"
+             if form == "wide" and name not in ("c2c_rows", "c2c_blue_mid")
+             or form == "radix" and name in ("c2c_rows", "c2c_blue_mid")
              or form == "npoint" and name.startswith(("dct2_", "dct3_", "spectral_dct"))
              or form == "dense" and name == "fourstep_mid" or form == "long" and name == "dct4_mid"}
 
@@ -2106,7 +2130,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # the lengths against float64 oracles: ndfft along axis 0 at 131 (K11
-    # wide, F = 3), 1021 (fixed, F = 16), 1031 (wide, F = 17) and 6781 (F =
+    # radix, F = 3), 1021 (fixed, F = 16), 1031 (radix, F = 17) and 6781 (F =
     # 106, the largest tile); along the last axis at 131 (K10 wide at M =
     # 384) and 2049 (M = 4608, F = 36); R2C/C2R at 2062 along axis 0 (the
     # lane after a moveaxis: h = 1031, M = 2304; the C2R's extension at M =
@@ -2131,7 +2155,7 @@ def main() -> int:
              for key, s in s_in.items()}
     d_out = {kind: getattr(nd, f"nd{kind}")(x, axis=0 if x.shape[0] > 1024 else 1)
              for kind, x in d_in.items()}
-    read_counts("blue_lengths", c2c_blue_mid=5, c2c_blue_mid_wide=3, c2c_rows=16,
+    read_counts("blue_lengths", c2c_blue_mid=5, c2c_blue_mid_radix=3, c2c_rows=16,
                 c2c_rows_radix=16, dct23_blue_mid=3, dct23_blue_mid_wide=3)
     for (n, axis), y in c_out.items():
         x = c_in[(n, axis)]
@@ -2879,6 +2903,64 @@ def main() -> int:
     del x, y, back, x64, y64, oracles
     torch.cuda.empty_cache()
 
+    # ---- 4o. the Bluestein census: for each convolution factor F that kernel
+    # 11 takes on the radix column tile (the route C2C_BLUE_MID at F outside
+    # {4, 8, 16}: 101 values), ndfft and ndifft along axis 1 of a (1, n, 130)
+    # field at the smallest and the largest n of that F, each against
+    # torch.fft in complex128 (an oracle only, run on the host)
+    ends = {}
+    for n in range(kfft.M + 1, kfft.GENERIC_MAX_N + 1):
+        if api._route("fft", (1, n, 130), 1, torch.complex64, "cuda") == api.C2C_BLUE_MID:
+            f = kfft.blue_f(n)
+            if f not in kfft.C2C_F:
+                ends[f] = (ends.get(f, (n, n))[0], n)
+    blue_n = sorted({n for lo_hi in ends.values() for n in lo_hi})
+    t0 = time.perf_counter()
+    worst = (0.0, None)
+    reset_counts()
+    for n in blue_n:
+        x = crandn(1, n, 130)
+        y = nd.ndfft(x, axis=1)
+        back = nd.ndifft(y, axis=1)
+        x64, y64 = (t.cpu().to(torch.complex128) for t in (x, y))
+        oracles = (torch.fft.fft(x64, dim=1).to(dev), torch.fft.ifft(y64, dim=1).to(dev))
+        for got, want in zip((y, back), oracles):
+            err = rel_err(got, want)
+            if not err <= TOL_KERNEL:
+                raise AssertionError(f"blue census n={n}: {err}")
+            worst = max(worst, (err, n))
+    read_counts("blue_census", c2c_blue_mid=2 * len(blue_n), c2c_blue_mid_radix=2 * len(blue_n))
+    emit(phase="blue_census", factors=len(ends), lengths=len(blue_n), worst_rel_err=worst[0],
+         worst_n=worst[1], seconds=time.perf_counter() - t0)
+    if len(ends) != 101:
+        raise AssertionError(f"blue census: {len(ends)} factors, expected 101")
+    del x, y, back, x64, y64, oracles
+
+    # ---- 4p. kernel 15's census: ndfft_r2c over 128 rows of 2h at every half
+    # length h that kernel 15 takes in its generic form (the radix row core
+    # with the unpack epilogue: 1582 lengths), against torch.fft.rfft in
+    # float64 (an oracle only, run on the host)
+    hs = [h for h in range(257, kfft.GENERIC_MAX_N + 1)
+          if gates.r2c_lane_route(2 * h, 128) == gates.R2C_PACKED
+          and gates.packed_kernel(h, 128) and not krfft.packed_core(h)]
+    t0 = time.perf_counter()
+    worst = (0.0, None)
+    reset_counts()
+    for h in hs:
+        x = randn(128, 2 * h)
+        y = nd.ndfft_r2c(x, axis=1)
+        err = rel_err(y, torch.fft.rfft(x.cpu().double(), dim=1).to(dev))
+        if not err <= TOL_KERNEL:
+            raise AssertionError(f"r2c census h={h}: {err}")
+        worst = max(worst, (err, h))
+    read_counts("r2c_generic_census", r2c_packed_generic=len(hs))
+    emit(phase="r2c_generic_census", lengths=len(hs), worst_rel_err=worst[0], worst_h=worst[1],
+         seconds=time.perf_counter() - t0)
+    if len(hs) != 1582:
+        raise AssertionError(f"r2c census: {len(hs)} lengths, expected 1582")
+    del x, y
+    torch.cuda.empty_cache()
+
     # ---- 5. times: each kernel against its plain version and, at the main
     # path's shape, the PyTorch call that computes the same function (the
     # yardstick); the steps against torch.fft (the 1536^3 solve's kernels
@@ -2906,7 +2988,7 @@ def main() -> int:
                    "dct1_mid_wide": (1, 1537, 1537), "dct4_mid": (2048, 2048, 256),
                    "dct4_mid_wide": (1, 1536, 1536), "dct4_mid_long": (1, 65536, 8192),
                    "c2c_blue_mid": (1, 509, 509 * 509),
-                   "c2c_blue_mid_wide": (1, 1031, 1024), "dct23_blue_mid": (1, 1021, 1024),
+                   "c2c_blue_mid_radix": (1, 1031, 1024), "dct23_blue_mid": (1, 1021, 1024),
                    "dct23_blue_mid_wide": (1, 2049, 2049 * 256),
                    "fourstep_mid": (256, 1024, 1024), "fourstep_mid_wide": (64, 384, 384),
                    "fourstep_mid_dense": (16385, 256, 128), "rows_store_t": (256, 1024, 1024),
@@ -3230,13 +3312,23 @@ def main() -> int:
         x = randn(*shape)
         time_kernel(name, shape, lambda: kern(x, scale), lambda: plain(x, scale))
         del x
-    # kernel 11 on the wide core at phase 4j's length 1031 (F = 17; its fixed
-    # form and kernel 12's wide form were timed there, at the main paths'
-    # shapes) and kernel 12 on the fixed core at 1021 (F = 16), which the
-    # routes never send there (they send it n > 1100, F >= 18)
+    # kernel 11 on the radix core's column tile at phase 4j's length 1031
+    # (F = 17; its fixed form and kernel 12's wide form were timed there, at
+    # the main paths' shapes), then at each column count C the tile allows
+    # (the wrapper's choice is C = 1 here), and kernel 12 on the fixed core at
+    # 1021 (F = 16), which the routes never send there (they send it
+    # n > 1100, F >= 18)
     x = crandn(1, 1031, 1024)
-    time_kernel("c2c_blue_mid_wide", (1, 1031, 1024), lambda: kfft.c2c_blue_mid(x, -1),
+    time_kernel("c2c_blue_mid_radix", (1, 1031, 1024), lambda: kfft.c2c_blue_mid(x, -1),
                 lambda: kfft.c2c_blue_mid_plain(x, -1), lambda: torch.fft.fft(x, dim=1))
+    mk = kfft.blue_kernel_M(1031)
+    a, h = kfft._device_blue(1031, -1, dev)
+    y = torch.empty_like(x)
+    cols_ms = {c: cuda_ms(lambda: kfft.blue_radix_launch(x, y, a, h, 1.0, c), reps)
+               for c in (1, 2, 4, 8) if mk * c <= kfft.RADIX_MAX_ELEMS}
+    emit(phase="time", kernel="c2c_blue_mid_radix", shape=(1, 1031, 1024),
+         ms_by_cols_per_tile=cols_ms, chosen=kfft.blue_radix_cols(mk, 1, 1024, kfft.num_sms(dev)),
+         card=card)
     x = randn(1, 1021, 1024)
     time_kernel("dct23_blue_mid", (1, 1021, 1024), lambda: kdct.dct23_blue_mid(x, 2, 2.0),
                 lambda: kdct.dct23_blue_mid_plain(x, 2, 2.0))
@@ -3311,7 +3403,7 @@ def main() -> int:
                              "ndrustfft_tpu/ops/pallas/fft.py:521"),
         "c2c_generic_mid": ("ndrustfft_tpu_torch/csrc/fft_generic.cu",
                             "ndrustfft_tpu/ops/pallas/fft.py:1794"),
-        "r2c_packed_generic": ("ndrustfft_tpu_torch/csrc/rfft_generic.cu",
+        "r2c_packed_generic": ("ndrustfft_tpu_torch/csrc/rfft_radix.cu",
                                "ndrustfft_tpu/ops/pallas/rfft.py:163"),
         "c2c_axis_mid_wide": ("ndrustfft_tpu_torch/csrc/fft_axis_mid.cu",
                               "ndrustfft_tpu/ops/pallas/fft.py:1124"),
@@ -3363,8 +3455,8 @@ def main() -> int:
                           "ndrustfft_tpu/ops/pallas/dct.py:670"),
         "c2c_blue_mid": ("ndrustfft_tpu_torch/csrc/fft_blue_mid.cu",
                          "ndrustfft_tpu/ops/pallas/fft.py:1277"),
-        "c2c_blue_mid_wide": ("ndrustfft_tpu_torch/csrc/fft_blue_mid.cu",
-                              "ndrustfft_tpu/ops/pallas/fft.py:1277"),
+        "c2c_blue_mid_radix": ("ndrustfft_tpu_torch/csrc/fft_blue_radix.cu",
+                               "ndrustfft_tpu/ops/pallas/fft.py:1277"),
         "dct23_blue_mid": ("ndrustfft_tpu_torch/csrc/fft_blue_mid.cu",
                            "ndrustfft_tpu/ops/pallas/fft.py:1473"),
         "dct23_blue_mid_wide": ("ndrustfft_tpu_torch/csrc/fft_blue_mid.cu",

@@ -17,20 +17,21 @@
 // with the chirps a, b and H = FFT_M of the wrapped inverse chirp built on
 // the host (ops/hopper/fft.py::blue_consts, ops/hopper/dct.py::
 // blue_rr_consts; the JAX package's tables bit for bit). Each kernel has
-// one load/store struct (BlueC2C, BlueRR below) on two shared forms:
+// one load/store struct (BlueC2C, BlueRR below) on the bts2 forms:
 //
-// * the fixed form (F in {4, 8, 16}, bts2_core.cuh): the core leaves its
-//   output in natural order in its tile, so the block fills the chirped
-//   column and explicit zeros to row M (a tile left from the last column is
-//   not zero), runs the forward core, multiplies row k by H[k] in place, runs
-//   the inverse core and stores rows k < n times b[k];
-// * the wide form (every other F <= 111, bts2_wide.cuh): its core reads
-//   the whole tile while its store callback writes the outputs, so it cannot
-//   work in place. The forward core's store writes d H[k] into a second
-//   shared tile, and the inverse core runs on that tile with the exit chirp
-//   in its store. At one column and M = 13568 (F = 106, the routes' largest)
-//   the block takes 8 (2M + 4 * 128) + 8F = 222,032 bytes of the 232,448 it
-//   may have.
+// * the fixed form (F in {4, 8, 16}, bts2_core.cuh), kernels 11 and 12: the
+//   core leaves its output in natural order in its tile, so the block fills
+//   the chirped column and explicit zeros to row M (a tile left from the
+//   last column is not zero), runs the forward core, multiplies row k by
+//   H[k] in place, runs the inverse core and stores rows k < n times b[k];
+// * the wide form (every other F <= 111, bts2_wide.cuh), kernel 12 alone
+//   (kernel 11 at those F runs on the radix core's column tile,
+//   fft_blue_radix.cu): its core reads the whole tile while its store
+//   callback writes the outputs, so it cannot work in place. The forward
+//   core's store writes d H[k] into a second shared tile, and the inverse
+//   core runs on that tile with the exit chirp in its store. At one column
+//   and M = 13568 (F = 106, the routes' largest) the block takes
+//   8 (2M + 4 * 128) + 8F = 222,032 bytes of the 232,448 it may have.
 //
 // What bounds it: the core's stage 2, a dense DFT-128 on the FP32 cores, twice
 // per column at length M >= 2n - 1: ~16 (128 + F) M FLOPs per column against
@@ -40,12 +41,14 @@
 // read once and written once, the padding never exists outside the block),
 // and takes every table from the host. The TPU kernel's zero-aware first
 // butterfly level and its trimmed inverse Wq (p_trim) only save work and are
-// left to later work, as is the wide form's one-column tile at M > 6000.
+// left to later work, as is the wide form's one-column tile at M > 6000;
+// kernel 12's wide form goes onto the radix column tile when its turn comes
+// (BlueRR is already its load/store struct).
 #include "bts2_wide.cuh"
 
 namespace ndfft {
 
-// Kernel 11's load and store: complex64 in and out, b = a.
+// Kernel 11's load and store on the fixed form: complex64 in and out, b = a.
 struct BlueC2C {
   const float2* x;
   float2* y;
@@ -185,19 +188,6 @@ extern "C" int ndfft_c2c_blue_mid(const void* x, void* y, const void* a, const v
   const BlueC2C io{static_cast<const float2*>(x), static_cast<float2*>(y),
                    static_cast<const float2*>(a)};
   return (int)blue_fixed(io, h, wq_fwd, wq_inv, B, n, M, L, C, stream);
-}
-
-// Kernel 11 on the wide core, M = 128 * F with 1 <= F <= 160 whose tile fits
-// (blue_wide_smem_bytes): as above, with wf_fwd, wf_inv: (F, F) complex64
-// DFT-F of signs -1 and +1. C: columns per tile, a power of two <= 16.
-extern "C" int ndfft_c2c_blue_mid_wide(const void* x, void* y, const void* a, const void* h,
-                                       const void* wq_fwd, const void* wf_fwd,
-                                       const void* wq_inv, const void* wf_inv, long long B,
-                                       int n, int M, long long L, int C, void* stream) {
-  using namespace ndfft;
-  const BlueC2C io{static_cast<const float2*>(x), static_cast<float2*>(y),
-                   static_cast<const float2*>(a)};
-  return (int)blue_wide(io, h, wq_fwd, wf_fwd, wq_inv, wf_inv, B, n, M, L, C, stream);
 }
 
 // Kernel 12 on the fixed core: x, y: (B, n, L) float32, contiguous; a, b:

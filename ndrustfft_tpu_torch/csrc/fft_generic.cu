@@ -1,7 +1,7 @@
 // Kernel 6: C2C along the middle axis of (B, n, L) on the generic schedule of
 // fft_generic.cuh, n = m * f, V columns of one b per block. (Kernel 8's rows
-// at such n run on the mixed-radix row core, fft_rows_radix.cu; kernel 15's
-// generic form keeps this core's row layout, rfft_generic.cu.)
+// at such n and kernel 15's generic half length run on the mixed-radix row
+// core, fft_rows_radix.cu and rfft_radix.cu.)
 //
 // Replaces ndrustfft_tpu/ops/pallas/fft.py::_kernel_axis_mid (the generic
 // body of _build_call_axis_mid: n > 512 without a split), the schedule on a
@@ -27,15 +27,15 @@ c2c_generic_kernel(const float2* __restrict__ x, float2* __restrict__ y,
                    long long tiles) {
   extern __shared__ float2 s[];
   const long long n = (long long)m * f;
-  GenTile g{m, f, 0, f | 1};
+  GenTile g{m, f, 0};
   const long long b = blockIdx.x / tiles;
   const long long col0 = (blockIdx.x % tiles) * V;
   g.V = (int)min((long long)V, L - col0);
   const float2* xb = x + b * n * L + col0;
   float2* yb = y + b * n * L + col0;
-  gen_load<false>(s, g, xb, L);
-  gen_pass1<false>(s, g, wm, tw);
-  gen_pass2<false>(s, g, wf, yb, L);
+  gen_load(s, g, xb, L);
+  gen_pass1(s, g, wm, tw);
+  gen_pass2(s, g, wf, yb, L);
 }
 
 }  // namespace ndfft
@@ -50,7 +50,7 @@ extern "C" int ndfft_c2c_generic(const void* x, void* y, const void* wm, const v
   using namespace ndfft;
   if (m < 2 || m > kGenPM * 32 || f < 2 || f > 256 || V < 1 || B < 1 || L < 1)
     return (int)cudaErrorInvalidValue;
-  const long long smem = gen_smem_bytes(m, f, V, false);
+  const long long smem = gen_smem_bytes(m, f, V);
   const long long tiles = (L + V - 1) / V;
   const long long blocks = B * tiles;
   if (smem > kMaxSmemBytes || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;

@@ -1,12 +1,14 @@
-// Shared core of the generic-schedule kernels: K6 (fft_generic.cu, columns)
-// and K15 at a half length without a {128, 256} split (rfft_generic.cu,
-// rows). K8's rows at such n moved to the mixed-radix row core
-// (fft_radix.cuh), which does O(n log n) work.
+// The generic-schedule core of kernel 6 (fft_generic.cu): the (n, V) column
+// tile of a middle axis. The row kernels that ran it before (kernel 8's rows
+// and kernel 15's generic half length) run on the mixed-radix row core
+// (fft_radix.cuh: fft_rows_radix.cu, rfft_radix.cu), which does O(n log n)
+// work.
 //
-// Replaces, for the CUDA port, the schedule that the JAX package's Pallas
-// kernels _kernel_axis_mid and _r2c_kernel's generic half FFT share (with
-// _kernel_lane_last at m > 1, now ported to fft_radix.cuh): ndrustfft_tpu/ops/pallas/fft.py::_axis0_core on the
-// constants of _plan_consts. A C2C of length n = m * f, f = _lane_factor(n)
+// Replaces, for the CUDA port, the schedule of the JAX package's Pallas
+// kernel _kernel_axis_mid (which _r2c_kernel's generic half FFT and
+// _kernel_lane_last at m > 1 share, now ported to fft_radix.cuh):
+// ndrustfft_tpu/ops/pallas/fft.py::_axis0_core on the constants of
+// _plan_consts. A C2C of length n = m * f, f = _lane_factor(n)
 // <= 256, input index t = f t' + j, output index k = q m + p:
 //
 //   pass 1 (in place):  B[p][j] = tw[p][j] * sum_t' x[f t' + j] Wm[t'][p]
@@ -30,13 +32,11 @@
 // thread 4 outputs q of one (p, transform) (one B load feeds them all), so
 // a MAC costs 4 FMAs and at most 1.25 loads, each load one shared address
 // or a contiguous run across the warp. The lever for later work is the
-// mixed-radix row core (fft_radix.cuh) in K6's column layout and under K15.
+// mixed-radix core's column tile (fft_radix.cuh, kernel 11's
+// fft_blue_radix.cu) in K6's layout.
 //
-// Tile layouts (c = transform of the block, V valid transforms):
-//   kRows:  B/x (r, j) of transform c at s[c * m * F1 + r * F1 + j], F1 = f | 1
-//           (an odd pitch: the few rows p that one warp reads at once in
-//           pass 2 fall in different banks);
-//   cols:   at s[(r * f + j) * V + c] (the natural (t, c) tile of K6).
+// Tile layout (c = transform of the block, V valid transforms): B/x (r, j)
+// of transform c at s[(r * f + j) * V + c], the natural (t, c) tile of K6.
 #pragma once
 
 #include "bts2_core.cuh"
@@ -47,11 +47,8 @@ constexpr int kGenPM = 7;   // outputs p per lane in pass 1 (m <= 7 * 32)
 constexpr int kGenQB = 4;   // outputs q per thread in pass 2
 
 struct GenTile {
-  int m, f, V, F1;
-  template <bool kRows>
-  __device__ __forceinline__ int pos(int r, int j, int c) const {
-    return kRows ? (c * m + r) * F1 + j : (r * f + j) * V + c;
-  }
+  int m, f, V;
+  __device__ __forceinline__ int pos(int r, int j, int c) const { return (r * f + j) * V + c; }
 };
 
 // Pass 1: for each line (j, c), the DFT-m over t' and the twiddle, in place
@@ -59,9 +56,8 @@ struct GenTile {
 // power of two >= m, at most 32), each lane holding outputs p = sub + i G;
 // the warp reads its lines whole before it writes them, so no barrier but
 // __syncwarp is needed. Ends with a block barrier.
-template <bool kRows>
-__device__ void gen_pass1(float2* s, const GenTile& g, const float2* __restrict__ wm,
-                          const float2* __restrict__ tw) {
+__device__ inline void gen_pass1(float2* s, const GenTile& g, const float2* __restrict__ wm,
+                                 const float2* __restrict__ tw) {
   const int m = g.m, f = g.f;
   int G = 1;
   while (G < m && G < 32) G <<= 1;
@@ -74,15 +70,15 @@ __device__ void gen_pass1(float2* s, const GenTile& g, const float2* __restrict_
   for (int base = (int)(threadIdx.x >> 5) * gpw; base < lines; base += step) {
     const int l = base + lane / G;
     const bool active = l < lines;
-    // rows: neighbouring lines are neighbouring j; columns: neighbouring c
-    const int j = kRows ? l % f : l / g.V;
-    const int c = kRows ? l / f : l % g.V;
+    // neighbouring lines are neighbouring columns c
+    const int j = l / g.V;
+    const int c = l % g.V;
     float2 acc[kGenPM];
 #pragma unroll
     for (int i = 0; i < kGenPM; ++i) acc[i] = make_float2(0.f, 0.f);
     if (active) {
       for (int t = 0; t < m; ++t) {
-        const float2 xv = s[g.pos<kRows>(t, j, c)];
+        const float2 xv = s[g.pos(t, j, c)];
         const float2* __restrict__ w = wm + t * m + sub;
 #pragma unroll
         for (int i = 0; i < kGenPM; ++i)
@@ -94,7 +90,7 @@ __device__ void gen_pass1(float2* s, const GenTile& g, const float2* __restrict_
 #pragma unroll
       for (int i = 0; i < kGenPM; ++i) {
         const int p = sub + i * G;
-        if (i < pm && p < m) s[g.pos<kRows>(p, j, c)] = cmul(acc[i], __ldg(tw + p * f + j));
+        if (i < pm && p < m) s[g.pos(p, j, c)] = cmul(acc[i], __ldg(tw + p * f + j));
       }
     }
   }
@@ -102,35 +98,25 @@ __device__ void gen_pass1(float2* s, const GenTile& g, const float2* __restrict_
 }
 
 // Pass 2: X[q m + p] = sum_j B[p][j] Wf[j][q] for each transform c, written
-// straight to device memory: y[c * ystride + k] (rows) or y[k * ystride + c]
-// (columns). A thread owns the kGenQB outputs q = qb + i * nqb of one
-// (p, c). Rows put neighbouring qb on neighbouring threads (one B address
-// per warp, Wf read along its rows), columns neighbouring c (contiguous
-// columns, one Wf address per warp).
-template <bool kRows>
-__device__ void gen_pass2(const float2* s, const GenTile& g, const float2* __restrict__ wf,
-                          float2* __restrict__ y, long long ystride) {
+// straight to device memory at y[k * ystride + c]. A thread owns the kGenQB
+// outputs q = qb + i * nqb of one (p, c), neighbouring c on neighbouring
+// threads (contiguous columns, one Wf address per warp).
+__device__ inline void gen_pass2(const float2* s, const GenTile& g,
+                                 const float2* __restrict__ wf, float2* __restrict__ y,
+                                 long long ystride) {
   const int m = g.m, f = g.f;
   const int nqb = (f + kGenQB - 1) / kGenQB;
   const int items = m * nqb * g.V;
   for (int idx = threadIdx.x; idx < items; idx += blockDim.x) {
-    int p, qb, c;
-    if (kRows) {
-      qb = idx % nqb;
-      p = (idx / nqb) % m;
-      c = idx / (nqb * m);
-    } else {
-      c = idx % g.V;
-      p = (idx / g.V) % m;
-      qb = idx / (g.V * m);
-    }
+    const int c = idx % g.V;
+    const int p = (idx / g.V) % m;
+    const int qb = idx / (g.V * m);
     float2 acc[kGenQB];
 #pragma unroll
     for (int i = 0; i < kGenQB; ++i) acc[i] = make_float2(0.f, 0.f);
-    const float2* b = s + g.pos<kRows>(p, 0, c);
-    const int bs = kRows ? 1 : g.V;           // stride of j in the tile
+    const float2* b = s + g.pos(p, 0, c);
     for (int j = 0; j < f; ++j) {
-      const float2 bv = b[j * bs];
+      const float2 bv = b[j * g.V];
       const float2* __restrict__ w = wf + j * f + qb;
 #pragma unroll
       for (int i = 0; i < kGenQB; ++i)
@@ -139,39 +125,25 @@ __device__ void gen_pass2(const float2* s, const GenTile& g, const float2* __res
 #pragma unroll
     for (int i = 0; i < kGenQB; ++i) {
       const int q = qb + i * nqb;
-      if (q < f) {
-        const long long k = (long long)q * m + p;
-        if (kRows) {
-          y[c * ystride + k] = acc[i];
-        } else {
-          y[k * ystride + c] = acc[i];
-        }
-      }
+      if (q < f) y[((long long)q * m + p) * ystride + c] = acc[i];
     }
   }
 }
 
-// Load V contiguous rows of n = m f complex elements (rows, row stride n) or
-// the (n, V) column tile of a row-major (n, L) slab (columns) into the tile.
-template <bool kRows>
-__device__ void gen_load(float2* s, const GenTile& g, const float2* __restrict__ x,
-                         long long L) {
+// Load the (n, V) column tile of a row-major (n, L) slab, n = m f.
+__device__ inline void gen_load(float2* s, const GenTile& g, const float2* __restrict__ x,
+                                long long L) {
   const int n = g.m * g.f;
   for (int idx = threadIdx.x; idx < n * g.V; idx += blockDim.x) {
-    if (kRows) {
-      const int c = idx / n, t = idx % n;
-      s[g.pos<true>(t / g.f, t % g.f, c)] = x[(long long)c * n + t];
-    } else {
-      const int c = idx % g.V, t = idx / g.V;
-      s[t * g.V + c] = x[(long long)t * L + c];
-    }
+    const int c = idx % g.V, t = idx / g.V;
+    s[t * g.V + c] = x[(long long)t * L + c];
   }
   __syncthreads();
 }
 
 // Dynamic shared memory of a tile of V transforms.
-inline long long gen_smem_bytes(int m, int f, int V, bool rows) {
-  return (long long)V * m * (rows ? (f | 1) : f) * (long long)sizeof(float2);
+inline long long gen_smem_bytes(int m, int f, int V) {
+  return (long long)V * m * f * (long long)sizeof(float2);
 }
 
 }  // namespace ndfft

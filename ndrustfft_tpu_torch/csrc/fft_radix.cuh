@@ -1,7 +1,11 @@
-// The mixed-radix row core: a Stockham autosort FFT of contiguous complex64
-// rows in shared memory, for any n <= 20480 whose prime factors are at most
-// 127. Kernel 10 runs it at n = 128 * F with F outside the bts2 core's
-// {4, 8, 16} and kernel 8 at 256 < n <= 20480 (fft_rows_radix.cu).
+// The mixed-radix core: a Stockham autosort FFT in shared memory, for any
+// n <= 20480 whose prime factors are at most 127, on a tile of contiguous
+// complex64 rows or of columns. Kernel 10 runs it on rows at n = 128 * F
+// with F outside the bts2 core's {4, 8, 16} and kernel 8 at
+// 256 < n <= 20480 (fft_rows_radix.cu); kernel 15 at a generic half length
+// on rows with its unpack as the epilogue (rfft_radix.cu); kernel 11 at
+// F outside {4, 8, 16} on an (M, C) column tile, its forward and inverse
+// length-M transforms in place (fft_blue_radix.cu).
 //
 // Replaces, for the CUDA port, the JAX package's
 // ndrustfft_tpu/ops/pallas/fft.py::_kernel_twostep (the twostep split
@@ -44,13 +48,25 @@
 // O(p). The plan puts the primes last, where the output pass writes device
 // memory and holds nothing.
 //
+// Two layouts share the stages: a row layout (transform c of a tile of rows,
+// element q at rx_slot(c n + q), the threads of a row consecutive) and a
+// column layout (column c of an (n, C) tile, element q at cx_slot(q C + c),
+// the C columns of one butterfly on consecutive threads, so that a warp
+// reads and writes runs of consecutive slots; one float2 of padding after
+// every 16 elements keeps the first stages' strided writes off one bank).
+// Two outputs: the last stage stores to device memory through the Io
+// struct's store(), or, for an Io with kTileOut, writes its outputs back
+// into the tile in natural order through out(k, v) (kernel 11's product
+// with H, kernel 15's plain copy) for an epilogue or a second transform.
+//
 // Left for later: cp.async or TMA prefetch of the next tile, twiddles
 // staged in shared memory, and the other routes that run dense stages
-// (kernel 13's rows, kernel 6's columns, kernel 15's generic form, kernel
-// 10's fixed core).
+// (kernel 13's rows, kernel 6's columns, kernel 12's chirp-z, kernel 10's
+// fixed core).
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include "bts2_core.cuh"
 
@@ -80,9 +96,19 @@ template <int kE>
 constexpr int kRadixMinBlocks = kE == 16 ? 3 : 1;
 
 // The shared-memory slot of tile element q: one float2 of padding after
-// every 32 elements.
+// every 32 elements (rows) or every 16 (columns).
 __host__ __device__ __forceinline__ int rx_slot(int q) { return q + (q >> 5); }
 __host__ __device__ constexpr int rx_tile_slots(int elems) { return elems + (elems >> 5) + 1; }
+__host__ __device__ __forceinline__ int cx_slot(int q) { return q + (q >> 4); }
+__host__ __device__ constexpr int cx_tile_slots(int elems) { return elems + (elems >> 4) + 1; }
+
+// Whether an Io struct takes the last stage's outputs into the tile
+// (static constexpr bool kTileOut = true; out(k, v) gives the value kept at
+// natural index k) instead of storing them (store(row, k, v)).
+template <class Io, class = void>
+struct RxTileOut : std::false_type {};
+template <class Io>
+struct RxTileOut<Io, std::void_t<decltype(Io::kTileOut)>> : std::bool_constant<Io::kTileOut> {};
 
 // A stage of radix r is a prime stage (not a codelet) for odd r >= 11.
 __host__ __device__ constexpr bool rx_prime(int r) { return r >= 11 && (r & 1); }
@@ -230,25 +256,46 @@ __device__ __forceinline__ void codelet(float2 (&v)[R]) {
   }
 }
 
-// Where a thread works: its row of the tile and its place in the row.
+// The two tile layouts: element q of a thread's transform is tile element
+// at(q), d elements further on lies step(d) tile elements further on, and
+// tile element e sits in shared-memory slot pad(e).
+struct RowLayout {
+  int base;        // tile element of the row's first element (c n)
+  __device__ __forceinline__ int at(int q) const { return base + q; }
+  __device__ __forceinline__ static int step(int d) { return d; }
+  __device__ __forceinline__ static int pad(int e) { return rx_slot(e); }
+};
+struct ColLayout {
+  int c, C;        // the column and the tile's column count
+  __device__ __forceinline__ int at(int q) const { return q * C + c; }
+  __device__ __forceinline__ int step(int d) const { return d * C; }
+  __device__ __forceinline__ static int pad(int e) { return cx_slot(e); }
+};
+
+// Where a thread works: its transform in the tile and its place in it.
+template <class Lay>
 struct RadixCtx {
+  using Layout = Lay;
   int n;           // transform length
-  int tr;          // threads per row
-  int t;           // this thread's index in its row
-  int base;        // tile element of the row's first element
-  bool active;     // the row is one of the tile's valid rows
-  long long row;   // the row's index in (T, n)
+  int tr;          // threads per transform
+  int t;           // this thread's index in its transform
+  Lay lay;         // the transform's place in the tile
+  bool active;     // the transform is one of the tile's valid ones
+  long long row;   // the transform's handle for Io::store (row index, column offset)
+  __device__ __forceinline__ int slot(int q) const { return Lay::pad(lay.at(q)); }
 };
 
 // One stage of a codelet radix R after stages whose radices multiply to L.
 // The thread takes butterflies i = t + u * tr = q L + k (u < ceil(kE / R),
 // i < n / R; k and q carried from t's without a division per butterfly),
 // holds them across the barrier and writes them in place; the last stage
-// stores to device memory.
-template <int R, int kE, int kS, class Io>
+// stores to device memory (or, kTileOut, writes io.out(k, v) in place: at
+// the last stage q = 0 and k = i, so i + m n / R is the natural index).
+template <int R, int kE, int kS, class Io, class Cx>
 __device__ __forceinline__ void radix_stage(float2* s, const float2* __restrict__ tw,
-                                            const RadixCtx& cx, int L, bool last, const Io& io,
+                                            const Cx& cx, int L, bool last, const Io& io,
                                             float scale) {
+  constexpr bool kTile = RxTileOut<Io>::value;
   constexpr int kB = (kE + R - 1) / R;
   const int nb = cx.n / R;
   const int q0 = cx.t / L, k0 = cx.t - q0 * L;
@@ -260,10 +307,10 @@ __device__ __forceinline__ void radix_stage(float2* s, const float2* __restrict_
 #pragma unroll
   for (int u = 0; u < kB; ++u) {
     const int i = cx.t + u * cx.tr;
-    o[u] = cx.base + q * L * R + k;
+    o[u] = cx.lay.at(q * L * R + k);
     if (cx.active && i < nb) {
 #pragma unroll
-      for (int j = 0; j < R; ++j) v[u][j] = s[rx_slot(cx.base + i + j * nb)];
+      for (int j = 0; j < R; ++j) v[u][j] = s[cx.slot(i + j * nb)];
       if (L > 1) {
 #pragma unroll
         for (int j = 1; j < R; ++j) v[u][j] = cmul(v[u][j], __ldg(w + (j - 1) * L + k));
@@ -277,17 +324,19 @@ __device__ __forceinline__ void radix_stage(float2* s, const float2* __restrict_
       ++q;
     }
   }
-  if (last) {
+  if constexpr (!kTile) {
+    if (last) {
 #pragma unroll
-    for (int u = 0; u < kB; ++u) {
-      const int i = cx.t + u * cx.tr;
-      if (cx.active && i < nb) {
+      for (int u = 0; u < kB; ++u) {
+        const int i = cx.t + u * cx.tr;
+        if (cx.active && i < nb) {
 #pragma unroll
-        for (int m = 0; m < R; ++m)
-          io.store(cx.row, i + m * nb, make_float2(scale * v[u][m].x, scale * v[u][m].y));
+          for (int m = 0; m < R; ++m)
+            io.store(cx.row, i + m * nb, make_float2(scale * v[u][m].x, scale * v[u][m].y));
+        }
       }
+      return;
     }
-    return;
   }
   __syncthreads();
 #pragma unroll
@@ -295,16 +344,22 @@ __device__ __forceinline__ void radix_stage(float2* s, const float2* __restrict_
     const int i = cx.t + u * cx.tr;
     if (cx.active && i < nb) {
 #pragma unroll
-      for (int m = 0; m < R; ++m) s[rx_slot(o[u] + m * L)] = v[u][m];
+      for (int m = 0; m < R; ++m) {
+        float2 w = v[u][m];
+        if constexpr (kTile) {
+          if (last) w = io.out(i + m * nb, w);
+        }
+        s[Cx::Layout::pad(o[u] + cx.lay.step(m * L))] = w;
+      }
     }
   }
   __syncthreads();
 }
 
 // `count` stages of radix R in a row, from stage `st` of a plan of `stages`.
-template <int R, int kE, int kS, class Io>
+template <int R, int kE, int kS, class Io, class Cx>
 __device__ __forceinline__ void radix_stages(int count, float2* s, const float2* __restrict__ tw,
-                                             const RadixCtx& cx, int& L, int& st, int stages,
+                                             const Cx& cx, int& L, int& st, int stages,
                                              const Io& io, float scale) {
   for (int c = 0; c < count; ++c) {
     radix_stage<R, kE, kS>(s, tw, cx, L, ++st == stages, io, scale);
@@ -314,17 +369,18 @@ __device__ __forceinline__ void radix_stages(int count, float2* s, const float2*
 
 // Output pair (m, p - m) of butterfly i of a prime stage whose pairs a_j, b_j
 // sit in place; cs is the coefficient row W_p^u.
+template <class Cx>
 __device__ __forceinline__ void prime_pair(const float2* s, const float2* cs, int p, int nb,
-                                           int base, int i, int m, float2& xm, float2& xpm) {
+                                           const Cx& cx, int i, int m, float2& xm, float2& xpm) {
   const int h = (p - 1) / 2;
-  float2 A = s[rx_slot(base + i)], B = make_float2(0.f, 0.f);
+  float2 A = s[cx.slot(i)], B = make_float2(0.f, 0.f);
   int u = 0;
   for (int j = 1; j <= h; ++j) {
     u += m;
     if (u >= p) u -= p;
     const float2 w = cs[u];
-    const float2 a = s[rx_slot(base + i + j * nb)];
-    const float2 b = s[rx_slot(base + i + (p - j) * nb)];
+    const float2 a = s[cx.slot(i + j * nb)];
+    const float2 b = s[cx.slot(i + (p - j) * nb)];
     A.x = fmaf(a.x, w.x, A.x);
     A.y = fmaf(a.y, w.x, A.y);
     B.x = fmaf(b.x, w.y, B.x);
@@ -336,20 +392,21 @@ __device__ __forceinline__ void prime_pair(const float2* s, const float2* cs, in
 
 // One stage of an odd prime 11 <= p <= 127: the twiddled pairs in place,
 // then the outputs, m = 0 ... (p - 1) / 2 with X[p - m] beside X[m]; a
-// stage before the last holds its items (at most ceil(6 kE / 11) a thread)
-// across the barrier.
-template <int kE, class Io>
+// stage before the last, or the last with kTileOut, holds its items (at most
+// ceil(6 kE / 11) a thread) across the barrier.
+template <int kE, class Io, class Cx>
 __device__ __forceinline__ void prime_stage(float2* s, const float2* __restrict__ tw,
-                                            const float2* cs, int p, const RadixCtx& cx, int L,
+                                            const float2* cs, int p, const Cx& cx, int L,
                                             bool last, const Io& io, float scale) {
+  constexpr bool kTile = RxTileOut<Io>::value;
   const int h = (p - 1) / 2;
   const int nb = cx.n / p;
   if (cx.active) {
     for (int it = cx.t; it < nb * h; it += cx.tr) {
       const int j = 1 + it / nb;
       const int i = it - (j - 1) * nb;
-      const int qa = rx_slot(cx.base + i + j * nb);
-      const int qb = rx_slot(cx.base + i + (p - j) * nb);
+      const int qa = cx.slot(i + j * nb);
+      const int qb = cx.slot(i + (p - j) * nb);
       float2 xa = s[qa], xb = s[qb];
       if (L > 1) {
         const float2* __restrict__ w = tw + (L - 1) + i % L;
@@ -362,17 +419,19 @@ __device__ __forceinline__ void prime_stage(float2* s, const float2* __restrict_
   }
   __syncthreads();
   const int items = nb * (h + 1);
-  if (last) {
-    if (cx.active) {
-      for (int it = cx.t; it < items; it += cx.tr) {
-        const int m = it / nb, i = it - m * nb;
-        float2 xm, xpm;
-        prime_pair(s, cs, p, nb, cx.base, i, m, xm, xpm);
-        io.store(cx.row, i + m * nb, make_float2(scale * xm.x, scale * xm.y));
-        if (m) io.store(cx.row, i + (p - m) * nb, make_float2(scale * xpm.x, scale * xpm.y));
+  if constexpr (!kTile) {
+    if (last) {
+      if (cx.active) {
+        for (int it = cx.t; it < items; it += cx.tr) {
+          const int m = it / nb, i = it - m * nb;
+          float2 xm, xpm;
+          prime_pair(s, cs, p, nb, cx, i, m, xm, xpm);
+          io.store(cx.row, i + m * nb, make_float2(scale * xm.x, scale * xm.y));
+          if (m) io.store(cx.row, i + (p - m) * nb, make_float2(scale * xpm.x, scale * xpm.y));
+        }
       }
+      return;
     }
-    return;
   }
   constexpr int kP = (6 * kE + 10) / 11;
   float2 hold[kP][2];
@@ -381,7 +440,7 @@ __device__ __forceinline__ void prime_stage(float2* s, const float2* __restrict_
     const int it = cx.t + u * cx.tr;
     if (cx.active && it < items) {
       const int m = it / nb, i = it - m * nb;
-      prime_pair(s, cs, p, nb, cx.base, i, m, hold[u][0], hold[u][1]);
+      prime_pair(s, cs, p, nb, cx, i, m, hold[u][0], hold[u][1]);
     }
   }
   __syncthreads();
@@ -391,9 +450,16 @@ __device__ __forceinline__ void prime_stage(float2* s, const float2* __restrict_
     if (cx.active && it < items) {
       const int m = it / nb, i = it - m * nb;
       const int k = i % L;
-      const int o = cx.base + (i - k) * p + k;
-      s[rx_slot(o + m * L)] = hold[u][0];
-      if (m) s[rx_slot(o + (p - m) * L)] = hold[u][1];
+      const int o = cx.lay.at((i - k) * p + k);   // the last stage: (i - k) p + k = i
+      float2 xm = hold[u][0], xpm = hold[u][1];
+      if constexpr (kTile) {
+        if (last) {
+          xm = io.out(i + m * L, xm);
+          if (m) xpm = io.out(i + (p - m) * L, xpm);
+        }
+      }
+      s[Cx::Layout::pad(o + cx.lay.step(m * L))] = xm;
+      if (m) s[Cx::Layout::pad(o + cx.lay.step((p - m) * L))] = xpm;
     }
   }
   __syncthreads();
@@ -406,26 +472,15 @@ __host__ __device__ constexpr int rx_rank(int r) {
        : r == 5 ? 6 : r == 7 ? 7 : 8 + r;
 }
 
-// One block per tile of at most `rows` rows of (T, n), the T rows spread
-// evenly over the `tiles` blocks; tr = ceil(n / kE) threads per row. The
-// table: the stage twiddles at 0 ... n - 2, then each prime stage's
-// coefficient row (ops/hopper/fft.py::radix_consts). The tile's rows past
-// the valid ones are neither loaded nor stored. The stages run radix by
-// radix in the plan's order, each radix's stages in a loop of their own (no
-// run-time switch over the radix).
-template <int kE, int kS, class Io>
-__global__ void __launch_bounds__(kRadixMaxThreads<kE>, kRadixMinBlocks<kE>)
-radix_rows_kernel(const float2* __restrict__ x, Io io, const float2* __restrict__ tab,
-                  RadixPlan plan, int n, long long T, long long tiles, int rows, float scale) {
-  extern __shared__ float2 smem[];
-  const long long row0 = blockIdx.x * T / tiles;
-  const int valid = (int)((blockIdx.x + 1) * T / tiles - row0);
-  const int tr = (n + kE - 1) / kE;
-  const int c = (int)threadIdx.x / tr;
-  const RadixCtx cx{n, tr, (int)threadIdx.x - c * tr, c * n, c < valid, row0 + c};
-  float2* s = smem;
-  float2* cs = smem + rx_tile_slots(rows * n);
-  int count[8] = {0, 0, 0, 0, 0, 0, 0, 0};   // stages of 16, 8, 4, 2, 9, 3, 5, 7
+// A plan's stage counts by radix (16, 8, 4, 2, 9, 3, 5, 7) into count, and
+// each prime stage's coefficient row W_p^u (u < p) from the table (it
+// follows the n entries of stage twiddles) into cs, in the plan's order.
+// The caller's barrier publishes the rows.
+__device__ __forceinline__ void radix_prepare(int (&count)[8], float2* cs,
+                                              const float2* __restrict__ tab,
+                                              const RadixPlan& plan, int n) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) count[j] = 0;
   for (int st = 0, off = n, pos = 0; st < plan.count; ++st) {
     const int p = plan.r[st];
     if (rx_prime(p)) {
@@ -438,6 +493,65 @@ radix_rows_kernel(const float2* __restrict__ x, Io io, const float2* __restrict_
       for (int j = 0; j < 8; ++j) count[j] += rank == j;
     }
   }
+}
+
+// The prime stages' coefficient values of a plan (the cs rows).
+__host__ __device__ inline int rx_coef_count(const RadixPlan& plan) {
+  int c = 0;
+  for (int st = 0; st < plan.count; ++st)
+    if (rx_prime(plan.r[st])) c += plan.r[st];
+  return c;
+}
+
+// A whole transform of every valid transform of the tile, in place: the
+// stages radix by radix in the plan's order, each radix's stages in a loop
+// of their own (no run-time switch over the radix), with the table tab and
+// the counts and coefficient rows of radix_prepare. The last stage stores
+// through io (times scale) or, kTileOut, leaves io.out(k, X[k]) in the tile
+// behind a barrier.
+template <int kE, int kS, class Io, class Cx>
+__device__ __forceinline__ void radix_run(float2* s, const float2* __restrict__ tab,
+                                          const float2* cs, const int (&count)[8],
+                                          const RadixPlan& plan, const Cx& cx, const Io& io,
+                                          float scale) {
+  int L = 1, st = 0;
+  const int stages = plan.count;
+  radix_stages<16, kE, kS>(count[0], s, tab, cx, L, st, stages, io, scale);
+  radix_stages<8, kE, kS>(count[1], s, tab, cx, L, st, stages, io, scale);
+  radix_stages<4, kE, kS>(count[2], s, tab, cx, L, st, stages, io, scale);
+  radix_stages<2, kE, kS>(count[3], s, tab, cx, L, st, stages, io, scale);
+  radix_stages<9, kE, kS>(count[4], s, tab, cx, L, st, stages, io, scale);
+  radix_stages<3, kE, kS>(count[5], s, tab, cx, L, st, stages, io, scale);
+  radix_stages<5, kE, kS>(count[6], s, tab, cx, L, st, stages, io, scale);
+  radix_stages<7, kE, kS>(count[7], s, tab, cx, L, st, stages, io, scale);
+  for (const float2* pc = cs; st < stages; pc += plan.r[st - 1]) {
+    const int p = plan.r[st];
+    prime_stage<kE>(s, tab, pc, p, cx, L, ++st == stages, io, scale);
+    L *= p;
+  }
+}
+
+// One block per tile of at most `rows` rows of (T, n), the T rows spread
+// evenly over the `tiles` blocks; tr = ceil(n / kE) threads per row. The
+// table: the stage twiddles at 0 ... n - 2, then each prime stage's
+// coefficient row (ops/hopper/fft.py::radix_consts). The tile's rows past
+// the valid ones are neither loaded nor stored. An Io with kTileOut gets the
+// tile of spectra, in natural order, in its epilogue(s, cx).
+template <int kE, int kS, class Io>
+__global__ void __launch_bounds__(kRadixMaxThreads<kE>, kRadixMinBlocks<kE>)
+radix_rows_kernel(const float2* __restrict__ x, Io io, const float2* __restrict__ tab,
+                  RadixPlan plan, int n, long long T, long long tiles, int rows, float scale) {
+  extern __shared__ float2 smem[];
+  const long long row0 = blockIdx.x * T / tiles;
+  const int valid = (int)((blockIdx.x + 1) * T / tiles - row0);
+  const int tr = (n + kE - 1) / kE;
+  const int c = (int)threadIdx.x / tr;
+  const RadixCtx<RowLayout> cx{n, tr, (int)threadIdx.x - c * tr, RowLayout{c * n}, c < valid,
+                               row0 + c};
+  float2* s = smem;
+  float2* cs = smem + rx_tile_slots(rows * n);
+  int count[8];
+  radix_prepare(count, cs, tab, plan, n);
   // the valid rows: 16-byte loads from the first 16-byte boundary on, four
   // in flight a thread
   constexpr int kLoads = 4;
@@ -468,30 +582,14 @@ radix_rows_kernel(const float2* __restrict__ x, Io io, const float2* __restrict_
     if ((total - head) & 1) s[rx_slot(total - 1)] = src[total - 1];
   }
   __syncthreads();
-  int L = 1, st = 0;
-  const int stages = plan.count;
-  radix_stages<16, kE, kS>(count[0], s, tab, cx, L, st, stages, io, scale);
-  radix_stages<8, kE, kS>(count[1], s, tab, cx, L, st, stages, io, scale);
-  radix_stages<4, kE, kS>(count[2], s, tab, cx, L, st, stages, io, scale);
-  radix_stages<2, kE, kS>(count[3], s, tab, cx, L, st, stages, io, scale);
-  radix_stages<9, kE, kS>(count[4], s, tab, cx, L, st, stages, io, scale);
-  radix_stages<3, kE, kS>(count[5], s, tab, cx, L, st, stages, io, scale);
-  radix_stages<5, kE, kS>(count[6], s, tab, cx, L, st, stages, io, scale);
-  radix_stages<7, kE, kS>(count[7], s, tab, cx, L, st, stages, io, scale);
-  for (const float2* pc = cs; st < stages; pc += plan.r[st - 1]) {
-    const int p = plan.r[st];
-    prime_stage<kE>(s, tab, pc, p, cx, L, ++st == stages, io, scale);
-    L *= p;
-  }
+  radix_run<kE, kS>(s, tab, cs, count, plan, cx, io, scale);
+  if constexpr (RxTileOut<Io>::value) io.epilogue(s, cx);
 }
 
 // Dynamic shared memory of a block: the padded tile of `rows` rows and the
 // prime stages' coefficient rows.
 inline long long radix_smem_bytes(const RadixPlan& plan, int n, int rows) {
-  long long slots = rx_tile_slots(rows * n);
-  for (int st = 0; st < plan.count; ++st)
-    if (rx_prime(plan.r[st])) slots += plan.r[st];
-  return slots * (long long)sizeof(float2);
+  return (long long)(rx_tile_slots(rows * n) + rx_coef_count(plan)) * sizeof(float2);
 }
 
 template <int kE, int kS, class Io>
@@ -511,6 +609,24 @@ cudaError_t radix_launch_es(const float2* x, Io io, const float2* tab, const Rad
   return cudaGetLastError();
 }
 
+// The plan of `stages` radices whose product is n, each a codelet radix or
+// an odd 11 <= p <= 127, in the kernel's order; false if it is not one.
+inline bool radix_plan_of(const int* radices, int stages, int n, RadixPlan& plan) {
+  if (stages < 1 || stages > kRadixMaxStages || n < 2 || n > 20480) return false;
+  plan.count = stages;
+  long long prod = 1;
+  for (int st = 0; st < stages; ++st) {
+    const int r = radices[st];
+    const bool codelet_r = r == 2 || r == 4 || r == 8 || r == 16 || r == 3 || r == 5 ||
+                           r == 7 || r == 9;
+    if (!codelet_r && (!rx_prime(r) || r > kRadixMaxP)) return false;
+    if (st > 0 && rx_rank(r) < rx_rank(plan.r[st - 1])) return false;
+    plan.r[st] = r;
+    prod *= r;
+  }
+  return prod == n;
+}
+
 // The launcher. x: (T, n) complex64 rows, contiguous; tab: the plan's table
 // (complex64); radices: the plan (`stages` radices whose product is n, each
 // a codelet radix or an odd 11 <= p <= 127); rows: rows per block, at least
@@ -520,21 +636,9 @@ template <class Io>
 cudaError_t radix_rows_launch(const float2* x, Io io, const float2* tab, const int* radices,
                               int stages, long long T, int n, int rows, int sign, float scale,
                               cudaStream_t stream) {
-  if (stages < 1 || stages > kRadixMaxStages || T < 1 || rows < 1 || n < 2 ||
-      n > 20480)
+  RadixPlan plan{};
+  if (T < 1 || rows < 1 || !radix_plan_of(radices, stages, n, plan))
     return cudaErrorInvalidValue;
-  RadixPlan plan{stages, {}};
-  long long prod = 1;
-  for (int st = 0; st < stages; ++st) {
-    const int r = radices[st];
-    const bool codelet_r = r == 2 || r == 4 || r == 8 || r == 16 || r == 3 || r == 5 ||
-                           r == 7 || r == 9;
-    if (!codelet_r && (!rx_prime(r) || r > kRadixMaxP)) return cudaErrorInvalidValue;
-    if (st > 0 && rx_rank(r) < rx_rank(plan.r[st - 1])) return cudaErrorInvalidValue;
-    plan.r[st] = r;
-    prod *= r;
-  }
-  if (prod != n) return cudaErrorInvalidValue;
   const int e = radix_per_thread(n);
   if (sign < 0)
     return e == 40 ? radix_launch_es<40, -1>(x, io, tab, plan, T, n, rows, scale, stream)

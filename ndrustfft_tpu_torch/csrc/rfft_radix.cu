@@ -1,0 +1,72 @@
+// Kernel 15 at a half length h > 256 without a {128, 256} split: the packed
+// R2C of contiguous (T, n) float32 rows, n = 2h, to (T, h + 1) complex64
+// (h = 265 at n = 530 and h = 300 at n = 600; odd h included), on the
+// mixed-radix row core (fft_radix.cuh) with the unpack as its epilogue.
+//
+// Replaces ndrustfft_tpu/ops/pallas/rfft.py::_r2c_kernel where
+// _half_fft_consts falls back to the generic lane-last schedule. The TPU
+// kernel ran the rows [z; conj z] of the even/odd streams through its
+// length-h FFT (two dense products) and unpacked Z and C = conj Z[(h - k)
+// mod h]. Its first Hopper form ran the same two dense products,
+// 8 (m + f) FP32 operations per output (1216 at h = 300 against an FFT's
+// 5 log2 h = 41), and read Z back through L2 for the unpack.
+//
+// What bounds it on this card: device memory. A row is read once (8 h
+// bytes) and its h + 1 bins written once (8 (h + 1) bytes): 0.517 ms at
+// (360000, 600) over 3.35 TB/s, against about 2.5 n log2 n FP32 operations
+// per row (0.06 ms of the 67 TFLOP/s peak).
+//
+// The design: a contiguous float32 row of length 2h is the complex row
+// z[t] = x[2t] + i x[2t + 1], so the row core's 16-byte load reads it as
+// it is. The core runs radix_plan(h) in place; its last stage writes the
+// spectrum Z back into the tile in natural order (R2cUnpack::kTileOut), and
+// after the barrier the epilogue reads Z[k] and Z[(h - k) mod h] from shared
+// memory and writes each bin of the output row once, consecutive threads on
+// consecutive bins:
+//
+//   X[k] = (Z[k] + C[k]) / 2 - i W_n^k (Z[k] - C[k]) / 2,  k < h,
+//   X[h] = Re Z[0] - Im Z[0],  C[k] = conj Z[(h - k) mod h].
+#include "fft_radix.cuh"
+
+namespace ndfft {
+
+// The unpack epilogue: the row core leaves Z in the tile, and each row's
+// threads write its h + 1 bins; u[k] = W_n^k.
+struct R2cUnpack {
+  static constexpr bool kTileOut = true;
+  float2* __restrict__ y;
+  const float2* __restrict__ u;
+  __device__ __forceinline__ float2 out(int, float2 v) const { return v; }
+  template <class Cx>
+  __device__ __forceinline__ void epilogue(const float2* s, const Cx& cx) const {
+    if (!cx.active) return;
+    const int h = cx.n;
+    float2* yr = y + cx.row * (h + 1);
+    for (int k = cx.t; k <= h; k += cx.tr) {
+      const float2 za = s[cx.slot(k < h ? k : 0)];
+      if (k < h) {
+        yr[k] = r2c_unpack_one(za, s[cx.slot(k ? h - k : 0)], __ldg(u + k));
+      } else {
+        yr[h] = make_float2(za.x - za.y, 0.f);
+      }
+    }
+  }
+};
+
+}  // namespace ndfft
+
+// x: (T, 2h) float32, contiguous, 8-byte aligned (read as (T, h) complex64);
+// y: (T, h + 1) complex64; table: the forward radix table of h
+// (ops/hopper/fft.py::radix_consts); radices: the plan's `stages` radices
+// (ops/hopper/fft.py::radix_plan); u: (h,) W_n^k; rows: rows per block
+// (ops/hopper/fft.py::radix_block). Returns the cudaError_t of the launch
+// (0 on success).
+extern "C" int ndfft_r2c_radix(const void* x, void* y, const void* table, const int* radices,
+                               int stages, const void* u, long long T, int h, int rows,
+                               void* stream) {
+  using namespace ndfft;
+  return (int)radix_rows_launch(static_cast<const float2*>(x),
+                                R2cUnpack{static_cast<float2*>(y), static_cast<const float2*>(u)},
+                                static_cast<const float2*>(table), radices, stages, T, h, rows,
+                                -1, 1.f, static_cast<cudaStream_t>(stream));
+}

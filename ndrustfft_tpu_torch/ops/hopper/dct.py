@@ -599,7 +599,7 @@ def dct23_blue_mid(x: torch.Tensor, dct_type: int, scale=None) -> torch.Tensor:
     if x.numel() == 0:
         return y
     a, b, h = _device_blue_rr(n, dct_type, _scale(scale), x.device)
-    blue_launch(dct23_blue_mid, "ndfft_dct23_blue_mid", x, y, (a, b), h, 1.0, f)
+    count_launch(dct23_blue_mid, blue_launch("ndfft_dct23_blue_mid", x, y, (a, b), h, 1.0, f))
     return y
 
 

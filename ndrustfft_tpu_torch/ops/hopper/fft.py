@@ -24,10 +24,10 @@
 * Kernel 11, :func:`c2c_blue_mid`: Bluestein's chirp-z C2C along the
   middle axis of (B, n, L) for a length n with a prime factor above 128,
   fused into one pass: the chirped column zero-padded to M = 128 * F, the
-  core's FFT_M, the product with H, the inverse core and the exit chirp
-  (``csrc/fft_blue_mid.cu`` on the fixed core for F in {4, 8, 16}, on the
-  wide core with a second tile otherwise; replaces
-  ``fft.py::_kernel_axis_mid_blue``).
+  FFT_M, the product with H, the inverse and the exit chirp
+  (``csrc/fft_blue_mid.cu`` on the fixed bts2 core for F in {4, 8, 16}; on
+  an (M, C) column tile of the mixed-radix core otherwise,
+  ``csrc/fft_blue_radix.cu``; replaces ``fft.py::_kernel_axis_mid_blue``).
 * Kernels 7 and 13, :func:`fourstep_mid` and :func:`rows_store_t`: the two
   passes of the four-step long C2C (``ops/engine.py::_fourstep``). Kernel 7
   is the C2C of length n1 along dim 1 of the (B, n1, n2) view times the
@@ -45,9 +45,9 @@
 
 This module holds their host-built constants, their plain PyTorch versions
 and their wrappers, whose ``launches`` attributes count kernel launches
-(kernels 1, 7, 11, 13 and 14 also count the wide core's launches apart, in
+(kernels 1, 7, 13 and 14 also count the wide core's launches apart, in
 ``wide_launches``, kernel 7 its dense body's, in ``dense_launches``, and
-kernel 10 the radix core's, in ``radix_launches``).
+kernels 10 and 11 the radix core's, in ``radix_launches``).
 """
 
 from __future__ import annotations
@@ -368,8 +368,9 @@ c2c_rows.radix_launches = 0
 
 
 # --------------------------------------------------------------------------
-# The mixed-radix Stockham row core (kernel 10 at F outside {4, 8, 16},
-# kernel 8 at 256 < n <= 20480)
+# The mixed-radix Stockham core (rows: kernel 10 at F outside {4, 8, 16},
+# kernel 8 at 256 < n <= 20480, kernel 15 at a generic half length; columns:
+# kernel 11 at F outside {4, 8, 16})
 # --------------------------------------------------------------------------
 
 RADIX_CODELETS = (16, 8, 4, 2, 9, 3, 5, 7)  # radices the kernel runs in registers
@@ -378,6 +379,7 @@ RADIX_MAX_STAGES = 8        # csrc/fft_radix.cuh::kRadixMaxStages
 RADIX_TILE = 2560           # complex elements of a block's tile of several rows
 RADIX_WIDE_N = 4096         # above it, one row a block (csrc/fft_radix.cuh)
 RADIX_MAX_THREADS = 256     # threads of a block up to RADIX_WIDE_N, 16 elements each
+RADIX_MAX_ELEMS = 20480     # elements of a block's tile: 512 threads of 40 (csrc/fft_radix.cuh)
 
 
 @lru_cache(maxsize=None)
@@ -601,8 +603,8 @@ c2c_dense_rows.launches = 0
 
 
 # --------------------------------------------------------------------------
-# Kernel 8 at n > 256 on the radix core; kernel 6 (and kernel 15's generic
-# form, ops/hopper/rfft.py) on the generic two-factor schedule
+# Kernel 8 at n > 256 on the radix core; kernel 6 on the generic two-factor
+# schedule
 # --------------------------------------------------------------------------
 
 
@@ -661,39 +663,27 @@ def device_generic(n: int, sign: int, scale: float, device: torch.device):
                  for re, im in generic_consts(n, sign, scale))
 
 
-def generic_schedule(x: torch.Tensor, n: int, sign: int, scale) -> torch.Tensor:
-    """The two-factor schedule along dim 1 of a (B, n, L) tensor: the DFT-m
-    over t' (t = f t' + j), the twiddle, the DFT-f over j; k = q m + p."""
-    s = 1.0 if scale is None else float(scale)
-    wm, wf, tw = device_generic(n, sign, s, x.device)
-    m, f = wm.shape[0], wf.shape[0]
-    nb, _, cols = x.shape
-    a = torch.einsum("tp,btjc->bpjc", wm, x.reshape(nb, m, f, cols)) * tw[:, :, None]
-    return torch.einsum("jq,bpjc->bqpc", wf, a).reshape(nb, n, cols)
-
-
 c2c_generic_rows_plain = c2c_radix_rows_plain   # kernel 8 at n > 256 runs the radix core
 
 
 def c2c_generic_mid_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
-    """Plain version of kernel 6: the schedule along dim 1 of (B, n, L)."""
-    return generic_schedule(x, x.shape[1], sign, scale)
+    """Plain version of kernel 6: the two-factor schedule along dim 1 of
+    (B, n, L): the DFT-m over t' (t = f t' + j), the twiddle, the DFT-f over
+    j; k = q m + p."""
+    nb, n, cols = x.shape
+    s = 1.0 if scale is None else float(scale)
+    wm, wf, tw = device_generic(n, sign, s, x.device)
+    m, f = wm.shape[0], wf.shape[0]
+    a = torch.einsum("tp,btjc->bpjc", wm, x.reshape(nb, m, f, cols)) * tw[:, :, None]
+    return torch.einsum("jq,bpjc->bqpc", wf, a).reshape(nb, n, cols)
 
 
-def generic_bytes(n: int, rows: bool) -> int:
-    """Shared-memory bytes of one transform in a generic block's tile: the
-    (m, f) matrix with an odd row pitch in the row layout, n in the column
-    layout."""
-    m, f = generic_split(n)
-    return 8 * m * (f | 1) if rows else 8 * n
-
-
-def generic_block(n: int, groups: int, count: int, sms: int, rows: bool) -> int:
-    """Transforms per block of the generic kernels: as many as
+def generic_block(n: int, groups: int, count: int, sms: int) -> int:
+    """Columns per block of kernel 6: as many n-element transforms as
     GENERIC_SMEM holds (at least one), halved while the grid of ``groups``
     times the tiles would leave SMs idle, then spread evenly over the tiles
     so that a ragged last tile is as full as the others."""
-    v = max(1, GENERIC_SMEM // generic_bytes(n, rows))
+    v = max(1, GENERIC_SMEM // (8 * n))
     while v > 1 and groups * -(-count // v) < sms:
         v //= 2
     return -(-count // -(-count // v))
@@ -747,7 +737,7 @@ def c2c_generic_mid(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    v = generic_block(n, nb, cols, num_sms(x.device), False)
+    v = generic_block(n, nb, cols, num_sms(x.device))
     with torch.cuda.device(x.device):
         err = _build.lib().ndfft_c2c_generic(
             x.data_ptr(), y.data_ptr(), wm.data_ptr(), wf.data_ptr(), tw.data_ptr(),
@@ -780,15 +770,17 @@ def blue_kernel_M(n: int):
 
 def blue_bytes(mk: int, c: int) -> int:
     """Dynamic shared memory of a wide chirp-z tile of ``c`` columns at
-    convolution length mk (csrc/fft_blue_mid.cu::blue_wide_smem_bytes): the
-    wide core's tile, Y scratch and row W_F^k, and a second tile that the
-    forward core's store fills with FFT_M times H for the inverse core."""
+    convolution length mk (csrc/fft_blue_mid.cu::blue_wide_smem_bytes;
+    kernel 12's wide form): the wide core's tile, Y scratch and row W_F^k,
+    and a second tile that the forward core's store fills with FFT_M times
+    H for the inverse core. One column of it bounds the Bluestein lengths of
+    both kernels (:func:`blue_f`)."""
     return 8 * (c * (2 * mk + WIDE_SLOTS * M) + mk // M)
 
 
 def blue_f(n: int):
     """F of the convolution length M = 128 * F where kernels 11 and 12 take
-    n: a length above 128 whose blue_kernel_M has a tile of one column
+    n: a length above 128 whose blue_kernel_M has a wide tile of one column
     within a block's shared memory (F <= 111; the routes send F <= 106),
     else None."""
     mk = blue_kernel_M(n)
@@ -806,12 +798,14 @@ def check_blue_n(n: int, what: str) -> int:
 
 
 def blue_consts(n: int, sign: int, scale: float = 1.0):
-    """Kernel 11's tables at n, float32 (re, im) pairs: the entry and exit
-    chirp exp(sign i pi t^2 / n) (t < n), H = FFT_M of the wrapped inverse
-    chirp (M = blue_kernel_M(n)), the forward core's Wq (sign -1) and the
-    inverse core's (sign +1, the user scale and 1/M folded in). Built by
-    the JAX package's ``_blue_consts`` expressions in float64 and rounded
-    once, so each is its table bit for bit."""
+    """Kernel 11's tables at n on the fixed core, float32 (re, im) pairs: the
+    entry and exit chirp exp(sign i pi t^2 / n) (t < n), H = FFT_M of the
+    wrapped inverse chirp (M = blue_kernel_M(n)), the forward core's Wq
+    (sign -1) and the inverse core's (sign +1, the user scale and 1/M folded
+    in). Built by the JAX package's ``_blue_consts`` expressions in float64
+    and rounded once, so each is its table bit for bit. The radix column
+    tile takes the chirp, H and the sign -1 :func:`radix_consts` of M, which
+    serves both of its transforms."""
     mk = blue_kernel_M(n)
     return (f32_pair(chirp(n, sign)), f32_pair(blue_h(n, sign, mk)),
             bts2_consts(mk, -1, 1.0), bts2_consts(mk, +1, scale / mk))
@@ -838,9 +832,10 @@ def _device_blue(n: int, sign: int, device: torch.device):
 
 
 def chirp_z_plain(xa: torch.Tensor, h: torch.Tensor, scale: float) -> torch.Tensor:
-    """The fused chirp-z's convolution on the chirped (B, n, L) column xa:
-    zero-padded to M = len(h), the core's plain forward transform, times H,
-    the core's plain inverse with scale / M, rows k < n."""
+    """The fused chirp-z's convolution on the bts2 core, on the chirped
+    (B, n, L) column xa: zero-padded to M = len(h), the core's plain forward
+    transform, times H, the core's plain inverse with scale / M, rows k < n
+    (kernel 11 at F in {4, 8, 16}, kernel 12)."""
     nb, n, cols = xa.shape
     mk = h.shape[0]
     pad = torch.cat([xa, xa.new_zeros(nb, mk - n, cols)], dim=1)
@@ -848,19 +843,36 @@ def chirp_z_plain(xa: torch.Tensor, h: torch.Tensor, scale: float) -> torch.Tens
     return bts2_plain(f, device_wq(mk, +1, scale / mk, xa.device), +1)[:, :n]
 
 
+def chirp_z_radix_plain(xa: torch.Tensor, h: torch.Tensor, scale: float) -> torch.Tensor:
+    """The same convolution on the radix core (kernel 11 at F outside {4, 8,
+    16}): each zero-padded column as a row, :func:`c2c_radix_rows_plain`
+    forward, times H, the inverse with scale / M, rows k < n."""
+    nb, n, cols = xa.shape
+    mk = h.shape[0]
+    pad = torch.cat([xa, xa.new_zeros(nb, mk - n, cols)], dim=1)
+    rows = pad.transpose(1, 2).reshape(nb * cols, mk)
+    f = c2c_radix_rows_plain(rows, -1) * h
+    z = c2c_radix_rows_plain(f, +1, scale / mk)
+    return z.reshape(nb, cols, mk)[:, :, :n].transpose(1, 2)
+
+
 def c2c_blue_mid_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
-    """Plain version of kernel 11 on any device: x a, the convolution of
-    :func:`chirp_z_plain`, times the exit chirp b = a."""
-    a, h = _device_blue(x.shape[1], sign, x.device)
+    """Plain version of kernel 11 on any device: x a, the convolution
+    (:func:`chirp_z_plain` on the bts2 core at F in {4, 8, 16}, else
+    :func:`chirp_z_radix_plain`), times the exit chirp b = a."""
+    n = x.shape[1]
+    a, h = _device_blue(n, sign, x.device)
     s = 1.0 if scale is None else float(scale)
-    return chirp_z_plain(x * a[:, None], h, s) * a[:, None]
+    conv = chirp_z_plain if check_blue_n(n, "c2c_blue_mid") in C2C_F else chirp_z_radix_plain
+    return conv(x * a[:, None], h, s) * a[:, None]
 
 
-def blue_launch(wrapper, entry: str, x: torch.Tensor, y: torch.Tensor, chirps, h: torch.Tensor,
-                scale: float, f: int) -> None:
-    """Launch the fixed (F in {4, 8, 16}) or the wide form of kernel 11 or
-    12 (``entry`` and ``entry + "_wide"``) on (B, n, L) tensors x and y,
-    with the chirp tensors ``chirps`` and H, and count the launch."""
+def blue_launch(entry: str, x: torch.Tensor, y: torch.Tensor, chirps, h: torch.Tensor,
+                scale: float, f: int) -> bool:
+    """Launch the bts2 core's fixed (F in {4, 8, 16}) or wide form of kernel
+    11 or 12 (``entry`` and ``entry + "_wide"``; kernel 11 takes the fixed
+    form only) on (B, n, L) tensors x and y, with the chirp tensors
+    ``chirps`` and H; return whether it ran the wide form."""
     nb, n, cols = x.shape
     dev = x.device
     mk = f * M
@@ -879,14 +891,60 @@ def blue_launch(wrapper, entry: str, x: torch.Tensor, y: torch.Tensor, chirps, h
         err = getattr(_build.lib(), name)(x.data_ptr(), y.data_ptr(), *ptrs, nb, n, mk, cols,
                                           tile, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, name)
-    count_launch(wrapper, wide)
+    return wide
+
+
+def radix_cols_threads(mk: int, c: int) -> int:
+    """Threads of a radix column tile of ``c`` columns of length mk
+    (csrc/fft_blue_radix.cu): ceil(mk / e) a column, e = 16, 32 or 40
+    elements a thread by the tile's mk c elements, rounded up to warps."""
+    e = 40 if mk * c > 16384 else 32 if mk * c > RADIX_WIDE_N else 16
+    return -(-(c * -(-mk // e)) // 32) * 32
+
+
+def blue_radix_cols(mk: int, groups: int, cols: int, sms: int) -> int:
+    """Columns per tile of kernel 11's radix form at convolution length mk:
+    up to M = 4096 the largest of 8, 4, 2, 1 whose tile stays in the
+    16-element form (at most RADIX_WIDE_N elements, 256 threads of 80
+    registers, several blocks an SM); above it the largest whose tile holds
+    at most RADIX_MAX_ELEMS elements in 512 threads (32 or 40 elements a
+    thread, one block an SM); halved while the grid of ``groups`` times the
+    tiles would leave SMs idle. (On an H100 at M = 2176 one column a tile in
+    the 16-element form ran faster than 2, 4 or 8 columns in the 32- or
+    40-element form, whose 128 registers a thread leave one block an SM:
+    chip_smoke.py's phase 5 times each C at K11's main shape.)"""
+    limit = RADIX_WIDE_N if mk <= RADIX_WIDE_N else RADIX_MAX_ELEMS
+    c = 8
+    while c > 1 and (mk * c > limit or radix_cols_threads(mk, c) > 2 * RADIX_MAX_THREADS):
+        c //= 2
+    while c > 1 and groups * -(-cols // c) < sms:
+        c //= 2
+    return c
+
+
+def blue_radix_launch(x: torch.Tensor, y: torch.Tensor, a: torch.Tensor, h: torch.Tensor,
+                      scale: float, c: int) -> None:
+    """Launch kernel 11's radix column tile, ``c`` columns a tile
+    (:func:`blue_radix_cols`), on (B, n, L) complex64 CUDA tensors x and y
+    with the chirp a and H (:func:`_device_blue`)."""
+    nb, n, cols = x.shape
+    dev = x.device
+    mk = h.shape[0]
+    plan = radix_plan(mk)
+    with torch.cuda.device(dev):
+        err = _build.lib().ndfft_c2c_blue_radix(
+            x.data_ptr(), y.data_ptr(), a.data_ptr(), h.data_ptr(),
+            device_radix(mk, -1, dev).data_ptr(), (ctypes.c_int * RADIX_MAX_STAGES)(*plan),
+            len(plan), nb, n, mk, cols, c, scale / mk, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ndfft_c2c_blue_radix")
 
 
 def c2c_blue_mid(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
     """C2C of Bluestein length n along dim 1 of a (B, n, L) complex64 tensor
     (:func:`blue_f`), times ``scale``, as one fused chirp-z pass. A CPU
     tensor runs the plain version; a CUDA tensor launches kernel 11 (on the
-    fixed core for F in {4, 8, 16}, else on the wide core) or raises."""
+    fixed bts2 core for F in {4, 8, 16}, else on the radix core's column
+    tile, counted in ``radix_launches``) or raises."""
     if x.dim() != 3:
         raise ValueError(f"c2c_blue_mid: expected (B, n, L), got {tuple(x.shape)}")
     nb, n, cols = x.shape
@@ -900,13 +958,19 @@ def c2c_blue_mid(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
     if x.numel() == 0:
         return y
     a, h = _device_blue(n, sign, x.device)
-    blue_launch(c2c_blue_mid, "ndfft_c2c_blue_mid", x, y, (a,), h,
-                1.0 if scale is None else float(scale), f)
+    s = 1.0 if scale is None else float(scale)
+    radix = f not in C2C_F
+    if radix:
+        blue_radix_launch(x, y, a, h, s, blue_radix_cols(f * M, nb, cols, num_sms(x.device)))
+    else:
+        blue_launch("ndfft_c2c_blue_mid", x, y, (a,), h, s, f)
+    c2c_blue_mid.launches += 1
+    c2c_blue_mid.radix_launches += radix
     return y
 
 
 c2c_blue_mid.launches = 0
-c2c_blue_mid.wide_launches = 0
+c2c_blue_mid.radix_launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -29,8 +29,9 @@
   (``csrc/rfft_nat.cu``, both cores, with F = 1 added); :func:`r2c_packed_dense`
   for every other h <= 256 is kernel 20's real product with its table, in
   the row layout (``csrc/rfft_dense.cu``); :func:`r2c_packed_generic` for
-  h > 256 without a split is kernel 8's generic schedule with the unpack
-  as its epilogue (``csrc/rfft_generic.cu``).
+  h > 256 without a split is the half-length C2C on kernel 8's mixed-radix
+  row core with the unpack as its epilogue in shared memory
+  (``csrc/rfft_radix.cu`` on ``csrc/fft_radix.cuh``).
 * Kernel 22, :func:`spectral_r2c_mid`: the fused pipeline C2R(H * R2C(x))
   along the middle axis of (B, n, L), kernel 16's forward, the multiply and
   kernel 17's inverse on one column tile (``csrc/spectral_r2c_mid.cu``, the
@@ -45,6 +46,7 @@ core's launches apart, in ``wide_launches``).
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 
 import numpy as np
@@ -52,10 +54,10 @@ import torch
 
 from ...plan import _cis
 from . import _build
-from .fft import (CORE_F, GENERIC_MAX_N, M, block_cols, block_rows, bts2_plain,
-                  check_cuda, check_mult, core_f, count_launch, dense_tile, device_generic,
-                  device_wide, device_wq, generic_block, generic_schedule, generic_split,
-                  mult_planes, num_sms, wide_block)
+from .fft import (CORE_F, GENERIC_MAX_N, M, RADIX_MAX_STAGES, block_cols, block_rows,
+                  bts2_plain, c2c_radix_rows_plain, check_cuda, check_mult, core_f, count_launch,
+                  dense_tile, device_radix, device_wide, device_wq, generic_split, mult_planes,
+                  num_sms, radix_block, radix_plan, wide_block)
 
 # lengths kernels 20 and 21 take: the JAX package's rfft_dense_mid_supported
 # (its _DENSE_RFFT_MAX), which the routes mirror
@@ -785,21 +787,21 @@ r2c_packed_dense.launches = 0
 
 
 def r2c_packed_generic_plain(x: torch.Tensor) -> torch.Tensor:
-    """Plain version of :func:`r2c_packed_generic`: the generic schedule on
-    the row read as its complex pairs z (h = n / 2 of them), then the
-    unpack."""
+    """Plain version of :func:`r2c_packed_generic`: the radix core's plain
+    version on the row read as its complex pairs z (h = n / 2 of them),
+    then the unpack."""
     t, n = x.shape
     h = n // 2
     z = torch.view_as_complex(x.reshape(t, h, 2).contiguous())
-    y = generic_schedule(z.reshape(t, h, 1), h, -1, None).reshape(t, h)
-    return _unpack(y, _device_tw(n, x.device), -1)
+    return _unpack(c2c_radix_rows_plain(z, -1), _device_tw(n, x.device), -1)
 
 
 def r2c_packed_generic(x: torch.Tensor) -> torch.Tensor:
     """R2C of the rows of a (T, n) float32 tensor -> (T, h+1) complex64 at a
     half length h = n/2 the generic schedule takes (256 < h <= 20480, odd h
     included). A CPU tensor runs the plain version; a CUDA tensor launches
-    kernel 15's generic form or raises."""
+    kernel 15's generic form (the radix row core with the unpack epilogue)
+    or raises."""
     _check_packed(x, "r2c_packed_generic")
     t, n = x.shape
     h = n // 2
@@ -813,17 +815,17 @@ def r2c_packed_generic(x: torch.Tensor) -> torch.Tensor:
     check_cuda(x, torch.float32, "r2c_packed_generic")
     if x.data_ptr() % 8:       # the kernel reads rows as float2
         x = x.clone()
-    m, f = generic_split(h)
-    wm, wf, tw = device_generic(h, -1, 1.0, x.device)
+    plan = radix_plan(h)
+    table = device_radix(h, -1, x.device)
     u = _device_tw(n, x.device)
     out = torch.empty((t, h + 1), dtype=torch.complex64, device=x.device)
     if t == 0:
         return out
-    v = generic_block(h, 1, t, num_sms(x.device), True)
     with torch.cuda.device(x.device):
-        err = _build.lib().ndfft_r2c_generic(
-            x.data_ptr(), out.data_ptr(), wm.data_ptr(), wf.data_ptr(), tw.data_ptr(),
-            u.data_ptr(), t, m, f, v, torch.cuda.current_stream(x.device).cuda_stream)
+        err = _build.lib().ndfft_r2c_radix(
+            x.data_ptr(), out.data_ptr(), table.data_ptr(),
+            (ctypes.c_int * RADIX_MAX_STAGES)(*plan), len(plan), u.data_ptr(), t, h,
+            radix_block(h, t, num_sms(x.device)), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "r2c_packed_generic")
     r2c_packed_generic.launches += 1
     return out

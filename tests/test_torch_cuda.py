@@ -534,13 +534,15 @@ def test_dirichlet_pair_runs_on_the_kernels(dev):
 
 
 def test_blue_kernels_match_plain_in_both_forms(dev):
-    """Kernels 11 and 12 on the fixed core (M = 1024, 2048: F = 8, 16) and on
-    the wide core with its second tile (F = 3, 17, 33 and the routes'
-    largest, 106: one column per tile), ragged column tiles, both signs and
-    the scale 1/n."""
+    """Kernels 11 and 12 on the fixed core (M = 1024, 2048: F = 8, 16); kernel
+    11 at F = 3, 17, 33 and the routes' largest, 106, on the radix core's
+    column tile (counted in ``radix_launches``), kernel 12 at F = 19, 33 on
+    the wide core with its second tile (``wide_launches``); ragged column
+    tiles, both signs and the scale 1/n."""
     g = torch.Generator(device=dev).manual_seed(15)
     fns = (kfft.c2c_blue_mid, kdct.dct23_blue_mid)
-    before = [(f.launches, f.wide_launches) for f in fns]
+    forms = ("radix_launches", "wide_launches")
+    before = [(f.launches, getattr(f, a)) for f, a in zip(fns, forms)]
     for shape in ((2, 509, 130), (1, 1021, 257), (2, 131, 130), (1, 1031, 129),
                   (1, 2049, 33), (1, 6781, 3)):
         x = torch.view_as_complex(torch.randn(*shape, 2, generator=g, device=dev))
@@ -552,8 +554,70 @@ def test_blue_kernels_match_plain_in_both_forms(dev):
         for t, scale in ((2, 2.0), (3, None)):
             assert _rel(kdct.dct23_blue_mid(x, t, scale),
                         kdct.dct23_blue_mid_plain(x, t, scale)) <= TOL, (shape, t)
-    assert [(f.launches - a, f.wide_launches - b) for f, (a, b) in zip(fns, before)] == \
-        [(12, 8), (6, 4)]
+    assert [(f.launches - a, getattr(f, form) - b)
+            for f, form, (a, b) in zip(fns, forms, before)] == [(12, 8), (6, 4)]
+
+
+def test_blue_radix_kernel_matches_plain(dev):
+    """Kernel 11's radix column tile at every column count C = 1, 2, 4, 8
+    the tile allows (its launcher), with a ragged last tile (L = 13, 130),
+    F = 3, 11, 17, 33, 53, 106, both signs and the scale 1/n; the wrapper's
+    launch counted as the radix form."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    for nb, n, cols in ((2, 131, 13), (1, 647, 130), (1, 1031, 13), (1, 2049, 130),
+                        (1, 3331, 5), (1, 6781, 3)):
+        x = torch.view_as_complex(torch.randn(nb, n, cols, 2, generator=g, device=dev))
+        mk = kfft.blue_kernel_M(n)
+        for sign, scale in ((-1, None), (+1, 1.0 / n)):
+            want = kfft.c2c_blue_mid_plain(x, sign, scale)
+            a, h = kfft._device_blue(n, sign, dev)
+            for c in (1, 2, 4, 8):
+                if mk * c > kfft.RADIX_MAX_ELEMS or kfft.radix_cols_threads(mk, c) > 512:
+                    continue
+                got = torch.empty_like(x)
+                kfft.blue_radix_launch(x, got, a, h, 1.0 if scale is None else scale, c)
+                assert _rel(got, want) <= TOL, (n, c, sign)
+        launches = kfft.c2c_blue_mid.radix_launches
+        assert _rel(kfft.c2c_blue_mid(x, -1), kfft.c2c_blue_mid_plain(x, -1)) <= TOL
+        assert kfft.c2c_blue_mid.radix_launches - launches == 1
+
+
+def test_r2c_radix_kernel_matches_plain(dev):
+    """Kernel 15's generic form on the radix row core: odd h (265), the
+    600^3 step's h = 300 at a ragged multi-row tile (601 rows, 8 a tile),
+    two prime stages (11352), one row a tile with 32 and 40 elements a
+    thread (11352, 20448), and an input that is not 16-byte aligned."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    before = krfft.r2c_packed_generic.launches
+    for t, n in ((7, 530), (601, 600), (130, 1000), (3, 2 * 11352), (2, 2 * 20448)):
+        x = torch.randn(t, n, generator=g, device=dev)
+        got = krfft.r2c_packed_generic(x)
+        assert got.shape == (t, n // 2 + 1)
+        assert _rel(got, krfft.r2c_packed_generic_plain(x)) <= TOL, (t, n)
+    x = torch.randn(5 * 600 + 2, generator=g, device=dev)[2:].reshape(5, 600)
+    assert _rel(krfft.r2c_packed_generic(x), krfft.r2c_packed_generic_plain(x)) <= TOL
+    assert krfft.r2c_packed_generic.launches - before == 6
+
+
+def test_bluestein_axis1_runs_on_the_radix_column_tile(dev):
+    """ndfft/ndifft along axis 1 of (2, 1031, 130) (F = 17) take kernel 11's
+    radix form, K12 at 2049 along axis 0 keeps the wide core; no engine
+    call."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    x = torch.view_as_complex(torch.randn(2, 1031, 130, 2, generator=g, device=dev))
+    r = torch.randn(2049, 130, generator=g, device=dev)
+    counts = (kfft.c2c_blue_mid.launches, kfft.c2c_blue_mid.radix_launches,
+              kdct.dct23_blue_mid.wide_launches)
+    calls = engine.c2c.calls
+    y = nd.ndfft(x, axis=1)
+    back = nd.ndifft(y, axis=1)
+    d = nd.nddct2(r, axis=0)
+    assert (kfft.c2c_blue_mid.launches - counts[0], kfft.c2c_blue_mid.radix_launches - counts[1],
+            kdct.dct23_blue_mid.wide_launches - counts[2]) == (2, 2, 1)
+    assert engine.c2c.calls == calls
+    assert _rel(y.to(torch.complex128), torch.fft.fft(x.to(torch.complex128), dim=1)) <= 1e-5
+    assert _rel(back, x) <= 1e-5
+    assert d.shape == r.shape and bool(torch.isfinite(d).all())
 
 
 def test_prime_lengths_run_on_the_blue_kernels(dev):

@@ -4,7 +4,8 @@ CPU:
 
 * the plain versions of ``c2c_generic_rows``, ``c2c_generic_mid`` and
   ``r2c_packed_generic`` against ``c2c_pallas``, ``c2c_pallas_axis_mid`` and
-  ``r2c_pallas`` in interpret mode (their generic bodies);
+  ``r2c_pallas`` in interpret mode (their generic bodies; kernels 8 and 15
+  run the mixed-radix row core's plain version);
 * ``generic_consts`` bit for bit against ``_plan_consts``, C-contiguous;
 * the wrappers' checks and launch counters, the block sizes, and that every
   length the routes send to the generic kernels is one they take;
@@ -206,14 +207,15 @@ def test_generic_wrappers_on_cpu_count_no_launch():
 
 
 def test_generic_block_sizes():
-    # the 600^3 step: 20 rows of 600 (4824 B each) in 96 KB, on 360000 rows
-    assert kfft.generic_block(600, 1, 360000, 132, True) == 20
+    # the 600^3 step's R2C: kernel 15 at h = 300 on the radix row core, 8
+    # rows of 300 (RADIX_TILE) over 360000 rows
+    assert kfft.radix_block(300, 360000, 132) == 8
     # axis 1 at L = 301: 16 tiles of 19 columns, the last one of 16, not 1
-    assert kfft.generic_block(600, 600, 301, 132, False) == 19
-    assert kfft.generic_block(600, 1, 180600, 132, False) == 20
+    assert kfft.generic_block(600, 600, 301, 132) == 19
+    assert kfft.generic_block(600, 1, 180600, 132) == 20
     # halved while the grid would leave SMs idle, then spread evenly
-    assert kfft.generic_block(600, 1, 1000, 132, False) == 5      # 20 -> 10 -> 5
-    assert kfft.generic_block(1200, 1, 8, 132, True) == 1
+    assert kfft.generic_block(600, 1, 1000, 132) == 5      # 20 -> 10 -> 5
+    assert kfft.radix_block(600, 8, 132) == 1
     # one transform per block beyond 96 KB (n = 20480: 164 KB of tile)
-    assert kfft.generic_block(20480, 4, 1000, 132, False) == 1
-    assert kfft.generic_bytes(20480, True) <= kfft.MAX_SMEM
+    assert kfft.generic_block(20480, 4, 1000, 132) == 1
+    assert kfft.generic_block(20480, 1, 1, 132) == 1 and 8 * 20480 <= kfft.MAX_SMEM

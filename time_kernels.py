@@ -1,0 +1,82 @@
+#!/usr/bin/env python3
+"""Time the radix core's kernels of a checkout on one CUDA card.
+
+Run from the root of a checkout:  python3 time_kernels.py [--root DIR] [--reps R]
+
+Imports ndrustfft_tpu_torch from DIR (default: this file's directory), so
+that two trees can be timed in turns in one process tree on one card
+(parent, change, change, parent), each building its kernels under its own
+build/. Times, as the median of R CUDA-event pairs after a warm-up, the
+public wrappers at their main shapes: kernel 8 (c2c_generic_rows) and
+kernel 15's generic form (r2c_packed_generic) at 360000 rows of 600,
+kernel 10 (c2c_rows) at (4096, 4096) and kernel 11 (c2c_blue_mid) at
+(1, 1031, 1024), each beside one torch.fft call on the same input. Prints
+the card's nvidia-smi name and power limit, then one JSON line.
+"""
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
+    ap.add_argument("--reps", type=int, default=50)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    from ndrustfft_tpu_torch.ops.hopper import fft as kfft
+    from ndrustfft_tpu_torch.ops.hopper import rfft as krfft
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def crandn(*shape):
+        return torch.complex(torch.randn(*shape, generator=gen, device=dev),
+                             torch.randn(*shape, generator=gen, device=dev))
+
+    def ms(fn):
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(args.reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+    out = {}
+    x = crandn(360000, 600)
+    out["c2c_generic_rows_360000x600"] = (ms(lambda: kfft.c2c_generic_rows(x, -1)),
+                                          ms(lambda: torch.fft.fft(x, dim=1)))
+    x = torch.randn(360000, 600, generator=gen, device=dev)
+    out["r2c_packed_generic_360000x600"] = (ms(lambda: krfft.r2c_packed_generic(x)),
+                                            ms(lambda: torch.fft.rfft(x, dim=1)))
+    x = crandn(4096, 4096)
+    out["c2c_rows_4096x4096"] = (ms(lambda: kfft.c2c_rows(x, -1)),
+                                 ms(lambda: torch.fft.fft(x, dim=1)))
+    x = crandn(1, 1031, 1024)
+    out["c2c_blue_mid_1x1031x1024"] = (ms(lambda: kfft.c2c_blue_mid(x, -1)),
+                                       ms(lambda: torch.fft.fft(x, dim=1)))
+    print(json.dumps({"root": root, "card": card, "ms_and_torch_fft_ms": out}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
