@@ -46,8 +46,8 @@ without the final line):
         512^3 (kernel 10), DCT-III and DCT-II of 200^2 (kernel 8, kernel
         15's dense product), against scipy.fft in float64;
      f. the lengths without a split (kernel 8 at n > 256 on the radix
-        core; the generic two-factor schedule of kernel 6 along a middle
-        axis; kernel 15 at such a half length on the radix row core with
+        core; kernel 6 along a middle axis on the radix core's column
+        tile; kernel 15 at such a half length on the radix row core with
         its unpack epilogue): the 600^3 real step
         with the real axis last (kernel 15 at h = 300, kernel 6 four times,
         kernel 8 at n = 600 after the C2R's Hermitian extension) against torch.fft.rfftn in float64 (oracle
@@ -182,6 +182,11 @@ without the final line):
      p. kernel 15's census: ndfft_r2c over (128, 2h) at each of the 1582
         generic half lengths h (the radix row core with the unpack
         epilogue), against torch.fft.rfft in float64 (oracle only);
+     q. the census of kernels 8 and 6 on the radix core: ndfft and ndifft
+        over (128, n) at each of the 232 lengths n <= 256 that the gates
+        send to kernel 8's rows, and along axis 1 of (1, n, 130) at each of
+        the 1402 lengths that they send to kernel 6, against torch.fft in
+        complex128 (oracle only);
   5. times with CUDA events (median over --reps runs after warm-up): each
      kernel against its plain version and, where one PyTorch call computes
      the same function, that call (the yardstick, never on the port's
@@ -198,8 +203,10 @@ without the final line):
      torch.fft.fft at each), the 768^3 step and the 4096^2 complex round
      trip (each public call timed alone) against torch.fft, ndfft at
      the Bluestein lengths 131 and 2049 along the last axis (the chirp-z's
-     sub-FFTs on the radix core) against torch.fft.fft, and kernel 11's
-     radix column tile at (1, 1031, 1024) with each column count C.
+     sub-FFTs on the radix core) against torch.fft.fft, kernel 11's
+     radix column tile at (1, 1031, 1024) and kernel 6's at (600, 600, 301)
+     and (1, 600, 180600) with each column count C, and kernel 8 at
+     (65536, 256) with each count of rows a block.
 The kernels line gives each kernel's launches on its main path, its largest
 error against its plain version, its times, and its bound: the larger of
 the bytes it must move (each input read once, each output written once)
@@ -209,9 +216,11 @@ kernels 1, 2, 3, 12, 13, 14, 15, 16, 17, 18, 19, 22 and 28 on the
 bts2 core are two rows each, the fixed core (launches - wide_launches) and the wide
 one (wide_launches; K11 and K12 rows also give the bound of their two
 length-M FFTs per column, ``length_m_bound_ms``); kernels 10 and 11 two,
-the fixed core and the radix core (radix_launches); kernel 8 above n = 256
-and kernel 15's generic form run on the radix core (``c2c_generic_rows``,
-``r2c_packed_generic``); and
+the fixed core and the radix core (radix_launches); kernel 8 (its rows at
+n <= 256 counted in c2c_dense_rows.radix_launches as well, above in
+``c2c_generic_rows``), kernel 6 (counted in radix_launches as well) and
+kernel 15's generic form (``r2c_packed_generic``) run on the radix core;
+and
 kernels 23 to 26 and 29 three: the fixed core, the wide core's half length
 and the n-point form (npoint_launches); kernel 7 three: the fixed core, the
 wide core and the dense body (dense_launches); kernel 28 three: the fixed
@@ -240,8 +249,12 @@ TOL_STEP = 1e-5      # step vs float64 oracle and round trip, relative
 # the forms that a wrapper counts apart beside ``launches`` (which counts
 # every launch): ``wide_launches``, for the DCT-II/III kernels
 # ``npoint_launches``, for kernel 7 ``dense_launches``, for kernel 28
-# ``long_launches`` and for kernels 10 and 11 ``radix_launches``
+# ``long_launches`` and for kernels 10, 11, 8 (``c2c_dense_rows``) and 6
+# ``radix_launches``
 FORMS = ("wide", "npoint", "dense", "long", "radix")
+# the wrappers whose every launch is on the radix core: their
+# ``radix_launches`` equal their ``launches``
+RADIX_ONLY = ("c2c_dense_rows", "c2c_generic_mid")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, 700 W
 FP32_FLOP_PER_S = 67e12     # FP32 outside the tensor cores, same source
 
@@ -280,9 +293,9 @@ def work(name: str, shape, length_m: bool = False, mult=None):
     """(bytes, FP32 operations) of one kernel call at ``shape``: inputs
     (constants included) read once, outputs written once; 5 n log2 n per
     complex and 2.5 n log2 n per real FFT of length n, the dense DCT's
-    2 n^2 per column. The dense complex DFT (K4, K8) and the dense R2C/C2R
-    (K20, K21) count what the function needs, a length-n FFT per column or
-    row, not their products' 8 n^2 and 4 n (n/2 + 1). A kernel on the wide
+    2 n^2 per column. The dense complex DFT (K4) and the dense R2C/C2R
+    (K20, K21) count what the function needs, a length-n FFT per column,
+    not their products' 8 n^2 and 4 n (n/2 + 1). A kernel on the wide
     core reads the fixed core's tables and its (F, F) DFT-F table. A DCT-II/III
     kernel (rows or a middle axis) reads and writes n reals per transform and
     does a real FFT's 2.5 n log2 n, in every form; its tables are the core's
@@ -292,8 +305,8 @@ def work(name: str, shape, length_m: bool = False, mult=None):
     are the two chirps, H and both cores' Wq (and DFT-F) at the convolution
     length M (K11's radix form: the chirp, H and the radix table of M).
     ``length_m``: their operations as two complex FFTs of length M
-    per column instead. Kernel 10 at F outside {4, 8, 16} and kernel 8
-    above n = 256 (the radix core) read x and the radix table (n entries and
+    per column instead. Kernel 10 at F outside {4, 8, 16}, kernel 8 and
+    kernel 6 (the radix core) read x and the radix table (n entries and
     each prime stage's row) and write y; kernel 15's generic form reads the
     (T, 2h) float32 rows, the radix table of h and the unpack twiddle and
     writes (T, h + 1) complex64. The four-step's kernel 7 on
@@ -406,24 +419,19 @@ def work(name: str, shape, length_m: bool = False, mult=None):
     if name == "c2c_rows":
         t, n = shape
         return 16 * t * n + 8 * n * 128, 5 * n * math.log2(n) * t
-    if name in ("c2c_rows_radix", "c2c_generic_rows"):
+    if name in ("c2c_rows_radix", "c2c_generic_rows", "c2c_dense_rows", "c2c_generic_mid"):
         from ndrustfft_tpu_torch.ops.hopper.fft import radix_consts
-        t, n = shape            # the radix core's table: n entries and the prime rows
-        return 16 * t * n + 8 * len(radix_consts(n, -1)[0]), 5 * n * math.log2(n) * t
+        n = shape[1] if name == "c2c_generic_mid" else shape[-1]
+        outputs = math.prod(shape) // n     # the radix table: n entries and the prime rows
+        return 16 * outputs * n + 8 * len(radix_consts(n, -1)[0]), 5 * n * math.log2(n) * outputs
     if name == "r2c_packed_generic":
         from ndrustfft_tpu_torch.ops.hopper.fft import radix_consts
         t, n = shape            # the radix table of h, and the unpack twiddle
         h = n // 2
         return (4 * t * n + 8 * t * (h + 1) + 8 * (len(radix_consts(h, -1)[0]) + h),
                 2.5 * n * math.log2(n) * t)
-    if name == "c2c_generic_mid":
-        from ndrustfft_tpu_torch.ops.hopper.fft import generic_split
+    if name == "c2c_dense_mid":
         n = shape[1]
-        m, f = generic_split(n)
-        outputs = math.prod(shape) // n
-        return 16 * outputs * n + 8 * (m * m + f * f + m * f), 5 * n * math.log2(n) * outputs
-    if name in ("c2c_dense_rows", "c2c_dense_mid"):
-        n = shape[-1] if name == "c2c_dense_rows" else shape[1]
         outputs = math.prod(shape) // n
         return 16 * outputs * n + 8 * n * n, 5 * n * math.log2(n) * outputs
     raise ValueError(f"no work model for {name}")
@@ -627,18 +635,22 @@ def main() -> int:
         ("c2c_rows", kfft.c2c_rows, kfft.c2c_rows_plain,
          ((130, 512), (128, 1024), (66, 2048), (1024, 1024), (512 * 512, 512),
           (257 * 512, 512))),
-        # K8 also at the four-step's no-split row passes of phase 4k: 128 * 144
-        # rows of 144 (10007's M = 20736), 128 * 256 rows of 160 (40960 along
-        # axis 0), 8 * 2176 rows of 17 (36992)
-        ("c2c_dense_rows", kfft.c2c_dense_rows, kfft.c2c_dense_rows_plain,
-         ((130, 128), (200, 200), (131, 256), (256 * 256, 256), (129 * 256, 256),
-          (128 * 144, 144), (128 * 256, 160), (8 * 2176, 17))),
+        # K8 on the radix row core at n <= 256: one row of n < 16 a thread
+        # (256 rows of 2 a block), ragged row counts, odd n at odd row offsets
+        # (129, 17), the four-step's no-split row passes of phase 4k (128 *
+        # 144 rows of 144 for 10007's M = 20736, 128 * 256 rows of 160 for
+        # 40960 along axis 0, 8 * 2176 rows of 17 for 36992)
+        ("c2c_dense_rows", kfft.c2c_dense_rows, kfft.c2c_radix_rows_plain,
+         ((1001, 2), (7, 17), (8321, 129), (130, 128), (200, 200), (131, 256),
+          (256 * 256, 256), (129 * 256, 256), (128 * 144, 144), (128 * 256, 160),
+          (8 * 2176, 17))),
         ("c2c_dense_mid", kfft.c2c_dense_mid, kfft.c2c_dense_mid_plain,
          ((1, 128, 128), (1, 264, 264), (3, 200, 257), (2, 500, 130), (256, 256, 256),
           (1, 256, 256 * 256), (129, 256, 256))),
-        # the generic schedule: ragged rows and column tiles, m with two
-        # planner factors (11352 = 129 * 88), the largest m (19272 = 219 * 88),
-        # the largest tile (20480), and the main paths' shapes (phase 4f)
+        # the generic schedule's lengths on the radix core: ragged rows and
+        # column tiles, two prime stages (11352 = 8 * 3 * 11 * 43), 19272,
+        # the longest length (20480, 40 elements a thread), and the main
+        # paths' shapes (phase 4f)
         ("c2c_generic_rows", kfft.c2c_generic_rows, kfft.c2c_generic_rows_plain,
          ((130, 264), (7, 600), (129, 1200), (3, 11352), (2, 19272), (2, 20480),
           (264, 264), (300, 300), (530, 530), (2000, 1000), (600 * 600, 600))),
@@ -662,6 +674,29 @@ def main() -> int:
                     raise AssertionError(f"{name} {shape} sign {sign} scale {scale}: {rel}")
                 del got, ref
             del x
+    # kernel 6's column tile at each column count C it takes (the wrapper
+    # picks one by radix_mid_cols): the 600^3 step's ragged L = 301, a
+    # ragged few columns at 1200 and the longest length (one column a tile)
+    for shape in ((600, 600, 301), (3, 1200, 7), (1, 20480, 5)):
+        x = crandn(*shape)
+        y = torch.empty_like(x)
+        n = shape[1]
+        for sign, scale in ((-1, None), (+1, 1.0 / n)):
+            ref = kfft.c2c_generic_mid_plain(x, sign, scale)
+            for c in (1, 2, 4, 8):
+                if n * c > kfft.RADIX_MAX_ELEMS:
+                    continue
+                y.fill_(float("nan"))
+                kfft.mid_radix_launch(x, y, sign, 1.0 if scale is None else scale, c)
+                torch.cuda.synchronize()
+                rel = abs_err(y, ref) / float(ref.abs().max())
+                errs["c2c_generic_mid"] = max(errs["c2c_generic_mid"], abs_err(y, ref))
+                emit(phase="kernel_vs_plain", kernel="c2c_generic_mid", shape=shape,
+                     cols_per_tile=c, sign=sign, scale=scale, rel_err=rel)
+                if not rel <= TOL_KERNEL:
+                    raise AssertionError(f"c2c_generic_mid {shape} C {c} sign {sign}: {rel}")
+            del ref
+        del x, y
 
     # the middle-axis R2C/C2R kernels: the main paths' shapes (phase 4d),
     # axis 1 of 512^3, ragged and odd ones; the C2R spectra carry DC and
@@ -733,7 +768,7 @@ def main() -> int:
         """One launch of ``kern`` since ``before`` (its form_counts), in the
         form that ``name`` ends with, or on the fixed core where it names
         none."""
-        form = name.rsplit("_", 1)[-1]
+        form = "radix" if name in RADIX_ONLY else name.rsplit("_", 1)[-1]
         want = [1] + [int(f == form) for f in FORMS]
         got = [now - then for now, then in zip(form_counts(kern), before)]
         if got != want:
@@ -1060,14 +1095,15 @@ def main() -> int:
     # dense ones and kernels 10 and 11's on the radix core, counted apart by
     # the same wrappers (their ``launches`` count every launch)
     forms = {f"{name}_{form}": (wrappers[name], f"{form}_launches")
-             for name in ("c2c_axis_mid", "c2c_rows", "r2c_nat", "c2r_nat", "r2c_packed",
+             for name in ("c2c_axis_mid", "c2c_rows", *RADIX_ONLY, "r2c_nat", "c2r_nat",
+                          "r2c_packed",
                           "r2c_mid", "c2r_mid", "dct2_nat", "dct3_nat", "dct2_mid",
                           "dct3_mid", "r2c_packed_mid", "dct1_mid", "dct4_mid",
                           "c2c_blue_mid", "dct23_blue_mid", "fourstep_mid", "rows_store_t",
                           "spectral_c2c_mid", "spectral_r2c_mid", "spectral_dct_mid")
              for form in FORMS
              if form == "wide" and name not in ("c2c_rows", "c2c_blue_mid")
-             or form == "radix" and name in ("c2c_rows", "c2c_blue_mid")
+             or form == "radix" and name in ("c2c_rows", "c2c_blue_mid", *RADIX_ONLY)
              or form == "npoint" and name.startswith(("dct2_", "dct3_", "spectral_dct"))
              or form == "dense" and name == "fourstep_mid" or form == "long" and name == "dct4_mid"}
 
@@ -1252,7 +1288,8 @@ def main() -> int:
     # axis 0; 256^3 K8 on axis 2 and K4 on axes 1 and 0; 512^3 K10 (F = 4)
     # on axis 2 and K1 on axes 1 and 0
     c2c_grids = {(1024, 1024): dict(c2c_rows=2, c2c_axis_mid=2),
-                 (256, 256, 256): dict(c2c_dense_rows=2, c2c_dense_mid=4),
+                 (256, 256, 256): dict(c2c_dense_rows=2, c2c_dense_rows_radix=2,
+                                       c2c_dense_mid=4),
                  (512, 512, 512): dict(c2c_rows=2, c2c_axis_mid=4)}
     c2c_inputs = {}
     for grid_shape, expected in c2c_grids.items():
@@ -1320,7 +1357,7 @@ def main() -> int:
     # 131584 rows, K17; 256^3 K20, K4 at (129, 256, 256), K8 on 33024 rows, K21
     first_grids = {512: dict(r2c_mid=1, c2c_axis_mid=2, c2c_rows=2, c2r_mid=1),
                    256: dict(r2c_dense_mid=1, c2c_dense_mid=2, c2c_dense_rows=2,
-                             c2r_dense_mid=1)}
+                             c2c_dense_rows_radix=2, c2r_dense_mid=1)}
     first_inputs = {}
     for n, expected in first_grids.items():
         x = randn(n, n, n)
@@ -1357,8 +1394,10 @@ def main() -> int:
     # after the extension; 128^3 K15's dense product (h = 64, 16384 rows),
     # K8 on 8320 rows (axis 1 has 65 < 128 columns and moves), K4 at
     # (1, 128, 8320), K8 on 16384 rows after the extension
-    last_grids = {256: dict(r2c_packed=1, c2c_dense_mid=4, c2c_dense_rows=1),
-                  128: dict(r2c_packed_dense=1, c2c_dense_rows=3, c2c_dense_mid=2)}
+    last_grids = {256: dict(r2c_packed=1, c2c_dense_mid=4, c2c_dense_rows=1,
+                            c2c_dense_rows_radix=1),
+                  128: dict(r2c_packed_dense=1, c2c_dense_rows=3, c2c_dense_rows_radix=3,
+                            c2c_dense_mid=2)}
     last_inputs = {}
     for n, expected in last_grids.items():
         x = randn(n, n, n)
@@ -1384,7 +1423,7 @@ def main() -> int:
     reset_counts()
     vo = nd.ndfft_r2c(xo3, h129, axis=2)
     backo = nd.ndifft_r2c(vo, h129, axis=2)
-    read_counts("odd_129^3", c2c_dense_rows=2)
+    read_counts("odd_129^3", c2c_dense_rows=2, c2c_dense_rows_radix=2)
     check_lane("r2c_odd_last", vo, torch.fft.rfft(xo3.double(), dim=2), backo, xo3,
                grid=[129, 129, 129])
     del vo, backo
@@ -1422,7 +1461,8 @@ def main() -> int:
     d4_3 = nd.nddct4(x4, hd512, axis=2)
     d3 = nd.nddct3(x200, axis=1)
     d2 = nd.nddct2(x200, axis=1)
-    read_counts("dct_lanes", c2c_rows=3, c2c_dense_rows=1, r2c_packed_dense=1)
+    read_counts("dct_lanes", c2c_rows=3, c2c_dense_rows=1, c2c_dense_rows_radix=1,
+                r2c_packed_dense=1)
     check("dct4_last_axis", d4, sfft.dct(x64, type=4, axis=1), grid=[1024, 1024])
     check("dst4_last_axis", s4, sfft.dst(x64, type=4, axis=1), grid=[1024, 1024])
     check("dct4_512^3_last_axis", d4_3,
@@ -1447,7 +1487,7 @@ def main() -> int:
     v = fwd3(x600, h600r, h600c)
     back = inv3(v, h600r, h600c)
     read_counts("real_axis_last_600^3", r2c_packed_generic=1, c2c_generic_mid=4,
-                c2c_generic_rows=1)
+                c2c_generic_mid_radix=4, c2c_generic_rows=1)
     peak = torch.cuda.max_memory_allocated()
     check_lane("step_real_axis_last", v, torch.fft.rfftn(x600.double()), back, x600,
                grid=[n6] * 3, peak_bytes=peak, base_bytes=base)
@@ -1477,6 +1517,7 @@ def main() -> int:
                "dct4_axis0_1200x600": (nd.nddct4(x1200, axis=0), sfft.dct, x1200, 4, 0),
                "dst4_axis0_1200x600": (nd.nddst4(x1200, axis=0), sfft.dst, x1200, 4, 0)}
     read_counts("generic_lanes", c2c_generic_rows=2 + 1 + 1 + 1, c2c_generic_mid=2 + 2,
+                c2c_generic_mid_radix=2 + 2,
                 r2c_packed_generic=1 + 1 + 1 + 1)
     check_c2c("fft_last_axis", y264, g264, b264, dims=(1,), grid=[264, 264])
     check_c2c("fft_axis0", y1200, g1200, b1200, dims=(0,), grid=[1200, 256])
@@ -1965,7 +2006,8 @@ def main() -> int:
         "mixed_2048^2x256", mx_grid, ((1, 2, 3, 1.0), (5, 3, 2, 0.5), (300, 40, 100, 0.25)),
         [lambda m, p=p: torch.cos((m + 0.5) * math.pi * p) for p in mx_pts],
         [eigs(n, 0.5, n) for n in mx_grid], 0, float(2048 * 2048 * 256),
-        lambda f: nd.dctn(f, 4), lambda fh: nd.idctn(fh, 4), dict(dct4_mid=4, c2c_dense_rows=2))
+        lambda f: nd.dctn(f, 4), lambda fh: nd.idctn(fh, 4),
+        dict(dct4_mid=4, c2c_dense_rows=2, c2c_dense_rows_radix=2))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t_port = cuda_ms(lambda: solve_mx(f_mx), reps9, 1)
@@ -2030,7 +2072,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     x = crandn(2 * 2048 * 2048, 256)
     for sign, scale in ((-1, None), (+1, 1.0 / 256)):
-        check_sliced("c2c_dense_rows", kfft.c2c_dense_rows, kfft.c2c_dense_rows_plain, [x], 0,
+        check_sliced("c2c_dense_rows", kfft.c2c_dense_rows, kfft.c2c_radix_rows_plain, [x], 0,
                      (sign, scale), reps9, library=lambda: torch.fft.fft(x, dim=1),
                      timed=sign < 0)
     del x
@@ -2311,7 +2353,7 @@ def main() -> int:
     s_out = nd.ndifft_r2c(s_in, nd.R2cFftHandler(65536), axis=1)
     d_out = {kind: getattr(nd, f"nd{kind}")(x, axis=1) for kind, x in d_in.items()}
     read_counts("fourstep_lengths", fourstep_mid=15, fourstep_mid_dense=9, fourstep_mid_wide=3,
-                rows_store_t=10, rows_store_t_wide=9, c2c_dense_rows=5)
+                rows_store_t=10, rows_store_t_wide=9, c2c_dense_rows=5, c2c_dense_rows_radix=5)
     for (n, axis), y in c_out.items():
         x = c_in[(n, axis)]
         check_c2c("fft_length", y, x, nd.ndifft(y, axis=axis), dims=(axis,), n=n, axis=axis)
@@ -2961,6 +3003,40 @@ def main() -> int:
     del x, y
     torch.cuda.empty_cache()
 
+    # ---- 4q. the census of kernels 8 and 6 on the radix core: ndfft and
+    # ndifft over (128, n) at every n <= 256 that the gates send to kernel
+    # 8's rows (C2C_DENSE_ROWS: 232 lengths), and along axis 1 of a
+    # (1, n, 130) field at every n that they send to kernel 6
+    # (C2C_GENERIC_MID: 1402 lengths), each against torch.fft in complex128
+    # (an oracle only, run on the host)
+    k8_n = [n for n in range(2, 257) if gates.lane_c2c_route(n, 128) == gates.C2C_DENSE_ROWS]
+    k6_n = [n for n in range(257, kfft.GENERIC_MAX_N + 1)
+            if api._route("fft", (1, n, 130), 1, torch.complex64, "cuda") == api.C2C_GENERIC_MID]
+    for what, lengths, shape_of, want in (("dense_rows", k8_n, lambda n: (128, n), 232),
+                                          ("generic_mid", k6_n, lambda n: (1, n, 130), 1402)):
+        if len(lengths) != want:
+            raise AssertionError(f"{what} census: {len(lengths)} lengths, expected {want}")
+        t0 = time.perf_counter()
+        worst = (0.0, None)
+        reset_counts()
+        for n in lengths:
+            x = crandn(*shape_of(n))
+            y = nd.ndfft(x, axis=1)
+            back = nd.ndifft(y, axis=1)
+            x64, y64 = (t.cpu().to(torch.complex128) for t in (x, y))
+            oracles = (torch.fft.fft(x64, dim=1).to(dev), torch.fft.ifft(y64, dim=1).to(dev))
+            for got, ref in zip((y, back), oracles):
+                err = rel_err(got, ref)
+                if not err <= TOL_KERNEL:
+                    raise AssertionError(f"{what} census n={n}: {err}")
+                worst = max(worst, (err, n))
+        name = f"c2c_{what}"
+        read_counts(f"{what}_census", **{name: 2 * len(lengths), f"{name}_radix": 2 * len(lengths)})
+        emit(phase=f"{what}_census", lengths=len(lengths), worst_rel_err=worst[0], worst_n=worst[1],
+             seconds=time.perf_counter() - t0)
+        del x, y, back, x64, y64, oracles
+    torch.cuda.empty_cache()
+
     # ---- 5. times: each kernel against its plain version and, at the main
     # path's shape, the PyTorch call that computes the same function (the
     # yardstick); the steps against torch.fft (the 1536^3 solve's kernels
@@ -3002,7 +3078,7 @@ def main() -> int:
                    "spectral_dct_mid_npoint": (8, 1152, 8192)}
 
     # the radix core's kernels: the yardstick at every shape timed
-    library_every_shape = ("c2c_rows_radix", "c2c_generic_rows")
+    library_every_shape = ("c2c_rows_radix", "c2c_generic_rows", *RADIX_ONLY)
 
     def time_kernel(name, shape, kern, plain, library=None):
         t_plain = cuda_ms(plain, reps)
@@ -3063,8 +3139,8 @@ def main() -> int:
     for name, kern, plain, shapes in (
             ("c2c_rows", kfft.c2c_rows, kfft.c2c_rows_plain,
              ((1024, 1024), (512 * 512, 512), (257 * 512, 512))),
-            ("c2c_dense_rows", kfft.c2c_dense_rows, kfft.c2c_dense_rows_plain,
-             ((128, 256), (256 * 256, 256), (129 * 256, 256))),
+            ("c2c_dense_rows", kfft.c2c_dense_rows, kfft.c2c_radix_rows_plain,
+             ((128, 256), (256 * 256, 256), (129 * 256, 256), (200, 200))),
             ("c2c_dense_mid", kfft.c2c_dense_mid, kfft.c2c_dense_mid_plain,
              ((1, 128, 128), (1, 264, 264), (256, 256, 256), (1, 256, 256 * 256),
               (129, 256, 256)))):
@@ -3073,6 +3149,15 @@ def main() -> int:
             dim = -1 if len(shape) == 2 else 1
             time_kernel(name, shape, lambda: kern(x, -1), lambda: plain(x, -1),
                         lambda: torch.fft.fft(x, dim=dim))
+    del x
+    # kernel 8 at its main shape with each count of rows a block (the
+    # wrapper's radix_block takes 2 rows of 256)
+    x = crandn(256 * 256, 256)
+    rows_ms = {r: cuda_ms(lambda: kfft._radix_launch(x, -1, None, "c2c_dense_rows", r), reps)
+               for r in (2, 4, 8, 10, 16)}
+    emit(phase="time", kernel="c2c_dense_rows", shape=(256 * 256, 256),
+         ms_by_rows_per_block=rows_ms, chosen=kfft.radix_block(256, 256 * 256, kfft.num_sms(dev)),
+         card=card)
     del x
     for grid_shape, x in c2c_inputs.items():
         hs = [nd.FftHandler(n) for n in grid_shape]
@@ -3143,6 +3228,15 @@ def main() -> int:
             time_kernel(name, shape, lambda: kern(x, -1), lambda: plain(x, -1),
                         lambda: torch.fft.fft(x, dim=dim))
         del x
+    # kernel 6 at the 600^3 step's two shapes with each column count C
+    for shape in ((600, 600, 301), (1, 600, 600 * 301)):
+        x = crandn(*shape)
+        y = torch.empty_like(x)
+        cols_ms = {c: cuda_ms(lambda: kfft.mid_radix_launch(x, y, -1, 1.0, c), reps)
+                   for c in (1, 2, 4, 8)}
+        emit(phase="time", kernel="c2c_generic_mid", shape=shape, ms_by_cols_per_tile=cols_ms,
+             chosen=kfft.radix_mid_cols(600, shape[0], shape[2], kfft.num_sms(dev)), card=card)
+        del x, y
     for shape in ((600 * 600, 600), (530, 530)):
         x = randn(*shape)
         time_kernel("r2c_packed_generic", shape, lambda: krfft.r2c_packed_generic(x),
@@ -3327,7 +3421,7 @@ def main() -> int:
     cols_ms = {c: cuda_ms(lambda: kfft.blue_radix_launch(x, y, a, h, 1.0, c), reps)
                for c in (1, 2, 4, 8) if mk * c <= kfft.RADIX_MAX_ELEMS}
     emit(phase="time", kernel="c2c_blue_mid_radix", shape=(1, 1031, 1024),
-         ms_by_cols_per_tile=cols_ms, chosen=kfft.blue_radix_cols(mk, 1, 1024, kfft.num_sms(dev)),
+         ms_by_cols_per_tile=cols_ms, chosen=kfft.radix_mid_cols(mk, 1, 1024, kfft.num_sms(dev)),
          card=card)
     x = randn(1, 1021, 1024)
     time_kernel("dct23_blue_mid", (1, 1021, 1024), lambda: kdct.dct23_blue_mid(x, 2, 2.0),
@@ -3383,7 +3477,7 @@ def main() -> int:
                      "ndrustfft_tpu/ops/pallas/dct.py:208"),
         "c2c_rows": ("ndrustfft_tpu_torch/csrc/fft_rows.cu",
                      "ndrustfft_tpu/ops/pallas/fft.py:743"),
-        "c2c_dense_rows": ("ndrustfft_tpu_torch/csrc/fft_dense.cu",
+        "c2c_dense_rows": ("ndrustfft_tpu_torch/csrc/fft_rows_radix.cu",
                            "ndrustfft_tpu/ops/pallas/fft.py:521"),
         "c2c_dense_mid": ("ndrustfft_tpu_torch/csrc/fft_dense.cu",
                           "ndrustfft_tpu/ops/pallas/fft.py:1565"),
@@ -3401,7 +3495,7 @@ def main() -> int:
                              "ndrustfft_tpu/ops/pallas/rfft.py:163"),
         "c2c_generic_rows": ("ndrustfft_tpu_torch/csrc/fft_radix.cuh",
                              "ndrustfft_tpu/ops/pallas/fft.py:521"),
-        "c2c_generic_mid": ("ndrustfft_tpu_torch/csrc/fft_generic.cu",
+        "c2c_generic_mid": ("ndrustfft_tpu_torch/csrc/fft_mid_radix.cu",
                             "ndrustfft_tpu/ops/pallas/fft.py:1794"),
         "r2c_packed_generic": ("ndrustfft_tpu_torch/csrc/rfft_radix.cu",
                                "ndrustfft_tpu/ops/pallas/rfft.py:163"),
@@ -3492,8 +3586,10 @@ def main() -> int:
         bound_ms, bound_by = bound(*work(name, main_shapes[name],
                                          mult=spectral_h.get((name, main_shapes[name]))))
         # a wrapper's ``launches`` counts its wide, n-point and dense
-        # launches too
+        # launches too; a radix-only wrapper's row gives its radix launches
         fixed = launches[name] - sum(launches.get(f"{name}_{f}", 0) for f in FORMS)
+        if name in RADIX_ONLY:
+            fixed = launches[f"{name}_radix"]
         row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
                "launches": fixed, "max_abs_err": errs[name], "ms": t_k, "plain_ms": t_plain,
                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": t_lib,

@@ -13,13 +13,16 @@ never in device memory), and the multi-axis ``fftn`` ... ``idstn``
 
 On a CUDA tensor every call runs the route ``api._route`` names: a CUDA
 kernel of ``ops/hopper`` (the bts2 core at n = 128 * F, the dense products,
-the generic two-factor schedule, the R2C/C2R and DCT kernels along rows and
-along a middle axis, Bluestein's chirp-z, and beyond n = 20480 the
+the mixed-radix core on rows and column tiles at every other length up to
+20480, the R2C/C2R and DCT kernels along rows and along a middle axis, Bluestein's chirp-z, and beyond n = 20480 the
 four-step's kernels 7 and 13, the fused spectral kernels 14, 22 and 29,
 the DCT-II/III n-point and DCT-IV long forms on the wide core's real tile
 up to n = 32640 and 65536), or the plain torch engine where the JAX package
 runs XLA: every Pallas kernel of the JAX package has its CUDA port. A CPU
 tensor runs each kernel's plain PyTorch version.
+
+The dtype vocabulary (``float32`` ... ``complex128``, ``complex_dtype``,
+``real_dtype``) is the JAX package's, as torch dtypes.
 """
 
 from .api import (
@@ -29,6 +32,7 @@ from .api import (
     ndspectral_c2c, ndspectral_dct, ndspectral_dst, ndspectral_r2c,
 )
 from .config import config
+from .dtypes import complex64, complex128, complex_dtype, float32, float64, real_dtype
 from .handlers import DctHandler, DstHandler, FftHandler, R2cFftHandler
 from .ndapi import dctn, dstn, fftn, idctn, idstn, ifftn, irfftn, rfftn
 from .normalization import Normalization
@@ -44,4 +48,6 @@ __all__ = [
     "fftn", "ifftn", "rfftn", "irfftn", "dctn", "idctn", "dstn", "idstn",
     "FftHandler", "R2cFftHandler", "DctHandler", "DstHandler",
     "Normalization", "config",
+    "float32", "float64", "complex64", "complex128",
+    "complex_dtype", "real_dtype",
 ]

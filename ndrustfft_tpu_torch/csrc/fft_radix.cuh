@@ -1,20 +1,23 @@
 // The mixed-radix core: a Stockham autosort FFT in shared memory, for any
 // n <= 20480 whose prime factors are at most 127, on a tile of contiguous
 // complex64 rows or of columns. Kernel 10 runs it on rows at n = 128 * F
-// with F outside the bts2 core's {4, 8, 16} and kernel 8 at
-// 256 < n <= 20480 (fft_rows_radix.cu); kernel 15 at a generic half length
-// on rows with its unpack as the epilogue (rfft_radix.cu); kernel 11 at
-// F outside {4, 8, 16} on an (M, C) column tile, its forward and inverse
-// length-M transforms in place (fft_blue_radix.cu).
+// with F outside the bts2 core's {4, 8, 16} and kernel 8 at every n <= 20480
+// it takes (fft_rows_radix.cu); kernel 15 at a generic half length on rows
+// with its unpack as the epilogue (rfft_radix.cu); kernel 11 at F outside
+// {4, 8, 16} on an (M, C) column tile, its forward and inverse length-M
+// transforms in place (fft_blue_radix.cu); kernel 6 on an (n, C) column
+// tile with the store in its last stage (fft_mid_radix.cu).
 //
 // Replaces, for the CUDA port, the JAX package's
 // ndrustfft_tpu/ops/pallas/fft.py::_kernel_twostep (the twostep split
-// m = 128 at those F) and ::_kernel_lane_last with m > 1 (the generic lane
-// schedule). Both TPU kernels run dense DFT stages, cheap on a 128 x 128 MXU;
-// their first Hopper forms (bts2_wide.cuh: a dense DFT-F then a dense
-// DFT-128; fft_generic.cuh: two dense products) did 8 (128 + F) or
-// 8 (m + f) FP32 operations per output, 20-35x an FFT's 5 log2 n, and read
-// F * 128 KB of folded twiddles per tile from L2.
+// m = 128 at those F), ::_kernel_lane_last (its dense lane DFT at n <= 256
+// and its generic lane schedule above) and ::_kernel_axis_mid (the generic
+// schedule along a middle axis). The TPU kernels run dense DFT stages, cheap
+// on a 128 x 128 MXU; their first Hopper forms (bts2_wide.cuh: a dense
+// DFT-F then a dense DFT-128; a dense DFT-n product at n <= 256; two dense
+// products DFT-m and DFT-f above) did 8 (128 + F), 8 n or 8 (m + f) FP32
+// operations per output, tens of times an FFT's 5 log2 n (51x at n = 256,
+// 35x at n = 600), and read their folded twiddles or DFT matrices from L2.
 //
 // What bounds it on this card: device memory. A row is read once and
 // written once, 16 n T bytes over 3.35 TB/s (0.080 ms at (4096, 4096)),
@@ -61,7 +64,7 @@
 //
 // Left for later: cp.async or TMA prefetch of the next tile, twiddles
 // staged in shared memory, and the other routes that run dense stages
-// (kernel 13's rows, kernel 6's columns, kernel 12's chirp-z, kernel 10's
+// (kernel 13's rows, kernel 4's columns, kernel 12's chirp-z, kernel 10's
 // fixed core).
 #pragma once
 

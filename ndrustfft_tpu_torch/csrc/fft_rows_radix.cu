@@ -1,4 +1,5 @@
-// Kernels 10 (n = 128 * F, F outside {4, 8, 16}) and 8 (256 < n <= 20480):
+// Kernels 10 (n = 128 * F, F outside {4, 8, 16}) and 8 (n <= 256, the JAX
+// package's dense lane DFT, and 256 < n <= 20480, its generic schedule):
 // C2C of contiguous rows of a (T, n) complex64 tensor on the mixed-radix
 // Stockham row core (fft_radix.cuh, where the TPU kernels it replaces, its
 // bound and its design are set out), with kernel 10's row store.

@@ -39,7 +39,8 @@ DCT3_MID = "dct3_mid"
 # the lane lowerings of the other kinds: K15 (the packed R2C of even-length
 # rows: R2C, DCT-I, DST-I, DCT-II), the row pairs' C2C (odd-length R2C and
 # DCT-II), the Hermitian extension's C2C (C2R) and the DCT-III/IV lowerings'
-# C2C; each C2C is K10 or K8 (dense or generic) or the four-step (K7, K13;
+# C2C; each C2C is K10 or K8 (on the radix row core at n <= 256, counted by
+# c2c_dense_rows, and above, by c2c_generic_rows) or the four-step (K7, K13;
 # also the packed R2C's half-length C2C beyond 20480), as lane_c2c_route
 # picks, and the launch counters show which
 R2C_PACKED = "r2c_packed"

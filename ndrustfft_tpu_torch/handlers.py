@@ -6,11 +6,16 @@ Construction of an FFT handler builds its plans for length ``n`` eagerly
 and DST handlers plan their FFT schedules at first use.
 ``.normalization(...)`` returns a new handler with another policy. Handlers
 are immutable and hash by (type, n, normalization), as in the JAX package.
+``.warmup(shape, axis)`` prepares every transform a handler serves before
+its first call.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+
+import torch
 
 from .normalization import Normalization
 from .plan import get_c2c_plan, get_r2c_plan
@@ -63,9 +68,70 @@ class _HandlerBase:
     def __repr__(self):
         return f"{type(self).__name__}(n={self.n}, norm={self.norm!r})"
 
+    # transform kinds this handler serves: (public function, input is complex)
+    _kinds: tuple = ()
+
+    def warmup(self, shape, axis: int = -1, float64: bool = False, run: bool = True,
+               device=None):
+        """Prepare this handler's transforms for a forward-input ``shape``.
+
+        For every kind the handler serves, forward and inverse (the inverse
+        of an R2C handler takes ``m`` bins on the axis), the call walks its
+        route on ``device`` (CUDA by default): on a CUDA device it builds
+        the kernel library and uploads the route's device tables (Wq, the
+        radix tables, the chirps), so that the first real call finds them.
+        With ``run=True`` each kind then runs once on zeros, and a CUDA
+        device is synchronized. With ``run=False`` a CUDA device runs no
+        kernel (the launches are skipped and not counted), and a CPU device
+        does nothing more: its plain versions build their tables as they
+        run. An unbuildable library raises, as a first call would.
+        """
+        from . import api
+        from .ops.hopper import _build
+
+        device = torch.device("cuda" if device is None else device)
+        shape = tuple(shape)
+        ax = axis % len(shape)
+        cdt, rdt = ((torch.complex128, torch.float64) if float64
+                    else (torch.complex64, torch.float32))
+        if not (run or device.type == "cuda"):
+            return self
+        saved = None if run else _launch_counts()
+        for name, is_cplx in self._kinds:
+            s = list(shape)
+            if name == "ndifft_r2c":
+                s[ax] = self.m
+            x = torch.zeros(s, dtype=cdt if is_cplx else rdt, device=device)
+            with contextlib.nullcontext() if run else _build.no_launch():
+                getattr(api, name)(x, self, axis=ax)
+        if saved is not None:
+            for (fn, attr), v in saved.items():
+                setattr(fn, attr, v)
+        elif device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return self
+
+
+def _launch_counts():
+    """{(wrapper, attribute): count} of every launch counter of the kernel
+    wrappers and every call counter of the torch engine."""
+    from .ops import engine
+    from .ops.hopper import dct, fft, rfft
+
+    out = {}
+    for mod in (engine, fft, rfft, dct):
+        for fn in vars(mod).values():
+            if callable(fn) and hasattr(fn, "__dict__"):
+                for attr, v in vars(fn).items():
+                    if attr.endswith(("launches", "calls")) and type(v) is int:
+                        out[(fn, attr)] = v
+    return out
+
 
 class FftHandler(_HandlerBase):
     """C2C FFT plans for axis length n."""
+
+    _kinds = (("ndfft", True), ("ndifft", True))
 
     def __init__(self, n: int):
         super().__init__(n)
@@ -77,6 +143,7 @@ class R2cFftHandler(_HandlerBase):
     """R2C/C2R plans for real axis length n; spectrum length m = n//2 + 1."""
 
     __slots__ = ("m",)
+    _kinds = (("ndfft_r2c", False), ("ndifft_r2c", True))
 
     def __init__(self, n: int):
         super().__init__(n)
@@ -91,7 +158,11 @@ class DctHandler(_HandlerBase):
     gives scipy.fft.dct's values, Normalization.NONE the rustdct convention
     (scipy / 2)."""
 
+    _kinds = (("nddct1", False), ("nddct2", False), ("nddct3", False), ("nddct4", False))
+
 
 class DstHandler(_HandlerBase):
     """DST-1/2/3/4 for axis length n, with :class:`DctHandler`'s policy
     rules (Default gives scipy.fft.dst's values)."""
+
+    _kinds = (("nddst1", False), ("nddst2", False), ("nddst3", False), ("nddst4", False))

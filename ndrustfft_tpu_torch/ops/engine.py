@@ -27,13 +27,10 @@ import numpy as np
 import torch
 
 from .. import gates
+from ..dtypes import real_dtype
 from ..plan import C2CPlan, R2CPlan, get_c2c_plan
 from .hopper import fft as _kfft
 from .hopper import rfft as _krfft
-
-
-def real_dtype(cplx_dtype: torch.dtype) -> torch.dtype:
-    return torch.float64 if cplx_dtype == torch.complex128 else torch.float32
 
 
 def const(pair, dtype: torch.dtype, device) -> torch.Tensor:

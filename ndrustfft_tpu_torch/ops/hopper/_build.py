@@ -9,7 +9,10 @@ rebuilt. It is loaded with ``ctypes``; every pointer and the stream pass as
 ``c_void_p``, a scale as ``c_float``.
 
 A missing ``nvcc``, a failed build or a library that does not load raises:
-there is no other route for a CUDA tensor.
+there is no other route for a CUDA tensor. Inside :func:`no_launch` the
+loaded library stands behind a stub whose entry points launch nothing, so
+that a handler's ``warmup(run=False)`` walks its routes and uploads their
+tables without running a kernel.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import shutil
 import subprocess
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
@@ -36,7 +40,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "ndfft_c2c_axis_mid": [_P, _P, _P, _LL, _I, _LL, _I, _I, _P],
     "ndfft_c2c_rows": [_P, _P, _P, _LL, _I, _I, _I, _P],
-    "ndfft_c2c_dense": [_P, _P, _P, _P, _LL, _I, _LL, _I, _I, _P],
+    "ndfft_c2c_dense": [_P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_r2c_nat": [_P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_c2r_nat": [_P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_r2c_mid": [_P, _P, _P, _P, _LL, _I, _LL, _I, _P],
@@ -47,9 +51,9 @@ _SIGNATURES = {
     "ndfft_dct_dense_mid": [_P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_dct2_nat": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_dct3_nat": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
-    "ndfft_c2c_generic": [_P, _P, _P, _P, _P, _LL, _I, _I, _LL, _I, _P],
     "ndfft_c2c_axis_mid_wide": [_P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_c2c_rows_radix": [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _F, _P],
+    "ndfft_c2c_mid_radix": [_P, _P, _P, _P, _I, _LL, _I, _LL, _I, _I, _F, _P],
     "ndfft_r2c_radix": [_P, _P, _P, _P, _I, _P, _LL, _I, _I, _P],
     "ndfft_r2c_nat_wide": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_c2r_nat_wide": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
@@ -163,9 +167,38 @@ def build() -> Path:
     return out
 
 
+class _NoLaunch:
+    """The library's entry points as functions that launch nothing and
+    return 0 (success)."""
+
+    def __getattr__(self, name):
+        if name not in _SIGNATURES:
+            raise AttributeError(name)
+        return lambda *args: 0
+
+
+_dry = threading.local()
+
+
+@contextmanager
+def no_launch():
+    """Build and load the library, then, in this thread, let every entry
+    point launch nothing (the wrappers still upload their tables and
+    allocate their outputs)."""
+    lib()
+    _dry.on = True
+    try:
+        yield
+    finally:
+        _dry.on = False
+
+
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library, built on first use (inside
+    :func:`no_launch`, the stub that launches nothing)."""
     global _lib
+    if getattr(_dry, "on", False):
+        return _NoLaunch()
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))

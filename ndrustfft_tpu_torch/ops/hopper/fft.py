@@ -9,18 +9,17 @@
   (``csrc/fft_rows.cu`` on the fixed core for F in {4, 8, 16}; every other
   F on the mixed-radix Stockham row core, ``csrc/fft_rows_radix.cu`` and
   ``csrc/fft_radix.cuh``; replaces ``fft.py::_kernel_twostep``).
-* Kernels 4 and 8, :func:`c2c_dense_mid` and :func:`c2c_dense_rows`: C2C of
-  length n <= 512 as one dense product with the scaled DFT matrix, along the
-  middle axis of (B, n, L) or along contiguous (T, n) rows
-  (``csrc/fft_dense.cu``; replace ``fft.py::_kernel_axis_mid_dense`` and the
-  dense lane DFT of ``fft.py::_kernel_lane_last``).
-* Kernel 8 at n > 256, :func:`c2c_generic_rows`: the lengths that the JAX
-  package's lane kernel runs on its generic schedule, along contiguous rows,
-  on the radix row core (replaces ``fft.py::_kernel_lane_last`` with
-  m > 1). Kernel 6, :func:`c2c_generic_mid`: the generic two-factor
-  schedule n = m * f with f = :func:`lane_factor` (n) along the middle axis
-  (``csrc/fft_generic.cu`` on the core ``csrc/fft_generic.cuh``; replaces
-  ``fft.py::_kernel_axis_mid``).
+* Kernel 4, :func:`c2c_dense_mid`: C2C of length n <= 512 along the middle
+  axis of (B, n, L) as one dense product with the scaled DFT matrix
+  (``csrc/fft_dense.cu``; replaces ``fft.py::_kernel_axis_mid_dense``).
+* Kernel 8, :func:`c2c_dense_rows` (n <= 256, the JAX package's dense lane
+  DFT) and :func:`c2c_generic_rows` (256 < n <= 20480, its generic
+  schedule): C2C along contiguous (T, n) rows on the mixed-radix row core
+  (``csrc/fft_rows_radix.cu``; replaces ``fft.py::_kernel_lane_last``).
+  Kernel 6, :func:`c2c_generic_mid`: C2C along the middle axis of (B, n, L)
+  at the lengths of the JAX package's generic two-factor schedule n = m * f
+  (f = :func:`lane_factor` (n)), on an (n, C) column tile of the radix core
+  (``csrc/fft_mid_radix.cu``; replaces ``fft.py::_kernel_axis_mid``).
 * Kernel 11, :func:`c2c_blue_mid`: Bluestein's chirp-z C2C along the
   middle axis of (B, n, L) for a length n with a prime factor above 128,
   fused into one pass: the chirped column zero-padded to M = 128 * F, the
@@ -47,7 +46,9 @@ This module holds their host-built constants, their plain PyTorch versions
 and their wrappers, whose ``launches`` attributes count kernel launches
 (kernels 1, 7, 13 and 14 also count the wide core's launches apart, in
 ``wide_launches``, kernel 7 its dense body's, in ``dense_launches``, and
-kernels 10 and 11 the radix core's, in ``radix_launches``).
+kernels 10 and 11 the radix core's, in ``radix_launches``, which kernels 8
+and 6 count beside ``launches`` for every launch of ``c2c_dense_rows`` and
+``c2c_generic_mid``).
 """
 
 from __future__ import annotations
@@ -68,8 +69,8 @@ C2C_F = (4, 8, 16)      # factors kernels 1 and 10 take on the fixed core
 SMEM_ELEMS = 8192       # complex elements of one block's tile (64 KB)
 DENSE_MAX_N = 512       # longest transform kernels 4 and 8 take
 GENERIC_MAX_N = 20480   # the JAX package's kernel bound (fft._LIVE_COPIES)
-GENERIC_MAX_M = 224     # longest DFT-m of the generic core (7 values per lane)
-GENERIC_SMEM = 96 * 1024    # a block's tile when a transform fits (2 blocks/SM)
+GENERIC_MAX_M = 224     # longest DFT-m of the JAX package's generic schedule (its gate)
+GENERIC_SMEM = 96 * 1024    # a wide-core block's tile when a transform fits (2 blocks/SM)
 MAX_SMEM = 232448           # the most dynamic shared memory a block may use
 WIDE_SLOTS = 4              # planes per group of the wide core (bts2_wide.cuh)
 WIDE_MAX_C = 16             # transforms per tile of the wide core
@@ -369,14 +370,15 @@ c2c_rows.radix_launches = 0
 
 # --------------------------------------------------------------------------
 # The mixed-radix Stockham core (rows: kernel 10 at F outside {4, 8, 16},
-# kernel 8 at 256 < n <= 20480, kernel 15 at a generic half length; columns:
-# kernel 11 at F outside {4, 8, 16})
+# kernel 8, kernel 15 at a generic half length; columns: kernel 11 at F
+# outside {4, 8, 16}, kernel 6)
 # --------------------------------------------------------------------------
 
 RADIX_CODELETS = (16, 8, 4, 2, 9, 3, 5, 7)  # radices the kernel runs in registers
 RADIX_MAX_P = 127           # the largest prime stage (a generic odd-p codelet)
 RADIX_MAX_STAGES = 8        # csrc/fft_radix.cuh::kRadixMaxStages
 RADIX_TILE = 2560           # complex elements of a block's tile of several rows
+RADIX_SMALL_TILE = 512      # ... of rows of n <= 256 (kernel 8 at its dense lane lengths)
 RADIX_WIDE_N = 4096         # above it, one row a block (csrc/fft_radix.cuh)
 RADIX_MAX_THREADS = 256     # threads of a block up to RADIX_WIDE_N, 16 elements each
 RADIX_MAX_ELEMS = 20480     # elements of a block's tile: 512 threads of 40 (csrc/fft_radix.cuh)
@@ -474,27 +476,31 @@ def c2c_radix_rows_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor
 
 def radix_block(n: int, count: int, sms: int) -> int:
     """Rows per block of the radix core: as many as RADIX_TILE elements hold
-    (at least one) whose threads fit a block (a thread holds 16 elements up
-    to RADIX_WIDE_N; above it a block holds one row), halved while the grid
-    would leave SMs idle, then spread evenly over the tiles so that a ragged
-    last tile is as full as the others. (RADIX_TILE: tiles of 1 to 6 rows
-    at n = 600 ... 1200 timed on an H100 ran fastest, or nearly, at about
-    2400 elements.)"""
-    rows = max(1, min(RADIX_TILE // n, RADIX_MAX_THREADS // -(-n // 16)))
+    (RADIX_SMALL_TILE at n <= 256; at least one) whose threads fit a block
+    (a thread holds 16 elements up to RADIX_WIDE_N; above it a block holds
+    one row), halved while the grid would leave SMs idle, then spread evenly
+    over the tiles so that a ragged last tile is as full as the others.
+    (RADIX_TILE: tiles of 1 to 6 rows at n = 600 ... 1200 timed on an H100
+    ran fastest, or nearly, at about 2400 elements; at n = 256, 2 rows a
+    block ran 10% faster than 10: chip_smoke.py's phase 5 times each count
+    at kernel 8's main shape.)"""
+    tile = RADIX_SMALL_TILE if n <= 256 else RADIX_TILE
+    rows = max(1, min(tile // n, RADIX_MAX_THREADS // -(-n // 16)))
     while rows > 1 and -(-count // rows) < sms:
         rows //= 2
     return -(-count // -(-count // rows))
 
 
-def _radix_launch(x: torch.Tensor, sign: int, scale, what: str) -> torch.Tensor:
-    """Launch the radix core on the (T, n) complex64 rows of x."""
+def _radix_launch(x: torch.Tensor, sign: int, scale, what: str, rows=None) -> torch.Tensor:
+    """Launch the radix core on the (T, n) complex64 rows of x, ``rows`` a
+    block (by default :func:`radix_block`)."""
     t, n = x.shape
     plan = radix_plan(n)
     table = device_radix(n, sign, x.device)
     y = torch.empty_like(x)
     if t == 0:
         return y
-    rows = radix_block(n, t, num_sms(x.device))
+    rows = rows or radix_block(n, t, num_sms(x.device))
     stages = (ctypes.c_int * RADIX_MAX_STAGES)(*plan)
     with torch.cuda.device(x.device):
         err = _build.lib().ndfft_c2c_rows_radix(
@@ -506,7 +512,7 @@ def _radix_launch(x: torch.Tensor, sign: int, scale, what: str) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# Kernels 4 and 8: the dense DFT product
+# Kernel 4: the dense DFT product along a middle axis (and kernel 7's body)
 # --------------------------------------------------------------------------
 
 
@@ -533,16 +539,10 @@ def c2c_dense_mid_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
     return torch.einsum("kt,btc->bkc", _device_dense(x.shape[1], sign, s, x.device), x)
 
 
-def c2c_dense_rows_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
-    """Plain version of kernel 8: Y[r, k] = sum_t X[r, t] W[t, k]."""
-    s = 1.0 if scale is None else float(scale)
-    return torch.einsum("rt,tk->rk", x, _device_dense(x.shape[1], sign, s, x.device))
-
-
 def _dense_launch(x: torch.Tensor, sign: int, scale, nb: int, n: int, cols: int,
-                  rows_layout: bool, what: str, tw=None) -> torch.Tensor:
-    """Launch kernel 4 (or 8 with ``rows_layout``) on x; ``tw``: kernel 7's
-    (n, cols) exit twiddle, multiplied into the output in the epilogue."""
+                  what: str, tw=None) -> torch.Tensor:
+    """Launch kernel 4 on x; ``tw``: kernel 7's (n, cols) exit twiddle,
+    multiplied into the output in the epilogue."""
     check_cuda(x, torch.complex64, what)
     s = 1.0 if scale is None else float(scale)
     w = _device_dense(n, sign, s, x.device)
@@ -553,7 +553,7 @@ def _dense_launch(x: torch.Tensor, sign: int, scale, nb: int, n: int, cols: int,
     with torch.cuda.device(x.device):
         err = _build.lib().ndfft_c2c_dense(
             w.data_ptr(), x.data_ptr(), y.data_ptr(), None if tw is None else tw.data_ptr(),
-            nb, n, cols, tm, int(rows_layout), torch.cuda.current_stream(x.device).cuda_stream)
+            nb, n, cols, tm, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, what)
     return y
 
@@ -575,7 +575,7 @@ def c2c_dense_mid(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
         return c2c_dense_mid_plain(x, sign, scale)
     if x.device.type != "cuda":
         raise ValueError(f"c2c_dense_mid: unsupported device {x.device}")
-    y = _dense_launch(x, sign, scale, nb, n, cols, False, "c2c_dense_mid")
+    y = _dense_launch(x, sign, scale, nb, n, cols, "c2c_dense_mid")
     c2c_dense_mid.launches += 1
     return y
 
@@ -583,29 +583,39 @@ def c2c_dense_mid(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
 c2c_dense_mid.launches = 0
 
 
+
+
+# --------------------------------------------------------------------------
+# Kernel 8 on the radix row core; kernel 6 on the radix core's column tile,
+# at the lengths of the JAX package's generic two-factor schedule
+# --------------------------------------------------------------------------
+
+
 def c2c_dense_rows(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
-    """C2C of the rows of a (T, n) complex64 tensor, n <= 512, as one dense
-    product, times ``scale``. A CPU tensor runs the plain version; a CUDA
-    tensor launches kernel 8 or raises."""
+    """C2C of the rows of a (T, n) complex64 tensor, n <= 512 with a
+    :func:`radix_plan` (the routes send n <= 256, the JAX package's dense
+    lane DFT), times ``scale``. A CPU tensor runs the plain version
+    (:func:`c2c_radix_rows_plain`); a CUDA tensor launches kernel 8 on the
+    radix row core, counted in ``launches`` and ``radix_launches``, or
+    raises."""
     _check_rows(x, "c2c_dense_rows")
     t, n = x.shape
-    _check_dense_n(n, "c2c_dense_rows")
+    if not n <= DENSE_MAX_N or radix_plan(n) is None:
+        raise ValueError(f"c2c_dense_rows: n={n} is not 2 ... {DENSE_MAX_N} with a radix plan "
+                         f"(prime factors <= {RADIX_MAX_P})")
     if x.device.type == "cpu":
-        return c2c_dense_rows_plain(x, sign, scale)
+        return c2c_radix_rows_plain(x, sign, scale)
     if x.device.type != "cuda":
         raise ValueError(f"c2c_dense_rows: unsupported device {x.device}")
-    y = _dense_launch(x, sign, scale, 1, n, t, True, "c2c_dense_rows")
-    c2c_dense_rows.launches += 1
+    check_cuda(x, torch.complex64, "c2c_dense_rows")
+    y = _radix_launch(x, sign, scale, "c2c_dense_rows")
+    c2c_dense_rows.launches += t > 0
+    c2c_dense_rows.radix_launches += t > 0
     return y
 
 
 c2c_dense_rows.launches = 0
-
-
-# --------------------------------------------------------------------------
-# Kernel 8 at n > 256 on the radix core; kernel 6 on the generic two-factor
-# schedule
-# --------------------------------------------------------------------------
+c2c_dense_rows.radix_launches = 0
 
 
 @lru_cache(maxsize=None)
@@ -637,63 +647,39 @@ def generic_split(n: int):
     return n // f, f
 
 
-def generic_consts(n: int, sign: int, scale: float = 1.0):
-    """((re, im) of the (m, m) DFT-m, of the (f, f) DFT-f times ``scale``,
-    of the (m, f) twiddle tw[p, j] = W_n^{j p}), float32 and C-contiguous.
-
-    Built by the JAX package's ``_plan_consts`` expressions in float64 and
-    rounded once, so the DFT-f and tw are its lane table and twiddle, and
-    the DFT-m its base table where m has one planner factor, bit for bit.
-    The kernels run DFT-m as one dense product, also where the planner
-    splits m in two (m > 128, n >= 11352)."""
-    f = lane_factor(n)
-    m = n // f
-    wm = dft_matrix(m, sign)
-    wr, wi = dft_matrix(f, sign)
-    tr, ti = stage_twiddle(f, m, sign)                 # (f, m)[j, p]
-    return (tuple(np.ascontiguousarray(a, np.float32) for a in wm),
-            (np.asarray(wr * scale, np.float32), np.asarray(wi * scale, np.float32)),
-            (np.ascontiguousarray(tr.T, np.float32), np.ascontiguousarray(ti.T, np.float32)))
-
-
-@lru_cache(maxsize=64)
-def device_generic(n: int, sign: int, scale: float, device: torch.device):
-    """:func:`generic_consts` as complex64 tensors (wm, wf, tw) on ``device``."""
-    return tuple(torch.complex(torch.from_numpy(re), torch.from_numpy(im)).to(device)
-                 for re, im in generic_consts(n, sign, scale))
-
-
 c2c_generic_rows_plain = c2c_radix_rows_plain   # kernel 8 at n > 256 runs the radix core
 
 
 def c2c_generic_mid_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
-    """Plain version of kernel 6: the two-factor schedule along dim 1 of
-    (B, n, L): the DFT-m over t' (t = f t' + j), the twiddle, the DFT-f over
-    j; k = q m + p."""
+    """Plain version of kernel 6: each column of the (B, n, L) tensor as a
+    row of :func:`c2c_radix_rows_plain`, the radix core's plain version on
+    the kernel's plan and table."""
     nb, n, cols = x.shape
-    s = 1.0 if scale is None else float(scale)
-    wm, wf, tw = device_generic(n, sign, s, x.device)
-    m, f = wm.shape[0], wf.shape[0]
-    a = torch.einsum("tp,btjc->bpjc", wm, x.reshape(nb, m, f, cols)) * tw[:, :, None]
-    return torch.einsum("jq,bpjc->bqpc", wf, a).reshape(nb, n, cols)
+    rows = x.transpose(1, 2).reshape(nb * cols, n)
+    y = c2c_radix_rows_plain(rows, sign, scale)
+    return y.reshape(nb, cols, n).transpose(1, 2).contiguous()
 
 
-def generic_block(n: int, groups: int, count: int, sms: int) -> int:
-    """Columns per block of kernel 6: as many n-element transforms as
-    GENERIC_SMEM holds (at least one), halved while the grid of ``groups``
-    times the tiles would leave SMs idle, then spread evenly over the tiles
-    so that a ragged last tile is as full as the others."""
-    v = max(1, GENERIC_SMEM // (8 * n))
-    while v > 1 and groups * -(-count // v) < sms:
-        v //= 2
-    return -(-count // -(-count // v))
+def mid_radix_launch(x: torch.Tensor, y: torch.Tensor, sign: int, scale: float, c: int) -> None:
+    """Launch kernel 6's radix column tile, ``c`` columns a tile
+    (:func:`radix_mid_cols`), on (B, n, L) complex64 CUDA tensors x and y."""
+    nb, n, cols = x.shape
+    dev = x.device
+    plan = radix_plan(n)
+    with torch.cuda.device(dev):
+        err = _build.lib().ndfft_c2c_mid_radix(
+            x.data_ptr(), y.data_ptr(), device_radix(n, sign, dev).data_ptr(),
+            (ctypes.c_int * RADIX_MAX_STAGES)(*plan), len(plan), nb, n, cols, c, sign, scale,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ndfft_c2c_mid_radix")
 
 
 def _check_generic_n(n: int, what: str):
     mf = generic_split(n)
-    if mf is None:
+    if mf is None or radix_plan(n) is None:
         raise ValueError(f"{what}: n={n} has no generic schedule (256 < n <= "
-                         f"{GENERIC_MAX_N}, a lane factor, m <= {GENERIC_MAX_M})")
+                         f"{GENERIC_MAX_N}, a lane factor, m <= {GENERIC_MAX_M}) with a "
+                         f"radix plan (prime factors <= {RADIX_MAX_P})")
     return mf
 
 
@@ -719,9 +705,11 @@ c2c_generic_rows.launches = 0
 
 
 def c2c_generic_mid(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
-    """C2C along dim 1 of a (B, n, L) complex64 tensor, 256 < n <= 20480,
-    on the generic schedule, times ``scale``. A CPU tensor runs the plain
-    version; a CUDA tensor launches kernel 6 or raises."""
+    """C2C along dim 1 of a (B, n, L) complex64 tensor, 256 < n <= 20480 with
+    a generic schedule (the lengths the JAX package's middle-axis kernel
+    runs on it), times ``scale``. A CPU tensor runs the plain version; a
+    CUDA tensor launches kernel 6 on the radix core's column tile, counted
+    in ``launches`` and ``radix_launches``, or raises."""
     if x.dim() != 3:
         raise ValueError(f"c2c_generic_mid: expected (B, n, L), got {tuple(x.shape)}")
     nb, n, cols = x.shape
@@ -731,23 +719,18 @@ def c2c_generic_mid(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"c2c_generic_mid: unsupported device {x.device}")
     check_cuda(x, torch.complex64, "c2c_generic_mid")
-    m, f = generic_split(n)
-    s = 1.0 if scale is None else float(scale)
-    wm, wf, tw = device_generic(n, sign, s, x.device)
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    v = generic_block(n, nb, cols, num_sms(x.device))
-    with torch.cuda.device(x.device):
-        err = _build.lib().ndfft_c2c_generic(
-            x.data_ptr(), y.data_ptr(), wm.data_ptr(), wf.data_ptr(), tw.data_ptr(),
-            nb, m, f, cols, v, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "c2c_generic_mid")
+    mid_radix_launch(x, y, sign, 1.0 if scale is None else float(scale),
+                     radix_mid_cols(n, nb, cols, num_sms(x.device)))
     c2c_generic_mid.launches += 1
+    c2c_generic_mid.radix_launches += 1
     return y
 
 
 c2c_generic_mid.launches = 0
+c2c_generic_mid.radix_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -896,23 +879,27 @@ def blue_launch(entry: str, x: torch.Tensor, y: torch.Tensor, chirps, h: torch.T
 
 def radix_cols_threads(mk: int, c: int) -> int:
     """Threads of a radix column tile of ``c`` columns of length mk
-    (csrc/fft_blue_radix.cu): ceil(mk / e) a column, e = 16, 32 or 40
-    elements a thread by the tile's mk c elements, rounded up to warps."""
+    (csrc/fft_blue_radix.cu, csrc/fft_mid_radix.cu): ceil(mk / e) a column,
+    e = 16, 32 or 40 elements a thread by the tile's mk c elements, rounded
+    up to warps."""
     e = 40 if mk * c > 16384 else 32 if mk * c > RADIX_WIDE_N else 16
     return -(-(c * -(-mk // e)) // 32) * 32
 
 
-def blue_radix_cols(mk: int, groups: int, cols: int, sms: int) -> int:
-    """Columns per tile of kernel 11's radix form at convolution length mk:
-    up to M = 4096 the largest of 8, 4, 2, 1 whose tile stays in the
-    16-element form (at most RADIX_WIDE_N elements, 256 threads of 80
-    registers, several blocks an SM); above it the largest whose tile holds
-    at most RADIX_MAX_ELEMS elements in 512 threads (32 or 40 elements a
-    thread, one block an SM); halved while the grid of ``groups`` times the
-    tiles would leave SMs idle. (On an H100 at M = 2176 one column a tile in
-    the 16-element form ran faster than 2, 4 or 8 columns in the 32- or
-    40-element form, whose 128 registers a thread leave one block an SM:
-    chip_smoke.py's phase 5 times each C at K11's main shape.)"""
+def radix_mid_cols(mk: int, groups: int, cols: int, sms: int) -> int:
+    """Columns per tile of the radix core's column tiles (kernel 11's radix
+    form at convolution length mk, kernel 6 at n = mk): up to 4096 the
+    largest of 8, 4, 2, 1 whose tile stays in the 16-element form (at most
+    RADIX_WIDE_N elements, 256 threads of 80 registers, several blocks an
+    SM); above it the largest whose tile holds at most RADIX_MAX_ELEMS
+    elements in 512 threads (32 or 40 elements a thread, one block an SM;
+    one column above 10240); halved while the grid of ``groups`` times the
+    tiles would leave SMs idle. (On an H100, at kernel 11's M = 2176 one
+    column a tile in the 16-element form ran faster than 2, 4 or 8 columns
+    in the 32- or 40-element form, whose 128 registers a thread leave one
+    block an SM; at kernel 6's n = 600 four columns, a 32-byte sector a tile
+    row, ran fastest and one column 1.7x slower: chip_smoke.py's phase 5
+    times each C at both kernels' main shapes.)"""
     limit = RADIX_WIDE_N if mk <= RADIX_WIDE_N else RADIX_MAX_ELEMS
     c = 8
     while c > 1 and (mk * c > limit or radix_cols_threads(mk, c) > 2 * RADIX_MAX_THREADS):
@@ -925,7 +912,7 @@ def blue_radix_cols(mk: int, groups: int, cols: int, sms: int) -> int:
 def blue_radix_launch(x: torch.Tensor, y: torch.Tensor, a: torch.Tensor, h: torch.Tensor,
                       scale: float, c: int) -> None:
     """Launch kernel 11's radix column tile, ``c`` columns a tile
-    (:func:`blue_radix_cols`), on (B, n, L) complex64 CUDA tensors x and y
+    (:func:`radix_mid_cols`), on (B, n, L) complex64 CUDA tensors x and y
     with the chirp a and H (:func:`_device_blue`)."""
     nb, n, cols = x.shape
     dev = x.device
@@ -961,7 +948,7 @@ def c2c_blue_mid(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
     s = 1.0 if scale is None else float(scale)
     radix = f not in C2C_F
     if radix:
-        blue_radix_launch(x, y, a, h, s, blue_radix_cols(f * M, nb, cols, num_sms(x.device)))
+        blue_radix_launch(x, y, a, h, s, radix_mid_cols(f * M, nb, cols, num_sms(x.device)))
     else:
         blue_launch("ndfft_c2c_blue_mid", x, y, (a,), h, s, f)
     c2c_blue_mid.launches += 1
@@ -1041,7 +1028,7 @@ def fourstep_mid(x: torch.Tensor, sign: int) -> torch.Tensor:
     check_cuda(x, torch.complex64, "fourstep_mid")
     tw = device_fourstep_tw(n1, n2, sign, x.device)
     if body == "dense":
-        y = _dense_launch(x, sign, None, nb, n1, n2, False, "fourstep_mid", tw)
+        y = _dense_launch(x, sign, None, nb, n1, n2, "fourstep_mid", tw)
     else:
         wq = device_wq(n1, sign, 1.0, x.device)
         y = torch.empty_like(x)

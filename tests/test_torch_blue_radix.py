@@ -138,7 +138,7 @@ def test_column_tiles_fit_a_block():
     tile keeps 16 elements a thread, above it one to four columns."""
     for f in _route_f():
         mk = 128 * f
-        c = kfft.blue_radix_cols(mk, 1, 10 ** 6, 132)
+        c = kfft.radix_mid_cols(mk, 1, 10 ** 6, 132)
         elems = mk * c
         assert elems <= kfft.RADIX_MAX_ELEMS
         assert kfft.radix_cols_threads(mk, c) <= (256 if elems <= kfft.RADIX_WIDE_N else 512)
@@ -147,12 +147,12 @@ def test_column_tiles_fit_a_block():
         assert (elems <= kfft.RADIX_WIDE_N) == (mk <= kfft.RADIX_WIDE_N), (f, c)
         assert c == 8 or mk * 2 * c > (kfft.RADIX_WIDE_N if mk <= kfft.RADIX_WIDE_N else
                                        kfft.RADIX_MAX_ELEMS), (f, c)
-    assert kfft.blue_radix_cols(2176, 1, 1024, 132) == 1
-    assert kfft.blue_radix_cols(384, 1, 1024, 132) == 4       # 128 tiles of 8: halved
-    assert kfft.blue_radix_cols(384, 2, 1024, 132) == 8
-    assert kfft.blue_radix_cols(4224, 1, 1024, 132) == 4
-    assert kfft.blue_radix_cols(13568, 1, 1024, 132) == 1
-    assert kfft.blue_radix_cols(384, 2, 130, 132) == 1        # halved to fill 132 SMs
+    assert kfft.radix_mid_cols(2176, 1, 1024, 132) == 1
+    assert kfft.radix_mid_cols(384, 1, 1024, 132) == 4       # 128 tiles of 8: halved
+    assert kfft.radix_mid_cols(384, 2, 1024, 132) == 8
+    assert kfft.radix_mid_cols(4224, 1, 1024, 132) == 4
+    assert kfft.radix_mid_cols(13568, 1, 1024, 132) == 1
+    assert kfft.radix_mid_cols(384, 2, 130, 132) == 1        # halved to fill 132 SMs
 
 
 def test_wrapper_on_cpu_runs_the_plain_version():

@@ -3,8 +3,9 @@ Pallas kernels (interpret mode); their constants and the wrappers' checks.
 
 * kernel 10 (``c2c_rows``) against ``c2c_pallas``'s twostep kernel at
   n = 512, 1024, 2048;
-* kernel 8 (``c2c_dense_rows``) against ``c2c_pallas``'s lane-last kernel at
-  n <= 256 (its dense lane DFT);
+* kernel 8 (``c2c_dense_rows``, the mixed-radix row core's plain version)
+  against ``c2c_pallas``'s lane-last kernel at n <= 256 (its dense lane
+  DFT), and against float64 numpy at n = 2, 3, 15, 16, 17, 129, 254, 256;
 * kernel 4 (``c2c_dense_mid``) against ``c2c_pallas_axis_mid``'s dense body.
 
 Tolerance: max |port - JAX| <= 5e-6 * max |JAX| at the JAX package's
@@ -87,6 +88,20 @@ def test_c2c_dense_rows_plain_matches_pallas_lane_last(t, n, sign, scale):
     got = kfft.c2c_dense_rows(torch.from_numpy(x), sign, s)
     assert got.dtype == torch.complex64 and got.shape == (t, n)
     _close(got.numpy(), _ref_rows(x, sign, s), TOL_HIGHEST)
+
+
+@pytest.mark.parametrize("n", [2, 3, 15, 16, 17, 129, 254, 256])
+def test_c2c_dense_rows_plain_matches_float64_oracle(n):
+    """Kernel 8's plain version at n <= 256, where a thread of the kernel
+    holds one row of n < 16 in its 16 slots: single-stage plans (2, 3, 16,
+    17), a prime 127 stage (254) and two stages of 16 (256); forward
+    unscaled, inverse with 1/n (a round trip)."""
+    rng = np.random.default_rng(n)
+    x = _cplx(rng, (7, n))
+    assert kfft.radix_plan(n) is not None
+    y = kfft.c2c_dense_rows(torch.from_numpy(x), -1)
+    _close(y.numpy(), np.fft.fft(x.astype(np.complex128), axis=1), 2e-6)
+    _close(kfft.c2c_dense_rows(y, +1, 1.0 / n).numpy(), x, 2e-6)
 
 
 @pytest.mark.parametrize("shape", [(1, 128, 130), (2, 200, 257), (1, 264, 130),

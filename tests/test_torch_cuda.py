@@ -182,8 +182,10 @@ def test_c2c_kernels_match_plain(dev):
     for t, n in ((130, 128), (200, 200), (131, 256)):
         x = crandn(t, n)
         for sign, scale in ((-1, None), (+1, 1 / n)):
+            before = kfft.c2c_dense_rows.radix_launches
             assert _rel(kfft.c2c_dense_rows(x, sign, scale),
-                        kfft.c2c_dense_rows_plain(x, sign, scale)) <= TOL
+                        kfft.c2c_radix_rows_plain(x, sign, scale)) <= TOL
+            assert kfft.c2c_dense_rows.radix_launches - before == 1
     for shape in ((1, 128, 128), (1, 264, 264), (3, 200, 257), (2, 500, 130)):
         x = crandn(*shape)
         for sign, scale in ((-1, None), (+1, 1 / shape[1])):
@@ -291,10 +293,10 @@ def test_real_step_128_cubed_runs_on_the_kernels(dev):
 
 
 def test_generic_kernels_match_plain(dev):
-    """Kernel 8's generic schedule, kernel 6 and kernel 15's generic form:
-    odd and even h, ragged rows and column tiles, m with two planner factors
-    (11352 = 129 * 88), the largest m (19272 = 219 * 88: 7 outputs per lane
-    in pass 1) and the largest tile (20480 = 80 * 256, 164 KB)."""
+    """Kernel 8 above n = 256, kernel 6 and kernel 15's generic form on the
+    radix core: odd and even h, ragged rows and column tiles, two prime
+    stages (11352 = 8 * 3 * 11 * 43), 19272 and the longest length (20480,
+    40 elements a thread)."""
     g = torch.Generator(device=dev).manual_seed(8)
 
     def crandn(*shape):
@@ -309,8 +311,10 @@ def test_generic_kernels_match_plain(dev):
                   (1, 20480, 3)):
         x = crandn(*shape)
         for sign, scale in ((-1, None), (+1, 1 / shape[1])):
+            before = kfft.c2c_generic_mid.radix_launches
             assert _rel(kfft.c2c_generic_mid(x, sign, scale),
                         kfft.c2c_generic_mid_plain(x, sign, scale)) <= TOL
+            assert kfft.c2c_generic_mid.radix_launches - before == 1
     for t, n in ((130, 530), (7, 600), (2, 2 * 11352)):
         x = torch.randn(t, n, generator=g, device=dev)
         got = krfft.r2c_packed_generic(x)
@@ -580,6 +584,89 @@ def test_blue_radix_kernel_matches_plain(dev):
         launches = kfft.c2c_blue_mid.radix_launches
         assert _rel(kfft.c2c_blue_mid(x, -1), kfft.c2c_blue_mid_plain(x, -1)) <= TOL
         assert kfft.c2c_blue_mid.radix_launches - launches == 1
+
+
+def test_dense_rows_radix_kernel_matches_plain(dev):
+    """Kernel 8 at n <= 256 on the radix row core: one row of n < 16 a
+    thread (up to 256 rows a block at n = 2), odd n at odd row offsets
+    (17, 129), and ragged row counts, both signs and the scale 1/n; every
+    launch counted as the radix form."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    before = (kfft.c2c_dense_rows.launches, kfft.c2c_dense_rows.radix_launches)
+    calls = 0
+    for n in (2, 17, 129, 200, 256):
+        for t in (1, 7, 1001):
+            x = torch.view_as_complex(torch.randn(t, n, 2, generator=g, device=dev))
+            for sign, scale in ((-1, None), (+1, 1.0 / n)):
+                got = kfft.c2c_dense_rows(x, sign, scale)
+                assert _rel(got, kfft.c2c_radix_rows_plain(x, sign, scale)) <= TOL, (t, n)
+                calls += 1
+    assert (kfft.c2c_dense_rows.launches - before[0],
+            kfft.c2c_dense_rows.radix_launches - before[1]) == (calls, calls)
+
+
+def test_mid_radix_kernel_matches_plain(dev):
+    """Kernel 6's column tile at every column count C = 1, 2, 4, 8 that the
+    tile allows (its launcher): the 600^3 step's ragged L = 301, a few
+    columns at 1200, and the longest length 20480 (one column a tile, 40
+    elements a thread), both signs and the scale 1/n; the wrapper's launch
+    counted as the radix form."""
+    g = torch.Generator(device=dev).manual_seed(24)
+    for shape in ((600, 600, 301), (3, 1200, 7), (1, 20480, 5)):
+        x = torch.view_as_complex(torch.randn(*shape, 2, generator=g, device=dev))
+        n = shape[1]
+        for sign, scale in ((-1, None), (+1, 1.0 / n)):
+            want = kfft.c2c_generic_mid_plain(x, sign, scale)
+            for c in (1, 2, 4, 8):
+                if n * c > kfft.RADIX_MAX_ELEMS:
+                    continue
+                got = torch.full_like(x, float("nan"))
+                kfft.mid_radix_launch(x, got, sign, 1.0 if scale is None else scale, c)
+                assert _rel(got, want) <= TOL, (shape, c, sign)
+        before = (kfft.c2c_generic_mid.launches, kfft.c2c_generic_mid.radix_launches)
+        assert _rel(kfft.c2c_generic_mid(x, -1), kfft.c2c_generic_mid_plain(x, -1)) <= TOL
+        assert (kfft.c2c_generic_mid.launches - before[0],
+                kfft.c2c_generic_mid.radix_launches - before[1]) == (1, 1)
+
+
+def _table_uploads():
+    """The device-table cache's size and the misses of every table cache of
+    the kernel wrappers: a call that uploads a table raises one of them."""
+    misses = 0
+    for mod in (kfft, krfft, kdct):
+        for fn in vars(mod).values():
+            if hasattr(fn, "cache_info") and fn.__name__.startswith(("device_", "_device")):
+                misses += fn.cache_info().misses
+    return len(kfft._WQ_CACHE), misses
+
+
+@pytest.mark.parametrize("run", [True, False])
+def test_warmup_uploads_the_tables_before_the_first_call(dev, run):
+    """After warmup on the card, in either mode, the first real calls of
+    every kind of the four handlers upload no table: the 600^3 real step's
+    kernels 15, 6 and 8, kernel 8 at n = 256, and the DCT/DST kinds of a
+    256-point handler. ``run=False`` launches nothing and counts nothing."""
+    g = torch.Generator(device=dev).manual_seed(25 + run)
+    kfft._WQ_CACHE.clear()
+    cases = ((nd.FftHandler(600), (3, 600, 301), 1), (nd.FftHandler(256), (130, 256), 1),
+             (nd.R2cFftHandler(600), (130, 600), 1), (nd.DctHandler(256), (256, 130), 0),
+             (nd.DstHandler(256), (130, 256), 1))
+    for h, shape, axis in cases:
+        launches = kfft.c2c_generic_mid.launches + kfft.c2c_dense_rows.launches
+        assert h.warmup(shape, axis=axis, run=run, device=dev) is h
+        if not run:
+            assert kfft.c2c_generic_mid.launches + kfft.c2c_dense_rows.launches == launches
+    uploads = _table_uploads()
+    for h, shape, axis in cases:
+        for name, cplx in h._kinds:
+            s = list(shape)
+            if name == "ndifft_r2c":
+                s[axis] = h.m
+            x = torch.randn(*s, 2 if cplx else 1, generator=g, device=dev)
+            x = torch.view_as_complex(x) if cplx else x[..., 0]
+            getattr(nd, name)(x, h, axis=axis)
+    torch.cuda.synchronize()
+    assert _table_uploads() == uploads
 
 
 def test_r2c_radix_kernel_matches_plain(dev):

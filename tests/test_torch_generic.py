@@ -1,21 +1,21 @@
-"""The generic two-factor schedule (kernel 8 at n > 256 without a split,
-kernel 6, kernel 15 at such a half length) against the JAX package on the
-CPU:
+"""The lengths of the JAX package's generic two-factor schedule (kernel 8
+at n > 256 without a split, kernel 6, kernel 15 at such a half length)
+against the JAX package on the CPU:
 
 * the plain versions of ``c2c_generic_rows``, ``c2c_generic_mid`` and
   ``r2c_packed_generic`` against ``c2c_pallas``, ``c2c_pallas_axis_mid`` and
-  ``r2c_pallas`` in interpret mode (their generic bodies; kernels 8 and 15
-  run the mixed-radix row core's plain version);
-* ``generic_consts`` bit for bit against ``_plan_consts``, C-contiguous;
-* the wrappers' checks and launch counters, the block sizes, and that every
-  length the routes send to the generic kernels is one they take;
-* the plain versions against a float64 oracle at n = 11352 and 19272, whose
-  m = 129 and 219 the JAX planner splits in two (the port runs DFT-m as one
-  product).
+  ``r2c_pallas`` in interpret mode (their generic bodies; the port runs the
+  mixed-radix core's plain version on rows, and kernel 6 on each column as
+  a row), kernel 6's at n = 600, 1000, 1200 and 1016 (a 127 stage);
+* the wrappers' checks and launch counters, the tile sizes
+  (``radix_block``, ``radix_mid_cols``), and that every length the routes
+  send to these kernels is one they take;
+* the plain versions against a float64 oracle at n = 11352, 19272 and
+  20480 (m = 129 and 219 are split in two by the JAX planner).
 
 Tolerance: max |port - JAX| <= 5e-6 * max |JAX| at the JAX package's
 "highest" tier, where each side measures ~5e-7 against a float64 oracle;
-2e-6 against the float64 oracle (sums of m + f <= 217 terms in float32).
+2e-6 against the float64 oracle (the radix stages' float32 sums).
 """
 
 import numpy as np
@@ -107,24 +107,34 @@ def test_packed_plain_matches_pallas_r2c(n):
     _close(got, np.fft.rfft(x.astype(np.float64), axis=1), TOL_ORACLE)
 
 
-@pytest.mark.parametrize("n,sign,scale", [(264, -1, 1.0), (600, +1, 1 / 600), (1200, -1, 1.0),
-                                          (520, +1, 0.25), (265, -1, 1.0), (300, +1, 1 / 300),
-                                          (11352, -1, 1.0)])
-def test_consts_bit_identical_to_plan_consts(n, sign, scale):
-    (wmr, wmi), (wfr, wfi), (twr, twi) = kfft.generic_consts(n, sign, scale)
-    for a in (wmr, wmi, wfr, wfi, twr, twi):
-        assert a.dtype == np.float32 and a.flags["C_CONTIGUOUS"]
-    f, m, (stages, base), lane, tw = ref_pfft._plan_consts(n, sign, np.float32, scale)
-    assert (m, f) == kfft.generic_split(n)
-    assert wmr.shape == (m, m) and wfr.shape == (f, f) and twr.shape == (m, f)
-    assert np.array_equal(wfr, lane[0]) and np.array_equal(wfi, lane[1])
-    assert np.array_equal(twr, tw[0]) and np.array_equal(twi, tw[1])
-    if stages:        # m = 129 = 43 * 3: the planner's chain, the port one product
-        assert n == 11352 and [g for g, _, _, _ in stages] == [43]
-        wr, wi = ref_plan.dft_matrix(m, sign)
-        assert np.array_equal(wmr, np.asarray(wr, np.float32))
-    else:
-        assert np.array_equal(wmr, base[0]) and np.array_equal(wmi, base[1])
+@pytest.mark.parametrize("n", [600, 1000, 1200, 1016])
+@pytest.mark.parametrize("sign,scale", [(-1, 0.5), (+1, "inv_n")])
+def test_mid_radix_plain_matches_pallas_axis_mid(n, sign, scale):
+    """Kernel 6's plain version (the radix core on each column) against the
+    JAX package's generic middle-axis kernel: (m, f) = (3, 200), (4, 250),
+    (5, 240), (4, 254) there; radix plans (8, 3, 5, 5), (8, 5, 5, 5),
+    (16, 3, 5, 5) and (8, 127) here."""
+    assert ref_pfft.mid_kernel_kind(n) == "generic"
+    x = _cplx((1, n, 130), n - sign)
+    s = 1.0 / n if scale == "inv_n" else scale
+    got = kfft.c2c_generic_mid(torch.from_numpy(x), sign, s)
+    assert got.dtype == torch.complex64 and got.shape == (1, n, 130)
+    want = _split(ref_pfft.c2c_pallas_axis_mid(jnp.asarray(x.real), jnp.asarray(x.imag),
+                                               ref_plan.get_c2c_plan(n, sign), s))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("n", [11352, 20480])
+@pytest.mark.parametrize("sign", [-1, +1])
+def test_mid_radix_plain_matches_float64_oracle(n, sign):
+    """Kernel 6's plain version at a two-factor m (11352 = 129 * 88, plan
+    (8, 3, 11, 43)) and at the longest length (20480, plan (16, 16, 16, 5))
+    against numpy in float64, with a scale."""
+    x = _cplx((1, n, 3), n + sign)
+    got = kfft.c2c_generic_mid(torch.from_numpy(x), sign, 0.25)
+    x64 = x.astype(np.complex128)
+    want = 0.25 * (np.fft.fft(x64, axis=1) if sign < 0 else n * np.fft.ifft(x64, axis=1))
+    _close(got, want, TOL_ORACLE)
 
 
 def test_lane_factor_matches_the_jax_package():
@@ -210,12 +220,25 @@ def test_generic_block_sizes():
     # the 600^3 step's R2C: kernel 15 at h = 300 on the radix row core, 8
     # rows of 300 (RADIX_TILE) over 360000 rows
     assert kfft.radix_block(300, 360000, 132) == 8
-    # axis 1 at L = 301: 16 tiles of 19 columns, the last one of 16, not 1
-    assert kfft.generic_block(600, 600, 301, 132) == 19
-    assert kfft.generic_block(600, 1, 180600, 132) == 20
-    # halved while the grid would leave SMs idle, then spread evenly
-    assert kfft.generic_block(600, 1, 1000, 132) == 5      # 20 -> 10 -> 5
     assert kfft.radix_block(600, 8, 132) == 1
-    # one transform per block beyond 96 KB (n = 20480: 164 KB of tile)
-    assert kfft.generic_block(20480, 4, 1000, 132) == 1
-    assert kfft.generic_block(20480, 1, 1, 132) == 1 and 8 * 20480 <= kfft.MAX_SMEM
+    # kernel 8 at n <= 256 (RADIX_SMALL_TILE): 2 rows of 256, 3 of 129, 256
+    # rows of 2 (one thread each, the thread bound)
+    assert kfft.radix_block(256, 65536, 132) == 2
+    assert kfft.radix_block(129, 8321, 132) == 3
+    assert kfft.radix_block(2, 1 << 20, 132) == 256
+    # kernel 6's column tile: 4 columns of 600 in the 16-element form at the
+    # 600^3 step's (600, 600, 301) and (1, 600, 180600), the ragged L = 301
+    # spread over 76 tiles of 3 or 4 columns
+    assert kfft.radix_mid_cols(600, 600, 301, 132) == 4
+    assert kfft.radix_mid_cols(600, 1, 180600, 132) == 4
+    assert kfft.radix_cols_threads(600, 4) == 160
+    # halved while the grid would leave SMs idle (3 x 4 tiles of 2); above
+    # n = 4096 at most 20480 elements in 512 threads: 2 columns to
+    # n = 10240, then one
+    assert kfft.radix_mid_cols(1200, 3, 7, 132) == 1
+    assert kfft.radix_mid_cols(8192, 64, 1000, 132) == 2
+    assert kfft.radix_mid_cols(11352, 4, 1000, 132) == 1
+    assert kfft.radix_mid_cols(20480, 1, 5, 132) == 1
+    for n in (600, 1016, 4096, 6000, 10240, 20480):
+        c = kfft.radix_mid_cols(n, 1000, 1000, 132)
+        assert n * c <= kfft.RADIX_MAX_ELEMS and kfft.radix_cols_threads(n, c) <= 512

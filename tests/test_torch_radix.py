@@ -1,11 +1,12 @@
 """The mixed-radix Stockham row core (kernel 10 at n = 128 * F with F
-outside {4, 8, 16}, kernel 8 at 256 < n <= 20480) against the JAX package
-and numpy on the CPU:
+outside {4, 8, 16}, kernel 8 at every n) against the JAX package and numpy
+on the CPU:
 
 * ``radix_plan`` over every length the two routes send (C2C_ROWS at those F
   and C2C_GENERIC_ROWS, found by ``gates.lane_c2c_route(n, 128)`` over
   257 ... 20480): the radices multiply to n, each is a codelet or a prime
-  <= 127, at most 8 stages, in the kernel's order;
+  <= 127, at most 8 stages, in the kernel's order; and over kernel 8's
+  lengths n <= 256 and kernel 6's middle-axis lengths;
 * ``radix_consts`` against an independent float64 numpy expression rounded
   once: equal;
 * the plain version against ``c2c_pallas`` in interpret mode at the
@@ -31,7 +32,7 @@ from ndrustfft_tpu import config as ref_config
 from ndrustfft_tpu import plan as ref_plan
 from ndrustfft_tpu.ops.pallas import fft as ref_pfft
 
-from ndrustfft_tpu_torch import gates
+from ndrustfft_tpu_torch import api, gates
 from ndrustfft_tpu_torch.ops.hopper import fft as kfft
 
 torch.set_num_threads(1)
@@ -88,6 +89,24 @@ def test_plan_covers_every_route_length():
         assert order == sorted(order), (n, plan)
         if primes:
             assert plan[-len(primes):] == tuple(sorted(primes)), (n, plan)
+
+
+@pytest.mark.parametrize("route,count", [("c2c_dense_rows", 232), ("c2c_generic_mid", 1402)])
+def test_plan_covers_the_dense_rows_and_middle_axis_routes(route, count):
+    """Kernel 8 at n <= 256 (C2C_DENSE_ROWS over 128 rows) and kernel 6
+    (C2C_GENERIC_MID along axis 1 of (1, n, 130)) run the radix core at
+    every length their routes send: each has a plan of at most 8 stages
+    whose radices multiply to n."""
+    if route == gates.C2C_DENSE_ROWS:
+        lengths = [n for n in range(2, 257) if gates.lane_c2c_route(n, 128) == route]
+    else:
+        lengths = [n for n in range(257, kfft.GENERIC_MAX_N + 1)
+                   if api._route("fft", (1, n, 130), 1, torch.complex64, "cuda") == route]
+    assert len(lengths) == count
+    for n in lengths:
+        plan = kfft.radix_plan(n)
+        assert plan is not None and len(plan) <= kfft.RADIX_MAX_STAGES, n
+        assert math.prod(plan) == n, (n, plan)
 
 
 @pytest.mark.parametrize("n,plan", [(4096, (16, 16, 16)), (600, (8, 3, 5, 5)),

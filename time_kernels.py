@@ -9,9 +9,14 @@ that two trees can be timed in turns in one process tree on one card
 build/. Times, as the median of R CUDA-event pairs after a warm-up, the
 public wrappers at their main shapes: kernel 8 (c2c_generic_rows) and
 kernel 15's generic form (r2c_packed_generic) at 360000 rows of 600,
-kernel 10 (c2c_rows) at (4096, 4096) and kernel 11 (c2c_blue_mid) at
-(1, 1031, 1024), each beside one torch.fft call on the same input. Prints
-the card's nvidia-smi name and power limit, then one JSON line.
+kernel 10 (c2c_rows) at (4096, 4096), kernel 11 (c2c_blue_mid) at
+(1, 1031, 1024), kernel 8 at n = 256 (c2c_dense_rows) at 65536 and
+8388608 rows (the latter over --reps-big runs), and kernel 6
+(c2c_generic_mid) at (600, 600, 301) and (1, 600, 180600), each beside one
+torch.fft call on the same input; then the 600^3 real step with the real
+axis last (ndfft_r2c, ndfft along axes 1 and 0 and back) beside
+torch.fft.rfftn + irfftn. Prints the card's nvidia-smi name and power
+limit, then one JSON line.
 """
 
 import argparse
@@ -26,6 +31,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--reps-big", type=int, default=5)
     args = ap.parse_args()
     import torch
 
@@ -34,6 +40,7 @@ def main() -> int:
         return 2
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
+    import ndrustfft_tpu_torch as nd
     from ndrustfft_tpu_torch.ops.hopper import fft as kfft
     from ndrustfft_tpu_torch.ops.hopper import rfft as krfft
 
@@ -47,11 +54,11 @@ def main() -> int:
         return torch.complex(torch.randn(*shape, generator=gen, device=dev),
                              torch.randn(*shape, generator=gen, device=dev))
 
-    def ms(fn):
+    def ms(fn, reps=None):
         for _ in range(3):
             fn()
         times = []
-        for _ in range(args.reps):
+        for _ in range(reps or args.reps):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -74,6 +81,32 @@ def main() -> int:
     x = crandn(1, 1031, 1024)
     out["c2c_blue_mid_1x1031x1024"] = (ms(lambda: kfft.c2c_blue_mid(x, -1)),
                                        ms(lambda: torch.fft.fft(x, dim=1)))
+    x = crandn(65536, 256)
+    out["c2c_dense_rows_65536x256"] = (ms(lambda: kfft.c2c_dense_rows(x, -1)),
+                                       ms(lambda: torch.fft.fft(x, dim=1)))
+    x = crandn(600, 600, 301)
+    out["c2c_generic_mid_600x600x301"] = (ms(lambda: kfft.c2c_generic_mid(x, -1)),
+                                          ms(lambda: torch.fft.fft(x, dim=1)))
+    x = crandn(1, 600, 180600)
+    out["c2c_generic_mid_1x600x180600"] = (ms(lambda: kfft.c2c_generic_mid(x, -1)),
+                                           ms(lambda: torch.fft.fft(x, dim=1)))
+    del x
+    r = torch.randn(600, 600, 600, generator=gen, device=dev)
+    hr, hc = nd.R2cFftHandler(600), nd.FftHandler(600)
+
+    def step():
+        v = nd.ndfft(nd.ndfft(nd.ndfft_r2c(r, hr, axis=2), hc, axis=1), hc, axis=0)
+        return nd.ndifft_r2c(nd.ndifft(nd.ndifft(v, hc, axis=0), hc, axis=1), hr, axis=2)
+
+    out["step_600^3"] = (ms(step, 10), ms(lambda: torch.fft.irfftn(torch.fft.rfftn(r), s=r.shape),
+                                          10))
+    del r
+    torch.cuda.empty_cache()
+    x = crandn(8388608, 256)
+    out["c2c_dense_rows_8388608x256"] = (ms(lambda: kfft.c2c_dense_rows(x, -1), args.reps_big),
+                                         ms(lambda: torch.fft.fft(x, dim=1), args.reps_big))
+    del x
+    torch.cuda.empty_cache()
     print(json.dumps({"root": root, "card": card, "ms_and_torch_fft_ms": out}), flush=True)
     return 0
 
