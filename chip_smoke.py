@@ -102,9 +102,9 @@ without the final line):
         column), the solves' times and the Dirichlet solve against a
         float32 torch.fft DST-I solve (in slabs, to fit);
      j. Bluestein lengths (a prime factor above 128; kernels 11 and 12, the
-        lane's chirp-z on kernel 10; kernel 11 off the fixed core on the
-        radix core's column tile): the 509^3 complex64 round trip (fftn /
-        ifftn: K11 fixed, F = 8, on axes 0 and 1; the engine's chirp-z on
+        lane's chirp-z on kernel 10; kernel 11 on the radix core's column
+        tile at every F): the 509^3 complex64 round trip (fftn /
+        ifftn: K11 at F = 8, M = 1024, on axes 0 and 1; the engine's chirp-z on
         axis 2, its sub-FFTs on K10 at M = 1024) against torch.fft.fftn in
         complex128 with the round trip, its time against torch.fft.fftn +
         ifftn and each forward leg's; the 2049^2 x 256 cell-centred Neumann
@@ -187,6 +187,12 @@ without the final line):
         send to kernel 8's rows, and along axis 1 of (1, n, 130) at each of
         the 1402 lengths that they send to kernel 6, against torch.fft in
         complex128 (oracle only);
+     r. the census of kernels 4 and 11 on the radix column tile: ndfft and
+        ndifft along axis 1 of (1, n, 130) at each of the 412 lengths that
+        the gates send to kernel 4 (C2C_DENSE_MID, n = 2 ... 511) and each of
+        the 57 Bluestein lengths that kernel 11 takes at F in {4, 8, 16}
+        (M = 512, 1024, 2048), against torch.fft in complex128 (oracle
+        only), within 1e-6 of the oracle's peak;
   5. times with CUDA events (median over --reps runs after warm-up): each
      kernel against its plain version and, where one PyTorch call computes
      the same function, that call (the yardstick, never on the port's
@@ -204,8 +210,11 @@ without the final line):
      trip (each public call timed alone) against torch.fft, ndfft at
      the Bluestein lengths 131 and 2049 along the last axis (the chirp-z's
      sub-FFTs on the radix core) against torch.fft.fft, kernel 11's
-     radix column tile at (1, 1031, 1024) and kernel 6's at (600, 600, 301)
-     and (1, 600, 180600) with each column count C, and kernel 8 at
+     radix column tile at (1, 1031, 1024), (1, 509, 259081), (509, 509,
+     509), (1, 251, 262144) and (1, 1021, 131072) (M = 2176, 1024, 512,
+     2048), kernel 6's at (600, 600, 301) and (1, 600, 180600) and kernel
+     4's at (1, 256, 65536), (256, 256, 129), (1, 128, 16384) and at
+     n = 32, 8, 4 (2^24 elements) with each column count C, and kernel 8 at
      (65536, 256) with each count of rows a block.
 The kernels line gives each kernel's launches on its main path, its largest
 error against its plain version, its times, and its bound: the larger of
@@ -215,12 +224,12 @@ sheet, 700 W). Its launches are the sum over the main paths of phase 4;
 kernels 1, 2, 3, 12, 13, 14, 15, 16, 17, 18, 19, 22 and 28 on the
 bts2 core are two rows each, the fixed core (launches - wide_launches) and the wide
 one (wide_launches; K11 and K12 rows also give the bound of their two
-length-M FFTs per column, ``length_m_bound_ms``); kernels 10 and 11 two,
-the fixed core and the radix core (radix_launches); kernel 8 (its rows at
-n <= 256 counted in c2c_dense_rows.radix_launches as well, above in
-``c2c_generic_rows``), kernel 6 (counted in radix_launches as well) and
-kernel 15's generic form (``r2c_packed_generic``) run on the radix core;
-and
+length-M FFTs per column, ``length_m_bound_ms``); kernel 10 two, the fixed
+core and the radix core (radix_launches); kernel 8 (its rows at n <= 256
+counted in c2c_dense_rows.radix_launches as well, above in
+``c2c_generic_rows``), kernels 6, 4 and 11 (each counted in
+radix_launches as well) and kernel 15's generic form
+(``r2c_packed_generic``) run on the radix core; and
 kernels 23 to 26 and 29 three: the fixed core, the wide core's half length
 and the n-point form (npoint_launches); kernel 7 three: the fixed core, the
 wide core and the dense body (dense_launches); kernel 28 three: the fixed
@@ -249,12 +258,13 @@ TOL_STEP = 1e-5      # step vs float64 oracle and round trip, relative
 # the forms that a wrapper counts apart beside ``launches`` (which counts
 # every launch): ``wide_launches``, for the DCT-II/III kernels
 # ``npoint_launches``, for kernel 7 ``dense_launches``, for kernel 28
-# ``long_launches`` and for kernels 10, 11, 8 (``c2c_dense_rows``) and 6
+# ``long_launches`` and for kernels 10, 11, 8 (``c2c_dense_rows``), 6 and 4
 # ``radix_launches``
 FORMS = ("wide", "npoint", "dense", "long", "radix")
 # the wrappers whose every launch is on the radix core: their
 # ``radix_launches`` equal their ``launches``
-RADIX_ONLY = ("c2c_dense_rows", "c2c_generic_mid")
+RADIX_ONLY = ("c2c_dense_rows", "c2c_generic_mid", "c2c_dense_mid", "c2c_blue_mid")
+TOL_CENSUS = 1e-6    # the censuses of kernels 4 and 11 (phase 4r) against complex128
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, 700 W
 FP32_FLOP_PER_S = 67e12     # FP32 outside the tensor cores, same source
 
@@ -293,9 +303,9 @@ def work(name: str, shape, length_m: bool = False, mult=None):
     """(bytes, FP32 operations) of one kernel call at ``shape``: inputs
     (constants included) read once, outputs written once; 5 n log2 n per
     complex and 2.5 n log2 n per real FFT of length n, the dense DCT's
-    2 n^2 per column. The dense complex DFT (K4) and the dense R2C/C2R
-    (K20, K21) count what the function needs, a length-n FFT per column,
-    not their products' 8 n^2 and 4 n (n/2 + 1). A kernel on the wide
+    2 n^2 per column. The dense R2C/C2R (K20, K21) count what the
+    function needs, a length-n FFT per column, not their products'
+    4 n (n/2 + 1). A kernel on the wide
     core reads the fixed core's tables and its (F, F) DFT-F table. A DCT-II/III
     kernel (rows or a middle axis) reads and writes n reals per transform and
     does a real FFT's 2.5 n log2 n, in every form; its tables are the core's
@@ -303,10 +313,10 @@ def work(name: str, shape, length_m: bool = False, mult=None):
     The chirp-z kernels (K11, K12) read and write 16 or 8 bytes per element
     and do the function's 5 n log2 n or 2.5 n log2 n per column; their tables
     are the two chirps, H and both cores' Wq (and DFT-F) at the convolution
-    length M (K11's radix form: the chirp, H and the radix table of M).
+    length M (K11 on the radix core: the chirp, H and the radix table of M).
     ``length_m``: their operations as two complex FFTs of length M
-    per column instead. Kernel 10 at F outside {4, 8, 16}, kernel 8 and
-    kernel 6 (the radix core) read x and the radix table (n entries and
+    per column instead. Kernel 10 at F outside {4, 8, 16}, kernels 8, 6 and
+    4 (the radix core) read x and the radix table (n entries and
     each prime stage's row) and write y; kernel 15's generic form reads the
     (T, 2h) float32 rows, the radix table of h and the unpack twiddle and
     writes (T, h + 1) complex64. The four-step's kernel 7 on
@@ -354,12 +364,12 @@ def work(name: str, shape, length_m: bool = False, mult=None):
         k11 = name.startswith("c2c")
         mk = -(-(2 * n - 1) // 128) * 128
         f = mk // 128
-        if name.endswith("_radix"):
+        if k11:     # the radix column tile
             from ndrustfft_tpu_torch.ops.hopper.fft import radix_consts
             tables = 8 * n + 8 * mk + 8 * len(radix_consts(mk, -1)[0])
         else:
             wide = 2 * 8 * f * f if name.endswith("_wide") else 0
-            tables = (8 if k11 else 16) * n + 8 * mk + 2 * 8 * mk * 128 + wide
+            tables = 16 * n + 8 * mk + 2 * 8 * mk * 128 + wide
         flops = (2 * 5 * mk * math.log2(mk) if length_m
                  else (5 if k11 else 2.5) * n * math.log2(n))
         return (16 if k11 else 8) * b * n * cols + tables, flops * b * cols
@@ -419,9 +429,10 @@ def work(name: str, shape, length_m: bool = False, mult=None):
     if name == "c2c_rows":
         t, n = shape
         return 16 * t * n + 8 * n * 128, 5 * n * math.log2(n) * t
-    if name in ("c2c_rows_radix", "c2c_generic_rows", "c2c_dense_rows", "c2c_generic_mid"):
+    if name in ("c2c_rows_radix", "c2c_generic_rows", "c2c_dense_rows", "c2c_generic_mid",
+                "c2c_dense_mid"):
         from ndrustfft_tpu_torch.ops.hopper.fft import radix_consts
-        n = shape[1] if name == "c2c_generic_mid" else shape[-1]
+        n = shape[1] if name.endswith("_mid") else shape[-1]
         outputs = math.prod(shape) // n     # the radix table: n entries and the prime rows
         return 16 * outputs * n + 8 * len(radix_consts(n, -1)[0]), 5 * n * math.log2(n) * outputs
     if name == "r2c_packed_generic":
@@ -430,10 +441,6 @@ def work(name: str, shape, length_m: bool = False, mult=None):
         h = n // 2
         return (4 * t * n + 8 * t * (h + 1) + 8 * (len(radix_consts(h, -1)[0]) + h),
                 2.5 * n * math.log2(n) * t)
-    if name == "c2c_dense_mid":
-        n = shape[1]
-        outputs = math.prod(shape) // n
-        return 16 * outputs * n + 8 * n * n, 5 * n * math.log2(n) * outputs
     raise ValueError(f"no work model for {name}")
 
 
@@ -552,8 +559,7 @@ def main() -> int:
             "dct3_mid_wide": 0.0, "dct2_mid_npoint": 0.0, "dct3_mid_npoint": 0.0,
             "r2c_packed_mid": 0.0, "r2c_packed_mid_wide": 0.0, "dct1_mid": 0.0,
             "dct1_mid_wide": 0.0, "dct4_mid": 0.0, "dct4_mid_wide": 0.0, "dct4_mid_long": 0.0,
-            "c2c_blue_mid": 0.0,
-            "c2c_blue_mid_radix": 0.0, "dct23_blue_mid": 0.0, "dct23_blue_mid_wide": 0.0,
+            "c2c_blue_mid": 0.0, "dct23_blue_mid": 0.0, "dct23_blue_mid_wide": 0.0,
             "fourstep_mid": 0.0, "fourstep_mid_wide": 0.0, "fourstep_mid_dense": 0.0,
             "rows_store_t": 0.0, "rows_store_t_wide": 0.0, "spectral_c2c_mid": 0.0,
             "spectral_c2c_mid_wide": 0.0, "spectral_r2c_mid": 0.0, "spectral_r2c_mid_wide": 0.0,
@@ -644,9 +650,13 @@ def main() -> int:
          ((1001, 2), (7, 17), (8321, 129), (130, 128), (200, 200), (131, 256),
           (256 * 256, 256), (129 * 256, 256), (128 * 144, 144), (128 * 256, 160),
           (8 * 2176, 17))),
+        # K4 on the radix column tile: n < 16 (one thread a column), odd n,
+        # the dense route's longest n (511), ragged L, the fft2d protocol's
+        # 128 and 264 and the 256^3 paths' shapes (phases 4c to 4e)
         ("c2c_dense_mid", kfft.c2c_dense_mid, kfft.c2c_dense_mid_plain,
-         ((1, 128, 128), (1, 264, 264), (3, 200, 257), (2, 500, 130), (256, 256, 256),
-          (1, 256, 256 * 256), (129, 256, 256))),
+         ((3, 2, 129), (2, 15, 257), (1, 17, 129), (1, 128, 128), (1, 264, 264), (3, 200, 257),
+          (2, 500, 130), (2, 511, 257), (256, 256, 256), (1, 256, 256 * 256), (129, 256, 256),
+          (256, 256, 129), (1, 256, 33024), (1, 128, 8320))),
         # the generic schedule's lengths on the radix core: ragged rows and
         # column tiles, two prime stages (11352 = 8 * 3 * 11 * 43), 19272,
         # the longest length (20480, 40 elements a thread), and the main
@@ -674,29 +684,53 @@ def main() -> int:
                     raise AssertionError(f"{name} {shape} sign {sign} scale {scale}: {rel}")
                 del got, ref
             del x
-    # kernel 6's column tile at each column count C it takes (the wrapper
-    # picks one by radix_mid_cols): the 600^3 step's ragged L = 301, a
-    # ragged few columns at 1200 and the longest length (one column a tile)
-    for shape in ((600, 600, 301), (3, 1200, 7), (1, 20480, 5)):
-        x = crandn(*shape)
-        y = torch.empty_like(x)
-        n = shape[1]
-        for sign, scale in ((-1, None), (+1, 1.0 / n)):
-            ref = kfft.c2c_generic_mid_plain(x, sign, scale)
-            for c in (1, 2, 4, 8):
-                if n * c > kfft.RADIX_MAX_ELEMS:
-                    continue
-                y.fill_(float("nan"))
-                kfft.mid_radix_launch(x, y, sign, 1.0 if scale is None else scale, c)
-                torch.cuda.synchronize()
-                rel = abs_err(y, ref) / float(ref.abs().max())
-                errs["c2c_generic_mid"] = max(errs["c2c_generic_mid"], abs_err(y, ref))
-                emit(phase="kernel_vs_plain", kernel="c2c_generic_mid", shape=shape,
-                     cols_per_tile=c, sign=sign, scale=scale, rel_err=rel)
-                if not rel <= TOL_KERNEL:
-                    raise AssertionError(f"c2c_generic_mid {shape} C {c} sign {sign}: {rel}")
-            del ref
-        del x, y
+
+    def tile_fits(n, c):
+        """A radix column tile of c columns of length n that a block takes:
+        256 threads in the 16-element form, 512 above it."""
+        elems = n * c
+        return elems <= kfft.RADIX_MAX_ELEMS and kfft.radix_cols_threads(n, c) <= (
+            kfft.RADIX_MAX_THREADS if elems <= kfft.RADIX_WIDE_N else 2 * kfft.RADIX_MAX_THREADS)
+
+    def blue_launch(x, y, sign, scale, c):
+        a, h = kfft._device_blue(x.shape[1], sign, dev)
+        kfft.blue_radix_launch(x, y, a, h, scale, c)
+
+    # the radix column tile at each column count C that phase 5 times (the
+    # wrappers pick one by radix_mid_cols and blue_radix_cols): kernel 6 at
+    # the 600^3 step's ragged L = 301, a ragged few columns at 1200 and the
+    # longest length (one column a tile); kernel 4 at n = 2 (one thread a
+    # column), 17, 129, the 256^3 paths' ragged (256, 256, 129) and tail
+    # (1, 256, 33024), and 511; kernel 11 at M = 512, 1024, 2048 (n = 193,
+    # 509, 1021) with ragged tiles
+    for name, shapes, counts, plain, launch, tile_len in (
+            ("c2c_generic_mid", ((600, 600, 301), (3, 1200, 7), (1, 20480, 5)), (1, 2, 4, 8),
+             kfft.c2c_radix_mid_plain, kfft.mid_radix_launch, int),
+            ("c2c_dense_mid", ((3, 2, 129), (2, 17, 257), (1, 129, 129), (256, 256, 129),
+                               (1, 256, 33024), (1, 511, 257)), (1, 2, 4, 8, 16, 32, 64),
+             kfft.c2c_radix_mid_plain, kfft.mid_radix_launch, int),
+            ("c2c_blue_mid", ((2, 193, 130), (1, 509, 13), (1, 1021, 257)), (1, 2, 4, 8),
+             kfft.c2c_blue_mid_plain, blue_launch, kfft.blue_kernel_M)):
+        for shape in shapes:
+            x = crandn(*shape)
+            y = torch.empty_like(x)
+            n = shape[1]
+            for sign, scale in ((-1, None), (+1, 1.0 / n)):
+                ref = plain(x, sign, scale)
+                for c in counts:
+                    if not tile_fits(tile_len(n), c):
+                        continue
+                    y.fill_(float("nan"))
+                    launch(x, y, sign, 1.0 if scale is None else scale, c)
+                    torch.cuda.synchronize()
+                    rel = abs_err(y, ref) / float(ref.abs().max())
+                    errs[name] = max(errs[name], abs_err(y, ref))
+                    emit(phase="kernel_vs_plain", kernel=name, shape=shape, cols_per_tile=c,
+                         sign=sign, scale=scale, rel_err=rel)
+                    if not rel <= TOL_KERNEL:
+                        raise AssertionError(f"{name} {shape} C {c} sign {sign}: {rel}")
+                del ref
+            del x, y
 
     # the middle-axis R2C/C2R kernels: the main paths' shapes (phase 4d),
     # axis 1 of 512^3, ragged and odd ones; the C2R spectra carry DC and
@@ -953,18 +987,20 @@ def main() -> int:
                 check_form(name, kern, lambda: kern(x, scale), lambda: plain(x, scale), shape,
                            scale=scale)
             del x
-    # kernels 11 and 12 on the fixed core (F = 8, 16: n = 509, 1021); at
-    # F = 3, 17, 33 and the routes' largest, 106 (n = 131, 1031, 2049, 6781)
-    # kernel 11 on the radix core's column tile and kernel 12 on the wide core
-    # with its second tile (one column per tile at F = 106); ragged column
-    # tiles (L = 130; L = 1030 over tiles of C = 4 columns at n = 131 and
-    # 2049), both signs and the scale 1/n (K11), DCT-II with scale 2 and
-    # DCT-III unscaled (K12); the main paths' shapes are checked in phase 4j,
-    # slice by slice
-    for name, shapes in (("fixed", ((2, 509, 130), (1, 1021, 257), (1, 509, 4096))),
+    # kernel 11 on the radix core's column tile at every F: the fixed core's
+    # factors (F = 4, 8, 16: n = 193, 509, 1021), with kernel 12 on the fixed
+    # core beside it; F = 3, 17, 33 and the routes' largest, 106 (n = 131,
+    # 1031, 2049, 6781), with kernel 12 on the wide core with its second
+    # tile (one column per tile at F = 106); ragged column tiles (L = 13,
+    # 130, 257; L = 1030 over tiles of C = 4 columns at n = 131 and 2049),
+    # both signs and the scale 1/n (K11), DCT-II with scale 2 and DCT-III
+    # unscaled (K12); the main paths' shapes are checked in phase 4j, slice
+    # by slice
+    for name, shapes in (("fixed", ((2, 193, 130), (2, 509, 130), (1, 509, 13),
+                                    (1, 1021, 257), (1, 509, 4096))),
                          ("wide", ((2, 131, 130), (1, 1031, 130), (1, 2049, 130),
                                    (1, 6781, 128), (1, 131, 1030), (1, 2049, 1030)))):
-        k11 = "c2c_blue_mid" + ("_radix" if name == "wide" else "")
+        k11 = "c2c_blue_mid"
         k12 = "dct23_blue_mid" + ("_wide" if name == "wide" else "")
         for shape in shapes:
             x = crandn(*shape)
@@ -1092,18 +1128,19 @@ def main() -> int:
                 "spectral_r2c_mid": krfft.spectral_r2c_mid,
                 "spectral_dct_mid": kdct.spectral_dct_mid}
     # the wide core's launches, the DCT kernels' n-point ones, kernel 7's
-    # dense ones and kernels 10 and 11's on the radix core, counted apart by
-    # the same wrappers (their ``launches`` count every launch)
+    # dense ones and those of kernel 10 and the radix-only wrappers on the
+    # radix core, counted apart by the same wrappers (their ``launches``
+    # count every launch)
     forms = {f"{name}_{form}": (wrappers[name], f"{form}_launches")
              for name in ("c2c_axis_mid", "c2c_rows", *RADIX_ONLY, "r2c_nat", "c2r_nat",
                           "r2c_packed",
                           "r2c_mid", "c2r_mid", "dct2_nat", "dct3_nat", "dct2_mid",
                           "dct3_mid", "r2c_packed_mid", "dct1_mid", "dct4_mid",
-                          "c2c_blue_mid", "dct23_blue_mid", "fourstep_mid", "rows_store_t",
+                          "dct23_blue_mid", "fourstep_mid", "rows_store_t",
                           "spectral_c2c_mid", "spectral_r2c_mid", "spectral_dct_mid")
              for form in FORMS
-             if form == "wide" and name not in ("c2c_rows", "c2c_blue_mid")
-             or form == "radix" and name in ("c2c_rows", "c2c_blue_mid", *RADIX_ONLY)
+             if form == "wide" and name not in ("c2c_rows", *RADIX_ONLY)
+             or form == "radix" and name in ("c2c_rows", *RADIX_ONLY)
              or form == "npoint" and name.startswith(("dct2_", "dct3_", "spectral_dct"))
              or form == "dense" and name == "fourstep_mid" or form == "long" and name == "dct4_mid"}
 
@@ -1289,7 +1326,7 @@ def main() -> int:
     # on axis 2 and K1 on axes 1 and 0
     c2c_grids = {(1024, 1024): dict(c2c_rows=2, c2c_axis_mid=2),
                  (256, 256, 256): dict(c2c_dense_rows=2, c2c_dense_rows_radix=2,
-                                       c2c_dense_mid=4),
+                                       c2c_dense_mid=4, c2c_dense_mid_radix=4),
                  (512, 512, 512): dict(c2c_rows=2, c2c_axis_mid=4)}
     c2c_inputs = {}
     for grid_shape, expected in c2c_grids.items():
@@ -1315,7 +1352,7 @@ def main() -> int:
     fft2d_inputs = {n: crandn(n, n) for n in (128, 264, 512, 1024)}
     reset_counts()
     fft2d_out = {n: nd.ndfft(x, nd.FftHandler(n), axis=0) for n, x in fft2d_inputs.items()}
-    read_counts("fft2d", c2c_dense_mid=2, c2c_axis_mid=2)
+    read_counts("fft2d", c2c_dense_mid=2, c2c_dense_mid_radix=2, c2c_axis_mid=2)
     for n, x in fft2d_inputs.items():
         back = nd.ndifft(fft2d_out[n], nd.FftHandler(n), axis=0)
         check_c2c("fft2d_axis0", fft2d_out[n], x, back, dims=(0,), grid=[n, n])
@@ -1356,8 +1393,8 @@ def main() -> int:
     # grid -> expected launches: 512^3 K16, K1 at (257, 512, 512), K10 on
     # 131584 rows, K17; 256^3 K20, K4 at (129, 256, 256), K8 on 33024 rows, K21
     first_grids = {512: dict(r2c_mid=1, c2c_axis_mid=2, c2c_rows=2, c2r_mid=1),
-                   256: dict(r2c_dense_mid=1, c2c_dense_mid=2, c2c_dense_rows=2,
-                             c2c_dense_rows_radix=2, c2r_dense_mid=1)}
+                   256: dict(r2c_dense_mid=1, c2c_dense_mid=2, c2c_dense_mid_radix=2,
+                             c2c_dense_rows=2, c2c_dense_rows_radix=2, c2r_dense_mid=1)}
     first_inputs = {}
     for n, expected in first_grids.items():
         x = randn(n, n, n)
@@ -1394,10 +1431,10 @@ def main() -> int:
     # after the extension; 128^3 K15's dense product (h = 64, 16384 rows),
     # K8 on 8320 rows (axis 1 has 65 < 128 columns and moves), K4 at
     # (1, 128, 8320), K8 on 16384 rows after the extension
-    last_grids = {256: dict(r2c_packed=1, c2c_dense_mid=4, c2c_dense_rows=1,
-                            c2c_dense_rows_radix=1),
+    last_grids = {256: dict(r2c_packed=1, c2c_dense_mid=4, c2c_dense_mid_radix=4,
+                            c2c_dense_rows=1, c2c_dense_rows_radix=1),
                   128: dict(r2c_packed_dense=1, c2c_dense_rows=3, c2c_dense_rows_radix=3,
-                            c2c_dense_mid=2)}
+                            c2c_dense_mid=2, c2c_dense_mid_radix=2)}
     last_inputs = {}
     for n, expected in last_grids.items():
         x = randn(n, n, n)
@@ -2081,7 +2118,7 @@ def main() -> int:
     # ---- 4j. Bluestein lengths (a prime factor above 128): the fused chirp-z
     # along a middle axis (K11, K12) and the lane's chirp-z on K10. The main
     # paths: the 509^3 complex64 round trip (fftn / ifftn, 1.06 GB per
-    # field: K11 fixed, F = 8, M = 1024, on axes 0 and 1 at (1, 509, 259081)
+    # field: K11 at F = 8, M = 1024, on axes 0 and 1 at (1, 509, 259081)
     # and (509, 509, 509); axis 2 on the engine's chirp-z, its two sub-FFTs
     # on K10 fixed over 259081 rows of 1024), against torch.fft.fftn in
     # complex128 with the round trip; and the 2049^2 x 256 cell-centred
@@ -2100,7 +2137,7 @@ def main() -> int:
     reset_counts()
     y10 = nd.fftn(x10)
     back10 = nd.ifftn(y10)
-    read_counts("c2c_509^3", c2c_blue_mid=4, c2c_rows=4)
+    read_counts("c2c_509^3", c2c_blue_mid=4, c2c_blue_mid_radix=4, c2c_rows=4)
     peak = torch.cuda.max_memory_allocated()
     check_c2c("fftn_ifftn", y10, x10, back10, grid=[n10] * 3, peak_bytes=peak, base_bytes=base)
     del y10, back10
@@ -2171,14 +2208,14 @@ def main() -> int:
     del f_nb
     torch.cuda.empty_cache()
 
-    # the lengths against float64 oracles: ndfft along axis 0 at 131 (K11
-    # radix, F = 3), 1021 (fixed, F = 16), 1031 (radix, F = 17) and 6781 (F =
+    # the lengths against float64 oracles: ndfft along axis 0 at 131 (K11,
+    # F = 3), 1021 (F = 16), 1031 (F = 17) and 6781 (F =
     # 106, the largest tile); along the last axis at 131 (K10 wide at M =
     # 384) and 2049 (M = 4608, F = 36); R2C/C2R at 2062 along axis 0 (the
     # lane after a moveaxis: h = 1031, M = 2304; the C2R's extension at M =
     # 4608) and at 263 along the last axis (row pairs, M = 768); DCT-II/III
     # and DST-II at 2049 along axis 0 (K12 wide); DCT-IV at 2042 along axis
-    # 0 (the composite's C2C on K11 fixed, m = 1021); DCT-I at 1032 and DST-I
+    # 0 (the composite's C2C on K11 at F = 16, m = 1021); DCT-I at 1032 and DST-I
     # at 1030 along the last axis (the packed lowering's C2C at h = 1031 on
     # the lane's chirp-z, M = 2304, F = 18); ndfft at 10007 (M = 20736, on
     # the four-step) is checked in phase 4k
@@ -2197,7 +2234,7 @@ def main() -> int:
              for key, s in s_in.items()}
     d_out = {kind: getattr(nd, f"nd{kind}")(x, axis=0 if x.shape[0] > 1024 else 1)
              for kind, x in d_in.items()}
-    read_counts("blue_lengths", c2c_blue_mid=5, c2c_blue_mid_radix=3, c2c_rows=16,
+    read_counts("blue_lengths", c2c_blue_mid=5, c2c_blue_mid_radix=5, c2c_rows=16,
                 c2c_rows_radix=16, dct23_blue_mid=3, dct23_blue_mid_wide=3)
     for (n, axis), y in c_out.items():
         x = c_in[(n, axis)]
@@ -3008,12 +3045,25 @@ def main() -> int:
     # 8's rows (C2C_DENSE_ROWS: 232 lengths), and along axis 1 of a
     # (1, n, 130) field at every n that they send to kernel 6
     # (C2C_GENERIC_MID: 1402 lengths), each against torch.fft in complex128
-    # (an oracle only, run on the host)
+    # (an oracle only, run on the host); ---- 4r. the same along axis 1 of
+    # (1, n, 130) for kernels 4 and 11 on the radix column tile, at every n
+    # that the gates send to kernel 4 (C2C_DENSE_MID: 412 lengths, 2 ...
+    # 511) and every Bluestein n that kernel 11 takes at F in {4, 8, 16}
+    # (C2C_BLUE_MID at M = 512, 1024, 2048: 57 lengths, 193 ... 1021),
+    # within TOL_CENSUS of the oracle's peak
+    def mid_route(n):
+        return api._route("fft", (1, n, 130), 1, torch.complex64, "cuda")
+
     k8_n = [n for n in range(2, 257) if gates.lane_c2c_route(n, 128) == gates.C2C_DENSE_ROWS]
-    k6_n = [n for n in range(257, kfft.GENERIC_MAX_N + 1)
-            if api._route("fft", (1, n, 130), 1, torch.complex64, "cuda") == api.C2C_GENERIC_MID]
-    for what, lengths, shape_of, want in (("dense_rows", k8_n, lambda n: (128, n), 232),
-                                          ("generic_mid", k6_n, lambda n: (1, n, 130), 1402)):
+    k6_n = [n for n in range(257, kfft.GENERIC_MAX_N + 1) if mid_route(n) == api.C2C_GENERIC_MID]
+    k4_n = [n for n in range(2, 2049) if mid_route(n) == api.C2C_DENSE_MID]
+    k11_n = [n for n in range(kfft.M + 1, 2049)
+             if mid_route(n) == api.C2C_BLUE_MID and kfft.blue_f(n) in kfft.C2C_F]
+    for what, name, lengths, shape_of, want, tol in (
+            ("dense_rows", "c2c_dense_rows", k8_n, lambda n: (128, n), 232, TOL_KERNEL),
+            ("generic_mid", "c2c_generic_mid", k6_n, lambda n: (1, n, 130), 1402, TOL_KERNEL),
+            ("dense_mid", "c2c_dense_mid", k4_n, lambda n: (1, n, 130), 412, TOL_CENSUS),
+            ("blue_fixed", "c2c_blue_mid", k11_n, lambda n: (1, n, 130), 57, TOL_CENSUS)):
         if len(lengths) != want:
             raise AssertionError(f"{what} census: {len(lengths)} lengths, expected {want}")
         t0 = time.perf_counter()
@@ -3027,10 +3077,9 @@ def main() -> int:
             oracles = (torch.fft.fft(x64, dim=1).to(dev), torch.fft.ifft(y64, dim=1).to(dev))
             for got, ref in zip((y, back), oracles):
                 err = rel_err(got, ref)
-                if not err <= TOL_KERNEL:
+                if not err <= tol:
                     raise AssertionError(f"{what} census n={n}: {err}")
                 worst = max(worst, (err, n))
-        name = f"c2c_{what}"
         read_counts(f"{what}_census", **{name: 2 * len(lengths), f"{name}_radix": 2 * len(lengths)})
         emit(phase=f"{what}_census", lengths=len(lengths), worst_rel_err=worst[0], worst_n=worst[1],
              seconds=time.perf_counter() - t0)
@@ -3063,8 +3112,7 @@ def main() -> int:
                    "r2c_packed_mid_wide": (1, 1536, 1535), "dct1_mid": (2049, 2049, 257),
                    "dct1_mid_wide": (1, 1537, 1537), "dct4_mid": (2048, 2048, 256),
                    "dct4_mid_wide": (1, 1536, 1536), "dct4_mid_long": (1, 65536, 8192),
-                   "c2c_blue_mid": (1, 509, 509 * 509),
-                   "c2c_blue_mid_radix": (1, 1031, 1024), "dct23_blue_mid": (1, 1021, 1024),
+                   "c2c_blue_mid": (1, 509, 509 * 509), "dct23_blue_mid": (1, 1021, 1024),
                    "dct23_blue_mid_wide": (1, 2049, 2049 * 256),
                    "fourstep_mid": (256, 1024, 1024), "fourstep_mid_wide": (64, 384, 384),
                    "fourstep_mid_dense": (16385, 256, 128), "rows_store_t": (256, 1024, 1024),
@@ -3143,13 +3191,27 @@ def main() -> int:
              ((128, 256), (256 * 256, 256), (129 * 256, 256), (200, 200))),
             ("c2c_dense_mid", kfft.c2c_dense_mid, kfft.c2c_dense_mid_plain,
              ((1, 128, 128), (1, 264, 264), (256, 256, 256), (1, 256, 256 * 256),
-              (129, 256, 256)))):
+              (129, 256, 256), (256, 256, 129), (1, 256, 33024), (1, 128, 16384)))):
         for shape in shapes:
             x = crandn(*shape)
             dim = -1 if len(shape) == 2 else 1
             time_kernel(name, shape, lambda: kern(x, -1), lambda: plain(x, -1),
                         lambda: torch.fft.fft(x, dim=dim))
     del x
+    # kernel 4 at the 256^3 paths' shapes and at n = 128, 32, 8 and 4 (2^24
+    # elements) with each column count C (the wrapper's radix_mid_cols takes
+    # 16 at n = 256, 32 below; above 4096 elements a tile the 32- and
+    # 40-element forms)
+    for shape in ((1, 256, 256 * 256), (256, 256, 129), (1, 128, 16384), (1, 32, 1 << 19),
+                  (1, 8, 1 << 21), (1, 4, 1 << 22)):
+        x = crandn(*shape)
+        y = torch.empty_like(x)
+        cols_ms = {c: cuda_ms(lambda: kfft.mid_radix_launch(x, y, -1, 1.0, c), reps)
+                   for c in (4, 8, 16, 32, 64) if tile_fits(shape[1], c)}
+        emit(phase="time", kernel="c2c_dense_mid", shape=shape, ms_by_cols_per_tile=cols_ms,
+             chosen=kfft.radix_mid_cols(shape[1], shape[0], shape[2], kfft.num_sms(dev)),
+             card=card)
+        del x, y
     # kernel 8 at its main shape with each count of rows a block (the
     # wrapper's radix_block takes 2 rows of 256)
     x = crandn(256 * 256, 256)
@@ -3406,23 +3468,28 @@ def main() -> int:
         x = randn(*shape)
         time_kernel(name, shape, lambda: kern(x, scale), lambda: plain(x, scale))
         del x
-    # kernel 11 on the radix core's column tile at phase 4j's length 1031
-    # (F = 17; its fixed form and kernel 12's wide form were timed there, at
-    # the main paths' shapes), then at each column count C the tile allows
-    # (the wrapper's choice is C = 1 here), and kernel 12 on the fixed core at
+    # kernel 11 at phase 4j's length 1031 (F = 17; at the main paths' shapes
+    # it and kernel 12's wide form were timed there), then at each column
+    # count C the tile allows at 1031 (M = 2176: the wrapper's choice is
+    # C = 1), at the 509^3 round trip's shapes (M = 1024: C = 2) and at 251
+    # and 1021 (M = 512, 2048: C = 4, 2), and kernel 12 on the fixed core at
     # 1021 (F = 16), which the routes never send there (they send it
     # n > 1100, F >= 18)
     x = crandn(1, 1031, 1024)
-    time_kernel("c2c_blue_mid_radix", (1, 1031, 1024), lambda: kfft.c2c_blue_mid(x, -1),
+    time_kernel("c2c_blue_mid", (1, 1031, 1024), lambda: kfft.c2c_blue_mid(x, -1),
                 lambda: kfft.c2c_blue_mid_plain(x, -1), lambda: torch.fft.fft(x, dim=1))
-    mk = kfft.blue_kernel_M(1031)
-    a, h = kfft._device_blue(1031, -1, dev)
-    y = torch.empty_like(x)
-    cols_ms = {c: cuda_ms(lambda: kfft.blue_radix_launch(x, y, a, h, 1.0, c), reps)
-               for c in (1, 2, 4, 8) if mk * c <= kfft.RADIX_MAX_ELEMS}
-    emit(phase="time", kernel="c2c_blue_mid_radix", shape=(1, 1031, 1024),
-         ms_by_cols_per_tile=cols_ms, chosen=kfft.radix_mid_cols(mk, 1, 1024, kfft.num_sms(dev)),
-         card=card)
+    del x
+    for shape in ((1, 1031, 1024), (1, 509, 509 * 509), (509, 509, 509), (1, 251, 1 << 18),
+                  (1, 1021, 1 << 17)):
+        x = crandn(*shape)
+        y = torch.empty_like(x)
+        mk = kfft.blue_kernel_M(shape[1])
+        a, h = kfft._device_blue(shape[1], -1, dev)
+        cols_ms = {c: cuda_ms(lambda: kfft.blue_radix_launch(x, y, a, h, 1.0, c), reps)
+                   for c in (1, 2, 4, 8) if tile_fits(mk, c)}
+        emit(phase="time", kernel="c2c_blue_mid", shape=shape, ms_by_cols_per_tile=cols_ms,
+             chosen=kfft.blue_radix_cols(mk, shape[0], shape[2], kfft.num_sms(dev)), card=card)
+        del x, y
     x = randn(1, 1021, 1024)
     time_kernel("dct23_blue_mid", (1, 1021, 1024), lambda: kdct.dct23_blue_mid(x, 2, 2.0),
                 lambda: kdct.dct23_blue_mid_plain(x, 2, 2.0))
@@ -3479,7 +3546,7 @@ def main() -> int:
                      "ndrustfft_tpu/ops/pallas/fft.py:743"),
         "c2c_dense_rows": ("ndrustfft_tpu_torch/csrc/fft_rows_radix.cu",
                            "ndrustfft_tpu/ops/pallas/fft.py:521"),
-        "c2c_dense_mid": ("ndrustfft_tpu_torch/csrc/fft_dense.cu",
+        "c2c_dense_mid": ("ndrustfft_tpu_torch/csrc/fft_mid_radix.cu",
                           "ndrustfft_tpu/ops/pallas/fft.py:1565"),
         "r2c_mid": ("ndrustfft_tpu_torch/csrc/rfft_mid.cu",
                     "ndrustfft_tpu/ops/pallas/rfft.py:443"),
@@ -3547,10 +3614,8 @@ def main() -> int:
                           "ndrustfft_tpu/ops/pallas/dct.py:670"),
         "dct4_mid_long": ("ndrustfft_tpu_torch/csrc/dct4_mid.cu",
                           "ndrustfft_tpu/ops/pallas/dct.py:670"),
-        "c2c_blue_mid": ("ndrustfft_tpu_torch/csrc/fft_blue_mid.cu",
+        "c2c_blue_mid": ("ndrustfft_tpu_torch/csrc/fft_blue_radix.cu",
                          "ndrustfft_tpu/ops/pallas/fft.py:1277"),
-        "c2c_blue_mid_radix": ("ndrustfft_tpu_torch/csrc/fft_blue_radix.cu",
-                               "ndrustfft_tpu/ops/pallas/fft.py:1277"),
         "dct23_blue_mid": ("ndrustfft_tpu_torch/csrc/fft_blue_mid.cu",
                            "ndrustfft_tpu/ops/pallas/fft.py:1473"),
         "dct23_blue_mid_wide": ("ndrustfft_tpu_torch/csrc/fft_blue_mid.cu",

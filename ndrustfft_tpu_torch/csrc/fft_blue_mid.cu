@@ -1,65 +1,51 @@
-// Kernels 11 and 12: Bluestein's chirp-z along the middle axis of a (B, n, L)
-// tensor, for a length n with a prime factor above 128, in one pass.
+// Kernel 12: Bluestein's chirp-z along the middle axis of a (B, n, L)
+// float32 tensor, for a length n with a prime factor above 128, in one pass
+// on the bts2 core. (Kernel 11, the complex64 C2C on the same chirp-z, runs
+// on the mixed-radix core's column tile at every F: fft_blue_radix.cu.)
 //
-// Kernel 11 replaces ndrustfft_tpu/ops/pallas/fft.py::_kernel_axis_mid_blue
-// (built by _build_call_axis_mid_blue, called by c2c_pallas_axis_mid_blue):
-// the C2C of complex64 columns. Kernel 12 replaces
-// fft.py::_kernel_axis_mid_blue_rr (built by _build_call_axis_mid_blue_rr,
-// called by dct23_blue_pallas_mid): the same chirp-z on a real column with
-// Re(z b) out, which the Makhoul DCT-II/III takes at a Bluestein length,
-// its twiddles (and DCT-III's c0/2) folded into the chirps on the host.
-// For each column, with M = 128 * F >= 2n - 1:
+// Replaces ndrustfft_tpu/ops/pallas/fft.py::_kernel_axis_mid_blue_rr (built
+// by _build_call_axis_mid_blue_rr, called by dct23_blue_pallas_mid): the
+// chirp-z on a real column with Re(z b) out, which the Makhoul DCT-II/III
+// takes at a Bluestein length, its twiddles (and DCT-III's c0/2) folded
+// into the chirps on the host. For each column, with M = 128 * F >= 2n - 1:
 //
 //   u = x a, zero-padded to M;  Z = IFFT_M(FFT_M(u) H) (1/M and the user
-//   scale in the inverse core's Wq);  y[k] = Z[k] b[k] (K11) or
-//   Re(Z[k] b[k]) (K12), k < n,
+//   scale in the inverse core's Wq);  y[k] = Re(Z[k] b[k]),  k < n,
 //
 // with the chirps a, b and H = FFT_M of the wrapped inverse chirp built on
-// the host (ops/hopper/fft.py::blue_consts, ops/hopper/dct.py::
-// blue_rr_consts; the JAX package's tables bit for bit). Each kernel has
-// one load/store struct (BlueC2C, BlueRR below) on the bts2 forms:
+// the host (ops/hopper/dct.py::blue_rr_consts; the JAX package's tables bit
+// for bit). The load/store struct BlueRR serves both bts2 forms:
 //
-// * the fixed form (F in {4, 8, 16}, bts2_core.cuh), kernels 11 and 12: the
-//   core leaves its output in natural order in its tile, so the block fills
-//   the chirped column and explicit zeros to row M (a tile left from the
-//   last column is not zero), runs the forward core, multiplies row k by
-//   H[k] in place, runs the inverse core and stores rows k < n times b[k];
-// * the wide form (every other F <= 111, bts2_wide.cuh), kernel 12 alone
-//   (kernel 11 at those F runs on the radix core's column tile,
-//   fft_blue_radix.cu): its core reads the whole tile while its store
-//   callback writes the outputs, so it cannot work in place. The forward
-//   core's store writes d H[k] into a second shared tile, and the inverse
-//   core runs on that tile with the exit chirp in its store. At one column
-//   and M = 13568 (F = 106, the routes' largest) the block takes
-//   8 (2M + 4 * 128) + 8F = 222,032 bytes of the 232,448 it may have.
+// * the fixed form (F in {4, 8, 16}, bts2_core.cuh; the routes never send
+//   it, they send n > 1100, F >= 18): the core leaves its output in natural
+//   order in its tile, so the block fills the chirped column and explicit
+//   zeros to row M (a tile left from the last column is not zero), runs the
+//   forward core, multiplies row k by H[k] in place, runs the inverse core
+//   and stores rows k < n;
+// * the wide form (every other F <= 111, bts2_wide.cuh): its core reads the
+//   whole tile while its store callback writes the outputs, so it cannot
+//   work in place. The forward core's store writes d H[k] into a second
+//   shared tile, and the inverse core runs on that tile with the exit chirp
+//   in its store. At one column and M = 13568 (F = 106, the routes' largest)
+//   the block takes 8 (2M + 4 * 128) + 8F = 222,032 bytes of the 232,448 it
+//   may have.
 //
-// What bounds it: the core's stage 2, a dense DFT-128 on the FP32 cores, twice
-// per column at length M >= 2n - 1: ~16 (128 + F) M FLOPs per column against
-// the 5 n log2 n of the function, so the kernels are bound by the FP32 cores,
-// not by the 16 (K11) or 8 (K12) bytes per element they read and write once.
-// The design keeps the whole convolution in shared memory (device memory is
+// What bounds it: the core's stage 2, a dense DFT-128 on the FP32 cores,
+// twice per column at length M >= 2n - 1: ~16 (128 + F) M FLOPs per column
+// against the 2.5 n log2 n of the function, so the kernel is bound by the
+// FP32 cores, not by the 8 bytes per element it reads and writes once. The
+// design keeps the whole convolution in shared memory (device memory is
 // read once and written once, the padding never exists outside the block),
 // and takes every table from the host. The TPU kernel's zero-aware first
 // butterfly level and its trimmed inverse Wq (p_trim) only save work and are
 // left to later work, as is the wide form's one-column tile at M > 6000;
-// kernel 12's wide form goes onto the radix column tile when its turn comes
-// (BlueRR is already its load/store struct).
+// the kernel goes onto the radix column tile (fft_blue_radix.cu, as kernel
+// 11 did) when its turn comes.
 #include "bts2_wide.cuh"
 
 namespace ndfft {
 
-// Kernel 11's load and store on the fixed form: complex64 in and out, b = a.
-struct BlueC2C {
-  const float2* x;
-  float2* y;
-  const float2* a;
-  __device__ float2 load(long long off, int t) const { return cmul(x[off], __ldg(a + t)); }
-  __device__ void store(long long off, int k, float2 z) const {
-    y[off] = cmul(z, __ldg(a + k));
-  }
-};
-
-// Kernel 12's load and store: float32 in and out, the real part of z b.
+// The load and store: float32 in and out, the real part of z b.
 struct BlueRR {
   const float* x;
   float* y;
@@ -175,25 +161,13 @@ cudaError_t blue_wide(IO io, const void* h, const void* wq_fwd, const void* wf_f
 
 }  // namespace ndfft
 
-// Kernel 11 on the fixed core: x, y: (B, n, L) complex64, contiguous; a: (n,)
-// complex64 chirp exp(sign i pi t^2 / n) (entry and exit); h: (M,) complex64
-// H; wq_fwd, wq_inv: (F, 128, 128) complex64 of M = 128 * F, F in {4, 8, 16},
-// signs -1 and +1, the inverse's with scale / M; 2n - 1 <= M. C: columns per
-// block, a power of two with M * C <= 8192. Returns the cudaError_t of the
-// launch (0 on success).
-extern "C" int ndfft_c2c_blue_mid(const void* x, void* y, const void* a, const void* h,
-                                  const void* wq_fwd, const void* wq_inv, long long B, int n,
-                                  int M, long long L, int C, void* stream) {
-  using namespace ndfft;
-  const BlueC2C io{static_cast<const float2*>(x), static_cast<float2*>(y),
-                   static_cast<const float2*>(a)};
-  return (int)blue_fixed(io, h, wq_fwd, wq_inv, B, n, M, L, C, stream);
-}
-
 // Kernel 12 on the fixed core: x, y: (B, n, L) float32, contiguous; a, b:
 // (n,) complex64 entry and exit constants (the chirp exp(-i pi t^2 / n) with
 // the Makhoul twiddle and scale folded into b for DCT-II, into a for
-// DCT-III); h, wq_fwd, wq_inv (scale 1 / M) as for kernel 11.
+// DCT-III); h: (M,) complex64 H; wq_fwd, wq_inv: (F, 128, 128) complex64 of
+// M = 128 * F, F in {4, 8, 16}, signs -1 and +1, the inverse's with 1 / M;
+// 2n - 1 <= M. C: columns per block, a power of two with M * C <= 8192.
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int ndfft_dct23_blue_mid(const void* x, void* y, const void* a, const void* b,
                                     const void* h, const void* wq_fwd, const void* wq_inv,
                                     long long B, int n, int M, long long L, int C,
@@ -204,7 +178,9 @@ extern "C" int ndfft_dct23_blue_mid(const void* x, void* y, const void* a, const
   return (int)blue_fixed(io, h, wq_fwd, wq_inv, B, n, M, L, C, stream);
 }
 
-// Kernel 12 on the wide core: as above, with wf_fwd, wf_inv as for kernel 11.
+// Kernel 12 on the wide core: as above at any F <= 111, with wf_fwd, wf_inv:
+// the (F, F) complex64 DFT-F of each sign (ops/hopper/fft.py::wide_consts);
+// C: columns per tile (ops/hopper/fft.py::wide_block with blue_bytes).
 extern "C" int ndfft_dct23_blue_mid_wide(const void* x, void* y, const void* a, const void* b,
                                          const void* h, const void* wq_fwd,
                                          const void* wf_fwd, const void* wq_inv,

@@ -1,8 +1,7 @@
-// Kernel 11 at a convolution length M = 128 * F with F outside {4, 8, 16}:
-// Bluestein's chirp-z C2C along the middle axis of a (B, n, L) complex64
-// tensor, for a length n with a prime factor above 128, in one pass on an
-// (M, C) column tile of the mixed-radix core (fft_radix.cuh). For each
-// column:
+// Kernel 11: Bluestein's chirp-z C2C along the middle axis of a (B, n, L)
+// complex64 tensor, for a length n with a prime factor above 128, at every
+// convolution length M = 128 * F, in one pass on an (M, C) column tile of
+// the mixed-radix core (fft_radix.cuh). For each column:
 //
 //   u = x a, zero-padded to M;  Z = IFFT_M(FFT_M(u) H) (1/M and the user
 //   scale in the inverse's last stage);  y[k] = Z[k] a[k],  k < n,
@@ -12,13 +11,13 @@
 // bit) and M = blue_kernel_M(n).
 //
 // Replaces ndrustfft_tpu/ops/pallas/fft.py::_kernel_axis_mid_blue (built by
-// _build_call_axis_mid_blue, called by c2c_pallas_axis_mid_blue) at those
-// F; F in {4, 8, 16} stays on the bts2 core (fft_blue_mid.cu). The TPU
+// _build_call_axis_mid_blue, called by c2c_pallas_axis_mid_blue). The TPU
 // kernel's length-M transforms are dense stages, cheap on a 128 x 128 MXU;
-// their first Hopper form (the wide core) ran a dense DFT-F and a dense
-// DFT-128 twice per column, 8 (128 + F) FP32 operations per element and
-// transform, streamed F * 128 KB of folded twiddles per direction from L2,
-// and kept a second M x C tile because that core cannot work in place.
+// their first Hopper forms (the bts2 core at F in {4, 8, 16}, the wide core
+// at every other F) ran a dense DFT-F and a dense DFT-128 twice per column,
+// 8 (128 + F) FP32 operations per element and transform, streamed
+// F * 128 KB of folded twiddles per direction from L2, and the wide core
+// kept a second M x C tile because it cannot work in place.
 //
 // What bounds it on this card: device memory. Each element is read once and
 // written once (16 bytes), 0.0064 ms at (1, 1031, 1024) over 3.35 TB/s;
@@ -28,9 +27,10 @@
 // The design. A block holds C adjacent columns of one b as an (M, C) tile
 // in shared memory, in the core's column layout (C columns of a butterfly
 // on consecutive threads; a tile row of C >= 4 columns is a 32-byte
-// sector). The load multiplies row t < n by a[t] and writes zeros from row
-// n to M (a tile never exists in device memory padded), four loads in
-// flight a thread. Both transforms run the forward radix_plan(M) in place
+// sector; M = 512, 1024, 2048 take C = 4, 2, 2: ops/hopper/fft.py::
+// blue_radix_cols). The load multiplies row
+// t < n by a[t] and writes zeros from row n to M (a tile never exists in
+// device memory padded), four loads in flight a thread. Both transforms run the forward radix_plan(M) in place
 // with one table and one set of prime rows, a thread's butterflies held in
 // registers across each stage's barrier: the inverse is
 // IFFT_M(V) = conj(FFT_M(conj V)), exact in float32 (the sign +1 table and
@@ -140,9 +140,10 @@ cudaError_t blue_radix_launch(const float2* x, float2* y, const float2* a, const
 // exp(sign i pi t^2 / n) (entry and exit); h: (M,) complex64 H; table: the
 // sign -1 radix table of M (ops/hopper/fft.py::radix_consts), which serves
 // both transforms; radices: radix_plan(M), `stages` of them;
-// 2n - 1 <= M <= 20480; C: columns per tile, 1, 2, 4 or 8, with
-// M C <= 20480 (16, 32 or 40 elements a thread by M C:
-// fft_radix.cuh::radix_per_thread); scale: the user scale over M. Returns
+// 2n - 1 <= M <= 20480; C: columns per tile, a power of two up to
+// kRadixMaxCols with M C <= 20480 (16, 32 or 40 elements a thread by M C:
+// fft_radix.cuh::radix_per_thread) and at most 256 threads (512 above
+// M C = 4096); scale: the user scale over M. Returns
 // the cudaError_t of the launch (0 on success).
 extern "C" int ndfft_c2c_blue_radix(const void* x, void* y, const void* a, const void* h,
                                     const void* table, const int* radices, int stages,
@@ -150,9 +151,8 @@ extern "C" int ndfft_c2c_blue_radix(const void* x, void* y, const void* a, const
                                     void* stream) {
   using namespace ndfft;
   RadixPlan plan{};
-  if (B < 1 || L < 1 || n < 1 || 2 * n - 1 > M || C < 1 || C > 8 || (C & (C - 1)) ||
-      (long long)M * C > 20480 ||
-      !radix_plan_of(radices, stages, M, plan))
+  if (B < 1 || L < 1 || n < 1 || 2 * n - 1 > M || C < 1 || C > kRadixMaxCols ||
+      (C & (C - 1)) || (long long)M * C > 20480 || !radix_plan_of(radices, stages, M, plan))
     return (int)cudaErrorInvalidValue;
   const auto xp = static_cast<const float2*>(x);
   const auto yp = static_cast<float2*>(y);

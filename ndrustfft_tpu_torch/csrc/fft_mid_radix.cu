@@ -1,20 +1,23 @@
-// Kernel 6: C2C along the middle axis of a (B, n, L) complex64 tensor at
-// 512 < n <= 20480 without a {128, 256} split (the lengths of the JAX
-// package's generic two-factor schedule), on an (n, C) column tile of the
-// mixed-radix core (fft_radix.cuh), times a scale.
+// Kernels 6 and 4: C2C along the middle axis of a (B, n, L) complex64
+// tensor, on an (n, C) column tile of the mixed-radix core (fft_radix.cuh),
+// times a scale. Kernel 6 takes 512 < n <= 20480 without a {128, 256} split
+// (the lengths of the JAX package's generic two-factor schedule), kernel 4
+// n <= 256, or n <= 512 without a split (its dense route).
 //
-// Replaces ndrustfft_tpu/ops/pallas/fft.py::_kernel_axis_mid (the generic
-// body of _build_call_axis_mid: n > 512 without a split, built at :1649 and
-// called at :1776). The TPU kernel runs n = m f as two dense products, a
-// DFT-m and a DFT-f with the twiddle between them, cheap on a 128 x 128
-// MXU. Its first Hopper form ran the same two products on the FP32 cores,
-// 8 (m + f) FP32 operations per output where an FFT needs 5 log2 n (1624
-// against 46 at n = 600), and was bound by them.
+// Kernel 6 replaces ndrustfft_tpu/ops/pallas/fft.py::_kernel_axis_mid (the
+// generic body of _build_call_axis_mid: n > 512 without a split, built at
+// :1649 and called at :1776); kernel 4 replaces ::_kernel_axis_mid_dense
+// (its dense body, :1565, called at :1724). The TPU kernels run dense
+// products, cheap on a 128 x 128 MXU: kernel 6 n = m f as a DFT-m and a
+// DFT-f with the twiddle between them, kernel 4 one DFT-n. Their first
+// Hopper forms ran the same products on the FP32 cores, 8 (m + f) or 8 n
+// FP32 operations per output where an FFT needs 5 log2 n (1624 against 46
+// at n = 600, 2048 against 40 at n = 256), and were bound by them.
 //
 // What bounds it on this card: device memory. Each element is read once and
-// written once (16 bytes): 0.518 ms at (600, 600, 301) over 3.35 TB/s,
-// against about 5 n log2 n FP32 operations per column (0.08 ms of the
-// 67 TFLOP/s peak at that shape).
+// written once (16 bytes): 0.518 ms at (600, 600, 301) and 0.080 ms at
+// (1, 256, 65536) over 3.35 TB/s, against about 5 n log2 n FP32 operations
+// per column (0.08 and 0.010 ms of the 67 TFLOP/s peak at those shapes).
 //
 // The design: kernel 11's column tile (fft_blue_radix.cu) with a single
 // transform. A block holds C adjacent columns of one b as an (n, C) tile in
@@ -27,11 +30,16 @@
 // stage's barrier; the last stage multiplies by the scale and stores each
 // output straight to y[b, k, col0 + c] (MidStore), masked at the ragged
 // column edge. The tile is read and written once and never goes back
-// through shared memory after the last stage. C is 1, 2, 4 or 8 with
-// n C <= 20480 (16, 32 or 40 elements a thread by n C); at C = 1 a tile row
-// is one float2 of a 32-byte sector, whose other three the neighbouring
-// tiles (blocks) of the same b read (ops/hopper/fft.py::radix_mid_cols).
-// Shared memory: the tile, 8 n C (17 / 16) bytes, and the prime rows.
+// through shared memory after the last stage. C is a power of two up to
+// kRadixMaxCols with n C <= 20480 (16, 32 or 40 elements a thread by n C)
+// and at most 256 threads in the 16-element form
+// (ops/hopper/fft.py::radix_mid_cols): at kernel 6's n one to eight
+// columns; at kernel 4's short columns up to 32, at most 4096 / n, so that
+// a tile row is at least one 128-byte line (C >= 16 at n <= 256) and a
+// block at small n still has a warp (at n <= 16 one thread a column). At C = 1 a tile
+// row is one float2 of a 32-byte sector, whose other three the neighbouring
+// tiles (blocks) of the same b read. Shared memory: the tile,
+// 8 n C (17 / 16) bytes, and the prime rows.
 #include "fft_radix.cuh"
 
 namespace ndfft {
@@ -123,7 +131,8 @@ cudaError_t mid_radix_launch_s(const float2* x, float2* y, const float2* tab,
 
 // x, y: (B, n, L) complex64, contiguous; table: the radix table of n for
 // the sign (ops/hopper/fft.py::radix_consts); radices: radix_plan(n),
-// `stages` of them; C: columns per tile, 1, 2, 4 or 8, with n C <= 20480
+// `stages` of them; C: columns per tile, a power of two up to kRadixMaxCols
+// with n C <= 20480 and at most 256 threads (512 above n C = 4096)
 // (ops/hopper/fft.py::radix_mid_cols); scale: multiplies every output.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int ndfft_c2c_mid_radix(const void* x, void* y, const void* table, const int* radices,
@@ -131,7 +140,8 @@ extern "C" int ndfft_c2c_mid_radix(const void* x, void* y, const void* table, co
                                    float scale, void* stream) {
   using namespace ndfft;
   RadixPlan plan{};
-  if (B < 1 || L < 1 || C < 1 || C > 8 || (C & (C - 1)) || (long long)n * C > 20480 ||
+  if (B < 1 || L < 1 || C < 1 || C > kRadixMaxCols || (C & (C - 1)) ||
+      (long long)n * C > 20480 ||
       (sign != 1 && sign != -1) || !radix_plan_of(radices, stages, n, plan))
     return (int)cudaErrorInvalidValue;
   const auto xp = static_cast<const float2*>(x);

@@ -3,21 +3,25 @@
 // complex64 rows or of columns. Kernel 10 runs it on rows at n = 128 * F
 // with F outside the bts2 core's {4, 8, 16} and kernel 8 at every n <= 20480
 // it takes (fft_rows_radix.cu); kernel 15 at a generic half length on rows
-// with its unpack as the epilogue (rfft_radix.cu); kernel 11 at F outside
-// {4, 8, 16} on an (M, C) column tile, its forward and inverse length-M
-// transforms in place (fft_blue_radix.cu); kernel 6 on an (n, C) column
-// tile with the store in its last stage (fft_mid_radix.cu).
+// with its unpack as the epilogue (rfft_radix.cu); kernel 11 at every
+// convolution length M = 128 * F on an (M, C) column tile, its forward and
+// inverse length-M transforms in place (fft_blue_radix.cu); kernels 6 and 4
+// (n > 512 without a split; n <= 512) on an (n, C) column tile with the
+// store in its last stage (fft_mid_radix.cu).
 //
 // Replaces, for the CUDA port, the JAX package's
 // ndrustfft_tpu/ops/pallas/fft.py::_kernel_twostep (the twostep split
 // m = 128 at those F), ::_kernel_lane_last (its dense lane DFT at n <= 256
-// and its generic lane schedule above) and ::_kernel_axis_mid (the generic
-// schedule along a middle axis). The TPU kernels run dense DFT stages, cheap
-// on a 128 x 128 MXU; their first Hopper forms (bts2_wide.cuh: a dense
-// DFT-F then a dense DFT-128; a dense DFT-n product at n <= 256; two dense
-// products DFT-m and DFT-f above) did 8 (128 + F), 8 n or 8 (m + f) FP32
-// operations per output, tens of times an FFT's 5 log2 n (51x at n = 256,
-// 35x at n = 600), and read their folded twiddles or DFT matrices from L2.
+// and its generic lane schedule above), ::_kernel_axis_mid (the generic
+// schedule along a middle axis), ::_kernel_axis_mid_dense (the dense DFT-n
+// along a middle axis at n <= 512) and ::_kernel_axis_mid_blue (the
+// chirp-z's length-M transforms). The TPU kernels run dense DFT stages, cheap
+// on a 128 x 128 MXU; their first Hopper forms (bts2_core.cuh and
+// bts2_wide.cuh: a dense DFT-F then a dense DFT-128; a dense DFT-n product
+// at n <= 512; two dense products DFT-m and DFT-f above) did 8 (128 + F),
+// 8 n or 8 (m + f) FP32 operations per output, tens of times an FFT's
+// 5 log2 n (51x at n = 256, 35x at n = 600), and read their folded twiddles
+// or DFT matrices from L2.
 //
 // What bounds it on this card: device memory. A row is read once and
 // written once, 16 n T bytes over 3.35 TB/s (0.080 ms at (4096, 4096)),
@@ -64,7 +68,7 @@
 //
 // Left for later: cp.async or TMA prefetch of the next tile, twiddles
 // staged in shared memory, and the other routes that run dense stages
-// (kernel 13's rows, kernel 4's columns, kernel 12's chirp-z, kernel 10's
+// (kernel 13's rows, kernel 7's columns, kernel 12's chirp-z, kernel 10's
 // fixed core).
 #pragma once
 
@@ -78,6 +82,7 @@ namespace ndfft {
 constexpr int kRadixMaxStages = 8;  // stages of a plan
 constexpr int kRadixMaxP = 127;     // the largest prime stage
 constexpr int kRadixWideN = 4096;   // above it, a thread holds 32 or 40 elements
+constexpr int kRadixMaxCols = 256;  // columns of a column tile: one thread each at n <= 16
 
 struct RadixPlan {
   int count;

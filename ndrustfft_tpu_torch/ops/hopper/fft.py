@@ -10,8 +10,9 @@
   F on the mixed-radix Stockham row core, ``csrc/fft_rows_radix.cu`` and
   ``csrc/fft_radix.cuh``; replaces ``fft.py::_kernel_twostep``).
 * Kernel 4, :func:`c2c_dense_mid`: C2C of length n <= 512 along the middle
-  axis of (B, n, L) as one dense product with the scaled DFT matrix
-  (``csrc/fft_dense.cu``; replaces ``fft.py::_kernel_axis_mid_dense``).
+  axis of (B, n, L) (the JAX package's dense DFT-n body), on kernel 6's
+  column tile of the radix core with up to 32 columns a tile
+  (``csrc/fft_mid_radix.cu``; replaces ``fft.py::_kernel_axis_mid_dense``).
 * Kernel 8, :func:`c2c_dense_rows` (n <= 256, the JAX package's dense lane
   DFT) and :func:`c2c_generic_rows` (256 < n <= 20480, its generic
   schedule): C2C along contiguous (T, n) rows on the mixed-radix row core
@@ -23,17 +24,16 @@
 * Kernel 11, :func:`c2c_blue_mid`: Bluestein's chirp-z C2C along the
   middle axis of (B, n, L) for a length n with a prime factor above 128,
   fused into one pass: the chirped column zero-padded to M = 128 * F, the
-  FFT_M, the product with H, the inverse and the exit chirp
-  (``csrc/fft_blue_mid.cu`` on the fixed bts2 core for F in {4, 8, 16}; on
-  an (M, C) column tile of the mixed-radix core otherwise,
-  ``csrc/fft_blue_radix.cu``; replaces ``fft.py::_kernel_axis_mid_blue``).
+  FFT_M, the product with H, the inverse and the exit chirp, on an (M, C)
+  column tile of the mixed-radix core at every F (``csrc/fft_blue_radix.cu``;
+  replaces ``fft.py::_kernel_axis_mid_blue``).
 * Kernels 7 and 13, :func:`fourstep_mid` and :func:`rows_store_t`: the two
   passes of the four-step long C2C (``ops/engine.py::_fourstep``). Kernel 7
   is the C2C of length n1 along dim 1 of the (B, n1, n2) view times the
   exit twiddle W_n^{k1 t2} (kernel 1's kernels of ``csrc/c2c_tile.cuh``
-  with a twiddle store on either core, or kernel 4's dense product for
-  n1 <= 256; ``csrc/fft_fourstep.cu`` and ``csrc/fft_dense.cu``; replaces
-  ``fft.py::_kernel_exit_mul``). Kernel 13 is kernel 10's row C2C of
+  with a twiddle store on either core, or a dense product for n1 <= 256,
+  the twiddle in its epilogue; ``csrc/fft_fourstep.cu`` and
+  ``csrc/fft_dense.cu``; replaces ``fft.py::_kernel_exit_mul``). Kernel 13 is kernel 10's row C2C of
   length n2 = 128 * F with the scale and a transposed store, (B, n2, n1)
   (``csrc/fft_fourstep.cu``; replaces ``fft.py::_kernel_lane_store_t``).
 * Kernel 14, :func:`spectral_c2c_mid`: the fused pipeline IFFT(H * FFT(x))
@@ -46,9 +46,9 @@ This module holds their host-built constants, their plain PyTorch versions
 and their wrappers, whose ``launches`` attributes count kernel launches
 (kernels 1, 7, 13 and 14 also count the wide core's launches apart, in
 ``wide_launches``, kernel 7 its dense body's, in ``dense_launches``, and
-kernels 10 and 11 the radix core's, in ``radix_launches``, which kernels 8
-and 6 count beside ``launches`` for every launch of ``c2c_dense_rows`` and
-``c2c_generic_mid``).
+kernel 10 the radix core's, in ``radix_launches``, which kernels 8, 6, 4
+and 11 count beside ``launches`` for every launch of ``c2c_dense_rows``,
+``c2c_generic_mid``, ``c2c_dense_mid`` and ``c2c_blue_mid``).
 """
 
 from __future__ import annotations
@@ -229,8 +229,9 @@ def wide_block(n: int, groups: int, count: int, sms: int, nbytes=wide_bytes) -> 
 
 
 def dense_tile(n: int, nb: int, cols: int, sms: int) -> int:
-    """Micro-tile of the dense products (kernels 4, 8 and 27): 8 (128 x 128
-    block tiles) when that grid gives every SM two blocks, else 4 (64 x 64)."""
+    """Micro-tile of the dense products (kernel 7's dense body, kernels 27,
+    20 and 21): 8 (128 x 128 block tiles) when that grid gives every SM two
+    blocks, else 4 (64 x 64)."""
     blocks = -(-n // 128) * -(-cols // 128) * nb
     return 8 if blocks >= 2 * sms else 4
 
@@ -370,8 +371,8 @@ c2c_rows.radix_launches = 0
 
 # --------------------------------------------------------------------------
 # The mixed-radix Stockham core (rows: kernel 10 at F outside {4, 8, 16},
-# kernel 8, kernel 15 at a generic half length; columns: kernel 11 at F
-# outside {4, 8, 16}, kernel 6)
+# kernel 8, kernel 15 at a generic half length; columns: kernels 11, 6
+# and 4)
 # --------------------------------------------------------------------------
 
 RADIX_CODELETS = (16, 8, 4, 2, 9, 3, 5, 7)  # radices the kernel runs in registers
@@ -512,7 +513,7 @@ def _radix_launch(x: torch.Tensor, sign: int, scale, what: str, rows=None) -> to
 
 
 # --------------------------------------------------------------------------
-# Kernel 4: the dense DFT product along a middle axis (and kernel 7's body)
+# Kernel 7's dense body: the dense DFT product along a middle axis
 # --------------------------------------------------------------------------
 
 
@@ -533,61 +534,33 @@ def _device_dense(n: int, sign: int, scale: float, device: torch.device) -> torc
     return torch.from_numpy(dense_consts(n, sign, scale)).to(device)
 
 
-def c2c_dense_mid_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
-    """Plain version of kernel 4: Y[b, k, c] = sum_t W[k, t] X[b, t, c]."""
-    s = 1.0 if scale is None else float(scale)
-    return torch.einsum("kt,btc->bkc", _device_dense(x.shape[1], sign, s, x.device), x)
+def dense_body_plain(x: torch.Tensor, sign: int) -> torch.Tensor:
+    """Plain version of kernel 7's dense body without its twiddle:
+    Y[b, k, c] = sum_t W[k, t] X[b, t, c] (the JAX package's dense body)."""
+    return torch.einsum("kt,btc->bkc", _device_dense(x.shape[1], sign, 1.0, x.device), x)
 
 
-def _dense_launch(x: torch.Tensor, sign: int, scale, nb: int, n: int, cols: int,
-                  what: str, tw=None) -> torch.Tensor:
-    """Launch kernel 4 on x; ``tw``: kernel 7's (n, cols) exit twiddle,
-    multiplied into the output in the epilogue."""
-    check_cuda(x, torch.complex64, what)
-    s = 1.0 if scale is None else float(scale)
-    w = _device_dense(n, sign, s, x.device)
+def _dense_launch(x: torch.Tensor, sign: int, tw: torch.Tensor) -> torch.Tensor:
+    """Launch kernel 7's dense body on the (B, n1, n2) tensor x, times its
+    (n1, n2) exit twiddle ``tw`` in the epilogue."""
+    nb, n, cols = x.shape
+    w = _device_dense(n, sign, 1.0, x.device)
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
     tm = dense_tile(n, nb, cols, num_sms(x.device))
     with torch.cuda.device(x.device):
         err = _build.lib().ndfft_c2c_dense(
-            w.data_ptr(), x.data_ptr(), y.data_ptr(), None if tw is None else tw.data_ptr(),
-            nb, n, cols, tm, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, what)
+            w.data_ptr(), x.data_ptr(), y.data_ptr(), tw.data_ptr(), nb, n, cols, tm,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "fourstep_mid")
     return y
-
-
-def _check_dense_n(n: int, what: str) -> None:
-    if not 1 <= n <= DENSE_MAX_N:
-        raise ValueError(f"{what}: n={n} is outside 1 ... {DENSE_MAX_N}")
-
-
-def c2c_dense_mid(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
-    """C2C along dim 1 of a (B, n, L) complex64 tensor, n <= 512, as one
-    dense product, times ``scale``. A CPU tensor runs the plain version; a
-    CUDA tensor launches kernel 4 or raises."""
-    if x.dim() != 3:
-        raise ValueError(f"c2c_dense_mid: expected (B, n, L), got {tuple(x.shape)}")
-    nb, n, cols = x.shape
-    _check_dense_n(n, "c2c_dense_mid")
-    if x.device.type == "cpu":
-        return c2c_dense_mid_plain(x, sign, scale)
-    if x.device.type != "cuda":
-        raise ValueError(f"c2c_dense_mid: unsupported device {x.device}")
-    y = _dense_launch(x, sign, scale, nb, n, cols, "c2c_dense_mid")
-    c2c_dense_mid.launches += 1
-    return y
-
-
-c2c_dense_mid.launches = 0
-
-
 
 
 # --------------------------------------------------------------------------
-# Kernel 8 on the radix row core; kernel 6 on the radix core's column tile,
-# at the lengths of the JAX package's generic two-factor schedule
+# Kernel 8 on the radix row core; kernels 6 (the lengths of the JAX
+# package's generic two-factor schedule) and 4 (n <= 512) on the radix
+# core's column tile
 # --------------------------------------------------------------------------
 
 
@@ -650,18 +623,22 @@ def generic_split(n: int):
 c2c_generic_rows_plain = c2c_radix_rows_plain   # kernel 8 at n > 256 runs the radix core
 
 
-def c2c_generic_mid_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
-    """Plain version of kernel 6: each column of the (B, n, L) tensor as a
-    row of :func:`c2c_radix_rows_plain`, the radix core's plain version on
-    the kernel's plan and table."""
+def c2c_radix_mid_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
+    """Plain version of the radix core's column tile (kernels 6 and 4): each
+    column of the (B, n, L) tensor as a row of :func:`c2c_radix_rows_plain`,
+    the radix core's plain version on the kernel's plan and table."""
     nb, n, cols = x.shape
     rows = x.transpose(1, 2).reshape(nb * cols, n)
     y = c2c_radix_rows_plain(rows, sign, scale)
     return y.reshape(nb, cols, n).transpose(1, 2).contiguous()
 
 
+c2c_generic_mid_plain = c2c_radix_mid_plain     # kernel 6
+c2c_dense_mid_plain = c2c_radix_mid_plain       # kernel 4
+
+
 def mid_radix_launch(x: torch.Tensor, y: torch.Tensor, sign: int, scale: float, c: int) -> None:
-    """Launch kernel 6's radix column tile, ``c`` columns a tile
+    """Launch the radix column tile of kernels 6 and 4, ``c`` columns a tile
     (:func:`radix_mid_cols`), on (B, n, L) complex64 CUDA tensors x and y."""
     nb, n, cols = x.shape
     dev = x.device
@@ -672,6 +649,21 @@ def mid_radix_launch(x: torch.Tensor, y: torch.Tensor, sign: int, scale: float, 
             (ctypes.c_int * RADIX_MAX_STAGES)(*plan), len(plan), nb, n, cols, c, sign, scale,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "ndfft_c2c_mid_radix")
+
+
+def _mid_radix(wrapper, x: torch.Tensor, sign: int, scale) -> torch.Tensor:
+    """``wrapper``'s kernel (6 or 4) on the radix column tile of the (B, n, L)
+    CUDA tensor x, counted in its ``launches`` and ``radix_launches``."""
+    nb, n, cols = x.shape
+    check_cuda(x, torch.complex64, wrapper.__name__)
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    mid_radix_launch(x, y, sign, 1.0 if scale is None else float(scale),
+                     radix_mid_cols(n, nb, cols, num_sms(x.device)))
+    wrapper.launches += 1
+    wrapper.radix_launches += 1
+    return y
 
 
 def _check_generic_n(n: int, what: str):
@@ -712,25 +704,40 @@ def c2c_generic_mid(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
     in ``launches`` and ``radix_launches``, or raises."""
     if x.dim() != 3:
         raise ValueError(f"c2c_generic_mid: expected (B, n, L), got {tuple(x.shape)}")
-    nb, n, cols = x.shape
-    _check_generic_n(n, "c2c_generic_mid")
+    _check_generic_n(x.shape[1], "c2c_generic_mid")
     if x.device.type == "cpu":
         return c2c_generic_mid_plain(x, sign, scale)
     if x.device.type != "cuda":
         raise ValueError(f"c2c_generic_mid: unsupported device {x.device}")
-    check_cuda(x, torch.complex64, "c2c_generic_mid")
-    y = torch.empty_like(x)
-    if x.numel() == 0:
-        return y
-    mid_radix_launch(x, y, sign, 1.0 if scale is None else float(scale),
-                     radix_mid_cols(n, nb, cols, num_sms(x.device)))
-    c2c_generic_mid.launches += 1
-    c2c_generic_mid.radix_launches += 1
-    return y
+    return _mid_radix(c2c_generic_mid, x, sign, scale)
 
 
 c2c_generic_mid.launches = 0
 c2c_generic_mid.radix_launches = 0
+
+
+def c2c_dense_mid(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
+    """C2C along dim 1 of a (B, n, L) complex64 tensor, n <= 512 with a
+    :func:`radix_plan` (the routes send n <= 256, and n <= 512 without a
+    {128, 256} split: the JAX package's dense body), times ``scale``. A CPU
+    tensor runs the plain version (:func:`c2c_radix_mid_plain`); a CUDA
+    tensor launches kernel 4 on the radix core's column tile, counted in
+    ``launches`` and ``radix_launches``, or raises."""
+    if x.dim() != 3:
+        raise ValueError(f"c2c_dense_mid: expected (B, n, L), got {tuple(x.shape)}")
+    n = x.shape[1]
+    if not n <= DENSE_MAX_N or radix_plan(n) is None:
+        raise ValueError(f"c2c_dense_mid: n={n} is not 2 ... {DENSE_MAX_N} with a radix plan "
+                         f"(prime factors <= {RADIX_MAX_P})")
+    if x.device.type == "cpu":
+        return c2c_dense_mid_plain(x, sign, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"c2c_dense_mid: unsupported device {x.device}")
+    return _mid_radix(c2c_dense_mid, x, sign, scale)
+
+
+c2c_dense_mid.launches = 0
+c2c_dense_mid.radix_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -781,14 +788,14 @@ def check_blue_n(n: int, what: str) -> int:
 
 
 def blue_consts(n: int, sign: int, scale: float = 1.0):
-    """Kernel 11's tables at n on the fixed core, float32 (re, im) pairs: the
-    entry and exit chirp exp(sign i pi t^2 / n) (t < n), H = FFT_M of the
-    wrapped inverse chirp (M = blue_kernel_M(n)), the forward core's Wq
-    (sign -1) and the inverse core's (sign +1, the user scale and 1/M folded
-    in). Built by the JAX package's ``_blue_consts`` expressions in float64
-    and rounded once, so each is its table bit for bit. The radix column
-    tile takes the chirp, H and the sign -1 :func:`radix_consts` of M, which
-    serves both of its transforms."""
+    """The JAX package's tables of the fused chirp-z at n, float32 (re, im)
+    pairs: the entry and exit chirp exp(sign i pi t^2 / n) (t < n), H =
+    FFT_M of the wrapped inverse chirp (M = blue_kernel_M(n)), the forward
+    core's Wq (sign -1) and the inverse core's (sign +1, the user scale and
+    1/M folded in). Built by the JAX package's ``_blue_consts`` expressions
+    in float64 and rounded once, so each is its table bit for bit. Kernel
+    11's radix column tile takes the chirp, H and the sign -1
+    :func:`radix_consts` of M, which serves both of its transforms."""
     mk = blue_kernel_M(n)
     return (f32_pair(chirp(n, sign)), f32_pair(blue_h(n, sign, mk)),
             bts2_consts(mk, -1, 1.0), bts2_consts(mk, +1, scale / mk))
@@ -815,10 +822,10 @@ def _device_blue(n: int, sign: int, device: torch.device):
 
 
 def chirp_z_plain(xa: torch.Tensor, h: torch.Tensor, scale: float) -> torch.Tensor:
-    """The fused chirp-z's convolution on the bts2 core, on the chirped
-    (B, n, L) column xa: zero-padded to M = len(h), the core's plain forward
-    transform, times H, the core's plain inverse with scale / M, rows k < n
-    (kernel 11 at F in {4, 8, 16}, kernel 12)."""
+    """The fused chirp-z's convolution on the bts2 core (kernel 12), on the
+    chirped (B, n, L) column xa: zero-padded to M = len(h), the core's plain
+    forward transform, times H, the core's plain inverse with scale / M,
+    rows k < n."""
     nb, n, cols = xa.shape
     mk = h.shape[0]
     pad = torch.cat([xa, xa.new_zeros(nb, mk - n, cols)], dim=1)
@@ -827,9 +834,9 @@ def chirp_z_plain(xa: torch.Tensor, h: torch.Tensor, scale: float) -> torch.Tens
 
 
 def chirp_z_radix_plain(xa: torch.Tensor, h: torch.Tensor, scale: float) -> torch.Tensor:
-    """The same convolution on the radix core (kernel 11 at F outside {4, 8,
-    16}): each zero-padded column as a row, :func:`c2c_radix_rows_plain`
-    forward, times H, the inverse with scale / M, rows k < n."""
+    """The same convolution on the radix core (kernel 11): each zero-padded
+    column as a row, :func:`c2c_radix_rows_plain` forward, times H, the
+    inverse with scale / M, rows k < n."""
     nb, n, cols = xa.shape
     mk = h.shape[0]
     pad = torch.cat([xa, xa.new_zeros(nb, mk - n, cols)], dim=1)
@@ -840,22 +847,21 @@ def chirp_z_radix_plain(xa: torch.Tensor, h: torch.Tensor, scale: float) -> torc
 
 
 def c2c_blue_mid_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
-    """Plain version of kernel 11 on any device: x a, the convolution
-    (:func:`chirp_z_plain` on the bts2 core at F in {4, 8, 16}, else
-    :func:`chirp_z_radix_plain`), times the exit chirp b = a."""
+    """Plain version of kernel 11 on any device: x a, the convolution on the
+    radix core (:func:`chirp_z_radix_plain`), times the exit chirp b = a."""
     n = x.shape[1]
+    check_blue_n(n, "c2c_blue_mid")
     a, h = _device_blue(n, sign, x.device)
     s = 1.0 if scale is None else float(scale)
-    conv = chirp_z_plain if check_blue_n(n, "c2c_blue_mid") in C2C_F else chirp_z_radix_plain
-    return conv(x * a[:, None], h, s) * a[:, None]
+    return chirp_z_radix_plain(x * a[:, None], h, s) * a[:, None]
 
 
 def blue_launch(entry: str, x: torch.Tensor, y: torch.Tensor, chirps, h: torch.Tensor,
                 scale: float, f: int) -> bool:
-    """Launch the bts2 core's fixed (F in {4, 8, 16}) or wide form of kernel
-    11 or 12 (``entry`` and ``entry + "_wide"``; kernel 11 takes the fixed
-    form only) on (B, n, L) tensors x and y, with the chirp tensors
-    ``chirps`` and H; return whether it ran the wide form."""
+    """Launch the bts2 core's fixed (F in {4, 8, 16}) or wide form of the
+    fused chirp-z (kernel 12: ``entry`` and ``entry + "_wide"``) on (B, n,
+    L) tensors x and y, with the chirp tensors ``chirps`` and H; return
+    whether it ran the wide form."""
     nb, n, cols = x.shape
     dev = x.device
     mk = f * M
@@ -886,33 +892,53 @@ def radix_cols_threads(mk: int, c: int) -> int:
     return -(-(c * -(-mk // e)) // 32) * 32
 
 
-def radix_mid_cols(mk: int, groups: int, cols: int, sms: int) -> int:
-    """Columns per tile of the radix core's column tiles (kernel 11's radix
-    form at convolution length mk, kernel 6 at n = mk): up to 4096 the
-    largest of 8, 4, 2, 1 whose tile stays in the 16-element form (at most
-    RADIX_WIDE_N elements, 256 threads of 80 registers, several blocks an
-    SM); above it the largest whose tile holds at most RADIX_MAX_ELEMS
-    elements in 512 threads (32 or 40 elements a thread, one block an SM;
-    one column above 10240); halved while the grid of ``groups`` times the
-    tiles would leave SMs idle. (On an H100, at kernel 11's M = 2176 one
-    column a tile in the 16-element form ran faster than 2, 4 or 8 columns
-    in the 32- or 40-element form, whose 128 registers a thread leave one
-    block an SM; at kernel 6's n = 600 four columns, a 32-byte sector a tile
-    row, ran fastest and one column 1.7x slower: chip_smoke.py's phase 5
-    times each C at both kernels' main shapes.)"""
-    limit = RADIX_WIDE_N if mk <= RADIX_WIDE_N else RADIX_MAX_ELEMS
-    c = 8
-    while c > 1 and (mk * c > limit or radix_cols_threads(mk, c) > 2 * RADIX_MAX_THREADS):
+RADIX_MID_MAX_C = 32    # the widest column tile (chip_smoke.py phase 5's scan at n = 4 ... 256)
+# kernel 11's columns a tile at the convolution lengths where another count
+# than radix_mid_cols's ran fastest on an H100 (chip_smoke.py phase 5 times
+# each C at M = 512, 1024, 2048 and 2176)
+BLUE_RADIX_COLS = {512: 4, 1024: 2}
+
+
+def radix_mid_cols(mk: int, groups: int, cols: int, sms: int, most: int = RADIX_MID_MAX_C) -> int:
+    """Columns per tile of the radix core's column tiles (kernel 11 at
+    convolution length mk, kernels 6 and 4 at n = mk): up to 4096 the
+    largest power of two up to ``most`` whose tile stays in the 16-element
+    form (at most RADIX_WIDE_N elements in RADIX_MAX_THREADS threads of 80
+    registers, several blocks an SM: 8 columns or fewer from mk = 384 on,
+    at least 16 at kernel 4's n <= 256, so that a tile row is a 128-byte
+    line or more); above it the largest whose tile holds at most
+    RADIX_MAX_ELEMS elements in 512 threads (32 or 40 elements a thread,
+    one block an SM; one column above 10240); halved while the grid of
+    ``groups`` times the tiles would leave SMs idle. (On an H100, at kernel
+    11's M = 2176 one column a tile in the 16-element form ran faster than
+    2, 4 or 8 columns in the 32- or 40-element form, whose 128 registers a
+    thread leave one block an SM; at kernel 6's n = 600 four columns, a
+    32-byte sector a tile row, ran fastest and one column 1.7x slower; at
+    kernel 4's n <= 8 sixteen columns, blocks of a warp or less, ran up to
+    1.8x slower than 32: chip_smoke.py's phase 5 times each C at the
+    kernels' main shapes.)"""
+    small = mk <= RADIX_WIDE_N
+    limit = RADIX_WIDE_N if small else RADIX_MAX_ELEMS
+    threads = RADIX_MAX_THREADS if small else 2 * RADIX_MAX_THREADS
+    c = most
+    while c > 1 and (mk * c > limit or radix_cols_threads(mk, c) > threads):
         c //= 2
     while c > 1 and groups * -(-cols // c) < sms:
         c //= 2
     return c
 
 
+def blue_radix_cols(mk: int, groups: int, cols: int, sms: int) -> int:
+    """Columns per tile of kernel 11 at convolution length mk:
+    :func:`radix_mid_cols`, at most BLUE_RADIX_COLS[mk] where that holds
+    one."""
+    return radix_mid_cols(mk, groups, cols, sms, BLUE_RADIX_COLS.get(mk, RADIX_MID_MAX_C))
+
+
 def blue_radix_launch(x: torch.Tensor, y: torch.Tensor, a: torch.Tensor, h: torch.Tensor,
                       scale: float, c: int) -> None:
     """Launch kernel 11's radix column tile, ``c`` columns a tile
-    (:func:`radix_mid_cols`), on (B, n, L) complex64 CUDA tensors x and y
+    (:func:`blue_radix_cols`), on (B, n, L) complex64 CUDA tensors x and y
     with the chirp a and H (:func:`_device_blue`)."""
     nb, n, cols = x.shape
     dev = x.device
@@ -929,9 +955,9 @@ def blue_radix_launch(x: torch.Tensor, y: torch.Tensor, a: torch.Tensor, h: torc
 def c2c_blue_mid(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
     """C2C of Bluestein length n along dim 1 of a (B, n, L) complex64 tensor
     (:func:`blue_f`), times ``scale``, as one fused chirp-z pass. A CPU
-    tensor runs the plain version; a CUDA tensor launches kernel 11 (on the
-    fixed bts2 core for F in {4, 8, 16}, else on the radix core's column
-    tile, counted in ``radix_launches``) or raises."""
+    tensor runs the plain version; a CUDA tensor launches kernel 11 on the
+    radix core's column tile, counted in ``launches`` and
+    ``radix_launches``, or raises."""
     if x.dim() != 3:
         raise ValueError(f"c2c_blue_mid: expected (B, n, L), got {tuple(x.shape)}")
     nb, n, cols = x.shape
@@ -945,14 +971,10 @@ def c2c_blue_mid(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
     if x.numel() == 0:
         return y
     a, h = _device_blue(n, sign, x.device)
-    s = 1.0 if scale is None else float(scale)
-    radix = f not in C2C_F
-    if radix:
-        blue_radix_launch(x, y, a, h, s, radix_mid_cols(f * M, nb, cols, num_sms(x.device)))
-    else:
-        blue_launch("ndfft_c2c_blue_mid", x, y, (a,), h, s, f)
+    blue_radix_launch(x, y, a, h, 1.0 if scale is None else float(scale),
+                      blue_radix_cols(f * M, nb, cols, num_sms(x.device)))
     c2c_blue_mid.launches += 1
-    c2c_blue_mid.radix_launches += radix
+    c2c_blue_mid.radix_launches += 1
     return y
 
 
@@ -970,7 +992,7 @@ FOURSTEP_MAX_N2 = 16384     # fft._FOURSTEP_MAX_N2 (kernel 13's n2)
 
 def fourstep_body(n1: int):
     """The body of kernel 7 at n1, as the JAX package's _build_call_axis_mid
-    picks it for a four-step stage: "dense" (kernel 4's product) for
+    picks it for a four-step stage: "dense" (the dense product) for
     n1 <= 256, the bts2 core at n1 = 128 * F <= 4096, "fixed" for F in
     {4, 8, 16} and "wide" otherwise; else None."""
     if 1 <= n1 <= 256:
@@ -1004,18 +1026,18 @@ def _check_fourstep_n1(n1: int, what: str) -> str:
 
 
 def fourstep_mid_plain(x: torch.Tensor, sign: int) -> torch.Tensor:
-    """Plain version of kernel 7: the plain version of its body (kernel 4's
-    or kernel 1's, unscaled) times the exit twiddle."""
+    """Plain version of kernel 7: the plain version of its body (the dense
+    product's or kernel 1's, unscaled) times the exit twiddle."""
     nb, n1, n2 = x.shape
-    y = c2c_dense_mid_plain(x, sign) if n1 <= 256 else c2c_axis_mid_plain(x, sign)
+    y = dense_body_plain(x, sign) if n1 <= 256 else c2c_axis_mid_plain(x, sign)
     return y * device_fourstep_tw(n1, n2, sign, x.device)
 
 
 def fourstep_mid(x: torch.Tensor, sign: int) -> torch.Tensor:
     """Step 1+2 of the four-step: the unscaled C2C along dim 1 of a
     (B, n1, n2) complex64 tensor, times W_n^{k1 t2} with n = n1 n2. A CPU
-    tensor runs the plain version; a CUDA tensor launches kernel 7 (kernel
-    4's dense body for n1 <= 256, else kernel 1's fixed or wide core) or
+    tensor runs the plain version; a CUDA tensor launches kernel 7 (its
+    dense body for n1 <= 256, else kernel 1's fixed or wide core) or
     raises."""
     if x.dim() != 3:
         raise ValueError(f"fourstep_mid: expected (B, n1, n2), got {tuple(x.shape)}")
@@ -1028,7 +1050,7 @@ def fourstep_mid(x: torch.Tensor, sign: int) -> torch.Tensor:
     check_cuda(x, torch.complex64, "fourstep_mid")
     tw = device_fourstep_tw(n1, n2, sign, x.device)
     if body == "dense":
-        y = _dense_launch(x, sign, None, nb, n1, n2, "fourstep_mid", tw)
+        y = _dense_launch(x, sign, tw)
     else:
         wq = device_wq(n1, sign, 1.0, x.device)
         y = torch.empty_like(x)

@@ -96,15 +96,15 @@ def test_plain_matches_pallas(n, sign, scale):
 
 
 def test_plain_runs_the_radix_convolution():
-    """At F outside {4, 8, 16} the plain version is the radix form's
-    chirp-z; at F = 8 it keeps the bts2 core's."""
+    """At every F the plain version is the radix form's chirp-z: at F = 17
+    and at F = 8, which ran the bts2 core's until kernel 11 left it."""
     x = torch.from_numpy(_cplx((1, 1031, 3), 1))
     a, h = kfft._device_blue(1031, -1, x.device)
     want = kfft.chirp_z_radix_plain(x * a[:, None], h, 1.0) * a[:, None]
     assert torch.equal(kfft.c2c_blue_mid_plain(x, -1), want)
     x = torch.from_numpy(_cplx((1, 509, 3), 2))
     a, h = kfft._device_blue(509, -1, x.device)
-    want = kfft.chirp_z_plain(x * a[:, None], h, 1.0) * a[:, None]
+    want = kfft.chirp_z_radix_plain(x * a[:, None], h, 1.0) * a[:, None]
     assert torch.equal(kfft.c2c_blue_mid_plain(x, -1), want)
 
 

@@ -538,11 +538,11 @@ def test_dirichlet_pair_runs_on_the_kernels(dev):
 
 
 def test_blue_kernels_match_plain_in_both_forms(dev):
-    """Kernels 11 and 12 on the fixed core (M = 1024, 2048: F = 8, 16); kernel
-    11 at F = 3, 17, 33 and the routes' largest, 106, on the radix core's
-    column tile (counted in ``radix_launches``), kernel 12 at F = 19, 33 on
-    the wide core with its second tile (``wide_launches``); ragged column
-    tiles, both signs and the scale 1/n."""
+    """Kernel 11 at F = 8, 16, 3, 17, 33 and the routes' largest, 106, every
+    launch on the radix core's column tile (counted in ``radix_launches``);
+    kernel 12 on the fixed core (M = 1024, 2048: F = 8, 16) and at F = 19,
+    33 on the wide core with its second tile (``wide_launches``); ragged
+    column tiles, both signs and the scale 1/n."""
     g = torch.Generator(device=dev).manual_seed(15)
     fns = (kfft.c2c_blue_mid, kdct.dct23_blue_mid)
     forms = ("radix_launches", "wide_launches")
@@ -559,7 +559,7 @@ def test_blue_kernels_match_plain_in_both_forms(dev):
             assert _rel(kdct.dct23_blue_mid(x, t, scale),
                         kdct.dct23_blue_mid_plain(x, t, scale)) <= TOL, (shape, t)
     assert [(f.launches - a, getattr(f, form) - b)
-            for f, form, (a, b) in zip(fns, forms, before)] == [(12, 8), (6, 4)]
+            for f, form, (a, b) in zip(fns, forms, before)] == [(12, 12), (6, 4)]
 
 
 def test_blue_radix_kernel_matches_plain(dev):
@@ -627,6 +627,65 @@ def test_mid_radix_kernel_matches_plain(dev):
         assert _rel(kfft.c2c_generic_mid(x, -1), kfft.c2c_generic_mid_plain(x, -1)) <= TOL
         assert (kfft.c2c_generic_mid.launches - before[0],
                 kfft.c2c_generic_mid.radix_launches - before[1]) == (1, 1)
+
+
+def test_dense_mid_radix_kernel_matches_plain(dev, monkeypatch):
+    """Kernel 4 on the radix column tile at every column count C = 1 ... 64
+    of the 16-element form (its launcher): n < 16 (one thread a column),
+    odd n, the dense route's longest n (511), ragged column counts (L = 129,
+    257, and the 256^3 paths' (256, 256, 129) and (1, 256, 33024)), both
+    signs and the scale 1/n; every launch of the wrapper counted as the
+    radix form, none through the dense product (kernel 7's body)."""
+
+    def dense_product(*args):
+        raise AssertionError("kernel 4 ran the dense product")
+
+    monkeypatch.setattr(kfft, "_dense_launch", dense_product)
+    g = torch.Generator(device=dev).manual_seed(26)
+    before = (kfft.c2c_dense_mid.launches, kfft.c2c_dense_mid.radix_launches,
+              kfft.fourstep_mid.dense_launches)
+    calls = 0
+    for shape in ((3, 2, 129), (2, 3, 257), (1, 15, 129), (2, 17, 257), (1, 129, 129),
+                  (1, 200, 257), (1, 264, 129), (1, 511, 257), (256, 256, 129),
+                  (1, 256, 33024)):
+        x = torch.view_as_complex(torch.randn(*shape, 2, generator=g, device=dev))
+        n = shape[1]
+        for sign, scale in ((-1, None), (+1, 1.0 / n)):
+            want = kfft.c2c_dense_mid_plain(x, sign, scale)
+            for c in (1, 2, 4, 8, 16, 32, 64):
+                if n * c > kfft.RADIX_WIDE_N:
+                    continue
+                got = torch.full_like(x, float("nan"))
+                kfft.mid_radix_launch(x, got, sign, 1.0 if scale is None else scale, c)
+                assert _rel(got, want) <= TOL, (shape, c, sign)
+            assert _rel(kfft.c2c_dense_mid(x, sign, scale), want) <= TOL, (shape, sign)
+            calls += 1
+    assert (kfft.c2c_dense_mid.launches - before[0], kfft.c2c_dense_mid.radix_launches - before[1],
+            kfft.fourstep_mid.dense_launches - before[2]) == (calls, calls, 0)
+
+
+def test_blue_fixed_factors_run_on_the_radix_column_tile(dev):
+    """Kernel 11 at M = 512, 1024, 2048 (n = 193, 509, 1021: F = 4, 8, 16,
+    which ran on the bts2 core before) at every column count C = 1, 2, 4, 8
+    (its launcher), ragged column tiles, both signs and the scale 1/n; the
+    wrapper's launches all on the radix column tile."""
+    g = torch.Generator(device=dev).manual_seed(27)
+    before = (kfft.c2c_blue_mid.launches, kfft.c2c_blue_mid.radix_launches)
+    calls = 0
+    for nb, n, cols in ((2, 193, 130), (1, 509, 13), (1, 1021, 129)):
+        x = torch.view_as_complex(torch.randn(nb, n, cols, 2, generator=g, device=dev))
+        mk = kfft.blue_kernel_M(n)
+        for sign, scale in ((-1, None), (+1, 1.0 / n)):
+            want = kfft.c2c_blue_mid_plain(x, sign, scale)
+            a, h = kfft._device_blue(n, sign, dev)
+            for c in (1, 2, 4, 8):
+                got = torch.full_like(x, float("nan"))
+                kfft.blue_radix_launch(x, got, a, h, 1.0 if scale is None else scale, c)
+                assert _rel(got, want) <= TOL, (n, c, sign)
+            assert _rel(kfft.c2c_blue_mid(x, sign, scale), want) <= TOL, (n, sign)
+            calls += 1
+    assert (kfft.c2c_blue_mid.launches - before[0],
+            kfft.c2c_blue_mid.radix_launches - before[1]) == (calls, calls)
 
 
 def _table_uploads():

@@ -10,13 +10,15 @@ build/. Times, as the median of R CUDA-event pairs after a warm-up, the
 public wrappers at their main shapes: kernel 8 (c2c_generic_rows) and
 kernel 15's generic form (r2c_packed_generic) at 360000 rows of 600,
 kernel 10 (c2c_rows) at (4096, 4096), kernel 11 (c2c_blue_mid) at
-(1, 1031, 1024), kernel 8 at n = 256 (c2c_dense_rows) at 65536 and
-8388608 rows (the latter over --reps-big runs), and kernel 6
-(c2c_generic_mid) at (600, 600, 301) and (1, 600, 180600), each beside one
-torch.fft call on the same input; then the 600^3 real step with the real
-axis last (ndfft_r2c, ndfft along axes 1 and 0 and back) beside
-torch.fft.rfftn + irfftn. Prints the card's nvidia-smi name and power
-limit, then one JSON line.
+(1, 1031, 1024) and (1, 509, 259081), kernel 8 at n = 256
+(c2c_dense_rows) at 65536 and 8388608 rows (the latter over --reps-big
+runs), kernel 6 (c2c_generic_mid) at (600, 600, 301) and (1, 600, 180600),
+and kernel 4 (c2c_dense_mid) at (1, 256, 65536), (256, 256, 129) and
+(1, 256, 33024), each beside one torch.fft call on the same input; then
+the 600^3 and 256^3 real steps with the real axis last (ndfft_r2c, ndfft
+along axes 1 and 0 and back) beside torch.fft.rfftn + irfftn, and the
+509^3 complex round trip (fftn, ifftn) beside torch.fft.fftn + ifftn.
+Prints the card's nvidia-smi name and power limit, then one JSON line.
 """
 
 import argparse
@@ -81,6 +83,13 @@ def main() -> int:
     x = crandn(1, 1031, 1024)
     out["c2c_blue_mid_1x1031x1024"] = (ms(lambda: kfft.c2c_blue_mid(x, -1)),
                                        ms(lambda: torch.fft.fft(x, dim=1)))
+    x = crandn(1, 509, 509 * 509)
+    out["c2c_blue_mid_1x509x259081"] = (ms(lambda: kfft.c2c_blue_mid(x, -1)),
+                                        ms(lambda: torch.fft.fft(x, dim=1)))
+    for shape in ((1, 256, 65536), (256, 256, 129), (1, 256, 33024)):
+        x = crandn(*shape)
+        out["c2c_dense_mid_" + "x".join(map(str, shape))] = (
+            ms(lambda: kfft.c2c_dense_mid(x, -1)), ms(lambda: torch.fft.fft(x, dim=1)))
     x = crandn(65536, 256)
     out["c2c_dense_rows_65536x256"] = (ms(lambda: kfft.c2c_dense_rows(x, -1)),
                                        ms(lambda: torch.fft.fft(x, dim=1)))
@@ -91,16 +100,21 @@ def main() -> int:
     out["c2c_generic_mid_1x600x180600"] = (ms(lambda: kfft.c2c_generic_mid(x, -1)),
                                            ms(lambda: torch.fft.fft(x, dim=1)))
     del x
-    r = torch.randn(600, 600, 600, generator=gen, device=dev)
-    hr, hc = nd.R2cFftHandler(600), nd.FftHandler(600)
+    for n in (600, 256):
+        r = torch.randn(n, n, n, generator=gen, device=dev)
+        hr, hc = nd.R2cFftHandler(n), nd.FftHandler(n)
 
-    def step():
-        v = nd.ndfft(nd.ndfft(nd.ndfft_r2c(r, hr, axis=2), hc, axis=1), hc, axis=0)
-        return nd.ndifft_r2c(nd.ndifft(nd.ndifft(v, hc, axis=0), hc, axis=1), hr, axis=2)
+        def step():
+            v = nd.ndfft(nd.ndfft(nd.ndfft_r2c(r, hr, axis=2), hc, axis=1), hc, axis=0)
+            return nd.ndifft_r2c(nd.ndifft(nd.ndifft(v, hc, axis=0), hc, axis=1), hr, axis=2)
 
-    out["step_600^3"] = (ms(step, 10), ms(lambda: torch.fft.irfftn(torch.fft.rfftn(r), s=r.shape),
-                                          10))
-    del r
+        out[f"step_{n}^3"] = (ms(step, 10),
+                              ms(lambda: torch.fft.irfftn(torch.fft.rfftn(r), s=r.shape), 10))
+        del r
+    x = crandn(509, 509, 509)
+    out["c2c_fftn_ifftn_509^3"] = (ms(lambda: nd.ifftn(nd.fftn(x)), args.reps_big),
+                                   ms(lambda: torch.fft.ifftn(torch.fft.fftn(x)), args.reps_big))
+    del x
     torch.cuda.empty_cache()
     x = crandn(8388608, 256)
     out["c2c_dense_rows_8388608x256"] = (ms(lambda: kfft.c2c_dense_rows(x, -1), args.reps_big),
