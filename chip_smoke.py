@@ -57,10 +57,10 @@ without the final line):
         600^2, DCT-IV of 1000^2 along the last axis, and the DCT-IV/DST-IV
         composite along axis 0 of 1200 x 600 (kernel 6), against float64
         torch.fft / scipy.fft;
-     g. the bts2 core at any butterfly factor (the wide core of kernels 1,
-        2/15 and 3; kernel 10 at those F on the radix core): the 768^3 real
-        step with the real axis last (kernel 2 at h = 384, F = 3; kernel 1
-        at F = 6 four times; kernel 3) against torch.fft.rfftn in float64
+     g. the bts2 core at any butterfly factor (the wide core of kernels 1
+        and 3; kernels 10 and 2/15 at those F on the radix row core): the
+        768^3 real step with the real axis last (kernel 2 at h = 384, F = 3;
+        kernel 1 at F = 6 four times; kernel 3) against torch.fft.rfftn in float64
         (oracle only), with the round trip; the 4096^2 complex round trip
         (kernel 10 on the radix core, kernel 1 at F = 32) against
         torch.fft.fftn in complex128; the 4096^2 real step
@@ -121,7 +121,8 @@ without the final line):
         last axis (ndfft / ndifft: K7 fixed and K13 fixed, F = 8, split
         (1024, 1024)) against complex128 torch.fft.fft on a slice of rows
         and the round trip, its time and peak memory against torch.fft.fft
-        + ifft; the 32768^2 real spectral step (K2/K3 wide at h = 16384; the
+        + ifft; the 32768^2 real spectral step (K2 on the radix row core
+        and K3 wide at h = 16384; the
         C2C along axis 0 on the four-step (256, 128): K7 dense at
         (16385, 256, 128), K13 wide, F = 1) against float64
         torch.fft.rfftn with the round trip, its time against
@@ -171,8 +172,8 @@ without the final line):
         long kernel at the paths' shapes against its plain version slice by
         slice, with its time;
      n. the radix core's census: every length n in 257 ... 20480 whose
-        last-axis C2C over 128 rows the gates send to kernel 10 at F
-        outside {4, 8, 16} or to kernel 8's generic route (1731 lengths),
+        last-axis C2C over 128 rows the gates send to kernel 10 or to
+        kernel 8's generic route (1734 lengths),
         ndfft and ndifft on a (128, n) field against torch.fft in
         complex128 (oracle only), within TOL_KERNEL of the oracle's peak;
      o. the Bluestein census: for each of the 101 convolution factors F
@@ -214,22 +215,24 @@ without the final line):
      509), (1, 251, 262144) and (1, 1021, 131072) (M = 2176, 1024, 512,
      2048), kernel 6's at (600, 600, 301) and (1, 600, 180600) and kernel
      4's at (1, 256, 65536), (256, 256, 129), (1, 128, 16384) and at
-     n = 32, 8, 4 (2^24 elements) with each column count C, and kernel 8 at
-     (65536, 256) with each count of rows a block.
+     n = 32, 8, 4 (2^24 elements) with each column count C, kernel 8 at
+     (65536, 256), kernel 10 at (262144, 512), (259081, 1024) and
+     (65536, 2048) and kernel 2 at (262144, 512) and (589824, 768) with
+     each count of rows a block.
 The kernels line gives each kernel's launches on its main path, its largest
 error against its plain version, its times, and its bound: the larger of
 the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its FP32 operations over 67 TFLOP/s (H100 SXM data
 sheet, 700 W). Its launches are the sum over the main paths of phase 4;
-kernels 1, 2, 3, 12, 13, 14, 15, 16, 17, 18, 19, 22 and 28 on the
+kernels 1, 3, 12, 13, 14, 16, 17, 18, 19, 22 and 28 on the
 bts2 core are two rows each, the fixed core (launches - wide_launches) and the wide
 one (wide_launches; K11 and K12 rows also give the bound of their two
-length-M FFTs per column, ``length_m_bound_ms``); kernel 10 two, the fixed
-core and the radix core (radix_launches); kernel 8 (its rows at n <= 256
+length-M FFTs per column, ``length_m_bound_ms``); kernels 10, 2 and 15
+(``r2c_packed`` at h = 128 F), kernel 8 (its rows at n <= 256
 counted in c2c_dense_rows.radix_launches as well, above in
 ``c2c_generic_rows``), kernels 6, 4 and 11 (each counted in
 radix_launches as well) and kernel 15's generic form
-(``r2c_packed_generic``) run on the radix core; and
+(``r2c_packed_generic``) run on the radix core, one row each; and
 kernels 23 to 26 and 29 three: the fixed core, the wide core's half length
 and the n-point form (npoint_launches); kernel 7 three: the fixed core, the
 wide core and the dense body (dense_launches); kernel 28 three: the fixed
@@ -258,12 +261,13 @@ TOL_STEP = 1e-5      # step vs float64 oracle and round trip, relative
 # the forms that a wrapper counts apart beside ``launches`` (which counts
 # every launch): ``wide_launches``, for the DCT-II/III kernels
 # ``npoint_launches``, for kernel 7 ``dense_launches``, for kernel 28
-# ``long_launches`` and for kernels 10, 11, 8 (``c2c_dense_rows``), 6 and 4
-# ``radix_launches``
+# ``long_launches`` and for kernels 10, 2, 15 (``r2c_packed``), 11, 8
+# (``c2c_dense_rows``), 6 and 4 ``radix_launches``
 FORMS = ("wide", "npoint", "dense", "long", "radix")
 # the wrappers whose every launch is on the radix core: their
 # ``radix_launches`` equal their ``launches``
-RADIX_ONLY = ("c2c_dense_rows", "c2c_generic_mid", "c2c_dense_mid", "c2c_blue_mid")
+RADIX_ONLY = ("c2c_rows", "r2c_nat", "r2c_packed", "c2c_dense_rows", "c2c_generic_mid",
+              "c2c_dense_mid", "c2c_blue_mid")
 TOL_CENSUS = 1e-6    # the censuses of kernels 4 and 11 (phase 4r) against complex128
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, 700 W
 FP32_FLOP_PER_S = 67e12     # FP32 outside the tensor cores, same source
@@ -315,11 +319,11 @@ def work(name: str, shape, length_m: bool = False, mult=None):
     are the two chirps, H and both cores' Wq (and DFT-F) at the convolution
     length M (K11 on the radix core: the chirp, H and the radix table of M).
     ``length_m``: their operations as two complex FFTs of length M
-    per column instead. Kernel 10 at F outside {4, 8, 16}, kernels 8, 6 and
-    4 (the radix core) read x and the radix table (n entries and
-    each prime stage's row) and write y; kernel 15's generic form reads the
+    per column instead. Kernels 10, 8, 6 and 4 (the radix core) read x and
+    the radix table (n entries and each prime stage's row) and write y;
+    kernels 2 and 15 (the radix row core with the unpack epilogue) read the
     (T, 2h) float32 rows, the radix table of h and the unpack twiddle and
-    writes (T, h + 1) complex64. The four-step's kernel 7 on
+    write (T, h + 1) complex64. The four-step's kernel 7 on
     (B, n1, n2) reads x and the (n1, n2) exit twiddle and writes y, and does an n1-point complex FFT
     per column and a complex product (6 FLOPs) per element; its tables are
     its body's (the core's Wq at n1, or the dense body's (n1, n1) matrix).
@@ -400,15 +404,15 @@ def work(name: str, shape, length_m: bool = False, mult=None):
         base = name[:-len("_wide")]
         nbytes, flops = work(base, shape)
         length = shape[1] - 1 if base in ("c2r_nat", "c2r_mid") else \
-            shape[1] // 2 if base in ("r2c_nat", "r2c_packed", "r2c_mid") else shape[1]
+            shape[1] // 2 if base == "r2c_mid" else shape[1]
         f = length // 128
         return nbytes + 8 * f * f, flops
     if name == "c2c_axis_mid":
         b, n, cols = shape
         return 16 * b * n * cols + 8 * n * 128, 5 * n * math.log2(n) * b * cols
-    if name in ("r2c_nat", "c2r_nat", "r2c_packed"):
+    if name == "c2r_nat":
         t, w = shape
-        n = w if name != "c2r_nat" else 2 * (w - 1)
+        n = 2 * (w - 1)
         return 4 * t * n + 8 * t * (n // 2 + 1) + 8 * n * 64, 2.5 * n * math.log2(n) * t
     if name == "r2c_packed_dense":
         t, n = shape            # kernel 20's (n, 2m) float32 table
@@ -426,16 +430,13 @@ def work(name: str, shape, length_m: bool = False, mult=None):
         else:                   # wq, then tw or the (h, 4) ab rows
             table = 8 * (n // 2) * 128 + (8 if name == "r2c_mid" else 16) * (n // 2)
         return 4 * b * n * cols + 8 * b * m * cols + table, 2.5 * n * math.log2(n) * b * cols
-    if name == "c2c_rows":
-        t, n = shape
-        return 16 * t * n + 8 * n * 128, 5 * n * math.log2(n) * t
-    if name in ("c2c_rows_radix", "c2c_generic_rows", "c2c_dense_rows", "c2c_generic_mid",
+    if name in ("c2c_rows", "c2c_generic_rows", "c2c_dense_rows", "c2c_generic_mid",
                 "c2c_dense_mid"):
         from ndrustfft_tpu_torch.ops.hopper.fft import radix_consts
         n = shape[1] if name.endswith("_mid") else shape[-1]
         outputs = math.prod(shape) // n     # the radix table: n entries and the prime rows
         return 16 * outputs * n + 8 * len(radix_consts(n, -1)[0]), 5 * n * math.log2(n) * outputs
-    if name == "r2c_packed_generic":
+    if name in ("r2c_nat", "r2c_packed", "r2c_packed_generic"):
         from ndrustfft_tpu_torch.ops.hopper.fft import radix_consts
         t, n = shape            # the radix table of h, and the unpack twiddle
         h = n // 2
@@ -536,14 +537,18 @@ def main() -> int:
     spills = [sum(map(int, s)) for s in
               re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
     spilling = {}   # entry function -> spill bytes, from ptxas -v
+    row_regs = {}   # the radix row kernels (their occupancy) -> registers a thread
     for entry in log.split("Compiling entry function '")[1:]:
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
         if m and sum(map(int, m.groups())):
             spilling[entry.split("'")[0]] = sum(map(int, m.groups()))
+        m = re.search(r"Used (\d+) registers", entry)
+        if m and "radix_rows_kernel" in entry.split("'")[0]:
+            row_regs[entry.split("'")[0]] = int(m.group(1))
     emit(phase="build", seconds=time.perf_counter() - t0,
          nvcc_seconds=_build.build_seconds, library=lib_path.name,
          max_registers=max(regs, default=None),
-         spill_bytes=sum(spills), spilling=spilling)
+         spill_bytes=sum(spills), spilling=spilling, radix_rows_registers=row_regs)
 
     # ---- 3. kernels against their plain versions
     errs = {"c2c_axis_mid": 0.0, "r2c_nat": 0.0, "c2r_nat": 0.0,
@@ -552,8 +557,7 @@ def main() -> int:
             "r2c_mid": 0.0, "c2r_mid": 0.0, "r2c_dense_mid": 0.0, "c2r_dense_mid": 0.0,
             "r2c_packed": 0.0, "r2c_packed_dense": 0.0, "c2c_generic_rows": 0.0,
             "c2c_generic_mid": 0.0, "r2c_packed_generic": 0.0, "c2c_axis_mid_wide": 0.0,
-            "c2c_rows_radix": 0.0, "r2c_nat_wide": 0.0, "c2r_nat_wide": 0.0,
-            "r2c_packed_wide": 0.0, "r2c_mid_wide": 0.0, "c2r_mid_wide": 0.0,
+            "c2r_nat_wide": 0.0, "r2c_mid_wide": 0.0, "c2r_mid_wide": 0.0,
             "dct2_nat_wide": 0.0, "dct3_nat_wide": 0.0, "dct2_nat_npoint": 0.0,
             "dct3_nat_npoint": 0.0, "dct2_mid": 0.0, "dct3_mid": 0.0, "dct2_mid_wide": 0.0,
             "dct3_mid_wide": 0.0, "dct2_mid_npoint": 0.0, "dct3_mid_npoint": 0.0,
@@ -639,8 +643,8 @@ def main() -> int:
     # path's shapes (phase 4c)
     c2c_checks = (
         ("c2c_rows", kfft.c2c_rows, kfft.c2c_rows_plain,
-         ((130, 512), (128, 1024), (66, 2048), (1024, 1024), (512 * 512, 512),
-          (257 * 512, 512))),
+         ((130, 512), (128, 1024), (66, 2048), (1, 2048), (1024, 1024), (512 * 512, 512),
+          (257 * 512, 512), (65536, 2048))),
         # K8 on the radix row core at n <= 256: one row of n < 16 a thread
         # (256 rows of 2 a block), ragged row counts, odd n at odd row offsets
         # (129, 17), the four-step's no-split row passes of phase 4k (128 *
@@ -875,17 +879,17 @@ def main() -> int:
         emit(phase="time", kernel=name, shape=shape, ms=t_k, plain_ms=t_plain,
              library_ms=t_lib, plain_in_slices=len(cuts), card=card)
 
-    # the wide core (F outside the fixed core's factors) and kernel 10 at
-    # those F on the radix core: the main paths' shapes (phase 4g), ragged
-    # column and row tiles, prime F = 127 and the largest F = 160 (one column
-    # or row per block); the C2R spectra carry DC and Nyquist imaginary parts
-    # that must be ignored
+    # the wide core (F outside the fixed core's factors) and kernels 10 and 2
+    # at those F on the radix row core: the main paths' shapes (phase 4g),
+    # ragged column and row tiles, prime F = 127 and the largest F = 160 (one
+    # column or row per block); the C2R spectra carry DC and Nyquist
+    # imaginary parts that must be ignored
     for name, kern, plain, shapes, signs in (
             ("c2c_axis_mid_wide", kfft.c2c_axis_mid, kfft.c2c_axis_mid_plain,
              ((768, 768, 385), (1, 768, 295680), (1, 4096, 4096), (1, 4096, 2049),
               (3, 640, 129), (1, 640, 256), (1, 16256, 128), (1, 20480, 128)),
              ((-1, False), (+1, True))),
-            ("c2c_rows_radix", kfft.c2c_rows, kfft.c2c_rows_plain,
+            ("c2c_rows", kfft.c2c_rows, kfft.c2c_rows_plain,
              ((4096, 4096), (1536, 768), (128, 384), (7, 1152), (128, 1152), (128, 640),
               (128, 16256), (128, 20480)),
              ((-1, False), (+1, False), (-1, True), (+1, True)))):
@@ -901,17 +905,18 @@ def main() -> int:
         s = crandn(t, n // 2 + 1)
         s[:, 0] += 100j
         s[:, -1] += 100j
-        check_form("r2c_nat_wide", krfft.r2c_nat, lambda: krfft.r2c_nat(x),
+        check_form("r2c_nat", krfft.r2c_nat, lambda: krfft.r2c_nat(x),
                    lambda: krfft.r2c_nat_plain(x), (t, n))
         for scale in (1.0 / n, None):
             check_form("c2r_nat_wide", krfft.c2r_nat, lambda: krfft.c2r_nat(s, n, scale),
                        lambda: krfft.c2r_nat_plain(s, n, scale), (t, n // 2 + 1), scale=scale)
         del x, s
     # kernel 15 at h = 128 * F is kernel 2's code: the DCT-I path's (769,
-    # 1536), a ragged few rows, F = 127 and 160
-    for shape in ((769, 1536), (3, 768), (5, 2 * 16256), (2, 40960)):
+    # 1536), a ragged few rows, F = 127 and 160, and the fixed core's former
+    # F = 1 and 8
+    for shape in ((769, 1536), (3, 768), (5, 2 * 16256), (2, 40960), (129, 256), (7, 2048)):
         x = randn(*shape)
-        check_form("r2c_packed_wide", krfft.r2c_packed, lambda: krfft.r2c_packed(x),
+        check_form("r2c_packed", krfft.r2c_packed, lambda: krfft.r2c_packed(x),
                    lambda: krfft.r2c_packed_plain(x), shape)
         del x
     # kernels 16/17 on the wide core (phase 4h's 768 and 1280 along axis 0,
@@ -1128,19 +1133,18 @@ def main() -> int:
                 "spectral_r2c_mid": krfft.spectral_r2c_mid,
                 "spectral_dct_mid": kdct.spectral_dct_mid}
     # the wide core's launches, the DCT kernels' n-point ones, kernel 7's
-    # dense ones and those of kernel 10 and the radix-only wrappers on the
-    # radix core, counted apart by the same wrappers (their ``launches``
-    # count every launch)
+    # dense ones and those of the radix-only wrappers on the radix core,
+    # counted apart by the same wrappers (their ``launches`` count every
+    # launch)
     forms = {f"{name}_{form}": (wrappers[name], f"{form}_launches")
-             for name in ("c2c_axis_mid", "c2c_rows", *RADIX_ONLY, "r2c_nat", "c2r_nat",
-                          "r2c_packed",
-                          "r2c_mid", "c2r_mid", "dct2_nat", "dct3_nat", "dct2_mid",
+             for name in ("c2c_axis_mid", *RADIX_ONLY, "c2r_nat", "r2c_mid", "c2r_mid",
+                          "dct2_nat", "dct3_nat", "dct2_mid",
                           "dct3_mid", "r2c_packed_mid", "dct1_mid", "dct4_mid",
                           "dct23_blue_mid", "fourstep_mid", "rows_store_t",
                           "spectral_c2c_mid", "spectral_r2c_mid", "spectral_dct_mid")
              for form in FORMS
-             if form == "wide" and name not in ("c2c_rows", *RADIX_ONLY)
-             or form == "radix" and name in ("c2c_rows", *RADIX_ONLY)
+             if form == "wide" and name not in RADIX_ONLY
+             or form == "radix" and name in RADIX_ONLY
              or form == "npoint" and name.startswith(("dct2_", "dct3_", "spectral_dct"))
              or form == "dense" and name == "fourstep_mid" or form == "long" and name == "dct4_mid"}
 
@@ -1161,10 +1165,16 @@ def main() -> int:
 
     def read_counts(path, **expected):
         """Check the launches since reset_counts() against ``expected`` (every
-        kernel not named: 0) and no engine call; add them to ``launches``."""
+        kernel not named: 0; a radix-only wrapper's radix launches, where not
+        named, its launches) and no engine call; add them to ``launches``."""
         torch.cuda.synchronize()
+        unknown = set(expected) - set(launches)
+        if unknown:
+            raise ValueError(f"{path}: no launch counter {sorted(unknown)}")
         got = {k: count(k) for k in launches}
         want = {k: expected.get(k, 0) for k in launches}
+        for name in RADIX_ONLY:
+            want[f"{name}_radix"] = expected.get(f"{name}_radix", want[name])
         engine_calls = engine.c2c.calls
         emit(phase="main_path", path=path, launches=got, engine_calls=engine_calls)
         if got != want or engine_calls:
@@ -1325,8 +1335,7 @@ def main() -> int:
     # axis 0; 256^3 K8 on axis 2 and K4 on axes 1 and 0; 512^3 K10 (F = 4)
     # on axis 2 and K1 on axes 1 and 0
     c2c_grids = {(1024, 1024): dict(c2c_rows=2, c2c_axis_mid=2),
-                 (256, 256, 256): dict(c2c_dense_rows=2, c2c_dense_rows_radix=2,
-                                       c2c_dense_mid=4, c2c_dense_mid_radix=4),
+                 (256, 256, 256): dict(c2c_dense_rows=2, c2c_dense_mid=4),
                  (512, 512, 512): dict(c2c_rows=2, c2c_axis_mid=4)}
     c2c_inputs = {}
     for grid_shape, expected in c2c_grids.items():
@@ -1352,7 +1361,7 @@ def main() -> int:
     fft2d_inputs = {n: crandn(n, n) for n in (128, 264, 512, 1024)}
     reset_counts()
     fft2d_out = {n: nd.ndfft(x, nd.FftHandler(n), axis=0) for n, x in fft2d_inputs.items()}
-    read_counts("fft2d", c2c_dense_mid=2, c2c_dense_mid_radix=2, c2c_axis_mid=2)
+    read_counts("fft2d", c2c_dense_mid=2, c2c_axis_mid=2)
     for n, x in fft2d_inputs.items():
         back = nd.ndifft(fft2d_out[n], nd.FftHandler(n), axis=0)
         check_c2c("fft2d_axis0", fft2d_out[n], x, back, dims=(0,), grid=[n, n])
@@ -1393,8 +1402,8 @@ def main() -> int:
     # grid -> expected launches: 512^3 K16, K1 at (257, 512, 512), K10 on
     # 131584 rows, K17; 256^3 K20, K4 at (129, 256, 256), K8 on 33024 rows, K21
     first_grids = {512: dict(r2c_mid=1, c2c_axis_mid=2, c2c_rows=2, c2r_mid=1),
-                   256: dict(r2c_dense_mid=1, c2c_dense_mid=2, c2c_dense_mid_radix=2,
-                             c2c_dense_rows=2, c2c_dense_rows_radix=2, c2r_dense_mid=1)}
+                   256: dict(r2c_dense_mid=1, c2c_dense_mid=2, c2c_dense_rows=2,
+                             c2r_dense_mid=1)}
     first_inputs = {}
     for n, expected in first_grids.items():
         x = randn(n, n, n)
@@ -1431,10 +1440,8 @@ def main() -> int:
     # after the extension; 128^3 K15's dense product (h = 64, 16384 rows),
     # K8 on 8320 rows (axis 1 has 65 < 128 columns and moves), K4 at
     # (1, 128, 8320), K8 on 16384 rows after the extension
-    last_grids = {256: dict(r2c_packed=1, c2c_dense_mid=4, c2c_dense_mid_radix=4,
-                            c2c_dense_rows=1, c2c_dense_rows_radix=1),
-                  128: dict(r2c_packed_dense=1, c2c_dense_rows=3, c2c_dense_rows_radix=3,
-                            c2c_dense_mid=2, c2c_dense_mid_radix=2)}
+    last_grids = {256: dict(r2c_packed=1, c2c_dense_mid=4, c2c_dense_rows=1),
+                  128: dict(r2c_packed_dense=1, c2c_dense_rows=3, c2c_dense_mid=2)}
     last_inputs = {}
     for n, expected in last_grids.items():
         x = randn(n, n, n)
@@ -1460,7 +1467,7 @@ def main() -> int:
     reset_counts()
     vo = nd.ndfft_r2c(xo3, h129, axis=2)
     backo = nd.ndifft_r2c(vo, h129, axis=2)
-    read_counts("odd_129^3", c2c_dense_rows=2, c2c_dense_rows_radix=2)
+    read_counts("odd_129^3", c2c_dense_rows=2)
     check_lane("r2c_odd_last", vo, torch.fft.rfft(xo3.double(), dim=2), backo, xo3,
                grid=[129, 129, 129])
     del vo, backo
@@ -1498,7 +1505,7 @@ def main() -> int:
     d4_3 = nd.nddct4(x4, hd512, axis=2)
     d3 = nd.nddct3(x200, axis=1)
     d2 = nd.nddct2(x200, axis=1)
-    read_counts("dct_lanes", c2c_rows=3, c2c_dense_rows=1, c2c_dense_rows_radix=1,
+    read_counts("dct_lanes", c2c_rows=3, c2c_dense_rows=1,
                 r2c_packed_dense=1)
     check("dct4_last_axis", d4, sfft.dct(x64, type=4, axis=1), grid=[1024, 1024])
     check("dst4_last_axis", s4, sfft.dst(x64, type=4, axis=1), grid=[1024, 1024])
@@ -1524,7 +1531,7 @@ def main() -> int:
     v = fwd3(x600, h600r, h600c)
     back = inv3(v, h600r, h600c)
     read_counts("real_axis_last_600^3", r2c_packed_generic=1, c2c_generic_mid=4,
-                c2c_generic_mid_radix=4, c2c_generic_rows=1)
+                c2c_generic_rows=1)
     peak = torch.cuda.max_memory_allocated()
     check_lane("step_real_axis_last", v, torch.fft.rfftn(x600.double()), back, x600,
                grid=[n6] * 3, peak_bytes=peak, base_bytes=base)
@@ -1554,7 +1561,6 @@ def main() -> int:
                "dct4_axis0_1200x600": (nd.nddct4(x1200, axis=0), sfft.dct, x1200, 4, 0),
                "dst4_axis0_1200x600": (nd.nddst4(x1200, axis=0), sfft.dst, x1200, 4, 0)}
     read_counts("generic_lanes", c2c_generic_rows=2 + 1 + 1 + 1, c2c_generic_mid=2 + 2,
-                c2c_generic_mid_radix=2 + 2,
                 r2c_packed_generic=1 + 1 + 1 + 1)
     check_c2c("fft_last_axis", y264, g264, b264, dims=(1,), grid=[264, 264])
     check_c2c("fft_axis0", y1200, g1200, b1200, dims=(0,), grid=[1200, 256])
@@ -1582,7 +1588,7 @@ def main() -> int:
     reset_counts()
     v = fwd3(x768, h768r, h768c)
     back = inv3(v, h768r, h768c)
-    read_counts("real_axis_last_768^3", r2c_nat=1, r2c_nat_wide=1, c2c_axis_mid=4,
+    read_counts("real_axis_last_768^3", r2c_nat=1, c2c_axis_mid=4,
                 c2c_axis_mid_wide=4, c2r_nat=1, c2r_nat_wide=1)
     peak = torch.cuda.max_memory_allocated()
     check_lane("step_real_axis_last", v, torch.fft.rfftn(x768.double()), back, x768,
@@ -1604,7 +1610,7 @@ def main() -> int:
     reset_counts()
     y4k = fft2_last_first(x4k, h4k)
     b4k = ifft2_first_last(y4k, h4k)
-    read_counts("c2c_4096x4096", c2c_rows=2, c2c_rows_radix=2, c2c_axis_mid=2,
+    read_counts("c2c_4096x4096", c2c_rows=2, c2c_axis_mid=2,
                 c2c_axis_mid_wide=2)
     peak = torch.cuda.max_memory_allocated()
     check_c2c("fftn_ifftn", y4k, x4k, b4k, grid=[4096, 4096], peak_bytes=peak,
@@ -1637,9 +1643,9 @@ def main() -> int:
     d1 = nd.nddct1(x769, axis=1)
     d4 = nd.nddct4(x768_2, axis=1)
     b640 = nd.ndifft_r2c(s640, axis=1, n=640)
-    read_counts("wide_lanes", r2c_nat=1 + 2, r2c_nat_wide=2, c2c_axis_mid=2 + 4,
+    read_counts("wide_lanes", r2c_nat=1 + 2, c2c_axis_mid=2 + 4,
                 c2c_axis_mid_wide=2 + 4, c2r_nat=1 + 2, c2r_nat_wide=2,
-                c2c_rows=8 + 1 + 1, c2c_rows_radix=8 + 1 + 1, r2c_packed=1, r2c_packed_wide=1)
+                c2c_rows=8 + 1 + 1, r2c_packed=1)
     check_r2c_mid("step_4096^2_real_axis_last", v4k, xr4k, r4k, (0, 1), grid=[4096, 4096])
     for n, (y, b) in rows_out.items():
         check_c2c("fft_last_axis", y, rows_in[n], b, dims=(1,), grid=[128, n])
@@ -2044,7 +2050,7 @@ def main() -> int:
         [lambda m, p=p: torch.cos((m + 0.5) * math.pi * p) for p in mx_pts],
         [eigs(n, 0.5, n) for n in mx_grid], 0, float(2048 * 2048 * 256),
         lambda f: nd.dctn(f, 4), lambda fh: nd.idctn(fh, 4),
-        dict(dct4_mid=4, c2c_dense_rows=2, c2c_dense_rows_radix=2))
+        dict(dct4_mid=4, c2c_dense_rows=2))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t_port = cuda_ms(lambda: solve_mx(f_mx), reps9, 1)
@@ -2137,7 +2143,7 @@ def main() -> int:
     reset_counts()
     y10 = nd.fftn(x10)
     back10 = nd.ifftn(y10)
-    read_counts("c2c_509^3", c2c_blue_mid=4, c2c_blue_mid_radix=4, c2c_rows=4)
+    read_counts("c2c_509^3", c2c_blue_mid=4, c2c_rows=4)
     peak = torch.cuda.max_memory_allocated()
     check_c2c("fftn_ifftn", y10, x10, back10, grid=[n10] * 3, peak_bytes=peak, base_bytes=base)
     del y10, back10
@@ -2234,8 +2240,8 @@ def main() -> int:
              for key, s in s_in.items()}
     d_out = {kind: getattr(nd, f"nd{kind}")(x, axis=0 if x.shape[0] > 1024 else 1)
              for kind, x in d_in.items()}
-    read_counts("blue_lengths", c2c_blue_mid=5, c2c_blue_mid_radix=5, c2c_rows=16,
-                c2c_rows_radix=16, dct23_blue_mid=3, dct23_blue_mid_wide=3)
+    read_counts("blue_lengths", c2c_blue_mid=5, c2c_rows=16,
+                dct23_blue_mid=3, dct23_blue_mid_wide=3)
     for (n, axis), y in c_out.items():
         x = c_in[(n, axis)]
         check_c2c("fft_length", y, x, nd.ndifft(y, axis=axis), dims=(axis,), n=n, axis=axis)
@@ -2335,7 +2341,7 @@ def main() -> int:
     base = torch.cuda.memory_allocated()
     reset_counts()
     vb, backb = step2(xb, hbr, hbc)
-    read_counts("step_32768^2", r2c_nat=1, r2c_nat_wide=1, fourstep_mid=2,
+    read_counts("step_32768^2", r2c_nat=1, fourstep_mid=2,
                 fourstep_mid_dense=2, rows_store_t=2, rows_store_t_wide=2, c2r_nat=1,
                 c2r_nat_wide=1)
     peak = torch.cuda.max_memory_allocated()
@@ -2390,7 +2396,7 @@ def main() -> int:
     s_out = nd.ndifft_r2c(s_in, nd.R2cFftHandler(65536), axis=1)
     d_out = {kind: getattr(nd, f"nd{kind}")(x, axis=1) for kind, x in d_in.items()}
     read_counts("fourstep_lengths", fourstep_mid=15, fourstep_mid_dense=9, fourstep_mid_wide=3,
-                rows_store_t=10, rows_store_t_wide=9, c2c_dense_rows=5, c2c_dense_rows_radix=5)
+                rows_store_t=10, rows_store_t_wide=9, c2c_dense_rows=5)
     for (n, axis), y in c_out.items():
         x = c_in[(n, axis)]
         check_c2c("fft_length", y, x, nd.ndifft(y, axis=axis), dims=(axis,), n=n, axis=axis)
@@ -2420,11 +2426,12 @@ def main() -> int:
         check_sliced(name, kern, plain, [x], 0, fargs, reps_a)
         del x
         torch.cuda.empty_cache()
-    # K2 and K3 at path B's real legs (h = 16384, F = 128, one row per tile),
-    # checked but not timed here (their times are at phase 5's main shapes)
+    # K2 and K3 at path B's real legs (h = 16384, F = 128, one row per tile):
+    # K2 on the radix row core, timed beside torch.fft.rfft; K3 on the wide
+    # core, checked but not timed here (its time is at phase 5's main shapes)
     xb = randn(n_b, n_b)
-    check_sliced("r2c_nat_wide", krfft.r2c_nat, krfft.r2c_nat_plain, [xb], 0, (), reps_a,
-                 timed=False)
+    check_sliced("r2c_nat", krfft.r2c_nat, krfft.r2c_nat_plain, [xb], 0, (), reps_a,
+                 library=lambda: torch.fft.rfft(xb, dim=1))
     del xb
     torch.cuda.empty_cache()
     sb = crandn(n_b, n_b // 2 + 1)
@@ -2951,14 +2958,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 4n. the radix core's census: every length whose last-axis C2C over
-    # 128 rows takes kernel 10 off the fixed core (C2C_ROWS at F outside {4,
-    # 8, 16}) or kernel 8 above 256 (C2C_GENERIC_ROWS), as the gates name
-    # them over 257 ... 20480, through ndfft and ndifft on a (128, n) field,
+    # 128 rows takes kernel 10 (C2C_ROWS) or kernel 8 above 256
+    # (C2C_GENERIC_ROWS), as the gates name them over 257 ... 20480, through
+    # ndfft and ndifft on a (128, n) field,
     # each against torch.fft in complex128 (an oracle only, run on the host,
     # where a new length costs no cuFFT planning; compared on the card)
     routes = {n: gates.lane_c2c_route(n, 128) for n in range(257, kfft.GENERIC_MAX_N + 1)}
-    census = [n for n, route in routes.items() if route == gates.C2C_GENERIC_ROWS
-              or route == gates.C2C_ROWS and n // kfft.M not in kfft.C2C_F]
+    census = [n for n, route in routes.items()
+              if route in (gates.C2C_ROWS, gates.C2C_GENERIC_ROWS)]
     rows_n = sum(routes[n] == gates.C2C_ROWS for n in census)
     t0 = time.perf_counter()
     worst = (0.0, None)
@@ -2974,7 +2981,7 @@ def main() -> int:
             if not err <= TOL_KERNEL:
                 raise AssertionError(f"census n={n}: {err}")
             worst = max(worst, (err, n))
-    read_counts("radix_census", c2c_rows=2 * rows_n, c2c_rows_radix=2 * rows_n,
+    read_counts("radix_census", c2c_rows=2 * rows_n,
                 c2c_generic_rows=2 * (len(census) - rows_n))
     emit(phase="radix_census", lengths=len(census), c2c_rows_lengths=rows_n,
          c2c_generic_rows_lengths=len(census) - rows_n, worst_rel_err=worst[0], worst_n=worst[1],
@@ -3008,7 +3015,7 @@ def main() -> int:
             if not err <= TOL_KERNEL:
                 raise AssertionError(f"blue census n={n}: {err}")
             worst = max(worst, (err, n))
-    read_counts("blue_census", c2c_blue_mid=2 * len(blue_n), c2c_blue_mid_radix=2 * len(blue_n))
+    read_counts("blue_census", c2c_blue_mid=2 * len(blue_n))
     emit(phase="blue_census", factors=len(ends), lengths=len(blue_n), worst_rel_err=worst[0],
          worst_n=worst[1], seconds=time.perf_counter() - t0)
     if len(ends) != 101:
@@ -3080,7 +3087,7 @@ def main() -> int:
                 if not err <= tol:
                     raise AssertionError(f"{what} census n={n}: {err}")
                 worst = max(worst, (err, n))
-        read_counts(f"{what}_census", **{name: 2 * len(lengths), f"{name}_radix": 2 * len(lengths)})
+        read_counts(f"{what}_census", **{name: 2 * len(lengths)})
         emit(phase=f"{what}_census", lengths=len(lengths), worst_rel_err=worst[0], worst_n=worst[1],
              seconds=time.perf_counter() - t0)
         del x, y, back, x64, y64, oracles
@@ -3100,9 +3107,8 @@ def main() -> int:
                    "c2r_dense_mid": (1, 129, 256 * 256), "r2c_packed": (256 * 256, 256),
                    "r2c_packed_dense": (128 * 128, 128), "c2c_generic_rows": (600 * 600, 600),
                    "c2c_generic_mid": (600, 600, 301), "r2c_packed_generic": (600 * 600, 600),
-                   "c2c_axis_mid_wide": (768, 768, 385), "c2c_rows_radix": (4096, 4096),
-                   "r2c_nat_wide": (768 * 768, 768), "c2r_nat_wide": (768 * 768, 385),
-                   "r2c_packed_wide": (769, 1536), "r2c_mid_wide": (1, 1280, 1280),
+                   "c2c_axis_mid_wide": (768, 768, 385), "c2r_nat_wide": (768 * 768, 385),
+                   "r2c_mid_wide": (1, 1280, 1280),
                    "c2r_mid_wide": (1, 641, 1280), "dct2_nat_wide": (1536 * 1536, 1536),
                    "dct3_nat_wide": (1536 * 1536, 1536), "dct2_nat_npoint": (384, 384),
                    "dct3_nat_npoint": (384, 384), "dct2_mid": (1, 2048, 2048),
@@ -3126,7 +3132,7 @@ def main() -> int:
                    "spectral_dct_mid_npoint": (8, 1152, 8192)}
 
     # the radix core's kernels: the yardstick at every shape timed
-    library_every_shape = ("c2c_rows_radix", "c2c_generic_rows", *RADIX_ONLY)
+    library_every_shape = ("c2c_generic_rows", "r2c_packed_generic", *RADIX_ONLY)
 
     def time_kernel(name, shape, kern, plain, library=None):
         t_plain = cuda_ms(plain, reps)
@@ -3186,7 +3192,7 @@ def main() -> int:
 
     for name, kern, plain, shapes in (
             ("c2c_rows", kfft.c2c_rows, kfft.c2c_rows_plain,
-             ((1024, 1024), (512 * 512, 512), (257 * 512, 512))),
+             ((1024, 1024), (512 * 512, 512), (257 * 512, 512), (65536, 2048))),
             ("c2c_dense_rows", kfft.c2c_dense_rows, kfft.c2c_radix_rows_plain,
              ((128, 256), (256 * 256, 256), (129 * 256, 256), (200, 200))),
             ("c2c_dense_mid", kfft.c2c_dense_mid, kfft.c2c_dense_mid_plain,
@@ -3221,6 +3227,32 @@ def main() -> int:
          ms_by_rows_per_block=rows_ms, chosen=kfft.radix_block(256, 256 * 256, kfft.num_sms(dev)),
          card=card)
     del x
+    # kernel 10 at its main shapes (n = 512, 1024, 2048: 32, 64, 128
+    # threads a row), kernel 2 at its main shapes (h = 256, 384) and kernels
+    # 8 and 15 at their generic main shape (n = 600, h = 300) with counts of
+    # rows a block that fit 256 threads (the wrapper's radix_block takes the
+    # fewest rows that leave at most one lane in eight idle)
+    for name, shape, counts in (("c2c_rows", (512 * 512, 512), (1, 2, 3, 4, 5, 6, 8)),
+                                ("c2c_rows", (509 * 509, 1024), (1, 2, 3, 4)),
+                                ("c2c_rows", (65536, 2048), (1, 2)),
+                                ("c2c_generic_rows", (600 * 600, 600), (1, 2, 3, 4, 5, 6)),
+                                ("r2c_nat", (512 * 512, 512), (1, 2, 4, 5, 8, 10, 16)),
+                                ("r2c_nat", (768 * 768, 768), (1, 2, 3, 4, 6, 8, 10)),
+                                ("r2c_packed_generic", (600 * 600, 600), (2, 3, 4, 5, 8))):
+        t, n = shape
+        if name.startswith("c2c"):
+            x = crandn(t, n)
+            rows_ms = {r: cuda_ms(lambda: kfft._radix_launch(x, -1, None, name, r), reps)
+                       for r in counts}
+            chosen = kfft.radix_block(n, t, kfft.num_sms(dev))
+        else:
+            x = randn(t, n)
+            rows_ms = {r: cuda_ms(lambda: krfft.r2c_radix_launch(x, name, r), reps)
+                       for r in counts}
+            chosen = kfft.radix_block(n // 2, t, kfft.num_sms(dev))
+        emit(phase="time", kernel=name, shape=shape, ms_by_rows_per_block=rows_ms,
+             chosen=chosen, card=card)
+        del x
     for grid_shape, x in c2c_inputs.items():
         hs = [nd.FftHandler(n) for n in grid_shape]
         torch.cuda.reset_peak_memory_stats()
@@ -3345,13 +3377,13 @@ def main() -> int:
     del rfft2d_inputs
     torch.cuda.empty_cache()
 
-    # the wide core and kernel 10's radix core: each kernel at the paths'
-    # shapes (phase 4g), the 768^3 step with each public call timed alone,
-    # and the 4096^2 round trip
+    # the wide core and kernels 10, 2 and 15 on the radix row core at the
+    # same F: each kernel at the paths' shapes (phase 4g), the 768^3 step
+    # with each public call timed alone, and the 4096^2 round trip
     for name, kern, plain, dim, shapes in (
             ("c2c_axis_mid_wide", kfft.c2c_axis_mid, kfft.c2c_axis_mid_plain, 1,
              ((768, 768, 385), (1, 768, 295680), (1, 4096, 4096), (1, 4096, 2049))),
-            ("c2c_rows_radix", kfft.c2c_rows, kfft.c2c_rows_plain, -1,
+            ("c2c_rows", kfft.c2c_rows, kfft.c2c_rows_plain, -1,
              ((4096, 4096), (1536, 768), (128, 20480)))):
         for shape in shapes:
             x = crandn(*shape)
@@ -3361,14 +3393,14 @@ def main() -> int:
     for t, n in ((768 * 768, 768), (128, 40960)):
         x = randn(t, n)
         sp = crandn(t, n // 2 + 1)
-        time_kernel("r2c_nat_wide", (t, n), lambda: krfft.r2c_nat(x),
+        time_kernel("r2c_nat", (t, n), lambda: krfft.r2c_nat(x),
                     lambda: krfft.r2c_nat_plain(x), lambda: torch.fft.rfft(x, dim=1))
         time_kernel("c2r_nat_wide", (t, n // 2 + 1), lambda: krfft.c2r_nat(sp, n, 1.0 / n),
                     lambda: krfft.c2r_nat_plain(sp, n, 1.0 / n),
                     lambda: torch.fft.irfft(sp, n=n, dim=1))
         del x, sp
     x = randn(769, 1536)
-    time_kernel("r2c_packed_wide", (769, 1536), lambda: krfft.r2c_packed(x),
+    time_kernel("r2c_packed", (769, 1536), lambda: krfft.r2c_packed(x),
                 lambda: krfft.r2c_packed_plain(x), lambda: torch.fft.rfft(x, dim=1))
     del x
     torch.cuda.empty_cache()
@@ -3532,7 +3564,7 @@ def main() -> int:
     sources = {
         "c2c_axis_mid": ("ndrustfft_tpu_torch/csrc/fft_axis_mid.cu",
                          "ndrustfft_tpu/ops/pallas/fft.py:1124"),
-        "r2c_nat": ("ndrustfft_tpu_torch/csrc/rfft_nat.cu",
+        "r2c_nat": ("ndrustfft_tpu_torch/csrc/rfft_radix.cu",
                     "ndrustfft_tpu/ops/pallas/rfft.py:242"),
         "c2r_nat": ("ndrustfft_tpu_torch/csrc/rfft_nat.cu",
                     "ndrustfft_tpu/ops/pallas/rfft.py:323"),
@@ -3542,7 +3574,7 @@ def main() -> int:
                      "ndrustfft_tpu/ops/pallas/dct.py:190"),
         "dct3_nat": ("ndrustfft_tpu_torch/csrc/dct_nat.cu",
                      "ndrustfft_tpu/ops/pallas/dct.py:208"),
-        "c2c_rows": ("ndrustfft_tpu_torch/csrc/fft_rows.cu",
+        "c2c_rows": ("ndrustfft_tpu_torch/csrc/fft_rows_radix.cu",
                      "ndrustfft_tpu/ops/pallas/fft.py:743"),
         "c2c_dense_rows": ("ndrustfft_tpu_torch/csrc/fft_rows_radix.cu",
                            "ndrustfft_tpu/ops/pallas/fft.py:521"),
@@ -3556,7 +3588,7 @@ def main() -> int:
                           "ndrustfft_tpu/ops/pallas/rfft.py:882"),
         "c2r_dense_mid": ("ndrustfft_tpu_torch/csrc/rfft_dense.cu",
                           "ndrustfft_tpu/ops/pallas/rfft.py:898"),
-        "r2c_packed": ("ndrustfft_tpu_torch/csrc/rfft_nat.cu",
+        "r2c_packed": ("ndrustfft_tpu_torch/csrc/rfft_radix.cu",
                        "ndrustfft_tpu/ops/pallas/rfft.py:163"),
         "r2c_packed_dense": ("ndrustfft_tpu_torch/csrc/rfft_dense.cu",
                              "ndrustfft_tpu/ops/pallas/rfft.py:163"),
@@ -3568,14 +3600,8 @@ def main() -> int:
                                "ndrustfft_tpu/ops/pallas/rfft.py:163"),
         "c2c_axis_mid_wide": ("ndrustfft_tpu_torch/csrc/fft_axis_mid.cu",
                               "ndrustfft_tpu/ops/pallas/fft.py:1124"),
-        "c2c_rows_radix": ("ndrustfft_tpu_torch/csrc/fft_radix.cuh",
-                           "ndrustfft_tpu/ops/pallas/fft.py:743"),
-        "r2c_nat_wide": ("ndrustfft_tpu_torch/csrc/rfft_nat.cu",
-                         "ndrustfft_tpu/ops/pallas/rfft.py:242"),
         "c2r_nat_wide": ("ndrustfft_tpu_torch/csrc/rfft_nat.cu",
                          "ndrustfft_tpu/ops/pallas/rfft.py:323"),
-        "r2c_packed_wide": ("ndrustfft_tpu_torch/csrc/rfft_nat.cu",
-                            "ndrustfft_tpu/ops/pallas/rfft.py:163"),
         "r2c_mid_wide": ("ndrustfft_tpu_torch/csrc/rfft_mid.cu",
                          "ndrustfft_tpu/ops/pallas/rfft.py:443"),
         "c2r_mid_wide": ("ndrustfft_tpu_torch/csrc/rfft_mid.cu",

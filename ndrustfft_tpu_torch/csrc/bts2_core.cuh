@@ -97,12 +97,6 @@ __device__ __forceinline__ void r2c_unpack(float2* ob, int h, int V, long long c
                         [=](int c, int k, float2 x) { ob[c * cs + k * ks] = x; });
 }
 
-// The unpack of V contiguous rows of Z: row r at ob + r * (h + 1).
-__device__ __forceinline__ void r2c_unpack_rows(float2* ob, int h, int V,
-                                                const float2* __restrict__ u) {
-  r2c_unpack<false>(ob, h, V, h + 1, 1, u);
-}
-
 // A sk + B conj sm with c = (A.re, A.im, B.re, B.im): one bin of the C2R
 // pre-pass from S[k] = sk and S[h - k] = sm.
 __device__ __forceinline__ float2 c2r_combine(float4 c, float2 sk, float2 sm) {
@@ -188,7 +182,7 @@ __device__ __forceinline__ void dft_leading(float2 (&v)[F], float sign) {
 
 // The length-n transform of C columns held in shared memory.
 // kRows == false: element (t, c) at s[t * C + c]   (a column tile, kernel 1)
-// kRows == true:  element (t, c) at s[c * n + t]   (C contiguous rows, kernels 2-3)
+// kRows == true:  element (t, c) at s[c * n + t]   (C contiguous rows, kernels 3, 13)
 // wq: (F, m, m) complex constants in device memory, wq[(q*m + b)*m + p'].
 // All kThreads threads of the block must call it; it ends with a barrier.
 // For n = 128 (F = 1, the DCT kernels' n = 256 rows) stage 1 is the identity

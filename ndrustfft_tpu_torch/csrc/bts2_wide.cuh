@@ -64,7 +64,7 @@
 // memory, bound them.
 //
 // Tile layouts (C = transforms of the tile, V <= C valid):
-//   kRows:  element (t, c) at s[c * n + t]   (contiguous rows: K10, K2, K3)
+//   kRows:  element (t, c) at s[c * n + t]   (contiguous rows: K3, K13)
 //   cols:   element (t, c) at s[t * C + c]   (a column tile: K1)
 #pragma once
 

@@ -1,16 +1,15 @@
 // The bts2 C2C of a column tile (kernel 1, fft_axis_mid.cu) and of a row
-// tile (kernel 10, fft_rows.cu), each on the fixed core (F in {4, 8, 16},
+// tile (kernel 13's rows), each on the fixed core (F in {4, 8, 16},
 // bts2_core.cuh) and the wide core (every other F <= 160, bts2_wide.cuh).
-// Kernels 7 and 13 (fft_fourstep.cu) are the same kernels with another
-// store, so the kernels take the store as a struct Io:
+// Kernels 7 and 13 (fft_fourstep.cu) take the column and the row tile with
+// a store of their own, so the kernels take the store as a struct Io:
 //
 //   column tile, x: (B, n, L):  io.store(b, k, col, v)  output k of column col
 //   row tile,    x: (T, n):     io.store(r, k, v)       output k of row r
 //
-// A row store also names the order of the fixed kernel's store loop:
-// Io::kByBin false walks the tile row by row (consecutive threads on
-// consecutive bins of one row), true bin by bin (consecutive threads on
-// consecutive rows of one bin, for kernel 13's transposed store).
+// The fixed row kernel's store loop walks the tile bin by bin (consecutive
+// threads on consecutive rows of one bin), the order of kernel 13's
+// transposed store.
 #pragma once
 
 #include "bts2_wide.cuh"
@@ -25,14 +24,6 @@ struct MidStore {
   __device__ void store(long long b, long long k, long long col, float2 v) const {
     y[(b * n + k) * L + col] = v;
   }
-};
-
-// Kernel 10's store: y (T, n) like x.
-struct RowStore {
-  static constexpr bool kByBin = false;
-  float2* __restrict__ y;
-  int n;
-  __device__ void store(long long r, long long k, float2 v) const { y[r * n + k] = v; }
 };
 
 // One block per (b, tile of C columns). The block reads its n x C tile of
@@ -105,8 +96,8 @@ c2c_rows_kernel(const float2* __restrict__ x, Io io, const float2* __restrict__ 
   __syncthreads();
   Bts2<F, R, true>::run(s, wq, sign);
   for (int idx = threadIdx.x; idx < valid * N; idx += kThreads) {
-    const int i = Io::kByBin ? idx % valid : idx / N;
-    const int k = Io::kByBin ? idx / valid : idx % N;
+    const int i = idx % valid;
+    const int k = idx / valid;
     io.store(row0 + i, k, s[i * N + k]);
   }
 }

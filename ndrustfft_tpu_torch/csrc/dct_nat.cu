@@ -12,8 +12,8 @@
 // rustdct convention times a scale s (the handler's policy: Default s = 2).
 //
 //   DCT-II  (Makhoul): v = [x0, x2, .., x_{n-2}, x_{n-1}, .., x3, x1];
-//           V = FFT_n(v), a real input, by kernel 2's half-length R2C on the
-//           bts2 core: z[t] = v[2t] + i v[2t+1], Z = FFT_h(z),
+//           V = FFT_n(v), a real input, by the half-length R2C (kernel 2's math)
+//           on the bts2 core: z[t] = v[2t] + i v[2t+1], Z = FFT_h(z),
 //           V[k] = (Z[k] + conj Z[-k]) / 2 - i W_n^k (Z[k] - conj Z[-k]) / 2;
 //           y[k] = Re(P[k] V[k]) and y[n-k] = Re(P[n-k] conj V[k]), with the
 //           post twiddle P[k] = s e^{-i pi k / 2n}.

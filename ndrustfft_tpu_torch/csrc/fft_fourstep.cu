@@ -19,17 +19,19 @@
 // (ops/hopper/fft.py::fourstep_tw); a block reads the columns of its tile.
 //
 // Kernel 13 replaces fft.py::_kernel_lane_store_t (pallas_call at :1895): a
-// row FFT of length n2 = 128 * F on kernel 10's code, the user scale folded
+// row FFT of length n2 = 128 * F on the bts2 row tile, the user scale folded
 // into Wq, its output stored transposed, so that the four-step's
 // (k1, k2) -> (k2, k1) transpose costs no pass of its own. Row r = b n1 + k1
 // of the (B n1, n2) rows and bin k2 go to y[(b n2 + k2) n1 + k1]; b and k1
 // are computed for each row (a block's rows may cross a batch boundary).
 //
-// Both are kernels 1 and 10 (c2c_tile.cuh) with the stores below.
+// Both are the bts2 column and row tiles of c2c_tile.cuh (kernel 1's, and
+// the row tile that kernel 10 ran before it moved onto the radix core) with
+// the stores below.
 //
 // What bounds them on this card: each is its core's stage 2, the dense
 // DFT-128 (4 * 128 real FMAs per complex output) on the FP32 CUDA cores, as
-// for kernels 1 and 10: at n = 2^20 over 256 rows, 275 GFLOP per pass,
+// for kernel 1: at n = 2^20 over 256 rows, 275 GFLOP per pass,
 // >= 4.1 ms at 67 TFLOP/s, against 4.3 GB of HBM traffic (1.28 ms at
 // 3.35 TB/s). Kernel 7 adds one 8-byte table read per output, which stays
 // in the 50 MB L2 (8 MB at 2^20); kernel 13's store is scattered. The
@@ -56,10 +58,8 @@ struct TwStore {
   }
 };
 
-// Kernel 13's store: row r = b n1 + k1, bin k2 to y[(b n2 + k2) n1 + k1],
-// the fixed kernel's loop bin by bin.
+// Kernel 13's store: row r = b n1 + k1, bin k2 to y[(b n2 + k2) n1 + k1].
 struct TransposedStore {
-  static constexpr bool kByBin = true;
   float2* __restrict__ y;
   int n, n1;
   __device__ void store(long long r, long long k, float2 v) const {
@@ -100,7 +100,7 @@ extern "C" int ndfft_fourstep_mid_wide(const void* x, void* y, const void* wq, c
 
 // Kernel 13 on the fixed core, n2 = 128 * F with F in {4, 8, 16}. x: (T, n2)
 // complex64 rows, T = B * n1, contiguous; y: (B, n2, n1) complex64; wq:
-// (F, 128, 128) complex64 (kernel 10's constants for n2, sign and the
+// (F, 128, 128) complex64 (kernel 1's constants for n2, sign and the
 // scale). R: rows per block, a power of two with n2 * R <= 8192. Returns the
 // cudaError_t of the launch (0 on success).
 extern "C" int ndfft_rows_store_t(const void* x, void* y, const void* wq, long long T, int n1,

@@ -1,9 +1,9 @@
 // The mixed-radix core: a Stockham autosort FFT in shared memory, for any
 // n <= 20480 whose prime factors are at most 127, on a tile of contiguous
-// complex64 rows or of columns. Kernel 10 runs it on rows at n = 128 * F
-// with F outside the bts2 core's {4, 8, 16} and kernel 8 at every n <= 20480
-// it takes (fft_rows_radix.cu); kernel 15 at a generic half length on rows
-// with its unpack as the epilogue (rfft_radix.cu); kernel 11 at every
+// complex64 rows or of columns. Kernel 10 runs it on rows at every
+// n = 128 * F and kernel 8 at every n <= 20480 it takes (fft_rows_radix.cu);
+// kernels 2 and 15 at their half length on rows with the R2C's unpack as
+// the epilogue (rfft_radix.cu); kernel 11 at every
 // convolution length M = 128 * F on an (M, C) column tile, its forward and
 // inverse length-M transforms in place (fft_blue_radix.cu); kernels 6 and 4
 // (n > 512 without a split; n <= 512) on an (n, C) column tile with the
@@ -11,7 +11,8 @@
 //
 // Replaces, for the CUDA port, the JAX package's
 // ndrustfft_tpu/ops/pallas/fft.py::_kernel_twostep (the twostep split
-// m = 128 at those F), ::_kernel_lane_last (its dense lane DFT at n <= 256
+// m = 128), rfft.py::_r2c_kernel_nat and ::_r2c_kernel (the R2C's
+// half-length FFT), fft.py::_kernel_lane_last (its dense lane DFT at n <= 256
 // and its generic lane schedule above), ::_kernel_axis_mid (the generic
 // schedule along a middle axis), ::_kernel_axis_mid_dense (the dense DFT-n
 // along a middle axis at n <= 512) and ::_kernel_axis_mid_blue (the
@@ -68,8 +69,8 @@
 //
 // Left for later: cp.async or TMA prefetch of the next tile, twiddles
 // staged in shared memory, and the other routes that run dense stages
-// (kernel 13's rows, kernel 7's columns, kernel 12's chirp-z, kernel 10's
-// fixed core).
+// (kernel 13's rows, kernel 7's columns, kernel 12's chirp-z, kernel 3's
+// C2R).
 #pragma once
 
 #include <cstdint>

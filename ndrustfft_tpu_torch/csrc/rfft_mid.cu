@@ -6,7 +6,7 @@
 // Kernel 16 replaces ndrustfft_tpu/ops/pallas/rfft.py::_r2c_kernel_mid
 // (built by _build_r2c_mid); kernel 17 replaces rfft.py::_c2r_kernel_mid
 // (built by _build_c2r_mid). They are kernels 2 and 3's unpack math
-// (rfft_nat.cu) in kernel 1's column-tile layout (fft_axis_mid.cu): one block
+// (rfft_radix.cu, rfft_nat.cu) in kernel 1's column-tile layout (fft_axis_mid.cu): one block
 // per (b, tile of C columns), the shared core Bts2<F, C, false>
 // (bts2_core.cuh) as the half-length FFT of each column, in shared memory.
 //

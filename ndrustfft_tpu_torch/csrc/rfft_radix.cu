@@ -1,10 +1,22 @@
-// Kernel 15 at a half length h > 256 without a {128, 256} split: the packed
-// R2C of contiguous (T, n) float32 rows, n = 2h, to (T, h + 1) complex64
-// (h = 265 at n = 530 and h = 300 at n = 600; odd h included), on the
-// mixed-radix row core (fft_radix.cuh) with the unpack as its epilogue.
+// Kernels 2 and 15: the R2C of contiguous (T, n) float32 rows, n = 2h, to
+// (T, h + 1) complex64, on the mixed-radix row core (fft_radix.cuh) with
+// the unpack as its epilogue: kernel 2 at every h = 128 * F (F <= 160, with
+// prime factors <= 127), kernel 15 at those h and at a half length h > 256
+// without a {128, 256} split (h = 265 at n = 530 and h = 300 at n = 600;
+// odd h included).
 //
-// Replaces ndrustfft_tpu/ops/pallas/rfft.py::_r2c_kernel where
-// _half_fft_consts falls back to the generic lane-last schedule. The TPU
+// Replaces ndrustfft_tpu/ops/pallas/rfft.py::_r2c_kernel_nat (kernel 2)
+// and ::_r2c_kernel (kernel 15, the even/odd streams of the lane
+// lowerings, which are the natural row read as complex pairs). Kernel 2
+// and kernel 15 at h = 128 * F ran on the bts2 core until this file took
+// them: a dense DFT-128 per output, compute-bound (4 * 128 FMAs per complex
+// output), and on the wide core at F outside {1, 2, 4, 8, 16} each tile
+// read the F * 128 * 128 * 8-byte Wq table from L2 (16.8 MB per row at
+// h = 16384, each value feeding one row); here the table holds h entries
+// (131 KB at h = 16384, one row of 512 threads of 32 elements a block).
+//
+// Kernel 15's generic half lengths: _half_fft_consts falls back to the
+// generic lane-last schedule there. The TPU
 // kernel ran the rows [z; conj z] of the even/odd streams through its
 // length-h FFT (two dense products) and unpacked Z and C = conj Z[(h - k)
 // mod h]. Its first Hopper form ran the same two dense products,
@@ -13,8 +25,9 @@
 //
 // What bounds it on this card: device memory. A row is read once (8 h
 // bytes) and its h + 1 bins written once (8 (h + 1) bytes): 0.517 ms at
-// (360000, 600) over 3.35 TB/s, against about 2.5 n log2 n FP32 operations
-// per row (0.06 ms of the 67 TFLOP/s peak).
+// (360000, 600) and 0.321 ms at (262144, 512) over 3.35 TB/s, against about
+// 2.5 n log2 n FP32 operations per row (0.06 ms of the 67 TFLOP/s peak at
+// (360000, 600)).
 //
 // The design: a contiguous float32 row of length 2h is the complex row
 // z[t] = x[2t] + i x[2t + 1], so the row core's 16-byte load reads it as

@@ -100,8 +100,8 @@ _ROW_KERNELS = {gates.C2C_ROWS: _kfft.c2c_rows, gates.C2C_DENSE_ROWS: _kfft.c2c_
 def c2c(x: torch.Tensor, plan: C2CPlan, scale=None) -> torch.Tensor:
     """Batched C2C FFT along the last axis, unnormalized; ``scale`` (a
     python float) multiplies the result, folded into the kernel constants.
-    complex64 over >= 128 rows takes kernel 10 (256 < n = 128 * F <= 20480,
-    on the fixed or the wide core) or kernel 8 (its dense lane DFT at
+    complex64 over >= 128 rows takes kernel 10 (256 < n = 128 * F <= 20480)
+    or kernel 8 (its dense lane DFT at
     n <= 256, the generic schedule at 256 < n <= 20480 without a split);
     complex64 at 20480 < n <= 2^22 with a four-step split takes
     :func:`_fourstep` over any number of rows. A Bluestein plan runs
@@ -221,8 +221,8 @@ def r2c_packed(x: torch.Tensor, plan: R2CPlan) -> torch.Tensor:
     """Half-spectrum of real rows (..., n), n even, by the half-length C2C of
     z[t] = x[2t] + i x[2t+1] and the unpack: kernel 15 for float32 over
     >= 128 rows (the rows go to it whole: a contiguous float32 row of length
-    2h is the complex row z; the core, the dense product or the generic
-    schedule by h), else :func:`c2c` and the unpack."""
+    2h is the complex row z; the radix row core at h = 128 * F or a generic
+    h, the dense product at every other h <= 256), else :func:`c2c` and the unpack."""
     n, m = plan.n, plan.m
     h = n // 2
     if x.dtype == torch.float32 and _kernel_device(x) \

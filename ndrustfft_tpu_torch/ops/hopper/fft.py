@@ -5,10 +5,9 @@
   ``csrc/bts2_core.cuh`` for F in {4, 8, 16}, on its runtime-F form
   ``csrc/bts2_wide.cuh`` for every other F <= 160; replaces the JAX
   package's ``ops/pallas/fft.py::_kernel_axis_mid_bts2``).
-* Kernel 10, :func:`c2c_rows`: C2C of contiguous (T, n) rows, n = 128 * F
-  (``csrc/fft_rows.cu`` on the fixed core for F in {4, 8, 16}; every other
-  F on the mixed-radix Stockham row core, ``csrc/fft_rows_radix.cu`` and
-  ``csrc/fft_radix.cuh``; replaces ``fft.py::_kernel_twostep``).
+* Kernel 10, :func:`c2c_rows`: C2C of contiguous (T, n) rows, n = 128 * F,
+  at every F on the mixed-radix Stockham row core (``csrc/fft_rows_radix.cu``
+  and ``csrc/fft_radix.cuh``; replaces ``fft.py::_kernel_twostep``).
 * Kernel 4, :func:`c2c_dense_mid`: C2C of length n <= 512 along the middle
   axis of (B, n, L) (the JAX package's dense DFT-n body), on kernel 6's
   column tile of the radix core with up to 32 columns a tile
@@ -33,9 +32,10 @@
   exit twiddle W_n^{k1 t2} (kernel 1's kernels of ``csrc/c2c_tile.cuh``
   with a twiddle store on either core, or a dense product for n1 <= 256,
   the twiddle in its epilogue; ``csrc/fft_fourstep.cu`` and
-  ``csrc/fft_dense.cu``; replaces ``fft.py::_kernel_exit_mul``). Kernel 13 is kernel 10's row C2C of
-  length n2 = 128 * F with the scale and a transposed store, (B, n2, n1)
-  (``csrc/fft_fourstep.cu``; replaces ``fft.py::_kernel_lane_store_t``).
+  ``csrc/fft_dense.cu``; replaces ``fft.py::_kernel_exit_mul``). Kernel 13 is the row C2C of
+  length n2 = 128 * F on the bts2 core with the scale and a transposed
+  store, (B, n2, n1) (``csrc/fft_fourstep.cu``; replaces
+  ``fft.py::_kernel_lane_store_t``).
 * Kernel 14, :func:`spectral_c2c_mid`: the fused pipeline IFFT(H * FFT(x))
   along the middle axis of (B, n, L), n = 128 * F, the diagonal multiply
   between two cores on one column tile (``csrc/spectral_c2c_mid.cu``, the
@@ -45,10 +45,10 @@
 This module holds their host-built constants, their plain PyTorch versions
 and their wrappers, whose ``launches`` attributes count kernel launches
 (kernels 1, 7, 13 and 14 also count the wide core's launches apart, in
-``wide_launches``, kernel 7 its dense body's, in ``dense_launches``, and
-kernel 10 the radix core's, in ``radix_launches``, which kernels 8, 6, 4
-and 11 count beside ``launches`` for every launch of ``c2c_dense_rows``,
-``c2c_generic_mid``, ``c2c_dense_mid`` and ``c2c_blue_mid``).
+``wide_launches``, kernel 7 its dense body's, in ``dense_launches``;
+kernels 10, 8, 6, 4 and 11 count every launch of ``c2c_rows``,
+``c2c_dense_rows``, ``c2c_generic_mid``, ``c2c_dense_mid`` and
+``c2c_blue_mid`` in ``radix_launches`` beside ``launches``).
 """
 
 from __future__ import annotations
@@ -65,7 +65,7 @@ from . import _build
 
 M = 128                 # stage-2 DFT length of the core
 CORE_F = (2, 4, 8, 16)  # butterfly factors the fixed core instantiates
-C2C_F = (4, 8, 16)      # factors kernels 1 and 10 take on the fixed core
+C2C_F = (4, 8, 16)      # factors kernels 1, 7, 13 and 14 take on the fixed core
 SMEM_ELEMS = 8192       # complex elements of one block's tile (64 KB)
 DENSE_MAX_N = 512       # longest transform kernels 4 and 8 take
 GENERIC_MAX_N = 20480   # the JAX package's kernel bound (fft._LIVE_COPIES)
@@ -304,26 +304,17 @@ c2c_axis_mid.wide_launches = 0
 
 
 # --------------------------------------------------------------------------
-# Kernels 10 and 8 (n > 256): C2C of contiguous rows
+# Kernel 10: C2C of contiguous rows of n = 128 * F
 # --------------------------------------------------------------------------
 
 
 def _bts2_rows_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
     """The bts2 core's plain version on the rows of a (T, n) tensor, n = 128
-    * F, on a (T, n, 1) view with kernel 1's constants: kernel 10's fixed
-    form and kernel 13's rows."""
+    * F, on a (T, n, 1) view with kernel 1's constants: kernel 13's rows."""
     t, n = x.shape
     s = 1.0 if scale is None else float(scale)
     return bts2_plain(x.reshape(t, n, 1), device_wq(n, sign, s, x.device),
                       sign).reshape(t, n)
-
-
-def c2c_rows_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
-    """Plain version of kernel 10: the bts2 core's at F in {4, 8, 16}, the
-    radix core's (:func:`c2c_radix_rows_plain`) at every other F."""
-    if x.shape[1] // M in C2C_F:
-        return _bts2_rows_plain(x, sign, scale)
-    return c2c_radix_rows_plain(x, sign, scale)
 
 
 def _check_rows(x: torch.Tensor, what: str) -> None:
@@ -333,35 +324,21 @@ def _check_rows(x: torch.Tensor, what: str) -> None:
 
 def c2c_rows(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
     """C2C of the rows of a (T, n) complex64 tensor, n = 128 * F
-    (:func:`core_f`), times ``scale``. A CPU tensor runs the plain version;
-    a CUDA tensor launches kernel 10 (on the fixed bts2 core for F in {4, 8,
-    16}, else on the mixed-radix row core, counted in ``radix_launches``) or
+    (:func:`core_f`), times ``scale``. A CPU tensor runs the plain version
+    (:func:`c2c_rows_plain`); a CUDA tensor launches kernel 10 on the
+    mixed-radix row core, counted in ``launches`` and ``radix_launches``, or
     raises."""
     _check_rows(x, "c2c_rows")
     t, n = x.shape
-    f = check_core_n(n, "c2c_rows")
+    check_core_n(n, "c2c_rows")
     if x.device.type == "cpu":
         return c2c_rows_plain(x, sign, scale)
     if x.device.type != "cuda":
         raise ValueError(f"c2c_rows: unsupported device {x.device}")
     check_cuda(x, torch.complex64, "c2c_rows")
-    if f not in C2C_F:
-        y = _radix_launch(x, sign, scale, "c2c_rows")
-        c2c_rows.launches += t > 0
-        c2c_rows.radix_launches += t > 0
-        return y
-    s = 1.0 if scale is None else float(scale)
-    wq = device_wq(n, sign, s, x.device)
-    y = torch.empty_like(x)
-    if t == 0:
-        return y
-    with torch.cuda.device(x.device):
-        err = _build.lib().ndfft_c2c_rows(
-            x.data_ptr(), y.data_ptr(), wq.data_ptr(), t, n,
-            block_rows(n, t, num_sms(x.device)), sign,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "c2c_rows")
-    c2c_rows.launches += 1
+    y = _radix_launch(x, sign, scale, "c2c_rows")
+    c2c_rows.launches += t > 0
+    c2c_rows.radix_launches += t > 0
     return y
 
 
@@ -370,16 +347,15 @@ c2c_rows.radix_launches = 0
 
 
 # --------------------------------------------------------------------------
-# The mixed-radix Stockham core (rows: kernel 10 at F outside {4, 8, 16},
-# kernel 8, kernel 15 at a generic half length; columns: kernels 11, 6
-# and 4)
+# The mixed-radix Stockham core (rows: kernels 10 and 8, kernels 2 and 15;
+# columns: kernels 11, 6 and 4)
 # --------------------------------------------------------------------------
 
 RADIX_CODELETS = (16, 8, 4, 2, 9, 3, 5, 7)  # radices the kernel runs in registers
 RADIX_MAX_P = 127           # the largest prime stage (a generic odd-p codelet)
 RADIX_MAX_STAGES = 8        # csrc/fft_radix.cuh::kRadixMaxStages
-RADIX_TILE = 2560           # complex elements of a block's tile of several rows
-RADIX_SMALL_TILE = 512      # ... of rows of n <= 256 (kernel 8 at its dense lane lengths)
+RADIX_SMALL_TILE = 512      # complex elements of a block's tile of rows of n <= 256
+RADIX_IDLE_LANES = 8        # above n = 256, a block leaves idle at most 1 lane in 8
 RADIX_WIDE_N = 4096         # above it, one row a block (csrc/fft_radix.cuh)
 RADIX_MAX_THREADS = 256     # threads of a block up to RADIX_WIDE_N, 16 elements each
 RADIX_MAX_ELEMS = 20480     # elements of a block's tile: 512 threads of 40 (csrc/fft_radix.cuh)
@@ -475,18 +451,37 @@ def c2c_radix_rows_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor
     return x if scale is None else x * float(scale)
 
 
+c2c_rows_plain = c2c_radix_rows_plain   # kernel 10 runs the radix core at every F
+
+
 def radix_block(n: int, count: int, sms: int) -> int:
-    """Rows per block of the radix core: as many as RADIX_TILE elements hold
-    (RADIX_SMALL_TILE at n <= 256; at least one) whose threads fit a block
-    (a thread holds 16 elements up to RADIX_WIDE_N; above it a block holds
-    one row), halved while the grid would leave SMs idle, then spread evenly
-    over the tiles so that a ragged last tile is as full as the others.
-    (RADIX_TILE: tiles of 1 to 6 rows at n = 600 ... 1200 timed on an H100
-    ran fastest, or nearly, at about 2400 elements; at n = 256, 2 rows a
-    block ran 10% faster than 10: chip_smoke.py's phase 5 times each count
-    at kernel 8's main shape.)"""
-    tile = RADIX_SMALL_TILE if n <= 256 else RADIX_TILE
-    rows = max(1, min(tile // n, RADIX_MAX_THREADS // -(-n // 16)))
+    """Rows per block of the radix core. A thread holds 16 elements up to
+    RADIX_WIDE_N, so a row takes tr = ceil(n / 16) threads and a block at
+    most RADIX_MAX_THREADS; above it a block holds one row. At n <= 256 a
+    block takes as many rows as RADIX_SMALL_TILE elements hold; above, the
+    fewest rows whose r * tr threads leave at most one lane in
+    RADIX_IDLE_LANES of the block's warps idle (else the count that leaves
+    the smallest share idle). Then the count is halved while the grid would
+    leave SMs idle, and spread evenly over the tiles so that a ragged last
+    tile is as full as the others.
+
+    (Timed on an H100 over 2^27 elements with each count that fits,
+    ``time_kernels.py --scan-rows``: a block of few warps ends its stages'
+    barriers sooner, and idle lanes waste its warps' issue slots. The rule's
+    count ran fastest, or within 5% of it, at n = 264 ... 2048 and
+    h = 128 ... 1024, and up to 22% faster than the 2560-element tiles it
+    replaced at n = 384, 512, 768; at n = 256, 2 rows a block ran 10%
+    faster than 10.)"""
+    tr = -(-n // 16)
+    if n > RADIX_WIDE_N:
+        rows = 1
+    elif n <= 256:
+        rows = max(1, min(RADIX_SMALL_TILE // n, RADIX_MAX_THREADS // tr))
+    else:
+        fits = range(1, RADIX_MAX_THREADS // tr + 1)
+        idle = [(-r * tr % 32) / (32 * -(-r * tr // 32)) for r in fits]
+        rows = next((r for r, f in zip(fits, idle) if f <= 1 / RADIX_IDLE_LANES),
+                    fits[idle.index(min(idle))])
     while rows > 1 and -(-count // rows) < sms:
         rows //= 2
     return -(-count // -(-count // rows))

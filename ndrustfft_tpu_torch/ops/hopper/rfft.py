@@ -1,11 +1,14 @@
 """The R2C and C2R kernels.
 
-* Kernels 2 and 3, :func:`r2c_nat` and :func:`c2r_nat`: R2C and C2R of
-  contiguous (T, n) rows, even n, h = n/2 = 128 * F (``csrc/rfft_nat.cu`` on
-  the shared core ``csrc/bts2_core.cuh`` for F in {1, 2, 4, 8, 16}, on its
-  runtime-F form ``csrc/bts2_wide.cuh`` for every other F <= 160; replace
-  the JAX package's ``ops/pallas/rfft.py::_r2c_kernel_nat`` and
-  ``_c2r_kernel_nat``).
+* Kernel 2, :func:`r2c_nat`: R2C of contiguous (T, n) rows, even n,
+  h = n/2 = 128 * F, at every F on the mixed-radix row core with the unpack
+  as its epilogue in shared memory (``csrc/rfft_radix.cu`` on
+  ``csrc/fft_radix.cuh``; replaces the JAX package's
+  ``ops/pallas/rfft.py::_r2c_kernel_nat``).
+* Kernel 3, :func:`c2r_nat`: the C2R of the same rows (``csrc/rfft_nat.cu``
+  on the shared core ``csrc/bts2_core.cuh`` for F in {1, 2, 4, 8, 16}, on
+  its runtime-F form ``csrc/bts2_wide.cuh`` for every other F <= 160;
+  replaces ``rfft.py::_c2r_kernel_nat``).
 * Kernels 16 and 17, :func:`r2c_mid` and :func:`c2r_mid`: the same two along
   the middle axis of (B, n, L), kernel 1's column-tile layout of the core
   (``csrc/rfft_mid.cu``, the fixed core for F in {2, 4, 8, 16}, the wide core
@@ -24,14 +27,14 @@
   R2C of two (B, h, L) streams, z = xe + i xo (DST-I's odd extension), and
   DCT-I of (B, h + 1, L) on its even extension, both times a scale.
 * Kernel 15, the packed R2C of contiguous (T, n) rows (replaces
-  ``rfft.py::_r2c_kernel``), in three CUDA kernels by half length h = n/2:
-  :func:`r2c_packed` for h = 128 * F is kernel 2's code
-  (``csrc/rfft_nat.cu``, both cores, with F = 1 added); :func:`r2c_packed_dense`
-  for every other h <= 256 is kernel 20's real product with its table, in
-  the row layout (``csrc/rfft_dense.cu``); :func:`r2c_packed_generic` for
-  h > 256 without a split is the half-length C2C on kernel 8's mixed-radix
-  row core with the unpack as its epilogue in shared memory
-  (``csrc/rfft_radix.cu`` on ``csrc/fft_radix.cuh``).
+  ``rfft.py::_r2c_kernel``), in two CUDA kernels by half length h = n/2:
+  :func:`r2c_packed` for h = 128 * F (kernel 2's code, with F = 1 added) and
+  :func:`r2c_packed_generic` for h > 256 without a split are the
+  half-length C2C on the mixed-radix row core with the unpack as its
+  epilogue in shared memory (``csrc/rfft_radix.cu`` on
+  ``csrc/fft_radix.cuh``); :func:`r2c_packed_dense` for every other
+  h <= 256 is kernel 20's real product with its table, in the row layout
+  (``csrc/rfft_dense.cu``).
 * Kernel 22, :func:`spectral_r2c_mid`: the fused pipeline C2R(H * R2C(x))
   along the middle axis of (B, n, L), kernel 16's forward, the multiply and
   kernel 17's inverse on one column tile (``csrc/spectral_r2c_mid.cu``, the
@@ -40,8 +43,9 @@
 
 This module holds their host-built constants, their plain PyTorch versions
 and their wrappers, whose ``launches`` attributes count kernel launches
-(kernels 2, 3, 15, 16, 17, 18, 19 and 22 on the core also count the wide
-core's launches apart, in ``wide_launches``).
+(kernels 3, 16, 17, 18, 19 and 22 on the bts2 core also count the wide
+core's launches apart, in ``wide_launches``; kernels 2 and 15 at h = 128 * F
+count every launch in ``radix_launches`` as well).
 """
 
 from __future__ import annotations
@@ -62,15 +66,15 @@ from .fft import (CORE_F, GENERIC_MAX_N, M, RADIX_MAX_STAGES, block_cols, block_
 # lengths kernels 20 and 21 take: the JAX package's rfft_dense_mid_supported
 # (its _DENSE_RFFT_MAX), which the routes mirror
 DENSE_MIN_N, DENSE_MAX_N = 4, 1100
-# half-length factors the fixed core of kernels 2, 3 and 15 instantiates
-# (every other h = 128 * F runs on the wide core), and the dense lane DFT's
-# h <= 256 (the JAX package's _half_fft_consts)
+# half-length factors the fixed core of kernel 3 instantiates (every other
+# h = 128 * F runs on the wide core), and the dense lane DFT's h <= 256 (the
+# JAX package's _half_fft_consts)
 PACKED_F = (1, 2, 4, 8, 16)
 PACKED_DENSE_MAX_H = 256
 
 
 def packed_core(h: int) -> bool:
-    """Kernel 15 runs the bts2 core (:func:`r2c_packed`) at half length h."""
+    """Kernel 15 takes half length h = 128 * F (:func:`r2c_packed`)."""
     return core_f(h) is not None
 
 
@@ -120,14 +124,18 @@ def _unpack(zz: torch.Tensor, tw: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.cat([spec, (z0.real - z0.imag).to(spec.dtype)], dim=dim)
 
 
-def r2c_nat_plain(x: torch.Tensor) -> torch.Tensor:
-    """Plain version of kernel 2: (T, n) float32 -> (T, n/2+1) complex64."""
+def r2c_radix_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the R2C on the radix row core (kernels 2 and 15):
+    (T, n) float32 -> (T, n/2+1) complex64, the radix core's plain version
+    on the row read as its complex pairs z[t] = x[2t] + i x[2t+1] (h = n / 2
+    of them), then the unpack."""
     t, n = x.shape
     h = n // 2
-    z = torch.view_as_complex(x.reshape(t, h, 2).contiguous())  # x[2t] + i x[2t+1]
-    zz = bts2_plain(z.reshape(t, h, 1), device_wq(h, -1, 1.0, x.device),
-                    -1).reshape(t, h)
-    return _unpack(zz, _device_tw(n, x.device), -1)
+    z = torch.view_as_complex(x.reshape(t, h, 2).contiguous())
+    return _unpack(c2c_radix_rows_plain(z, -1), _device_tw(n, x.device), -1)
+
+
+r2c_nat_plain = r2c_radix_plain     # kernel 2
 
 
 def _mask_imag0(s: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -175,43 +183,44 @@ def _check_nat(n: int, what: str) -> int:
     return f
 
 
-def _launch_r2c_rows(x: torch.Tensor, wrapper) -> torch.Tensor:
-    """Kernel 2's code on the rows of a (T, n) float32 CUDA tensor, h = n/2
-    = 128 * F, for ``wrapper`` (kernel 2's or kernel 15's), whose launch
-    counts it adds one to where it launches: the fixed core for F in
-    PACKED_F, else the wide core."""
-    what = wrapper.__name__
+def r2c_radix_launch(x: torch.Tensor, what: str, rows=None) -> torch.Tensor:
+    """The R2C of the rows of a (T, n) float32 CUDA tensor at half length h
+    = n/2 on the radix row core with the unpack epilogue (kernels 2 and 15),
+    ``rows`` a block (by default :func:`radix_block`); counts nothing."""
     check_cuda(x, torch.float32, what)
     if x.data_ptr() % 8:       # the kernel reads rows as float2
         x = x.clone()
     t, n = x.shape
     h = n // 2
-    wq = device_wq(h, -1, 1.0, x.device)
-    tw = _device_tw(n, x.device)
+    plan = radix_plan(h)
+    table = device_radix(h, -1, x.device)
+    u = _device_tw(n, x.device)
     out = torch.empty((t, h + 1), dtype=torch.complex64, device=x.device)
     if t == 0:
         return out
-    wide = h // M not in PACKED_F
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        if wide:
-            err = _build.lib().ndfft_r2c_nat_wide(
-                x.data_ptr(), out.data_ptr(), wq.data_ptr(),
-                device_wide(h, -1, x.device).data_ptr(), tw.data_ptr(), t, n,
-                wide_block(h, 1, t, num_sms(x.device)), stream)
-        else:
-            err = _build.lib().ndfft_r2c_nat(
-                x.data_ptr(), out.data_ptr(), wq.data_ptr(), tw.data_ptr(), t, n,
-                block_rows(h, t, num_sms(x.device)), stream)
+        err = _build.lib().ndfft_r2c_radix(
+            x.data_ptr(), out.data_ptr(), table.data_ptr(),
+            (ctypes.c_int * RADIX_MAX_STAGES)(*plan), len(plan), u.data_ptr(), t, h,
+            rows or radix_block(h, t, num_sms(x.device)),
+            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, what)
-    count_launch(wrapper, wide)
+    return out
+
+
+def _r2c_rows(x: torch.Tensor, wrapper) -> torch.Tensor:
+    """``wrapper``'s (kernel 2's or 15's) launch on the radix row core,
+    counted in its ``launches`` and ``radix_launches``."""
+    out = r2c_radix_launch(x, wrapper.__name__)
+    wrapper.launches += x.shape[0] > 0
+    wrapper.radix_launches += x.shape[0] > 0
     return out
 
 
 def r2c_nat(x: torch.Tensor) -> torch.Tensor:
     """R2C of the rows of a (T, n) float32 tensor -> (T, n/2+1) complex64,
     h = n/2 = 128 * F. A CPU tensor runs the plain version; a CUDA tensor
-    launches kernel 2 or raises."""
+    launches kernel 2 on the radix row core or raises."""
     if x.dim() != 2:
         raise ValueError(f"r2c_nat: expected (T, n), got {tuple(x.shape)}")
     _check_nat(x.shape[1], "r2c_nat")
@@ -219,11 +228,11 @@ def r2c_nat(x: torch.Tensor) -> torch.Tensor:
         return r2c_nat_plain(x)
     if x.device.type != "cuda":
         raise ValueError(f"r2c_nat: unsupported device {x.device}")
-    return _launch_r2c_rows(x, r2c_nat)
+    return _r2c_rows(x, r2c_nat)
 
 
 r2c_nat.launches = 0
-r2c_nat.wide_launches = 0
+r2c_nat.radix_launches = 0
 
 
 def c2r_nat(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
@@ -720,28 +729,25 @@ def _check_packed(x: torch.Tensor, what: str) -> None:
         raise TypeError(f"{what}: expected torch.float32, got {x.dtype}")
 
 
-def r2c_packed_plain(x: torch.Tensor) -> torch.Tensor:
-    """Plain version of :func:`r2c_packed`: kernel 2's (the core's plain
-    version on the row as its complex pairs, then the unpack)."""
-    return r2c_nat_plain(x)
+r2c_packed_plain = r2c_radix_plain          # kernel 15 at h = 128 * F
 
 
 def r2c_packed(x: torch.Tensor) -> torch.Tensor:
     """R2C of the rows of a (T, n) float32 tensor -> (T, h+1) complex64,
     h = n/2 = 128 * F (:func:`packed_core`). A CPU tensor runs the plain
-    version; a CUDA tensor launches kernel 15 on the core (fixed for F in
-    PACKED_F, else wide) or raises."""
+    version; a CUDA tensor launches kernel 15 on the radix row core or
+    raises."""
     _check_packed(x, "r2c_packed")
     _check_nat(x.shape[1], "r2c_packed")
     if x.device.type == "cpu":
         return r2c_packed_plain(x)
     if x.device.type != "cuda":
         raise ValueError(f"r2c_packed: unsupported device {x.device}")
-    return _launch_r2c_rows(x, r2c_packed)
+    return _r2c_rows(x, r2c_packed)
 
 
 r2c_packed.launches = 0
-r2c_packed.wide_launches = 0
+r2c_packed.radix_launches = 0
 
 
 def r2c_packed_dense_plain(x: torch.Tensor) -> torch.Tensor:
@@ -786,14 +792,7 @@ def r2c_packed_dense(x: torch.Tensor) -> torch.Tensor:
 r2c_packed_dense.launches = 0
 
 
-def r2c_packed_generic_plain(x: torch.Tensor) -> torch.Tensor:
-    """Plain version of :func:`r2c_packed_generic`: the radix core's plain
-    version on the row read as its complex pairs z (h = n / 2 of them),
-    then the unpack."""
-    t, n = x.shape
-    h = n // 2
-    z = torch.view_as_complex(x.reshape(t, h, 2).contiguous())
-    return _unpack(c2c_radix_rows_plain(z, -1), _device_tw(n, x.device), -1)
+r2c_packed_generic_plain = r2c_radix_plain  # kernel 15 at a generic h
 
 
 def r2c_packed_generic(x: torch.Tensor) -> torch.Tensor:
@@ -812,22 +811,8 @@ def r2c_packed_generic(x: torch.Tensor) -> torch.Tensor:
         return r2c_packed_generic_plain(x)
     if x.device.type != "cuda":
         raise ValueError(f"r2c_packed_generic: unsupported device {x.device}")
-    check_cuda(x, torch.float32, "r2c_packed_generic")
-    if x.data_ptr() % 8:       # the kernel reads rows as float2
-        x = x.clone()
-    plan = radix_plan(h)
-    table = device_radix(h, -1, x.device)
-    u = _device_tw(n, x.device)
-    out = torch.empty((t, h + 1), dtype=torch.complex64, device=x.device)
-    if t == 0:
-        return out
-    with torch.cuda.device(x.device):
-        err = _build.lib().ndfft_r2c_radix(
-            x.data_ptr(), out.data_ptr(), table.data_ptr(),
-            (ctypes.c_int * RADIX_MAX_STAGES)(*plan), len(plan), u.data_ptr(), t, h,
-            radix_block(h, t, num_sms(x.device)), torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "r2c_packed_generic")
-    r2c_packed_generic.launches += 1
+    out = r2c_radix_launch(x, "r2c_packed_generic")
+    r2c_packed_generic.launches += t > 0
     return out
 
 

@@ -1,8 +1,8 @@
 """Plain versions of the C2C kernels 10, 8 and 4 against the JAX package's
 Pallas kernels (interpret mode); their constants and the wrappers' checks.
 
-* kernel 10 (``c2c_rows``) against ``c2c_pallas``'s twostep kernel at
-  n = 512, 1024, 2048;
+* kernel 10 (``c2c_rows``, the mixed-radix row core's plain version)
+  against ``c2c_pallas``'s twostep kernel at n = 512, 1024, 2048;
 * kernel 8 (``c2c_dense_rows``, the mixed-radix row core's plain version)
   against ``c2c_pallas``'s lane-last kernel at n <= 256 (its dense lane
   DFT), and against float64 numpy at n = 2, 3, 15, 16, 17, 129, 254, 256;
@@ -155,11 +155,15 @@ def test_dense_consts_bit_identical_to_the_jax_tables(n, sign, scale):
 
 
 def test_rows_are_kernel_1_on_a_one_column_view():
-    """Kernel 10 runs kernel 1's core and constants on rows: its plain
-    version is kernel 1's on a (T, n, 1) view, bit for bit."""
+    """The bts2 row tile (kernel 13's rows; kernel 10's until it moved onto
+    the radix row core) runs kernel 1's core and constants on rows: its
+    plain version is kernel 1's on a (T, n, 1) view, bit for bit. Kernel
+    10's plain version, the radix core's, agrees with it to float32."""
     x = torch.from_numpy(_cplx(np.random.default_rng(4), (5, 1024)))
-    assert torch.equal(kfft.c2c_rows(x, +1, 1 / 1024),
+    rows = kfft._bts2_rows_plain(x, +1, 1 / 1024)
+    assert torch.equal(rows,
                        kfft.c2c_axis_mid(x.reshape(5, 1024, 1), +1, 1 / 1024).reshape(5, 1024))
+    _close(kfft.c2c_rows(x, +1, 1 / 1024).numpy(), rows.numpy(), TOL_HIGHEST)
 
 
 def test_c2c_wrappers_on_cpu_count_no_launch():

@@ -339,18 +339,18 @@ def test_real_step_600_runs_on_the_generic_kernels(dev):
 
 
 def test_wide_kernels_match_plain(dev):
-    """Kernels 1, 2, 3 and 15 on the wide core and kernel 10 at the same F on
-    the radix core: odd, even and prime F (3, 5, 6, 9, 32, 127, 160), ragged
-    column and row tiles, and one column or row per block at n = 16256 and
-    20480."""
+    """Kernels 1 and 3 on the wide core and kernels 10, 2 and 15 at the same
+    F on the radix row core: odd, even and prime F (3, 5, 6, 9, 32, 127,
+    160), ragged column and row tiles, and one column or row per block at
+    n = 16256 and 20480."""
     g = torch.Generator(device=dev).manual_seed(10)
 
     def crandn(*shape):
         return torch.view_as_complex(torch.randn(*shape, 2, generator=g, device=dev))
 
     fns = (kfft.c2c_axis_mid, kfft.c2c_rows, krfft.r2c_nat, krfft.c2r_nat, krfft.r2c_packed)
-    forms = ("wide_launches", "radix_launches", "wide_launches", "wide_launches",
-             "wide_launches")
+    forms = ("wide_launches", "radix_launches", "radix_launches", "wide_launches",
+             "radix_launches")
     before = [getattr(f, a) for f, a in zip(fns, forms)]
     for shape in ((2, 768, 130), (1, 640, 129), (3, 384, 385), (1, 4096, 33), (1, 16256, 3),
                   (1, 20480, 2)):
@@ -412,18 +412,60 @@ def test_radix_kernel_matches_plain(dev):
     assert kfft.c2c_rows.radix_launches - radix == 24
 
 
+def test_kernel10_and_kernel2_run_the_radix_row_core(dev):
+    """Kernel 10 at n = 512, 1024, 2048 (the bts2 core's lengths before)
+    and kernels 2 and 15 at h = 128, 256, 384 and 16384 on the radix row
+    core: ragged row counts, both signs, with and without 1/n, an input
+    that is not 16-byte aligned, and no rows; every launch counted in
+    ``radix_launches``, no other kernel runs."""
+    g = torch.Generator(device=dev).manual_seed(26)
+
+    def crandn(*shape):
+        return torch.view_as_complex(torch.randn(*shape, 2, generator=g, device=dev))
+
+    before = _all_launches()
+    radix = [f.radix_launches for f in (kfft.c2c_rows, krfft.r2c_nat, krfft.r2c_packed)]
+    for t, n in ((130, 512), (129, 1024), (66, 2048), (1, 2048)):
+        x = crandn(t, n)
+        for sign, scale in ((-1, None), (+1, None), (-1, 1 / n), (+1, 1 / n)):
+            assert _rel(kfft.c2c_rows(x, sign, scale),
+                        kfft.c2c_rows_plain(x, sign, scale)) <= TOL, (t, n, sign, scale)
+    assert kfft.c2c_rows(crandn(0, 1024), -1).shape == (0, 1024)
+    for t, h in ((130, 128), (7, 256), (131, 384), (3, 16384)):
+        x = torch.randn(t, 2 * h, generator=g, device=dev)
+        for fn in ((krfft.r2c_packed,) if h == 128 else (krfft.r2c_nat, krfft.r2c_packed)):
+            got = fn(x)
+            assert got.shape == (t, h + 1)
+            assert _rel(got, krfft.r2c_radix_plain(x)) <= TOL, (fn.__name__, t, h)
+    x = torch.randn(5 * 1024 + 2, generator=g, device=dev)[2:].reshape(5, 1024)
+    assert x.data_ptr() % 16
+    assert _rel(krfft.r2c_nat(x), krfft.r2c_radix_plain(x)) <= TOL
+    assert _rel(krfft.r2c_packed(x), krfft.r2c_radix_plain(x)) <= TOL
+    assert krfft.r2c_nat(torch.zeros(0, 1024, device=dev)).shape == (0, 513)
+    after = _all_launches()
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert moved == {"ndrustfft_tpu_torch.ops.hopper.fft.c2c_rows": 16,
+                     "ndrustfft_tpu_torch.ops.hopper.rfft.r2c_nat": 4,
+                     "ndrustfft_tpu_torch.ops.hopper.rfft.r2c_packed": 5}
+    assert [f.radix_launches - b for f, b in
+            zip((kfft.c2c_rows, krfft.r2c_nat, krfft.r2c_packed), radix)] == [16, 4, 5]
+
+
 def test_real_step_768_runs_on_the_wide_kernels(dev):
     """The 768^2 real step with the real axis last: kernel 2 at h = 384
-    (F = 3), kernel 1 at (1, 768, 385) (F = 6) forward and back, kernel 3."""
+    (F = 3) on the radix row core, kernel 1 at (1, 768, 385) (F = 6) forward
+    and back and kernel 3 on the wide core."""
     g = torch.Generator(device=dev).manual_seed(11)
     x = torch.randn(768, 768, generator=g, device=dev)
     hr, hc = nd.R2cFftHandler(768), nd.FftHandler(768)
-    fns = (krfft.r2c_nat, kfft.c2c_axis_mid, krfft.c2r_nat)
+    fns = (kfft.c2c_axis_mid, krfft.c2r_nat)
     before = [(f.launches, f.wide_launches) for f in fns]
+    r2c = krfft.r2c_nat.launches, krfft.r2c_nat.radix_launches
     v = nd.ndfft(nd.ndfft_r2c(x, hr, axis=1), hc, axis=0)
     back = nd.ndifft_r2c(nd.ndifft(v, hc, axis=0), hr, axis=1)
     assert [(f.launches - a, f.wide_launches - b) for f, (a, b) in zip(fns, before)] == \
-        [(1, 1), (2, 2), (1, 1)]
+        [(2, 2), (1, 1)]
+    assert (krfft.r2c_nat.launches - r2c[0], krfft.r2c_nat.radix_launches - r2c[1]) == (1, 1)
     assert _rel(v.to(torch.complex128), torch.fft.rfftn(x.double())) <= 1e-5
     assert _rel(back, x) <= 1e-5
 
@@ -703,18 +745,21 @@ def _table_uploads():
 def test_warmup_uploads_the_tables_before_the_first_call(dev, run):
     """After warmup on the card, in either mode, the first real calls of
     every kind of the four handlers upload no table: the 600^3 real step's
-    kernels 15, 6 and 8, kernel 8 at n = 256, and the DCT/DST kinds of a
-    256-point handler. ``run=False`` launches nothing and counts nothing."""
+    kernels 15, 6 and 8, kernel 8 at n = 256, kernel 10 at n = 1024 and
+    kernels 2 and 3 at n = 512 (the radix row core's tables, and kernel 3's
+    bts2 table), and the DCT/DST kinds of a 256-point handler. ``run=False``
+    launches nothing and counts nothing."""
     g = torch.Generator(device=dev).manual_seed(25 + run)
     kfft._WQ_CACHE.clear()
     cases = ((nd.FftHandler(600), (3, 600, 301), 1), (nd.FftHandler(256), (130, 256), 1),
              (nd.R2cFftHandler(600), (130, 600), 1), (nd.DctHandler(256), (256, 130), 0),
-             (nd.DstHandler(256), (130, 256), 1))
+             (nd.DstHandler(256), (130, 256), 1), (nd.FftHandler(1024), (130, 1024), 1),
+             (nd.R2cFftHandler(512), (130, 512), 1))
     for h, shape, axis in cases:
-        launches = kfft.c2c_generic_mid.launches + kfft.c2c_dense_rows.launches
+        launches = _all_launches()
         assert h.warmup(shape, axis=axis, run=run, device=dev) is h
         if not run:
-            assert kfft.c2c_generic_mid.launches + kfft.c2c_dense_rows.launches == launches
+            assert _all_launches() == launches
     uploads = _table_uploads()
     for h, shape, axis in cases:
         for name, cplx in h._kinds:

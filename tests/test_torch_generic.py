@@ -217,9 +217,9 @@ def test_generic_wrappers_on_cpu_count_no_launch():
 
 
 def test_generic_block_sizes():
-    # the 600^3 step's R2C: kernel 15 at h = 300 on the radix row core, 8
-    # rows of 300 (RADIX_TILE) over 360000 rows
-    assert kfft.radix_block(300, 360000, 132) == 8
+    # the 600^3 step's R2C: kernel 15 at h = 300 on the radix row core, 3
+    # rows of 300 (57 threads: 7 of 64 lanes idle) over 360000 rows
+    assert kfft.radix_block(300, 360000, 132) == 3
     assert kfft.radix_block(600, 8, 132) == 1
     # kernel 8 at n <= 256 (RADIX_SMALL_TILE): 2 rows of 256, 3 of 129, 256
     # rows of 2 (one thread each, the thread bound)

@@ -1,9 +1,8 @@
-"""The mixed-radix Stockham row core (kernel 10 at n = 128 * F with F
-outside {4, 8, 16}, kernel 8 at every n) against the JAX package and numpy
-on the CPU:
+"""The mixed-radix Stockham row core (kernel 10 at every n = 128 * F,
+kernel 8 at every n) against the JAX package and numpy on the CPU:
 
-* ``radix_plan`` over every length the two routes send (C2C_ROWS at those F
-  and C2C_GENERIC_ROWS, found by ``gates.lane_c2c_route(n, 128)`` over
+* ``radix_plan`` over every length the two routes send (C2C_ROWS and
+  C2C_GENERIC_ROWS, found by ``gates.lane_c2c_route(n, 128)`` over
   257 ... 20480): the radices multiply to n, each is a codelet or a prime
   <= 127, at most 8 stages, in the kernel's order; and over kernel 8's
   lengths n <= 256 and kernel 6's middle-axis lengths;
@@ -13,7 +12,9 @@ on the CPU:
   "highest" tier (the twostep kernel at F = 3, 5, 9, 13; the lane kernel's
   generic schedule at 258 ... 1200), both signs, with and without 1/n;
 * the plain version against float64 numpy at the longest and least smooth
-  lengths;
+  lengths, and at kernel 10's n = 512, 1024, 2048 (the bts2 core's lengths
+  until kernel 10 moved onto the radix core), both signs, with and without
+  1/n;
 * the wrappers on a CPU tensor: the radix plain version, no launch.
 
 Tolerance: max |port - JAX| <= 5e-6 * max |JAX| (each side measures ~5e-7
@@ -46,9 +47,7 @@ def _route_lengths():
     radix core."""
     out = []
     for n in range(257, kfft.GENERIC_MAX_N + 1):
-        route = gates.lane_c2c_route(n, 128)
-        if route == gates.C2C_GENERIC_ROWS or (route == gates.C2C_ROWS
-                                                and n // kfft.M not in kfft.C2C_F):
+        if gates.lane_c2c_route(n, 128) in (gates.C2C_ROWS, gates.C2C_GENERIC_ROWS):
             out.append(n)
     return out
 
@@ -77,7 +76,7 @@ def _close(got, want, tol=TOL):
 
 def test_plan_covers_every_route_length():
     lengths = _route_lengths()
-    assert len(lengths) == 1731
+    assert len(lengths) == 1734
     for n in lengths:
         plan = kfft.radix_plan(n)
         assert plan is not None and 1 <= len(plan) <= kfft.RADIX_MAX_STAGES, n
@@ -112,7 +111,9 @@ def test_plan_covers_the_dense_rows_and_middle_axis_routes(route, count):
 @pytest.mark.parametrize("n,plan", [(4096, (16, 16, 16)), (600, (8, 3, 5, 5)),
                                     (16256, (16, 8, 127)), (20480, (16, 16, 16, 5)),
                                     (384, (16, 8, 3)), (1152, (16, 8, 9)),
-                                    (20448, (16, 2, 9, 71)), (14641, (11, 11, 11, 11))])
+                                    (20448, (16, 2, 9, 71)), (14641, (11, 11, 11, 11)),
+                                    (512, (16, 16, 2)), (1024, (16, 16, 4)),
+                                    (2048, (16, 16, 8))])
 def test_plan_examples(n, plan):
     assert kfft.radix_plan(n) == plan
 
@@ -188,6 +189,22 @@ def test_plain_matches_float64(n):
         _close(got, want, TOL_ORACLE)
 
 
+@pytest.mark.parametrize("t,n", [(130, 512), (33, 1024), (9, 2048)])
+@pytest.mark.parametrize("sign,scale", _SIGN_SCALE)
+def test_kernel10_lengths_plain_matches_float64(t, n, sign, scale):
+    """Kernel 10 at n = 512, 1024, 2048 (plans (16, 16, 2), (16, 16, 4),
+    (16, 16, 8)), the lengths the bts2 core took before: the unnormalized
+    DFT of either sign, times 1/n where asked, against float64 numpy."""
+    assert gates.lane_c2c_route(n, 128) == gates.C2C_ROWS
+    x = _cplx((t, n), t * n + sign)
+    s = 1.0 / n if scale else None
+    got = kfft.c2c_rows(torch.from_numpy(x), sign, s)      # CPU: the plain version
+    assert got.dtype == torch.complex64 and got.shape == (t, n)
+    x64 = x.astype(np.complex128)
+    want = np.fft.fft(x64, axis=1) if sign < 0 else np.fft.ifft(x64, axis=1) * n
+    _close(got, want * (s or 1.0), TOL_ORACLE)
+
+
 def test_wrappers_on_cpu_run_the_radix_plain_version():
     counts = (kfft.c2c_rows.launches, kfft.c2c_rows.radix_launches,
               kfft.c2c_generic_rows.launches)
@@ -195,23 +212,31 @@ def test_wrappers_on_cpu_run_the_radix_plain_version():
                   (kfft.c2c_generic_rows, 11352)):
         x = torch.from_numpy(_cplx((3, n), n))
         assert torch.equal(fn(x, +1, 0.5), kfft.c2c_radix_rows_plain(x, +1, 0.5))
-    # the fixed core's lengths keep the bts2 plain version
-    x = torch.from_numpy(_cplx((3, 1024), 1))
-    assert not torch.equal(kfft.c2c_rows(x, -1), kfft.c2c_radix_rows_plain(x, -1))
-    _close(kfft.c2c_rows(x, -1), kfft.c2c_radix_rows_plain(x, -1))
+    # the bts2 core's former lengths run the radix plain version too
+    for n in (512, 1024, 2048):
+        x = torch.from_numpy(_cplx((3, n), 1))
+        assert torch.equal(kfft.c2c_rows(x, -1), kfft.c2c_radix_rows_plain(x, -1))
+        assert torch.equal(kfft.c2c_rows(x, +1, 1 / n), kfft.c2c_radix_rows_plain(x, +1, 1 / n))
     assert (kfft.c2c_rows.launches, kfft.c2c_rows.radix_launches,
             kfft.c2c_generic_rows.launches) == counts
 
 
 def test_block_rows():
-    # (4096, 4096): one row a block; (360000, 600): 4 rows of 600 (RADIX_TILE
-    # 2560); 1000 rows of 264: 9 halved to 4 to fill 132 SMs (250 tiles);
-    # 130 rows of 384: 6 halved to 1; 2 rows of 20480: one each
+    # (4096, 4096): one row a block; (360000, 600): 3 rows of 38 threads (114
+    # of a block's 128 lanes busy, one in eight at most idle); 1000 rows of
+    # 264: 5 rows of 17 threads (85 of 96) fill 132 SMs with 200 tiles; 130
+    # rows of 384: 4 halved to 1; 2 rows of 20480: one each; kernel 10's
+    # n = 512, 1024, 2048 one row of whole warps; kernel 2's h = 384 four
+    # rows of 24 threads (three warps), h = 768 two of 48, h = 640 three of
+    # 40 (120 of 128)
     assert kfft.radix_block(4096, 4096, 132) == 1
-    assert kfft.radix_block(600, 360000, 132) == 4
-    assert kfft.radix_block(264, 1000, 132) == 4
+    assert kfft.radix_block(600, 360000, 132) == 3
+    assert kfft.radix_block(264, 1000, 132) == 5
     assert kfft.radix_block(384, 130, 132) == 1
     assert kfft.radix_block(20480, 2, 132) == 1
+    for n in (512, 1024, 2048):
+        assert kfft.radix_block(n, 262144, 132) == 1
+    assert [kfft.radix_block(h, 589824, 132) for h in (384, 768, 640)] == [4, 2, 3]
     # the threads of a tile fit the 256 of a block (16 elements each)
     for n in range(257, kfft.RADIX_WIDE_N + 1):
         assert kfft.radix_block(n, 10 ** 6, 132) * -(-n // 16) <= kfft.RADIX_MAX_THREADS

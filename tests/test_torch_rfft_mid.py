@@ -23,6 +23,7 @@ from ndrustfft_tpu import plan as ref_plan
 from ndrustfft_tpu.ops.pallas import rfft as ref_rfft
 
 from ndrustfft_tpu_torch import api
+from ndrustfft_tpu_torch.ops.hopper import fft as kfft
 from ndrustfft_tpu_torch.ops.hopper import rfft as krfft
 
 torch.set_num_threads(1)
@@ -111,13 +112,17 @@ def test_c2r_mid_ignores_dc_and_nyquist_imag():
 
 
 def test_mid_is_the_row_kernels_on_a_transposed_view():
-    """Kernels 16/17 are kernels 2/3 in kernel 1's column layout: the same
-    arithmetic on every column."""
+    """Kernels 16/17 are the bts2 R2C/C2R of rows (kernel 3's, and kernel
+    2's until it moved onto the radix row core) in kernel 1's column
+    layout: the same arithmetic on every column. Kernel 2 computes the same
+    function on the radix core."""
     x = torch.from_numpy(_real((2, 512, 3), 5))
-    rows = krfft.r2c_nat(x.transpose(1, 2).reshape(6, 512))
+    z = torch.view_as_complex(x.transpose(1, 2).reshape(6, 256, 2).contiguous())
+    rows = krfft._unpack(kfft._bts2_rows_plain(z, -1), krfft._device_tw(512, z.device), -1)
     mid = krfft.r2c_mid(x)
     torch.testing.assert_close(mid.transpose(1, 2).reshape(6, 257), rows,
                                rtol=0, atol=2e-5)
+    _close(krfft.r2c_nat(x.transpose(1, 2).reshape(6, 512)).numpy(), rows.numpy())
     s = torch.from_numpy(_spec((2, 257, 3), 6))
     rows = krfft.c2r_nat(s.transpose(1, 2).reshape(6, 257), 512, 0.5)
     torch.testing.assert_close(krfft.c2r_mid(s, 512, 0.5).transpose(1, 2).reshape(6, 512),

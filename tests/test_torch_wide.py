@@ -1,6 +1,6 @@
-"""The bts2 core at any butterfly factor (the wide core of kernels 1, 10,
-2/15 and 3, n = 128 * F with F outside the fixed core's factors) against the
-JAX package on the CPU:
+"""The bts2 core at any butterfly factor (the wide core of kernels 1 and 3,
+n = 128 * F with F outside the fixed core's factors; kernels 10 and 2/15 at
+those F run the mixed-radix row core) against the JAX package on the CPU:
 
 * the plain versions of ``c2c_rows``, ``c2c_axis_mid``, ``r2c_nat``,
   ``c2r_nat`` and ``r2c_packed`` against ``c2c_pallas``,
@@ -124,7 +124,7 @@ def test_c2r_nat_plain_matches_pallas(n, scale):
 
 def test_packed_plain_matches_pallas_r2c():
     """Kernel 15 at h = 384: the JAX kernel's twostep half-length FFT at
-    F = 3, the port's kernel 2 code on the wide core."""
+    F = 3, the port's kernel 2 code on the radix row core."""
     n = 768
     _, meta = ref_prfft._half_fft_consts(n // 2, -1, jnp.float32, "highest")
     assert meta[0] == "ts" and meta[2] == 3
@@ -178,16 +178,17 @@ def test_wide_wrappers_reject_what_the_kernels_do_not_take(call):
 
 
 def test_wide_wrappers_on_cpu_count_no_launch():
-    fns = (kfft.c2c_axis_mid, krfft.r2c_nat, krfft.c2r_nat, krfft.r2c_packed)
+    fns = (kfft.c2c_axis_mid, krfft.c2r_nat)
     before = [(f.launches, f.wide_launches) for f in fns]
-    rows = kfft.c2c_rows.launches, kfft.c2c_rows.radix_launches
+    radix = (kfft.c2c_rows, krfft.r2c_nat, krfft.r2c_packed)   # kernels 10, 2, 15
+    rows = [(f.launches, f.radix_launches) for f in radix]
     kfft.c2c_axis_mid(torch.zeros(1, 384, 3, dtype=C64), -1)
     kfft.c2c_rows(torch.zeros(3, 640, dtype=C64), +1, 0.5)
     krfft.r2c_nat(torch.zeros(2, 768))
     krfft.c2r_nat(torch.zeros(2, 385, dtype=C64), 768)
     krfft.r2c_packed(torch.zeros(2, 768))
     assert [(f.launches, f.wide_launches) for f in fns] == before
-    assert (kfft.c2c_rows.launches, kfft.c2c_rows.radix_launches) == rows
+    assert [(f.launches, f.radix_launches) for f in radix] == rows
 
 
 def test_wide_block_sizes():

@@ -9,16 +9,26 @@ that two trees can be timed in turns in one process tree on one card
 build/. Times, as the median of R CUDA-event pairs after a warm-up, the
 public wrappers at their main shapes: kernel 8 (c2c_generic_rows) and
 kernel 15's generic form (r2c_packed_generic) at 360000 rows of 600,
-kernel 10 (c2c_rows) at (4096, 4096), kernel 11 (c2c_blue_mid) at
+kernel 10 (c2c_rows) at (4096, 4096), (262144, 512), (259081, 1024) and
+(65536, 2048), kernel 2 (r2c_nat) at (262144, 512), (589824, 768) and
+(32768, 32768) (the latter over --reps-big runs), kernel 11 (c2c_blue_mid) at
 (1, 1031, 1024) and (1, 509, 259081), kernel 8 at n = 256
 (c2c_dense_rows) at 65536 and 8388608 rows (the latter over --reps-big
 runs), kernel 6 (c2c_generic_mid) at (600, 600, 301) and (1, 600, 180600),
 and kernel 4 (c2c_dense_mid) at (1, 256, 65536), (256, 256, 129) and
 (1, 256, 33024), each beside one torch.fft call on the same input; then
-the 600^3 and 256^3 real steps with the real axis last (ndfft_r2c, ndfft
-along axes 1 and 0 and back) beside torch.fft.rfftn + irfftn, and the
-509^3 complex round trip (fftn, ifftn) beside torch.fft.fftn + ifftn.
+the 600^3, 512^3 and 256^3 real steps with the real axis last (ndfft_r2c,
+ndfft along axes 1 and 0 and back) beside torch.fft.rfftn + irfftn, the
+512^3 and 509^3 complex round trips (fftn, ifftn) beside torch.fft.fftn +
+ifftn, and the 32768^2 real step (ndfft_r2c along axis 1, ndfft along
+axis 0 and back) beside torch.fft.rfftn + irfftn, over --reps-big runs.
 Prints the card's nvidia-smi name and power limit, then one JSON line.
+
+With --scan-rows it times instead the radix row core's launches at each
+count of rows a block that fits 256 threads (ms by rows, beside the count
+that fft.py::radix_block picks), over 2^27 elements: the C2C of rows of n
+(kernels 10 and 8) and the R2C of rows of 2h (kernels 2 and 15) at the
+lengths that --scan-n and --scan-h name.
 """
 
 import argparse
@@ -34,6 +44,11 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--reps-big", type=int, default=5)
+    ap.add_argument("--scan-rows", action="store_true")
+    ap.add_argument("--scan-n", type=int, nargs="*", default=[
+        264, 300, 384, 500, 512, 600, 640, 768, 896, 1000, 1024, 1152, 1280, 1536, 1792, 2048])
+    ap.add_argument("--scan-h", type=int, nargs="*", default=[128, 256, 300, 384, 512, 640, 768,
+                                                              1024])
     args = ap.parse_args()
     import torch
 
@@ -70,6 +85,26 @@ def main() -> int:
             times.append(a.elapsed_time(b))
         return statistics.median(times)
 
+    if args.scan_rows:
+        sms = kfft.num_sms(dev)
+        scan = {}
+        for kind, lengths in (("c2c", args.scan_n), ("r2c", args.scan_h)):
+            for n in lengths:
+                tr = -(-n // 16)
+                t = (1 << 27) // n
+                if kind == "c2c":
+                    x = crandn(t, n)
+                    rows_ms = {r: ms(lambda: kfft._radix_launch(x, -1, None, "scan", r))
+                               for r in range(1, min(16, 256 // tr) + 1)}
+                else:
+                    x = torch.randn(t, 2 * n, generator=gen, device=dev)
+                    rows_ms = {r: ms(lambda: krfft.r2c_radix_launch(x, "scan", r))
+                               for r in range(1, min(16, 256 // tr) + 1)}
+                scan[f"{kind}_{t}x{n}"] = {"ms_by_rows_per_block": rows_ms,
+                                           "chosen": kfft.radix_block(n, t, sms)}
+                del x
+        print(json.dumps({"root": root, "card": card, "rows_scan": scan}), flush=True)
+        return 0
     out = {}
     x = crandn(360000, 600)
     out["c2c_generic_rows_360000x600"] = (ms(lambda: kfft.c2c_generic_rows(x, -1)),
@@ -77,9 +112,14 @@ def main() -> int:
     x = torch.randn(360000, 600, generator=gen, device=dev)
     out["r2c_packed_generic_360000x600"] = (ms(lambda: krfft.r2c_packed_generic(x)),
                                             ms(lambda: torch.fft.rfft(x, dim=1)))
-    x = crandn(4096, 4096)
-    out["c2c_rows_4096x4096"] = (ms(lambda: kfft.c2c_rows(x, -1)),
-                                 ms(lambda: torch.fft.fft(x, dim=1)))
+    for shape in ((4096, 4096), (262144, 512), (259081, 1024), (65536, 2048)):
+        x = crandn(*shape)
+        out["c2c_rows_" + "x".join(map(str, shape))] = (ms(lambda: kfft.c2c_rows(x, -1)),
+                                                        ms(lambda: torch.fft.fft(x, dim=1)))
+    for shape in ((262144, 512), (589824, 768)):
+        x = torch.randn(*shape, generator=gen, device=dev)
+        out["r2c_nat_" + "x".join(map(str, shape))] = (ms(lambda: krfft.r2c_nat(x)),
+                                                       ms(lambda: torch.fft.rfft(x, dim=1)))
     x = crandn(1, 1031, 1024)
     out["c2c_blue_mid_1x1031x1024"] = (ms(lambda: kfft.c2c_blue_mid(x, -1)),
                                        ms(lambda: torch.fft.fft(x, dim=1)))
@@ -100,7 +140,7 @@ def main() -> int:
     out["c2c_generic_mid_1x600x180600"] = (ms(lambda: kfft.c2c_generic_mid(x, -1)),
                                            ms(lambda: torch.fft.fft(x, dim=1)))
     del x
-    for n in (600, 256):
+    for n in (600, 512, 256):
         r = torch.randn(n, n, n, generator=gen, device=dev)
         hr, hc = nd.R2cFftHandler(n), nd.FftHandler(n)
 
@@ -111,10 +151,27 @@ def main() -> int:
         out[f"step_{n}^3"] = (ms(step, 10),
                               ms(lambda: torch.fft.irfftn(torch.fft.rfftn(r), s=r.shape), 10))
         del r
-    x = crandn(509, 509, 509)
-    out["c2c_fftn_ifftn_509^3"] = (ms(lambda: nd.ifftn(nd.fftn(x)), args.reps_big),
-                                   ms(lambda: torch.fft.ifftn(torch.fft.fftn(x)), args.reps_big))
-    del x
+    for n in (512, 509):
+        x = crandn(n, n, n)
+        out[f"c2c_fftn_ifftn_{n}^3"] = (
+            ms(lambda: nd.ifftn(nd.fftn(x)), args.reps_big),
+            ms(lambda: torch.fft.ifftn(torch.fft.fftn(x)), args.reps_big))
+        del x
+    torch.cuda.empty_cache()
+    r = torch.randn(32768, 32768, generator=gen, device=dev)
+    out["r2c_nat_32768x32768"] = (ms(lambda: krfft.r2c_nat(r), args.reps_big),
+                                  ms(lambda: torch.fft.rfft(r, dim=1), args.reps_big))
+    torch.cuda.empty_cache()
+    hr, hc = nd.R2cFftHandler(32768), nd.FftHandler(32768)
+
+    def step2():
+        v = nd.ndfft(nd.ndfft_r2c(r, hr, axis=1), hc, axis=0)
+        return nd.ndifft_r2c(nd.ndifft(v, hc, axis=0), hr, axis=1)
+
+    out["step_32768^2"] = (ms(step2, args.reps_big),
+                           ms(lambda: torch.fft.irfftn(torch.fft.rfftn(r), s=r.shape),
+                              args.reps_big))
+    del r
     torch.cuda.empty_cache()
     x = crandn(8388608, 256)
     out["c2c_dense_rows_8388608x256"] = (ms(lambda: kfft.c2c_dense_rows(x, -1), args.reps_big),
