@@ -34,7 +34,8 @@ without the final line):
         real steps with the real axis first (R2C along axis 0, C2C along
         axes 1 and 2, and the inverse chain), against torch.fft.rfft(dim=0)
         and torch.fft.rfftn(dim=(1, 2, 0)) in float64 (oracle only), with
-        the round trip;
+        the round trip; every R2C on the radix column tile (kernels 16 and
+        20);
      e. the lane lowerings along the last axis: the 256^3 and 128^3 real
         steps (R2C along axis 2 on kernel 15, C2C along axes 1 and 0, the
         inverse chain with the C2R's Hermitian extension on kernel 8) and
@@ -194,6 +195,15 @@ without the final line):
         the 57 Bluestein lengths that kernel 11 takes at F in {4, 8, 16}
         (M = 512, 1024, 2048), against torch.fft in complex128 (oracle
         only), within 1e-6 of the oracle's peak;
+     s. the census of kernels 20 and 16: ndfft_r2c along axis 1 of
+        (1, n, 130) at each of the 1094 lengths that the gates send to
+        kernel 20 (R2C_DENSE_MID, n = 4 ... 1100: 768 on the radix column
+        tile, 436 even at the half length and 332 odd, and 326 without a
+        plan on the dense product) and each of the 153 that they send to
+        kernel 16 (R2C_MID, n = 512 ... 40960, all on the radix column
+        tile), against torch.fft.rfft in float64 (oracle only): the radix
+        column tile within 1e-6 of the oracle's peak, the dense product
+        within TOL_KERNEL;
   5. times with CUDA events (median over --reps runs after warm-up): each
      kernel against its plain version and, where one PyTorch call computes
      the same function, that call (the yardstick, never on the port's
@@ -218,7 +228,10 @@ without the final line):
      n = 32, 8, 4 (2^24 elements) with each column count C, kernel 8 at
      (65536, 256), kernel 10 at (262144, 512), (259081, 1024) and
      (65536, 2048) and kernel 2 at (262144, 512) and (589824, 768) with
-     each count of rows a block.
+     each count of rows a block, and the R2C on the radix column tile
+     (kernels 16 and 20) at (1, 512, 262144), (512, 512, 512),
+     (1, 1280, 1280), (1, 256, 65536), (1, 264, 264) and (1, 129, 65536)
+     with each column count C.
 The kernels line gives each kernel's launches on its main path, its largest
 error against its plain version, its times, and its bound: the larger of
 the bytes it must move (each input read once, each output written once)
@@ -230,9 +243,11 @@ one (wide_launches; K11 and K12 rows also give the bound of their two
 length-M FFTs per column, ``length_m_bound_ms``); kernels 10, 2 and 15
 (``r2c_packed`` at h = 128 F), kernel 8 (its rows at n <= 256
 counted in c2c_dense_rows.radix_launches as well, above in
-``c2c_generic_rows``), kernels 6, 4 and 11 (each counted in
+``c2c_generic_rows``), kernels 6, 4, 11 and 16 (each counted in
 radix_launches as well) and kernel 15's generic form
-(``r2c_packed_generic``) run on the radix core, one row each; and
+(``r2c_packed_generic``) run on the radix core, one row each; kernel 20
+two: the radix column tile (``r2c_dense_mid_radix``, radix_launches) and
+the dense product at the lengths without a plan (``r2c_dense_mid``); and
 kernels 23 to 26 and 29 three: the fixed core, the wide core's half length
 and the n-point form (npoint_launches); kernel 7 three: the fixed core, the
 wide core and the dense body (dense_launches); kernel 28 three: the fixed
@@ -262,13 +277,13 @@ TOL_STEP = 1e-5      # step vs float64 oracle and round trip, relative
 # every launch): ``wide_launches``, for the DCT-II/III kernels
 # ``npoint_launches``, for kernel 7 ``dense_launches``, for kernel 28
 # ``long_launches`` and for kernels 10, 2, 15 (``r2c_packed``), 11, 8
-# (``c2c_dense_rows``), 6 and 4 ``radix_launches``
+# (``c2c_dense_rows``), 6, 4, 16 and 20 ``radix_launches``
 FORMS = ("wide", "npoint", "dense", "long", "radix")
 # the wrappers whose every launch is on the radix core: their
 # ``radix_launches`` equal their ``launches``
 RADIX_ONLY = ("c2c_rows", "r2c_nat", "r2c_packed", "c2c_dense_rows", "c2c_generic_mid",
-              "c2c_dense_mid", "c2c_blue_mid")
-TOL_CENSUS = 1e-6    # the censuses of kernels 4 and 11 (phase 4r) against complex128
+              "c2c_dense_mid", "c2c_blue_mid", "r2c_mid")
+TOL_CENSUS = 1e-6    # the radix column tile's censuses (phases 4r and 4s)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, 700 W
 FP32_FLOP_PER_S = 67e12     # FP32 outside the tensor cores, same source
 
@@ -321,6 +336,9 @@ def work(name: str, shape, length_m: bool = False, mult=None):
     ``length_m``: their operations as two complex FFTs of length M
     per column instead. Kernels 10, 8, 6 and 4 (the radix core) read x and
     the radix table (n entries and each prime stage's row) and write y;
+    kernels 16 and 20 on the radix column tile read (B, n, L) float32, the
+    radix table of h = n/2 (of n at odd n) and, at even n, the unpack
+    twiddle, and write (B, n/2 + 1, L) complex64;
     kernels 2 and 15 (the radix row core with the unpack epilogue) read the
     (T, 2h) float32 rows, the radix table of h and the unpack twiddle and
     write (T, h + 1) complex64. The four-step's kernel 7 on
@@ -403,8 +421,7 @@ def work(name: str, shape, length_m: bool = False, mult=None):
     if name.endswith("_wide"):
         base = name[:-len("_wide")]
         nbytes, flops = work(base, shape)
-        length = shape[1] - 1 if base in ("c2r_nat", "c2r_mid") else \
-            shape[1] // 2 if base == "r2c_mid" else shape[1]
+        length = shape[1] - 1 if base in ("c2r_nat", "c2r_mid") else shape[1]
         f = length // 128
         return nbytes + 8 * f * f, flops
     if name == "c2c_axis_mid":
@@ -421,14 +438,21 @@ def work(name: str, shape, length_m: bool = False, mult=None):
     if name == "dct_dense_mid":
         b, n, cols = shape
         return 8 * b * n * cols + 4 * n * n, 2 * n * n * b * cols
-    if name in ("r2c_mid", "c2r_mid", "r2c_dense_mid", "c2r_dense_mid"):
+    if name in ("r2c_mid", "r2c_dense_mid_radix"):
+        from ndrustfft_tpu_torch.ops.hopper.fft import radix_consts
+        b, n, cols = shape      # the radix table of h (n at odd n), the unpack twiddle
+        m = n // 2 + 1
+        table = (8 * len(radix_consts(n, -1)[0]) if n % 2 else
+                 8 * len(radix_consts(n // 2, -1)[0]) + 8 * (n // 2))
+        return 4 * b * n * cols + 8 * b * m * cols + table, 2.5 * n * math.log2(n) * b * cols
+    if name in ("c2r_mid", "r2c_dense_mid", "c2r_dense_mid"):
         b, w, cols = shape      # (B, n, L) real in, or (B, m, L) spectrum in
         n = w if name.startswith("r2c") else 2 * (w - 1)
         m = n // 2 + 1
         if name.endswith("dense_mid"):
             table = 4 * n * 2 * m
-        else:                   # wq, then tw or the (h, 4) ab rows
-            table = 8 * (n // 2) * 128 + (8 if name == "r2c_mid" else 16) * (n // 2)
+        else:                   # wq, then the (h, 4) ab rows
+            table = 8 * (n // 2) * 128 + 16 * (n // 2)
         return 4 * b * n * cols + 8 * b * m * cols + table, 2.5 * n * math.log2(n) * b * cols
     if name in ("c2c_rows", "c2c_generic_rows", "c2c_dense_rows", "c2c_generic_mid",
                 "c2c_dense_mid"):
@@ -557,7 +581,7 @@ def main() -> int:
             "r2c_mid": 0.0, "c2r_mid": 0.0, "r2c_dense_mid": 0.0, "c2r_dense_mid": 0.0,
             "r2c_packed": 0.0, "r2c_packed_dense": 0.0, "c2c_generic_rows": 0.0,
             "c2c_generic_mid": 0.0, "r2c_packed_generic": 0.0, "c2c_axis_mid_wide": 0.0,
-            "c2r_nat_wide": 0.0, "r2c_mid_wide": 0.0, "c2r_mid_wide": 0.0,
+            "c2r_nat_wide": 0.0, "r2c_dense_mid_radix": 0.0, "c2r_mid_wide": 0.0,
             "dct2_nat_wide": 0.0, "dct3_nat_wide": 0.0, "dct2_nat_npoint": 0.0,
             "dct3_nat_npoint": 0.0, "dct2_mid": 0.0, "dct3_mid": 0.0, "dct2_mid_wide": 0.0,
             "dct3_mid_wide": 0.0, "dct2_mid_npoint": 0.0, "dct3_mid_npoint": 0.0,
@@ -638,6 +662,33 @@ def main() -> int:
                 raise AssertionError(f"{name} {(t, n)}: {rel}")
             del got, ref
         del x
+
+    def form_counts(kern):
+        return [kern.launches] + [getattr(kern, f"{f}_launches", 0) for f in FORMS]
+
+    def assert_launched(name, kern, before, shape):
+        """One launch of ``kern`` since ``before`` (its form_counts), in the
+        form that ``name`` ends with, or on the fixed core where it names
+        none."""
+        form = "radix" if name in RADIX_ONLY else name.rsplit("_", 1)[-1]
+        want = [1] + [int(f == form) for f in FORMS]
+        got = [now - then for now, then in zip(form_counts(kern), before)]
+        if got != want:
+            raise AssertionError(f"{name} {shape}: launches {got}, expected {want}")
+
+    def check_form(name, kern, got_fn, ref_fn, shape, **kw):
+        """got_fn() (one launch of ``kern`` in the form ``name`` names)
+        against ref_fn()."""
+        before = form_counts(kern)
+        got = got_fn()
+        ref = ref_fn()
+        torch.cuda.synchronize()
+        assert_launched(name, kern, before, shape)
+        rel = abs_err(got, ref) / float(ref.abs().max())
+        errs[name] = max(errs[name], abs_err(got, ref))
+        emit(phase="kernel_vs_plain", kernel=name, shape=shape, rel_err=rel, **kw)
+        if not rel <= TOL_KERNEL:
+            raise AssertionError(f"{name} {shape} {kw}: {rel}")
 
     # the complex transform's kernels: ragged rows and edges, then the main
     # path's shapes (phase 4c)
@@ -736,26 +787,65 @@ def main() -> int:
                 del ref
             del x, y
 
+    # kernels 16 and 20 on the radix column tile at each column count C that
+    # phase 5 times (the wrappers take r2c_mid_cols's): both forms (even n at
+    # the half length with the unpack epilogue, odd n storing half the C2C's
+    # bins), n = 4 and 5 (one thread a column), a prime stage (129, 1095),
+    # the main paths' shapes, ragged L, F = 5 and the longest h = 20480 (one
+    # column a tile, 40 elements a thread)
+    for shape in ((3, 4, 129), (2, 5, 257), (1, 129, 256 * 256), (1, 256, 256 * 256),
+                  (1, 264, 264), (2, 1095, 130), (1, 512, 512 * 512), (512, 512, 512),
+                  (2, 1280, 130), (1, 1280, 1280), (1, 40960, 3)):
+        nb, n, cols = shape
+        name = "r2c_mid" if n >= 512 and n % 256 == 0 else "r2c_dense_mid_radix"
+        x = randn(*shape)
+        y = torch.empty((nb, n // 2 + 1, cols), dtype=torch.complex64, device=dev)
+        ref = krfft.r2c_mid_radix_plain(x)
+        for c in (1, 2, 4, 8, 16, 32, 64):
+            if not tile_fits(krfft.r2c_mid_len(n), c):
+                continue
+            y.fill_(float("nan"))
+            krfft.r2c_mid_radix_launch(x, y, c)
+            torch.cuda.synchronize()
+            rel = abs_err(y, ref) / float(ref.abs().max())
+            errs[name] = max(errs[name], abs_err(y, ref))
+            emit(phase="kernel_vs_plain", kernel=name, shape=shape, cols_per_tile=c, rel_err=rel)
+            if not rel <= TOL_KERNEL:
+                raise AssertionError(f"{name} {shape} C {c}: {rel}")
+        del x, y, ref
+
     # the middle-axis R2C/C2R kernels: the main paths' shapes (phase 4d),
-    # axis 1 of 512^3, ragged and odd ones; the C2R spectra carry DC and
+    # axis 1 of 512^3, ragged and odd ones; kernel 20's wrapper on the radix
+    # column tile (r2c_dense_mid_radix) at the lengths with a plan, on the
+    # dense product at 262 = 2 * 131 (none); the C2R spectra carry DC and
     # Nyquist imaginary parts that must be ignored
+    def r2c_form(r2c_name, n):
+        """The kernels line's name and the plain version of the R2C that
+        ``r2c_name``'s wrapper runs at n."""
+        if r2c_name == "r2c_mid" or krfft.r2c_mid_radix(n):
+            return ("r2c_mid" if r2c_name == "r2c_mid" else "r2c_dense_mid_radix",
+                    krfft.r2c_mid_radix_plain)
+        return "r2c_dense_mid", krfft.r2c_dense_mid_plain
+
     rfft_mid_checks = (
-        ("r2c_mid", "c2r_mid", krfft.r2c_mid, krfft.r2c_mid_plain, krfft.c2r_mid,
-         krfft.c2r_mid_plain, ((1, 512, 512 * 512), (512, 512, 512), (1, 1024, 1024),
-                               (1, 512, 512), (3, 2048, 200), (2, 4096, 130))),
-        ("r2c_dense_mid", "c2r_dense_mid", krfft.r2c_dense_mid, krfft.r2c_dense_mid_plain,
-         krfft.c2r_dense_mid, krfft.c2r_dense_mid_plain,
-         ((1, 128, 128), (1, 264, 264), (1, 256, 256 * 256), (2, 201, 130), (1, 1100, 130))),
+        ("r2c_mid", "c2r_mid", krfft.r2c_mid, krfft.c2r_mid, krfft.c2r_mid_plain,
+         ((1, 512, 512 * 512), (512, 512, 512), (1, 1024, 1024), (1, 512, 512), (3, 2048, 200),
+          (2, 4096, 130))),
+        ("r2c_dense_mid", "c2r_dense_mid", krfft.r2c_dense_mid, krfft.c2r_dense_mid,
+         krfft.c2r_dense_mid_plain,
+         ((1, 128, 128), (1, 264, 264), (1, 256, 256 * 256), (2, 201, 130), (1, 1100, 130),
+          (1, 129, 256 * 256), (2, 262, 130), (1, 1095, 130), (3, 5, 257), (2, 4, 130))),
     )
-    for r2c_name, c2r_name, r2c, r2c_plain, c2r, c2r_plain, shapes in rfft_mid_checks:
+    for r2c_name, c2r_name, r2c, c2r, c2r_plain, shapes in rfft_mid_checks:
         for shape in shapes:
             nb, n, cols = shape
             x = randn(*shape)
             s = crandn(nb, n // 2 + 1, cols)
             s[:, 0] += 100j
             s[:, -1] += 100j
-            for name, got, ref in ((r2c_name, r2c(x), r2c_plain(x)),
-                                   (c2r_name, c2r(s, n, 1.0 / n), c2r_plain(s, n, 1.0 / n)),
+            name, r2c_plain = r2c_form(r2c_name, n)
+            check_form(name, r2c, lambda: r2c(x), lambda: r2c_plain(x), shape)
+            for name, got, ref in ((c2r_name, c2r(s, n, 1.0 / n), c2r_plain(s, n, 1.0 / n)),
                                    (c2r_name, c2r(s, n, None), c2r_plain(s, n, None))):
                 torch.cuda.synchronize()
                 rel = abs_err(got, ref) / float(ref.abs().max())
@@ -798,33 +888,6 @@ def main() -> int:
             if not rel <= tol:
                 raise AssertionError(f"{name} {shape}: {rel}")
             del x, got, ref
-
-    def form_counts(kern):
-        return [kern.launches] + [getattr(kern, f"{f}_launches", 0) for f in FORMS]
-
-    def assert_launched(name, kern, before, shape):
-        """One launch of ``kern`` since ``before`` (its form_counts), in the
-        form that ``name`` ends with, or on the fixed core where it names
-        none."""
-        form = "radix" if name in RADIX_ONLY else name.rsplit("_", 1)[-1]
-        want = [1] + [int(f == form) for f in FORMS]
-        got = [now - then for now, then in zip(form_counts(kern), before)]
-        if got != want:
-            raise AssertionError(f"{name} {shape}: launches {got}, expected {want}")
-
-    def check_form(name, kern, got_fn, ref_fn, shape, **kw):
-        """got_fn() (one launch of ``kern`` in the form ``name`` names)
-        against ref_fn()."""
-        before = form_counts(kern)
-        got = got_fn()
-        ref = ref_fn()
-        torch.cuda.synchronize()
-        assert_launched(name, kern, before, shape)
-        rel = abs_err(got, ref) / float(ref.abs().max())
-        errs[name] = max(errs[name], abs_err(got, ref))
-        emit(phase="kernel_vs_plain", kernel=name, shape=shape, rel_err=rel, **kw)
-        if not rel <= TOL_KERNEL:
-            raise AssertionError(f"{name} {shape} {kw}: {rel}")
 
     sliced = {}     # kernel -> the solve shapes that check_sliced timed
 
@@ -919,8 +982,9 @@ def main() -> int:
         check_form("r2c_packed", krfft.r2c_packed, lambda: krfft.r2c_packed(x),
                    lambda: krfft.r2c_packed_plain(x), shape)
         del x
-    # kernels 16/17 on the wide core (phase 4h's 768 and 1280 along axis 0,
-    # ragged columns, h = 20480 with one column per tile) and kernels 23 to
+    # kernel 17 on the wide core and kernel 16 at its F (phase 4h's 768 and
+    # 1280 along axis 0, ragged columns, h = 20480 with one column per tile:
+    # kernel 16 on the radix column tile) and kernels 23 to
     # 26 in each form: the fixed core, the wide core's half length and the
     # n-point form, at phase 4h's shapes and at ragged tiles, prime F = 131
     # and the largest tiles (n-point F = 159, half length F = 128), and the
@@ -933,7 +997,7 @@ def main() -> int:
         s = crandn(nb, n // 2 + 1, cols)
         s[:, 0] += 100j
         s[:, -1] += 100j
-        check_form("r2c_mid_wide", krfft.r2c_mid, lambda: krfft.r2c_mid(x),
+        check_form("r2c_mid", krfft.r2c_mid, lambda: krfft.r2c_mid(x),
                    lambda: krfft.r2c_mid_plain(x), shape)
         for scale in (1.0 / n, None):
             check_form("c2r_mid_wide", krfft.c2r_mid, lambda: krfft.c2r_mid(s, n, scale),
@@ -1133,18 +1197,18 @@ def main() -> int:
                 "spectral_r2c_mid": krfft.spectral_r2c_mid,
                 "spectral_dct_mid": kdct.spectral_dct_mid}
     # the wide core's launches, the DCT kernels' n-point ones, kernel 7's
-    # dense ones and those of the radix-only wrappers on the radix core,
-    # counted apart by the same wrappers (their ``launches`` count every
-    # launch)
+    # dense ones and those of the radix-only wrappers and kernel 20 on the
+    # radix core, counted apart by the same wrappers (their ``launches``
+    # count every launch)
     forms = {f"{name}_{form}": (wrappers[name], f"{form}_launches")
-             for name in ("c2c_axis_mid", *RADIX_ONLY, "c2r_nat", "r2c_mid", "c2r_mid",
+             for name in ("c2c_axis_mid", *RADIX_ONLY, "c2r_nat", "c2r_mid", "r2c_dense_mid",
                           "dct2_nat", "dct3_nat", "dct2_mid",
                           "dct3_mid", "r2c_packed_mid", "dct1_mid", "dct4_mid",
                           "dct23_blue_mid", "fourstep_mid", "rows_store_t",
                           "spectral_c2c_mid", "spectral_r2c_mid", "spectral_dct_mid")
              for form in FORMS
-             if form == "wide" and name not in RADIX_ONLY
-             or form == "radix" and name in RADIX_ONLY
+             if form == "wide" and name not in (*RADIX_ONLY, "r2c_dense_mid")
+             or form == "radix" and name in (*RADIX_ONLY, "r2c_dense_mid")
              or form == "npoint" and name.startswith(("dct2_", "dct3_", "spectral_dct"))
              or form == "dense" and name == "fourstep_mid" or form == "long" and name == "dct4_mid"}
 
@@ -1369,7 +1433,8 @@ def main() -> int:
 
     # ---- 4d. real transforms along a middle axis through ndfft_r2c /
     # ndifft_r2c: the rfft2d protocol (K20/K21 at 128 and 264, K16/K17 at
-    # 512 and 1024), then the real steps with the real axis first
+    # 512 and 1024; every R2C on the radix column tile), then the real steps
+    # with the real axis first
     def check_r2c_mid(what, spec, x, back, dims, **kw):
         ref = torch.fft.rfftn(x.double(), dim=dims)
         fwd = rel_err(spec, ref)
@@ -1387,7 +1452,8 @@ def main() -> int:
         h = nd.R2cFftHandler(n)
         spec = nd.ndfft_r2c(x, h, axis=0)
         rfft2d_out[n] = spec, nd.ndifft_r2c(spec, h, axis=0)
-    read_counts("rfft2d", r2c_dense_mid=2, c2r_dense_mid=2, r2c_mid=2, c2r_mid=2)
+    read_counts("rfft2d", r2c_dense_mid=2, r2c_dense_mid_radix=2, c2r_dense_mid=2, r2c_mid=2,
+                c2r_mid=2)
     for n, x in rfft2d_inputs.items():
         spec, back = rfft2d_out[n]
         check_r2c_mid("rfft2d_axis0", spec, x, back, (0,), grid=[n, n])
@@ -1399,11 +1465,12 @@ def main() -> int:
     def inv_first(v, hr, hc):
         return nd.ndifft_r2c(nd.ndifft(nd.ndifft(v, hc, axis=2), hc, axis=1), hr, axis=0)
 
-    # grid -> expected launches: 512^3 K16, K1 at (257, 512, 512), K10 on
-    # 131584 rows, K17; 256^3 K20, K4 at (129, 256, 256), K8 on 33024 rows, K21
+    # grid -> expected launches: 512^3 K16 (the radix column tile), K1 at
+    # (257, 512, 512), K10 on 131584 rows, K17; 256^3 K20 (the radix column
+    # tile), K4 at (129, 256, 256), K8 on 33024 rows, K21
     first_grids = {512: dict(r2c_mid=1, c2c_axis_mid=2, c2c_rows=2, c2r_mid=1),
-                   256: dict(r2c_dense_mid=1, c2c_dense_mid=2, c2c_dense_rows=2,
-                             c2r_dense_mid=1)}
+                   256: dict(r2c_dense_mid=1, r2c_dense_mid_radix=1, c2c_dense_mid=2,
+                             c2c_dense_rows=2, c2r_dense_mid=1)}
     first_inputs = {}
     for n, expected in first_grids.items():
         x = randn(n, n, n)
@@ -1789,7 +1856,7 @@ def main() -> int:
                 dct3_nat=1 + 3, dct3_nat_wide=1, dct3_nat_npoint=2,
                 dct2_mid=1 + 2 + 1, dct2_mid_wide=1 + 1, dct2_mid_npoint=1,
                 dct3_mid=1 + 2, dct3_mid_wide=1, dct3_mid_npoint=1,
-                r2c_mid=2, r2c_mid_wide=2, c2r_mid=2, c2r_mid_wide=2)
+                r2c_mid=2, c2r_mid=2, c2r_mid_wide=2)
     x64 = host64(x2k)
     check("dct2_both_axes", f2k, sfft.dctn(x64, type=2), grid=[2048, 2048])
     check("dct3_roundtrip", b2k, x64, grid=[2048, 2048])
@@ -3093,6 +3160,45 @@ def main() -> int:
         del x, y, back, x64, y64, oracles
     torch.cuda.empty_cache()
 
+    # ---- 4s. the census of kernels 20 and 16: ndfft_r2c along axis 1 of a
+    # (1, n, 130) field at every n that the gates send to kernel 20
+    # (R2C_DENSE_MID: 1094 lengths, 4 ... 1100; 768 of them on the radix
+    # column tile, 326 without a plan on the dense product) and every n that
+    # they send to kernel 16 (R2C_MID: 153 lengths, 512 ... 40960), against
+    # torch.fft.rfft in float64 (an oracle only, run on the host): the radix
+    # column tile within TOL_CENSUS of the oracle's peak, the dense product
+    # (its float32 sums of n terms reach ~1e-6 of the peak at n ~ 600, as
+    # its plain version does on the host) within TOL_KERNEL
+    def r2c_route(n):
+        return api._route("r2c", (1, n, 130), 1, torch.float32, "cuda")
+
+    k20_n = [n for n in range(2, 1101) if r2c_route(n) == api.R2C_DENSE_MID]
+    k16_n = [n for n in range(2, 2 * kfft.GENERIC_MAX_N + 1) if r2c_route(n) == api.R2C_MID]
+    k20_radix = sum(krfft.r2c_mid_radix(n) for n in k20_n)
+    if (len(k20_n), k20_radix, len(k16_n)) != (1094, 768, 153):
+        raise AssertionError(f"r2c census: {len(k20_n)} K20 lengths ({k20_radix} radix), "
+                             f"{len(k16_n)} K16 lengths, expected 1094 (768), 153")
+    t0 = time.perf_counter()
+    worst = {"radix": (0.0, None), "dense": (0.0, None)}
+    reset_counts()
+    for n in k20_n + k16_n:
+        x = randn(1, n, 130)
+        y = nd.ndfft_r2c(x, axis=1)
+        err = rel_err(y, torch.fft.rfft(x.cpu().double(), dim=1).to(dev))
+        form = "radix" if krfft.r2c_mid_radix(n) else "dense"
+        if not err <= (TOL_CENSUS if form == "radix" else TOL_KERNEL):
+            raise AssertionError(f"r2c_mid census n={n} ({form}): {err}")
+        worst[form] = max(worst[form], (err, n))
+    read_counts("r2c_mid_census", r2c_dense_mid=len(k20_n), r2c_dense_mid_radix=k20_radix,
+                r2c_mid=len(k16_n))
+    emit(phase="r2c_mid_census", lengths=len(k20_n) + len(k16_n), k20_radix=k20_radix,
+         k20_dense=len(k20_n) - k20_radix, k16=len(k16_n),
+         worst_rel_err_radix=worst["radix"][0], worst_n_radix=worst["radix"][1],
+         worst_rel_err_dense=worst["dense"][0], worst_n_dense=worst["dense"][1],
+         seconds=time.perf_counter() - t0)
+    del x, y
+    torch.cuda.empty_cache()
+
     # ---- 5. times: each kernel against its plain version and, at the main
     # path's shape, the PyTorch call that computes the same function (the
     # yardstick); the steps against torch.fft (the 1536^3 solve's kernels
@@ -3103,12 +3209,12 @@ def main() -> int:
                    "dct2_nat": (512 * 512, 512), "dct3_nat": (512 * 512, 512),
                    "c2c_rows": (512 * 512, 512), "c2c_dense_rows": (256 * 256, 256),
                    "c2c_dense_mid": (1, 256, 256 * 256), "r2c_mid": (1, 512, 512 * 512),
-                   "c2r_mid": (1, 257, 512 * 512), "r2c_dense_mid": (1, 256, 256 * 256),
+                   "c2r_mid": (1, 257, 512 * 512), "r2c_dense_mid": (1, 262, 256 * 256),
+                   "r2c_dense_mid_radix": (1, 256, 256 * 256),
                    "c2r_dense_mid": (1, 129, 256 * 256), "r2c_packed": (256 * 256, 256),
                    "r2c_packed_dense": (128 * 128, 128), "c2c_generic_rows": (600 * 600, 600),
                    "c2c_generic_mid": (600, 600, 301), "r2c_packed_generic": (600 * 600, 600),
                    "c2c_axis_mid_wide": (768, 768, 385), "c2r_nat_wide": (768 * 768, 385),
-                   "r2c_mid_wide": (1, 1280, 1280),
                    "c2r_mid_wide": (1, 641, 1280), "dct2_nat_wide": (1536 * 1536, 1536),
                    "dct3_nat_wide": (1536 * 1536, 1536), "dct2_nat_npoint": (384, 384),
                    "dct3_nat_npoint": (384, 384), "dct2_mid": (1, 2048, 2048),
@@ -3253,6 +3359,19 @@ def main() -> int:
         emit(phase="time", kernel=name, shape=shape, ms_by_rows_per_block=rows_ms,
              chosen=chosen, card=card)
         del x
+    # kernels 16 and 20 on the radix column tile at their main shapes with
+    # each column count C that fits (the wrappers take r2c_mid_cols's)
+    for shape in ((1, 512, 512 * 512), (512, 512, 512), (1, 1280, 1280), (1, 256, 256 * 256),
+                  (1, 264, 264), (1, 129, 256 * 256)):
+        nb, n, cols = shape
+        x = randn(*shape)
+        y = torch.empty((nb, n // 2 + 1, cols), dtype=torch.complex64, device=dev)
+        cols_ms = {c: cuda_ms(lambda: krfft.r2c_mid_radix_launch(x, y, c), reps)
+                   for c in (1, 2, 4, 8, 16, 32, 64) if tile_fits(krfft.r2c_mid_len(n), c)}
+        emit(phase="time", kernel="r2c_mid" if n >= 512 else "r2c_dense_mid_radix", shape=shape,
+             ms_by_cols_per_tile=cols_ms, chosen=krfft.r2c_mid_cols(n, nb, cols, kfft.num_sms(dev)),
+             card=card)
+        del x, y
     for grid_shape, x in c2c_inputs.items():
         hs = [nd.FftHandler(n) for n in grid_shape]
         torch.cuda.reset_peak_memory_stats()
@@ -3270,18 +3389,21 @@ def main() -> int:
     del fft2d_inputs
     torch.cuda.empty_cache()
 
-    # the middle-axis R2C/C2R kernels, the real-axis-first steps and rfft2d
-    for r2c_name, c2r_name, r2c, r2c_plain, c2r, c2r_plain, shapes in (
-            ("r2c_mid", "c2r_mid", krfft.r2c_mid, krfft.r2c_mid_plain, krfft.c2r_mid,
-             krfft.c2r_mid_plain, ((1, 512, 512), (1, 1024, 1024), (512, 512, 512),
-                                   (1, 512, 512 * 512))),
-            ("r2c_dense_mid", "c2r_dense_mid", krfft.r2c_dense_mid,
-             krfft.r2c_dense_mid_plain, krfft.c2r_dense_mid, krfft.c2r_dense_mid_plain,
-             ((1, 128, 128), (1, 264, 264), (1, 256, 256 * 256)))):
+    # the middle-axis R2C/C2R kernels (kernel 20 on the radix column tile
+    # as r2c_dense_mid_radix, at 262 = 2 * 131 on its dense product), the
+    # real-axis-first steps and rfft2d
+    for r2c_name, c2r_name, r2c, c2r, c2r_plain, shapes in (
+            ("r2c_mid", "c2r_mid", krfft.r2c_mid, krfft.c2r_mid, krfft.c2r_mid_plain,
+             ((1, 512, 512), (1, 1024, 1024), (512, 512, 512), (1, 512, 512 * 512))),
+            ("r2c_dense_mid", "c2r_dense_mid", krfft.r2c_dense_mid, krfft.c2r_dense_mid,
+             krfft.c2r_dense_mid_plain,
+             ((1, 128, 128), (1, 264, 264), (1, 256, 256 * 256), (1, 129, 256 * 256),
+              (1, 262, 256 * 256)))):
         for nb, n, cols in shapes:
             x = randn(nb, n, cols)
             sp = crandn(nb, n // 2 + 1, cols)
-            time_kernel(r2c_name, (nb, n, cols), lambda: r2c(x), lambda: r2c_plain(x),
+            name, r2c_plain = r2c_form(r2c_name, n)
+            time_kernel(name, (nb, n, cols), lambda: r2c(x), lambda: r2c_plain(x),
                         lambda: torch.fft.rfft(x, dim=1))
             time_kernel(c2r_name, (nb, n // 2 + 1, cols), lambda: c2r(sp, n, 1.0 / n),
                         lambda: c2r_plain(sp, n, 1.0 / n),
@@ -3460,14 +3582,15 @@ def main() -> int:
         f = makhoul_dct(makhoul_dct(x, 1, 2), 0, 2)
         return makhoul_dct(makhoul_dct(f, 0, 3), 1, 3) / (2 * 1024) ** 2
 
-    # kernels 16/17 on the wide core and kernels 23 to 26 in their fixed and
-    # n-point forms at phase 4h's shapes (the wide DCT forms at 1536^3 were
-    # timed there); K16/K17's yardstick is torch.fft.rfft / irfft along the
-    # axis, the DCTs have no single PyTorch call
+    # kernel 16 at F = 3 and 5 (the radix column tile), kernel 17 on the
+    # wide core and kernels 23 to 26 in their fixed and n-point forms at
+    # phase 4h's shapes (the wide DCT forms at 1536^3 were timed there);
+    # K16/K17's yardstick is torch.fft.rfft / irfft along the axis, the DCTs
+    # have no single PyTorch call
     for n in (768, 1280):
         x = randn(1, n, n)
         sp = crandn(1, n // 2 + 1, n)
-        time_kernel("r2c_mid_wide", (1, n, n), lambda: krfft.r2c_mid(x),
+        time_kernel("r2c_mid", (1, n, n), lambda: krfft.r2c_mid(x),
                     lambda: krfft.r2c_mid_plain(x), lambda: torch.fft.rfft(x, dim=1))
         time_kernel("c2r_mid_wide", (1, n // 2 + 1, n), lambda: krfft.c2r_mid(sp, n, 1.0 / n),
                     lambda: krfft.c2r_mid_plain(sp, n, 1.0 / n),
@@ -3580,12 +3703,14 @@ def main() -> int:
                            "ndrustfft_tpu/ops/pallas/fft.py:521"),
         "c2c_dense_mid": ("ndrustfft_tpu_torch/csrc/fft_mid_radix.cu",
                           "ndrustfft_tpu/ops/pallas/fft.py:1565"),
-        "r2c_mid": ("ndrustfft_tpu_torch/csrc/rfft_mid.cu",
+        "r2c_mid": ("ndrustfft_tpu_torch/csrc/rfft_mid_radix.cu",
                     "ndrustfft_tpu/ops/pallas/rfft.py:443"),
         "c2r_mid": ("ndrustfft_tpu_torch/csrc/rfft_mid.cu",
                     "ndrustfft_tpu/ops/pallas/rfft.py:470"),
         "r2c_dense_mid": ("ndrustfft_tpu_torch/csrc/rfft_dense.cu",
                           "ndrustfft_tpu/ops/pallas/rfft.py:882"),
+        "r2c_dense_mid_radix": ("ndrustfft_tpu_torch/csrc/rfft_mid_radix.cu",
+                                "ndrustfft_tpu/ops/pallas/rfft.py:882"),
         "c2r_dense_mid": ("ndrustfft_tpu_torch/csrc/rfft_dense.cu",
                           "ndrustfft_tpu/ops/pallas/rfft.py:898"),
         "r2c_packed": ("ndrustfft_tpu_torch/csrc/rfft_radix.cu",
@@ -3602,8 +3727,6 @@ def main() -> int:
                               "ndrustfft_tpu/ops/pallas/fft.py:1124"),
         "c2r_nat_wide": ("ndrustfft_tpu_torch/csrc/rfft_nat.cu",
                          "ndrustfft_tpu/ops/pallas/rfft.py:323"),
-        "r2c_mid_wide": ("ndrustfft_tpu_torch/csrc/rfft_mid.cu",
-                         "ndrustfft_tpu/ops/pallas/rfft.py:443"),
         "c2r_mid_wide": ("ndrustfft_tpu_torch/csrc/rfft_mid.cu",
                          "ndrustfft_tpu/ops/pallas/rfft.py:470"),
         "dct2_nat_wide": ("ndrustfft_tpu_torch/csrc/dct_nat.cu",

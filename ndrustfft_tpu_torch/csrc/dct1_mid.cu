@@ -12,7 +12,7 @@
 // scalar, as the JAX package does. The output is the real rows 0 .. h only,
 // h + 1 = n floats per column.
 //
-// It is kernel 16's code (r2c_col.cuh, shared with kernels 16 and 18) with
+// It is kernel 18's R2C on the bts2 cores (r2c_col.cuh) with
 // the load and store of Dct1Io below: the load builds z[t] = e[2t] + i e[2t+1]
 // by reading x from both ends of the column (two row loads per element, no
 // flipped copy of x: the JAX package materialises flip(x) as a second

@@ -7,7 +7,10 @@
 // convolution length M = 128 * F on an (M, C) column tile, its forward and
 // inverse length-M transforms in place (fft_blue_radix.cu); kernels 6 and 4
 // (n > 512 without a split; n <= 512) on an (n, C) column tile with the
-// store in its last stage (fft_mid_radix.cu).
+// store in its last stage (fft_mid_radix.cu); kernels 16 and 20 (the R2C
+// along a middle axis) on the same column tile, at the half length with the
+// unpack as the epilogue or, at an odd length, with an epilogue that stores
+// half the bins (rfft_mid_radix.cu).
 //
 // Replaces, for the CUDA port, the JAX package's
 // ndrustfft_tpu/ops/pallas/fft.py::_kernel_twostep (the twostep split
@@ -66,6 +69,10 @@
 // struct's store(), or, for an Io with kTileOut, writes its outputs back
 // into the tile in natural order through out(k, v) (kernel 11's product
 // with H, kernel 15's plain copy) for an epilogue or a second transform.
+// Two skeletons run the stages: radix_rows_kernel on rows, radix_cols_kernel
+// on an (n, C) column tile of a (B, rows, L) tensor, each column read
+// through a load policy (a complex column, or the R2C's real column as
+// pairs of rows or with a zero imaginary part).
 //
 // Left for later: cp.async or TMA prefetch of the next tile, twiddles
 // staged in shared memory, and the other routes that run dense stages
@@ -540,6 +547,26 @@ __device__ __forceinline__ void radix_run(float2* s, const float2* __restrict__ 
   }
 }
 
+// The R2C's unpack from a tile whose transforms hold their half-length
+// spectra Z in natural order (an Io with kTileOut, after radix_run's last
+// barrier): a transform's threads hand its h + 1 bins to out(k, X[k]),
+//   X[k] = (Z[k] + C[k]) / 2 - i W_n^k (Z[k] - C[k]) / 2,  k < h,
+//   X[h] = Re Z[0] - Im Z[0],  C[k] = conj Z[(h - k) mod h],  u[k] = W_n^k.
+template <class Cx, class Out>
+__device__ __forceinline__ void r2c_unpack_tile(const float2* s, const Cx& cx,
+                                                const float2* __restrict__ u, const Out& out) {
+  if (!cx.active) return;
+  const int h = cx.n;
+  for (int k = cx.t; k <= h; k += cx.tr) {
+    const float2 za = s[cx.slot(k < h ? k : 0)];
+    if (k < h) {
+      out(k, r2c_unpack_one(za, s[cx.slot(k ? h - k : 0)], __ldg(u + k)));
+    } else {
+      out(h, make_float2(za.x - za.y, 0.f));
+    }
+  }
+}
+
 // One block per tile of at most `rows` rows of (T, n), the T rows spread
 // evenly over the `tiles` blocks; tr = ceil(n / kE) threads per row. The
 // table: the stage twiddles at 0 ... n - 2, then each prime stage's
@@ -656,6 +683,90 @@ cudaError_t radix_rows_launch(const float2* x, Io io, const float2* tab, const i
   return e == 40 ? radix_launch_es<40, 1>(x, io, tab, plan, T, n, rows, scale, stream)
        : e == 32 ? radix_launch_es<32, 1>(x, io, tab, plan, T, n, rows, scale, stream)
                  : radix_launch_es<16, 1>(x, io, tab, plan, T, n, rows, scale, stream);
+}
+
+// One block per (b, tile of at most C adjacent columns), the L columns
+// spread evenly over the `tiles` tiles, each column a transform of length
+// n; tr = ceil(n / kE) threads per column, thread c + C t taking column c's
+// place t. The load policy gives the columns: ld.base(b, col) is column
+// col's handle and ld.at(p, r) its element r, a tile row (C columns) read by
+// consecutive threads, four elements in flight a thread; columns past the
+// valid ones are zero and neither loaded nor stored. The Io stores the last
+// stage's outputs at io.handle(b, col) (store(handle, k, v)), or, kTileOut,
+// gets the tile of spectra in its epilogue(s, cx).
+template <int kE, int kS, class Load, class Io>
+__global__ void __launch_bounds__(kRadixMaxThreads<kE>, kRadixMinBlocks<kE>)
+radix_cols_kernel(Load ld, Io io, const float2* __restrict__ tab, RadixPlan plan, int n,
+                  long long L, long long tiles, int C, float scale) {
+  extern __shared__ float2 smem[];
+  const long long bb = blockIdx.x / tiles;
+  const long long tile = blockIdx.x % tiles;
+  const long long col0 = tile * L / tiles;
+  const int valid = (int)((tile + 1) * L / tiles - col0);
+  const long long base = ld.base(bb, col0);
+  const int tr = (n + kE - 1) / kE;
+  const int cshift = 31 - __clz(C);   // C is a power of two: no division per element
+  const int t = (int)threadIdx.x >> cshift, c = (int)threadIdx.x & (C - 1);
+  const RadixCtx<ColLayout> cx{n, tr, t, ColLayout{c, C}, c < valid && t < tr,
+                               io.handle(bb, col0) + c};
+  float2* s = smem;
+  float2* cs = smem + cx_tile_slots(n * C);
+  int count[8];
+  radix_prepare(count, cs, tab, plan, n);
+  // the tile, element e = (r, cc) at e = r C + cc
+  constexpr int kLoads = 4;
+  const int elems = n * C;
+  for (int e0 = threadIdx.x; e0 < elems; e0 += kLoads * blockDim.x) {
+    float2 v[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int e = e0 + u * blockDim.x, r = e >> cshift, cc = e & (C - 1);
+      v[u] = make_float2(0.f, 0.f);
+      if (e < elems && cc < valid) v[u] = ld.at(base + cc, r);
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int e = e0 + u * blockDim.x;
+      if (e < elems) s[cx_slot(e)] = v[u];
+    }
+  }
+  __syncthreads();
+  radix_run<kE, kS>(s, tab, cs, count, plan, cx, io, scale);
+  if constexpr (RxTileOut<Io>::value) io.epilogue(s, cx);
+}
+
+template <int kE, int kS, class Load, class Io>
+cudaError_t radix_cols_launch_e(Load ld, Io io, const float2* tab, const RadixPlan& plan,
+                                long long B, int n, long long L, int C, float scale,
+                                cudaStream_t stream) {
+  const int tr = (n + kE - 1) / kE;
+  const int threads = (C * tr + 31) / 32 * 32;
+  const long long smem = (long long)(cx_tile_slots(n * C) + rx_coef_count(plan)) * sizeof(float2);
+  const long long tiles = (L + C - 1) / C;
+  if (threads > kRadixMaxThreads<kE> || smem > kMaxSmemBytes || B * tiles > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(radix_cols_kernel<kE, kS, Load, Io>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  radix_cols_kernel<kE, kS, Load, Io><<<(unsigned)(B * tiles), threads, (size_t)smem, stream>>>(
+      ld, io, tab, plan, n, L, tiles, C, scale);
+  return cudaGetLastError();
+}
+
+// The column tile's launcher: B L columns of length n (the plan's), C
+// columns a tile, a power of two up to kRadixMaxCols with n C <= 20480 and
+// at most 256 threads (512 above n C = 4096; 16, 32 or 40 elements a thread
+// by n C). Returns the cudaError_t of the launch.
+template <int kS, class Load, class Io>
+cudaError_t radix_cols_launch(Load ld, Io io, const float2* tab, const RadixPlan& plan,
+                              long long B, int n, long long L, int C, float scale,
+                              cudaStream_t stream) {
+  if (B < 1 || L < 1 || C < 1 || C > kRadixMaxCols || (C & (C - 1)) || (long long)n * C > 20480)
+    return cudaErrorInvalidValue;
+  const int e = radix_per_thread(n * C);
+  return e == 40 ? radix_cols_launch_e<40, kS>(ld, io, tab, plan, B, n, L, C, scale, stream)
+       : e == 32 ? radix_cols_launch_e<32, kS>(ld, io, tab, plan, B, n, L, C, scale, stream)
+                 : radix_cols_launch_e<16, kS>(ld, io, tab, plan, B, n, L, C, scale, stream);
 }
 
 }  // namespace ndfft

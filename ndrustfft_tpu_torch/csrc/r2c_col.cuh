@@ -1,6 +1,7 @@
-// The R2C of each column of a column tile, shared by kernels 16, 18 and 19
-// (rfft_mid.cu, rfft_packed_mid.cu, dct1_mid.cu), which differ only in how
-// they load the half-length column z and store the spectrum X:
+// The R2C of each column of a column tile on the bts2 cores, shared by
+// kernels 18 and 19 (rfft_packed_mid.cu, dct1_mid.cu; kernel 16's, until it
+// moved onto the radix column tile, rfft_mid_radix.cu), which differ only in
+// how they load the half-length column z and store the spectrum X:
 //
 //   z[t] = io.load(b, t, col),  t < h = 128 * F,
 //   Z = FFT_h(z) on the fixed core (bts2_core.cuh) or the wide one
@@ -25,8 +26,8 @@
 
 namespace ndfft {
 
-// Two blocks per SM (two 64 KB tiles): at F = 2, C = 32 ptxas otherwise gives
-// kernel 16 132 registers, which leaves one block per SM.
+// Two blocks per SM (two 64 KB tiles): at F = 2, C = 32 ptxas otherwise gave
+// kernel 16 (when it ran here) 132 registers, which leaves one block per SM.
 template <int F, int C, class Io>
 __global__ void __launch_bounds__(kThreads, 2)
 r2c_col_kernel(Io io, const float2* __restrict__ wq, const float2* __restrict__ tw, float scale,

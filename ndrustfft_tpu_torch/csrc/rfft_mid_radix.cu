@@ -1,0 +1,145 @@
+// Kernels 16 and 20: the R2C along the middle axis of a (B, n, L) float32
+// tensor to (B, n / 2 + 1, L) complex64, on the mixed-radix core's column
+// tile (fft_radix.cuh::radix_cols_kernel, kernels 6 and 4's skeleton).
+// Kernel 16 takes n = 2h, h = 128 * F (F = 2 ... 160); kernel 20 every
+// 4 <= n <= 1100 whose transform length (h for even n, n for odd n) has a
+// plan (ops/hopper/fft.py::radix_plan; its 326 other lengths keep the dense
+// product of rfft_dense.cu).
+//
+// Kernel 16 replaces ndrustfft_tpu/ops/pallas/rfft.py::_r2c_kernel_mid
+// (:443, built by _build_r2c_mid and called at :532); kernel 20 replaces
+// ::_r2c_dense_kernel (:882, called at :932). The TPU kernels ran the
+// half-length FFT as the bts2 core's dense DFT-128 stage (kernel 16) and the
+// whole R2C as one real product (kernel 20), cheap on a 128 x 128 MXU.
+// Their first Hopper forms ran the same on the FP32 cores: kernel 16 on the
+// bts2 core, bound by its stage-2 DFT-128 (7.6x its byte bound at
+// (1, 512, 262144); on the wide core 47x at (1, 1280, 1280)), kernel 20 as
+// one real SGEMM of 2 n (n + 2) operations per column where an FFT needs
+// 2.5 n log2 n (132 k against 5.1 k at n = 256), with two output rows
+// always zero.
+//
+// What bounds it on this card: device memory. A column is read once (4 n
+// bytes) and its n / 2 + 1 bins written once (8 (n / 2 + 1) bytes): 0.321 ms
+// at (1, 512, 262144) and 0.0403 ms at (1, 256, 65536) over 3.35 TB/s,
+// against 2.5 n log2 n FP32 operations per column (0.045 and 0.0050 ms of
+// the 67 TFLOP/s peak).
+//
+// The design. Even n: the column read as its complex pairs
+// z[t] = x[2t] + i x[2t + 1] (two real row loads per element, consecutive
+// threads on consecutive columns), one radix_run of radix_plan(h) in place
+// whose last stage writes Z back into the tile in natural order (kTileOut),
+// and after its barrier the unpack as the epilogue, each bin's mirror
+// Z[(h - k) mod h] of the same column a shared-memory read
+// (fft_radix.cuh::r2c_unpack_tile, kernels 2 and 15's on rows):
+//
+//   X[k] = (Z[k] + C[k]) / 2 - i W_n^k (Z[k] - C[k]) / 2,  k < h,
+//   X[h] = Re Z[0] - Im Z[0],  C[k] = conj Z[(h - k) mod h],
+//
+// each X[k] stored once to out[b, k, col0 + c], consecutive threads on
+// consecutive columns; W_n^k comes from the host (ops/hopper/rfft.py::
+// _device_tw), so the device runs no sincosf. Odd n: the length-n C2C of
+// (x, 0) on the same tile, left there in natural order, and an epilogue
+// that stores the bins k <= n / 2, a tile row at a time. (Storing them from
+// the last stage with a bin bound, as kernels 6 and 4 store all n, made
+// ptxas spill 1300 bytes a thread at 16 elements against 52 through the
+// tile; the bound alone took kernels 6 and 4 from 396 to 1300.) Columns a
+// tile: ops/hopper/rfft.py::
+// r2c_mid_cols (kernel 4's rule at the transform length, up to 32 columns
+// and a tile row of at least one 128-byte line where the columns allow).
+// Shared memory: the tile, 8 h C (17 / 16) bytes (8 n C at odd n), and the
+// prime rows. Left for later: cp.async or TMA loads, the odd length's
+// Hermitian half of the work (half the C2C's outputs are dropped).
+#include "fft_radix.cuh"
+
+namespace ndfft {
+
+// The real columns of (B, rows, L) float32: element r of column col of b
+// as the pair (x[2r], x[2r + 1]) of its rows (kPairs: the half-length
+// column of an even n) or as (x[r], 0).
+template <bool kPairs>
+struct RealCol {
+  const float* __restrict__ x;
+  long long L;
+  int rows;
+  __device__ __forceinline__ long long base(long long b, long long col) const {
+    return b * rows * L + col;
+  }
+  __device__ __forceinline__ float2 at(long long p, int r) const {
+    if constexpr (kPairs) {
+      const float* q = x + p + 2 * r * L;
+      return make_float2(__ldcs(q), __ldcs(q + L));
+    } else {
+      return make_float2(__ldcs(x + p + r * L), 0.f);
+    }
+  }
+};
+
+// Even n's epilogue: the tile holds Z (the last stage's outputs kept as
+// they are), and each column's threads write its h + 1 bins to
+// y[(b (h + 1) + k) L + col]; u[k] = W_n^k.
+struct R2cColUnpack {
+  static constexpr bool kTileOut = true;
+  float2* __restrict__ y;
+  const float2* __restrict__ u;
+  long long L;
+  int h;
+  __device__ __forceinline__ long long handle(long long b, long long col) const {
+    return b * (h + 1) * L + col;
+  }
+  __device__ __forceinline__ float2 out(int, float2 v) const { return v; }
+  template <class Cx>
+  __device__ __forceinline__ void epilogue(const float2* s, const Cx& cx) const {
+    float2* yc = y + cx.row;
+    const long long ls = L;
+    r2c_unpack_tile(s, cx, u, [=](int k, float2 v) { yc[k * ls] = v; });
+  }
+};
+
+// Odd n's epilogue: the tile holds the C2C of (x, 0), and each column's
+// threads store its bins k < rows = n / 2 + 1 to y[(b rows + k) L + col].
+struct R2cOddBins {
+  static constexpr bool kTileOut = true;
+  float2* __restrict__ y;
+  long long L;
+  int rows;
+  __device__ __forceinline__ long long handle(long long b, long long col) const {
+    return b * rows * L + col;
+  }
+  __device__ __forceinline__ float2 out(int, float2 v) const { return v; }
+  template <class Cx>
+  __device__ __forceinline__ void epilogue(const float2* s, const Cx& cx) const {
+    if (!cx.active) return;
+    for (int k = cx.t; k < rows; k += cx.tr) y[cx.row + k * L] = s[cx.slot(k)];
+  }
+};
+
+}  // namespace ndfft
+
+// x: (B, n, L) float32; y: (B, n / 2 + 1, L) complex64; both contiguous.
+// table: the forward (sign -1) radix table of the transform length, h = n / 2
+// for even n and n for odd n (ops/hopper/fft.py::radix_consts); radices:
+// its plan, `stages` of them; u: (h,) complex64 W_n^k for even n, unused for
+// odd n; C: columns per tile, a power of two up to kRadixMaxCols whose tile
+// (transform length times C) holds at most 20480 elements in at most 256
+// threads (512 above 4096 elements) (ops/hopper/rfft.py::r2c_mid_cols).
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int ndfft_r2c_mid_radix(const void* x, void* y, const void* table, const int* radices,
+                                   int stages, const void* u, long long B, int n, long long L,
+                                   int C, void* stream) {
+  using namespace ndfft;
+  const bool even = n % 2 == 0;
+  const int len = even ? n / 2 : n;
+  RadixPlan plan{};
+  if (!radix_plan_of(radices, stages, len, plan) || (even && u == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const auto xp = static_cast<const float*>(x);
+  const auto yp = static_cast<float2*>(y);
+  const auto tp = static_cast<const float2*>(table);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (even)
+    return (int)radix_cols_launch<-1>(
+        RealCol<true>{xp, L, n}, R2cColUnpack{yp, static_cast<const float2*>(u), L, len}, tp,
+        plan, B, len, L, C, 1.f, st);
+  return (int)radix_cols_launch<-1>(RealCol<false>{xp, L, n}, R2cOddBins{yp, L, n / 2 + 1},
+                                    tp, plan, B, len, L, C, 1.f, st);
+}

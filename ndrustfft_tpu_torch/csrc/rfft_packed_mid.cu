@@ -11,8 +11,8 @@
 // by elementwise torch ops (ops/dst.py::dst1_streams), as the JAX package
 // assembles them in XLA.
 //
-// It is kernel 16 (rfft_mid.cu) with one change: z[t] = xe[t] + i xo[t] is
-// loaded from two tensors, where kernel 16 loads rows 2t and 2t + 1 of one.
+// It is kernel 16's former bts2 form with one change: z[t] = xe[t] + i xo[t]
+// is loaded from two tensors, where kernel 16 loads rows 2t and 2t + 1 of one.
 // Both run r2c_col.cuh's kernels (Z = FFT_h(z) on the fixed or the wide
 // core, then the unpack), with the load and store of PackedIo below:
 //   X[k] = scale * ((Z[k] + C[k]) / 2 - i W_n^k (Z[k] - C[k]) / 2),  k < h,

@@ -52,17 +52,8 @@ struct R2cUnpack {
   __device__ __forceinline__ float2 out(int, float2 v) const { return v; }
   template <class Cx>
   __device__ __forceinline__ void epilogue(const float2* s, const Cx& cx) const {
-    if (!cx.active) return;
-    const int h = cx.n;
-    float2* yr = y + cx.row * (h + 1);
-    for (int k = cx.t; k <= h; k += cx.tr) {
-      const float2 za = s[cx.slot(k < h ? k : 0)];
-      if (k < h) {
-        yr[k] = r2c_unpack_one(za, s[cx.slot(k ? h - k : 0)], __ldg(u + k));
-      } else {
-        yr[h] = make_float2(za.x - za.y, 0.f);
-      }
-    }
+    float2* yr = y + cx.row * (cx.n + 1);
+    r2c_unpack_tile(s, cx, u, [=](int k, float2 v) { yr[k] = v; });
   }
 };
 

@@ -41,7 +41,6 @@ _SIGNATURES = {
     "ndfft_c2c_axis_mid": [_P, _P, _P, _LL, _I, _LL, _I, _I, _P],
     "ndfft_c2c_dense": [_P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_c2r_nat": [_P, _P, _P, _P, _LL, _I, _I, _P],
-    "ndfft_r2c_mid": [_P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_c2r_mid": [_P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_r2c_dense_mid": [_P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_c2r_dense_mid": [_P, _P, _P, _LL, _I, _LL, _I, _P],
@@ -53,8 +52,8 @@ _SIGNATURES = {
     "ndfft_c2c_rows_radix": [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _F, _P],
     "ndfft_c2c_mid_radix": [_P, _P, _P, _P, _I, _LL, _I, _LL, _I, _I, _F, _P],
     "ndfft_r2c_radix": [_P, _P, _P, _P, _I, _P, _LL, _I, _I, _P],
+    "ndfft_r2c_mid_radix": [_P, _P, _P, _P, _I, _P, _LL, _I, _LL, _I, _P],
     "ndfft_c2r_nat_wide": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
-    "ndfft_r2c_mid_wide": [_P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_c2r_mid_wide": [_P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_dct_nat_wide": [_I, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_dct_nat_npoint": [_I, _P, _P, _P, _P, _P, _LL, _I, _I, _P],

@@ -10,15 +10,21 @@
   its runtime-F form ``csrc/bts2_wide.cuh`` for every other F <= 160;
   replaces ``rfft.py::_c2r_kernel_nat``).
 * Kernels 16 and 17, :func:`r2c_mid` and :func:`c2r_mid`: the same two along
-  the middle axis of (B, n, L), kernel 1's column-tile layout of the core
-  (``csrc/rfft_mid.cu``, the fixed core for F in {2, 4, 8, 16}, the wide core
-  for every other F <= 160; replace ``rfft.py::_r2c_kernel_mid`` and
-  ``_c2r_kernel_mid``).
+  the middle axis of (B, n, L), replacing ``rfft.py::_r2c_kernel_mid`` and
+  ``_c2r_kernel_mid``. Kernel 16 is the half-length C2C on the mixed-radix
+  core's column tile with the unpack as its epilogue in shared memory
+  (``csrc/rfft_mid_radix.cu`` on ``csrc/fft_radix.cuh``); kernel 17 runs
+  kernel 1's column-tile layout of the bts2 core (``csrc/rfft_mid.cu``, the
+  fixed core for F in {2, 4, 8, 16}, the wide core for every other
+  F <= 160).
 * Kernels 20 and 21, :func:`r2c_dense_mid` and :func:`c2r_dense_mid`: R2C and
-  C2R along the middle axis as one real product with a host table,
-  4 <= n <= 1100, odd n included (``csrc/rfft_dense.cu`` on the dense loop
-  ``csrc/dense_real.cuh``; replace ``rfft.py::_r2c_dense_kernel`` and
-  ``_c2r_dense_kernel``).
+  C2R along the middle axis, 4 <= n <= 1100, odd n included, replacing
+  ``rfft.py::_r2c_dense_kernel`` and ``_c2r_dense_kernel``. Kernel 20 runs
+  kernel 16's column kernel where :func:`~.fft.radix_plan` has its transform
+  length (h = n/2 for even n, n for odd n: the length-n C2C of (x, 0), half
+  of its bins stored), and one real product with a host table at the other
+  lengths (a prime factor above 127); kernel 21 is always that product
+  (``csrc/rfft_dense.cu`` on the dense loop ``csrc/dense_real.cuh``).
 * Kernels 18 and 19, :func:`r2c_packed_mid` and :func:`dct1_mid`: kernel
   16's code on a column built otherwise, along the middle axis
   (``csrc/rfft_packed_mid.cu`` and ``csrc/dct1_mid.cu``, the fixed core for
@@ -43,9 +49,10 @@
 
 This module holds their host-built constants, their plain PyTorch versions
 and their wrappers, whose ``launches`` attributes count kernel launches
-(kernels 3, 16, 17, 18, 19 and 22 on the bts2 core also count the wide
-core's launches apart, in ``wide_launches``; kernels 2 and 15 at h = 128 * F
-count every launch in ``radix_launches`` as well).
+(kernels 3, 17, 18, 19 and 22 on the bts2 core also count the wide core's
+launches apart, in ``wide_launches``; kernels 2 and 15 at h = 128 * F and
+kernel 16 count every launch in ``radix_launches`` as well, kernel 20 its
+launches on the radix column tile).
 """
 
 from __future__ import annotations
@@ -59,9 +66,10 @@ import torch
 from ...plan import _cis
 from . import _build
 from .fft import (CORE_F, GENERIC_MAX_N, M, RADIX_MAX_STAGES, block_cols, block_rows,
-                  bts2_plain, c2c_radix_rows_plain, check_cuda, check_mult, core_f, count_launch,
-                  dense_tile, device_radix, device_wide, device_wq, generic_split, mult_planes,
-                  num_sms, radix_block, radix_plan, wide_block)
+                  bts2_plain, c2c_radix_mid_plain, c2c_radix_rows_plain, check_cuda,
+                  check_mult, core_f, count_launch, dense_tile, device_radix, device_wide,
+                  device_wq, generic_split, mult_planes, num_sms, radix_block,
+                  radix_mid_cols, radix_plan, wide_block)
 
 # lengths kernels 20 and 21 take: the JAX package's rfft_dense_mid_supported
 # (its _DENSE_RFFT_MAX), which the routes mirror
@@ -279,20 +287,78 @@ c2r_nat.wide_launches = 0
 
 
 # --------------------------------------------------------------------------
-# Kernels 16 and 17: along the middle axis on the bts2 core (fixed or wide)
+# Kernels 16 and 20 on the radix column tile; kernel 17 on the bts2 core
+# (fixed or wide)
 # --------------------------------------------------------------------------
 
 
-def r2c_mid_plain(x: torch.Tensor) -> torch.Tensor:
-    """Plain version of kernel 16: (B, n, L) float32 -> (B, n/2+1, L)
-    complex64 along dim 1: the core's plain version on the planes
-    x[:, 0::2] + i x[:, 1::2], then the unpack with the mirror row."""
+def r2c_mid_len(n: int) -> int:
+    """The transform length of the R2C of n on the radix column tile: the
+    half length h = n/2 for even n, n itself for odd n."""
+    return n if n % 2 else n // 2
+
+
+def r2c_mid_radix(n: int) -> bool:
+    """The radix column tile takes the R2C of n (:func:`~.fft.radix_plan`
+    has its transform length)."""
+    return radix_plan(r2c_mid_len(n)) is not None
+
+
+def r2c_mid_radix_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernels 16 and 20 on the radix column tile:
+    (B, n, L) float32 -> (B, n//2+1, L) complex64 along dim 1. Even n: the
+    radix core's plain version (:func:`~.fft.c2c_radix_mid_plain`) on the
+    half-length columns x[:, 0::2] + i x[:, 1::2], then the unpack with the
+    mirror row; odd n: the first (n + 1)/2 bins of its C2C of (x, 0)."""
     nb, n, cols = x.shape
-    h = n // 2
-    xv = x.reshape(nb, h, 2, cols)
-    z = torch.complex(xv[:, :, 0], xv[:, :, 1])
-    zz = bts2_plain(z, device_wq(h, -1, 1.0, x.device), -1)
+    if n % 2:
+        z = c2c_radix_mid_plain(torch.complex(x, torch.zeros_like(x)), -1)
+        return z[:, :n // 2 + 1].contiguous()
+    xv = x.reshape(nb, n // 2, 2, cols)
+    zz = c2c_radix_mid_plain(torch.complex(xv[:, :, 0], xv[:, :, 1]), -1)
     return _unpack(zz, _device_tw(n, x.device), 1)
+
+
+r2c_mid_plain = r2c_mid_radix_plain     # kernel 16
+
+
+def r2c_mid_cols(n: int, groups: int, cols: int, sms: int) -> int:
+    """Columns per tile of kernels 16 and 20 at n: :func:`~.fft.radix_mid_cols`
+    at the transform length. (On an H100 its count ran fastest, or within 1%
+    of the fastest, at (1, 512, 262144), (512, 512, 512), (1, 1280, 1280),
+    (1, 256, 65536) and (1, 129, 65536): chip_smoke.py phase 5 times each
+    C at those shapes.)"""
+    return radix_mid_cols(r2c_mid_len(n), groups, cols, sms)
+
+
+def r2c_mid_radix_launch(x: torch.Tensor, out: torch.Tensor, c: int) -> None:
+    """Launch the R2C on the radix column tile (kernels 16 and 20), ``c``
+    columns a tile (:func:`r2c_mid_cols`), on a (B, n, L) float32 CUDA
+    tensor x into the (B, n//2+1, L) complex64 out; counts nothing."""
+    nb, n, cols = x.shape
+    dev = x.device
+    length = r2c_mid_len(n)
+    plan = radix_plan(length)
+    u = None if n % 2 else _device_tw(n, dev).data_ptr()
+    with torch.cuda.device(dev):
+        err = _build.lib().ndfft_r2c_mid_radix(
+            x.data_ptr(), out.data_ptr(), device_radix(length, -1, dev).data_ptr(),
+            (ctypes.c_int * RADIX_MAX_STAGES)(*plan), len(plan), u, nb, n, cols, c,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ndfft_r2c_mid_radix")
+
+
+def _r2c_mid_radix(wrapper, x: torch.Tensor) -> torch.Tensor:
+    """``wrapper``'s (kernel 16's or 20's) launch on the radix column tile,
+    counted in its ``launches`` and ``radix_launches``."""
+    nb, n, cols = x.shape
+    out = torch.empty((nb, n // 2 + 1, cols), dtype=torch.complex64, device=x.device)
+    if x.numel() == 0:
+        return out
+    r2c_mid_radix_launch(x, out, r2c_mid_cols(n, nb, cols, num_sms(x.device)))
+    wrapper.launches += 1
+    wrapper.radix_launches += 1
+    return out
 
 
 def c2r_mid_plain(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
@@ -315,53 +381,47 @@ def _check_mid(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
         raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
 
 
-def _launch_mid(wrapper, inp: torch.Tensor, out: torch.Tensor, n: int, sign: int,
-                extra) -> None:
-    """Kernel 16 or 17 (``wrapper``'s) on (B, n, L): the fixed core for F in
-    CORE_F, else the wide core; adds one to the wrapper's launch counts."""
-    nb, _, cols = inp.shape
+def _launch_c2r_mid(s: torch.Tensor, out: torch.Tensor, n: int, ab: torch.Tensor) -> None:
+    """Kernel 17 on (B, n/2+1, L): the fixed core for F in CORE_F, else the
+    wide core; adds one to :func:`c2r_mid`'s launch counts."""
+    nb, _, cols = s.shape
     h = n // 2
     wide = h // M not in CORE_F
-    entry = f"ndfft_{wrapper.__name__}" + ("_wide" if wide else "")
-    wq = device_wq(h, sign, 1.0, inp.device)
-    sms = num_sms(inp.device)
-    stream = torch.cuda.current_stream(inp.device).cuda_stream
-    with torch.cuda.device(inp.device):
+    entry = "ndfft_c2r_mid" + ("_wide" if wide else "")
+    wq = device_wq(h, +1, 1.0, s.device)
+    sms = num_sms(s.device)
+    stream = torch.cuda.current_stream(s.device).cuda_stream
+    with torch.cuda.device(s.device):
         if wide:
-            err = getattr(_build.lib(), entry)(
-                inp.data_ptr(), out.data_ptr(), wq.data_ptr(),
-                device_wide(h, sign, inp.device).data_ptr(), extra.data_ptr(), nb, n, cols,
+            err = _build.lib().ndfft_c2r_mid_wide(
+                s.data_ptr(), out.data_ptr(), wq.data_ptr(),
+                device_wide(h, +1, s.device).data_ptr(), ab.data_ptr(), nb, n, cols,
                 wide_block(h, nb, cols, sms), stream)
         else:
-            err = getattr(_build.lib(), entry)(
-                inp.data_ptr(), out.data_ptr(), wq.data_ptr(), extra.data_ptr(), nb, n,
+            err = _build.lib().ndfft_c2r_mid(
+                s.data_ptr(), out.data_ptr(), wq.data_ptr(), ab.data_ptr(), nb, n,
                 cols, block_cols(h, nb, cols, sms), stream)
     _build.check(err, entry)
-    count_launch(wrapper, wide)
+    count_launch(c2r_mid, wide)
 
 
 def r2c_mid(x: torch.Tensor) -> torch.Tensor:
     """R2C along dim 1 of a (B, n, L) float32 tensor -> (B, n/2+1, L)
     complex64, h = n/2 = 128 * F (:func:`_check_nat`). A CPU tensor runs the
-    plain version; a CUDA tensor launches kernel 16 (on the fixed core for F
-    in {2, 4, 8, 16}, else on the wide core) or raises."""
+    plain version; a CUDA tensor launches kernel 16 on the radix column tile
+    or raises."""
     _check_mid(x, torch.float32, "r2c_mid")
-    nb, n, cols = x.shape
-    _check_nat(n, "r2c_mid")
+    _check_nat(x.shape[1], "r2c_mid")
     if x.device.type == "cpu":
         return r2c_mid_plain(x)
     if x.device.type != "cuda":
         raise ValueError(f"r2c_mid: unsupported device {x.device}")
     check_cuda(x, torch.float32, "r2c_mid")
-    out = torch.empty((nb, n // 2 + 1, cols), dtype=torch.complex64, device=x.device)
-    if x.numel() == 0:
-        return out
-    _launch_mid(r2c_mid, x, out, n, -1, _device_tw(n, x.device))
-    return out
+    return _r2c_mid_radix(r2c_mid, x)
 
 
 r2c_mid.launches = 0
-r2c_mid.wide_launches = 0
+r2c_mid.radix_launches = 0
 
 
 def c2r_mid(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
@@ -384,7 +444,7 @@ def c2r_mid(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
     out = torch.empty((nb, n, cols), dtype=torch.float32, device=s.device)
     if s.numel() == 0:
         return out
-    _launch_mid(c2r_mid, s, out, n, +1, _device_ab(n, sc, s.device))
+    _launch_c2r_mid(s, out, n, _device_ab(n, sc, s.device))
     return out
 
 
@@ -399,12 +459,13 @@ c2r_mid.wide_launches = 0
 
 def spectral_r2c_mid_plain(x: torch.Tensor, hr: torch.Tensor, hi, n: int,
                            scale=None) -> torch.Tensor:
-    """Plain version of kernel 22: kernel 16's plain version, the product
-    with H = hr + i hi ((m, 1) or (m, L), m = n/2 + 1; hi None for a real
-    H), then kernel 17's, which ignores the product's DC and Nyquist
-    imaginary parts (the JAX kernel's mask and its Nyquist row
+    """Plain version of kernel 22: the bts2 column R2C (kernel 18's plain
+    version on the even and odd samples, kernel 22's forward arithmetic),
+    the product with H = hr + i hi ((m, 1) or (m, L), m = n/2 + 1; hi None
+    for a real H), then kernel 17's, which ignores the product's DC and
+    Nyquist imaginary parts (the JAX kernel's mask and its Nyquist row
     Re(H[h]) X[h])."""
-    spec = r2c_mid_plain(x)
+    spec = r2c_packed_mid_plain(x[:, 0::2], x[:, 1::2])
     return c2r_mid_plain(spec * (hr if hi is None else torch.complex(hr, hi)), n, scale)
 
 
@@ -589,7 +650,8 @@ dct1_mid.wide_launches = 0
 
 
 # --------------------------------------------------------------------------
-# Kernels 20 and 21: along the middle axis as one real product
+# Kernels 20 and 21: along the middle axis, kernel 20 on the radix column
+# tile where a plan exists, else (and kernel 21 always) as one real product
 # --------------------------------------------------------------------------
 
 
@@ -630,8 +692,9 @@ def _device_dense(kind: str, n: int, scale: float, device: torch.device) -> torc
 
 
 def r2c_dense_mid_plain(x: torch.Tensor) -> torch.Tensor:
-    """Plain version of kernel 20: Y[b, j, c] = sum_t W[t, j] x[b, t, c],
-    rows j < m the real and j >= m the imaginary parts."""
+    """Plain version of kernel 20's dense product (the lengths without a
+    radix plan): Y[b, j, c] = sum_t W[t, j] x[b, t, c], rows j < m the real
+    and j >= m the imaginary parts."""
     m = x.shape[1] // 2 + 1
     y = torch.einsum("tj,btc->bjc", _device_dense("r2c", x.shape[1], 1.0, x.device), x)
     return torch.complex(y[:, :m], y[:, m:])
@@ -663,16 +726,22 @@ def _launch_dense(entry: str, w, inp: torch.Tensor, out: torch.Tensor, n: int,
 
 def r2c_dense_mid(x: torch.Tensor) -> torch.Tensor:
     """R2C along dim 1 of a (B, n, L) float32 tensor -> (B, n//2+1, L)
-    complex64 as one real product, 4 <= n <= 1100. A CPU tensor runs the
-    plain version; a CUDA tensor launches kernel 20 or raises."""
+    complex64, 4 <= n <= 1100. Where :func:`r2c_mid_radix` holds n, a CPU
+    tensor runs :func:`r2c_mid_radix_plain` and a CUDA tensor launches
+    kernel 20 on the radix column tile (counted in ``radix_launches`` as
+    well); at the other lengths, :func:`r2c_dense_mid_plain` and the dense
+    product. Anything else raises."""
     _check_mid(x, torch.float32, "r2c_dense_mid")
     nb, n, cols = x.shape
     _check_dense_n(n, "r2c_dense_mid")
+    radix = r2c_mid_radix(n)
     if x.device.type == "cpu":
-        return r2c_dense_mid_plain(x)
+        return r2c_mid_radix_plain(x) if radix else r2c_dense_mid_plain(x)
     if x.device.type != "cuda":
         raise ValueError(f"r2c_dense_mid: unsupported device {x.device}")
     check_cuda(x, torch.float32, "r2c_dense_mid")
+    if radix:
+        return _r2c_mid_radix(r2c_dense_mid, x)
     m = n // 2 + 1
     out = torch.empty((nb, m, cols), dtype=torch.complex64, device=x.device)
     if x.numel() == 0:
@@ -684,6 +753,7 @@ def r2c_dense_mid(x: torch.Tensor) -> torch.Tensor:
 
 
 r2c_dense_mid.launches = 0
+r2c_dense_mid.radix_launches = 0
 
 
 def c2r_dense_mid(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:

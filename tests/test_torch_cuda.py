@@ -228,10 +228,11 @@ def test_mid_rfft_kernels_match_plain(dev):
         s = torch.view_as_complex(torch.randn(nb, n // 2 + 1, cols, 2, generator=g, device=dev))
         for scale in (None, 1 / n):
             assert _rel(krfft.c2r_mid(s, n, scale), krfft.c2r_mid_plain(s, n, scale)) <= TOL
-    for shape in ((1, 128, 128), (2, 201, 130), (1, 264, 264), (1, 1100, 130)):
+    for shape in ((1, 128, 128), (2, 201, 130), (1, 264, 264), (1, 1100, 130), (2, 262, 130)):
         nb, n, cols = shape
         x = torch.randn(*shape, generator=g, device=dev)
-        assert _rel(krfft.r2c_dense_mid(x), krfft.r2c_dense_mid_plain(x)) <= TOL
+        plain = krfft.r2c_mid_radix_plain if krfft.r2c_mid_radix(n) else krfft.r2c_dense_mid_plain
+        assert _rel(krfft.r2c_dense_mid(x), plain(x)) <= TOL
         s = torch.view_as_complex(torch.randn(nb, n // 2 + 1, cols, 2, generator=g, device=dev))
         for scale in (None, 1 / n):
             assert _rel(krfft.c2r_dense_mid(s, n, scale),
@@ -251,13 +252,14 @@ def test_rfft2d_runs_on_the_mid_kernels(dev):
         assert [f.launches - b for f, b in zip(fns, before)] == want
         assert _rel(y.to(torch.complex128), torch.fft.rfft(x.double(), dim=0)) <= 1e-5
         assert _rel(back, x) <= 1e-5
-    # n = 768 (h = 384, F = 3): kernels 16 and 17 on the wide core
+    # n = 768 (h = 384, F = 3): kernel 16 on the radix column tile, kernel
+    # 17 on the wide core
     x = torch.randn(768, 256, generator=g, device=dev)
     h = nd.R2cFftHandler(768)
-    before = [krfft.r2c_mid.wide_launches, krfft.c2r_mid.wide_launches]
+    before = [krfft.r2c_mid.radix_launches, krfft.c2r_mid.wide_launches]
     y = nd.ndfft_r2c(x, h, axis=0)
     back = nd.ndifft_r2c(y, h, axis=0)
-    assert [krfft.r2c_mid.wide_launches - before[0],
+    assert [krfft.r2c_mid.radix_launches - before[0],
             krfft.c2r_mid.wide_launches - before[1]] == [1, 1]
     assert _rel(y, krfft.r2c_mid_plain(x[None])[0]) <= TOL
     assert _rel(back, x) <= 1e-5
@@ -498,7 +500,7 @@ def test_dct23_kernels_match_plain_in_every_form(dev):
         check(kdct.dct2_mid, kdct.dct2_mid_plain, x, 2.0)
         check(kdct.dct3_mid, kdct.dct3_mid_plain, x, None)
     assert forms == {"fixed": 8, "wide": 12, "npoint": 16}
-    before = [krfft.r2c_mid.wide_launches, krfft.c2r_mid.wide_launches]
+    before = [krfft.r2c_mid.radix_launches, krfft.c2r_mid.wide_launches]
     for shape in ((2, 768, 130), (1, 1280, 129), (1, 40960, 2)):
         x = torch.randn(*shape, generator=g, device=dev)
         assert _rel(krfft.r2c_mid(x), krfft.r2c_mid_plain(x)) <= TOL
@@ -509,7 +511,7 @@ def test_dct23_kernels_match_plain_in_every_form(dev):
         for scale in (None, 1 / shape[1]):
             assert _rel(krfft.c2r_mid(s, shape[1], scale),
                         krfft.c2r_mid_plain(s, shape[1], scale)) <= TOL
-    assert [krfft.r2c_mid.wide_launches - before[0],
+    assert [krfft.r2c_mid.radix_launches - before[0],
             krfft.c2r_mid.wide_launches - before[1]] == [3, 6]
 
 
@@ -788,6 +790,60 @@ def test_r2c_radix_kernel_matches_plain(dev):
     x = torch.randn(5 * 600 + 2, generator=g, device=dev)[2:].reshape(5, 600)
     assert _rel(krfft.r2c_packed_generic(x), krfft.r2c_packed_generic_plain(x)) <= TOL
     assert krfft.r2c_packed_generic.launches - before == 6
+
+
+def test_r2c_mid_radix_kernel_matches_plain(dev):
+    """Kernels 16 and 20 on the radix column tile, both forms (the half
+    length with the unpack epilogue at even n, the C2C of (x, 0) with half
+    its bins stored at odd n) at every column count C that the tile allows
+    (the launcher): n = 4 and 5 (one thread a column), odd n with a prime
+    stage (129, 1095), 256 and 264, K16's h = 256, 384 (F = 3), 640 and
+    20480 (one column a tile, 40 elements a thread), ragged L and B > 1;
+    then through the wrappers, with their counters, an input whose rows do
+    not start on an 8-byte boundary, zero sizes, and kernel 20's dense
+    product at a length without a plan (262 = 2 * 131)."""
+    g = torch.Generator(device=dev).manual_seed(30)
+    shapes = ((3, 4, 129), (2, 5, 257), (1, 129, 130), (2, 256, 200), (1, 264, 264),
+              (1, 1095, 33), (2, 512, 130), (1, 768, 257), (1, 1280, 129), (1, 40960, 3))
+    for shape in shapes:
+        nb, n, cols = shape
+        x = torch.randn(*shape, generator=g, device=dev)
+        want = krfft.r2c_mid_radix_plain(x)
+        length = krfft.r2c_mid_len(n)
+        for c in (1, 2, 4, 8, 16, 32, 64):
+            if length * c > kfft.RADIX_MAX_ELEMS or kfft.radix_cols_threads(length, c) > (
+                    kfft.RADIX_MAX_THREADS if length * c <= kfft.RADIX_WIDE_N else 512):
+                continue
+            got = torch.full((nb, n // 2 + 1, cols), float("nan"), dtype=torch.complex64,
+                             device=dev)
+            krfft.r2c_mid_radix_launch(x, got, c)
+            assert _rel(got, want) <= TOL, (shape, c)
+    before = [(f.launches, f.radix_launches) for f in (krfft.r2c_mid, krfft.r2c_dense_mid)]
+    dense = krfft.r2c_dense_mid.launches - krfft.r2c_dense_mid.radix_launches
+    calls = [0, 0]
+    for shape in shapes:
+        x = torch.randn(*shape, generator=g, device=dev)
+        k16 = shape[1] >= 512 and shape[1] % 256 == 0
+        fn = krfft.r2c_mid if k16 else krfft.r2c_dense_mid
+        assert _rel(fn(x), krfft.r2c_mid_radix_plain(x)) <= TOL, shape
+        calls[not k16] += 1
+    # rows that start 4 bytes past an 8-byte boundary
+    for n, fn in ((512, krfft.r2c_mid), (200, krfft.r2c_dense_mid), (129, krfft.r2c_dense_mid)):
+        x = torch.randn(2 * n * 130 + 1, generator=g, device=dev)[1:].reshape(2, n, 130)
+        assert x.data_ptr() % 8 == 4
+        assert _rel(fn(x), krfft.r2c_mid_radix_plain(x)) <= TOL, n
+        calls[fn is krfft.r2c_dense_mid] += 1
+    for shape, fn in (((0, 512, 130), krfft.r2c_mid), ((2, 512, 0), krfft.r2c_mid),
+                      ((0, 200, 130), krfft.r2c_dense_mid), ((3, 129, 0), krfft.r2c_dense_mid)):
+        got = fn(torch.empty(*shape, device=dev))
+        assert got.shape == (shape[0], shape[1] // 2 + 1, shape[2])
+        assert got.dtype == torch.complex64
+    assert [(f.launches - a, f.radix_launches - b) for f, (a, b) in
+            zip((krfft.r2c_mid, krfft.r2c_dense_mid), before)] == [(c, c) for c in calls]
+    x = torch.randn(2, 262, 130, generator=g, device=dev)
+    assert not krfft.r2c_mid_radix(262)
+    assert _rel(krfft.r2c_dense_mid(x), krfft.r2c_dense_mid_plain(x)) <= TOL
+    assert (krfft.r2c_dense_mid.launches - krfft.r2c_dense_mid.radix_launches) - dense == 1
 
 
 def test_bluestein_axis1_runs_on_the_radix_column_tile(dev):

@@ -7,8 +7,8 @@ the wrappers run their plain versions:
   ``dct3_pallas_mid`` at n = 1152 (the n-point form, F = 9), 1280 (the wide
   core's half length, F = 5) and 2048 (the fixed core, F = 8), L = 128 and a
   ragged 130, nb = 1 and 2;
-* ``r2c_mid`` / ``c2r_mid`` on the wide core against ``r2c_pallas_mid`` /
-  ``c2r_pallas_mid`` at n = 768 and 1280;
+* ``r2c_mid`` (the radix column tile) / ``c2r_mid`` (the wide core) against
+  ``r2c_pallas_mid`` / ``c2r_pallas_mid`` at n = 768 and 1280;
 * ``dct2_nat`` / ``dct3_nat`` against ``dct2_pallas`` / ``dct3_pallas`` at
   n = 128 and 384 (n-point) and 768 and 1536 (wide);
 * the kernels' twiddle tables bit for bit against the JAX kernels' ``_cis``
@@ -199,15 +199,15 @@ def test_dct_mid_wrappers_reject_what_the_kernels_do_not_take(call):
 def test_wrappers_on_cpu_count_no_launch():
     fns = (kdct.dct2_mid, kdct.dct3_mid, kdct.dct2_nat, kdct.dct3_nat, krfft.r2c_mid,
            krfft.c2r_mid)
-    before = [(f.launches, f.wide_launches, getattr(f, "npoint_launches", 0)) for f in fns]
+    forms = ("launches", "wide_launches", "npoint_launches", "radix_launches")
+    before = [[getattr(f, a, 0) for a in forms] for f in fns]
     kdct.dct2_mid(torch.zeros(1, 1152, 3))
     kdct.dct3_mid(torch.zeros(1, 1280, 3), 0.5)
     kdct.dct2_nat(torch.zeros(2, 384))
     kdct.dct3_nat(torch.zeros(2, 768))
     krfft.r2c_mid(torch.zeros(1, 768, 3))
     krfft.c2r_mid(torch.zeros(1, 385, 3, dtype=C64), 768)
-    assert [(f.launches, f.wide_launches, getattr(f, "npoint_launches", 0))
-            for f in fns] == before
+    assert [[getattr(f, a, 0) for a in forms] for f in fns] == before
 
 
 def test_tile_sizes_of_the_new_forms():

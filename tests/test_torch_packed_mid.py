@@ -143,15 +143,18 @@ def test_dct4_mid_plain_matches_float64_oracle(n):
 
 
 def test_packed_r2c_is_the_r2c_of_the_interleaved_column():
-    """Kernel 18 on (xe, xo) is kernel 16 on the column they interleave."""
+    """Kernel 18 on (xe, xo) is kernel 16 on the column they interleave: both
+    are its R2C, held against float64 numpy. (Kernel 16 runs the radix
+    column tile, kernel 18 the bts2 one, so their float32 roundings differ:
+    each sits 1e-5 to 3e-5 from float64 here, ~3e-7 of the peak.)"""
     for h in (256, 384):
         xe = torch.from_numpy(_real((2, h, 3), h))
         xo = torch.from_numpy(_real((2, h, 3), h + 1))
         col = torch.stack([xe, xo], dim=2).reshape(2, 2 * h, 3)
-        torch.testing.assert_close(krfft.r2c_packed_mid(xe, xo), krfft.r2c_mid(col),
-                                   rtol=0, atol=1e-5)
-        torch.testing.assert_close(krfft.r2c_packed_mid(xe, xo, -0.5),
-                                   -0.5 * krfft.r2c_mid(col), rtol=0, atol=1e-5)
+        want = np.fft.rfft(col.numpy().astype(np.float64), axis=1)
+        _close(krfft.r2c_packed_mid(xe, xo), want, 2e-6)
+        _close(krfft.r2c_mid(col), want, 2e-6)
+        _close(krfft.r2c_packed_mid(xe, xo, -0.5), -0.5 * want, 2e-6)
 
 
 # --------------------------------------------------------------------------

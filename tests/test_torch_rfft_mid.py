@@ -1,6 +1,7 @@
 """Plain versions of the middle-axis R2C/C2R kernels 16, 17, 20 and 21
 against the JAX package's Pallas kernels (interpret mode); their tables, the
-wrappers' checks, and the routes against the JAX package's gates.
+wrappers' checks, and the routes against the JAX package's gates. (Kernels
+16 and 20 on the radix column tile: tests/test_torch_r2c_mid_radix.py.)
 
 * kernels 16/17 (``r2c_mid``/``c2r_mid``) against ``r2c_pallas_mid`` /
   ``c2r_pallas_mid`` at n = 512, 1024, 2048, ragged column counts, B > 1;
@@ -112,17 +113,18 @@ def test_c2r_mid_ignores_dc_and_nyquist_imag():
 
 
 def test_mid_is_the_row_kernels_on_a_transposed_view():
-    """Kernels 16/17 are the bts2 R2C/C2R of rows (kernel 3's, and kernel
-    2's until it moved onto the radix row core) in kernel 1's column
-    layout: the same arithmetic on every column. Kernel 2 computes the same
-    function on the radix core."""
+    """Kernel 16 is the radix R2C of rows (kernel 2's) in the radix core's
+    column layout, and kernel 17 the bts2 C2R of rows (kernel 3's) in kernel
+    1's: the same arithmetic on every column. The bts2 R2C of rows (kernel
+    16's former core) computes the same function."""
     x = torch.from_numpy(_real((2, 512, 3), 5))
-    z = torch.view_as_complex(x.transpose(1, 2).reshape(6, 256, 2).contiguous())
-    rows = krfft._unpack(kfft._bts2_rows_plain(z, -1), krfft._device_tw(512, z.device), -1)
+    rows = krfft.r2c_nat(x.transpose(1, 2).reshape(6, 512))
     mid = krfft.r2c_mid(x)
     torch.testing.assert_close(mid.transpose(1, 2).reshape(6, 257), rows,
                                rtol=0, atol=2e-5)
-    _close(krfft.r2c_nat(x.transpose(1, 2).reshape(6, 512)).numpy(), rows.numpy())
+    z = torch.view_as_complex(x.transpose(1, 2).reshape(6, 256, 2).contiguous())
+    bts2 = krfft._unpack(kfft._bts2_rows_plain(z, -1), krfft._device_tw(512, z.device), -1)
+    _close(rows.numpy(), bts2.numpy())
     s = torch.from_numpy(_spec((2, 257, 3), 6))
     rows = krfft.c2r_nat(s.transpose(1, 2).reshape(6, 257), 512, 0.5)
     torch.testing.assert_close(krfft.c2r_mid(s, 512, 0.5).transpose(1, 2).reshape(6, 512),
@@ -187,12 +189,14 @@ def test_dense_tables_bit_identical_to_the_jax_tables(n, scale):
 
 def test_mid_wrappers_on_cpu_count_no_launch():
     fns = (krfft.r2c_mid, krfft.c2r_mid, krfft.r2c_dense_mid, krfft.c2r_dense_mid)
-    before = [f.launches for f in fns]
+    forms = ("launches", "radix_launches", "wide_launches")
+    before = [[getattr(f, a, 0) for a in forms] for f in fns]
     krfft.r2c_mid(torch.zeros(1, 512, 3))
     krfft.c2r_mid(torch.zeros(1, 257, 3, dtype=C64), 512)
     krfft.r2c_dense_mid(torch.zeros(1, 201, 3))
+    krfft.r2c_dense_mid(torch.zeros(1, 262, 3))             # no radix plan: the dense product
     krfft.c2r_dense_mid(torch.zeros(1, 101, 3, dtype=C64), 201, 0.5)
-    assert [f.launches for f in fns] == before
+    assert [[getattr(f, a, 0) for a in forms] for f in fns] == before
 
 
 @pytest.mark.parametrize("call", [

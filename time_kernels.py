@@ -24,6 +24,16 @@ ifftn, and the 32768^2 real step (ndfft_r2c along axis 1, ndfft along
 axis 0 and back) beside torch.fft.rfftn + irfftn, over --reps-big runs.
 Prints the card's nvidia-smi name and power limit, then one JSON line.
 
+With --r2c-mid it times instead the R2C along a middle axis: kernel 20
+(r2c_dense_mid) at (1, 256, 65536), (1, 264, 264) and (1, 129, 65536) and
+kernel 16 (r2c_mid) at (1, 512, 262144), (512, 512, 512) and
+(1, 1280, 1280), each beside torch.fft.rfft(dim=1), kernels 4 and 6 (whose
+column kernel the R2C shares) at (1, 256, 65536) and (600, 600, 301), the
+rfft2d protocol's forward (ndfft_r2c along axis 0 of n x n, n = 128, 264,
+512, 1024) beside torch.fft.rfft(dim=0), and the 256^3 and 512^3 real
+steps with the real axis first (ndfft_r2c along axis 0, ndfft along axes 1
+and 2, and back) beside torch.fft.rfftn + irfftn over dims (1, 2, 0).
+
 With --scan-rows it times instead the radix row core's launches at each
 count of rows a block that fits 256 threads (ms by rows, beside the count
 that fft.py::radix_block picks), over 2^27 elements: the C2C of rows of n
@@ -45,6 +55,7 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--reps-big", type=int, default=5)
     ap.add_argument("--scan-rows", action="store_true")
+    ap.add_argument("--r2c-mid", action="store_true")
     ap.add_argument("--scan-n", type=int, nargs="*", default=[
         264, 300, 384, 500, 512, 600, 640, 768, 896, 1000, 1024, 1152, 1280, 1536, 1792, 2048])
     ap.add_argument("--scan-h", type=int, nargs="*", default=[128, 256, 300, 384, 512, 640, 768,
@@ -106,6 +117,43 @@ def main() -> int:
         print(json.dumps({"root": root, "card": card, "rows_scan": scan}), flush=True)
         return 0
     out = {}
+    if args.r2c_mid:
+        for name, fn, shapes in (
+                ("r2c_dense_mid", krfft.r2c_dense_mid, ((1, 256, 65536), (1, 264, 264),
+                                                        (1, 129, 65536))),
+                ("r2c_mid", krfft.r2c_mid, ((1, 512, 262144), (512, 512, 512), (1, 1280, 1280)))):
+            for shape in shapes:
+                x = torch.randn(*shape, generator=gen, device=dev)
+                out[name + "_" + "x".join(map(str, shape))] = (
+                    ms(lambda: fn(x)), ms(lambda: torch.fft.rfft(x, dim=1)))
+        # kernels 4 and 6, whose column kernel the R2C shares
+        for name, fn, shape in (("c2c_dense_mid", kfft.c2c_dense_mid, (1, 256, 65536)),
+                                ("c2c_generic_mid", kfft.c2c_generic_mid, (600, 600, 301))):
+            x = crandn(*shape)
+            out[name + "_" + "x".join(map(str, shape))] = (
+                ms(lambda: fn(x, -1)), ms(lambda: torch.fft.fft(x, dim=1)))
+        del x
+        for n in (128, 264, 512, 1024):
+            x = torch.randn(n, n, generator=gen, device=dev)
+            h = nd.R2cFftHandler(n)
+            out[f"rfft2d_axis0_{n}^2"] = (ms(lambda: nd.ndfft_r2c(x, h, axis=0)),
+                                          ms(lambda: torch.fft.rfft(x, dim=0)))
+        del x
+        for n in (256, 512):
+            r = torch.randn(n, n, n, generator=gen, device=dev)
+            hr, hc = nd.R2cFftHandler(n), nd.FftHandler(n)
+
+            def step_first():
+                v = nd.ndfft(nd.ndfft(nd.ndfft_r2c(r, hr, axis=0), hc, axis=1), hc, axis=2)
+                return nd.ndifft_r2c(nd.ndifft(nd.ndifft(v, hc, axis=2), hc, axis=1), hr, axis=0)
+
+            out[f"step_real_axis_first_{n}^3"] = (
+                ms(step_first, 10),
+                ms(lambda: torch.fft.irfftn(torch.fft.rfftn(r, dim=(1, 2, 0)),
+                                            s=r.shape[1:] + r.shape[:1], dim=(1, 2, 0)), 10))
+            del r
+        print(json.dumps({"root": root, "card": card, "ms_and_torch_fft_ms": out}), flush=True)
+        return 0
     x = crandn(360000, 600)
     out["c2c_generic_rows_360000x600"] = (ms(lambda: kfft.c2c_generic_rows(x, -1)),
                                           ms(lambda: torch.fft.fft(x, dim=1)))
