@@ -58,8 +58,9 @@ without the final line):
         600^2, DCT-IV of 1000^2 along the last axis, and the DCT-IV/DST-IV
         composite along axis 0 of 1200 x 600 (kernel 6), against float64
         torch.fft / scipy.fft;
-     g. the bts2 core at any butterfly factor (the wide core of kernels 1
-        and 3; kernels 10 and 2/15 at those F on the radix row core): the
+     g. the bts2 core at any butterfly factor (the wide core of kernel 3;
+        kernels 10 and 2/15 at those F on the radix row core, kernel 1 on
+        the radix column tile): the
         768^3 real step with the real axis last (kernel 2 at h = 384, F = 3;
         kernel 1 at F = 6 four times; kernel 3) against torch.fft.rfftn in float64
         (oracle only), with the round trip; the 4096^2 complex round trip
@@ -204,6 +205,13 @@ without the final line):
         tile), against torch.fft.rfft in float64 (oracle only): the radix
         column tile within 1e-6 of the oracle's peak, the dense product
         within TOL_KERNEL;
+     t. the census of kernels 1 and 18 on the radix column tile: ndfft and
+        ndifft along axis 1 of (1, n, 130) at each of the 152 lengths that
+        the gates send to kernel 1 (C2C_AXIS_MID, n = 384 ... 20480)
+        against torch.fft in complex128, and nddst1 along axis 1 of
+        (1, n, 130) at each of the 153 that they send to kernel 18
+        (R2C_PACKED_MID, n = 255 ... 20479) against scipy's DST-I through
+        float64 torch.fft (oracles only), within 1e-6 of the oracle's peak;
   5. times with CUDA events (median over --reps runs after warm-up): each
      kernel against its plain version and, where one PyTorch call computes
      the same function, that call (the yardstick, never on the port's
@@ -231,19 +239,24 @@ without the final line):
      each count of rows a block, and the R2C on the radix column tile
      (kernels 16 and 20) at (1, 512, 262144), (512, 512, 512),
      (1, 1280, 1280), (1, 256, 65536), (1, 264, 264) and (1, 129, 65536)
-     with each column count C.
+     with each column count C, kernel 1 on the radix column tile at
+     (1, 512, 131584), (1024, 1024, 513), (768, 768, 385), (1, 2048, 65536),
+     (1, 4096, 4096), (1, 8192, 2048) and (1, 20480, 130) with each column
+     count C and, at C <= 2, each load (evict-first, read-only), beside
+     torch.fft.fft, and kernel 18 at (1023, 1024, 1023), (1, 1024, 1046529)
+     and (1, 1536, 1535) with each column count C.
 The kernels line gives each kernel's launches on its main path, its largest
 error against its plain version, its times, and its bound: the larger of
 the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its FP32 operations over 67 TFLOP/s (H100 SXM data
 sheet, 700 W). Its launches are the sum over the main paths of phase 4;
-kernels 1, 3, 12, 13, 14, 16, 17, 18, 19, 22 and 28 on the
+kernels 3, 12, 13, 14, 17, 19, 22 and 28 on the
 bts2 core are two rows each, the fixed core (launches - wide_launches) and the wide
 one (wide_launches; K11 and K12 rows also give the bound of their two
 length-M FFTs per column, ``length_m_bound_ms``); kernels 10, 2 and 15
 (``r2c_packed`` at h = 128 F), kernel 8 (its rows at n <= 256
 counted in c2c_dense_rows.radix_launches as well, above in
-``c2c_generic_rows``), kernels 6, 4, 11 and 16 (each counted in
+``c2c_generic_rows``), kernels 1, 6, 4, 11, 16 and 18 (each counted in
 radix_launches as well) and kernel 15's generic form
 (``r2c_packed_generic``) run on the radix core, one row each; kernel 20
 two: the radix column tile (``r2c_dense_mid_radix``, radix_launches) and
@@ -276,14 +289,14 @@ TOL_STEP = 1e-5      # step vs float64 oracle and round trip, relative
 # the forms that a wrapper counts apart beside ``launches`` (which counts
 # every launch): ``wide_launches``, for the DCT-II/III kernels
 # ``npoint_launches``, for kernel 7 ``dense_launches``, for kernel 28
-# ``long_launches`` and for kernels 10, 2, 15 (``r2c_packed``), 11, 8
-# (``c2c_dense_rows``), 6, 4, 16 and 20 ``radix_launches``
+# ``long_launches`` and for kernels 1, 10, 2, 15 (``r2c_packed``), 11, 8
+# (``c2c_dense_rows``), 6, 4, 16, 18 and 20 ``radix_launches``
 FORMS = ("wide", "npoint", "dense", "long", "radix")
 # the wrappers whose every launch is on the radix core: their
 # ``radix_launches`` equal their ``launches``
-RADIX_ONLY = ("c2c_rows", "r2c_nat", "r2c_packed", "c2c_dense_rows", "c2c_generic_mid",
-              "c2c_dense_mid", "c2c_blue_mid", "r2c_mid")
-TOL_CENSUS = 1e-6    # the radix column tile's censuses (phases 4r and 4s)
+RADIX_ONLY = ("c2c_axis_mid", "c2c_rows", "r2c_nat", "r2c_packed", "c2c_dense_rows",
+              "c2c_generic_mid", "c2c_dense_mid", "c2c_blue_mid", "r2c_mid", "r2c_packed_mid")
+TOL_CENSUS = 1e-6    # the radix column tile's censuses (phases 4r, 4s and 4t)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, 700 W
 FP32_FLOP_PER_S = 67e12     # FP32 outside the tensor cores, same source
 
@@ -334,11 +347,12 @@ def work(name: str, shape, length_m: bool = False, mult=None):
     are the two chirps, H and both cores' Wq (and DFT-F) at the convolution
     length M (K11 on the radix core: the chirp, H and the radix table of M).
     ``length_m``: their operations as two complex FFTs of length M
-    per column instead. Kernels 10, 8, 6 and 4 (the radix core) read x and
+    per column instead. Kernels 1, 10, 8, 6 and 4 (the radix core) read x and
     the radix table (n entries and each prime stage's row) and write y;
     kernels 16 and 20 on the radix column tile read (B, n, L) float32, the
     radix table of h = n/2 (of n at odd n) and, at even n, the unpack
-    twiddle, and write (B, n/2 + 1, L) complex64;
+    twiddle, and write (B, n/2 + 1, L) complex64, kernel 18 the same from
+    its two (B, h, L) streams;
     kernels 2 and 15 (the radix row core with the unpack epilogue) read the
     (T, 2h) float32 rows, the radix table of h and the unpack twiddle and
     write (T, h + 1) complex64. The four-step's kernel 7 on
@@ -403,15 +417,22 @@ def work(name: str, shape, length_m: bool = False, mult=None):
         f = core // 128
         tables = 8 * core * 128 + 16 * n + (0 if form == "fixed" else 8 * f * f)
         return 8 * transforms * n + tables, 2.5 * n * math.log2(n) * transforms
-    if name.startswith(("r2c_packed_mid", "dct1_mid", "dct4_mid")):
-        # K18: two (B, h, L) streams in, (B, h + 1, L) complex out; K19 and
-        # K28: (B, n, L) in and out; the core's Wq and a twiddle of its
-        # length, the wide core's DFT-F, and K19 wide's (B, h, L) complex64
-        # workspace, written once and read once
+    if name == "r2c_packed_mid":
+        # K18 on the radix column tile: two (B, h, L) streams in, (B, h + 1,
+        # L) complex out, the radix table of h and the unpack twiddle
+        from ndrustfft_tpu_torch.ops.hopper.fft import radix_consts
+        b, h, cols = shape
+        return (8 * b * h * cols + 8 * b * (h + 1) * cols
+                + 8 * (len(radix_consts(h, -1)[0]) + h),
+                2.5 * 2 * h * math.log2(2 * h) * b * cols)
+    if name.startswith(("dct1_mid", "dct4_mid")):
+        # K19 and K28: (B, n, L) in and out; the core's Wq and a twiddle of
+        # its length, the wide core's DFT-F, and K19 wide's (B, h, L)
+        # complex64 workspace, written once and read once
         b, w, cols = shape
-        k18, k28 = name.startswith("r2c"), name.startswith("dct4")
-        core = w if k18 else w // 2 if k28 else w - 1
-        io = 8 * b * core * cols + 8 * b * (core + 1) * cols if k18 else 8 * b * w * cols
+        k28 = name.startswith("dct4")
+        core = w // 2 if k28 else w - 1
+        io = 8 * b * w * cols
         tables = 8 * core * 128 + (16 if k28 else 8) * core
         if name.endswith(("_wide", "_long")):
             tables += 8 * (core // 128) ** 2
@@ -424,9 +445,6 @@ def work(name: str, shape, length_m: bool = False, mult=None):
         length = shape[1] - 1 if base in ("c2r_nat", "c2r_mid") else shape[1]
         f = length // 128
         return nbytes + 8 * f * f, flops
-    if name == "c2c_axis_mid":
-        b, n, cols = shape
-        return 16 * b * n * cols + 8 * n * 128, 5 * n * math.log2(n) * b * cols
     if name == "c2r_nat":
         t, w = shape
         n = 2 * (w - 1)
@@ -454,8 +472,8 @@ def work(name: str, shape, length_m: bool = False, mult=None):
         else:                   # wq, then the (h, 4) ab rows
             table = 8 * (n // 2) * 128 + 16 * (n // 2)
         return 4 * b * n * cols + 8 * b * m * cols + table, 2.5 * n * math.log2(n) * b * cols
-    if name in ("c2c_rows", "c2c_generic_rows", "c2c_dense_rows", "c2c_generic_mid",
-                "c2c_dense_mid"):
+    if name in ("c2c_axis_mid", "c2c_rows", "c2c_generic_rows", "c2c_dense_rows",
+                "c2c_generic_mid", "c2c_dense_mid"):
         from ndrustfft_tpu_torch.ops.hopper.fft import radix_consts
         n = shape[1] if name.endswith("_mid") else shape[-1]
         outputs = math.prod(shape) // n     # the radix table: n entries and the prime rows
@@ -562,6 +580,7 @@ def main() -> int:
               re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
     spilling = {}   # entry function -> spill bytes, from ptxas -v
     row_regs = {}   # the radix row kernels (their occupancy) -> registers a thread
+    col_regs = {}   # the radix column kernels -> [registers a thread, spill bytes]
     for entry in log.split("Compiling entry function '")[1:]:
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
         if m and sum(map(int, m.groups())):
@@ -569,10 +588,15 @@ def main() -> int:
         m = re.search(r"Used (\d+) registers", entry)
         if m and "radix_rows_kernel" in entry.split("'")[0]:
             row_regs[entry.split("'")[0]] = int(m.group(1))
+        if m and "radix_cols_kernel" in entry.split("'")[0]:
+            sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
+            col_regs[entry.split("'")[0]] = [int(m.group(1)),
+                                             sum(map(int, sp.groups())) if sp else 0]
     emit(phase="build", seconds=time.perf_counter() - t0,
          nvcc_seconds=_build.build_seconds, library=lib_path.name,
          max_registers=max(regs, default=None),
-         spill_bytes=sum(spills), spilling=spilling, radix_rows_registers=row_regs)
+         spill_bytes=sum(spills), spilling=spilling, radix_rows_registers=row_regs,
+         radix_cols_registers=col_regs)
 
     # ---- 3. kernels against their plain versions
     errs = {"c2c_axis_mid": 0.0, "r2c_nat": 0.0, "c2r_nat": 0.0,
@@ -580,12 +604,12 @@ def main() -> int:
             "c2c_rows": 0.0, "c2c_dense_rows": 0.0, "c2c_dense_mid": 0.0,
             "r2c_mid": 0.0, "c2r_mid": 0.0, "r2c_dense_mid": 0.0, "c2r_dense_mid": 0.0,
             "r2c_packed": 0.0, "r2c_packed_dense": 0.0, "c2c_generic_rows": 0.0,
-            "c2c_generic_mid": 0.0, "r2c_packed_generic": 0.0, "c2c_axis_mid_wide": 0.0,
+            "c2c_generic_mid": 0.0, "r2c_packed_generic": 0.0,
             "c2r_nat_wide": 0.0, "r2c_dense_mid_radix": 0.0, "c2r_mid_wide": 0.0,
             "dct2_nat_wide": 0.0, "dct3_nat_wide": 0.0, "dct2_nat_npoint": 0.0,
             "dct3_nat_npoint": 0.0, "dct2_mid": 0.0, "dct3_mid": 0.0, "dct2_mid_wide": 0.0,
             "dct3_mid_wide": 0.0, "dct2_mid_npoint": 0.0, "dct3_mid_npoint": 0.0,
-            "r2c_packed_mid": 0.0, "r2c_packed_mid_wide": 0.0, "dct1_mid": 0.0,
+            "r2c_packed_mid": 0.0, "dct1_mid": 0.0,
             "dct1_mid_wide": 0.0, "dct4_mid": 0.0, "dct4_mid_wide": 0.0, "dct4_mid_long": 0.0,
             "c2c_blue_mid": 0.0, "dct23_blue_mid": 0.0, "dct23_blue_mid_wide": 0.0,
             "fourstep_mid": 0.0, "fourstep_mid_wide": 0.0, "fourstep_mid_dense": 0.0,
@@ -595,7 +619,8 @@ def main() -> int:
             "spectral_dct_mid_npoint": 0.0}
     k1_shapes = [(1, 512, 257), (1, 1024, 513), (3, 2048, 130), (512, 512, 257),
                  (1, 512, 512 * 257), (1, 512, 512), (1, 1024, 1024), (512, 512, 512),
-                 (1, 512, 512 * 512), (257, 512, 512)]
+                 (1, 512, 512 * 512), (257, 512, 512), (1, 4096, 4096), (1, 20480, 130),
+                 (768, 768, 385)]
     for shape in k1_shapes:
         x = crandn(*shape)
         for sign, scale in ((-1, None), (+1, 1.0 / shape[1])):
@@ -814,6 +839,58 @@ def main() -> int:
                 raise AssertionError(f"{name} {shape} C {c}: {rel}")
         del x, y, ref
 
+    # kernel 1 on the radix column tile at each column count C and, at
+    # C <= 2, each load (evict-first, read-only) that phase 5 times (the
+    # wrapper takes fft.py::axis_mid_tile's): F = 3, 4, 32 and 160 with
+    # ragged L, both signs and the scale 1/n
+    for shape in ((3, 384, 130), (2, 512, 257), (1, 2048, 257), (1, 4096, 33), (1, 8192, 5),
+                  (1, 20480, 5)):
+        x = crandn(*shape)
+        y = torch.empty_like(x)
+        n = shape[1]
+        for sign, scale in ((-1, None), (+1, 1.0 / n)):
+            ref = kfft.c2c_axis_mid_plain(x, sign, scale)
+            for c in (1, 2, 4, 8, 16):
+                if not tile_fits(n, c):
+                    continue
+                for ldg in (False, True) if c <= 2 else (False,):
+                    y.fill_(float("nan"))
+                    kfft.mid_radix_launch(x, y, sign, 1.0 if scale is None else scale, c, ldg)
+                    torch.cuda.synchronize()
+                    rel = abs_err(y, ref) / float(ref.abs().max())
+                    errs["c2c_axis_mid"] = max(errs["c2c_axis_mid"], abs_err(y, ref))
+                    emit(phase="kernel_vs_plain", kernel="c2c_axis_mid", shape=shape,
+                         cols_per_tile=c, ldg=ldg, sign=sign, scale=scale, rel_err=rel)
+                    if not rel <= TOL_KERNEL:
+                        raise AssertionError(f"c2c_axis_mid {shape} C {c} ldg {ldg}: {rel}")
+            del ref
+        del x, y
+
+    # kernel 18 on the radix column tile at each column count C that phase
+    # 5 times (the wrapper takes rfft.py::packed_mid_cols's): h = 256, 1024,
+    # 1536 and 20480 (one column a tile, 40 elements a thread), ragged L,
+    # the scales None and -0.5
+    for shape in ((2, 256, 130), (1, 1024, 257), (1, 1536, 129), (1, 20480, 3)):
+        xe, xo = randn(*shape), randn(*shape)
+        nb, h, cols = shape
+        y = torch.empty((nb, h + 1, cols), dtype=torch.complex64, device=dev)
+        for scale in (None, -0.5):
+            ref = krfft.r2c_packed_mid_plain(xe, xo, scale)
+            for c in (1, 2, 4, 8, 16, 32):
+                if not tile_fits(h, c):
+                    continue
+                y.fill_(float("nan"))
+                krfft.r2c_packed_mid_launch(xe, xo, y, 1.0 if scale is None else scale, c)
+                torch.cuda.synchronize()
+                rel = abs_err(y, ref) / float(ref.abs().max())
+                errs["r2c_packed_mid"] = max(errs["r2c_packed_mid"], abs_err(y, ref))
+                emit(phase="kernel_vs_plain", kernel="r2c_packed_mid", shape=shape,
+                     cols_per_tile=c, scale=scale, rel_err=rel)
+                if not rel <= TOL_KERNEL:
+                    raise AssertionError(f"r2c_packed_mid {shape} C {c} scale {scale}: {rel}")
+            del ref
+        del xe, xo, y
+
     # the middle-axis R2C/C2R kernels: the main paths' shapes (phase 4d),
     # axis 1 of 512^3, ragged and odd ones; kernel 20's wrapper on the radix
     # column tile (r2c_dense_mid_radix) at the lengths with a plan, on the
@@ -942,15 +1019,16 @@ def main() -> int:
         emit(phase="time", kernel=name, shape=shape, ms=t_k, plain_ms=t_plain,
              library_ms=t_lib, plain_in_slices=len(cuts), card=card)
 
-    # the wide core (F outside the fixed core's factors) and kernels 10 and 2
-    # at those F on the radix row core: the main paths' shapes (phase 4g),
+    # kernel 1 at F outside the bts2 fixed core's factors (the radix column
+    # tile) and kernels 10 and 2 at those F on the radix row core: the main
+    # paths' shapes (phase 4g),
     # ragged column and row tiles, prime F = 127 and the largest F = 160 (one
     # column or row per block); the C2R spectra carry DC and Nyquist
     # imaginary parts that must be ignored
     for name, kern, plain, shapes, signs in (
-            ("c2c_axis_mid_wide", kfft.c2c_axis_mid, kfft.c2c_axis_mid_plain,
-             ((768, 768, 385), (1, 768, 295680), (1, 4096, 4096), (1, 4096, 2049),
-              (3, 640, 129), (1, 640, 256), (1, 16256, 128), (1, 20480, 128)),
+            ("c2c_axis_mid", kfft.c2c_axis_mid, kfft.c2c_axis_mid_plain,
+             ((1, 768, 295680), (1, 4096, 2049), (3, 640, 129), (1, 640, 256),
+              (1, 16256, 128), (1, 20480, 128)),
              ((-1, False), (+1, True))),
             ("c2c_rows", kfft.c2c_rows, kfft.c2c_rows_plain,
              ((4096, 4096), (1536, 768), (128, 384), (7, 1152), (128, 1152), (128, 640),
@@ -1023,21 +1101,22 @@ def main() -> int:
                     check_form(f"dct{t}_{form}", kern, lambda: kern(x, scale),
                                lambda: plain(x, scale), shape, scale=scale)
                 del x
-    # kernels 18, 19 and 28 on the fixed core and on the wide core: phase
-    # 4i's lengths, ragged column tiles, the prime F = 131 (K28) and the
-    # largest tiles (F = 160, one column per tile); K28's long form at F = 161,
-    # 163 (prime) and 256; the solves' shapes are checked in phases 4i and
-    # 4m, slice by slice
-    for name, shapes in (
-            ("r2c_packed_mid", ((2, 256, 130), (1, 1024, 1023), (1, 1024, 130), (3, 2048, 33))),
-            ("r2c_packed_mid_wide", ((1, 384, 383), (1, 1536, 1535), (2, 1152, 130),
-                                     (1, 20480, 128)))):
-        for shape in shapes:
-            xe, xo = randn(*shape), randn(*shape)
-            for scale in (-1.0, None):
-                check_form(name, krfft.r2c_packed_mid, lambda: krfft.r2c_packed_mid(xe, xo, scale),
-                           lambda: krfft.r2c_packed_mid_plain(xe, xo, scale), shape, scale=scale)
-            del xe, xo
+    # kernel 18 on the radix column tile at phase 4i's lengths, ragged
+    # column tiles and the largest tiles (h = 10240 and 20480: DST-I at
+    # 10239 and 20479); kernels 19 and 28 on the fixed core and on the wide
+    # core: phase 4i's lengths, ragged column tiles, the prime F = 131 (K28)
+    # and the largest tiles (F = 160, one column per tile); K28's long form
+    # at F = 161, 163 (prime) and 256; the solves' shapes are checked in
+    # phases 4i and 4m, slice by slice
+    for shape in ((2, 256, 130), (1, 1024, 1023), (1, 1024, 130), (3, 2048, 33), (1, 384, 383),
+                  (1, 1536, 1535), (2, 1152, 130), (1, 20480, 128), (1, 10240, 130),
+                  (1, 20480, 130)):
+        xe, xo = randn(*shape), randn(*shape)
+        for scale in (-1.0, None):
+            check_form("r2c_packed_mid", krfft.r2c_packed_mid,
+                       lambda: krfft.r2c_packed_mid(xe, xo, scale),
+                       lambda: krfft.r2c_packed_mid_plain(xe, xo, scale), shape, scale=scale)
+        del xe, xo
     for name, kern, plain, scales, shapes in (
             ("dct1_mid", krfft.dct1_mid, krfft.dct1_mid_plain, (1.0, 0.5),
              ((1, 2049, 2049), (2, 2049, 130), (1, 1025, 257))),
@@ -1201,9 +1280,9 @@ def main() -> int:
     # radix core, counted apart by the same wrappers (their ``launches``
     # count every launch)
     forms = {f"{name}_{form}": (wrappers[name], f"{form}_launches")
-             for name in ("c2c_axis_mid", *RADIX_ONLY, "c2r_nat", "c2r_mid", "r2c_dense_mid",
+             for name in (*RADIX_ONLY, "c2r_nat", "c2r_mid", "r2c_dense_mid",
                           "dct2_nat", "dct3_nat", "dct2_mid",
-                          "dct3_mid", "r2c_packed_mid", "dct1_mid", "dct4_mid",
+                          "dct3_mid", "dct1_mid", "dct4_mid",
                           "dct23_blue_mid", "fourstep_mid", "rows_store_t",
                           "spectral_c2c_mid", "spectral_r2c_mid", "spectral_dct_mid")
              for form in FORMS
@@ -1655,8 +1734,8 @@ def main() -> int:
     reset_counts()
     v = fwd3(x768, h768r, h768c)
     back = inv3(v, h768r, h768c)
-    read_counts("real_axis_last_768^3", r2c_nat=1, c2c_axis_mid=4,
-                c2c_axis_mid_wide=4, c2r_nat=1, c2r_nat_wide=1)
+    read_counts("real_axis_last_768^3", r2c_nat=1, c2c_axis_mid=4, c2r_nat=1,
+                c2r_nat_wide=1)
     peak = torch.cuda.max_memory_allocated()
     check_lane("step_real_axis_last", v, torch.fft.rfftn(x768.double()), back, x768,
                grid=[n7] * 3, peak_bytes=peak, base_bytes=base)
@@ -1677,8 +1756,7 @@ def main() -> int:
     reset_counts()
     y4k = fft2_last_first(x4k, h4k)
     b4k = ifft2_first_last(y4k, h4k)
-    read_counts("c2c_4096x4096", c2c_rows=2, c2c_axis_mid=2,
-                c2c_axis_mid_wide=2)
+    read_counts("c2c_4096x4096", c2c_rows=2, c2c_axis_mid=2)
     peak = torch.cuda.max_memory_allocated()
     check_c2c("fftn_ifftn", y4k, x4k, b4k, grid=[4096, 4096], peak_bytes=peak,
               base_bytes=base)
@@ -1710,8 +1788,7 @@ def main() -> int:
     d1 = nd.nddct1(x769, axis=1)
     d4 = nd.nddct4(x768_2, axis=1)
     b640 = nd.ndifft_r2c(s640, axis=1, n=640)
-    read_counts("wide_lanes", r2c_nat=1 + 2, c2c_axis_mid=2 + 4,
-                c2c_axis_mid_wide=2 + 4, c2r_nat=1 + 2, c2r_nat_wide=2,
+    read_counts("wide_lanes", r2c_nat=1 + 2, c2c_axis_mid=2 + 4, c2r_nat=1 + 2, c2r_nat_wide=2,
                 c2c_rows=8 + 1 + 1, r2c_packed=1)
     check_r2c_mid("step_4096^2_real_axis_last", v4k, xr4k, r4k, (0, 1), grid=[4096, 4096])
     for n, (y, b) in rows_out.items():
@@ -2139,7 +2216,7 @@ def main() -> int:
         ("dst4", ((2048, 2048),))) for shape in shapes}
     reset_counts()
     len_out = {key: getattr(nd, f"nd{key[0]}")(x, axis=0) for key, x in len_in.items()}
-    read_counts("packed_mid_lengths", r2c_packed_mid=5, r2c_packed_mid_wide=3, dct1_mid=4,
+    read_counts("packed_mid_lengths", r2c_packed_mid=5, dct1_mid=4,
                 dct1_mid_wide=3, dct4_mid=7, dct4_mid_wide=3, dct4_mid_long=1)
     for (kind, shape), y in len_out.items():
         oracle = sfft.dct if kind.startswith("dct") else sfft.dst
@@ -3199,6 +3276,51 @@ def main() -> int:
     del x, y
     torch.cuda.empty_cache()
 
+    # ---- 4t. the census of kernels 1 and 18 on the radix column tile:
+    # ndfft and ndifft along axis 1 of a (1, n, 130) field at every n that
+    # the gates send to kernel 1 (C2C_AXIS_MID: 152 lengths, 384 ... 20480),
+    # against torch.fft in complex128, and nddst1 along axis 1 of a
+    # (1, n, 130) field at every n that they send to kernel 18
+    # (R2C_PACKED_MID: 153 lengths, 255 ... 20479; streams of h = n + 1),
+    # against scipy's DST-I through float64 torch.fft (-Im of the R2C of the
+    # odd extension); oracles only, run on the host; each within TOL_CENSUS
+    # of the oracle's peak
+    k1_n = [n for n in range(2, kfft.GENERIC_MAX_N + 1)
+            if api._route("fft", (1, n, 130), 1, torch.complex64, "cuda") == api.C2C_AXIS_MID]
+    k18_n = [n for n in range(2, kfft.GENERIC_MAX_N)
+             if api._route("dst1", (1, n, 130), 1, torch.float32, "cuda") == api.R2C_PACKED_MID]
+    if (len(k1_n), len(k18_n)) != (152, 153):
+        raise AssertionError(f"axis-mid census: {len(k1_n)} K1 lengths, {len(k18_n)} K18 "
+                             "lengths, expected 152, 153")
+    t0 = time.perf_counter()
+    worst = {"c2c_axis_mid": (0.0, None), "r2c_packed_mid": (0.0, None)}
+    reset_counts()
+    for n in k1_n:
+        x = crandn(1, n, 130)
+        xh = x.cpu().to(torch.complex128)
+        for y, ref in ((nd.ndfft(x, axis=1), torch.fft.fft(xh, dim=1)),
+                       (nd.ndifft(x, axis=1), torch.fft.ifft(xh, dim=1))):
+            err = rel_err(y, ref.to(dev))
+            if not err <= TOL_CENSUS:
+                raise AssertionError(f"c2c_axis_mid census n={n}: {err}")
+            worst["c2c_axis_mid"] = max(worst["c2c_axis_mid"], (err, n))
+    for n in k18_n:
+        x = randn(1, n, 130)
+        xh = x.cpu().double()
+        z = torch.zeros_like(xh[:, :1])
+        ext = torch.cat([z, xh, z, -xh.flip(1)], dim=1)
+        err = rel_err(nd.nddst1(x, axis=1), (-torch.fft.rfft(ext, dim=1).imag[:, 1:n + 1]).to(dev))
+        if not err <= TOL_CENSUS:
+            raise AssertionError(f"r2c_packed_mid census n={n}: {err}")
+        worst["r2c_packed_mid"] = max(worst["r2c_packed_mid"], (err, n))
+    read_counts("axis_mid_census", c2c_axis_mid=2 * len(k1_n), r2c_packed_mid=len(k18_n))
+    emit(phase="axis_mid_census", k1_lengths=len(k1_n), k18_lengths=len(k18_n),
+         worst_rel_err_k1=worst["c2c_axis_mid"][0], worst_n_k1=worst["c2c_axis_mid"][1],
+         worst_rel_err_k18=worst["r2c_packed_mid"][0], worst_n_k18=worst["r2c_packed_mid"][1],
+         seconds=time.perf_counter() - t0)
+    del x, xh, y, ref
+    torch.cuda.empty_cache()
+
     # ---- 5. times: each kernel against its plain version and, at the main
     # path's shape, the PyTorch call that computes the same function (the
     # yardstick); the steps against torch.fft (the 1536^3 solve's kernels
@@ -3214,14 +3336,14 @@ def main() -> int:
                    "c2r_dense_mid": (1, 129, 256 * 256), "r2c_packed": (256 * 256, 256),
                    "r2c_packed_dense": (128 * 128, 128), "c2c_generic_rows": (600 * 600, 600),
                    "c2c_generic_mid": (600, 600, 301), "r2c_packed_generic": (600 * 600, 600),
-                   "c2c_axis_mid_wide": (768, 768, 385), "c2r_nat_wide": (768 * 768, 385),
+                   "c2r_nat_wide": (768 * 768, 385),
                    "c2r_mid_wide": (1, 641, 1280), "dct2_nat_wide": (1536 * 1536, 1536),
                    "dct3_nat_wide": (1536 * 1536, 1536), "dct2_nat_npoint": (384, 384),
                    "dct3_nat_npoint": (384, 384), "dct2_mid": (1, 2048, 2048),
                    "dct3_mid": (1, 2048, 2048), "dct2_mid_wide": (1, 1536, 1536 * 1536),
                    "dct3_mid_wide": (1, 1536, 1536 * 1536), "dct2_mid_npoint": (1, 1152, 1152),
                    "dct3_mid_npoint": (1, 1152, 1152), "r2c_packed_mid": (1023, 1024, 1023),
-                   "r2c_packed_mid_wide": (1, 1536, 1535), "dct1_mid": (2049, 2049, 257),
+                   "dct1_mid": (2049, 2049, 257),
                    "dct1_mid_wide": (1, 1537, 1537), "dct4_mid": (2048, 2048, 256),
                    "dct4_mid_wide": (1, 1536, 1536), "dct4_mid_long": (1, 65536, 8192),
                    "c2c_blue_mid": (1, 509, 509 * 509), "dct23_blue_mid": (1, 1021, 1024),
@@ -3372,6 +3494,37 @@ def main() -> int:
              ms_by_cols_per_tile=cols_ms, chosen=krfft.r2c_mid_cols(n, nb, cols, kfft.num_sms(dev)),
              card=card)
         del x, y
+    # kernel 1 on the radix column tile at its main shapes with each column
+    # count C that fits, and at C <= 2 with each load ("_ldg": read-only;
+    # the wrapper takes fft.py::axis_mid_tile's), beside torch.fft.fft
+    for shape in ((1, 512, 512 * 257), (1024, 1024, 513), (768, 768, 385), (1, 2048, 65536),
+                  (1, 4096, 4096), (1, 8192, 2048), (1, 20480, 130)):
+        nb, n, cols = shape
+        x = crandn(*shape)
+        y = torch.empty_like(x)
+        cols_ms = {f"{c}{'_ldg' if ldg else ''}": cuda_ms(
+            lambda: kfft.mid_radix_launch(x, y, -1, 1.0, c, ldg), reps)
+            for c in (1, 2, 4, 8, 16) if tile_fits(n, c)
+            for ldg in ((False, True) if c <= 2 else (False,))}
+        c, ldg = kfft.axis_mid_tile(n, nb, cols, kfft.num_sms(dev))
+        emit(phase="time", kernel="c2c_axis_mid", shape=shape, ms_by_cols_per_tile=cols_ms,
+             chosen=f"{c}{'_ldg' if ldg else ''}",
+             torch_fft_ms=cuda_ms(lambda: torch.fft.fft(x, dim=1), reps), card=card)
+        del x, y
+    torch.cuda.empty_cache()
+    # kernel 18 at the Dirichlet solve's two shapes and at h = 1536 with
+    # each column count C that fits (the wrapper takes
+    # rfft.py::packed_mid_cols's)
+    for shape in ((n9, n9 + 1, n9), (1, n9 + 1, n9 * n9), (1, 1536, 1535)):
+        nb, h, cols = shape
+        xe, xo = randn(*shape), randn(*shape)
+        y = torch.empty((nb, h + 1, cols), dtype=torch.complex64, device=dev)
+        cols_ms = {c: cuda_ms(lambda: krfft.r2c_packed_mid_launch(xe, xo, y, -1.0, c), reps)
+                   for c in (1, 2, 4, 8, 16, 32) if tile_fits(h, c)}
+        emit(phase="time", kernel="r2c_packed_mid", shape=shape, ms_by_cols_per_tile=cols_ms,
+             chosen=krfft.packed_mid_cols(h, nb, cols, kfft.num_sms(dev)), card=card)
+        del xe, xo, y
+    torch.cuda.empty_cache()
     for grid_shape, x in c2c_inputs.items():
         hs = [nd.FftHandler(n) for n in grid_shape]
         torch.cuda.reset_peak_memory_stats()
@@ -3499,11 +3652,12 @@ def main() -> int:
     del rfft2d_inputs
     torch.cuda.empty_cache()
 
-    # the wide core and kernels 10, 2 and 15 on the radix row core at the
-    # same F: each kernel at the paths' shapes (phase 4g), the 768^3 step
-    # with each public call timed alone, and the 4096^2 round trip
+    # kernel 1 on the radix column tile, the wide core (kernel 3) and
+    # kernels 10, 2 and 15 on the radix row core at the same F: each kernel
+    # at the paths' shapes (phase 4g), the 768^3 step with each public call
+    # timed alone, and the 4096^2 round trip
     for name, kern, plain, dim, shapes in (
-            ("c2c_axis_mid_wide", kfft.c2c_axis_mid, kfft.c2c_axis_mid_plain, 1,
+            ("c2c_axis_mid", kfft.c2c_axis_mid, kfft.c2c_axis_mid_plain, 1,
              ((768, 768, 385), (1, 768, 295680), (1, 4096, 4096), (1, 4096, 2049))),
             ("c2c_rows", kfft.c2c_rows, kfft.c2c_rows_plain, -1,
              ((4096, 4096), (1536, 768), (128, 20480)))):
@@ -3607,12 +3761,13 @@ def main() -> int:
             x = randn(*shape)
             time_kernel(name, shape, lambda: kern(x, 2.0), lambda: plain(x, 2.0))
             del x
-    # kernels 18, 19 and 28 on the wide core at phase 4i's lengths (their
-    # fixed forms were timed there, at the solves' shapes); K18's yardstick
-    # is torch.fft.rfft of the interleaved column
+    # kernel 18 (the radix column tile) at h = 1536 and kernels 19 and 28 on
+    # the wide core at phase 4i's lengths (K18 at the Dirichlet solve's
+    # shapes and the fixed forms were timed there); K18's yardstick is
+    # torch.fft.rfft of the interleaved column
     xe, xo = randn(1, 1536, 1535), randn(1, 1536, 1535)
     col = torch.stack([xe, xo], dim=2).reshape(1, 3072, 1535)
-    time_kernel("r2c_packed_mid_wide", (1, 1536, 1535),
+    time_kernel("r2c_packed_mid", (1, 1536, 1535),
                 lambda: krfft.r2c_packed_mid(xe, xo, -1.0),
                 lambda: krfft.r2c_packed_mid_plain(xe, xo, -1.0),
                 lambda: torch.fft.rfft(col, dim=1))
@@ -3685,7 +3840,7 @@ def main() -> int:
          peak_bytes=peak, card=card)
 
     sources = {
-        "c2c_axis_mid": ("ndrustfft_tpu_torch/csrc/fft_axis_mid.cu",
+        "c2c_axis_mid": ("ndrustfft_tpu_torch/csrc/fft_mid_radix.cu",
                          "ndrustfft_tpu/ops/pallas/fft.py:1124"),
         "r2c_nat": ("ndrustfft_tpu_torch/csrc/rfft_radix.cu",
                     "ndrustfft_tpu/ops/pallas/rfft.py:242"),
@@ -3723,8 +3878,6 @@ def main() -> int:
                             "ndrustfft_tpu/ops/pallas/fft.py:1794"),
         "r2c_packed_generic": ("ndrustfft_tpu_torch/csrc/rfft_radix.cu",
                                "ndrustfft_tpu/ops/pallas/rfft.py:163"),
-        "c2c_axis_mid_wide": ("ndrustfft_tpu_torch/csrc/fft_axis_mid.cu",
-                              "ndrustfft_tpu/ops/pallas/fft.py:1124"),
         "c2r_nat_wide": ("ndrustfft_tpu_torch/csrc/rfft_nat.cu",
                          "ndrustfft_tpu/ops/pallas/rfft.py:323"),
         "c2r_mid_wide": ("ndrustfft_tpu_torch/csrc/rfft_mid.cu",
@@ -3749,10 +3902,8 @@ def main() -> int:
                             "ndrustfft_tpu/ops/pallas/dct.py:333"),
         "dct3_mid_npoint": ("ndrustfft_tpu_torch/csrc/dct_mid.cu",
                             "ndrustfft_tpu/ops/pallas/dct.py:351"),
-        "r2c_packed_mid": ("ndrustfft_tpu_torch/csrc/rfft_packed_mid.cu",
+        "r2c_packed_mid": ("ndrustfft_tpu_torch/csrc/rfft_mid_radix.cu",
                            "ndrustfft_tpu/ops/pallas/rfft.py:627"),
-        "r2c_packed_mid_wide": ("ndrustfft_tpu_torch/csrc/rfft_packed_mid.cu",
-                                "ndrustfft_tpu/ops/pallas/rfft.py:627"),
         "dct1_mid": ("ndrustfft_tpu_torch/csrc/dct1_mid.cu",
                      "ndrustfft_tpu/ops/pallas/rfft.py:724"),
         "dct1_mid_wide": ("ndrustfft_tpu_torch/csrc/dct1_mid.cu",
@@ -3814,11 +3965,18 @@ def main() -> int:
             nbytes, m_flops = work(name, main_shapes[name], length_m=True)
             row["length_m_bound_ms"], row["length_m_bound_by"] = bound(nbytes, m_flops)
         # the same numbers at the shapes of phases 4h, 4i and 4j's main paths
+        # and, for the kernels whose other main shapes phase 5 times, at those
         row["solve_shapes"] = [
             dict(zip(("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
                      (list(shape), *timing[(name, shape)],
                       *bound(*work(name, shape, mult=spectral_h.get((name, shape)))))))
             for shape in sliced.get(name, ())]
+        if name in ("c2c_axis_mid", "r2c_packed_mid"):
+            row["other_shapes"] = [
+                dict(zip(("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
+                         (list(shape), *timing[(nm, shape)], *bound(*work(name, shape)))))
+                for nm, shape in timing if nm == name and shape != main_shapes[name]
+                and shape not in sliced.get(name, ())]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -49,8 +49,8 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 w) {
 
 // X[k] of the R2C unpack from a = Z[k], b = Z[(h - k) mod h] and
 // w = W_n^k: X[k] = (Z[k] + C[k]) / 2 - i W_n^k (Z[k] - C[k]) / 2 with
-// C = conj b; `half` = 0.5 * scale gives scale * X[k] (the packed kernels
-// 18 and 19 fold their scale into it).
+// C = conj b; `half` = 0.5 * scale gives scale * X[k] (the bts2 column
+// R2C of kernel 19 folds its scale into it).
 __device__ __forceinline__ float2 r2c_unpack_one(float2 a, float2 b, float2 w,
                                                  float half = 0.5f) {
   const float fer = half * (a.x + b.x);

@@ -1,8 +1,9 @@
-// The bts2 C2C of a column tile (kernel 1, fft_axis_mid.cu) and of a row
-// tile (kernel 13's rows), each on the fixed core (F in {4, 8, 16},
-// bts2_core.cuh) and the wide core (every other F <= 160, bts2_wide.cuh).
-// Kernels 7 and 13 (fft_fourstep.cu) take the column and the row tile with
-// a store of their own, so the kernels take the store as a struct Io:
+// The bts2 C2C of a column tile (kernel 7's; kernel 1's until it moved onto
+// the radix column tile, fft_mid_radix.cu) and of a row tile (kernel 13's
+// rows), each on the fixed core (F in {4, 8, 16}, bts2_core.cuh) and the
+// wide core (every other F <= 160, bts2_wide.cuh). Kernels 7 and 13
+// (fft_fourstep.cu) take the column and the row tile with a store of their
+// own, so the kernels take the store as a struct Io:
 //
 //   column tile, x: (B, n, L):  io.store(b, k, col, v)  output k of column col
 //   row tile,    x: (T, n):     io.store(r, k, v)       output k of row r
@@ -15,16 +16,6 @@
 #include "bts2_wide.cuh"
 
 namespace ndfft {
-
-// Kernel 1's store: y (B, n, L) like x.
-struct MidStore {
-  float2* __restrict__ y;
-  int n;
-  long long L;
-  __device__ void store(long long b, long long k, long long col, float2 v) const {
-    y[(b * n + k) * L + col] = v;
-  }
-};
 
 // One block per (b, tile of C columns). The block reads its n x C tile of
 // torch's interleaved complex64 straight into shared memory, runs the bts2

@@ -12,8 +12,9 @@
 // scalar, as the JAX package does. The output is the real rows 0 .. h only,
 // h + 1 = n floats per column.
 //
-// It is kernel 18's R2C on the bts2 cores (r2c_col.cuh) with
-// the load and store of Dct1Io below: the load builds z[t] = e[2t] + i e[2t+1]
+// It is the bts2 column R2C (r2c_col.cuh; kernel 18's until it moved onto
+// the radix column tile, rfft_mid_radix.cu) with the load and store of
+// Dct1Io below: the load builds z[t] = e[2t] + i e[2t+1]
 // by reading x from both ends of the column (two row loads per element, no
 // flipped copy of x: the JAX package materialises flip(x) as a second
 // operand because Mosaic needs it, a full extra pass); Z = FFT_h(z) on the

@@ -5,18 +5,21 @@
 // kernels 2 and 15 at their half length on rows with the R2C's unpack as
 // the epilogue (rfft_radix.cu); kernel 11 at every
 // convolution length M = 128 * F on an (M, C) column tile, its forward and
-// inverse length-M transforms in place (fft_blue_radix.cu); kernels 6 and 4
-// (n > 512 without a split; n <= 512) on an (n, C) column tile with the
-// store in its last stage (fft_mid_radix.cu); kernels 16 and 20 (the R2C
-// along a middle axis) on the same column tile, at the half length with the
-// unpack as the epilogue or, at an odd length, with an epilogue that stores
-// half the bins (rfft_mid_radix.cu).
+// inverse length-M transforms in place (fft_blue_radix.cu); kernels 1, 6
+// and 4 (n = 128 * F; n > 512 without a split; n <= 512) on an (n, C)
+// column tile with the store in its last stage (fft_mid_radix.cu); kernels
+// 16, 18 and 20 (the R2C along a middle axis, kernel 18 of DST-I's two
+// streams) on the same column tile, at the half length with the unpack as
+// the epilogue or, at an odd length, with an epilogue that stores half the
+// bins (rfft_mid_radix.cu).
 //
 // Replaces, for the CUDA port, the JAX package's
-// ndrustfft_tpu/ops/pallas/fft.py::_kernel_twostep (the twostep split
-// m = 128), rfft.py::_r2c_kernel_nat and ::_r2c_kernel (the R2C's
-// half-length FFT), fft.py::_kernel_lane_last (its dense lane DFT at n <= 256
-// and its generic lane schedule above), ::_kernel_axis_mid (the generic
+// ndrustfft_tpu/ops/pallas/fft.py::_kernel_twostep and
+// ::_kernel_axis_mid_bts2 (the twostep split m = 128 on rows and along a
+// middle axis), rfft.py::_r2c_kernel_nat, ::_r2c_kernel_mid,
+// ::_r2c_kernel_packed_mid and ::_r2c_kernel (the R2C's half-length FFT),
+// fft.py::_kernel_lane_last (its dense lane DFT at n <= 256 and its generic
+// lane schedule above), ::_kernel_axis_mid (the generic
 // schedule along a middle axis), ::_kernel_axis_mid_dense (the dense DFT-n
 // along a middle axis at n <= 512) and ::_kernel_axis_mid_blue (the
 // chirp-z's length-M transforms). The TPU kernels run dense DFT stages, cheap

@@ -1,7 +1,7 @@
-// The R2C of each column of a column tile on the bts2 cores, shared by
-// kernels 18 and 19 (rfft_packed_mid.cu, dct1_mid.cu; kernel 16's, until it
-// moved onto the radix column tile, rfft_mid_radix.cu), which differ only in
-// how they load the half-length column z and store the spectrum X:
+// The R2C of each column of a column tile on the bts2 cores, kernel 19's
+// (dct1_mid.cu) alone since kernels 16 and 18 moved onto the radix column
+// tile (rfft_mid_radix.cu); the kernel loads the half-length column z and
+// stores the spectrum X through its Io:
 //
 //   z[t] = io.load(b, t, col),  t < h = 128 * F,
 //   Z = FFT_h(z) on the fixed core (bts2_core.cuh) or the wide one

@@ -5,8 +5,8 @@
 // cores until it moved onto the radix column tile: rfft_mid_radix.cu.)
 //
 // Replaces ndrustfft_tpu/ops/pallas/rfft.py::_c2r_kernel_mid (built by
-// _build_c2r_mid). It is kernel 3's inverse unpack (rfft_nat.cu) in kernel
-// 1's column-tile layout (fft_axis_mid.cu): one block per (b, tile of C
+// _build_c2r_mid). It is kernel 3's inverse unpack (rfft_nat.cu) in the
+// bts2 column-tile layout (c2c_tile.cuh): one block per (b, tile of C
 // columns), the shared core Bts2<F, C, false> (bts2_core.cuh) as the
 // half-length inverse FFT of each column, in shared memory.
 //

@@ -1,32 +1,41 @@
-// Kernels 16 and 20: the R2C along the middle axis of a (B, n, L) float32
-// tensor to (B, n / 2 + 1, L) complex64, on the mixed-radix core's column
-// tile (fft_radix.cuh::radix_cols_kernel, kernels 6 and 4's skeleton).
-// Kernel 16 takes n = 2h, h = 128 * F (F = 2 ... 160); kernel 20 every
-// 4 <= n <= 1100 whose transform length (h for even n, n for odd n) has a
-// plan (ops/hopper/fft.py::radix_plan; its 326 other lengths keep the dense
-// product of rfft_dense.cu).
+// Kernels 16, 18 and 20: the R2C along the middle axis, on the mixed-radix
+// core's column tile (fft_radix.cuh::radix_cols_kernel, kernels 1, 6 and
+// 4's skeleton). Kernels 16 and 20 take a (B, n, L) float32 tensor to
+// (B, n / 2 + 1, L) complex64: kernel 16 n = 2h, h = 128 * F (F = 2 ...
+// 160); kernel 20 every 4 <= n <= 1100 whose transform length (h for even
+// n, n for odd n) has a plan (ops/hopper/fft.py::radix_plan; its 326 other
+// lengths keep the dense product of rfft_dense.cu). Kernel 18 takes two
+// (B, h, L) float32 streams xe, xo, h = 128 * F (F = 2 ... 160 with a plan),
+// to scale * the R2C of length 2h of the column whose even samples are xe
+// and whose odd samples are xo, (B, h + 1, L) complex64: DST-I along a
+// middle axis is its caller, the streams the even and odd samples of the
+// odd extension [0, x, 0, -flip(x)] (ops/dst.py::dst1_streams).
 //
 // Kernel 16 replaces ndrustfft_tpu/ops/pallas/rfft.py::_r2c_kernel_mid
-// (:443, built by _build_r2c_mid and called at :532); kernel 20 replaces
-// ::_r2c_dense_kernel (:882, called at :932). The TPU kernels ran the
-// half-length FFT as the bts2 core's dense DFT-128 stage (kernel 16) and the
-// whole R2C as one real product (kernel 20), cheap on a 128 x 128 MXU.
-// Their first Hopper forms ran the same on the FP32 cores: kernel 16 on the
-// bts2 core, bound by its stage-2 DFT-128 (7.6x its byte bound at
-// (1, 512, 262144); on the wide core 47x at (1, 1280, 1280)), kernel 20 as
-// one real SGEMM of 2 n (n + 2) operations per column where an FFT needs
-// 2.5 n log2 n (132 k against 5.1 k at n = 256), with two output rows
-// always zero.
+// (:443, built by _build_r2c_mid and called at :532); kernel 18 replaces
+// ::_r2c_kernel_packed_mid (:627, called at :682 by r2c_pallas_packed_mid);
+// kernel 20 replaces ::_r2c_dense_kernel (:882, called at :932). The TPU
+// kernels ran the half-length FFT as the bts2 core's dense DFT-128 stage
+// (kernels 16 and 18) and the whole R2C as one real product (kernel 20),
+// cheap on a 128 x 128 MXU. Their first Hopper forms ran the same on the
+// FP32 cores: kernels 16 and 18 on the bts2 core (r2c_col.cuh), bound by its
+// stage-2 DFT-128 (kernel 16 at 7.6x its byte bound at (1, 512, 262144),
+// kernel 18 at 10.3x at (1023, 1024, 1023) and 33x on the wide core at
+// (1, 1536, 1535)), kernel 20 as one real SGEMM of 2 n (n + 2) operations
+// per column where an FFT needs 2.5 n log2 n (132 k against 5.1 k at
+// n = 256), with two output rows always zero.
 //
 // What bounds it on this card: device memory. A column is read once (4 n
 // bytes) and its n / 2 + 1 bins written once (8 (n / 2 + 1) bytes): 0.321 ms
-// at (1, 512, 262144) and 0.0403 ms at (1, 256, 65536) over 3.35 TB/s,
-// against 2.5 n log2 n FP32 operations per column (0.045 and 0.0050 ms of
-// the 67 TFLOP/s peak).
+// at (1, 512, 262144), 0.0403 ms at (1, 256, 65536), and for kernel 18's two
+// streams 5.121 ms at (1023, 1024, 1023) and 0.0113 ms at (1, 1536, 1535)
+// over 3.35 TB/s, against 2.5 n log2 n FP32 operations per column (0.045,
+// 0.0050, 0.88 and 0.0020 ms of the 67 TFLOP/s peak).
 //
 // The design. Even n: the column read as its complex pairs
 // z[t] = x[2t] + i x[2t + 1] (two real row loads per element, consecutive
-// threads on consecutive columns), one radix_run of radix_plan(h) in place
+// threads on consecutive columns; kernel 18: xe[t] + i xo[t], one row load
+// from each stream), one radix_run of radix_plan(h) in place
 // whose last stage writes Z back into the tile in natural order (kTileOut),
 // and after its barrier the unpack as the epilogue, each bin's mirror
 // Z[(h - k) mod h] of the same column a shared-memory read
@@ -35,20 +44,30 @@
 //   X[k] = (Z[k] + C[k]) / 2 - i W_n^k (Z[k] - C[k]) / 2,  k < h,
 //   X[h] = Re Z[0] - Im Z[0],  C[k] = conj Z[(h - k) mod h],
 //
-// each X[k] stored once to out[b, k, col0 + c], consecutive threads on
-// consecutive columns; W_n^k comes from the host (ops/hopper/rfft.py::
-// _device_tw), so the device runs no sincosf. Odd n: the length-n C2C of
-// (x, 0) on the same tile, left there in natural order, and an epilogue
-// that stores the bins k <= n / 2, a tile row at a time. (Storing them from
-// the last stage with a bin bound, as kernels 6 and 4 store all n, made
-// ptxas spill 1300 bytes a thread at 16 elements against 52 through the
-// tile; the bound alone took kernels 6 and 4 from 396 to 1300.) Columns a
-// tile: ops/hopper/rfft.py::
-// r2c_mid_cols (kernel 4's rule at the transform length, up to 32 columns
-// and a tile row of at least one 128-byte line where the columns allow).
-// Shared memory: the tile, 8 h C (17 / 16) bytes (8 n C at odd n), and the
-// prime rows. Left for later: cp.async or TMA loads, the odd length's
-// Hermitian half of the work (half the C2C's outputs are dropped).
+// each X[k] (kernel 18: scale * X[k]) stored once to out[b, k, col0 + c],
+// consecutive threads on consecutive columns; W_n^k comes from the host
+// (ops/hopper/rfft.py::_device_tw), so the device runs no sincosf. Kernel
+// 18's scale multiplies in that store, not in the load or the table: the
+// table is kernel 16's, pinned bit for bit to the JAX package's, the store
+// touches h + 1 values a column where the load touches 2h, and the product
+// is then the plain version's spec * scale, rounded once. Odd n: the
+// length-n C2C of (x, 0) on the same tile, left there in natural order, and
+// an epilogue that stores the bins k <= n / 2, a tile row at a time.
+// (Storing them from the last stage with a bin bound, as kernels 6 and 4
+// store all n, made ptxas spill 1300 bytes a thread at 16 elements against
+// 52 through the tile; the bound alone took kernels 6 and 4 from 396 to
+// 1300.) Columns a tile: ops/hopper/rfft.py::r2c_mid_cols (kernel 4's rule
+// at the transform length, up to 32 columns and a tile row of at least one
+// 128-byte line where the columns allow); kernel 18's tile row is a C
+// 4-byte run of each stream, and from h = 1024 on it takes up to 16 columns
+// (a 64-byte run) in the 32- or 40-element form (rfft.py::packed_mid_cols:
+// at the Dirichlet solve's (1, 1024, 1046529) 4 columns, the 16-element
+// rule's, took 31% longer on an H100). Shared memory: the tile, 8 h C
+// (17 / 16) bytes (8 n C at odd n), and the prime rows.
+// Left for later: cp.async or TMA loads, the odd length's Hermitian half of
+// the work (half the C2C's outputs are dropped), and for kernel 18 reading
+// x itself in the load instead of the two streams its caller builds (two
+// more passes over the field).
 #include "fft_radix.cuh"
 
 namespace ndfft {
@@ -74,15 +93,32 @@ struct RealCol {
   }
 };
 
+// Kernel 18's columns: element t of column col of b as (xe[t], xo[t]) from
+// the two (B, h, L) streams.
+struct PackedCol {
+  const float* __restrict__ xe;
+  const float* __restrict__ xo;
+  long long L;
+  int h;
+  __device__ __forceinline__ long long base(long long b, long long col) const {
+    return b * h * L + col;
+  }
+  __device__ __forceinline__ float2 at(long long p, int t) const {
+    const long long i = p + t * L;
+    return make_float2(__ldcs(xe + i), __ldcs(xo + i));
+  }
+};
+
 // Even n's epilogue: the tile holds Z (the last stage's outputs kept as
-// they are), and each column's threads write its h + 1 bins to
-// y[(b (h + 1) + k) L + col]; u[k] = W_n^k.
+// they are), and each column's threads write its h + 1 bins times scale
+// (1 for kernels 16 and 20) to y[(b (h + 1) + k) L + col]; u[k] = W_n^k.
 struct R2cColUnpack {
   static constexpr bool kTileOut = true;
   float2* __restrict__ y;
   const float2* __restrict__ u;
   long long L;
   int h;
+  float scale;
   __device__ __forceinline__ long long handle(long long b, long long col) const {
     return b * (h + 1) * L + col;
   }
@@ -91,7 +127,9 @@ struct R2cColUnpack {
   __device__ __forceinline__ void epilogue(const float2* s, const Cx& cx) const {
     float2* yc = y + cx.row;
     const long long ls = L;
-    r2c_unpack_tile(s, cx, u, [=](int k, float2 v) { yc[k * ls] = v; });
+    const float sc = scale;
+    r2c_unpack_tile(s, cx, u,
+                    [=](int k, float2 v) { yc[k * ls] = make_float2(sc * v.x, sc * v.y); });
   }
 };
 
@@ -138,8 +176,27 @@ extern "C" int ndfft_r2c_mid_radix(const void* x, void* y, const void* table, co
   const auto st = static_cast<cudaStream_t>(stream);
   if (even)
     return (int)radix_cols_launch<-1>(
-        RealCol<true>{xp, L, n}, R2cColUnpack{yp, static_cast<const float2*>(u), L, len}, tp,
-        plan, B, len, L, C, 1.f, st);
+        RealCol<true>{xp, L, n}, R2cColUnpack{yp, static_cast<const float2*>(u), L, len, 1.f},
+        tp, plan, B, len, L, C, 1.f, st);
   return (int)radix_cols_launch<-1>(RealCol<false>{xp, L, n}, R2cOddBins{yp, L, n / 2 + 1},
                                     tp, plan, B, len, L, C, 1.f, st);
+}
+
+// Kernel 18. xe, xo: (B, h, L) float32; y: (B, h + 1, L) complex64; all
+// contiguous. table: the forward (sign -1) radix table of h
+// (ops/hopper/fft.py::radix_consts); radices: radix_plan(h), `stages` of
+// them; u: (h,) complex64 W_2h^k; scale: multiplies every bin; C: columns
+// per tile as for ndfft_r2c_mid_radix at h (ops/hopper/rfft.py::
+// r2c_mid_cols). Returns the cudaError_t of the launch (0 on success).
+extern "C" int ndfft_r2c_packed_mid_radix(const void* xe, const void* xo, void* y,
+                                          const void* table, const int* radices, int stages,
+                                          const void* u, float scale, long long B, int h,
+                                          long long L, int C, void* stream) {
+  using namespace ndfft;
+  RadixPlan plan{};
+  if (!radix_plan_of(radices, stages, h, plan) || u == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)radix_cols_launch<-1>(
+      PackedCol{static_cast<const float*>(xe), static_cast<const float*>(xo), L, h},
+      R2cColUnpack{static_cast<float2*>(y), static_cast<const float2*>(u), L, h, scale},
+      static_cast<const float2*>(table), plan, B, h, L, C, 1.f, static_cast<cudaStream_t>(stream));
 }

@@ -38,7 +38,6 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 # C entry points and their argument types (see csrc/*.cu)
 _SIGNATURES = {
-    "ndfft_c2c_axis_mid": [_P, _P, _P, _LL, _I, _LL, _I, _I, _P],
     "ndfft_c2c_dense": [_P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_c2r_nat": [_P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_c2r_mid": [_P, _P, _P, _P, _LL, _I, _LL, _I, _P],
@@ -48,11 +47,11 @@ _SIGNATURES = {
     "ndfft_dct_dense_mid": [_P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_dct2_nat": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_dct3_nat": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
-    "ndfft_c2c_axis_mid_wide": [_P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_c2c_rows_radix": [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _F, _P],
-    "ndfft_c2c_mid_radix": [_P, _P, _P, _P, _I, _LL, _I, _LL, _I, _I, _F, _P],
+    "ndfft_c2c_mid_radix": [_P, _P, _P, _P, _I, _LL, _I, _LL, _I, _I, _F, _I, _P],
     "ndfft_r2c_radix": [_P, _P, _P, _P, _I, _P, _LL, _I, _I, _P],
     "ndfft_r2c_mid_radix": [_P, _P, _P, _P, _I, _P, _LL, _I, _LL, _I, _P],
+    "ndfft_r2c_packed_mid_radix": [_P, _P, _P, _P, _P, _I, _P, _F, _LL, _I, _LL, _I, _P],
     "ndfft_c2r_nat_wide": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_c2r_mid_wide": [_P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_dct_nat_wide": [_I, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
@@ -60,8 +59,6 @@ _SIGNATURES = {
     "ndfft_dct_mid": [_I, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_dct_mid_wide": [_I, _P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_dct_mid_npoint": [_I, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
-    "ndfft_r2c_packed_mid": [_P, _P, _P, _P, _P, _F, _LL, _I, _LL, _I, _P],
-    "ndfft_r2c_packed_mid_wide": [_P, _P, _P, _P, _P, _P, _F, _LL, _I, _LL, _I, _P],
     "ndfft_dct1_mid": [_P, _P, _P, _P, _F, _LL, _I, _LL, _I, _P],
     "ndfft_dct1_mid_wide": [_P, _P, _P, _P, _P, _P, _F, _LL, _I, _LL, _I, _P],
     "ndfft_dct4_mid": [_P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],

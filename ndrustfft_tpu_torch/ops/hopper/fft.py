@@ -1,10 +1,9 @@
 """The C2C kernels on complex64.
 
 * Kernel 1, :func:`c2c_axis_mid`: C2C along the middle axis of (B, n, L),
-  n = 128 * F (``csrc/fft_axis_mid.cu`` on the shared core
-  ``csrc/bts2_core.cuh`` for F in {4, 8, 16}, on its runtime-F form
-  ``csrc/bts2_wide.cuh`` for every other F <= 160; replaces the JAX
-  package's ``ops/pallas/fft.py::_kernel_axis_mid_bts2``).
+  n = 128 * F, on an (n, C) column tile of the mixed-radix core, kernel
+  6's kernel (``csrc/fft_mid_radix.cu``; replaces the JAX package's
+  ``ops/pallas/fft.py::_kernel_axis_mid_bts2``).
 * Kernel 10, :func:`c2c_rows`: C2C of contiguous (T, n) rows, n = 128 * F,
   at every F on the mixed-radix Stockham row core (``csrc/fft_rows_radix.cu``
   and ``csrc/fft_radix.cuh``; replaces ``fft.py::_kernel_twostep``).
@@ -29,7 +28,7 @@
 * Kernels 7 and 13, :func:`fourstep_mid` and :func:`rows_store_t`: the two
   passes of the four-step long C2C (``ops/engine.py::_fourstep``). Kernel 7
   is the C2C of length n1 along dim 1 of the (B, n1, n2) view times the
-  exit twiddle W_n^{k1 t2} (kernel 1's kernels of ``csrc/c2c_tile.cuh``
+  exit twiddle W_n^{k1 t2} (the bts2 column tile of ``csrc/c2c_tile.cuh``
   with a twiddle store on either core, or a dense product for n1 <= 256,
   the twiddle in its epilogue; ``csrc/fft_fourstep.cu`` and
   ``csrc/fft_dense.cu``; replaces ``fft.py::_kernel_exit_mul``). Kernel 13 is the row C2C of
@@ -44,10 +43,10 @@
 
 This module holds their host-built constants, their plain PyTorch versions
 and their wrappers, whose ``launches`` attributes count kernel launches
-(kernels 1, 7, 13 and 14 also count the wide core's launches apart, in
+(kernels 7, 13 and 14 also count the wide core's launches apart, in
 ``wide_launches``, kernel 7 its dense body's, in ``dense_launches``;
-kernels 10, 8, 6, 4 and 11 count every launch of ``c2c_rows``,
-``c2c_dense_rows``, ``c2c_generic_mid``, ``c2c_dense_mid`` and
+kernels 1, 10, 8, 6, 4 and 11 count every launch of ``c2c_axis_mid``,
+``c2c_rows``, ``c2c_dense_rows``, ``c2c_generic_mid``, ``c2c_dense_mid`` and
 ``c2c_blue_mid`` in ``radix_launches`` beside ``launches``).
 """
 
@@ -65,7 +64,7 @@ from . import _build
 
 M = 128                 # stage-2 DFT length of the core
 CORE_F = (2, 4, 8, 16)  # butterfly factors the fixed core instantiates
-C2C_F = (4, 8, 16)      # factors kernels 1, 7, 13 and 14 take on the fixed core
+C2C_F = (4, 8, 16)      # factors kernels 7, 13 and 14 take on the fixed core
 SMEM_ELEMS = 8192       # complex elements of one block's tile (64 KB)
 DENSE_MAX_N = 512       # longest transform kernels 4 and 8 take
 GENERIC_MAX_N = 20480   # the JAX package's kernel bound (fft._LIVE_COPIES)
@@ -168,12 +167,6 @@ def bts2_plain(x: torch.Tensor, wq: torch.Tensor, sign: int) -> torch.Tensor:
     return z.reshape(nb, n, cols)
 
 
-def c2c_axis_mid_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
-    """Plain version of kernel 1 on any device."""
-    s = 1.0 if scale is None else float(scale)
-    return bts2_plain(x, device_wq(x.shape[1], sign, s, x.device), sign)
-
-
 @lru_cache(maxsize=8)
 def num_sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -263,46 +256,6 @@ def count_launch(wrapper, wide: bool) -> None:
     wrapper.wide_launches += wide
 
 
-def c2c_axis_mid(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
-    """C2C along dim 1 of a (B, n, L) complex64 tensor, n = 128 * F
-    (:func:`core_f`), times ``scale``. A CPU tensor runs the plain version;
-    a CUDA tensor launches kernel 1 (on the fixed core for F in {4, 8, 16},
-    else on the wide core) or raises."""
-    if x.dim() != 3:
-        raise ValueError(f"c2c_axis_mid: expected (B, n, L), got {tuple(x.shape)}")
-    nb, n, cols = x.shape
-    f = check_core_n(n, "c2c_axis_mid")
-    if x.device.type == "cpu":
-        return c2c_axis_mid_plain(x, sign, scale)
-    if x.device.type != "cuda":
-        raise ValueError(f"c2c_axis_mid: unsupported device {x.device}")
-    check_cuda(x, torch.complex64, "c2c_axis_mid")
-    s = 1.0 if scale is None else float(scale)
-    wq = device_wq(n, sign, s, x.device)
-    y = torch.empty_like(x)
-    if x.numel() == 0:
-        return y
-    wide = f not in C2C_F
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        if wide:
-            err = _build.lib().ndfft_c2c_axis_mid_wide(
-                x.data_ptr(), y.data_ptr(), wq.data_ptr(),
-                device_wide(n, sign, x.device).data_ptr(), nb, n, cols,
-                wide_block(n, nb, cols, num_sms(x.device)), stream)
-        else:
-            err = _build.lib().ndfft_c2c_axis_mid(
-                x.data_ptr(), y.data_ptr(), wq.data_ptr(), nb, n, cols,
-                block_cols(n, nb, cols, num_sms(x.device)), sign, stream)
-    _build.check(err, "c2c_axis_mid")
-    count_launch(c2c_axis_mid, wide)
-    return y
-
-
-c2c_axis_mid.launches = 0
-c2c_axis_mid.wide_launches = 0
-
-
 # --------------------------------------------------------------------------
 # Kernel 10: C2C of contiguous rows of n = 128 * F
 # --------------------------------------------------------------------------
@@ -310,7 +263,7 @@ c2c_axis_mid.wide_launches = 0
 
 def _bts2_rows_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
     """The bts2 core's plain version on the rows of a (T, n) tensor, n = 128
-    * F, on a (T, n, 1) view with kernel 1's constants: kernel 13's rows."""
+    * F, on a (T, n, 1) view with the core's constants: kernel 13's rows."""
     t, n = x.shape
     s = 1.0 if scale is None else float(scale)
     return bts2_plain(x.reshape(t, n, 1), device_wq(n, sign, s, x.device),
@@ -554,8 +507,8 @@ def _dense_launch(x: torch.Tensor, sign: int, tw: torch.Tensor) -> torch.Tensor:
 
 # --------------------------------------------------------------------------
 # Kernel 8 on the radix row core; kernels 6 (the lengths of the JAX
-# package's generic two-factor schedule) and 4 (n <= 512) on the radix
-# core's column tile
+# package's generic two-factor schedule), 4 (n <= 512) and 1 (n = 128 * F)
+# on the radix core's column tile
 # --------------------------------------------------------------------------
 
 
@@ -632,9 +585,11 @@ c2c_generic_mid_plain = c2c_radix_mid_plain     # kernel 6
 c2c_dense_mid_plain = c2c_radix_mid_plain       # kernel 4
 
 
-def mid_radix_launch(x: torch.Tensor, y: torch.Tensor, sign: int, scale: float, c: int) -> None:
-    """Launch the radix column tile of kernels 6 and 4, ``c`` columns a tile
-    (:func:`radix_mid_cols`), on (B, n, L) complex64 CUDA tensors x and y."""
+def mid_radix_launch(x: torch.Tensor, y: torch.Tensor, sign: int, scale: float, c: int,
+                     ldg: bool = False) -> None:
+    """Launch the radix column tile of kernels 1, 6 and 4, ``c`` columns a
+    tile (:func:`radix_mid_cols`), on (B, n, L) complex64 CUDA tensors x and
+    y; x loaded through the read-only path if ``ldg``, else evict-first."""
     nb, n, cols = x.shape
     dev = x.device
     plan = radix_plan(n)
@@ -642,20 +597,23 @@ def mid_radix_launch(x: torch.Tensor, y: torch.Tensor, sign: int, scale: float, 
         err = _build.lib().ndfft_c2c_mid_radix(
             x.data_ptr(), y.data_ptr(), device_radix(n, sign, dev).data_ptr(),
             (ctypes.c_int * RADIX_MAX_STAGES)(*plan), len(plan), nb, n, cols, c, sign, scale,
-            torch.cuda.current_stream(dev).cuda_stream)
+            int(ldg), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "ndfft_c2c_mid_radix")
 
 
-def _mid_radix(wrapper, x: torch.Tensor, sign: int, scale) -> torch.Tensor:
-    """``wrapper``'s kernel (6 or 4) on the radix column tile of the (B, n, L)
-    CUDA tensor x, counted in its ``launches`` and ``radix_launches``."""
+def _mid_radix(wrapper, x: torch.Tensor, sign: int, scale, tile=None) -> torch.Tensor:
+    """``wrapper``'s kernel (1, 6 or 4) on the radix column tile of the
+    (B, n, L) CUDA tensor x, counted in its ``launches`` and
+    ``radix_launches``; ``tile(n, B, L, sms)`` gives the columns a tile and
+    the load (default :func:`radix_mid_cols`, evict-first)."""
     nb, n, cols = x.shape
     check_cuda(x, torch.complex64, wrapper.__name__)
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    mid_radix_launch(x, y, sign, 1.0 if scale is None else float(scale),
-                     radix_mid_cols(n, nb, cols, num_sms(x.device)))
+    sms = num_sms(x.device)
+    c, ldg = tile(n, nb, cols, sms) if tile else (radix_mid_cols(n, nb, cols, sms), False)
+    mid_radix_launch(x, y, sign, 1.0 if scale is None else float(scale), c, ldg)
     wrapper.launches += 1
     wrapper.radix_launches += 1
     return y
@@ -733,6 +691,55 @@ def c2c_dense_mid(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
 
 c2c_dense_mid.launches = 0
 c2c_dense_mid.radix_launches = 0
+
+
+c2c_axis_mid_plain = c2c_radix_mid_plain        # kernel 1
+
+
+AXIS_MID_COLS = 4       # kernel 1's columns a tile above n = 1024, up to 5120
+
+
+def axis_mid_tile(n: int, groups: int, cols: int, sms: int):
+    """Kernel 1's columns a tile and load at n = 128 * F: up to n = 1024
+    :func:`radix_mid_cols` (the 16-element form: 8 columns at n <= 512, 4
+    to 1024); above it AXIS_MID_COLS columns in the 32- or 40-element form
+    up to n = 5120, then 2 to n = 8192 and 1 above (no 40-element tile of
+    two columns); halved while the grid would leave SMs idle; the read-only
+    load at C <= 2, evict-first above. (On an H100, chip_smoke.py phase 5
+    and time_kernels.py --scan-cols: at n = 2048 and 4096 four columns ran
+    2.4x and 3.3x faster than radix_mid_cols's 2 and 1, the 16-element
+    form; at n = 10240 one column 2-12% faster than two in the 40-element
+    form; at C <= 2 the read-only load faster than evict-first in 66 of 71
+    cases, by up to 28%: the neighbouring tiles re-read the rest of each
+    32-byte sector.)"""
+    if n <= RADIX_WIDE_N // 4:
+        c = radix_mid_cols(n, groups, cols, sms)
+    else:
+        c = AXIS_MID_COLS if n * AXIS_MID_COLS <= RADIX_MAX_ELEMS else 2 if 2 * n <= 16384 else 1
+        while c > 1 and groups * -(-cols // c) < sms:
+            c //= 2
+    return c, c <= 2
+
+
+def c2c_axis_mid(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
+    """C2C along dim 1 of a (B, n, L) complex64 tensor, n = 128 * F
+    (:func:`core_f`: the lengths with the JAX package's twostep split),
+    times ``scale``. A CPU tensor runs the plain version
+    (:func:`c2c_radix_mid_plain`); a CUDA tensor launches kernel 1 on the
+    radix core's column tile, counted in ``launches`` and
+    ``radix_launches``, or raises."""
+    if x.dim() != 3:
+        raise ValueError(f"c2c_axis_mid: expected (B, n, L), got {tuple(x.shape)}")
+    check_core_n(x.shape[1], "c2c_axis_mid")
+    if x.device.type == "cpu":
+        return c2c_axis_mid_plain(x, sign, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"c2c_axis_mid: unsupported device {x.device}")
+    return _mid_radix(c2c_axis_mid, x, sign, scale, axis_mid_tile)
+
+
+c2c_axis_mid.launches = 0
+c2c_axis_mid.radix_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -1022,9 +1029,10 @@ def _check_fourstep_n1(n1: int, what: str) -> str:
 
 def fourstep_mid_plain(x: torch.Tensor, sign: int) -> torch.Tensor:
     """Plain version of kernel 7: the plain version of its body (the dense
-    product's or kernel 1's, unscaled) times the exit twiddle."""
+    product's or the bts2 core's, unscaled) times the exit twiddle."""
     nb, n1, n2 = x.shape
-    y = dense_body_plain(x, sign) if n1 <= 256 else c2c_axis_mid_plain(x, sign)
+    y = (dense_body_plain(x, sign) if n1 <= 256 else
+         bts2_plain(x, device_wq(n1, sign, 1.0, x.device), sign))
     return y * device_fourstep_tw(n1, n2, sign, x.device)
 
 

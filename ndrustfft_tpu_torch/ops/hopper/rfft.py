@@ -25,13 +25,15 @@
   of its bins stored), and one real product with a host table at the other
   lengths (a prime factor above 127); kernel 21 is always that product
   (``csrc/rfft_dense.cu`` on the dense loop ``csrc/dense_real.cuh``).
-* Kernels 18 and 19, :func:`r2c_packed_mid` and :func:`dct1_mid`: kernel
-  16's code on a column built otherwise, along the middle axis
-  (``csrc/rfft_packed_mid.cu`` and ``csrc/dct1_mid.cu``, the fixed core for
-  F in {2, 4, 8, 16}, the wide core for every other F <= 160; replace
-  ``rfft.py::_r2c_kernel_packed_mid`` and ``_dct1_kernel_mid``): the packed
-  R2C of two (B, h, L) streams, z = xe + i xo (DST-I's odd extension), and
-  DCT-I of (B, h + 1, L) on its even extension, both times a scale.
+* Kernels 18 and 19, :func:`r2c_packed_mid` and :func:`dct1_mid`: the R2C
+  of a column built otherwise, along the middle axis, times a scale
+  (replace ``rfft.py::_r2c_kernel_packed_mid`` and ``_dct1_kernel_mid``).
+  Kernel 18, the packed R2C of two (B, h, L) streams, z = xe + i xo
+  (DST-I's odd extension), is kernel 16's column kernel with a two-stream
+  load and the scale in its store (``csrc/rfft_mid_radix.cu``); kernel 19,
+  DCT-I of (B, h + 1, L) on its even extension, runs the bts2 column R2C
+  (``csrc/dct1_mid.cu`` on ``csrc/r2c_col.cuh``, the fixed core for F in
+  {2, 4, 8, 16}, the wide core for every other F <= 160).
 * Kernel 15, the packed R2C of contiguous (T, n) rows (replaces
   ``rfft.py::_r2c_kernel``), in two CUDA kernels by half length h = n/2:
   :func:`r2c_packed` for h = 128 * F (kernel 2's code, with F = 1 added) and
@@ -49,10 +51,10 @@
 
 This module holds their host-built constants, their plain PyTorch versions
 and their wrappers, whose ``launches`` attributes count kernel launches
-(kernels 3, 17, 18, 19 and 22 on the bts2 core also count the wide core's
+(kernels 3, 17, 19 and 22 on the bts2 core also count the wide core's
 launches apart, in ``wide_launches``; kernels 2 and 15 at h = 128 * F and
-kernel 16 count every launch in ``radix_launches`` as well, kernel 20 its
-launches on the radix column tile).
+kernels 16 and 18 count every launch in ``radix_launches`` as well, kernel
+20 its launches on the radix column tile).
 """
 
 from __future__ import annotations
@@ -65,11 +67,12 @@ import torch
 
 from ...plan import _cis
 from . import _build
-from .fft import (CORE_F, GENERIC_MAX_N, M, RADIX_MAX_STAGES, block_cols, block_rows,
-                  bts2_plain, c2c_radix_mid_plain, c2c_radix_rows_plain, check_cuda,
-                  check_mult, core_f, count_launch, dense_tile, device_radix, device_wide,
-                  device_wq, generic_split, mult_planes, num_sms, radix_block,
-                  radix_mid_cols, radix_plan, wide_block)
+from .fft import (CORE_F, GENERIC_MAX_N, M, RADIX_MAX_ELEMS, RADIX_MAX_STAGES,
+                  RADIX_MAX_THREADS, block_cols, block_rows, bts2_plain, c2c_radix_mid_plain,
+                  c2c_radix_rows_plain, check_cuda, check_mult, core_f, count_launch,
+                  dense_tile, device_radix, device_wide, device_wq, generic_split,
+                  mult_planes, num_sms, radix_block, radix_cols_threads, radix_mid_cols,
+                  radix_plan, wide_block)
 
 # lengths kernels 20 and 21 take: the JAX package's rfft_dense_mid_supported
 # (its _DENSE_RFFT_MAX), which the routes mirror
@@ -459,13 +462,13 @@ c2r_mid.wide_launches = 0
 
 def spectral_r2c_mid_plain(x: torch.Tensor, hr: torch.Tensor, hi, n: int,
                            scale=None) -> torch.Tensor:
-    """Plain version of kernel 22: the bts2 column R2C (kernel 18's plain
-    version on the even and odd samples, kernel 22's forward arithmetic),
+    """Plain version of kernel 22: the bts2 column R2C on the even and odd
+    samples (:func:`_bts2_col_r2c_plain`, kernel 22's forward arithmetic),
     the product with H = hr + i hi ((m, 1) or (m, L), m = n/2 + 1; hi None
     for a real H), then kernel 17's, which ignores the product's DC and
     Nyquist imaginary parts (the JAX kernel's mask and its Nyquist row
     Re(H[h]) X[h])."""
-    spec = r2c_packed_mid_plain(x[:, 0::2], x[:, 1::2])
+    spec = _bts2_col_r2c_plain(x[:, 0::2], x[:, 1::2])
     return c2r_mid_plain(spec * (hr if hi is None else torch.complex(hr, hi)), n, scale)
 
 
@@ -524,18 +527,28 @@ spectral_r2c_mid.wide_launches = 0
 
 
 # --------------------------------------------------------------------------
-# Kernels 18 and 19: kernel 16's code on the DST-I streams and the DCT-I
-# extension
+# Kernel 18 on the radix column tile; kernel 19 on the bts2 core (fixed or
+# wide)
 # --------------------------------------------------------------------------
+
+
+def _bts2_col_r2c_plain(xe: torch.Tensor, xo: torch.Tensor) -> torch.Tensor:
+    """The bts2 column R2C's plain version (kernels 19 and 22): the core's
+    plain version on xe + i xo, (B, h, L) float32, then the unpack with the
+    mirror row, (B, h+1, L) complex64."""
+    h = xe.shape[1]
+    zz = bts2_plain(torch.complex(xe, xo), device_wq(h, -1, 1.0, xe.device), -1)
+    return _unpack(zz, _device_tw(2 * h, xe.device), 1)
 
 
 def r2c_packed_mid_plain(xe: torch.Tensor, xo: torch.Tensor, scale=None) -> torch.Tensor:
     """Plain version of kernel 18: (B, h, L) float32 streams -> scale * the
     R2C of length 2h of the column with even samples xe and odd samples xo,
-    (B, h+1, L) complex64: the core's plain version on xe + i xo, then the
-    unpack with the mirror row."""
+    (B, h+1, L) complex64: the radix core's plain version
+    (:func:`~.fft.c2c_radix_mid_plain`) on xe + i xo, then the unpack with
+    the mirror row, times the scale."""
     h = xe.shape[1]
-    zz = bts2_plain(torch.complex(xe, xo), device_wq(h, -1, 1.0, xe.device), -1)
+    zz = c2c_radix_mid_plain(torch.complex(xe, xo), -1)
     spec = _unpack(zz, _device_tw(2 * h, xe.device), 1)
     return spec if scale is None else spec * float(scale)
 
@@ -548,9 +561,7 @@ def dct1_mid_plain(x: torch.Tensor, scale=None) -> torch.Tensor:
     nb, n, cols = x.shape
     h = n - 1
     ext = torch.cat([x, x[:, 1:h].flip(1)], dim=1).reshape(nb, h, 2, cols)
-    zz = bts2_plain(torch.complex(ext[:, :, 0], ext[:, :, 1]),
-                    device_wq(h, -1, 1.0, x.device), -1)
-    re = _unpack(zz, _device_tw(2 * h, x.device), 1).real
+    re = _bts2_col_r2c_plain(ext[:, :, 0], ext[:, :, 1]).real
     return re if scale is None else re * float(scale)
 
 
@@ -564,37 +575,79 @@ def _check_half(h: int, what: str, name: str) -> int:
     return f
 
 
-def _launch_packed_mid(wrapper, ptrs, dev: torch.device, h: int, length: int, nb: int,
-                       cols: int, scale: float, workspace=None) -> None:
-    """Kernel 18 or 19 (``wrapper``'s) on the column tiles of (B, length, L)
-    with half length h: the fixed core for F in CORE_F, else the wide core
-    (kernel 19's with its (B, h, L) complex64 ``workspace``); adds one to the
-    wrapper's counts. ``ptrs``: the input pointers and the output's."""
+def _launch_dct1_mid(x: torch.Tensor, y: torch.Tensor, h: int, scale: float,
+                     workspace=None) -> None:
+    """Kernel 19 on the column tiles of (B, h + 1, L): the fixed core for F
+    in CORE_F, else the wide core with its (B, h, L) complex64
+    ``workspace``; adds one to :func:`dct1_mid`'s counts."""
+    nb, n, cols = x.shape
+    dev = x.device
     wide = h // M not in CORE_F
-    entry = f"ndfft_{wrapper.__name__}" + ("_wide" if wide else "")
+    entry = "ndfft_dct1_mid" + ("_wide" if wide else "")
     wq = device_wq(h, -1, 1.0, dev).data_ptr()
     tw = _device_tw(2 * h, dev).data_ptr()
     sms = num_sms(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         if wide:
-            ws = () if workspace is None else (workspace.data_ptr(),)
-            err = getattr(_build.lib(), entry)(
-                *ptrs, *ws, wq, device_wide(h, -1, dev).data_ptr(), tw, scale, nb, length,
-                cols, wide_block(h, nb, cols, sms), stream)
+            err = _build.lib().ndfft_dct1_mid_wide(
+                x.data_ptr(), y.data_ptr(), workspace.data_ptr(), wq,
+                device_wide(h, -1, dev).data_ptr(), tw, scale, nb, n, cols,
+                wide_block(h, nb, cols, sms), stream)
         else:
-            err = getattr(_build.lib(), entry)(
-                *ptrs, wq, tw, scale, nb, length, cols, block_cols(h, nb, cols, sms), stream)
+            err = _build.lib().ndfft_dct1_mid(
+                x.data_ptr(), y.data_ptr(), wq, tw, scale, nb, n, cols,
+                block_cols(h, nb, cols, sms), stream)
     _build.check(err, entry)
-    count_launch(wrapper, wide)
+    count_launch(dct1_mid, wide)
+
+
+PACKED_MID_MAX_C = 16   # kernel 18's widest tile from h = 1024 on (64 bytes a stream row)
+
+
+def packed_mid_cols(h: int, groups: int, cols: int, sms: int) -> int:
+    """Columns per tile of kernel 18 at half length h: below h = 1024
+    :func:`r2c_mid_cols` at n = 2h (:func:`~.fft.radix_mid_cols` at h, the
+    16-element form); from h = 1024 on the largest power of two up to
+    PACKED_MID_MAX_C whose tile a block takes in the 32- or 40-element form
+    (16 at h = 1024 and 1280, 8 to 2048, 4 to 4096, 2 to 10240, 1 above),
+    halved while the grid would leave SMs idle. (On an H100,
+    time_kernels.py --scan-cols and chip_smoke.py phase 5: at the Dirichlet
+    solve's (1, 1024, 1046529) 16 columns took 24% less time than
+    radix_mid_cols's 4, and at h = 1536 ... 4096 its rule's count ran
+    1.1-3.1x faster than the 16-element form's 1 or 2.)"""
+    if h < 1024:
+        return r2c_mid_cols(2 * h, groups, cols, sms)
+    c = PACKED_MID_MAX_C
+    while c > 1 and (h * c > RADIX_MAX_ELEMS or radix_cols_threads(h, c) > 2 * RADIX_MAX_THREADS):
+        c //= 2
+    while c > 1 and groups * -(-cols // c) < sms:
+        c //= 2
+    return c
+
+
+def r2c_packed_mid_launch(xe: torch.Tensor, xo: torch.Tensor, out: torch.Tensor, scale: float,
+                          c: int) -> None:
+    """Launch kernel 18 on the radix column tile, ``c`` columns a tile
+    (:func:`packed_mid_cols`), on the (B, h, L) float32 CUDA streams xe, xo
+    into the (B, h+1, L) complex64 out; counts nothing."""
+    nb, h, cols = xe.shape
+    dev = xe.device
+    plan = radix_plan(h)
+    with torch.cuda.device(dev):
+        err = _build.lib().ndfft_r2c_packed_mid_radix(
+            xe.data_ptr(), xo.data_ptr(), out.data_ptr(), device_radix(h, -1, dev).data_ptr(),
+            (ctypes.c_int * RADIX_MAX_STAGES)(*plan), len(plan), _device_tw(2 * h, dev).data_ptr(),
+            scale, nb, h, cols, c, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ndfft_r2c_packed_mid_radix")
 
 
 def r2c_packed_mid(xe: torch.Tensor, xo: torch.Tensor, scale=None) -> torch.Tensor:
     """scale * the R2C of length 2h along dim 1 of the column whose even
     samples are xe and whose odd samples are xo, two (B, h, L) float32
     tensors -> (B, h+1, L) complex64, h = 128 * F. A CPU tensor runs the
-    plain version; a CUDA tensor launches kernel 18 (on the fixed core for F
-    in {2, 4, 8, 16}, else on the wide core) or raises."""
+    plain version; a CUDA tensor launches kernel 18 on the radix column
+    tile, counted in ``launches`` and ``radix_launches``, or raises."""
     _check_mid(xe, torch.float32, "r2c_packed_mid")
     _check_mid(xo, torch.float32, "r2c_packed_mid")
     if xe.shape != xo.shape or xe.device != xo.device:
@@ -611,13 +664,15 @@ def r2c_packed_mid(xe: torch.Tensor, xo: torch.Tensor, scale=None) -> torch.Tens
     out = torch.empty((nb, h + 1, cols), dtype=torch.complex64, device=xe.device)
     if xe.numel() == 0:
         return out
-    _launch_packed_mid(r2c_packed_mid, (xe.data_ptr(), xo.data_ptr(), out.data_ptr()),
-                       xe.device, h, h, nb, cols, 1.0 if scale is None else float(scale))
+    r2c_packed_mid_launch(xe, xo, out, 1.0 if scale is None else float(scale),
+                          packed_mid_cols(h, nb, cols, num_sms(xe.device)))
+    r2c_packed_mid.launches += 1
+    r2c_packed_mid.radix_launches += 1
     return out
 
 
 r2c_packed_mid.launches = 0
-r2c_packed_mid.wide_launches = 0
+r2c_packed_mid.radix_launches = 0
 
 
 def dct1_mid(x: torch.Tensor, scale=None) -> torch.Tensor:
@@ -640,8 +695,7 @@ def dct1_mid(x: torch.Tensor, scale=None) -> torch.Tensor:
     h = n - 1
     ws = (None if h // M in CORE_F else
           torch.empty((nb, h, cols), dtype=torch.complex64, device=x.device))
-    _launch_packed_mid(dct1_mid, (x.data_ptr(), y.data_ptr()), x.device, h, n, nb, cols,
-                       1.0 if scale is None else float(scale), ws)
+    _launch_dct1_mid(x, y, h, 1.0 if scale is None else float(scale), ws)
     return y
 
 

@@ -156,14 +156,19 @@ def test_dense_consts_bit_identical_to_the_jax_tables(n, sign, scale):
 
 def test_rows_are_kernel_1_on_a_one_column_view():
     """The bts2 row tile (kernel 13's rows; kernel 10's until it moved onto
-    the radix row core) runs kernel 1's core and constants on rows: its
-    plain version is kernel 1's on a (T, n, 1) view, bit for bit. Kernel
-    10's plain version, the radix core's, agrees with it to float32."""
+    the radix row core) runs the bts2 column tile's core and constants
+    (kernel 7's body; kernel 1's until it moved onto the radix column tile)
+    on rows: its plain version is the column core's on a (T, n, 1) view, bit
+    for bit. Kernel 10's and kernel 1's plain versions, the radix core's,
+    agree with it to float32."""
     x = torch.from_numpy(_cplx(np.random.default_rng(4), (5, 1024)))
     rows = kfft._bts2_rows_plain(x, +1, 1 / 1024)
-    assert torch.equal(rows,
-                       kfft.c2c_axis_mid(x.reshape(5, 1024, 1), +1, 1 / 1024).reshape(5, 1024))
+    col = x.reshape(5, 1024, 1)
+    assert torch.equal(rows, kfft.bts2_plain(col, kfft.device_wq(1024, +1, 1 / 1024, col.device),
+                                             +1).reshape(5, 1024))
     _close(kfft.c2c_rows(x, +1, 1 / 1024).numpy(), rows.numpy(), TOL_HIGHEST)
+    _close(kfft.c2c_axis_mid(col, +1, 1 / 1024).reshape(5, 1024).numpy(), rows.numpy(),
+           TOL_HIGHEST)
 
 
 def test_c2c_wrappers_on_cpu_count_no_launch():

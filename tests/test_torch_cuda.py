@@ -341,17 +341,17 @@ def test_real_step_600_runs_on_the_generic_kernels(dev):
 
 
 def test_wide_kernels_match_plain(dev):
-    """Kernels 1 and 3 on the wide core and kernels 10, 2 and 15 at the same
-    F on the radix row core: odd, even and prime F (3, 5, 6, 9, 32, 127,
-    160), ragged column and row tiles, and one column or row per block at
-    n = 16256 and 20480."""
+    """Kernel 3 on the wide core, kernel 1 at the same F on the radix column
+    tile and kernels 10, 2 and 15 on the radix row core: odd, even and prime
+    F (3, 5, 6, 9, 32, 127, 160), ragged column and row tiles, and one
+    column or row per block at n = 16256 and 20480."""
     g = torch.Generator(device=dev).manual_seed(10)
 
     def crandn(*shape):
         return torch.view_as_complex(torch.randn(*shape, 2, generator=g, device=dev))
 
     fns = (kfft.c2c_axis_mid, kfft.c2c_rows, krfft.r2c_nat, krfft.c2r_nat, krfft.r2c_packed)
-    forms = ("wide_launches", "radix_launches", "radix_launches", "wide_launches",
+    forms = ("radix_launches", "radix_launches", "radix_launches", "wide_launches",
              "radix_launches")
     before = [getattr(f, a) for f, a in zip(fns, forms)]
     for shape in ((2, 768, 130), (1, 640, 129), (3, 384, 385), (1, 4096, 33), (1, 16256, 3),
@@ -456,16 +456,16 @@ def test_kernel10_and_kernel2_run_the_radix_row_core(dev):
 def test_real_step_768_runs_on_the_wide_kernels(dev):
     """The 768^2 real step with the real axis last: kernel 2 at h = 384
     (F = 3) on the radix row core, kernel 1 at (1, 768, 385) (F = 6) forward
-    and back and kernel 3 on the wide core."""
+    and back on the radix column tile and kernel 3 on the wide core."""
     g = torch.Generator(device=dev).manual_seed(11)
     x = torch.randn(768, 768, generator=g, device=dev)
     hr, hc = nd.R2cFftHandler(768), nd.FftHandler(768)
-    fns = (kfft.c2c_axis_mid, krfft.c2r_nat)
-    before = [(f.launches, f.wide_launches) for f in fns]
+    fns = ((kfft.c2c_axis_mid, "radix_launches"), (krfft.c2r_nat, "wide_launches"))
+    before = [(f.launches, getattr(f, a)) for f, a in fns]
     r2c = krfft.r2c_nat.launches, krfft.r2c_nat.radix_launches
     v = nd.ndfft(nd.ndfft_r2c(x, hr, axis=1), hc, axis=0)
     back = nd.ndifft_r2c(nd.ndifft(v, hc, axis=0), hr, axis=1)
-    assert [(f.launches - a, f.wide_launches - b) for f, (a, b) in zip(fns, before)] == \
+    assert [(f.launches - b0, getattr(f, a) - b1) for (f, a), (b0, b1) in zip(fns, before)] == \
         [(2, 2), (1, 1)]
     assert (krfft.r2c_nat.launches - r2c[0], krfft.r2c_nat.radix_launches - r2c[1]) == (1, 1)
     assert _rel(v.to(torch.complex128), torch.fft.rfftn(x.double())) <= 1e-5
@@ -539,12 +539,14 @@ def test_neumann_2d_runs_on_the_dct_kernels(dev):
 
 
 def test_packed_mid_kernels_match_plain_in_both_forms(dev):
-    """Kernels 18, 19 and 28 on the fixed core and on the wide core: ragged
-    column tiles, prime F = 131 (K28), the largest tiles (F = 160: one
-    column per tile), and K19's workspace."""
+    """Kernels 19 and 28 on the fixed core and on the wide core, kernel 18
+    on the radix column tile at the same h: ragged column tiles, prime
+    F = 131 (K28), the largest tiles (F = 160: one column per tile), and
+    K19's workspace."""
     g = torch.Generator(device=dev).manual_seed(13)
-    fns = (krfft.r2c_packed_mid, krfft.dct1_mid, kdct.dct4_mid)
-    before = [(f.launches, f.wide_launches) for f in fns]
+    fns = ((krfft.r2c_packed_mid, "radix_launches"), (krfft.dct1_mid, "wide_launches"),
+           (kdct.dct4_mid, "wide_launches"))
+    before = [(f.launches, getattr(f, a)) for f, a in fns]
     for shape in ((2, 256, 130), (1, 1024, 257), (3, 2048, 33), (1, 384, 385), (2, 1152, 130),
                   (1, 20480, 3)):
         xe = torch.randn(*shape, generator=g, device=dev)
@@ -562,8 +564,8 @@ def test_packed_mid_kernels_match_plain_in_both_forms(dev):
         x = torch.randn(*shape, generator=g, device=dev)
         for scale in (2.0, None):
             assert _rel(kdct.dct4_mid(x, scale), kdct.dct4_mid_plain(x, scale)) <= TOL, shape
-    assert [(f.launches - a, f.wide_launches - b) for f, (a, b) in zip(fns, before)] == \
-        [(12, 6), (10, 6), (14, 8)]
+    assert [(f.launches - b0, getattr(f, a) - b1) for (f, a), (b0, b1) in zip(fns, before)] == \
+        [(12, 12), (10, 6), (14, 8)]
 
 
 def test_dirichlet_pair_runs_on_the_kernels(dev):
@@ -1062,3 +1064,75 @@ def test_long_forms_match_plain(dev):
             assert _rel(kdct.dct4_mid(x, scale), kdct.dct4_mid_plain(x, scale)) <= TOL, n
     after = (kdct.dct4_mid.launches, kdct.dct4_mid.long_launches, kdct.dct4_mid.wide_launches)
     assert [a - b for a, b in zip(after, before)] == [6, 6, 0]
+
+
+def _tile_fits(n, c):
+    """A radix column tile of c columns of length n that a block takes."""
+    return n * c <= kfft.RADIX_MAX_ELEMS and kfft.radix_cols_threads(n, c) <= (
+        kfft.RADIX_MAX_THREADS if n * c <= kfft.RADIX_WIDE_N else 2 * kfft.RADIX_MAX_THREADS)
+
+
+def test_axis_mid_radix_kernel_matches_plain(dev):
+    """Kernel 1 on the radix column tile: each column count C = 1 ... 16 that
+    the tile allows, both loads (evict-first and read-only) at C <= 2, at
+    F = 3, 4, 5, 32, 160 with ragged L, both signs and the scale 1/n; the
+    wrapper at its main shapes (1, 512, 131584), (768, 768, 385) (the plain
+    version on the first 64 planes) and (1, 4096, 4096), every launch
+    counted as the radix form."""
+    g = torch.Generator(device=dev).manual_seed(40)
+
+    def crandn(*shape):
+        return torch.view_as_complex(torch.randn(*shape, 2, generator=g, device=dev))
+
+    for shape in ((3, 384, 130), (2, 512, 257), (1, 640, 129), (1, 4096, 33), (1, 20480, 5)):
+        x = crandn(*shape)
+        n = shape[1]
+        for sign, scale in ((-1, None), (+1, 1.0 / n)):
+            want = kfft.c2c_axis_mid_plain(x, sign, scale)
+            for c in (1, 2, 4, 8, 16):
+                if not _tile_fits(n, c):
+                    continue
+                for ldg in (False, True) if c <= 2 else (False,):
+                    got = torch.full_like(x, float("nan"))
+                    kfft.mid_radix_launch(x, got, sign, 1.0 if scale is None else scale, c, ldg)
+                    assert _rel(got, want) <= TOL, (shape, c, ldg, sign)
+    before = (kfft.c2c_axis_mid.launches, kfft.c2c_axis_mid.radix_launches)
+    for shape, cut in (((1, 512, 512 * 257), 1), ((768, 768, 385), 64), ((1, 4096, 4096), 1)):
+        x = crandn(*shape)
+        got = kfft.c2c_axis_mid(x, +1, 1.0 / shape[1])
+        assert _rel(got[:cut], kfft.c2c_axis_mid_plain(x[:cut], +1, 1.0 / shape[1])) <= TOL, shape
+        del x, got
+    assert (kfft.c2c_axis_mid.launches - before[0],
+            kfft.c2c_axis_mid.radix_launches - before[1]) == (3, 3)
+
+
+def test_packed_mid_radix_kernel_matches_plain(dev):
+    """Kernel 18 on the radix column tile: each column count C = 1 ... 32
+    that the tile allows at h = 256, 384, 1024, 1536 and 10240 (DST-I at
+    n = 20479) with ragged L, the scales None and -0.5; the wrapper at its
+    main shapes (1023, 1024, 1023) (the plain version on the first 16
+    planes) and (1, 1536, 1535), every launch counted as the radix form."""
+    g = torch.Generator(device=dev).manual_seed(41)
+    for shape in ((2, 256, 130), (1, 384, 383), (1, 1024, 257), (1, 1536, 129),
+                  (1, 10240, 130)):
+        xe = torch.randn(*shape, generator=g, device=dev)
+        xo = torch.randn(*shape, generator=g, device=dev)
+        h = shape[1]
+        out = torch.empty((shape[0], h + 1, shape[2]), dtype=torch.complex64, device=dev)
+        for scale in (None, -0.5):
+            want = krfft.r2c_packed_mid_plain(xe, xo, scale)
+            for c in (1, 2, 4, 8, 16, 32):
+                if not _tile_fits(h, c):
+                    continue
+                out.fill_(float("nan"))
+                krfft.r2c_packed_mid_launch(xe, xo, out, 1.0 if scale is None else scale, c)
+                assert _rel(out, want) <= TOL, (shape, c, scale)
+    before = (krfft.r2c_packed_mid.launches, krfft.r2c_packed_mid.radix_launches)
+    for shape, cut in (((1023, 1024, 1023), 16), ((1, 1536, 1535), 1)):
+        xe = torch.randn(*shape, generator=g, device=dev)
+        xo = torch.randn(*shape, generator=g, device=dev)
+        got = krfft.r2c_packed_mid(xe, xo, -0.5)
+        assert _rel(got[:cut], krfft.r2c_packed_mid_plain(xe[:cut], xo[:cut], -0.5)) <= TOL
+        del xe, xo, got
+    assert (krfft.r2c_packed_mid.launches - before[0],
+            krfft.r2c_packed_mid.radix_launches - before[1]) == (2, 2)

@@ -2,9 +2,9 @@
 DCT-IV along a middle axis) against the JAX package's Pallas kernels in
 interpret mode on the CPU, where the wrappers run their plain versions:
 
-* ``r2c_packed_mid`` against ``r2c_pallas_packed_mid`` at h = 256 (the
-  fixed core, F = 2), 384 (the wide core, F = 3) and 1024 (F = 8), with
-  scale -0.5 (DST-I's) and 1;
+* ``r2c_packed_mid`` (on the radix column tile) against
+  ``r2c_pallas_packed_mid`` at h = 256 (F = 2), 384 (F = 3) and 1024
+  (F = 8), with scale -0.5 (DST-I's) and 1;
 * ``dct1_mid`` against ``dct1_pallas_mid`` at n = 1153 (the wide core,
   F = 9) and 2049 (the fixed core, F = 16);
 * ``dct4_mid`` against ``dct4_pallas_mid`` at n = 1280 (wide, F = 5), 1536
@@ -232,18 +232,20 @@ def test_packed_mid_wrappers_reject_other_types():
 
 
 def test_wrappers_on_cpu_count_no_launch():
-    fns = (krfft.r2c_packed_mid, krfft.dct1_mid, kdct.dct4_mid)
-    before = [(f.launches, f.wide_launches) for f in fns]
+    fns = ((krfft.r2c_packed_mid, "radix_launches"), (krfft.dct1_mid, "wide_launches"),
+           (kdct.dct4_mid, "wide_launches"))
+    before = [(f.launches, getattr(f, a)) for f, a in fns]
     krfft.r2c_packed_mid(torch.zeros(1, 384, 3), torch.zeros(1, 384, 3), -0.5)
     krfft.dct1_mid(torch.zeros(1, 1153, 3))
     kdct.dct4_mid(torch.zeros(1, 2048, 3), 2.0)
-    assert [(f.launches, f.wide_launches) for f in fns] == before
+    assert [(f.launches, getattr(f, a)) for f, a in fns] == before
 
 
 def test_tile_sizes_of_the_paths():
-    # the 1023^3 Dirichlet solve: K18 at h = 1024 (8 columns of 64 KB)
-    assert kfft.block_cols(1024, 1023, 1023, 132) == 8
-    assert kfft.block_cols(1024, 1, 1023 * 1023, 132) == 8
+    # the 1023^3 Dirichlet solve: K18 at h = 1024 on the radix column tile
+    # (16 columns, 64 bytes a stream row)
+    assert krfft.packed_mid_cols(1024, 1023, 1023, 132) == 16
+    assert krfft.packed_mid_cols(1024, 1, 1023 * 1023, 132) == 16
     # the 2049^2 x 257 Neumann solve: K19 at h = 2048 (4 columns)
     assert kfft.block_cols(2048, 2049, 257, 132) == 4
     # K19 wide at 1153 (h = 1152, F = 9) and 20481 (one column per tile)

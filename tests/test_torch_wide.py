@@ -1,6 +1,7 @@
-"""The bts2 core at any butterfly factor (the wide core of kernels 1 and 3,
-n = 128 * F with F outside the fixed core's factors; kernels 10 and 2/15 at
-those F run the mixed-radix row core) against the JAX package on the CPU:
+"""The bts2 core at any butterfly factor (the wide core of kernel 3, n =
+128 * F with F outside the fixed core's factors; kernel 1 at those F runs
+the mixed-radix column tile, kernels 10 and 2/15 its row core) against the
+JAX package on the CPU:
 
 * the plain versions of ``c2c_rows``, ``c2c_axis_mid``, ``r2c_nat``,
   ``c2r_nat`` and ``r2c_packed`` against ``c2c_pallas``,
@@ -89,7 +90,8 @@ def test_rows_plain_matches_pallas_twostep(t, n, sign, scale):
                                               ((2, 640, 129), +1, "inv_n"),
                                               ((1, 16256, 128), -1, None)])
 def test_mid_plain_matches_pallas_bts2(shape, sign, scale):
-    """Kernel 1 at F = 6, 5 and the prime 127 (no butterfly at all)."""
+    """Kernel 1 at F = 6, 5 and the prime 127 (its radix plan's last stage is
+    the prime 127) against the JAX package's bts2 body."""
     assert ref_pfft.mid_kernel_kind(shape[1]) == "bts2"
     x = _cplx(shape, sum(shape) + sign)
     s = 1.0 / shape[1] if scale else None
@@ -178,9 +180,10 @@ def test_wide_wrappers_reject_what_the_kernels_do_not_take(call):
 
 
 def test_wide_wrappers_on_cpu_count_no_launch():
-    fns = (kfft.c2c_axis_mid, krfft.c2r_nat)
+    fns = (krfft.c2r_nat,)
     before = [(f.launches, f.wide_launches) for f in fns]
-    radix = (kfft.c2c_rows, krfft.r2c_nat, krfft.r2c_packed)   # kernels 10, 2, 15
+    radix = (kfft.c2c_axis_mid, kfft.c2c_rows, krfft.r2c_nat,
+             krfft.r2c_packed)   # kernels 1, 10, 2, 15
     rows = [(f.launches, f.radix_launches) for f in radix]
     kfft.c2c_axis_mid(torch.zeros(1, 384, 3, dtype=C64), -1)
     kfft.c2c_rows(torch.zeros(3, 640, dtype=C64), +1, 0.5)

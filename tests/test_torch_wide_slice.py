@@ -80,8 +80,7 @@ def test_c2c_matches_reference(shape, axis, route, norm):
     ph = port.FftHandler.from_reference(rh)
     x = _cplx(shape)
     kern = kfft.c2c_rows if axis == 1 else kfft.c2c_axis_mid
-    form = "radix_launches" if axis == 1 else "wide_launches"      # F = 3, 32: not the fixed core
-    counts = engine.c2c.calls, kern.launches, getattr(kern, form)
+    counts = engine.c2c.calls, kern.launches, kern.radix_launches   # both on the radix core
     got = port.ndfft(torch.from_numpy(x), ph, axis=axis)
     want = ref.ndfft(jnp.asarray(x), rh, axis=axis)
     _close(got, want)
@@ -90,7 +89,7 @@ def test_c2c_matches_reference(shape, axis, route, norm):
     if norm == "default":
         _close(back, x)
     # a CPU tensor: the kernel's plain version, no launch, no engine
-    assert (engine.c2c.calls, kern.launches, getattr(kern, form)) == counts
+    assert (engine.c2c.calls, kern.launches, kern.radix_launches) == counts
 
 
 def test_real_rows_match_reference():
@@ -151,7 +150,7 @@ def test_step_768_axes_matches_reference():
     rh = (ref.R2cFftHandler(n2), ref.FftHandler(n1), ref.FftHandler(n0))
     ph = tuple(type_.from_reference(h) for type_, h in
                zip((port.R2cFftHandler, port.FftHandler, port.FftHandler), rh))
-    kernels = ((krfft.r2c_nat, "radix_launches"), (kfft.c2c_axis_mid, "wide_launches"),
+    kernels = ((krfft.r2c_nat, "radix_launches"), (kfft.c2c_axis_mid, "radix_launches"),
                (krfft.c2r_nat, "wide_launches"))
     counts = engine.c2c.calls, [(k.launches, getattr(k, a)) for k, a in kernels]
     want = _fwd3(ref, jnp.asarray(x), rh)

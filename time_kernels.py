@@ -34,15 +34,42 @@ rfft2d protocol's forward (ndfft_r2c along axis 0 of n x n, n = 128, 264,
 steps with the real axis first (ndfft_r2c along axis 0, ndfft along axes 1
 and 2, and back) beside torch.fft.rfftn + irfftn over dims (1, 2, 0).
 
+With --axis-mid it times instead kernel 1 (c2c_axis_mid) at (1, 512,
+131584), (768, 768, 385), (1, 4096, 4096) and (1024, 1024, 513) beside
+torch.fft.fft(dim=1), kernel 18 (r2c_packed_mid, scale -0.5) at (1023, 1024,
+1023), (1, 1024, 1046529) and (1, 1536, 1535) beside torch.fft.rfft of the
+interleaved column, and the paths that run them: the 4096^2 complex round
+trip (ndfft along axes 1 and 0, ndifft back) beside torch.fft.fftn + ifftn,
+the 512^3 real step with the real axis first and the 768^3 one with the
+real axis last beside torch.fft.rfftn + irfftn, the 1023^3 DST-I pair
+(dstn, idstn of type 1) beside the same through torch.fft.rfft of each
+axis's odd extension, and S1's 1024^3 periodic Poisson solve (ndfft_r2c
+along axis 2, ndfft along axis 1, ndspectral_c2c with a real 1/|k|^2 along
+axis 0, and back) beside torch.fft.rfftn * G + irfftn, the large ones over
+--reps-big runs. It uses only public wrappers, so --root may name the
+parent tree.
+
 With --scan-rows it times instead the radix row core's launches at each
 count of rows a block that fits 256 threads (ms by rows, beside the count
 that fft.py::radix_block picks), over 2^27 elements: the C2C of rows of n
 (kernels 10 and 8) and the R2C of rows of 2h (kernels 2 and 15) at the
 lengths that --scan-n and --scan-h name.
+
+With --scan-cols it times instead kernels 1 and 18 on the radix column
+tile at each column count C that fits (kernel 1 also with the read-only
+load at C <= 2), beside the count and load that fft.py::axis_mid_tile and
+rfft.py::packed_mid_cols pick, at kernel 1's shapes (1, 512, 131584),
+(512, 512, 512), (1024, 1024, 513), (768, 768, 385), (1, 768, 295680),
+(1, 2048, 65536), (1, 4096, 4096), (1, 8192, 2048) and (1, 20480, 130) and
+kernel 18's (1023, 1024, 1023), (1, 1024, 1046529), (1, 1536, 1535) and
+(1, 10240, 130); or, with --cols-n and --cols-h, kernel 1 at (1, n, 2^26 / n)
+and (b, n, b + 1), b = isqrt(2^26 / n), and kernel 18 at (1, h, 2^27 / h) and
+(b, h, b - 1), b = isqrt(2^27 / h), for the lengths they name.
 """
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -56,6 +83,10 @@ def main() -> int:
     ap.add_argument("--reps-big", type=int, default=5)
     ap.add_argument("--scan-rows", action="store_true")
     ap.add_argument("--r2c-mid", action="store_true")
+    ap.add_argument("--axis-mid", action="store_true")
+    ap.add_argument("--scan-cols", action="store_true")
+    ap.add_argument("--cols-n", type=int, nargs="*", default=[])
+    ap.add_argument("--cols-h", type=int, nargs="*", default=[])
     ap.add_argument("--scan-n", type=int, nargs="*", default=[
         264, 300, 384, 500, 512, 600, 640, 768, 896, 1000, 1024, 1152, 1280, 1536, 1792, 2048])
     ap.add_argument("--scan-h", type=int, nargs="*", default=[128, 256, 300, 384, 512, 640, 768,
@@ -116,7 +147,18 @@ def main() -> int:
                 del x
         print(json.dumps({"root": root, "card": card, "rows_scan": scan}), flush=True)
         return 0
+    if args.scan_cols:
+        k1 = [s for n in args.cols_n for b in [math.isqrt((1 << 26) // n)]
+              for s in ((1, n, (1 << 26) // n), (b, n, b + 1))]
+        k18 = [s for h in args.cols_h for b in [math.isqrt((1 << 27) // h)]
+               for s in ((1, h, (1 << 27) // h), (b, h, b - 1))]
+        return scan_cols(torch, kfft, krfft, dev, gen, crandn, ms, card, root, k1 or K1_SHAPES,
+                         k18 or K18_SHAPES)
     out = {}
+    if args.axis_mid:
+        axis_mid(torch, nd, kfft, krfft, dev, gen, crandn, ms, args.reps_big, out)
+        print(json.dumps({"root": root, "card": card, "ms_and_torch_fft_ms": out}), flush=True)
+        return 0
     if args.r2c_mid:
         for name, fn, shapes in (
                 ("r2c_dense_mid", krfft.r2c_dense_mid, ((1, 256, 65536), (1, 264, 264),
@@ -228,6 +270,137 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(json.dumps({"root": root, "card": card, "ms_and_torch_fft_ms": out}), flush=True)
     return 0
+
+
+def tile_fits(kfft, n, c):
+    """A radix column tile of c columns of length n that a block takes."""
+    return n * c <= kfft.RADIX_MAX_ELEMS and kfft.radix_cols_threads(n, c) <= (
+        kfft.RADIX_MAX_THREADS if n * c <= kfft.RADIX_WIDE_N else 2 * kfft.RADIX_MAX_THREADS)
+
+
+K1_SHAPES = ((1, 512, 131584), (512, 512, 512), (1024, 1024, 513), (768, 768, 385),
+             (1, 768, 295680), (1, 2048, 65536), (1, 4096, 4096), (1, 8192, 2048),
+             (1, 20480, 130))
+K18_SHAPES = ((1023, 1024, 1023), (1, 1024, 1046529), (1, 1536, 1535), (1, 10240, 130))
+
+
+def scan_cols(torch, kfft, krfft, dev, gen, crandn, ms, card, root, k1_shapes, k18_shapes):
+    """Kernels 1 and 18 at each column count C (and load) that fits."""
+    sms = kfft.num_sms(dev)
+    scan = {}
+    for shape in k1_shapes:
+        nb, n, cols = shape
+        x = crandn(*shape)
+        y = torch.empty_like(x)
+        by = {}
+        for c in (1, 2, 4, 8, 16, 32):
+            if not tile_fits(kfft, n, c):
+                continue
+            for ldg in (False, True) if c <= 2 else (False,):
+                by[f"{c}{'_ldg' if ldg else ''}"] = ms(
+                    lambda: kfft.mid_radix_launch(x, y, -1, 1.0, c, ldg))
+        c, ldg = kfft.axis_mid_tile(n, nb, cols, sms)
+        scan["c2c_axis_mid_" + "x".join(map(str, shape))] = {
+            "ms_by_cols_per_tile": by, "chosen": f"{c}{'_ldg' if ldg else ''}",
+            "torch_fft_ms": ms(lambda: torch.fft.fft(x, dim=1))}
+        del x, y
+        torch.cuda.empty_cache()
+    for shape in k18_shapes:
+        nb, h, cols = shape
+        xe = torch.randn(*shape, generator=gen, device=dev)
+        xo = torch.randn(*shape, generator=gen, device=dev)
+        out = torch.empty((nb, h + 1, cols), dtype=torch.complex64, device=dev)
+        by = {c: ms(lambda: krfft.r2c_packed_mid_launch(xe, xo, out, -0.5, c))
+              for c in (1, 2, 4, 8, 16, 32) if tile_fits(kfft, h, c)}
+        scan["r2c_packed_mid_" + "x".join(map(str, shape))] = {
+            "ms_by_cols_per_tile": by, "chosen": krfft.packed_mid_cols(h, nb, cols, sms)}
+        del xe, xo, out
+        torch.cuda.empty_cache()
+    print(json.dumps({"root": root, "card": card, "cols_scan": scan}), flush=True)
+    return 0
+
+
+def axis_mid(torch, nd, kfft, krfft, dev, gen, crandn, ms, reps_big, out):
+    """Kernels 1 and 18 at their main shapes and the paths that run them."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def key(name, shape):
+        return name + "_" + "x".join(map(str, shape))
+
+    for shape in ((1, 512, 131584), (768, 768, 385), (1, 4096, 4096), (1024, 1024, 513)):
+        x = crandn(*shape)
+        out[key("c2c_axis_mid", shape)] = (ms(lambda: kfft.c2c_axis_mid(x, -1)),
+                                           ms(lambda: torch.fft.fft(x, dim=1)))
+        del x
+    torch.cuda.empty_cache()
+    for shape in ((1023, 1024, 1023), (1, 1024, 1046529), (1, 1536, 1535)):
+        nb, h, cols = shape
+        xe, xo = randn(*shape), randn(*shape)
+        col = torch.stack([xe, xo], dim=2).reshape(nb, 2 * h, cols)
+        reps = reps_big if xe.numel() > 1 << 28 else None
+        out[key("r2c_packed_mid", shape)] = (
+            ms(lambda: krfft.r2c_packed_mid(xe, xo, -0.5), reps),
+            ms(lambda: torch.fft.rfft(col, dim=1), reps))
+        del xe, xo, col
+        torch.cuda.empty_cache()
+    x = crandn(4096, 4096)
+    h = nd.FftHandler(4096)
+    out["c2c_fftn_ifftn_4096^2"] = (
+        ms(lambda: nd.ndifft(nd.ndifft(nd.ndfft(nd.ndfft(x, h, axis=1), h, axis=0), h, axis=0),
+                             h, axis=1)),
+        ms(lambda: torch.fft.ifftn(torch.fft.fftn(x))))
+    del x
+    for n, first in ((512, True), (768, False)):
+        r = randn(n, n, n)
+        hr, hc = nd.R2cFftHandler(n), nd.FftHandler(n)
+        a, b, c = (0, 1, 2) if first else (2, 1, 0)
+
+        def step():
+            v = nd.ndfft(nd.ndfft(nd.ndfft_r2c(r, hr, axis=a), hc, axis=b), hc, axis=c)
+            return nd.ndifft_r2c(nd.ndifft(nd.ndifft(v, hc, axis=c), hc, axis=b), hr, axis=a)
+
+        dims = (1, 2, 0) if first else (0, 1, 2)
+        s = tuple(r.shape[d] for d in dims)
+        out[f"step_real_axis_{'first' if first else 'last'}_{n}^3"] = (
+            ms(step, reps_big), ms(lambda: torch.fft.irfftn(torch.fft.rfftn(r, dim=dims), s=s,
+                                                             dim=dims), reps_big))
+        del r
+        torch.cuda.empty_cache()
+    n = 1023
+    f = randn(n, n, n)
+
+    def dst1_torch(x, axis):
+        xm = x.movedim(axis, -1)
+        z = torch.zeros_like(xm[..., :1])
+        ext = torch.cat([z, xm, z, -xm.flip(-1)], dim=-1)
+        return (-torch.fft.rfft(ext).imag[..., 1:n + 1]).movedim(-1, axis)
+
+    out["dstn_idstn_1023^3"] = (
+        ms(lambda: nd.idstn(nd.dstn(f, 1), 1), reps_big),
+        ms(lambda: dst1_torch(dst1_torch(dst1_torch(dst1_torch(dst1_torch(dst1_torch(
+            f, 0), 1), 2), 0), 1), 2), reps_big))
+    del f
+    torch.cuda.empty_cache()
+    n = 1024
+    f = randn(n, n, n)
+    kc = torch.fft.fftfreq(n, 1.0 / n, device=dev) ** 2
+    kr = torch.arange(n // 2 + 1, device=dev, dtype=torch.float32) ** 2
+    g = (kc[:, None, None] + kc[None, :, None] + kr[None, None, :]).reciprocal_()
+    g[0, 0, 0] = 0.0
+    hr, hc = nd.R2cFftHandler(n), nd.FftHandler(n)
+
+    def s1():
+        b = nd.ndfft(nd.ndfft_r2c(f, hr, axis=2), hc, axis=1)
+        c = nd.ndspectral_c2c(b, g, hc, axis=0)
+        del b
+        return nd.ndifft_r2c(nd.ndifft(c, hc, axis=1), hr, axis=2)
+
+    out["S1_periodic_poisson_1024^3"] = (
+        ms(s1, reps_big), ms(lambda: torch.fft.irfftn(torch.fft.rfftn(f).mul_(g), s=f.shape),
+                             reps_big))
+    del f, g
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
