@@ -58,9 +58,9 @@ without the final line):
         600^2, DCT-IV of 1000^2 along the last axis, and the DCT-IV/DST-IV
         composite along axis 0 of 1200 x 600 (kernel 6), against float64
         torch.fft / scipy.fft;
-     g. the bts2 core at any butterfly factor (the wide core of kernel 3;
-        kernels 10 and 2/15 at those F on the radix row core, kernel 1 on
-        the radix column tile): the
+     g. the lengths the bts2 wide core took (kernels 10, 2/15 and 3 at
+        those F on the radix row core, kernel 1 on the radix column tile):
+        the
         768^3 real step with the real axis last (kernel 2 at h = 384, F = 3;
         kernel 1 at F = 6 four times; kernel 3) against torch.fft.rfftn in float64
         (oracle only), with the round trip; the 4096^2 complex round trip
@@ -73,8 +73,8 @@ without the final line):
         extension to 640 (kernel 10 inside), against float64 torch.fft /
         scipy.fft;
      h. DCT-II/III on every axis at every length (kernels 25/26 along a
-        middle axis, kernels 23/24 and 16/17 on the wide core and in the
-        n-point form): the 3-D Neumann Poisson solve at 1536^3 float32
+        middle axis, kernels 23/24 on the wide core and in the n-point
+        form): the 3-D Neumann Poisson solve at 1536^3 float32
         (DCT-II along axes 2, 1, 0 on K23 and K25 at h = 768, F = 6;
         division by the eigenvalues in place, slab by slab; DCT-III back on
         K26 and K24), its forward spectrum against the exact sparse values
@@ -83,7 +83,7 @@ without the final line):
         core), nddct2/nddct3 along axis 0 at 1152 (n-point) and 1280
         (wide) and along the last axis at 128, 384 (n-point) and 768
         (wide), nddst2 along axis 0 at 1536, and the R2C/C2R along axis 0
-        at 768 and 1280 (K16/K17 wide) against float64 scipy.fft /
+        at 768 and 1280 (K16/K17 at F = 3, 5) against float64 scipy.fft /
         torch.fft; then each kernel of the solve at its 1536^3 shape
         against its plain version on the same input, slice by slice (the
         plain version does not fit whole), their times, and the solve's
@@ -123,8 +123,8 @@ without the final line):
         last axis (ndfft / ndifft: K7 fixed and K13 fixed, F = 8, split
         (1024, 1024)) against complex128 torch.fft.fft on a slice of rows
         and the round trip, its time and peak memory against torch.fft.fft
-        + ifft; the 32768^2 real spectral step (K2 on the radix row core
-        and K3 wide at h = 16384; the
+        + ifft; the 32768^2 real spectral step (K2 and K3 on the radix row
+        core at h = 16384; the
         C2C along axis 0 on the four-step (256, 128): K7 dense at
         (16385, 256, 128), K13 wide, F = 1) against float64
         torch.fft.rfftn with the round trip, its time against
@@ -212,6 +212,13 @@ without the final line):
         (1, n, 130) at each of the 153 that they send to kernel 18
         (R2C_PACKED_MID, n = 255 ... 20479) against scipy's DST-I through
         float64 torch.fft (oracles only), within 1e-6 of the oracle's peak;
+     u. the census of kernels 3 and 17 on the radix core: ndifft_r2c along
+        the last axis of (128, h + 1) at each of the 153 half lengths that
+        the gates send to kernel 3 (C2R_NAT, h = 256 ... 20480) and along
+        axis 1 of (1, h + 1, 130) at each of the 153 that they send to
+        kernel 17 (C2R_MID), the DC and Nyquist imaginary parts to be
+        ignored, against torch.fft.irfft in float64 (oracle only), within
+        1e-6 of the oracle's peak;
   5. times with CUDA events (median over --reps runs after warm-up): each
      kernel against its plain version and, where one PyTorch call computes
      the same function, that call (the yardstick, never on the port's
@@ -243,20 +250,24 @@ without the final line):
      (1, 512, 131584), (1024, 1024, 513), (768, 768, 385), (1, 2048, 65536),
      (1, 4096, 4096), (1, 8192, 2048) and (1, 20480, 130) with each column
      count C and, at C <= 2, each load (evict-first, read-only), beside
-     torch.fft.fft, and kernel 18 at (1023, 1024, 1023), (1, 1024, 1046529)
-     and (1, 1536, 1535) with each column count C.
+     torch.fft.fft, kernel 18 at (1023, 1024, 1023), (1, 1024, 1046529)
+     and (1, 1536, 1535) with each column count C, kernel 3 on the radix
+     row core at (262144, 257), (589824, 385) and (32768, 16385) with each
+     count of rows a block, and kernel 17 on the radix column tile at
+     (1, 257, 262144), (512, 257, 512) and (1, 641, 1280) with each column
+     count C, each beside torch.fft.irfft.
 The kernels line gives each kernel's launches on its main path, its largest
 error against its plain version, its times, and its bound: the larger of
 the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its FP32 operations over 67 TFLOP/s (H100 SXM data
 sheet, 700 W). Its launches are the sum over the main paths of phase 4;
-kernels 3, 12, 13, 14, 17, 19, 22 and 28 on the
-bts2 core are two rows each, the fixed core (launches - wide_launches) and the wide
-one (wide_launches; K11 and K12 rows also give the bound of their two
-length-M FFTs per column, ``length_m_bound_ms``); kernels 10, 2 and 15
+kernels 12, 13, 14, 19 and 22 on the bts2 core are two rows each, the
+fixed core (launches - wide_launches) and the wide one (wide_launches;
+K11 and K12 rows also give the bound of their two length-M FFTs per
+column, ``length_m_bound_ms``); kernels 10, 2, 3 and 15
 (``r2c_packed`` at h = 128 F), kernel 8 (its rows at n <= 256
 counted in c2c_dense_rows.radix_launches as well, above in
-``c2c_generic_rows``), kernels 1, 6, 4, 11, 16 and 18 (each counted in
+``c2c_generic_rows``), kernels 1, 6, 4, 11, 16, 17 and 18 (each counted in
 radix_launches as well) and kernel 15's generic form
 (``r2c_packed_generic``) run on the radix core, one row each; kernel 20
 two: the radix column tile (``r2c_dense_mid_radix``, radix_launches) and
@@ -289,14 +300,15 @@ TOL_STEP = 1e-5      # step vs float64 oracle and round trip, relative
 # the forms that a wrapper counts apart beside ``launches`` (which counts
 # every launch): ``wide_launches``, for the DCT-II/III kernels
 # ``npoint_launches``, for kernel 7 ``dense_launches``, for kernel 28
-# ``long_launches`` and for kernels 1, 10, 2, 15 (``r2c_packed``), 11, 8
-# (``c2c_dense_rows``), 6, 4, 16, 18 and 20 ``radix_launches``
+# ``long_launches`` and for kernels 1, 10, 2, 3, 15 (``r2c_packed``), 11, 8
+# (``c2c_dense_rows``), 6, 4, 16, 17, 18 and 20 ``radix_launches``
 FORMS = ("wide", "npoint", "dense", "long", "radix")
 # the wrappers whose every launch is on the radix core: their
 # ``radix_launches`` equal their ``launches``
 RADIX_ONLY = ("c2c_axis_mid", "c2c_rows", "r2c_nat", "r2c_packed", "c2c_dense_rows",
-              "c2c_generic_mid", "c2c_dense_mid", "c2c_blue_mid", "r2c_mid", "r2c_packed_mid")
-TOL_CENSUS = 1e-6    # the radix column tile's censuses (phases 4r, 4s and 4t)
+              "c2c_generic_mid", "c2c_dense_mid", "c2c_blue_mid", "r2c_mid", "r2c_packed_mid",
+              "c2r_nat", "c2r_mid")
+TOL_CENSUS = 1e-6    # the radix core's censuses (phases 4r, 4s, 4t and 4u)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, 700 W
 FP32_FLOP_PER_S = 67e12     # FP32 outside the tensor cores, same source
 
@@ -355,7 +367,9 @@ def work(name: str, shape, length_m: bool = False, mult=None):
     its two (B, h, L) streams;
     kernels 2 and 15 (the radix row core with the unpack epilogue) read the
     (T, 2h) float32 rows, the radix table of h and the unpack twiddle and
-    write (T, h + 1) complex64. The four-step's kernel 7 on
+    write (T, h + 1) complex64, and kernels 3 and 17 (the C2R on the radix
+    core) read the (h + 1)-bin spectra, the radix table of h and the (h, 4)
+    ab rows and write the 2h reals. The four-step's kernel 7 on
     (B, n1, n2) reads x and the (n1, n2) exit twiddle and writes y, and does an n1-point complex FFT
     per column and a complex product (6 FLOPs) per element; its tables are
     its body's (the core's Wq at n1, or the dense body's (n1, n1) matrix).
@@ -439,16 +453,16 @@ def work(name: str, shape, length_m: bool = False, mult=None):
             io += 16 * b * core * cols if name.startswith("dct1") else 0
         flops = (5 * core * math.log2(core) if k28 else 2.5 * 2 * core * math.log2(2 * core))
         return io + tables, flops * b * cols
-    if name.endswith("_wide"):
-        base = name[:-len("_wide")]
-        nbytes, flops = work(base, shape)
-        length = shape[1] - 1 if base in ("c2r_nat", "c2r_mid") else shape[1]
-        f = length // 128
-        return nbytes + 8 * f * f, flops
-    if name == "c2r_nat":
-        t, w = shape
-        n = 2 * (w - 1)
-        return 4 * t * n + 8 * t * (n // 2 + 1) + 8 * n * 64, 2.5 * n * math.log2(n) * t
+    if name in ("c2r_nat", "c2r_mid"):
+        # K3 and K17 on the radix core: the (T, h + 1) or (B, h + 1, L)
+        # spectrum in, (T, 2h) or (B, 2h, L) float32 out, the inverse radix
+        # table of h and the (h, 4) ab rows
+        from ndrustfft_tpu_torch.ops.hopper.fft import radix_consts
+        h = shape[1] - 1
+        transforms = math.prod(shape) // (h + 1)
+        return (8 * transforms * (h + 1) + 8 * transforms * h
+                + 8 * len(radix_consts(h, 1)[0]) + 16 * h,
+                2.5 * 2 * h * math.log2(2 * h) * transforms)
     if name == "r2c_packed_dense":
         t, n = shape            # kernel 20's (n, 2m) float32 table
         m = n // 2 + 1
@@ -463,15 +477,12 @@ def work(name: str, shape, length_m: bool = False, mult=None):
         table = (8 * len(radix_consts(n, -1)[0]) if n % 2 else
                  8 * len(radix_consts(n // 2, -1)[0]) + 8 * (n // 2))
         return 4 * b * n * cols + 8 * b * m * cols + table, 2.5 * n * math.log2(n) * b * cols
-    if name in ("c2r_mid", "r2c_dense_mid", "c2r_dense_mid"):
+    if name in ("r2c_dense_mid", "c2r_dense_mid"):
         b, w, cols = shape      # (B, n, L) real in, or (B, m, L) spectrum in
         n = w if name.startswith("r2c") else 2 * (w - 1)
         m = n // 2 + 1
-        if name.endswith("dense_mid"):
-            table = 4 * n * 2 * m
-        else:                   # wq, then the (h, 4) ab rows
-            table = 8 * (n // 2) * 128 + 16 * (n // 2)
-        return 4 * b * n * cols + 8 * b * m * cols + table, 2.5 * n * math.log2(n) * b * cols
+        return (4 * b * n * cols + 8 * b * m * cols + 4 * n * 2 * m,
+                2.5 * n * math.log2(n) * b * cols)
     if name in ("c2c_axis_mid", "c2c_rows", "c2c_generic_rows", "c2c_dense_rows",
                 "c2c_generic_mid", "c2c_dense_mid"):
         from ndrustfft_tpu_torch.ops.hopper.fft import radix_consts
@@ -605,7 +616,7 @@ def main() -> int:
             "r2c_mid": 0.0, "c2r_mid": 0.0, "r2c_dense_mid": 0.0, "c2r_dense_mid": 0.0,
             "r2c_packed": 0.0, "r2c_packed_dense": 0.0, "c2c_generic_rows": 0.0,
             "c2c_generic_mid": 0.0, "r2c_packed_generic": 0.0,
-            "c2r_nat_wide": 0.0, "r2c_dense_mid_radix": 0.0, "c2r_mid_wide": 0.0,
+            "r2c_dense_mid_radix": 0.0,
             "dct2_nat_wide": 0.0, "dct3_nat_wide": 0.0, "dct2_nat_npoint": 0.0,
             "dct3_nat_npoint": 0.0, "dct2_mid": 0.0, "dct3_mid": 0.0, "dct2_mid_wide": 0.0,
             "dct3_mid_wide": 0.0, "dct2_mid_npoint": 0.0, "dct3_mid_npoint": 0.0,
@@ -891,6 +902,62 @@ def main() -> int:
             del ref
         del xe, xo, y
 
+    # kernel 3 on the radix row core at each count of rows a block and
+    # kernel 17 on the radix column tile at each column count C that phase
+    # 5 times (the wrappers take fft.py::radix_block's and
+    # rfft.py::c2r_mid_cols's): h = 256, 384, 16384 and 20480 (one row or column a
+    # tile, 32 and 40 elements a thread), the main paths' spectra (phase 5's
+    # shapes, the plain version on a slice of 64 rows or 16 planes), ragged
+    # rows and L, the scales 1/n and None; the spectra carry DC and Nyquist
+    # imaginary parts that must be ignored
+    for t, h, counts in ((131, 256, (1, 2, 4, 8, 16)), (7, 384, (1, 2, 3, 4, 5, 10)),
+                         (2, 16384, (1,)), (2, 20480, (1,)), (512 * 512, 256, (1, 2, 4, 8)),
+                         (768 * 768, 384, (1, 2, 3, 4, 6, 8, 10))):
+        n = 2 * h
+        s = crandn(t, h + 1)
+        s[:, 0] += 100j
+        s[:, -1] += 100j
+        cut = min(t, 64)
+        for scale in (1.0 / n, None):
+            ref = krfft.c2r_nat_plain(s[:cut], n, scale)
+            for rows in counts:
+                got = krfft.c2r_radix_launch(s, n, scale, rows)[:cut]
+                torch.cuda.synchronize()
+                rel = abs_err(got, ref) / float(ref.abs().max())
+                errs["c2r_nat"] = max(errs["c2r_nat"], abs_err(got, ref))
+                emit(phase="kernel_vs_plain", kernel="c2r_nat", shape=(t, h + 1),
+                     rows_per_block=rows, scale=scale, rel_err=rel)
+                if not rel <= TOL_KERNEL:
+                    raise AssertionError(f"c2r_nat {(t, h + 1)} rows {rows} scale {scale}: {rel}")
+                del got
+            del ref
+        del s
+    for shape in ((2, 257, 130), (1, 385, 383), (1, 1025, 257), (1, 1537, 129), (1, 20481, 3),
+                  (1, 257, 512 * 512), (512, 257, 512), (1, 641, 1280)):
+        nb, m, cols = shape
+        n = 2 * (m - 1)
+        s = crandn(*shape)
+        s[:, 0] += 100j
+        s[:, -1] += 100j
+        y = torch.empty((nb, n, cols), device=dev)
+        cut = min(nb, 16)
+        for scale in (1.0 / n, None):
+            ref = krfft.c2r_mid_plain(s[:cut], n, scale)
+            for c in (1, 2, 4, 8, 16, 32):
+                if not tile_fits(n // 2, c):
+                    continue
+                y.fill_(float("nan"))
+                krfft.c2r_mid_radix_launch(s, y, n, scale, c)
+                torch.cuda.synchronize()
+                rel = abs_err(y[:cut], ref) / float(ref.abs().max())
+                errs["c2r_mid"] = max(errs["c2r_mid"], abs_err(y[:cut], ref))
+                emit(phase="kernel_vs_plain", kernel="c2r_mid", shape=shape, cols_per_tile=c,
+                     scale=scale, rel_err=rel)
+                if not rel <= TOL_KERNEL:
+                    raise AssertionError(f"c2r_mid {shape} C {c} scale {scale}: {rel}")
+            del ref
+        del s, y
+
     # the middle-axis R2C/C2R kernels: the main paths' shapes (phase 4d),
     # axis 1 of 512^3, ragged and odd ones; kernel 20's wrapper on the radix
     # column tile (r2c_dense_mid_radix) at the lengths with a plan, on the
@@ -1020,7 +1087,7 @@ def main() -> int:
              library_ms=t_lib, plain_in_slices=len(cuts), card=card)
 
     # kernel 1 at F outside the bts2 fixed core's factors (the radix column
-    # tile) and kernels 10 and 2 at those F on the radix row core: the main
+    # tile) and kernels 10, 2 and 3 at those F on the radix row core: the main
     # paths' shapes (phase 4g),
     # ragged column and row tiles, prime F = 127 and the largest F = 160 (one
     # column or row per block); the C2R spectra carry DC and Nyquist
@@ -1049,7 +1116,7 @@ def main() -> int:
         check_form("r2c_nat", krfft.r2c_nat, lambda: krfft.r2c_nat(x),
                    lambda: krfft.r2c_nat_plain(x), (t, n))
         for scale in (1.0 / n, None):
-            check_form("c2r_nat_wide", krfft.c2r_nat, lambda: krfft.c2r_nat(s, n, scale),
+            check_form("c2r_nat", krfft.c2r_nat, lambda: krfft.c2r_nat(s, n, scale),
                        lambda: krfft.c2r_nat_plain(s, n, scale), (t, n // 2 + 1), scale=scale)
         del x, s
     # kernel 15 at h = 128 * F is kernel 2's code: the DCT-I path's (769,
@@ -1060,9 +1127,9 @@ def main() -> int:
         check_form("r2c_packed", krfft.r2c_packed, lambda: krfft.r2c_packed(x),
                    lambda: krfft.r2c_packed_plain(x), shape)
         del x
-    # kernel 17 on the wide core and kernel 16 at its F (phase 4h's 768 and
-    # 1280 along axis 0, ragged columns, h = 20480 with one column per tile:
-    # kernel 16 on the radix column tile) and kernels 23 to
+    # kernels 16 and 17 on the radix column tile at the wide core's F (phase
+    # 4h's 768 and 1280 along axis 0, ragged columns, h = 20480 with one
+    # column per tile) and kernels 23 to
     # 26 in each form: the fixed core, the wide core's half length and the
     # n-point form, at phase 4h's shapes and at ragged tiles, prime F = 131
     # and the largest tiles (n-point F = 159, half length F = 128), and the
@@ -1078,7 +1145,7 @@ def main() -> int:
         check_form("r2c_mid", krfft.r2c_mid, lambda: krfft.r2c_mid(x),
                    lambda: krfft.r2c_mid_plain(x), shape)
         for scale in (1.0 / n, None):
-            check_form("c2r_mid_wide", krfft.c2r_mid, lambda: krfft.c2r_mid(s, n, scale),
+            check_form("c2r_mid", krfft.c2r_mid, lambda: krfft.c2r_mid(s, n, scale),
                        lambda: krfft.c2r_mid_plain(s, n, scale), (nb, n // 2 + 1, cols),
                        scale=scale)
         del x, s
@@ -1280,7 +1347,7 @@ def main() -> int:
     # radix core, counted apart by the same wrappers (their ``launches``
     # count every launch)
     forms = {f"{name}_{form}": (wrappers[name], f"{form}_launches")
-             for name in (*RADIX_ONLY, "c2r_nat", "c2r_mid", "r2c_dense_mid",
+             for name in (*RADIX_ONLY, "r2c_dense_mid",
                           "dct2_nat", "dct3_nat", "dct2_mid",
                           "dct3_mid", "dct1_mid", "dct4_mid",
                           "dct23_blue_mid", "fourstep_mid", "rows_store_t",
@@ -1719,7 +1786,7 @@ def main() -> int:
     del g264, g1200, y264, b264, y1200, b1200, s530, b300, gen_out
     torch.cuda.empty_cache()
 
-    # ---- 4g. the bts2 core at any butterfly factor: the 768^3 real step
+    # ---- 4g. the lengths the bts2 wide core took: the 768^3 real step
     # with the real axis last (the 3/2-dealiased grid of a 512^3-mode DNS;
     # K2 at h = 384, F = 3, on 589824 rows; K1 at F = 6 at (768, 768, 385)
     # and (1, 768, 295680) forward and back; K3: 1.81 GB per field, 1.82 GB
@@ -1734,8 +1801,7 @@ def main() -> int:
     reset_counts()
     v = fwd3(x768, h768r, h768c)
     back = inv3(v, h768r, h768c)
-    read_counts("real_axis_last_768^3", r2c_nat=1, c2c_axis_mid=4, c2r_nat=1,
-                c2r_nat_wide=1)
+    read_counts("real_axis_last_768^3", r2c_nat=1, c2c_axis_mid=4, c2r_nat=1)
     peak = torch.cuda.max_memory_allocated()
     check_lane("step_real_axis_last", v, torch.fft.rfftn(x768.double()), back, x768,
                grid=[n7] * 3, peak_bytes=peak, base_bytes=base)
@@ -1762,8 +1828,8 @@ def main() -> int:
               base_bytes=base)
     del y4k, b4k
 
-    # the other lengths the wide core opens: the 4096^2 real step (K2/K3 at
-    # F = 16 on the fixed core, K1 wide at the ragged (1, 4096, 2049)); C2C
+    # the other lengths the wide core opened: the 4096^2 real step (K2/K3 at
+    # F = 16, K1 at the ragged (1, 4096, 2049)); C2C
     # of 128 rows at 384, 1152, 16256 (F = 127) and 20480 (F = 160); along
     # axis 0 at 640 (F = 5) and 20480 (one column per block); R2C/C2R of
     # 128 rows at 1536 (h = 768) and 40960 (h = 20480); DCT-I at 769 (K15
@@ -1788,7 +1854,7 @@ def main() -> int:
     d1 = nd.nddct1(x769, axis=1)
     d4 = nd.nddct4(x768_2, axis=1)
     b640 = nd.ndifft_r2c(s640, axis=1, n=640)
-    read_counts("wide_lanes", r2c_nat=1 + 2, c2c_axis_mid=2 + 4, c2r_nat=1 + 2, c2r_nat_wide=2,
+    read_counts("wide_lanes", r2c_nat=1 + 2, c2c_axis_mid=2 + 4, c2r_nat=1 + 2,
                 c2c_rows=8 + 1 + 1, r2c_packed=1)
     check_r2c_mid("step_4096^2_real_axis_last", v4k, xr4k, r4k, (0, 1), grid=[4096, 4096])
     for n, (y, b) in rows_out.items():
@@ -1912,7 +1978,7 @@ def main() -> int:
     # fixed core of K23-K26, F = 8), nddct2/nddct3 along axis 0 at 1152
     # (n-point) and 1280 (wide) and along the last axis at 128, 384
     # (n-point) and 768 (wide), nddst2 along axis 0 at 1536 (wide), and the
-    # R2C/C2R along axis 0 at 768 and 1280 (K16/K17 on the wide core)
+    # R2C/C2R along axis 0 at 768 and 1280 (K16/K17 at F = 3, 5)
     x2k = randn(2048, 2048)
     h2k = nd.DctHandler(2048)
     h2ki = h2k.normalization(nd.Normalization.scalar(1.0 / 2048))
@@ -1933,7 +1999,7 @@ def main() -> int:
                 dct3_nat=1 + 3, dct3_nat_wide=1, dct3_nat_npoint=2,
                 dct2_mid=1 + 2 + 1, dct2_mid_wide=1 + 1, dct2_mid_npoint=1,
                 dct3_mid=1 + 2, dct3_mid_wide=1, dct3_mid_npoint=1,
-                r2c_mid=2, c2r_mid=2, c2r_mid_wide=2)
+                r2c_mid=2, c2r_mid=2)
     x64 = host64(x2k)
     check("dct2_both_axes", f2k, sfft.dctn(x64, type=2), grid=[2048, 2048])
     check("dct3_roundtrip", b2k, x64, grid=[2048, 2048])
@@ -2442,7 +2508,7 @@ def main() -> int:
     # per field; R2C along the last axis on K2 wide, h = 16384, F = 128; the
     # C2C along axis 0 after a moveaxis on the four-step (256, 128): K7
     # dense at (16385, 256, 128), K13 wide, F = 1, over 4194560 rows; the
-    # inverse chain, C2R on K3 wide), against float64 torch.fft.rfftn and the
+    # inverse chain, C2R on K3), against float64 torch.fft.rfftn and the
     # round trip; a periodic 2-D Navier-Stokes step at 32768^2. Then the
     # lengths against float64 oracles, each kernel at the paths' shapes
     # against its plain version slice by slice, and the times.
@@ -2486,8 +2552,7 @@ def main() -> int:
     reset_counts()
     vb, backb = step2(xb, hbr, hbc)
     read_counts("step_32768^2", r2c_nat=1, fourstep_mid=2,
-                fourstep_mid_dense=2, rows_store_t=2, rows_store_t_wide=2, c2r_nat=1,
-                c2r_nat_wide=1)
+                fourstep_mid_dense=2, rows_store_t=2, rows_store_t_wide=2, c2r_nat=1)
     peak = torch.cuda.max_memory_allocated()
     rt = abs_err(backb, xb) / float(xb.abs().max())
     finite = bool(torch.isfinite(backb).all())
@@ -2570,17 +2635,16 @@ def main() -> int:
         check_sliced(name, kern, plain, [x], 0, fargs, reps_a)
         del x
         torch.cuda.empty_cache()
-    # K2 and K3 at path B's real legs (h = 16384, F = 128, one row per tile):
-    # K2 on the radix row core, timed beside torch.fft.rfft; K3 on the wide
-    # core, checked but not timed here (its time is at phase 5's main shapes)
+    # K2 and K3 at path B's real legs (h = 16384, F = 128, one row per tile),
+    # both on the radix row core, timed beside torch.fft.rfft and irfft
     xb = randn(n_b, n_b)
     check_sliced("r2c_nat", krfft.r2c_nat, krfft.r2c_nat_plain, [xb], 0, (), reps_a,
                  library=lambda: torch.fft.rfft(xb, dim=1))
     del xb
     torch.cuda.empty_cache()
     sb = crandn(n_b, n_b // 2 + 1)
-    check_sliced("c2r_nat_wide", krfft.c2r_nat, krfft.c2r_nat_plain, [sb], 0,
-                 (n_b, 1.0 / n_b), reps_a, timed=False)
+    check_sliced("c2r_nat", krfft.c2r_nat, krfft.c2r_nat_plain, [sb], 0,
+                 (n_b, 1.0 / n_b), reps_a, library=lambda: torch.fft.irfft(sb, n=n_b, dim=1))
     del sb
     torch.cuda.empty_cache()
 
@@ -3321,6 +3385,47 @@ def main() -> int:
     del x, xh, y, ref
     torch.cuda.empty_cache()
 
+    # ---- 4u. the census of kernels 3 and 17 on the radix core: ndifft_r2c
+    # (the default 1/n) along the last axis of a (128, h + 1) spectrum at
+    # every half length h that the gates send to kernel 3 (C2R_NAT: 153
+    # lengths, h = 256 ... 20480) and along axis 1 of a (1, h + 1, 130) one
+    # at every h that they send to kernel 17 (C2R_MID: the same 153), with
+    # DC and Nyquist imaginary parts that must be ignored, against
+    # torch.fft.irfft in float64 (an oracle only, run on the host), within
+    # TOL_CENSUS of the oracle's peak
+    def c2r_halves(shape_of, route):
+        return [h for h in range(1, kfft.GENERIC_MAX_N + 1)
+                if api._route("c2r", shape_of(h), 1, torch.complex64, "cuda", n=2 * h) == route]
+
+    census_c2r = (("c2r_nat", lambda h: (128, h + 1), api.C2R_NAT),
+                  ("c2r_mid", lambda h: (1, h + 1, 130), api.C2R_MID))
+    halves = {name: c2r_halves(shape_of, route) for name, shape_of, route in census_c2r}
+    if [len(v) for v in halves.values()] != [153, 153]:
+        raise AssertionError(f"c2r census: {[len(v) for v in halves.values()]} half lengths, "
+                             "expected 153, 153")
+    t0 = time.perf_counter()
+    worst = {name: (0.0, None) for name in halves}
+    reset_counts()
+    for name, shape_of, _ in census_c2r:
+        for h in halves[name]:
+            sp = crandn(*shape_of(h))
+            sp[:, 0] += 100j
+            sp[:, -1] += 100j
+            y = nd.ndifft_r2c(sp, axis=1)
+            err = rel_err(y, torch.fft.irfft(sp.cpu().to(torch.complex128), n=2 * h,
+                                             dim=1).to(dev))
+            if not err <= TOL_CENSUS:
+                raise AssertionError(f"{name} census h={h}: {err}")
+            worst[name] = max(worst[name], (err, h))
+    read_counts("c2r_census", c2r_nat=len(halves["c2r_nat"]), c2r_mid=len(halves["c2r_mid"]))
+    emit(phase="c2r_census", k3_lengths=len(halves["c2r_nat"]),
+         k17_lengths=len(halves["c2r_mid"]),
+         worst_rel_err_k3=worst["c2r_nat"][0], worst_h_k3=worst["c2r_nat"][1],
+         worst_rel_err_k17=worst["c2r_mid"][0], worst_h_k17=worst["c2r_mid"][1],
+         seconds=time.perf_counter() - t0)
+    del sp, y
+    torch.cuda.empty_cache()
+
     # ---- 5. times: each kernel against its plain version and, at the main
     # path's shape, the PyTorch call that computes the same function (the
     # yardstick); the steps against torch.fft (the 1536^3 solve's kernels
@@ -3336,8 +3441,7 @@ def main() -> int:
                    "c2r_dense_mid": (1, 129, 256 * 256), "r2c_packed": (256 * 256, 256),
                    "r2c_packed_dense": (128 * 128, 128), "c2c_generic_rows": (600 * 600, 600),
                    "c2c_generic_mid": (600, 600, 301), "r2c_packed_generic": (600 * 600, 600),
-                   "c2r_nat_wide": (768 * 768, 385),
-                   "c2r_mid_wide": (1, 641, 1280), "dct2_nat_wide": (1536 * 1536, 1536),
+                   "dct2_nat_wide": (1536 * 1536, 1536),
                    "dct3_nat_wide": (1536 * 1536, 1536), "dct2_nat_npoint": (384, 384),
                    "dct3_nat_npoint": (384, 384), "dct2_mid": (1, 2048, 2048),
                    "dct3_mid": (1, 2048, 2048), "dct2_mid_wide": (1, 1536, 1536 * 1536),
@@ -3525,6 +3629,36 @@ def main() -> int:
              chosen=krfft.packed_mid_cols(h, nb, cols, kfft.num_sms(dev)), card=card)
         del xe, xo, y
     torch.cuda.empty_cache()
+    # kernel 3 on the radix row core at its three main shapes with each
+    # count of rows a block that fits (the wrapper takes fft.py::
+    # radix_block's), and kernel 17 on the radix column tile at its main
+    # shapes with each column count C that fits (the wrapper takes
+    # rfft.py::c2r_mid_cols's), beside torch.fft.irfft
+    for shape, counts in (((512 * 512, 257), (1, 2, 4, 8, 16)),
+                          ((768 * 768, 385), (1, 2, 3, 4, 6, 8, 10)),
+                          ((n_b, n_b // 2 + 1), (1,))):
+        t, m = shape
+        n = 2 * (m - 1)
+        sp = crandn(t, m)
+        rows_ms = {r: cuda_ms(lambda: krfft.c2r_radix_launch(sp, n, 1.0 / n, r), reps)
+                   for r in counts}
+        emit(phase="time", kernel="c2r_nat", shape=shape, ms_by_rows_per_block=rows_ms,
+             chosen=kfft.radix_block(n // 2, t, kfft.num_sms(dev)),
+             torch_fft_ms=cuda_ms(lambda: torch.fft.irfft(sp, n=n, dim=1), reps), card=card)
+        del sp
+        torch.cuda.empty_cache()
+    for shape in ((1, 257, 512 * 512), (512, 257, 512), (1, 641, 1280)):
+        nb, m, cols = shape
+        n = 2 * (m - 1)
+        sp = crandn(*shape)
+        y = torch.empty((nb, n, cols), device=dev)
+        cols_ms = {c: cuda_ms(lambda: krfft.c2r_mid_radix_launch(sp, y, n, 1.0 / n, c), reps)
+                   for c in (1, 2, 4, 8, 16, 32) if tile_fits(n // 2, c)}
+        emit(phase="time", kernel="c2r_mid", shape=shape, ms_by_cols_per_tile=cols_ms,
+             chosen=krfft.c2r_mid_cols(n // 2, nb, cols, kfft.num_sms(dev)),
+             torch_fft_ms=cuda_ms(lambda: torch.fft.irfft(sp, n=n, dim=1), reps), card=card)
+        del sp, y
+    torch.cuda.empty_cache()
     for grid_shape, x in c2c_inputs.items():
         hs = [nd.FftHandler(n) for n in grid_shape]
         torch.cuda.reset_peak_memory_stats()
@@ -3652,8 +3786,8 @@ def main() -> int:
     del rfft2d_inputs
     torch.cuda.empty_cache()
 
-    # kernel 1 on the radix column tile, the wide core (kernel 3) and
-    # kernels 10, 2 and 15 on the radix row core at the same F: each kernel
+    # kernel 1 on the radix column tile and kernels 10, 2, 3 and 15 on the
+    # radix row core at the wide core's F: each kernel
     # at the paths' shapes (phase 4g), the 768^3 step with each public call
     # timed alone, and the 4096^2 round trip
     for name, kern, plain, dim, shapes in (
@@ -3671,7 +3805,7 @@ def main() -> int:
         sp = crandn(t, n // 2 + 1)
         time_kernel("r2c_nat", (t, n), lambda: krfft.r2c_nat(x),
                     lambda: krfft.r2c_nat_plain(x), lambda: torch.fft.rfft(x, dim=1))
-        time_kernel("c2r_nat_wide", (t, n // 2 + 1), lambda: krfft.c2r_nat(sp, n, 1.0 / n),
+        time_kernel("c2r_nat", (t, n // 2 + 1), lambda: krfft.c2r_nat(sp, n, 1.0 / n),
                     lambda: krfft.c2r_nat_plain(sp, n, 1.0 / n),
                     lambda: torch.fft.irfft(sp, n=n, dim=1))
         del x, sp
@@ -3736,9 +3870,9 @@ def main() -> int:
         f = makhoul_dct(makhoul_dct(x, 1, 2), 0, 2)
         return makhoul_dct(makhoul_dct(f, 0, 3), 1, 3) / (2 * 1024) ** 2
 
-    # kernel 16 at F = 3 and 5 (the radix column tile), kernel 17 on the
-    # wide core and kernels 23 to 26 in their fixed and n-point forms at
-    # phase 4h's shapes (the wide DCT forms at 1536^3 were timed there);
+    # kernels 16 and 17 at F = 3 and 5 (the radix column tile), and kernels
+    # 23 to 26 in their fixed and n-point forms at phase 4h's shapes (the
+    # wide DCT forms at 1536^3 were timed there);
     # K16/K17's yardstick is torch.fft.rfft / irfft along the axis, the DCTs
     # have no single PyTorch call
     for n in (768, 1280):
@@ -3746,7 +3880,7 @@ def main() -> int:
         sp = crandn(1, n // 2 + 1, n)
         time_kernel("r2c_mid", (1, n, n), lambda: krfft.r2c_mid(x),
                     lambda: krfft.r2c_mid_plain(x), lambda: torch.fft.rfft(x, dim=1))
-        time_kernel("c2r_mid_wide", (1, n // 2 + 1, n), lambda: krfft.c2r_mid(sp, n, 1.0 / n),
+        time_kernel("c2r_mid", (1, n // 2 + 1, n), lambda: krfft.c2r_mid(sp, n, 1.0 / n),
                     lambda: krfft.c2r_mid_plain(sp, n, 1.0 / n),
                     lambda: torch.fft.irfft(sp, n=n, dim=1))
         del x, sp
@@ -3844,7 +3978,7 @@ def main() -> int:
                          "ndrustfft_tpu/ops/pallas/fft.py:1124"),
         "r2c_nat": ("ndrustfft_tpu_torch/csrc/rfft_radix.cu",
                     "ndrustfft_tpu/ops/pallas/rfft.py:242"),
-        "c2r_nat": ("ndrustfft_tpu_torch/csrc/rfft_nat.cu",
+        "c2r_nat": ("ndrustfft_tpu_torch/csrc/rfft_radix.cu",
                     "ndrustfft_tpu/ops/pallas/rfft.py:323"),
         "dct_dense_mid": ("ndrustfft_tpu_torch/csrc/dct_dense.cu",
                           "ndrustfft_tpu/ops/pallas/dct.py:545"),
@@ -3860,7 +3994,7 @@ def main() -> int:
                           "ndrustfft_tpu/ops/pallas/fft.py:1565"),
         "r2c_mid": ("ndrustfft_tpu_torch/csrc/rfft_mid_radix.cu",
                     "ndrustfft_tpu/ops/pallas/rfft.py:443"),
-        "c2r_mid": ("ndrustfft_tpu_torch/csrc/rfft_mid.cu",
+        "c2r_mid": ("ndrustfft_tpu_torch/csrc/rfft_mid_radix.cu",
                     "ndrustfft_tpu/ops/pallas/rfft.py:470"),
         "r2c_dense_mid": ("ndrustfft_tpu_torch/csrc/rfft_dense.cu",
                           "ndrustfft_tpu/ops/pallas/rfft.py:882"),
@@ -3878,10 +4012,6 @@ def main() -> int:
                             "ndrustfft_tpu/ops/pallas/fft.py:1794"),
         "r2c_packed_generic": ("ndrustfft_tpu_torch/csrc/rfft_radix.cu",
                                "ndrustfft_tpu/ops/pallas/rfft.py:163"),
-        "c2r_nat_wide": ("ndrustfft_tpu_torch/csrc/rfft_nat.cu",
-                         "ndrustfft_tpu/ops/pallas/rfft.py:323"),
-        "c2r_mid_wide": ("ndrustfft_tpu_torch/csrc/rfft_mid.cu",
-                         "ndrustfft_tpu/ops/pallas/rfft.py:470"),
         "dct2_nat_wide": ("ndrustfft_tpu_torch/csrc/dct_nat.cu",
                           "ndrustfft_tpu/ops/pallas/dct.py:190"),
         "dct3_nat_wide": ("ndrustfft_tpu_torch/csrc/dct_nat.cu",
@@ -3971,7 +4101,7 @@ def main() -> int:
                      (list(shape), *timing[(name, shape)],
                       *bound(*work(name, shape, mult=spectral_h.get((name, shape)))))))
             for shape in sliced.get(name, ())]
-        if name in ("c2c_axis_mid", "r2c_packed_mid"):
+        if name in ("c2c_axis_mid", "r2c_packed_mid", "c2r_nat", "c2r_mid"):
             row["other_shapes"] = [
                 dict(zip(("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
                          (list(shape), *timing[(nm, shape)], *bound(*work(name, shape)))))

@@ -12,14 +12,16 @@ never in device memory), and the multi-axis ``fftn`` ... ``idstn``
 (``ndapi.py``).
 
 On a CUDA tensor every call runs the route ``api._route`` names: a CUDA
-kernel of ``ops/hopper`` (the bts2 core at n = 128 * F, the dense products,
-the mixed-radix core on rows and column tiles at every other length up to
-20480, the R2C/C2R and DCT kernels along rows and along a middle axis, Bluestein's chirp-z, and beyond n = 20480 the
-four-step's kernels 7 and 13, the fused spectral kernels 14, 22 and 29,
-the DCT-II/III n-point and DCT-IV long forms on the wide core's real tile
-up to n = 32640 and 65536), or the plain torch engine where the JAX package
-runs XLA: every Pallas kernel of the JAX package has its CUDA port. A CPU
-tensor runs each kernel's plain PyTorch version.
+kernel of ``ops/hopper`` (the mixed-radix core on rows and column tiles: the
+C2C at every length up to 20480, the R2C and C2R along rows and along a
+middle axis, kernel 11's chirp-z; the bts2 core's fixed and wide forms: the
+DCT-I/II/III/IV kernels and kernel 12's chirp-z, the four-step's kernels 7
+and 13 beyond n = 20480, the fused spectral kernels 14, 22 and 29, the
+DCT-II/III n-point and DCT-IV long forms on the wide core's real tile up to
+n = 32640 and 65536; the dense products of the JAX package's short dense
+routes), or the plain torch engine where the JAX package runs XLA: every
+Pallas kernel of the JAX package has its CUDA port. A CPU tensor runs each
+kernel's plain PyTorch version.
 
 The dtype vocabulary (``float32`` ... ``complex128``, ``complex_dtype``,
 ``real_dtype``) is the JAX package's, as torch dtypes.

@@ -183,8 +183,8 @@ def _route(kind: str, shape, axis: int, dtype: torch.dtype, device_type: str,
 def _rfft_mid(kind: str, n: int):
     """Route of a float32 R2C/C2R along a middle axis with >= 128 columns
     (the JAX package's rfft_nat_supported, then rfft_dense_mid_supported):
-    K16/K17 for a natural-layout half length (K16 on the radix column tile,
-    K17 on the fixed or the wide core); K20/K21 for 4 <= n <= 1100 (any n,
+    K16/K17 for a natural-layout half length (both on the radix column
+    tile); K20/K21 for 4 <= n <= 1100 (any n,
     Bluestein lengths included: K20 runs the radix column tile where a plan
     exists and, like K21, the dense product, which needs none, elsewhere);
     else None."""

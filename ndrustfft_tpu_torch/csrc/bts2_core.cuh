@@ -97,26 +97,12 @@ __device__ __forceinline__ void r2c_unpack(float2* ob, int h, int V, long long c
                         [=](int c, int k, float2 x) { ob[c * cs + k * ks] = x; });
 }
 
-// A sk + B conj sm with c = (A.re, A.im, B.re, B.im): one bin of the C2R
-// pre-pass from S[k] = sk and S[h - k] = sm.
+// A sk + B conj sm with c = (A.re, A.im, B.re, B.im): one bin of the C2R's
+// inverse unpack from S[k] = sk and S[h - k] = sm (kernels 22 and 29's pair
+// passes, kernels 3 and 17's prologue, fft_radix.cuh::c2r_prologue_tile).
 __device__ __forceinline__ float2 c2r_combine(float4 c, float2 sk, float2 sm) {
   return make_float2(c.x * sk.x - c.y * sk.y + c.z * sm.x + c.w * sm.y,
                      c.x * sk.y + c.y * sk.x + c.w * sm.x - c.z * sm.y);
-}
-
-// The C2R pre-pass at bin k < h of a spectrum S (h + 1 bins, bin j at
-// srow[j * ks]): G[k] = A[k] S[k] + B[k] conj S[h - k], with the DC
-// imaginary part forced to 0 and the Nyquist one ignored;
-// ab[k] = (A.re, A.im, B.re, B.im).
-__device__ __forceinline__ float2 c2r_pre(const float2* srow, const float4* __restrict__ ab,
-                                          int h, int k, long long ks = 1) {
-  float2 sk = srow[k * ks];
-  float2 sm = srow[(h - k) * ks];  // k = 0: the Nyquist bin S[h]
-  if (k == 0) {
-    sk.y = 0.f;
-    sm.y = 0.f;
-  }
-  return c2r_combine(__ldg(ab + k), sk, sm);
 }
 
 // cos and sin of 2*pi*j/16 for j = 0..7 (folded to constants after unrolling)
@@ -182,7 +168,7 @@ __device__ __forceinline__ void dft_leading(float2 (&v)[F], float sign) {
 
 // The length-n transform of C columns held in shared memory.
 // kRows == false: element (t, c) at s[t * C + c]   (a column tile, kernel 1)
-// kRows == true:  element (t, c) at s[c * n + t]   (C contiguous rows, kernels 3, 13)
+// kRows == true:  element (t, c) at s[c * n + t]   (C contiguous rows, kernels 13, 23, 24)
 // wq: (F, m, m) complex constants in device memory, wq[(q*m + b)*m + p'].
 // All kThreads threads of the block must call it; it ends with a barrier.
 // For n = 128 (F = 1, the DCT kernels' n = 256 rows) stage 1 is the identity

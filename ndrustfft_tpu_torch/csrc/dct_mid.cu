@@ -7,7 +7,8 @@
 // dct.py::_dct3_kernel_mid (built by _build_dct3_mid). Both compute the
 // rustdct convention times a scale s, by the Makhoul passes of kernels 23/24
 // (dct_nat.cu, whose header comment has the algebra) in the column-tile
-// layout of kernel 17 (rfft_mid.cu): one block per (b, tile of C
+// layout of kernel 17's bts2 form (its c2c_tile.cuh column tile, since
+// replaced by the radix column tile): one block per (b, tile of C
 // columns), three forms by n:
 //
 // * n = 2h, h = 128 * F, F in {2, 4, 8, 16} (n = 512 ... 4096): the fixed

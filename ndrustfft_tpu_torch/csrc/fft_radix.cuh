@@ -3,7 +3,8 @@
 // complex64 rows or of columns. Kernel 10 runs it on rows at every
 // n = 128 * F and kernel 8 at every n <= 20480 it takes (fft_rows_radix.cu);
 // kernels 2 and 15 at their half length on rows with the R2C's unpack as
-// the epilogue (rfft_radix.cu); kernel 11 at every
+// the epilogue, and kernel 3 with the C2R's inverse unpack as the prologue
+// (rfft_radix.cu); kernel 11 at every
 // convolution length M = 128 * F on an (M, C) column tile, its forward and
 // inverse length-M transforms in place (fft_blue_radix.cu); kernels 1, 6
 // and 4 (n = 128 * F; n > 512 without a split; n <= 512) on an (n, C)
@@ -11,13 +12,15 @@
 // 16, 18 and 20 (the R2C along a middle axis, kernel 18 of DST-I's two
 // streams) on the same column tile, at the half length with the unpack as
 // the epilogue or, at an odd length, with an epilogue that stores half the
-// bins (rfft_mid_radix.cu).
+// bins, and kernel 17 (the C2R along a middle axis) at the half length
+// with the inverse unpack as the prologue (rfft_mid_radix.cu).
 //
 // Replaces, for the CUDA port, the JAX package's
 // ndrustfft_tpu/ops/pallas/fft.py::_kernel_twostep and
 // ::_kernel_axis_mid_bts2 (the twostep split m = 128 on rows and along a
 // middle axis), rfft.py::_r2c_kernel_nat, ::_r2c_kernel_mid,
 // ::_r2c_kernel_packed_mid and ::_r2c_kernel (the R2C's half-length FFT),
+// ::_c2r_kernel_nat and ::_c2r_kernel_mid (the C2R's),
 // fft.py::_kernel_lane_last (its dense lane DFT at n <= 256 and its generic
 // lane schedule above), ::_kernel_axis_mid (the generic
 // schedule along a middle axis), ::_kernel_axis_mid_dense (the dense DFT-n
@@ -74,13 +77,16 @@
 // with H, kernel 15's plain copy) for an epilogue or a second transform.
 // Two skeletons run the stages: radix_rows_kernel on rows, radix_cols_kernel
 // on an (n, C) column tile of a (B, rows, L) tensor, each column read
-// through a load policy (a complex column, or the R2C's real column as
-// pairs of rows or with a zero imaginary part).
+// through a load policy (a complex column, the R2C's real column as
+// pairs of rows or with a zero imaginary part, or the C2R's spectrum). A
+// load policy with side slots (kSide) also parks each transform's bin h in
+// a slot of its own after the coefficient rows and, after the load's
+// barrier, runs its prologue on the tile in place (the C2R's inverse
+// unpack, c2r_prologue_tile) behind a second barrier.
 //
 // Left for later: cp.async or TMA prefetch of the next tile, twiddles
 // staged in shared memory, and the other routes that run dense stages
-// (kernel 13's rows, kernel 7's columns, kernel 12's chirp-z, kernel 3's
-// C2R).
+// (kernel 13's rows, kernel 7's columns, kernel 12's chirp-z).
 #pragma once
 
 #include <cstdint>
@@ -128,6 +134,15 @@ template <class Io, class = void>
 struct RxTileOut : std::false_type {};
 template <class Io>
 struct RxTileOut<Io, std::void_t<decltype(Io::kTileOut)>> : std::bool_constant<Io::kTileOut> {};
+
+// The side slots a load policy parks per transform (static constexpr int
+// kSide; 0 where it names none), which also says that it has a prologue
+// (prologue(s, side, cx) on the loaded tile, side the transform's slots).
+template <class Load, class = void>
+struct RxSide : std::integral_constant<int, 0> {};
+template <class Load>
+struct RxSide<Load, std::void_t<decltype(Load::kSide)>>
+    : std::integral_constant<int, Load::kSide> {};
 
 // A stage of radix r is a prime stage (not a codelet) for odd r >= 11.
 __host__ __device__ constexpr bool rx_prime(int r) { return r >= 11 && (r & 1); }
@@ -570,32 +585,42 @@ __device__ __forceinline__ void r2c_unpack_tile(const float2* s, const Cx& cx,
   }
 }
 
-// One block per tile of at most `rows` rows of (T, n), the T rows spread
-// evenly over the `tiles` blocks; tr = ceil(n / kE) threads per row. The
-// table: the stage twiddles at 0 ... n - 2, then each prime stage's
-// coefficient row (ops/hopper/fft.py::radix_consts). The tile's rows past
-// the valid ones are neither loaded nor stored. An Io with kTileOut gets the
-// tile of spectra, in natural order, in its epilogue(s, cx).
-template <int kE, int kS, class Io>
-__global__ void __launch_bounds__(kRadixMaxThreads<kE>, kRadixMinBlocks<kE>)
-radix_rows_kernel(const float2* __restrict__ x, Io io, const float2* __restrict__ tab,
-                  RadixPlan plan, int n, long long T, long long tiles, int rows, float scale) {
-  extern __shared__ float2 smem[];
-  const long long row0 = blockIdx.x * T / tiles;
-  const int valid = (int)((blockIdx.x + 1) * T / tiles - row0);
-  const int tr = (n + kE - 1) / kE;
-  const int c = (int)threadIdx.x / tr;
-  const RadixCtx<RowLayout> cx{n, tr, (int)threadIdx.x - c * tr, RowLayout{c * n}, c < valid,
-                               row0 + c};
-  float2* s = smem;
-  float2* cs = smem + rx_tile_slots(rows * n);
-  int count[8];
-  radix_prepare(count, cs, tab, plan, n);
-  // the valid rows: 16-byte loads from the first 16-byte boundary on, four
-  // in flight a thread
+// The C2R's inverse unpack in place (kernels 3 and 17), the prologue of the
+// half-length inverse: a transform's tile holds S[k] for k < h = cx.n and
+// its side slot nyq holds S[h]; each thread takes mirror pairs {k, h - k},
+// k <= h / 2, and reads both bins before it writes either:
+//   G[k] = A[k] S[k] + B[k] conj S[h - k],  ab[k] = (A.re, A.im, B.re, B.im),
+// with the DC and Nyquist imaginary parts ignored (k = 0 pairs with nyq;
+// k = h / 2 stands alone). Call it behind the load's barrier.
+template <class Cx>
+__device__ __forceinline__ void c2r_prologue_tile(float2* s, const float2* nyq, const Cx& cx,
+                                                  const float4* __restrict__ ab) {
+  if (!cx.active) return;
+  const int h = cx.n;
+  for (int k = cx.t; k <= h / 2; k += cx.tr) {
+    const int qa = cx.slot(k);
+    float2 a = s[qa];
+    if (k == 0) {
+      const float2 b = make_float2(nyq->x, 0.f);
+      a.y = 0.f;
+      s[qa] = c2r_combine(__ldg(ab), a, b);
+    } else {
+      const int qb = cx.slot(h - k);
+      const float2 b = s[qb];
+      s[qa] = c2r_combine(__ldg(ab + k), a, b);
+      if (2 * k != h) s[qb] = c2r_combine(__ldg(ab + h - k), b, a);
+    }
+  }
+}
+
+// A contiguous run of `total` complex64 values from src, 16-byte loads from
+// the first 16-byte boundary on, four in flight a thread; put(e, v) takes
+// element e (thread 0 also takes a head element before the boundary and an
+// odd tail element).
+template <class Put>
+__device__ __forceinline__ void load_run16(const float2* __restrict__ src, int total,
+                                           const Put& put) {
   constexpr int kLoads = 4;
-  const float2* src = x + row0 * n;
-  const int total = valid * n;
   const int head = (reinterpret_cast<uintptr_t>(src) & 15) ? 1 : 0;
   const int pairs = (total - head) >> 1;
   const float4* src4 = reinterpret_cast<const float4*>(src + head);
@@ -611,40 +636,118 @@ radix_rows_kernel(const float2* __restrict__ x, Io io, const float2* __restrict_
       const int q = q0 + u * blockDim.x;
       if (q < pairs) {
         const int e = head + 2 * q;
-        s[rx_slot(e)] = make_float2(v[u].x, v[u].y);
-        s[rx_slot(e + 1)] = make_float2(v[u].z, v[u].w);
+        put(e, make_float2(v[u].x, v[u].y));
+        put(e + 1, make_float2(v[u].z, v[u].w));
       }
     }
   }
   if (threadIdx.x == 0) {
-    if (head && total > 0) s[rx_slot(0)] = src[0];
-    if ((total - head) & 1) s[rx_slot(total - 1)] = src[total - 1];
+    if (head && total > 0) put(0, src[0]);
+    if ((total - head) & 1) put(total - 1, src[total - 1]);
   }
+}
+
+// The row skeleton's load policies. load(s, side, row0, valid, n) fills
+// the tile's `valid` rows (row c's element k at rx_slot(c n + k)) from rows
+// row0 ... of the input; a policy with side slots parks each row's extra
+// bin at side[c] and has a prologue.
+
+// Complex64 (T, n) rows, contiguous (kernels 10, 8, 2 and 15): the tile's
+// valid * n elements as one run.
+struct RowLoad {
+  const float2* __restrict__ x;
+  __device__ __forceinline__ void load(float2* s, float2*, long long row0, int valid,
+                                       int n) const {
+    load_run16(x + row0 * n, valid * n, [=](int e, float2 v) { s[rx_slot(e)] = v; });
+  }
+};
+
+// Kernel 3's rows: the (T, h + 1) complex64 half spectrum, contiguous, and
+// the inverse unpack's ab rows. The tile's valid (h + 1)-bin rows are one
+// run (a row of an odd h + 1 bins starts off a 16-byte boundary every
+// other row); element e of the run is bin k = e - r (h + 1) of row
+// r = e / (h + 1), the quotient a multiply-high by floor(2^32 / (h + 1)) + 1
+// (exact while e (h + 1) < 2^32: a tile holds at most 20480 elements, so
+// here e (h + 1) < 2^29), and bin h goes to the row's side slot.
+struct C2rRowLoad {
+  static constexpr int kSide = 1;
+  const float2* __restrict__ x;
+  const float4* __restrict__ ab;
+  __device__ __forceinline__ void load(float2* s, float2* side, long long row0, int valid,
+                                       int n) const {
+    const int w = n + 1;
+    const unsigned magic = 0xffffffffu / (unsigned)w + 1u;
+    load_run16(x + row0 * w, valid * w, [=](int e, float2 v) {
+      const int r = (int)__umulhi((unsigned)e, magic), k = e - r * w;
+      if (k < n) {
+        s[rx_slot(r * n + k)] = v;
+      } else {
+        side[r] = v;
+      }
+    });
+  }
+  template <class Cx>
+  __device__ __forceinline__ void prologue(float2* s, const float2* side, const Cx& cx) const {
+    c2r_prologue_tile(s, side, cx, ab);
+  }
+};
+
+// One block per tile of at most `rows` rows of (T, n), the T rows spread
+// evenly over the `tiles` blocks; tr = ceil(n / kE) threads per row. The
+// table: the stage twiddles at 0 ... n - 2, then each prime stage's
+// coefficient row (ops/hopper/fft.py::radix_consts). The load policy fills
+// the tile (RowLoad: complex rows); the tile's rows past the valid ones
+// are neither loaded nor stored. A load policy with side slots gets them
+// after the coefficient rows and runs its prologue(s, side, cx) on the
+// loaded tile. An Io with kTileOut gets the tile of spectra, in natural
+// order, in its epilogue(s, cx).
+template <int kE, int kS, class Load, class Io>
+__global__ void __launch_bounds__(kRadixMaxThreads<kE>, kRadixMinBlocks<kE>)
+radix_rows_kernel(Load ld, Io io, const float2* __restrict__ tab, RadixPlan plan, int n,
+                  long long T, long long tiles, int rows, float scale) {
+  extern __shared__ float2 smem[];
+  const long long row0 = blockIdx.x * T / tiles;
+  const int valid = (int)((blockIdx.x + 1) * T / tiles - row0);
+  const int tr = (n + kE - 1) / kE;
+  const int c = (int)threadIdx.x / tr;
+  const RadixCtx<RowLayout> cx{n, tr, (int)threadIdx.x - c * tr, RowLayout{c * n}, c < valid,
+                               row0 + c};
+  float2* s = smem;
+  float2* cs = smem + rx_tile_slots(rows * n);
+  float2* side = cs + rx_coef_count(plan);
+  int count[8];
+  radix_prepare(count, cs, tab, plan, n);
+  ld.load(s, side, row0, valid, n);
   __syncthreads();
+  if constexpr (RxSide<Load>::value > 0) {
+    ld.prologue(s, side + c * RxSide<Load>::value, cx);
+    __syncthreads();
+  }
   radix_run<kE, kS>(s, tab, cs, count, plan, cx, io, scale);
   if constexpr (RxTileOut<Io>::value) io.epilogue(s, cx);
 }
 
-// Dynamic shared memory of a block: the padded tile of `rows` rows and the
-// prime stages' coefficient rows.
-inline long long radix_smem_bytes(const RadixPlan& plan, int n, int rows) {
-  return (long long)(rx_tile_slots(rows * n) + rx_coef_count(plan)) * sizeof(float2);
+// Dynamic shared memory of a block: the padded tile of `rows` rows, the
+// prime stages' coefficient rows and `side` slots a row.
+inline long long radix_smem_bytes(const RadixPlan& plan, int n, int rows, int side = 0) {
+  return (long long)(rx_tile_slots(rows * n) + rx_coef_count(plan) + side * rows) *
+         sizeof(float2);
 }
 
-template <int kE, int kS, class Io>
-cudaError_t radix_launch_es(const float2* x, Io io, const float2* tab, const RadixPlan& plan,
+template <int kE, int kS, class Load, class Io>
+cudaError_t radix_launch_es(Load ld, Io io, const float2* tab, const RadixPlan& plan,
                             long long T, int n, int rows, float scale, cudaStream_t stream) {
   const int tr = (n + kE - 1) / kE;
   const int threads = (rows * tr + 31) / 32 * 32;
-  const long long smem = radix_smem_bytes(plan, n, rows);
+  const long long smem = radix_smem_bytes(plan, n, rows, RxSide<Load>::value);
   const long long tiles = (T + rows - 1) / rows;
   if (threads > kRadixMaxThreads<kE> || smem > kMaxSmemBytes || tiles > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(radix_rows_kernel<kE, kS, Io>,
+  cudaError_t e = cudaFuncSetAttribute(radix_rows_kernel<kE, kS, Load, Io>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  radix_rows_kernel<kE, kS, Io><<<(unsigned)tiles, threads, (size_t)smem, stream>>>(
-      x, io, tab, plan, n, T, tiles, rows, scale);
+  radix_rows_kernel<kE, kS, Load, Io><<<(unsigned)tiles, threads, (size_t)smem, stream>>>(
+      ld, io, tab, plan, n, T, tiles, rows, scale);
   return cudaGetLastError();
 }
 
@@ -666,13 +769,14 @@ inline bool radix_plan_of(const int* radices, int stages, int n, RadixPlan& plan
   return prod == n;
 }
 
-// The launcher. x: (T, n) complex64 rows, contiguous; tab: the plan's table
-// (complex64); radices: the plan (`stages` radices whose product is n, each
-// a codelet radix or an odd 11 <= p <= 127); rows: rows per block, at least
-// one, whose tile fits (radix_smem_bytes) and takes at most 256 threads
-// (512 above n = 4096). Returns the cudaError_t of the launch.
-template <class Io>
-cudaError_t radix_rows_launch(const float2* x, Io io, const float2* tab, const int* radices,
+// The launcher. ld: the load policy of T rows of length n (RowLoad:
+// (T, n) complex64 rows, contiguous); tab: the plan's table (complex64);
+// radices: the plan (`stages` radices whose product is n, each a codelet
+// radix or an odd 11 <= p <= 127); rows: rows per block, at least one,
+// whose tile fits (radix_smem_bytes) and takes at most 256 threads (512
+// above n = 4096). Returns the cudaError_t of the launch.
+template <class Load, class Io>
+cudaError_t radix_rows_launch(Load ld, Io io, const float2* tab, const int* radices,
                               int stages, long long T, int n, int rows, int sign, float scale,
                               cudaStream_t stream) {
   RadixPlan plan{};
@@ -680,12 +784,12 @@ cudaError_t radix_rows_launch(const float2* x, Io io, const float2* tab, const i
     return cudaErrorInvalidValue;
   const int e = radix_per_thread(n);
   if (sign < 0)
-    return e == 40 ? radix_launch_es<40, -1>(x, io, tab, plan, T, n, rows, scale, stream)
-         : e == 32 ? radix_launch_es<32, -1>(x, io, tab, plan, T, n, rows, scale, stream)
-                   : radix_launch_es<16, -1>(x, io, tab, plan, T, n, rows, scale, stream);
-  return e == 40 ? radix_launch_es<40, 1>(x, io, tab, plan, T, n, rows, scale, stream)
-       : e == 32 ? radix_launch_es<32, 1>(x, io, tab, plan, T, n, rows, scale, stream)
-                 : radix_launch_es<16, 1>(x, io, tab, plan, T, n, rows, scale, stream);
+    return e == 40 ? radix_launch_es<40, -1>(ld, io, tab, plan, T, n, rows, scale, stream)
+         : e == 32 ? radix_launch_es<32, -1>(ld, io, tab, plan, T, n, rows, scale, stream)
+                   : radix_launch_es<16, -1>(ld, io, tab, plan, T, n, rows, scale, stream);
+  return e == 40 ? radix_launch_es<40, 1>(ld, io, tab, plan, T, n, rows, scale, stream)
+       : e == 32 ? radix_launch_es<32, 1>(ld, io, tab, plan, T, n, rows, scale, stream)
+                 : radix_launch_es<16, 1>(ld, io, tab, plan, T, n, rows, scale, stream);
 }
 
 // One block per (b, tile of at most C adjacent columns), the L columns
@@ -694,9 +798,12 @@ cudaError_t radix_rows_launch(const float2* x, Io io, const float2* tab, const i
 // place t. The load policy gives the columns: ld.base(b, col) is column
 // col's handle and ld.at(p, r) its element r, a tile row (C columns) read by
 // consecutive threads, four elements in flight a thread; columns past the
-// valid ones are zero and neither loaded nor stored. The Io stores the last
-// stage's outputs at io.handle(b, col) (store(handle, k, v)), or, kTileOut,
-// gets the tile of spectra in its epilogue(s, cx).
+// valid ones are zero and neither loaded nor stored. A load policy with
+// side slots (kSide = 1) also loads element n of each column into its side
+// slot, after the coefficient rows, and runs its prologue(s, side, cx) on
+// the loaded tile. The Io stores the last stage's outputs at
+// io.handle(b, col) (store(handle, k, v)), or, kTileOut, gets the tile of
+// spectra in its epilogue(s, cx).
 template <int kE, int kS, class Load, class Io>
 __global__ void __launch_bounds__(kRadixMaxThreads<kE>, kRadixMinBlocks<kE>)
 radix_cols_kernel(Load ld, Io io, const float2* __restrict__ tab, RadixPlan plan, int n,
@@ -714,6 +821,7 @@ radix_cols_kernel(Load ld, Io io, const float2* __restrict__ tab, RadixPlan plan
                                io.handle(bb, col0) + c};
   float2* s = smem;
   float2* cs = smem + cx_tile_slots(n * C);
+  float2* side = cs + rx_coef_count(plan);
   int count[8];
   radix_prepare(count, cs, tab, plan, n);
   // the tile, element e = (r, cc) at e = r C + cc
@@ -733,7 +841,16 @@ radix_cols_kernel(Load ld, Io io, const float2* __restrict__ tab, RadixPlan plan
       if (e < elems) s[cx_slot(e)] = v[u];
     }
   }
+  if constexpr (RxSide<Load>::value > 0) {
+    static_assert(RxSide<Load>::value == 1, "one side slot a column");
+    for (int cc = threadIdx.x; cc < C; cc += blockDim.x)
+      side[cc] = cc < valid ? ld.at(base + cc, n) : make_float2(0.f, 0.f);
+  }
   __syncthreads();
+  if constexpr (RxSide<Load>::value > 0) {
+    ld.prologue(s, side + c, cx);
+    __syncthreads();
+  }
   radix_run<kE, kS>(s, tab, cs, count, plan, cx, io, scale);
   if constexpr (RxTileOut<Io>::value) io.epilogue(s, cx);
 }
@@ -744,7 +861,9 @@ cudaError_t radix_cols_launch_e(Load ld, Io io, const float2* tab, const RadixPl
                                 cudaStream_t stream) {
   const int tr = (n + kE - 1) / kE;
   const int threads = (C * tr + 31) / 32 * 32;
-  const long long smem = (long long)(cx_tile_slots(n * C) + rx_coef_count(plan)) * sizeof(float2);
+  const long long smem =
+      (long long)(cx_tile_slots(n * C) + rx_coef_count(plan) + RxSide<Load>::value * C) *
+      sizeof(float2);
   const long long tiles = (L + C - 1) / C;
   if (threads > kRadixMaxThreads<kE> || smem > kMaxSmemBytes || B * tiles > 0x7fffffffLL)
     return cudaErrorInvalidValue;

@@ -32,7 +32,7 @@ extern "C" int ndfft_c2c_rows_radix(const void* x, void* y, const void* table,
                                     const int* radices, int stages, long long T, int n,
                                     int rows, int sign, float scale, void* stream) {
   using namespace ndfft;
-  return (int)radix_rows_launch(static_cast<const float2*>(x),
+  return (int)radix_rows_launch(RowLoad{static_cast<const float2*>(x)},
                                 RowStore{static_cast<float2*>(y), n},
                                 static_cast<const float2*>(table), radices, stages, T, n, rows,
                                 sign, scale, static_cast<cudaStream_t>(stream));

@@ -1,6 +1,6 @@
-// Kernels 16, 18 and 20: the R2C along the middle axis, on the mixed-radix
-// core's column tile (fft_radix.cuh::radix_cols_kernel, kernels 1, 6 and
-// 4's skeleton). Kernels 16 and 20 take a (B, n, L) float32 tensor to
+// Kernels 16, 18 and 20: the R2C along the middle axis, and kernel 17, the
+// C2R, on the mixed-radix core's column tile (fft_radix.cuh::
+// radix_cols_kernel, kernels 1, 6 and 4's skeleton). Kernels 16 and 20 take a (B, n, L) float32 tensor to
 // (B, n / 2 + 1, L) complex64: kernel 16 n = 2h, h = 128 * F (F = 2 ...
 // 160); kernel 20 every 4 <= n <= 1100 whose transform length (h for even
 // n, n for odd n) has a plan (ops/hopper/fft.py::radix_plan; its 326 other
@@ -11,12 +11,17 @@
 // middle axis is its caller, the streams the even and odd samples of the
 // odd extension [0, x, 0, -flip(x)] (ops/dst.py::dst1_streams).
 //
+// Kernel 17 takes a (B, h + 1, L) complex64 half spectrum to (B, 2h, L)
+// float32, times a scale, h = 128 * F (F = 2 ... 160 with a plan), with the
+// DC and Nyquist imaginary parts ignored.
+//
 // Kernel 16 replaces ndrustfft_tpu/ops/pallas/rfft.py::_r2c_kernel_mid
 // (:443, built by _build_r2c_mid and called at :532); kernel 18 replaces
 // ::_r2c_kernel_packed_mid (:627, called at :682 by r2c_pallas_packed_mid);
-// kernel 20 replaces ::_r2c_dense_kernel (:882, called at :932). The TPU
+// kernel 20 replaces ::_r2c_dense_kernel (:882, called at :932); kernel 17
+// replaces ::_c2r_kernel_mid (:470, called at :587). The TPU
 // kernels ran the half-length FFT as the bts2 core's dense DFT-128 stage
-// (kernels 16 and 18) and the whole R2C as one real product (kernel 20),
+// (kernels 16, 17 and 18) and the whole R2C as one real product (kernel 20),
 // cheap on a 128 x 128 MXU. Their first Hopper forms ran the same on the
 // FP32 cores: kernels 16 and 18 on the bts2 core (r2c_col.cuh), bound by its
 // stage-2 DFT-128 (kernel 16 at 7.6x its byte bound at (1, 512, 262144),
@@ -64,6 +69,26 @@
 // at the Dirichlet solve's (1, 1024, 1046529) 4 columns, the 16-element
 // rule's, took 31% longer on an H100). Shared memory: the tile, 8 h C
 // (17 / 16) bytes (8 n C at odd n), and the prime rows.
+//
+// Kernel 17 is kernel 16 backwards, its first Hopper form the bts2 column
+// tile (2.191 ms at (1, 257, 262144), 6.8x its byte bound, and 3.1x
+// torch.fft.irfft on the wide core at (1, 641, 1280)), whose pre-pass read
+// rows k and h - k of the spectrum from device memory for each element.
+// Here the load (C2rCol) reads rows k < h of the column into the tile and
+// row h into the column's side slot, each row once, consecutive threads on
+// consecutive columns; after the barrier the prologue
+// (fft_radix.cuh::c2r_prologue_tile, kernel 3's) replaces the bins in place
+// with G[k] = A[k] S[k] + B[k] conj S[h - k] (the DC and Nyquist imaginary
+// parts ignored; the scale rides A and B), one thread a mirror pair; behind
+// a second barrier radix_run runs radix_plan(h) with the sign +1 table and
+// leaves z in the tile, and an epilogue writes Re z[l] to real row 2l and
+// Im z[l] to row 2l + 1 of out[b, :, col0 + c], a tile row at a time
+// (C2rColBins). (Storing from the last stage made ptxas spill 4512, 9140
+// and 13444 bytes a thread at 16, 32 and 40 elements against 40, 56 and
+// 1640 through the tile, and ran 1.09-2.18x slower at every shape and C
+// scanned on an H100: time_kernels.py --scan-c2r.) Columns a tile:
+// ops/hopper/rfft.py::c2r_mid_cols (kernel 18's rule, the fastest count at
+// each of nine shapes scanned).
 // Left for later: cp.async or TMA loads, the odd length's Hermitian half of
 // the work (half the C2C's outputs are dropped), and for kernel 18 reading
 // x itself in the load instead of the two streams its caller builds (two
@@ -151,6 +176,48 @@ struct R2cOddBins {
   }
 };
 
+// Kernel 17's columns: element k of column col of b at spec[(b (h + 1) + k)
+// L + col], rows k < h into the tile, row h into the side slot (at(p, h));
+// the prologue is the inverse unpack with the ab rows.
+struct C2rCol {
+  static constexpr int kSide = 1;
+  const float2* __restrict__ x;
+  const float4* __restrict__ ab;
+  long long L;
+  int h;
+  __device__ __forceinline__ long long base(long long b, long long col) const {
+    return b * (h + 1) * L + col;
+  }
+  __device__ __forceinline__ float2 at(long long p, int r) const { return __ldcs(x + p + r * L); }
+  template <class Cx>
+  __device__ __forceinline__ void prologue(float2* s, const float2* side, const Cx& cx) const {
+    c2r_prologue_tile(s, side, cx, ab);
+  }
+};
+
+// Kernel 17's store: the tile holds z (the last stage's outputs kept as
+// they are), and each column's threads write its real rows 2l and 2l + 1
+// of y[b] (B, 2h, L), l < h.
+struct C2rColBins {
+  static constexpr bool kTileOut = true;
+  float* __restrict__ y;
+  long long L;
+  int h;
+  __device__ __forceinline__ long long handle(long long b, long long col) const {
+    return b * 2 * h * L + col;
+  }
+  __device__ __forceinline__ float2 out(int, float2 v) const { return v; }
+  template <class Cx>
+  __device__ __forceinline__ void epilogue(const float2* s, const Cx& cx) const {
+    if (!cx.active) return;
+    for (int l = cx.t; l < h; l += cx.tr) {
+      const float2 v = s[cx.slot(l)];
+      y[cx.row + 2 * l * L] = v.x;
+      y[cx.row + (2 * l + 1) * L] = v.y;
+    }
+  }
+};
+
 }  // namespace ndfft
 
 // x: (B, n, L) float32; y: (B, n / 2 + 1, L) complex64; both contiguous.
@@ -199,4 +266,24 @@ extern "C" int ndfft_r2c_packed_mid_radix(const void* xe, const void* xo, void* 
       PackedCol{static_cast<const float*>(xe), static_cast<const float*>(xo), L, h},
       R2cColUnpack{static_cast<float2*>(y), static_cast<const float2*>(u), L, h, scale},
       static_cast<const float2*>(table), plan, B, h, L, C, 1.f, static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 17. spec: (B, h + 1, L) complex64; out: (B, 2h, L) float32; both
+// contiguous. table: the inverse (sign +1) radix table of h
+// (ops/hopper/fft.py::radix_consts); radices: radix_plan(h), `stages` of
+// them; ab: (h, 4) float32 rows (A.re, A.im, B.re, B.im) with the scale
+// folded in (ops/hopper/rfft.py::c2r_unpack_consts); C: columns per tile
+// as for ndfft_r2c_mid_radix at h (ops/hopper/rfft.py::c2r_mid_cols).
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int ndfft_c2r_mid_radix(const void* spec, void* out, const void* table,
+                                   const int* radices, int stages, const void* ab, long long B,
+                                   int h, long long L, int C, void* stream) {
+  using namespace ndfft;
+  RadixPlan plan{};
+  if (!radix_plan_of(radices, stages, h, plan) || ab == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return (int)radix_cols_launch<1>(
+      C2rCol{static_cast<const float2*>(spec), static_cast<const float4*>(ab), L, h},
+      C2rColBins{static_cast<float*>(out), L, h}, static_cast<const float2*>(table), plan, B, h,
+      L, C, 1.f, static_cast<cudaStream_t>(stream));
 }

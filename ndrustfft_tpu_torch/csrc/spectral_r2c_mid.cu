@@ -6,7 +6,8 @@
 // Replaces ndrustfft_tpu/ops/pallas/rfft.py::_spectral_kernel_mid (built by
 // _build_spectral_mid, called by spectral_pallas_mid). It is kernel 16's
 // load and half-length FFT (its bts2 form), a pair pass, and kernel 17's
-// half-length inverse and store (rfft_mid.cu), on one column tile:
+// half-length inverse and store (its bts2 form, retired from
+// rfft_mid.cu), on one column tile:
 //
 //   z[t] = x[2t] + i x[2t+1],  Z = FFT_h(z),
 //   X[k] = the R2C unpack of Z[k] and Z[h - k] (bts2_core.cuh::r2c_unpack_one),

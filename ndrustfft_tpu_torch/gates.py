@@ -230,7 +230,7 @@ def r2c_lane_route(n: int, batch: int) -> str:
 
 def c2r_lane_route(n: int, batch: int) -> str:
     """Route of engine.c2r to length n over ``batch`` complex64 rows: kernel
-    3 at a natural-layout half length (the fixed or the wide core), else the
+    3 at a natural-layout half length (the radix row core), else the
     Hermitian extension's C2C."""
     if n == 1:
         return ENGINE

@@ -39,8 +39,6 @@ _F = ctypes.c_float
 # C entry points and their argument types (see csrc/*.cu)
 _SIGNATURES = {
     "ndfft_c2c_dense": [_P, _P, _P, _P, _LL, _I, _LL, _I, _P],
-    "ndfft_c2r_nat": [_P, _P, _P, _P, _LL, _I, _I, _P],
-    "ndfft_c2r_mid": [_P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_r2c_dense_mid": [_P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_c2r_dense_mid": [_P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_r2c_dense_rows": [_P, _P, _P, _LL, _I, _I, _P],
@@ -52,8 +50,8 @@ _SIGNATURES = {
     "ndfft_r2c_radix": [_P, _P, _P, _P, _I, _P, _LL, _I, _I, _P],
     "ndfft_r2c_mid_radix": [_P, _P, _P, _P, _I, _P, _LL, _I, _LL, _I, _P],
     "ndfft_r2c_packed_mid_radix": [_P, _P, _P, _P, _P, _I, _P, _F, _LL, _I, _LL, _I, _P],
-    "ndfft_c2r_nat_wide": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
-    "ndfft_c2r_mid_wide": [_P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
+    "ndfft_c2r_radix": [_P, _P, _P, _P, _I, _P, _LL, _I, _I, _P],
+    "ndfft_c2r_mid_radix": [_P, _P, _P, _P, _I, _P, _LL, _I, _LL, _I, _P],
     "ndfft_dct_nat_wide": [_I, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_dct_nat_npoint": [_I, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_dct_mid": [_I, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],

@@ -65,7 +65,7 @@ from .fft import (C2C_F, CORE_F, M, REAL_MAX_F, WIDE_MAX_F, block_cols, block_ro
                   check_mult, chirp_z_plain, count_launch, dense_tile, device_wide, device_wq,
                   f32_pair, mult_planes, num_sms, pair_tensor, wide_block, wide_bytes,
                   wide_real_bytes)
-from .rfft import _device_ab, _device_tw, c2r_mid_plain, r2c_mid_plain
+from .rfft import _bts2_col_c2r_plain, _device_ab, _device_tw, r2c_mid_plain
 
 DCT_F = (1, 2, 4, 8, 16)   # half-length factors F of kernels 23/24's fixed core
 
@@ -258,8 +258,9 @@ def _dct2_plain(x: torch.Tensor, scale) -> torch.Tensor:
 
 def _dct3_plain(x: torch.Tensor, scale) -> torch.Tensor:
     """scale * DCT-III along dim 1 of a (B, n, L) float32 tensor in the
-    kernels' form at n: S[k] = Q[k] (x[k] - i x[n-k]) and kernel 17's C2R
-    (half length), or the n-point FFT of the pre-twiddled column (its real
+    kernels' form at n: S[k] = Q[k] (x[k] - i x[n-k]) and the bts2 column
+    C2R (half length, :func:`~.rfft._bts2_col_c2r_plain`, the arithmetic of
+    the kernels' core), or the n-point FFT of the pre-twiddled column (its real
     part); then the un-permutation y[2t] = u[t], y[2t+1] = u[n-1-t]."""
     nb, n, cols = x.shape
     s = _scale(scale)
@@ -272,7 +273,7 @@ def _dct3_plain(x: torch.Tensor, scale) -> torch.Tensor:
         k = torch.arange(h + 1, device=x.device)
         spec = (_device_twiddle("pre", n, s, x.device)[:, None]
                 * torch.complex(xz[:, k], -xz[:, n - k]))
-        u = c2r_mid_plain(spec, n, None)
+        u = _bts2_col_c2r_plain(spec, n, None)
     return u[:, _device_index("unperm", n, x.device)]
 
 

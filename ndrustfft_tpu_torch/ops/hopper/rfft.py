@@ -1,22 +1,18 @@
 """The R2C and C2R kernels.
 
-* Kernel 2, :func:`r2c_nat`: R2C of contiguous (T, n) rows, even n,
-  h = n/2 = 128 * F, at every F on the mixed-radix row core with the unpack
-  as its epilogue in shared memory (``csrc/rfft_radix.cu`` on
-  ``csrc/fft_radix.cuh``; replaces the JAX package's
-  ``ops/pallas/rfft.py::_r2c_kernel_nat``).
-* Kernel 3, :func:`c2r_nat`: the C2R of the same rows (``csrc/rfft_nat.cu``
-  on the shared core ``csrc/bts2_core.cuh`` for F in {1, 2, 4, 8, 16}, on
-  its runtime-F form ``csrc/bts2_wide.cuh`` for every other F <= 160;
-  replaces ``rfft.py::_c2r_kernel_nat``).
+* Kernels 2 and 3, :func:`r2c_nat` and :func:`c2r_nat`: R2C of contiguous
+  (T, n) rows, even n, h = n/2 = 128 * F, and its C2R, at every F on the
+  mixed-radix row core, the unpack as the R2C's epilogue and the inverse
+  unpack as the C2R's prologue, both in shared memory
+  (``csrc/rfft_radix.cu`` on ``csrc/fft_radix.cuh``; replace the JAX
+  package's ``ops/pallas/rfft.py::_r2c_kernel_nat`` and
+  ``_c2r_kernel_nat``).
 * Kernels 16 and 17, :func:`r2c_mid` and :func:`c2r_mid`: the same two along
   the middle axis of (B, n, L), replacing ``rfft.py::_r2c_kernel_mid`` and
-  ``_c2r_kernel_mid``. Kernel 16 is the half-length C2C on the mixed-radix
-  core's column tile with the unpack as its epilogue in shared memory
-  (``csrc/rfft_mid_radix.cu`` on ``csrc/fft_radix.cuh``); kernel 17 runs
-  kernel 1's column-tile layout of the bts2 core (``csrc/rfft_mid.cu``, the
-  fixed core for F in {2, 4, 8, 16}, the wide core for every other
-  F <= 160).
+  ``_c2r_kernel_mid``: the half-length C2C on the mixed-radix core's column
+  tile, with the unpack as kernel 16's epilogue and the inverse unpack as
+  kernel 17's prologue, in shared memory (``csrc/rfft_mid_radix.cu`` on
+  ``csrc/fft_radix.cuh``).
 * Kernels 20 and 21, :func:`r2c_dense_mid` and :func:`c2r_dense_mid`: R2C and
   C2R along the middle axis, 4 <= n <= 1100, odd n included, replacing
   ``rfft.py::_r2c_dense_kernel`` and ``_c2r_dense_kernel``. Kernel 20 runs
@@ -51,10 +47,10 @@
 
 This module holds their host-built constants, their plain PyTorch versions
 and their wrappers, whose ``launches`` attributes count kernel launches
-(kernels 3, 17, 19 and 22 on the bts2 core also count the wide core's
-launches apart, in ``wide_launches``; kernels 2 and 15 at h = 128 * F and
-kernels 16 and 18 count every launch in ``radix_launches`` as well, kernel
-20 its launches on the radix column tile).
+(kernels 19 and 22 on the bts2 core also count the wide core's launches
+apart, in ``wide_launches``; kernels 2, 3 and 15 at h = 128 * F and
+kernels 16, 17 and 18 count every launch in ``radix_launches`` as well,
+kernel 20 its launches on the radix column tile).
 """
 
 from __future__ import annotations
@@ -68,7 +64,7 @@ import torch
 from ...plan import _cis
 from . import _build
 from .fft import (CORE_F, GENERIC_MAX_N, M, RADIX_MAX_ELEMS, RADIX_MAX_STAGES,
-                  RADIX_MAX_THREADS, block_cols, block_rows, bts2_plain, c2c_radix_mid_plain,
+                  RADIX_MAX_THREADS, block_cols, bts2_plain, c2c_radix_mid_plain,
                   c2c_radix_rows_plain, check_cuda, check_mult, core_f, count_launch,
                   dense_tile, device_radix, device_wide, device_wq, generic_split,
                   mult_planes, num_sms, radix_block, radix_cols_threads, radix_mid_cols,
@@ -77,10 +73,7 @@ from .fft import (CORE_F, GENERIC_MAX_N, M, RADIX_MAX_ELEMS, RADIX_MAX_STAGES,
 # lengths kernels 20 and 21 take: the JAX package's rfft_dense_mid_supported
 # (its _DENSE_RFFT_MAX), which the routes mirror
 DENSE_MIN_N, DENSE_MAX_N = 4, 1100
-# half-length factors the fixed core of kernel 3 instantiates (every other
-# h = 128 * F runs on the wide core), and the dense lane DFT's h <= 256 (the
-# JAX package's _half_fft_consts)
-PACKED_F = (1, 2, 4, 8, 16)
+# the dense lane DFT's h <= 256 (the JAX package's _half_fft_consts)
 PACKED_DENSE_MAX_H = 256
 
 
@@ -174,19 +167,20 @@ def _inverse_unpack(s: torch.Tensor, n: int, scale, dim: int) -> torch.Tensor:
 
 
 def c2r_nat_plain(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
-    """Plain version of kernel 3: (T, n/2+1) complex64 -> (T, n) float32,
-    times ``scale``, with the DC and Nyquist imaginary parts ignored."""
+    """Plain version of kernel 3 on the radix row core: (T, n/2+1) complex64
+    -> (T, n) float32, times ``scale``, with the DC and Nyquist imaginary
+    parts ignored: the inverse unpack G (:func:`_inverse_unpack`), then the
+    radix core's plain version with the sign +1 table on the kernel's plan
+    (:func:`~.fft.c2c_radix_rows_plain`), z read as the real row's pairs."""
     t = s.shape[0]
-    h = n // 2
-    g = _inverse_unpack(s, n, scale, -1)
-    z = bts2_plain(g.reshape(t, h, 1), device_wq(h, +1, 1.0, s.device),
-                   +1).reshape(t, h)
+    z = c2c_radix_rows_plain(_inverse_unpack(s, n, scale, -1), +1)
     return torch.view_as_real(z).reshape(t, n)
 
 
 def _check_nat(n: int, what: str) -> int:
-    """F of the half length h = n/2 = 128 * F where the bts2 core (fixed or
-    wide) takes h (kernels 2, 3, 15, 16 and 17), or raise."""
+    """F of the half length h = n/2 = 128 * F that kernels 2, 3, 15, 16, 17
+    and 22 take (:func:`~.fft.core_f`: the JAX package's twostep split and a
+    plan; the radix core has radix_plan(h) at each), or raise."""
     f = None if n % 2 else core_f(n // 2)
     if f is None:
         raise ValueError(f"{what}: n={n} is not 2 h with h = 128 * F, a twostep split "
@@ -246,13 +240,35 @@ r2c_nat.launches = 0
 r2c_nat.radix_launches = 0
 
 
+def c2r_radix_launch(s: torch.Tensor, n: int, scale=None, rows=None) -> torch.Tensor:
+    """Kernel 3 on the (T, n/2+1) complex64 rows of a CUDA tensor: the radix
+    row core with the inverse unpack as its prologue, ``rows`` a block (by
+    default :func:`~.fft.radix_block`); counts nothing."""
+    check_cuda(s, torch.complex64, "c2r_nat")
+    t = s.shape[0]
+    h = n // 2
+    out = torch.empty((t, n), dtype=torch.float32, device=s.device)
+    if t == 0:
+        return out
+    plan = radix_plan(h)
+    ab = _device_ab(n, 1.0 if scale is None else float(scale), s.device)
+    with torch.cuda.device(s.device):
+        err = _build.lib().ndfft_c2r_radix(
+            s.data_ptr(), out.data_ptr(), device_radix(h, +1, s.device).data_ptr(),
+            (ctypes.c_int * RADIX_MAX_STAGES)(*plan), len(plan), ab.data_ptr(), t, h,
+            rows or radix_block(h, t, num_sms(s.device)),
+            torch.cuda.current_stream(s.device).cuda_stream)
+    _build.check(err, "c2r_nat")
+    return out
+
+
 def c2r_nat(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
     """C2R of the rows of a (T, n/2+1) complex64 spectrum -> (T, n) float32,
     h = n/2 = 128 * F, times ``scale``; the DC and Nyquist imaginary parts
     are ignored. A CPU tensor runs the plain version; a CUDA tensor launches
-    kernel 3 (on the fixed core for F in PACKED_F, else on the wide core) or
-    raises."""
-    f = _check_nat(n, "c2r_nat")
+    kernel 3 on the radix row core, counted in ``launches`` and
+    ``radix_launches``, or raises."""
+    _check_nat(n, "c2r_nat")
     h = n // 2
     if s.dim() != 2 or s.shape[1] != h + 1:
         raise ValueError(f"c2r_nat: expected (T, {h + 1}), got {tuple(s.shape)}")
@@ -260,38 +276,18 @@ def c2r_nat(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
         return c2r_nat_plain(s, n, scale)
     if s.device.type != "cuda":
         raise ValueError(f"c2r_nat: unsupported device {s.device}")
-    check_cuda(s, torch.complex64, "c2r_nat")
-    t = s.shape[0]
-    sc = 1.0 if scale is None else float(scale)
-    wq = device_wq(h, +1, 1.0, s.device)
-    ab = _device_ab(n, sc, s.device)
-    out = torch.empty((t, n), dtype=torch.float32, device=s.device)
-    if t == 0:
-        return out
-    wide = f not in PACKED_F
-    stream = torch.cuda.current_stream(s.device).cuda_stream
-    with torch.cuda.device(s.device):
-        if wide:
-            err = _build.lib().ndfft_c2r_nat_wide(
-                s.data_ptr(), out.data_ptr(), wq.data_ptr(),
-                device_wide(h, +1, s.device).data_ptr(), ab.data_ptr(), t, n,
-                wide_block(h, 1, t, num_sms(s.device)), stream)
-        else:
-            err = _build.lib().ndfft_c2r_nat(
-                s.data_ptr(), out.data_ptr(), wq.data_ptr(), ab.data_ptr(), t, n,
-                block_rows(h, t, num_sms(s.device)), stream)
-    _build.check(err, "c2r_nat")
-    count_launch(c2r_nat, wide)
+    out = c2r_radix_launch(s, n, scale)
+    c2r_nat.launches += s.shape[0] > 0
+    c2r_nat.radix_launches += s.shape[0] > 0
     return out
 
 
 c2r_nat.launches = 0
-c2r_nat.wide_launches = 0
+c2r_nat.radix_launches = 0
 
 
 # --------------------------------------------------------------------------
-# Kernels 16 and 20 on the radix column tile; kernel 17 on the bts2 core
-# (fixed or wide)
+# Kernels 16, 17 and 20 on the radix column tile
 # --------------------------------------------------------------------------
 
 
@@ -365,9 +361,22 @@ def _r2c_mid_radix(wrapper, x: torch.Tensor) -> torch.Tensor:
 
 
 def c2r_mid_plain(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
-    """Plain version of kernel 17: (B, n/2+1, L) complex64 -> (B, n, L)
-    float32 along dim 1, times ``scale``, with the DC and Nyquist imaginary
-    parts ignored."""
+    """Plain version of kernel 17 on the radix column tile: (B, n/2+1, L)
+    complex64 -> (B, n, L) float32 along dim 1, times ``scale``, with the DC
+    and Nyquist imaginary parts ignored: the inverse unpack G
+    (:func:`_inverse_unpack`), then the radix core's plain version with the
+    sign +1 table (:func:`~.fft.c2c_radix_mid_plain`), z[l] as real rows 2l
+    and 2l + 1."""
+    nb, _, cols = s.shape
+    z = c2c_radix_mid_plain(_inverse_unpack(s, n, scale, 1), +1)
+    return torch.stack([z.real, z.imag], dim=2).reshape(nb, n, cols)
+
+
+def _bts2_col_c2r_plain(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
+    """The bts2 column C2R's plain version (kernels 22 and 26, whose inverse
+    runs the bts2 core): (B, n/2+1, L) complex64 -> (B, n, L) float32, the
+    inverse unpack G, then the core's plain version with the sign +1 Wq,
+    z[l] as real rows 2l and 2l + 1."""
     nb, _, cols = s.shape
     h = n // 2
     g = _inverse_unpack(s, n, scale, 1)
@@ -384,28 +393,32 @@ def _check_mid(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
         raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
 
 
-def _launch_c2r_mid(s: torch.Tensor, out: torch.Tensor, n: int, ab: torch.Tensor) -> None:
-    """Kernel 17 on (B, n/2+1, L): the fixed core for F in CORE_F, else the
-    wide core; adds one to :func:`c2r_mid`'s launch counts."""
+def c2r_mid_cols(h: int, groups: int, cols: int, sms: int) -> int:
+    """Columns per tile of kernel 17 at half length h: kernel 18's rule
+    (:func:`packed_mid_cols`: kernel 16's below h = 1024, up to 16 columns
+    in the 32- or 40-element form from h = 1024 on). (On an H100 its count
+    ran fastest of every C that fits at (1, 257, 262144), (512, 257, 512),
+    (1, 641, 1280), (1, 385, 295680), (1, 513, 131072), (1, 1025, 65536),
+    (1, 2049, 32768), (1, 4097, 16384) and (1, 10241, 130):
+    time_kernels.py --scan-c2r.)"""
+    return packed_mid_cols(h, groups, cols, sms)
+
+
+def c2r_mid_radix_launch(s: torch.Tensor, out: torch.Tensor, n: int, scale, c: int) -> None:
+    """Launch kernel 17 on the radix column tile, ``c`` columns a tile
+    (:func:`c2r_mid_cols`), on the (B, n/2+1, L) complex64 CUDA tensor s
+    into the (B, n, L) float32 out; counts nothing."""
     nb, _, cols = s.shape
+    dev = s.device
     h = n // 2
-    wide = h // M not in CORE_F
-    entry = "ndfft_c2r_mid" + ("_wide" if wide else "")
-    wq = device_wq(h, +1, 1.0, s.device)
-    sms = num_sms(s.device)
-    stream = torch.cuda.current_stream(s.device).cuda_stream
-    with torch.cuda.device(s.device):
-        if wide:
-            err = _build.lib().ndfft_c2r_mid_wide(
-                s.data_ptr(), out.data_ptr(), wq.data_ptr(),
-                device_wide(h, +1, s.device).data_ptr(), ab.data_ptr(), nb, n, cols,
-                wide_block(h, nb, cols, sms), stream)
-        else:
-            err = _build.lib().ndfft_c2r_mid(
-                s.data_ptr(), out.data_ptr(), wq.data_ptr(), ab.data_ptr(), nb, n,
-                cols, block_cols(h, nb, cols, sms), stream)
-    _build.check(err, entry)
-    count_launch(c2r_mid, wide)
+    plan = radix_plan(h)
+    ab = _device_ab(n, 1.0 if scale is None else float(scale), dev)
+    with torch.cuda.device(dev):
+        err = _build.lib().ndfft_c2r_mid_radix(
+            s.data_ptr(), out.data_ptr(), device_radix(h, +1, dev).data_ptr(),
+            (ctypes.c_int * RADIX_MAX_STAGES)(*plan), len(plan), ab.data_ptr(), nb, h, cols, c,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ndfft_c2r_mid_radix")
 
 
 def r2c_mid(x: torch.Tensor) -> torch.Tensor:
@@ -431,8 +444,8 @@ def c2r_mid(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
     """C2R along dim 1 of a (B, n/2+1, L) complex64 spectrum -> (B, n, L)
     float32, times ``scale``; the DC and Nyquist imaginary parts are ignored.
     h = n/2 = 128 * F (:func:`_check_nat`). A CPU tensor runs the plain
-    version; a CUDA tensor launches kernel 17 (on the fixed core for F in
-    {2, 4, 8, 16}, else on the wide core) or raises."""
+    version; a CUDA tensor launches kernel 17 on the radix column tile,
+    counted in ``launches`` and ``radix_launches``, or raises."""
     _check_mid(s, torch.complex64, "c2r_mid")
     _check_nat(n, "c2r_mid")
     nb, m, cols = s.shape
@@ -443,16 +456,17 @@ def c2r_mid(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
     if s.device.type != "cuda":
         raise ValueError(f"c2r_mid: unsupported device {s.device}")
     check_cuda(s, torch.complex64, "c2r_mid")
-    sc = 1.0 if scale is None else float(scale)
     out = torch.empty((nb, n, cols), dtype=torch.float32, device=s.device)
     if s.numel() == 0:
         return out
-    _launch_c2r_mid(s, out, n, _device_ab(n, sc, s.device))
+    c2r_mid_radix_launch(s, out, n, scale, c2r_mid_cols(n // 2, nb, cols, num_sms(s.device)))
+    c2r_mid.launches += 1
+    c2r_mid.radix_launches += 1
     return out
 
 
 c2r_mid.launches = 0
-c2r_mid.wide_launches = 0
+c2r_mid.radix_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -465,11 +479,12 @@ def spectral_r2c_mid_plain(x: torch.Tensor, hr: torch.Tensor, hi, n: int,
     """Plain version of kernel 22: the bts2 column R2C on the even and odd
     samples (:func:`_bts2_col_r2c_plain`, kernel 22's forward arithmetic),
     the product with H = hr + i hi ((m, 1) or (m, L), m = n/2 + 1; hi None
-    for a real H), then kernel 17's, which ignores the product's DC and
+    for a real H), then the bts2 column C2R (:func:`_bts2_col_c2r_plain`,
+    kernel 22's inverse arithmetic), which ignores the product's DC and
     Nyquist imaginary parts (the JAX kernel's mask and its Nyquist row
     Re(H[h]) X[h])."""
     spec = _bts2_col_r2c_plain(x[:, 0::2], x[:, 1::2])
-    return c2r_mid_plain(spec * (hr if hi is None else torch.complex(hr, hi)), n, scale)
+    return _bts2_col_c2r_plain(spec * (hr if hi is None else torch.complex(hr, hi)), n, scale)
 
 
 def spectral_r2c_mid(x: torch.Tensor, hr: torch.Tensor, hi, n: int, scale=None) -> torch.Tensor:

@@ -252,15 +252,14 @@ def test_rfft2d_runs_on_the_mid_kernels(dev):
         assert [f.launches - b for f, b in zip(fns, before)] == want
         assert _rel(y.to(torch.complex128), torch.fft.rfft(x.double(), dim=0)) <= 1e-5
         assert _rel(back, x) <= 1e-5
-    # n = 768 (h = 384, F = 3): kernel 16 on the radix column tile, kernel
-    # 17 on the wide core
+    # n = 768 (h = 384, F = 3): kernels 16 and 17 on the radix column tile
     x = torch.randn(768, 256, generator=g, device=dev)
     h = nd.R2cFftHandler(768)
-    before = [krfft.r2c_mid.radix_launches, krfft.c2r_mid.wide_launches]
+    before = [krfft.r2c_mid.radix_launches, krfft.c2r_mid.radix_launches]
     y = nd.ndfft_r2c(x, h, axis=0)
     back = nd.ndifft_r2c(y, h, axis=0)
     assert [krfft.r2c_mid.radix_launches - before[0],
-            krfft.c2r_mid.wide_launches - before[1]] == [1, 1]
+            krfft.c2r_mid.radix_launches - before[1]] == [1, 1]
     assert _rel(y, krfft.r2c_mid_plain(x[None])[0]) <= TOL
     assert _rel(back, x) <= 1e-5
 
@@ -341,8 +340,9 @@ def test_real_step_600_runs_on_the_generic_kernels(dev):
 
 
 def test_wide_kernels_match_plain(dev):
-    """Kernel 3 on the wide core, kernel 1 at the same F on the radix column
-    tile and kernels 10, 2 and 15 on the radix row core: odd, even and prime
+    """The lengths the wide core took: kernel 1 at F outside the fixed
+    core's on the radix column tile and kernels 10, 2, 3 and 15 on the radix
+    row core: odd, even and prime
     F (3, 5, 6, 9, 32, 127, 160), ragged column and row tiles, and one
     column or row per block at n = 16256 and 20480."""
     g = torch.Generator(device=dev).manual_seed(10)
@@ -351,8 +351,7 @@ def test_wide_kernels_match_plain(dev):
         return torch.view_as_complex(torch.randn(*shape, 2, generator=g, device=dev))
 
     fns = (kfft.c2c_axis_mid, kfft.c2c_rows, krfft.r2c_nat, krfft.c2r_nat, krfft.r2c_packed)
-    forms = ("radix_launches", "radix_launches", "radix_launches", "wide_launches",
-             "radix_launches")
+    forms = ("radix_launches",) * 5
     before = [getattr(f, a) for f, a in zip(fns, forms)]
     for shape in ((2, 768, 130), (1, 640, 129), (3, 384, 385), (1, 4096, 33), (1, 16256, 3),
                   (1, 20480, 2)):
@@ -454,13 +453,13 @@ def test_kernel10_and_kernel2_run_the_radix_row_core(dev):
 
 
 def test_real_step_768_runs_on_the_wide_kernels(dev):
-    """The 768^2 real step with the real axis last: kernel 2 at h = 384
-    (F = 3) on the radix row core, kernel 1 at (1, 768, 385) (F = 6) forward
-    and back on the radix column tile and kernel 3 on the wide core."""
+    """The 768^2 real step with the real axis last: kernels 2 and 3 at
+    h = 384 (F = 3) on the radix row core and kernel 1 at (1, 768, 385)
+    (F = 6) forward and back on the radix column tile."""
     g = torch.Generator(device=dev).manual_seed(11)
     x = torch.randn(768, 768, generator=g, device=dev)
     hr, hc = nd.R2cFftHandler(768), nd.FftHandler(768)
-    fns = ((kfft.c2c_axis_mid, "radix_launches"), (krfft.c2r_nat, "wide_launches"))
+    fns = ((kfft.c2c_axis_mid, "radix_launches"), (krfft.c2r_nat, "radix_launches"))
     before = [(f.launches, getattr(f, a)) for f, a in fns]
     r2c = krfft.r2c_nat.launches, krfft.r2c_nat.radix_launches
     v = nd.ndfft(nd.ndfft_r2c(x, hr, axis=1), hc, axis=0)
@@ -500,7 +499,7 @@ def test_dct23_kernels_match_plain_in_every_form(dev):
         check(kdct.dct2_mid, kdct.dct2_mid_plain, x, 2.0)
         check(kdct.dct3_mid, kdct.dct3_mid_plain, x, None)
     assert forms == {"fixed": 8, "wide": 12, "npoint": 16}
-    before = [krfft.r2c_mid.radix_launches, krfft.c2r_mid.wide_launches]
+    before = [krfft.r2c_mid.radix_launches, krfft.c2r_mid.radix_launches]
     for shape in ((2, 768, 130), (1, 1280, 129), (1, 40960, 2)):
         x = torch.randn(*shape, generator=g, device=dev)
         assert _rel(krfft.r2c_mid(x), krfft.r2c_mid_plain(x)) <= TOL
@@ -512,7 +511,7 @@ def test_dct23_kernels_match_plain_in_every_form(dev):
             assert _rel(krfft.c2r_mid(s, shape[1], scale),
                         krfft.c2r_mid_plain(s, shape[1], scale)) <= TOL
     assert [krfft.r2c_mid.radix_launches - before[0],
-            krfft.c2r_mid.wide_launches - before[1]] == [3, 6]
+            krfft.c2r_mid.radix_launches - before[1]] == [3, 6]
 
 
 def test_neumann_2d_runs_on_the_dct_kernels(dev):
@@ -1136,3 +1135,75 @@ def test_packed_mid_radix_kernel_matches_plain(dev):
         del xe, xo, got
     assert (krfft.r2c_packed_mid.launches - before[0],
             krfft.r2c_packed_mid.radix_launches - before[1]) == (2, 2)
+
+
+def test_c2r_radix_kernels_match_plain(dev):
+    """Kernel 3 on the radix row core at every count of rows a block that
+    fits (h = 256, 384, 640, 1280, 4608, 16384, 20480; ragged row counts;
+    odd h + 1 bins a row, so every other row starts off a 16-byte boundary)
+    and kernel 17 on the radix column tile at every column count C that the
+    tile allows, at h = 256, 384, 1024, 1536, 10240 and 20480 with ragged
+    L; the DC and
+    Nyquist imaginary parts that must be ignored, the scales None, 1/n and
+    -0.5; then the wrappers at their main shapes, zero sizes and a spectrum
+    that is not 16-byte aligned, every launch counted in radix_launches."""
+    g = torch.Generator(device=dev).manual_seed(42)
+
+    def crandn(*shape):
+        """A spectrum whose DC and Nyquist bins (dim 1) carry imaginary parts
+        that must be ignored."""
+        s = torch.view_as_complex(torch.randn(*shape, 2, generator=g, device=dev))
+        s[:, 0] += 100j
+        s[:, -1] += 100j
+        return s
+
+    for t, h in ((131, 256), (7, 384), (33, 640), (5, 1280), (3, 4608), (2, 16384), (2, 20480)):
+        n = 2 * h
+        s = crandn(t, h + 1)
+        per = 16 if h <= kfft.RADIX_WIDE_N else 32 if h <= 16384 else 40
+        most = (kfft.RADIX_MAX_THREADS if h <= kfft.RADIX_WIDE_N else 2 * kfft.RADIX_MAX_THREADS)
+        for scale in (None, 1 / n, -0.5):
+            want = krfft.c2r_nat_plain(s, n, scale)
+            for rows in range(1, most // -(-h // per) + 1):
+                if rows * h > kfft.RADIX_MAX_ELEMS:
+                    break
+                got = krfft.c2r_radix_launch(s, n, scale, rows)
+                assert _rel(got, want) <= TOL, (t, h, rows, scale)
+    for shape in ((2, 256, 130), (1, 384, 383), (1, 1024, 257), (1, 1536, 129),
+                  (1, 10240, 130), (1, 20480, 3)):
+        nb, h, cols = shape
+        n = 2 * h
+        s = crandn(nb, h + 1, cols)
+        out = torch.empty((nb, n, cols), device=dev)
+        for scale in (None, 1 / n, -0.5):
+            want = krfft.c2r_mid_plain(s, n, scale)
+            for c in (1, 2, 4, 8, 16, 32):
+                if not _tile_fits(h, c):
+                    continue
+                out.fill_(float("nan"))
+                krfft.c2r_mid_radix_launch(s, out, n, scale, c)
+                assert _rel(out, want) <= TOL, (shape, c, scale)
+    before = [(f.launches, f.radix_launches) for f in (krfft.c2r_nat, krfft.c2r_mid)]
+    for t, n in ((262144, 512), (589824, 768), (32768, 32768)):
+        s = crandn(t, n // 2 + 1)
+        got = krfft.c2r_nat(s, n, 1 / n)
+        cut = max(1, t // 64)
+        assert _rel(got[:cut], krfft.c2r_nat_plain(s[:cut], n, 1 / n)) <= TOL, (t, n)
+        del s, got
+    for shape in ((1, 512, 262144), (512, 512, 512), (1, 1280, 1280)):
+        nb, n, cols = shape
+        s = crandn(nb, n // 2 + 1, cols)
+        got = krfft.c2r_mid(s, n, 1 / n)
+        cut = min(nb, 16)
+        assert _rel(got[:cut], krfft.c2r_mid_plain(s[:cut], n, 1 / n)) <= TOL, shape
+        del s, got
+    s = torch.view_as_complex(torch.randn(5 * 513 + 1, 2, generator=g, device=dev))[1:]
+    s = s.reshape(5, 513)
+    assert s.data_ptr() % 16
+    assert _rel(krfft.c2r_nat(s, 1024), krfft.c2r_nat_plain(s, 1024)) <= TOL
+    assert krfft.c2r_nat(torch.zeros(0, 513, dtype=torch.complex64, device=dev), 1024).shape \
+        == (0, 1024)
+    assert krfft.c2r_mid(torch.zeros(2, 257, 0, dtype=torch.complex64, device=dev),
+                         512).shape == (2, 512, 0)
+    assert [(f.launches - a, f.radix_launches - b) for f, (a, b) in
+            zip((krfft.c2r_nat, krfft.c2r_mid), before)] == [(4, 4), (3, 3)]

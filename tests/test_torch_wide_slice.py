@@ -151,7 +151,7 @@ def test_step_768_axes_matches_reference():
     ph = tuple(type_.from_reference(h) for type_, h in
                zip((port.R2cFftHandler, port.FftHandler, port.FftHandler), rh))
     kernels = ((krfft.r2c_nat, "radix_launches"), (kfft.c2c_axis_mid, "radix_launches"),
-               (krfft.c2r_nat, "wide_launches"))
+               (krfft.c2r_nat, "radix_launches"))
     counts = engine.c2c.calls, [(k.launches, getattr(k, a)) for k, a in kernels]
     want = _fwd3(ref, jnp.asarray(x), rh)
     got = _fwd3(port, torch.from_numpy(x), ph)

@@ -65,6 +65,27 @@ kernel 18's (1023, 1024, 1023), (1, 1024, 1046529), (1, 1536, 1535) and
 (1, 10240, 130); or, with --cols-n and --cols-h, kernel 1 at (1, n, 2^26 / n)
 and (b, n, b + 1), b = isqrt(2^26 / n), and kernel 18 at (1, h, 2^27 / h) and
 (b, h, b - 1), b = isqrt(2^27 / h), for the lengths they name.
+
+With --c2r it times instead the C2R: kernel 3 (c2r_nat, scale 1/n) at
+(262144, 257), (589824, 385) and (32768, 16385) and kernel 17 (c2r_mid,
+scale 1/n) at (1, 257, 262144), (512, 257, 512) and (1, 641, 1280), each
+beside torch.fft.irfft of the same spectrum; the row core's other kernels
+at their main shapes (kernel 10 at (262144, 512), kernel 8 at (65536, 256),
+kernel 2 at (262144, 512), kernel 15 at (65536, 256) and its generic form
+at (360000, 600)), whose load became a policy of the row skeleton; and the
+paths that run kernels 3 and 17: the 32768^2 real step, the 768^3 and
+512^3 real steps with the real axis last and the 512^3 one with the real
+axis first, and S1's 1024^3 periodic Poisson solve, beside torch.fft, the
+large ones over --reps-big runs. It uses only public wrappers, so --root
+may name the parent tree.
+
+With --scan-c2r it times instead kernel 3 on the radix row core at each
+count of rows a block that fits (beside fft.py::radix_block's count) at
+(262144, 257), (589824, 385), (131072, 1025) and (32768, 16385), and
+kernel 17 on the radix column tile at each column count C that fits
+(beside rfft.py::c2r_mid_cols), at (1, 257, 262144),
+(512, 257, 512), (1, 641, 1280), (1, 385, 295680), (1, 513, 131072),
+(1, 1025, 65536), (1, 2049, 32768), (1, 4097, 16384) and (1, 10241, 130).
 """
 
 import argparse
@@ -85,6 +106,8 @@ def main() -> int:
     ap.add_argument("--r2c-mid", action="store_true")
     ap.add_argument("--axis-mid", action="store_true")
     ap.add_argument("--scan-cols", action="store_true")
+    ap.add_argument("--c2r", action="store_true")
+    ap.add_argument("--scan-c2r", action="store_true")
     ap.add_argument("--cols-n", type=int, nargs="*", default=[])
     ap.add_argument("--cols-h", type=int, nargs="*", default=[])
     ap.add_argument("--scan-n", type=int, nargs="*", default=[
@@ -154,7 +177,13 @@ def main() -> int:
                for s in ((1, h, (1 << 27) // h), (b, h, b - 1))]
         return scan_cols(torch, kfft, krfft, dev, gen, crandn, ms, card, root, k1 or K1_SHAPES,
                          k18 or K18_SHAPES)
+    if args.scan_c2r:
+        return scan_c2r(torch, kfft, krfft, dev, crandn, ms, card, root)
     out = {}
+    if args.c2r:
+        c2r(torch, nd, kfft, krfft, dev, gen, crandn, ms, args.reps_big, out)
+        print(json.dumps({"root": root, "card": card, "ms_and_torch_fft_ms": out}), flush=True)
+        return 0
     if args.axis_mid:
         axis_mid(torch, nd, kfft, krfft, dev, gen, crandn, ms, args.reps_big, out)
         print(json.dumps({"root": root, "card": card, "ms_and_torch_fft_ms": out}), flush=True)
@@ -320,6 +349,147 @@ def scan_cols(torch, kfft, krfft, dev, gen, crandn, ms, card, root, k1_shapes, k
     return 0
 
 
+K3_SHAPES = ((262144, 257), (589824, 385), (131072, 1025), (32768, 16385))
+K17_SHAPES = ((1, 257, 262144), (512, 257, 512), (1, 641, 1280), (1, 385, 295680),
+              (1, 513, 131072), (1, 1025, 65536), (1, 2049, 32768), (1, 4097, 16384),
+              (1, 10241, 130))
+
+
+def scan_c2r(torch, kfft, krfft, dev, crandn, ms, card, root):
+    """Kernel 3 at each count of rows a block and kernel 17 at each column
+    count C and store that fit."""
+    sms = kfft.num_sms(dev)
+    scan = {}
+    for t, m in K3_SHAPES:
+        n = 2 * (m - 1)
+        h = n // 2
+        s = crandn(t, m)
+        per = 16 if h <= kfft.RADIX_WIDE_N else 32 if h <= 16384 else 40
+        most = kfft.RADIX_MAX_THREADS if h <= kfft.RADIX_WIDE_N else 2 * kfft.RADIX_MAX_THREADS
+        by = {r: ms(lambda: krfft.c2r_radix_launch(s, n, 1.0 / n, r))
+              for r in range(1, min(16, most // -(-h // per)) + 1) if r * h <= 20480}
+        scan[f"c2r_nat_{t}x{m}"] = {"ms_by_rows_per_block": by,
+                                    "chosen": kfft.radix_block(h, t, sms),
+                                    "torch_fft_ms": ms(lambda: torch.fft.irfft(s, n=n, dim=1))}
+        del s
+        torch.cuda.empty_cache()
+    for shape in K17_SHAPES:
+        nb, m, cols = shape
+        n = 2 * (m - 1)
+        h = n // 2
+        s = crandn(*shape)
+        out = torch.empty((nb, n, cols), device=dev)
+        by = {c: ms(lambda: krfft.c2r_mid_radix_launch(s, out, n, 1.0 / n, c))
+              for c in (1, 2, 4, 8, 16, 32) if tile_fits(kfft, h, c)}
+        scan["c2r_mid_" + "x".join(map(str, shape))] = {
+            "ms_by_cols_per_tile": by, "chosen": krfft.c2r_mid_cols(h, nb, cols, sms),
+            "torch_fft_ms": ms(lambda: torch.fft.irfft(s, n=n, dim=1))}
+        del s, out
+        torch.cuda.empty_cache()
+    print(json.dumps({"root": root, "card": card, "c2r_scan": scan}), flush=True)
+    return 0
+
+
+def digest(t) -> str:
+    """sha256 of a tensor's bytes, the first 16 hex digits."""
+    import hashlib
+
+    import torch
+
+    r = torch.view_as_real(t) if t.is_complex() else t
+    return hashlib.sha256(r.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def c2r(torch, nd, kfft, krfft, dev, gen, crandn, ms, reps_big, out):
+    """Kernels 3 and 17 at their main shapes, the row core's other kernels,
+    and the paths that run kernels 3 and 17."""
+    def key(name, shape):
+        return name + "_" + "x".join(map(str, shape))
+
+    for t, m in ((262144, 257), (589824, 385), (32768, 16385)):
+        n = 2 * (m - 1)
+        s = crandn(t, m)
+        reps = reps_big if t * m > 1 << 28 else None
+        out[key("c2r_nat", (t, m))] = (ms(lambda: krfft.c2r_nat(s, n, 1.0 / n), reps),
+                                       ms(lambda: torch.fft.irfft(s, n=n, dim=1), reps))
+        del s
+        torch.cuda.empty_cache()
+    for shape in ((1, 257, 262144), (512, 257, 512), (1, 641, 1280)):
+        n = 2 * (shape[1] - 1)
+        s = crandn(*shape)
+        out[key("c2r_mid", shape)] = (ms(lambda: krfft.c2r_mid(s, n, 1.0 / n)),
+                                      ms(lambda: torch.fft.irfft(s, n=n, dim=1)))
+        del s
+    # the row skeleton's other kernels, with a digest of each output (the
+    # same seeded input in every tree: equal digests are bit-identical outputs)
+    for name, fn, shape in (("c2c_rows", lambda x: kfft.c2c_rows(x, -1), (262144, 512)),
+                            ("c2c_dense_rows", lambda x: kfft.c2c_dense_rows(x, -1),
+                             (65536, 256))):
+        x = crandn(*shape)
+        out[key(name, shape)] = (ms(lambda: fn(x)), ms(lambda: torch.fft.fft(x, dim=1)),
+                                 digest(fn(x)))
+        del x
+    for name, fn, shape in (("r2c_nat", krfft.r2c_nat, (262144, 512)),
+                            ("r2c_packed", krfft.r2c_packed, (65536, 256)),
+                            ("r2c_packed_generic", krfft.r2c_packed_generic, (360000, 600))):
+        x = torch.randn(*shape, generator=gen, device=dev)
+        out[key(name, shape)] = (ms(lambda: fn(x)), ms(lambda: torch.fft.rfft(x, dim=1)),
+                                 digest(fn(x)))
+        del x
+    torch.cuda.empty_cache()
+    for n, first in ((512, True), (512, False), (768, False)):
+        r = torch.randn(n, n, n, generator=gen, device=dev)
+        hr, hc = nd.R2cFftHandler(n), nd.FftHandler(n)
+        a, b, c = (0, 1, 2) if first else (2, 1, 0)
+
+        def step():
+            v = nd.ndfft(nd.ndfft(nd.ndfft_r2c(r, hr, axis=a), hc, axis=b), hc, axis=c)
+            return nd.ndifft_r2c(nd.ndifft(nd.ndifft(v, hc, axis=c), hc, axis=b), hr, axis=a)
+
+        dims = (1, 2, 0) if first else (0, 1, 2)
+        s = tuple(r.shape[d] for d in dims)
+        out[f"step_real_axis_{'first' if first else 'last'}_{n}^3"] = (
+            ms(step, reps_big), ms(lambda: torch.fft.irfftn(torch.fft.rfftn(r, dim=dims), s=s,
+                                                             dim=dims), reps_big))
+        del r
+        torch.cuda.empty_cache()
+    r = torch.randn(32768, 32768, generator=gen, device=dev)
+    hr, hc = nd.R2cFftHandler(32768), nd.FftHandler(32768)
+
+    def step2():
+        v = nd.ndfft(nd.ndfft_r2c(r, hr, axis=1), hc, axis=0)
+        return nd.ndifft_r2c(nd.ndifft(v, hc, axis=0), hr, axis=1)
+
+    out["step_32768^2"] = (ms(step2, reps_big),
+                           ms(lambda: torch.fft.irfftn(torch.fft.rfftn(r), s=r.shape), reps_big))
+    del r
+    torch.cuda.empty_cache()
+    s1(torch, nd, dev, gen, ms, reps_big, out)
+
+
+def s1(torch, nd, dev, gen, ms, reps_big, out):
+    """S1, the 1024^3 periodic Poisson solve, beside torch.fft."""
+    n = 1024
+    f = torch.randn(n, n, n, generator=gen, device=dev)
+    kc = torch.fft.fftfreq(n, 1.0 / n, device=dev) ** 2
+    kr = torch.arange(n // 2 + 1, device=dev, dtype=torch.float32) ** 2
+    g = (kc[:, None, None] + kc[None, :, None] + kr[None, None, :]).reciprocal_()
+    g[0, 0, 0] = 0.0
+    hr, hc = nd.R2cFftHandler(n), nd.FftHandler(n)
+
+    def solve():
+        b = nd.ndfft(nd.ndfft_r2c(f, hr, axis=2), hc, axis=1)
+        c = nd.ndspectral_c2c(b, g, hc, axis=0)
+        del b
+        return nd.ndifft_r2c(nd.ndifft(c, hc, axis=1), hr, axis=2)
+
+    out["S1_periodic_poisson_1024^3"] = (
+        ms(solve, reps_big), ms(lambda: torch.fft.irfftn(torch.fft.rfftn(f).mul_(g), s=f.shape),
+                                reps_big))
+    del f, g
+    torch.cuda.empty_cache()
+
+
 def axis_mid(torch, nd, kfft, krfft, dev, gen, crandn, ms, reps_big, out):
     """Kernels 1 and 18 at their main shapes and the paths that run them."""
     def randn(*shape):
@@ -382,25 +552,7 @@ def axis_mid(torch, nd, kfft, krfft, dev, gen, crandn, ms, reps_big, out):
             f, 0), 1), 2), 0), 1), 2), reps_big))
     del f
     torch.cuda.empty_cache()
-    n = 1024
-    f = randn(n, n, n)
-    kc = torch.fft.fftfreq(n, 1.0 / n, device=dev) ** 2
-    kr = torch.arange(n // 2 + 1, device=dev, dtype=torch.float32) ** 2
-    g = (kc[:, None, None] + kc[None, :, None] + kr[None, None, :]).reciprocal_()
-    g[0, 0, 0] = 0.0
-    hr, hc = nd.R2cFftHandler(n), nd.FftHandler(n)
-
-    def s1():
-        b = nd.ndfft(nd.ndfft_r2c(f, hr, axis=2), hc, axis=1)
-        c = nd.ndspectral_c2c(b, g, hc, axis=0)
-        del b
-        return nd.ndifft_r2c(nd.ndifft(c, hc, axis=1), hr, axis=2)
-
-    out["S1_periodic_poisson_1024^3"] = (
-        ms(s1, reps_big), ms(lambda: torch.fft.irfftn(torch.fft.rfftn(f).mul_(g), s=f.shape),
-                             reps_big))
-    del f, g
-    torch.cuda.empty_cache()
+    s1(torch, nd, dev, gen, ms, reps_big, out)
 
 
 if __name__ == "__main__":
