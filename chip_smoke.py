@@ -219,6 +219,16 @@ without the final line):
         kernel 17 (C2R_MID), the DC and Nyquist imaginary parts to be
         ignored, against torch.fft.irfft in float64 (oracle only), within
         1e-6 of the oracle's peak;
+     v. the census of kernels 21 and 27: ndifft_r2c along axis 1 of
+        (1, n/2 + 1, 130) at each 4 <= n <= 1100 (the 710 on the radix
+        column tile, with a plan of n/2 at even n and of n at odd n: 707
+        on kernel 21, 512, 768 and 1024 on kernel 17; the 326 without a
+        plan and the 61 odd n where fft.dense_beats_radix holds on kernel
+        21's dense product, within TOL_KERNEL), against torch.fft.irfft in
+        float64, and nddct1/2/3 along axis 1 of (1, n, 130) at each of the
+        671, 439 and 439 lengths that kernel 27 takes on the radix column
+        tile, against scipy.fft.dct in float64 (oracles only), within 1e-6
+        of the oracle's peak;
   5. times with CUDA events (median over --reps runs after warm-up): each
      kernel against its plain version and, where one PyTorch call computes
      the same function, that call (the yardstick, never on the port's
@@ -255,7 +265,16 @@ without the final line):
      row core at (262144, 257), (589824, 385) and (32768, 16385) with each
      count of rows a block, and kernel 17 on the radix column tile at
      (1, 257, 262144), (512, 257, 512) and (1, 641, 1280) with each column
-     count C, each beside torch.fft.irfft.
+     count C, each beside torch.fft.irfft; kernel 21 on the radix column
+     tile at (1, 129, 65536), (1, 133, 264), (1, 65, 128) and at odd
+     n = 129 and 255 with each column count C, kernel 21 through its
+     wrapper at odd n = 255 (the radix column tile) and 129 (the dense
+     product) beside torch.fft.irfft, and kernel 27 on it at
+     (1, 512, 262144) and (1024, 1024, 1024) (DCT-II, DCT-III) and
+     (129, 129, 129) and (1, 1025, 1025) (DCT-I) with each column count C;
+     kernel 27 at each of those and its dense product at the DCT-IV of
+     (1, 1024, 1024) and the odd DCT-II lengths, beside torch.matmul with
+     the scaled DCT matrix.
 The kernels line gives each kernel's launches on its main path, its largest
 error against its plain version, its times, and its bound: the larger of
 the bytes it must move (each input read once, each output written once)
@@ -269,9 +288,12 @@ column, ``length_m_bound_ms``); kernels 10, 2, 3 and 15
 counted in c2c_dense_rows.radix_launches as well, above in
 ``c2c_generic_rows``), kernels 1, 6, 4, 11, 16, 17 and 18 (each counted in
 radix_launches as well) and kernel 15's generic form
-(``r2c_packed_generic``) run on the radix core, one row each; kernel 20
-two: the radix column tile (``r2c_dense_mid_radix``, radix_launches) and
-the dense product at the lengths without a plan (``r2c_dense_mid``); and
+(``r2c_packed_generic``) run on the radix core, one row each; kernels 20,
+21 and 27 two each: the radix column tile (``r2c_dense_mid_radix``,
+``c2r_dense_mid_radix``, ``dct_dense_mid_radix``; radix_launches) and the
+dense product at the other lengths and types (``r2c_dense_mid``,
+``c2r_dense_mid``, ``dct_dense_mid``), kernel 27's rows with each timed DCT
+type under ``by_type``; and
 kernels 23 to 26 and 29 three: the fixed core, the wide core's half length
 and the n-point form (npoint_launches); kernel 7 three: the fixed core, the
 wide core and the dense body (dense_launches); kernel 28 three: the fixed
@@ -301,14 +323,14 @@ TOL_STEP = 1e-5      # step vs float64 oracle and round trip, relative
 # every launch): ``wide_launches``, for the DCT-II/III kernels
 # ``npoint_launches``, for kernel 7 ``dense_launches``, for kernel 28
 # ``long_launches`` and for kernels 1, 10, 2, 3, 15 (``r2c_packed``), 11, 8
-# (``c2c_dense_rows``), 6, 4, 16, 17, 18 and 20 ``radix_launches``
+# (``c2c_dense_rows``), 6, 4, 16, 17, 18, 20, 21 and 27 ``radix_launches``
 FORMS = ("wide", "npoint", "dense", "long", "radix")
 # the wrappers whose every launch is on the radix core: their
 # ``radix_launches`` equal their ``launches``
 RADIX_ONLY = ("c2c_axis_mid", "c2c_rows", "r2c_nat", "r2c_packed", "c2c_dense_rows",
               "c2c_generic_mid", "c2c_dense_mid", "c2c_blue_mid", "r2c_mid", "r2c_packed_mid",
               "c2r_nat", "c2r_mid")
-TOL_CENSUS = 1e-6    # the radix core's censuses (phases 4r, 4s, 4t and 4u)
+TOL_CENSUS = 1e-6    # the radix core's censuses (phases 4r to 4v)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, 700 W
 FP32_FLOP_PER_S = 67e12     # FP32 outside the tensor cores, same source
 
@@ -343,13 +365,14 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def work(name: str, shape, length_m: bool = False, mult=None):
+def work(name: str, shape, length_m: bool = False, mult=None, n=None, dct_type=2):
     """(bytes, FP32 operations) of one kernel call at ``shape``: inputs
     (constants included) read once, outputs written once; 5 n log2 n per
-    complex and 2.5 n log2 n per real FFT of length n, the dense DCT's
-    2 n^2 per column. The dense R2C/C2R (K20, K21) count what the
-    function needs, a length-n FFT per column, not their products'
-    4 n (n/2 + 1). A kernel on the wide
+    complex and 2.5 n log2 n per real FFT of length n. The dense R2C/C2R
+    (K20, K21) and the dense DCT (K27)
+    count what the function needs, a length-n real FFT per column, not
+    their products' 4 n (n/2 + 1) or 2 n^2; K21 and K27 on the radix column
+    tile read their radix tables and twiddles. A kernel on the wide
     core reads the fixed core's tables and its (F, F) DFT-F table. A DCT-II/III
     kernel (rows or a middle axis) reads and writes n reals per transform and
     does a real FFT's 2.5 n log2 n, in every form; its tables are the core's
@@ -359,12 +382,14 @@ def work(name: str, shape, length_m: bool = False, mult=None):
     are the two chirps, H and both cores' Wq (and DFT-F) at the convolution
     length M (K11 on the radix core: the chirp, H and the radix table of M).
     ``length_m``: their operations as two complex FFTs of length M
-    per column instead. Kernels 1, 10, 8, 6 and 4 (the radix core) read x and
-    the radix table (n entries and each prime stage's row) and write y;
-    kernels 16 and 20 on the radix column tile read (B, n, L) float32, the
-    radix table of h = n/2 (of n at odd n) and, at even n, the unpack
-    twiddle, and write (B, n/2 + 1, L) complex64, kernel 18 the same from
-    its two (B, h, L) streams;
+    per column instead. ``n``: a C2R's real length where the spectrum's
+    (B, m, L) does not give it (odd n = 2m - 1); ``dct_type``: the DCT that
+    kernel 27 on the radix column tile computes, which sets its tables.
+    Kernels 1, 10, 8, 6 and 4 (the radix core) read x and the radix table (n
+    entries and each prime stage's row) and write y; kernels 16 and 20 on the
+    radix column tile read (B, n, L) float32, the radix table of h = n/2 (of n
+    at odd n) and, at even n, the unpack twiddle, and write (B, n/2 + 1, L)
+    complex64, kernel 18 the same from its two (B, h, L) streams;
     kernels 2 and 15 (the radix row core with the unpack epilogue) read the
     (T, 2h) float32 rows, the radix table of h and the unpack twiddle and
     write (T, h + 1) complex64, and kernels 3 and 17 (the C2R on the radix
@@ -468,8 +493,32 @@ def work(name: str, shape, length_m: bool = False, mult=None):
         m = n // 2 + 1
         return 4 * t * n + 8 * t * m + 4 * n * 2 * m, 2.5 * n * math.log2(n) * t
     if name == "dct_dense_mid":
+        # the dense product: x in, y out and its (n, n) table; the function
+        # needs a real FFT's operations per column, not the product's 2 n^2
         b, n, cols = shape
-        return 8 * b * n * cols + 4 * n * n, 2 * n * n * b * cols
+        return 8 * b * n * cols + 4 * n * n, 2.5 * n * math.log2(n) * b * cols
+    if name == "dct_dense_mid_radix":
+        # K27 on the radix column tile: x in, y out and the radix table of
+        # its transform length h, with DCT-I (h = n - 1) the unpack twiddle
+        # W_2h^k (h entries), DCT-II (h = n/2) W_n^k (h) and the post
+        # twiddle (n), DCT-III (h = n/2) the ab rows (16 h bytes) and the
+        # pre twiddle (h + 1)
+        from ndrustfft_tpu_torch.ops.hopper.fft import radix_consts
+        b, n, cols = shape
+        h = n - 1 if dct_type == 1 else n // 2
+        tables = {1: 8 * h, 2: 8 * h + 8 * n, 3: 16 * h + 8 * (h + 1)}[dct_type]
+        return (8 * b * n * cols + 8 * len(radix_consts(h, 1 if dct_type == 3 else -1)[0])
+                + tables, 2.5 * n * math.log2(n) * b * cols)
+    if name == "c2r_dense_mid_radix":
+        # K21 on the radix column tile: the (B, m, L) spectrum in, (B, n, L)
+        # float32 out, and the inverse radix table of the transform length
+        # with, at even n = 2h (kernel 17's form), the (h, 4) ab rows
+        from ndrustfft_tpu_torch.ops.hopper.fft import radix_consts
+        b, m, cols = shape
+        n = n or 2 * (m - 1)
+        length = n if n % 2 else n // 2
+        return (8 * b * m * cols + 4 * b * n * cols + 8 * len(radix_consts(length, 1)[0])
+                + (0 if n % 2 else 16 * length), 2.5 * n * math.log2(n) * b * cols)
     if name in ("r2c_mid", "r2c_dense_mid_radix"):
         from ndrustfft_tpu_torch.ops.hopper.fft import radix_consts
         b, n, cols = shape      # the radix table of h (n at odd n), the unpack twiddle
@@ -479,7 +528,7 @@ def work(name: str, shape, length_m: bool = False, mult=None):
         return 4 * b * n * cols + 8 * b * m * cols + table, 2.5 * n * math.log2(n) * b * cols
     if name in ("r2c_dense_mid", "c2r_dense_mid"):
         b, w, cols = shape      # (B, n, L) real in, or (B, m, L) spectrum in
-        n = w if name.startswith("r2c") else 2 * (w - 1)
+        n = w if name.startswith("r2c") else n or 2 * (w - 1)
         m = n // 2 + 1
         return (4 * b * n * cols + 8 * b * m * cols + 4 * n * 2 * m,
                 2.5 * n * math.log2(n) * b * cols)
@@ -614,6 +663,7 @@ def main() -> int:
             "dct_dense_mid": 0.0, "dct2_nat": 0.0, "dct3_nat": 0.0,
             "c2c_rows": 0.0, "c2c_dense_rows": 0.0, "c2c_dense_mid": 0.0,
             "r2c_mid": 0.0, "c2r_mid": 0.0, "r2c_dense_mid": 0.0, "c2r_dense_mid": 0.0,
+            "c2r_dense_mid_radix": 0.0, "dct_dense_mid_radix": 0.0,
             "r2c_packed": 0.0, "r2c_packed_dense": 0.0, "c2c_generic_rows": 0.0,
             "c2c_generic_mid": 0.0, "r2c_packed_generic": 0.0,
             "r2c_dense_mid_radix": 0.0,
@@ -669,19 +719,45 @@ def main() -> int:
         if not rel <= TOL_KERNEL:
             raise AssertionError(f"c2r_nat {(t, n)}: {rel}")
         del x, s, got, ref
+
+    def form_counts(kern):
+        return [kern.launches] + [getattr(kern, f"{f}_launches", 0) for f in FORMS]
+
+    def assert_launched(name, kern, before, shape):
+        """One launch of ``kern`` since ``before`` (its form_counts), in the
+        form that ``name`` ends with, or on the fixed core where it names
+        none."""
+        form = "radix" if name in RADIX_ONLY else name.rsplit("_", 1)[-1]
+        want = [1] + [int(f == form) for f in FORMS]
+        got = [now - then for now, then in zip(form_counts(kern), before)]
+        if got != want:
+            raise AssertionError(f"{name} {shape}: launches {got}, expected {want}")
+
+    # kernel 27's wrapper: the radix column tile (dct_dense_mid_radix) for
+    # DCT-I at a plan of n - 1 and DCT-II/III at even n with a plan of n/2,
+    # the dense product for the other types and lengths
+    def k27_form(n, t):
+        """The kernels line's name and the plain version of the DCT-<t>
+        that kernel 27's wrapper runs at n."""
+        if kdct.dct_radix_len(n, t) is not None:
+            return "dct_dense_mid_radix", kdct.dct_radix_plain
+        return "dct_dense_mid", kdct.dct_dense_mid_plain
+
     for shape in ((1, 129, 129), (3, 265, 130), (1, 265, 265), (1, 513, 513),
                   (1, 1024, 1024), (1, 1025, 1025), (512, 512, 512), (1, 512, 512 * 512)):
         x = randn(*shape)
         for t in (1, 2, 3, 4):
+            name, plain = k27_form(shape[1], t)
+            before = form_counts(kdct.dct_dense_mid)
             got = kdct.dct_dense_mid(x, t, 2.0)
-            ref = kdct.dct_dense_mid_plain(x, t, 2.0)
+            ref = plain(x, t, 2.0)
             torch.cuda.synchronize()
+            assert_launched(name, kdct.dct_dense_mid, before, shape)
             rel = abs_err(got, ref) / float(ref.abs().max())
-            errs["dct_dense_mid"] = max(errs["dct_dense_mid"], abs_err(got, ref))
-            emit(phase="kernel_vs_plain", kernel="dct_dense_mid", shape=shape,
-                 dct_type=t, rel_err=rel)
+            errs[name] = max(errs[name], abs_err(got, ref))
+            emit(phase="kernel_vs_plain", kernel=name, shape=shape, dct_type=t, rel_err=rel)
             if not rel <= TOL_KERNEL:
-                raise AssertionError(f"dct_dense_mid {shape} type {t}: {rel}")
+                raise AssertionError(f"{name} {shape} type {t}: {rel}")
             del got, ref
         del x
     for t, n in ((130, 512), (1024, 1024), (7, 2048), (512 * 512, 512)):
@@ -699,19 +775,6 @@ def main() -> int:
             del got, ref
         del x
 
-    def form_counts(kern):
-        return [kern.launches] + [getattr(kern, f"{f}_launches", 0) for f in FORMS]
-
-    def assert_launched(name, kern, before, shape):
-        """One launch of ``kern`` since ``before`` (its form_counts), in the
-        form that ``name`` ends with, or on the fixed core where it names
-        none."""
-        form = "radix" if name in RADIX_ONLY else name.rsplit("_", 1)[-1]
-        want = [1] + [int(f == form) for f in FORMS]
-        got = [now - then for now, then in zip(form_counts(kern), before)]
-        if got != want:
-            raise AssertionError(f"{name} {shape}: launches {got}, expected {want}")
-
     def check_form(name, kern, got_fn, ref_fn, shape, **kw):
         """got_fn() (one launch of ``kern`` in the form ``name`` names)
         against ref_fn()."""
@@ -726,6 +789,22 @@ def main() -> int:
         if not rel <= TOL_KERNEL:
             raise AssertionError(f"{name} {shape} {kw}: {rel}")
 
+    # kernel 27's wrapper at the main paths' radix shapes: S3's DCT-II and
+    # DCT-III along axis 1 of 1024^3 (phase 4l), Chebyshev's DCT-I along
+    # axis 1 of 129^3 and along axis 0 as (1, 129, 129^2) (phase 4e); the
+    # plain version on the first 16 planes
+    for shape, types in (((1024, 1024, 1024), (2, 3)), ((129, 129, 129), (1,)),
+                         ((1, 129, 129 * 129), (1,))):
+        x = randn(*shape)
+        cut = min(shape[0], 16)
+        for t in types:
+            for scale in (2.0, None):
+                check_form("dct_dense_mid_radix", kdct.dct_dense_mid,
+                           lambda: kdct.dct_dense_mid(x, t, scale)[:cut],
+                           lambda: kdct.dct_radix_plain(x[:cut], t, scale), shape, dct_type=t,
+                           scale=scale)
+        del x
+        torch.cuda.empty_cache()
     # the complex transform's kernels: ragged rows and edges, then the main
     # path's shapes (phase 4c)
     c2c_checks = (
@@ -958,6 +1037,67 @@ def main() -> int:
             del ref
         del s, y
 
+    # kernel 21 on the radix column tile at each column count C that phase
+    # 5 times (the wrapper takes rfft.py::c2r_dense_cols's): even n (kernel
+    # 17's kernel at h = n/2 with a plan, n = 4, 6, 130, 256, 264, 1100) and
+    # odd n (the length-n inverse of the Hermitian extension, its mirrored
+    # half filled in the prologue: n = 5, 129, 255, 1095),
+    # the main paths' spectra, ragged L, the scales 1/n and None; the spectra
+    # carry DC and Nyquist imaginary parts that must be ignored. Then kernel
+    # 27's DCT-I (n = 3, 129, 265, 1025), DCT-II and DCT-III (n = 4, 130, 512,
+    # 1024, 1100) on the radix column tile the same way, the scales 2 and
+    # None
+    for shape, n in (((2, 3, 129), 4), ((2, 3, 130), 5), ((1, 4, 33), 6), ((1, 66, 257), 130),
+                     ((1, 129, 256 * 256), 256), ((1, 65, 256 * 256), 129), ((1, 133, 264), 264),
+                     ((1, 128, 383), 255), ((1, 548, 130), 1095), ((1, 551, 65), 1100)):
+        nb, m, cols = shape
+        sp = crandn(*shape)
+        sp[:, 0] += 100j
+        sp[:, -1] += 100j
+        y = torch.empty((nb, n, cols), device=dev)
+        for scale in (1.0 / n, None):
+            ref = krfft.c2r_dense_radix_plain(sp, n, scale)
+            for c in (1, 2, 4, 8, 16, 32, 64):
+                if not tile_fits(krfft.r2c_mid_len(n), c):
+                    continue
+                y.fill_(float("nan"))
+                krfft.c2r_dense_radix_launch(sp, y, n, scale, c)
+                torch.cuda.synchronize()
+                rel = abs_err(y, ref) / float(ref.abs().max())
+                errs["c2r_dense_mid_radix"] = max(errs["c2r_dense_mid_radix"], abs_err(y, ref))
+                emit(phase="kernel_vs_plain", kernel="c2r_dense_mid_radix", shape=shape, n=n,
+                     cols_per_tile=c, scale=scale, rel_err=rel)
+                if not rel <= TOL_KERNEL:
+                    raise AssertionError(f"c2r_dense_mid_radix {shape} n {n} C {c}: {rel}")
+            del ref
+        del sp, y
+    for shape in ((2, 3, 129), (1, 4, 130), (2, 129, 257), (1, 130, 130), (1, 265, 383),
+                  (1, 512, 512 * 512), (1024, 1024, 64), (1, 1025, 1025), (1, 1100, 65)):
+        x = randn(*shape)
+        y = torch.empty_like(x)
+        cut = min(shape[0], 16)
+        for t in (1, 2, 3):
+            h = kdct.dct_radix_len(shape[1], t)
+            if h is None:
+                continue
+            for scale in (2.0, None):
+                ref = kdct.dct_radix_plain(x[:cut], t, scale)
+                for c in (1, 2, 4, 8, 16, 32, 64):
+                    if not tile_fits(h, c):
+                        continue
+                    y.fill_(float("nan"))
+                    kdct.dct_radix_launch(x, y, t, scale, c)
+                    torch.cuda.synchronize()
+                    rel = abs_err(y[:cut], ref) / float(ref.abs().max())
+                    errs["dct_dense_mid_radix"] = max(errs["dct_dense_mid_radix"],
+                                                      abs_err(y[:cut], ref))
+                    emit(phase="kernel_vs_plain", kernel="dct_dense_mid_radix", shape=shape,
+                         dct_type=t, cols_per_tile=c, scale=scale, rel_err=rel)
+                    if not rel <= TOL_KERNEL:
+                        raise AssertionError(f"dct_dense_mid_radix {shape} type {t} C {c}: {rel}")
+                del ref
+        del x, y
+
     # the middle-axis R2C/C2R kernels: the main paths' shapes (phase 4d),
     # axis 1 of 512^3, ragged and odd ones; kernel 20's wrapper on the radix
     # column tile (r2c_dense_mid_radix) at the lengths with a plan, on the
@@ -971,16 +1111,25 @@ def main() -> int:
                     krfft.r2c_mid_radix_plain)
         return "r2c_dense_mid", krfft.r2c_dense_mid_plain
 
+    def c2r_form(c2r_name, n):
+        """The kernels line's name and the plain version of the C2R that
+        ``c2r_name``'s wrapper runs at n."""
+        if c2r_name == "c2r_mid":
+            return c2r_name, krfft.c2r_mid_plain
+        if krfft.c2r_dense_radix(n):
+            return "c2r_dense_mid_radix", krfft.c2r_dense_radix_plain
+        return "c2r_dense_mid", krfft.c2r_dense_mid_plain
+
     rfft_mid_checks = (
-        ("r2c_mid", "c2r_mid", krfft.r2c_mid, krfft.c2r_mid, krfft.c2r_mid_plain,
+        ("r2c_mid", "c2r_mid", krfft.r2c_mid, krfft.c2r_mid,
          ((1, 512, 512 * 512), (512, 512, 512), (1, 1024, 1024), (1, 512, 512), (3, 2048, 200),
           (2, 4096, 130))),
         ("r2c_dense_mid", "c2r_dense_mid", krfft.r2c_dense_mid, krfft.c2r_dense_mid,
-         krfft.c2r_dense_mid_plain,
          ((1, 128, 128), (1, 264, 264), (1, 256, 256 * 256), (2, 201, 130), (1, 1100, 130),
-          (1, 129, 256 * 256), (2, 262, 130), (1, 1095, 130), (3, 5, 257), (2, 4, 130))),
+          (1, 129, 256 * 256), (2, 262, 130), (1, 1095, 130), (3, 5, 257), (2, 4, 130),
+          (1, 262, 256 * 256), (1, 1099, 130))),
     )
-    for r2c_name, c2r_name, r2c, c2r, c2r_plain, shapes in rfft_mid_checks:
+    for r2c_name, c2r_name, r2c, c2r, shapes in rfft_mid_checks:
         for shape in shapes:
             nb, n, cols = shape
             x = randn(*shape)
@@ -989,15 +1138,10 @@ def main() -> int:
             s[:, -1] += 100j
             name, r2c_plain = r2c_form(r2c_name, n)
             check_form(name, r2c, lambda: r2c(x), lambda: r2c_plain(x), shape)
-            for name, got, ref in ((c2r_name, c2r(s, n, 1.0 / n), c2r_plain(s, n, 1.0 / n)),
-                                   (c2r_name, c2r(s, n, None), c2r_plain(s, n, None))):
-                torch.cuda.synchronize()
-                rel = abs_err(got, ref) / float(ref.abs().max())
-                errs[name] = max(errs[name], abs_err(got, ref))
-                emit(phase="kernel_vs_plain", kernel=name, shape=shape, rel_err=rel)
-                if not rel <= TOL_KERNEL:
-                    raise AssertionError(f"{name} {shape}: {rel}")
-                del got, ref
+            name, c2r_plain = c2r_form(c2r_name, n)
+            for scale in (1.0 / n, None):
+                check_form(name, c2r, lambda: c2r(s, n, scale), lambda: c2r_plain(s, n, scale),
+                           shape, scale=scale)
             del x, s
 
     # kernel 15: the core at every factor F = 1 ... 16, the dense product and
@@ -1343,18 +1487,19 @@ def main() -> int:
                 "spectral_r2c_mid": krfft.spectral_r2c_mid,
                 "spectral_dct_mid": kdct.spectral_dct_mid}
     # the wide core's launches, the DCT kernels' n-point ones, kernel 7's
-    # dense ones and those of the radix-only wrappers and kernel 20 on the
-    # radix core, counted apart by the same wrappers (their ``launches``
-    # count every launch)
+    # dense ones and those of the radix-only wrappers and kernels 20, 21 and
+    # 27 on the radix core, counted apart by the same wrappers (their
+    # ``launches`` count every launch)
+    radix_too = ("r2c_dense_mid", "c2r_dense_mid", "dct_dense_mid")
     forms = {f"{name}_{form}": (wrappers[name], f"{form}_launches")
-             for name in (*RADIX_ONLY, "r2c_dense_mid",
+             for name in (*RADIX_ONLY, *radix_too,
                           "dct2_nat", "dct3_nat", "dct2_mid",
                           "dct3_mid", "dct1_mid", "dct4_mid",
                           "dct23_blue_mid", "fourstep_mid", "rows_store_t",
                           "spectral_c2c_mid", "spectral_r2c_mid", "spectral_dct_mid")
              for form in FORMS
-             if form == "wide" and name not in (*RADIX_ONLY, "r2c_dense_mid")
-             or form == "radix" and name in (*RADIX_ONLY, "r2c_dense_mid")
+             if form == "wide" and name not in (*RADIX_ONLY, *radix_too)
+             or form == "radix" and name in (*RADIX_ONLY, *radix_too)
              or form == "npoint" and name.startswith(("dct2_", "dct3_", "spectral_dct"))
              or form == "dense" and name == "fourstep_mid" or form == "long" and name == "dct4_mid"}
 
@@ -1496,7 +1641,9 @@ def main() -> int:
     y4 = nd.nddct4(xp, hd, axis=0)
     spair = dst_pair(xp)
     fh3, u3 = poisson(f3)
-    read_counts("dct_family", dct_dense_mid=4 + 5 + 4, dct2_nat=2 + 1, dct3_nat=2 + 1)
+    # K27 on the radix column tile but for DCT-IV along axis 0 of 1024^2
+    read_counts("dct_family", dct_dense_mid=4 + 5 + 4, dct_dense_mid_radix=4 + 4 + 4,
+                dct2_nat=2 + 1, dct3_nat=2 + 1)
     for n, y in grid_out.items():
         check("dct1_axis0", y, sfft.dct(host64(grid[n]), type=1, axis=0), grid=[n, n])
     x64 = host64(xp)
@@ -1598,8 +1745,8 @@ def main() -> int:
         h = nd.R2cFftHandler(n)
         spec = nd.ndfft_r2c(x, h, axis=0)
         rfft2d_out[n] = spec, nd.ndifft_r2c(spec, h, axis=0)
-    read_counts("rfft2d", r2c_dense_mid=2, r2c_dense_mid_radix=2, c2r_dense_mid=2, r2c_mid=2,
-                c2r_mid=2)
+    read_counts("rfft2d", r2c_dense_mid=2, r2c_dense_mid_radix=2, c2r_dense_mid=2,
+                c2r_dense_mid_radix=2, r2c_mid=2, c2r_mid=2)
     for n, x in rfft2d_inputs.items():
         spec, back = rfft2d_out[n]
         check_r2c_mid("rfft2d_axis0", spec, x, back, (0,), grid=[n, n])
@@ -1613,10 +1760,10 @@ def main() -> int:
 
     # grid -> expected launches: 512^3 K16 (the radix column tile), K1 at
     # (257, 512, 512), K10 on 131584 rows, K17; 256^3 K20 (the radix column
-    # tile), K4 at (129, 256, 256), K8 on 33024 rows, K21
+    # tile), K4 at (129, 256, 256), K8 on 33024 rows, K21 (the radix column tile)
     first_grids = {512: dict(r2c_mid=1, c2c_axis_mid=2, c2c_rows=2, c2r_mid=1),
                    256: dict(r2c_dense_mid=1, r2c_dense_mid_radix=1, c2c_dense_mid=2,
-                             c2c_dense_rows=2, c2r_dense_mid=1)}
+                             c2c_dense_rows=2, c2r_dense_mid=1, c2r_dense_mid_radix=1)}
     first_inputs = {}
     for n, expected in first_grids.items():
         x = randn(n, n, n)
@@ -1695,7 +1842,7 @@ def main() -> int:
     c3 = nd.nddct1(nd.nddct1(nd.nddct1(xo3, h129d, axis=0), h129d, axis=1), h129d, axis=2)
     cheb_out = {n: nd.nddct1(x, nd.DctHandler(n), axis=1) for n, x in cheb.items()}
     dst_out = {n: nd.nddst1(x, nd.DstHandler(n), axis=1) for n, x in dst_in.items()}
-    read_counts("chebyshev", dct_dense_mid=2, r2c_packed=1 + 3 + 2)
+    read_counts("chebyshev", dct_dense_mid=2, dct_dense_mid_radix=2, r2c_packed=1 + 3 + 2)
     check("dct1_129^3_all_axes", c3, sfft.dctn(host64(xo3), type=1), grid=[129] * 3)
     for n, y in cheb_out.items():
         check("dct1_last_axis", y, sfft.dct(host64(cheb[n]), type=1, axis=1), grid=[n, n])
@@ -2890,7 +3037,8 @@ def main() -> int:
         return u
 
     u3s, peak, base = run_path("S3_neumann_poisson_1024^3", lambda: s3_solve(f3s),
-                               dict(dct2_nat=1, dct_dense_mid=2, spectral_dct_mid=1, dct3_nat=1))
+                               dict(dct2_nat=1, dct_dense_mid=2, dct_dense_mid_radix=2,
+                                    spectral_dct_mid=1, dct3_nat=1))
     check_field("S3_neumann_poisson_1024^3", u3s, c_terms(False), peak_bytes=peak,
                 base_bytes=base)
     del u3s
@@ -3426,19 +3574,81 @@ def main() -> int:
     del sp, y
     torch.cuda.empty_cache()
 
+    # ---- 4v. the census of kernels 21 and 27: ndifft_r2c (the default 1/n)
+    # along axis 1 of a (1, n/2 + 1, 130) spectrum at every 4 <= n <= 1100
+    # (the 710 on the radix column tile, with a plan of n/2 at even n and
+    # of n at odd n: 707 of them kernel 21's and 512, 768 and 1024 kernel
+    # 17's; the 326 without a plan and the 61 odd n where
+    # fft.dense_beats_radix holds on kernel 21's dense product, whose
+    # float32 sums of n terms are held to TOL_KERNEL as in phase 4s), with DC and
+    # (even n) Nyquist imaginary parts that must be ignored, against
+    # torch.fft.irfft in float64; and nddct1, nddct2 and
+    # nddct3 along axis 1 of a (1, n, 130) field at every n that kernel 27
+    # takes on the radix column tile (671, 439 and 439 lengths) against
+    # scipy.fft.dct in float64 (oracles only, run on the host); each within
+    # TOL_CENSUS of the oracle's peak
+    k21_all = list(range(4, 1101))
+    k21_n = [n for n in k21_all if krfft.c2r_dense_radix(n)]
+    k27_n = {t: [n for n in range(2, 1101) if kdct.dct_radix_len(n, t) is not None]
+             for t in (1, 2, 3)}
+    k21_k17 = [n for n in k21_n if api._route("c2r", (1, n // 2 + 1, 130), 1, torch.complex64,
+                                              "cuda", n=n) == api.C2R_MID]
+    if (len(k21_n), k21_k17, [len(v) for v in k27_n.values()]) != (
+            710, [512, 768, 1024], [671, 439, 439]):
+        raise AssertionError(f"dense census: {len(k21_n)} K21 lengths ({k21_k17} K17), "
+                             f"{[len(v) for v in k27_n.values()]} K27 lengths")
+    t0 = time.perf_counter()
+    worst = {name: (0.0, None) for name in ("c2r", "c2r_dense", 1, 2, 3)}
+    reset_counts()
+    for n in k21_all:
+        sp = crandn(1, n // 2 + 1, 130)
+        sp[:, 0] += 100j
+        if n % 2 == 0:
+            sp[:, -1] += 100j
+        y = nd.ndifft_r2c(sp, nd.R2cFftHandler(n), axis=1)
+        err = rel_err(y, torch.fft.irfft(sp.cpu().to(torch.complex128), n=n, dim=1).to(dev))
+        form = "c2r" if krfft.c2r_dense_radix(n) else "c2r_dense"
+        if not err <= (TOL_CENSUS if form == "c2r" else TOL_KERNEL):
+            raise AssertionError(f"c2r_dense_mid census n={n} ({form}): {err}")
+        worst[form] = max(worst[form], (err, n))
+    for t, lengths in k27_n.items():
+        fn = (nd.nddct1, nd.nddct2, nd.nddct3)[t - 1]
+        for n in lengths:
+            x = randn(1, n, 130)
+            err = rel_err(fn(x, nd.DctHandler(n), axis=1),
+                          torch.from_numpy(sfft.dct(host64(x), type=t, axis=1)).to(dev))
+            if not err <= TOL_CENSUS:
+                raise AssertionError(f"dct{t} census n={n}: {err}")
+            worst[t] = max(worst[t], (err, n))
+    k27_total = sum(len(v) for v in k27_n.values())
+    read_counts("dense_census", c2r_dense_mid=len(k21_all) - 3,
+                c2r_dense_mid_radix=len(k21_n) - 3, c2r_mid=3, dct_dense_mid=k27_total,
+                dct_dense_mid_radix=k27_total)
+    emit(phase="dense_census", k21_radix=len(k21_n) - 3, k21_dense=len(k21_all) - len(k21_n),
+         k17_lengths=3, k27_lengths={f"dct{t}": len(v) for t, v in k27_n.items()},
+         worst_rel_err_c2r=worst["c2r"][0], worst_n_c2r=worst["c2r"][1],
+         worst_rel_err_c2r_dense=worst["c2r_dense"][0], worst_n_c2r_dense=worst["c2r_dense"][1],
+         **{f"worst_rel_err_dct{t}": worst[t][0] for t in (1, 2, 3)},
+         **{f"worst_n_dct{t}": worst[t][1] for t in (1, 2, 3)},
+         seconds=time.perf_counter() - t0)
+    del sp, y, x
+    torch.cuda.empty_cache()
+
     # ---- 5. times: each kernel against its plain version and, at the main
     # path's shape, the PyTorch call that computes the same function (the
     # yardstick); the steps against torch.fft (the 1536^3 solve's kernels
     # and the solve itself are timed in phase 4h, beside their fields)
     reps = args.reps
     main_shapes = {"c2c_axis_mid": (1, 512, 512 * 257), "r2c_nat": (512 * 512, 512),
-                   "c2r_nat": (512 * 512, 257), "dct_dense_mid": (1, 512, 512 * 512),
+                   "c2r_nat": (512 * 512, 257), "dct_dense_mid": (1, 1024, 1024),
+                   "dct_dense_mid_radix": (1, 512, 512 * 512),
                    "dct2_nat": (512 * 512, 512), "dct3_nat": (512 * 512, 512),
                    "c2c_rows": (512 * 512, 512), "c2c_dense_rows": (256 * 256, 256),
                    "c2c_dense_mid": (1, 256, 256 * 256), "r2c_mid": (1, 512, 512 * 512),
                    "c2r_mid": (1, 257, 512 * 512), "r2c_dense_mid": (1, 262, 256 * 256),
                    "r2c_dense_mid_radix": (1, 256, 256 * 256),
-                   "c2r_dense_mid": (1, 129, 256 * 256), "r2c_packed": (256 * 256, 256),
+                   "c2r_dense_mid": (1, 132, 256 * 256),
+                   "c2r_dense_mid_radix": (1, 129, 256 * 256), "r2c_packed": (256 * 256, 256),
                    "r2c_packed_dense": (128 * 128, 128), "c2c_generic_rows": (600 * 600, 600),
                    "c2c_generic_mid": (600, 600, 301), "r2c_packed_generic": (600 * 600, 600),
                    "dct2_nat_wide": (1536 * 1536, 1536),
@@ -3464,16 +3674,18 @@ def main() -> int:
                    "spectral_dct_mid_npoint": (8, 1152, 8192)}
 
     # the radix core's kernels: the yardstick at every shape timed
-    library_every_shape = ("c2c_generic_rows", "r2c_packed_generic", *RADIX_ONLY)
+    library_every_shape = ("c2c_generic_rows", "r2c_packed_generic", "c2r_dense_mid_radix",
+                           "dct_dense_mid_radix", *RADIX_ONLY)
 
-    def time_kernel(name, shape, kern, plain, library=None):
-        t_plain = cuda_ms(plain, reps)
-        t_k = cuda_ms(kern, reps)
-        t_lib = (cuda_ms(library, reps) if library is not None and (
+    def time_kernel(name, shape, kern, plain, library=None, runs=None, **kw):
+        runs = runs or reps
+        t_plain = cuda_ms(plain, runs)
+        t_k = cuda_ms(kern, runs)
+        t_lib = (cuda_ms(library, runs) if library is not None and (
             shape == main_shapes[name] or name in library_every_shape) else None)
         timing[(name, shape)] = (t_k, t_plain, t_lib)
         emit(phase="time", kernel=name, shape=shape, ms=t_k, plain_ms=t_plain,
-             library_ms=t_lib, card=card)
+             library_ms=t_lib, card=card, **kw)
 
     for shape in ((1, 512, 257), (1, 1024, 513), (512, 512, 257), (1, 512, 512 * 257),
                   (1, 1024, 1024), (512, 512, 512), (1, 512, 512 * 512), (257, 512, 512)):
@@ -3491,14 +3703,34 @@ def main() -> int:
                     lambda: krfft.c2r_nat_plain(sp, n, 1.0 / n),
                     lambda: torch.fft.irfft(sp, n=n, dim=1))
     del x, sp
-    for shape in ((1, 129, 129), (1, 1025, 1025), (512, 512, 512), (1, 512, 512 * 512)):
+    # kernel 27: the dense product at its main path's DCT-IV and at odd
+    # DCT-II lengths; the radix column tile at DCT-II (the kernels line's
+    # main shape and (512, 512, 512)), DCT-III and S3's (1024, 1024, 1024),
+    # and DCT-I (the Chebyshev 129^3 and the dct2d grid's 1025), each beside
+    # torch.matmul with the scaled DCT matrix; the plain version in slices
+    # of 64 at S3's shape
+    dct_types = {}      # (name, shape, DCT type) -> (ms, plain ms, library ms)
+    for name, shape, types in (
+            ("dct_dense_mid", (1, 1024, 1024), (4,)), ("dct_dense_mid", (1, 129, 129), (2,)),
+            ("dct_dense_mid", (1, 1025, 1025), (2,)),
+            ("dct_dense_mid_radix", (1, 512, 512 * 512), (2, 3)),
+            ("dct_dense_mid_radix", (512, 512, 512), (2,)),
+            ("dct_dense_mid_radix", (1024, 1024, 1024), (2, 3)),
+            ("dct_dense_mid_radix", (129, 129, 129), (1,)),
+            ("dct_dense_mid_radix", (1, 1025, 1025), (1,))):
         x = randn(*shape)
-        m_s = kdct.dct_dense_mid_plain(
-            torch.eye(shape[1], device=dev)[None], 2, 2.0)[0]   # 2 M, (k, t)
-        time_kernel("dct_dense_mid", shape, lambda: kdct.dct_dense_mid(x, 2, 2.0),
-                    lambda: kdct.dct_dense_mid_plain(x, 2, 2.0),
-                    lambda: torch.matmul(m_s, x))
-    del x
+        step = 64 if x.numel() > 1 << 28 else shape[0]
+        for t in types:
+            m_s = torch.from_numpy(kdct.dense_consts(shape[1], t, 2.0).T.copy()).to(dev)
+            plain = kdct.dct_radix_plain if name.endswith("_radix") else kdct.dct_dense_mid_plain
+            time_kernel(name, shape, lambda: kdct.dct_dense_mid(x, t, 2.0),
+                        lambda: [plain(x[i:i + step], t, 2.0) for i in range(0, shape[0], step)],
+                        lambda: torch.matmul(m_s, x), runs=5 if step < shape[0] else None,
+                        dct_type=t)
+            dct_types[(name, shape, t)] = timing.pop((name, shape))
+        timing[(name, shape)] = dct_types[(name, shape, types[0])]
+        del x, m_s
+        torch.cuda.empty_cache()
     for t, n in ((1024, 1024), (512 * 512, 512)):
         x = randn(t, n)
         time_kernel("dct2_nat", (t, n), lambda: kdct.dct2_nat(x, 2.0),
@@ -3598,6 +3830,34 @@ def main() -> int:
              ms_by_cols_per_tile=cols_ms, chosen=krfft.r2c_mid_cols(n, nb, cols, kfft.num_sms(dev)),
              card=card)
         del x, y
+    # kernels 21 and 27 on the radix column tile at their main shapes with
+    # each column count C that fits (the wrappers take rfft.py::
+    # c2r_dense_cols's and dct.py::dct_radix_cols's)
+    for shape, n in (((1, 129, 256 * 256), 256), ((1, 133, 264), 264), ((1, 65, 128), 128),
+                     ((1, 65, 256 * 256), 129), ((1, 128, 128 * 256), 255)):
+        nb, m, cols = shape
+        sp = crandn(*shape)
+        y = torch.empty((nb, n, cols), device=dev)
+        cols_ms = {c: cuda_ms(lambda: krfft.c2r_dense_radix_launch(sp, y, n, 1.0 / n, c), reps)
+                   for c in (1, 2, 4, 8, 16, 32, 64) if tile_fits(krfft.r2c_mid_len(n), c)}
+        emit(phase="time", kernel="c2r_dense_mid_radix", shape=shape, n=n,
+             ms_by_cols_per_tile=cols_ms,
+             chosen=krfft.c2r_dense_cols(n, nb, cols, kfft.num_sms(dev)), card=card)
+        del sp, y
+    for shape, types in (((1, 512, 512 * 512), (2, 3)), ((1024, 1024, 1024), (2, 3)),
+                         ((129, 129, 129), (1,)), ((1, 1025, 1025), (1,))):
+        nb, n, cols = shape
+        x = randn(*shape)
+        y = torch.empty_like(x)
+        for t in types:
+            cols_ms = {c: cuda_ms(lambda: kdct.dct_radix_launch(x, y, t, 2.0, c),
+                                  5 if x.numel() > 1 << 28 else reps)
+                       for c in (1, 2, 4, 8, 16, 32, 64) if tile_fits(kdct.dct_radix_len(n, t), c)}
+            emit(phase="time", kernel="dct_dense_mid_radix", shape=shape, dct_type=t,
+                 ms_by_cols_per_tile=cols_ms,
+                 chosen=kdct.dct_radix_cols(n, t, nb, cols, kfft.num_sms(dev)), card=card)
+        del x, y
+        torch.cuda.empty_cache()
     # kernel 1 on the radix column tile at its main shapes with each column
     # count C that fits, and at C <= 2 with each load ("_ldg": read-only;
     # the wrapper takes fft.py::axis_mid_tile's), beside torch.fft.fft
@@ -3676,25 +3936,27 @@ def main() -> int:
     del fft2d_inputs
     torch.cuda.empty_cache()
 
-    # the middle-axis R2C/C2R kernels (kernel 20 on the radix column tile
-    # as r2c_dense_mid_radix, at 262 = 2 * 131 on its dense product), the
-    # real-axis-first steps and rfft2d
-    for r2c_name, c2r_name, r2c, c2r, c2r_plain, shapes in (
-            ("r2c_mid", "c2r_mid", krfft.r2c_mid, krfft.c2r_mid, krfft.c2r_mid_plain,
+    # the middle-axis R2C/C2R kernels (kernels 20 and 21 on the radix column
+    # tile as r2c_dense_mid_radix and c2r_dense_mid_radix, at 262 = 2 * 131
+    # on their dense products, and kernel 21 at 129 = 3 * 43 on its dense
+    # product, where fft.dense_beats_radix holds), the real-axis-first
+    # steps and rfft2d
+    for r2c_name, c2r_name, r2c, c2r, shapes in (
+            ("r2c_mid", "c2r_mid", krfft.r2c_mid, krfft.c2r_mid,
              ((1, 512, 512), (1, 1024, 1024), (512, 512, 512), (1, 512, 512 * 512))),
             ("r2c_dense_mid", "c2r_dense_mid", krfft.r2c_dense_mid, krfft.c2r_dense_mid,
-             krfft.c2r_dense_mid_plain,
              ((1, 128, 128), (1, 264, 264), (1, 256, 256 * 256), (1, 129, 256 * 256),
-              (1, 262, 256 * 256)))):
+              (1, 255, 128 * 256), (1, 262, 256 * 256)))):
         for nb, n, cols in shapes:
             x = randn(nb, n, cols)
             sp = crandn(nb, n // 2 + 1, cols)
             name, r2c_plain = r2c_form(r2c_name, n)
             time_kernel(name, (nb, n, cols), lambda: r2c(x), lambda: r2c_plain(x),
                         lambda: torch.fft.rfft(x, dim=1))
-            time_kernel(c2r_name, (nb, n // 2 + 1, cols), lambda: c2r(sp, n, 1.0 / n),
+            name, c2r_plain = c2r_form(c2r_name, n)
+            time_kernel(name, (nb, n // 2 + 1, cols), lambda: c2r(sp, n, 1.0 / n),
                         lambda: c2r_plain(sp, n, 1.0 / n),
-                        lambda: torch.fft.irfft(sp, n=n, dim=1))
+                        lambda: torch.fft.irfft(sp, n=n, dim=1), n=n)
     del x, sp
     for n, x in first_inputs.items():
         hr, hc = nd.R2cFftHandler(n), nd.FftHandler(n)
@@ -3982,6 +4244,8 @@ def main() -> int:
                     "ndrustfft_tpu/ops/pallas/rfft.py:323"),
         "dct_dense_mid": ("ndrustfft_tpu_torch/csrc/dct_dense.cu",
                           "ndrustfft_tpu/ops/pallas/dct.py:545"),
+        "dct_dense_mid_radix": ("ndrustfft_tpu_torch/csrc/dct_mid_radix.cu",
+                                "ndrustfft_tpu/ops/pallas/dct.py:545"),
         "dct2_nat": ("ndrustfft_tpu_torch/csrc/dct_nat.cu",
                      "ndrustfft_tpu/ops/pallas/dct.py:190"),
         "dct3_nat": ("ndrustfft_tpu_torch/csrc/dct_nat.cu",
@@ -4002,6 +4266,8 @@ def main() -> int:
                                 "ndrustfft_tpu/ops/pallas/rfft.py:882"),
         "c2r_dense_mid": ("ndrustfft_tpu_torch/csrc/rfft_dense.cu",
                           "ndrustfft_tpu/ops/pallas/rfft.py:898"),
+        "c2r_dense_mid_radix": ("ndrustfft_tpu_torch/csrc/rfft_mid_radix.cu",
+                                "ndrustfft_tpu/ops/pallas/rfft.py:898"),
         "r2c_packed": ("ndrustfft_tpu_torch/csrc/rfft_radix.cu",
                        "ndrustfft_tpu/ops/pallas/rfft.py:163"),
         "r2c_packed_dense": ("ndrustfft_tpu_torch/csrc/rfft_dense.cu",
@@ -4107,6 +4373,25 @@ def main() -> int:
                          (list(shape), *timing[(nm, shape)], *bound(*work(name, shape)))))
                 for nm, shape in timing if nm == name and shape != main_shapes[name]
                 and shape not in sliced.get(name, ())]
+        if name.startswith("c2r_dense_mid"):
+            # kernel 21's other timed spectra with their lengths: the radix
+            # column tile at odd n = 255 and two even n, the dense product
+            # at odd n = 129, where fft.dense_beats_radix holds
+            other = ((((1, 128, 128 * 256), 255), ((1, 133, 264), 264), ((1, 65, 128), 128))
+                     if name.endswith("_radix") else (((1, 65, 256 * 256), 129),))
+            row["other_shapes"] = [
+                dict(zip(("shape", "n", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
+                         (list(shape), n, *timing[(name, shape)],
+                          *bound(*work(name, shape, n=n)))))
+                for shape, n in other]
+        if name.startswith("dct_dense_mid"):
+            # every timed (shape, DCT type), each with its type's bound
+            row["by_type"] = [
+                dict(zip(("shape", "dct_type", "ms", "plain_ms", "library_ms", "bound_ms",
+                          "bound_by"),
+                         (list(shape), t, *dct_types[(nm, shape, t)],
+                          *bound(*work(name, shape, dct_type=t)))))
+                for nm, shape, t in dct_types if nm == name]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

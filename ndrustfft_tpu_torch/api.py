@@ -184,10 +184,11 @@ def _rfft_mid(kind: str, n: int):
     """Route of a float32 R2C/C2R along a middle axis with >= 128 columns
     (the JAX package's rfft_nat_supported, then rfft_dense_mid_supported):
     K16/K17 for a natural-layout half length (both on the radix column
-    tile); K20/K21 for 4 <= n <= 1100 (any n,
-    Bluestein lengths included: K20 runs the radix column tile where a plan
-    exists and, like K21, the dense product, which needs none, elsewhere);
-    else None."""
+    tile); K20/K21 for 4 <= n <= 1100 (any n, Bluestein lengths included:
+    both run the radix column tile where the transform length, n/2 at even
+    n and n at odd n, has a plan, K21 not at the odd n where
+    ops/hopper/fft.py::dense_beats_radix holds, and the dense product, which
+    needs none, elsewhere); else None."""
     if _nat_f(n) is not None:
         return R2C_MID if kind == "r2c" else C2R_MID
     if _krfft.DENSE_MIN_N <= n <= _krfft.DENSE_MAX_N:

@@ -1,5 +1,9 @@
-// Kernel 27: dense DCT of any type along the middle axis of a (B, n, L)
-// float32 tensor, 2 <= n <= 1100:  y[b, k, c] = sum_t W[t, k] x[b, t, c],
+// Kernel 27's dense product: a DCT along the middle axis of a (B, n, L)
+// float32 tensor, 2 <= n <= 1100, at DCT-IV, at odd n for DCT-II/III, at
+// the lengths without a radix plan (DCT-I at n - 1, DCT-II/III at n/2) and
+// at the DCT-I lengths where ops/hopper/fft.py::dense_beats_radix holds
+// (the other types and lengths run on the radix column tile,
+// dct_mid_radix.cu):  y[b, k, c] = sum_t W[t, k] x[b, t, c],
 // W = (s M)^T with M the rustdct DCT-type matrix and s the handler's scale,
 // built on the host in float64 and rounded once (ops/hopper/dct.py).
 //
@@ -7,13 +11,14 @@
 // _build_dct_dense_mid), which runs the same product as one MXU dot per
 // (1, n, TL) block at the "highest" (float32) tier.
 //
-// What bounds it on this card: the product's 2 n^2 FLOPs per column on the
-// FP32 CUDA cores. At (1, 512, 262144) that is 137 GFLOP, >= 2.05 ms at the
-// 67 TFLOP/s FP32 peak (data sheet, 700 W), against 1.07 GB of HBM traffic
-// (0.32 ms at 3.35 TB/s). The loop is the shared register-tiled product of
+// What bounds it on this card: the function needs only its HBM traffic
+// (8 n bytes a column: 0.0025 ms at the DCT-IV of (1, 1024, 1024) over
+// 3.35 TB/s); this design does the product's 2 n^2 FLOPs per column on the
+// FP32 CUDA cores (4.3 GFLOP there, >= 0.064 ms at the 67 TFLOP/s FP32
+// peak, data sheet, 700 W), because the JAX package's gate sends these sizes
+// to the dense product. The loop is the shared register-tiled product of
 // dense_real.cuh, on the square (n, n) table with x and y in the plain
-// (B, n, L) layout. Every n of the reference grid (129, 265, 513, 1025) is
-// odd, so every edge is masked there.
+// (B, n, L) layout. The odd n (129 ... 1025) mask every edge.
 #include "dense_real.cuh"
 
 namespace ndfft {

@@ -1,0 +1,228 @@
+// Kernel 27 on the mixed-radix core's column tile (fft_radix.cuh::
+// radix_cols_kernel, the skeleton of kernels 16, 17, 18 and 20): DCT-I,
+// DCT-II and DCT-III along the middle axis of a (B, n, L) float32 tensor,
+// in the rustdct convention times a scale s, at every 2 <= n <= 1100 whose
+// real FFT has a plan (ops/hopper/fft.py::radix_plan): DCT-II and DCT-III
+// at even n = 2h with a plan of h, DCT-I at n with a plan of n - 1. DST-II
+// and DST-III reach them through their flip/sign conjugation. DCT-IV, odd
+// n for DCT-II/III, the lengths without a plan and the 101 DCT-I lengths
+// where a large prime stage of n - 1 makes the product faster
+// (ops/hopper/fft.py::dense_beats_radix: 128 = 127 + 1, 130 = 3 * 43 + 1
+// ...) keep the dense product of dct_dense.cu.
+//
+// Replaces, at those types and lengths, ndrustfft_tpu/ops/pallas/dct.py::
+// _dct_dense_kernel (:545, called at :579 by dct_dense_pallas_mid), which
+// runs the scaled DCT matrix as one MXU dot per (1, n, TL) block at the
+// "highest" tier. Its first Hopper form (dct_dense.cu on dense_real.cuh's
+// register-tiled SGEMM) did the product's 2 n^2 FP32 operations per column
+// (4.263 ms at (1, 512, 262144) on an H100, 13x the byte bound, and 64.7 ms
+// at (1024, 1024, 1024), 25x).
+//
+// What bounds it on this card: device memory. A column is read once and
+// written once, 8 n bytes: 0.321 ms at (1, 512, 262144) and 2.56 ms at
+// (1024, 1024, 1024) over 3.35 TB/s, against a real FFT's 2.5 n log2 n
+// FP32 operations per column (0.045 and 0.40 ms of the 67 TFLOP/s peak).
+//
+// The design: the Makhoul passes of kernels 25 and 26 (dct_mid.cu, whose
+// header has the algebra; the index maps makhoul_src and interleave_dst of
+// dct_wide.cuh) as a load policy and an epilogue around radix_run, each
+// column once through the tile, every constant from the host
+// (ops/hopper/dct.py), no sincosf on the device.
+//
+// * DCT-II, n = 2h: the load reads the Makhoul pairs
+//   z[t] = (x[makhoul_src(2t)], x[makhoul_src(2t + 1)]), two row loads an
+//   element, consecutive threads on consecutive columns (MakhoulCol); the
+//   forward radix_run of h leaves Z in the tile (kTileOut), and the
+//   epilogue is kernel 16's unpack (r2c_unpack_tile, u = W_n^k) whose
+//   store multiplies X[k] by P[k] = s e^{-i pi k / 2n} (dct.py::dct2_post)
+//   and writes y[k] = Re, and for 0 < k < h also y[n - k] = -Im (P[n - k]
+//   = -i conj P[k]); y[h] comes from the unpack's X[h] alone, once.
+// * DCT-III, n = 2h: the load forms S[k] = Q[k] (x[k] - i x[n - k]),
+//   Q[k] = (s / 2) e^{+i pi k / 2n} (dct.py::dct3_pre, the scale folded
+//   there once), x[n] = 0, from two row loads, rows k < h into the tile and
+//   k = h into the column's side slot (Dct3Col, kernel 17's C2rCol with
+//   the pre twiddle); the prologue is kernel 17's inverse unpack
+//   (c2r_prologue_tile) with the ab rows at scale 1; the inverse radix_run
+//   of h leaves z in the tile, and the epilogue writes the Makhoul
+//   interleave y[interleave_dst(2l)] = Re z[l], y[interleave_dst(2l + 1)] =
+//   Im z[l], a tile row at a time (Dct3Rows).
+// * DCT-I, n = h + 1: the R2C of the even extension e of length 2h
+//   (e[j] = x[j] for j < n, x[2h - j] above), its pairs (e[2t], e[2t + 1])
+//   read straight from x (EvenExtCol); the forward radix_run of h and the
+//   unpack (u = W_2h^k), whose store writes y[k] = (s / 2) Re X[k] for the
+//   n bins k <= h (Dct1Rows).
+//
+// As in kernels 16 and 17, the stores come from an epilogue over the tile,
+// not from the last stage (a bin bound or a store there spilled 0.5-13 KB
+// a thread on an H100). Columns a tile: ops/hopper/rfft.py::r2c_mid_cols
+// (DCT-II, DCT-I) and c2r_mid_cols (DCT-III) at the transform length.
+#include "dct_wide.cuh"
+#include "fft_radix.cuh"
+
+namespace ndfft {
+
+// DCT-II's columns: element t < h of column col of b as the Makhoul pair
+// (x[src(2t)], x[src(2t + 1)]) of x (B, n, L).
+struct MakhoulCol {
+  const float* __restrict__ x;
+  long long L;
+  int n;
+  __device__ __forceinline__ long long base(long long b, long long col) const {
+    return b * n * L + col;
+  }
+  __device__ __forceinline__ float2 at(long long p, int t) const {
+    return make_float2(__ldcs(x + p + makhoul_src(2 * t, n) * L),
+                       __ldcs(x + p + makhoul_src(2 * t + 1, n) * L));
+  }
+};
+
+// DCT-II's epilogue: the tile holds Z; y[k] = Re(P[k] X[k]) and, for
+// 0 < k < h, y[n - k] = -Im(P[k] X[k]), into y (B, n, L).
+struct Dct2Rows {
+  static constexpr bool kTileOut = true;
+  float* __restrict__ y;
+  const float2* __restrict__ u;      // W_n^k, k < h
+  const float2* __restrict__ post;   // P[k], k <= h
+  long long L;
+  int n;
+  __device__ __forceinline__ long long handle(long long b, long long col) const {
+    return b * n * L + col;
+  }
+  __device__ __forceinline__ float2 out(int, float2 v) const { return v; }
+  template <class Cx>
+  __device__ __forceinline__ void epilogue(const float2* s, const Cx& cx) const {
+    float* yc = y + cx.row;
+    const long long ls = L;
+    const int nn = n, h = n / 2;
+    const float2* __restrict__ pp = post;
+    r2c_unpack_tile(s, cx, u, [=](int k, float2 v) {
+      const float2 p = __ldg(pp + k);
+      yc[k * ls] = v.x * p.x - v.y * p.y;
+      if (k > 0 && k < h) yc[(nn - k) * ls] = -(v.x * p.y + v.y * p.x);
+    });
+  }
+};
+
+// DCT-III's columns: S[k] = Q[k] (x[k] - i x[n - k]) of x (B, n, L) with
+// x[n] = 0, rows k < h into the tile and k = h into the side slot; the
+// prologue is the inverse unpack with the ab rows.
+struct Dct3Col {
+  static constexpr int kSide = 1;
+  const float* __restrict__ x;
+  const float2* __restrict__ q;      // Q[k], k <= h
+  const float4* __restrict__ ab;
+  long long L;
+  int n;
+  __device__ __forceinline__ long long base(long long b, long long col) const {
+    return b * n * L + col;
+  }
+  __device__ __forceinline__ float2 at(long long p, int k) const {
+    const float a = __ldcs(x + p + k * L);
+    const float b = k ? __ldcs(x + p + (n - k) * L) : 0.f;
+    const float2 w = __ldg(q + k);
+    return make_float2(w.x * a + w.y * b, w.y * a - w.x * b);
+  }
+  template <class Cx>
+  __device__ __forceinline__ void prologue(float2* s, const float2* side, const Cx& cx) const {
+    c2r_prologue_tile(s, side, cx, ab);
+  }
+};
+
+// DCT-III's epilogue: the tile holds z; u[2l] = Re z[l] and u[2l + 1] =
+// Im z[l] go to y[interleave_dst(j)] of y (B, n, L).
+struct Dct3Rows {
+  static constexpr bool kTileOut = true;
+  float* __restrict__ y;
+  long long L;
+  int n;
+  __device__ __forceinline__ long long handle(long long b, long long col) const {
+    return b * n * L + col;
+  }
+  __device__ __forceinline__ float2 out(int, float2 v) const { return v; }
+  template <class Cx>
+  __device__ __forceinline__ void epilogue(const float2* s, const Cx& cx) const {
+    if (!cx.active) return;
+    for (int l = cx.t; l < cx.n; l += cx.tr) {
+      const float2 v = s[cx.slot(l)];
+      y[cx.row + interleave_dst(2 * l, n) * L] = v.x;
+      y[cx.row + interleave_dst(2 * l + 1, n) * L] = v.y;
+    }
+  }
+};
+
+// DCT-I's columns: element t < h of column col of b as the pair
+// (e[2t], e[2t + 1]) of the even extension of x (B, h + 1, L).
+struct EvenExtCol {
+  const float* __restrict__ x;
+  long long L;
+  int n;
+  __device__ __forceinline__ long long base(long long b, long long col) const {
+    return b * n * L + col;
+  }
+  __device__ __forceinline__ int src(int j) const { return j < n ? j : 2 * (n - 1) - j; }
+  __device__ __forceinline__ float2 at(long long p, int t) const {
+    return make_float2(__ldcs(x + p + src(2 * t) * L), __ldcs(x + p + src(2 * t + 1) * L));
+  }
+};
+
+// DCT-I's epilogue: the tile holds Z; y[k] = half Re X[k] for the h + 1
+// bins, half = s / 2, into y (B, h + 1, L).
+struct Dct1Rows {
+  static constexpr bool kTileOut = true;
+  float* __restrict__ y;
+  const float2* __restrict__ u;      // W_2h^k, k < h
+  long long L;
+  int n;
+  float half;
+  __device__ __forceinline__ long long handle(long long b, long long col) const {
+    return b * n * L + col;
+  }
+  __device__ __forceinline__ float2 out(int, float2 v) const { return v; }
+  template <class Cx>
+  __device__ __forceinline__ void epilogue(const float2* s, const Cx& cx) const {
+    float* yc = y + cx.row;
+    const long long ls = L;
+    const float sc = half;
+    r2c_unpack_tile(s, cx, u, [=](int k, float2 v) { yc[k * ls] = sc * v.x; });
+  }
+};
+
+}  // namespace ndfft
+
+// x, y: (B, n, L) float32, contiguous. type 1, 2 or 3; table: the radix
+// table of the transform length h (n - 1 for type 1, n / 2 for types 2
+// and 3; sign -1, or +1 for type 3) (ops/hopper/fft.py::radix_consts);
+// radices: radix_plan(h), `stages` of them; c1: (h,) complex64 W_2h^k
+// (types 1 and 2) or the (h, 4) float32 ab rows at scale 1 (type 3,
+// ops/hopper/rfft.py::c2r_unpack_consts); c2: (n,) complex64 P[k]
+// (type 2, ops/hopper/dct.py::dct2_post) or (h + 1,) Q[k] (type 3,
+// dct.py::dct3_pre), the scale s folded in; unused for type 1, whose
+// `half` is s / 2. C: columns per tile (ops/hopper/dct.py::radix_cols).
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int ndfft_dct_mid_radix(int type, const void* x, void* y, const void* table,
+                                   const int* radices, int stages, const void* c1,
+                                   const void* c2, float half, long long B, int n, long long L,
+                                   int C, void* stream) {
+  using namespace ndfft;
+  const int h = type == 1 ? n - 1 : n / 2;
+  RadixPlan plan{};
+  if (type < 1 || type > 3 || (type != 1 && n % 2) || !radix_plan_of(radices, stages, h, plan) ||
+      c1 == nullptr || (type != 1 && c2 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const auto xp = static_cast<const float*>(x);
+  const auto yp = static_cast<float*>(y);
+  const auto tp = static_cast<const float2*>(table);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (type == 1)
+    return (int)radix_cols_launch<-1>(EvenExtCol{xp, L, n},
+                                      Dct1Rows{yp, static_cast<const float2*>(c1), L, n, half},
+                                      tp, plan, B, h, L, C, 1.f, st);
+  if (type == 2)
+    return (int)radix_cols_launch<-1>(
+        MakhoulCol{xp, L, n},
+        Dct2Rows{yp, static_cast<const float2*>(c1), static_cast<const float2*>(c2), L, n}, tp,
+        plan, B, h, L, C, 1.f, st);
+  return (int)radix_cols_launch<1>(
+      Dct3Col{xp, static_cast<const float2*>(c2), static_cast<const float4*>(c1), L, n},
+      Dct3Rows{yp, L, n}, tp, plan, B, h, L, C, 1.f, st);
+}

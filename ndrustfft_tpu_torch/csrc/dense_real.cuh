@@ -1,6 +1,11 @@
 // The register-tiled float32 product of the dense real kernels: kernel 27
-// (dct_dense.cu), kernels 20 and 21 and kernel 15's dense product
-// (rfft_dense.cu). For each batch b,
+// (dct_dense.cu) at DCT-IV, odd-n DCT-II/III, the lengths without a radix
+// plan and the DCT-I lengths where ops/hopper/fft.py::dense_beats_radix
+// holds, kernels 20 and 21 at the lengths without one (kernel 21 also at
+// the odd n where that test holds), and kernel 15's dense product
+// (rfft_dense.cu); at the other lengths and types kernels 20,
+// 21 and 27 run on the radix column tile (rfft_mid_radix.cu,
+// dct_mid_radix.cu). For each batch b,
 //
 //   Y(b, k, c) = sum_{t < red} W[t, k] * X(b, t, c),    k < rows, c < L,
 //

@@ -12,8 +12,11 @@
 // 16, 18 and 20 (the R2C along a middle axis, kernel 18 of DST-I's two
 // streams) on the same column tile, at the half length with the unpack as
 // the epilogue or, at an odd length, with an epilogue that stores half the
-// bins, and kernel 17 (the C2R along a middle axis) at the half length
-// with the inverse unpack as the prologue (rfft_mid_radix.cu).
+// bins, and kernels 17 and 21 (the C2R along a middle axis) at the half
+// length with the inverse unpack as the prologue or, kernel 21 at an odd
+// length, on the column's Hermitian extension (rfft_mid_radix.cu); kernel
+// 27's DCT-I, DCT-II and DCT-III as load policies and epilogues of the
+// Makhoul passes around the half-length real FFT (dct_mid_radix.cu).
 //
 // Replaces, for the CUDA port, the JAX package's
 // ndrustfft_tpu/ops/pallas/fft.py::_kernel_twostep and
@@ -143,6 +146,15 @@ struct RxSide : std::integral_constant<int, 0> {};
 template <class Load>
 struct RxSide<Load, std::void_t<decltype(Load::kSide)>>
     : std::integral_constant<int, Load::kSide> {};
+
+// Whether a load policy has a prologue: one with side slots does, and one
+// without them says so by static constexpr bool kPrologue = true (the
+// column skeleton runs prologue(s, side, cx) behind the load's barrier).
+template <class Load, class = void>
+struct RxPrologue : std::bool_constant<(RxSide<Load>::value > 0)> {};
+template <class Load>
+struct RxPrologue<Load, std::void_t<decltype(Load::kPrologue)>>
+    : std::bool_constant<Load::kPrologue> {};
 
 // A stage of radix r is a prime stage (not a codelet) for odd r >= 11.
 __host__ __device__ constexpr bool rx_prime(int r) { return r >= 11 && (r & 1); }
@@ -801,7 +813,8 @@ cudaError_t radix_rows_launch(Load ld, Io io, const float2* tab, const int* radi
 // valid ones are zero and neither loaded nor stored. A load policy with
 // side slots (kSide = 1) also loads element n of each column into its side
 // slot, after the coefficient rows, and runs its prologue(s, side, cx) on
-// the loaded tile. The Io stores the last stage's outputs at
+// the loaded tile (as does one with kPrologue and no side slots). The Io
+// stores the last stage's outputs at
 // io.handle(b, col) (store(handle, k, v)), or, kTileOut, gets the tile of
 // spectra in its epilogue(s, cx).
 template <int kE, int kS, class Load, class Io>
@@ -847,7 +860,7 @@ radix_cols_kernel(Load ld, Io io, const float2* __restrict__ tab, RadixPlan plan
       side[cc] = cc < valid ? ld.at(base + cc, n) : make_float2(0.f, 0.f);
   }
   __syncthreads();
-  if constexpr (RxSide<Load>::value > 0) {
+  if constexpr (RxPrologue<Load>::value) {
     ld.prologue(s, side + c, cx);
     __syncthreads();
   }

@@ -1,6 +1,11 @@
 // Kernels 20 and 21: R2C and C2R along the middle axis of (B, n, L) as one
-// real product each, 4 <= n <= 1100 (odd n included), m = n/2 + 1; and
-// kernel 15's dense product, the R2C of contiguous (T, n) rows with kernel
+// real product each, m = n/2 + 1, at the 326 lengths 4 <= n <= 1100 whose
+// transform length (n/2 at even n, n at odd n) has no radix plan (a prime
+// factor above 127: n = 262, 1099 ...), and kernel 21 also at the 61 odd n
+// where a large prime stage makes the product faster
+// (ops/hopper/fft.py::dense_beats_radix: 129 = 3 * 43 ...); at the other
+// lengths both run on the radix column tile (rfft_mid_radix.cu). And kernel 15's dense product, the
+// R2C of contiguous (T, n) rows with kernel
 // 20's table, for even n = 2h, h <= 256 not a multiple 128 * F of the core
 // (the 128^3 step's n = 128, DCT-II at n = 200, DCT-I at n = 130).
 //

@@ -13,13 +13,20 @@
 //
 // Kernel 17 takes a (B, h + 1, L) complex64 half spectrum to (B, 2h, L)
 // float32, times a scale, h = 128 * F (F = 2 ... 160 with a plan), with the
-// DC and Nyquist imaginary parts ignored.
+// DC and Nyquist imaginary parts ignored; kernel 21 the same at every
+// 4 <= n <= 1100 whose transform length has a plan (768 lengths), but for
+// the 61 odd n where ops/hopper/fft.py::dense_beats_radix holds (with its
+// 326 lengths without a plan, they keep the dense product of
+// rfft_dense.cu): kernel 17's kernel at even n = 2h, and at odd n the
+// (B, (n + 1) / 2, L) half spectrum to (B, n, L), the DC's imaginary part
+// ignored.
 //
 // Kernel 16 replaces ndrustfft_tpu/ops/pallas/rfft.py::_r2c_kernel_mid
 // (:443, built by _build_r2c_mid and called at :532); kernel 18 replaces
 // ::_r2c_kernel_packed_mid (:627, called at :682 by r2c_pallas_packed_mid);
 // kernel 20 replaces ::_r2c_dense_kernel (:882, called at :932); kernel 17
-// replaces ::_c2r_kernel_mid (:470, called at :587). The TPU
+// replaces ::_c2r_kernel_mid (:470, called at :587); kernel 21 replaces
+// ::_c2r_dense_kernel (:898, called at :967). The TPU
 // kernels ran the half-length FFT as the bts2 core's dense DFT-128 stage
 // (kernels 16, 17 and 18) and the whole R2C as one real product (kernel 20),
 // cheap on a 128 x 128 MXU. Their first Hopper forms ran the same on the
@@ -89,6 +96,27 @@
 // scanned on an H100: time_kernels.py --scan-c2r.) Columns a tile:
 // ops/hopper/rfft.py::c2r_mid_cols (kernel 18's rule, the fastest count at
 // each of nine shapes scanned).
+//
+// Kernel 21 is kernel 20 backwards. Its first Hopper form was one real
+// product of 4 n (n / 2 + 1) FP32 operations per column (dense_real.cuh;
+// 0.411 ms at (1, 129, 65536), n = 256, 10x its byte bound of 0.0403 ms and
+// 1.7x torch.fft.irfft). At even n it is kernel 17's kernel at h = n / 2,
+// any h with a plan (the prologue's mirror pairs {k, h - k} cover odd h).
+// At odd n the load (HermCol) places bins 0 ... (n - 1) / 2 of the column
+// with the DC's imaginary part zeroed and, behind the load's barrier, a
+// prologue copies each tile row k to row n - k conjugated, so the spectrum
+// is read once. (A second read of each mirrored row in the load instead
+// gave the same registers and spills and ran as fast at n = 129 and 2.5%
+// slower at n = 255 on an H100, (1, 65, 65536) and (1, 128, 32768).) The
+// length-n radix_run with the sign +1 table leaves z in the tile, and an
+// epilogue writes scale * Re z[l] to real row l (C2rOddRows), a tile row at
+// a time. Columns a tile: rfft.py::c2r_dense_cols (kernel 17's count at
+// even n, r2c_mid_cols at odd n). The odd form does the whole length-n
+// C2C, about p operations an element on a prime stage p, where the dense
+// product does about n: at n = 3 p or n < 128 with p >= 11 the product is
+// faster (129 = 3 * 43: 0.233 against 0.207 ms; 387 = 9 * 43: 0.54x of
+// it; time_kernels.py --route-dense on an H100), and the wrapper keeps it
+// there.
 // Left for later: cp.async or TMA loads, the odd length's Hermitian half of
 // the work (half the C2C's outputs are dropped), and for kernel 18 reading
 // x itself in the load instead of the two streams its caller builds (two
@@ -218,6 +246,55 @@ struct C2rColBins {
   }
 };
 
+// Kernel 21's odd columns: the Hermitian extension of the (B, m, L)
+// complex64 half spectrum of an odd n = 2m - 1, element r of column col of
+// b being S[r] for r < m (the DC's imaginary part set to 0) and
+// conj S[n - r] above: the load reads rows r < m once, and the prologue
+// fills rows m ... n - 1 from the tile.
+struct HermCol {
+  static constexpr bool kPrologue = true;
+  const float2* __restrict__ x;
+  long long L;
+  int n, m;
+  __device__ __forceinline__ long long base(long long b, long long col) const {
+    return b * m * L + col;
+  }
+  __device__ __forceinline__ float2 at(long long p, int r) const {
+    if (r >= m) return make_float2(0.f, 0.f);
+    float2 v = __ldcs(x + p + r * L);
+    if (r == 0) v.y = 0.f;
+    return v;
+  }
+  template <class Cx>
+  __device__ __forceinline__ void prologue(float2* s, const float2*, const Cx& cx) const {
+    if (!cx.active) return;
+    for (int k = cx.t + 1; k < m; k += cx.tr) {
+      const float2 v = s[cx.slot(k)];
+      s[cx.slot(n - k)] = make_float2(v.x, -v.y);
+    }
+  }
+};
+
+// Kernel 21's odd store: the tile holds z, the length-n inverse of the
+// extension, and each column's threads write scale * Re z[l] to real row l
+// of y[b] (B, n, L).
+struct C2rOddRows {
+  static constexpr bool kTileOut = true;
+  float* __restrict__ y;
+  long long L;
+  int n;
+  float scale;
+  __device__ __forceinline__ long long handle(long long b, long long col) const {
+    return b * n * L + col;
+  }
+  __device__ __forceinline__ float2 out(int, float2 v) const { return v; }
+  template <class Cx>
+  __device__ __forceinline__ void epilogue(const float2* s, const Cx& cx) const {
+    if (!cx.active) return;
+    for (int l = cx.t; l < n; l += cx.tr) y[cx.row + l * L] = scale * s[cx.slot(l)].x;
+  }
+};
+
 }  // namespace ndfft
 
 // x: (B, n, L) float32; y: (B, n / 2 + 1, L) complex64; both contiguous.
@@ -286,4 +363,22 @@ extern "C" int ndfft_c2r_mid_radix(const void* spec, void* out, const void* tabl
       C2rCol{static_cast<const float2*>(spec), static_cast<const float4*>(ab), L, h},
       C2rColBins{static_cast<float*>(out), L, h}, static_cast<const float2*>(table), plan, B, h,
       L, C, 1.f, static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 21 at odd n. spec: (B, (n + 1) / 2, L) complex64; out: (B, n, L)
+// float32; both contiguous. table: the inverse (sign +1) radix table of n
+// (ops/hopper/fft.py::radix_consts); radices: radix_plan(n), `stages` of
+// them; scale: multiplies every output; C: columns per tile as for
+// ndfft_r2c_mid_radix at n (ops/hopper/rfft.py::r2c_mid_cols). Returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int ndfft_c2r_odd_mid_radix(const void* spec, void* out, const void* table,
+                                       const int* radices, int stages, float scale, long long B,
+                                       int n, long long L, int C, void* stream) {
+  using namespace ndfft;
+  RadixPlan plan{};
+  if (n % 2 == 0 || !radix_plan_of(radices, stages, n, plan)) return (int)cudaErrorInvalidValue;
+  return (int)radix_cols_launch<1>(
+      HermCol{static_cast<const float2*>(spec), L, n, (n + 1) / 2},
+      C2rOddRows{static_cast<float*>(out), L, n, scale}, static_cast<const float2*>(table), plan,
+      B, n, L, C, 1.f, static_cast<cudaStream_t>(stream));
 }

@@ -29,6 +29,12 @@ R2C_NAT = "r2c_nat"
 C2R_NAT = "c2r_nat"
 R2C_MID = "r2c_mid"
 C2R_MID = "c2r_mid"
+# the JAX package's dense gates along a middle axis (4 <= n <= 1100 for the
+# R2C/C2R, 2 <= n <= 1100 for any DCT): K20 and K21 run the radix column
+# tile where the transform length (n/2 at even n, n at odd n) has a plan,
+# K27 for DCT-I at a plan of n - 1 and DCT-II/III at even n with a plan of
+# n/2; each keeps its dense product at the other lengths and types, and K21
+# at odd n and K27's DCT-I where ops/hopper/fft.py::dense_beats_radix holds
 R2C_DENSE_MID = "r2c_dense_mid"
 C2R_DENSE_MID = "c2r_dense_mid"
 DCT_DENSE_MID = "dct_dense_mid"

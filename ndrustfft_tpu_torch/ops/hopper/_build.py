@@ -52,6 +52,8 @@ _SIGNATURES = {
     "ndfft_r2c_packed_mid_radix": [_P, _P, _P, _P, _P, _I, _P, _F, _LL, _I, _LL, _I, _P],
     "ndfft_c2r_radix": [_P, _P, _P, _P, _I, _P, _LL, _I, _I, _P],
     "ndfft_c2r_mid_radix": [_P, _P, _P, _P, _I, _P, _LL, _I, _LL, _I, _P],
+    "ndfft_c2r_odd_mid_radix": [_P, _P, _P, _P, _I, _F, _LL, _I, _LL, _I, _P],
+    "ndfft_dct_mid_radix": [_I, _P, _P, _P, _P, _I, _P, _P, _F, _LL, _I, _LL, _I, _P],
     "ndfft_dct_nat_wide": [_I, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_dct_nat_npoint": [_I, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_dct_mid": [_I, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],

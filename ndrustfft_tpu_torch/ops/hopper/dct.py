@@ -1,9 +1,17 @@
 """Kernels 23 to 27: the DCT kernels.
 
 * Kernel 27, :func:`dct_dense_mid`: any DCT type along the middle axis of a
-  (B, n, L) float32 tensor as one dense product with the scaled type matrix
-  (``csrc/dct_dense.cu``; replaces the JAX package's
-  ``ops/pallas/dct.py::_dct_dense_kernel``).
+  (B, n, L) float32 tensor, 2 <= n <= 1100 (replaces the JAX package's
+  ``ops/pallas/dct.py::_dct_dense_kernel``). DCT-I where n - 1 has a radix
+  plan and DCT-II/III at even n where n/2 has one run the Makhoul passes
+  on the radix column tile (``csrc/dct_mid_radix.cu``: DCT-I as the R2C of
+  the even extension, DCT-II as kernel 16's R2C of the Makhoul order with
+  the post twiddle in its epilogue, DCT-III as kernel 17's C2R with the pre
+  twiddle in its load and the interleave in its epilogue); DCT-IV, DCT-II/
+  III at odd n, the lengths without a plan and the DCT-I lengths where
+  :func:`~.fft.dense_beats_radix` holds for n - 1 keep one dense product
+  with the scaled type matrix (``csrc/dct_dense.cu``). DST-II/III reach
+  both through their flip/sign conjugation.
 * Kernels 23 and 24, :func:`dct2_nat` and :func:`dct3_nat`: DCT-II and
   DCT-III of contiguous float32 rows by the Makhoul lowering
   (``csrc/dct_nat.cu``; replace ``dct.py::_dct2_kernel`` and
@@ -45,14 +53,16 @@ This module holds their host-built constants, their plain PyTorch versions
 and their wrappers, whose ``launches`` attributes count kernel launches
 (kernels 12, 23 to 26, 28 and 29 also count the wide core's (half-length)
 launches apart, in ``wide_launches``, kernels 23 to 26 and 29 the n-point
-ones in ``npoint_launches``, and kernel 28 its long form's in
-``long_launches``). All
+ones in ``npoint_launches``, kernel 28 its long form's in
+``long_launches`` and kernel 27 its radix column tile's in
+``radix_launches``). All
 transforms are in the rustdct convention (scipy's unnormalized DCT / 2)
 times ``scale``.
 """
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 
 import numpy as np
@@ -60,12 +70,13 @@ import torch
 
 from ...plan import _cis, blue_h, chirp
 from . import _build
-from .fft import (C2C_F, CORE_F, M, REAL_MAX_F, WIDE_MAX_F, block_cols, block_rows,
-                  blue_kernel_M, blue_launch, bts2_consts, bts2_plain, check_blue_n, check_cuda,
-                  check_mult, chirp_z_plain, count_launch, dense_tile, device_wide, device_wq,
-                  f32_pair, mult_planes, num_sms, pair_tensor, wide_block, wide_bytes,
-                  wide_real_bytes)
-from .rfft import _bts2_col_c2r_plain, _device_ab, _device_tw, r2c_mid_plain
+from .fft import (C2C_F, CORE_F, M, RADIX_MAX_STAGES, REAL_MAX_F, WIDE_MAX_F, block_cols,
+                  block_rows, blue_kernel_M, blue_launch, bts2_consts, bts2_plain, check_blue_n,
+                  check_cuda, check_mult, chirp_z_plain, count_launch, dense_beats_radix,
+                  dense_tile, device_radix, device_wide, device_wq, f32_pair, mult_planes,
+                  num_sms, pair_tensor, radix_plan, wide_block, wide_bytes, wide_real_bytes)
+from .rfft import (_bts2_col_c2r_plain, _device_ab, _device_tw, c2r_mid_cols, c2r_mid_plain,
+                   r2c_mid_cols, r2c_mid_plain, r2c_mid_radix_plain)
 
 DCT_F = (1, 2, 4, 8, 16)   # half-length factors F of kernels 23/24's fixed core
 
@@ -111,42 +122,130 @@ def _device_dense(n: int, dct_type: int, scale: float,
 
 
 def dct_dense_mid_plain(x: torch.Tensor, dct_type: int, scale=None) -> torch.Tensor:
-    """Plain version of kernel 27: scale * DCT along dim 1 of (B, n, L)."""
+    """Plain version of kernel 27's dense product: scale * DCT along dim 1
+    of (B, n, L)."""
     s = 1.0 if scale is None else float(scale)
     w = _device_dense(x.shape[1], dct_type, s, x.device)
     return torch.einsum("tk,btc->bkc", w, x)
 
 
-def dct_dense_mid(x: torch.Tensor, dct_type: int, scale=None) -> torch.Tensor:
-    """scale * DCT-<dct_type> along dim 1 of a (B, n, L) float32 tensor. A
-    CPU tensor runs the plain version; a CUDA tensor launches kernel 27 or
-    raises."""
-    if x.dim() != 3:
-        raise ValueError(f"dct_dense_mid: expected (B, n, L), got {tuple(x.shape)}")
+def dct_radix_len(n: int, dct_type: int):
+    """The transform length h of kernel 27 on the radix column tile at
+    (n, dct_type): n - 1 for DCT-I, n/2 for DCT-II/III at even n, where
+    :func:`~.fft.radix_plan` has it and, for DCT-I, the dense product is not
+    faster (:func:`~.fft.dense_beats_radix`: 101 of the 772 n with a plan,
+    e.g. 128 = 127 + 1); else None (DCT-IV, odd n for DCT-II/III, those
+    DCT-I lengths, no plan: the dense product)."""
+    h = n - 1 if dct_type == 1 else n // 2 if dct_type in (2, 3) and n % 2 == 0 else 0
+    if h < 2 or radix_plan(h) is None or (dct_type == 1 and dense_beats_radix(h)):
+        return None
+    return h
+
+
+def dct_radix_plain(x: torch.Tensor, dct_type: int, scale=None) -> torch.Tensor:
+    """Plain version of kernel 27 on the radix column tile: scale * DCT-I,
+    II or III along dim 1 of (B, n, L), as the kernel computes it. DCT-I: the
+    half of the real part of the R2C of the even extension (kernel 16's plain
+    version, :func:`~.rfft.r2c_mid_radix_plain`); DCT-II: that R2C of the
+    Makhoul order, X[k] times the post twiddle P[k], y[k] = Re and
+    y[n-k] = -Im for 0 < k < h; DCT-III: S[k] = Q[k] (x[k] - i x[n-k]) and
+    kernel 17's plain version (:func:`~.rfft.c2r_mid_plain`), then the
+    un-permutation."""
+    n = x.shape[1]
+    s = _scale(scale)
+    if dct_type == 1:
+        e = torch.cat([x, x[:, 1:n - 1].flip(1)], dim=1)
+        return (r2c_mid_radix_plain(e).real * (0.5 * s)).contiguous()
+    h = n // 2
+    if dct_type == 2:
+        w = (r2c_mid_radix_plain(x[:, _device_index("perm", n, x.device)])
+             * _device_twiddle("post", n, s, x.device)[:h + 1, None])
+        return torch.cat([w.real, -w.imag[:, 1:h].flip(1)], dim=1)
+    return c2r_mid_plain(_dct3_spec(x, s), n, None)[:, _device_index("unperm", n, x.device)]
+
+
+def dct_radix_cols(n: int, dct_type: int, groups: int, cols: int, sms: int) -> int:
+    """Columns per tile of kernel 27 on the radix column tile at the
+    transform length h: kernel 16's :func:`~.rfft.r2c_mid_cols` of 2h
+    (DCT-I, DCT-II), kernel 17's :func:`~.rfft.c2r_mid_cols` (DCT-III)."""
+    h = dct_radix_len(n, dct_type)
+    if dct_type == 3:
+        return c2r_mid_cols(h, groups, cols, sms)
+    return r2c_mid_cols(2 * h, groups, cols, sms)
+
+
+def dct_radix_launch(x: torch.Tensor, y: torch.Tensor, dct_type: int, scale, c: int) -> None:
+    """Launch kernel 27 on the radix column tile, ``c`` columns a tile
+    (:func:`dct_radix_cols`), on the (B, n, L) float32 CUDA tensor x into y
+    (``csrc/dct_mid_radix.cu``); counts nothing."""
     nb, n, cols = x.shape
-    if dct_type not in (1, 2, 3, 4) or n < 1 or (dct_type == 1 and n < 2):
-        raise ValueError(f"dct_dense_mid: no DCT-{dct_type} of length {n}")
-    if x.device.type == "cpu":
-        return dct_dense_mid_plain(x, dct_type, scale)
-    if x.device.type != "cuda":
-        raise ValueError(f"dct_dense_mid: unsupported device {x.device}")
-    check_cuda(x, torch.float32, "dct_dense_mid")
-    s = 1.0 if scale is None else float(scale)
-    w = _device_dense(n, dct_type, s, x.device)
-    y = torch.empty_like(x)
-    if x.numel() == 0:
-        return y
+    dev = x.device
+    h = dct_radix_len(n, dct_type)
+    s = _scale(scale)
+    plan = radix_plan(h)
+    if dct_type == 1:
+        c1, c2 = _device_tw(2 * h, dev).data_ptr(), None
+    elif dct_type == 2:
+        c1, c2 = _device_tw(n, dev).data_ptr(), _device_twiddle("post", n, s, dev).data_ptr()
+    else:
+        c1, c2 = _device_ab(n, 1.0, dev).data_ptr(), _device_twiddle("pre", n, s, dev).data_ptr()
+    with torch.cuda.device(dev):
+        err = _build.lib().ndfft_dct_mid_radix(
+            dct_type, x.data_ptr(), y.data_ptr(),
+            device_radix(h, +1 if dct_type == 3 else -1, dev).data_ptr(),
+            (ctypes.c_int * RADIX_MAX_STAGES)(*plan), len(plan), c1, c2, 0.5 * s, nb, n, cols, c,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ndfft_dct_mid_radix")
+
+
+def dct_dense_launch(x: torch.Tensor, y: torch.Tensor, dct_type: int, scale) -> None:
+    """Launch kernel 27's dense product on the (B, n, L) float32 CUDA
+    tensor x into y (``csrc/dct_dense.cu``); counts nothing."""
+    nb, n, cols = x.shape
+    w = _device_dense(n, dct_type, _scale(scale), x.device)
     tm = dense_tile(n, nb, cols, num_sms(x.device))
     with torch.cuda.device(x.device):
         err = _build.lib().ndfft_dct_dense_mid(
             w.data_ptr(), x.data_ptr(), y.data_ptr(), nb, n, cols, tm,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "dct_dense_mid")
+
+
+def dct_dense_mid(x: torch.Tensor, dct_type: int, scale=None) -> torch.Tensor:
+    """scale * DCT-<dct_type> along dim 1 of a (B, n, L) float32 tensor.
+    Where :func:`dct_radix_len` has a length (DCT-I, and DCT-II/III at even
+    n), a CPU tensor runs :func:`dct_radix_plain` and a CUDA tensor launches
+    kernel 27 on the radix column tile (counted in ``radix_launches`` as
+    well); at the other types and lengths, :func:`dct_dense_mid_plain` and
+    the dense product. Anything else raises."""
+    if x.dim() != 3:
+        raise ValueError(f"dct_dense_mid: expected (B, n, L), got {tuple(x.shape)}")
+    nb, n, cols = x.shape
+    if dct_type not in (1, 2, 3, 4) or n < 1 or (dct_type == 1 and n < 2):
+        raise ValueError(f"dct_dense_mid: no DCT-{dct_type} of length {n}")
+    radix = dct_radix_len(n, dct_type) is not None
+    if x.device.type == "cpu":
+        if radix:
+            return dct_radix_plain(x, dct_type, scale)
+        return dct_dense_mid_plain(x, dct_type, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"dct_dense_mid: unsupported device {x.device}")
+    check_cuda(x, torch.float32, "dct_dense_mid")
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    if radix:
+        dct_radix_launch(x, y, dct_type, scale,
+                         dct_radix_cols(n, dct_type, nb, cols, num_sms(x.device)))
+        dct_dense_mid.radix_launches += 1
+    else:
+        dct_dense_launch(x, y, dct_type, scale)
     dct_dense_mid.launches += 1
     return y
 
 
 dct_dense_mid.launches = 0
+dct_dense_mid.radix_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -256,24 +355,29 @@ def _dct2_plain(x: torch.Tensor, scale) -> torch.Tensor:
     return (full * post).real
 
 
+def _dct3_spec(x: torch.Tensor, s: float) -> torch.Tensor:
+    """The DCT-III's half spectrum S[k] = Q[k] (x[k] - i x[n-k]), k = 0..n/2,
+    x[n] = 0, of (B, n, L) along dim 1 (Q = :func:`dct3_pre` at scale s)."""
+    nb, n, cols = x.shape
+    xz = torch.cat([x, x.new_zeros(nb, 1, cols)], dim=1)     # x[n] = 0
+    k = torch.arange(n // 2 + 1, device=x.device)
+    return (_device_twiddle("pre", n, s, x.device)[:, None]
+            * torch.complex(xz[:, k], -xz[:, n - k]))
+
+
 def _dct3_plain(x: torch.Tensor, scale) -> torch.Tensor:
     """scale * DCT-III along dim 1 of a (B, n, L) float32 tensor in the
     kernels' form at n: S[k] = Q[k] (x[k] - i x[n-k]) and the bts2 column
     C2R (half length, :func:`~.rfft._bts2_col_c2r_plain`, the arithmetic of
     the kernels' core), or the n-point FFT of the pre-twiddled column (its real
     part); then the un-permutation y[2t] = u[t], y[2t+1] = u[n-1-t]."""
-    nb, n, cols = x.shape
+    n = x.shape[1]
     s = _scale(scale)
     if dct_form(n)[0] == "npoint":
         w = x * _device_twiddle("pre_npoint", n, s, x.device)[:, None]
         u = bts2_plain(w, device_wq(n, -1, 1.0, x.device), -1).real
     else:
-        h = n // 2
-        xz = torch.cat([x, x.new_zeros(nb, 1, cols)], dim=1)     # x[n] = 0
-        k = torch.arange(h + 1, device=x.device)
-        spec = (_device_twiddle("pre", n, s, x.device)[:, None]
-                * torch.complex(xz[:, k], -xz[:, n - k]))
-        u = _bts2_col_c2r_plain(spec, n, None)
+        u = _bts2_col_c2r_plain(_dct3_spec(x, s), n, None)
     return u[:, _device_index("unperm", n, x.device)]
 
 

@@ -334,6 +334,23 @@ def radix_plan(n: int):
     return tuple(plan) if len(plan) <= RADIX_MAX_STAGES else None
 
 
+def dense_beats_radix(n: int) -> bool:
+    """Whether a dense product of the whole column is faster than the radix
+    column tile at the transform length n, where a kernel offers both
+    (kernel 21 at odd n, kernel 27's DCT-I at n - 1): n >= 23 with a prime
+    stage p >= 11, and n < 128 or n <= 3 p. The radix core spends about p
+    operations an element on a prime stage, the product about n; below 128
+    the product's tile is the same for every n. Fitted to
+    ``time_kernels.py --route-dense`` on an H100 at 2^23 reals a call:
+    summed over every length with a plan, the routes it gives took within
+    0.6% of the faster kernel's time, against 4-5% for the plan alone
+    (n = 129 = 3 * 43: 0.233 ms radix, 0.207 dense; n = 215 = 5 * 43: 0.98x;
+    n = 387 = 9 * 43: 0.54x)."""
+    plan = radix_plan(n)
+    p = max((r for r in plan if r not in RADIX_CODELETS), default=0) if plan else 0
+    return n >= 23 and p >= 11 and (n < 128 or n <= 3 * p)
+
+
 def radix_consts(n: int, sign: int):
     """float32 (re, im) of the radix core's table at (n, sign), each entry
     built in float64 and rounded once. Entries 0 ... n - 2 are the stage

@@ -15,11 +15,15 @@
   ``csrc/fft_radix.cuh``).
 * Kernels 20 and 21, :func:`r2c_dense_mid` and :func:`c2r_dense_mid`: R2C and
   C2R along the middle axis, 4 <= n <= 1100, odd n included, replacing
-  ``rfft.py::_r2c_dense_kernel`` and ``_c2r_dense_kernel``. Kernel 20 runs
-  kernel 16's column kernel where :func:`~.fft.radix_plan` has its transform
-  length (h = n/2 for even n, n for odd n: the length-n C2C of (x, 0), half
-  of its bins stored), and one real product with a host table at the other
-  lengths (a prime factor above 127); kernel 21 is always that product
+  ``rfft.py::_r2c_dense_kernel`` and ``_c2r_dense_kernel``. Where
+  :func:`~.fft.radix_plan` has the transform length (h = n/2 for even n, n
+  for odd n), kernel 20 runs kernel 16's column kernel (at odd n the
+  length-n C2C of (x, 0), half of its bins stored) and kernel 21 kernel
+  17's (at odd n the length-n inverse of the column's Hermitian extension,
+  its mirrored half filled in a prologue, the real part stored); at the
+  other lengths (a prime factor above 127), and kernel 21 at the 61 odd n
+  where :func:`~.fft.dense_beats_radix` holds (a large prime stage, such as
+  129 = 3 * 43), both run one real product with a host table
   (``csrc/rfft_dense.cu`` on the dense loop ``csrc/dense_real.cuh``).
 * Kernels 18 and 19, :func:`r2c_packed_mid` and :func:`dct1_mid`: the R2C
   of a column built otherwise, along the middle axis, times a scale
@@ -50,7 +54,7 @@ and their wrappers, whose ``launches`` attributes count kernel launches
 (kernels 19 and 22 on the bts2 core also count the wide core's launches
 apart, in ``wide_launches``; kernels 2, 3 and 15 at h = 128 * F and
 kernels 16, 17 and 18 count every launch in ``radix_launches`` as well,
-kernel 20 its launches on the radix column tile).
+kernels 20 and 21 their launches on the radix column tile).
 """
 
 from __future__ import annotations
@@ -66,9 +70,9 @@ from . import _build
 from .fft import (CORE_F, GENERIC_MAX_N, M, RADIX_MAX_ELEMS, RADIX_MAX_STAGES,
                   RADIX_MAX_THREADS, block_cols, bts2_plain, c2c_radix_mid_plain,
                   c2c_radix_rows_plain, check_cuda, check_mult, core_f, count_launch,
-                  dense_tile, device_radix, device_wide, device_wq, generic_split,
-                  mult_planes, num_sms, radix_block, radix_cols_threads, radix_mid_cols,
-                  radix_plan, wide_block)
+                  dense_beats_radix, dense_tile, device_radix, device_wide, device_wq,
+                  generic_split, mult_planes, num_sms, radix_block, radix_cols_threads,
+                  radix_mid_cols, radix_plan, wide_block)
 
 # lengths kernels 20 and 21 take: the JAX package's rfft_dense_mid_supported
 # (its _DENSE_RFFT_MAX), which the routes mirror
@@ -825,33 +829,106 @@ r2c_dense_mid.launches = 0
 r2c_dense_mid.radix_launches = 0
 
 
+def c2r_dense_radix(n: int) -> bool:
+    """Kernel 21 runs on the radix column tile at n: :func:`r2c_mid_radix`
+    holds n and, at odd n, the radix core beats the dense product
+    (:func:`~.fft.dense_beats_radix`: 61 of the 332 odd n with a plan keep
+    the dense product, e.g. 129 = 3 * 43)."""
+    return r2c_mid_radix(n) and not (n % 2 and dense_beats_radix(n))
+
+
+def c2r_odd_mid_plain(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
+    """Plain version of kernel 21 at odd n on the radix column tile:
+    (B, (n+1)/2, L) complex64 -> (B, n, L) float32, scale * the real part of
+    the radix core's plain version with the sign +1 table
+    (:func:`~.fft.c2c_radix_mid_plain`) on the Hermitian extension of each
+    column: S[k] for k <= (n-1)/2 (the DC's imaginary part set to 0), then
+    conj S[n-k]."""
+    ext = torch.cat([_mask_imag0(s, 1), s[:, 1:].flip(1).conj()], dim=1)
+    z = c2c_radix_mid_plain(ext, +1)
+    return (z.real * (1.0 if scale is None else float(scale))).contiguous()
+
+
+def c2r_dense_radix_plain(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
+    """Plain version of kernel 21 on the radix column tile: at even n
+    kernel 17's (:func:`c2r_mid_plain`, any h = n/2 with a plan), at odd n
+    :func:`c2r_odd_mid_plain`."""
+    return c2r_odd_mid_plain(s, n, scale) if n % 2 else c2r_mid_plain(s, n, scale)
+
+
+def c2r_dense_cols(n: int, groups: int, cols: int, sms: int) -> int:
+    """Columns per tile of kernel 21 on the radix column tile: kernel 17's
+    :func:`c2r_mid_cols` at h = n/2 for even n, :func:`r2c_mid_cols` at odd
+    n (the transform length n)."""
+    return r2c_mid_cols(n, groups, cols, sms) if n % 2 else c2r_mid_cols(n // 2, groups, cols, sms)
+
+
+def c2r_dense_radix_launch(s: torch.Tensor, out: torch.Tensor, n: int, scale, c: int) -> None:
+    """Launch kernel 21 on the radix column tile, ``c`` columns a tile
+    (:func:`c2r_dense_cols`), on the (B, n//2+1, L) complex64 CUDA tensor s
+    into the (B, n, L) float32 out: kernel 17's kernel at even n, at odd n
+    the length-n inverse of the Hermitian extension (its mirrored half
+    filled from the tile in the prologue); counts nothing."""
+    if n % 2 == 0:
+        c2r_mid_radix_launch(s, out, n, scale, c)
+        return
+    nb, _, cols = s.shape
+    dev = s.device
+    plan = radix_plan(n)
+    with torch.cuda.device(dev):
+        err = _build.lib().ndfft_c2r_odd_mid_radix(
+            s.data_ptr(), out.data_ptr(), device_radix(n, +1, dev).data_ptr(),
+            (ctypes.c_int * RADIX_MAX_STAGES)(*plan), len(plan),
+            1.0 if scale is None else float(scale), nb, n, cols, c,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ndfft_c2r_odd_mid_radix")
+
+
+def c2r_dense_launch(s: torch.Tensor, out: torch.Tensor, n: int, scale) -> None:
+    """Launch kernel 21's dense product on the (B, n//2+1, L) complex64 CUDA
+    tensor s into the (B, n, L) float32 out (``csrc/rfft_dense.cu``);
+    counts nothing."""
+    _launch_dense("ndfft_c2r_dense_mid",
+                  _device_dense("c2r", n, 1.0 if scale is None else float(scale), s.device),
+                  s, out, n, n)
+
+
 def c2r_dense_mid(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
     """C2R along dim 1 of a (B, n//2+1, L) complex64 spectrum -> (B, n, L)
-    float32 as one real product, times ``scale``, 4 <= n <= 1100; the DC and
-    (even n) Nyquist imaginary parts are ignored. A CPU tensor runs the plain
-    version; a CUDA tensor launches kernel 21 or raises."""
+    float32, times ``scale``, 4 <= n <= 1100; the DC and (even n) Nyquist
+    imaginary parts are ignored. Where :func:`c2r_dense_radix` holds n (a
+    plan of h = n/2 at even n, of n at odd n, where the dense product is
+    not faster), a CPU tensor runs :func:`c2r_dense_radix_plain` and a CUDA
+    tensor launches kernel 21 on the radix column tile (counted in
+    ``radix_launches`` as well); at the other lengths,
+    :func:`c2r_dense_mid_plain` and the dense product. Anything else
+    raises."""
     _check_mid(s, torch.complex64, "c2r_dense_mid")
     _check_dense_n(n, "c2r_dense_mid")
     nb, m, cols = s.shape
     if m != n // 2 + 1:
         raise ValueError(f"c2r_dense_mid: expected (B, {n // 2 + 1}, L), got "
                          f"{tuple(s.shape)}")
+    radix = c2r_dense_radix(n)
     if s.device.type == "cpu":
-        return c2r_dense_mid_plain(s, n, scale)
+        return c2r_dense_radix_plain(s, n, scale) if radix else c2r_dense_mid_plain(s, n, scale)
     if s.device.type != "cuda":
         raise ValueError(f"c2r_dense_mid: unsupported device {s.device}")
     check_cuda(s, torch.complex64, "c2r_dense_mid")
-    sc = 1.0 if scale is None else float(scale)
     out = torch.empty((nb, n, cols), dtype=torch.float32, device=s.device)
     if s.numel() == 0:
         return out
-    _launch_dense("ndfft_c2r_dense_mid", _device_dense("c2r", n, sc, s.device),
-                  s, out, n, n)
+    if radix:
+        c2r_dense_radix_launch(s, out, n, scale, c2r_dense_cols(n, nb, cols, num_sms(s.device)))
+        c2r_dense_mid.radix_launches += 1
+    else:
+        c2r_dense_launch(s, out, n, scale)
     c2r_dense_mid.launches += 1
     return out
 
 
 c2r_dense_mid.launches = 0
+c2r_dense_mid.radix_launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -112,8 +112,9 @@ def test_unported_route_and_grad_raise(dev):
 def test_dct_kernels_match_plain(dev):
     g = torch.Generator(device=dev).manual_seed(1)
     x = torch.randn(2, 265, 130, generator=g, device=dev)
-    for t in (1, 2, 3, 4):
-        assert _rel(kdct.dct_dense_mid(x, t, 2.0), kdct.dct_dense_mid_plain(x, t, 2.0)) <= TOL
+    for t in (1, 2, 3, 4):     # DCT-I at n - 1 = 264 on the radix column tile
+        plain = kdct.dct_radix_plain if kdct.dct_radix_len(265, t) else kdct.dct_dense_mid_plain
+        assert _rel(kdct.dct_dense_mid(x, t, 2.0), plain(x, t, 2.0)) <= TOL
     r = torch.randn(130, 1024, generator=g, device=dev)
     assert _rel(kdct.dct2_nat(r, 2.0), kdct.dct2_nat_plain(r, 2.0)) <= TOL
     assert _rel(kdct.dct3_nat(r, 0.5), kdct.dct3_nat_plain(r, 0.5)) <= TOL
@@ -234,9 +235,10 @@ def test_mid_rfft_kernels_match_plain(dev):
         plain = krfft.r2c_mid_radix_plain if krfft.r2c_mid_radix(n) else krfft.r2c_dense_mid_plain
         assert _rel(krfft.r2c_dense_mid(x), plain(x)) <= TOL
         s = torch.view_as_complex(torch.randn(nb, n // 2 + 1, cols, 2, generator=g, device=dev))
+        plain = (krfft.c2r_dense_radix_plain if krfft.c2r_dense_radix(n)
+                 else krfft.c2r_dense_mid_plain)
         for scale in (None, 1 / n):
-            assert _rel(krfft.c2r_dense_mid(s, n, scale),
-                        krfft.c2r_dense_mid_plain(s, n, scale)) <= TOL
+            assert _rel(krfft.c2r_dense_mid(s, n, scale), plain(s, n, scale)) <= TOL
 
 
 def test_rfft2d_runs_on_the_mid_kernels(dev):
@@ -1207,3 +1209,78 @@ def test_c2r_radix_kernels_match_plain(dev):
                          512).shape == (2, 512, 0)
     assert [(f.launches - a, f.radix_launches - b) for f, (a, b) in
             zip((krfft.c2r_nat, krfft.c2r_mid), before)] == [(4, 4), (3, 3)]
+
+
+def test_dense_radix_kernels_match_plain(dev):
+    """Kernel 21 on the radix column tile at even n (kernel 17's kernel at
+    any h = n/2 with a plan: n = 4, 6, 130, 256, 264, 1100) and at odd n
+    (the length-n inverse of the Hermitian extension, its mirrored half
+    filled in the prologue: n = 5, 129, 1095), and kernel
+    27's DCT-I (n = 3, 129, 265, 1025) and DCT-II/III (n = 4, 130, 512,
+    1024, 1100) on it, at every column count C that the tile allows, with
+    ragged L and two scales; the spectra carry DC and Nyquist imaginary
+    parts that must be ignored. Then the wrappers at their main shapes (the
+    plain version on a slice), every launch at a length with a plan counted
+    in radix_launches, and the dense product at the remnant types and
+    lengths (DCT-IV, odd n for DCT-II/III, n = 262 and 1099 without a
+    plan, kernel 21 at n = 129 and DCT-I at n = 130, where
+    fft.dense_beats_radix gives it the dense product)."""
+    g = torch.Generator(device=dev).manual_seed(22)
+
+    def crandn(*shape):
+        s = torch.view_as_complex(torch.randn(*shape, 2, generator=g, device=dev))
+        s[:, 0] += 100j
+        s[:, -1] += 100j
+        return s
+
+    for nb, n, cols in ((2, 4, 130), (2, 5, 130), (1, 6, 33), (2, 129, 257), (1, 130, 130),
+                        (1, 256, 383), (2, 264, 129), (1, 1095, 130), (1, 1100, 65)):
+        s = crandn(nb, n // 2 + 1, cols)
+        out = torch.empty((nb, n, cols), device=dev)
+        length = krfft.r2c_mid_len(n)
+        for scale in (None, 1 / n):
+            want = krfft.c2r_dense_radix_plain(s, n, scale)
+            for c in (1, 2, 4, 8, 16, 32):
+                if not _tile_fits(length, c):
+                    continue
+                out.fill_(float("nan"))
+                krfft.c2r_dense_radix_launch(s, out, n, scale, c)
+                assert _rel(out, want) <= TOL, (n, cols, c, scale)
+    for nb, n, cols in ((2, 3, 130), (1, 4, 129), (2, 129, 130), (1, 130, 257), (1, 265, 130),
+                        (1, 512, 129), (2, 1024, 33), (1, 1025, 65), (1, 1100, 130)):
+        x = torch.randn(nb, n, cols, generator=g, device=dev)
+        y = torch.empty_like(x)
+        for t in (1, 2, 3):
+            h = kdct.dct_radix_len(n, t)
+            if h is None:
+                continue
+            for scale in (None, 2.0):
+                want = kdct.dct_radix_plain(x, t, scale)
+                for c in (1, 2, 4, 8, 16, 32):
+                    if not _tile_fits(h, c):
+                        continue
+                    y.fill_(float("nan"))
+                    kdct.dct_radix_launch(x, y, t, scale, c)
+                    assert _rel(y, want) <= TOL, (n, cols, t, c, scale)
+    before = [(f.launches, f.radix_launches) for f in (krfft.c2r_dense_mid, kdct.dct_dense_mid)]
+    for nb, n, cols in ((1, 256, 65536), (1, 129, 65536), (1, 255, 32768), (1, 262, 130),
+                        (1, 1099, 130)):
+        s = crandn(nb, n // 2 + 1, cols)
+        plain = (krfft.c2r_dense_radix_plain if krfft.c2r_dense_radix(n)
+                 else krfft.c2r_dense_mid_plain)
+        assert _rel(krfft.c2r_dense_mid(s, n, 1 / n), plain(s, n, 1 / n)) <= TOL, n
+    for shape, types in (((1, 512, 262144), (2, 3)), ((1024, 1024, 1024), (2, 3)),
+                         ((1, 129, 16641), (1,)), ((2, 130, 130), (1,)), ((2, 1024, 130), (4,)),
+                         ((2, 265, 130), (2, 3)),
+                         ((1, 1099, 130), (2, 3))):
+        x = torch.randn(*shape, generator=g, device=dev)
+        cut = min(shape[0], 16)
+        for t in types:
+            plain = kdct.dct_radix_plain if kdct.dct_radix_len(shape[1], t) else \
+                kdct.dct_dense_mid_plain
+            got = kdct.dct_dense_mid(x, t, 2.0)
+            assert _rel(got[:cut], plain(x[:cut], t, 2.0)) <= TOL, (shape, t)
+            del got
+        del x
+    assert [(f.launches - a, f.radix_launches - b) for f, (a, b) in
+            zip((krfft.c2r_dense_mid, kdct.dct_dense_mid), before)] == [(5, 2), (11, 5)]

@@ -86,6 +86,35 @@ kernel 17 on the radix column tile at each column count C that fits
 (beside rfft.py::c2r_mid_cols), at (1, 257, 262144),
 (512, 257, 512), (1, 641, 1280), (1, 385, 295680), (1, 513, 131072),
 (1, 1025, 65536), (1, 2049, 32768), (1, 4097, 16384) and (1, 10241, 130).
+
+With --route-dense JSON it times instead kernels 21 and 27 at every length
+that has a radix plan, on the radix column tile and on the dense product,
+over (1, n, 2^23 / n) reals (kernel 21: the spectrum of that), writes the
+two times by n to JSON and prints the lengths where the dense product was
+faster.
+
+With --dense it times instead kernels 21 and 27 at their main shapes, each
+with a digest of its output: kernel 21 (c2r_dense_mid, scale 1/n) at (1,
+129, 65536), (1, 65, 65536) (odd n = 129), (1, 128, 32768) (odd n = 255),
+(1, 133, 264) and (1, 65, 128) beside torch.fft.irfft, kernel 27
+(dct_dense_mid, scale 2) of types 2 and 3 at (1, 512, 262144) and (1024,
+1024, 1024), of type 1 at (129, 129, 129) and of type 4 at (1, 1024, 1024)
+beside torch.matmul with the scaled DCT matrix; kernels 16, 17, 18 and 20
+(whose column skeleton kernels 21 and 27 share) at their main shapes with
+digests; and the paths that run kernels 21 and 27: S3's 1024^3 Neumann
+Poisson solve (nddct2 on axes 2 and 1, ndspectral_dct on axis 0, nddct3
+back) and the 512^3 one (nddct2 on every axis, the division, nddct3 back)
+beside a float32 torch.fft Makhoul lowering, and the 256^3 real step with
+the real axis first beside torch.fft.rfftn + irfftn. It uses only public
+wrappers, so --root may name the parent tree.
+
+With --scan-dense it times instead kernels 21 and 27 on the radix column
+tile at each column count C that fits, beside the counts that
+rfft.py::c2r_dense_cols and dct.py::dct_radix_cols pick: kernel 21 at
+(1, 129, 65536), (1, 133, 264), (1, 65, 128) and at odd n = 129 and 255
+((1, 65, 65536), (1, 128, 32768)), kernel 27's DCT-II and DCT-III at
+(1, 512, 262144), (1024, 1024, 1024) and (1, 1024, 1024), its DCT-I at
+(129, 129, 129) and (1, 1025, 1025).
 """
 
 import argparse
@@ -108,6 +137,9 @@ def main() -> int:
     ap.add_argument("--scan-cols", action="store_true")
     ap.add_argument("--c2r", action="store_true")
     ap.add_argument("--scan-c2r", action="store_true")
+    ap.add_argument("--dense", action="store_true")
+    ap.add_argument("--scan-dense", action="store_true")
+    ap.add_argument("--route-dense", default=None, metavar="JSON")
     ap.add_argument("--cols-n", type=int, nargs="*", default=[])
     ap.add_argument("--cols-h", type=int, nargs="*", default=[])
     ap.add_argument("--scan-n", type=int, nargs="*", default=[
@@ -179,7 +211,18 @@ def main() -> int:
                          k18 or K18_SHAPES)
     if args.scan_c2r:
         return scan_c2r(torch, kfft, krfft, dev, crandn, ms, card, root)
+    from ndrustfft_tpu_torch.ops.hopper import dct as kdct
+
+    if args.scan_dense:
+        return scan_dense(torch, kfft, krfft, kdct, dev, gen, crandn, ms, card, root)
+    if args.route_dense:
+        return route_dense(torch, kfft, krfft, kdct, dev, gen, crandn, ms, card, root,
+                           args.route_dense)
     out = {}
+    if args.dense:
+        dense(torch, nd, krfft, kdct, dev, gen, crandn, ms, args.reps_big, out)
+        print(json.dumps({"root": root, "card": card, "ms_and_library_ms": out}), flush=True)
+        return 0
     if args.c2r:
         c2r(torch, nd, kfft, krfft, dev, gen, crandn, ms, args.reps_big, out)
         print(json.dumps({"root": root, "card": card, "ms_and_torch_fft_ms": out}), flush=True)
@@ -488,6 +531,177 @@ def s1(torch, nd, dev, gen, ms, reps_big, out):
                                 reps_big))
     del f, g
     torch.cuda.empty_cache()
+
+
+def dense(torch, nd, krfft, kdct, dev, gen, crandn, ms, reps_big, out):
+    """Kernels 21 and 27 at their main shapes, kernels 16, 17, 18 and 20
+    with digests, and the paths that run kernels 21 and 27."""
+    from chip_smoke import makhoul_dct     # the float32 torch.fft yardstick
+
+    def key(name, shape, *tags):
+        return "_".join([name, "x".join(map(str, shape)), *map(str, tags)])
+
+    for shape, n in (((1, 129, 65536), 256), ((1, 65, 65536), 129), ((1, 128, 32768), 255),
+                     ((1, 133, 264), 264), ((1, 65, 128), 128)):
+        s = crandn(*shape)
+        out[key("c2r_dense_mid", shape, n)] = (
+            ms(lambda: krfft.c2r_dense_mid(s, n, 1.0 / n)),
+            ms(lambda: torch.fft.irfft(s, n=n, dim=1)), digest(krfft.c2r_dense_mid(s, n, 1.0 / n)))
+        del s
+    for shape, types in (((1, 512, 262144), (2, 3)), ((1024, 1024, 1024), (2, 3)),
+                         ((129, 129, 129), (1,)), ((1, 1024, 1024), (4,))):
+        x = torch.randn(*shape, generator=gen, device=dev)
+        reps = reps_big if x.numel() > 1 << 28 else None
+        for t in types:
+            m_s = torch.from_numpy(kdct.dense_consts(shape[1], t, 2.0).T.copy()).to(dev)
+            out[key("dct_dense_mid", shape, f"type{t}")] = (
+                ms(lambda: kdct.dct_dense_mid(x, t, 2.0), reps),
+                ms(lambda: torch.matmul(m_s, x), reps),
+                digest(kdct.dct_dense_mid(x, t, 2.0)))
+        del x
+        torch.cuda.empty_cache()
+    # the column skeleton's other kernels, with a digest of each output (the
+    # same seeded input in every tree: equal digests are bit-identical outputs)
+    x = torch.randn(1, 512, 262144, generator=gen, device=dev)
+    out[key("r2c_mid", x.shape)] = (ms(lambda: krfft.r2c_mid(x)),
+                                    ms(lambda: torch.fft.rfft(x, dim=1)), digest(krfft.r2c_mid(x)))
+    s = crandn(1, 257, 262144)
+    out[key("c2r_mid", s.shape)] = (ms(lambda: krfft.c2r_mid(s, 512, 1 / 512)),
+                                    ms(lambda: torch.fft.irfft(s, n=512, dim=1)),
+                                    digest(krfft.c2r_mid(s, 512, 1 / 512)))
+    for shape in ((1, 256, 65536), (1, 129, 65536)):
+        x = torch.randn(*shape, generator=gen, device=dev)
+        out[key("r2c_dense_mid", shape)] = (ms(lambda: krfft.r2c_dense_mid(x)),
+                                            ms(lambda: torch.fft.rfft(x, dim=1)),
+                                            digest(krfft.r2c_dense_mid(x)))
+    xe = torch.randn(64, 1024, 1023, generator=gen, device=dev)
+    xo = torch.randn(64, 1024, 1023, generator=gen, device=dev)
+    out[key("r2c_packed_mid", xe.shape)] = (ms(lambda: krfft.r2c_packed_mid(xe, xo, -0.5)),
+                                            None, digest(krfft.r2c_packed_mid(xe, xo, -0.5)))
+    del x, s, xe, xo
+    torch.cuda.empty_cache()
+    # S3's 1024^3 and the 512^3 Neumann Poisson solves on random fields with
+    # H = 1 / lambda, beside the float32 Makhoul lowering through torch.fft
+    for n, fused in ((1024, True), (512, False)):
+        f = torch.randn(n, n, n, generator=gen, device=dev)
+        kq = torch.arange(n, device=dev, dtype=torch.float32) ** 2
+        h3 = kq[:, None, None] + kq[None, :, None] + kq[None, None, :]
+        h3.mul_(math.pi ** 2).reciprocal_()
+        h3[0, 0, 0] = 0.0
+        hd = nd.DctHandler(n)
+        hdi = hd.normalization(nd.Normalization.scalar(1.0 / n))
+
+        def solve():
+            a = nd.nddct2(f, hd, axis=2)
+            b = nd.nddct2(a, hd, axis=1)
+            del a
+            if fused:
+                c = nd.ndspectral_dct(b, h3, hd, hdi, axis=0)
+            else:
+                c = nd.nddct2(b, hd, axis=0).mul_(h3)
+                c = nd.nddct3(c, hdi, axis=0)
+            del b
+            return nd.nddct3(nd.nddct3(c, hdi, axis=1), hdi, axis=2)
+
+        def yardstick():
+            u = makhoul_dct(makhoul_dct(makhoul_dct(f, 2, 2), 1, 2), 0, 2)
+            u.mul_(h3)
+            for ax in (0, 1, 2):
+                u = makhoul_dct(u, ax, 3) / (2 * n)
+            return u
+
+        name = "S3_neumann_poisson_1024^3" if fused else "neumann_poisson_512^3"
+        out[name] = (ms(solve, reps_big), ms(yardstick, reps_big))
+        del f, h3
+        torch.cuda.empty_cache()
+    n = 256
+    r = torch.randn(n, n, n, generator=gen, device=dev)
+    hr, hc = nd.R2cFftHandler(n), nd.FftHandler(n)
+
+    def step():
+        v = nd.ndfft(nd.ndfft(nd.ndfft_r2c(r, hr, axis=0), hc, axis=1), hc, axis=2)
+        return nd.ndifft_r2c(nd.ndifft(nd.ndifft(v, hc, axis=2), hc, axis=1), hr, axis=0)
+
+    out["step_real_axis_first_256^3"] = (
+        ms(step), ms(lambda: torch.fft.irfftn(torch.fft.rfftn(r, dim=(1, 2, 0)),
+                                              s=(n, n, n), dim=(1, 2, 0))), digest(step()))
+
+
+def scan_dense(torch, kfft, krfft, kdct, dev, gen, crandn, ms, card, root):
+    """Kernels 21 and 27 on the radix column tile at each column count C."""
+    sms = kfft.num_sms(dev)
+
+    def fits(n, c):
+        return n * c <= kfft.RADIX_MAX_ELEMS and kfft.radix_cols_threads(n, c) <= (
+            kfft.RADIX_MAX_THREADS if n * c <= kfft.RADIX_WIDE_N else 2 * kfft.RADIX_MAX_THREADS)
+
+    scan = {}
+    for shape, n in (((1, 129, 65536), 256), ((1, 133, 264), 264), ((1, 65, 128), 128),
+                     ((1, 65, 65536), 129), ((1, 128, 32768), 255)):
+        nb, m, cols = shape
+        s = crandn(*shape)
+        y = torch.empty((nb, n, cols), device=dev)
+        by = {c: ms(lambda: krfft.c2r_dense_radix_launch(s, y, n, 1.0 / n, c))
+              for c in (1, 2, 4, 8, 16, 32, 64) if fits(krfft.r2c_mid_len(n), c)}
+        scan[f"c2r_dense_mid_{nb}x{m}x{cols}_n{n}"] = {
+            "ms_by_cols_per_tile": by, "chosen": krfft.c2r_dense_cols(n, nb, cols, sms)}
+        del s, y
+    for shape, types in (((1, 512, 262144), (2, 3)), ((1024, 1024, 1024), (2, 3)),
+                         ((1, 1024, 1024), (2, 3)), ((129, 129, 129), (1,)),
+                         ((1, 1025, 1025), (1,))):
+        nb, n, cols = shape
+        x = torch.randn(*shape, generator=gen, device=dev)
+        y = torch.empty_like(x)
+        reps = 5 if x.numel() > 1 << 28 else None
+        for t in types:
+            h = kdct.dct_radix_len(n, t)
+            by = {c: ms(lambda: kdct.dct_radix_launch(x, y, t, 2.0, c), reps)
+                  for c in (1, 2, 4, 8, 16, 32, 64) if fits(h, c)}
+            scan[f"dct_dense_mid_{nb}x{n}x{cols}_type{t}"] = {
+                "ms_by_cols_per_tile": by, "chosen": kdct.dct_radix_cols(n, t, nb, cols, sms)}
+        del x, y
+        torch.cuda.empty_cache()
+    print(json.dumps({"root": root, "card": card, "dense_scan": scan}), flush=True)
+    return 0
+
+
+def route_dense(torch, kfft, krfft, kdct, dev, gen, crandn, ms, card, root, path):
+    """Kernels 21 and 27 at every length with a radix plan, on the radix
+    column tile (the wrapper's column count) and on the dense product, over
+    about 2^23 reals a call: ms of each by n, written to ``path``; prints
+    each family's lengths where the dense product was faster."""
+    sms = kfft.num_sms(dev)
+    scan = {}
+    for n in range(4, 1101):
+        if not krfft.r2c_mid_radix(n):
+            continue
+        cols = max(64, (1 << 23) // n)
+        s = crandn(1, n // 2 + 1, cols)
+        y = torch.empty((1, n, cols), device=dev)
+        c = krfft.c2r_dense_cols(n, 1, cols, sms)
+        scan.setdefault("c2r_dense_mid", {})[n] = (
+            ms(lambda: krfft.c2r_dense_radix_launch(s, y, n, 1.0 / n, c), 10),
+            ms(lambda: krfft.c2r_dense_launch(s, y, n, 1.0 / n), 10))
+        del s, y
+    for t in (1, 2, 3):
+        for n in range(3, 1101):
+            if kdct.dct_radix_len(n, t) is None:
+                continue
+            cols = max(64, (1 << 23) // n)
+            x = torch.randn(1, n, cols, generator=gen, device=dev)
+            y = torch.empty_like(x)
+            c = kdct.dct_radix_cols(n, t, 1, cols, sms)
+            scan.setdefault(f"dct_dense_mid_type{t}", {})[n] = (
+                ms(lambda: kdct.dct_radix_launch(x, y, t, 2.0, c), 10),
+                ms(lambda: kdct.dct_dense_launch(x, y, t, 2.0), 10))
+            del x, y
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump({"root": root, "card": card, "radix_ms_and_dense_ms": scan}, f)
+    print(json.dumps({"root": root, "card": card, "dense_faster": {
+        name: {n: ts for n, ts in by.items() if ts[1] < ts[0]} for name, by in scan.items()},
+        "lengths": {name: len(by) for name, by in scan.items()}}), flush=True)
+    return 0
 
 
 def axis_mid(torch, nd, kfft, krfft, dev, gen, crandn, ms, reps_big, out):
