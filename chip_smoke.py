@@ -45,7 +45,8 @@ without the final line):
         last axis of n x n (n = 129, 513, 1025) with DST-I beside it (kernel
         15 on the core), DCT-IV/DST-IV along the last axis of 1024^2 and
         512^3 (kernel 10), DCT-III and DCT-II of 200^2 (kernel 8, kernel
-        15's dense product), against scipy.fft in float64;
+        15's dense rows on the radix row core), against scipy.fft in
+        float64;
      f. the lengths without a split (kernel 8 at n > 256 on the radix
         core; kernel 6 along a middle axis on the radix core's column
         tile; kernel 15 at such a half length on the radix row core with
@@ -198,13 +199,13 @@ without the final line):
         only), within 1e-6 of the oracle's peak;
      s. the census of kernels 20 and 16: ndfft_r2c along axis 1 of
         (1, n, 130) at each of the 1094 lengths that the gates send to
-        kernel 20 (R2C_DENSE_MID, n = 4 ... 1100: 768 on the radix column
-        tile, 436 even at the half length and 332 odd, and 326 without a
-        plan on the dense product) and each of the 153 that they send to
+        kernel 20 (R2C_DENSE_MID, n = 4 ... 1100, each on the kernel that
+        rfft.py::r2c_dense_form names: the radix column tile, the chirp-z
+        or the dense product) and each of the 153 that they send to
         kernel 16 (R2C_MID, n = 512 ... 40960, all on the radix column
         tile), against torch.fft.rfft in float64 (oracle only): the radix
-        column tile within 1e-6 of the oracle's peak, the dense product
-        within TOL_KERNEL;
+        column tile and the chirp-z within 1e-6 of the oracle's peak, the
+        dense product within TOL_KERNEL;
      t. the census of kernels 1 and 18 on the radix column tile: ndfft and
         ndifft along axis 1 of (1, n, 130) at each of the 152 lengths that
         the gates send to kernel 1 (C2C_AXIS_MID, n = 384 ... 20480)
@@ -229,10 +230,19 @@ without the final line):
         671, 439 and 439 lengths that kernel 27 takes on the radix column
         tile, against scipy.fft.dct in float64 (oracles only), within 1e-6
         of the oracle's peak;
+     w. kernel 15's census at its dense rows: r2c_packed_dense over
+        (128, 2h) at each of the 254 half lengths h <= 256 that are not
+        128 F (229 on the radix row core, h = 1, 31 and the primes 131 ...
+        251 on the dense product), against torch.fft.rfft in float64 (oracle
+        only): the radix row core within 1e-6 of the oracle's peak, the
+        dense product within TOL_KERNEL;
   5. times with CUDA events (median over --reps runs after warm-up): each
      kernel against its plain version and, where one PyTorch call computes
      the same function, that call (the yardstick, never on the port's
-     path); the steps against torch.fft.rfftn / irfftn, the DCT pair and
+     path), kernel 20's chirp-z at (1, 262, 65536), (1, 131, 65536),
+     (1, 1094, 7668) and (1, 1097, 7647) with each column count C beside
+     torch.fft.rfft, and kernel 15's dense rows at (16384, 128), (200, 200)
+     and (16384, 262); the steps against torch.fft.rfftn / irfftn, the DCT pair and
      Poisson solve against the same compositions through a float32
      torch.fft Makhoul lowering, the complex paths against
      torch.fft.fftn / ifftn, the real-axis-first steps against
@@ -293,7 +303,11 @@ radix_launches as well) and kernel 15's generic form
 ``c2r_dense_mid_radix``, ``dct_dense_mid_radix``; radix_launches) and the
 dense product at the other lengths and types (``r2c_dense_mid``,
 ``c2r_dense_mid``, ``dct_dense_mid``), kernel 27's rows with each timed DCT
-type under ``by_type``; and
+type under ``by_type``, kernel 20 a third, its chirp-z
+(``r2c_dense_mid_chirp``; chirp_launches, with the bound of its two
+length-M FFTs), and kernel 15's dense rows two: the radix row core
+(``r2c_packed_dense_radix``; radix_launches) and the dense product
+(``r2c_packed_dense``); and
 kernels 23 to 26 and 29 three: the fixed core, the wide core's half length
 and the n-point form (npoint_launches); kernel 7 three: the fixed core, the
 wide core and the dense body (dense_launches); kernel 28 three: the fixed
@@ -322,9 +336,10 @@ TOL_STEP = 1e-5      # step vs float64 oracle and round trip, relative
 # the forms that a wrapper counts apart beside ``launches`` (which counts
 # every launch): ``wide_launches``, for the DCT-II/III kernels
 # ``npoint_launches``, for kernel 7 ``dense_launches``, for kernel 28
-# ``long_launches`` and for kernels 1, 10, 2, 3, 15 (``r2c_packed``), 11, 8
-# (``c2c_dense_rows``), 6, 4, 16, 17, 18, 20, 21 and 27 ``radix_launches``
-FORMS = ("wide", "npoint", "dense", "long", "radix")
+# ``long_launches``, for kernels 1, 10, 2, 3, 15 (``r2c_packed`` and
+# ``r2c_packed_dense``), 11, 8 (``c2c_dense_rows``), 6, 4, 16, 17, 18, 20, 21
+# and 27 ``radix_launches`` and for kernel 20 ``chirp_launches``
+FORMS = ("wide", "npoint", "dense", "long", "radix", "chirp")
 # the wrappers whose every launch is on the radix core: their
 # ``radix_launches`` equal their ``launches``
 RADIX_ONLY = ("c2c_axis_mid", "c2c_rows", "r2c_nat", "r2c_packed", "c2c_dense_rows",
@@ -538,7 +553,21 @@ def work(name: str, shape, length_m: bool = False, mult=None, n=None, dct_type=2
         n = shape[1] if name.endswith("_mid") else shape[-1]
         outputs = math.prod(shape) // n     # the radix table: n entries and the prime rows
         return 16 * outputs * n + 8 * len(radix_consts(n, -1)[0]), 5 * n * math.log2(n) * outputs
-    if name in ("r2c_nat", "r2c_packed", "r2c_packed_generic"):
+    if name.endswith("_chirp"):
+        # K20's chirp-z: (B, n, L) float32 in, (B, n/2 + 1, L) complex64 out;
+        # the chirp of its chirp length (h = n/2 at even n, n at odd n), H
+        # and the radix table of M and, at even n, the unpack twiddle; the
+        # function's 2.5 n log2 n per column, or (length_m) its two complex
+        # FFTs of length M
+        from ndrustfft_tpu_torch.ops.hopper.fft import chirp_m, radix_consts
+        b, n, cols = shape
+        length = n if n % 2 else n // 2
+        mk = chirp_m(length)
+        tables = (8 * length + 8 * mk + 8 * len(radix_consts(mk, -1)[0])
+                  + (0 if n % 2 else 8 * length))
+        flops = 2 * 5 * mk * math.log2(mk) if length_m else 2.5 * n * math.log2(n)
+        return 4 * b * n * cols + 8 * b * (n // 2 + 1) * cols + tables, flops * b * cols
+    if name in ("r2c_nat", "r2c_packed", "r2c_packed_generic", "r2c_packed_dense_radix"):
         from ndrustfft_tpu_torch.ops.hopper.fft import radix_consts
         t, n = shape            # the radix table of h, and the unpack twiddle
         h = n // 2
@@ -640,7 +669,7 @@ def main() -> int:
               re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
     spilling = {}   # entry function -> spill bytes, from ptxas -v
     row_regs = {}   # the radix row kernels (their occupancy) -> registers a thread
-    col_regs = {}   # the radix column kernels -> [registers a thread, spill bytes]
+    col_regs = {}   # the radix column and chirp-z kernels -> [registers a thread, spill bytes]
     for entry in log.split("Compiling entry function '")[1:]:
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
         if m and sum(map(int, m.groups())):
@@ -648,7 +677,8 @@ def main() -> int:
         m = re.search(r"Used (\d+) registers", entry)
         if m and "radix_rows_kernel" in entry.split("'")[0]:
             row_regs[entry.split("'")[0]] = int(m.group(1))
-        if m and "radix_cols_kernel" in entry.split("'")[0]:
+        if m and ("radix_cols_kernel" in entry.split("'")[0]
+                  or "blue_radix_kernel" in entry.split("'")[0]):
             sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
             col_regs[entry.split("'")[0]] = [int(m.group(1)),
                                              sum(map(int, sp.groups())) if sp else 0]
@@ -666,7 +696,8 @@ def main() -> int:
             "c2r_dense_mid_radix": 0.0, "dct_dense_mid_radix": 0.0,
             "r2c_packed": 0.0, "r2c_packed_dense": 0.0, "c2c_generic_rows": 0.0,
             "c2c_generic_mid": 0.0, "r2c_packed_generic": 0.0,
-            "r2c_dense_mid_radix": 0.0,
+            "r2c_dense_mid_radix": 0.0, "r2c_dense_mid_chirp": 0.0,
+            "r2c_packed_dense_radix": 0.0,
             "dct2_nat_wide": 0.0, "dct3_nat_wide": 0.0, "dct2_nat_npoint": 0.0,
             "dct3_nat_npoint": 0.0, "dct2_mid": 0.0, "dct3_mid": 0.0, "dct2_mid_wide": 0.0,
             "dct3_mid_wide": 0.0, "dct2_mid_npoint": 0.0, "dct3_mid_npoint": 0.0,
@@ -929,6 +960,32 @@ def main() -> int:
                 raise AssertionError(f"{name} {shape} C {c}: {rel}")
         del x, y, ref
 
+    # kernel 20's chirp-z (kernel 11's column kernel with a real load and the
+    # unpack or the odd bins as its store) at each column count C that phase
+    # 5 times (the wrapper takes fft.py::radix_mid_cols's at M): even n (262, 1094:
+    # chirp length n/2) and odd n (131, 1097, 5), the main paths' shapes
+    # (1, 262, 65536) and (1, 131, 65536), ragged L, M = 7 ... 2304
+    for shape in ((2, 262, 130), (1, 262, 256 * 256), (1, 131, 256 * 256), (2, 1094, 130),
+                  (1, 1097, 33), (3, 5, 257), (2, 4, 129)):
+        nb, n, cols = shape
+        x = randn(*shape)
+        y = torch.empty((nb, n // 2 + 1, cols), dtype=torch.complex64, device=dev)
+        ref = krfft.r2c_blue_plain(x)
+        mk = kfft.chirp_m(krfft.r2c_mid_len(n))
+        for c in (1, 2, 4, 8, 16):
+            if not tile_fits(mk, c):
+                continue
+            y.fill_(float("nan"))
+            krfft.r2c_blue_launch(x, y, c)
+            torch.cuda.synchronize()
+            rel = abs_err(y, ref) / float(ref.abs().max())
+            errs["r2c_dense_mid_chirp"] = max(errs["r2c_dense_mid_chirp"], abs_err(y, ref))
+            emit(phase="kernel_vs_plain", kernel="r2c_dense_mid_chirp", shape=shape, M=mk,
+                 cols_per_tile=c, rel_err=rel)
+            if not rel <= TOL_KERNEL:
+                raise AssertionError(f"r2c_dense_mid_chirp {shape} C {c}: {rel}")
+        del x, y, ref
+
     # kernel 1 on the radix column tile at each column count C and, at
     # C <= 2, each load (evict-first, read-only) that phase 5 times (the
     # wrapper takes fft.py::axis_mid_tile's): F = 3, 4, 32 and 160 with
@@ -1100,16 +1157,18 @@ def main() -> int:
 
     # the middle-axis R2C/C2R kernels: the main paths' shapes (phase 4d),
     # axis 1 of 512^3, ragged and odd ones; kernel 20's wrapper on the radix
-    # column tile (r2c_dense_mid_radix) at the lengths with a plan, on the
-    # dense product at 262 = 2 * 131 (none); the C2R spectra carry DC and
-    # Nyquist imaginary parts that must be ignored
+    # column tile (r2c_dense_mid_radix) at the lengths with a plan, on its
+    # chirp-z (r2c_dense_mid_chirp) or its dense product at the others
+    # (rfft.py::r2c_dense_form); the C2R spectra carry DC and Nyquist
+    # imaginary parts that must be ignored
     def r2c_form(r2c_name, n):
         """The kernels line's name and the plain version of the R2C that
-        ``r2c_name``'s wrapper runs at n."""
-        if r2c_name == "r2c_mid" or krfft.r2c_mid_radix(n):
-            return ("r2c_mid" if r2c_name == "r2c_mid" else "r2c_dense_mid_radix",
-                    krfft.r2c_mid_radix_plain)
-        return "r2c_dense_mid", krfft.r2c_dense_mid_plain
+        ``r2c_name``'s wrapper runs at n (kernel 20: rfft.py::r2c_dense_form)."""
+        if r2c_name == "r2c_mid":
+            return "r2c_mid", krfft.r2c_mid_radix_plain
+        return {"radix": ("r2c_dense_mid_radix", krfft.r2c_mid_radix_plain),
+                "chirp": ("r2c_dense_mid_chirp", krfft.r2c_blue_plain),
+                "dense": ("r2c_dense_mid", krfft.r2c_dense_mid_plain)}[krfft.r2c_dense_form(n)]
 
     def c2r_form(c2r_name, n):
         """The kernels line's name and the plain version of the C2R that
@@ -1127,7 +1186,8 @@ def main() -> int:
         ("r2c_dense_mid", "c2r_dense_mid", krfft.r2c_dense_mid, krfft.c2r_dense_mid,
          ((1, 128, 128), (1, 264, 264), (1, 256, 256 * 256), (2, 201, 130), (1, 1100, 130),
           (1, 129, 256 * 256), (2, 262, 130), (1, 1095, 130), (3, 5, 257), (2, 4, 130),
-          (1, 262, 256 * 256), (1, 1099, 130))),
+          (1, 262, 256 * 256), (1, 1099, 130), (1, 131, 256 * 256), (2, 1094, 130),
+          (1, 1097, 7647))),
     )
     for r2c_name, c2r_name, r2c, c2r, shapes in rfft_mid_checks:
         for shape in shapes:
@@ -1144,17 +1204,21 @@ def main() -> int:
                            shape, scale=scale)
             del x, s
 
-    # kernel 15: the core at every factor F = 1 ... 16, the dense product and
-    # the generic form (the radix row core with the unpack epilogue), at
-    # ragged row counts and at the main paths' shapes (phases 4e and 4f)
+    # kernel 15: the core at every factor F = 1 ... 16, the dense rows' wrapper
+    # (the radix row core at h <= 256 with a plan, many rows a block at
+    # h = 2, 3, 5; the dense product at h = 1, 31 and the primes 131 ...
+    # 251) and the generic form (the radix row core with the unpack
+    # epilogue), at ragged row counts and at the main paths' shapes (phases
+    # 4e and 4f)
     packed_checks = (
         ("r2c_packed", krfft.r2c_packed, krfft.r2c_packed_plain,
          ((7, 256), (130, 512), (3, 1024), (33, 2048), (5, 4096), (256 * 256, 256),
           (129 * 129, 256), (129, 256), (513, 1024), (1025, 2048), (256, 256),
           (511, 1024))),
-        ("r2c_packed_dense", krfft.r2c_packed_dense, krfft.r2c_packed_dense_plain,
+        ("r2c_packed_dense", krfft.r2c_packed_dense, None,
          ((130, 128), (128 * 128, 128), (131, 258), (3, 200), (200, 200), (7, 2),
-          (129, 512))),
+          (129, 512), (1001, 4), (777, 6), (4097, 10), (4097, 194), (128 * 128, 262),
+          (3, 502), (129, 62))),
         # the generic form: odd h (265), h = 300 at a ragged tile of several
         # rows (601 rows, 8 a tile), 530, two prime stages (h = 11352), the
         # longest h (20448, 40 elements a thread), the DCT-I/DST-I
@@ -1163,13 +1227,26 @@ def main() -> int:
          ((130, 530), (7, 600), (601, 600), (5, 1060), (2, 2 * 11352), (3, 2 * 20448),
           (265, 528), (600, 600), (600 * 600, 600))),
     )
+    def packed_form(h):
+        """The kernels line's name and the plain version of the dense rows'
+        wrapper at half length h."""
+        if krfft.packed_dense_radix(h):
+            return "r2c_packed_dense_radix", krfft.r2c_radix_plain
+        return "r2c_packed_dense", krfft.r2c_packed_dense_plain
+
     for name, kern, plain, shapes in packed_checks:
         tol = TOL_KERNEL if name == "r2c_packed_generic" else TOL_PACKED
         for shape in shapes:
             x = randn(*shape)
+            if kern is krfft.r2c_packed_dense:
+                name, plain = packed_form(shape[1] // 2)
+                before = kern.radix_launches
             got = kern(x)
             ref = plain(x)
             torch.cuda.synchronize()
+            if kern is krfft.r2c_packed_dense and (
+                    kern.radix_launches - before != (name == "r2c_packed_dense_radix")):
+                raise AssertionError(f"r2c_packed_dense {shape}: not on the {name} form")
             rel = abs_err(got, ref) / float(ref.abs().max())
             errs[name] = max(errs[name], abs_err(got, ref))
             emit(phase="kernel_vs_plain", kernel=name, shape=shape, rel_err=rel)
@@ -1490,7 +1567,7 @@ def main() -> int:
     # dense ones and those of the radix-only wrappers and kernels 20, 21 and
     # 27 on the radix core, counted apart by the same wrappers (their
     # ``launches`` count every launch)
-    radix_too = ("r2c_dense_mid", "c2r_dense_mid", "dct_dense_mid")
+    radix_too = ("r2c_dense_mid", "c2r_dense_mid", "dct_dense_mid", "r2c_packed_dense")
     forms = {f"{name}_{form}": (wrappers[name], f"{form}_launches")
              for name in (*RADIX_ONLY, *radix_too,
                           "dct2_nat", "dct3_nat", "dct2_mid",
@@ -1501,7 +1578,8 @@ def main() -> int:
              if form == "wide" and name not in (*RADIX_ONLY, *radix_too)
              or form == "radix" and name in (*RADIX_ONLY, *radix_too)
              or form == "npoint" and name.startswith(("dct2_", "dct3_", "spectral_dct"))
-             or form == "dense" and name == "fourstep_mid" or form == "long" and name == "dct4_mid"}
+             or form == "dense" and name == "fourstep_mid" or form == "long" and name == "dct4_mid"
+             or form == "chirp" and name == "r2c_dense_mid"}
 
     def count(name):
         if name in forms:
@@ -1797,11 +1875,13 @@ def main() -> int:
 
     # grid -> expected launches: 256^3 K15 on the core (h = 128, 65536
     # rows), K4 at (256, 256, 129) and (1, 256, 33024), K8 on 65536 rows
-    # after the extension; 128^3 K15's dense product (h = 64, 16384 rows),
+    # after the extension; 128^3 K15's dense rows on the radix row core (h =
+    # 64, 16384 rows),
     # K8 on 8320 rows (axis 1 has 65 < 128 columns and moves), K4 at
     # (1, 128, 8320), K8 on 16384 rows after the extension
     last_grids = {256: dict(r2c_packed=1, c2c_dense_mid=4, c2c_dense_rows=1),
-                  128: dict(r2c_packed_dense=1, c2c_dense_rows=3, c2c_dense_mid=2)}
+                  128: dict(r2c_packed_dense=1, r2c_packed_dense_radix=1, c2c_dense_rows=3,
+                            c2c_dense_mid=2)}
     last_inputs = {}
     for n, expected in last_grids.items():
         x = randn(n, n, n)
@@ -1866,7 +1946,7 @@ def main() -> int:
     d3 = nd.nddct3(x200, axis=1)
     d2 = nd.nddct2(x200, axis=1)
     read_counts("dct_lanes", c2c_rows=3, c2c_dense_rows=1,
-                r2c_packed_dense=1)
+                r2c_packed_dense=1, r2c_packed_dense_radix=1)
     check("dct4_last_axis", d4, sfft.dct(x64, type=4, axis=1), grid=[1024, 1024])
     check("dst4_last_axis", s4, sfft.dst(x64, type=4, axis=1), grid=[1024, 1024])
     check("dct4_512^3_last_axis", d4_3,
@@ -3451,39 +3531,74 @@ def main() -> int:
 
     # ---- 4s. the census of kernels 20 and 16: ndfft_r2c along axis 1 of a
     # (1, n, 130) field at every n that the gates send to kernel 20
-    # (R2C_DENSE_MID: 1094 lengths, 4 ... 1100; 768 of them on the radix
-    # column tile, 326 without a plan on the dense product) and every n that
-    # they send to kernel 16 (R2C_MID: 153 lengths, 512 ... 40960), against
-    # torch.fft.rfft in float64 (an oracle only, run on the host): the radix
-    # column tile within TOL_CENSUS of the oracle's peak, the dense product
-    # (its float32 sums of n terms reach ~1e-6 of the peak at n ~ 600, as
-    # its plain version does on the host) within TOL_KERNEL
+    # (R2C_DENSE_MID: 1094 lengths, 4 ... 1100, each on the kernel that
+    # rfft.py::r2c_dense_form names: the radix column tile, the chirp-z or
+    # the dense product) and every n that they send to kernel 16 (R2C_MID:
+    # 153 lengths, 512 ... 40960), against torch.fft.rfft in float64 (an
+    # oracle only, run on the host): the radix column tile and the chirp-z
+    # within TOL_CENSUS of the oracle's peak, the dense product (its float32
+    # sums of n terms reach ~1e-6 of the peak at n ~ 600, as its plain
+    # version does on the host) within TOL_KERNEL
     def r2c_route(n):
         return api._route("r2c", (1, n, 130), 1, torch.float32, "cuda")
 
     k20_n = [n for n in range(2, 1101) if r2c_route(n) == api.R2C_DENSE_MID]
     k16_n = [n for n in range(2, 2 * kfft.GENERIC_MAX_N + 1) if r2c_route(n) == api.R2C_MID]
-    k20_radix = sum(krfft.r2c_mid_radix(n) for n in k20_n)
-    if (len(k20_n), k20_radix, len(k16_n)) != (1094, 768, 153):
-        raise AssertionError(f"r2c census: {len(k20_n)} K20 lengths ({k20_radix} radix), "
-                             f"{len(k16_n)} K16 lengths, expected 1094 (768), 153")
+    k20_forms = {f: [n for n in k20_n if krfft.r2c_dense_form(n) == f]
+                 for f in ("radix", "chirp", "dense")}
+    if (len(k20_n), len(k16_n)) != (1094, 153):
+        raise AssertionError(f"r2c census: {len(k20_n)} K20 lengths, {len(k16_n)} K16 lengths, "
+                             "expected 1094, 153")
     t0 = time.perf_counter()
-    worst = {"radix": (0.0, None), "dense": (0.0, None)}
+    worst = dict.fromkeys(k20_forms, (0.0, None))
     reset_counts()
     for n in k20_n + k16_n:
         x = randn(1, n, 130)
         y = nd.ndfft_r2c(x, axis=1)
         err = rel_err(y, torch.fft.rfft(x.cpu().double(), dim=1).to(dev))
-        form = "radix" if krfft.r2c_mid_radix(n) else "dense"
-        if not err <= (TOL_CENSUS if form == "radix" else TOL_KERNEL):
+        form = "radix" if n in k16_n else krfft.r2c_dense_form(n)
+        if not err <= (TOL_KERNEL if form == "dense" else TOL_CENSUS):
             raise AssertionError(f"r2c_mid census n={n} ({form}): {err}")
         worst[form] = max(worst[form], (err, n))
-    read_counts("r2c_mid_census", r2c_dense_mid=len(k20_n), r2c_dense_mid_radix=k20_radix,
-                r2c_mid=len(k16_n))
-    emit(phase="r2c_mid_census", lengths=len(k20_n) + len(k16_n), k20_radix=k20_radix,
-         k20_dense=len(k20_n) - k20_radix, k16=len(k16_n),
-         worst_rel_err_radix=worst["radix"][0], worst_n_radix=worst["radix"][1],
-         worst_rel_err_dense=worst["dense"][0], worst_n_dense=worst["dense"][1],
+    read_counts("r2c_mid_census", r2c_dense_mid=len(k20_n),
+                r2c_dense_mid_radix=len(k20_forms["radix"]),
+                r2c_dense_mid_chirp=len(k20_forms["chirp"]), r2c_mid=len(k16_n))
+    emit(phase="r2c_mid_census", lengths=len(k20_n) + len(k16_n), k16=len(k16_n),
+         **{f"k20_{f}": len(v) for f, v in k20_forms.items()},
+         **{f"worst_rel_err_{f}": w[0] for f, w in worst.items()},
+         **{f"worst_n_{f}": w[1] for f, w in worst.items()},
+         seconds=time.perf_counter() - t0)
+    del x, y
+    torch.cuda.empty_cache()
+
+    # ---- 4w. kernel 15's census at its dense rows' half lengths: the
+    # wrapper r2c_packed_dense over (128, 2h) at each of the 254 h <= 256
+    # that are not 128 F (the radix row core where rfft.py::
+    # packed_dense_radix holds, the dense product at the others), against
+    # torch.fft.rfft in float64 (an oracle only, run on the host): the radix
+    # row core within TOL_CENSUS of the oracle's peak, the dense product
+    # within TOL_KERNEL
+    k15_h = [h for h in range(1, 257) if not krfft.packed_core(h)]
+    k15_radix = [h for h in k15_h if krfft.packed_dense_radix(h)]
+    if (len(k15_h), len(k15_radix)) != (254, 229):
+        raise AssertionError(f"r2c_packed_dense census: {len(k15_h)} h, {len(k15_radix)} radix")
+    t0 = time.perf_counter()
+    worst = {"radix": (0.0, None), "dense": (0.0, None)}
+    reset_counts()
+    for h in k15_h:
+        x = randn(128, 2 * h)
+        y = krfft.r2c_packed_dense(x)
+        err = rel_err(y, torch.fft.rfft(x.cpu().double(), dim=1).to(dev))
+        form = "radix" if krfft.packed_dense_radix(h) else "dense"
+        if not err <= (TOL_CENSUS if form == "radix" else TOL_KERNEL):
+            raise AssertionError(f"r2c_packed_dense census h={h} ({form}): {err}")
+        worst[form] = max(worst[form], (err, h))
+    read_counts("r2c_packed_dense_census", r2c_packed_dense=len(k15_h),
+                r2c_packed_dense_radix=len(k15_radix))
+    emit(phase="r2c_packed_dense_census", half_lengths=len(k15_h), radix=len(k15_radix),
+         dense=len(k15_h) - len(k15_radix),
+         **{f"worst_rel_err_{f}": w[0] for f, w in worst.items()},
+         **{f"worst_h_{f}": w[1] for f, w in worst.items()},
          seconds=time.perf_counter() - t0)
     del x, y
     torch.cuda.empty_cache()
@@ -3645,11 +3760,13 @@ def main() -> int:
                    "dct2_nat": (512 * 512, 512), "dct3_nat": (512 * 512, 512),
                    "c2c_rows": (512 * 512, 512), "c2c_dense_rows": (256 * 256, 256),
                    "c2c_dense_mid": (1, 256, 256 * 256), "r2c_mid": (1, 512, 512 * 512),
-                   "c2r_mid": (1, 257, 512 * 512), "r2c_dense_mid": (1, 262, 256 * 256),
+                   "c2r_mid": (1, 257, 512 * 512), "r2c_dense_mid": (1, 131, 256 * 256),
                    "r2c_dense_mid_radix": (1, 256, 256 * 256),
+                   "r2c_dense_mid_chirp": (1, 262, 256 * 256),
                    "c2r_dense_mid": (1, 132, 256 * 256),
                    "c2r_dense_mid_radix": (1, 129, 256 * 256), "r2c_packed": (256 * 256, 256),
-                   "r2c_packed_dense": (128 * 128, 128), "c2c_generic_rows": (600 * 600, 600),
+                   "r2c_packed_dense": (128 * 128, 262),
+                   "r2c_packed_dense_radix": (128 * 128, 128), "c2c_generic_rows": (600 * 600, 600),
                    "c2c_generic_mid": (600, 600, 301), "r2c_packed_generic": (600 * 600, 600),
                    "dct2_nat_wide": (1536 * 1536, 1536),
                    "dct3_nat_wide": (1536 * 1536, 1536), "dct2_nat_npoint": (384, 384),
@@ -3675,7 +3792,9 @@ def main() -> int:
 
     # the radix core's kernels: the yardstick at every shape timed
     library_every_shape = ("c2c_generic_rows", "r2c_packed_generic", "c2r_dense_mid_radix",
-                           "dct_dense_mid_radix", *RADIX_ONLY)
+                           "dct_dense_mid_radix", "r2c_dense_mid_radix", "r2c_dense_mid_chirp",
+                           "r2c_dense_mid", "r2c_packed_dense_radix", "r2c_packed_dense",
+                           *RADIX_ONLY)
 
     def time_kernel(name, shape, kern, plain, library=None, runs=None, **kw):
         runs = runs or reps
@@ -3830,6 +3949,21 @@ def main() -> int:
              ms_by_cols_per_tile=cols_ms, chosen=krfft.r2c_mid_cols(n, nb, cols, kfft.num_sms(dev)),
              card=card)
         del x, y
+    # kernel 20's chirp-z at 2^23 reals with each column count C that fits
+    # (the wrapper takes fft.py::radix_mid_cols's at M), by convolution length M,
+    # beside torch.fft.rfft(dim=1)
+    for shape in ((1, 262, 256 * 256), (1, 131, 256 * 256), (1, 1094, 7668), (1, 1097, 7647)):
+        nb, n, cols = shape
+        x = randn(*shape)
+        y = torch.empty((nb, n // 2 + 1, cols), dtype=torch.complex64, device=dev)
+        mk = kfft.chirp_m(krfft.r2c_mid_len(n))
+        cols_ms = {c: cuda_ms(lambda: krfft.r2c_blue_launch(x, y, c), reps)
+                   for c in (1, 2, 4, 8, 16) if tile_fits(mk, c)}
+        emit(phase="time", kernel="r2c_dense_mid_chirp", shape=shape, M=mk,
+             ms_by_cols_per_tile=cols_ms, chosen=kfft.radix_mid_cols(mk, nb, cols,
+                                                                     kfft.num_sms(dev)),
+             torch_fft_ms=cuda_ms(lambda: torch.fft.rfft(x, dim=1), reps), card=card)
+        del x, y
     # kernels 21 and 27 on the radix column tile at their main shapes with
     # each column count C that fits (the wrappers take rfft.py::
     # c2r_dense_cols's and dct.py::dct_radix_cols's)
@@ -3946,7 +4080,8 @@ def main() -> int:
              ((1, 512, 512), (1, 1024, 1024), (512, 512, 512), (1, 512, 512 * 512))),
             ("r2c_dense_mid", "c2r_dense_mid", krfft.r2c_dense_mid, krfft.c2r_dense_mid,
              ((1, 128, 128), (1, 264, 264), (1, 256, 256 * 256), (1, 129, 256 * 256),
-              (1, 255, 128 * 256), (1, 262, 256 * 256)))):
+              (1, 255, 128 * 256), (1, 262, 256 * 256), (1, 131, 256 * 256), (1, 1094, 7668),
+              (1, 1097, 7647)))):
         for nb, n, cols in shapes:
             x = randn(nb, n, cols)
             sp = crandn(nb, n // 2 + 1, cols)
@@ -3969,14 +4104,17 @@ def main() -> int:
         emit(phase="time", step_real_axis_first=[n, n, n], ms=t_port, torch_fft_ms=t_torch,
              peak_bytes=peak, card=card)
     del first_inputs
-    # kernel 15 and the real-axis-last steps
+    # kernel 15 and the real-axis-last steps; its dense rows' wrapper on the
+    # radix row core at h = 64 and 100 and on the dense product at h = 131
     for name, kern, plain, shapes in (
             ("r2c_packed", krfft.r2c_packed, krfft.r2c_packed_plain,
              ((256 * 256, 256), (129 * 129, 256), (1025, 2048))),
-            ("r2c_packed_dense", krfft.r2c_packed_dense, krfft.r2c_packed_dense_plain,
-             ((128 * 128, 128), (200, 200)))):
+            ("r2c_packed_dense", krfft.r2c_packed_dense, None,
+             ((128 * 128, 128), (200, 200), (128 * 128, 262)))):
         for shape in shapes:
             x = randn(*shape)
+            if kern is krfft.r2c_packed_dense:
+                name, plain = packed_form(shape[1] // 2)
             time_kernel(name, shape, lambda: kern(x), lambda: plain(x),
                         lambda: torch.fft.rfft(x, dim=1))
     del x
@@ -4264,6 +4402,8 @@ def main() -> int:
                           "ndrustfft_tpu/ops/pallas/rfft.py:882"),
         "r2c_dense_mid_radix": ("ndrustfft_tpu_torch/csrc/rfft_mid_radix.cu",
                                 "ndrustfft_tpu/ops/pallas/rfft.py:882"),
+        "r2c_dense_mid_chirp": ("ndrustfft_tpu_torch/csrc/fft_blue_radix.cu",
+                                "ndrustfft_tpu/ops/pallas/rfft.py:882"),
         "c2r_dense_mid": ("ndrustfft_tpu_torch/csrc/rfft_dense.cu",
                           "ndrustfft_tpu/ops/pallas/rfft.py:898"),
         "c2r_dense_mid_radix": ("ndrustfft_tpu_torch/csrc/rfft_mid_radix.cu",
@@ -4272,6 +4412,8 @@ def main() -> int:
                        "ndrustfft_tpu/ops/pallas/rfft.py:163"),
         "r2c_packed_dense": ("ndrustfft_tpu_torch/csrc/rfft_dense.cu",
                              "ndrustfft_tpu/ops/pallas/rfft.py:163"),
+        "r2c_packed_dense_radix": ("ndrustfft_tpu_torch/csrc/rfft_radix.cu",
+                                   "ndrustfft_tpu/ops/pallas/rfft.py:163"),
         "c2c_generic_rows": ("ndrustfft_tpu_torch/csrc/fft_radix.cuh",
                              "ndrustfft_tpu/ops/pallas/fft.py:521"),
         "c2c_generic_mid": ("ndrustfft_tpu_torch/csrc/fft_mid_radix.cu",
@@ -4355,7 +4497,7 @@ def main() -> int:
                "launches": fixed, "max_abs_err": errs[name], "ms": t_k, "plain_ms": t_plain,
                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": t_lib,
                "shape": list(main_shapes[name])}
-        if "blue" in name:
+        if "blue" in name or name.endswith("_chirp"):
             # the work of the chirp-z's two length-M FFTs per column, beside
             # the function's own (the bound above)
             nbytes, m_flops = work(name, main_shapes[name], length_m=True)
@@ -4367,7 +4509,8 @@ def main() -> int:
                      (list(shape), *timing[(name, shape)],
                       *bound(*work(name, shape, mult=spectral_h.get((name, shape)))))))
             for shape in sliced.get(name, ())]
-        if name in ("c2c_axis_mid", "r2c_packed_mid", "c2r_nat", "c2r_mid"):
+        if name in ("c2c_axis_mid", "r2c_packed_mid", "c2r_nat", "c2r_mid",
+                    "r2c_dense_mid_chirp", "r2c_packed_dense_radix"):
             row["other_shapes"] = [
                 dict(zip(("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
                          (list(shape), *timing[(nm, shape)], *bound(*work(name, shape)))))

@@ -1,4 +1,5 @@
-// Kernel 11: Bluestein's chirp-z C2C along the middle axis of a (B, n, L)
+// Kernel 11 (and kernel 20's real-input chirp-z, below): Bluestein's chirp-z
+// C2C along the middle axis of a (B, n, L)
 // complex64 tensor, for a length n with a prime factor above 128, at every
 // convolution length M = 128 * F, in one pass on an (M, C) column tile of
 // the mixed-radix core (fft_radix.cuh). For each column:
@@ -44,6 +45,45 @@
 // tile, 8 M C (17 / 16) bytes, and the prime coefficient rows.
 // Left for later: the zero pad's free first stage (rows t >= n are zero)
 // and the inverse's trim (rows k >= n are not needed), which only save work.
+//
+// Kernel 20's real-input chirp-z: the same kernel, its load and store as
+// template policies (as radix_cols_kernel's), for the R2C along the
+// middle axis of (B, n, L) float32 where ops/hopper/rfft.py::r2c_dense_form
+// names it: the even n and the odd n >= 449 among the 326 lengths 4 <= n
+// <= 1100 whose transform length has a prime factor above 127 (262 ...
+// 1099), and the 9 with a plan whose one prime stage p >= 97 is slower
+// (n = 2p, 5 * 127, 7 * 127). It replaces
+// ndrustfft_tpu/ops/pallas/rfft.py::_r2c_dense_kernel (:882, called at
+// :932) there, whose first Hopper form was one real product
+// (rfft_dense.cu): 2 n (n / 2 + 1) multiply-adds a column where the
+// function needs about 2.5 n log2 n (0.80 ms at (1, 1094, 7668), 40x its
+// byte bound and 4.2x torch.fft.rfft on an H100). Even n = 2h: the chirp
+// length is h; the load is the column's pairs z[t] = x[2t] + i x[2t + 1]
+// (fft_radix.cuh::RealCol<true>, kernel 16's) times a[t], zeros to M; both
+// transforms and the product with H as above; then a pass over rows k < h
+// makes Z[k] = conj(s) a[k] / M in place and, after its barrier, kernel
+// 16's unpack (r2c_unpack_tile) writes the h + 1 bins from the tile. Odd n:
+// the chirp length is n, the load (x, 0) times a (RealCol<false>), and the
+// store kernel 11's, bins k <= (n - 1) / 2 only. The convolution length M
+// (ops/hopper/fft.py::chirp_m) is the integer in [2 len - 1, 2 (2 len - 1)]
+// whose prime factors are 2, 3, 5 and 7, so that every stage is a register
+// codelet and no prime stage runs, of least modelled time M * sum of a
+// fitted cost a point of each stage's radix (a radix-16 stage costs half
+// of any other): 131 -> 288 = 16 * 2 * 9, 1097 -> 2304 = 16 * 16 * 9. The
+// least such M (270 = 2 * 9 * 3 * 5, 2205) ran 1.6x slower summed over the
+// lengths, and kernel 11's 128 * F was the TPU's lane width. What bounds
+// it: device memory, 4 n bytes in and 8 (n / 2 + 1) out a column (0.0412 ms
+// at (1, 262, 65536) over 3.35 TB/s); the two length-M FFTs, 10 M log2 M
+// operations a column (0.023 ms of the FP32 peak there), come next, four
+// to five times the function's own, and each stage's pass through shared
+// memory (about 6 ps a point for a radix-16 stage, 8-12 for the others,
+// over all SMs). So the chirp-z beats the dense product by 2-3x at the
+// long lengths (0.28 against 0.80 ms at (1, 1094, 7668)) and ties it at
+// n = 262 (0.49-0.59 against 0.52-0.58 at (1, 262, 65536)); odd n below
+// 449, whose chirp length is n, keep the product. The tables (chirp, H)
+// are built on the host in float64 and rounded once (plan.py::chirp,
+// blue_h). Shared memory: 8 M C (17 / 16) bytes, 20 KB at M = 2304 and
+// C = 1 (ops/hopper/fft.py::radix_mid_cols's count there).
 #include "fft_radix.cuh"
 
 namespace ndfft {
@@ -56,13 +96,81 @@ struct BlueTile {
   __device__ __forceinline__ float2 out(int, float2 v) const { return v; }
 };
 
+// Kernel 11's columns: element r of column col of b of the (B, n, L)
+// complex64 x.
+struct CplxBlueCol {
+  const float2* __restrict__ x;
+  long long L;
+  int n;
+  __device__ __forceinline__ long long base(long long b, long long col) const {
+    return b * n * L + col;
+  }
+  __device__ __forceinline__ float2 at(long long p, int r) const { return __ldcs(x + p + r * L); }
+};
+
+// The store of rows k < rows of each column, conj(s) times the scale and
+// the exit chirp a[k], to y[(b rows + k) L + col], a tile row at a time:
+// kernel 11's (rows = n) and the odd R2C's bins (rows = (n + 1) / 2).
+struct BlueBins {
+  float2* __restrict__ y;
+  long long L;
+  int rows;
+  __device__ __forceinline__ long long handle(long long b, long long col) const {
+    return b * rows * L + col;
+  }
+  template <class Cx>
+  __device__ __forceinline__ void epilogue(float2* s, const Cx& cx, long long yb, int valid,
+                                           int cshift, const float2* __restrict__ a,
+                                           float scale) const {
+    const int C = cx.lay.C;
+    for (int e = threadIdx.x; e < rows * C; e += blockDim.x) {
+      const int r = e >> cshift, cc = e & (C - 1);
+      if (cc < valid) {
+        const float2 z = s[cx_slot(e)];
+        y[yb + r * L + cc] = cmul(make_float2(scale * z.x, -(scale * z.y)), __ldg(a + r));
+      }
+    }
+  }
+};
+
+// The even R2C's epilogue at chirp length h = n / 2: rows k < h of the tile
+// become Z[k] = conj(s) times the scale and a[k] in place, and after the
+// barrier each column's threads unpack its h + 1 bins from the tile
+// (fft_radix.cuh::r2c_unpack_tile, kernel 16's) to y[(b (h + 1) + k) L +
+// col]; u[k] = W_n^k.
+struct BlueR2cUnpack {
+  float2* __restrict__ y;
+  const float2* __restrict__ u;
+  long long L;
+  int h;
+  __device__ __forceinline__ long long handle(long long b, long long col) const {
+    return b * (h + 1) * L + col;
+  }
+  template <class Cx>
+  __device__ __forceinline__ void epilogue(float2* s, const Cx& cx, long long, int, int cshift,
+                                           const float2* __restrict__ a, float scale) const {
+    const int C = cx.lay.C;
+    for (int e = threadIdx.x; e < h * C; e += blockDim.x) {
+      const float2 z = s[cx_slot(e)];
+      s[cx_slot(e)] = cmul(make_float2(scale * z.x, -(scale * z.y)), __ldg(a + (e >> cshift)));
+    }
+    __syncthreads();
+    Cx ch = cx;
+    ch.n = h;
+    float2* yc = y + cx.row;
+    const long long ls = L;
+    r2c_unpack_tile(s, ch, u, [=](int k, float2 v) { yc[k * ls] = v; });
+  }
+};
+
 // One block per (b, tile of at most C columns), the L columns spread evenly
 // over the `tiles` tiles; tr = ceil(M / kE) threads per column, thread
-// c + C t taking column c's place t.
-template <int kE>
+// c + C t taking column c's place t. The load policy gives the chirp
+// length n of each column (ld.base(b, col), ld.at(p, r), r < n) and the Out
+// its store (out.handle(b, col), out.epilogue).
+template <int kE, class Load, class Out>
 __global__ void __launch_bounds__(kRadixMaxThreads<kE>, kRadixMinBlocks<kE>)
-blue_radix_kernel(const float2* __restrict__ x, float2* __restrict__ y,
-                  const float2* __restrict__ a, const float2* __restrict__ h,
+blue_radix_kernel(Load ld, Out out, const float2* __restrict__ a, const float2* __restrict__ h,
                   const float2* __restrict__ tab, RadixPlan plan, int n, int M, long long L,
                   long long tiles, int C, float scale) {
   extern __shared__ float2 smem[];
@@ -70,11 +178,12 @@ blue_radix_kernel(const float2* __restrict__ x, float2* __restrict__ y,
   const long long tile = blockIdx.x % tiles;
   const long long col0 = tile * L / tiles;
   const int valid = (int)((tile + 1) * L / tiles - col0);
-  const long long base = bb * n * L + col0;
+  const long long base = ld.base(bb, col0);
+  const long long yb = out.handle(bb, col0);
   const int tr = (M + kE - 1) / kE;
   const int cshift = 31 - __clz(C);   // C is a power of two: no division per element
   const int t = (int)threadIdx.x >> cshift, c = (int)threadIdx.x & (C - 1);
-  const RadixCtx<ColLayout> cx{M, tr, t, ColLayout{c, C}, c < valid && t < tr, base + c};
+  const RadixCtx<ColLayout> cx{M, tr, t, ColLayout{c, C}, c < valid && t < tr, yb + c};
   float2* s = smem;
   float2* cs = smem + cx_tile_slots(M * C);
   int count[8];
@@ -89,7 +198,7 @@ blue_radix_kernel(const float2* __restrict__ x, float2* __restrict__ y,
     for (int u = 0; u < kLoads; ++u) {
       const int e = e0 + u * blockDim.x, r = e >> cshift, cc = e & (C - 1);
       v[u] = make_float2(0.f, 0.f);
-      if (e < elems && r < n && cc < valid) v[u] = __ldcs(x + base + r * L + cc);
+      if (e < elems && r < n && cc < valid) v[u] = ld.at(base + cc, r);
     }
 #pragma unroll
     for (int u = 0; u < kLoads; ++u) {
@@ -106,18 +215,12 @@ blue_radix_kernel(const float2* __restrict__ x, float2* __restrict__ y,
   }
   __syncthreads();
   radix_run<kE, -1>(s, tab, cs, count, plan, cx, BlueTile{}, 1.f);
-  // rows k < n: conj(FFT_M(conj V)) times the scale and the exit chirp
-  for (int e = threadIdx.x; e < n * C; e += blockDim.x) {
-    const int r = e >> cshift, cc = e & (C - 1);
-    if (cc < valid) {
-      const float2 z = s[cx_slot(e)];
-      y[base + r * L + cc] = cmul(make_float2(scale * z.x, -(scale * z.y)), __ldg(a + r));
-    }
-  }
+  // conj(FFT_M(conj V)) times the scale and the exit chirp, stored
+  out.epilogue(s, cx, yb, valid, cshift, a, scale);
 }
 
-template <int kE>
-cudaError_t blue_radix_launch(const float2* x, float2* y, const float2* a, const float2* h,
+template <int kE, class Load, class Out>
+cudaError_t blue_radix_launch(Load ld, Out out, const float2* a, const float2* h,
                               const float2* tab, const RadixPlan& plan, long long B, int n,
                               int M, long long L, int C, float scale, cudaStream_t stream) {
   const int tr = (M + kE - 1) / kE;
@@ -126,12 +229,32 @@ cudaError_t blue_radix_launch(const float2* x, float2* y, const float2* a, const
   const long long tiles = (L + C - 1) / C;
   if (threads > kRadixMaxThreads<kE> || smem > kMaxSmemBytes || B * tiles > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(blue_radix_kernel<kE>,
+  cudaError_t e = cudaFuncSetAttribute(blue_radix_kernel<kE, Load, Out>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  blue_radix_kernel<kE><<<(unsigned)(B * tiles), threads, (size_t)smem, stream>>>(
-      x, y, a, h, tab, plan, n, M, L, tiles, C, scale);
+  blue_radix_kernel<kE, Load, Out><<<(unsigned)(B * tiles), threads, (size_t)smem, stream>>>(
+      ld, out, a, h, tab, plan, n, M, L, tiles, C, scale);
   return cudaGetLastError();
+}
+
+// The launcher at chirp length n and convolution length M: 16, 32 or 40
+// elements a thread by the tile's M C elements.
+template <class Load, class Out>
+cudaError_t blue_radix_dispatch(Load ld, Out out, const float2* a, const float2* h,
+                                const float2* tab, const RadixPlan& plan, long long B, int n,
+                                int M, long long L, int C, float scale, cudaStream_t stream) {
+  const int e = radix_per_thread(M * C);
+  return e == 40 ? blue_radix_launch<40>(ld, out, a, h, tab, plan, B, n, M, L, C, scale, stream)
+       : e == 32 ? blue_radix_launch<32>(ld, out, a, h, tab, plan, B, n, M, L, C, scale, stream)
+                 : blue_radix_launch<16>(ld, out, a, h, tab, plan, B, n, M, L, C, scale, stream);
+}
+
+// The checks both entries share: B L columns, C a power of two up to
+// kRadixMaxCols with M C <= 20480, 2 n - 1 <= M, and the plan of M.
+inline bool blue_radix_args(const int* radices, int stages, long long B, int n, int M,
+                            long long L, int C, RadixPlan& plan) {
+  return B >= 1 && L >= 1 && n >= 1 && 2 * n - 1 <= M && C >= 1 && C <= kRadixMaxCols &&
+         !(C & (C - 1)) && (long long)M * C <= 20480 && radix_plan_of(radices, stages, M, plan);
 }
 
 }  // namespace ndfft
@@ -151,19 +274,44 @@ extern "C" int ndfft_c2c_blue_radix(const void* x, void* y, const void* a, const
                                     void* stream) {
   using namespace ndfft;
   RadixPlan plan{};
-  if (B < 1 || L < 1 || n < 1 || 2 * n - 1 > M || C < 1 || C > kRadixMaxCols ||
-      (C & (C - 1)) || (long long)M * C > 20480 || !radix_plan_of(radices, stages, M, plan))
+  if (!blue_radix_args(radices, stages, B, n, M, L, C, plan)) return (int)cudaErrorInvalidValue;
+  return (int)blue_radix_dispatch(
+      CplxBlueCol{static_cast<const float2*>(x), L, n}, BlueBins{static_cast<float2*>(y), L, n},
+      static_cast<const float2*>(a), static_cast<const float2*>(h),
+      static_cast<const float2*>(table), plan, B, n, M, L, C, scale,
+      static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 20's chirp-z. x: (B, n, L) float32; y: (B, n / 2 + 1, L)
+// complex64; both contiguous. The chirp length is h = n / 2 at even n (the
+// column read as its pairs x[2t] + i x[2t + 1]; u: (h,) complex64 W_n^k for
+// the unpack) and n at odd n ((x, 0); u unused); a: the chirp length's
+// (len,) complex64 chirp exp(-i pi t^2 / len); hh: (M,) complex64 H of the
+// chirp length at M; table: the sign -1 radix table of M; radices:
+// radix_plan(M), `stages` of them; 2 len - 1 <= M; C as for
+// ndfft_c2c_blue_radix. The scale 1 / M is the inverse's. Returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int ndfft_r2c_blue_radix(const void* x, void* y, const void* a, const void* hh,
+                                    const void* u, const void* table, const int* radices,
+                                    int stages, long long B, int n, int M, long long L, int C,
+                                    void* stream) {
+  using namespace ndfft;
+  const bool even = n % 2 == 0;
+  const int len = even ? n / 2 : n;
+  RadixPlan plan{};
+  if (n < 2 || !blue_radix_args(radices, stages, B, len, M, L, C, plan) || (even && u == nullptr))
     return (int)cudaErrorInvalidValue;
-  const auto xp = static_cast<const float2*>(x);
+  const auto xp = static_cast<const float*>(x);
   const auto yp = static_cast<float2*>(y);
   const auto ap = static_cast<const float2*>(a);
-  const auto hp = static_cast<const float2*>(h);
+  const auto hp = static_cast<const float2*>(hh);
   const auto tp = static_cast<const float2*>(table);
   const auto st = static_cast<cudaStream_t>(stream);
-  const int e = radix_per_thread(M * C);
-  return (int)(e == 40 ? blue_radix_launch<40>(xp, yp, ap, hp, tp, plan, B, n, M, L, C, scale, st)
-               : e == 32 ? blue_radix_launch<32>(xp, yp, ap, hp, tp, plan, B, n, M, L, C, scale,
-                                                 st)
-                         : blue_radix_launch<16>(xp, yp, ap, hp, tp, plan, B, n, M, L, C, scale,
-                                                 st));
+  const float scale = 1.f / (float)M;
+  if (even)
+    return (int)blue_radix_dispatch(RealCol<true>{xp, L, n},
+                                    BlueR2cUnpack{yp, static_cast<const float2*>(u), L, len}, ap,
+                                    hp, tp, plan, B, len, M, L, C, scale, st);
+  return (int)blue_radix_dispatch(RealCol<false>{xp, L, n}, BlueBins{yp, L, n / 2 + 1}, ap, hp,
+                                  tp, plan, B, len, M, L, C, scale, st);
 }

@@ -6,7 +6,8 @@
 // the epilogue, and kernel 3 with the C2R's inverse unpack as the prologue
 // (rfft_radix.cu); kernel 11 at every
 // convolution length M = 128 * F on an (M, C) column tile, its forward and
-// inverse length-M transforms in place (fft_blue_radix.cu); kernels 1, 6
+// inverse length-M transforms in place, and kernel 20's real-input chirp-z
+// on the same kernel at a 7-smooth M (fft_blue_radix.cu); kernels 1, 6
 // and 4 (n = 128 * F; n > 512 without a split; n <= 512) on an (n, C)
 // column tile with the store in its last stage (fft_mid_radix.cu); kernels
 // 16, 18 and 20 (the R2C along a middle axis, kernel 18 of DST-I's two
@@ -803,6 +804,29 @@ cudaError_t radix_rows_launch(Load ld, Io io, const float2* tab, const int* radi
        : e == 32 ? radix_launch_es<32, 1>(ld, io, tab, plan, T, n, rows, scale, stream)
                  : radix_launch_es<16, 1>(ld, io, tab, plan, T, n, rows, scale, stream);
 }
+
+// The column skeletons' real load policy (kernels 16 and 20 on
+// radix_cols_kernel, kernel 20's chirp-z on fft_blue_radix.cu): the real
+// columns of (B, rows, L) float32: element r of column col of b
+// as the pair (x[2r], x[2r + 1]) of its rows (kPairs: the half-length
+// column of an even n) or as (x[r], 0).
+template <bool kPairs>
+struct RealCol {
+  const float* __restrict__ x;
+  long long L;
+  int rows;
+  __device__ __forceinline__ long long base(long long b, long long col) const {
+    return b * rows * L + col;
+  }
+  __device__ __forceinline__ float2 at(long long p, int r) const {
+    if constexpr (kPairs) {
+      const float* q = x + p + 2 * r * L;
+      return make_float2(__ldcs(q), __ldcs(q + L));
+    } else {
+      return make_float2(__ldcs(x + p + r * L), 0.f);
+    }
+  }
+};
 
 // One block per (b, tile of at most C adjacent columns), the L columns
 // spread evenly over the `tiles` tiles, each column a transform of length

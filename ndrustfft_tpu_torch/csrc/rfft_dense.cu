@@ -1,13 +1,18 @@
 // Kernels 20 and 21: R2C and C2R along the middle axis of (B, n, L) as one
-// real product each, m = n/2 + 1, at the 326 lengths 4 <= n <= 1100 whose
-// transform length (n/2 at even n, n at odd n) has no radix plan (a prime
-// factor above 127: n = 262, 1099 ...), and kernel 21 also at the 61 odd n
-// where a large prime stage makes the product faster
-// (ops/hopper/fft.py::dense_beats_radix: 129 = 3 * 43 ...); at the other
-// lengths both run on the radix column tile (rfft_mid_radix.cu). And kernel 15's dense product, the
-// R2C of contiguous (T, n) rows with kernel
-// 20's table, for even n = 2h, h <= 256 not a multiple 128 * F of the core
-// (the 128^3 step's n = 128, DCT-II at n = 200, DCT-I at n = 130).
+// real product each, m = n/2 + 1. Kernel 21 at the 326 lengths 4 <= n <=
+// 1100 whose transform length (n/2 at even n, n at odd n) has no radix plan
+// (a prime factor above 127: n = 262, 1099 ...) and at the 61 odd n where
+// a large prime stage makes the product faster
+// (ops/hopper/fft.py::dense_beats_radix: 129 = 3 * 43 ...); kernel 20 at
+// the odd lengths where ops/hopper/rfft.py::r2c_dense_form names it (a
+// prime n or 3 p with a large prime stage p, and odd n without a plan below
+// rfft.py::R2C_CHIRP_MIN_ODD: 131, 137 ...). At the other lengths kernel
+// 20 runs on the radix column tile (rfft_mid_radix.cu) or as a real-input
+// chirp-z (fft_blue_radix.cu), kernel 21 on the radix column tile. And
+// kernel 15's dense product, the R2C of contiguous (T, n) rows with kernel
+// 20's table, for even n = 2h at h = 1 and the primes h = 131 ... 251
+// (every other h <= 256 not a multiple 128 * F of the core runs on the
+// radix row core, rfft_radix.cu).
 //
 // Kernel 20 replaces ndrustfft_tpu/ops/pallas/rfft.py::_r2c_dense_kernel
 // (built by _build_r2c_dense_mid, table _r2c_dense_w); kernel 21 replaces

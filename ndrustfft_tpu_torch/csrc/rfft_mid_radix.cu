@@ -125,27 +125,6 @@
 
 namespace ndfft {
 
-// The real columns of (B, rows, L) float32: element r of column col of b
-// as the pair (x[2r], x[2r + 1]) of its rows (kPairs: the half-length
-// column of an even n) or as (x[r], 0).
-template <bool kPairs>
-struct RealCol {
-  const float* __restrict__ x;
-  long long L;
-  int rows;
-  __device__ __forceinline__ long long base(long long b, long long col) const {
-    return b * rows * L + col;
-  }
-  __device__ __forceinline__ float2 at(long long p, int r) const {
-    if constexpr (kPairs) {
-      const float* q = x + p + 2 * r * L;
-      return make_float2(__ldcs(q), __ldcs(q + L));
-    } else {
-      return make_float2(__ldcs(x + p + r * L), 0.f);
-    }
-  }
-};
-
 // Kernel 18's columns: element t of column col of b as (xe[t], xo[t]) from
 // the two (B, h, L) streams.
 struct PackedCol {

@@ -1,9 +1,11 @@
 // Kernels 2 and 15: the R2C of contiguous (T, n) float32 rows, n = 2h, to
 // (T, h + 1) complex64, on the mixed-radix row core (fft_radix.cuh) with
 // the unpack as its epilogue: kernel 2 at every h = 128 * F (F <= 160, with
-// prime factors <= 127), kernel 15 at those h and at a half length h > 256
+// prime factors <= 127), kernel 15 at those h, at a half length h > 256
 // without a {128, 256} split (h = 265 at n = 530 and h = 300 at n = 600;
-// odd h included). Kernel 3: their inverse, the C2R of (T, h + 1)
+// odd h included) and at its dense rows, every h <= 256 with a plan but 31
+// (229 half lengths, h = 2 ... 250; h = 1, 31 and the primes 131 ... 251
+// keep the dense product of rfft_dense.cu, faster at h = 31 on an H100). Kernel 3: their inverse, the C2R of (T, h + 1)
 // complex64 rows to (T, n) float32 at every h = 128 * F, on the same core
 // with the inverse unpack as its prologue.
 //
@@ -19,6 +21,16 @@
 // 512 threads of 32 elements a block). Kernel 3's bts2 form also read
 // S[k] and S[h - k] from device memory for each element, half of them in
 // reverse.
+//
+// Kernel 15's dense rows (h <= 256 not 128 * F): the TPU kernel ran the
+// half-length FFT as its dense lane DFT, one h x h product on the MXU;
+// their first Hopper form was one real product of the whole row, 2 n (n /
+// 2 + 1) multiply-adds where the function needs 2.5 n log2 n (0.0845 ms at
+// (16384, 128), 17x its byte bound and 2.9x torch.fft.rfft on an H100).
+// Here a small h takes many rows a block (ops/hopper/fft.py::radix_block's
+// small-tile rule, kernel 8's at n <= 256: 512 complex elements a block,
+// 256 rows of h = 2 with one thread a row, whose thread then unpacks all
+// h + 1 bins of its row).
 //
 // Kernel 15's generic half lengths: _half_fft_consts falls back to the
 // generic lane-last schedule there. The TPU

@@ -221,8 +221,9 @@ def r2c_packed(x: torch.Tensor, plan: R2CPlan) -> torch.Tensor:
     """Half-spectrum of real rows (..., n), n even, by the half-length C2C of
     z[t] = x[2t] + i x[2t+1] and the unpack: kernel 15 for float32 over
     >= 128 rows (the rows go to it whole: a contiguous float32 row of length
-    2h is the complex row z; the radix row core at h = 128 * F or a generic
-    h, the dense product at every other h <= 256), else :func:`c2c` and the unpack."""
+    2h is the complex row z; the radix row core at h = 128 * F, a generic h
+    or every other h <= 256 with a plan, the dense product at the other
+    h <= 256), else :func:`c2c` and the unpack."""
     n, m = plan.n, plan.m
     h = n // 2
     if x.dtype == torch.float32 and _kernel_device(x) \

@@ -65,6 +65,7 @@ _SIGNATURES = {
     "ndfft_dct4_mid_wide": [_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_dct4_mid_long": [_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_c2c_blue_radix": [_P] * 6 + [_I, _LL, _I, _I, _LL, _I, _F, _P],
+    "ndfft_r2c_blue_radix": [_P] * 7 + [_I, _LL, _I, _I, _LL, _I, _P],
     "ndfft_dct23_blue_mid": [_P] * 7 + [_LL, _I, _I, _LL, _I, _P],
     "ndfft_dct23_blue_mid_wide": [_P] * 9 + [_LL, _I, _I, _LL, _I, _P],
     "ndfft_fourstep_mid": [_P, _P, _P, _P, _LL, _I, _LL, _I, _I, _P],

@@ -449,9 +449,21 @@ def radix_block(n: int, count: int, sms: int) -> int:
         rows = max(1, min(RADIX_SMALL_TILE // n, RADIX_MAX_THREADS // tr))
     else:
         fits = range(1, RADIX_MAX_THREADS // tr + 1)
-        idle = [(-r * tr % 32) / (32 * -(-r * tr // 32)) for r in fits]
+        idle = [idle_lanes(r * tr) for r in fits]
         rows = next((r for r, f in zip(fits, idle) if f <= 1 / RADIX_IDLE_LANES),
                     fits[idle.index(min(idle))])
+    return spread_rows(rows, count, sms)
+
+
+def idle_lanes(threads: int) -> float:
+    """The share of a block's warp lanes that ``threads`` threads leave idle."""
+    return (-threads % 32) / (32 * -(-threads // 32))
+
+
+def spread_rows(rows: int, count: int, sms: int) -> int:
+    """``rows`` a block, halved while the grid of ``count`` rows would leave
+    SMs idle, then spread evenly over the tiles so that a ragged last tile
+    is as full as the others."""
     while rows > 1 and -(-count // rows) < sms:
         rows //= 2
     return -(-count // -(-count // rows))
@@ -775,6 +787,44 @@ def blue_kernel_M(n: int):
         return need
     mk = -(-need // M) * M
     return mk if mk <= BLUE_MAX_M else None
+
+
+RADIX_SMOOTH = (2, 3, 5, 7)     # the prime factors of the codelet radices
+# picoseconds a point and stage of kernel 20's chirp-z (both length-M
+# transforms and the passes around them) by the stage's radix: a least-squares
+# fit to time_kernels.py --route-dense on an H100 (every M >= 128 that
+# the least 7-smooth rule gave, 2^23 reals a call; within 12% of the
+# measured time on average). A radix-16 stage costs half of the others.
+CHIRP_STAGE_PS = {16: 6.1, 8: 10.9, 4: 10.8, 2: 9.3, 9: 10.5, 3: 11.5, 5: 7.6, 7: 9.1}
+
+
+@lru_cache(maxsize=None)
+def chirp_m(length: int) -> int:
+    """The convolution length of a chirp-z on the radix core at chirp length
+    ``length`` (kernel 20's real-input chirp-z): among the M from 2 length - 1
+    to twice that (at most 4096, where a column's tile keeps the 16-element
+    form) whose prime factors are all 2, 3, 5 or 7, so that every stage of
+    :func:`radix_plan` (M) is a register codelet, the one of least modelled
+    time M * sum(CHIRP_STAGE_PS over its stages), the smaller on a tie (131
+    -> 288 = 16 * 2 * 9, 547 -> 1280 = 16 * 16 * 5, 1097 -> 2304 = 16 * 16
+    * 9). The least such M (270, 1120, 2205 there) ran 1.6x slower summed
+    over kernel 20's lengths on an H100: its plans have more and smaller
+    stages. Kernel 11's 128 * ceil((2n - 1) / 128) (:func:`blue_kernel_M`)
+    is the TPU's lane width."""
+    lo = 2 * length - 1
+    hi = 2 * lo if lo > 2048 else min(2 * lo, 4096)
+    best = None
+    for mk in range(lo, max(lo, hi) + 1):
+        rest = mk
+        for p in RADIX_SMOOTH:
+            while rest % p == 0:
+                rest //= p
+        plan = radix_plan(mk) if rest == 1 else None
+        if plan is not None:
+            cost = mk * sum(CHIRP_STAGE_PS[r] for r in plan)
+            if best is None or cost < best[0]:
+                best = (cost, mk)
+    return best[1]
 
 
 def blue_bytes(mk: int, c: int) -> int:

@@ -20,11 +20,16 @@
   for odd n), kernel 20 runs kernel 16's column kernel (at odd n the
   length-n C2C of (x, 0), half of its bins stored) and kernel 21 kernel
   17's (at odd n the length-n inverse of the column's Hermitian extension,
-  its mirrored half filled in a prologue, the real part stored); at the
-  other lengths (a prime factor above 127), and kernel 21 at the 61 odd n
-  where :func:`~.fft.dense_beats_radix` holds (a large prime stage, such as
-  129 = 3 * 43), both run one real product with a host table
-  (``csrc/rfft_dense.cu`` on the dense loop ``csrc/dense_real.cuh``).
+  its mirrored half filled in a prologue, the real part stored). At the
+  other lengths (a prime factor above 127) kernel 20 runs a real-input
+  chirp-z on kernel 11's column kernel (``csrc/fft_blue_radix.cu``:
+  the chirp length n/2 with the unpack at even n, n at odd n, the
+  convolution length the 7-smooth M >= 2 len - 1 of least modelled time,
+  :func:`~.fft.chirp_m`) where :func:`r2c_dense_form` names it, else one
+  real product with a host table; kernel 21 runs that product there and at
+  the 61 odd n where :func:`~.fft.dense_beats_radix` holds (a large prime
+  stage, such as 129 = 3 * 43) (``csrc/rfft_dense.cu`` on the dense loop
+  ``csrc/dense_real.cuh``).
 * Kernels 18 and 19, :func:`r2c_packed_mid` and :func:`dct1_mid`: the R2C
   of a column built otherwise, along the middle axis, times a scale
   (replace ``rfft.py::_r2c_kernel_packed_mid`` and ``_dct1_kernel_mid``).
@@ -35,14 +40,15 @@
   (``csrc/dct1_mid.cu`` on ``csrc/r2c_col.cuh``, the fixed core for F in
   {2, 4, 8, 16}, the wide core for every other F <= 160).
 * Kernel 15, the packed R2C of contiguous (T, n) rows (replaces
-  ``rfft.py::_r2c_kernel``), in two CUDA kernels by half length h = n/2:
-  :func:`r2c_packed` for h = 128 * F (kernel 2's code, with F = 1 added) and
-  :func:`r2c_packed_generic` for h > 256 without a split are the
-  half-length C2C on the mixed-radix row core with the unpack as its
-  epilogue in shared memory (``csrc/rfft_radix.cu`` on
-  ``csrc/fft_radix.cuh``); :func:`r2c_packed_dense` for every other
-  h <= 256 is kernel 20's real product with its table, in the row layout
-  (``csrc/rfft_dense.cu``).
+  ``rfft.py::_r2c_kernel``), in three wrappers by half length h = n/2:
+  :func:`r2c_packed` for h = 128 * F (kernel 2's code, with F = 1 added),
+  :func:`r2c_packed_generic` for h > 256 without a split and
+  :func:`r2c_packed_dense` for every other h <= 256 with a plan (many rows
+  a block at small h) run the half-length C2C on the mixed-radix row core
+  with the unpack as its epilogue in shared memory (``csrc/rfft_radix.cu``
+  on ``csrc/fft_radix.cuh``); :func:`r2c_packed_dense` at h = 1, 31 and
+  the primes 131 ... 251 runs kernel 20's real product with its table, in
+  the row layout (``csrc/rfft_dense.cu``).
 * Kernel 22, :func:`spectral_r2c_mid`: the fused pipeline C2R(H * R2C(x))
   along the middle axis of (B, n, L), kernel 16's forward, the multiply and
   kernel 17's inverse on one column tile (``csrc/spectral_r2c_mid.cu``, the
@@ -54,7 +60,9 @@ and their wrappers, whose ``launches`` attributes count kernel launches
 (kernels 19 and 22 on the bts2 core also count the wide core's launches
 apart, in ``wide_launches``; kernels 2, 3 and 15 at h = 128 * F and
 kernels 16, 17 and 18 count every launch in ``radix_launches`` as well,
-kernels 20 and 21 their launches on the radix column tile).
+kernels 20 and 21 their launches on the radix column tile and kernel 15's
+dense rows theirs on the radix row core; kernel 20 counts its chirp-z's in
+``chirp_launches``).
 """
 
 from __future__ import annotations
@@ -65,14 +73,15 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ...plan import _cis
+from ...plan import _cis, blue_h, chirp
 from . import _build
-from .fft import (CORE_F, GENERIC_MAX_N, M, RADIX_MAX_ELEMS, RADIX_MAX_STAGES,
-                  RADIX_MAX_THREADS, block_cols, bts2_plain, c2c_radix_mid_plain,
-                  c2c_radix_rows_plain, check_cuda, check_mult, core_f, count_launch,
-                  dense_beats_radix, dense_tile, device_radix, device_wide, device_wq,
-                  generic_split, mult_planes, num_sms, radix_block, radix_cols_threads,
-                  radix_mid_cols, radix_plan, wide_block)
+from .fft import (CORE_F, GENERIC_MAX_N, M, RADIX_CODELETS, RADIX_MAX_ELEMS, RADIX_MAX_P,
+                  RADIX_MAX_STAGES, RADIX_MAX_THREADS, RADIX_SMALL_TILE, block_cols, bts2_plain,
+                  c2c_radix_mid_plain, c2c_radix_rows_plain, check_cuda, check_mult, chirp_m,
+                  chirp_z_radix_plain, core_f, count_launch, dense_beats_radix, dense_tile,
+                  device_radix, device_wide, device_wq, generic_split, idle_lanes, mult_planes,
+                  num_sms, pair_tensor, radix_block, radix_cols_threads, radix_mid_cols,
+                  radix_plan, spread_rows, wide_block)
 
 # lengths kernels 20 and 21 take: the JAX package's rfft_dense_mid_supported
 # (its _DENSE_RFFT_MAX), which the routes mirror
@@ -217,10 +226,11 @@ def r2c_radix_launch(x: torch.Tensor, what: str, rows=None) -> torch.Tensor:
     return out
 
 
-def _r2c_rows(x: torch.Tensor, wrapper) -> torch.Tensor:
+def _r2c_rows(x: torch.Tensor, wrapper, rows=None) -> torch.Tensor:
     """``wrapper``'s (kernel 2's or 15's) launch on the radix row core,
-    counted in its ``launches`` and ``radix_launches``."""
-    out = r2c_radix_launch(x, wrapper.__name__)
+    ``rows`` a block (by default :func:`radix_block`), counted in its
+    ``launches`` and ``radix_launches``."""
+    out = r2c_radix_launch(x, wrapper.__name__, rows)
     wrapper.launches += x.shape[0] > 0
     wrapper.radix_launches += x.shape[0] > 0
     return out
@@ -797,36 +807,137 @@ def _launch_dense(entry: str, w, inp: torch.Tensor, out: torch.Tensor, n: int,
     _build.check(err, entry)
 
 
+@lru_cache(maxsize=64)
+def _device_r2c_blue(length: int, device: torch.device):
+    """Kernel 20's chirp-z tables at chirp length ``length`` as complex64
+    tensors on ``device``: the chirp exp(-i pi t^2 / length) (entry and
+    exit) and H of :func:`~.fft.chirp_m` (length), each built in float64 and
+    rounded once (``plan.chirp``, ``plan.blue_h``)."""
+    return (pair_tensor(chirp(length, -1), device),
+            pair_tensor(blue_h(length, -1, chirp_m(length)), device))
+
+
+def r2c_blue_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel 20's chirp-z: (B, n, L) float32 -> (B, n//2+1,
+    L) complex64 along dim 1. Even n: :func:`~.fft.chirp_z_radix_plain` on
+    the half-length columns z = x[:, 0::2] + i x[:, 1::2] (chirp length
+    h = n/2) times the entry and exit chirps, then the unpack; odd n: the
+    same on (x, 0) (chirp length n), its first (n + 1)/2 bins."""
+    nb, n, cols = x.shape
+    length = r2c_mid_len(n)
+    a, hh = _device_r2c_blue(length, x.device)
+    if n % 2:
+        z = torch.complex(x, torch.zeros_like(x))
+    else:
+        xv = x.reshape(nb, length, 2, cols)
+        z = torch.complex(xv[:, :, 0], xv[:, :, 1])
+    zz = chirp_z_radix_plain(z * a[:, None], hh, 1.0) * a[:, None]
+    return zz[:, :n // 2 + 1].contiguous() if n % 2 else _unpack(zz, _device_tw(n, x.device), 1)
+
+
+def r2c_blue_launch(x: torch.Tensor, out: torch.Tensor, c: int) -> None:
+    """Launch kernel 20's chirp-z on the radix column tile, ``c`` columns a
+    tile, on a (B, n, L) float32 CUDA tensor x into the (B, n//2+1, L)
+    complex64 out (``csrc/fft_blue_radix.cu``); counts nothing."""
+    nb, n, cols = x.shape
+    dev = x.device
+    length = r2c_mid_len(n)
+    mk = chirp_m(length)
+    a, hh = _device_r2c_blue(length, dev)
+    plan = radix_plan(mk)
+    u = None if n % 2 else _device_tw(n, dev).data_ptr()
+    with torch.cuda.device(dev):
+        err = _build.lib().ndfft_r2c_blue_radix(
+            x.data_ptr(), out.data_ptr(), a.data_ptr(), hh.data_ptr(), u,
+            device_radix(mk, -1, dev).data_ptr(), (ctypes.c_int * RADIX_MAX_STAGES)(*plan),
+            len(plan), nb, n, mk, cols, c, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ndfft_r2c_blue_radix")
+
+
+# the least odd n without a plan where kernel 20's chirp-z beats its dense
+# product (its chirp length is n there, twice an even n's)
+R2C_CHIRP_MIN_ODD = 449
+# the least prime half length h = n/2 whose one prime stage on the radix
+# column tile loses to kernel 20's chirp-z
+R2C_CHIRP_MIN_P = 97
+
+
+def r2c_dense_form(n: int) -> str:
+    """The kernel that kernel 20's wrapper runs at n: "radix" (the radix
+    column tile), "chirp" (the real-input chirp-z on kernel 11's column
+    kernel) or "dense" (the real product). The radix tile's prime stage p
+    of the transform length T (h = n/2, or n at odd n) spends about p
+    operations an element, the product about n, the chirp-z about 20 log2 M
+    (M >= 4 T): so the product takes odd n = p >= 31 and odd n = 3 p with p
+    >= 67, the chirp-z even n = 2 p with p >= R2C_CHIRP_MIN_P and odd n =
+    5 p, 7 p with p = 127 (the largest stage), the radix tile every other
+    length with a plan; without a plan the chirp-z takes even n and odd n
+    >= R2C_CHIRP_MIN_ODD, the product the rest. Fitted to ``time_kernels.py
+    --route-dense`` on an H100: summed over n = 4 ... 1100 within 0.1% of
+    the fastest kernel at each length, and no length more than 5% slower
+    than its fastest (PERF.md)."""
+    if not r2c_mid_radix(n):
+        return "chirp" if n % 2 == 0 or n >= R2C_CHIRP_MIN_ODD else "dense"
+    t = r2c_mid_len(n)
+    p = max((r for r in radix_plan(t) if r not in RADIX_CODELETS), default=0)
+    if n % 2 and ((n == p and p >= 31) or (n == 3 * p and p >= 67)):
+        return "dense"
+    if (t == p and p >= R2C_CHIRP_MIN_P) or (p == RADIX_MAX_P and t >= 5 * p):
+        return "chirp"
+    return "radix"
+
+
+_R2C_DENSE_PLAIN = {"radix": r2c_mid_radix_plain, "chirp": r2c_blue_plain,
+                    "dense": r2c_dense_mid_plain}
+
+
 def r2c_dense_mid(x: torch.Tensor) -> torch.Tensor:
     """R2C along dim 1 of a (B, n, L) float32 tensor -> (B, n//2+1, L)
-    complex64, 4 <= n <= 1100. Where :func:`r2c_mid_radix` holds n, a CPU
-    tensor runs :func:`r2c_mid_radix_plain` and a CUDA tensor launches
+    complex64, 4 <= n <= 1100, on the kernel :func:`r2c_dense_form` names at
+    n. A CPU tensor runs that kernel's plain version; a CUDA tensor launches
     kernel 20 on the radix column tile (counted in ``radix_launches`` as
-    well); at the other lengths, :func:`r2c_dense_mid_plain` and the dense
-    product. Anything else raises."""
+    well), its chirp-z (``chirp_launches``) or its dense product. Anything
+    else raises."""
     _check_mid(x, torch.float32, "r2c_dense_mid")
     nb, n, cols = x.shape
     _check_dense_n(n, "r2c_dense_mid")
-    radix = r2c_mid_radix(n)
+    form = r2c_dense_form(n)
     if x.device.type == "cpu":
-        return r2c_mid_radix_plain(x) if radix else r2c_dense_mid_plain(x)
+        return _R2C_DENSE_PLAIN[form](x)
     if x.device.type != "cuda":
         raise ValueError(f"r2c_dense_mid: unsupported device {x.device}")
     check_cuda(x, torch.float32, "r2c_dense_mid")
-    if radix:
+    if form == "radix":
         return _r2c_mid_radix(r2c_dense_mid, x)
     m = n // 2 + 1
     out = torch.empty((nb, m, cols), dtype=torch.complex64, device=x.device)
     if x.numel() == 0:
         return out
-    _launch_dense("ndfft_r2c_dense_mid", _device_dense("r2c", n, 1.0, x.device),
-                  x, out, n, 2 * m)
+    if form == "chirp":
+        # columns a tile: radix_mid_cols at M (8 at M = 288, 2 at 1280, 1 at
+        # 2304); on an H100 no other count was 3% faster summed over an M's
+        # lengths (time_kernels.py --route-dense times every C that fits)
+        r2c_blue_launch(x, out, radix_mid_cols(chirp_m(r2c_mid_len(n)), nb, cols,
+                                               num_sms(x.device)))
+        r2c_dense_mid.chirp_launches += 1
+    else:
+        r2c_dense_launch(x, out)
     r2c_dense_mid.launches += 1
     return out
 
 
+def r2c_dense_launch(x: torch.Tensor, out: torch.Tensor) -> None:
+    """Launch kernel 20's dense product on a (B, n, L) float32 CUDA tensor x
+    into the (B, n//2+1, L) complex64 out (``csrc/rfft_dense.cu``); counts
+    nothing."""
+    n = x.shape[1]
+    _launch_dense("ndfft_r2c_dense_mid", _device_dense("r2c", n, 1.0, x.device), x, out, n,
+                  2 * (n // 2 + 1))
+
+
 r2c_dense_mid.launches = 0
 r2c_dense_mid.radix_launches = 0
+r2c_dense_mid.chirp_launches = 0
 
 
 def c2r_dense_radix(n: int) -> bool:
@@ -976,36 +1087,85 @@ def r2c_packed_dense_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.complex(y[:, :m], y[:, m:])
 
 
+PACKED_IDLE_LANES = 16  # kernel 15's dense rows leave at most 1 lane in 16 idle
+
+
+def packed_dense_rows(h: int, count: int, sms: int) -> int:
+    """Rows a block of kernel 15's dense rows (h <= 256) on the radix row
+    core: :func:`~.fft.radix_block`'s small-tile count (RADIX_SMALL_TILE
+    elements, kernel 8's at n <= 256), raised to the fewest rows whose
+    r ceil(h / 16) threads leave at most one lane in PACKED_IDLE_LANES of
+    the block's warps idle (within RADIX_MAX_THREADS; else the small-tile
+    count), halved while the grid would leave SMs idle. (On an H100 the
+    small-tile count left up to 45% of the lanes idle at h = 37, 97, 100 and
+    200 and ran 1.05-1.7x slower there than this count (``time_kernels.py
+    --scan-rows``); summed over the 229 h it took 31.9 ms against this
+    count's 29.9 at 2^23 reals a call (``--route-dense``).)"""
+    tr = -(-h // 16)
+    small = max(1, min(RADIX_SMALL_TILE // h, RADIX_MAX_THREADS // tr))
+    rows = next((r for r in range(small, RADIX_MAX_THREADS // tr + 1)
+                 if idle_lanes(r * tr) <= 1 / PACKED_IDLE_LANES), small)
+    return spread_rows(rows, count, sms)
+
+
+# the half lengths with a plan where kernel 15's dense product beat its
+# radix row core on an H100 (1.18x and 1.19x in two scans of
+# time_kernels.py --route-dense; every other h was at most 0.96x)
+PACKED_DENSE_FASTER = (31,)
+
+
+def packed_dense_radix(h: int) -> bool:
+    """Kernel 15's wrapper :func:`r2c_packed_dense` runs the radix row core
+    at half length h: :func:`~.fft.radix_plan` has h and h is not in
+    PACKED_DENSE_FASTER (229 of the 254 h <= 256 that are not 128 * F; h =
+    1, 31 and the 23 primes 131 ... 251 keep the dense product)."""
+    return radix_plan(h) is not None and h not in PACKED_DENSE_FASTER
+
+
 def r2c_packed_dense(x: torch.Tensor) -> torch.Tensor:
-    """R2C of the rows of a (T, n) float32 tensor -> (T, n/2+1) complex64 as
-    one real product, n even, n <= 512. A CPU tensor runs the plain version;
-    a CUDA tensor launches kernel 15's dense product or raises."""
+    """R2C of the rows of a (T, n) float32 tensor -> (T, n/2+1) complex64,
+    n even, n <= 512. Where :func:`packed_dense_radix` holds h = n/2, a CPU
+    tensor runs :func:`r2c_radix_plain` and a CUDA tensor launches kernel
+    15 on the radix row core with the unpack epilogue (counted in
+    ``radix_launches`` as well); at the other h the real product
+    (:func:`r2c_packed_dense_plain`). Anything else raises."""
     _check_packed(x, "r2c_packed_dense")
     t, n = x.shape
     if n % 2 or not 2 <= n <= 2 * PACKED_DENSE_MAX_H:
         raise ValueError(f"r2c_packed_dense: n={n} is not even in 2 ... "
                          f"{2 * PACKED_DENSE_MAX_H}")
+    radix = packed_dense_radix(n // 2)
     if x.device.type == "cpu":
-        return r2c_packed_dense_plain(x)
+        return r2c_radix_plain(x) if radix else r2c_packed_dense_plain(x)
     if x.device.type != "cuda":
         raise ValueError(f"r2c_packed_dense: unsupported device {x.device}")
+    if radix:
+        return _r2c_rows(x, r2c_packed_dense, packed_dense_rows(n // 2, t, num_sms(x.device)))
     check_cuda(x, torch.float32, "r2c_packed_dense")
-    m = n // 2 + 1
-    out = torch.empty((t, m), dtype=torch.complex64, device=x.device)
+    out = torch.empty((t, n // 2 + 1), dtype=torch.complex64, device=x.device)
     if t == 0:
         return out
+    r2c_dense_rows_launch(x, out)
+    r2c_packed_dense.launches += 1
+    return out
+
+
+def r2c_dense_rows_launch(x: torch.Tensor, out: torch.Tensor) -> None:
+    """Launch kernel 15's dense product on the (T, n) float32 rows of a CUDA
+    tensor x into the (T, n/2+1) complex64 out (``csrc/rfft_dense.cu``, kernel
+    20's table); counts nothing."""
+    t, n = x.shape
     w = _device_dense("r2c", n, 1.0, x.device)
-    tm = dense_tile(2 * m, 1, t, num_sms(x.device))
+    tm = dense_tile(2 * (n // 2 + 1), 1, t, num_sms(x.device))
     with torch.cuda.device(x.device):
         err = _build.lib().ndfft_r2c_dense_rows(
             w.data_ptr(), x.data_ptr(), out.data_ptr(), t, n, tm,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "r2c_packed_dense")
-    r2c_packed_dense.launches += 1
-    return out
 
 
 r2c_packed_dense.launches = 0
+r2c_packed_dense.radix_launches = 0
 
 
 r2c_packed_generic_plain = r2c_radix_plain  # kernel 15 at a generic h

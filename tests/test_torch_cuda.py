@@ -232,7 +232,7 @@ def test_mid_rfft_kernels_match_plain(dev):
     for shape in ((1, 128, 128), (2, 201, 130), (1, 264, 264), (1, 1100, 130), (2, 262, 130)):
         nb, n, cols = shape
         x = torch.randn(*shape, generator=g, device=dev)
-        plain = krfft.r2c_mid_radix_plain if krfft.r2c_mid_radix(n) else krfft.r2c_dense_mid_plain
+        plain = krfft._R2C_DENSE_PLAIN[krfft.r2c_dense_form(n)]
         assert _rel(krfft.r2c_dense_mid(x), plain(x)) <= TOL
         s = torch.view_as_complex(torch.randn(nb, n // 2 + 1, cols, 2, generator=g, device=dev))
         plain = (krfft.c2r_dense_radix_plain if krfft.c2r_dense_radix(n)
@@ -274,23 +274,27 @@ def test_packed_r2c_kernels_match_plain(dev):
         if krfft.packed_core(h):
             got, want = krfft.r2c_packed(x), krfft.r2c_packed_plain(x)
         else:
-            got, want = krfft.r2c_packed_dense(x), krfft.r2c_packed_dense_plain(x)
+            got = krfft.r2c_packed_dense(x)
+            want = (krfft.r2c_radix_plain if krfft.packed_dense_radix(h)
+                    else krfft.r2c_packed_dense_plain)(x)
         assert got.shape == (t, h + 1)
         assert _rel(got, want) <= 2e-6
 
 
 def test_real_step_128_cubed_runs_on_the_kernels(dev):
-    """The 128^3 real step with the real axis last: K15's dense product,
-    K8 on the moved axis 1 (65 < 128 columns), K4 along axis 0, and K8
-    after the C2R's Hermitian extension."""
+    """The 128^3 real step with the real axis last: K15's dense rows on the
+    radix row core (h = 64), K8 on the moved axis 1 (65 < 128 columns), K4
+    along axis 0, and K8 after the C2R's Hermitian extension."""
     g = torch.Generator(device=dev).manual_seed(7)
     x = torch.randn(128, 128, 128, generator=g, device=dev)
     hr, hc = nd.R2cFftHandler(128), nd.FftHandler(128)
     fns = (krfft.r2c_packed_dense, kfft.c2c_dense_rows, kfft.c2c_dense_mid)
     before = [f.launches for f in fns]
+    radix = krfft.r2c_packed_dense.radix_launches
     v = nd.ndfft(nd.ndfft(nd.ndfft_r2c(x, hr, axis=2), hc, axis=1), hc, axis=0)
     back = nd.ndifft_r2c(nd.ndifft(nd.ndifft(v, hc, axis=0), hc, axis=1), hr, axis=2)
     assert [f.launches - b for f, b in zip(fns, before)] == [1, 3, 2]
+    assert krfft.r2c_packed_dense.radix_launches - radix == 1
     assert _rel(v.to(torch.complex128), torch.fft.rfftn(x.double())) <= 1e-5
     assert _rel(back, x) <= 1e-5
 
@@ -803,8 +807,9 @@ def test_r2c_mid_radix_kernel_matches_plain(dev):
     stage (129, 1095), 256 and 264, K16's h = 256, 384 (F = 3), 640 and
     20480 (one column a tile, 40 elements a thread), ragged L and B > 1;
     then through the wrappers, with their counters, an input whose rows do
-    not start on an 8-byte boundary, zero sizes, and kernel 20's dense
-    product at a length without a plan (262 = 2 * 131)."""
+    not start on an 8-byte boundary, zero sizes, and kernel 20 at a length
+    without a plan (262 = 2 * 131, the kernel rfft.py::r2c_dense_form
+    names)."""
     g = torch.Generator(device=dev).manual_seed(30)
     shapes = ((3, 4, 129), (2, 5, 257), (1, 129, 130), (2, 256, 200), (1, 264, 264),
               (1, 1095, 33), (2, 512, 130), (1, 768, 257), (1, 1280, 129), (1, 40960, 3))
@@ -845,8 +850,62 @@ def test_r2c_mid_radix_kernel_matches_plain(dev):
             zip((krfft.r2c_mid, krfft.r2c_dense_mid), before)] == [(c, c) for c in calls]
     x = torch.randn(2, 262, 130, generator=g, device=dev)
     assert not krfft.r2c_mid_radix(262)
-    assert _rel(krfft.r2c_dense_mid(x), krfft.r2c_dense_mid_plain(x)) <= TOL
+    plain = krfft._R2C_DENSE_PLAIN[krfft.r2c_dense_form(262)]
+    assert _rel(krfft.r2c_dense_mid(x), plain(x)) <= TOL
     assert (krfft.r2c_dense_mid.launches - krfft.r2c_dense_mid.radix_launches) - dense == 1
+
+
+def test_r2c_chirp_kernel_matches_plain(dev):
+    """Kernel 20's real-input chirp-z on kernel 11's column tile: even n
+    (the chirp length n/2 and the unpack) and odd n (the chirp length n and
+    the first (n + 1)/2 bins), at each column count C that fits, ragged L;
+    through the wrapper where rfft.py::r2c_dense_form names it, each launch
+    counted in chirp_launches."""
+    g = torch.Generator(device=dev).manual_seed(31)
+    for shape in ((2, 262, 130), (1, 131, 257), (1, 1094, 33), (1, 1097, 17), (3, 5, 129),
+                  (2, 4, 65)):
+        nb, n, cols = shape
+        x = torch.randn(*shape, generator=g, device=dev)
+        want = krfft.r2c_blue_plain(x)
+        mk = kfft.chirp_m(krfft.r2c_mid_len(n))
+        for c in (1, 2, 4, 8, 16):
+            if mk * c > kfft.RADIX_MAX_ELEMS or kfft.radix_cols_threads(mk, c) > (
+                    kfft.RADIX_MAX_THREADS if mk * c <= kfft.RADIX_WIDE_N else 512):
+                continue
+            got = torch.full((nb, n // 2 + 1, cols), float("nan"), dtype=torch.complex64,
+                             device=dev)
+            krfft.r2c_blue_launch(x, got, c)
+            assert _rel(got, want) <= TOL, (shape, c)
+        assert _rel(want.to(torch.complex128), torch.fft.rfft(x.double(), dim=1)) <= 2e-6
+    chirp = [n for n in range(4, 1101) if krfft.r2c_dense_form(n) == "chirp"]
+    before = (krfft.r2c_dense_mid.launches, krfft.r2c_dense_mid.chirp_launches)
+    for n in chirp[::40]:
+        x = torch.randn(2, n, 130, generator=g, device=dev)
+        assert _rel(krfft.r2c_dense_mid(x), krfft.r2c_blue_plain(x)) <= TOL, n
+    calls = len(chirp[::40])
+    assert (krfft.r2c_dense_mid.launches - before[0],
+            krfft.r2c_dense_mid.chirp_launches - before[1]) == (calls, calls)
+
+
+def test_dense_rows_radix_kernel_matches_plain(dev):
+    """Kernel 15's dense rows on the radix row core (the unpack epilogue),
+    many rows a block at h = 2, 3 and 5, odd h; the dense product at h = 1,
+    31 and the prime 131; launches on the core counted in radix_launches."""
+    g = torch.Generator(device=dev).manual_seed(32)
+    before = (krfft.r2c_packed_dense.launches, krfft.r2c_packed_dense.radix_launches)
+    calls = [0, 0]
+    for t, h in ((1001, 2), (777, 3), (4097, 5), (16384, 64), (131, 97), (200, 100),
+                 (65, 250), (129, 1), (300, 131), (129, 31)):
+        x = torch.randn(t, 2 * h, generator=g, device=dev)
+        radix = krfft.packed_dense_radix(h)
+        want = (krfft.r2c_radix_plain if radix else krfft.r2c_packed_dense_plain)(x)
+        assert _rel(krfft.r2c_packed_dense(x), want) <= 2e-6, h
+        for rows in (1, 3) if radix else ():
+            assert _rel(krfft.r2c_radix_launch(x, "rows", rows), want) <= 2e-6, (h, rows)
+        calls[0] += 1
+        calls[1] += radix
+    assert (krfft.r2c_packed_dense.launches - before[0],
+            krfft.r2c_packed_dense.radix_launches - before[1]) == tuple(calls)
 
 
 def test_bluestein_axis1_runs_on_the_radix_column_tile(dev):

@@ -191,19 +191,20 @@ def test_columns_a_tile():
 
 
 def _counts():
-    return [(f.launches, f.radix_launches) for f in (krfft.r2c_mid, krfft.r2c_dense_mid)]
+    return [(f.launches, f.radix_launches, getattr(f, "chirp_launches", 0))
+            for f in (krfft.r2c_mid, krfft.r2c_dense_mid)]
 
 
 @pytest.mark.parametrize("n", [512, 1280, 4, 129, 200, 256, 264, 262, 1097])
 def test_wrappers_on_cpu_run_the_plain_version_of_their_form(n):
-    """r2c_mid at every length and r2c_dense_mid where a plan exists run
-    r2c_mid_radix_plain; r2c_dense_mid at 262 = 2 * 131 and 1097 (prime)
-    runs the dense product's plain version; no launch is counted."""
+    """r2c_mid at every length runs r2c_mid_radix_plain, and r2c_dense_mid
+    the plain version of the kernel that rfft.py::r2c_dense_form names (at
+    262 = 2 * 131 and 1097, prime, no plan exists); no launch is counted."""
     x = torch.from_numpy(_real((2, n, 130), n + 2))
     before = _counts()
     fn = krfft.r2c_mid if n in _k16() else krfft.r2c_dense_mid
-    want = (krfft.r2c_mid_radix_plain if krfft.r2c_mid_radix(n)
-            else krfft.r2c_dense_mid_plain)(x)
+    want = (krfft.r2c_mid_radix_plain if fn is krfft.r2c_mid
+            else krfft._R2C_DENSE_PLAIN[krfft.r2c_dense_form(n)])(x)
     assert torch.equal(fn(x), want)
     assert krfft.r2c_mid_radix(n) == (n not in (262, 1097))
     assert _counts() == before

@@ -53,7 +53,8 @@ With --scan-rows it times instead the radix row core's launches at each
 count of rows a block that fits 256 threads (ms by rows, beside the count
 that fft.py::radix_block picks), over 2^27 elements: the C2C of rows of n
 (kernels 10 and 8) and the R2C of rows of 2h (kernels 2 and 15) at the
-lengths that --scan-n and --scan-h name.
+lengths that --scan-n and --scan-h name; at h <= 256 each count up to 32
+and the count that rfft.py::packed_dense_rows picks as well.
 
 With --scan-cols it times instead kernels 1 and 18 on the radix column
 tile at each column count C that fits (kernel 1 also with the read-only
@@ -87,20 +88,38 @@ kernel 17 on the radix column tile at each column count C that fits
 (512, 257, 512), (1, 641, 1280), (1, 385, 295680), (1, 513, 131072),
 (1, 1025, 65536), (1, 2049, 32768), (1, 4097, 16384) and (1, 10241, 130).
 
-With --route-dense JSON it times instead kernels 21 and 27 at every length
+With --route-dense JSON [--route-kernels K ...] it times instead (the
+kernels K of 21, 27, 20 and 15, all by default) kernels 21 and 27 at every length
 that has a radix plan, on the radix column tile and on the dense product,
-over (1, n, 2^23 / n) reals (kernel 21: the spectrum of that), writes the
-two times by n to JSON and prints the lengths where the dense product was
-faster.
+over (1, n, 2^23 / n) reals (kernel 21: the spectrum of that); kernel 20 at
+every length 4 ... 1100 on the radix column tile (where a plan exists), on
+its chirp-z at each column count C that fits and on the dense product, over
+(1, n, 2^23 / n) reals; and kernel 15 at every half length h <= 256 that is
+not 128 F and has a plan, on the radix row core and on the dense product,
+over (2^23 / 2h, 2h) reals (the radix row core at rfft.py::
+packed_dense_rows's count a block and at fft.py::radix_block's). It writes
+the times by n to JSON and prints,
+for each family, the lengths where another kernel than the route's was
+faster, and the chirp-z's fastest C by convolution length.
 
-With --dense it times instead kernels 21 and 27 at their main shapes, each
-with a digest of its output: kernel 21 (c2r_dense_mid, scale 1/n) at (1,
+With --ptxas it prints instead the registers and spill bytes of every entry
+function of its tree's build (ptxas -v in nvcc.log), to hold two trees'
+kernels against each other.
+
+With --dense it times instead kernels 15, 20, 21 and 27 at their main
+shapes, each with a digest of its output: kernel 15 (r2c_packed_dense) at
+(16384, 128), (200, 200) and (16384, 262) (h = 131, the dense product) and
+kernel 20 (r2c_dense_mid) at (1, 262, 65536), (1, 131, 65536),
+(1, 1094, 7668) and (1, 1097, 7647), beside torch.fft.rfft, each also as
+device time alone (the replays of a CUDA graph of 20 calls, "_device");
+kernel 21 (c2r_dense_mid, scale 1/n) at (1,
 129, 65536), (1, 65, 65536) (odd n = 129), (1, 128, 32768) (odd n = 255),
 (1, 133, 264) and (1, 65, 128) beside torch.fft.irfft, kernel 27
 (dct_dense_mid, scale 2) of types 2 and 3 at (1, 512, 262144) and (1024,
 1024, 1024), of type 1 at (129, 129, 129) and of type 4 at (1, 1024, 1024)
 beside torch.matmul with the scaled DCT matrix; kernels 16, 17, 18 and 20
-(whose column skeleton kernels 21 and 27 share) at their main shapes with
+(whose column skeleton kernels 21 and 27 share) and kernel 11 (whose
+column kernel kernel 20's chirp-z shares) at their main shapes with
 digests; and the paths that run kernels 21 and 27: S3's 1024^3 Neumann
 Poisson solve (nddct2 on axes 2 and 1, ndspectral_dct on axis 0, nddct3
 back) and the 512^3 one (nddct2 on every axis, the division, nddct3 back)
@@ -140,6 +159,8 @@ def main() -> int:
     ap.add_argument("--dense", action="store_true")
     ap.add_argument("--scan-dense", action="store_true")
     ap.add_argument("--route-dense", default=None, metavar="JSON")
+    ap.add_argument("--ptxas", action="store_true")
+    ap.add_argument("--route-kernels", nargs="*", default=[21, 27, 20, 15], type=int)
     ap.add_argument("--cols-n", type=int, nargs="*", default=[])
     ap.add_argument("--cols-h", type=int, nargs="*", default=[])
     ap.add_argument("--scan-n", type=int, nargs="*", default=[
@@ -161,6 +182,8 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
+    if args.ptxas:
+        return ptxas(root)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -194,11 +217,19 @@ def main() -> int:
                     rows_ms = {r: ms(lambda: kfft._radix_launch(x, -1, None, "scan", r))
                                for r in range(1, min(16, 256 // tr) + 1)}
                 else:
+                    # at h <= 256 also up to 32 rows, and the counts of
+                    # radix_block and of kernel 15's dense rows
                     x = torch.randn(t, 2 * n, generator=gen, device=dev)
+                    counts = set(range(1, min(16, 256 // tr) + 1))
+                    if n <= 256:
+                        counts |= set(range(1, min(32, 256 // tr) + 1)) | {
+                            kfft.radix_block(n, t, sms), krfft.packed_dense_rows(n, t, sms)}
                     rows_ms = {r: ms(lambda: krfft.r2c_radix_launch(x, "scan", r))
-                               for r in range(1, min(16, 256 // tr) + 1)}
+                               for r in sorted(counts)}
                 scan[f"{kind}_{t}x{n}"] = {"ms_by_rows_per_block": rows_ms,
                                            "chosen": kfft.radix_block(n, t, sms)}
+                if kind == "r2c" and n <= 256:
+                    scan[f"{kind}_{t}x{n}"]["dense_rows"] = krfft.packed_dense_rows(n, t, sms)
                 del x
         print(json.dumps({"root": root, "card": card, "rows_scan": scan}), flush=True)
         return 0
@@ -217,7 +248,7 @@ def main() -> int:
         return scan_dense(torch, kfft, krfft, kdct, dev, gen, crandn, ms, card, root)
     if args.route_dense:
         return route_dense(torch, kfft, krfft, kdct, dev, gen, crandn, ms, card, root,
-                           args.route_dense)
+                           args.route_dense, args.route_kernels)
     out = {}
     if args.dense:
         dense(torch, nd, krfft, kdct, dev, gen, crandn, ms, args.reps_big, out)
@@ -433,6 +464,33 @@ def scan_c2r(torch, kfft, krfft, dev, crandn, ms, card, root):
     return 0
 
 
+def graph_ms(torch, fn, calls: int = 20, reps: int = 20):
+    """The device time of one fn(), without the host's time between
+    launches: the median over ``reps`` replays of a CUDA graph of ``calls``
+    calls, over ``calls``; None where the capture fails."""
+    try:
+        fn()        # tables and plans are built before the capture
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(calls):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+    except RuntimeError:
+        return None
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
+
 def digest(t) -> str:
     """sha256 of a tensor's bytes, the first 16 hex digits."""
     import hashlib
@@ -537,9 +595,35 @@ def dense(torch, nd, krfft, kdct, dev, gen, crandn, ms, reps_big, out):
     """Kernels 21 and 27 at their main shapes, kernels 16, 17, 18 and 20
     with digests, and the paths that run kernels 21 and 27."""
     from chip_smoke import makhoul_dct     # the float32 torch.fft yardstick
+    from ndrustfft_tpu_torch.ops.hopper import fft as kfft
 
     def key(name, shape, *tags):
         return "_".join([name, "x".join(map(str, shape)), *map(str, tags)])
+
+    # kernels 15 and 20 at their main shapes: the radix row core (h = 64,
+    # 100) and the dense product (h = 131); the chirp-z at 262, 1094 and
+    # 1097 and the dense product at 131 (2^23 reals); each also as device
+    # time alone (graph_ms), beside the same for torch.fft.rfft
+    for name, fn, shapes in (
+            ("r2c_packed_dense", krfft.r2c_packed_dense, ((16384, 128), (200, 200), (16384, 262))),
+            ("r2c_dense_mid", krfft.r2c_dense_mid,
+             ((1, 262, 65536), (1, 131, 65536), (1, 1094, 7668), (1, 1097, 7647)))):
+        for shape in shapes:
+            x = torch.randn(*shape, generator=gen, device=dev)
+            dim = -1 if len(shape) == 2 else 1
+            out[key(name, shape)] = (ms(lambda: fn(x)), ms(lambda: torch.fft.rfft(x, dim=dim)),
+                                     digest(fn(x)))
+            out[key(name, shape, "device")] = (graph_ms(torch, lambda: fn(x)),
+                                               graph_ms(torch, lambda: torch.fft.rfft(x, dim=dim)))
+            del x
+    # kernel 11, whose column kernel kernel 20's chirp-z shares
+    for shape in ((1, 509, 259081), (1, 1031, 1024)):
+        z = crandn(*shape)
+        out[key("c2c_blue_mid", shape)] = (ms(lambda: kfft.c2c_blue_mid(z, -1)),
+                                           ms(lambda: torch.fft.fft(z, dim=1)),
+                                           digest(kfft.c2c_blue_mid(z, -1)))
+        del z
+    torch.cuda.empty_cache()
 
     for shape, n in (((1, 129, 65536), 256), ((1, 65, 65536), 129), ((1, 128, 32768), 255),
                      ((1, 133, 264), 264), ((1, 65, 128), 128)):
@@ -665,14 +749,16 @@ def scan_dense(torch, kfft, krfft, kdct, dev, gen, crandn, ms, card, root):
     return 0
 
 
-def route_dense(torch, kfft, krfft, kdct, dev, gen, crandn, ms, card, root, path):
+def route_dense(torch, kfft, krfft, kdct, dev, gen, crandn, ms, card, root, path, kernels):
     """Kernels 21 and 27 at every length with a radix plan, on the radix
     column tile (the wrapper's column count) and on the dense product, over
-    about 2^23 reals a call: ms of each by n, written to ``path``; prints
-    each family's lengths where the dense product was faster."""
+    about 2^23 reals a call; kernel 20 on each of its kernels and kernel
+    15's dense rows on both (the kernels of ``kernels`` alone): ms of each
+    by n, written to ``path``; prints each family's lengths where another
+    kernel than the route's was faster."""
     sms = kfft.num_sms(dev)
     scan = {}
-    for n in range(4, 1101):
+    for n in range(4, 1101) if 21 in kernels else ():
         if not krfft.r2c_mid_radix(n):
             continue
         cols = max(64, (1 << 23) // n)
@@ -683,7 +769,7 @@ def route_dense(torch, kfft, krfft, kdct, dev, gen, crandn, ms, card, root, path
             ms(lambda: krfft.c2r_dense_radix_launch(s, y, n, 1.0 / n, c), 10),
             ms(lambda: krfft.c2r_dense_launch(s, y, n, 1.0 / n), 10))
         del s, y
-    for t in (1, 2, 3):
+    for t in (1, 2, 3) if 27 in kernels else ():
         for n in range(3, 1101):
             if kdct.dct_radix_len(n, t) is None:
                 continue
@@ -695,12 +781,81 @@ def route_dense(torch, kfft, krfft, kdct, dev, gen, crandn, ms, card, root, path
                 ms(lambda: kdct.dct_radix_launch(x, y, t, 2.0, c), 10),
                 ms(lambda: kdct.dct_dense_launch(x, y, t, 2.0), 10))
             del x, y
+    # kernel 20: the radix column tile (where a plan exists), the chirp-z at
+    # each column count C that fits, the dense product; kernel 15's rows:
+    # the radix row core (radix_block's rows) and the dense product
+    k20 = {}
+    for n in range(4, 1101) if 20 in kernels else ():
+        cols = max(64, (1 << 23) // n)
+        x = torch.randn(1, n, cols, generator=gen, device=dev)
+        y = torch.empty((1, n // 2 + 1, cols), dtype=torch.complex64, device=dev)
+        mk = kfft.chirp_m(krfft.r2c_mid_len(n))
+        row = {"M": mk, "chirp_by_cols": {
+            c: ms(lambda: krfft.r2c_blue_launch(x, y, c), 10)
+            for c in (1, 2, 4, 8, 16, 32) if tile_fits(kfft, mk, c)},
+            "chirp_cols": kfft.radix_mid_cols(mk, 1, cols, sms),
+            "dense": ms(lambda: krfft.r2c_dense_launch(x, y), 10)}
+        if krfft.r2c_mid_radix(n):
+            c = krfft.r2c_mid_cols(n, 1, cols, sms)
+            row["radix"] = ms(lambda: krfft.r2c_mid_radix_launch(x, y, c), 10)
+        row["chirp"] = row["chirp_by_cols"][row["chirp_cols"]]
+        k20[n] = row
+        del x, y
+    k15 = {}
+    for h in range(2, 257) if 15 in kernels else ():
+        if kfft.radix_plan(h) is None or krfft.packed_core(h):
+            continue
+        x = torch.randn((1 << 23) // (2 * h), 2 * h, generator=gen, device=dev)
+        y = torch.empty((x.shape[0], h + 1), dtype=torch.complex64, device=dev)
+        rows = krfft.packed_dense_rows(h, x.shape[0], sms)
+        small = kfft.radix_block(h, x.shape[0], sms)
+        k15[h] = {"radix": ms(lambda: krfft.r2c_radix_launch(x, "scan", rows), 10),
+                  "radix_small_tile": ms(lambda: krfft.r2c_radix_launch(x, "scan", small), 10),
+                  "dense": ms(lambda: krfft.r2c_dense_rows_launch(x, y), 10)}
+        del x, y
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
-        json.dump({"root": root, "card": card, "radix_ms_and_dense_ms": scan}, f)
+        json.dump({"root": root, "card": card, "radix_ms_and_dense_ms": scan,
+                   "r2c_dense_mid": k20, "r2c_packed_dense": k15}, f)
+
+    def fastest(row):
+        return min((k for k in ("radix", "chirp", "dense") if k in row), key=row.get)
+
+    best_c = {}
+    for row in k20.values():
+        best_c.setdefault(row["M"], []).append(min(row["chirp_by_cols"],
+                                                   key=row["chirp_by_cols"].get))
     print(json.dumps({"root": root, "card": card, "dense_faster": {
         name: {n: ts for n, ts in by.items() if ts[1] < ts[0]} for name, by in scan.items()},
-        "lengths": {name: len(by) for name, by in scan.items()}}), flush=True)
+        "lengths": {name: len(by) for name, by in scan.items()},
+        "r2c_dense_mid_off_route": {
+            n: {"route": krfft.r2c_dense_form(n), "fastest": fastest(row)}
+            for n, row in k20.items() if fastest(row) != krfft.r2c_dense_form(n)},
+        "r2c_dense_mid_chirp_best_cols_by_M": best_c,
+        "r2c_packed_dense_off_route": {
+            h: row for h, row in k15.items()
+            if (row["radix"] < row["dense"]) != krfft.packed_dense_radix(h)},
+        "r2c_packed_dense_ms_by_rows_rule": {
+            "packed_dense_rows": sum(row["radix"] for row in k15.values()),
+            "radix_block": sum(row["radix_small_tile"] for row in k15.values())}}), flush=True)
+    return 0
+
+
+def ptxas(root) -> int:
+    """Build the tree's library and print each entry function's registers
+    and spill bytes from ptxas -v (nvcc.log)."""
+    import re
+
+    from ndrustfft_tpu_torch.ops.hopper import _build
+
+    log = (_build.build().parent / "nvcc.log").read_text()
+    entries = {}
+    for entry in log.split("Compiling entry function '")[1:]:
+        regs = re.search(r"Used (\d+) registers", entry)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
+        entries[entry.split("'")[0]] = [int(regs.group(1)) if regs else None,
+                                        sum(map(int, spill.groups())) if spill else 0]
+    print(json.dumps({"root": root, "ptxas": entries}), flush=True)
     return 0
 
 
