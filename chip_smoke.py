@@ -8,7 +8,8 @@ without the final line):
   1. require a CUDA device; print the card's name and power limit;
   2. build the CUDA kernels from ndrustfft_tpu_torch/csrc (nvcc, sm_90a);
   3. each kernel against its plain PyTorch version on the card, at the
-     slices' shapes (ragged column and row tiles included);
+     slices' shapes (ragged column and row tiles included; the chirp-z
+     forms of kernels 20, 21 and 15 at each column or row count a tile);
   4. the main paths through the public functions, each with every launch
      counter set to 0 just before it and read just after; the counters
      must account for every leg and the torch engine must not run:
@@ -221,11 +222,11 @@ without the final line):
         ignored, against torch.fft.irfft in float64 (oracle only), within
         1e-6 of the oracle's peak;
      v. the census of kernels 21 and 27: ndifft_r2c along axis 1 of
-        (1, n/2 + 1, 130) at each 4 <= n <= 1100 (the 710 on the radix
-        column tile, with a plan of n/2 at even n and of n at odd n: 707
-        on kernel 21, 512, 768 and 1024 on kernel 17; the 326 without a
-        plan and the 61 odd n where fft.dense_beats_radix holds on kernel
-        21's dense product, within TOL_KERNEL), against torch.fft.irfft in
+        (1, n/2 + 1, 130) at each 4 <= n <= 1100 (the 701 on the radix
+        column tile, with a plan of n/2 at even n and of n at odd n: 698
+        on kernel 21, 512, 768 and 1024 on kernel 17; the 396 others on
+        kernel 21's chirp-z or dense product as rfft.py::c2r_dense_form
+        names, the product within TOL_KERNEL), against torch.fft.irfft in
         float64, and nddct1/2/3 along axis 1 of (1, n, 130) at each of the
         671, 439 and 439 lengths that kernel 27 takes on the radix column
         tile, against scipy.fft.dct in float64 (oracles only), within 1e-6
@@ -233,16 +234,21 @@ without the final line):
      w. kernel 15's census at its dense rows: r2c_packed_dense over
         (128, 2h) at each of the 254 half lengths h <= 256 that are not
         128 F (229 on the radix row core, h = 1, 31 and the primes 131 ...
-        251 on the dense product), against torch.fft.rfft in float64 (oracle
-        only): the radix row core within 1e-6 of the oracle's peak, the
-        dense product within TOL_KERNEL;
+        251 on the chirp-z), against torch.fft.rfft in float64 (oracle
+        only), within 1e-6 of the oracle's peak;
   5. times with CUDA events (median over --reps runs after warm-up): each
      kernel against its plain version and, where one PyTorch call computes
      the same function, that call (the yardstick, never on the port's
      path), kernel 20's chirp-z at (1, 262, 65536), (1, 131, 65536),
      (1, 1094, 7668) and (1, 1097, 7647) with each column count C beside
-     torch.fft.rfft, and kernel 15's dense rows at (16384, 128), (200, 200)
-     and (16384, 262); the steps against torch.fft.rfftn / irfftn, the DCT pair and
+     torch.fft.rfft, kernel 21's chirp-z at (1, 132, 65536) and
+     (1, 548, 7668) (n = 262, 1094) and kernel 15's rows on it at
+     (16384, 262) and (16384, 502) with each column (row) count C beside
+     torch.fft (kernel 21 also beside its dense product), and as device
+     time alone (a CUDA graph of 20 calls), and kernel 15's dense rows at
+     (16384, 128),
+     (200, 200), (16384, 262), (16384, 502) and (16384, 62); the steps
+     against torch.fft.rfftn / irfftn, the DCT pair and
      Poisson solve against the same compositions through a float32
      torch.fft Makhoul lowering, the complex paths against
      torch.fft.fftn / ifftn, the real-axis-first steps against
@@ -303,11 +309,11 @@ radix_launches as well) and kernel 15's generic form
 ``c2r_dense_mid_radix``, ``dct_dense_mid_radix``; radix_launches) and the
 dense product at the other lengths and types (``r2c_dense_mid``,
 ``c2r_dense_mid``, ``dct_dense_mid``), kernel 27's rows with each timed DCT
-type under ``by_type``, kernel 20 a third, its chirp-z
-(``r2c_dense_mid_chirp``; chirp_launches, with the bound of its two
-length-M FFTs), and kernel 15's dense rows two: the radix row core
-(``r2c_packed_dense_radix``; radix_launches) and the dense product
-(``r2c_packed_dense``); and
+type under ``by_type``, kernels 20 and 21 a third, their chirp-z
+(``r2c_dense_mid_chirp``, ``c2r_dense_mid_chirp``; chirp_launches, with the
+bound of the two length-M FFTs), and kernel 15's dense rows two: the radix
+row core (``r2c_packed_dense_radix``; radix_launches) and the chirp-z
+(``r2c_packed_dense_chirp``; chirp_launches); and
 kernels 23 to 26 and 29 three: the fixed core, the wide core's half length
 and the n-point form (npoint_launches); kernel 7 three: the fixed core, the
 wide core and the dense body (dense_launches); kernel 28 three: the fixed
@@ -331,14 +337,15 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 TOL_KERNEL = 5e-6    # kernel vs plain, relative to max |plain| (both float32)
-TOL_PACKED = 2e-6    # kernel 15 (core, dense) vs plain: sums of at most 2048 terms
+TOL_PACKED = 2e-6    # kernel 15 (core, chirp-z) vs plain: sums of at most 2048 terms
 TOL_STEP = 1e-5      # step vs float64 oracle and round trip, relative
 # the forms that a wrapper counts apart beside ``launches`` (which counts
 # every launch): ``wide_launches``, for the DCT-II/III kernels
 # ``npoint_launches``, for kernel 7 ``dense_launches``, for kernel 28
 # ``long_launches``, for kernels 1, 10, 2, 3, 15 (``r2c_packed`` and
 # ``r2c_packed_dense``), 11, 8 (``c2c_dense_rows``), 6, 4, 16, 17, 18, 20, 21
-# and 27 ``radix_launches`` and for kernel 20 ``chirp_launches``
+# and 27 ``radix_launches`` and for kernels 20, 21 and 15's dense rows
+# ``chirp_launches``
 FORMS = ("wide", "npoint", "dense", "long", "radix", "chirp")
 # the wrappers whose every launch is on the radix core: their
 # ``radix_launches`` equal their ``launches``
@@ -503,10 +510,6 @@ def work(name: str, shape, length_m: bool = False, mult=None, n=None, dct_type=2
         return (8 * transforms * (h + 1) + 8 * transforms * h
                 + 8 * len(radix_consts(h, 1)[0]) + 16 * h,
                 2.5 * 2 * h * math.log2(2 * h) * transforms)
-    if name == "r2c_packed_dense":
-        t, n = shape            # kernel 20's (n, 2m) float32 table
-        m = n // 2 + 1
-        return 4 * t * n + 8 * t * m + 4 * n * 2 * m, 2.5 * n * math.log2(n) * t
     if name == "dct_dense_mid":
         # the dense product: x in, y out and its (n, n) table; the function
         # needs a real FFT's operations per column, not the product's 2 n^2
@@ -554,19 +557,26 @@ def work(name: str, shape, length_m: bool = False, mult=None, n=None, dct_type=2
         outputs = math.prod(shape) // n     # the radix table: n entries and the prime rows
         return 16 * outputs * n + 8 * len(radix_consts(n, -1)[0]), 5 * n * math.log2(n) * outputs
     if name.endswith("_chirp"):
-        # K20's chirp-z: (B, n, L) float32 in, (B, n/2 + 1, L) complex64 out;
+        # the real-input chirp-z: K20's (B, n, L) float32 in, (B, n/2 + 1, L)
+        # complex64 out; K21's the other way ((B, m, L) in, ``n`` its real
+        # length); K15's rows (T, 2h) float32 in, (T, h + 1) out. Each reads
         # the chirp of its chirp length (h = n/2 at even n, n at odd n), H
-        # and the radix table of M and, at even n, the unpack twiddle; the
-        # function's 2.5 n log2 n per column, or (length_m) its two complex
-        # FFTs of length M
+        # and the radix table of M and, at even n, the unpack twiddle (K21:
+        # its (h, 4) ab rows); the function's 2.5 n log2 n per transform, or
+        # (length_m) its two complex FFTs of length M
         from ndrustfft_tpu_torch.ops.hopper.fft import chirp_m, radix_consts
-        b, n, cols = shape
+        if name == "r2c_packed_dense_chirp":
+            transforms, n = shape
+        else:
+            b, w, cols = shape
+            transforms = b * cols
+            n = (n or 2 * (w - 1)) if name.startswith("c2r") else w
         length = n if n % 2 else n // 2
         mk = chirp_m(length)
         tables = (8 * length + 8 * mk + 8 * len(radix_consts(mk, -1)[0])
-                  + (0 if n % 2 else 8 * length))
+                  + (0 if n % 2 else (16 if name.startswith("c2r") else 8) * length))
         flops = 2 * 5 * mk * math.log2(mk) if length_m else 2.5 * n * math.log2(n)
-        return 4 * b * n * cols + 8 * b * (n // 2 + 1) * cols + tables, flops * b * cols
+        return (4 * n + 8 * (n // 2 + 1)) * transforms + tables, flops * transforms
     if name in ("r2c_nat", "r2c_packed", "r2c_packed_generic", "r2c_packed_dense_radix"):
         from ndrustfft_tpu_torch.ops.hopper.fft import radix_consts
         t, n = shape            # the radix table of h, and the unpack twiddle
@@ -614,6 +624,35 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def graph_ms(fn, calls: int = 20, reps: int = 20):
+    """The device time of one fn(), without the host's time between
+    launches: the median over ``reps`` replays of a CUDA graph of ``calls``
+    calls, over ``calls``; None where the capture fails."""
+    import torch
+
+    try:
+        fn()        # tables and plans are built before the capture
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(calls):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+    except RuntimeError:
+        return None
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
 
 
@@ -694,10 +733,11 @@ def main() -> int:
             "c2c_rows": 0.0, "c2c_dense_rows": 0.0, "c2c_dense_mid": 0.0,
             "r2c_mid": 0.0, "c2r_mid": 0.0, "r2c_dense_mid": 0.0, "c2r_dense_mid": 0.0,
             "c2r_dense_mid_radix": 0.0, "dct_dense_mid_radix": 0.0,
-            "r2c_packed": 0.0, "r2c_packed_dense": 0.0, "c2c_generic_rows": 0.0,
+            "r2c_packed": 0.0, "c2c_generic_rows": 0.0,
             "c2c_generic_mid": 0.0, "r2c_packed_generic": 0.0,
             "r2c_dense_mid_radix": 0.0, "r2c_dense_mid_chirp": 0.0,
-            "r2c_packed_dense_radix": 0.0,
+            "c2r_dense_mid_chirp": 0.0, "r2c_packed_dense_radix": 0.0,
+            "r2c_packed_dense_chirp": 0.0,
             "dct2_nat_wide": 0.0, "dct3_nat_wide": 0.0, "dct2_nat_npoint": 0.0,
             "dct3_nat_npoint": 0.0, "dct2_mid": 0.0, "dct3_mid": 0.0, "dct2_mid_wide": 0.0,
             "dct3_mid_wide": 0.0, "dct2_mid_npoint": 0.0, "dct3_mid_npoint": 0.0,
@@ -893,6 +933,11 @@ def main() -> int:
         return elems <= kfft.RADIX_MAX_ELEMS and kfft.radix_cols_threads(n, c) <= (
             kfft.RADIX_MAX_THREADS if elems <= kfft.RADIX_WIDE_N else 2 * kfft.RADIX_MAX_THREADS)
 
+    def tile16_fits(n, c):
+        """A column tile in the 16-element form (kernels 21 and 15's chirp-z
+        take no other)."""
+        return n * c <= kfft.RADIX_WIDE_N and tile_fits(n, c)
+
     def blue_launch(x, y, sign, scale, c):
         a, h = kfft._device_blue(x.shape[1], sign, dev)
         kfft.blue_radix_launch(x, y, a, h, scale, c)
@@ -984,6 +1029,63 @@ def main() -> int:
                  cols_per_tile=c, rel_err=rel)
             if not rel <= TOL_KERNEL:
                 raise AssertionError(f"r2c_dense_mid_chirp {shape} C {c}: {rel}")
+        del x, y, ref
+
+    # kernel 21's chirp-z (kernel 11's column kernel with kernel 17's load
+    # and inverse unpack as its prologue at even n, the Hermitian extension
+    # at odd n, and a real store) at each column count C that phase 5 times
+    # (the wrapper takes fft.py::radix_mid_cols's at M): even n (262, 1094)
+    # and odd n (263, 449, 1099, 5), the main paths' spectra (1, 132, 65536)
+    # and (1, 548, 7668), ragged L, the scales 1/n and None; the spectra
+    # carry DC and Nyquist imaginary parts that must be ignored
+    for shape, n in (((2, 132, 130), 262), ((1, 132, 256 * 256), 262), ((1, 132, 65), 263),
+                     ((1, 225, 33), 449), ((2, 548, 130), 1094), ((1, 548, 7668), 1094),
+                     ((1, 550, 33), 1099), ((3, 3, 257), 5)):
+        nb, m, cols = shape
+        sp = crandn(*shape)
+        sp[:, 0] += 100j
+        sp[:, -1] += 100j
+        y = torch.empty((nb, n, cols), device=dev)
+        mk = kfft.chirp_m(krfft.r2c_mid_len(n))
+        for scale in (1.0 / n, None):
+            ref = krfft.c2r_blue_plain(sp, n, scale)
+            for c in (1, 2, 4, 8, 16):
+                if not tile16_fits(mk, c):
+                    continue
+                y.fill_(float("nan"))
+                krfft.c2r_blue_launch(sp, y, n, scale, c)
+                torch.cuda.synchronize()
+                rel = abs_err(y, ref) / float(ref.abs().max())
+                errs["c2r_dense_mid_chirp"] = max(errs["c2r_dense_mid_chirp"], abs_err(y, ref))
+                emit(phase="kernel_vs_plain", kernel="c2r_dense_mid_chirp", shape=shape, n=n,
+                     M=mk, cols_per_tile=c, scale=scale, rel_err=rel)
+                if not rel <= TOL_KERNEL:
+                    raise AssertionError(f"c2r_dense_mid_chirp {shape} n {n} C {c}: {rel}")
+            del ref
+        del sp, y
+
+    # kernel 15's rows at a prime half length on the chirp-z (kernel 20's
+    # even form, the tile's columns consecutive rows) at each count of rows
+    # a tile that phase 5 times (the wrapper takes rfft.py::
+    # packed_blue_rows's): h = 131 at the main path's (16384, 262) and
+    # ragged counts, 173, 211 and 251
+    for t, h in ((300, 131), (128 * 128, 131), (129, 173), (65, 211), (7, 251)):
+        x = randn(t, 2 * h)
+        y = torch.empty((t, h + 1), dtype=torch.complex64, device=dev)
+        ref = krfft.r2c_packed_blue_plain(x)
+        mk = kfft.chirp_m(h)
+        for c in (1, 2, 4, 8, 16, 32):
+            if not tile16_fits(mk, c):
+                continue
+            y.fill_(float("nan"))
+            krfft.r2c_blue_rows_launch(x, y, c)
+            torch.cuda.synchronize()
+            rel = abs_err(y, ref) / float(ref.abs().max())
+            errs["r2c_packed_dense_chirp"] = max(errs["r2c_packed_dense_chirp"], abs_err(y, ref))
+            emit(phase="kernel_vs_plain", kernel="r2c_packed_dense_chirp", shape=(t, 2 * h), M=mk,
+                 rows_per_tile=c, rel_err=rel)
+            if not rel <= TOL_PACKED:
+                raise AssertionError(f"r2c_packed_dense_chirp ({t}, {2 * h}) C {c}: {rel}")
         del x, y, ref
 
     # kernel 1 on the radix column tile at each column count C and, at
@@ -1175,9 +1277,9 @@ def main() -> int:
         ``c2r_name``'s wrapper runs at n."""
         if c2r_name == "c2r_mid":
             return c2r_name, krfft.c2r_mid_plain
-        if krfft.c2r_dense_radix(n):
-            return "c2r_dense_mid_radix", krfft.c2r_dense_radix_plain
-        return "c2r_dense_mid", krfft.c2r_dense_mid_plain
+        form = krfft.c2r_dense_form(n)
+        return ("c2r_dense_mid" if form == "dense" else f"c2r_dense_mid_{form}",
+                krfft._C2R_DENSE_PLAIN[form])
 
     rfft_mid_checks = (
         ("r2c_mid", "c2r_mid", krfft.r2c_mid, krfft.c2r_mid,
@@ -1206,8 +1308,8 @@ def main() -> int:
 
     # kernel 15: the core at every factor F = 1 ... 16, the dense rows' wrapper
     # (the radix row core at h <= 256 with a plan, many rows a block at
-    # h = 2, 3, 5; the dense product at h = 1, 31 and the primes 131 ...
-    # 251) and the generic form (the radix row core with the unpack
+    # h = 2, 3, 5; the chirp-z at h = 1, 31 and the primes 131 ... 251) and
+    # the generic form (the radix row core with the unpack
     # epilogue), at ragged row counts and at the main paths' shapes (phases
     # 4e and 4f)
     packed_checks = (
@@ -1229,10 +1331,9 @@ def main() -> int:
     )
     def packed_form(h):
         """The kernels line's name and the plain version of the dense rows'
-        wrapper at half length h."""
-        if krfft.packed_dense_radix(h):
-            return "r2c_packed_dense_radix", krfft.r2c_radix_plain
-        return "r2c_packed_dense", krfft.r2c_packed_dense_plain
+        wrapper at half length h (rfft.py::packed_dense_form)."""
+        form = krfft.packed_dense_form(h)
+        return f"r2c_packed_dense_{form}", krfft._PACKED_DENSE_PLAIN[form]
 
     for name, kern, plain, shapes in packed_checks:
         tol = TOL_KERNEL if name == "r2c_packed_generic" else TOL_PACKED
@@ -1240,13 +1341,12 @@ def main() -> int:
             x = randn(*shape)
             if kern is krfft.r2c_packed_dense:
                 name, plain = packed_form(shape[1] // 2)
-                before = kern.radix_launches
+                before = form_counts(kern)
             got = kern(x)
             ref = plain(x)
             torch.cuda.synchronize()
-            if kern is krfft.r2c_packed_dense and (
-                    kern.radix_launches - before != (name == "r2c_packed_dense_radix")):
-                raise AssertionError(f"r2c_packed_dense {shape}: not on the {name} form")
+            if kern is krfft.r2c_packed_dense:
+                assert_launched(name, kern, before, shape)
             rel = abs_err(got, ref) / float(ref.abs().max())
             errs[name] = max(errs[name], abs_err(got, ref))
             emit(phase="kernel_vs_plain", kernel=name, shape=shape, rel_err=rel)
@@ -1579,7 +1679,8 @@ def main() -> int:
              or form == "radix" and name in (*RADIX_ONLY, *radix_too)
              or form == "npoint" and name.startswith(("dct2_", "dct3_", "spectral_dct"))
              or form == "dense" and name == "fourstep_mid" or form == "long" and name == "dct4_mid"
-             or form == "chirp" and name == "r2c_dense_mid"}
+             or form == "chirp" and name in ("r2c_dense_mid", "c2r_dense_mid",
+                                             "r2c_packed_dense")}
 
     def count(name):
         if name in forms:
@@ -3574,29 +3675,31 @@ def main() -> int:
     # ---- 4w. kernel 15's census at its dense rows' half lengths: the
     # wrapper r2c_packed_dense over (128, 2h) at each of the 254 h <= 256
     # that are not 128 F (the radix row core where rfft.py::
-    # packed_dense_radix holds, the dense product at the others), against
-    # torch.fft.rfft in float64 (an oracle only, run on the host): the radix
-    # row core within TOL_CENSUS of the oracle's peak, the dense product
-    # within TOL_KERNEL
+    # packed_dense_radix holds, the chirp-z at the others), against
+    # torch.fft.rfft in float64 (an oracle only, run on the host), within
+    # TOL_CENSUS of the oracle's peak
     k15_h = [h for h in range(1, 257) if not krfft.packed_core(h)]
-    k15_radix = [h for h in k15_h if krfft.packed_dense_radix(h)]
-    if (len(k15_h), len(k15_radix)) != (254, 229):
-        raise AssertionError(f"r2c_packed_dense census: {len(k15_h)} h, {len(k15_radix)} radix")
+    k15_forms = {f: [h for h in k15_h if krfft.packed_dense_form(h) == f]
+                 for f in ("radix", "chirp")}
+    if (len(k15_h), len(k15_forms["radix"])) != (254, 229):
+        raise AssertionError(f"r2c_packed_dense census: {len(k15_h)} h, "
+                             f"{len(k15_forms['radix'])} radix")
     t0 = time.perf_counter()
-    worst = {"radix": (0.0, None), "dense": (0.0, None)}
+    worst = dict.fromkeys(k15_forms, (0.0, None))
     reset_counts()
     for h in k15_h:
         x = randn(128, 2 * h)
         y = krfft.r2c_packed_dense(x)
         err = rel_err(y, torch.fft.rfft(x.cpu().double(), dim=1).to(dev))
-        form = "radix" if krfft.packed_dense_radix(h) else "dense"
-        if not err <= (TOL_CENSUS if form == "radix" else TOL_KERNEL):
+        form = krfft.packed_dense_form(h)
+        if not err <= TOL_CENSUS:
             raise AssertionError(f"r2c_packed_dense census h={h} ({form}): {err}")
         worst[form] = max(worst[form], (err, h))
     read_counts("r2c_packed_dense_census", r2c_packed_dense=len(k15_h),
-                r2c_packed_dense_radix=len(k15_radix))
-    emit(phase="r2c_packed_dense_census", half_lengths=len(k15_h), radix=len(k15_radix),
-         dense=len(k15_h) - len(k15_radix),
+                r2c_packed_dense_radix=len(k15_forms["radix"]),
+                r2c_packed_dense_chirp=len(k15_forms["chirp"]))
+    emit(phase="r2c_packed_dense_census", half_lengths=len(k15_h),
+         **{f: len(v) for f, v in k15_forms.items()},
          **{f"worst_rel_err_{f}": w[0] for f, w in worst.items()},
          **{f"worst_h_{f}": w[1] for f, w in worst.items()},
          seconds=time.perf_counter() - t0)
@@ -3691,11 +3794,11 @@ def main() -> int:
 
     # ---- 4v. the census of kernels 21 and 27: ndifft_r2c (the default 1/n)
     # along axis 1 of a (1, n/2 + 1, 130) spectrum at every 4 <= n <= 1100
-    # (the 710 on the radix column tile, with a plan of n/2 at even n and
-    # of n at odd n: 707 of them kernel 21's and 512, 768 and 1024 kernel
-    # 17's; the 326 without a plan and the 61 odd n where
-    # fft.dense_beats_radix holds on kernel 21's dense product, whose
-    # float32 sums of n terms are held to TOL_KERNEL as in phase 4s), with DC and
+    # (the 701 on the radix column tile, with a plan of n/2 at even n and
+    # of n at odd n: 698 of them kernel 21's and 512, 768 and 1024 kernel
+    # 17's; the 396 others on kernel 21's chirp-z (within TOL_CENSUS) or
+    # its dense product (rfft.py::c2r_dense_form), whose float32 sums of n
+    # terms are held to TOL_KERNEL as in phase 4s), with DC and
     # (even n) Nyquist imaginary parts that must be ignored, against
     # torch.fft.irfft in float64; and nddct1, nddct2 and
     # nddct3 along axis 1 of a (1, n, 130) field at every n that kernel 27
@@ -3703,17 +3806,19 @@ def main() -> int:
     # scipy.fft.dct in float64 (oracles only, run on the host); each within
     # TOL_CENSUS of the oracle's peak
     k21_all = list(range(4, 1101))
-    k21_n = [n for n in k21_all if krfft.c2r_dense_radix(n)]
+    k21_forms = {f: [n for n in k21_all if krfft.c2r_dense_form(n) == f]
+                 for f in ("radix", "chirp", "dense")}
+    k21_n = k21_forms["radix"]
     k27_n = {t: [n for n in range(2, 1101) if kdct.dct_radix_len(n, t) is not None]
              for t in (1, 2, 3)}
     k21_k17 = [n for n in k21_n if api._route("c2r", (1, n // 2 + 1, 130), 1, torch.complex64,
                                               "cuda", n=n) == api.C2R_MID]
     if (len(k21_n), k21_k17, [len(v) for v in k27_n.values()]) != (
-            710, [512, 768, 1024], [671, 439, 439]):
+            701, [512, 768, 1024], [671, 439, 439]):
         raise AssertionError(f"dense census: {len(k21_n)} K21 lengths ({k21_k17} K17), "
                              f"{[len(v) for v in k27_n.values()]} K27 lengths")
     t0 = time.perf_counter()
-    worst = {name: (0.0, None) for name in ("c2r", "c2r_dense", 1, 2, 3)}
+    worst = {name: (0.0, None) for name in ("radix", "chirp", "dense", 1, 2, 3)}
     reset_counts()
     for n in k21_all:
         sp = crandn(1, n // 2 + 1, 130)
@@ -3722,8 +3827,8 @@ def main() -> int:
             sp[:, -1] += 100j
         y = nd.ndifft_r2c(sp, nd.R2cFftHandler(n), axis=1)
         err = rel_err(y, torch.fft.irfft(sp.cpu().to(torch.complex128), n=n, dim=1).to(dev))
-        form = "c2r" if krfft.c2r_dense_radix(n) else "c2r_dense"
-        if not err <= (TOL_CENSUS if form == "c2r" else TOL_KERNEL):
+        form = krfft.c2r_dense_form(n)
+        if not err <= (TOL_KERNEL if form == "dense" else TOL_CENSUS):
             raise AssertionError(f"c2r_dense_mid census n={n} ({form}): {err}")
         worst[form] = max(worst[form], (err, n))
     for t, lengths in k27_n.items():
@@ -3737,12 +3842,14 @@ def main() -> int:
             worst[t] = max(worst[t], (err, n))
     k27_total = sum(len(v) for v in k27_n.values())
     read_counts("dense_census", c2r_dense_mid=len(k21_all) - 3,
-                c2r_dense_mid_radix=len(k21_n) - 3, c2r_mid=3, dct_dense_mid=k27_total,
-                dct_dense_mid_radix=k27_total)
-    emit(phase="dense_census", k21_radix=len(k21_n) - 3, k21_dense=len(k21_all) - len(k21_n),
-         k17_lengths=3, k27_lengths={f"dct{t}": len(v) for t, v in k27_n.items()},
-         worst_rel_err_c2r=worst["c2r"][0], worst_n_c2r=worst["c2r"][1],
-         worst_rel_err_c2r_dense=worst["c2r_dense"][0], worst_n_c2r_dense=worst["c2r_dense"][1],
+                c2r_dense_mid_radix=len(k21_n) - 3,
+                c2r_dense_mid_chirp=len(k21_forms["chirp"]), c2r_mid=3,
+                dct_dense_mid=k27_total, dct_dense_mid_radix=k27_total)
+    emit(phase="dense_census", k21_radix=len(k21_n) - 3, k21_chirp=len(k21_forms["chirp"]),
+         k21_dense=len(k21_forms["dense"]), k17_lengths=3,
+         k27_lengths={f"dct{t}": len(v) for t, v in k27_n.items()},
+         **{f"worst_rel_err_c2r_{f}": worst[f][0] for f in ("radix", "chirp", "dense")},
+         **{f"worst_n_c2r_{f}": worst[f][1] for f in ("radix", "chirp", "dense")},
          **{f"worst_rel_err_dct{t}": worst[t][0] for t in (1, 2, 3)},
          **{f"worst_n_dct{t}": worst[t][1] for t in (1, 2, 3)},
          seconds=time.perf_counter() - t0)
@@ -3763,9 +3870,10 @@ def main() -> int:
                    "c2r_mid": (1, 257, 512 * 512), "r2c_dense_mid": (1, 131, 256 * 256),
                    "r2c_dense_mid_radix": (1, 256, 256 * 256),
                    "r2c_dense_mid_chirp": (1, 262, 256 * 256),
-                   "c2r_dense_mid": (1, 132, 256 * 256),
+                   "c2r_dense_mid": (1, 65, 256 * 256),
+                   "c2r_dense_mid_chirp": (1, 132, 256 * 256),
                    "c2r_dense_mid_radix": (1, 129, 256 * 256), "r2c_packed": (256 * 256, 256),
-                   "r2c_packed_dense": (128 * 128, 262),
+                   "r2c_packed_dense_chirp": (128 * 128, 262),
                    "r2c_packed_dense_radix": (128 * 128, 128), "c2c_generic_rows": (600 * 600, 600),
                    "c2c_generic_mid": (600, 600, 301), "r2c_packed_generic": (600 * 600, 600),
                    "dct2_nat_wide": (1536 * 1536, 1536),
@@ -3793,7 +3901,8 @@ def main() -> int:
     # the radix core's kernels: the yardstick at every shape timed
     library_every_shape = ("c2c_generic_rows", "r2c_packed_generic", "c2r_dense_mid_radix",
                            "dct_dense_mid_radix", "r2c_dense_mid_radix", "r2c_dense_mid_chirp",
-                           "r2c_dense_mid", "r2c_packed_dense_radix", "r2c_packed_dense",
+                           "r2c_dense_mid", "r2c_packed_dense_radix", "c2r_dense_mid_chirp",
+                           "r2c_packed_dense_chirp", "c2r_dense_mid",
                            *RADIX_ONLY)
 
     def time_kernel(name, shape, kern, plain, library=None, runs=None, **kw):
@@ -3964,6 +4073,42 @@ def main() -> int:
                                                                      kfft.num_sms(dev)),
              torch_fft_ms=cuda_ms(lambda: torch.fft.rfft(x, dim=1), reps), card=card)
         del x, y
+    # kernel 21's chirp-z at (1, 132, 65536) (n = 262) and (1, 548, 7668)
+    # (n = 1094), and kernel 15's rows on it at (16384, 262) (h = 131) and
+    # (16384, 502) (h = 251), with each column (row) count C that fits (the
+    # wrappers take fft.py::radix_mid_cols's at M and rfft.py::
+    # packed_blue_rows's), beside torch.fft.irfft / rfft (kernel 21 also
+    # beside the dense product it replaced); then the wrapper's device time
+    # alone (graph_ms: a CUDA graph of 20 calls, replayed) beside torch.fft's
+    # (and the dense product's)
+    for shape, n in (((1, 132, 256 * 256), 262), ((1, 548, 7668), 1094)):
+        nb, m, cols = shape
+        sp = crandn(*shape)
+        y = torch.empty((nb, n, cols), device=dev)
+        mk = kfft.chirp_m(krfft.r2c_mid_len(n))
+        cols_ms = {c: cuda_ms(lambda: krfft.c2r_blue_launch(sp, y, n, 1.0 / n, c), reps)
+                   for c in (1, 2, 4, 8, 16) if tile16_fits(mk, c)}
+        emit(phase="time", kernel="c2r_dense_mid_chirp", shape=shape, n=n, M=mk,
+             ms_by_cols_per_tile=cols_ms, chosen=kfft.radix_mid_cols(mk, nb, cols,
+                                                                     kfft.num_sms(dev)),
+             dense_ms=cuda_ms(lambda: krfft.c2r_dense_launch(sp, y, n, 1.0 / n), reps),
+             torch_fft_ms=cuda_ms(lambda: torch.fft.irfft(sp, n=n, dim=1), reps),
+             device_ms=graph_ms(lambda: krfft.c2r_dense_mid(sp, n, 1.0 / n)),
+             dense_device_ms=graph_ms(lambda: krfft.c2r_dense_launch(sp, y, n, 1.0 / n)),
+             torch_fft_device_ms=graph_ms(lambda: torch.fft.irfft(sp, n=n, dim=1)), card=card)
+        del sp, y
+    for t, h in ((128 * 128, 131), (128 * 128, 251)):
+        x = randn(t, 2 * h)
+        y = torch.empty((t, h + 1), dtype=torch.complex64, device=dev)
+        mk = kfft.chirp_m(h)
+        rows_ms = {c: cuda_ms(lambda: krfft.r2c_blue_rows_launch(x, y, c), reps)
+                   for c in (1, 2, 4, 8, 16, 32) if tile16_fits(mk, c)}
+        emit(phase="time", kernel="r2c_packed_dense_chirp", shape=(t, 2 * h), M=mk,
+             ms_by_rows_per_tile=rows_ms, chosen=krfft.packed_blue_rows(mk, t, kfft.num_sms(dev)),
+             torch_fft_ms=cuda_ms(lambda: torch.fft.rfft(x, dim=1), reps),
+             device_ms=graph_ms(lambda: krfft.r2c_packed_dense(x)),
+             torch_fft_device_ms=graph_ms(lambda: torch.fft.rfft(x, dim=1)), card=card)
+        del x, y
     # kernels 21 and 27 on the radix column tile at their main shapes with
     # each column count C that fits (the wrappers take rfft.py::
     # c2r_dense_cols's and dct.py::dct_radix_cols's)
@@ -4110,7 +4255,8 @@ def main() -> int:
             ("r2c_packed", krfft.r2c_packed, krfft.r2c_packed_plain,
              ((256 * 256, 256), (129 * 129, 256), (1025, 2048))),
             ("r2c_packed_dense", krfft.r2c_packed_dense, None,
-             ((128 * 128, 128), (200, 200), (128 * 128, 262)))):
+             ((128 * 128, 128), (200, 200), (128 * 128, 262), (128 * 128, 502),
+              (128 * 128, 62)))):
         for shape in shapes:
             x = randn(*shape)
             if kern is krfft.r2c_packed_dense:
@@ -4408,11 +4554,13 @@ def main() -> int:
                           "ndrustfft_tpu/ops/pallas/rfft.py:898"),
         "c2r_dense_mid_radix": ("ndrustfft_tpu_torch/csrc/rfft_mid_radix.cu",
                                 "ndrustfft_tpu/ops/pallas/rfft.py:898"),
+        "c2r_dense_mid_chirp": ("ndrustfft_tpu_torch/csrc/rfft_blue_radix.cu",
+                                "ndrustfft_tpu/ops/pallas/rfft.py:898"),
         "r2c_packed": ("ndrustfft_tpu_torch/csrc/rfft_radix.cu",
                        "ndrustfft_tpu/ops/pallas/rfft.py:163"),
-        "r2c_packed_dense": ("ndrustfft_tpu_torch/csrc/rfft_dense.cu",
-                             "ndrustfft_tpu/ops/pallas/rfft.py:163"),
         "r2c_packed_dense_radix": ("ndrustfft_tpu_torch/csrc/rfft_radix.cu",
+                                   "ndrustfft_tpu/ops/pallas/rfft.py:163"),
+        "r2c_packed_dense_chirp": ("ndrustfft_tpu_torch/csrc/rfft_blue_radix.cu",
                                    "ndrustfft_tpu/ops/pallas/rfft.py:163"),
         "c2c_generic_rows": ("ndrustfft_tpu_torch/csrc/fft_radix.cuh",
                              "ndrustfft_tpu/ops/pallas/fft.py:521"),
@@ -4483,10 +4631,13 @@ def main() -> int:
         "spectral_dct_mid_npoint": ("ndrustfft_tpu_torch/csrc/spectral_dct_mid.cu",
                                     "ndrustfft_tpu/ops/pallas/dct.py:779"),
     }
+    # the real lengths of kernel 21's main spectra (an odd n has the same
+    # spectrum length as n - 1)
+    main_n = {"c2r_dense_mid": 129, "c2r_dense_mid_chirp": 262}
     kernels = []
     for name, (src, rep) in sources.items():
         t_k, t_plain, t_lib = timing[(name, main_shapes[name])]
-        bound_ms, bound_by = bound(*work(name, main_shapes[name],
+        bound_ms, bound_by = bound(*work(name, main_shapes[name], n=main_n.get(name),
                                          mult=spectral_h.get((name, main_shapes[name]))))
         # a wrapper's ``launches`` counts its wide, n-point and dense
         # launches too; a radix-only wrapper's row gives its radix launches
@@ -4500,7 +4651,7 @@ def main() -> int:
         if "blue" in name or name.endswith("_chirp"):
             # the work of the chirp-z's two length-M FFTs per column, beside
             # the function's own (the bound above)
-            nbytes, m_flops = work(name, main_shapes[name], length_m=True)
+            nbytes, m_flops = work(name, main_shapes[name], length_m=True, n=main_n.get(name))
             row["length_m_bound_ms"], row["length_m_bound_by"] = bound(nbytes, m_flops)
         # the same numbers at the shapes of phases 4h, 4i and 4j's main paths
         # and, for the kernels whose other main shapes phase 5 times, at those
@@ -4510,7 +4661,7 @@ def main() -> int:
                       *bound(*work(name, shape, mult=spectral_h.get((name, shape)))))))
             for shape in sliced.get(name, ())]
         if name in ("c2c_axis_mid", "r2c_packed_mid", "c2r_nat", "c2r_mid",
-                    "r2c_dense_mid_chirp", "r2c_packed_dense_radix"):
+                    "r2c_dense_mid_chirp", "r2c_packed_dense_radix", "r2c_packed_dense_chirp"):
             row["other_shapes"] = [
                 dict(zip(("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
                          (list(shape), *timing[(nm, shape)], *bound(*work(name, shape)))))
@@ -4518,10 +4669,13 @@ def main() -> int:
                 and shape not in sliced.get(name, ())]
         if name.startswith("c2r_dense_mid"):
             # kernel 21's other timed spectra with their lengths: the radix
-            # column tile at odd n = 255 and two even n, the dense product
-            # at odd n = 129, where fft.dense_beats_radix holds
-            other = ((((1, 128, 128 * 256), 255), ((1, 133, 264), 264), ((1, 65, 128), 128))
-                     if name.endswith("_radix") else (((1, 65, 256 * 256), 129),))
+            # column tile at odd n = 255 and two even n, the chirp-z at
+            # n = 1094 and the odd 1097, the dense product at n = 131 (odd,
+            # no plan)
+            other = {"c2r_dense_mid_radix": (((1, 128, 128 * 256), 255), ((1, 133, 264), 264),
+                                             ((1, 65, 128), 128)),
+                     "c2r_dense_mid_chirp": (((1, 548, 7668), 1094), ((1, 549, 7647), 1097)),
+                     "c2r_dense_mid": (((1, 66, 256 * 256), 131),)}[name]
             row["other_shapes"] = [
                 dict(zip(("shape", "n", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
                          (list(shape), n, *timing[(name, shape)],

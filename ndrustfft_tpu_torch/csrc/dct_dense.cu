@@ -25,7 +25,6 @@ namespace ndfft {
 
 // x and y both (B, n, L) float32
 struct MidOperand {
-  static constexpr bool kRows = false;
   const float* x;
   float* y;
   int n;

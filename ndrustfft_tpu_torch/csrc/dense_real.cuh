@@ -1,11 +1,11 @@
 // The register-tiled float32 product of the dense real kernels: kernel 27
 // (dct_dense.cu) at DCT-IV, odd-n DCT-II/III, the lengths without a radix
 // plan and the DCT-I lengths where ops/hopper/fft.py::dense_beats_radix
-// holds, kernels 20 and 21 at the lengths without one (kernel 21 also at
-// the odd n where that test holds), and kernel 15's dense product
-// (rfft_dense.cu); at the other lengths and types kernels 20,
+// holds, kernels 20 and 21 at the odd lengths where their routes name the
+// dense product (rfft_dense.cu); at the other lengths and types kernels 20,
 // 21 and 27 run on the radix column tile (rfft_mid_radix.cu,
-// dct_mid_radix.cu). For each batch b,
+// dct_mid_radix.cu) or, kernels 20 and 21, as a chirp-z
+// (fft_blue_radix.cu). For each batch b,
 //
 //   Y(b, k, c) = sum_{t < red} W[t, k] * X(b, t, c),    k < rows, c < L,
 //
@@ -15,14 +15,10 @@
 // (B, n, L) float32 and the rectangular R2C/C2R products whose result or
 // operand is torch's interleaved complex64. Op provides
 //
-//   static constexpr bool kRows;   // X(b, t, c) contiguous in t, not in c
 //   __device__ float load(long long b, int t, long long c) const;   // X(b, t, c)
 //   __device__ void store(long long b, int k, long long c, float v) const;
 //
-// and is called only in range (t < red, k < rows, c < L). With kRows (kernel
-// 15's rows, where c indexes a row and t runs along it), eight neighbouring
-// threads load the eight t of one row's chunk, as kernel 8 does, instead of
-// one t of 32 rows a stride of n apart.
+// and is called only in range (t < red, k < rows, c < L).
 //
 // What bounds it on this card: the product's 2 * red * rows FLOPs per column
 // on the FP32 CUDA cores (67 TFLOP/s peak, data sheet, 700 W), far above
@@ -71,9 +67,8 @@ dense_real_kernel(const float* __restrict__ w, Op op, int rows, int red,
         const int t = t0 + e / BM;
         const int cc = e % BM;
         ra[i] = (t < red && k0 + cc < rows) ? __ldg(w + (long long)t * rows + k0 + cc) : 0.f;
-        const int tb = Op::kRows ? t0 + e % kBK : t;
-        const long long cb = c0 + (Op::kRows ? e / kBK : cc);
-        rb[i] = (tb < red && cb < L) ? op.load(b, tb, cb) : 0.f;
+        const long long cb = c0 + cc;
+        rb[i] = (t < red && cb < L) ? op.load(b, t, cb) : 0.f;
       }
     };
     auto store = [&](int buf) {
@@ -81,11 +76,7 @@ dense_real_kernel(const float* __restrict__ w, Op op, int rows, int red,
       for (int i = 0; i < LPT; ++i) {
         const int e = i * kDenseThreads + tid;
         As[buf][e / BM][e % BM] = ra[i];
-        if constexpr (Op::kRows) {
-          Bs[buf][e % kBK][e / kBK] = rb[i];
-        } else {
-          Bs[buf][e / BM][e % BM] = rb[i];
-        }
+        Bs[buf][e / BM][e % BM] = rb[i];
       }
     };
     float acc[TM][TM];

@@ -6,8 +6,10 @@
 // the epilogue, and kernel 3 with the C2R's inverse unpack as the prologue
 // (rfft_radix.cu); kernel 11 at every
 // convolution length M = 128 * F on an (M, C) column tile, its forward and
-// inverse length-M transforms in place, and kernel 20's real-input chirp-z
-// on the same kernel at a 7-smooth M (fft_blue_radix.cu); kernels 1, 6
+// inverse length-M transforms in place, and the real-input chirp-z of
+// kernel 20 (fft_blue_radix.cu), kernel 21 and kernel 15's rows
+// (rfft_blue_radix.cu) on the same kernel (blue_radix.cuh) at a 7-smooth
+// M; kernels 1, 6
 // and 4 (n = 128 * F; n > 512 without a split; n <= 512) on an (n, C)
 // column tile with the store in its last stage (fft_mid_radix.cu); kernels
 // 16, 18 and 20 (the R2C along a middle axis, kernel 18 of DST-I's two
@@ -604,24 +606,30 @@ __device__ __forceinline__ void r2c_unpack_tile(const float2* s, const Cx& cx,
 // k <= h / 2, and reads both bins before it writes either:
 //   G[k] = A[k] S[k] + B[k] conj S[h - k],  ab[k] = (A.re, A.im, B.re, B.im),
 // with the DC and Nyquist imaginary parts ignored (k = 0 pairs with nyq;
-// k = h / 2 stands alone). Call it behind the load's barrier.
-template <class Cx>
+// k = h / 2 stands alone). Call it behind the load's barrier. Row k keeps
+// post(k, G[k]) (G itself by default; kernel 21's chirp-z keeps
+// conj(G[k]) times its entry chirp), h being cx.n or, given, `half`.
+struct C2rKeep {
+  __device__ __forceinline__ float2 operator()(int, float2 g) const { return g; }
+};
+template <class Cx, class Post = C2rKeep>
 __device__ __forceinline__ void c2r_prologue_tile(float2* s, const float2* nyq, const Cx& cx,
-                                                  const float4* __restrict__ ab) {
+                                                  const float4* __restrict__ ab,
+                                                  const Post& post = Post{}, int half = 0) {
   if (!cx.active) return;
-  const int h = cx.n;
+  const int h = half ? half : cx.n;
   for (int k = cx.t; k <= h / 2; k += cx.tr) {
     const int qa = cx.slot(k);
     float2 a = s[qa];
     if (k == 0) {
       const float2 b = make_float2(nyq->x, 0.f);
       a.y = 0.f;
-      s[qa] = c2r_combine(__ldg(ab), a, b);
+      s[qa] = post(0, c2r_combine(__ldg(ab), a, b));
     } else {
       const int qb = cx.slot(h - k);
       const float2 b = s[qb];
-      s[qa] = c2r_combine(__ldg(ab + k), a, b);
-      if (2 * k != h) s[qb] = c2r_combine(__ldg(ab + h - k), b, a);
+      s[qa] = post(k, c2r_combine(__ldg(ab + k), a, b));
+      if (2 * k != h) s[qb] = post(h - k, c2r_combine(__ldg(ab + h - k), b, a));
     }
   }
 }

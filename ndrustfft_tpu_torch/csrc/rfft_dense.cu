@@ -1,18 +1,14 @@
 // Kernels 20 and 21: R2C and C2R along the middle axis of (B, n, L) as one
-// real product each, m = n/2 + 1. Kernel 21 at the 326 lengths 4 <= n <=
-// 1100 whose transform length (n/2 at even n, n at odd n) has no radix plan
-// (a prime factor above 127: n = 262, 1099 ...) and at the 61 odd n where
-// a large prime stage makes the product faster
-// (ops/hopper/fft.py::dense_beats_radix: 129 = 3 * 43 ...); kernel 20 at
-// the odd lengths where ops/hopper/rfft.py::r2c_dense_form names it (a
-// prime n or 3 p with a large prime stage p, and odd n without a plan below
-// rfft.py::R2C_CHIRP_MIN_ODD: 131, 137 ...). At the other lengths kernel
-// 20 runs on the radix column tile (rfft_mid_radix.cu) or as a real-input
-// chirp-z (fft_blue_radix.cu), kernel 21 on the radix column tile. And
-// kernel 15's dense product, the R2C of contiguous (T, n) rows with kernel
-// 20's table, for even n = 2h at h = 1 and the primes h = 131 ... 251
-// (every other h <= 256 not a multiple 128 * F of the core runs on the
-// radix row core, rfft_radix.cu).
+// real product each, m = n/2 + 1, at the odd lengths where their routes
+// (ops/hopper/rfft.py::r2c_dense_form, c2r_dense_form) name it: odd n
+// without a radix plan below rfft.py::CHIRP_MIN_ODD (131, 137 ...), and
+// odd n with a plan where a large prime stage makes the product faster
+// (kernel 20: a prime n or 3 p; kernel 21: ops/hopper/fft.py::
+// dense_beats_radix, 129 = 3 * 43 ...). At the other lengths both run on
+// the radix column tile (rfft_mid_radix.cu) or as a real-input chirp-z,
+// kernel 21's backwards (fft_blue_radix.cu). (Kernel 15's rows at h = 1,
+// 31 and the primes 131 ... 251 ran this product with kernel 20's table in
+// the row layout until the rows' chirp-z beat it 1.1-3.2x on an H100.)
 //
 // Kernel 20 replaces ndrustfft_tpu/ops/pallas/rfft.py::_r2c_dense_kernel
 // (built by _build_r2c_dense_mid, table _r2c_dense_w); kernel 21 replaces
@@ -33,16 +29,9 @@
 // interleaved complex64 directly (float index 2 * ((b m + k) L + c), + 1 for
 // the imaginary part).
 //
-// Kernel 15 replaces ndrustfft_tpu/ops/pallas/rfft.py::_r2c_kernel (built by
-// _build_r2c) at the half lengths where its half-length FFT is the dense
-// lane DFT (h <= 256). The TPU kernel ran [z; conj z] through a complex
-// h-point product and unpacked; here the row is one real product
-// X[k] = sum_s x[s] W_n^{s k}, k <= h: the same 4 h^2 multiply-adds per row
-// as one complex product of length h, and no mirror or unpack.
-//
 // What bounds it on this card: the function needs only its HBM traffic (a
 // real FFT's 2.5 n log2 n FLOPs per column are far below it); this design
-// does the product's 2 n (2m) FLOPs per column (per row for kernel 15) on
+// does the product's 2 n (2m) FLOPs per column on
 // the FP32 CUDA cores, because the JAX package's gate sends these sizes to
 // the dense product. The loop is the shared register-tiled product of
 // dense_real.cuh (kernel 27's), with every edge masked.
@@ -52,7 +41,6 @@ namespace ndfft {
 
 // x: (B, n, L) float32; out: (B, m, L) complex64 as 2 * B * m * L floats
 struct R2cDenseOperand {
-  static constexpr bool kRows = false;
   const float* x;
   float* out;
   int n;
@@ -67,30 +55,8 @@ struct R2cDenseOperand {
   }
 };
 
-// x: (T, n) float32 rows; out: (T, m) complex64 rows as 2 * T * m floats.
-// The reduction index t runs along a row and the column index c over the
-// rows (B = 1), so the loads take the row layout (dense_real.cuh: eight
-// threads read a 32-byte chunk of one row). The stores keep the column
-// layout's pattern, a stride of 2m floats between neighbouring threads:
-// kernel 8's uncoalesced store, left for the dense-product speed work.
-struct R2cRowsOperand {
-  static constexpr bool kRows = true;
-  const float* x;
-  float* out;
-  int n;
-  int m;
-  __device__ float load(long long, int t, long long c) const {
-    return __ldg(x + c * n + t);
-  }
-  __device__ void store(long long, int k, long long c, float v) const {
-    const int re = k < m;
-    out[2 * (c * m + (re ? k : k - m)) + (1 - re)] = v;
-  }
-};
-
 // spec: (B, m, L) complex64 as floats; y: (B, n, L) float32
 struct C2rDenseOperand {
-  static constexpr bool kRows = false;
   const float* spec;
   float* y;
   int n;
@@ -131,17 +97,5 @@ extern "C" int ndfft_c2r_dense_mid(const void* w, const void* spec, void* out,
   const C2rDenseOperand op{static_cast<const float*>(spec), static_cast<float*>(out),
                            n, m, L};
   return (int)dense_real(TM, static_cast<const float*>(w), op, n, 2 * m, L, B,
-                         static_cast<cudaStream_t>(stream));
-}
-
-// w: (n, 2m) float32 in C order (kernel 20's table); x: (T, n) float32 rows;
-// out: (T, m) complex64; both contiguous. TM: the micro-tile, 8 or 4.
-// Kernel 15's dense product; returns the cudaError_t of the launch.
-extern "C" int ndfft_r2c_dense_rows(const void* w, const void* x, void* out,
-                                    long long T, int n, int TM, void* stream) {
-  using namespace ndfft;
-  const int m = n / 2 + 1;
-  const R2cRowsOperand op{static_cast<const float*>(x), static_cast<float*>(out), n, m};
-  return (int)dense_real(TM, static_cast<const float*>(w), op, 2 * m, n, T, 1LL,
                          static_cast<cudaStream_t>(stream));
 }

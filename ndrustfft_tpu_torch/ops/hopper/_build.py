@@ -41,7 +41,6 @@ _SIGNATURES = {
     "ndfft_c2c_dense": [_P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_r2c_dense_mid": [_P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_c2r_dense_mid": [_P, _P, _P, _LL, _I, _LL, _I, _P],
-    "ndfft_r2c_dense_rows": [_P, _P, _P, _LL, _I, _I, _P],
     "ndfft_dct_dense_mid": [_P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_dct2_nat": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_dct3_nat": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
@@ -66,6 +65,8 @@ _SIGNATURES = {
     "ndfft_dct4_mid_long": [_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_c2c_blue_radix": [_P] * 6 + [_I, _LL, _I, _I, _LL, _I, _F, _P],
     "ndfft_r2c_blue_radix": [_P] * 7 + [_I, _LL, _I, _I, _LL, _I, _P],
+    "ndfft_c2r_blue_radix": [_P] * 7 + [_I, _F, _LL, _I, _I, _LL, _I, _P],
+    "ndfft_r2c_blue_rows": [_P] * 7 + [_I, _LL, _I, _I, _I, _P],
     "ndfft_dct23_blue_mid": [_P] * 7 + [_LL, _I, _I, _LL, _I, _P],
     "ndfft_dct23_blue_mid_wide": [_P] * 9 + [_LL, _I, _I, _LL, _I, _P],
     "ndfft_fourstep_mid": [_P, _P, _P, _P, _LL, _I, _LL, _I, _I, _P],

@@ -25,10 +25,14 @@
   chirp-z on kernel 11's column kernel (``csrc/fft_blue_radix.cu``:
   the chirp length n/2 with the unpack at even n, n at odd n, the
   convolution length the 7-smooth M >= 2 len - 1 of least modelled time,
-  :func:`~.fft.chirp_m`) where :func:`r2c_dense_form` names it, else one
-  real product with a host table; kernel 21 runs that product there and at
-  the 61 odd n where :func:`~.fft.dense_beats_radix` holds (a large prime
-  stage, such as 129 = 3 * 43) (``csrc/rfft_dense.cu`` on the dense loop
+  :func:`~.fft.chirp_m`) where :func:`r2c_dense_form` names it, and kernel
+  21 the same chirp-z backwards where :func:`c2r_dense_form` names it (the
+  column's inverse as conj(FFT(conj V)): kernel 17's inverse unpack or the
+  Hermitian extension as the load's prologue, a real store;
+  ``csrc/rfft_blue_radix.cu``); else one real
+  product with a host table, which kernel 21 also keeps at the 61 odd n
+  where :func:`~.fft.dense_beats_radix` holds (a large prime stage, such as
+  129 = 3 * 43) (``csrc/rfft_dense.cu`` on the dense loop
   ``csrc/dense_real.cuh``).
 * Kernels 18 and 19, :func:`r2c_packed_mid` and :func:`dct1_mid`: the R2C
   of a column built otherwise, along the middle axis, times a scale
@@ -46,9 +50,10 @@
   :func:`r2c_packed_dense` for every other h <= 256 with a plan (many rows
   a block at small h) run the half-length C2C on the mixed-radix row core
   with the unpack as its epilogue in shared memory (``csrc/rfft_radix.cu``
-  on ``csrc/fft_radix.cuh``); :func:`r2c_packed_dense` at h = 1, 31 and
-  the primes 131 ... 251 runs kernel 20's real product with its table, in
-  the row layout (``csrc/rfft_dense.cu``).
+  on ``csrc/fft_radix.cuh``); :func:`r2c_packed_dense` runs kernel 20's
+  even chirp-z with row-addressed policies at h = 1, 31 and the primes
+  131 ... 251 (``csrc/rfft_blue_radix.cu``), as :func:`packed_dense_form`
+  names.
 * Kernel 22, :func:`spectral_r2c_mid`: the fused pipeline C2R(H * R2C(x))
   along the middle axis of (B, n, L), kernel 16's forward, the multiply and
   kernel 17's inverse on one column tile (``csrc/spectral_r2c_mid.cu``, the
@@ -61,8 +66,8 @@ and their wrappers, whose ``launches`` attributes count kernel launches
 apart, in ``wide_launches``; kernels 2, 3 and 15 at h = 128 * F and
 kernels 16, 17 and 18 count every launch in ``radix_launches`` as well,
 kernels 20 and 21 their launches on the radix column tile and kernel 15's
-dense rows theirs on the radix row core; kernel 20 counts its chirp-z's in
-``chirp_launches``).
+dense rows theirs on the radix row core; kernels 20 and 21 and kernel
+15's dense rows count their chirp-z's in ``chirp_launches``).
 """
 
 from __future__ import annotations
@@ -854,37 +859,55 @@ def r2c_blue_launch(x: torch.Tensor, out: torch.Tensor, c: int) -> None:
     _build.check(err, "ndfft_r2c_blue_radix")
 
 
-# the least odd n without a plan where kernel 20's chirp-z beats its dense
-# product (its chirp length is n there, twice an even n's)
-R2C_CHIRP_MIN_ODD = 449
-# the least prime half length h = n/2 whose one prime stage on the radix
-# column tile loses to kernel 20's chirp-z
-R2C_CHIRP_MIN_P = 97
+# the least odd n without a plan where the chirp-z (kernel 20's, kernel
+# 21's) beats the dense product (its chirp length is n there, twice an even
+# n's)
+CHIRP_MIN_ODD = 449
+# the least prime transform length whose one prime stage on the radix
+# column tile loses to the chirp-z
+CHIRP_MIN_P = 97
+
+
+def _transform_p(t: int) -> int:
+    """The largest prime stage of radix_plan(t), 0 where it has none."""
+    return max((r for r in radix_plan(t) if r not in RADIX_CODELETS), default=0)
+
+
+def chirp_beats_radix(n: int) -> bool:
+    """Whether the real-input chirp-z on kernel 11's column kernel beats the
+    radix column tile at n, where that tile has a plan of the transform
+    length T (h = n/2, or n at odd n; kernels 20 and 21): the tile's prime
+    stage p spends about p operations an element, the chirp-z about
+    20 log2 M (M >= 4 T), so the chirp-z takes T = p >= CHIRP_MIN_P and
+    T = 5 p, 7 p with p = 127, the largest stage."""
+    t = r2c_mid_len(n)
+    p = _transform_p(t)
+    return (t == p and p >= CHIRP_MIN_P) or (p == RADIX_MAX_P and t >= 5 * p)
+
+
+def _no_plan_form(n: int) -> str:
+    """The chirp-z or the dense product at a length without a plan: the
+    chirp-z at even n and odd n >= CHIRP_MIN_ODD (kernels 20 and 21)."""
+    return "chirp" if n % 2 == 0 or n >= CHIRP_MIN_ODD else "dense"
 
 
 def r2c_dense_form(n: int) -> str:
     """The kernel that kernel 20's wrapper runs at n: "radix" (the radix
     column tile), "chirp" (the real-input chirp-z on kernel 11's column
-    kernel) or "dense" (the real product). The radix tile's prime stage p
-    of the transform length T (h = n/2, or n at odd n) spends about p
-    operations an element, the product about n, the chirp-z about 20 log2 M
-    (M >= 4 T): so the product takes odd n = p >= 31 and odd n = 3 p with p
-    >= 67, the chirp-z even n = 2 p with p >= R2C_CHIRP_MIN_P and odd n =
-    5 p, 7 p with p = 127 (the largest stage), the radix tile every other
-    length with a plan; without a plan the chirp-z takes even n and odd n
-    >= R2C_CHIRP_MIN_ODD, the product the rest. Fitted to ``time_kernels.py
-    --route-dense`` on an H100: summed over n = 4 ... 1100 within 0.1% of
-    the fastest kernel at each length, and no length more than 5% slower
-    than its fastest (PERF.md)."""
+    kernel) or "dense" (the real product). The product, about n operations
+    an element, takes odd n = p >= 31 and odd n = 3 p with p >= 67 (p the
+    radix tile's prime stage), the chirp-z the lengths of
+    :func:`chirp_beats_radix`, the radix tile every other length with a
+    plan; without a plan :func:`_no_plan_form`. Fitted to
+    ``time_kernels.py --route-dense`` on an H100: summed over n = 4 ...
+    1100 within 0.1% of the fastest kernel at each length, and no length
+    more than 5% slower than its fastest (PERF.md)."""
     if not r2c_mid_radix(n):
-        return "chirp" if n % 2 == 0 or n >= R2C_CHIRP_MIN_ODD else "dense"
-    t = r2c_mid_len(n)
-    p = max((r for r in radix_plan(t) if r not in RADIX_CODELETS), default=0)
+        return _no_plan_form(n)
+    p = _transform_p(r2c_mid_len(n))
     if n % 2 and ((n == p and p >= 31) or (n == 3 * p and p >= 67)):
         return "dense"
-    if (t == p and p >= R2C_CHIRP_MIN_P) or (p == RADIX_MAX_P and t >= 5 * p):
-        return "chirp"
-    return "radix"
+    return "chirp" if chirp_beats_radix(n) else "radix"
 
 
 _R2C_DENSE_PLAIN = {"radix": r2c_mid_radix_plain, "chirp": r2c_blue_plain,
@@ -940,12 +963,21 @@ r2c_dense_mid.radix_launches = 0
 r2c_dense_mid.chirp_launches = 0
 
 
-def c2r_dense_radix(n: int) -> bool:
-    """Kernel 21 runs on the radix column tile at n: :func:`r2c_mid_radix`
-    holds n and, at odd n, the radix core beats the dense product
-    (:func:`~.fft.dense_beats_radix`: 61 of the 332 odd n with a plan keep
-    the dense product, e.g. 129 = 3 * 43)."""
-    return r2c_mid_radix(n) and not (n % 2 and dense_beats_radix(n))
+def c2r_dense_form(n: int) -> str:
+    """The kernel that kernel 21's wrapper runs at n: "radix" (the radix
+    column tile), "chirp" (the chirp-z C2R on kernel 11's column kernel) or
+    "dense" (the real product). The product takes the 61 odd n with a plan
+    where :func:`~.fft.dense_beats_radix` holds (e.g. 129 = 3 * 43), the
+    chirp-z the lengths of :func:`chirp_beats_radix` (194 = 2 * 97 ...,
+    5 * 127, 7 * 127), the radix tile every other length with a plan;
+    without a plan :func:`_no_plan_form`, as for kernel 20. Fitted to
+    ``time_kernels.py --route-dense`` on an H100: summed over n = 4 ...
+    1100 within 0.03% of the fastest kernel at each length (PERF.md)."""
+    if not r2c_mid_radix(n):
+        return _no_plan_form(n)
+    if n % 2 and dense_beats_radix(n):
+        return "dense"
+    return "chirp" if chirp_beats_radix(n) else "radix"
 
 
 def c2r_odd_mid_plain(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
@@ -1004,34 +1036,82 @@ def c2r_dense_launch(s: torch.Tensor, out: torch.Tensor, n: int, scale) -> None:
                   s, out, n, n)
 
 
+def c2r_blue_plain(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
+    """Plain version of kernel 21's chirp-z: (B, n//2+1, L) complex64 ->
+    (B, n, L) float32 along dim 1, times ``scale``, the DC and (even n)
+    Nyquist imaginary parts ignored. The column's inverse z = IFFT(V) as
+    conj(FFT(conj V)), the forward by :func:`~.fft.chirp_z_radix_plain` on
+    kernel 20's tables: at even n V is kernel 17's inverse unpack G
+    (:func:`_inverse_unpack`, the scale in it; chirp length n/2) and z[l]
+    gives real rows 2l and 2l + 1; at odd n V is the Hermitian extension
+    (chirp length n) and scale * Re z the output."""
+    nb, _, cols = s.shape
+    a, hh = _device_r2c_blue(r2c_mid_len(n), s.device)
+    if n % 2:
+        v = torch.cat([_mask_imag0(s, 1), s[:, 1:].flip(1).conj()], dim=1)
+    else:
+        v = _inverse_unpack(s, n, scale, 1)
+    z = (chirp_z_radix_plain(v.conj() * a[:, None], hh, 1.0) * a[:, None]).conj()
+    if n % 2:
+        return (z.real * (1.0 if scale is None else float(scale))).contiguous()
+    return torch.stack([z.real, z.imag], dim=2).reshape(nb, n, cols)
+
+
+def c2r_blue_launch(s: torch.Tensor, out: torch.Tensor, n: int, scale, c: int) -> None:
+    """Launch kernel 21's chirp-z on kernel 11's column kernel, ``c``
+    columns a tile, on the (B, n//2+1, L) complex64 CUDA tensor s into the
+    (B, n, L) float32 out (``csrc/rfft_blue_radix.cu``); counts nothing."""
+    nb, _, cols = s.shape
+    dev = s.device
+    length = r2c_mid_len(n)
+    mk = chirp_m(length)
+    a, hh = _device_r2c_blue(length, dev)
+    plan = radix_plan(mk)
+    sc = 1.0 if scale is None else float(scale)
+    ab = None if n % 2 else _device_ab(n, sc, dev).data_ptr()
+    with torch.cuda.device(dev):
+        err = _build.lib().ndfft_c2r_blue_radix(
+            s.data_ptr(), out.data_ptr(), a.data_ptr(), hh.data_ptr(), ab,
+            device_radix(mk, -1, dev).data_ptr(), (ctypes.c_int * RADIX_MAX_STAGES)(*plan),
+            len(plan), sc, nb, n, mk, cols, c, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ndfft_c2r_blue_radix")
+
+
+_C2R_DENSE_PLAIN = {"radix": c2r_dense_radix_plain, "chirp": c2r_blue_plain,
+                    "dense": c2r_dense_mid_plain}
+
+
 def c2r_dense_mid(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
     """C2R along dim 1 of a (B, n//2+1, L) complex64 spectrum -> (B, n, L)
     float32, times ``scale``, 4 <= n <= 1100; the DC and (even n) Nyquist
-    imaginary parts are ignored. Where :func:`c2r_dense_radix` holds n (a
-    plan of h = n/2 at even n, of n at odd n, where the dense product is
-    not faster), a CPU tensor runs :func:`c2r_dense_radix_plain` and a CUDA
-    tensor launches kernel 21 on the radix column tile (counted in
-    ``radix_launches`` as well); at the other lengths,
-    :func:`c2r_dense_mid_plain` and the dense product. Anything else
-    raises."""
+    imaginary parts are ignored; on the kernel :func:`c2r_dense_form` names
+    at n. A CPU tensor runs that kernel's plain version; a CUDA tensor
+    launches kernel 21 on the radix column tile (counted in
+    ``radix_launches`` as well), its chirp-z (``chirp_launches``) or its
+    dense product. Anything else raises."""
     _check_mid(s, torch.complex64, "c2r_dense_mid")
     _check_dense_n(n, "c2r_dense_mid")
     nb, m, cols = s.shape
     if m != n // 2 + 1:
         raise ValueError(f"c2r_dense_mid: expected (B, {n // 2 + 1}, L), got "
                          f"{tuple(s.shape)}")
-    radix = c2r_dense_radix(n)
+    form = c2r_dense_form(n)
     if s.device.type == "cpu":
-        return c2r_dense_radix_plain(s, n, scale) if radix else c2r_dense_mid_plain(s, n, scale)
+        return _C2R_DENSE_PLAIN[form](s, n, scale)
     if s.device.type != "cuda":
         raise ValueError(f"c2r_dense_mid: unsupported device {s.device}")
     check_cuda(s, torch.complex64, "c2r_dense_mid")
     out = torch.empty((nb, n, cols), dtype=torch.float32, device=s.device)
     if s.numel() == 0:
         return out
-    if radix:
-        c2r_dense_radix_launch(s, out, n, scale, c2r_dense_cols(n, nb, cols, num_sms(s.device)))
+    sms = num_sms(s.device)
+    if form == "radix":
+        c2r_dense_radix_launch(s, out, n, scale, c2r_dense_cols(n, nb, cols, sms))
         c2r_dense_mid.radix_launches += 1
+    elif form == "chirp":
+        # columns a tile: radix_mid_cols at M, as kernel 20's chirp-z
+        c2r_blue_launch(s, out, n, scale, radix_mid_cols(chirp_m(r2c_mid_len(n)), nb, cols, sms))
+        c2r_dense_mid.chirp_launches += 1
     else:
         c2r_dense_launch(s, out, n, scale)
     c2r_dense_mid.launches += 1
@@ -1040,6 +1120,7 @@ def c2r_dense_mid(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
 
 c2r_dense_mid.launches = 0
 c2r_dense_mid.radix_launches = 0
+c2r_dense_mid.chirp_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -1077,16 +1158,6 @@ r2c_packed.launches = 0
 r2c_packed.radix_launches = 0
 
 
-def r2c_packed_dense_plain(x: torch.Tensor) -> torch.Tensor:
-    """Plain version of :func:`r2c_packed_dense`: Y[r, j] = sum_t x[r, t]
-    W[t, j] with kernel 20's table, columns j < m the real and j >= m the
-    imaginary parts."""
-    n = x.shape[1]
-    m = n // 2 + 1
-    y = x @ _device_dense("r2c", n, 1.0, x.device)
-    return torch.complex(y[:, :m], y[:, m:])
-
-
 PACKED_IDLE_LANES = 16  # kernel 15's dense rows leave at most 1 lane in 16 idle
 
 
@@ -1108,64 +1179,113 @@ def packed_dense_rows(h: int, count: int, sms: int) -> int:
     return spread_rows(rows, count, sms)
 
 
-# the half lengths with a plan where kernel 15's dense product beat its
-# radix row core on an H100 (1.18x and 1.19x in two scans of
-# time_kernels.py --route-dense; every other h was at most 0.96x)
-PACKED_DENSE_FASTER = (31,)
+# the half length with a plan that kernel 15's radix row core does not
+# take: at h = 31 the dense product beat it 1.18x (two scans), and the
+# chirp-z (M = 64) beats both (time_kernels.py --route-dense on an H100)
+PACKED_NOT_RADIX = (31,)
 
 
 def packed_dense_radix(h: int) -> bool:
     """Kernel 15's wrapper :func:`r2c_packed_dense` runs the radix row core
     at half length h: :func:`~.fft.radix_plan` has h and h is not in
-    PACKED_DENSE_FASTER (229 of the 254 h <= 256 that are not 128 * F; h =
-    1, 31 and the 23 primes 131 ... 251 keep the dense product)."""
-    return radix_plan(h) is not None and h not in PACKED_DENSE_FASTER
+    PACKED_NOT_RADIX (229 of the 254 h <= 256 that are not 128 * F)."""
+    return radix_plan(h) is not None and h not in PACKED_NOT_RADIX
+
+
+def packed_dense_form(h: int) -> str:
+    """The kernel that kernel 15's dense rows run at half length h: "radix"
+    (the radix row core, :func:`packed_dense_radix`) or "chirp" (the
+    real-input chirp-z of the rows on kernel 11's column kernel, at the 23
+    primes 131 ... 251, which have no plan, and at h = 1 and 31, where it
+    beat the dense product 3.2x and 1.13x; time_kernels.py --route-dense on
+    an H100)."""
+    return "radix" if packed_dense_radix(h) else "chirp"
+
+
+def packed_blue_rows(mk: int, count: int, sms: int) -> int:
+    """Rows a tile of kernel 15's chirp-z at convolution length mk: the
+    fewest (a power of two) whose ceil(mk / 16) threads a row fill whole
+    warps, at most :func:`~.fft.radix_mid_cols`'s count at mk (the
+    16-element form, halved while SMs would idle). One row is one contiguous
+    run, so fewer rows read fewer sectors a warp; the warps' idle lanes set
+    the floor. (On an H100 this count ran fastest, or within 1.1%, of the
+    counts 1 ... 32 at each of the 25 h that take the chirp-z;
+    radix_mid_cols's own count ran 9-20% slower at M = 512 (8 rows against
+    1) and 29% at h = 31 (M = 64, 32 rows against 8): time_kernels.py
+    --route-dense.)"""
+    most = radix_mid_cols(mk, 1, count, sms)
+    tr = -(-mk // 16)
+    c = 1
+    while c < most and (c * tr) % 32:
+        c *= 2
+    return c
+
+
+def r2c_packed_blue_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel 15's rows on the chirp-z: (T, 2h) float32 ->
+    (T, h+1) complex64, kernel 20's chirp-z plain version
+    (:func:`r2c_blue_plain`) on the rows as the columns of a (1, 2h, T)
+    view."""
+    return r2c_blue_plain(x.t()[None])[0].t().contiguous()
+
+
+def r2c_blue_rows_launch(x: torch.Tensor, out: torch.Tensor, c: int) -> None:
+    """Launch kernel 15's rows on kernel 11's column kernel, ``c`` rows a
+    tile, on the (T, 2h) float32 rows of a CUDA tensor x into the (T, h+1)
+    complex64 out (``csrc/rfft_blue_radix.cu``: kernel 20's even chirp-z with
+    row-addressed policies); counts nothing."""
+    if x.data_ptr() % 8:       # the kernel reads rows as float2
+        x = x.clone()
+    t, n = x.shape
+    h = n // 2
+    dev = x.device
+    mk = chirp_m(h)
+    a, hh = _device_r2c_blue(h, dev)
+    plan = radix_plan(mk)
+    with torch.cuda.device(dev):
+        err = _build.lib().ndfft_r2c_blue_rows(
+            x.data_ptr(), out.data_ptr(), a.data_ptr(), hh.data_ptr(),
+            _device_tw(n, dev).data_ptr(), device_radix(mk, -1, dev).data_ptr(),
+            (ctypes.c_int * RADIX_MAX_STAGES)(*plan), len(plan), t, h, mk, c,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ndfft_r2c_blue_rows")
+
+
+_PACKED_DENSE_PLAIN = {"radix": r2c_radix_plain, "chirp": r2c_packed_blue_plain}
 
 
 def r2c_packed_dense(x: torch.Tensor) -> torch.Tensor:
     """R2C of the rows of a (T, n) float32 tensor -> (T, n/2+1) complex64,
-    n even, n <= 512. Where :func:`packed_dense_radix` holds h = n/2, a CPU
-    tensor runs :func:`r2c_radix_plain` and a CUDA tensor launches kernel
-    15 on the radix row core with the unpack epilogue (counted in
-    ``radix_launches`` as well); at the other h the real product
-    (:func:`r2c_packed_dense_plain`). Anything else raises."""
+    n even, n <= 512, on the kernel :func:`packed_dense_form` names at
+    h = n/2. A CPU tensor runs that kernel's plain version; a CUDA tensor
+    launches kernel 15 on the radix row core with the unpack epilogue
+    (counted in ``radix_launches`` as well) or its chirp-z
+    (``chirp_launches``). Anything else raises."""
     _check_packed(x, "r2c_packed_dense")
     t, n = x.shape
     if n % 2 or not 2 <= n <= 2 * PACKED_DENSE_MAX_H:
         raise ValueError(f"r2c_packed_dense: n={n} is not even in 2 ... "
                          f"{2 * PACKED_DENSE_MAX_H}")
-    radix = packed_dense_radix(n // 2)
+    form = packed_dense_form(n // 2)
     if x.device.type == "cpu":
-        return r2c_radix_plain(x) if radix else r2c_packed_dense_plain(x)
+        return _PACKED_DENSE_PLAIN[form](x)
     if x.device.type != "cuda":
         raise ValueError(f"r2c_packed_dense: unsupported device {x.device}")
-    if radix:
+    if form == "radix":
         return _r2c_rows(x, r2c_packed_dense, packed_dense_rows(n // 2, t, num_sms(x.device)))
     check_cuda(x, torch.float32, "r2c_packed_dense")
     out = torch.empty((t, n // 2 + 1), dtype=torch.complex64, device=x.device)
     if t == 0:
         return out
-    r2c_dense_rows_launch(x, out)
+    r2c_blue_rows_launch(x, out, packed_blue_rows(chirp_m(n // 2), t, num_sms(x.device)))
     r2c_packed_dense.launches += 1
+    r2c_packed_dense.chirp_launches += 1
     return out
-
-
-def r2c_dense_rows_launch(x: torch.Tensor, out: torch.Tensor) -> None:
-    """Launch kernel 15's dense product on the (T, n) float32 rows of a CUDA
-    tensor x into the (T, n/2+1) complex64 out (``csrc/rfft_dense.cu``, kernel
-    20's table); counts nothing."""
-    t, n = x.shape
-    w = _device_dense("r2c", n, 1.0, x.device)
-    tm = dense_tile(2 * (n // 2 + 1), 1, t, num_sms(x.device))
-    with torch.cuda.device(x.device):
-        err = _build.lib().ndfft_r2c_dense_rows(
-            w.data_ptr(), x.data_ptr(), out.data_ptr(), t, n, tm,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "r2c_packed_dense")
 
 
 r2c_packed_dense.launches = 0
 r2c_packed_dense.radix_launches = 0
+r2c_packed_dense.chirp_launches = 0
 
 
 r2c_packed_generic_plain = r2c_radix_plain  # kernel 15 at a generic h

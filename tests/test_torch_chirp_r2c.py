@@ -2,8 +2,8 @@
 chirp-z (``csrc/fft_blue_radix.cu``) on the CPU, against the JAX package:
 
 * the dense rows' wrapper ``r2c_packed_dense`` (its plain version on a CPU
-  tensor: the radix row core's at h with a plan, the dense product's at
-  h = 131 and 251) against ``ops/pallas/rfft.py::r2c_pallas`` in interpret
+  tensor: the radix row core's at h with a plan, the chirp-z's at h = 131
+  and 251) against ``ops/pallas/rfft.py::r2c_pallas`` in interpret
   mode and float64 numpy, h = 2, 3, 64, 97, 100, 131, 251;
 * the chirp-z's plain version ``r2c_blue_plain`` against
   ``r2c_dense_pallas_mid`` in interpret mode and float64 numpy at n = 131,

@@ -235,8 +235,7 @@ def test_mid_rfft_kernels_match_plain(dev):
         plain = krfft._R2C_DENSE_PLAIN[krfft.r2c_dense_form(n)]
         assert _rel(krfft.r2c_dense_mid(x), plain(x)) <= TOL
         s = torch.view_as_complex(torch.randn(nb, n // 2 + 1, cols, 2, generator=g, device=dev))
-        plain = (krfft.c2r_dense_radix_plain if krfft.c2r_dense_radix(n)
-                 else krfft.c2r_dense_mid_plain)
+        plain = krfft._C2R_DENSE_PLAIN[krfft.c2r_dense_form(n)]
         for scale in (None, 1 / n):
             assert _rel(krfft.c2r_dense_mid(s, n, scale), plain(s, n, scale)) <= TOL
 
@@ -275,8 +274,7 @@ def test_packed_r2c_kernels_match_plain(dev):
             got, want = krfft.r2c_packed(x), krfft.r2c_packed_plain(x)
         else:
             got = krfft.r2c_packed_dense(x)
-            want = (krfft.r2c_radix_plain if krfft.packed_dense_radix(h)
-                    else krfft.r2c_packed_dense_plain)(x)
+            want = krfft._PACKED_DENSE_PLAIN[krfft.packed_dense_form(h)](x)
         assert got.shape == (t, h + 1)
         assert _rel(got, want) <= 2e-6
 
@@ -637,6 +635,71 @@ def test_blue_radix_kernel_matches_plain(dev):
         assert kfft.c2c_blue_mid.radix_launches - launches == 1
 
 
+def _blue_fits(mk, c):
+    """A chirp-z tile of kernels 21 and 15 (their 16-element form only)."""
+    return mk * c <= kfft.RADIX_WIDE_N and kfft.radix_cols_threads(mk, c) <= kfft.RADIX_MAX_THREADS
+
+
+def test_c2r_chirp_kernel_matches_plain(dev):
+    """Kernel 21's chirp-z C2R on kernel 11's column kernel: even n (kernel
+    17's load and inverse unpack as the prologue, chirp length n/2) and odd
+    n (the Hermitian extension, chirp length n), at each column count C that
+    fits, ragged L, scales None and 1/n, with DC and Nyquist imaginary parts
+    to be ignored; through the wrapper where rfft.py::c2r_dense_form names
+    it, each launch counted in chirp_launches."""
+    g = torch.Generator(device=dev).manual_seed(33)
+    for nb, n, cols in ((2, 262, 130), (1, 263, 257), (1, 449, 65), (1, 1094, 33),
+                        (1, 1099, 17), (3, 5, 129), (2, 4, 65)):
+        s = torch.view_as_complex(torch.randn(nb, n // 2 + 1, cols, 2, generator=g, device=dev))
+        s[:, 0] += 100j
+        s[:, -1] += 100j if n % 2 == 0 else 0
+        mk = kfft.chirp_m(krfft.r2c_mid_len(n))
+        for scale in (None, 1 / n):
+            want = krfft.c2r_blue_plain(s, n, scale)
+            for c in (1, 2, 4, 8, 16):
+                if not _blue_fits(mk, c):
+                    continue
+                got = torch.full((nb, n, cols), float("nan"), device=dev)
+                krfft.c2r_blue_launch(s, got, n, scale, c)
+                assert _rel(got, want) <= TOL, (n, c, scale)
+        ref = torch.fft.irfft(s.to(torch.complex128), n=n, dim=1)
+        assert _rel(krfft.c2r_blue_plain(s, n, 1 / n).double(), ref) <= 2e-6
+    chirp = [n for n in range(4, 1101) if krfft.c2r_dense_form(n) == "chirp"]
+    before = (krfft.c2r_dense_mid.launches, krfft.c2r_dense_mid.chirp_launches)
+    for n in chirp[::40]:
+        s = torch.view_as_complex(torch.randn(2, n // 2 + 1, 130, 2, generator=g, device=dev))
+        assert _rel(krfft.c2r_dense_mid(s, n, 1 / n), krfft.c2r_blue_plain(s, n, 1 / n)) <= TOL, n
+    calls = len(chirp[::40])
+    assert (krfft.c2r_dense_mid.launches - before[0],
+            krfft.c2r_dense_mid.chirp_launches - before[1]) == (calls, calls)
+
+
+def test_dense_rows_chirp_kernel_matches_plain(dev):
+    """Kernel 15's rows at a prime half length h on the chirp-z (kernel
+    20's even form with row-addressed policies) at each count of rows a tile
+    that fits, ragged row counts; through the wrapper at every h that
+    rfft.py::packed_dense_form names "chirp", counted in chirp_launches."""
+    g = torch.Generator(device=dev).manual_seed(34)
+    for t, h in ((300, 131), (16384, 131), (129, 173), (65, 251), (7, 211)):
+        x = torch.randn(t, 2 * h, generator=g, device=dev)
+        want = krfft.r2c_packed_blue_plain(x)
+        mk = kfft.chirp_m(h)
+        for c in (1, 2, 4, 8, 16, 32):
+            if not _blue_fits(mk, c):
+                continue
+            got = torch.full((t, h + 1), float("nan"), dtype=torch.complex64, device=dev)
+            krfft.r2c_blue_rows_launch(x, got, c)
+            assert _rel(got, want) <= 2e-6, (h, c)
+        assert _rel(want.to(torch.complex128), torch.fft.rfft(x.double(), dim=1)) <= 2e-6
+    chirp = [h for h in range(1, 257) if krfft.packed_dense_form(h) == "chirp"]
+    before = (krfft.r2c_packed_dense.launches, krfft.r2c_packed_dense.chirp_launches)
+    for h in chirp:
+        x = torch.randn(130, 2 * h, generator=g, device=dev)
+        assert _rel(krfft.r2c_packed_dense(x), krfft.r2c_packed_blue_plain(x)) <= 2e-6, h
+    assert (krfft.r2c_packed_dense.launches - before[0],
+            krfft.r2c_packed_dense.chirp_launches - before[1]) == (len(chirp), len(chirp))
+
+
 def test_dense_rows_radix_kernel_matches_plain(dev):
     """Kernel 8 at n <= 256 on the radix row core: one row of n < 16 a
     thread (up to 256 rows a block at n = 2), odd n at odd row offsets
@@ -889,8 +952,9 @@ def test_r2c_chirp_kernel_matches_plain(dev):
 
 def test_dense_rows_radix_kernel_matches_plain(dev):
     """Kernel 15's dense rows on the radix row core (the unpack epilogue),
-    many rows a block at h = 2, 3 and 5, odd h; the dense product at h = 1,
-    31 and the prime 131; launches on the core counted in radix_launches."""
+    many rows a block at h = 2, 3 and 5, odd h; the form that
+    rfft.py::packed_dense_form names at h = 1, 31 and the prime 131;
+    launches on the core counted in radix_launches."""
     g = torch.Generator(device=dev).manual_seed(32)
     before = (krfft.r2c_packed_dense.launches, krfft.r2c_packed_dense.radix_launches)
     calls = [0, 0]
@@ -898,7 +962,7 @@ def test_dense_rows_radix_kernel_matches_plain(dev):
                  (65, 250), (129, 1), (300, 131), (129, 31)):
         x = torch.randn(t, 2 * h, generator=g, device=dev)
         radix = krfft.packed_dense_radix(h)
-        want = (krfft.r2c_radix_plain if radix else krfft.r2c_packed_dense_plain)(x)
+        want = krfft._PACKED_DENSE_PLAIN[krfft.packed_dense_form(h)](x)
         assert _rel(krfft.r2c_packed_dense(x), want) <= 2e-6, h
         for rows in (1, 3) if radix else ():
             assert _rel(krfft.r2c_radix_launch(x, "rows", rows), want) <= 2e-6, (h, rows)
@@ -1325,8 +1389,7 @@ def test_dense_radix_kernels_match_plain(dev):
     for nb, n, cols in ((1, 256, 65536), (1, 129, 65536), (1, 255, 32768), (1, 262, 130),
                         (1, 1099, 130)):
         s = crandn(nb, n // 2 + 1, cols)
-        plain = (krfft.c2r_dense_radix_plain if krfft.c2r_dense_radix(n)
-                 else krfft.c2r_dense_mid_plain)
+        plain = krfft._C2R_DENSE_PLAIN[krfft.c2r_dense_form(n)]
         assert _rel(krfft.c2r_dense_mid(s, n, 1 / n), plain(s, n, 1 / n)) <= TOL, n
     for shape, types in (((1, 512, 262144), (2, 3)), ((1024, 1024, 1024), (2, 3)),
                          ((1, 129, 16641), (1,)), ((2, 130, 130), (1,)), ((2, 1024, 130), (4,)),

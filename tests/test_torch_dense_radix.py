@@ -19,12 +19,13 @@ package.
   ``scipy.fft.dct`` at those and every 25th length with a plan of each
   type;
 * the plan sets: 439 even and 332 odd n with a plan in 4 ... 1100, of
-  which the route sends 707 to kernel 21 on the radix column tile (512,
-  768 and 1024 are kernel 17's, 61 odd n keep the dense product); 772
+  which the route sends 698 to kernel 21 on the radix column tile (512,
+  768 and 1024 are kernel 17's, 61 odd n keep the dense product, 9 take
+  the chirp-z); 772
   DCT-I lengths with a plan, 671 of them on the radix column tile, and
   439 DCT-II/III lengths of kernel 27;
-* on a CPU tensor each wrapper runs the radix plain version at a radix
-  length and the dense one elsewhere, and counts no launch;
+* on a CPU tensor each wrapper runs the plain version of the kernel its
+  route names at n, and counts no launch;
 * ``ndifft_r2c``, ``nddct1..3`` and ``nddst2..3`` along axis 0 of (n, 130)
   and axis 1 of (2, n, 130) against the JAX package on the same inputs.
 
@@ -180,16 +181,17 @@ def test_dct_radix_plain_matches_float64(dct_type, n):
 def test_plan_sets():
     """Of 4 <= n <= 1100, 439 even n have a plan of n/2 and 332 odd n one of
     n; the route sends all but 512, 768 and 1024 (kernel 17's) to kernel 21,
-    768 of its 1094 lengths with a plan, 707 of them to the radix column
+    768 of its 1094 lengths with a plan, 698 of them to the radix column
     tile (the 61 odd n that fft.dense_beats_radix gives the dense product:
-    a prime stage p >= 11 and n < 128 or n <= 3 p). DCT-I has 772 lengths
+    a prime stage p >= 11 and n < 128 or n <= 3 p; the 9 that
+    rfft.py::chirp_beats_radix gives the chirp-z). DCT-I has 772 lengths
     with a plan of n - 1, 671 on the tile; DCT-II/III 439 each."""
     plans = [n for n in range(4, 1101) if krfft.r2c_mid_radix(n)]
     assert (len([n for n in plans if n % 2 == 0]), len([n for n in plans if n % 2])) == (439, 332)
     lengths, radix = _k21_lengths()
     assert set(range(4, 1101)) - set(lengths) == {512, 768, 1024}
     assert (len(lengths), len(radix)) == (1094, 768)
-    dense = [n for n in radix if not krfft.c2r_dense_radix(n)]
+    dense = [n for n in radix if krfft.c2r_dense_form(n) == "dense"]
     assert len(dense) == 61 and all(n % 2 for n in dense)
     assert (dense[0], dense[-1], 129 in dense, 215 in dense, 387 in dense) == (
         23, 381, True, False, False)
@@ -200,17 +202,19 @@ def test_plan_sets():
     assert not any(kdct.dct_radix_len(n, 4) for n in range(2, 1101))
 
 
+# 635 = 5 * 127 has a plan, but kernel 21 runs the chirp-z there
+# (rfft.py::chirp_beats_radix)
 @pytest.mark.parametrize("n,radix", [(128, True), (129, False), (255, True), (262, False),
-                                     (381, False), (635, True), (1099, False)])
+                                     (381, False), (635, False), (1099, False)])
 def test_c2r_wrapper_dispatch(n, radix):
     spec = torch.from_numpy(_spec((1, n // 2 + 1, 5), n))
     fn = krfft.c2r_dense_mid
-    before = (fn.launches, fn.radix_launches)
+    before = (fn.launches, fn.radix_launches, fn.chirp_launches)
     got = fn(spec, n, 0.5)
-    plain = krfft.c2r_dense_radix_plain if radix else krfft.c2r_dense_mid_plain
-    assert krfft.c2r_dense_radix(n) == radix
+    plain = krfft._C2R_DENSE_PLAIN[krfft.c2r_dense_form(n)]
+    assert (krfft.c2r_dense_form(n) == "radix") == radix
     assert torch.equal(got, plain(spec, n, 0.5))
-    assert (fn.launches, fn.radix_launches) == before
+    assert (fn.launches, fn.radix_launches, fn.chirp_launches) == before
 
 
 @pytest.mark.parametrize("dct_type,n,radix", [(1, 3, True), (1, 2, False), (1, 265, True),

@@ -89,18 +89,20 @@ kernel 17 on the radix column tile at each column count C that fits
 (1, 1025, 65536), (1, 2049, 32768), (1, 4097, 16384) and (1, 10241, 130).
 
 With --route-dense JSON [--route-kernels K ...] it times instead (the
-kernels K of 21, 27, 20 and 15, all by default) kernels 21 and 27 at every length
+kernels K of 21, 27, 20 and 15, all by default) kernel 27 at every length
 that has a radix plan, on the radix column tile and on the dense product,
-over (1, n, 2^23 / n) reals (kernel 21: the spectrum of that); kernel 20 at
-every length 4 ... 1100 on the radix column tile (where a plan exists), on
-its chirp-z at each column count C that fits and on the dense product, over
-(1, n, 2^23 / n) reals; and kernel 15 at every half length h <= 256 that is
-not 128 F and has a plan, on the radix row core and on the dense product,
-over (2^23 / 2h, 2h) reals (the radix row core at rfft.py::
-packed_dense_rows's count a block and at fft.py::radix_block's). It writes
-the times by n to JSON and prints,
-for each family, the lengths where another kernel than the route's was
-faster, and the chirp-z's fastest C by convolution length.
+over (1, n, 2^23 / n) reals; kernels 21 and 20 at every length 4 ... 1100
+on the radix column tile (where a plan exists), on their chirp-z at each
+column count C that fits and on the dense product, over (1, n, 2^23 / n)
+reals (kernel 21: the spectrum of that); and kernel 15 at every half length
+h <= 256 that is not 128 F, on the radix row core (where a plan exists; at
+rfft.py::packed_dense_rows's count a block and at fft.py::radix_block's)
+and on its chirp-z at each count of rows a tile, over (2^23 / 2h, 2h)
+reals. It writes the times by n to JSON and prints, for
+each family, the lengths where another kernel than the route's was faster,
+each route's summed time against the fastest kernel's and against the
+dense product's at the lengths off the radix kernel, and the chirp-z's
+fastest C by convolution length.
 
 With --ptxas it prints instead the registers and spill bytes of every entry
 function of its tree's build (ptxas -v in nvcc.log), to hold two trees'
@@ -108,13 +110,17 @@ kernels against each other.
 
 With --dense it times instead kernels 15, 20, 21 and 27 at their main
 shapes, each with a digest of its output: kernel 15 (r2c_packed_dense) at
-(16384, 128), (200, 200) and (16384, 262) (h = 131, the dense product) and
+(16384, 128), (200, 200), (16384, 262), (16384, 502), (16384, 62) and
+(16384, 2) (h = 131, 251, 31 and 1: the chirp-z, the dense product in a
+parent before it) and
 kernel 20 (r2c_dense_mid) at (1, 262, 65536), (1, 131, 65536),
 (1, 1094, 7668) and (1, 1097, 7647), beside torch.fft.rfft, each also as
 device time alone (the replays of a CUDA graph of 20 calls, "_device");
 kernel 21 (c2r_dense_mid, scale 1/n) at (1,
 129, 65536), (1, 65, 65536) (odd n = 129), (1, 128, 32768) (odd n = 255),
-(1, 133, 264) and (1, 65, 128) beside torch.fft.irfft, kernel 27
+(1, 133, 264), (1, 65, 128), (1, 132, 65536) (n = 262) and (1, 548, 7668)
+(n = 1094) beside torch.fft.irfft (the last two also as device time
+alone), kernel 27
 (dct_dense_mid, scale 2) of types 2 and 3 at (1, 512, 262144) and (1024,
 1024, 1024), of type 1 at (129, 129, 129) and of type 4 at (1, 1024, 1024)
 beside torch.matmul with the scaled DCT matrix; kernels 16, 17, 18 and 20
@@ -143,6 +149,10 @@ import os
 import statistics
 import subprocess
 import sys
+
+# this tree's helpers, before --root puts another tree first on the path:
+# the CUDA-graph timer and the float32 Makhoul DCT through torch.fft
+from chip_smoke import graph_ms, makhoul_dct
 
 
 def main() -> int:
@@ -464,33 +474,6 @@ def scan_c2r(torch, kfft, krfft, dev, crandn, ms, card, root):
     return 0
 
 
-def graph_ms(torch, fn, calls: int = 20, reps: int = 20):
-    """The device time of one fn(), without the host's time between
-    launches: the median over ``reps`` replays of a CUDA graph of ``calls``
-    calls, over ``calls``; None where the capture fails."""
-    try:
-        fn()        # tables and plans are built before the capture
-        torch.cuda.synchronize()
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for _ in range(calls):
-                fn()
-        g.replay()
-        torch.cuda.synchronize()
-    except RuntimeError:
-        return None
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        g.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / calls)
-    return statistics.median(times)
-
-
 def digest(t) -> str:
     """sha256 of a tensor's bytes, the first 16 hex digits."""
     import hashlib
@@ -594,7 +577,6 @@ def s1(torch, nd, dev, gen, ms, reps_big, out):
 def dense(torch, nd, krfft, kdct, dev, gen, crandn, ms, reps_big, out):
     """Kernels 21 and 27 at their main shapes, kernels 16, 17, 18 and 20
     with digests, and the paths that run kernels 21 and 27."""
-    from chip_smoke import makhoul_dct     # the float32 torch.fft yardstick
     from ndrustfft_tpu_torch.ops.hopper import fft as kfft
 
     def key(name, shape, *tags):
@@ -605,7 +587,9 @@ def dense(torch, nd, krfft, kdct, dev, gen, crandn, ms, reps_big, out):
     # 1097 and the dense product at 131 (2^23 reals); each also as device
     # time alone (graph_ms), beside the same for torch.fft.rfft
     for name, fn, shapes in (
-            ("r2c_packed_dense", krfft.r2c_packed_dense, ((16384, 128), (200, 200), (16384, 262))),
+            ("r2c_packed_dense", krfft.r2c_packed_dense,
+             ((16384, 128), (200, 200), (16384, 262), (16384, 502), (16384, 62),
+              (16384, 2))),
             ("r2c_dense_mid", krfft.r2c_dense_mid,
              ((1, 262, 65536), (1, 131, 65536), (1, 1094, 7668), (1, 1097, 7647)))):
         for shape in shapes:
@@ -613,8 +597,8 @@ def dense(torch, nd, krfft, kdct, dev, gen, crandn, ms, reps_big, out):
             dim = -1 if len(shape) == 2 else 1
             out[key(name, shape)] = (ms(lambda: fn(x)), ms(lambda: torch.fft.rfft(x, dim=dim)),
                                      digest(fn(x)))
-            out[key(name, shape, "device")] = (graph_ms(torch, lambda: fn(x)),
-                                               graph_ms(torch, lambda: torch.fft.rfft(x, dim=dim)))
+            out[key(name, shape, "device")] = (graph_ms(lambda: fn(x)),
+                                               graph_ms(lambda: torch.fft.rfft(x, dim=dim)))
             del x
     # kernel 11, whose column kernel kernel 20's chirp-z shares
     for shape in ((1, 509, 259081), (1, 1031, 1024)):
@@ -625,12 +609,20 @@ def dense(torch, nd, krfft, kdct, dev, gen, crandn, ms, reps_big, out):
         del z
     torch.cuda.empty_cache()
 
+    # kernel 21 on the radix tile (n = 256, 255, 264, 128), the dense
+    # product (n = 129) and the chirp-z (n = 262, 1094; the product in the
+    # parent), the last two also as device time alone
     for shape, n in (((1, 129, 65536), 256), ((1, 65, 65536), 129), ((1, 128, 32768), 255),
-                     ((1, 133, 264), 264), ((1, 65, 128), 128)):
+                     ((1, 133, 264), 264), ((1, 65, 128), 128), ((1, 132, 65536), 262),
+                     ((1, 548, 7668), 1094)):
         s = crandn(*shape)
         out[key("c2r_dense_mid", shape, n)] = (
             ms(lambda: krfft.c2r_dense_mid(s, n, 1.0 / n)),
             ms(lambda: torch.fft.irfft(s, n=n, dim=1)), digest(krfft.c2r_dense_mid(s, n, 1.0 / n)))
+        if n in (262, 1094):
+            out[key("c2r_dense_mid", shape, n, "device")] = (
+                graph_ms(lambda: krfft.c2r_dense_mid(s, n, 1.0 / n)),
+                graph_ms(lambda: torch.fft.irfft(s, n=n, dim=1)))
         del s
     for shape, types in (((1, 512, 262144), (2, 3)), ((1024, 1024, 1024), (2, 3)),
                          ((129, 129, 129), (1,)), ((1, 1024, 1024), (4,))):
@@ -750,25 +742,23 @@ def scan_dense(torch, kfft, krfft, kdct, dev, gen, crandn, ms, card, root):
 
 
 def route_dense(torch, kfft, krfft, kdct, dev, gen, crandn, ms, card, root, path, kernels):
-    """Kernels 21 and 27 at every length with a radix plan, on the radix
-    column tile (the wrapper's column count) and on the dense product, over
-    about 2^23 reals a call; kernel 20 on each of its kernels and kernel
-    15's dense rows on both (the kernels of ``kernels`` alone): ms of each
-    by n, written to ``path``; prints each family's lengths where another
-    kernel than the route's was faster."""
+    """Kernel 27 at every length with a radix plan, on the radix column
+    tile (the wrapper's column count) and on the dense product; kernels 21
+    and 20 at every length and kernel 15's dense rows at every half length
+    on each of their kernels, the chirp-z at each column (row) count C that
+    fits; over about 2^23 reals a call (the kernels of ``kernels`` alone):
+    ms of each by n, written to ``path``; prints each family's lengths where
+    another kernel than the route's was faster, and each route's summed time
+    against the fastest kernel's."""
     sms = kfft.num_sms(dev)
+
+    def chirp_cols(mk, launch, most=kfft.RADIX_MAX_ELEMS):
+        """{C: ms} of a chirp-z launch(c) at each C that fits at M = mk, in
+        at most ``most`` elements (kernels 21 and 15: the 16-element form)."""
+        return {c: ms(lambda: launch(c), 10) for c in (1, 2, 4, 8, 16, 32)
+                if tile_fits(kfft, mk, c) and mk * c <= most}
+
     scan = {}
-    for n in range(4, 1101) if 21 in kernels else ():
-        if not krfft.r2c_mid_radix(n):
-            continue
-        cols = max(64, (1 << 23) // n)
-        s = crandn(1, n // 2 + 1, cols)
-        y = torch.empty((1, n, cols), device=dev)
-        c = krfft.c2r_dense_cols(n, 1, cols, sms)
-        scan.setdefault("c2r_dense_mid", {})[n] = (
-            ms(lambda: krfft.c2r_dense_radix_launch(s, y, n, 1.0 / n, c), 10),
-            ms(lambda: krfft.c2r_dense_launch(s, y, n, 1.0 / n), 10))
-        del s, y
     for t in (1, 2, 3) if 27 in kernels else ():
         for n in range(3, 1101):
             if kdct.dct_radix_len(n, t) is None:
@@ -781,63 +771,101 @@ def route_dense(torch, kfft, krfft, kdct, dev, gen, crandn, ms, card, root, path
                 ms(lambda: kdct.dct_radix_launch(x, y, t, 2.0, c), 10),
                 ms(lambda: kdct.dct_dense_launch(x, y, t, 2.0), 10))
             del x, y
+    # kernel 21: the radix column tile (where a plan exists), the chirp-z C2R
+    # at each C, the dense product, on the spectrum of (1, n, 2^23 / n)
+    k21 = {}
+    for n in range(4, 1101) if 21 in kernels else ():
+        cols = max(64, (1 << 23) // n)
+        s = crandn(1, n // 2 + 1, cols)
+        y = torch.empty((1, n, cols), device=dev)
+        mk = kfft.chirp_m(krfft.r2c_mid_len(n))
+        row = {"M": mk, "chirp_by_cols": chirp_cols(
+            mk, lambda c: krfft.c2r_blue_launch(s, y, n, 1.0 / n, c), kfft.RADIX_WIDE_N),
+            "chirp_cols": kfft.radix_mid_cols(mk, 1, cols, sms),
+            "dense": ms(lambda: krfft.c2r_dense_launch(s, y, n, 1.0 / n), 10)}
+        if krfft.r2c_mid_radix(n):
+            c = krfft.c2r_dense_cols(n, 1, cols, sms)
+            row["radix"] = ms(lambda: krfft.c2r_dense_radix_launch(s, y, n, 1.0 / n, c), 10)
+        row["chirp"] = row["chirp_by_cols"][row["chirp_cols"]]
+        k21[n] = row
+        del s, y
     # kernel 20: the radix column tile (where a plan exists), the chirp-z at
-    # each column count C that fits, the dense product; kernel 15's rows:
-    # the radix row core (radix_block's rows) and the dense product
+    # each C, the dense product
     k20 = {}
     for n in range(4, 1101) if 20 in kernels else ():
         cols = max(64, (1 << 23) // n)
         x = torch.randn(1, n, cols, generator=gen, device=dev)
         y = torch.empty((1, n // 2 + 1, cols), dtype=torch.complex64, device=dev)
         mk = kfft.chirp_m(krfft.r2c_mid_len(n))
-        row = {"M": mk, "chirp_by_cols": {
-            c: ms(lambda: krfft.r2c_blue_launch(x, y, c), 10)
-            for c in (1, 2, 4, 8, 16, 32) if tile_fits(kfft, mk, c)},
-            "chirp_cols": kfft.radix_mid_cols(mk, 1, cols, sms),
-            "dense": ms(lambda: krfft.r2c_dense_launch(x, y), 10)}
+        row = {"M": mk, "chirp_by_cols": chirp_cols(mk, lambda c: krfft.r2c_blue_launch(x, y, c)),
+               "chirp_cols": kfft.radix_mid_cols(mk, 1, cols, sms),
+               "dense": ms(lambda: krfft.r2c_dense_launch(x, y), 10)}
         if krfft.r2c_mid_radix(n):
             c = krfft.r2c_mid_cols(n, 1, cols, sms)
             row["radix"] = ms(lambda: krfft.r2c_mid_radix_launch(x, y, c), 10)
         row["chirp"] = row["chirp_by_cols"][row["chirp_cols"]]
         k20[n] = row
         del x, y
+    # kernel 15's rows: the radix row core (where a plan exists; at
+    # packed_dense_rows's count a block and at radix_block's) and the
+    # chirp-z of the rows at each C
     k15 = {}
-    for h in range(2, 257) if 15 in kernels else ():
-        if kfft.radix_plan(h) is None or krfft.packed_core(h):
+    for h in range(1, 257) if 15 in kernels else ():
+        if krfft.packed_core(h):
             continue
         x = torch.randn((1 << 23) // (2 * h), 2 * h, generator=gen, device=dev)
         y = torch.empty((x.shape[0], h + 1), dtype=torch.complex64, device=dev)
-        rows = krfft.packed_dense_rows(h, x.shape[0], sms)
-        small = kfft.radix_block(h, x.shape[0], sms)
-        k15[h] = {"radix": ms(lambda: krfft.r2c_radix_launch(x, "scan", rows), 10),
-                  "radix_small_tile": ms(lambda: krfft.r2c_radix_launch(x, "scan", small), 10),
-                  "dense": ms(lambda: krfft.r2c_dense_rows_launch(x, y), 10)}
+        mk = kfft.chirp_m(h)
+        row = {"M": mk, "chirp_by_cols": chirp_cols(
+            mk, lambda c: krfft.r2c_blue_rows_launch(x, y, c), kfft.RADIX_WIDE_N),
+            "chirp_cols": krfft.packed_blue_rows(mk, x.shape[0], sms)}
+        if kfft.radix_plan(h) is not None:
+            rows = krfft.packed_dense_rows(h, x.shape[0], sms)
+            small = kfft.radix_block(h, x.shape[0], sms)
+            row["radix"] = ms(lambda: krfft.r2c_radix_launch(x, "scan", rows), 10)
+            row["radix_small_tile"] = ms(lambda: krfft.r2c_radix_launch(x, "scan", small), 10)
+        row["chirp"] = row["chirp_by_cols"][row["chirp_cols"]]
+        k15[h] = row
         del x, y
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         json.dump({"root": root, "card": card, "radix_ms_and_dense_ms": scan,
-                   "r2c_dense_mid": k20, "r2c_packed_dense": k15}, f)
+                   "c2r_dense_mid": k21, "r2c_dense_mid": k20, "r2c_packed_dense": k15}, f)
 
-    def fastest(row):
-        return min((k for k in ("radix", "chirp", "dense") if k in row), key=row.get)
+    def summary(rows, route):
+        """Summed ms of the route and of the fastest kernel at each length,
+        the product's (the remnant's kernel before the chirp-z) where the
+        route does not name the radix kernel, and the lengths off the
+        route; the chirp-z's fastest C by M."""
+        out = {"route_ms": 0.0, "fastest_ms": 0.0, "dense_ms_off_radix": 0.0,
+               "route_ms_off_radix": 0.0, "off_route": {}, "chirp_best_cols_by_M": {}}
+        for n, row in rows.items():
+            fast = min((k for k in ("radix", "chirp", "dense") if k in row), key=row.get)
+            form = route(n)
+            out["route_ms"] += row[form]
+            out["fastest_ms"] += row[fast]
+            if form != "radix" and "dense" in row:
+                out["dense_ms_off_radix"] += row["dense"]
+                out["route_ms_off_radix"] += row[form]
+            if fast != form:
+                out["off_route"][n] = {"route": form, "fastest": fast, "route_ms": row[form],
+                                       "fastest_ms": row[fast]}
+            out["chirp_best_cols_by_M"].setdefault(row["M"], []).append(
+                min(row["chirp_by_cols"], key=row["chirp_by_cols"].get))
+        out["forms"] = {f: [route(n) for n in rows].count(f) for f in ("radix", "chirp", "dense")
+                        if f in map(route, rows)}
+        return out
 
-    best_c = {}
-    for row in k20.values():
-        best_c.setdefault(row["M"], []).append(min(row["chirp_by_cols"],
-                                                   key=row["chirp_by_cols"].get))
     print(json.dumps({"root": root, "card": card, "dense_faster": {
         name: {n: ts for n, ts in by.items() if ts[1] < ts[0]} for name, by in scan.items()},
         "lengths": {name: len(by) for name, by in scan.items()},
-        "r2c_dense_mid_off_route": {
-            n: {"route": krfft.r2c_dense_form(n), "fastest": fastest(row)}
-            for n, row in k20.items() if fastest(row) != krfft.r2c_dense_form(n)},
-        "r2c_dense_mid_chirp_best_cols_by_M": best_c,
-        "r2c_packed_dense_off_route": {
-            h: row for h, row in k15.items()
-            if (row["radix"] < row["dense"]) != krfft.packed_dense_radix(h)},
+        "c2r_dense_mid": summary(k21, krfft.c2r_dense_form),
+        "r2c_dense_mid": summary(k20, krfft.r2c_dense_form),
+        "r2c_packed_dense": summary(k15, krfft.packed_dense_form),
         "r2c_packed_dense_ms_by_rows_rule": {
-            "packed_dense_rows": sum(row["radix"] for row in k15.values()),
-            "radix_block": sum(row["radix_small_tile"] for row in k15.values())}}), flush=True)
+            "packed_dense_rows": sum(row.get("radix", 0.0) for row in k15.values()),
+            "radix_block": sum(row.get("radix_small_tile", 0.0) for row in k15.values())}}),
+        flush=True)
     return 0
 
 
