@@ -9,7 +9,8 @@ without the final line):
   2. build the CUDA kernels from ndrustfft_tpu_torch/csrc (nvcc, sm_90a);
   3. each kernel against its plain PyTorch version on the card, at the
      slices' shapes (ragged column and row tiles included; the chirp-z
-     forms of kernels 20, 21 and 15 at each column or row count a tile);
+     forms of kernels 20, 21, 15 and 12 at each column or row count a tile,
+     kernel 23 on the radix row core at each count of rows a block);
   4. the main paths through the public functions, each with every launch
      counter set to 0 just before it and read just after; the counters
      must account for every leg and the torch engine must not run:
@@ -76,13 +77,14 @@ without the final line):
         scipy.fft;
      h. DCT-II/III on every axis at every length (kernels 25/26 along a
         middle axis, kernels 23/24 on the wide core and in the n-point
-        form): the 3-D Neumann Poisson solve at 1536^3 float32
-        (DCT-II along axes 2, 1, 0 on K23 and K25 at h = 768, F = 6;
+        form, kernel 23 on the radix row core): the 3-D Neumann Poisson
+        solve at 1536^3 float32 (DCT-II along axes 2, 1, 0 on K23 at
+        h = 768 on the radix row core and K25 at F = 6;
         division by the eigenvalues in place, slab by slab; DCT-III back on
         K26 and K24), its forward spectrum against the exact sparse values
         and its solution against the analytic one, slab by slab in float64;
-        the DCT-II/III pair along both axes of 2048^2 (K23-K26 on the fixed
-        core), nddct2/nddct3 along axis 0 at 1152 (n-point) and 1280
+        the DCT-II/III pair along both axes of 2048^2 (K24-K26 on the fixed
+        core, K23 on the radix row core), nddct2/nddct3 along axis 0 at 1152 (n-point) and 1280
         (wide) and along the last axis at 128, 384 (n-point) and 768
         (wide), nddst2 along axis 0 at 1536, and the R2C/C2R along axis 0
         at 768 and 1280 (K16/K17 at F = 3, 5) against float64 scipy.fft /
@@ -112,10 +114,11 @@ without the final line):
         axis 2, its sub-FFTs on K10 at M = 1024) against torch.fft.fftn in
         complex128 with the round trip, its time against torch.fft.fftn +
         ifftn and each forward leg's; the 2049^2 x 256 cell-centred Neumann
-        solve (dctn / idctn of type 2: K12 wide, F = 33, on axes 0 and 1;
-        K23/K24 on axis 2) against its exact spectrum and analytic solution,
-        its time and peak memory against a float32 torch.fft Makhoul solve
-        (in slabs, to fit); ndfft, R2C/C2R, DCT-I..IV and DST-I/II at
+        solve (dctn / idctn of type 2: K12's chirp-z at M = 4608 on axes 0
+        and 1; K23/K24 on axis 2) against its exact spectrum and analytic
+        solution, its time and peak memory against a float32 torch.fft
+        Makhoul solve (in slabs, to fit), with K12's Makhoul permutations
+        timed alone; ndfft, R2C/C2R, DCT-I..IV and DST-I/II at
         Bluestein lengths 131 ... 6781 on both axis kinds against float64
         torch.fft / scipy.fft; K11, K12 and K10 at the main paths' shapes
         against their plain versions slice by slice, with their times;
@@ -164,11 +167,12 @@ without the final line):
         the wide core's real tile at n = 128 k, odd k > 160; kernel 28's
         long form at n = 256 F, F > 160): G1, the cell-centred Neumann
         Poisson solve on a 31104^2 grid (F = 243) through dctn / idctn of
-        type 2 (K23 and K25 long, then K26 and K24 long) and again with
-        ndspectral_dct on axis 0 and the lane-varying H = 1/lambda (K23,
-        K29 long, K24), its time against a float32 torch.fft Makhoul solve;
-        G2, the mixed Neumann-Dirichlet solve on 65536 x 8192 (DCT-IV on
-        axis 0: K28 long, F = 256; DCT-II/III on axis 1: K23/K24 wide);
+        type 2 (K23 on the radix row core and K25 long, then K26 and K24
+        long) and again with ndspectral_dct on axis 0 and the lane-varying
+        H = 1/lambda (K23, K29 long, K24), its time against a float32
+        torch.fft Makhoul solve; G2, the mixed Neumann-Dirichlet solve on
+        65536 x 8192 (DCT-IV on axis 0: K28 long, F = 256; DCT-II/III on
+        axis 1: K23 on the radix row core, K24 wide);
         each against its exact spectrum and analytic solution, with its
         time and peak memory; DCT-II/III and DST-II/III at 20608 ... 32640,
         DCT-IV/DST-IV at 41216 ... 65536 and ndspectral_dct /
@@ -236,6 +240,14 @@ without the final line):
         128 F (229 on the radix row core, h = 1, 31 and the primes 131 ...
         251 on the chirp-z), against torch.fft.rfft in float64 (oracle
         only), within 1e-6 of the oracle's peak;
+     x. the census of kernels 23 and 12: nddct2 over (128, n) at each of
+        the 259 lengths n = 128 k whose half length has a radix plan
+        (kernel 23 on the radix row core), and nddct2 and nddct3 along
+        axis 1 of (1, n, 130) at each of the 3264 Bluestein lengths n =
+        1101 ... 6782 that the gates send to kernel 12 (its chirp-z at 15
+        convolution lengths M = 2304 ... 14336), against a float64
+        torch.fft Makhoul lowering (oracle only), within 1e-5 of the
+        oracle's peak (the worst error reported);
   5. times with CUDA events (median over --reps runs after warm-up): each
      kernel against its plain version and, where one PyTorch call computes
      the same function, that call (the yardstick, never on the port's
@@ -247,7 +259,10 @@ without the final line):
      torch.fft (kernel 21 also beside its dense product), and as device
      time alone (a CUDA graph of 20 calls), and kernel 15's dense rows at
      (16384, 128),
-     (200, 200), (16384, 262), (16384, 502) and (16384, 62); the steps
+     (200, 200), (16384, 262), (16384, 502) and (16384, 62); kernel 23 on
+     the radix row core at (262144, 512) and (2359296, 1536) with each
+     count of rows a block, and kernel 12 at (1, 2049, 524544) and
+     (2049, 2049, 256) with each column count C; the steps
      against torch.fft.rfftn / irfftn, the DCT pair and
      Poisson solve against the same compositions through a float32
      torch.fft Makhoul lowering, the complex paths against
@@ -296,14 +311,14 @@ error against its plain version, its times, and its bound: the larger of
 the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its FP32 operations over 67 TFLOP/s (H100 SXM data
 sheet, 700 W). Its launches are the sum over the main paths of phase 4;
-kernels 12, 13, 14, 19 and 22 on the bts2 core are two rows each, the
+kernels 13, 14, 19 and 22 on the bts2 core are two rows each, the
 fixed core (launches - wide_launches) and the wide one (wide_launches;
-K11 and K12 rows also give the bound of their two length-M FFTs per
+the K11 and K12 rows also give the bound of their two length-M FFTs per
 column, ``length_m_bound_ms``); kernels 10, 2, 3 and 15
 (``r2c_packed`` at h = 128 F), kernel 8 (its rows at n <= 256
 counted in c2c_dense_rows.radix_launches as well, above in
-``c2c_generic_rows``), kernels 1, 6, 4, 11, 16, 17 and 18 (each counted in
-radix_launches as well) and kernel 15's generic form
+``c2c_generic_rows``), kernels 1, 6, 4, 11, 12, 16, 17 and 18 (each counted
+in radix_launches as well) and kernel 15's generic form
 (``r2c_packed_generic``) run on the radix core, one row each; kernels 20,
 21 and 27 two each: the radix column tile (``r2c_dense_mid_radix``,
 ``c2r_dense_mid_radix``, ``dct_dense_mid_radix``; radix_launches) and the
@@ -314,11 +329,14 @@ type under ``by_type``, kernels 20 and 21 a third, their chirp-z
 bound of the two length-M FFTs), and kernel 15's dense rows two: the radix
 row core (``r2c_packed_dense_radix``; radix_launches) and the chirp-z
 (``r2c_packed_dense_chirp``; chirp_launches); and
-kernels 23 to 26 and 29 three: the fixed core, the wide core's half length
-and the n-point form (npoint_launches); kernel 7 three: the fixed core, the
-wide core and the dense body (dense_launches); kernel 28 three: the fixed
-core, the wide core and the long form (long_launches). The n-point rows
-give the long lengths' shapes (phase 4m) under ``solve_shapes``.
+kernels 24 to 26 and 29 three: the fixed core, the wide core's half length
+and the n-point form (npoint_launches), kernel 23 three: the radix row
+core (``dct2_nat_radix``; radix_launches), the wide core's half length and
+the n-point form at the 29 lengths without a plan; kernel 7 three: the
+fixed core, the wide core and the dense body (dense_launches); kernel 28
+three: the fixed core, the wide core and the long form (long_launches).
+The n-point rows give the long lengths' shapes (phase 4m) under
+``solve_shapes``.
 The line before the last is the card as nvidia-smi names it; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -351,7 +369,7 @@ FORMS = ("wide", "npoint", "dense", "long", "radix", "chirp")
 # ``radix_launches`` equal their ``launches``
 RADIX_ONLY = ("c2c_axis_mid", "c2c_rows", "r2c_nat", "r2c_packed", "c2c_dense_rows",
               "c2c_generic_mid", "c2c_dense_mid", "c2c_blue_mid", "r2c_mid", "r2c_packed_mid",
-              "c2r_nat", "c2r_mid")
+              "c2r_nat", "c2r_mid", "dct23_blue_mid")
 TOL_CENSUS = 1e-6    # the radix core's censuses (phases 4r to 4v)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, 700 W
 FP32_FLOP_PER_S = 67e12     # FP32 outside the tensor cores, same source
@@ -401,8 +419,9 @@ def work(name: str, shape, length_m: bool = False, mult=None, n=None, dct_type=2
     Wq for its core length (n/2, or n in the n-point form) and its twiddles.
     The chirp-z kernels (K11, K12) read and write 16 or 8 bytes per element
     and do the function's 5 n log2 n or 2.5 n log2 n per column; their tables
-    are the two chirps, H and both cores' Wq (and DFT-F) at the convolution
-    length M (K11 on the radix core: the chirp, H and the radix table of M).
+    are the chirp (K12: its entry and exit tables), H and the radix table of
+    their convolution length M. Kernel 23 on the radix row core reads and
+    writes n reals per row, with the radix table of n/2 and its twiddles.
     ``length_m``: their operations as two complex FFTs of length M
     per column instead. ``n``: a C2R's real length where the spectrum's
     (B, m, L) does not give it (odd n = 2m - 1); ``dct_type``: the DCT that
@@ -457,19 +476,26 @@ def work(name: str, shape, length_m: bool = False, mult=None, n=None, dct_type=2
                 8 * n1 * 128 + (8 * (n1 // 128) ** 2 if name.endswith("_wide") else 0))
         return io + 8 * n1 * n2 + body, (5 * n1 * math.log2(n1) + 6 * n1) * b * n2
     if "blue" in name:
+        # K11 at M = 128 ceil((2n - 1) / 128), K12 at M = chirp_m(n), both
+        # on the radix column tile: the chirp (K12: its entry and exit
+        # tables), H and the radix table of M
+        from ndrustfft_tpu_torch.ops.hopper.fft import chirp_m, radix_consts
         b, n, cols = shape
         k11 = name.startswith("c2c")
-        mk = -(-(2 * n - 1) // 128) * 128
-        f = mk // 128
-        if k11:     # the radix column tile
-            from ndrustfft_tpu_torch.ops.hopper.fft import radix_consts
-            tables = 8 * n + 8 * mk + 8 * len(radix_consts(mk, -1)[0])
-        else:
-            wide = 2 * 8 * f * f if name.endswith("_wide") else 0
-            tables = 16 * n + 8 * mk + 2 * 8 * mk * 128 + wide
+        mk = -(-(2 * n - 1) // 128) * 128 if k11 else chirp_m(n)
+        tables = (8 if k11 else 16) * n + 8 * mk + 8 * len(radix_consts(mk, -1)[0])
         flops = (2 * 5 * mk * math.log2(mk) if length_m
                  else (5 if k11 else 2.5) * n * math.log2(n))
         return (16 if k11 else 8) * b * n * cols + tables, flops * b * cols
+    if name == "dct2_nat_radix":
+        # K23 on the radix row core: (T, n) float32 in and out, the radix
+        # table of h = n/2, the unpack twiddle (h) and the post twiddle's
+        # h + 1 entries that it reads
+        from ndrustfft_tpu_torch.ops.hopper.fft import radix_consts
+        t, n = shape
+        h = n // 2
+        return (8 * t * n + 8 * (len(radix_consts(h, -1)[0]) + 2 * h + 1),
+                2.5 * n * math.log2(n) * t)
     if name.startswith(("dct2_", "dct3_")):
         form = name.split("_")[2] if name.count("_") == 2 else "fixed"
         n = shape[1]
@@ -670,6 +696,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import ndrustfft_tpu_torch as nd
     from ndrustfft_tpu_torch import api, gates
+    from ndrustfft_tpu_torch.ops import dct as tdct
     from ndrustfft_tpu_torch.ops import dst as tdst
     from ndrustfft_tpu_torch.ops import engine
     from ndrustfft_tpu_torch.ops.hopper import _build
@@ -729,7 +756,7 @@ def main() -> int:
 
     # ---- 3. kernels against their plain versions
     errs = {"c2c_axis_mid": 0.0, "r2c_nat": 0.0, "c2r_nat": 0.0,
-            "dct_dense_mid": 0.0, "dct2_nat": 0.0, "dct3_nat": 0.0,
+            "dct_dense_mid": 0.0, "dct2_nat_radix": 0.0, "dct3_nat": 0.0,
             "c2c_rows": 0.0, "c2c_dense_rows": 0.0, "c2c_dense_mid": 0.0,
             "r2c_mid": 0.0, "c2r_mid": 0.0, "r2c_dense_mid": 0.0, "c2r_dense_mid": 0.0,
             "c2r_dense_mid_radix": 0.0, "dct_dense_mid_radix": 0.0,
@@ -743,7 +770,7 @@ def main() -> int:
             "dct3_mid_wide": 0.0, "dct2_mid_npoint": 0.0, "dct3_mid_npoint": 0.0,
             "r2c_packed_mid": 0.0, "dct1_mid": 0.0,
             "dct1_mid_wide": 0.0, "dct4_mid": 0.0, "dct4_mid_wide": 0.0, "dct4_mid_long": 0.0,
-            "c2c_blue_mid": 0.0, "dct23_blue_mid": 0.0, "dct23_blue_mid_wide": 0.0,
+            "c2c_blue_mid": 0.0, "dct23_blue_mid": 0.0,
             "fourstep_mid": 0.0, "fourstep_mid_wide": 0.0, "fourstep_mid_dense": 0.0,
             "rows_store_t": 0.0, "rows_store_t_wide": 0.0, "spectral_c2c_mid": 0.0,
             "spectral_c2c_mid_wide": 0.0, "spectral_r2c_mid": 0.0, "spectral_r2c_mid_wide": 0.0,
@@ -831,13 +858,19 @@ def main() -> int:
                 raise AssertionError(f"{name} {shape} type {t}: {rel}")
             del got, ref
         del x
+    # kernel 23 on the radix row core (``dct2_nat_radix``) and kernel 24 on
+    # the fixed core at the fixed core's lengths, the DCT family's 1024^2 and
+    # the 2048^2 pair's 2048 among them, and at the DCT family's main shape
+    # (262144, 512)
     for t, n in ((130, 512), (1024, 1024), (7, 2048), (512 * 512, 512)):
         x = randn(t, n)
-        for name, kern, plain in (("dct2_nat", kdct.dct2_nat, kdct.dct2_nat_plain),
+        for name, kern, plain in (("dct2_nat_radix", kdct.dct2_nat, kdct.dct2_nat_plain),
                                   ("dct3_nat", kdct.dct3_nat, kdct.dct3_nat_plain)):
+            before = form_counts(kern)
             got = kern(x, 2.0)
             ref = plain(x, 2.0)
             torch.cuda.synchronize()
+            assert_launched(name, kern, before, (t, n))
             rel = abs_err(got, ref) / float(ref.abs().max())
             errs[name] = max(errs[name], abs_err(got, ref))
             emit(phase="kernel_vs_plain", kernel=name, shape=(t, n), rel_err=rel)
@@ -845,6 +878,42 @@ def main() -> int:
                 raise AssertionError(f"{name} {(t, n)}: {rel}")
             del got, ref
         del x
+    # kernel 23 on the radix row core at each count of rows a block that
+    # phase 5 times (the wrapper takes fft.py::radix_block's at h = n/2):
+    # odd and even k, ragged row tiles, h = 64 (n = 128) to 20480 (one row a
+    # block, 40 elements a thread), rows off a 16-byte boundary through the
+    # wrapper (which copies them)
+    for t, n in ((130, 512), (131, 384), (33, 640), (7, 1536), (257, 128), (5, 8192),
+                 (3, 128 * 161), (2, 40960)):
+        x = randn(t, n)
+        ref = kdct.dct2_rows_radix_plain(x, 2.0)
+        y = torch.empty_like(x)
+        tr = -(-(n // 2) // 16)
+        counts = range(1, min(8, kfft.RADIX_MAX_THREADS // tr) + 1) if n // 2 <= 4096 else (1,)
+        for rows in counts:
+            y.fill_(float("nan"))
+            kdct.dct2_rows_radix_launch(x, y, 2.0, rows)
+            torch.cuda.synchronize()
+            rel = abs_err(y, ref) / float(ref.abs().max())
+            errs["dct2_nat_radix"] = max(errs["dct2_nat_radix"], abs_err(y, ref))
+            emit(phase="kernel_vs_plain", kernel="dct2_nat_radix", shape=(t, n),
+                 rows_per_block=rows, rel_err=rel)
+            if not rel <= TOL_KERNEL:
+                raise AssertionError(f"dct2_nat_radix {(t, n)} rows {rows}: {rel}")
+        del x, y, ref
+    flat = randn(3 * 640 + 1)
+    x = flat[1:].view(3, 640)
+    before = form_counts(kdct.dct2_nat)
+    got = kdct.dct2_nat(x, None)
+    ref = kdct.dct2_rows_radix_plain(x, None)
+    torch.cuda.synchronize()
+    assert_launched("dct2_nat_radix", kdct.dct2_nat, before, (3, 640))
+    rel = abs_err(got, ref) / float(ref.abs().max())
+    emit(phase="kernel_vs_plain", kernel="dct2_nat_radix", shape=(3, 640), offset_bytes=4,
+         rel_err=rel)
+    if not rel <= TOL_KERNEL:
+        raise AssertionError(f"dct2_nat_radix off a 16-byte boundary: {rel}")
+    del flat, x, got, ref
 
     def check_form(name, kern, got_fn, ref_fn, shape, **kw):
         """got_fn() (one launch of ``kern`` in the form ``name`` names)
@@ -1470,17 +1539,25 @@ def main() -> int:
                        lambda: krfft.c2r_mid_plain(s, n, scale), (nb, n // 2 + 1, cols),
                        scale=scale)
         del x, s
+    # (kernel 23 on the radix row core at every length with a plan of n/2,
+    # its old forms at the remnant's n-point k = 131, 163, 251 and half
+    # length F = 131, 157)
     dct_forms = (
-        ("nat", ((2048, 2048), (130, 1024))),
-        ("nat_wide", ((768, 768), (1536, 1536), (7, 1536), (3, 32768))),
-        ("nat_npoint", ((128, 128), (384, 384), (3, 1152), (2, 128 * 131), (2, 128 * 159),
-                        (2, 128 * 161), (3, 128 * 255))),
-        ("mid", ((1, 2048, 2048), (2, 4096, 33), (3, 512, 130))),
-        ("mid_wide", ((1, 1280, 1280), (1, 1536, 1536), (2, 1280, 130), (1, 32768, 2))),
-        ("mid_npoint", ((1, 1152, 1152), (2, 1152, 130), (3, 384, 385), (1, 128 * 159, 3),
-                        (1, 128 * 163, 130), (2, 128 * 255, 3))))
-    for form, shapes in dct_forms:
-        for t in (2, 3):
+        ("nat", (3,), ((2048, 2048), (130, 1024))),
+        ("nat_radix", (2,), ((2048, 2048), (130, 1024), (128, 128), (384, 384), (768, 768),
+                             (7, 1536), (3, 1152), (2, 128 * 159), (2, 128 * 161),
+                             (3, 128 * 255), (3, 32768))),
+        ("nat_wide", (3,), ((768, 768), (1536, 1536), (7, 1536), (3, 32768))),
+        ("nat_wide", (2,), ((3, 128 * 262), (2, 128 * 314))),
+        ("nat_npoint", (3,), ((128, 128), (384, 384), (3, 1152), (2, 128 * 131),
+                              (2, 128 * 159), (2, 128 * 161), (3, 128 * 255))),
+        ("nat_npoint", (2,), ((2, 128 * 131), (3, 128 * 163), (2, 128 * 251))),
+        ("mid", (2, 3), ((1, 2048, 2048), (2, 4096, 33), (3, 512, 130))),
+        ("mid_wide", (2, 3), ((1, 1280, 1280), (1, 1536, 1536), (2, 1280, 130), (1, 32768, 2))),
+        ("mid_npoint", (2, 3), ((1, 1152, 1152), (2, 1152, 130), (3, 384, 385),
+                                (1, 128 * 159, 3), (1, 128 * 163, 130), (2, 128 * 255, 3))))
+    for form, types, shapes in dct_forms:
+        for t in types:
             kern = getattr(kdct, f"dct{t}_{form.split('_')[0]}")
             plain = getattr(kdct, f"{kern.__name__}_plain")
             for shape in shapes:
@@ -1523,21 +1600,19 @@ def main() -> int:
                 check_form(name, kern, lambda: kern(x, scale), lambda: plain(x, scale), shape,
                            scale=scale)
             del x
-    # kernel 11 on the radix core's column tile at every F: the fixed core's
-    # factors (F = 4, 8, 16: n = 193, 509, 1021), with kernel 12 on the fixed
-    # core beside it; F = 3, 17, 33 and the routes' largest, 106 (n = 131,
-    # 1031, 2049, 6781), with kernel 12 on the wide core with its second
-    # tile (one column per tile at F = 106); ragged column tiles (L = 13,
-    # 130, 257; L = 1030 over tiles of C = 4 columns at n = 131 and 2049),
-    # both signs and the scale 1/n (K11), DCT-II with scale 2 and DCT-III
-    # unscaled (K12); the main paths' shapes are checked in phase 4j, slice
-    # by slice
-    for name, shapes in (("fixed", ((2, 193, 130), (2, 509, 130), (1, 509, 13),
-                                    (1, 1021, 257), (1, 509, 4096))),
-                         ("wide", ((2, 131, 130), (1, 1031, 130), (1, 2049, 130),
-                                   (1, 6781, 128), (1, 131, 1030), (1, 2049, 1030)))):
+    # kernel 11 on the radix core's column tile at every F: the bts2 fixed
+    # core's former factors (F = 4, 8, 16: n = 193, 509, 1021), F = 3, 17, 33
+    # and the routes' largest, 106 (n = 131, 1031, 2049, 6781); kernel 12's
+    # chirp-z on the same column kernel beside it (M = chirp_m(n) = 400,
+    # 1024, 2048, 288, 2304, 4608, 14336); ragged column tiles (L = 13, 130,
+    # 257; L = 1030 over tiles of C = 4 columns at n = 131 and 2049), both
+    # signs and the scale 1/n (K11), DCT-II with scale 2 and DCT-III unscaled
+    # (K12); the main paths' shapes are checked in phase 4j, slice by slice
+    for shapes in (((2, 193, 130), (2, 509, 130), (1, 509, 13), (1, 1021, 257), (1, 509, 4096)),
+                   ((2, 131, 130), (1, 1031, 130), (1, 2049, 130), (1, 6781, 128),
+                    (1, 131, 1030), (1, 2049, 1030))):
         k11 = "c2c_blue_mid"
-        k12 = "dct23_blue_mid" + ("_wide" if name == "wide" else "")
+        k12 = "dct23_blue_mid"
         for shape in shapes:
             x = crandn(*shape)
             for sign, scale in ((-1, None), (+1, 1.0 / shape[1])):
@@ -1551,6 +1626,30 @@ def main() -> int:
                            lambda: kdct.dct23_blue_mid_plain(r, t, scale), shape,
                            dct_type=t, scale=scale)
             del r
+    # kernel 12's chirp-z at each column count C that phase 5 times (the
+    # wrapper takes dct.py::dct23_blue_cols's at M): M = 2304, 4608, 8960 and
+    # 14336 (n = 1103, 2049, 4099, 6781; 16, 32 and 40 elements a thread),
+    # ragged L, DCT-II with scale 2 and DCT-III unscaled
+    for shape in ((2, 1103, 130), (1, 2049, 33), (1, 4099, 7), (1, 6781, 5)):
+        x = randn(*shape)
+        y = torch.empty_like(x)
+        mk = kfft.chirp_m(shape[1])
+        for t, scale in ((2, 2.0), (3, None)):
+            ref = kdct.dct23_blue_mid_plain(x, t, scale)
+            for c in (1, 2, 4, 8, 16):
+                if not tile_fits(mk, c):
+                    continue
+                y.fill_(float("nan"))
+                kdct.dct23_blue_launch(x, y, t, scale, c)
+                torch.cuda.synchronize()
+                rel = abs_err(y, ref) / float(ref.abs().max())
+                errs["dct23_blue_mid"] = max(errs["dct23_blue_mid"], abs_err(y, ref))
+                emit(phase="kernel_vs_plain", kernel="dct23_blue_mid", shape=shape, M=mk,
+                     dct_type=t, cols_per_tile=c, rel_err=rel)
+                if not rel <= TOL_KERNEL:
+                    raise AssertionError(f"dct23_blue_mid {shape} type {t} C {c}: {rel}")
+            del ref
+        del x, y
     # kernel 7 in each body: dense (n1 = 144, 256), fixed (512, F = 4; 1024,
     # F = 8) and wide (384, 640, F = 3, 5; 2176 with n2 = 17, a one-tile
     # column; 4096, F = 32), ragged column tiles (n2 = 17, 33, 130, 160);
@@ -1664,19 +1763,18 @@ def main() -> int:
                 "spectral_r2c_mid": krfft.spectral_r2c_mid,
                 "spectral_dct_mid": kdct.spectral_dct_mid}
     # the wide core's launches, the DCT kernels' n-point ones, kernel 7's
-    # dense ones and those of the radix-only wrappers and kernels 20, 21 and
-    # 27 on the radix core, counted apart by the same wrappers (their
+    # dense ones and those of the radix-only wrappers and kernels 20, 21, 23
+    # and 27 on the radix core, counted apart by the same wrappers (their
     # ``launches`` count every launch)
     radix_too = ("r2c_dense_mid", "c2r_dense_mid", "dct_dense_mid", "r2c_packed_dense")
     forms = {f"{name}_{form}": (wrappers[name], f"{form}_launches")
              for name in (*RADIX_ONLY, *radix_too,
                           "dct2_nat", "dct3_nat", "dct2_mid",
-                          "dct3_mid", "dct1_mid", "dct4_mid",
-                          "dct23_blue_mid", "fourstep_mid", "rows_store_t",
+                          "dct3_mid", "dct1_mid", "dct4_mid", "fourstep_mid", "rows_store_t",
                           "spectral_c2c_mid", "spectral_r2c_mid", "spectral_dct_mid")
              for form in FORMS
              if form == "wide" and name not in (*RADIX_ONLY, *radix_too)
-             or form == "radix" and name in (*RADIX_ONLY, *radix_too)
+             or form == "radix" and name in (*RADIX_ONLY, *radix_too, "dct2_nat")
              or form == "npoint" and name.startswith(("dct2_", "dct3_", "spectral_dct"))
              or form == "dense" and name == "fourstep_mid" or form == "long" and name == "dct4_mid"
              or form == "chirp" and name in ("r2c_dense_mid", "c2r_dense_mid",
@@ -1822,7 +1920,7 @@ def main() -> int:
     fh3, u3 = poisson(f3)
     # K27 on the radix column tile but for DCT-IV along axis 0 of 1024^2
     read_counts("dct_family", dct_dense_mid=4 + 5 + 4, dct_dense_mid_radix=4 + 4 + 4,
-                dct2_nat=2 + 1, dct3_nat=2 + 1)
+                dct2_nat=2 + 1, dct2_nat_radix=2 + 1, dct3_nat=2 + 1)
     for n, y in grid_out.items():
         check("dct1_axis0", y, sfft.dct(host64(grid[n]), type=1, axis=0), grid=[n, n])
     x64 = host64(xp)
@@ -2203,7 +2301,8 @@ def main() -> int:
 
     # ---- 4h. DCT-II/III on every axis at every length: the 3-D Neumann
     # Poisson solve at 1536^3 float32, the 3/2-dealiased grid of a
-    # 1024^3-mode box (K23 at h = 768, F = 6, on 2359296 rows; K25 at
+    # 1024^3-mode box (K23 at h = 768 on the radix row core, on 2359296
+    # rows; K25 at
     # (1536, 1536, 1536) and (1, 1536, 2359296) on the wide core; K26 twice
     # and K24 back; 14.5 GB per field). The solve holds the right-hand side
     # and at most two more fields; the eigenvalue division, the checks and
@@ -2290,7 +2389,7 @@ def main() -> int:
     base = torch.cuda.memory_allocated()    # the right-hand side and earlier phases' tensors
     reset_counts()
     u8 = solve8(f8, check_spectrum8)
-    read_counts("neumann_1536^3", dct2_nat=1, dct2_nat_wide=1, dct2_mid=2, dct2_mid_wide=2,
+    read_counts("neumann_1536^3", dct2_nat=1, dct2_nat_radix=1, dct2_mid=2, dct2_mid_wide=2,
                 dct3_mid=2, dct3_mid_wide=2, dct3_nat=1, dct3_nat_wide=1)
     peak = torch.cuda.max_memory_allocated()
     sol, finite = solution_err8(u8)
@@ -2303,9 +2402,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # the shorter checks: the DCT-II/III pair along both axes of 2048^2 (the
-    # fixed core of K23-K26, F = 8), nddct2/nddct3 along axis 0 at 1152
-    # (n-point) and 1280 (wide) and along the last axis at 128, 384
-    # (n-point) and 768 (wide), nddst2 along axis 0 at 1536 (wide), and the
+    # fixed core of K24-K26, F = 8; K23 on the radix row core), nddct2/nddct3
+    # along axis 0 at 1152 (n-point) and 1280 (wide) and along the last axis
+    # at 128, 384 (n-point; K23 radix) and 768 (wide; K23 radix), nddst2 along axis 0 at 1536 (wide), and the
     # R2C/C2R along axis 0 at 768 and 1280 (K16/K17 at F = 3, 5)
     x2k = randn(2048, 2048)
     h2k = nd.DctHandler(2048)
@@ -2323,7 +2422,7 @@ def main() -> int:
     for n in (768, 1280):
         spec = nd.ndfft_r2c(sq[n], axis=0)
         rfft_out[n] = spec, nd.ndifft_r2c(spec, axis=0)
-    read_counts("dct_mid_lanes", dct2_nat=1 + 3, dct2_nat_wide=1, dct2_nat_npoint=2,
+    read_counts("dct_mid_lanes", dct2_nat=1 + 3, dct2_nat_radix=1 + 3,
                 dct3_nat=1 + 3, dct3_nat_wide=1, dct3_nat_npoint=2,
                 dct2_mid=1 + 2 + 1, dct2_mid_wide=1 + 1, dct2_mid_npoint=1,
                 dct3_mid=1 + 2, dct3_mid_wide=1, dct3_mid_npoint=1,
@@ -2344,7 +2443,7 @@ def main() -> int:
     # on the same input, slice by slice, and their times
     reps8 = max(2, min(reps_big, args.reps))
     x8r = randn(n8, n8, n8)
-    legs8 = (("dct2_nat_wide", kdct.dct2_nat, (n8 * n8, n8), 0, 2.0),
+    legs8 = (("dct2_nat_radix", kdct.dct2_nat, (n8 * n8, n8), 0, 2.0),
              ("dct3_nat_wide", kdct.dct3_nat, (n8 * n8, n8), 0, 1.0 / n8),
              ("dct2_mid_wide", kdct.dct2_mid, (n8, n8, n8), 0, 2.0),
              ("dct2_mid_wide", kdct.dct2_mid, (1, n8, n8 * n8), 2, 2.0),
@@ -2666,9 +2765,9 @@ def main() -> int:
     # and (509, 509, 509); axis 2 on the engine's chirp-z, its two sub-FFTs
     # on K10 fixed over 259081 rows of 1024), against torch.fft.fftn in
     # complex128 with the round trip; and the 2049^2 x 256 cell-centred
-    # Neumann solve (dctn / idctn of type 2, 4.30 GB per field: K12 wide,
-    # F = 33, M = 4224, on axes 0 and 1 at (1, 2049, 524544) and (2049, 2049,
-    # 256); K23/K24 at n = 256 on axis 2), its spectrum against the exact
+    # Neumann solve (dctn / idctn of type 2, 4.30 GB per field: K12's chirp-z
+    # at M = 4608 on axes 0 and 1 at (1, 2049, 524544) and (2049, 2049, 256);
+    # K23/K24 at n = 256 on axis 2), its spectrum against the exact
     # sparse values and its solution against the analytic one. Then the
     # lengths against float64 torch.fft / scipy.fft,
     # each kernel of the main paths against its plain version slice by
@@ -2702,7 +2801,7 @@ def main() -> int:
         [lambda m, p=p: torch.cos(m * math.pi * p) for p in nb_pts],
         [eigs(n, 0, n) for n in nb_grid], 0, float(2049 * 2049 * 256),
         lambda f: nd.dctn(f, 2), lambda fh: nd.idctn(fh, 2),
-        dict(dct23_blue_mid=4, dct23_blue_mid_wide=4, dct2_nat=1, dct3_nat=1))
+        dict(dct23_blue_mid=4, dct2_nat=1, dct2_nat_radix=1, dct3_nat=1))
 
     # the yardstick, never on the port's path: the same solve through the
     # float32 torch.fft Makhoul lowering (makhoul_dct) along each axis, in
@@ -2741,15 +2840,22 @@ def main() -> int:
     yard_vs_port = abs_err(y_nb, u_nb) / float(u_nb.abs().max())
     del y_nb, u_nb
     hb = nd.DctHandler(2049)
+    # each public leg, and kernel 12's Makhoul permutations alone (the torch
+    # passes around it in ops/dct.py: DCT-II's order before it, DCT-III's
+    # interleave after it) on the (B, n, L) views of axes 0 and 1
+    v0, v1 = f_nb.view(1, 2049, 2049 * 256), f_nb
     legs = {"dct2_axis0": lambda: nd.nddct2(f_nb, hb, axis=0),
             "dct2_axis1": lambda: nd.nddct2(f_nb, hb, axis=1),
             "dct2_axis2": lambda: nd.nddct2(f_nb, nd.DctHandler(256), axis=2),
-            "perm_axis0": lambda: torch.cat([f_nb[0::2], f_nb[1::2].flip(0)], dim=0)}
+            "perm_axis0": lambda: tdct.makhoul_order(v0),
+            "perm_axis1": lambda: tdct.makhoul_order(v1),
+            "interleave_axis0": lambda: tdct.makhoul_interleave(v0),
+            "interleave_axis1": lambda: tdct.makhoul_interleave(v1)}
     leg_ms = {k: cuda_ms(fn, reps10, 1) for k, fn in legs.items()}
     emit(phase="time", neumann_cell=list(nb_grid), ms=t_port, torch_fft_makhoul_ms=t_yard,
          peak_bytes=peak, base_bytes=base, yardstick_peak_bytes=peak_yard,
          yardstick_vs_port=yard_vs_port, legs_ms=leg_ms, card=card)
-    del f_nb
+    del f_nb, v0, v1
     torch.cuda.empty_cache()
 
     # the lengths against float64 oracles: ndfft along axis 0 at 131 (K11,
@@ -2758,7 +2864,7 @@ def main() -> int:
     # 384) and 2049 (M = 4608, F = 36); R2C/C2R at 2062 along axis 0 (the
     # lane after a moveaxis: h = 1031, M = 2304; the C2R's extension at M =
     # 4608) and at 263 along the last axis (row pairs, M = 768); DCT-II/III
-    # and DST-II at 2049 along axis 0 (K12 wide); DCT-IV at 2042 along axis
+    # and DST-II at 2049 along axis 0 (K12, M = 4608); DCT-IV at 2042 along axis
     # 0 (the composite's C2C on K11 at F = 16, m = 1021); DCT-I at 1032 and DST-I
     # at 1030 along the last axis (the packed lowering's C2C at h = 1031 on
     # the lane's chirp-z, M = 2304, F = 18); ndfft at 10007 (M = 20736, on
@@ -2779,7 +2885,7 @@ def main() -> int:
     d_out = {kind: getattr(nd, f"nd{kind}")(x, axis=0 if x.shape[0] > 1024 else 1)
              for kind, x in d_in.items()}
     read_counts("blue_lengths", c2c_blue_mid=5, c2c_rows=16,
-                dct23_blue_mid=3, dct23_blue_mid_wide=3)
+                dct23_blue_mid=3)
     for (n, axis), y in c_out.items():
         x = c_in[(n, axis)]
         check_c2c("fft_length", y, x, nd.ndifft(y, axis=axis), dims=(axis,), n=n, axis=axis)
@@ -2805,9 +2911,9 @@ def main() -> int:
                (1, n10, n10 * n10), 2, True, lambda x: lambda: torch.fft.fft(x, dim=1)),
               ("c2c_blue_mid", kfft.c2c_blue_mid, kfft.c2c_blue_mid_plain,
                (n10, n10, n10), 0, True, lambda x: lambda: torch.fft.fft(x, dim=1)),
-              ("dct23_blue_mid_wide", kdct.dct23_blue_mid, kdct.dct23_blue_mid_plain,
+              ("dct23_blue_mid", kdct.dct23_blue_mid, kdct.dct23_blue_mid_plain,
                (1, 2049, 2049 * 256), 2, False, None),
-              ("dct23_blue_mid_wide", kdct.dct23_blue_mid, kdct.dct23_blue_mid_plain,
+              ("dct23_blue_mid", kdct.dct23_blue_mid, kdct.dct23_blue_mid_plain,
                nb_grid, 0, False, None))
     for name, kern, plain, shape, dim, cplx, library in legs10:
         x = crandn(*shape) if cplx else randn(*shape)
@@ -3218,7 +3324,8 @@ def main() -> int:
         return u
 
     u3s, peak, base = run_path("S3_neumann_poisson_1024^3", lambda: s3_solve(f3s),
-                               dict(dct2_nat=1, dct_dense_mid=2, dct_dense_mid_radix=2,
+                               dict(dct2_nat=1, dct2_nat_radix=1, dct_dense_mid=2,
+                                    dct_dense_mid_radix=2,
                                     spectral_dct_mid=1, dct3_nat=1))
     check_field("S3_neumann_poisson_1024^3", u3s, c_terms(False), peak_bytes=peak,
                 base_bytes=base)
@@ -3351,14 +3458,15 @@ def main() -> int:
     # kernel 28's long form (two passes of the real tile) at n = 256 F with
     # F > 160. G1: the cell-centred Neumann Poisson solve on a 31104^2 grid
     # (31104 = 128 * 243, F = 243; 3.87 GB per field), the pressure solve of
-    # a wall-bounded 2-D box, through dctn / idctn of type 2 (K23 long over
-    # 31104 rows and K25 long at (1, 31104, 31104), then K26 and K24), and
-    # again with ndspectral_dct along axis 0 and the lane-varying
-    # H = 1/lambda between the axis-1 DCTs (K23, K29 long, K24); G2: the
+    # a wall-bounded 2-D box, through dctn / idctn of type 2 (K23 on the
+    # radix row core over 31104 rows, h = 15552, and K25 long at (1, 31104,
+    # 31104), then K26 and K24), and again with ndspectral_dct along axis 0
+    # and the lane-varying H = 1/lambda between the axis-1 DCTs (K23, K29
+    # long, K24); G2: the
     # mixed Neumann-Dirichlet solve on a 65536 x 8192 cell-centred channel
     # (2.15 GB per field; DCT-IV along axis 0 on K28 long at (1, 65536,
-    # 8192), F = 256; DCT-II/III along axis 1 on K23/K24 at the wide core's
-    # half length h = 4096). Each against its exact spectrum (G1, G2) and its
+    # 8192), F = 256; DCT-II/III along axis 1 on K23 on the radix row core
+    # and K24 at the wide core's half length h = 4096). Each against its exact spectrum (G1, G2) and its
     # analytic solution, slab by slab in float64, timed with its peak memory;
     # G1 against a float32 torch.fft Makhoul solve. Then the lengths against
     # float64 scipy.fft, and each long kernel at the paths' shapes against
@@ -3372,7 +3480,7 @@ def main() -> int:
     f_g1, solve_g1 = poisson_solve(
         "neumann_31104^2", (n_g1, n_g1), g1_modes, g1_basis, [g1_eig, g1_eig], 0,
         float(n_g1 * n_g1), lambda f: nd.dctn(f, 2), lambda fh: nd.idctn(fh, 2),
-        dict(dct2_nat=1, dct2_nat_npoint=1, dct2_mid=1, dct2_mid_npoint=1, dct3_mid=1,
+        dict(dct2_nat=1, dct2_nat_radix=1, dct2_mid=1, dct2_mid_npoint=1, dct3_mid=1,
              dct3_mid_npoint=1, dct3_nat=1, dct3_nat_npoint=1))
     h_g1 = g1_eig.float()[:, None] + g1_eig.float()[None, :]
     h_g1.reciprocal_()
@@ -3401,7 +3509,7 @@ def main() -> int:
         return nd.nddct3(b, hg1i, axis=1)
 
     u_g1, peak, base = run_path("G1_spectral_neumann_31104^2", lambda: g1_spectral(f_g1),
-                                dict(dct2_nat=1, dct2_nat_npoint=1, spectral_dct_mid=1,
+                                dict(dct2_nat=1, dct2_nat_radix=1, spectral_dct_mid=1,
                                      spectral_dct_mid_npoint=1, dct3_nat=1, dct3_nat_npoint=1))
     err, ref_peak = 0.0, 0.0
     for i0 in range(0, n_g1, 1024):
@@ -3422,7 +3530,7 @@ def main() -> int:
     # the solve's kernels at their shapes against their plain versions
     x_g1 = f_g1.view(1, n_g1, n_g1)
     for name, kern, plain, x, dim, fargs in (
-            ("dct2_nat_npoint", kdct.dct2_nat, kdct.dct2_nat_plain, f_g1, 0, (2.0,)),
+            ("dct2_nat_radix", kdct.dct2_nat, kdct.dct2_nat_plain, f_g1, 0, (2.0,)),
             ("dct2_mid_npoint", kdct.dct2_mid, kdct.dct2_mid_plain, x_g1, 2, (2.0,)),
             ("dct3_mid_npoint", kdct.dct3_mid, kdct.dct3_mid_plain, x_g1, 2, (1.0 / n_g1,)),
             ("dct3_nat_npoint", kdct.dct3_nat, kdct.dct3_nat_plain, f_g1, 0, (1.0 / n_g1,))):
@@ -3443,7 +3551,7 @@ def main() -> int:
         float(g2_grid[0] * g2_grid[1]),
         lambda f: nd.dctn(nd.dctn(f, 4, axes=(0,)), 2, axes=(1,)),
         lambda fh: nd.idctn(nd.idctn(fh, 2, axes=(1,)), 4, axes=(0,)),
-        dict(dct4_mid=2, dct4_mid_long=2, dct2_nat=1, dct2_nat_wide=1, dct3_nat=1,
+        dict(dct4_mid=2, dct4_mid_long=2, dct2_nat=1, dct2_nat_radix=1, dct3_nat=1,
              dct3_nat_wide=1))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3479,7 +3587,7 @@ def main() -> int:
     spec_out = [getattr(nd, f"ndspectral_{kind}")(x, h, axis=0) for (kind, _, _), (x, h) in
                 zip(spec_cases, spec_in)]
     read_counts("long_dct_lengths", dct2_mid=16, dct2_mid_npoint=16, dct3_mid=16,
-                dct3_mid_npoint=16, dct2_nat=8, dct2_nat_npoint=8, dct3_nat=8,
+                dct3_mid_npoint=16, dct2_nat=8, dct2_nat_radix=6, dct2_nat_npoint=2, dct3_nat=8,
                 dct3_nat_npoint=8, dct4_mid=16, dct4_mid_long=16, spectral_dct_mid=12,
                 spectral_dct_mid_npoint=12)
     for (kind, shape, axis), x, y in zip(len_cases, len_in, len_out):
@@ -3856,6 +3964,49 @@ def main() -> int:
     del sp, y, x
     torch.cuda.empty_cache()
 
+    # ---- 4x. the census of kernels 23 and 12: the wrapper dct2_nat (scale
+    # 2, scipy's DCT-II) over (128, n) at each of the 259 lengths n = 128 k
+    # whose half length has a radix plan (233 of them, k <= 256, are the
+    # routes' for nddct2 along the last axis; the wrapper takes k <= 320),
+    # and nddct2 and nddct3 along axis 1 of a (1, n, 130) field at each of
+    # the 3264 Bluestein lengths that the gates send to kernel 12
+    # (DCT23_BLUE_MID, n = 1101 ... 6782, 15 convolution lengths M), against
+    # the float64 torch.fft Makhoul lowering (an oracle only), within
+    # TOL_STEP of the oracle's peak, the worst error reported
+    k23_n = [n for n in range(128, 128 * 321, 128) if kdct.dct2_nat_radix(n)]
+    k12_n = [n for n in range(2, 8000)
+             if api._route("dct2", (1, n, 130), 1, torch.float32, "cuda") == api.DCT23_BLUE_MID]
+    k12_m = sorted({kfft.chirp_m(n) for n in k12_n})
+    if (len(k23_n), len(k12_n), len(k12_m)) != (259, 3264, 15):
+        raise AssertionError(f"K23/K12 census: {len(k23_n)} K23 lengths, {len(k12_n)} K12 "
+                             f"lengths at {len(k12_m)} M, expected 259, 3264, 15")
+    t0 = time.perf_counter()
+    worst = {name: (0.0, None) for name in ("dct2_nat", 2, 3)}
+    reset_counts()
+    for n in k23_n:
+        x = randn(128, n)
+        err = rel_err(kdct.dct2_nat(x, 2.0), makhoul_dct(x.double(), 1, 2))
+        if not err <= TOL_STEP:
+            raise AssertionError(f"dct2_nat census n={n}: {err}")
+        worst["dct2_nat"] = max(worst["dct2_nat"], (err, n))
+    for n in k12_n:
+        x = randn(1, n, 130)
+        xd = x.double()
+        for t, fn in ((2, nd.nddct2), (3, nd.nddct3)):
+            err = rel_err(fn(x, nd.DctHandler(n), axis=1), makhoul_dct(xd, 1, t))
+            if not err <= TOL_STEP:
+                raise AssertionError(f"dct{t} (kernel 12) census n={n}: {err}")
+            worst[t] = max(worst[t], (err, n))
+    read_counts("dct_rows_blue_census", dct2_nat=len(k23_n), dct2_nat_radix=len(k23_n),
+                dct23_blue_mid=2 * len(k12_n))
+    emit(phase="dct_rows_blue_census", k23_lengths=len(k23_n), k12_lengths=len(k12_n),
+         k12_m=k12_m, worst_rel_err_k23=worst["dct2_nat"][0], worst_n_k23=worst["dct2_nat"][1],
+         **{f"worst_rel_err_k12_dct{t}": worst[t][0] for t in (2, 3)},
+         **{f"worst_n_k12_dct{t}": worst[t][1] for t in (2, 3)},
+         seconds=time.perf_counter() - t0)
+    del x, xd
+    torch.cuda.empty_cache()
+
     # ---- 5. times: each kernel against its plain version and, at the main
     # path's shape, the PyTorch call that computes the same function (the
     # yardstick); the steps against torch.fft (the 1536^3 solve's kernels
@@ -3864,7 +4015,7 @@ def main() -> int:
     main_shapes = {"c2c_axis_mid": (1, 512, 512 * 257), "r2c_nat": (512 * 512, 512),
                    "c2r_nat": (512 * 512, 257), "dct_dense_mid": (1, 1024, 1024),
                    "dct_dense_mid_radix": (1, 512, 512 * 512),
-                   "dct2_nat": (512 * 512, 512), "dct3_nat": (512 * 512, 512),
+                   "dct2_nat_radix": (512 * 512, 512), "dct3_nat": (512 * 512, 512),
                    "c2c_rows": (512 * 512, 512), "c2c_dense_rows": (256 * 256, 256),
                    "c2c_dense_mid": (1, 256, 256 * 256), "r2c_mid": (1, 512, 512 * 512),
                    "c2r_mid": (1, 257, 512 * 512), "r2c_dense_mid": (1, 131, 256 * 256),
@@ -3876,8 +4027,8 @@ def main() -> int:
                    "r2c_packed_dense_chirp": (128 * 128, 262),
                    "r2c_packed_dense_radix": (128 * 128, 128), "c2c_generic_rows": (600 * 600, 600),
                    "c2c_generic_mid": (600, 600, 301), "r2c_packed_generic": (600 * 600, 600),
-                   "dct2_nat_wide": (1536 * 1536, 1536),
-                   "dct3_nat_wide": (1536 * 1536, 1536), "dct2_nat_npoint": (384, 384),
+                   "dct2_nat_wide": (2048, 128 * 262),
+                   "dct3_nat_wide": (1536 * 1536, 1536), "dct2_nat_npoint": (4096, 128 * 131),
                    "dct3_nat_npoint": (384, 384), "dct2_mid": (1, 2048, 2048),
                    "dct3_mid": (1, 2048, 2048), "dct2_mid_wide": (1, 1536, 1536 * 1536),
                    "dct3_mid_wide": (1, 1536, 1536 * 1536), "dct2_mid_npoint": (1, 1152, 1152),
@@ -3885,8 +4036,7 @@ def main() -> int:
                    "dct1_mid": (2049, 2049, 257),
                    "dct1_mid_wide": (1, 1537, 1537), "dct4_mid": (2048, 2048, 256),
                    "dct4_mid_wide": (1, 1536, 1536), "dct4_mid_long": (1, 65536, 8192),
-                   "c2c_blue_mid": (1, 509, 509 * 509), "dct23_blue_mid": (1, 1021, 1024),
-                   "dct23_blue_mid_wide": (1, 2049, 2049 * 256),
+                   "c2c_blue_mid": (1, 509, 509 * 509), "dct23_blue_mid": (1, 2049, 2049 * 256),
                    "fourstep_mid": (256, 1024, 1024), "fourstep_mid_wide": (64, 384, 384),
                    "fourstep_mid_dense": (16385, 256, 128), "rows_store_t": (256, 1024, 1024),
                    "rows_store_t_wide": (16385, 256, 128),
@@ -3961,11 +4111,32 @@ def main() -> int:
         torch.cuda.empty_cache()
     for t, n in ((1024, 1024), (512 * 512, 512)):
         x = randn(t, n)
-        time_kernel("dct2_nat", (t, n), lambda: kdct.dct2_nat(x, 2.0),
+        time_kernel("dct2_nat_radix", (t, n), lambda: kdct.dct2_nat(x, 2.0),
                     lambda: kdct.dct2_nat_plain(x, 2.0))
         time_kernel("dct3_nat", (t, n), lambda: kdct.dct3_nat(x, 2.0),
                     lambda: kdct.dct3_nat_plain(x, 2.0))
     del x
+    # kernel 23 on the radix row core at each count of rows a block that
+    # fits (the wrapper takes fft.py::radix_block's at h = n/2), at the DCT
+    # family's (262144, 512) and the 1536^3 solve's (2359296, 1536); and
+    # its remnant forms (the 29 lengths without a plan of n/2) at n = 128 *
+    # 131 (the n-point form) and 128 * 262 (the wide core's half length)
+    for t, n in ((512 * 512, 512), (1536 * 1536, 1536)):
+        x = randn(t, n)
+        y = torch.empty_like(x)
+        tr = -(-(n // 2) // 16)
+        runs = 5 if x.numel() > 1 << 28 else reps
+        rows_ms = {r: cuda_ms(lambda: kdct.dct2_rows_radix_launch(x, y, 2.0, r), runs)
+                   for r in range(1, kfft.RADIX_MAX_THREADS // tr + 1)}
+        emit(phase="time", kernel="dct2_nat_radix", shape=(t, n), ms_by_rows_per_block=rows_ms,
+             chosen=kfft.radix_block(n // 2, t, kfft.num_sms(dev)), card=card)
+        del x, y
+        torch.cuda.empty_cache()
+    for name, shape in (("dct2_nat_npoint", (4096, 128 * 131)), ("dct2_nat_wide", (2048, 128 * 262))):
+        x = randn(*shape)
+        time_kernel(name, shape, lambda: kdct.dct2_nat(x, 2.0),
+                    lambda: [kdct.dct2_nat_plain(x[i:i + 64], 2.0) for i in range(0, shape[0], 64)])
+        del x
     for n, x in inputs.items():
         hr, hc = nd.R2cFftHandler(n), nd.FftHandler(n)
         t_port = cuda_ms(lambda: step2(x, hr, hc), reps)
@@ -4431,7 +4602,6 @@ def main() -> int:
                     lambda: torch.fft.irfft(sp, n=n, dim=1))
         del x, sp
     for name, kern, plain, shapes in (
-            ("dct2_nat_npoint", kdct.dct2_nat, kdct.dct2_nat_plain, ((128, 128), (384, 384))),
             ("dct3_nat_npoint", kdct.dct3_nat, kdct.dct3_nat_plain, ((128, 128), (384, 384))),
             ("dct2_mid", kdct.dct2_mid, kdct.dct2_mid_plain, ((1, 2048, 2048),)),
             ("dct3_mid", kdct.dct3_mid, kdct.dct3_mid_plain, ((1, 2048, 2048),)),
@@ -4459,12 +4629,11 @@ def main() -> int:
         time_kernel(name, shape, lambda: kern(x, scale), lambda: plain(x, scale))
         del x
     # kernel 11 at phase 4j's length 1031 (F = 17; at the main paths' shapes
-    # it and kernel 12's wide form were timed there), then at each column
-    # count C the tile allows at 1031 (M = 2176: the wrapper's choice is
-    # C = 1), at the 509^3 round trip's shapes (M = 1024: C = 2) and at 251
-    # and 1021 (M = 512, 2048: C = 4, 2), and kernel 12 on the fixed core at
-    # 1021 (F = 16), which the routes never send there (they send it
-    # n > 1100, F >= 18)
+    # it and kernel 12 were timed there), then at each column count C the
+    # tile allows at 1031 (M = 2176: the wrapper's choice is C = 1), at the
+    # 509^3 round trip's shapes (M = 1024: C = 2) and at 251 and 1021
+    # (M = 512, 2048: C = 4, 2), and kernel 12 at each column count C the
+    # tile allows at the 2049^2 x 256 solve's shapes (M = 4608)
     x = crandn(1, 1031, 1024)
     time_kernel("c2c_blue_mid", (1, 1031, 1024), lambda: kfft.c2c_blue_mid(x, -1),
                 lambda: kfft.c2c_blue_mid_plain(x, -1), lambda: torch.fft.fft(x, dim=1))
@@ -4480,9 +4649,17 @@ def main() -> int:
         emit(phase="time", kernel="c2c_blue_mid", shape=shape, ms_by_cols_per_tile=cols_ms,
              chosen=kfft.blue_radix_cols(mk, shape[0], shape[2], kfft.num_sms(dev)), card=card)
         del x, y
-    x = randn(1, 1021, 1024)
-    time_kernel("dct23_blue_mid", (1, 1021, 1024), lambda: kdct.dct23_blue_mid(x, 2, 2.0),
-                lambda: kdct.dct23_blue_mid_plain(x, 2, 2.0))
+    for shape in ((1, 2049, 2049 * 256), (2049, 2049, 256)):
+        x = randn(*shape)
+        y = torch.empty_like(x)
+        mk = kfft.chirp_m(shape[1])
+        cols_ms = {c: cuda_ms(lambda: kdct.dct23_blue_launch(x, y, 2, 2.0, c), 5)
+                   for c in (1, 2, 4, 8) if tile_fits(mk, c)}
+        emit(phase="time", kernel="dct23_blue_mid", shape=shape, M=mk,
+             ms_by_cols_per_tile=cols_ms,
+             chosen=kdct.dct23_blue_cols(mk, shape[0], shape[2], kfft.num_sms(dev)), card=card)
+        del x, y
+        torch.cuda.empty_cache()
     # kernel 7 on the wide core at phase 4k's length 147456 = (384, 384)
     # over 64 rows (F = 3; the fixed and dense forms and kernel 13 were
     # timed there, at the main paths' shapes)
@@ -4530,8 +4707,8 @@ def main() -> int:
                           "ndrustfft_tpu/ops/pallas/dct.py:545"),
         "dct_dense_mid_radix": ("ndrustfft_tpu_torch/csrc/dct_mid_radix.cu",
                                 "ndrustfft_tpu/ops/pallas/dct.py:545"),
-        "dct2_nat": ("ndrustfft_tpu_torch/csrc/dct_nat.cu",
-                     "ndrustfft_tpu/ops/pallas/dct.py:190"),
+        "dct2_nat_radix": ("ndrustfft_tpu_torch/csrc/dct_rows_radix.cu",
+                           "ndrustfft_tpu/ops/pallas/dct.py:190"),
         "dct3_nat": ("ndrustfft_tpu_torch/csrc/dct_nat.cu",
                      "ndrustfft_tpu/ops/pallas/dct.py:208"),
         "c2c_rows": ("ndrustfft_tpu_torch/csrc/fft_rows_radix.cu",
@@ -4602,10 +4779,8 @@ def main() -> int:
                           "ndrustfft_tpu/ops/pallas/dct.py:670"),
         "c2c_blue_mid": ("ndrustfft_tpu_torch/csrc/fft_blue_radix.cu",
                          "ndrustfft_tpu/ops/pallas/fft.py:1277"),
-        "dct23_blue_mid": ("ndrustfft_tpu_torch/csrc/fft_blue_mid.cu",
+        "dct23_blue_mid": ("ndrustfft_tpu_torch/csrc/dct_blue_radix.cu",
                            "ndrustfft_tpu/ops/pallas/fft.py:1473"),
-        "dct23_blue_mid_wide": ("ndrustfft_tpu_torch/csrc/fft_blue_mid.cu",
-                                "ndrustfft_tpu/ops/pallas/fft.py:1473"),
         "fourstep_mid": ("ndrustfft_tpu_torch/csrc/fft_fourstep.cu",
                          "ndrustfft_tpu/ops/pallas/fft.py:1549"),
         "fourstep_mid_wide": ("ndrustfft_tpu_torch/csrc/fft_fourstep.cu",
@@ -4661,7 +4836,8 @@ def main() -> int:
                       *bound(*work(name, shape, mult=spectral_h.get((name, shape)))))))
             for shape in sliced.get(name, ())]
         if name in ("c2c_axis_mid", "r2c_packed_mid", "c2r_nat", "c2r_mid",
-                    "r2c_dense_mid_chirp", "r2c_packed_dense_radix", "r2c_packed_dense_chirp"):
+                    "r2c_dense_mid_chirp", "r2c_packed_dense_radix", "r2c_packed_dense_chirp",
+                    "dct2_nat_radix"):
             row["other_shapes"] = [
                 dict(zip(("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
                          (list(shape), *timing[(nm, shape)], *bound(*work(name, shape)))))

@@ -1,8 +1,10 @@
 // The chirp-z skeleton on the mixed-radix core's column tile
 // (fft_radix.cuh): kernel 11's blue_radix_kernel, templated on a load
 // policy and a store, which fft_blue_radix.cu (kernel 11's C2C, kernel 20's
-// real-input R2C) and rfft_blue_radix.cu (kernel 21's C2R, kernel 15's
-// rows) instantiate; the design and what bounds it are described there.
+// real-input R2C), rfft_blue_radix.cu (kernel 21's C2R, kernel 15's rows)
+// and dct_blue_radix.cu (kernel 12's real-to-real chirp-z, its own exit
+// table in its store) instantiate; the design and what bounds it are
+// described there.
 // For each column of an (M, C) tile in shared memory: the chirp length n's
 // input u = x a zero-padded to M, FFT_M(u) times H, the inverse as
 // conj(FFT_M(conj V)) with the one sign -1 radix table of M, and the

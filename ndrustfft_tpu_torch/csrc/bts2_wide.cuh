@@ -65,7 +65,7 @@
 //
 // Tile layouts (C = transforms of the tile, V <= C valid):
 //   kRows:  element (t, c) at s[c * n + t]   (contiguous rows: K13)
-//   cols:   element (t, c) at s[t * C + c]   (a column tile: K7, K12, K14, K22, K28, K29)
+//   cols:   element (t, c) at s[t * C + c]   (a column tile: K7, K14, K22, K28, K29)
 #pragma once
 
 #include <type_traits>

@@ -4,12 +4,15 @@
 // n = 128 * F and kernel 8 at every n <= 20480 it takes (fft_rows_radix.cu);
 // kernels 2 and 15 at their half length on rows with the R2C's unpack as
 // the epilogue, and kernel 3 with the C2R's inverse unpack as the prologue
-// (rfft_radix.cu); kernel 11 at every
+// (rfft_radix.cu); kernel 23's DCT-II as the Makhoul R2C on rows, its
+// permutation in the load and its post twiddle in the unpack's store
+// (dct_rows_radix.cu); kernel 11 at every
 // convolution length M = 128 * F on an (M, C) column tile, its forward and
 // inverse length-M transforms in place, and the real-input chirp-z of
 // kernel 20 (fft_blue_radix.cu), kernel 21 and kernel 15's rows
-// (rfft_blue_radix.cu) on the same kernel (blue_radix.cuh) at a 7-smooth
-// M; kernels 1, 6
+// (rfft_blue_radix.cu) and kernel 12's real-to-real chirp-z of the Makhoul
+// DCT-II/III (dct_blue_radix.cu) on the same kernel (blue_radix.cuh) at a
+// 7-smooth M; kernels 1, 6
 // and 4 (n = 128 * F; n > 512 without a split; n <= 512) on an (n, C)
 // column tile with the store in its last stage (fft_mid_radix.cu); kernels
 // 16, 18 and 20 (the R2C along a middle axis, kernel 18 of DST-I's two
@@ -92,7 +95,7 @@
 //
 // Left for later: cp.async or TMA prefetch of the next tile, twiddles
 // staged in shared memory, and the other routes that run dense stages
-// (kernel 13's rows, kernel 7's columns, kernel 12's chirp-z).
+// (kernel 13's rows, kernel 7's columns).
 #pragma once
 
 #include <cstdint>

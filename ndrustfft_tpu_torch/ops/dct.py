@@ -171,22 +171,32 @@ def dct4_half_mid(x: torch.Tensor, scale=None) -> torch.Tensor:
     return torch.stack([evens, odds], dim=2).reshape(nb, n, cols)
 
 
-def dct23_blue_mid(x: torch.Tensor, dct_type: int, scale=None) -> torch.Tensor:
-    """scale * DCT-II or DCT-III along dim 1 of a (B, n, L) float32 tensor at
-    a Bluestein length, the JAX package's Makhoul lowering around kernel 12
-    (its api.py:438-471): DCT-II permutes x (evens, then the odds reversed)
-    before the kernel; DCT-III un-permutes the kernel's output (z[2t] = u[t],
-    z[2t+1] = u[n-1-t]) after it. The permutations are torch ops, as the JAX
-    package leaves them to XLA."""
-    if dct_type == 2:
-        v = torch.cat([x[:, 0::2], x[:, 1::2].flip(1)], dim=1)
-        return _k12(v, 2, scale)
-    u = _k12(x, 3, scale)
-    half = (x.shape[1] + 1) // 2
+def makhoul_order(x: torch.Tensor) -> torch.Tensor:
+    """The Makhoul order along dim 1 of (B, n, L): the evens, then the odds
+    reversed (DCT-II's input to kernel 12)."""
+    return torch.cat([x[:, 0::2], x[:, 1::2].flip(1)], dim=1)
+
+
+def makhoul_interleave(u: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`makhoul_order` along dim 1: z[2t] = u[t],
+    z[2t+1] = u[n-1-t] (DCT-III's output of kernel 12)."""
+    half = (u.shape[1] + 1) // 2
     z = torch.empty_like(u)
     z[:, 0::2] = u[:, :half]
     z[:, 1::2] = u[:, half:].flip(1)
     return z
+
+
+def dct23_blue_mid(x: torch.Tensor, dct_type: int, scale=None) -> torch.Tensor:
+    """scale * DCT-II or DCT-III along dim 1 of a (B, n, L) float32 tensor at
+    a Bluestein length, the JAX package's Makhoul lowering around kernel 12
+    (its api.py:438-471): DCT-II permutes x (:func:`makhoul_order`) before
+    the kernel; DCT-III un-permutes the kernel's output
+    (:func:`makhoul_interleave`) after it. The permutations are torch ops,
+    as the JAX package leaves them to XLA."""
+    if dct_type == 2:
+        return _k12(makhoul_order(x), 2, scale)
+    return makhoul_interleave(_k12(x, 3, scale))
 
 
 DCT_FNS = {1: dct1, 2: dct2, 3: dct3, 4: dct4}

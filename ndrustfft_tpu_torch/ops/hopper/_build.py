@@ -42,11 +42,11 @@ _SIGNATURES = {
     "ndfft_r2c_dense_mid": [_P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_c2r_dense_mid": [_P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_dct_dense_mid": [_P, _P, _P, _LL, _I, _LL, _I, _P],
-    "ndfft_dct2_nat": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_dct3_nat": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_c2c_rows_radix": [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _F, _P],
     "ndfft_c2c_mid_radix": [_P, _P, _P, _P, _I, _LL, _I, _LL, _I, _I, _F, _I, _P],
     "ndfft_r2c_radix": [_P, _P, _P, _P, _I, _P, _LL, _I, _I, _P],
+    "ndfft_dct2_rows_radix": [_P, _P, _P, _P, _I, _P, _P, _LL, _I, _I, _P],
     "ndfft_r2c_mid_radix": [_P, _P, _P, _P, _I, _P, _LL, _I, _LL, _I, _P],
     "ndfft_r2c_packed_mid_radix": [_P, _P, _P, _P, _P, _I, _P, _F, _LL, _I, _LL, _I, _P],
     "ndfft_c2r_radix": [_P, _P, _P, _P, _I, _P, _LL, _I, _I, _P],
@@ -67,8 +67,7 @@ _SIGNATURES = {
     "ndfft_r2c_blue_radix": [_P] * 7 + [_I, _LL, _I, _I, _LL, _I, _P],
     "ndfft_c2r_blue_radix": [_P] * 7 + [_I, _F, _LL, _I, _I, _LL, _I, _P],
     "ndfft_r2c_blue_rows": [_P] * 7 + [_I, _LL, _I, _I, _I, _P],
-    "ndfft_dct23_blue_mid": [_P] * 7 + [_LL, _I, _I, _LL, _I, _P],
-    "ndfft_dct23_blue_mid_wide": [_P] * 9 + [_LL, _I, _I, _LL, _I, _P],
+    "ndfft_dct23_blue_radix": [_P] * 7 + [_I, _LL, _I, _I, _LL, _I, _P],
     "ndfft_fourstep_mid": [_P, _P, _P, _P, _LL, _I, _LL, _I, _I, _P],
     "ndfft_fourstep_mid_wide": [_P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_rows_store_t": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],

@@ -13,9 +13,11 @@
   with the scaled type matrix (``csrc/dct_dense.cu``). DST-II/III reach
   both through their flip/sign conjugation.
 * Kernels 23 and 24, :func:`dct2_nat` and :func:`dct3_nat`: DCT-II and
-  DCT-III of contiguous float32 rows by the Makhoul lowering
-  (``csrc/dct_nat.cu``; replace ``dct.py::_dct2_kernel`` and
-  ``_dct3_kernel``).
+  DCT-III of contiguous float32 rows by the Makhoul lowering (replace
+  ``dct.py::_dct2_kernel`` and ``_dct3_kernel``). Kernel 23 runs the
+  Makhoul R2C on the radix row core at every length whose half length has
+  a plan (:func:`dct2_nat_radix`, ``csrc/dct_rows_radix.cu``); at the 29
+  others, and kernel 24 everywhere, ``csrc/dct_nat.cu``.
 * Kernels 25 and 26, :func:`dct2_mid` and :func:`dct3_mid`: the same two
   along the middle axis of (B, n, L) (``csrc/dct_mid.cu``; replace
   ``dct.py::_dct2_kernel_mid`` and ``_dct3_kernel_mid``).
@@ -31,14 +33,16 @@
   inverse on one column tile (``csrc/spectral_dct_mid.cu``; replaces
   ``dct.py::_spectral_dct_kernel_mid``).
 * Kernel 12, :func:`dct23_blue_mid`: the Makhoul DCT-II/III core along the
-  middle axis of a real (B, n, L) tensor at a Bluestein length, kernel 11's
-  fused chirp-z on a real column with Re(z b) out, the Makhoul twiddles
-  (and DCT-III's c0/2) folded into the chirps (``csrc/fft_blue_mid.cu``;
-  replaces ``fft.py::_kernel_axis_mid_blue_rr``).
+  middle axis of a real (B, n, L) tensor at a Bluestein length, the
+  real-input chirp-z on kernel 11's column kernel at M = chirp_m(n) with
+  Re(z b) out, the Makhoul twiddles (and DCT-III's c0/2) folded into the
+  entry and exit tables (``csrc/dct_blue_radix.cu``; replaces
+  ``fft.py::_kernel_axis_mid_blue_rr``).
 
 Kernels 23 to 26 take every even n = 128 * k that the JAX gate
 ``dct_pallas_supported`` sends to them (split (128, k), k <= 256), in the
-form :func:`dct_form` names: the half length h = n/2 = 128 * F for even k
+form :func:`dct_form` names (kernel 23 off the radix row core): the half
+length h = n/2 = 128 * F for even k
 (the real FFT of kernels 2/3 or 16/17: the fixed bts2 core for F in
 :data:`DCT_F` (rows) or ``CORE_F`` (middle axis), the wide core
 ``csrc/bts2_wide.cuh`` otherwise), and the n-point FFT on the wide core's
@@ -46,15 +50,17 @@ real tile for odd k, where h = 64 k is no multiple of 128
 (``csrc/dct_wide.cuh``; one column fills a block at odd k > 160).
 
 What bounds them, and what the designs do about it, is in the sources'
-header comments: the core's dense DFT-128 on the FP32 cores; device memory
-read once and written once; every constant built on the host.
+header comments: the bts2 core's dense DFT-128 on the FP32 cores, device
+memory for the radix core; device memory read once and written once; every
+constant built on the host.
 
 This module holds their host-built constants, their plain PyTorch versions
 and their wrappers, whose ``launches`` attributes count kernel launches
-(kernels 12, 23 to 26, 28 and 29 also count the wide core's (half-length)
+(kernels 23 to 26, 28 and 29 also count the wide core's (half-length)
 launches apart, in ``wide_launches``, kernels 23 to 26 and 29 the n-point
 ones in ``npoint_launches``, kernel 28 its long form's in
-``long_launches`` and kernel 27 its radix column tile's in
+``long_launches``, kernel 27 its radix column tile's, kernel 23 its radix
+row core's and kernel 12 its chirp-z's (every one) in
 ``radix_launches``). All
 transforms are in the rustdct convention (scipy's unnormalized DCT / 2)
 times ``scale``.
@@ -70,13 +76,15 @@ import torch
 
 from ...plan import _cis, blue_h, chirp
 from . import _build
-from .fft import (C2C_F, CORE_F, M, RADIX_MAX_STAGES, REAL_MAX_F, WIDE_MAX_F, block_cols,
-                  block_rows, blue_kernel_M, blue_launch, bts2_consts, bts2_plain, check_blue_n,
-                  check_cuda, check_mult, chirp_z_plain, count_launch, dense_beats_radix,
-                  dense_tile, device_radix, device_wide, device_wq, f32_pair, mult_planes,
-                  num_sms, pair_tensor, radix_plan, wide_block, wide_bytes, wide_real_bytes)
-from .rfft import (_bts2_col_c2r_plain, _device_ab, _device_tw, c2r_mid_cols, c2r_mid_plain,
-                   r2c_mid_cols, r2c_mid_plain, r2c_mid_radix_plain)
+from .fft import (C2C_F, CORE_F, M, RADIX_MAX_STAGES, RADIX_WIDE_N, REAL_MAX_F, WIDE_MAX_F,
+                  block_cols, block_rows, bts2_plain, check_blue_n, check_cuda, check_mult,
+                  chirp_m, chirp_z_radix_plain, count_launch, dense_beats_radix, dense_tile,
+                  device_radix, device_wide, device_wq, f32_pair, mult_planes, num_sms,
+                  pair_tensor, radix_block, radix_mid_cols, radix_plan, wide_block,
+                  wide_bytes, wide_real_bytes)
+from .rfft import (_bts2_col_c2r_plain, _bts2_col_r2c_plain, _device_ab, _device_tw,
+                   c2r_mid_cols, c2r_mid_plain, r2c_mid_cols, r2c_mid_radix_plain,
+                   r2c_radix_plain)
 
 DCT_F = (1, 2, 4, 8, 16)   # half-length factors F of kernels 23/24's fixed core
 
@@ -340,9 +348,11 @@ def _scale(scale) -> float:
 
 def _dct2_plain(x: torch.Tensor, scale) -> torch.Tensor:
     """scale * DCT-II along dim 1 of a (B, n, L) float32 tensor in the form
-    the kernels take at n (:func:`dct_form`): the Makhoul permutation, then
-    the half-length R2C (kernel 16's plain version) with the Hermitian unfold,
-    or the n-point FFT (the core's plain version); then the post twiddle."""
+    the bts2 kernels take at n (:func:`dct_form`): the Makhoul permutation,
+    then the half-length R2C on the bts2 core (the column R2C's plain
+    version, :func:`~.rfft._bts2_col_r2c_plain`, which takes every h = 128 F,
+    those without a radix plan included) with the Hermitian unfold, or the
+    n-point FFT (the core's plain version); then the post twiddle."""
     n = x.shape[1]
     post = _device_twiddle("post", n, _scale(scale), x.device)[:, None]
     v = x[:, _device_index("perm", n, x.device)]
@@ -350,7 +360,7 @@ def _dct2_plain(x: torch.Tensor, scale) -> torch.Tensor:
         z = bts2_plain(v.to(torch.complex64), device_wq(n, -1, 1.0, x.device), -1)
         return (z * post).real
     h = n // 2
-    spec = r2c_mid_plain(v)
+    spec = _bts2_col_r2c_plain(v[:, 0::2], v[:, 1::2])
     full = torch.cat([spec, spec[:, 1:h].flip(1).conj()], dim=1)
     return (full * post).real
 
@@ -381,10 +391,52 @@ def _dct3_plain(x: torch.Tensor, scale) -> torch.Tensor:
     return u[:, _device_index("unperm", n, x.device)]
 
 
+def dct2_nat_radix(n: int) -> bool:
+    """Kernel 23 runs the Makhoul R2C on the radix row core at n: :func:`dct_form`
+    takes n and :func:`~.fft.radix_plan` has h = n/2 = 64 k (259 of the 288
+    lengths, the odd k included; not k = 131 ... 251 prime, nor 2 k for k =
+    131, 137, 139, 149, 151, 157, which keep the wide core's forms)."""
+    return dct_form(n) is not None and radix_plan(n // 2) is not None
+
+
+def dct2_rows_radix_plain(x: torch.Tensor, scale=None) -> torch.Tensor:
+    """Plain version of kernel 23 on the radix row core: (T, n) float32 ->
+    scale * DCT-II of each row, as the kernel computes it: the R2C of the
+    Makhoul order at half length h = n/2 (kernel 2's plain version,
+    :func:`~.rfft.r2c_radix_plain`), X[k] times the post twiddle P[k],
+    y[k] = Re and y[n-k] = -Im for 0 < k < h."""
+    n = x.shape[1]
+    h = n // 2
+    w = (r2c_radix_plain(x[:, _device_index("perm", n, x.device)])
+         * _device_twiddle("post", n, _scale(scale), x.device)[:h + 1])
+    return torch.cat([w.real, -w.imag[:, 1:h].flip(1)], dim=1)
+
+
 def dct2_nat_plain(x: torch.Tensor, scale=None) -> torch.Tensor:
     """Plain version of kernel 23: (T, n) float32 -> scale * DCT-II of each
-    row (:func:`_dct2_plain` on the rows as (T, n, 1))."""
+    row, in the form the kernel takes at n: :func:`dct2_rows_radix_plain`
+    where :func:`dct2_nat_radix` holds, else :func:`_dct2_plain` on the rows
+    as (T, n, 1)."""
+    if dct2_nat_radix(x.shape[1]):
+        return dct2_rows_radix_plain(x, scale)
     return _dct2_plain(x[:, :, None], scale)[:, :, 0]
+
+
+def dct2_rows_radix_launch(x: torch.Tensor, y: torch.Tensor, scale, rows=None) -> None:
+    """Launch kernel 23 on the radix row core on the (T, n) float32 CUDA
+    tensor x (16-byte aligned) into y, ``rows`` a block (by default
+    :func:`~.fft.radix_block` at h = n/2, as kernel 2); counts nothing."""
+    t, n = x.shape
+    h = n // 2
+    dev = x.device
+    plan = radix_plan(h)
+    with torch.cuda.device(dev):
+        err = _build.lib().ndfft_dct2_rows_radix(
+            x.data_ptr(), y.data_ptr(), device_radix(h, -1, dev).data_ptr(),
+            (ctypes.c_int * RADIX_MAX_STAGES)(*plan), len(plan), _device_tw(n, dev).data_ptr(),
+            _device_twiddle("post", n, _scale(scale), dev).data_ptr(), t, h,
+            rows or radix_block(h, t, num_sms(dev)), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ndfft_dct2_rows_radix")
 
 
 def dct3_nat_plain(x: torch.Tensor, scale=None) -> torch.Tensor:
@@ -418,18 +470,25 @@ def _check_form(x: torch.Tensor, rows: bool, what: str):
 
 def _launch(wrapper, x: torch.Tensor, scale, type3: bool, rows: bool) -> torch.Tensor:
     """Kernel 23/24 (``rows``: x is (T, n)) or 25/26 (x is (B, n, L)) on a
-    CUDA tensor: the fixed core, the wide core's half-length form or its
+    CUDA tensor: kernel 23 on the radix row core where :func:`dct2_nat_radix`
+    holds, else the fixed core, the wide core's half-length form or its
     n-point form, by :func:`dct_form`; adds one to the wrapper's counts."""
     what = wrapper.__name__
     check_cuda(x, torch.float32, what)
     n = x.shape[1]
     form, f = dct_form(n)
-    npoint = form == "npoint"
-    fixed = not npoint and f in (DCT_F if rows else CORE_F)
-    if fixed and rows and x.data_ptr() % 8:    # the fixed kernels read rows as float2
-        x = x.clone()
+    radix = rows and not type3 and dct2_nat_radix(n)
+    npoint = not radix and form == "npoint"
+    fixed = not (radix or npoint) and f in (DCT_F if rows else CORE_F)
+    if (radix and x.data_ptr() % 16) or (fixed and rows and x.data_ptr() % 8):
+        x = x.clone()          # the radix rows read 16-byte quads, the fixed ones float2
     y = torch.empty_like(x)
     if x.numel() == 0:
+        return y
+    if radix:
+        dct2_rows_radix_launch(x, y, scale)
+        wrapper.launches += 1
+        wrapper.radix_launches += 1
         return y
     dev = x.device
     s = _scale(scale)
@@ -448,10 +507,9 @@ def _launch(wrapper, x: torch.Tensor, scale, type3: bool, rows: bool) -> torch.T
     ptrs = (x.data_ptr(), y.data_ptr(), wq.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        if fixed and rows:
-            err = getattr(lib, "ndfft_dct3_nat" if type3 else "ndfft_dct2_nat")(
-                *ptrs, c1.data_ptr(), c2.data_ptr(), cols, n, block_rows(core, cols, sms),
-                stream)
+        if fixed and rows:      # kernel 24 alone: kernel 23's fixed lengths are radix ones
+            err = lib.ndfft_dct3_nat(*ptrs, c1.data_ptr(), c2.data_ptr(), cols, n,
+                                     block_rows(core, cols, sms), stream)
         elif fixed:
             err = lib.ndfft_dct_mid(int(type3), *ptrs, c1.data_ptr(), c2.data_ptr(), nb, n,
                                     cols, block_cols(core, nb, cols, sms), stream)
@@ -481,8 +539,9 @@ def _dct_wrapper(name: str, plain, type3: bool, rows: bool, doc: str):
     wrapper.__name__ = wrapper.__qualname__ = name
     wrapper.__doc__ = doc + (
         " A CPU tensor runs the plain version; a CUDA tensor launches the kernel "
-        "(the fixed core, the wide core's half-length form or the n-point form, "
-        "by dct_form(n)) or raises.")
+        "(kernel 23 on the radix row core where dct2_nat_radix(n) holds; else the "
+        "fixed core, the wide core's half-length form or the n-point form, by "
+        "dct_form(n)) or raises.")
     wrapper.launches = wrapper.wide_launches = wrapper.npoint_launches = 0
     return wrapper
 
@@ -490,7 +549,8 @@ def _dct_wrapper(name: str, plain, type3: bool, rows: bool, doc: str):
 dct2_nat = _dct_wrapper(
     "dct2_nat", dct2_nat_plain, False, True,
     "scale * DCT-II of the rows of a (T, n) float32 tensor (kernel 23), n = 128 * k "
-    "(dct_form).")
+    "(dct_form); its radix row core's launches are counted in radix_launches as well.")
+dct2_nat.radix_launches = 0
 dct3_nat = _dct_wrapper(
     "dct3_nat", dct3_nat_plain, True, True,
     "scale * DCT-III of the rows of a (T, n) float32 tensor (kernel 24), n = 128 * k "
@@ -654,14 +714,17 @@ def _blue_rr_chirps(n: int, dct_type: int, scale: float):
 
 def blue_rr_consts(n: int, dct_type: int, scale: float = 1.0):
     """Kernel 12's tables at n, float32 (re, im) pairs: a, b
-    (:func:`_blue_rr_chirps`), H of the sign -1 chirp, the forward core's Wq
-    (sign -1) and the inverse core's (sign +1, 1/M). Built by the JAX
-    package's ``_blue_rr_consts_cached`` expressions in float64 and rounded
-    once, so each is its table bit for bit."""
-    mk = blue_kernel_M(n)
+    (:func:`_blue_rr_chirps`; built by the JAX package's
+    ``_blue_rr_consts_cached`` expressions in float64 and rounded once, so
+    each is its table bit for bit) and H of the sign -1 chirp at the
+    convolution length :func:`~.fft.chirp_m` (n) (the 7-smooth length of
+    least modelled time that kernel 20's chirp-z runs: 4608 = 16 * 16 * 2 * 9
+    at n = 2049, at most 14336 over the lengths the wrapper takes; the JAX
+    kernel's 128 * ceil((2n - 1) / 128) is the TPU's lane width), built in
+    float64 and rounded once (``plan.blue_h``)."""
     a, b = _blue_rr_chirps(n, dct_type, scale)
     return (f32_pair((a.real, a.imag)), f32_pair((b.real, b.imag)),
-            f32_pair(blue_h(n, -1, mk)), bts2_consts(mk, -1, 1.0), bts2_consts(mk, +1, 1.0 / mk))
+            f32_pair(blue_h(n, -1, chirp_m(n))))
 
 
 @lru_cache(maxsize=64)
@@ -669,15 +732,43 @@ def _device_blue_rr(n: int, dct_type: int, scale: float, device: torch.device):
     """(a, b, H) of :func:`blue_rr_consts` as complex64 tensors on ``device``."""
     a, b = _blue_rr_chirps(n, dct_type, scale)
     return (pair_tensor((a.real, a.imag), device), pair_tensor((b.real, b.imag), device),
-            pair_tensor(blue_h(n, -1, blue_kernel_M(n)), device))
+            pair_tensor(blue_h(n, -1, chirp_m(n)), device))
 
 
 def dct23_blue_mid_plain(x: torch.Tensor, dct_type: int, scale=None) -> torch.Tensor:
     """Plain version of kernel 12: Re(b . the chirp-z convolution of x a)
-    along dim 1 of (B, n, L) (ops/hopper/fft.py::chirp_z_plain)."""
+    along dim 1 of (B, n, L), the convolution on the radix core at
+    M = :func:`~.fft.chirp_m` (n) (:func:`~.fft.chirp_z_radix_plain`)."""
     a, b, h = _device_blue_rr(x.shape[1], dct_type, _scale(scale), x.device)
-    z = chirp_z_plain(x * a[:, None], h, 1.0) * b[:, None]
+    z = chirp_z_radix_plain(x * a[:, None], h, 1.0) * b[:, None]
     return z.real.contiguous()
+
+
+def dct23_blue_cols(mk: int, groups: int, cols: int, sms: int) -> int:
+    """Columns per tile of kernel 12 at convolution length mk: one column
+    above RADIX_WIDE_N (the 32-element form), :func:`~.fft.radix_mid_cols`
+    below it. (On an H100 at M = 4608, chip_smoke.py's phase 5 scan in two
+    runs: one column, 144 threads, 129.7-130.9 ms at (1, 2049, 524544) and
+    126.2-126.4 at (2049, 2049, 256); two columns within 3% of it, either
+    side; radix_mid_cols's C = 4, the 40-element form, 145.6-147.1.)"""
+    return 1 if mk > RADIX_WIDE_N else radix_mid_cols(mk, groups, cols, sms)
+
+
+def dct23_blue_launch(x: torch.Tensor, y: torch.Tensor, dct_type: int, scale, c: int) -> None:
+    """Launch kernel 12 on kernel 11's column kernel, ``c`` columns a tile
+    (:func:`dct23_blue_cols`), on the (B, n, L) float32 CUDA tensor x into y
+    (``csrc/dct_blue_radix.cu``); counts nothing."""
+    nb, n, cols = x.shape
+    dev = x.device
+    mk = chirp_m(n)
+    a, b, h = _device_blue_rr(n, dct_type, _scale(scale), dev)
+    plan = radix_plan(mk)
+    with torch.cuda.device(dev):
+        err = _build.lib().ndfft_dct23_blue_radix(
+            x.data_ptr(), y.data_ptr(), a.data_ptr(), b.data_ptr(), h.data_ptr(),
+            device_radix(mk, -1, dev).data_ptr(), (ctypes.c_int * RADIX_MAX_STAGES)(*plan),
+            len(plan), nb, n, mk, cols, c, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ndfft_dct23_blue_radix")
 
 
 def dct23_blue_mid(x: torch.Tensor, dct_type: int, scale=None) -> torch.Tensor:
@@ -687,14 +778,14 @@ def dct23_blue_mid(x: torch.Tensor, dct_type: int, scale=None) -> torch.Tensor:
     DCT-III, Re(FFT_n(c w scale)) of x with c0 halved, still to be
     un-permuted. The caller owns the permutation (ops/dct.py::
     dct23_blue_mid). A CPU tensor runs the plain version; a CUDA tensor
-    launches kernel 12 (on the fixed core for F in {4, 8, 16}, else on the
-    wide core) or raises."""
+    launches kernel 12 on kernel 11's column kernel (counted in
+    ``launches`` and ``radix_launches``) or raises."""
     if x.dim() != 3:
         raise ValueError(f"dct23_blue_mid: expected (B, n, L), got {tuple(x.shape)}")
     if dct_type not in (2, 3):
         raise ValueError(f"dct23_blue_mid: no chirp-z DCT-{dct_type}")
     nb, n, cols = x.shape
-    f = check_blue_n(n, "dct23_blue_mid")
+    check_blue_n(n, "dct23_blue_mid")
     if x.device.type == "cpu":
         return dct23_blue_mid_plain(x, dct_type, scale)
     if x.device.type != "cuda":
@@ -703,13 +794,15 @@ def dct23_blue_mid(x: torch.Tensor, dct_type: int, scale=None) -> torch.Tensor:
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    a, b, h = _device_blue_rr(n, dct_type, _scale(scale), x.device)
-    count_launch(dct23_blue_mid, blue_launch("ndfft_dct23_blue_mid", x, y, (a, b), h, 1.0, f))
+    dct23_blue_launch(x, y, dct_type, scale,
+                      dct23_blue_cols(chirp_m(n), nb, cols, num_sms(x.device)))
+    dct23_blue_mid.launches += 1
+    dct23_blue_mid.radix_launches += 1
     return y
 
 
 dct23_blue_mid.launches = 0
-dct23_blue_mid.wide_launches = 0
+dct23_blue_mid.radix_launches = 0
 
 
 # --------------------------------------------------------------------------

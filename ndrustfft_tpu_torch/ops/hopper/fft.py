@@ -52,6 +52,7 @@ kernels 1, 10, 8, 6, 4 and 11 count every launch of ``c2c_axis_mid``,
 
 from __future__ import annotations
 
+import bisect
 import ctypes
 from collections import OrderedDict
 from functools import lru_cache
@@ -801,7 +802,8 @@ CHIRP_STAGE_PS = {16: 6.1, 8: 10.9, 4: 10.8, 2: 9.3, 9: 10.5, 3: 11.5, 5: 7.6, 7
 @lru_cache(maxsize=None)
 def chirp_m(length: int) -> int:
     """The convolution length of a chirp-z on the radix core at chirp length
-    ``length`` (kernel 20's real-input chirp-z): among the M from 2 length - 1
+    ``length`` (kernel 20's real-input chirp-z, kernel 21's, kernel 15's rows
+    and kernel 12's): among the M from 2 length - 1
     to twice that (at most 4096, where a column's tile keeps the 16-element
     form) whose prime factors are all 2, 3, 5 or 7, so that every stage of
     :func:`radix_plan` (M) is a register codelet, the one of least modelled
@@ -814,12 +816,10 @@ def chirp_m(length: int) -> int:
     lo = 2 * length - 1
     hi = 2 * lo if lo > 2048 else min(2 * lo, 4096)
     best = None
-    for mk in range(lo, max(lo, hi) + 1):
-        rest = mk
-        for p in RADIX_SMOOTH:
-            while rest % p == 0:
-                rest //= p
-        plan = radix_plan(mk) if rest == 1 else None
+    top = max(lo, hi)
+    smooth = _smooth_lengths(1 << top.bit_length())
+    for mk in smooth[bisect.bisect_left(smooth, lo):bisect.bisect_right(smooth, top)]:
+        plan = radix_plan(mk)
         if plan is not None:
             cost = mk * sum(CHIRP_STAGE_PS[r] for r in plan)
             if best is None or cost < best[0]:
@@ -827,23 +827,29 @@ def chirp_m(length: int) -> int:
     return best[1]
 
 
-def blue_bytes(mk: int, c: int) -> int:
-    """Dynamic shared memory of a wide chirp-z tile of ``c`` columns at
-    convolution length mk (csrc/fft_blue_mid.cu::blue_wide_smem_bytes;
-    kernel 12's wide form): the wide core's tile, Y scratch and row W_F^k,
-    and a second tile that the forward core's store fills with FFT_M times
-    H for the inverse core. One column of it bounds the Bluestein lengths of
-    both kernels (:func:`blue_f`)."""
-    return 8 * (c * (2 * mk + WIDE_SLOTS * M) + mk // M)
+@lru_cache(maxsize=None)
+def _smooth_lengths(top: int):
+    """The integers 1 ... top whose prime factors are all in RADIX_SMOOTH,
+    ascending."""
+    out = [1]
+    for p in RADIX_SMOOTH:
+        out = [v * p ** e for v in out for e in range(top.bit_length()) if v * p ** e <= top]
+    return sorted(out)
+
+
+# the largest convolution factor F = M / 128 of a length that kernels 11
+# and 12 take: the JAX package's fused chirp-z tile of one column within a
+# block's shared memory (the first Hopper form's wide tile, 8 (2 M + 512 +
+# M / 128) bytes <= MAX_SMEM, held the same bound)
+BLUE_MAX_F = 111
 
 
 def blue_f(n: int):
     """F of the convolution length M = 128 * F where kernels 11 and 12 take
-    n: a length above 128 whose blue_kernel_M has a wide tile of one column
-    within a block's shared memory (F <= 111; the routes send F <= 106),
-    else None."""
+    n: a length above 128 whose blue_kernel_M is at most 128 * BLUE_MAX_F
+    (n <= 7104; the routes send F <= 106), else None."""
     mk = blue_kernel_M(n)
-    if n <= M or mk is None or blue_bytes(mk, 1) > MAX_SMEM:
+    if n <= M or mk is None or mk > M * BLUE_MAX_F:
         return None
     return mk // M
 
@@ -852,7 +858,7 @@ def check_blue_n(n: int, what: str) -> int:
     f = blue_f(n)
     if f is None:
         raise ValueError(f"{what}: n={n} has no fused chirp-z tile (128 < n, "
-                         f"M = 128 * ceil((2n - 1) / 128) <= {M * 111})")
+                         f"M = 128 * ceil((2n - 1) / 128) <= {M * BLUE_MAX_F})")
     return f
 
 
@@ -890,20 +896,9 @@ def _device_blue(n: int, sign: int, device: torch.device):
             pair_tensor(blue_h(n, sign, blue_kernel_M(n)), device))
 
 
-def chirp_z_plain(xa: torch.Tensor, h: torch.Tensor, scale: float) -> torch.Tensor:
-    """The fused chirp-z's convolution on the bts2 core (kernel 12), on the
-    chirped (B, n, L) column xa: zero-padded to M = len(h), the core's plain
-    forward transform, times H, the core's plain inverse with scale / M,
-    rows k < n."""
-    nb, n, cols = xa.shape
-    mk = h.shape[0]
-    pad = torch.cat([xa, xa.new_zeros(nb, mk - n, cols)], dim=1)
-    f = bts2_plain(pad, device_wq(mk, -1, 1.0, xa.device), -1) * h[:, None]
-    return bts2_plain(f, device_wq(mk, +1, scale / mk, xa.device), +1)[:, :n]
-
-
 def chirp_z_radix_plain(xa: torch.Tensor, h: torch.Tensor, scale: float) -> torch.Tensor:
-    """The same convolution on the radix core (kernel 11): each zero-padded
+    """The fused chirp-z's convolution on the radix core (kernels 11, 12, 20
+    and 21), on the chirped (B, n, L) column xa with M = len(h): each zero-padded
     column as a row, :func:`c2c_radix_rows_plain` forward, times H, the
     inverse with scale / M, rows k < n."""
     nb, n, cols = xa.shape
@@ -923,33 +918,6 @@ def c2c_blue_mid_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
     a, h = _device_blue(n, sign, x.device)
     s = 1.0 if scale is None else float(scale)
     return chirp_z_radix_plain(x * a[:, None], h, s) * a[:, None]
-
-
-def blue_launch(entry: str, x: torch.Tensor, y: torch.Tensor, chirps, h: torch.Tensor,
-                scale: float, f: int) -> bool:
-    """Launch the bts2 core's fixed (F in {4, 8, 16}) or wide form of the
-    fused chirp-z (kernel 12: ``entry`` and ``entry + "_wide"``) on (B, n,
-    L) tensors x and y, with the chirp tensors ``chirps`` and H; return
-    whether it ran the wide form."""
-    nb, n, cols = x.shape
-    dev = x.device
-    mk = f * M
-    wide = f not in C2C_F
-    ptrs = [t.data_ptr() for t in (*chirps, h)]
-    ptrs.append(device_wq(mk, -1, 1.0, dev).data_ptr())
-    if wide:
-        ptrs.append(device_wide(mk, -1, dev).data_ptr())
-    ptrs.append(device_wq(mk, +1, scale / mk, dev).data_ptr())
-    if wide:
-        ptrs.append(device_wide(mk, +1, dev).data_ptr())
-    sms = num_sms(dev)
-    tile = wide_block(mk, nb, cols, sms, blue_bytes) if wide else block_cols(mk, nb, cols, sms)
-    name = entry + ("_wide" if wide else "")
-    with torch.cuda.device(dev):
-        err = getattr(_build.lib(), name)(x.data_ptr(), y.data_ptr(), *ptrs, nb, n, mk, cols,
-                                          tile, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, name)
-    return wide
 
 
 def radix_cols_threads(mk: int, c: int) -> int:

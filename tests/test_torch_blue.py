@@ -6,14 +6,15 @@ the JAX package, on the CPU, where the wrappers run their plain versions:
   at n = 131 (M = 384, the wide core, F = 3), 509 (M = 1024, the fixed
   core, F = 8), 1021 (F = 16) and 1031 (wide, F = 17), forward unscaled and
   inverse with scale 1/n;
-* ``dct23_blue_mid`` against ``dct23_blue_pallas_mid`` at n = 1021 (fixed),
-  1153 (wide, F = 19) and 2049 (wide, F = 33), DCT-II with scale 2 and
-  DCT-III unscaled;
+* ``dct23_blue_mid`` against ``dct23_blue_pallas_mid`` at n = 1021, 1153
+  and 2049 (the chirp-z on the radix core at M = chirp_m(n) = 2048, 2560,
+  4608), DCT-II with scale 2 and DCT-III unscaled;
 * each with nb = 1, L = 128 and nb = 2, L = 130 (a ragged column);
 * the plan (``chirp_a``, ``chirp_b``, ``H``, ``M``) and the kernels' tables
   bit for bit against ``ndrustfft_tpu.plan.C2CPlan``, ``_blue_consts`` and
-  ``_blue_rr_consts_cached``; the convolution lengths, tiles and the
-  wrappers' checks.
+  ``_blue_rr_consts_cached`` (kernel 12's H at its own M = chirp_m(n)
+  against float64 numpy); the convolution lengths, tiles and the wrappers'
+  checks.
 
 Tolerance: max |port - JAX| <= 5e-6 * max |JAX| in float32 at the JAX
 package's "highest" tier.
@@ -185,18 +186,23 @@ def test_blue_consts_bit_identical(n, sign, scale):
 @pytest.mark.parametrize("dct_type", [2, 3])
 @pytest.mark.parametrize("scale", [1.0, 2.0])
 def test_blue_rr_consts_bit_identical(n, dct_type, scale):
+    """Kernel 12's entry and exit tables are the JAX kernel's bit for bit;
+    its H is FFT_M of the JAX plan's wrapped inverse chirp at its own
+    M = chirp_m(n), in float64, rounded once."""
     consts, sections, kind, (m, f, p_trim), mk = ref_pfft._blue_rr_consts_cached(
         n, "float32", "highest", f"dct{dct_type}", scale)
     (ca, fwd, h, inv, cb) = _blocks(consts, sections)
-    a, b, hh, wq_f, wq_i = kdct.blue_rr_consts(n, dct_type, scale)
-    for port, ref in ((a, ca), (b, cb), (hh, h)):
+    a, b, hh = kdct.blue_rr_consts(n, dct_type, scale)
+    for port, ref in ((a, ca), (b, cb)):
         assert np.array_equal(port[0], ref[0][:, 0]) and np.array_equal(port[1], ref[1][:, 0])
-    if kind == "bts2":
-        _check_core(wq_f, fwd, f)
-        _check_core(wq_i, inv, f, p_trim)
-    else:
-        ref, _ = ref_pfft._bts2_consts(mk, 1, np.float32, "highest", 1.0 / mk)
-        _check_core(wq_i, ref, mk // 128)
+    mc = kfft.chirp_m(n)
+    cr, ci = ref_plan.chirp(n, 1)
+    w = np.zeros(mc, np.complex128)
+    w[:n] = cr + 1j * ci
+    w[mc - n + 1:] = (cr[1:] + 1j * ci[1:])[::-1]
+    want = np.fft.fft(w)
+    assert np.array_equal(hh[0], want.real.astype(np.float32))
+    assert np.array_equal(hh[1], want.imag.astype(np.float32))
 
 
 # --------------------------------------------------------------------------
@@ -207,14 +213,16 @@ def test_blue_rr_consts_bit_identical(n, dct_type, scale):
 def test_blue_lengths_and_tiles():
     assert [kfft.blue_f(n) for n in (128, 131, 509, 1021, 1031, 2049, 6781, 7100, 8192)] == \
         [None, 3, 8, 16, 17, 33, 106, 111, None]
-    # the wide tile fits a block at every length the routes send (F <= 106)
-    for f in range(3, 107):
-        mk = 128 * f
-        c = kfft.wide_block(mk, 1, 10 ** 6, 132, kfft.blue_bytes)
-        assert kfft.blue_bytes(mk, c) <= kfft.MAX_SMEM
-        assert c == 1 or kfft.blue_bytes(mk, c) <= kfft.GENERIC_SMEM
-    assert kfft.blue_bytes(13568, 1) == 222032
-    assert kfft.wide_block(4096, 1, 1, 132, kfft.blue_bytes) == 1
+    # the gate's bound is the JAX package's one-column tile, F <= 111
+    # (n <= 7104), and every length it takes has kernel 12's convolution
+    # length within one column tile of the radix core
+    assert kfft.BLUE_MAX_F == 111
+    assert kfft.blue_f(7104) == 111 and kfft.blue_f(7105) is None
+    for f in range(3, kfft.BLUE_MAX_F + 1):
+        for n in (64 * f + 1, 64 * f + 64):
+            if kfft.blue_f(n) == f:
+                mk = kfft.chirp_m(n)
+                assert mk <= kfft.RADIX_MAX_ELEMS and kfft.radix_plan(mk) is not None
 
 
 def test_wrappers_check_their_inputs():

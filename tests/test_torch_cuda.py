@@ -73,22 +73,23 @@ def test_step_runs_on_the_kernels(dev):
 
 def test_unported_route_and_grad_raise(dev):
     # n = 384 (F = 3) runs on kernel 10's radix core; DCT-II at n = 768
-    # (h = 384) on kernel 23's wide form; n = 128 * 161 (odd k > 160, which
-    # raised before the long forms were ported) on its n-point form
+    # (h = 384, once the wide form) and n = 128 * 161 (odd k > 160, which
+    # raised before the long forms were ported) on kernel 23's radix row
+    # core
     x = torch.view_as_complex(torch.randn(256, 384, 2, device=dev))
     before = kfft.c2c_rows.radix_launches
     y = nd.ndfft(x, axis=1)
     assert kfft.c2c_rows.radix_launches - before == 1
     assert _rel(y.to(torch.complex128), torch.fft.fft(x.to(torch.complex128), dim=1)) <= 1e-5
     r = torch.randn(256, 768, device=dev)
-    before = kdct.dct2_nat.wide_launches
+    before = kdct.dct2_nat.radix_launches
     y = nd.nddct2(r, axis=1)
-    assert kdct.dct2_nat.wide_launches - before == 1
+    assert kdct.dct2_nat.radix_launches - before == 1
     assert _rel(y, kdct.dct2_nat_plain(r, 2.0)) <= TOL
     r = torch.randn(128, 128 * 161, device=dev)
-    before = kdct.dct2_nat.npoint_launches
+    before = kdct.dct2_nat.radix_launches
     y = nd.nddct2(r, axis=1)
-    assert kdct.dct2_nat.npoint_launches - before == 1
+    assert kdct.dct2_nat.radix_launches - before == 1
     assert _rel(y, kdct.dct2_nat_plain(r, 2.0)) <= TOL
     # DST-I along axis 0 at 1023 runs kernel 18 (it raised before the kernel
     # was ported); DCT-IV past n = 40960 runs kernel 28's long form (it
@@ -477,20 +478,24 @@ def test_real_step_768_runs_on_the_wide_kernels(dev):
 
 def test_dct23_kernels_match_plain_in_every_form(dev):
     """Kernels 23 to 26 in their three forms (fixed core, the wide core's
-    half length, the n-point form) and kernels 16/17 on the wide core:
+    half length, the n-point form; kernel 23 on the radix row core where
+    n/2 has a plan) and kernels 16/17 on the wide core:
     ragged row and column tiles, prime F = 131, the largest tiles (n-point
     F = 159, half length F = 128 and 160: one transform per tile)."""
     g = torch.Generator(device=dev).manual_seed(12)
-    forms = {"fixed": 0, "wide": 0, "npoint": 0}
+    forms = {"fixed": 0, "wide": 0, "npoint": 0, "radix": 0}
+
+    def counts(wrapper):
+        return (wrapper.launches, wrapper.wide_launches, wrapper.npoint_launches,
+                getattr(wrapper, "radix_launches", 0))
 
     def check(wrapper, plain, x, scale):
-        before = (wrapper.launches, wrapper.wide_launches, wrapper.npoint_launches)
+        before = counts(wrapper)
         got = wrapper(x, scale)
         assert _rel(got, plain(x, scale)) <= TOL, (wrapper.__name__, tuple(x.shape))
-        d = [a - b for a, b in zip((wrapper.launches, wrapper.wide_launches,
-                                    wrapper.npoint_launches), before)]
-        assert d[0] == 1 and d[1] + d[2] <= 1
-        forms["wide" if d[1] else "npoint" if d[2] else "fixed"] += 1
+        d = [a - b for a, b in zip(counts(wrapper), before)]
+        assert d[0] == 1 and d[1] + d[2] + d[3] <= 1
+        forms["wide" if d[1] else "npoint" if d[2] else "radix" if d[3] else "fixed"] += 1
 
     for t, n in ((130, 128), (7, 384), (130, 768), (33, 1536), (3, 1152), (2, 128 * 159),
                  (2, 128 * 131), (3, 32768), (130, 1024)):
@@ -502,7 +507,8 @@ def test_dct23_kernels_match_plain_in_every_form(dev):
         x = torch.randn(*shape, generator=g, device=dev)
         check(kdct.dct2_mid, kdct.dct2_mid_plain, x, 2.0)
         check(kdct.dct3_mid, kdct.dct3_mid_plain, x, None)
-    assert forms == {"fixed": 8, "wide": 12, "npoint": 16}
+    # kernel 23 on the radix row core but at n = 128 * 131 (no plan of 64 * 131)
+    assert forms == {"fixed": 7, "wide": 9, "npoint": 12, "radix": 8}
     before = [krfft.r2c_mid.radix_launches, krfft.c2r_mid.radix_launches]
     for shape in ((2, 768, 130), (1, 1280, 129), (1, 40960, 2)):
         x = torch.randn(*shape, generator=g, device=dev)
@@ -519,8 +525,8 @@ def test_dct23_kernels_match_plain_in_every_form(dev):
 
 
 def test_neumann_2d_runs_on_the_dct_kernels(dev):
-    """A 2-D Neumann solve at 1280 x 768 (K25 and K23/K24 on the wide core)
-    against its analytic solution."""
+    """A 2-D Neumann solve at 1280 x 768 (K25/K26 and K24 on the wide core,
+    K23 on the radix row core) against its analytic solution."""
     n0, n1 = 1280, 768
     x0 = (torch.arange(n0, device=dev, dtype=torch.float64) + 0.5) / n0
     x1 = (torch.arange(n1, device=dev, dtype=torch.float64) + 0.5) / n1
@@ -529,15 +535,16 @@ def test_neumann_2d_runs_on_the_dct_kernels(dev):
     h0, h1 = nd.DctHandler(n0), nd.DctHandler(n1)
     h0i = h0.normalization(nd.Normalization.scalar(1 / n0))
     h1i = h1.normalization(nd.Normalization.scalar(1 / n1))
-    fns = (kdct.dct2_mid, kdct.dct3_mid, kdct.dct2_nat, kdct.dct3_nat)
-    before = [f.wide_launches for f in fns]
+    fns = ((kdct.dct2_mid, "wide_launches"), (kdct.dct3_mid, "wide_launches"),
+           (kdct.dct2_nat, "radix_launches"), (kdct.dct3_nat, "wide_launches"))
+    before = [getattr(f, a) for f, a in fns]
     fh = nd.nddct2(nd.nddct2(f, h1, axis=1), h0, axis=0)
     k0 = (torch.arange(n0, device=dev, dtype=torch.float32) * torch.pi) ** 2
     k1 = (torch.arange(n1, device=dev, dtype=torch.float32) * torch.pi) ** 2
     lam = k0[:, None] + k1[None, :]
     lam[0, 0] = float("inf")             # the zero mode is pinned to 0
     got = nd.nddct3(nd.nddct3(fh / lam, h0i, axis=0), h1i, axis=1)
-    assert [f.wide_launches - b for f, b in zip(fns, before)] == [1, 1, 1, 1]
+    assert [getattr(f, a) - b for (f, a), b in zip(fns, before)] == [1, 1, 1, 1]
     assert _rel(got.double(), u) <= 1e-5
 
 
@@ -589,12 +596,12 @@ def test_dirichlet_pair_runs_on_the_kernels(dev):
 def test_blue_kernels_match_plain_in_both_forms(dev):
     """Kernel 11 at F = 8, 16, 3, 17, 33 and the routes' largest, 106, every
     launch on the radix core's column tile (counted in ``radix_launches``);
-    kernel 12 on the fixed core (M = 1024, 2048: F = 8, 16) and at F = 19,
-    33 on the wide core with its second tile (``wide_launches``); ragged
-    column tiles, both signs and the scale 1/n."""
+    kernel 12 on kernel 11's column kernel at M = chirp_m(n) = 2048, 2560,
+    4608 (n = 1021, 1153, 2049; every launch counted in ``radix_launches``);
+    ragged column tiles, both signs and the scale 1/n."""
     g = torch.Generator(device=dev).manual_seed(15)
     fns = (kfft.c2c_blue_mid, kdct.dct23_blue_mid)
-    forms = ("radix_launches", "wide_launches")
+    forms = ("radix_launches", "radix_launches")
     before = [(f.launches, getattr(f, a)) for f, a in zip(fns, forms)]
     for shape in ((2, 509, 130), (1, 1021, 257), (2, 131, 130), (1, 1031, 129),
                   (1, 2049, 33), (1, 6781, 3)):
@@ -608,7 +615,64 @@ def test_blue_kernels_match_plain_in_both_forms(dev):
             assert _rel(kdct.dct23_blue_mid(x, t, scale),
                         kdct.dct23_blue_mid_plain(x, t, scale)) <= TOL, (shape, t)
     assert [(f.launches - a, getattr(f, form) - b)
-            for f, form, (a, b) in zip(fns, forms, before)] == [(12, 12), (6, 4)]
+            for f, form, (a, b) in zip(fns, forms, before)] == [(12, 12), (6, 6)]
+
+
+def test_dct2_rows_radix_matches_plain(dev):
+    """Kernel 23 on the radix row core: odd and even k, h = 64 ... 16384
+    (16, 32 and 40 elements a thread), ragged row tiles at each count of
+    rows a block that fits, a row view off a 16-byte boundary (the wrapper
+    copies it), every launch counted in ``radix_launches``; the 29 lengths
+    without a plan keep the old forms (n = 128 * 131: the n-point form)."""
+    g = torch.Generator(device=dev).manual_seed(25)
+    before = (kdct.dct2_nat.launches, kdct.dct2_nat.radix_launches)
+    for t, n in ((7, 128), (130, 384), (33, 640), (5, 1536), (3, 8192), (2, 128 * 159),
+                 (3, 32768), (2, 40960)):
+        x = torch.randn(t, n, generator=g, device=dev)
+        for scale in (2.0, None):
+            assert _rel(kdct.dct2_nat(x, scale), kdct.dct2_rows_radix_plain(x, scale)) <= TOL, n
+        h = n // 2
+        tr = -(-h // 16)        # threads a row in the 16-element form (h <= 4096)
+        for rows in (1, 2, 3) if h <= kfft.RADIX_WIDE_N and 3 * tr <= 256 else (1,):
+            y = torch.empty_like(x)
+            kdct.dct2_rows_radix_launch(x, y, 2.0, rows)
+            assert _rel(y, kdct.dct2_rows_radix_plain(x, 2.0)) <= TOL, (n, rows)
+    flat = torch.randn(3 * 384 + 1, generator=g, device=dev)
+    x = flat[1:].view(3, 384)
+    assert x.data_ptr() % 16
+    assert _rel(kdct.dct2_nat(x, 2.0), kdct.dct2_rows_radix_plain(x, 2.0)) <= TOL
+    assert (kdct.dct2_nat.launches - before[0], kdct.dct2_nat.radix_launches - before[1]) == \
+        (17, 17)
+    x = torch.randn(2, 128 * 131, generator=g, device=dev)
+    before = (kdct.dct2_nat.radix_launches, kdct.dct2_nat.npoint_launches)
+    assert _rel(kdct.dct2_nat(x, 2.0), kdct.dct2_nat_plain(x, 2.0)) <= TOL
+    assert (kdct.dct2_nat.radix_launches - before[0],
+            kdct.dct2_nat.npoint_launches - before[1]) == (0, 1)
+
+
+def test_dct23_blue_radix_matches_plain(dev):
+    """Kernel 12 on kernel 11's column kernel at every column count C that
+    fits a tile, ragged L (5 and 130 columns): M = 288, 2304, 4608 and
+    14336 (n = 131, 1103, 2049, 6781; 16, 32 and 40 elements a thread),
+    DCT-II with scale 2 and DCT-III unscaled; the wrapper's launches are
+    all in ``radix_launches``."""
+    g = torch.Generator(device=dev).manual_seed(26)
+    before = (kdct.dct23_blue_mid.launches, kdct.dct23_blue_mid.radix_launches)
+    calls = 0
+    for nb, n, cols in ((2, 131, 130), (1, 1103, 5), (1, 2049, 130), (1, 6781, 5)):
+        x = torch.randn(nb, n, cols, generator=g, device=dev)
+        mk = kfft.chirp_m(n)
+        for t, scale in ((2, 2.0), (3, None)):
+            want = kdct.dct23_blue_mid_plain(x, t, scale)
+            assert _rel(kdct.dct23_blue_mid(x, t, scale), want) <= TOL, (n, t)
+            calls += 1
+            for c in (1, 2, 4, 8, 16):
+                if _tile_fits(mk, c):
+                    y = torch.empty_like(x)
+                    kdct.dct23_blue_launch(x, y, t, scale, c)
+                    assert _rel(y, want) <= TOL, (n, t, c)
+    assert (kdct.dct23_blue_mid.launches - before[0],
+            kdct.dct23_blue_mid.radix_launches - before[1]) == (calls, calls)
 
 
 def test_blue_radix_kernel_matches_plain(dev):
@@ -974,19 +1038,19 @@ def test_dense_rows_radix_kernel_matches_plain(dev):
 
 def test_bluestein_axis1_runs_on_the_radix_column_tile(dev):
     """ndfft/ndifft along axis 1 of (2, 1031, 130) (F = 17) take kernel 11's
-    radix form, K12 at 2049 along axis 0 keeps the wide core; no engine
-    call."""
+    radix form, K12 at 2049 along axis 0 its chirp-z on the same column
+    kernel; no engine call."""
     g = torch.Generator(device=dev).manual_seed(23)
     x = torch.view_as_complex(torch.randn(2, 1031, 130, 2, generator=g, device=dev))
     r = torch.randn(2049, 130, generator=g, device=dev)
     counts = (kfft.c2c_blue_mid.launches, kfft.c2c_blue_mid.radix_launches,
-              kdct.dct23_blue_mid.wide_launches)
+              kdct.dct23_blue_mid.radix_launches)
     calls = engine.c2c.calls
     y = nd.ndfft(x, axis=1)
     back = nd.ndifft(y, axis=1)
     d = nd.nddct2(r, axis=0)
     assert (kfft.c2c_blue_mid.launches - counts[0], kfft.c2c_blue_mid.radix_launches - counts[1],
-            kdct.dct23_blue_mid.wide_launches - counts[2]) == (2, 2, 1)
+            kdct.dct23_blue_mid.radix_launches - counts[2]) == (2, 2, 1)
     assert engine.c2c.calls == calls
     assert _rel(y.to(torch.complex128), torch.fft.fft(x.to(torch.complex128), dim=1)) <= 1e-5
     assert _rel(back, x) <= 1e-5
@@ -997,7 +1061,7 @@ def test_prime_lengths_run_on_the_blue_kernels(dev):
     """ndfft/ndifft at 509 along axis 0 (kernel 11) and along the last axis
     (the engine's chirp-z, its sub-FFTs on kernel 10 at M = 1024), against
     torch.fft in complex128; the 2049 x 256 DCT-II/III pair along axis 0
-    (kernel 12, M = 4224 on the wide core) back to x."""
+    (kernel 12, M = 4608 on kernel 11's column kernel) back to x."""
     g = torch.Generator(device=dev).manual_seed(16)
     x = torch.view_as_complex(torch.randn(509, 256, 2, generator=g, device=dev))
     ref = torch.fft.fft(x.to(torch.complex128), dim=0)
@@ -1153,8 +1217,9 @@ def test_spectral_functions_run_on_the_fused_kernels(dev):
 
 def test_long_forms_match_plain(dev):
     """Kernels 23 to 26 and 29 in the n-point form on the real tile at odd
-    k > 160 (n = 20608, 20864 with the prime k = 163, 32640 = 128 * 255),
-    and kernel 28's long form at F = 161, 163 and 256 (n = 41216, 41728,
+    k > 160 (n = 20608, 20864 with the prime k = 163, 32640 = 128 * 255;
+    kernel 23 only at 20864, the radix row core at the others), and kernel
+    28's long form at F = 161, 163 and 256 (n = 41216, 41728,
     65536): one launch each, against the plain versions, with ragged
     column tiles and a broadcast and a lane-varying H."""
     g = torch.Generator(device=dev).manual_seed(23)
@@ -1180,7 +1245,7 @@ def test_long_forms_match_plain(dev):
              (kdct.dct2_nat, kdct.dct3_nat, kdct.dct2_mid, kdct.dct3_mid,
               kdct.spectral_dct_mid)]
     assert [(a - c, b - d) for (a, b), (c, d) in zip(after, before)] == \
-        [(6, 6)] * 4 + [(6, 6)]
+        [(6, 2)] + [(6, 6)] * 4
     before = (kdct.dct4_mid.launches, kdct.dct4_mid.long_launches, kdct.dct4_mid.wide_launches)
     for n in (41216, 41728, 65536):
         x = randn(2, n, 130)

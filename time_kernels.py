@@ -133,6 +133,26 @@ beside a float32 torch.fft Makhoul lowering, and the 256^3 real step with
 the real axis first beside torch.fft.rfftn + irfftn. It uses only public
 wrappers, so --root may name the parent tree.
 
+With --dct it times instead kernel 23 (dct2_nat, scale 2) at (262144, 512),
+(2359296, 1536), (31104, 31104) and the odd-k (65536, 1152), and kernel 12
+(dct23_blue_mid, DCT-II with scale 2 and DCT-III) at (1, 2049, 524544)
+and (2049, 2049, 256), each with a digest of its output; kernel 24
+(dct3_nat, scale 1/n) and kernels 25/26 (dct2_mid, dct3_mid) at the same
+solves' shapes, kernel 11 (c2c_blue_mid) at (1, 509, 259081), kernel 20's
+chirp-z (r2c_dense_mid) at (1, 262, 65536), kernel 21's (c2r_dense_mid,
+n = 262) at (1, 132, 65536) and kernel 15's chirp rows (r2c_packed_dense)
+at (16384, 262), whose digests must not move; the Makhoul permutations
+around kernel 12 (ops/dct.py::makhoul_order and makhoul_interleave) at
+the 2049^2 x 256 solve's two views; and the paths that run kernels 23 and
+12: the 2049^2 x 256 dctn + idctn pair of type 2, G1's 31104^2 one and its
+ndspectral_dct variant (nddct2 along axis 1, ndspectral_dct along axis 0
+with a lane-varying H, nddct3 back), and the 1536^3 pair (nddct2 along
+axes 2, 1, 0, nddct3 back), over --reps-big runs; then the registers and
+spill bytes (ptxas -v) of the wide and n-point DCT kernels (kernels 23's
+remnant and 24 to 26), kernels 24 to 26 on the fixed core and every
+chirp-z kernel (kernels 11, 20, 21, 15's rows and 12). It uses only public
+wrappers, so --root may name the parent tree.
+
 With --scan-dense it times instead kernels 21 and 27 on the radix column
 tile at each column count C that fits, beside the counts that
 rfft.py::c2r_dense_cols and dct.py::dct_radix_cols pick: kernel 21 at
@@ -167,6 +187,7 @@ def main() -> int:
     ap.add_argument("--c2r", action="store_true")
     ap.add_argument("--scan-c2r", action="store_true")
     ap.add_argument("--dense", action="store_true")
+    ap.add_argument("--dct", action="store_true")
     ap.add_argument("--scan-dense", action="store_true")
     ap.add_argument("--route-dense", default=None, metavar="JSON")
     ap.add_argument("--ptxas", action="store_true")
@@ -260,6 +281,12 @@ def main() -> int:
         return route_dense(torch, kfft, krfft, kdct, dev, gen, crandn, ms, card, root,
                            args.route_dense, args.route_kernels)
     out = {}
+    if args.dct:
+        dct(torch, nd, kfft, krfft, kdct, dev, gen, crandn, ms, args.reps_big, out)
+        print(json.dumps({"root": root, "card": card, "ms_and_digest": out,
+                          "ptxas": ptxas_entries(("dct3", "dct2_mid", "dct2_wide", "dct2_npoint",
+                                                  "blue_radix_kernel"))}), flush=True)
+        return 0
     if args.dense:
         dense(torch, nd, krfft, kdct, dev, gen, crandn, ms, args.reps_big, out)
         print(json.dumps({"root": root, "card": card, "ms_and_library_ms": out}), flush=True)
@@ -869,9 +896,10 @@ def route_dense(torch, kfft, krfft, kdct, dev, gen, crandn, ms, card, root, path
     return 0
 
 
-def ptxas(root) -> int:
-    """Build the tree's library and print each entry function's registers
-    and spill bytes from ptxas -v (nvcc.log)."""
+def ptxas_entries(parts=None) -> dict:
+    """Each entry function of the tree's build (built if need be) -> [its
+    registers, spill bytes] from ptxas -v (nvcc.log); only those whose
+    mangled name holds one of ``parts``, where given."""
     import re
 
     from ndrustfft_tpu_torch.ops.hopper import _build
@@ -879,12 +907,109 @@ def ptxas(root) -> int:
     log = (_build.build().parent / "nvcc.log").read_text()
     entries = {}
     for entry in log.split("Compiling entry function '")[1:]:
+        name = entry.split("'")[0]
+        if parts and not any(p in name for p in parts):
+            continue
         regs = re.search(r"Used (\d+) registers", entry)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
-        entries[entry.split("'")[0]] = [int(regs.group(1)) if regs else None,
-                                        sum(map(int, spill.groups())) if spill else 0]
-    print(json.dumps({"root": root, "ptxas": entries}), flush=True)
+        entries[name] = [int(regs.group(1)) if regs else None,
+                         sum(map(int, spill.groups())) if spill else 0]
+    return entries
+
+
+def ptxas(root) -> int:
+    """Build the tree's library and print each entry function's registers
+    and spill bytes from ptxas -v (nvcc.log)."""
+    print(json.dumps({"root": root, "ptxas": ptxas_entries()}), flush=True)
     return 0
+
+
+def dct(torch, nd, kfft, krfft, kdct, dev, gen, crandn, ms, reps_big, out):
+    """Kernels 23 and 12 at their main shapes, the kernels that share their
+    code with digests, the permutations around kernel 12, and the paths
+    that run kernels 23 and 12."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def key(name, shape, *tags):
+        return "_".join([name, "x".join(map(str, shape)), *map(str, tags)])
+
+    def big(x):
+        return reps_big if x.numel() > 1 << 28 else None
+
+    # kernels 23 and 24 on rows, 25 and 26 along a middle axis
+    for shape in ((512 * 512, 512), (1536 * 1536, 1536), (31104, 31104), (65536, 1152)):
+        x = randn(*shape)
+        n = shape[1]
+        for name, fn in (("dct2_nat", lambda: kdct.dct2_nat(x, 2.0)),
+                         ("dct3_nat", lambda: kdct.dct3_nat(x, 1.0 / n))):
+            out[key(name, shape)] = (ms(fn, big(x)), None, digest(fn()))
+        if shape[0] == n * n:
+            for view in ((n, n, n), (1, n, n * n)):
+                v = x.view(view)
+                for name, fn in (("dct2_mid", lambda: kdct.dct2_mid(v, 2.0)),
+                                 ("dct3_mid", lambda: kdct.dct3_mid(v, 1.0 / n))):
+                    out[key(name, view)] = (ms(fn, big(x)), None, digest(fn()))
+            del v
+        del x
+        torch.cuda.empty_cache()
+    # kernel 12 and the permutations around it (ops/dct.py)
+    from ndrustfft_tpu_torch.ops import dct as tdct
+
+    for shape in ((1, 2049, 2049 * 256), (2049, 2049, 256)):
+        x = randn(*shape)
+        for t, scale in ((2, 2.0), (3, None)):
+            fn = (lambda t=t, scale=scale: kdct.dct23_blue_mid(x, t, scale))
+            out[key("dct23_blue_mid", shape, f"type{t}")] = (ms(fn, reps_big), None, digest(fn()))
+        for perm in ("makhoul_order", "makhoul_interleave"):   # a parent may not name them
+            fn = getattr(tdct, perm, None)
+            if fn is not None:
+                out[key(perm, shape)] = (ms(lambda: fn(x), reps_big), None)
+        del x
+        torch.cuda.empty_cache()
+    # the chirp-z kernels that share kernel 12's column kernel
+    z = crandn(1, 509, 259081)
+    out[key("c2c_blue_mid", z.shape)] = (ms(lambda: kfft.c2c_blue_mid(z, -1)), None,
+                                         digest(kfft.c2c_blue_mid(z, -1)))
+    del z
+    x = randn(1, 262, 65536)
+    out[key("r2c_dense_mid", x.shape)] = (ms(lambda: krfft.r2c_dense_mid(x)), None,
+                                          digest(krfft.r2c_dense_mid(x)))
+    s = crandn(1, 132, 65536)
+    out[key("c2r_dense_mid", s.shape, 262)] = (
+        ms(lambda: krfft.c2r_dense_mid(s, 262, 1.0 / 262)), None,
+        digest(krfft.c2r_dense_mid(s, 262, 1.0 / 262)))
+    x = randn(16384, 262)
+    out[key("r2c_packed_dense", x.shape)] = (ms(lambda: krfft.r2c_packed_dense(x)), None,
+                                             digest(krfft.r2c_packed_dense(x)))
+    del x, s
+    torch.cuda.empty_cache()
+    # the paths: random fields (the kernels' time does not depend on them)
+    for name, shape in (("neumann_pair_2049^2x256", (2049, 2049, 256)),
+                        ("G1_pair_31104^2", (31104, 31104)),
+                        ("neumann_pair_1536^3", (1536, 1536, 1536))):
+        f = randn(*shape)
+
+        def pair():
+            return nd.idctn(nd.dctn(f, 2), 2)
+
+        out[name] = (ms(pair, reps_big), None)
+        if name.startswith("G1"):
+            n = shape[0]
+            h = nd.DctHandler(n)
+            hi = h.normalization(nd.Normalization.scalar(1.0 / n))
+            hv = torch.rand(n, n, generator=gen, device=dev)
+
+            def spectral():
+                a = nd.nddct2(f, h, axis=1)
+                b = nd.ndspectral_dct(a, hv, h, hi, axis=0)
+                del a
+                return nd.nddct3(b, hi, axis=1)
+
+            out["G1_spectral_31104^2"] = (ms(spectral, reps_big), None)
+            del hv
+        del f
+        torch.cuda.empty_cache()
 
 
 def axis_mid(torch, nd, kfft, krfft, dev, gen, crandn, ms, reps_big, out):
