@@ -10,7 +10,10 @@ without the final line):
   3. each kernel against its plain PyTorch version on the card, at the
      slices' shapes (ragged column and row tiles included; the chirp-z
      forms of kernels 20, 21, 15 and 12 at each column or row count a tile,
-     kernel 23 on the radix row core at each count of rows a block);
+     kernels 23 and 24 on the radix row core at each count of rows a
+     block, kernel 25 on the radix column tile at each column count C),
+     and the census of kernels 24 and 25 against their plain versions at
+     each of their 259 radix lengths (within 2e-6 of the peak);
   4. the main paths through the public functions, each with every launch
      counter set to 0 just before it and read just after; the counters
      must account for every leg and the torch engine must not run:
@@ -262,7 +265,15 @@ without the final line):
      (200, 200), (16384, 262), (16384, 502) and (16384, 62); kernel 23 on
      the radix row core at (262144, 512) and (2359296, 1536) with each
      count of rows a block, and kernel 12 at (1, 2049, 524544) and
-     (2049, 2049, 256) with each column count C; the steps
+     (2049, 2049, 256) with each column count C, kernel 24 on the radix
+     row core at (262144, 512) with each count of rows a block, kernel 25
+     on the radix column tile at (1, 1536, 2359296), (1536, 1536, 1536),
+     (1, 2048, 2048), (1, 1152, 1152) and (1, 31104, 31104) with each
+     column count C (1 ... 16, the 16- and the 32/40-element forms; at
+     C <= 2 with each load, evict-first and read-only), both
+     beside the wide core's and the n-point forms they replaced at their
+     main shapes, and at (1, 31104, 31104) kernel 25 beside the composition
+     transpose, kernel 23 on rows, transpose back; the steps
      against torch.fft.rfftn / irfftn, the DCT pair and
      Poisson solve against the same compositions through a float32
      torch.fft Makhoul lowering, the complex paths against
@@ -329,10 +340,11 @@ type under ``by_type``, kernels 20 and 21 a third, their chirp-z
 bound of the two length-M FFTs), and kernel 15's dense rows two: the radix
 row core (``r2c_packed_dense_radix``; radix_launches) and the chirp-z
 (``r2c_packed_dense_chirp``; chirp_launches); and
-kernels 24 to 26 and 29 three: the fixed core, the wide core's half length
-and the n-point form (npoint_launches), kernel 23 three: the radix row
-core (``dct2_nat_radix``; radix_launches), the wide core's half length and
-the n-point form at the 29 lengths without a plan; kernel 7 three: the
+kernels 26 and 29 three: the fixed core, the wide core's half length and
+the n-point form (npoint_launches), kernels 23, 24 and 25 three each: the
+radix core (``dct2_nat_radix``, ``dct3_nat_radix`` on rows,
+``dct2_mid_radix`` on the column tile; radix_launches), the wide core's
+half length and the n-point form at the 29 lengths without a plan; kernel 7 three: the
 fixed core, the wide core and the dense body (dense_launches); kernel 28
 three: the fixed core, the wide core and the long form (long_launches).
 The n-point rows give the long lengths' shapes (phase 4m) under
@@ -361,8 +373,8 @@ TOL_STEP = 1e-5      # step vs float64 oracle and round trip, relative
 # every launch): ``wide_launches``, for the DCT-II/III kernels
 # ``npoint_launches``, for kernel 7 ``dense_launches``, for kernel 28
 # ``long_launches``, for kernels 1, 10, 2, 3, 15 (``r2c_packed`` and
-# ``r2c_packed_dense``), 11, 8 (``c2c_dense_rows``), 6, 4, 16, 17, 18, 20, 21
-# and 27 ``radix_launches`` and for kernels 20, 21 and 15's dense rows
+# ``r2c_packed_dense``), 11, 8 (``c2c_dense_rows``), 6, 4, 16, 17, 18, 20, 21,
+# 23 to 25 and 27 ``radix_launches`` and for kernels 20, 21 and 15's dense rows
 # ``chirp_launches``
 FORMS = ("wide", "npoint", "dense", "long", "radix", "chirp")
 # the wrappers whose every launch is on the radix core: their
@@ -421,7 +433,8 @@ def work(name: str, shape, length_m: bool = False, mult=None, n=None, dct_type=2
     and do the function's 5 n log2 n or 2.5 n log2 n per column; their tables
     are the chirp (K12: its entry and exit tables), H and the radix table of
     their convolution length M. Kernel 23 on the radix row core reads and
-    writes n reals per row, with the radix table of n/2 and its twiddles.
+    writes n reals per row, with the radix table of n/2 and its twiddles, as
+    do kernel 24 on rows and kernel 25 on the radix column tile.
     ``length_m``: their operations as two complex FFTs of length M
     per column instead. ``n``: a C2R's real length where the spectrum's
     (B, m, L) does not give it (odd n = 2m - 1); ``dct_type``: the DCT that
@@ -487,15 +500,19 @@ def work(name: str, shape, length_m: bool = False, mult=None, n=None, dct_type=2
         flops = (2 * 5 * mk * math.log2(mk) if length_m
                  else (5 if k11 else 2.5) * n * math.log2(n))
         return (16 if k11 else 8) * b * n * cols + tables, flops * b * cols
-    if name == "dct2_nat_radix":
-        # K23 on the radix row core: (T, n) float32 in and out, the radix
-        # table of h = n/2, the unpack twiddle (h) and the post twiddle's
-        # h + 1 entries that it reads
+    if name in ("dct2_nat_radix", "dct3_nat_radix", "dct2_mid_radix"):
+        # K23 and K24 on the radix row core, K25 on the radix column tile:
+        # (T, n) or (B, n, L) float32 in and out, the radix table of h = n/2;
+        # DCT-II the unpack twiddle (h) and the post twiddle's h + 1 entries
+        # that it reads, DCT-III the (h, 4) ab rows and the pre twiddle (h + 1)
         from ndrustfft_tpu_torch.ops.hopper.fft import radix_consts
-        t, n = shape
+        n = shape[1]
+        transforms = math.prod(shape) // n
         h = n // 2
-        return (8 * t * n + 8 * (len(radix_consts(h, -1)[0]) + 2 * h + 1),
-                2.5 * n * math.log2(n) * t)
+        type3 = name.startswith("dct3")
+        tables = 8 * len(radix_consts(h, 1 if type3 else -1)[0]) + (
+            16 * h + 8 * (h + 1) if type3 else 8 * (2 * h + 1))
+        return 8 * transforms * n + tables, 2.5 * n * math.log2(n) * transforms
     if name.startswith(("dct2_", "dct3_")):
         form = name.split("_")[2] if name.count("_") == 2 else "fixed"
         n = shape[1]
@@ -756,7 +773,7 @@ def main() -> int:
 
     # ---- 3. kernels against their plain versions
     errs = {"c2c_axis_mid": 0.0, "r2c_nat": 0.0, "c2r_nat": 0.0,
-            "dct_dense_mid": 0.0, "dct2_nat_radix": 0.0, "dct3_nat": 0.0,
+            "dct_dense_mid": 0.0, "dct2_nat_radix": 0.0, "dct3_nat_radix": 0.0,
             "c2c_rows": 0.0, "c2c_dense_rows": 0.0, "c2c_dense_mid": 0.0,
             "r2c_mid": 0.0, "c2r_mid": 0.0, "r2c_dense_mid": 0.0, "c2r_dense_mid": 0.0,
             "c2r_dense_mid_radix": 0.0, "dct_dense_mid_radix": 0.0,
@@ -766,7 +783,7 @@ def main() -> int:
             "c2r_dense_mid_chirp": 0.0, "r2c_packed_dense_radix": 0.0,
             "r2c_packed_dense_chirp": 0.0,
             "dct2_nat_wide": 0.0, "dct3_nat_wide": 0.0, "dct2_nat_npoint": 0.0,
-            "dct3_nat_npoint": 0.0, "dct2_mid": 0.0, "dct3_mid": 0.0, "dct2_mid_wide": 0.0,
+            "dct3_nat_npoint": 0.0, "dct2_mid_radix": 0.0, "dct3_mid": 0.0, "dct2_mid_wide": 0.0,
             "dct3_mid_wide": 0.0, "dct2_mid_npoint": 0.0, "dct3_mid_npoint": 0.0,
             "r2c_packed_mid": 0.0, "dct1_mid": 0.0,
             "dct1_mid_wide": 0.0, "dct4_mid": 0.0, "dct4_mid_wide": 0.0, "dct4_mid_long": 0.0,
@@ -858,14 +875,14 @@ def main() -> int:
                 raise AssertionError(f"{name} {shape} type {t}: {rel}")
             del got, ref
         del x
-    # kernel 23 on the radix row core (``dct2_nat_radix``) and kernel 24 on
-    # the fixed core at the fixed core's lengths, the DCT family's 1024^2 and
-    # the 2048^2 pair's 2048 among them, and at the DCT family's main shape
-    # (262144, 512)
-    for t, n in ((130, 512), (1024, 1024), (7, 2048), (512 * 512, 512)):
+    # kernels 23 and 24 on the radix row core (``dct2_nat_radix``,
+    # ``dct3_nat_radix``) at the lengths the bts2 fixed core took, the DCT
+    # family's 1024^2 and the 2048^2 pair's 2048 among them, at the DCT
+    # family's main shape (262144, 512) and S3's (1048576, 1024)
+    for t, n in ((130, 512), (1024, 1024), (7, 2048), (512 * 512, 512), (1024 * 1024, 1024)):
         x = randn(t, n)
         for name, kern, plain in (("dct2_nat_radix", kdct.dct2_nat, kdct.dct2_nat_plain),
-                                  ("dct3_nat", kdct.dct3_nat, kdct.dct3_nat_plain)):
+                                  ("dct3_nat_radix", kdct.dct3_nat, kdct.dct3_nat_plain)):
             before = form_counts(kern)
             got = kern(x, 2.0)
             ref = plain(x, 2.0)
@@ -914,6 +931,93 @@ def main() -> int:
     if not rel <= TOL_KERNEL:
         raise AssertionError(f"dct2_nat_radix off a 16-byte boundary: {rel}")
     del flat, x, got, ref
+    # kernel 24 on the radix row core likewise, with scale 1/n and none
+    for t, n in ((130, 512), (131, 384), (33, 640), (7, 1536), (257, 128), (5, 8192),
+                 (3, 128 * 161), (2, 40960)):
+        x = randn(t, n)
+        tr = -(-(n // 2) // 16)
+        counts = range(1, min(8, kfft.RADIX_MAX_THREADS // tr) + 1) if n // 2 <= 4096 else (1,)
+        for scale in (1.0 / n, None):
+            ref = kdct.dct3_rows_radix_plain(x, scale)
+            y = torch.empty_like(x)
+            for rows in counts:
+                y.fill_(float("nan"))
+                kdct.dct3_rows_radix_launch(x, y, scale, rows)
+                torch.cuda.synchronize()
+                rel = abs_err(y, ref) / float(ref.abs().max())
+                errs["dct3_nat_radix"] = max(errs["dct3_nat_radix"], abs_err(y, ref))
+                emit(phase="kernel_vs_plain", kernel="dct3_nat_radix", shape=(t, n),
+                     rows_per_block=rows, scale=scale, rel_err=rel)
+                if not rel <= TOL_KERNEL:
+                    raise AssertionError(f"dct3_nat_radix {(t, n)} rows {rows}: {rel}")
+        del x, y, ref
+    flat = randn(3 * 640 + 1)
+    x = flat[1:].view(3, 640)
+    before = form_counts(kdct.dct3_nat)
+    got = kdct.dct3_nat(x, 0.5)
+    ref = kdct.dct3_rows_radix_plain(x, 0.5)
+    torch.cuda.synchronize()
+    assert_launched("dct3_nat_radix", kdct.dct3_nat, before, (3, 640))
+    rel = abs_err(got, ref) / float(ref.abs().max())
+    emit(phase="kernel_vs_plain", kernel="dct3_nat_radix", shape=(3, 640), offset_bytes=4,
+         rel_err=rel)
+    if not rel <= TOL_KERNEL:
+        raise AssertionError(f"dct3_nat_radix off a 16-byte boundary: {rel}")
+    del flat, x, got, ref
+    # kernel 25 on the radix column tile at each column count C that phase
+    # 5 times (the wrapper takes dct.py::dct2_mid_cols's): odd and even k,
+    # ragged column tiles, B = 1 and 2, h = 64 to 20480 (one column a tile,
+    # 40 elements a thread), the 16- and the 32/40-element forms
+    for shape in ((2, 128, 130), (1, 384, 129), (2, 1152, 130), (1, 1536, 257), (1, 2048, 33),
+                  (1, 8192, 17), (1, 128 * 161, 5), (1, 31104, 3), (1, 40960, 2)):
+        x = randn(*shape)
+        h = shape[1] // 2
+        ref = kdct.dct_radix_plain(x, 2, 2.0)
+        y = torch.empty_like(x)
+        for c, ldg in ((1, False), (1, True), (2, False), (2, True), (4, False), (8, False),
+                       (16, False)):
+            if h * c > kfft.RADIX_MAX_ELEMS or kfft.radix_cols_threads(h, c) > 512:
+                continue
+            y.fill_(float("nan"))
+            kdct.dct_radix_launch(x, y, 2, 2.0, c, ldg)
+            torch.cuda.synchronize()
+            rel = abs_err(y, ref) / float(ref.abs().max())
+            errs["dct2_mid_radix"] = max(errs["dct2_mid_radix"], abs_err(y, ref))
+            emit(phase="kernel_vs_plain", kernel="dct2_mid_radix", shape=shape, cols=c,
+                 read_only_load=ldg, rel_err=rel)
+            if not rel <= TOL_KERNEL:
+                raise AssertionError(f"dct2_mid_radix {shape} C = {c} ldg {ldg}: {rel}")
+        del x, y, ref
+    # the census of kernels 24 and 25 through their wrappers at each of the
+    # 259 lengths n = 128 k whose half length has a radix plan (kernel 24
+    # over (4, n), kernel 25 along axis 1 of (1, n, 8)) against their plain
+    # versions, within TOL_PACKED of the plain version's peak
+    t0 = time.perf_counter()
+    census_n = [n for n in range(128, 128 * 321, 128) if kdct.dct2_nat_radix(n)]
+    if len(census_n) != 259:
+        raise AssertionError(f"K24/K25 census: {len(census_n)} lengths, expected 259")
+    worst = {"dct3_nat_radix": (0.0, None), "dct2_mid_radix": (0.0, None)}
+    for n in census_n:
+        for name, kern, plain, x, scale in (
+                ("dct3_nat_radix", kdct.dct3_nat, kdct.dct3_rows_radix_plain, randn(4, n),
+                 1.0 / n),
+                ("dct2_mid_radix", kdct.dct2_mid, lambda v, s: kdct.dct_radix_plain(v, 2, s),
+                 randn(1, n, 8), 2.0)):
+            before = form_counts(kern)
+            got = kern(x, scale)
+            ref = plain(x, scale)
+            torch.cuda.synchronize()
+            assert_launched(name, kern, before, tuple(x.shape))
+            err = abs_err(got, ref)
+            rel = err / float(ref.abs().max())
+            errs[name] = max(errs[name], err)
+            if not rel <= TOL_PACKED:
+                raise AssertionError(f"{name} census n={n}: {rel}")
+            worst[name] = max(worst[name], (rel, n))
+    emit(phase="kernel_vs_plain", check="dct3_nat_dct2_mid_radix_census", lengths=len(census_n),
+         **{f"worst_rel_err_{k}": v[0] for k, v in worst.items()},
+         **{f"worst_n_{k}": v[1] for k, v in worst.items()}, seconds=time.perf_counter() - t0)
+    del x, got, ref
 
     def check_form(name, kern, got_fn, ref_fn, shape, **kw):
         """got_fn() (one launch of ``kern`` in the form ``name`` names)
@@ -1539,23 +1643,26 @@ def main() -> int:
                        lambda: krfft.c2r_mid_plain(s, n, scale), (nb, n // 2 + 1, cols),
                        scale=scale)
         del x, s
-    # (kernel 23 on the radix row core at every length with a plan of n/2,
-    # its old forms at the remnant's n-point k = 131, 163, 251 and half
-    # length F = 131, 157)
+    # (kernels 23 and 24 on the radix row core and kernel 25 on the radix
+    # column tile at every length with a plan of n/2, at the lengths the bts2
+    # forms took before; their old forms at the remnant's n-point k = 131,
+    # 163, 251 and half length F = 131, 157; kernel 26 in its three forms)
     dct_forms = (
-        ("nat", (3,), ((2048, 2048), (130, 1024))),
-        ("nat_radix", (2,), ((2048, 2048), (130, 1024), (128, 128), (384, 384), (768, 768),
-                             (7, 1536), (3, 1152), (2, 128 * 159), (2, 128 * 161),
-                             (3, 128 * 255), (3, 32768))),
-        ("nat_wide", (3,), ((768, 768), (1536, 1536), (7, 1536), (3, 32768))),
-        ("nat_wide", (2,), ((3, 128 * 262), (2, 128 * 314))),
-        ("nat_npoint", (3,), ((128, 128), (384, 384), (3, 1152), (2, 128 * 131),
-                              (2, 128 * 159), (2, 128 * 161), (3, 128 * 255))),
-        ("nat_npoint", (2,), ((2, 128 * 131), (3, 128 * 163), (2, 128 * 251))),
-        ("mid", (2, 3), ((1, 2048, 2048), (2, 4096, 33), (3, 512, 130))),
-        ("mid_wide", (2, 3), ((1, 1280, 1280), (1, 1536, 1536), (2, 1280, 130), (1, 32768, 2))),
-        ("mid_npoint", (2, 3), ((1, 1152, 1152), (2, 1152, 130), (3, 384, 385),
-                                (1, 128 * 159, 3), (1, 128 * 163, 130), (2, 128 * 255, 3))))
+        ("nat_radix", (2, 3), ((2048, 2048), (130, 1024), (128, 128), (384, 384), (768, 768),
+                               (1536, 1536), (7, 1536), (3, 1152), (2, 128 * 159),
+                               (2, 128 * 161), (3, 128 * 255), (3, 32768))),
+        ("nat_wide", (2, 3), ((3, 128 * 262), (2, 128 * 314))),
+        ("nat_npoint", (2, 3), ((2, 128 * 131), (3, 128 * 163), (2, 128 * 251))),
+        ("mid_radix", (2,), ((1, 2048, 2048), (2, 4096, 33), (3, 512, 130), (1, 1280, 1280),
+                             (1, 1536, 1536), (2, 1280, 130), (1, 32768, 2), (1, 1152, 1152),
+                             (2, 1152, 130), (3, 384, 385), (1, 128 * 159, 3),
+                             (2, 128 * 255, 3))),
+        ("mid", (3,), ((1, 2048, 2048), (2, 4096, 33), (3, 512, 130))),
+        ("mid_wide", (3,), ((1, 1280, 1280), (1, 1536, 1536), (2, 1280, 130), (1, 32768, 2))),
+        ("mid_wide", (2,), ((1, 128 * 262, 3), (2, 128 * 314, 3))),
+        ("mid_npoint", (3,), ((1, 1152, 1152), (2, 1152, 130), (3, 384, 385),
+                              (1, 128 * 159, 3), (1, 128 * 163, 130), (2, 128 * 255, 3))),
+        ("mid_npoint", (2,), ((1, 128 * 131, 3), (1, 128 * 163, 130), (2, 128 * 251, 3))))
     for form, types, shapes in dct_forms:
         for t in types:
             kern = getattr(kdct, f"dct{t}_{form.split('_')[0]}")
@@ -1764,7 +1871,7 @@ def main() -> int:
                 "spectral_dct_mid": kdct.spectral_dct_mid}
     # the wide core's launches, the DCT kernels' n-point ones, kernel 7's
     # dense ones and those of the radix-only wrappers and kernels 20, 21, 23
-    # and 27 on the radix core, counted apart by the same wrappers (their
+    # to 25 and 27 on the radix core, counted apart by the same wrappers (their
     # ``launches`` count every launch)
     radix_too = ("r2c_dense_mid", "c2r_dense_mid", "dct_dense_mid", "r2c_packed_dense")
     forms = {f"{name}_{form}": (wrappers[name], f"{form}_launches")
@@ -1774,7 +1881,8 @@ def main() -> int:
                           "spectral_c2c_mid", "spectral_r2c_mid", "spectral_dct_mid")
              for form in FORMS
              if form == "wide" and name not in (*RADIX_ONLY, *radix_too)
-             or form == "radix" and name in (*RADIX_ONLY, *radix_too, "dct2_nat")
+             or form == "radix" and name in (*RADIX_ONLY, *radix_too, "dct2_nat", "dct3_nat",
+                                             "dct2_mid")
              or form == "npoint" and name.startswith(("dct2_", "dct3_", "spectral_dct"))
              or form == "dense" and name == "fourstep_mid" or form == "long" and name == "dct4_mid"
              or form == "chirp" and name in ("r2c_dense_mid", "c2r_dense_mid",
@@ -1920,7 +2028,7 @@ def main() -> int:
     fh3, u3 = poisson(f3)
     # K27 on the radix column tile but for DCT-IV along axis 0 of 1024^2
     read_counts("dct_family", dct_dense_mid=4 + 5 + 4, dct_dense_mid_radix=4 + 4 + 4,
-                dct2_nat=2 + 1, dct2_nat_radix=2 + 1, dct3_nat=2 + 1)
+                dct2_nat=2 + 1, dct2_nat_radix=2 + 1, dct3_nat=2 + 1, dct3_nat_radix=2 + 1)
     for n, y in grid_out.items():
         check("dct1_axis0", y, sfft.dct(host64(grid[n]), type=1, axis=0), grid=[n, n])
     x64 = host64(xp)
@@ -2389,8 +2497,8 @@ def main() -> int:
     base = torch.cuda.memory_allocated()    # the right-hand side and earlier phases' tensors
     reset_counts()
     u8 = solve8(f8, check_spectrum8)
-    read_counts("neumann_1536^3", dct2_nat=1, dct2_nat_radix=1, dct2_mid=2, dct2_mid_wide=2,
-                dct3_mid=2, dct3_mid_wide=2, dct3_nat=1, dct3_nat_wide=1)
+    read_counts("neumann_1536^3", dct2_nat=1, dct2_nat_radix=1, dct2_mid=2, dct2_mid_radix=2,
+                dct3_mid=2, dct3_mid_wide=2, dct3_nat=1, dct3_nat_radix=1)
     peak = torch.cuda.max_memory_allocated()
     sol, finite = solution_err8(u8)
     emit(phase="dct_path", check="poisson_1536^3", fwd_rel_err=fwd8["rel_err"],
@@ -2401,11 +2509,12 @@ def main() -> int:
     del u8
     torch.cuda.empty_cache()
 
-    # the shorter checks: the DCT-II/III pair along both axes of 2048^2 (the
-    # fixed core of K24-K26, F = 8; K23 on the radix row core), nddct2/nddct3
-    # along axis 0 at 1152 (n-point) and 1280 (wide) and along the last axis
-    # at 128, 384 (n-point; K23 radix) and 768 (wide; K23 radix), nddst2 along axis 0 at 1536 (wide), and the
-    # R2C/C2R along axis 0 at 768 and 1280 (K16/K17 at F = 3, 5)
+    # the shorter checks: the DCT-II/III pair along both axes of 2048^2 (K26
+    # on the fixed core, F = 8; K23/K24 on the radix row core, K25 on the
+    # radix column tile), nddct2/nddct3 along axis 0 at 1152 (K26 n-point)
+    # and 1280 (K26 wide) and along the last axis at 128, 384 and 768,
+    # nddst2 along axis 0 at 1536, and the R2C/C2R along axis 0 at 768 and
+    # 1280 (K16/K17 at F = 3, 5)
     x2k = randn(2048, 2048)
     h2k = nd.DctHandler(2048)
     h2ki = h2k.normalization(nd.Normalization.scalar(1.0 / 2048))
@@ -2423,8 +2532,8 @@ def main() -> int:
         spec = nd.ndfft_r2c(sq[n], axis=0)
         rfft_out[n] = spec, nd.ndifft_r2c(spec, axis=0)
     read_counts("dct_mid_lanes", dct2_nat=1 + 3, dct2_nat_radix=1 + 3,
-                dct3_nat=1 + 3, dct3_nat_wide=1, dct3_nat_npoint=2,
-                dct2_mid=1 + 2 + 1, dct2_mid_wide=1 + 1, dct2_mid_npoint=1,
+                dct3_nat=1 + 3, dct3_nat_radix=1 + 3,
+                dct2_mid=1 + 2 + 1, dct2_mid_radix=1 + 2 + 1,
                 dct3_mid=1 + 2, dct3_mid_wide=1, dct3_mid_npoint=1,
                 r2c_mid=2, c2r_mid=2)
     x64 = host64(x2k)
@@ -2444,9 +2553,9 @@ def main() -> int:
     reps8 = max(2, min(reps_big, args.reps))
     x8r = randn(n8, n8, n8)
     legs8 = (("dct2_nat_radix", kdct.dct2_nat, (n8 * n8, n8), 0, 2.0),
-             ("dct3_nat_wide", kdct.dct3_nat, (n8 * n8, n8), 0, 1.0 / n8),
-             ("dct2_mid_wide", kdct.dct2_mid, (n8, n8, n8), 0, 2.0),
-             ("dct2_mid_wide", kdct.dct2_mid, (1, n8, n8 * n8), 2, 2.0),
+             ("dct3_nat_radix", kdct.dct3_nat, (n8 * n8, n8), 0, 1.0 / n8),
+             ("dct2_mid_radix", kdct.dct2_mid, (n8, n8, n8), 0, 2.0),
+             ("dct2_mid_radix", kdct.dct2_mid, (1, n8, n8 * n8), 2, 2.0),
              ("dct3_mid_wide", kdct.dct3_mid, (n8, n8, n8), 0, 1.0 / n8),
              ("dct3_mid_wide", kdct.dct3_mid, (1, n8, n8 * n8), 2, 1.0 / n8))
     for name, kern, shape, dim, scale in legs8:
@@ -2801,7 +2910,7 @@ def main() -> int:
         [lambda m, p=p: torch.cos(m * math.pi * p) for p in nb_pts],
         [eigs(n, 0, n) for n in nb_grid], 0, float(2049 * 2049 * 256),
         lambda f: nd.dctn(f, 2), lambda fh: nd.idctn(fh, 2),
-        dict(dct23_blue_mid=4, dct2_nat=1, dct2_nat_radix=1, dct3_nat=1))
+        dict(dct23_blue_mid=4, dct2_nat=1, dct2_nat_radix=1, dct3_nat=1, dct3_nat_radix=1))
 
     # the yardstick, never on the port's path: the same solve through the
     # float32 torch.fft Makhoul lowering (makhoul_dct) along each axis, in
@@ -3326,7 +3435,7 @@ def main() -> int:
     u3s, peak, base = run_path("S3_neumann_poisson_1024^3", lambda: s3_solve(f3s),
                                dict(dct2_nat=1, dct2_nat_radix=1, dct_dense_mid=2,
                                     dct_dense_mid_radix=2,
-                                    spectral_dct_mid=1, dct3_nat=1))
+                                    spectral_dct_mid=1, dct3_nat=1, dct3_nat_radix=1))
     check_field("S3_neumann_poisson_1024^3", u3s, c_terms(False), peak_bytes=peak,
                 base_bytes=base)
     del u3s
@@ -3459,14 +3568,15 @@ def main() -> int:
     # F > 160. G1: the cell-centred Neumann Poisson solve on a 31104^2 grid
     # (31104 = 128 * 243, F = 243; 3.87 GB per field), the pressure solve of
     # a wall-bounded 2-D box, through dctn / idctn of type 2 (K23 on the
-    # radix row core over 31104 rows, h = 15552, and K25 long at (1, 31104,
-    # 31104), then K26 and K24), and again with ndspectral_dct along axis 0
-    # and the lane-varying H = 1/lambda between the axis-1 DCTs (K23, K29
-    # long, K24); G2: the
+    # radix row core over 31104 rows, h = 15552, K25 on the radix column
+    # tile at (1, 31104, 31104), one column a tile, then K26 long and K24 on
+    # the radix row core), and again with ndspectral_dct along axis 0 and
+    # the lane-varying H = 1/lambda between the axis-1 DCTs (K23, K29 long,
+    # K24); G2: the
     # mixed Neumann-Dirichlet solve on a 65536 x 8192 cell-centred channel
     # (2.15 GB per field; DCT-IV along axis 0 on K28 long at (1, 65536,
-    # 8192), F = 256; DCT-II/III along axis 1 on K23 on the radix row core
-    # and K24 at the wide core's half length h = 4096). Each against its exact spectrum (G1, G2) and its
+    # 8192), F = 256; DCT-II/III along axis 1 on K23 and K24 on the radix
+    # row core, h = 4096). Each against its exact spectrum (G1, G2) and its
     # analytic solution, slab by slab in float64, timed with its peak memory;
     # G1 against a float32 torch.fft Makhoul solve. Then the lengths against
     # float64 scipy.fft, and each long kernel at the paths' shapes against
@@ -3480,8 +3590,8 @@ def main() -> int:
     f_g1, solve_g1 = poisson_solve(
         "neumann_31104^2", (n_g1, n_g1), g1_modes, g1_basis, [g1_eig, g1_eig], 0,
         float(n_g1 * n_g1), lambda f: nd.dctn(f, 2), lambda fh: nd.idctn(fh, 2),
-        dict(dct2_nat=1, dct2_nat_radix=1, dct2_mid=1, dct2_mid_npoint=1, dct3_mid=1,
-             dct3_mid_npoint=1, dct3_nat=1, dct3_nat_npoint=1))
+        dict(dct2_nat=1, dct2_nat_radix=1, dct2_mid=1, dct2_mid_radix=1, dct3_mid=1,
+             dct3_mid_npoint=1, dct3_nat=1, dct3_nat_radix=1))
     h_g1 = g1_eig.float()[:, None] + g1_eig.float()[None, :]
     h_g1.reciprocal_()
     h_g1[0, 0] = 0.0     # the zero mode of u is pinned to 0
@@ -3510,7 +3620,7 @@ def main() -> int:
 
     u_g1, peak, base = run_path("G1_spectral_neumann_31104^2", lambda: g1_spectral(f_g1),
                                 dict(dct2_nat=1, dct2_nat_radix=1, spectral_dct_mid=1,
-                                     spectral_dct_mid_npoint=1, dct3_nat=1, dct3_nat_npoint=1))
+                                     spectral_dct_mid_npoint=1, dct3_nat=1, dct3_nat_radix=1))
     err, ref_peak = 0.0, 0.0
     for i0 in range(0, n_g1, 1024):
         want = sum(amp * torch.cos(a * math.pi * g1_pts[i0:i0 + 1024])[:, None]
@@ -3531,9 +3641,9 @@ def main() -> int:
     x_g1 = f_g1.view(1, n_g1, n_g1)
     for name, kern, plain, x, dim, fargs in (
             ("dct2_nat_radix", kdct.dct2_nat, kdct.dct2_nat_plain, f_g1, 0, (2.0,)),
-            ("dct2_mid_npoint", kdct.dct2_mid, kdct.dct2_mid_plain, x_g1, 2, (2.0,)),
+            ("dct2_mid_radix", kdct.dct2_mid, kdct.dct2_mid_plain, x_g1, 2, (2.0,)),
             ("dct3_mid_npoint", kdct.dct3_mid, kdct.dct3_mid_plain, x_g1, 2, (1.0 / n_g1,)),
-            ("dct3_nat_npoint", kdct.dct3_nat, kdct.dct3_nat_plain, f_g1, 0, (1.0 / n_g1,))):
+            ("dct3_nat_radix", kdct.dct3_nat, kdct.dct3_nat_plain, f_g1, 0, (1.0 / n_g1,))):
         check_sliced(name, kern, plain, [x], dim, fargs, reps_g)
     spectral_h[("spectral_dct_mid_npoint", tuple(x_g1.shape))] = (n_g1, False)
     check_sliced("spectral_dct_mid_npoint", kdct.spectral_dct_mid, kdct.spectral_dct_mid_plain,
@@ -3552,7 +3662,7 @@ def main() -> int:
         lambda f: nd.dctn(nd.dctn(f, 4, axes=(0,)), 2, axes=(1,)),
         lambda fh: nd.idctn(nd.idctn(fh, 2, axes=(1,)), 4, axes=(0,)),
         dict(dct4_mid=2, dct4_mid_long=2, dct2_nat=1, dct2_nat_radix=1, dct3_nat=1,
-             dct3_nat_wide=1))
+             dct3_nat_radix=1))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -3586,9 +3696,9 @@ def main() -> int:
                zip(len_cases, len_in)]
     spec_out = [getattr(nd, f"ndspectral_{kind}")(x, h, axis=0) for (kind, _, _), (x, h) in
                 zip(spec_cases, spec_in)]
-    read_counts("long_dct_lengths", dct2_mid=16, dct2_mid_npoint=16, dct3_mid=16,
-                dct3_mid_npoint=16, dct2_nat=8, dct2_nat_radix=6, dct2_nat_npoint=2, dct3_nat=8,
-                dct3_nat_npoint=8, dct4_mid=16, dct4_mid_long=16, spectral_dct_mid=12,
+    read_counts("long_dct_lengths", dct2_mid=16, dct2_mid_radix=12, dct2_mid_npoint=4,
+                dct3_mid=16, dct3_mid_npoint=16, dct2_nat=8, dct2_nat_radix=6, dct2_nat_npoint=2,
+                dct3_nat=8, dct3_nat_radix=6, dct3_nat_npoint=2, dct4_mid=16, dct4_mid_long=16, spectral_dct_mid=12,
                 spectral_dct_mid_npoint=12)
     for (kind, shape, axis), x, y in zip(len_cases, len_in, len_out):
         oracle = sfft.dct if kind.startswith("dct") else sfft.dst
@@ -4015,7 +4125,7 @@ def main() -> int:
     main_shapes = {"c2c_axis_mid": (1, 512, 512 * 257), "r2c_nat": (512 * 512, 512),
                    "c2r_nat": (512 * 512, 257), "dct_dense_mid": (1, 1024, 1024),
                    "dct_dense_mid_radix": (1, 512, 512 * 512),
-                   "dct2_nat_radix": (512 * 512, 512), "dct3_nat": (512 * 512, 512),
+                   "dct2_nat_radix": (512 * 512, 512), "dct3_nat_radix": (512 * 512, 512),
                    "c2c_rows": (512 * 512, 512), "c2c_dense_rows": (256 * 256, 256),
                    "c2c_dense_mid": (1, 256, 256 * 256), "r2c_mid": (1, 512, 512 * 512),
                    "c2r_mid": (1, 257, 512 * 512), "r2c_dense_mid": (1, 131, 256 * 256),
@@ -4028,10 +4138,10 @@ def main() -> int:
                    "r2c_packed_dense_radix": (128 * 128, 128), "c2c_generic_rows": (600 * 600, 600),
                    "c2c_generic_mid": (600, 600, 301), "r2c_packed_generic": (600 * 600, 600),
                    "dct2_nat_wide": (2048, 128 * 262),
-                   "dct3_nat_wide": (1536 * 1536, 1536), "dct2_nat_npoint": (4096, 128 * 131),
-                   "dct3_nat_npoint": (384, 384), "dct2_mid": (1, 2048, 2048),
-                   "dct3_mid": (1, 2048, 2048), "dct2_mid_wide": (1, 1536, 1536 * 1536),
-                   "dct3_mid_wide": (1, 1536, 1536 * 1536), "dct2_mid_npoint": (1, 1152, 1152),
+                   "dct3_nat_wide": (2048, 128 * 262), "dct2_nat_npoint": (4096, 128 * 131),
+                   "dct3_nat_npoint": (4096, 128 * 131), "dct2_mid_radix": (1, 2048, 2048),
+                   "dct3_mid": (1, 2048, 2048), "dct2_mid_wide": (1, 128 * 262, 2048),
+                   "dct3_mid_wide": (1, 1536, 1536 * 1536), "dct2_mid_npoint": (1, 128 * 131, 4096),
                    "dct3_mid_npoint": (1, 1152, 1152), "r2c_packed_mid": (1023, 1024, 1023),
                    "dct1_mid": (2049, 2049, 257),
                    "dct1_mid_wide": (1, 1537, 1537), "dct4_mid": (2048, 2048, 256),
@@ -4109,11 +4219,12 @@ def main() -> int:
         timing[(name, shape)] = dct_types[(name, shape, types[0])]
         del x, m_s
         torch.cuda.empty_cache()
-    for t, n in ((1024, 1024), (512 * 512, 512)):
+    for t, n in ((1024, 1024), (512 * 512, 512), (1024 * 1024, 1024)):
         x = randn(t, n)
-        time_kernel("dct2_nat_radix", (t, n), lambda: kdct.dct2_nat(x, 2.0),
-                    lambda: kdct.dct2_nat_plain(x, 2.0))
-        time_kernel("dct3_nat", (t, n), lambda: kdct.dct3_nat(x, 2.0),
+        if t < 1024 * 1024:
+            time_kernel("dct2_nat_radix", (t, n), lambda: kdct.dct2_nat(x, 2.0),
+                        lambda: kdct.dct2_nat_plain(x, 2.0))
+        time_kernel("dct3_nat_radix", (t, n), lambda: kdct.dct3_nat(x, 2.0),
                     lambda: kdct.dct3_nat_plain(x, 2.0))
     del x
     # kernel 23 on the radix row core at each count of rows a block that
@@ -4132,10 +4243,74 @@ def main() -> int:
              chosen=kfft.radix_block(n // 2, t, kfft.num_sms(dev)), card=card)
         del x, y
         torch.cuda.empty_cache()
-    for name, shape in (("dct2_nat_npoint", (4096, 128 * 131)), ("dct2_nat_wide", (2048, 128 * 262))):
+    # kernel 24 on the radix row core at each count of rows a block that
+    # fits at (262144, 512) and (2359296, 1536), beside the parent's form at
+    # the 1536^3 solve's shape (the wide core's half length; its fixed core
+    # at (262144, 512) is gone: time_kernels.py --dct --root on the parent
+    # tree times it)
+    for t, n in ((512 * 512, 512), (1536 * 1536, 1536)):
+        x = randn(t, n)
+        y = torch.empty_like(x)
+        tr = -(-(n // 2) // 16)
+        runs = 5 if x.numel() > 1 << 28 else reps
+        rows_ms = {r: cuda_ms(lambda: kdct.dct3_rows_radix_launch(x, y, 1.0 / n, r), runs)
+                   for r in range(1, kfft.RADIX_MAX_THREADS // tr + 1)}
+        parent = ({"wide": cuda_ms(lambda: kdct.bts2_launch(x, y, 1.0 / n, True, True, "wide"),
+                                   runs)} if n == 1536 else {})
+        emit(phase="time", kernel="dct3_nat_radix", shape=(t, n), ms_by_rows_per_block=rows_ms,
+             chosen=kfft.radix_block(n // 2, t, kfft.num_sms(dev)), parent_form_ms=parent,
+             card=card)
+        del x, y
+        torch.cuda.empty_cache()
+    # kernel 25 on the radix column tile at each column count C = 1 ... 16
+    # that fits (h C <= 20480 elements; the 16-element form to h C = 4096,
+    # the 32/40-element form above; at C <= 2 also with the read-only
+    # load that the wrapper takes there), beside the parent's form at the same
+    # shape (the wide core's half length at 1536, the n-point form at 1152
+    # and 31104; the fixed core at 2048 is gone: time_kernels.py --dct
+    # --root on the parent tree times it); at (1, 31104, 31104) also the
+    # composition transpose, kernel 23 on the rows, transpose back
+    for shape in ((1, 1536, 1536 * 1536), (1536, 1536, 1536), (1, 2048, 2048), (1, 1152, 1152),
+                  (1, 31104, 31104)):
         x = randn(*shape)
-        time_kernel(name, shape, lambda: kdct.dct2_nat(x, 2.0),
-                    lambda: [kdct.dct2_nat_plain(x[i:i + 64], 2.0) for i in range(0, shape[0], 64)])
+        y = torch.empty_like(x)
+        h = shape[1] // 2
+        runs = 1 if shape[1] > 20480 else 5 if x.numel() > 1 << 28 else reps
+        cols_ms = {c: cuda_ms(lambda: kdct.dct_radix_launch(x, y, 2, 2.0, c), runs)
+                   for c in (1, 2, 4, 8, 16)
+                   if h * c <= kfft.RADIX_MAX_ELEMS and kfft.radix_cols_threads(h, c) <= 512}
+        ldg_ms = {c: cuda_ms(lambda: kdct.dct_radix_launch(x, y, 2, 2.0, c, True), runs)
+                  for c in (1, 2) if c in cols_ms}
+        form = kdct.dct_form(shape[1])[0]
+        parent = ({} if shape[1] == 2048 else
+                  {form: cuda_ms(lambda: kdct.bts2_launch(x, y, 2.0, False, False,
+                                                          "npoint" if form == "npoint" else "wide"),
+                                 runs, 1)})
+        extra = {}
+        if shape[1] == 31104:
+            extra["transpose_k23_transpose_ms"] = cuda_ms(
+                lambda: kdct.dct2_nat(x[0].t().contiguous(), 2.0).t().contiguous(), runs, 1)
+        emit(phase="time", kernel="dct2_mid_radix", shape=shape, ms_by_cols=cols_ms,
+             read_only_load_ms_by_cols=ldg_ms,
+             chosen=kdct.dct2_mid_cols(h, shape[0], shape[2], kfft.num_sms(dev)),
+             parent_form_ms=parent, card=card, **extra)
+        del x, y
+        torch.cuda.empty_cache()
+    # the remnant forms of kernels 23 to 25 (the 29 lengths without a plan
+    # of n/2) at n = 128 * 131 (the n-point form) and 128 * 262 (the wide
+    # core's half length), the plain versions in slices of 64
+    for name, kern, plain, shape in (
+            ("dct2_nat_npoint", kdct.dct2_nat, kdct.dct2_nat_plain, (4096, 128 * 131)),
+            ("dct2_nat_wide", kdct.dct2_nat, kdct.dct2_nat_plain, (2048, 128 * 262)),
+            ("dct3_nat_npoint", kdct.dct3_nat, kdct.dct3_nat_plain, (4096, 128 * 131)),
+            ("dct3_nat_wide", kdct.dct3_nat, kdct.dct3_nat_plain, (2048, 128 * 262)),
+            ("dct2_mid_npoint", kdct.dct2_mid, kdct.dct2_mid_plain, (1, 128 * 131, 4096)),
+            ("dct2_mid_wide", kdct.dct2_mid, kdct.dct2_mid_plain, (1, 128 * 262, 2048))):
+        x = randn(*shape)
+        dim = 2 if len(shape) == 3 else 0
+        time_kernel(name, shape, lambda: kern(x, 2.0),
+                    lambda: [plain(x.narrow(dim, i, min(64, shape[dim] - i)), 2.0)
+                             for i in range(0, shape[dim], 64)])
         del x
     for n, x in inputs.items():
         hr, hc = nd.R2cFftHandler(n), nd.FftHandler(n)
@@ -4587,9 +4762,9 @@ def main() -> int:
         f = makhoul_dct(makhoul_dct(x, 1, 2), 0, 2)
         return makhoul_dct(makhoul_dct(f, 0, 3), 1, 3) / (2 * 1024) ** 2
 
-    # kernels 16 and 17 at F = 3 and 5 (the radix column tile), and kernels
-    # 23 to 26 in their fixed and n-point forms at phase 4h's shapes (the
-    # wide DCT forms at 1536^3 were timed there);
+    # kernels 16 and 17 at F = 3 and 5 (the radix column tile), kernels 24
+    # and 25 on the radix cores and kernel 26 in its fixed and n-point forms
+    # at phase 4h's shapes (the DCT kernels at 1536^3 were timed there);
     # K16/K17's yardstick is torch.fft.rfft / irfft along the axis, the DCTs
     # have no single PyTorch call
     for n in (768, 1280):
@@ -4602,10 +4777,10 @@ def main() -> int:
                     lambda: torch.fft.irfft(sp, n=n, dim=1))
         del x, sp
     for name, kern, plain, shapes in (
-            ("dct3_nat_npoint", kdct.dct3_nat, kdct.dct3_nat_plain, ((128, 128), (384, 384))),
-            ("dct2_mid", kdct.dct2_mid, kdct.dct2_mid_plain, ((1, 2048, 2048),)),
+            ("dct3_nat_radix", kdct.dct3_nat, kdct.dct3_nat_plain, ((128, 128), (384, 384))),
+            ("dct2_mid_radix", kdct.dct2_mid, kdct.dct2_mid_plain, ((1, 2048, 2048),
+                                                                    (1, 1152, 1152))),
             ("dct3_mid", kdct.dct3_mid, kdct.dct3_mid_plain, ((1, 2048, 2048),)),
-            ("dct2_mid_npoint", kdct.dct2_mid, kdct.dct2_mid_plain, ((1, 1152, 1152),)),
             ("dct3_mid_npoint", kdct.dct3_mid, kdct.dct3_mid_plain, ((1, 1152, 1152),))):
         for shape in shapes:
             x = randn(*shape)
@@ -4709,8 +4884,8 @@ def main() -> int:
                                 "ndrustfft_tpu/ops/pallas/dct.py:545"),
         "dct2_nat_radix": ("ndrustfft_tpu_torch/csrc/dct_rows_radix.cu",
                            "ndrustfft_tpu/ops/pallas/dct.py:190"),
-        "dct3_nat": ("ndrustfft_tpu_torch/csrc/dct_nat.cu",
-                     "ndrustfft_tpu/ops/pallas/dct.py:208"),
+        "dct3_nat_radix": ("ndrustfft_tpu_torch/csrc/dct_rows_radix.cu",
+                           "ndrustfft_tpu/ops/pallas/dct.py:208"),
         "c2c_rows": ("ndrustfft_tpu_torch/csrc/fft_rows_radix.cu",
                      "ndrustfft_tpu/ops/pallas/fft.py:743"),
         "c2c_dense_rows": ("ndrustfft_tpu_torch/csrc/fft_rows_radix.cu",
@@ -4753,8 +4928,8 @@ def main() -> int:
                             "ndrustfft_tpu/ops/pallas/dct.py:190"),
         "dct3_nat_npoint": ("ndrustfft_tpu_torch/csrc/dct_nat.cu",
                             "ndrustfft_tpu/ops/pallas/dct.py:208"),
-        "dct2_mid": ("ndrustfft_tpu_torch/csrc/dct_mid.cu",
-                     "ndrustfft_tpu/ops/pallas/dct.py:333"),
+        "dct2_mid_radix": ("ndrustfft_tpu_torch/csrc/dct_mid_radix.cu",
+                           "ndrustfft_tpu/ops/pallas/dct.py:333"),
         "dct3_mid": ("ndrustfft_tpu_torch/csrc/dct_mid.cu",
                      "ndrustfft_tpu/ops/pallas/dct.py:351"),
         "dct2_mid_wide": ("ndrustfft_tpu_torch/csrc/dct_mid.cu",
@@ -4837,7 +5012,7 @@ def main() -> int:
             for shape in sliced.get(name, ())]
         if name in ("c2c_axis_mid", "r2c_packed_mid", "c2r_nat", "c2r_mid",
                     "r2c_dense_mid_chirp", "r2c_packed_dense_radix", "r2c_packed_dense_chirp",
-                    "dct2_nat_radix"):
+                    "dct2_nat_radix", "dct3_nat_radix", "dct2_mid_radix"):
             row["other_shapes"] = [
                 dict(zip(("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
                          (list(shape), *timing[(nm, shape)], *bound(*work(name, shape)))))

@@ -1,6 +1,9 @@
-// Kernels 25 and 26: DCT-II and DCT-III along the middle axis of a
-// (B, n, L) float32 tensor, even n = 128 * k, k <= 256 (the JAX gate's split
-// (128, k); the routes send n > 1100 here, K27's dense product below).
+// Kernel 26: DCT-III along the middle axis of a (B, n, L) float32 tensor,
+// even n = 128 * k, k <= 256 (the JAX gate's split (128, k); the routes
+// send n > 1100 here, kernel 27 below), and kernel 25 (DCT-II) at the 29
+// lengths whose half length 64 k has no radix plan. Kernel 25 runs on the
+// radix column tile at every other length (dct_mid_radix.cu, MakhoulCol +
+// Dct2Rows), and its fixed-core form here is gone.
 //
 // Kernel 25 replaces ndrustfft_tpu/ops/pallas/dct.py::_dct2_kernel_mid
 // (built by _build_dct2_mid, called by dct2_pallas_mid); kernel 26 replaces
@@ -11,20 +14,14 @@
 // replaced by the radix column tile): one block per (b, tile of C
 // columns), three forms by n:
 //
-// * n = 2h, h = 128 * F, F in {2, 4, 8, 16} (n = 512 ... 4096): the fixed
-//   core Bts2<F, C, false> on the whole column tile in shared memory
-//   (dct2_mid_kernel, dct3_mid_kernel below).
-//     K25: the Makhoul order is two row loads into the tile,
-//          z[t] = (x[4t], x[4t+2]) for t < h/2 (the even rows) and
-//          (x[2n-1-4t], x[2n-3-4t]) above (the odd rows, descending); then
-//          kernel 16's half-length R2C and unpack with the mirror Z[h-k] read
-//          from the tile, the post twiddle, and y[k], y[n-k] as real rows.
-//     K26: S[k] = Q[k] (x[k] - i x[n-k]) from two row loads (k and n - k,
-//          and the mirror h - k and h + k), kernel 17's pre-pass into the
-//          tile, its half-length C2R, and the interleave y[2t] = u[t],
-//          y[2t+1] = u[n-1-t] as whole-row stores from the tile. The TPU
-//          kernel runs a second sign-+1 pipeline to avoid that reversed read
-//          (dct.py:351-373); here u is in shared memory, so no second pass.
+// * n = 2h, h = 128 * F, F in {2, 4, 8, 16} (n = 512 ... 4096): kernel 26
+//   on the fixed core Bts2<F, C, false> on the whole column tile in shared
+//   memory (dct3_mid_kernel below): S[k] = Q[k] (x[k] - i x[n-k]) from two
+//   row loads (k and n - k, and the mirror h - k and h + k), kernel 17's
+//   pre-pass into the tile, its half-length C2R, and the interleave
+//   y[2t] = u[t], y[2t+1] = u[n-1-t] as whole-row stores from the tile.
+//   The TPU kernel runs a second sign-+1 pipeline to avoid that reversed
+//   read (dct.py:351-373); here u is in shared memory, so no second pass.
 // * even k with h outside those factors (n = 1280, 1536, 2560 ...): the same
 //   passes on the wide core (dct_wide.cuh, column layout).
 // * odd k (n = 1152, 1408, 1664 ... 32640; h = 64 k is not 128 * F): the
@@ -42,41 +39,6 @@
 namespace ndfft {
 
 // Two blocks per SM (two 64 KB tiles), as kernels 16 and 17.
-template <int F, int C>
-__global__ void __launch_bounds__(kThreads, 2)
-dct2_mid_kernel(const float* __restrict__ x, float* __restrict__ y,
-                const float2* __restrict__ wq, const float2* __restrict__ tw,
-                const float2* __restrict__ post, long long L, long long tiles) {
-  constexpr int H = F * kM;
-  constexpr int NN = 2 * H;
-  extern __shared__ float2 s[];
-  long long col0;
-  int valid;
-  const long long bb = fixed_tile<C>(L, tiles, col0, valid);
-  const float* xb = x + bb * NN * L + col0;
-  fixed_fill<C>(s, H, valid, [&](int t, int c) {
-    return make_float2(xb[makhoul_src(2 * t, NN) * L + c], xb[makhoul_src(2 * t + 1, NN) * L + c]);
-  });
-  __syncthreads();
-  Bts2<F, C, false>::run(s, wq, -1.f);
-  float* yb = y + bb * NN * L + col0;
-  for (int idx = threadIdx.x; idx < H * C; idx += kThreads) {
-    const int k = idx / C;
-    const int c = idx % C;
-    if (c >= valid) continue;
-    const float2 zk = s[k * C + c];
-    const float2 v = r2c_unpack_one(zk, s[((H - k) % H) * C + c], __ldg(tw + k));
-    const float2 pk = __ldg(post + k);
-    yb[k * L + c] = pk.x * v.x - pk.y * v.y;
-    if (k == 0) {
-      yb[H * L + c] = __ldg(post + H).x * (zk.x - zk.y);   // V[h] = Re Z0 - Im Z0
-    } else {
-      const float2 pm = __ldg(post + NN - k);              // V[n-k] = conj V[k]
-      yb[(NN - k) * L + c] = pm.x * v.x + pm.y * v.y;
-    }
-  }
-}
-
 template <int F, int C>
 __global__ void __launch_bounds__(kThreads, 2)
 dct3_mid_kernel(const float* __restrict__ x, float* __restrict__ y,
@@ -122,28 +84,25 @@ dct3_mid_kernel(const float* __restrict__ x, float* __restrict__ y,
 
 }  // namespace ndfft
 
-// Kernels 25 (type3 = 0) and 26 (type3 = 1) on the fixed core: x, y:
-// (B, n, L) float32, contiguous, n = 2h, h = 128 * F, F in {2, 4, 8, 16};
-// wq, c1 and c2 as for ndfft_dct2_nat / ndfft_dct3_nat (wq: (F, 128, 128)
-// complex64 for h, sign -1 / +1, unscaled; c1: tw (h,) or ab (h, 4) at scale
-// 1; c2: post (n,) or pre (h + 1,)). C: columns per block, a power of two with
-// h * C <= 8192. Returns the cudaError_t of the launch (0 on success).
-extern "C" int ndfft_dct_mid(int type3, const void* x, void* y, const void* wq,
-                             const void* c1, const void* c2, long long B, int n, long long L,
-                             int C, void* stream) {
+// Kernel 26 on the fixed core: x, y: (B, n, L) float32, contiguous, n = 2h,
+// h = 128 * F, F in {2, 4, 8, 16}; wq: (F, 128, 128) complex64 for h, sign
+// +1, unscaled; ab: (h, 4) kernel 3 rows at scale 1; pre: (h + 1,)
+// complex64 (s/2) e^{+i pi k / 2n}. C: columns per block, a power of two
+// with h * C <= 8192. Returns the cudaError_t of the launch (0 on success).
+extern "C" int ndfft_dct3_mid(const void* x, void* y, const void* wq, const void* ab,
+                              const void* pre, long long B, int n, long long L, int C,
+                              void* stream) {
   using namespace ndfft;
   const float* xp = static_cast<const float*>(x);
   float* yp = static_cast<float*>(y);
   const float2* wp = static_cast<const float2*>(wq);
-  const float2* c2p = static_cast<const float2*>(c2);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n % 2) return (int)cudaErrorInvalidValue;
   return (int)fixed_dispatch<2>(n / 2, C, [&](auto f, auto c) {
     constexpr int kF = decltype(f)::value, kC = decltype(c)::value;
-    return type3 ? fixed_launch<kF, kC>(dct3_mid_kernel<kF, kC>, B, L, st, xp, yp, wp,
-                                        static_cast<const float4*>(c1), c2p, L)
-                 : fixed_launch<kF, kC>(dct2_mid_kernel<kF, kC>, B, L, st, xp, yp, wp,
-                                        static_cast<const float2*>(c1), c2p, L);
+    return fixed_launch<kF, kC>(dct3_mid_kernel<kF, kC>, B, L, st, xp, yp, wp,
+                                static_cast<const float4*>(ab),
+                                static_cast<const float2*>(pre), L);
   });
 }
 

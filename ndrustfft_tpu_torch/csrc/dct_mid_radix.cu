@@ -18,13 +18,26 @@
 // (4.263 ms at (1, 512, 262144) on an H100, 13x the byte bound, and 64.7 ms
 // at (1024, 1024, 1024), 25x).
 //
+// Kernel 25, the DCT-II along a middle axis past n = 1100, runs the same
+// DCT-II form at n = 128 k wherever h = 64 k has a plan (259 of the 288
+// lengths of ops/hopper/dct.py::dct_form, the odd k included), columns a
+// tile by dct.py::dct2_mid_cols (up to 16 in the 32/40-element form from
+// h = 768 on; one column above h = 10240, loaded through the read-only
+// path). It replaces ndrustfft_tpu/ops/pallas/dct.py::_dct2_kernel_mid
+// (:333, called at :406) there; its first Hopper forms (dct_mid.cu,
+// dct_wide.cuh) ran the bts2 fixed core (0.1665 ms at (1, 2048, 2048)),
+// the wide core (128.6 ms at (1, 1536, 2359296), 15x its byte bound) and
+// the n-point FFT on the wide core's real tile at odd k, whose every
+// column streamed the F * 128 KB Wq table from L2 (1397.5 ms at
+// (1, 31104, 31104), 600x).
+//
 // What bounds it on this card: device memory. A column is read once and
 // written once, 8 n bytes: 0.321 ms at (1, 512, 262144) and 2.56 ms at
 // (1024, 1024, 1024) over 3.35 TB/s, against a real FFT's 2.5 n log2 n
 // FP32 operations per column (0.045 and 0.40 ms of the 67 TFLOP/s peak).
 //
-// The design: the Makhoul passes of kernels 25 and 26 (dct_mid.cu, whose
-// header has the algebra; the index maps makhoul_src and interleave_dst of
+// The design: the Makhoul passes of kernels 25 and 26's first forms
+// (dct_mid.cu, dct_nat.cu, whose header has the algebra; the index maps makhoul_src and interleave_dst of
 // dct_wide.cuh) as a load policy and an epilogue around radix_run, each
 // column once through the tile, every constant from the host
 // (ops/hopper/dct.py), no sincosf on the device.
@@ -62,7 +75,11 @@
 namespace ndfft {
 
 // DCT-II's columns: element t < h of column col of b as the Makhoul pair
-// (x[src(2t)], x[src(2t + 1)]) of x (B, n, L).
+// (x[src(2t)], x[src(2t + 1)]) of x (B, n, L), loaded evict-first or (kLdg)
+// through the read-only path, which keeps each 32-byte sector in L2 for
+// the neighbouring tiles where a tile row is one or two floats (kernel 25
+// at C <= 2, as kernel 1).
+template <bool kLdg = false>
 struct MakhoulCol {
   const float* __restrict__ x;
   long long L;
@@ -70,9 +87,12 @@ struct MakhoulCol {
   __device__ __forceinline__ long long base(long long b, long long col) const {
     return b * n * L + col;
   }
+  __device__ __forceinline__ float ld(const float* q) const {
+    return kLdg ? __ldg(q) : __ldcs(q);
+  }
   __device__ __forceinline__ float2 at(long long p, int t) const {
-    return make_float2(__ldcs(x + p + makhoul_src(2 * t, n) * L),
-                       __ldcs(x + p + makhoul_src(2 * t + 1, n) * L));
+    return make_float2(ld(x + p + makhoul_src(2 * t, n) * L),
+                       ld(x + p + makhoul_src(2 * t + 1, n) * L));
   }
 };
 
@@ -197,12 +217,13 @@ struct Dct1Rows {
 // ops/hopper/rfft.py::c2r_unpack_consts); c2: (n,) complex64 P[k]
 // (type 2, ops/hopper/dct.py::dct2_post) or (h + 1,) Q[k] (type 3,
 // dct.py::dct3_pre), the scale s folded in; unused for type 1, whose
-// `half` is s / 2. C: columns per tile (ops/hopper/dct.py::radix_cols).
-// Returns the cudaError_t of the launch (0 on success).
+// `half` is s / 2. C: columns per tile (ops/hopper/dct.py::dct_radix_cols,
+// dct2_mid_cols); ldg: 1 loads a type 2 x through the read-only path, 0
+// evict-first. Returns the cudaError_t of the launch (0 on success).
 extern "C" int ndfft_dct_mid_radix(int type, const void* x, void* y, const void* table,
                                    const int* radices, int stages, const void* c1,
                                    const void* c2, float half, long long B, int n, long long L,
-                                   int C, void* stream) {
+                                   int C, int ldg, void* stream) {
   using namespace ndfft;
   const int h = type == 1 ? n - 1 : n / 2;
   RadixPlan plan{};
@@ -217,11 +238,13 @@ extern "C" int ndfft_dct_mid_radix(int type, const void* x, void* y, const void*
     return (int)radix_cols_launch<-1>(EvenExtCol{xp, L, n},
                                       Dct1Rows{yp, static_cast<const float2*>(c1), L, n, half},
                                       tp, plan, B, h, L, C, 1.f, st);
-  if (type == 2)
-    return (int)radix_cols_launch<-1>(
-        MakhoulCol{xp, L, n},
-        Dct2Rows{yp, static_cast<const float2*>(c1), static_cast<const float2*>(c2), L, n}, tp,
-        plan, B, h, L, C, 1.f, st);
+  if (type == 2) {
+    const Dct2Rows io{yp, static_cast<const float2*>(c1), static_cast<const float2*>(c2), L, n};
+    return ldg ? (int)radix_cols_launch<-1>(MakhoulCol<true>{xp, L, n}, io, tp, plan, B, h, L, C,
+                                            1.f, st)
+               : (int)radix_cols_launch<-1>(MakhoulCol<>{xp, L, n}, io, tp, plan, B, h, L, C,
+                                            1.f, st);
+  }
   return (int)radix_cols_launch<1>(
       Dct3Col{xp, static_cast<const float2*>(c2), static_cast<const float4*>(c1), L, n},
       Dct3Rows{yp, L, n}, tp, plan, B, h, L, C, 1.f, st);

@@ -37,6 +37,39 @@
 // threads of a row on consecutive bins (Dct2RowBins, the row twin of
 // dct_mid_radix.cu's Dct2Rows). Rows a block: ops/hopper/fft.py::
 // radix_block at h, as kernel 2.
+//
+// Kernel 24: the DCT-III of the same rows, the same n, as the Makhoul C2R:
+// kernel 3's inverse on the same core with the pre twiddle in its load and
+// the interleave in its store.
+//
+// Replaces ndrustfft_tpu/ops/pallas/dct.py::_dct3_kernel (:208, built by
+// _build_dct3, called at :284) with dct3_pallas's interleave (:320-323) at
+// those lengths. Its first Hopper forms (dct_nat.cu) ran kernel 3's bts2
+// core (2.612 ms at (262144, 512) on an H100, 8.1x the byte bound), the
+// wide core (95.2 ms at (2359296, 1536), 11x) and the n-point FFT on the
+// wide core's real tile at odd k (755.0 ms at (31104, 31104), 325x: the
+// F * 128 KB Wq stream of every row). The bound is kernel 23's: a row read
+// once and written once.
+//
+// The algebra (dct_nat.cu's header): u = the unnormalized C2R of the
+// Hermitian half spectrum S[k] = Q[k] (x[k] - i x[n - k]), k = 0 ... h,
+// x[n] = 0, Q[k] = (s / 2) e^{+i pi k / 2n} (ops/hopper/dct.py::dct3_pre),
+// and y[2t] = u[t], y[2t + 1] = u[n - 1 - t]. The load reads the row as
+// one run of 16-byte quads and puts each float where the prologue wants
+// it: x[m] into the real half of tile slot m for m < h, into the row's
+// side slot for m = h, and into the imaginary half of slot n - m above
+// (Dct3RowLoad), so slot k holds (x[k], x[n - k]) and slot 0's imaginary
+// half, x[n], is never read. The prologue takes a mirror pair {k, h - k}
+// a thread, forms S of both from its two slots and the pre twiddle, and
+// replaces them with kernel 3's G[k] = A[k] S[k] + B[k] conj S[h - k]
+// (c2r_combine, the ab rows at scale 1), dropping the rounding residue of
+// the real S[0] and S[h] as dct_nat.cu did. The inverse radix_run of h
+// leaves z in the tile (kTileOut), and the epilogue writes the interleave
+// as 16-byte quads: quad p of the output row is (u[2p], u[n - 1 - 2p],
+// u[2p + 1], u[n - 2 - 2p]) = (Re z[p], Im z[h - 1 - p], Im z[p],
+// Re z[h - 1 - p]), the inverse of MakhoulRowLoad's map (Dct3RowBins).
+// Device memory is read once and written once, both as coalesced 16-byte
+// runs, and never in reverse.
 #include "fft_radix.cuh"
 
 namespace ndfft {
@@ -96,6 +129,97 @@ struct Dct2RowBins {
   }
 };
 
+// Kernel 24's rows: the tile's `valid` rows of n = 2h floats as one run of
+// 16-byte quads (x 16-byte aligned), float m of a row into slot m's real
+// half (m < h), the side slot (m = h) or slot n - m's imaginary half; the
+// prologue forms S and the inverse unpack in place. The row of quad q is
+// q / (h / 2), as in MakhoulRowLoad.
+struct Dct3RowLoad {
+  static constexpr int kSide = 1;
+  const float* __restrict__ x;
+  const float2* __restrict__ q;      // Q[k], k <= h
+  const float4* __restrict__ ab;     // kernel 3's (A, B) rows at scale 1
+  __device__ __forceinline__ void load(float2* s, float2* side, long long row0, int valid,
+                                       int h) const {
+    constexpr int kLoads = 4;
+    const int hq = h >> 1, n = 2 * h;
+    const int total = valid * hq;
+    const unsigned magic = 0xffffffffu / (unsigned)hq + 1u;
+    const float4* src = reinterpret_cast<const float4*>(x + row0 * n);
+    float* sf = reinterpret_cast<float*>(s);
+    for (int q0 = threadIdx.x; q0 < total; q0 += kLoads * blockDim.x) {
+      float4 v[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int qq = q0 + u * blockDim.x;
+        if (qq < total) v[u] = __ldcs(src + qq);
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int qq = q0 + u * blockDim.x;
+        if (qq < total) {
+          const int r = (int)__umulhi((unsigned)qq, magic), m0 = 4 * (qq - r * hq);
+          const float e[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int m = m0 + j;
+            if (m < h) {
+              sf[2 * rx_slot(r * h + m)] = e[j];
+            } else if (m == h) {
+              side[r] = make_float2(e[j], 0.f);
+            } else {
+              sf[2 * rx_slot(r * h + n - m) + 1] = e[j];
+            }
+          }
+        }
+      }
+    }
+  }
+  // S[k] = Q[k] (a - i b) of the pair (a, b) = (x[k], x[n - k])
+  __device__ __forceinline__ float2 spec(int k, float2 p) const {
+    const float2 w = __ldg(q + k);
+    return make_float2(w.x * p.x + w.y * p.y, w.y * p.x - w.x * p.y);
+  }
+  template <class Cx>
+  __device__ __forceinline__ void prologue(float2* s, const float2* side, const Cx& cx) const {
+    if (!cx.active) return;
+    const int h = cx.n;
+    for (int k = cx.t; k <= h / 2; k += cx.tr) {
+      const int qa = cx.slot(k);
+      if (k == 0) {   // S[0] and S[h] are real: keep their real parts only
+        const float x0 = s[qa].x, xh = side->x;
+        const float2 a = make_float2(spec(0, make_float2(x0, 0.f)).x, 0.f);
+        const float2 b = make_float2(spec(h, make_float2(xh, xh)).x, 0.f);
+        s[qa] = c2r_combine(__ldg(ab), a, b);
+      } else {
+        const int qb = cx.slot(h - k);
+        const float2 a = spec(k, s[qa]), b = spec(h - k, s[qb]);
+        s[qa] = c2r_combine(__ldg(ab + k), a, b);
+        if (2 * k != h) s[qb] = c2r_combine(__ldg(ab + h - k), b, a);
+      }
+    }
+  }
+};
+
+// Kernel 24's epilogue: the tile holds z of each row (u[2l] = Re z[l],
+// u[2l + 1] = Im z[l]); quad p of the (T, n) output row is
+// (Re z[p], Im z[h - 1 - p], Im z[p], Re z[h - 1 - p]), y 16-byte aligned.
+struct Dct3RowBins {
+  static constexpr bool kTileOut = true;
+  float* __restrict__ y;
+  __device__ __forceinline__ float2 out(int, float2 v) const { return v; }
+  template <class Cx>
+  __device__ __forceinline__ void epilogue(const float2* s, const Cx& cx) const {
+    if (!cx.active) return;
+    const int h = cx.n;
+    float4* yr = reinterpret_cast<float4*>(y + cx.row * 2 * h);
+    for (int p = cx.t; p < h / 2; p += cx.tr) {
+      const float2 a = s[cx.slot(p)], b = s[cx.slot(h - 1 - p)];
+      yr[p] = make_float4(a.x, b.y, a.y, b.x);
+    }
+  }
+};
+
 }  // namespace ndfft
 
 // x, y: (T, 2h) float32, contiguous, x 16-byte aligned, h even; table: the
@@ -118,4 +242,26 @@ extern "C" int ndfft_dct2_rows_radix(const void* x, void* y, const void* table,
                   static_cast<const float2*>(post)},
       static_cast<const float2*>(table), radices, stages, T, h, rows, -1, 1.f,
       static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 24. x, y: (T, 2h) float32, contiguous, both 16-byte aligned, h
+// even; table: the inverse (sign +1) radix table of h (ops/hopper/fft.py::
+// radix_consts); radices: radix_plan(h), `stages` of them; ab: (h, 4)
+// float32 kernel 3 rows at scale 1 (ops/hopper/rfft.py::
+// c2r_unpack_consts); pre: (h + 1,) complex64 (s / 2) e^{+i pi k / 2n}
+// (ops/hopper/dct.py::dct3_pre); rows: rows per block (ops/hopper/fft.py::
+// radix_block). Returns the cudaError_t of the launch (0 on success).
+extern "C" int ndfft_dct3_rows_radix(const void* x, void* y, const void* table,
+                                     const int* radices, int stages, const void* ab,
+                                     const void* pre, long long T, int h, int rows,
+                                     void* stream) {
+  using namespace ndfft;
+  if (h < 2 || h % 2 || ab == nullptr || pre == nullptr ||
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15))
+    return (int)cudaErrorInvalidValue;
+  return (int)radix_rows_launch(
+      Dct3RowLoad{static_cast<const float*>(x), static_cast<const float2*>(pre),
+                  static_cast<const float4*>(ab)},
+      Dct3RowBins{static_cast<float*>(y)}, static_cast<const float2*>(table), radices, stages,
+      T, h, rows, 1, 1.f, static_cast<cudaStream_t>(stream));
 }

@@ -5,8 +5,9 @@
 // kernels 2 and 15 at their half length on rows with the R2C's unpack as
 // the epilogue, and kernel 3 with the C2R's inverse unpack as the prologue
 // (rfft_radix.cu); kernel 23's DCT-II as the Makhoul R2C on rows, its
-// permutation in the load and its post twiddle in the unpack's store
-// (dct_rows_radix.cu); kernel 11 at every
+// permutation in the load and its post twiddle in the unpack's store, and
+// kernel 24's DCT-III as the Makhoul C2R on rows, its pre twiddle in a
+// prologue and the interleave in its store (dct_rows_radix.cu); kernel 11 at every
 // convolution length M = 128 * F on an (M, C) column tile, its forward and
 // inverse length-M transforms in place, and the real-input chirp-z of
 // kernel 20 (fft_blue_radix.cu), kernel 21 and kernel 15's rows
@@ -21,8 +22,9 @@
 // bins, and kernels 17 and 21 (the C2R along a middle axis) at the half
 // length with the inverse unpack as the prologue or, kernel 21 at an odd
 // length, on the column's Hermitian extension (rfft_mid_radix.cu); kernel
-// 27's DCT-I, DCT-II and DCT-III as load policies and epilogues of the
-// Makhoul passes around the half-length real FFT (dct_mid_radix.cu).
+// 27's DCT-I, DCT-II and DCT-III and kernel 25's DCT-II as load policies
+// and epilogues of the Makhoul passes around the half-length real FFT
+// (dct_mid_radix.cu).
 //
 // Replaces, for the CUDA port, the JAX package's
 // ndrustfft_tpu/ops/pallas/fft.py::_kernel_twostep and

@@ -42,20 +42,20 @@ _SIGNATURES = {
     "ndfft_r2c_dense_mid": [_P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_c2r_dense_mid": [_P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_dct_dense_mid": [_P, _P, _P, _LL, _I, _LL, _I, _P],
-    "ndfft_dct3_nat": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_c2c_rows_radix": [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _F, _P],
     "ndfft_c2c_mid_radix": [_P, _P, _P, _P, _I, _LL, _I, _LL, _I, _I, _F, _I, _P],
     "ndfft_r2c_radix": [_P, _P, _P, _P, _I, _P, _LL, _I, _I, _P],
     "ndfft_dct2_rows_radix": [_P, _P, _P, _P, _I, _P, _P, _LL, _I, _I, _P],
+    "ndfft_dct3_rows_radix": [_P, _P, _P, _P, _I, _P, _P, _LL, _I, _I, _P],
     "ndfft_r2c_mid_radix": [_P, _P, _P, _P, _I, _P, _LL, _I, _LL, _I, _P],
     "ndfft_r2c_packed_mid_radix": [_P, _P, _P, _P, _P, _I, _P, _F, _LL, _I, _LL, _I, _P],
     "ndfft_c2r_radix": [_P, _P, _P, _P, _I, _P, _LL, _I, _I, _P],
     "ndfft_c2r_mid_radix": [_P, _P, _P, _P, _I, _P, _LL, _I, _LL, _I, _P],
     "ndfft_c2r_odd_mid_radix": [_P, _P, _P, _P, _I, _F, _LL, _I, _LL, _I, _P],
-    "ndfft_dct_mid_radix": [_I, _P, _P, _P, _P, _I, _P, _P, _F, _LL, _I, _LL, _I, _P],
+    "ndfft_dct_mid_radix": [_I, _P, _P, _P, _P, _I, _P, _P, _F, _LL, _I, _LL, _I, _I, _P],
     "ndfft_dct_nat_wide": [_I, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_dct_nat_npoint": [_I, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
-    "ndfft_dct_mid": [_I, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
+    "ndfft_dct3_mid": [_P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_dct_mid_wide": [_I, _P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_dct_mid_npoint": [_I, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_dct1_mid": [_P, _P, _P, _P, _F, _LL, _I, _LL, _I, _P],

@@ -14,13 +14,16 @@
   both through their flip/sign conjugation.
 * Kernels 23 and 24, :func:`dct2_nat` and :func:`dct3_nat`: DCT-II and
   DCT-III of contiguous float32 rows by the Makhoul lowering (replace
-  ``dct.py::_dct2_kernel`` and ``_dct3_kernel``). Kernel 23 runs the
-  Makhoul R2C on the radix row core at every length whose half length has
-  a plan (:func:`dct2_nat_radix`, ``csrc/dct_rows_radix.cu``); at the 29
-  others, and kernel 24 everywhere, ``csrc/dct_nat.cu``.
+  ``dct.py::_dct2_kernel`` and ``_dct3_kernel``). At every length whose
+  half length has a plan (:func:`dct2_nat_radix`) both run on the radix
+  row core (``csrc/dct_rows_radix.cu``): kernel 23 as the Makhoul R2C,
+  kernel 24 as the Makhoul C2R; at the 29 others, ``csrc/dct_nat.cu``.
 * Kernels 25 and 26, :func:`dct2_mid` and :func:`dct3_mid`: the same two
-  along the middle axis of (B, n, L) (``csrc/dct_mid.cu``; replace
-  ``dct.py::_dct2_kernel_mid`` and ``_dct3_kernel_mid``).
+  along the middle axis of (B, n, L) (replace ``dct.py::_dct2_kernel_mid``
+  and ``_dct3_kernel_mid``). Kernel 25 runs kernel 27's Makhoul R2C on the
+  radix column tile (``csrc/dct_mid_radix.cu``) at the lengths of
+  :func:`dct2_nat_radix`, columns a tile by :func:`dct2_mid_cols`; at the
+  29 others, and kernel 26 everywhere, ``csrc/dct_mid.cu``.
 * Kernel 28, :func:`dct4_mid`: DCT-IV along the middle axis of (B, n, L),
   n = 2 hl with hl = 128 * F, F <= 256, as one complex FFT of length hl
   per column between an entry and an exit chirp (``csrc/dct4_mid.cu``, the
@@ -40,14 +43,14 @@
   ``fft.py::_kernel_axis_mid_blue_rr``).
 
 Kernels 23 to 26 take every even n = 128 * k that the JAX gate
-``dct_pallas_supported`` sends to them (split (128, k), k <= 256), in the
-form :func:`dct_form` names (kernel 23 off the radix row core): the half
-length h = n/2 = 128 * F for even k
-(the real FFT of kernels 2/3 or 16/17: the fixed bts2 core for F in
-:data:`DCT_F` (rows) or ``CORE_F`` (middle axis), the wide core
-``csrc/bts2_wide.cuh`` otherwise), and the n-point FFT on the wide core's
-real tile for odd k, where h = 64 k is no multiple of 128
-(``csrc/dct_wide.cuh``; one column fills a block at odd k > 160).
+``dct_pallas_supported`` sends to them (split (128, k), k <= 256). Off the
+radix cores (kernel 26, and kernels 23 to 25 at the 29 lengths), they run
+in the form :func:`dct_form` names: the half length h = n/2 = 128 * F for
+even k (the real FFT of kernels 2/3 or 16/17: kernel 26 on the fixed bts2
+core for F in ``CORE_F``, the wide core ``csrc/bts2_wide.cuh`` otherwise),
+and the n-point FFT on the wide core's real tile for odd k, where h = 64 k
+is no multiple of 128 (``csrc/dct_wide.cuh``; one column fills a block at
+odd k > 160).
 
 What bounds them, and what the designs do about it, is in the sources'
 header comments: the bts2 core's dense DFT-128 on the FP32 cores, device
@@ -59,8 +62,8 @@ and their wrappers, whose ``launches`` attributes count kernel launches
 (kernels 23 to 26, 28 and 29 also count the wide core's (half-length)
 launches apart, in ``wide_launches``, kernels 23 to 26 and 29 the n-point
 ones in ``npoint_launches``, kernel 28 its long form's in
-``long_launches``, kernel 27 its radix column tile's, kernel 23 its radix
-row core's and kernel 12 its chirp-z's (every one) in
+``long_launches``, kernel 27 its radix column tile's, kernels 23 to 25
+their radix cores' and kernel 12 its chirp-z's (every one) in
 ``radix_launches``). All
 transforms are in the rustdct convention (scipy's unnormalized DCT / 2)
 times ``scale``.
@@ -77,16 +80,14 @@ import torch
 from ...plan import _cis, blue_h, chirp
 from . import _build
 from .fft import (C2C_F, CORE_F, M, RADIX_MAX_STAGES, RADIX_WIDE_N, REAL_MAX_F, WIDE_MAX_F,
-                  block_cols, block_rows, bts2_plain, check_blue_n, check_cuda, check_mult,
+                  block_cols, bts2_plain, check_blue_n, check_cuda, check_mult,
                   chirp_m, chirp_z_radix_plain, count_launch, dense_beats_radix, dense_tile,
                   device_radix, device_wide, device_wq, f32_pair, mult_planes, num_sms,
                   pair_tensor, radix_block, radix_mid_cols, radix_plan, wide_block,
                   wide_bytes, wide_real_bytes)
 from .rfft import (_bts2_col_c2r_plain, _bts2_col_r2c_plain, _device_ab, _device_tw,
-                   c2r_mid_cols, c2r_mid_plain, r2c_mid_cols, r2c_mid_radix_plain,
-                   r2c_radix_plain)
-
-DCT_F = (1, 2, 4, 8, 16)   # half-length factors F of kernels 23/24's fixed core
+                   c2r_mid_cols, c2r_mid_plain, c2r_nat_plain, packed_mid_cols,
+                   r2c_mid_cols, r2c_mid_radix_plain, r2c_radix_plain)
 
 
 # --------------------------------------------------------------------------
@@ -182,10 +183,13 @@ def dct_radix_cols(n: int, dct_type: int, groups: int, cols: int, sms: int) -> i
     return r2c_mid_cols(2 * h, groups, cols, sms)
 
 
-def dct_radix_launch(x: torch.Tensor, y: torch.Tensor, dct_type: int, scale, c: int) -> None:
-    """Launch kernel 27 on the radix column tile, ``c`` columns a tile
-    (:func:`dct_radix_cols`), on the (B, n, L) float32 CUDA tensor x into y
-    (``csrc/dct_mid_radix.cu``); counts nothing."""
+def dct_radix_launch(x: torch.Tensor, y: torch.Tensor, dct_type: int, scale, c: int,
+                     ldg: bool = False) -> None:
+    """Launch kernel 27 (or kernel 25, DCT-II past n = 1100) on the radix
+    column tile, ``c`` columns a tile (:func:`dct_radix_cols`,
+    :func:`dct2_mid_cols`), on the (B, n, L) float32 CUDA tensor x into y
+    (``csrc/dct_mid_radix.cu``), a DCT-II's x loaded through the read-only
+    path if ``ldg``, else evict-first; counts nothing."""
     nb, n, cols = x.shape
     dev = x.device
     h = dct_radix_len(n, dct_type)
@@ -202,7 +206,7 @@ def dct_radix_launch(x: torch.Tensor, y: torch.Tensor, dct_type: int, scale, c: 
             dct_type, x.data_ptr(), y.data_ptr(),
             device_radix(h, +1 if dct_type == 3 else -1, dev).data_ptr(),
             (ctypes.c_int * RADIX_MAX_STAGES)(*plan), len(plan), c1, c2, 0.5 * s, nb, n, cols, c,
-            torch.cuda.current_stream(dev).cuda_stream)
+            int(ldg), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "ndfft_dct_mid_radix")
 
 
@@ -392,10 +396,12 @@ def _dct3_plain(x: torch.Tensor, scale) -> torch.Tensor:
 
 
 def dct2_nat_radix(n: int) -> bool:
-    """Kernel 23 runs the Makhoul R2C on the radix row core at n: :func:`dct_form`
-    takes n and :func:`~.fft.radix_plan` has h = n/2 = 64 k (259 of the 288
-    lengths, the odd k included; not k = 131 ... 251 prime, nor 2 k for k =
-    131, 137, 139, 149, 151, 157, which keep the wide core's forms)."""
+    """Kernels 23 to 25 run on the radix cores at n (kernel 23 the Makhoul
+    R2C on rows, kernel 24 the Makhoul C2R on rows, kernel 25 the Makhoul
+    R2C on the column tile): :func:`dct_form` takes n and
+    :func:`~.fft.radix_plan` has h = n/2 = 64 k (259 of the 288 lengths, the
+    odd k included; not k = 131 ... 251 prime, nor 2 k for k = 131, 137,
+    139, 149, 151, 157, which keep the wide core's forms)."""
     return dct_form(n) is not None and radix_plan(n // 2) is not None
 
 
@@ -439,15 +445,76 @@ def dct2_rows_radix_launch(x: torch.Tensor, y: torch.Tensor, scale, rows=None) -
     _build.check(err, "ndfft_dct2_rows_radix")
 
 
+def dct3_rows_radix_plain(x: torch.Tensor, scale=None) -> torch.Tensor:
+    """Plain version of kernel 24 on the radix row core: (T, n) float32 ->
+    scale * DCT-III of each row, as the kernel computes it: the half
+    spectrum S[k] = Q[k] (x[k] - i x[n-k]), kernel 3's plain version
+    (:func:`~.rfft.c2r_nat_plain`: the DC and Nyquist imaginary parts
+    ignored, the inverse unpack, the radix plain with the sign +1 table),
+    then the un-permutation y[2t] = u[t], y[2t+1] = u[n-1-t]."""
+    n = x.shape[1]
+    s = _dct3_spec(x[:, :, None], _scale(scale))[:, :, 0]
+    return c2r_nat_plain(s, n, None)[:, _device_index("unperm", n, x.device)]
+
+
+def dct3_rows_radix_launch(x: torch.Tensor, y: torch.Tensor, scale, rows=None) -> None:
+    """Launch kernel 24 on the radix row core on the (T, n) float32 CUDA
+    tensor x into y (both 16-byte aligned), ``rows`` a block (by default
+    :func:`~.fft.radix_block` at h = n/2, as kernel 3); counts nothing."""
+    t, n = x.shape
+    h = n // 2
+    dev = x.device
+    plan = radix_plan(h)
+    with torch.cuda.device(dev):
+        err = _build.lib().ndfft_dct3_rows_radix(
+            x.data_ptr(), y.data_ptr(), device_radix(h, +1, dev).data_ptr(),
+            (ctypes.c_int * RADIX_MAX_STAGES)(*plan), len(plan),
+            _device_ab(n, 1.0, dev).data_ptr(),
+            _device_twiddle("pre", n, _scale(scale), dev).data_ptr(), t, h,
+            rows or radix_block(h, t, num_sms(dev)), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ndfft_dct3_rows_radix")
+
+
 def dct3_nat_plain(x: torch.Tensor, scale=None) -> torch.Tensor:
     """Plain version of kernel 24: (T, n) float32 -> scale * DCT-III of each
-    row (:func:`_dct3_plain` on the rows as (T, n, 1))."""
+    row, in the form the kernel takes at n: :func:`dct3_rows_radix_plain`
+    where :func:`dct2_nat_radix` holds, else :func:`_dct3_plain` on the rows
+    as (T, n, 1)."""
+    if dct2_nat_radix(x.shape[1]):
+        return dct3_rows_radix_plain(x, scale)
     return _dct3_plain(x[:, :, None], scale)[:, :, 0]
 
 
 def dct2_mid_plain(x: torch.Tensor, scale=None) -> torch.Tensor:
-    """Plain version of kernel 25: scale * DCT-II along dim 1 of (B, n, L)."""
+    """Plain version of kernel 25: scale * DCT-II along dim 1 of (B, n, L),
+    in the form the kernel takes at n: kernel 27's Makhoul R2C on the radix
+    column tile (:func:`dct_radix_plain`) where :func:`dct2_nat_radix`
+    holds, else :func:`_dct2_plain`."""
+    if dct2_nat_radix(x.shape[1]):
+        return dct_radix_plain(x, 2, scale)
     return _dct2_plain(x, scale)
+
+
+DCT2_MID_WIDE_H = 768   # kernel 25's wide column tiles from this half length on
+
+
+def dct2_mid_cols(h: int, groups: int, cols: int, sms: int) -> int:
+    """Columns per tile of kernel 25 on the radix column tile at half length
+    h: kernel 18's rule (:func:`~.rfft.packed_mid_cols`) with its wide
+    tiles from h = DCT2_MID_WIDE_H on: below it :func:`~.fft.radix_mid_cols`
+    (the 16-element form), from it the largest power of two up to 16 whose
+    tile a block takes in the 32- or 40-element form (16 at h = 768 and
+    1024, 1 above h = 10240), halved while the grid would leave SMs idle.
+    (On an NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py phase 5, C =
+    1, 2, 4, 8, 16: at (1, 1536, 2359296) 144.8, 70.2, 37.6, 29.0, 28.1 ms
+    and at (1536, 1536, 1536) 83.6, 60.6, 28.2, 28.3, 27.1, where
+    radix_mid_cols took 4; at (1, 2048, 2048) 0.146, 0.087, 0.076, 0.059,
+    0.059 (the grid rule takes 8); at (1, 1152, 1152) 0.070, 0.053, 0.047,
+    0.056, 0.054 (h = 576: 4, the 16-element form); one column at
+    (1, 31104, 31104), 30.6 ms. The wrapper loads x through the read-only
+    path at C <= 2, as kernel 1: a tile row of one or two floats leaves the
+    rest of each 32-byte sector in L2 for the neighbouring tiles.)"""
+    return packed_mid_cols(h, groups, cols, sms, wide_from=DCT2_MID_WIDE_H)
 
 
 def dct3_mid_plain(x: torch.Tensor, scale=None) -> torch.Tensor:
@@ -468,28 +535,62 @@ def _check_form(x: torch.Tensor, rows: bool, what: str):
     return form
 
 
+def launch_form(n: int, type3: bool, rows: bool) -> str:
+    """The kernel form kernels 23 to 26 launch at n (``rows``: kernel 23 or,
+    ``type3``, 24; else 25 or 26), n in :func:`dct_form`: "radix" (kernels
+    23 to 25 where :func:`dct2_nat_radix` holds), else "npoint" (odd k),
+    "fixed" (kernel 26 at F in ``CORE_F``) or "wide"."""
+    form, f = dct_form(n)
+    if (rows or not type3) and dct2_nat_radix(n):
+        return "radix"
+    if form == "npoint":
+        return "npoint"
+    return "fixed" if type3 and not rows and f in CORE_F else "wide"
+
+
 def _launch(wrapper, x: torch.Tensor, scale, type3: bool, rows: bool) -> torch.Tensor:
     """Kernel 23/24 (``rows``: x is (T, n)) or 25/26 (x is (B, n, L)) on a
-    CUDA tensor: kernel 23 on the radix row core where :func:`dct2_nat_radix`
-    holds, else the fixed core, the wide core's half-length form or its
-    n-point form, by :func:`dct_form`; adds one to the wrapper's counts."""
+    CUDA tensor: kernels 23 to 25 on the radix cores where
+    :func:`dct2_nat_radix` holds, else (and kernel 26 everywhere) the fixed
+    core, the wide core's half-length form or its n-point form, by
+    :func:`dct_form`; adds one to the wrapper's counts."""
     what = wrapper.__name__
     check_cuda(x, torch.float32, what)
     n = x.shape[1]
-    form, f = dct_form(n)
-    radix = rows and not type3 and dct2_nat_radix(n)
-    npoint = not radix and form == "npoint"
-    fixed = not (radix or npoint) and f in (DCT_F if rows else CORE_F)
-    if (radix and x.data_ptr() % 16) or (fixed and rows and x.data_ptr() % 8):
-        x = x.clone()          # the radix rows read 16-byte quads, the fixed ones float2
+    form = launch_form(n, type3, rows)
+    radix, npoint, fixed = form == "radix", form == "npoint", form == "fixed"
+    if radix and rows and x.data_ptr() % 16:
+        x = x.clone()          # the radix rows read 16-byte quads
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
     if radix:
-        dct2_rows_radix_launch(x, y, scale)
-        wrapper.launches += 1
+        if not rows:
+            c = dct2_mid_cols(n // 2, x.shape[0], x.shape[2], num_sms(x.device))
+            dct_radix_launch(x, y, 2, scale, c, ldg=c <= 2)
+        elif type3:
+            dct3_rows_radix_launch(x, y, scale)
+        else:
+            dct2_rows_radix_launch(x, y, scale)
         wrapper.radix_launches += 1
-        return y
+    else:
+        bts2_launch(x, y, scale, type3, rows, form)
+        wrapper.wide_launches += not (fixed or npoint)
+        wrapper.npoint_launches += npoint
+    wrapper.launches += 1
+    return y
+
+
+def bts2_launch(x: torch.Tensor, y: torch.Tensor, scale, type3: bool, rows: bool,
+                form: str) -> None:
+    """Launch kernels 23 to 26's bts2 ``form`` ("fixed": kernel 26 alone,
+    "wide" or "npoint", :func:`launch_form`'s names) on the float32 CUDA
+    tensor x ((T, n) if ``rows`` else (B, n, L)) into y, at any n that
+    :func:`dct_form` takes in that form; counts nothing. (Kernels 23 to 25
+    launch it where :func:`dct2_nat_radix` fails; chip_smoke.py times the
+    forms the radix cores replaced with it.)"""
+    n = x.shape[1]
+    npoint, fixed = form == "npoint", form == "fixed"
     dev = x.device
     s = _scale(scale)
     core = n if npoint else n // 2          # the length of the core's transform
@@ -507,12 +608,10 @@ def _launch(wrapper, x: torch.Tensor, scale, type3: bool, rows: bool) -> torch.T
     ptrs = (x.data_ptr(), y.data_ptr(), wq.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        if fixed and rows:      # kernel 24 alone: kernel 23's fixed lengths are radix ones
-            err = lib.ndfft_dct3_nat(*ptrs, c1.data_ptr(), c2.data_ptr(), cols, n,
-                                     block_rows(core, cols, sms), stream)
-        elif fixed:
-            err = lib.ndfft_dct_mid(int(type3), *ptrs, c1.data_ptr(), c2.data_ptr(), nb, n,
-                                    cols, block_cols(core, nb, cols, sms), stream)
+        if fixed:               # kernel 26 alone: the others' fixed lengths are radix ones
+            entry = "ndfft_dct3_mid"
+            err = lib.ndfft_dct3_mid(*ptrs, c1.data_ptr(), c2.data_ptr(), nb, n, cols,
+                                     block_cols(core, nb, cols, sms), stream)
         else:
             wf = device_wide(core, sign, dev).data_ptr()
             c = wide_block(core, nb, cols, sms, wide_real_bytes if npoint else wide_bytes)
@@ -520,11 +619,7 @@ def _launch(wrapper, x: torch.Tensor, scale, type3: bool, rows: bool) -> torch.T
             entry = f"ndfft_dct_{'nat' if rows else 'mid'}_{'npoint' if npoint else 'wide'}"
             consts = (c2.data_ptr(),) if npoint else (c1.data_ptr(), c2.data_ptr())
             err = getattr(lib, entry)(int(type3), *ptrs, wf, *consts, *shape, c, stream)
-    _build.check(err, what)
-    wrapper.launches += 1
-    wrapper.wide_launches += not (fixed or npoint)
-    wrapper.npoint_launches += npoint
-    return y
+    _build.check(err, entry)
 
 
 def _dct_wrapper(name: str, plain, type3: bool, rows: bool, doc: str):
@@ -539,8 +634,8 @@ def _dct_wrapper(name: str, plain, type3: bool, rows: bool, doc: str):
     wrapper.__name__ = wrapper.__qualname__ = name
     wrapper.__doc__ = doc + (
         " A CPU tensor runs the plain version; a CUDA tensor launches the kernel "
-        "(kernel 23 on the radix row core where dct2_nat_radix(n) holds; else the "
-        "fixed core, the wide core's half-length form or the n-point form, by "
+        "(kernels 23 to 25 on the radix cores where dct2_nat_radix(n) holds; else "
+        "the fixed core, the wide core's half-length form or the n-point form, by "
         "dct_form(n)) or raises.")
     wrapper.launches = wrapper.wide_launches = wrapper.npoint_launches = 0
     return wrapper
@@ -554,11 +649,13 @@ dct2_nat.radix_launches = 0
 dct3_nat = _dct_wrapper(
     "dct3_nat", dct3_nat_plain, True, True,
     "scale * DCT-III of the rows of a (T, n) float32 tensor (kernel 24), n = 128 * k "
-    "(dct_form).")
+    "(dct_form); its radix row core's launches are counted in radix_launches as well.")
+dct3_nat.radix_launches = 0
 dct2_mid = _dct_wrapper(
     "dct2_mid", dct2_mid_plain, False, False,
     "scale * DCT-II along dim 1 of a (B, n, L) float32 tensor (kernel 25), n = 128 * k "
-    "(dct_form).")
+    "(dct_form); its radix column tile's launches are counted in radix_launches as well.")
+dct2_mid.radix_launches = 0
 dct3_mid = _dct_wrapper(
     "dct3_mid", dct3_mid_plain, True, False,
     "scale * DCT-III along dim 1 of a (B, n, L) float32 tensor (kernel 26), n = 128 * k "
@@ -811,9 +908,11 @@ dct23_blue_mid.radix_launches = 0
 
 
 def spectral_dct_mid_plain(x: torch.Tensor, hv: torch.Tensor, s2=None, s3=None) -> torch.Tensor:
-    """Plain version of kernel 29: kernel 25's plain version times s2, the
-    product with the real H ((n, 1) or (n, L)), kernel 26's times s3."""
-    return dct3_mid_plain(dct2_mid_plain(x, s2) * hv, s3)
+    """Plain version of kernel 29: the bts2 forms' DCT-II (:func:`_dct2_plain`,
+    kernel 25's until it left for the radix column tile) times s2, the
+    product with the real H ((n, 1) or (n, L)), kernel 26's DCT-III times
+    s3."""
+    return _dct3_plain(_dct2_plain(x, s2) * hv, s3)
 
 
 def spectral_dct_mid(x: torch.Tensor, hv: torch.Tensor, s2=None, s3=None) -> torch.Tensor:

@@ -137,19 +137,21 @@ def test_dct_pair_runs_on_the_kernels(dev):
 
 
 def test_unported_dct_route_raises(dev):
-    # DCT-II along axis 0 at 2048 runs kernel 25 on the fixed core (it raised
-    # before the kernel was ported); the n-point form past 20480 runs too (it
-    # raised before the long forms were ported)
+    # DCT-II along axis 0 at 2048 runs kernel 25 on the radix column tile (it
+    # raised before the kernel was ported); the odd k past 20480 runs there
+    # too (it raised before the long forms were ported, then ran the n-point
+    # form), and the prime k = 163 keeps the n-point form
     x = torch.randn(2048, 128, device=dev)
     before = kdct.dct2_mid.launches
     y = nd.nddct2(x, axis=0)
     assert kdct.dct2_mid.launches - before == 1
     assert _rel(y, kdct.dct2_mid_plain(x[None], 2.0)[0]) <= TOL
-    x2 = torch.randn(128 * 161, 128, device=dev)
-    before = kdct.dct2_mid.npoint_launches
-    y = nd.nddct2(x2, axis=0)
-    assert kdct.dct2_mid.npoint_launches - before == 1
-    assert _rel(y, kdct.dct2_mid_plain(x2[None], 2.0)[0]) <= TOL
+    for k, form in ((161, "radix_launches"), (163, "npoint_launches")):
+        x2 = torch.randn(128 * k, 128, device=dev)
+        before = getattr(kdct.dct2_mid, form)
+        y = nd.nddct2(x2, axis=0)
+        assert getattr(kdct.dct2_mid, form) - before == 1
+        assert _rel(y, kdct.dct2_mid_plain(x2[None], 2.0)[0]) <= TOL
     assert nd.nddct2([1.0, 2.0, 3.0]).device.type == "cuda"   # non-tensor input
     # DCT-I at 2049 and DCT-IV at 2048 along axis 0 run kernels 19 and 28
     # (they raised before the kernels were ported), and so does DST-IV at
@@ -477,11 +479,14 @@ def test_real_step_768_runs_on_the_wide_kernels(dev):
 
 
 def test_dct23_kernels_match_plain_in_every_form(dev):
-    """Kernels 23 to 26 in their three forms (fixed core, the wide core's
-    half length, the n-point form; kernel 23 on the radix row core where
-    n/2 has a plan) and kernels 16/17 on the wide core:
-    ragged row and column tiles, prime F = 131, the largest tiles (n-point
-    F = 159, half length F = 128 and 160: one transform per tile)."""
+    """Kernels 23 to 26 in their forms (kernels 23 and 24 on the radix row
+    core and kernel 25 on the radix column tile where n/2 has a plan, else
+    the wide core's half length or the n-point form; kernel 26 on the fixed
+    core, the wide core's half length or the n-point form) and kernels
+    16/17: ragged row and column tiles, prime F = 131 (the n-point form at
+    k = 131 and the half length at k = 262, where n/2 has no plan), the
+    largest tiles (n-point F = 159, half length F = 128: one transform per
+    tile)."""
     g = torch.Generator(device=dev).manual_seed(12)
     forms = {"fixed": 0, "wide": 0, "npoint": 0, "radix": 0}
 
@@ -498,17 +503,19 @@ def test_dct23_kernels_match_plain_in_every_form(dev):
         forms["wide" if d[1] else "npoint" if d[2] else "radix" if d[3] else "fixed"] += 1
 
     for t, n in ((130, 128), (7, 384), (130, 768), (33, 1536), (3, 1152), (2, 128 * 159),
-                 (2, 128 * 131), (3, 32768), (130, 1024)):
+                 (2, 128 * 131), (3, 32768), (130, 1024), (2, 128 * 262)):
         x = torch.randn(t, n, generator=g, device=dev)
         check(kdct.dct2_nat, kdct.dct2_nat_plain, x, 2.0)
         check(kdct.dct3_nat, kdct.dct3_nat_plain, x, 0.5)
     for shape in ((1, 512, 130), (2, 2048, 130), (1, 4096, 33), (2, 1280, 130), (1, 1536, 129),
-                  (2, 1152, 130), (1, 128 * 159, 3), (1, 32768, 2), (3, 384, 385)):
+                  (2, 1152, 130), (1, 128 * 159, 3), (1, 32768, 2), (3, 384, 385),
+                  (1, 128 * 262, 3)):
         x = torch.randn(*shape, generator=g, device=dev)
         check(kdct.dct2_mid, kdct.dct2_mid_plain, x, 2.0)
         check(kdct.dct3_mid, kdct.dct3_mid_plain, x, None)
-    # kernel 23 on the radix row core but at n = 128 * 131 (no plan of 64 * 131)
-    assert forms == {"fixed": 7, "wide": 9, "npoint": 12, "radix": 8}
+    # kernels 23 to 25 on the radix cores but at n = 128 * 131 and 128 * 262
+    # (no plan of 64 * 131); kernel 26 off them everywhere
+    assert forms == {"fixed": 3, "wide": 7, "npoint": 5, "radix": 25}
     before = [krfft.r2c_mid.radix_launches, krfft.c2r_mid.radix_launches]
     for shape in ((2, 768, 130), (1, 1280, 129), (1, 40960, 2)):
         x = torch.randn(*shape, generator=g, device=dev)
@@ -525,8 +532,9 @@ def test_dct23_kernels_match_plain_in_every_form(dev):
 
 
 def test_neumann_2d_runs_on_the_dct_kernels(dev):
-    """A 2-D Neumann solve at 1280 x 768 (K25/K26 and K24 on the wide core,
-    K23 on the radix row core) against its analytic solution."""
+    """A 2-D Neumann solve at 1280 x 768 (K26 on the wide core, K25 on the
+    radix column tile, K23 and K24 on the radix row core) against its
+    analytic solution."""
     n0, n1 = 1280, 768
     x0 = (torch.arange(n0, device=dev, dtype=torch.float64) + 0.5) / n0
     x1 = (torch.arange(n1, device=dev, dtype=torch.float64) + 0.5) / n1
@@ -535,8 +543,8 @@ def test_neumann_2d_runs_on_the_dct_kernels(dev):
     h0, h1 = nd.DctHandler(n0), nd.DctHandler(n1)
     h0i = h0.normalization(nd.Normalization.scalar(1 / n0))
     h1i = h1.normalization(nd.Normalization.scalar(1 / n1))
-    fns = ((kdct.dct2_mid, "wide_launches"), (kdct.dct3_mid, "wide_launches"),
-           (kdct.dct2_nat, "radix_launches"), (kdct.dct3_nat, "wide_launches"))
+    fns = ((kdct.dct2_mid, "radix_launches"), (kdct.dct3_mid, "wide_launches"),
+           (kdct.dct2_nat, "radix_launches"), (kdct.dct3_nat, "radix_launches"))
     before = [getattr(f, a) for f, a in fns]
     fh = nd.nddct2(nd.nddct2(f, h1, axis=1), h0, axis=0)
     k0 = (torch.arange(n0, device=dev, dtype=torch.float32) * torch.pi) ** 2
@@ -648,6 +656,69 @@ def test_dct2_rows_radix_matches_plain(dev):
     assert _rel(kdct.dct2_nat(x, 2.0), kdct.dct2_nat_plain(x, 2.0)) <= TOL
     assert (kdct.dct2_nat.radix_launches - before[0],
             kdct.dct2_nat.npoint_launches - before[1]) == (0, 1)
+
+
+def test_dct3_rows_radix_matches_plain(dev):
+    """Kernel 24 on the radix row core: odd and even k, h = 64 ... 16384
+    (16, 32 and 40 elements a thread), ragged row tiles at each count of
+    rows a block that fits, a row view off a 16-byte boundary (the wrapper
+    copies it), every launch counted in ``radix_launches``; the 29 lengths
+    without a plan keep the old forms (n = 128 * 131: the n-point form)."""
+    g = torch.Generator(device=dev).manual_seed(27)
+    before = (kdct.dct3_nat.launches, kdct.dct3_nat.radix_launches)
+    for t, n in ((7, 128), (130, 384), (33, 640), (5, 1536), (3, 8192), (2, 128 * 159),
+                 (3, 32768), (2, 40960)):
+        x = torch.randn(t, n, generator=g, device=dev)
+        for scale in (2.0, None, 1.0 / n):
+            assert _rel(kdct.dct3_nat(x, scale), kdct.dct3_rows_radix_plain(x, scale)) <= TOL, n
+        h = n // 2
+        tr = -(-h // 16)        # threads a row in the 16-element form (h <= 4096)
+        for rows in (1, 2, 3) if h <= kfft.RADIX_WIDE_N and 3 * tr <= 256 else (1,):
+            y = torch.empty_like(x)
+            kdct.dct3_rows_radix_launch(x, y, 2.0, rows)
+            assert _rel(y, kdct.dct3_rows_radix_plain(x, 2.0)) <= TOL, (n, rows)
+    flat = torch.randn(3 * 384 + 1, generator=g, device=dev)
+    x = flat[1:].view(3, 384)
+    assert x.data_ptr() % 16
+    assert _rel(kdct.dct3_nat(x, 2.0), kdct.dct3_rows_radix_plain(x, 2.0)) <= TOL
+    assert (kdct.dct3_nat.launches - before[0], kdct.dct3_nat.radix_launches - before[1]) == \
+        (25, 25)
+    x = torch.randn(2, 128 * 131, generator=g, device=dev)
+    before = (kdct.dct3_nat.radix_launches, kdct.dct3_nat.npoint_launches)
+    assert _rel(kdct.dct3_nat(x, 2.0), kdct.dct3_nat_plain(x, 2.0)) <= TOL
+    assert (kdct.dct3_nat.radix_launches - before[0],
+            kdct.dct3_nat.npoint_launches - before[1]) == (0, 1)
+
+
+def test_dct2_mid_radix_matches_plain(dev):
+    """Kernel 25 on the radix column tile: odd and even k, h = 64 ... 16384
+    (16, 32 and 40 elements a thread), every column count C that fits a
+    tile (at C <= 2 with both loads) with ragged L (5 and 130 columns),
+    B = 1 and 2, every launch
+    counted in ``radix_launches``; the lengths without a plan keep the old
+    forms (n = 128 * 131: the n-point form)."""
+    g = torch.Generator(device=dev).manual_seed(28)
+    before = (kdct.dct2_mid.launches, kdct.dct2_mid.radix_launches)
+    for nb, n, cols in ((2, 128, 130), (1, 384, 5), (2, 1152, 130), (1, 1536, 130),
+                        (1, 8192, 5), (1, 128 * 159, 3), (1, 32768, 2), (1, 31104, 3)):
+        x = torch.randn(nb, n, cols, generator=g, device=dev)
+        for scale in (2.0, None):
+            assert _rel(kdct.dct2_mid(x, scale), kdct.dct_radix_plain(x, 2, scale)) <= TOL, n
+        h = n // 2
+        for c, ldg in ((1, False), (1, True), (2, False), (2, True), (4, False), (8, False),
+                       (16, False)):
+            if h * c > kfft.RADIX_MAX_ELEMS or kfft.radix_cols_threads(h, c) > 512:
+                continue
+            y = torch.empty_like(x)
+            kdct.dct_radix_launch(x, y, 2, 2.0, c, ldg)
+            assert _rel(y, kdct.dct_radix_plain(x, 2, 2.0)) <= TOL, (n, c, ldg)
+    assert (kdct.dct2_mid.launches - before[0], kdct.dct2_mid.radix_launches - before[1]) == \
+        (16, 16)
+    x = torch.randn(1, 128 * 131, 3, generator=g, device=dev)
+    before = (kdct.dct2_mid.radix_launches, kdct.dct2_mid.npoint_launches)
+    assert _rel(kdct.dct2_mid(x, 2.0), kdct.dct2_mid_plain(x, 2.0)) <= TOL
+    assert (kdct.dct2_mid.radix_launches - before[0],
+            kdct.dct2_mid.npoint_launches - before[1]) == (0, 1)
 
 
 def test_dct23_blue_radix_matches_plain(dev):
@@ -1245,7 +1316,7 @@ def test_long_forms_match_plain(dev):
              (kdct.dct2_nat, kdct.dct3_nat, kdct.dct2_mid, kdct.dct3_mid,
               kdct.spectral_dct_mid)]
     assert [(a - c, b - d) for (a, b), (c, d) in zip(after, before)] == \
-        [(6, 2)] + [(6, 6)] * 4
+        [(6, 2)] * 3 + [(6, 6)] * 2
     before = (kdct.dct4_mid.launches, kdct.dct4_mid.long_launches, kdct.dct4_mid.wide_launches)
     for n in (41216, 41728, 65536):
         x = randn(2, n, 130)

@@ -1,16 +1,18 @@
 """Kernels 25 and 26 (DCT-II/III along a middle axis) and the rest of
-kernels 16/17 and 23/24 (the wide core's half length and the n-point form)
-against the JAX package's Pallas kernels in interpret mode on the CPU, where
-the wrappers run their plain versions:
+kernels 16/17 and 23/24 against the JAX package's Pallas kernels in
+interpret mode on the CPU, where the wrappers run their plain versions:
 
 * ``dct2_mid`` / ``dct3_mid`` against ``dct2_pallas_mid`` /
-  ``dct3_pallas_mid`` at n = 1152 (the n-point form, F = 9), 1280 (the wide
-  core's half length, F = 5) and 2048 (the fixed core, F = 8), L = 128 and a
-  ragged 130, nb = 1 and 2;
+  ``dct3_pallas_mid`` at n = 1152, 1280 and 2048, L = 128 and a ragged 130,
+  nb = 1 and 2: kernel 25 on the radix column tile at all three (the
+  n-point form, the wide core's half length and the fixed core until it
+  moved there), kernel 26 in the n-point form (F = 9), on the wide core's
+  half length (F = 5) and on the fixed core (F = 8);
 * ``r2c_mid`` (the radix column tile) / ``c2r_mid`` (the wide core) against
   ``r2c_pallas_mid`` / ``c2r_pallas_mid`` at n = 768 and 1280;
 * ``dct2_nat`` / ``dct3_nat`` against ``dct2_pallas`` / ``dct3_pallas`` at
-  n = 128 and 384 (n-point) and 768 and 1536 (wide);
+  n = 128, 384, 768 and 1536, on the radix row core (the n-point and wide
+  forms' lengths before it);
 * the kernels' twiddle tables bit for bit against the JAX kernels' ``_cis``
   tables, and ``dct_form`` against the JAX gate;
 * the wrappers' checks, launch counters and tile sizes.
@@ -74,6 +76,10 @@ def _real(shape, seed):
                                               (kdct.dct3_mid, ref_pdct.dct3_pallas_mid, None)])
 def test_mid_plain_matches_pallas(n, form, nb, cols, kernel, ref, scale):
     assert kdct.dct_form(n) == form
+    type3 = kernel is kdct.dct3_mid
+    want = ("radix" if not type3 else form[0] if form[0] == "npoint"
+            else "fixed" if form[1] in kfft.CORE_F else "wide")
+    assert kdct.launch_form(n, type3, False) == want
     x = _real((nb, n, cols), n + nb + cols)
     got = kernel(torch.from_numpy(x), scale)             # CPU: the plain version
     assert got.dtype == F32 and got.shape == (nb, n, cols)
@@ -94,17 +100,18 @@ def test_mid_plain_matches_float64_oracle(n):
 
 
 def test_mid_is_the_row_kernels_on_a_transposed_view():
-    """Kernels 25/26 are kernels 23/24's bts2 arithmetic in the column
-    layout (kernel 23 keeps it at the lengths without a radix plan of n/2;
+    """Kernel 25 is kernel 23's Makhoul R2C on the radix core in the column
+    layout, and kernel 26 is kernel 24's bts2 arithmetic in the column
+    layout (kernel 24 keeps it at the lengths without a radix plan of n/2;
     at these lengths it runs the radix row core, whose plain version
-    tests/test_torch_dct_rows_radix.py holds against the JAX package)."""
-    def dct2_rows_bts2(r, scale):
-        return kdct._dct2_plain(r[:, :, None], scale)[:, :, 0]
+    tests/test_torch_dct3_rows_radix.py holds against the JAX package)."""
+    def dct3_rows_bts2(r, scale):
+        return kdct._dct3_plain(r[:, :, None], scale)[:, :, 0]
 
     for n in (1152, 1280, 2048):
         x = torch.from_numpy(_real((2, n, 3), n))
         rows = x.transpose(1, 2).reshape(6, n)
-        for mid, nat in ((kdct.dct2_mid, dct2_rows_bts2), (kdct.dct3_mid, kdct.dct3_nat)):
+        for mid, nat in ((kdct.dct2_mid, kdct.dct2_nat), (kdct.dct3_mid, dct3_rows_bts2)):
             torch.testing.assert_close(mid(x, 0.5).transpose(1, 2).reshape(6, n),
                                        nat(rows, 0.5), rtol=0, atol=1e-5)
 
@@ -149,6 +156,7 @@ def test_wide_c2r_mid_plain_matches_pallas(shape, scale):
                                               (kdct.dct3_nat, ref_pdct.dct3_pallas, 0.5)])
 def test_nat_plain_matches_pallas_in_the_new_forms(n, form, kernel, ref, scale):
     assert kdct.dct_form(n) == form
+    assert kdct.launch_form(n, kernel is kdct.dct3_nat, True) == "radix"
     x = _real((130, n), n)
     got = kernel(torch.from_numpy(x), scale)
     assert got.dtype == F32 and got.shape == (130, n)
@@ -224,5 +232,5 @@ def test_tile_sizes_of_the_new_forms():
     assert kfft.wide_block(1152, 1, 4096, 132) == 4
     assert kfft.wide_block(128 * 159, 1, 3, 132) == 1
     assert kfft.wide_bytes(128 * 159, 1) <= kfft.MAX_SMEM
-    # the fixed core at 2048 (h = 1024): 8 columns of 64 KB
+    # kernel 26's fixed core at 2048 (h = 1024): 8 columns of 64 KB
     assert kfft.block_cols(1024, 2048, 2048, 132) == 8

@@ -4,15 +4,18 @@ through the public functions: ndrustfft_tpu_torch against ndrustfft_tpu
 (Pallas kernels in interpret mode, "highest" tier) on the CPU, where the
 port's kernel routes run their plain versions:
 
-* nddct2 / nddct3 / nddst2 / nddst3 along axis 0 of (1152, 128) (the n-point
-  form), (1280, 130) (the wide core's half length, ragged columns) and
-  (2048, 128) (the fixed core), and along axis 1 of (2, 1152, 128), under
-  the four normalizations (none, Default, scalar, custom);
-* the slice as a whole: 2-D Neumann Poisson solves at 1152 x 384 (K25 and
-  K23/K24 in the n-point form) and 1280 x 768 (both on the wide core's half
-  length), against the JAX package and the analytic solution.
+* nddct2 / nddct3 / nddst2 / nddst3 along axis 0 of (1152, 128), (1280, 130)
+  (ragged columns) and (2048, 128), and along axis 1 of (2, 1152, 128),
+  under the four normalizations (none, Default, scalar, custom): the
+  DCT-II kinds on kernel 25's radix column tile, the DCT-III kinds on
+  kernel 26's n-point form, the wide core's half length and the fixed core;
+* the slice as a whole: 2-D Neumann Poisson solves at 1152 x 384 (K26 in
+  the n-point form; K25, K23 and K24 on the radix cores) and 1280 x 768
+  (K26 on the wide core's half length), against the JAX package and the
+  analytic solution.
 
-Each case asserts its route on a CUDA tensor (api._route). Tolerance:
+Each case asserts its route on a CUDA tensor (api._route) and the form its
+kernel launches there (dct.py::launch_form). Tolerance:
 max |port - JAX| <= 5e-6 * max |JAX| in float32.
 """
 
@@ -80,6 +83,10 @@ def test_mid_matches_reference(shape, axis, form, name, norm):
     for device_type in ("cpu", "cuda"):
         assert api._route(name[2:], shape, axis, F32, device_type) == route
     assert kdct.dct_form(n)[0] == form
+    type3 = route == api.DCT3_MID
+    want = "radix" if not type3 else form if form == "npoint" else kdct.launch_form(n, True, False)
+    assert kdct.launch_form(n, type3, False) == want
+    assert want in (("npoint", "wide", "fixed") if type3 else ("radix",))
     rcls = ref.DctHandler if "dct" in name else ref.DstHandler
     pcls = port.DctHandler if "dct" in name else port.DstHandler
     rh = rcls(n).normalization(_norm(norm))
@@ -108,12 +115,13 @@ def _neumann_2d(mod, f, handlers):
 
 
 @pytest.mark.parametrize("shape,routes", [
-    ((1152, 384), ("npoint", "npoint")),     # K25 and K23/K24 in the n-point form
-    ((1280, 768), ("half", "half")),         # both on the wide core's half length
+    ((1152, 384), ("npoint", "radix")),     # K26 in the n-point form; K25, K23, K24 radix
+    ((1280, 768), ("wide", "radix")),       # K26 on the wide core's half length
 ])
 def test_neumann_2d_matches_reference(shape, routes):
     n0, n1 = shape
-    assert (kdct.dct_form(n0)[0], kdct.dct_form(n1)[0]) == routes
+    assert (kdct.launch_form(n0, True, False), kdct.launch_form(n1, True, True)) == routes
+    assert kdct.launch_form(n0, False, False) == kdct.launch_form(n1, False, True) == "radix"
     for kind, r0, r1 in (("dct2", api.DCT2_MID, api.DCT2_NAT),
                          ("dct3", api.DCT3_MID, api.DCT3_NAT)):
         assert api._route(kind, shape, 0, F32, "cuda") == r0

@@ -246,7 +246,7 @@ def test_no_c2c_rfft_lane_or_dct1_length_raises_k1b():
         assert (_raise_item("dct2", (128, n), 1, F32) == api.DCT2_NAT) == k23, n
         assert (_raise_item("dct2", (4, n, 128), 1, F32) == api.DCT2_MID) == (k23 and n > 1100), n
         wide["k16"] += k16 and api._nat_f(n) not in kfft.CORE_F
-        wide["k23"] += k23 and not (n % 256 == 0 and n // 256 in kdct.DCT_F)
+        wide["k23"] += k23 and not (n % 256 == 0 and n // 256 in (1, 2, 4, 8, 16))
         wide["k25"] += k23 and n > 1100
         wide["c2c_wide"] += kfft.core_f(n) not in (None, 4, 8, 16) and n > 256
     assert wide == {"k16": 75, "k23": 155, "k25": 152, "c2c_wide": 149}

@@ -133,12 +133,13 @@ beside a float32 torch.fft Makhoul lowering, and the 256^3 real step with
 the real axis first beside torch.fft.rfftn + irfftn. It uses only public
 wrappers, so --root may name the parent tree.
 
-With --dct it times instead kernel 23 (dct2_nat, scale 2) at (262144, 512),
-(2359296, 1536), (31104, 31104) and the odd-k (65536, 1152), and kernel 12
+With --dct it times instead kernels 23 and 24 (dct2_nat, scale 2;
+dct3_nat, scale 1/n) at (262144, 512), (1048576, 1024), (2359296, 1536),
+(31104, 31104) and the odd-k (65536, 1152), kernels 25 and 26 (dct2_mid,
+dct3_mid) at the same solves' shapes along a middle axis and at
+(1, 2048, 2048) and (1, 1152, 1152), and kernel 12
 (dct23_blue_mid, DCT-II with scale 2 and DCT-III) at (1, 2049, 524544)
-and (2049, 2049, 256), each with a digest of its output; kernel 24
-(dct3_nat, scale 1/n) and kernels 25/26 (dct2_mid, dct3_mid) at the same
-solves' shapes, kernel 11 (c2c_blue_mid) at (1, 509, 259081), kernel 20's
+and (2049, 2049, 256), each with a digest of its output; kernel 11 (c2c_blue_mid) at (1, 509, 259081), kernel 20's
 chirp-z (r2c_dense_mid) at (1, 262, 65536), kernel 21's (c2r_dense_mid,
 n = 262) at (1, 132, 65536) and kernel 15's chirp rows (r2c_packed_dense)
 at (16384, 262), whose digests must not move; the Makhoul permutations
@@ -146,11 +147,12 @@ around kernel 12 (ops/dct.py::makhoul_order and makhoul_interleave) at
 the 2049^2 x 256 solve's two views; and the paths that run kernels 23 and
 12: the 2049^2 x 256 dctn + idctn pair of type 2, G1's 31104^2 one and its
 ndspectral_dct variant (nddct2 along axis 1, ndspectral_dct along axis 0
-with a lane-varying H, nddct3 back), and the 1536^3 pair (nddct2 along
-axes 2, 1, 0, nddct3 back), over --reps-big runs; then the registers and
-spill bytes (ptxas -v) of the wide and n-point DCT kernels (kernels 23's
-remnant and 24 to 26), kernels 24 to 26 on the fixed core and every
-chirp-z kernel (kernels 11, 20, 21, 15's rows and 12). It uses only public
+with a lane-varying H, nddct3 back), the 1536^3 pair (nddct2 along
+axes 2, 1, 0, nddct3 back) and S3's 1024^3 Neumann solve (as with
+--dense), over --reps-big runs; then the registers and spill bytes
+(ptxas -v) of the wide and n-point DCT kernels (kernels 23 to 25's
+remnant and 26), the DCT kernels on the radix cores and on the fixed core
+and every chirp-z kernel (kernels 11, 20, 21, 15's rows and 12). It uses only public
 wrappers, so --root may name the parent tree.
 
 With --scan-dense it times instead kernels 21 and 27 on the radix column
@@ -284,7 +286,8 @@ def main() -> int:
     if args.dct:
         dct(torch, nd, kfft, krfft, kdct, dev, gen, crandn, ms, args.reps_big, out)
         print(json.dumps({"root": root, "card": card, "ms_and_digest": out,
-                          "ptxas": ptxas_entries(("dct3", "dct2_mid", "dct2_wide", "dct2_npoint",
+                          "ptxas": ptxas_entries(("dct3", "Dct3", "dct2_mid", "dct2_wide",
+                                                  "dct2_npoint", "Makhoul",
                                                   "blue_radix_kernel"))}), flush=True)
         return 0
     if args.dense:
@@ -683,40 +686,10 @@ def dense(torch, nd, krfft, kdct, dev, gen, crandn, ms, reps_big, out):
                                             None, digest(krfft.r2c_packed_mid(xe, xo, -0.5)))
     del x, s, xe, xo
     torch.cuda.empty_cache()
-    # S3's 1024^3 and the 512^3 Neumann Poisson solves on random fields with
-    # H = 1 / lambda, beside the float32 Makhoul lowering through torch.fft
+    # S3's 1024^3 and the 512^3 Neumann Poisson solves
     for n, fused in ((1024, True), (512, False)):
-        f = torch.randn(n, n, n, generator=gen, device=dev)
-        kq = torch.arange(n, device=dev, dtype=torch.float32) ** 2
-        h3 = kq[:, None, None] + kq[None, :, None] + kq[None, None, :]
-        h3.mul_(math.pi ** 2).reciprocal_()
-        h3[0, 0, 0] = 0.0
-        hd = nd.DctHandler(n)
-        hdi = hd.normalization(nd.Normalization.scalar(1.0 / n))
-
-        def solve():
-            a = nd.nddct2(f, hd, axis=2)
-            b = nd.nddct2(a, hd, axis=1)
-            del a
-            if fused:
-                c = nd.ndspectral_dct(b, h3, hd, hdi, axis=0)
-            else:
-                c = nd.nddct2(b, hd, axis=0).mul_(h3)
-                c = nd.nddct3(c, hdi, axis=0)
-            del b
-            return nd.nddct3(nd.nddct3(c, hdi, axis=1), hdi, axis=2)
-
-        def yardstick():
-            u = makhoul_dct(makhoul_dct(makhoul_dct(f, 2, 2), 1, 2), 0, 2)
-            u.mul_(h3)
-            for ax in (0, 1, 2):
-                u = makhoul_dct(u, ax, 3) / (2 * n)
-            return u
-
         name = "S3_neumann_poisson_1024^3" if fused else "neumann_poisson_512^3"
-        out[name] = (ms(solve, reps_big), ms(yardstick, reps_big))
-        del f, h3
-        torch.cuda.empty_cache()
+        out[name] = neumann_cube_ms(torch, nd, dev, gen, n, fused, ms, reps_big)
     n = 256
     r = torch.randn(n, n, n, generator=gen, device=dev)
     hr, hc = nd.R2cFftHandler(n), nd.FftHandler(n)
@@ -728,6 +701,45 @@ def dense(torch, nd, krfft, kdct, dev, gen, crandn, ms, reps_big, out):
     out["step_real_axis_first_256^3"] = (
         ms(step), ms(lambda: torch.fft.irfftn(torch.fft.rfftn(r, dim=(1, 2, 0)),
                                               s=(n, n, n), dim=(1, 2, 0))), digest(step()))
+
+
+def neumann_cube_ms(torch, nd, dev, gen, n, fused, ms, reps_big):
+    """(ms, yardstick ms) of the n^3 Neumann Poisson solve on a random
+    field with H = 1 / lambda (nddct2 on axes 2 and 1; on axis 0
+    ndspectral_dct if ``fused``, else nddct2, the product and nddct3;
+    nddct3 back on axes 1 and 2) and of the float32 Makhoul lowering through
+    torch.fft, over ``reps_big`` runs."""
+    f = torch.randn(n, n, n, generator=gen, device=dev)
+    kq = torch.arange(n, device=dev, dtype=torch.float32) ** 2
+    h3 = kq[:, None, None] + kq[None, :, None] + kq[None, None, :]
+    h3.mul_(math.pi ** 2).reciprocal_()
+    h3[0, 0, 0] = 0.0
+    hd = nd.DctHandler(n)
+    hdi = hd.normalization(nd.Normalization.scalar(1.0 / n))
+
+    def solve():
+        a = nd.nddct2(f, hd, axis=2)
+        b = nd.nddct2(a, hd, axis=1)
+        del a
+        if fused:
+            c = nd.ndspectral_dct(b, h3, hd, hdi, axis=0)
+        else:
+            c = nd.nddct2(b, hd, axis=0).mul_(h3)
+            c = nd.nddct3(c, hdi, axis=0)
+        del b
+        return nd.nddct3(nd.nddct3(c, hdi, axis=1), hdi, axis=2)
+
+    def yardstick():
+        u = makhoul_dct(makhoul_dct(makhoul_dct(f, 2, 2), 1, 2), 0, 2)
+        u.mul_(h3)
+        for ax in (0, 1, 2):
+            u = makhoul_dct(u, ax, 3) / (2 * n)
+        return u
+
+    times = (ms(solve, reps_big), ms(yardstick, reps_big))
+    del f, h3
+    torch.cuda.empty_cache()
+    return times
 
 
 def scan_dense(torch, kfft, krfft, kdct, dev, gen, crandn, ms, card, root):
@@ -937,19 +949,27 @@ def dct(torch, nd, kfft, krfft, kdct, dev, gen, crandn, ms, reps_big, out):
     def big(x):
         return reps_big if x.numel() > 1 << 28 else None
 
-    # kernels 23 and 24 on rows, 25 and 26 along a middle axis
-    for shape in ((512 * 512, 512), (1536 * 1536, 1536), (31104, 31104), (65536, 1152)):
+    # kernels 23 and 24 on rows, 25 and 26 along a middle axis: the DCT
+    # family's (262144, 512), S3's (1048576, 1024), the 1536^3 solve's and
+    # G1's shapes, the odd k = 9 (65536, 1152), and kernels 25/26 at the
+    # 2048^2 pair's and the n-point length 1152's (1, n, n)
+    for shape, rows, views in (
+            ((512 * 512, 512), True, ((512, 512, 512), (1, 512, 512 * 512))),
+            ((1024 * 1024, 1024), True, ()),
+            ((1536 * 1536, 1536), True, ((1536, 1536, 1536), (1, 1536, 1536 * 1536))),
+            ((31104, 31104), True, ((1, 31104, 31104),)), ((65536, 1152), True, ()),
+            ((2048, 2048), False, ((1, 2048, 2048),)), ((1152, 1152), False, ((1, 1152, 1152),))):
         x = randn(*shape)
         n = shape[1]
-        for name, fn in (("dct2_nat", lambda: kdct.dct2_nat(x, 2.0)),
-                         ("dct3_nat", lambda: kdct.dct3_nat(x, 1.0 / n))):
-            out[key(name, shape)] = (ms(fn, big(x)), None, digest(fn()))
-        if shape[0] == n * n:
-            for view in ((n, n, n), (1, n, n * n)):
-                v = x.view(view)
-                for name, fn in (("dct2_mid", lambda: kdct.dct2_mid(v, 2.0)),
-                                 ("dct3_mid", lambda: kdct.dct3_mid(v, 1.0 / n))):
-                    out[key(name, view)] = (ms(fn, big(x)), None, digest(fn()))
+        if rows:
+            for name, fn in (("dct2_nat", lambda: kdct.dct2_nat(x, 2.0)),
+                             ("dct3_nat", lambda: kdct.dct3_nat(x, 1.0 / n))):
+                out[key(name, shape)] = (ms(fn, big(x)), None, digest(fn()))
+        for view in views:
+            v = x.view(view)
+            for name, fn in (("dct2_mid", lambda: kdct.dct2_mid(v, 2.0)),
+                             ("dct3_mid", lambda: kdct.dct3_mid(v, 1.0 / n))):
+                out[key(name, view)] = (ms(fn, big(x)), None, digest(fn()))
             del v
         del x
         torch.cuda.empty_cache()
@@ -1010,6 +1030,8 @@ def dct(torch, nd, kfft, krfft, kdct, dev, gen, crandn, ms, reps_big, out):
             del hv
         del f
         torch.cuda.empty_cache()
+    out["S3_neumann_poisson_1024^3"] = neumann_cube_ms(torch, nd, dev, gen, 1024, True, ms,
+                                                       reps_big)
 
 
 def axis_mid(torch, nd, kfft, krfft, dev, gen, crandn, ms, reps_big, out):
