@@ -11,9 +11,10 @@ without the final line):
      slices' shapes (ragged column and row tiles included; the chirp-z
      forms of kernels 20, 21, 15 and 12 at each column or row count a tile,
      kernels 23 and 24 on the radix row core at each count of rows a
-     block, kernel 25 on the radix column tile at each column count C),
-     and the census of kernels 24 and 25 against their plain versions at
-     each of their 259 radix lengths (within 2e-6 of the peak);
+     block, kernels 25, 26 and 29 on the radix column tile at each column
+     count C), and the census of kernels 24, 25, 26 and 29 against their
+     plain versions at each of their 259 radix lengths (within 2e-6 of the
+     peak; kernel 29, two transforms, within 5e-6);
   4. the main paths through the public functions, each with every launch
      counter set to 0 just before it and read just after; the counters
      must account for every leg and the torch engine must not run:
@@ -79,17 +80,17 @@ without the final line):
         extension to 640 (kernel 10 inside), against float64 torch.fft /
         scipy.fft;
      h. DCT-II/III on every axis at every length (kernels 25/26 along a
-        middle axis, kernels 23/24 on the wide core and in the n-point
-        form, kernel 23 on the radix row core): the 3-D Neumann Poisson
+        middle axis on the radix column tile, kernels 23/24 on the radix
+        row core): the 3-D Neumann Poisson
         solve at 1536^3 float32 (DCT-II along axes 2, 1, 0 on K23 at
-        h = 768 on the radix row core and K25 at F = 6;
+        h = 768 on the radix row core and K25 at h = 768;
         division by the eigenvalues in place, slab by slab; DCT-III back on
         K26 and K24), its forward spectrum against the exact sparse values
         and its solution against the analytic one, slab by slab in float64;
-        the DCT-II/III pair along both axes of 2048^2 (K24-K26 on the fixed
-        core, K23 on the radix row core), nddct2/nddct3 along axis 0 at 1152 (n-point) and 1280
-        (wide) and along the last axis at 128, 384 (n-point) and 768
-        (wide), nddst2 along axis 0 at 1536, and the R2C/C2R along axis 0
+        the DCT-II/III pair along both axes of 2048^2 (K23-K26 on the radix
+        cores), nddct2/nddct3 along axis 0 at 1152 and 1280
+        and along the last axis at 128, 384 and 768,
+        nddst2 along axis 0 at 1536, and the R2C/C2R along axis 0
         at 768 and 1280 (K16/K17 at F = 3, 5) against float64 scipy.fft /
         torch.fft; then each kernel of the solve at its 1536^3 shape
         against its plain version on the same input, slice by slice (the
@@ -152,27 +153,30 @@ without the final line):
         and 1: K22 fixed, h = 512; the composition K2, multiply, K3 on axis
         2) and a spectral derivative (the complex multiplier i k, K22); S3,
         the cell-centred Neumann Poisson solve (K23, K27, ndspectral_dct on
-        axis 0 with the lane-varying H = 1/lambda: K29 fixed, F = 4; K27,
-        K24), and ndspectral_dst along axis 0 of a 2048 x 4096 Dirichlet
-        field (K29 and the flip/sign conjugation); each against its
+        axis 0 with the lane-varying H = 1/lambda: K29 on the radix column
+        tile, h = 512; K27, K24), and ndspectral_dst along axis 0 of a
+        2048 x 4096 Dirichlet field (K29 and the flip/sign conjugation);
+        each against its
         analytic field slab by slab in float64, its time against the
         torch.fft yardstick (rfftn, multiply, irfftn; the float32 Makhoul
         lowering for S3) and against the port's unfused composition (K1,
         a torch multiply, K1; K16, multiply, K17; K27 or K25, multiply,
         K27 or K26), each fused leg timed beside its unfused one; the
-        lengths K14, K22 and K29 open on the wide core and in the n-point
-        form (K14 at 384 ... 20480, K22 at 512 ... 40960, K29 at 256 ...
-        32768, and 20608 on the real tile) against float64 oracles under
+        lengths K14 and K22 open on the wide core and K29 on the radix
+        column tile (K14 at 384 ... 20480, K22 at 512 ... 40960, K29 at 256
+        ... 32768 and 20608) against float64 oracles under
         Default, NONE and scalar norms; each fused kernel at its path's
         shape against its plain version slice by slice (K29 also at the
-        Dirichlet leg's F = 8);
-     m. the long DCT forms (kernels 23 to 26 and 29 in the n-point form on
-        the wide core's real tile at n = 128 k, odd k > 160; kernel 28's
+        Dirichlet leg's shape);
+     m. the long DCT lengths (kernels 23 to 26 and 29 at n = 128 k, odd
+        k > 160: on the radix cores where n/2 has a plan, in the n-point
+        form on the wide core's real tile at the prime k; kernel 28's
         long form at n = 256 F, F > 160): G1, the cell-centred Neumann
         Poisson solve on a 31104^2 grid (F = 243) through dctn / idctn of
-        type 2 (K23 on the radix row core and K25 long, then K26 and K24
-        long) and again with ndspectral_dct on axis 0 and the lane-varying
-        H = 1/lambda (K23, K29 long, K24), its time against a float32
+        type 2 (K23 on the radix row core and K25, then K26 on the radix
+        column tile and K24 on the radix row core) and again with
+        ndspectral_dct on axis 0 and the lane-varying H = 1/lambda (K23,
+        K29 on the radix column tile, K24), its time against a float32
         torch.fft Makhoul solve; G2, the mixed Neumann-Dirichlet solve on
         65536 x 8192 (DCT-IV on axis 0: K28 long, F = 256; DCT-II/III on
         axis 1: K23 on the radix row core, K24 wide);
@@ -273,7 +277,12 @@ without the final line):
      C <= 2 with each load, evict-first and read-only), both
      beside the wide core's and the n-point forms they replaced at their
      main shapes, and at (1, 31104, 31104) kernel 25 beside the composition
-     transpose, kernel 23 on rows, transpose back; the steps
+     transpose, kernel 23 on rows, transpose back; kernel 26 on the radix
+     column tile at kernel 25's shapes and kernel 29 at (1, 1024, 1048576)
+     and (1, 31104, 31104) with a lane-varying H and at (1, 2048, 4096),
+     (8, 1280, 8192) and (1, 1152, 1152) with a broadcast one, each with
+     each column count C and, at C <= 2, each load, beside the bts2 forms
+     they replaced (the wide core's half length, the n-point form); the steps
      against torch.fft.rfftn / irfftn, the DCT pair and
      Poisson solve against the same compositions through a float32
      torch.fft Makhoul lowering, the complex paths against
@@ -340,10 +349,10 @@ type under ``by_type``, kernels 20 and 21 a third, their chirp-z
 bound of the two length-M FFTs), and kernel 15's dense rows two: the radix
 row core (``r2c_packed_dense_radix``; radix_launches) and the chirp-z
 (``r2c_packed_dense_chirp``; chirp_launches); and
-kernels 26 and 29 three: the fixed core, the wide core's half length and
-the n-point form (npoint_launches), kernels 23, 24 and 25 three each: the
+kernels 23 to 26 and 29 three each: the
 radix core (``dct2_nat_radix``, ``dct3_nat_radix`` on rows,
-``dct2_mid_radix`` on the column tile; radix_launches), the wide core's
+``dct2_mid_radix``, ``dct3_mid_radix``, ``spectral_dct_mid_radix`` on the
+column tile; radix_launches), the wide core's
 half length and the n-point form at the 29 lengths without a plan; kernel 7 three: the
 fixed core, the wide core and the dense body (dense_launches); kernel 28
 three: the fixed core, the wide core and the long form (long_launches).
@@ -374,7 +383,7 @@ TOL_STEP = 1e-5      # step vs float64 oracle and round trip, relative
 # ``npoint_launches``, for kernel 7 ``dense_launches``, for kernel 28
 # ``long_launches``, for kernels 1, 10, 2, 3, 15 (``r2c_packed`` and
 # ``r2c_packed_dense``), 11, 8 (``c2c_dense_rows``), 6, 4, 16, 17, 18, 20, 21,
-# 23 to 25 and 27 ``radix_launches`` and for kernels 20, 21 and 15's dense rows
+# 23 to 27 and 29 ``radix_launches`` and for kernels 20, 21 and 15's dense rows
 # ``chirp_launches``
 FORMS = ("wide", "npoint", "dense", "long", "radix", "chirp")
 # the wrappers whose every launch is on the radix core: their
@@ -434,7 +443,7 @@ def work(name: str, shape, length_m: bool = False, mult=None, n=None, dct_type=2
     are the chirp (K12: its entry and exit tables), H and the radix table of
     their convolution length M. Kernel 23 on the radix row core reads and
     writes n reals per row, with the radix table of n/2 and its twiddles, as
-    do kernel 24 on rows and kernel 25 on the radix column tile.
+    do kernel 24 on rows and kernels 25 and 26 on the radix column tile.
     ``length_m``: their operations as two complex FFTs of length M
     per column instead. ``n``: a C2R's real length where the spectrum's
     (B, m, L) does not give it (odd n = 2m - 1); ``dct_type``: the DCT that
@@ -456,7 +465,8 @@ def work(name: str, shape, length_m: bool = False, mult=None, n=None, dct_type=2
     does an n2-point complex FFT per row. The fused spectral kernels (K14,
     K22, K29) on (B, n, L) read x and their multiplier H (``mult`` = (hc,
     complex): rows x hc, hc = 1 or L, float32 or complex64) and write y,
-    with both cores' tables (and K22's and K29's twiddles), and do two
+    with both cores' tables (K29 on the radix column tile: the radix table
+    of n/2; and K22's and K29's twiddles), and do two
     transforms of their kind per column (two complex FFTs of n; two real
     ones of n) and the multiply (6 FLOPs per
     complex product, 2 per complex-by-real, 1 per real)."""
@@ -470,8 +480,15 @@ def work(name: str, shape, length_m: bool = False, mult=None, n=None, dct_type=2
         npoint = name.endswith("_npoint")
         core = n if k14 or npoint else n // 2
         f = core // 128
-        tables = (1 if npoint else 2) * 8 * core * 128
-        tables += 8 * f * f * (1 if npoint else 2) if name.endswith(("_wide", "_npoint")) else 0
+        if name.endswith("_radix"):
+            # K29 on the radix column tile: the radix table of h = n/2 (one:
+            # the inverse is the conjugate of the forward transform)
+            from ndrustfft_tpu_torch.ops.hopper.fft import radix_consts
+            tables = 8 * len(radix_consts(core, -1)[0])
+        else:
+            tables = (1 if npoint else 2) * 8 * core * 128
+            tables += 8 * f * f * (1 if npoint else 2) if name.endswith(("_wide",
+                                                                          "_npoint")) else 0
         if k22:
             tables += 8 * core + 16 * core                 # tw, ab
         elif not k14:
@@ -500,8 +517,8 @@ def work(name: str, shape, length_m: bool = False, mult=None, n=None, dct_type=2
         flops = (2 * 5 * mk * math.log2(mk) if length_m
                  else (5 if k11 else 2.5) * n * math.log2(n))
         return (16 if k11 else 8) * b * n * cols + tables, flops * b * cols
-    if name in ("dct2_nat_radix", "dct3_nat_radix", "dct2_mid_radix"):
-        # K23 and K24 on the radix row core, K25 on the radix column tile:
+    if name in ("dct2_nat_radix", "dct3_nat_radix", "dct2_mid_radix", "dct3_mid_radix"):
+        # K23 and K24 on the radix row core, K25 and K26 on the radix column tile:
         # (T, n) or (B, n, L) float32 in and out, the radix table of h = n/2;
         # DCT-II the unpack twiddle (h) and the post twiddle's h + 1 entries
         # that it reads, DCT-III the (h, 4) ab rows and the pre twiddle (h + 1)
@@ -783,7 +800,8 @@ def main() -> int:
             "c2r_dense_mid_chirp": 0.0, "r2c_packed_dense_radix": 0.0,
             "r2c_packed_dense_chirp": 0.0,
             "dct2_nat_wide": 0.0, "dct3_nat_wide": 0.0, "dct2_nat_npoint": 0.0,
-            "dct3_nat_npoint": 0.0, "dct2_mid_radix": 0.0, "dct3_mid": 0.0, "dct2_mid_wide": 0.0,
+            "dct3_nat_npoint": 0.0, "dct2_mid_radix": 0.0, "dct3_mid_radix": 0.0,
+            "dct2_mid_wide": 0.0,
             "dct3_mid_wide": 0.0, "dct2_mid_npoint": 0.0, "dct3_mid_npoint": 0.0,
             "r2c_packed_mid": 0.0, "dct1_mid": 0.0,
             "dct1_mid_wide": 0.0, "dct4_mid": 0.0, "dct4_mid_wide": 0.0, "dct4_mid_long": 0.0,
@@ -791,7 +809,7 @@ def main() -> int:
             "fourstep_mid": 0.0, "fourstep_mid_wide": 0.0, "fourstep_mid_dense": 0.0,
             "rows_store_t": 0.0, "rows_store_t_wide": 0.0, "spectral_c2c_mid": 0.0,
             "spectral_c2c_mid_wide": 0.0, "spectral_r2c_mid": 0.0, "spectral_r2c_mid_wide": 0.0,
-            "spectral_dct_mid": 0.0, "spectral_dct_mid_wide": 0.0,
+            "spectral_dct_mid_radix": 0.0, "spectral_dct_mid_wide": 0.0,
             "spectral_dct_mid_npoint": 0.0}
     k1_shapes = [(1, 512, 257), (1, 1024, 513), (3, 2048, 130), (512, 512, 257),
                  (1, 512, 512 * 257), (1, 512, 512), (1, 1024, 1024), (512, 512, 512),
@@ -988,36 +1006,77 @@ def main() -> int:
             if not rel <= TOL_KERNEL:
                 raise AssertionError(f"dct2_mid_radix {shape} C = {c} ldg {ldg}: {rel}")
         del x, y, ref
-    # the census of kernels 24 and 25 through their wrappers at each of the
-    # 259 lengths n = 128 k whose half length has a radix plan (kernel 24
-    # over (4, n), kernel 25 along axis 1 of (1, n, 8)) against their plain
-    # versions, within TOL_PACKED of the plain version's peak
+    # kernels 26 and 29 on the radix column tile likewise (the wrappers take
+    # dct.py::dct2_mid_cols's and spectral_dct_cols's), kernel 29 with a
+    # broadcast and a lane-varying H
+    for shape in ((2, 128, 130), (1, 384, 129), (2, 1152, 130), (1, 1536, 257), (1, 2048, 33),
+                  (1, 8192, 17), (1, 128 * 161, 5), (1, 31104, 3), (1, 40960, 2)):
+        x = randn(*shape)
+        n = shape[1]
+        h = n // 2
+        hvs = (randn(n, 1), randn(n, shape[2]))
+        ref3 = kdct.dct_radix_plain(x, 3, 1.0 / n)
+        refs = [kdct.spectral_dct_mid_plain(x, hv, 2.0, 1.0 / n) for hv in hvs]
+        y = torch.empty_like(x)
+        for c, ldg in ((1, False), (1, True), (2, False), (2, True), (4, False), (8, False),
+                       (16, False)):
+            if h * c > kfft.RADIX_MAX_ELEMS or kfft.radix_cols_threads(h, c) > 512:
+                continue
+            runs = [("dct3_mid_radix", None, ref3,
+                     lambda: kdct.dct_radix_launch(x, y, 3, 1.0 / n, c, ldg))]
+            runs += [("spectral_dct_mid_radix", list(hv.shape), ref,
+                      lambda hv=hv: kdct.spectral_dct_radix_launch(x, y, hv, 2.0, 1.0 / n, c, ldg))
+                     for hv, ref in zip(hvs, refs)]
+            for name, h_shape, ref, launch in runs:
+                y.fill_(float("nan"))
+                launch()
+                torch.cuda.synchronize()
+                rel = abs_err(y, ref) / float(ref.abs().max())
+                errs[name] = max(errs[name], abs_err(y, ref))
+                emit(phase="kernel_vs_plain", kernel=name, shape=shape, cols=c,
+                     read_only_load=ldg, h_shape=h_shape, rel_err=rel)
+                if not rel <= TOL_KERNEL:
+                    raise AssertionError(f"{name} {shape} C = {c} ldg {ldg} H {h_shape}: {rel}")
+        del x, y, ref3, refs, hvs
+    # the census of kernels 24 to 26 and 29 through their wrappers at each
+    # of the 259 lengths n = 128 k whose half length has a radix plan
+    # (kernel 24 over (4, n), kernels 25, 26 and 29 along axis 1 of
+    # (1, n, 8), kernel 29 with a lane-varying H) against their plain
+    # versions, within TOL_PACKED of the plain version's peak (kernel 29,
+    # two transforms, within TOL_KERNEL)
     t0 = time.perf_counter()
     census_n = [n for n in range(128, 128 * 321, 128) if kdct.dct2_nat_radix(n)]
     if len(census_n) != 259:
-        raise AssertionError(f"K24/K25 census: {len(census_n)} lengths, expected 259")
-    worst = {"dct3_nat_radix": (0.0, None), "dct2_mid_radix": (0.0, None)}
+        raise AssertionError(f"K24-K26/K29 census: {len(census_n)} lengths, expected 259")
+    census = ("dct3_nat_radix", "dct2_mid_radix", "dct3_mid_radix", "spectral_dct_mid_radix")
+    worst = dict.fromkeys(census, (0.0, None))
     for n in census_n:
-        for name, kern, plain, x, scale in (
-                ("dct3_nat_radix", kdct.dct3_nat, kdct.dct3_rows_radix_plain, randn(4, n),
-                 1.0 / n),
-                ("dct2_mid_radix", kdct.dct2_mid, lambda v, s: kdct.dct_radix_plain(v, 2, s),
-                 randn(1, n, 8), 2.0)):
+        x, r, hv = randn(1, n, 8), randn(4, n), randn(n, 8)
+        for name, kern, run, plain, tol in (
+                ("dct3_nat_radix", kdct.dct3_nat, lambda: kdct.dct3_nat(r, 1.0 / n),
+                 lambda: kdct.dct3_rows_radix_plain(r, 1.0 / n), TOL_PACKED),
+                ("dct2_mid_radix", kdct.dct2_mid, lambda: kdct.dct2_mid(x, 2.0),
+                 lambda: kdct.dct_radix_plain(x, 2, 2.0), TOL_PACKED),
+                ("dct3_mid_radix", kdct.dct3_mid, lambda: kdct.dct3_mid(x, 1.0 / n),
+                 lambda: kdct.dct_radix_plain(x, 3, 1.0 / n), TOL_PACKED),
+                ("spectral_dct_mid_radix", kdct.spectral_dct_mid,
+                 lambda: kdct.spectral_dct_mid(x, hv, 2.0, 1.0 / n),
+                 lambda: kdct.spectral_dct_mid_plain(x, hv, 2.0, 1.0 / n), TOL_KERNEL)):
             before = form_counts(kern)
-            got = kern(x, scale)
-            ref = plain(x, scale)
+            got = run()
+            ref = plain()
             torch.cuda.synchronize()
-            assert_launched(name, kern, before, tuple(x.shape))
+            assert_launched(name, kern, before, (n,))
             err = abs_err(got, ref)
             rel = err / float(ref.abs().max())
             errs[name] = max(errs[name], err)
-            if not rel <= TOL_PACKED:
+            if not rel <= tol:
                 raise AssertionError(f"{name} census n={n}: {rel}")
             worst[name] = max(worst[name], (rel, n))
-    emit(phase="kernel_vs_plain", check="dct3_nat_dct2_mid_radix_census", lengths=len(census_n),
+    emit(phase="kernel_vs_plain", check="dct_mid_radix_census", lengths=len(census_n),
          **{f"worst_rel_err_{k}": v[0] for k, v in worst.items()},
          **{f"worst_n_{k}": v[1] for k, v in worst.items()}, seconds=time.perf_counter() - t0)
-    del x, got, ref
+    del x, r, hv, got, ref
 
     def check_form(name, kern, got_fn, ref_fn, shape, **kw):
         """got_fn() (one launch of ``kern`` in the form ``name`` names)
@@ -1643,26 +1702,22 @@ def main() -> int:
                        lambda: krfft.c2r_mid_plain(s, n, scale), (nb, n // 2 + 1, cols),
                        scale=scale)
         del x, s
-    # (kernels 23 and 24 on the radix row core and kernel 25 on the radix
-    # column tile at every length with a plan of n/2, at the lengths the bts2
-    # forms took before; their old forms at the remnant's n-point k = 131,
-    # 163, 251 and half length F = 131, 157; kernel 26 in its three forms)
+    # (kernels 23 and 24 on the radix row core and kernels 25 and 26 on the
+    # radix column tile at every length with a plan of n/2, at the lengths
+    # the bts2 forms took before; their old forms at the remnant's n-point
+    # k = 131, 163, 251 and half length F = 131, 157)
     dct_forms = (
         ("nat_radix", (2, 3), ((2048, 2048), (130, 1024), (128, 128), (384, 384), (768, 768),
                                (1536, 1536), (7, 1536), (3, 1152), (2, 128 * 159),
                                (2, 128 * 161), (3, 128 * 255), (3, 32768))),
         ("nat_wide", (2, 3), ((3, 128 * 262), (2, 128 * 314))),
         ("nat_npoint", (2, 3), ((2, 128 * 131), (3, 128 * 163), (2, 128 * 251))),
-        ("mid_radix", (2,), ((1, 2048, 2048), (2, 4096, 33), (3, 512, 130), (1, 1280, 1280),
-                             (1, 1536, 1536), (2, 1280, 130), (1, 32768, 2), (1, 1152, 1152),
-                             (2, 1152, 130), (3, 384, 385), (1, 128 * 159, 3),
-                             (2, 128 * 255, 3))),
-        ("mid", (3,), ((1, 2048, 2048), (2, 4096, 33), (3, 512, 130))),
-        ("mid_wide", (3,), ((1, 1280, 1280), (1, 1536, 1536), (2, 1280, 130), (1, 32768, 2))),
-        ("mid_wide", (2,), ((1, 128 * 262, 3), (2, 128 * 314, 3))),
-        ("mid_npoint", (3,), ((1, 1152, 1152), (2, 1152, 130), (3, 384, 385),
-                              (1, 128 * 159, 3), (1, 128 * 163, 130), (2, 128 * 255, 3))),
-        ("mid_npoint", (2,), ((1, 128 * 131, 3), (1, 128 * 163, 130), (2, 128 * 251, 3))))
+        ("mid_radix", (2, 3), ((1, 2048, 2048), (2, 4096, 33), (3, 512, 130), (1, 1280, 1280),
+                               (1, 1536, 1536), (2, 1280, 130), (1, 32768, 2), (1, 1152, 1152),
+                               (2, 1152, 130), (3, 384, 385), (1, 128 * 159, 3),
+                               (2, 128 * 255, 3))),
+        ("mid_wide", (2, 3), ((1, 128 * 262, 3), (2, 128 * 314, 3))),
+        ("mid_npoint", (2, 3), ((1, 128 * 131, 3), (1, 128 * 163, 130), (2, 128 * 251, 3))))
     for form, types, shapes in dct_forms:
         for t in types:
             kern = getattr(kdct, f"dct{t}_{form.split('_')[0]}")
@@ -1787,12 +1842,13 @@ def main() -> int:
                            scale=scale)
             del x
     # kernels 14, 22 and 29 in each form: the fixed core at every F of its
-    # factors (K14 at n = 512, 1024, 2048; K22 and K29 at h = n/2 = 256, 512,
-    # 1024, 2048), the wide core
-    # (K14 at 384, 640, 1280, 16256 (F = 127) and 20480 (F = 160); K22 at
-    # h = 384, 640, 20480; K29's half length at n = 256 (F = 1), 1280 and
-    # 32768 (F = 128)) and K29's n-point form (n = 128, 384, 1152, 20352:
-    # F = 1, 3, 9, 159; on the real tile 20608 and 32640: F = 161, 255);
+    # factors (K14 at n = 512, 1024, 2048; K22 at h = n/2 = 256, 512, 1024,
+    # 2048), the wide core (K14 at 384, 640, 1280, 16256 (F = 127) and 20480
+    # (F = 160); K22 at h = 384, 640, 20480), K29 on the radix column tile
+    # at the lengths of its old forms (the fixed core's h = 256 ... 2048, the
+    # wide half length's n = 256, 1280, 32768, the n-point form's n = 128,
+    # 384, 1152, 20352, 20608, 32640) and at the remnant's wide F = 131, 157
+    # and n-point k = 131, 163, 251;
     # ragged column tiles (L = 130, 257), nb > 1, a
     # broadcast and a lane-varying H, real and complex (K14, K22), the
     # scales 1, 1/n and a scalar. The main paths' shapes are checked in
@@ -1822,13 +1878,15 @@ def main() -> int:
                            lambda: krfft.spectral_r2c_mid_plain(x, hr, hi, n, s), (nb, n, cols),
                            h_shape=list(hr.shape), h_complex=hi is not None, scale=s)
             del x, hr, hi
-    for name, shapes in (("spectral_dct_mid", ((2, 512, 130), (1, 1024, 257), (1, 2048, 130),
-                                               (1, 4096, 64))),
-                         ("spectral_dct_mid_wide", ((2, 256, 130), (1, 1280, 130),
-                                                    (1, 32768, 3))),
-                         ("spectral_dct_mid_npoint", ((2, 128, 130), (2, 384, 130),
-                                                      (1, 1152, 130), (1, 20352, 3),
-                                                      (1, 128 * 161, 130), (1, 128 * 255, 3)))):
+    for name, shapes in (("spectral_dct_mid_radix", ((2, 512, 130), (1, 1024, 257),
+                                                     (1, 2048, 130), (1, 4096, 64),
+                                                     (2, 256, 130), (1, 1280, 130), (1, 32768, 3),
+                                                     (2, 128, 130), (2, 384, 130), (1, 1152, 130),
+                                                     (1, 20352, 3), (1, 128 * 161, 130),
+                                                     (1, 128 * 255, 3))),
+                         ("spectral_dct_mid_wide", ((1, 128 * 262, 3), (2, 128 * 314, 3))),
+                         ("spectral_dct_mid_npoint", ((1, 128 * 131, 3), (1, 128 * 163, 130),
+                                                      (2, 128 * 251, 3)))):
         for nb, n, cols in shapes:
             x = randn(nb, n, cols)
             for hv, s2, s3 in ((randn(n, 1), 2.0, 2.0), (randn(n, cols), None, 0.37)):
@@ -1871,7 +1929,7 @@ def main() -> int:
                 "spectral_dct_mid": kdct.spectral_dct_mid}
     # the wide core's launches, the DCT kernels' n-point ones, kernel 7's
     # dense ones and those of the radix-only wrappers and kernels 20, 21, 23
-    # to 25 and 27 on the radix core, counted apart by the same wrappers (their
+    # to 27 and 29 on the radix core, counted apart by the same wrappers (their
     # ``launches`` count every launch)
     radix_too = ("r2c_dense_mid", "c2r_dense_mid", "dct_dense_mid", "r2c_packed_dense")
     forms = {f"{name}_{form}": (wrappers[name], f"{form}_launches")
@@ -1882,7 +1940,7 @@ def main() -> int:
              for form in FORMS
              if form == "wide" and name not in (*RADIX_ONLY, *radix_too)
              or form == "radix" and name in (*RADIX_ONLY, *radix_too, "dct2_nat", "dct3_nat",
-                                             "dct2_mid")
+                                             "dct2_mid", "dct3_mid", "spectral_dct_mid")
              or form == "npoint" and name.startswith(("dct2_", "dct3_", "spectral_dct"))
              or form == "dense" and name == "fourstep_mid" or form == "long" and name == "dct4_mid"
              or form == "chirp" and name in ("r2c_dense_mid", "c2r_dense_mid",
@@ -2498,7 +2556,7 @@ def main() -> int:
     reset_counts()
     u8 = solve8(f8, check_spectrum8)
     read_counts("neumann_1536^3", dct2_nat=1, dct2_nat_radix=1, dct2_mid=2, dct2_mid_radix=2,
-                dct3_mid=2, dct3_mid_wide=2, dct3_nat=1, dct3_nat_radix=1)
+                dct3_mid=2, dct3_mid_radix=2, dct3_nat=1, dct3_nat_radix=1)
     peak = torch.cuda.max_memory_allocated()
     sol, finite = solution_err8(u8)
     emit(phase="dct_path", check="poisson_1536^3", fwd_rel_err=fwd8["rel_err"],
@@ -2509,10 +2567,10 @@ def main() -> int:
     del u8
     torch.cuda.empty_cache()
 
-    # the shorter checks: the DCT-II/III pair along both axes of 2048^2 (K26
-    # on the fixed core, F = 8; K23/K24 on the radix row core, K25 on the
-    # radix column tile), nddct2/nddct3 along axis 0 at 1152 (K26 n-point)
-    # and 1280 (K26 wide) and along the last axis at 128, 384 and 768,
+    # the shorter checks: the DCT-II/III pair along both axes of 2048^2
+    # (K23/K24 on the radix row core, K25/K26 on the radix column tile),
+    # nddct2/nddct3 along axis 0 at 1152 and 1280 (the lengths of K26's old
+    # n-point and wide forms) and along the last axis at 128, 384 and 768,
     # nddst2 along axis 0 at 1536, and the R2C/C2R along axis 0 at 768 and
     # 1280 (K16/K17 at F = 3, 5)
     x2k = randn(2048, 2048)
@@ -2534,7 +2592,7 @@ def main() -> int:
     read_counts("dct_mid_lanes", dct2_nat=1 + 3, dct2_nat_radix=1 + 3,
                 dct3_nat=1 + 3, dct3_nat_radix=1 + 3,
                 dct2_mid=1 + 2 + 1, dct2_mid_radix=1 + 2 + 1,
-                dct3_mid=1 + 2, dct3_mid_wide=1, dct3_mid_npoint=1,
+                dct3_mid=1 + 2, dct3_mid_radix=1 + 2,
                 r2c_mid=2, c2r_mid=2)
     x64 = host64(x2k)
     check("dct2_both_axes", f2k, sfft.dctn(x64, type=2), grid=[2048, 2048])
@@ -2556,8 +2614,8 @@ def main() -> int:
              ("dct3_nat_radix", kdct.dct3_nat, (n8 * n8, n8), 0, 1.0 / n8),
              ("dct2_mid_radix", kdct.dct2_mid, (n8, n8, n8), 0, 2.0),
              ("dct2_mid_radix", kdct.dct2_mid, (1, n8, n8 * n8), 2, 2.0),
-             ("dct3_mid_wide", kdct.dct3_mid, (n8, n8, n8), 0, 1.0 / n8),
-             ("dct3_mid_wide", kdct.dct3_mid, (1, n8, n8 * n8), 2, 1.0 / n8))
+             ("dct3_mid_radix", kdct.dct3_mid, (n8, n8, n8), 0, 1.0 / n8),
+             ("dct3_mid_radix", kdct.dct3_mid, (1, n8, n8 * n8), 2, 1.0 / n8))
     for name, kern, shape, dim, scale in legs8:
         check_sliced(name, kern, getattr(kdct, f"{kern.__name__}_plain"), [x8r.view(shape)],
                      dim, (scale,), reps8)
@@ -3434,8 +3492,8 @@ def main() -> int:
 
     u3s, peak, base = run_path("S3_neumann_poisson_1024^3", lambda: s3_solve(f3s),
                                dict(dct2_nat=1, dct2_nat_radix=1, dct_dense_mid=2,
-                                    dct_dense_mid_radix=2,
-                                    spectral_dct_mid=1, dct3_nat=1, dct3_nat_radix=1))
+                                    dct_dense_mid_radix=2, spectral_dct_mid=1,
+                                    spectral_dct_mid_radix=1, dct3_nat=1, dct3_nat_radix=1))
     check_field("S3_neumann_poisson_1024^3", u3s, c_terms(False), peak_bytes=peak,
                 base_bytes=base)
     del u3s
@@ -3460,16 +3518,16 @@ def main() -> int:
          base_bytes=base, reps=reps_s, card=card)
     del f3s, a3, b3, h3
     torch.cuda.empty_cache()
-    spectral_h[("spectral_dct_mid", tuple(b3k.shape))] = (h3k.shape[1], False)
-    check_sliced("spectral_dct_mid", kdct.spectral_dct_mid, kdct.spectral_dct_mid_plain,
+    spectral_h[("spectral_dct_mid_radix", tuple(b3k.shape))] = (h3k.shape[1], False)
+    check_sliced("spectral_dct_mid_radix", kdct.spectral_dct_mid, kdct.spectral_dct_mid_plain,
                  [b3k, h3k], (2, 1), (2.0, 1.0 / n_s), reps_s)
     del b3k, h3k
     torch.cuda.empty_cache()
 
     # the Dirichlet twin through ndspectral_dst: -u'' = f along axis 0 of a
     # 2048 x 4096 cell-centred field, u = sum amp sin(m pi x) cos(2 pi q y),
-    # H[k] = 1 / ((k + 1) pi)^2 (DST-II index k is frequency k + 1): K29
-    # fixed (F = 8) between the flip/sign conjugations
+    # H[k] = 1 / ((k + 1) pi)^2 (DST-II index k is frequency k + 1): K29 on
+    # the radix column tile (h = 1024) between the flip/sign conjugations
     n_d, c_d = 2048, 4096
     xd = (torch.arange(n_d, device=dev, dtype=torch.float64) + 0.5) / n_d
     yd = torch.arange(c_d, device=dev, dtype=torch.float64) / c_d
@@ -3486,7 +3544,7 @@ def main() -> int:
     hsdi = hsd.normalization(nd.Normalization.scalar(1.0 / n_d))
     ud, _, _ = run_path("dirichlet_dst_2048x4096",
                         lambda: nd.ndspectral_dst(fd, hk.float(), hsd, hsdi, axis=0),
-                        dict(spectral_dct_mid=1))
+                        dict(spectral_dct_mid=1, spectral_dct_mid_radix=1))
     want = d_field(False)
     rel = float((ud.double() - want).abs().max() / want.abs().max())
     emit(phase="spectral_path", check="dirichlet_dst_2048x4096", rel_err=rel,
@@ -3494,21 +3552,20 @@ def main() -> int:
     if not rel <= TOL_STEP:
         raise AssertionError(f"2048 x 4096 Dirichlet solve: {rel}")
     del ud, want
-    # K29 at the Dirichlet leg's own instantiation (fixed, F = 8) against its
-    # plain version: the conjugated input alt * f, the flipped multiplier and
-    # the DST handlers' scalars, as ndspectral_dst hands them on
+    # K29 at the Dirichlet leg's own shape (the radix column tile, h = 1024)
+    # against its plain version: the conjugated input alt * f, the flipped
+    # multiplier and the DST handlers' scalars, as ndspectral_dst hands them on
     xdk = (tdst.alt_tensor(n_d, torch.float32, dev)[:, None] * fd).reshape(1, n_d, c_d)
-    check_sliced("spectral_dct_mid", kdct.spectral_dct_mid, kdct.spectral_dct_mid_plain,
+    check_sliced("spectral_dct_mid_radix", kdct.spectral_dct_mid, kdct.spectral_dct_mid_plain,
                  [xdk], 2, (hk.float().flip(0)[:, None], 2.0, 1.0 / n_d), reps_s, timed=False)
     del fd, xdk
 
     # the lengths K14, K22 and K29 open, against float64 oracles: K14 on the
     # wide core at 384, 640, 1280 (along axis 1 of (2, n, 130)), 16256 (F =
     # 127) and 20480 (F = 160); K22 at 512 and 4096 (fixed) and 768 (axis 1)
-    # and 40960 (wide, F = 160); K29 at 256 (the wide half form, F = 1), 384
-    # (axis 1) and 1152 and 20352 (the n-point form, F = 3, 9, 159) and 32768
-    # (the wide half form, F = 128) and 20608 (the n-point form on the real
-    # tile, F = 161); L = 130 (ragged), a broadcast and a lane-varying
+    # and 40960 (wide, F = 160); K29 on the radix column tile at the lengths
+    # of its old wide and n-point forms: 256, 384 (axis 1), 1152, 20352,
+    # 32768 and 20608 (h = 128 ... 16384); L = 130 (ragged), a broadcast and a lane-varying
     # multiplier, real and complex, under Default, NONE and scalar norms.
     norms = {"default": nd.Normalization.DEFAULT, "none": nd.Normalization.NONE,
              "scalar": nd.Normalization.scalar(0.37)}
@@ -3540,7 +3597,7 @@ def main() -> int:
             outs.append((kind, n, axis, lane, norm, x, hb, y))
     read_counts("spectral_lengths", spectral_c2c_mid=5, spectral_c2c_mid_wide=5,
                 spectral_r2c_mid=4, spectral_r2c_mid_wide=2, spectral_dct_mid=6,
-                spectral_dct_mid_wide=2, spectral_dct_mid_npoint=4)
+                spectral_dct_mid_radix=6)
     for kind, n, axis, lane, norm, x, hb, y in outs:
         x64, h64 = x.to(torch.complex128 if kind == "c2c" else torch.float64), hb.to(
             torch.complex128 if kind != "dct" else torch.float64)
@@ -3562,16 +3619,17 @@ def main() -> int:
     del outs, x, h, hb, y, x64, h64, want
     torch.cuda.empty_cache()
 
-    # ---- 4m. the long DCT forms: kernels 23 to 26 and 29 in the n-point
-    # form on the wide core's real tile at n = 128 k with odd k > 160, and
-    # kernel 28's long form (two passes of the real tile) at n = 256 F with
-    # F > 160. G1: the cell-centred Neumann Poisson solve on a 31104^2 grid
-    # (31104 = 128 * 243, F = 243; 3.87 GB per field), the pressure solve of
-    # a wall-bounded 2-D box, through dctn / idctn of type 2 (K23 on the
-    # radix row core over 31104 rows, h = 15552, K25 on the radix column
-    # tile at (1, 31104, 31104), one column a tile, then K26 long and K24 on
-    # the radix row core), and again with ndspectral_dct along axis 0 and
-    # the lane-varying H = 1/lambda between the axis-1 DCTs (K23, K29 long,
+    # ---- 4m. the long DCT lengths: kernels 23 to 26 and 29 at n = 128 k with
+    # odd k > 160 (on the radix cores where n/2 has a plan, in the n-point
+    # form on the wide core's real tile at the prime k), and kernel 28's long
+    # form (two passes of the real tile) at n = 256 F with F > 160. G1: the
+    # cell-centred Neumann Poisson solve on a 31104^2 grid (31104 = 128 *
+    # 243, F = 243; 3.87 GB per field), the pressure solve of a wall-bounded
+    # 2-D box, through dctn / idctn of type 2 (K23 on the radix row core over
+    # 31104 rows, h = 15552, K25 and K26 on the radix column tile at (1,
+    # 31104, 31104), one column a tile, then K24 on the radix row core), and
+    # again with ndspectral_dct along axis 0 and the lane-varying H =
+    # 1/lambda between the axis-1 DCTs (K23, K29 on the radix column tile,
     # K24); G2: the
     # mixed Neumann-Dirichlet solve on a 65536 x 8192 cell-centred channel
     # (2.15 GB per field; DCT-IV along axis 0 on K28 long at (1, 65536,
@@ -3591,7 +3649,7 @@ def main() -> int:
         "neumann_31104^2", (n_g1, n_g1), g1_modes, g1_basis, [g1_eig, g1_eig], 0,
         float(n_g1 * n_g1), lambda f: nd.dctn(f, 2), lambda fh: nd.idctn(fh, 2),
         dict(dct2_nat=1, dct2_nat_radix=1, dct2_mid=1, dct2_mid_radix=1, dct3_mid=1,
-             dct3_mid_npoint=1, dct3_nat=1, dct3_nat_radix=1))
+             dct3_mid_radix=1, dct3_nat=1, dct3_nat_radix=1))
     h_g1 = g1_eig.float()[:, None] + g1_eig.float()[None, :]
     h_g1.reciprocal_()
     h_g1[0, 0] = 0.0     # the zero mode of u is pinned to 0
@@ -3620,7 +3678,7 @@ def main() -> int:
 
     u_g1, peak, base = run_path("G1_spectral_neumann_31104^2", lambda: g1_spectral(f_g1),
                                 dict(dct2_nat=1, dct2_nat_radix=1, spectral_dct_mid=1,
-                                     spectral_dct_mid_npoint=1, dct3_nat=1, dct3_nat_radix=1))
+                                     spectral_dct_mid_radix=1, dct3_nat=1, dct3_nat_radix=1))
     err, ref_peak = 0.0, 0.0
     for i0 in range(0, n_g1, 1024):
         want = sum(amp * torch.cos(a * math.pi * g1_pts[i0:i0 + 1024])[:, None]
@@ -3642,11 +3700,11 @@ def main() -> int:
     for name, kern, plain, x, dim, fargs in (
             ("dct2_nat_radix", kdct.dct2_nat, kdct.dct2_nat_plain, f_g1, 0, (2.0,)),
             ("dct2_mid_radix", kdct.dct2_mid, kdct.dct2_mid_plain, x_g1, 2, (2.0,)),
-            ("dct3_mid_npoint", kdct.dct3_mid, kdct.dct3_mid_plain, x_g1, 2, (1.0 / n_g1,)),
+            ("dct3_mid_radix", kdct.dct3_mid, kdct.dct3_mid_plain, x_g1, 2, (1.0 / n_g1,)),
             ("dct3_nat_radix", kdct.dct3_nat, kdct.dct3_nat_plain, f_g1, 0, (1.0 / n_g1,))):
         check_sliced(name, kern, plain, [x], dim, fargs, reps_g)
-    spectral_h[("spectral_dct_mid_npoint", tuple(x_g1.shape))] = (n_g1, False)
-    check_sliced("spectral_dct_mid_npoint", kdct.spectral_dct_mid, kdct.spectral_dct_mid_plain,
+    spectral_h[("spectral_dct_mid_radix", tuple(x_g1.shape))] = (n_g1, False)
+    check_sliced("spectral_dct_mid_radix", kdct.spectral_dct_mid, kdct.spectral_dct_mid_plain,
                  [x_g1, h_g1], (2, 1), (2.0, 1.0 / n_g1), reps_g)
     del f_g1, x_g1, h_g1, solve_g1
     torch.cuda.empty_cache()
@@ -3697,9 +3755,10 @@ def main() -> int:
     spec_out = [getattr(nd, f"ndspectral_{kind}")(x, h, axis=0) for (kind, _, _), (x, h) in
                 zip(spec_cases, spec_in)]
     read_counts("long_dct_lengths", dct2_mid=16, dct2_mid_radix=12, dct2_mid_npoint=4,
-                dct3_mid=16, dct3_mid_npoint=16, dct2_nat=8, dct2_nat_radix=6, dct2_nat_npoint=2,
-                dct3_nat=8, dct3_nat_radix=6, dct3_nat_npoint=2, dct4_mid=16, dct4_mid_long=16, spectral_dct_mid=12,
-                spectral_dct_mid_npoint=12)
+                dct3_mid=16, dct3_mid_radix=12, dct3_mid_npoint=4, dct2_nat=8, dct2_nat_radix=6,
+                dct2_nat_npoint=2, dct3_nat=8, dct3_nat_radix=6, dct3_nat_npoint=2, dct4_mid=16,
+                dct4_mid_long=16, spectral_dct_mid=12, spectral_dct_mid_radix=8,
+                spectral_dct_mid_npoint=4)
     for (kind, shape, axis), x, y in zip(len_cases, len_in, len_out):
         oracle = sfft.dct if kind.startswith("dct") else sfft.dst
         check(f"{kind}_long", y, oracle(host64(x), type=int(kind[3]), axis=axis), grid=list(shape),
@@ -4140,9 +4199,9 @@ def main() -> int:
                    "dct2_nat_wide": (2048, 128 * 262),
                    "dct3_nat_wide": (2048, 128 * 262), "dct2_nat_npoint": (4096, 128 * 131),
                    "dct3_nat_npoint": (4096, 128 * 131), "dct2_mid_radix": (1, 2048, 2048),
-                   "dct3_mid": (1, 2048, 2048), "dct2_mid_wide": (1, 128 * 262, 2048),
-                   "dct3_mid_wide": (1, 1536, 1536 * 1536), "dct2_mid_npoint": (1, 128 * 131, 4096),
-                   "dct3_mid_npoint": (1, 1152, 1152), "r2c_packed_mid": (1023, 1024, 1023),
+                   "dct3_mid_radix": (1, 2048, 2048), "dct2_mid_wide": (1, 128 * 262, 2048),
+                   "dct3_mid_wide": (1, 128 * 262, 2048), "dct2_mid_npoint": (1, 128 * 131, 4096),
+                   "dct3_mid_npoint": (1, 128 * 131, 4096), "r2c_packed_mid": (1023, 1024, 1023),
                    "dct1_mid": (2049, 2049, 257),
                    "dct1_mid_wide": (1, 1537, 1537), "dct4_mid": (2048, 2048, 256),
                    "dct4_mid_wide": (1, 1536, 1536), "dct4_mid_long": (1, 65536, 8192),
@@ -4154,9 +4213,9 @@ def main() -> int:
                    "spectral_c2c_mid_wide": (8, 1280, 8192),
                    "spectral_r2c_mid": (1, 1024, 1024 * 1024),
                    "spectral_r2c_mid_wide": (8, 768, 16384),
-                   "spectral_dct_mid": (1, 1024, 1024 * 1024),
-                   "spectral_dct_mid_wide": (8, 1280, 8192),
-                   "spectral_dct_mid_npoint": (8, 1152, 8192)}
+                   "spectral_dct_mid_radix": (1, 1024, 1024 * 1024),
+                   "spectral_dct_mid_wide": (1, 128 * 262, 2048),
+                   "spectral_dct_mid_npoint": (1, 128 * 131, 4096)}
 
     # the radix core's kernels: the yardstick at every shape timed
     library_every_shape = ("c2c_generic_rows", "r2c_packed_generic", "c2r_dense_mid_radix",
@@ -4296,7 +4355,67 @@ def main() -> int:
              parent_form_ms=parent, card=card, **extra)
         del x, y
         torch.cuda.empty_cache()
-    # the remnant forms of kernels 23 to 25 (the 29 lengths without a plan
+    # kernel 26 on the radix column tile likewise, at each column count C
+    # and at C <= 2 with each load, beside the parent's form at the same
+    # shape (the wide core's half length at 1536, the n-point form at 1152
+    # and 31104; the fixed core at 2048 is gone: time_kernels.py --dct
+    # --root on the parent tree times it)
+    for shape in ((1, 1536, 1536 * 1536), (1536, 1536, 1536), (1, 2048, 2048), (1, 1152, 1152),
+                  (1, 31104, 31104)):
+        x = randn(*shape)
+        y = torch.empty_like(x)
+        n = shape[1]
+        h = n // 2
+        runs = 1 if n > 20480 else 5 if x.numel() > 1 << 28 else reps
+        cols_ms = {c: cuda_ms(lambda: kdct.dct_radix_launch(x, y, 3, 1.0 / n, c), runs)
+                   for c in (1, 2, 4, 8, 16)
+                   if h * c <= kfft.RADIX_MAX_ELEMS and kfft.radix_cols_threads(h, c) <= 512}
+        ldg_ms = {c: cuda_ms(lambda: kdct.dct_radix_launch(x, y, 3, 1.0 / n, c, True), runs)
+                  for c in (1, 2) if c in cols_ms}
+        form = kdct.dct_form(n)[0]
+        parent = ({} if n == 2048 else
+                  {form: cuda_ms(lambda: kdct.bts2_launch(x, y, 1.0 / n, True, False,
+                                                          "npoint" if form == "npoint" else "wide"),
+                                 runs, 1)})
+        emit(phase="time", kernel="dct3_mid_radix", shape=shape, ms_by_cols=cols_ms,
+             read_only_load_ms_by_cols=ldg_ms,
+             chosen=kdct.dct2_mid_cols(h, shape[0], shape[2], kfft.num_sms(dev)),
+             parent_form_ms=parent, card=card)
+        del x, y
+        torch.cuda.empty_cache()
+    # kernel 29 on the radix column tile likewise, at S3's (1, 1024,
+    # 1048576) and G1's (1, 31104, 31104) with a lane-varying H and at the
+    # Dirichlet solve's (1, 2048, 4096), (8, 1280, 8192) and (1, 1152, 1152)
+    # with a broadcast one, beside the parent's form at the same shape (the
+    # wide core's half length at 1280, the n-point form at 1152 and 31104;
+    # the fixed core at 1024 and 2048 is gone: time_kernels.py --dct --root
+    # on the parent tree times it)
+    for shape, hcols in (((1, 1024, 1024 * 1024), 1024 * 1024), ((1, 2048, 4096), 1),
+                         ((8, 1280, 8192), 1), ((1, 1152, 1152), 1), ((1, 31104, 31104), 31104)):
+        x = randn(*shape)
+        y = torch.empty_like(x)
+        n = shape[1]
+        h = n // 2
+        hv = randn(n, hcols)
+        runs = 1 if n > 20480 else 5 if x.numel() > 1 << 28 else reps
+        cols_ms = {c: cuda_ms(lambda: kdct.spectral_dct_radix_launch(x, y, hv, 2.0, 1.0 / n, c),
+                              runs)
+                   for c in (1, 2, 4, 8, 16)
+                   if h * c <= kfft.RADIX_MAX_ELEMS and kfft.radix_cols_threads(h, c) <= 512}
+        ldg_ms = {c: cuda_ms(lambda: kdct.spectral_dct_radix_launch(x, y, hv, 2.0, 1.0 / n, c,
+                                                                    True), runs)
+                  for c in (1, 2) if c in cols_ms}
+        form = kdct.dct_form(n)[0]
+        parent = ({} if n in (1024, 2048) else
+                  {form: cuda_ms(lambda: kdct.spectral_dct_bts2_launch(
+                      x, y, hv, 2.0, 1.0 / n, "npoint" if form == "npoint" else "wide"), runs, 1)})
+        emit(phase="time", kernel="spectral_dct_mid_radix", shape=shape, h_cols=hcols,
+             ms_by_cols=cols_ms, read_only_load_ms_by_cols=ldg_ms,
+             chosen=kdct.spectral_dct_cols(h, shape[0], shape[2], kfft.num_sms(dev)),
+             parent_form_ms=parent, card=card)
+        del x, y, hv
+        torch.cuda.empty_cache()
+    # the remnant forms of kernels 23 to 26 (the 29 lengths without a plan
     # of n/2) at n = 128 * 131 (the n-point form) and 128 * 262 (the wide
     # core's half length), the plain versions in slices of 64
     for name, kern, plain, shape in (
@@ -4305,7 +4424,9 @@ def main() -> int:
             ("dct3_nat_npoint", kdct.dct3_nat, kdct.dct3_nat_plain, (4096, 128 * 131)),
             ("dct3_nat_wide", kdct.dct3_nat, kdct.dct3_nat_plain, (2048, 128 * 262)),
             ("dct2_mid_npoint", kdct.dct2_mid, kdct.dct2_mid_plain, (1, 128 * 131, 4096)),
-            ("dct2_mid_wide", kdct.dct2_mid, kdct.dct2_mid_plain, (1, 128 * 262, 2048))):
+            ("dct2_mid_wide", kdct.dct2_mid, kdct.dct2_mid_plain, (1, 128 * 262, 2048)),
+            ("dct3_mid_npoint", kdct.dct3_mid, kdct.dct3_mid_plain, (1, 128 * 131, 4096)),
+            ("dct3_mid_wide", kdct.dct3_mid, kdct.dct3_mid_plain, (1, 128 * 262, 2048))):
         x = randn(*shape)
         dim = 2 if len(shape) == 3 else 0
         time_kernel(name, shape, lambda: kern(x, 2.0),
@@ -4763,8 +4884,8 @@ def main() -> int:
         return makhoul_dct(makhoul_dct(f, 0, 3), 1, 3) / (2 * 1024) ** 2
 
     # kernels 16 and 17 at F = 3 and 5 (the radix column tile), kernels 24
-    # and 25 on the radix cores and kernel 26 in its fixed and n-point forms
-    # at phase 4h's shapes (the DCT kernels at 1536^3 were timed there);
+    # to 26 on the radix cores at phase 4h's shapes (the DCT kernels at
+    # 1536^3 were timed there);
     # K16/K17's yardstick is torch.fft.rfft / irfft along the axis, the DCTs
     # have no single PyTorch call
     for n in (768, 1280):
@@ -4780,8 +4901,8 @@ def main() -> int:
             ("dct3_nat_radix", kdct.dct3_nat, kdct.dct3_nat_plain, ((128, 128), (384, 384))),
             ("dct2_mid_radix", kdct.dct2_mid, kdct.dct2_mid_plain, ((1, 2048, 2048),
                                                                     (1, 1152, 1152))),
-            ("dct3_mid", kdct.dct3_mid, kdct.dct3_mid_plain, ((1, 2048, 2048),)),
-            ("dct3_mid_npoint", kdct.dct3_mid, kdct.dct3_mid_plain, ((1, 1152, 1152),))):
+            ("dct3_mid_radix", kdct.dct3_mid, kdct.dct3_mid_plain, ((1, 2048, 2048),
+                                                                    (1, 1152, 1152)))):
         for shape in shapes:
             x = randn(*shape)
             time_kernel(name, shape, lambda: kern(x, 2.0), lambda: plain(x, 2.0))
@@ -4842,19 +4963,20 @@ def main() -> int:
     time_kernel("fourstep_mid_wide", (64, 384, 384), lambda: kfft.fourstep_mid(x, -1),
                 lambda: kfft.fourstep_mid_plain(x, -1))
     del x
-    # kernels 14, 22 and 29 in the forms the main paths do not take (their
-    # fixed forms were timed in phase 4l, at the paths' shapes), with a
-    # broadcast real multiplier: K14 wide at F = 10, K22 wide at h = 384
-    # (F = 3), K29's wide half form at F = 5 and its n-point form at F = 9
+    # kernels 14, 22 and 29 in the forms the main paths do not take (K14's
+    # and K22's fixed forms and K29 on the radix column tile were timed in
+    # phase 4l, at the paths' shapes), with a broadcast real multiplier: K14
+    # wide at F = 10, K22 wide at h = 384 (F = 3), K29's remnant wide half
+    # form at F = 131 (n = 128 * 262) and n-point form at k = 131
     for name, kern, plain, shape, cplx, extra_of in (
             ("spectral_c2c_mid_wide", kfft.spectral_c2c_mid, kfft.spectral_c2c_mid_plain,
              (8, 1280, 8192), True, lambda n: (randn(n, 1), 1.0 / n)),
             ("spectral_r2c_mid_wide", krfft.spectral_r2c_mid, krfft.spectral_r2c_mid_plain,
              (8, 768, 16384), False, lambda n: (randn(n // 2 + 1, 1), None, n, 1.0 / n)),
             ("spectral_dct_mid_wide", kdct.spectral_dct_mid, kdct.spectral_dct_mid_plain,
-             (8, 1280, 8192), False, lambda n: (randn(n, 1), 2.0, 1.0 / n)),
+             (1, 128 * 262, 2048), False, lambda n: (randn(n, 1), 2.0, 1.0 / n)),
             ("spectral_dct_mid_npoint", kdct.spectral_dct_mid, kdct.spectral_dct_mid_plain,
-             (8, 1152, 8192), False, lambda n: (randn(n, 1), 2.0, 1.0 / n))):
+             (1, 128 * 131, 4096), False, lambda n: (randn(n, 1), 2.0, 1.0 / n))):
         x = crandn(*shape) if cplx else randn(*shape)
         extra = extra_of(shape[1])
         time_kernel(name, shape, lambda: kern(x, *extra), lambda: plain(x, *extra))
@@ -4930,8 +5052,8 @@ def main() -> int:
                             "ndrustfft_tpu/ops/pallas/dct.py:208"),
         "dct2_mid_radix": ("ndrustfft_tpu_torch/csrc/dct_mid_radix.cu",
                            "ndrustfft_tpu/ops/pallas/dct.py:333"),
-        "dct3_mid": ("ndrustfft_tpu_torch/csrc/dct_mid.cu",
-                     "ndrustfft_tpu/ops/pallas/dct.py:351"),
+        "dct3_mid_radix": ("ndrustfft_tpu_torch/csrc/dct_mid_radix.cu",
+                           "ndrustfft_tpu/ops/pallas/dct.py:351"),
         "dct2_mid_wide": ("ndrustfft_tpu_torch/csrc/dct_mid.cu",
                           "ndrustfft_tpu/ops/pallas/dct.py:333"),
         "dct3_mid_wide": ("ndrustfft_tpu_torch/csrc/dct_mid.cu",
@@ -4974,8 +5096,8 @@ def main() -> int:
                              "ndrustfft_tpu/ops/pallas/rfft.py:1021"),
         "spectral_r2c_mid_wide": ("ndrustfft_tpu_torch/csrc/spectral_r2c_mid.cu",
                                   "ndrustfft_tpu/ops/pallas/rfft.py:1021"),
-        "spectral_dct_mid": ("ndrustfft_tpu_torch/csrc/spectral_dct_mid.cu",
-                             "ndrustfft_tpu/ops/pallas/dct.py:779"),
+        "spectral_dct_mid_radix": ("ndrustfft_tpu_torch/csrc/spectral_dct_radix.cu",
+                                   "ndrustfft_tpu/ops/pallas/dct.py:779"),
         "spectral_dct_mid_wide": ("ndrustfft_tpu_torch/csrc/spectral_dct_mid.cu",
                                   "ndrustfft_tpu/ops/pallas/dct.py:779"),
         "spectral_dct_mid_npoint": ("ndrustfft_tpu_torch/csrc/spectral_dct_mid.cu",
@@ -5012,7 +5134,7 @@ def main() -> int:
             for shape in sliced.get(name, ())]
         if name in ("c2c_axis_mid", "r2c_packed_mid", "c2r_nat", "c2r_mid",
                     "r2c_dense_mid_chirp", "r2c_packed_dense_radix", "r2c_packed_dense_chirp",
-                    "dct2_nat_radix", "dct3_nat_radix", "dct2_mid_radix"):
+                    "dct2_nat_radix", "dct3_nat_radix", "dct2_mid_radix", "dct3_mid_radix"):
             row["other_shapes"] = [
                 dict(zip(("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
                          (list(shape), *timing[(nm, shape)], *bound(*work(name, shape)))))

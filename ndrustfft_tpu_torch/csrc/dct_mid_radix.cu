@@ -31,6 +31,16 @@
 // column streamed the F * 128 KB Wq table from L2 (1397.5 ms at
 // (1, 31104, 31104), 600x).
 //
+// Kernel 26, the DCT-III along a middle axis past n = 1100, runs the
+// DCT-III form at the same 259 lengths, columns a tile by kernel 25's
+// dct.py::dct2_mid_cols, loaded through the read-only path at one or two
+// columns a tile. It replaces ndrustfft_tpu/ops/pallas/dct.py::
+// _dct3_kernel_mid (:351, called at :456) there; its first Hopper forms
+// ran the bts2 fixed core (0.128 ms at (1, 2048, 2048)), the wide core
+// (145.8 ms at (1, 1536, 2359296)) and the n-point form (763.3 ms at
+// (1, 31104, 31104), 330x its byte bound). The 29 lengths without a plan
+// keep the wide core's and the n-point forms (dct_mid.cu).
+//
 // What bounds it on this card: device memory. A column is read once and
 // written once, 8 n bytes: 0.321 ms at (1, 512, 262144) and 2.56 ms at
 // (1024, 1024, 1024) over 3.35 TB/s, against a real FFT's 2.5 n log2 n
@@ -68,107 +78,13 @@
 // As in kernels 16 and 17, the stores come from an epilogue over the tile,
 // not from the last stage (a bin bound or a store there spilled 0.5-13 KB
 // a thread on an H100). Columns a tile: ops/hopper/rfft.py::r2c_mid_cols
-// (DCT-II, DCT-I) and c2r_mid_cols (DCT-III) at the transform length.
-#include "dct_wide.cuh"
-#include "fft_radix.cuh"
+// (DCT-II, DCT-I) and c2r_mid_cols (DCT-III) at the transform length
+// (kernel 27), dct.py::dct2_mid_cols (kernels 25, 26).
+// The DCT-II and DCT-III structs are makhoul_cols.cuh's, shared with
+// kernel 29 (spectral_dct_radix.cu).
+#include "makhoul_cols.cuh"
 
 namespace ndfft {
-
-// DCT-II's columns: element t < h of column col of b as the Makhoul pair
-// (x[src(2t)], x[src(2t + 1)]) of x (B, n, L), loaded evict-first or (kLdg)
-// through the read-only path, which keeps each 32-byte sector in L2 for
-// the neighbouring tiles where a tile row is one or two floats (kernel 25
-// at C <= 2, as kernel 1).
-template <bool kLdg = false>
-struct MakhoulCol {
-  const float* __restrict__ x;
-  long long L;
-  int n;
-  __device__ __forceinline__ long long base(long long b, long long col) const {
-    return b * n * L + col;
-  }
-  __device__ __forceinline__ float ld(const float* q) const {
-    return kLdg ? __ldg(q) : __ldcs(q);
-  }
-  __device__ __forceinline__ float2 at(long long p, int t) const {
-    return make_float2(ld(x + p + makhoul_src(2 * t, n) * L),
-                       ld(x + p + makhoul_src(2 * t + 1, n) * L));
-  }
-};
-
-// DCT-II's epilogue: the tile holds Z; y[k] = Re(P[k] X[k]) and, for
-// 0 < k < h, y[n - k] = -Im(P[k] X[k]), into y (B, n, L).
-struct Dct2Rows {
-  static constexpr bool kTileOut = true;
-  float* __restrict__ y;
-  const float2* __restrict__ u;      // W_n^k, k < h
-  const float2* __restrict__ post;   // P[k], k <= h
-  long long L;
-  int n;
-  __device__ __forceinline__ long long handle(long long b, long long col) const {
-    return b * n * L + col;
-  }
-  __device__ __forceinline__ float2 out(int, float2 v) const { return v; }
-  template <class Cx>
-  __device__ __forceinline__ void epilogue(const float2* s, const Cx& cx) const {
-    float* yc = y + cx.row;
-    const long long ls = L;
-    const int nn = n, h = n / 2;
-    const float2* __restrict__ pp = post;
-    r2c_unpack_tile(s, cx, u, [=](int k, float2 v) {
-      const float2 p = __ldg(pp + k);
-      yc[k * ls] = v.x * p.x - v.y * p.y;
-      if (k > 0 && k < h) yc[(nn - k) * ls] = -(v.x * p.y + v.y * p.x);
-    });
-  }
-};
-
-// DCT-III's columns: S[k] = Q[k] (x[k] - i x[n - k]) of x (B, n, L) with
-// x[n] = 0, rows k < h into the tile and k = h into the side slot; the
-// prologue is the inverse unpack with the ab rows.
-struct Dct3Col {
-  static constexpr int kSide = 1;
-  const float* __restrict__ x;
-  const float2* __restrict__ q;      // Q[k], k <= h
-  const float4* __restrict__ ab;
-  long long L;
-  int n;
-  __device__ __forceinline__ long long base(long long b, long long col) const {
-    return b * n * L + col;
-  }
-  __device__ __forceinline__ float2 at(long long p, int k) const {
-    const float a = __ldcs(x + p + k * L);
-    const float b = k ? __ldcs(x + p + (n - k) * L) : 0.f;
-    const float2 w = __ldg(q + k);
-    return make_float2(w.x * a + w.y * b, w.y * a - w.x * b);
-  }
-  template <class Cx>
-  __device__ __forceinline__ void prologue(float2* s, const float2* side, const Cx& cx) const {
-    c2r_prologue_tile(s, side, cx, ab);
-  }
-};
-
-// DCT-III's epilogue: the tile holds z; u[2l] = Re z[l] and u[2l + 1] =
-// Im z[l] go to y[interleave_dst(j)] of y (B, n, L).
-struct Dct3Rows {
-  static constexpr bool kTileOut = true;
-  float* __restrict__ y;
-  long long L;
-  int n;
-  __device__ __forceinline__ long long handle(long long b, long long col) const {
-    return b * n * L + col;
-  }
-  __device__ __forceinline__ float2 out(int, float2 v) const { return v; }
-  template <class Cx>
-  __device__ __forceinline__ void epilogue(const float2* s, const Cx& cx) const {
-    if (!cx.active) return;
-    for (int l = cx.t; l < cx.n; l += cx.tr) {
-      const float2 v = s[cx.slot(l)];
-      y[cx.row + interleave_dst(2 * l, n) * L] = v.x;
-      y[cx.row + interleave_dst(2 * l + 1, n) * L] = v.y;
-    }
-  }
-};
 
 // DCT-I's columns: element t < h of column col of b as the pair
 // (e[2t], e[2t + 1]) of the even extension of x (B, h + 1, L).
@@ -218,8 +134,8 @@ struct Dct1Rows {
 // (type 2, ops/hopper/dct.py::dct2_post) or (h + 1,) Q[k] (type 3,
 // dct.py::dct3_pre), the scale s folded in; unused for type 1, whose
 // `half` is s / 2. C: columns per tile (ops/hopper/dct.py::dct_radix_cols,
-// dct2_mid_cols); ldg: 1 loads a type 2 x through the read-only path, 0
-// evict-first. Returns the cudaError_t of the launch (0 on success).
+// dct2_mid_cols); ldg: 1 loads a type 2 or 3 x through the read-only path,
+// 0 evict-first. Returns the cudaError_t of the launch (0 on success).
 extern "C" int ndfft_dct_mid_radix(int type, const void* x, void* y, const void* table,
                                    const int* radices, int stages, const void* c1,
                                    const void* c2, float half, long long B, int n, long long L,
@@ -245,7 +161,11 @@ extern "C" int ndfft_dct_mid_radix(int type, const void* x, void* y, const void*
                : (int)radix_cols_launch<-1>(MakhoulCol<>{xp, L, n}, io, tp, plan, B, h, L, C,
                                             1.f, st);
   }
-  return (int)radix_cols_launch<1>(
-      Dct3Col{xp, static_cast<const float2*>(c2), static_cast<const float4*>(c1), L, n},
-      Dct3Rows{yp, L, n}, tp, plan, B, h, L, C, 1.f, st);
+  const auto q = static_cast<const float2*>(c2);
+  const auto ab = static_cast<const float4*>(c1);
+  const Dct3Rows<> io{yp, L, n};
+  return ldg ? (int)radix_cols_launch<1>(Dct3Col<true>{xp, q, ab, L, n}, io, tp, plan, B, h, L,
+                                         C, 1.f, st)
+             : (int)radix_cols_launch<1>(Dct3Col<>{xp, q, ab, L, n}, io, tp, plan, B, h, L, C,
+                                         1.f, st);
 }

@@ -35,7 +35,7 @@
 // scale folded in once) and writes y[k] = Re(P[k] X[k]) and, for
 // 0 < k < h, y[n - k] = -Im(P[k] X[k]) (P[n - k] = -i conj P[k]), the
 // threads of a row on consecutive bins (Dct2RowBins, the row twin of
-// dct_mid_radix.cu's Dct2Rows). Rows a block: ops/hopper/fft.py::
+// makhoul_cols.cuh's Dct2Rows). Rows a block: ops/hopper/fft.py::
 // radix_block at h, as kernel 2.
 //
 // Kernel 24: the DCT-III of the same rows, the same n, as the Makhoul C2R:

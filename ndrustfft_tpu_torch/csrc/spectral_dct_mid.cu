@@ -1,10 +1,12 @@
 // Kernel 29: the fused cosine-basis pipeline DCT-III(H * DCT-II(x)) along the
-// middle axis of a (B, n, L) float32 tensor, n = 128 * k, k <= 256 (the JAX
-// gate dct_pallas_supported's split (128, k)), in the forms of kernels 25/26
-// (dct_mid.cu, ops/hopper/dct.py::dct_form): the half length h = n/2 =
-// 128 * F for even k (the fixed core for F in {2, 4, 8, 16}, the wide core
-// for every other F <= 128, n = 256 included), the n-point form on the wide
-// core's real tile for odd k <= 255 (n <= 32640).
+// middle axis of a (B, n, L) float32 tensor, n = 128 * k, at the 29 lengths
+// of ops/hopper/dct.py::dct_form whose half length 64 k has no radix plan
+// (k = 131 ... 251 prime, and 2 k for k = 131, 137, 139, 149, 151, 157), in
+// the forms of kernels 25/26 there (dct_mid.cu): the half length
+// h = n/2 = 128 * F on the wide core for even k, the n-point form on the
+// wide core's real tile for odd k <= 255 (n <= 32640). At the 259 other
+// lengths kernel 29 runs on the radix column tile (spectral_dct_radix.cu),
+// and its fixed-core form here is gone.
 //
 // Replaces ndrustfft_tpu/ops/pallas/dct.py::_spectral_dct_kernel_mid (built
 // by _build_spectral_dct_mid, called by spectral_dct_pallas_mid). It is the
@@ -34,17 +36,15 @@
 //   dct_wide.cuh): 4 n bytes per column, which one block holds up to
 //   n = 32640 (k = 255), with the chirp c separable over t = a * 128 + b.
 //
-// The fixed half form keeps everything in shared memory: the pass reads x
-// and H once and writes y once, where the composition writes and reads the
-// coefficient field in between. The wide forms cannot work in place (the
-// wide core reads its whole tile while it stores) and a second tile does not
-// fit; the intermediate goes into the block's own columns of y, which hold it
-// exactly: the half form's Z (Re Z[k] at row k, Im Z[k] at row k + h, as
-// kernel 25's wide form stores it), the n-point form's n real values w[k].
-// After the forward core's closing barrier the block reads it back (the
-// half form through the pair pass into the tile, the n-point form times c
-// into the tile) and the inverse core stores into y. So no workspace is
-// needed in any form.
+// The wide forms cannot work in place (the wide core reads its whole tile
+// while it stores) and a second tile does not fit; the intermediate goes
+// into the block's own columns of y, which hold it exactly: the half form's
+// Z (Re Z[k] at row k, Im Z[k] at row k + h, as kernel 25's wide form
+// stores it), the n-point form's n real values w[k]. After the forward
+// core's closing barrier the block reads it back (the half form through the
+// pair pass, spectral.cuh::spectral_dct_pair, into the tile, the n-point
+// form times c into the tile) and the inverse core stores into y. So no
+// workspace is needed in any form.
 //
 // What bounds it: two cores' stage 2 on the FP32 CUDA cores (bts2_core.cuh,
 // bts2_wide.cuh): kernel 25's and kernel 26's arithmetic on half of their
@@ -53,95 +53,6 @@
 #include "spectral.cuh"
 
 namespace ndfft {
-
-// The half form's pair pass: G[k] (gk) and G[h - k] (gm, for 0 < k < h/2)
-// from za = Z[k] and zm = Z[(h - k) mod h] of column col, k <= h/2. tw: (h,)
-// W_n^k; post: (n,) P; pre: (h + 1,) Q; ab: (h, 4) kernel 3's rows at scale 1.
-__device__ __forceinline__ void spectral_dct_pair(int k, int h, float2 za, float2 zm,
-                                                  const float2* __restrict__ tw,
-                                                  const float2* __restrict__ post,
-                                                  const float2* __restrict__ pre,
-                                                  const float4* __restrict__ ab,
-                                                  const SpecMult& hm, long long col, float2& gk,
-                                                  float2& gm) {
-  const int n = 2 * h;
-  // S[j] = Q[j] (a - i b) with a = w[j], b = w[n - j]
-  const auto spec = [&](int j, float a, float b) {
-    const float2 q = __ldg(pre + j);
-    return make_float2(a * q.x + b * q.y, a * q.y - b * q.x);
-  };
-  // S[j] from V[j], j > 0: w[j] = H[j] Re(P[j] V[j]), w[n-j] = H[n-j] Re(P[n-j] conj V[j])
-  const auto spec_of = [&](int j, float2 v) {
-    const float2 p = __ldg(post + j);
-    const float2 pm = __ldg(post + n - j);
-    return spec(j, hm.re(j, col) * (p.x * v.x - p.y * v.y),
-                hm.re(n - j, col) * (pm.x * v.x + pm.y * v.y));
-  };
-  if (k == 0) {   // V[0] = Re Z0 + Im Z0 and V[h] = Re Z0 - Im Z0 are real
-    const float w0 = hm.re(0, col) * __ldg(post).x * (za.x + za.y);
-    const float wh = hm.re(h, col) * __ldg(post + h).x * (za.x - za.y);
-    float2 s0 = spec(0, w0, 0.f);
-    float2 sh = spec(h, wh, wh);
-    s0.y = 0.f;   // S[0] and S[h] are real; drop their rounding residue
-    sh.y = 0.f;
-    gk = c2r_combine(__ldg(ab), s0, sh);
-    return;
-  }
-  const int k2 = h - k;
-  const float2 sk = spec_of(k, r2c_unpack_one(za, zm, __ldg(tw + k)));
-  if (k2 == k) {
-    gk = c2r_combine(__ldg(ab + k), sk, sk);
-    return;
-  }
-  const float2 sm = spec_of(k2, r2c_unpack_one(zm, za, __ldg(tw + k2)));
-  gk = c2r_combine(__ldg(ab + k), sk, sm);
-  gm = c2r_combine(__ldg(ab + k2), sm, sk);
-}
-
-// Two blocks per SM (two 64 KB tiles), as kernels 25 and 26.
-template <int F, int C>
-__global__ void __launch_bounds__(kThreads, 2)
-spectral_dct_mid_kernel(const float* __restrict__ x, float* __restrict__ y, SpecMult hm,
-                        const float2* __restrict__ wq_fwd, const float2* __restrict__ tw,
-                        const float2* __restrict__ post, const float2* __restrict__ wq_inv,
-                        const float4* __restrict__ ab, const float2* __restrict__ pre,
-                        long long L, long long tiles) {
-  constexpr int H = F * kM;
-  constexpr int NN = 2 * H;
-  extern __shared__ float2 s[];
-  long long col0;
-  int valid;
-  const long long bb = fixed_tile<C>(L, tiles, col0, valid);
-  const float* xb = x + bb * NN * L + col0;
-  fixed_fill<C>(s, H, valid, [&](int t, int c) {
-    return make_float2(xb[makhoul_src(2 * t, NN) * L + c], xb[makhoul_src(2 * t + 1, NN) * L + c]);
-  });
-  __syncthreads();
-  Bts2<F, C, false>::run(s, wq_fwd, -1.f);
-  for (int idx = threadIdx.x; idx < (H / 2 + 1) * C; idx += kThreads) {
-    const int k = idx / C;
-    const int c = idx % C;
-    if (c >= valid) continue;
-    const int k2 = (H - k) % H;
-    float2 gk, gm;
-    spectral_dct_pair(k, H, s[k * C + c], s[k2 * C + c], tw, post, pre, ab, hm, col0 + c, gk,
-                      gm);
-    s[k * C + c] = gk;
-    if (k2 != k) s[k2 * C + c] = gm;
-  }
-  __syncthreads();
-  Bts2<F, C, false>::run(s, wq_inv, 1.f);
-  // u[j] = component j % 2 of z[j / 2]; out[2t] = u[t], out[2t+1] = u[n-1-t]
-  const float* u = reinterpret_cast<const float*>(s);
-  float* yb = y + bb * NN * L + col0;
-  for (int idx = threadIdx.x; idx < NN * C; idx += kThreads) {
-    const int r = idx / C;
-    const int c = idx % C;
-    if (c >= valid) continue;
-    const int j = r % 2 ? NN - 1 - r / 2 : r / 2;
-    yb[r * L + c] = u[((j >> 1) * C + c) * 2 + (j & 1)];
-  }
-}
 
 // The half form on the wide core, h = 128 * F.
 template <int C>
@@ -221,33 +132,12 @@ spectral_dct_mid_npoint_kernel(const float* __restrict__ x, float* y, SpecMult h
 
 }  // namespace ndfft
 
-// x, y: (B, n, L) float32, contiguous; hr: H's float32 plane, (n, hc) with
-// hc = 1 or L. The fixed half form, n = 2h, h = 128 * F, F in {2, 4, 8, 16}:
-// wq_fwd, wq_inv: (F, 128, 128) complex64 for h, sign -1 and +1, unscaled;
-// tw: (h,) W_n^k; post: (n,) s2 e^{-i pi k/2n}; ab: (h, 4) kernel 3's rows at
+// The half form on the wide core, h = 128 * F with 1 <= F <= 160: x, y:
+// (B, n, L) float32, contiguous; hr: H's float32 plane, (n, hc) with hc = 1
+// or L; wq_fwd, wq_inv: (F, 128, 128) complex64 for h, sign -1 and +1,
+// unscaled; wf_fwd, wf_inv: (F, F) complex64 DFT-F of sign -1 and +1; tw:
+// (h,) W_n^k; post: (n,) s2 e^{-i pi k/2n}; ab: (h, 4) kernel 3's rows at
 // scale 1; pre: (h + 1,) (s3/2) e^{i pi k/2n} (ops/hopper/dct.py). C: columns
-// per block, a power of two with h * C <= 8192. Returns the cudaError_t of
-// the launch (0 on success).
-extern "C" int ndfft_spectral_dct_mid(const void* x, void* y, const void* hr, long long hc,
-                                      const void* wq_fwd, const void* tw, const void* post,
-                                      const void* wq_inv, const void* ab, const void* pre,
-                                      long long B, int n, long long L, int C, void* stream) {
-  using namespace ndfft;
-  const SpecMult hm = spec_mult(hr, nullptr, hc, L);
-  if (hm.hr == nullptr || n % 2) return (int)cudaErrorInvalidValue;
-  return (int)fixed_dispatch<2>(n / 2, C, [&](auto f, auto c) {
-    constexpr int kF = decltype(f)::value, kC = decltype(c)::value;
-    return fixed_launch<kF, kC>(
-        spectral_dct_mid_kernel<kF, kC>, B, L, static_cast<cudaStream_t>(stream),
-        static_cast<const float*>(x), static_cast<float*>(y), hm,
-        static_cast<const float2*>(wq_fwd), static_cast<const float2*>(tw),
-        static_cast<const float2*>(post), static_cast<const float2*>(wq_inv),
-        static_cast<const float4*>(ab), static_cast<const float2*>(pre), L);
-  });
-}
-
-// The half form on the wide core, h = 128 * F with 1 <= F <= 160: as above,
-// with wf_fwd, wf_inv: (F, F) complex64 DFT-F of sign -1 and +1. C: columns
 // per tile, a power of two <= 16 whose tile fits
 // (bts2_wide.cuh::wide_smem_bytes).
 extern "C" int ndfft_spectral_dct_mid_wide(const void* x, void* y, const void* hr, long long hc,

@@ -55,7 +55,6 @@ _SIGNATURES = {
     "ndfft_dct_mid_radix": [_I, _P, _P, _P, _P, _I, _P, _P, _F, _LL, _I, _LL, _I, _I, _P],
     "ndfft_dct_nat_wide": [_I, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_dct_nat_npoint": [_I, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
-    "ndfft_dct3_mid": [_P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_dct_mid_wide": [_I, _P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_dct_mid_npoint": [_I, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_dct1_mid": [_P, _P, _P, _P, _F, _LL, _I, _LL, _I, _P],
@@ -76,7 +75,8 @@ _SIGNATURES = {
     "ndfft_spectral_c2c_mid_wide": [_P] * 4 + [_LL] + [_P] * 4 + [_LL, _I, _LL, _I, _P],
     "ndfft_spectral_r2c_mid": [_P] * 4 + [_LL] + [_P] * 4 + [_LL, _I, _LL, _I, _P],
     "ndfft_spectral_r2c_mid_wide": [_P] * 4 + [_LL] + [_P] * 6 + [_LL, _I, _LL, _I, _P],
-    "ndfft_spectral_dct_mid": [_P] * 3 + [_LL] + [_P] * 6 + [_LL, _I, _LL, _I, _P],
+    "ndfft_spectral_dct_radix": ([_P] * 3 + [_LL] + [_P] * 2 + [_I] + [_P] * 4
+                                 + [_LL, _I, _LL, _I, _I, _P]),
     "ndfft_spectral_dct_mid_wide": [_P] * 3 + [_LL] + [_P] * 8 + [_LL, _I, _LL, _I, _P],
     "ndfft_spectral_dct_mid_npoint": [_P] * 3 + [_LL] + [_P] * 4 + [_LL, _I, _LL, _I, _P],
 }

@@ -20,10 +20,10 @@
   kernel 24 as the Makhoul C2R; at the 29 others, ``csrc/dct_nat.cu``.
 * Kernels 25 and 26, :func:`dct2_mid` and :func:`dct3_mid`: the same two
   along the middle axis of (B, n, L) (replace ``dct.py::_dct2_kernel_mid``
-  and ``_dct3_kernel_mid``). Kernel 25 runs kernel 27's Makhoul R2C on the
-  radix column tile (``csrc/dct_mid_radix.cu``) at the lengths of
-  :func:`dct2_nat_radix`, columns a tile by :func:`dct2_mid_cols`; at the
-  29 others, and kernel 26 everywhere, ``csrc/dct_mid.cu``.
+  and ``_dct3_kernel_mid``). At the lengths of :func:`dct2_nat_radix`
+  kernel 25 runs kernel 27's Makhoul R2C and kernel 26 its Makhoul C2R on
+  the radix column tile (``csrc/dct_mid_radix.cu``), columns a tile by
+  :func:`dct2_mid_cols`; at the 29 others, ``csrc/dct_mid.cu``.
 * Kernel 28, :func:`dct4_mid`: DCT-IV along the middle axis of (B, n, L),
   n = 2 hl with hl = 128 * F, F <= 256, as one complex FFT of length hl
   per column between an entry and an exit chirp (``csrc/dct4_mid.cu``, the
@@ -31,10 +31,12 @@
   it the long form: the FFTs of the two real streams in two passes of the
   wide core's real tile; replaces ``dct.py::_dct4_kernel_mid``).
 * Kernel 29, :func:`spectral_dct_mid`: the fused pipeline
-  DCT-III(H * DCT-II(x)) along the middle axis of (B, n, L) in the forms of
-  :func:`dct_form`, kernel 25's forward, the multiply and kernel 26's
-  inverse on one column tile (``csrc/spectral_dct_mid.cu``; replaces
-  ``dct.py::_spectral_dct_kernel_mid``).
+  DCT-III(H * DCT-II(x)) along the middle axis of (B, n, L), kernel 25's
+  forward, the multiply and kernel 26's inverse on one column tile
+  (replaces ``dct.py::_spectral_dct_kernel_mid``): on the radix column tile
+  at the lengths of :func:`dct2_nat_radix` (``csrc/spectral_dct_radix.cu``,
+  columns a tile by :func:`spectral_dct_cols`), in the bts2 forms of
+  :func:`dct_form` at the 29 others (``csrc/spectral_dct_mid.cu``).
 * Kernel 12, :func:`dct23_blue_mid`: the Makhoul DCT-II/III core along the
   middle axis of a real (B, n, L) tensor at a Bluestein length, the
   real-input chirp-z on kernel 11's column kernel at M = chirp_m(n) with
@@ -42,15 +44,14 @@
   entry and exit tables (``csrc/dct_blue_radix.cu``; replaces
   ``fft.py::_kernel_axis_mid_blue_rr``).
 
-Kernels 23 to 26 take every even n = 128 * k that the JAX gate
+Kernels 23 to 26 and 29 take every n = 128 * k that the JAX gate
 ``dct_pallas_supported`` sends to them (split (128, k), k <= 256). Off the
-radix cores (kernel 26, and kernels 23 to 25 at the 29 lengths), they run
-in the form :func:`dct_form` names: the half length h = n/2 = 128 * F for
-even k (the real FFT of kernels 2/3 or 16/17: kernel 26 on the fixed bts2
-core for F in ``CORE_F``, the wide core ``csrc/bts2_wide.cuh`` otherwise),
-and the n-point FFT on the wide core's real tile for odd k, where h = 64 k
-is no multiple of 128 (``csrc/dct_wide.cuh``; one column fills a block at
-odd k > 160).
+radix cores (at the 29 lengths without a plan of n/2), they run in the
+form :func:`dct_form` names: the half length h = n/2 = 128 * F for even k
+(the real FFT of kernels 2/3 or 16/17 on the wide core
+``csrc/bts2_wide.cuh``), and the n-point FFT on the wide core's real tile
+for odd k, where h = 64 k is no multiple of 128 (``csrc/dct_wide.cuh``; one
+column fills a block at odd k > 160).
 
 What bounds them, and what the designs do about it, is in the sources'
 header comments: the bts2 core's dense DFT-128 on the FP32 cores, device
@@ -62,8 +63,8 @@ and their wrappers, whose ``launches`` attributes count kernel launches
 (kernels 23 to 26, 28 and 29 also count the wide core's (half-length)
 launches apart, in ``wide_launches``, kernels 23 to 26 and 29 the n-point
 ones in ``npoint_launches``, kernel 28 its long form's in
-``long_launches``, kernel 27 its radix column tile's, kernels 23 to 25
-their radix cores' and kernel 12 its chirp-z's (every one) in
+``long_launches``, kernel 27 its radix column tile's, kernels 23 to 26 and
+29 their radix cores' and kernel 12 its chirp-z's (every one) in
 ``radix_launches``). All
 transforms are in the rustdct convention (scipy's unnormalized DCT / 2)
 times ``scale``.
@@ -79,7 +80,7 @@ import torch
 
 from ...plan import _cis, blue_h, chirp
 from . import _build
-from .fft import (C2C_F, CORE_F, M, RADIX_MAX_STAGES, RADIX_WIDE_N, REAL_MAX_F, WIDE_MAX_F,
+from .fft import (C2C_F, M, RADIX_MAX_STAGES, RADIX_WIDE_N, REAL_MAX_F, WIDE_MAX_F,
                   block_cols, bts2_plain, check_blue_n, check_cuda, check_mult,
                   chirp_m, chirp_z_radix_plain, count_launch, dense_beats_radix, dense_tile,
                   device_radix, device_wide, device_wq, f32_pair, mult_planes, num_sms,
@@ -185,11 +186,12 @@ def dct_radix_cols(n: int, dct_type: int, groups: int, cols: int, sms: int) -> i
 
 def dct_radix_launch(x: torch.Tensor, y: torch.Tensor, dct_type: int, scale, c: int,
                      ldg: bool = False) -> None:
-    """Launch kernel 27 (or kernel 25, DCT-II past n = 1100) on the radix
-    column tile, ``c`` columns a tile (:func:`dct_radix_cols`,
-    :func:`dct2_mid_cols`), on the (B, n, L) float32 CUDA tensor x into y
-    (``csrc/dct_mid_radix.cu``), a DCT-II's x loaded through the read-only
-    path if ``ldg``, else evict-first; counts nothing."""
+    """Launch kernel 27 (or kernels 25 and 26, DCT-II and DCT-III past
+    n = 1100) on the radix column tile, ``c`` columns a tile
+    (:func:`dct_radix_cols`, :func:`dct2_mid_cols`),
+    on the (B, n, L) float32 CUDA tensor x into y
+    (``csrc/dct_mid_radix.cu``), a DCT-II's or DCT-III's x loaded through
+    the read-only path if ``ldg``, else evict-first; counts nothing."""
     nb, n, cols = x.shape
     dev = x.device
     h = dct_radix_len(n, dct_type)
@@ -266,11 +268,12 @@ dct_dense_mid.radix_launches = 0
 
 
 def dct_form(n: int):
-    """("half", F) where kernels 23 to 26 run the half-length real FFT,
+    """("half", F) where kernels 23 to 26 and 29 run the half-length real FFT,
     n = 2h with h = 128 * F (k = n / 128 even, F <= 160: the wide core's
     complex tile); ("npoint", F) where they run the n-point FFT on the real
     tile, n = 128 * F with odd F <= 255 (n <= 32640); None beyond, or where
-    n is no multiple of 128."""
+    n is no multiple of 128. (Where :func:`dct2_nat_radix` holds they run on
+    the radix cores instead; the form names the lengths they take.)"""
     if n <= 0 or n % M:
         return None
     k = n // M
@@ -396,9 +399,10 @@ def _dct3_plain(x: torch.Tensor, scale) -> torch.Tensor:
 
 
 def dct2_nat_radix(n: int) -> bool:
-    """Kernels 23 to 25 run on the radix cores at n (kernel 23 the Makhoul
-    R2C on rows, kernel 24 the Makhoul C2R on rows, kernel 25 the Makhoul
-    R2C on the column tile): :func:`dct_form` takes n and
+    """Kernels 23 to 26 and 29 run on the radix cores at n (kernel 23 the
+    Makhoul R2C on rows, kernel 24 the Makhoul C2R on rows, kernels 25 and
+    26 the Makhoul R2C and C2R on the column tile, kernel 29 both on one
+    column tile): :func:`dct_form` takes n and
     :func:`~.fft.radix_plan` has h = n/2 = 64 k (259 of the 288 lengths, the
     odd k included; not k = 131 ... 251 prime, nor 2 k for k = 131, 137,
     139, 149, 151, 157, which keep the wide core's forms)."""
@@ -499,8 +503,8 @@ DCT2_MID_WIDE_H = 768   # kernel 25's wide column tiles from this half length on
 
 
 def dct2_mid_cols(h: int, groups: int, cols: int, sms: int) -> int:
-    """Columns per tile of kernel 25 on the radix column tile at half length
-    h: kernel 18's rule (:func:`~.rfft.packed_mid_cols`) with its wide
+    """Columns per tile of kernels 25 and 26 on the radix column tile at half
+    length h: kernel 18's rule (:func:`~.rfft.packed_mid_cols`) with its wide
     tiles from h = DCT2_MID_WIDE_H on: below it :func:`~.fft.radix_mid_cols`
     (the 16-element form), from it the largest power of two up to 16 whose
     tile a block takes in the 32- or 40-element form (16 at h = 768 and
@@ -511,14 +515,24 @@ def dct2_mid_cols(h: int, groups: int, cols: int, sms: int) -> int:
     radix_mid_cols took 4; at (1, 2048, 2048) 0.146, 0.087, 0.076, 0.059,
     0.059 (the grid rule takes 8); at (1, 1152, 1152) 0.070, 0.053, 0.047,
     0.056, 0.054 (h = 576: 4, the 16-element form); one column at
-    (1, 31104, 31104), 30.6 ms. The wrapper loads x through the read-only
-    path at C <= 2, as kernel 1: a tile row of one or two floats leaves the
-    rest of each 32-byte sector in L2 for the neighbouring tiles.)"""
+    (1, 31104, 31104), 30.6 ms. Kernel 26, time_kernels.py --scan-dct-mid,
+    the fastest or within 7%: at (1, 1536, 2359296) 133.3, 76.3, 52.7,
+    42.9, 40.5 and at (1536, 1536, 1536) 87.4, 61.8, 49.7, 40.4, 39.6; at
+    (1, 2048, 2048) 0.147, 0.100, 0.091, 0.074, 0.068; at (1, 1152, 1152)
+    0.069, 0.048, 0.038, 0.045, 0.052; at (1, 31104, 31104) 30.3 read-only,
+    30.8 evict-first. The wrapper loads x through the read-only path at
+    C <= 2, as kernel 1: a tile row of one or two floats leaves the rest of
+    each 32-byte sector in L2 for the neighbouring tiles.)"""
     return packed_mid_cols(h, groups, cols, sms, wide_from=DCT2_MID_WIDE_H)
 
 
 def dct3_mid_plain(x: torch.Tensor, scale=None) -> torch.Tensor:
-    """Plain version of kernel 26: scale * DCT-III along dim 1 of (B, n, L)."""
+    """Plain version of kernel 26: scale * DCT-III along dim 1 of (B, n, L),
+    in the form the kernel takes at n: kernel 27's Makhoul C2R on the radix
+    column tile (:func:`dct_radix_plain`) where :func:`dct2_nat_radix`
+    holds, else :func:`_dct3_plain`."""
+    if dct2_nat_radix(x.shape[1]):
+        return dct_radix_plain(x, 3, scale)
     return _dct3_plain(x, scale)
 
 
@@ -537,28 +551,23 @@ def _check_form(x: torch.Tensor, rows: bool, what: str):
 
 def launch_form(n: int, type3: bool, rows: bool) -> str:
     """The kernel form kernels 23 to 26 launch at n (``rows``: kernel 23 or,
-    ``type3``, 24; else 25 or 26), n in :func:`dct_form`: "radix" (kernels
-    23 to 25 where :func:`dct2_nat_radix` holds), else "npoint" (odd k),
-    "fixed" (kernel 26 at F in ``CORE_F``) or "wide"."""
-    form, f = dct_form(n)
-    if (rows or not type3) and dct2_nat_radix(n):
+    ``type3``, 24; else 25 or 26), n in :func:`dct_form`: "radix" where
+    :func:`dct2_nat_radix` holds, else "npoint" (odd k) or "wide"."""
+    if dct2_nat_radix(n):
         return "radix"
-    if form == "npoint":
-        return "npoint"
-    return "fixed" if type3 and not rows and f in CORE_F else "wide"
+    return "npoint" if dct_form(n)[0] == "npoint" else "wide"
 
 
 def _launch(wrapper, x: torch.Tensor, scale, type3: bool, rows: bool) -> torch.Tensor:
     """Kernel 23/24 (``rows``: x is (T, n)) or 25/26 (x is (B, n, L)) on a
-    CUDA tensor: kernels 23 to 25 on the radix cores where
-    :func:`dct2_nat_radix` holds, else (and kernel 26 everywhere) the fixed
-    core, the wide core's half-length form or its n-point form, by
+    CUDA tensor: on the radix cores where :func:`dct2_nat_radix` holds, else
+    the wide core's half-length form or its n-point form, by
     :func:`dct_form`; adds one to the wrapper's counts."""
     what = wrapper.__name__
     check_cuda(x, torch.float32, what)
     n = x.shape[1]
     form = launch_form(n, type3, rows)
-    radix, npoint, fixed = form == "radix", form == "npoint", form == "fixed"
+    radix, npoint = form == "radix", form == "npoint"
     if radix and rows and x.data_ptr() % 16:
         x = x.clone()          # the radix rows read 16-byte quads
     y = torch.empty_like(x)
@@ -567,7 +576,7 @@ def _launch(wrapper, x: torch.Tensor, scale, type3: bool, rows: bool) -> torch.T
     if radix:
         if not rows:
             c = dct2_mid_cols(n // 2, x.shape[0], x.shape[2], num_sms(x.device))
-            dct_radix_launch(x, y, 2, scale, c, ldg=c <= 2)
+            dct_radix_launch(x, y, 3 if type3 else 2, scale, c, ldg=c <= 2)
         elif type3:
             dct3_rows_radix_launch(x, y, scale)
         else:
@@ -575,7 +584,7 @@ def _launch(wrapper, x: torch.Tensor, scale, type3: bool, rows: bool) -> torch.T
         wrapper.radix_launches += 1
     else:
         bts2_launch(x, y, scale, type3, rows, form)
-        wrapper.wide_launches += not (fixed or npoint)
+        wrapper.wide_launches += not npoint
         wrapper.npoint_launches += npoint
     wrapper.launches += 1
     return y
@@ -583,14 +592,14 @@ def _launch(wrapper, x: torch.Tensor, scale, type3: bool, rows: bool) -> torch.T
 
 def bts2_launch(x: torch.Tensor, y: torch.Tensor, scale, type3: bool, rows: bool,
                 form: str) -> None:
-    """Launch kernels 23 to 26's bts2 ``form`` ("fixed": kernel 26 alone,
-    "wide" or "npoint", :func:`launch_form`'s names) on the float32 CUDA
-    tensor x ((T, n) if ``rows`` else (B, n, L)) into y, at any n that
-    :func:`dct_form` takes in that form; counts nothing. (Kernels 23 to 25
-    launch it where :func:`dct2_nat_radix` fails; chip_smoke.py times the
-    forms the radix cores replaced with it.)"""
+    """Launch kernels 23 to 26's bts2 ``form`` ("wide" or "npoint",
+    :func:`launch_form`'s names) on the float32 CUDA tensor x ((T, n) if
+    ``rows`` else (B, n, L)) into y, at any n that :func:`dct_form` takes in
+    that form; counts nothing. (The wrappers launch it where
+    :func:`dct2_nat_radix` fails; chip_smoke.py times the forms the radix
+    cores replaced with it.)"""
     n = x.shape[1]
-    npoint, fixed = form == "npoint", form == "fixed"
+    npoint = form == "npoint"
     dev = x.device
     s = _scale(scale)
     core = n if npoint else n // 2          # the length of the core's transform
@@ -603,22 +612,15 @@ def bts2_launch(x: torch.Tensor, y: torch.Tensor, scale, type3: bool, rows: bool
         c1 = _device_ab(n, 1.0, dev) if type3 else _device_tw(n, dev)
         c2 = _device_twiddle("pre" if type3 else "post", n, s, dev)
     nb, cols = (1, x.shape[0]) if rows else (x.shape[0], x.shape[2])
-    sms = num_sms(dev)
-    lib = _build.lib()
-    ptrs = (x.data_ptr(), y.data_ptr(), wq.data_ptr())
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    wf = device_wide(core, sign, dev).data_ptr()
+    c = wide_block(core, nb, cols, num_sms(dev), wide_real_bytes if npoint else wide_bytes)
+    shape = (cols, n) if rows else (nb, n, cols)
+    entry = f"ndfft_dct_{'nat' if rows else 'mid'}_{'npoint' if npoint else 'wide'}"
+    consts = (c2.data_ptr(),) if npoint else (c1.data_ptr(), c2.data_ptr())
     with torch.cuda.device(dev):
-        if fixed:               # kernel 26 alone: the others' fixed lengths are radix ones
-            entry = "ndfft_dct3_mid"
-            err = lib.ndfft_dct3_mid(*ptrs, c1.data_ptr(), c2.data_ptr(), nb, n, cols,
-                                     block_cols(core, nb, cols, sms), stream)
-        else:
-            wf = device_wide(core, sign, dev).data_ptr()
-            c = wide_block(core, nb, cols, sms, wide_real_bytes if npoint else wide_bytes)
-            shape = (cols, n) if rows else (nb, n, cols)
-            entry = f"ndfft_dct_{'nat' if rows else 'mid'}_{'npoint' if npoint else 'wide'}"
-            consts = (c2.data_ptr(),) if npoint else (c1.data_ptr(), c2.data_ptr())
-            err = getattr(lib, entry)(int(type3), *ptrs, wf, *consts, *shape, c, stream)
+        err = getattr(_build.lib(), entry)(
+            int(type3), x.data_ptr(), y.data_ptr(), wq.data_ptr(), wf, *consts, *shape, c,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, entry)
 
 
@@ -634,9 +636,8 @@ def _dct_wrapper(name: str, plain, type3: bool, rows: bool, doc: str):
     wrapper.__name__ = wrapper.__qualname__ = name
     wrapper.__doc__ = doc + (
         " A CPU tensor runs the plain version; a CUDA tensor launches the kernel "
-        "(kernels 23 to 25 on the radix cores where dct2_nat_radix(n) holds; else "
-        "the fixed core, the wide core's half-length form or the n-point form, by "
-        "dct_form(n)) or raises.")
+        "(on the radix cores where dct2_nat_radix(n) holds; else the wide core's "
+        "half-length form or the n-point form, by dct_form(n)) or raises.")
     wrapper.launches = wrapper.wide_launches = wrapper.npoint_launches = 0
     return wrapper
 
@@ -659,7 +660,8 @@ dct2_mid.radix_launches = 0
 dct3_mid = _dct_wrapper(
     "dct3_mid", dct3_mid_plain, True, False,
     "scale * DCT-III along dim 1 of a (B, n, L) float32 tensor (kernel 26), n = 128 * k "
-    "(dct_form).")
+    "(dct_form); its radix column tile's launches are counted in radix_launches as well.")
+dct3_mid.radix_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -908,23 +910,74 @@ dct23_blue_mid.radix_launches = 0
 
 
 def spectral_dct_mid_plain(x: torch.Tensor, hv: torch.Tensor, s2=None, s3=None) -> torch.Tensor:
-    """Plain version of kernel 29: the bts2 forms' DCT-II (:func:`_dct2_plain`,
-    kernel 25's until it left for the radix column tile) times s2, the
-    product with the real H ((n, 1) or (n, L)), kernel 26's DCT-III times
-    s3."""
+    """Plain version of kernel 29: s3 * DCT-III(H * s2 * DCT-II(x)) along
+    dim 1 of (B, n, L), H real ((n, 1) or (n, L)), in the form the kernel
+    takes at n: where :func:`dct2_nat_radix` holds the arithmetic of the two
+    radix forms it fuses (:func:`dct_radix_plain` of type 2, the product,
+    :func:`dct_radix_plain` of type 3), else the bts2 forms' (:func:`_dct2_plain`,
+    :func:`_dct3_plain`)."""
+    if dct2_nat_radix(x.shape[1]):
+        return dct_radix_plain(dct_radix_plain(x, 2, s2) * hv, 3, s3)
     return _dct3_plain(_dct2_plain(x, s2) * hv, s3)
+
+
+SPECTRAL_DCT_WIDE_H = 640   # kernel 29's wide column tiles from this half length on
+SPECTRAL_DCT_MAX_C = 8      # and at most this many columns in them
+
+
+def spectral_dct_cols(h: int, groups: int, cols: int, sms: int) -> int:
+    """Columns per tile of kernel 29 on the radix column tile at half length
+    h: kernel 18's rule (:func:`~.rfft.packed_mid_cols`) with wide tiles of
+    at most SPECTRAL_DCT_MAX_C columns from h = SPECTRAL_DCT_WIDE_H on: below
+    it :func:`~.fft.radix_mid_cols` (the 16-element form), from it the
+    largest power of two up to 8 whose tile a block takes in the 32- or
+    40-element form, halved while the grid would leave SMs idle; the
+    fastest at each shape timed. (On an NVIDIA H100 80GB HBM3 at 700 W,
+    time_kernels.py --scan-dct-mid, C = 1, 2, 4, 8, 16: at S3's
+    (1, 1024, 1048576) with a lane-varying H 56.4, 31.1, 21.1, 18.1, 18.2 ms
+    (takes 8); at (1, 2048, 4096) 0.363, 0.266, 0.234, 0.177, 0.177 (8); at
+    (8, 1280, 8192) 3.81, 2.79, 2.21, 1.60, 1.81 (8, where kernel 25's rule
+    took 4); at (1, 1152, 1152) 0.096, 0.072, 0.065, 0.081, 0.078 (h = 576:
+    4); one column at (1, 31104, 31104), 54.3 ms with the read-only load that
+    the wrapper takes at C <= 2, 57.7 evict-first.)"""
+    return packed_mid_cols(h, groups, cols, sms, wide_from=SPECTRAL_DCT_WIDE_H,
+                           most=SPECTRAL_DCT_MAX_C)
+
+
+def spectral_dct_radix_launch(x: torch.Tensor, y: torch.Tensor, hv: torch.Tensor, s2, s3,
+                              c: int, ldg: bool = False) -> None:
+    """Launch kernel 29 on the radix column tile, ``c`` columns a tile
+    (:func:`spectral_dct_cols`), on the (B, n, L) float32 CUDA tensor x into
+    y with the contiguous float32 multiplier hv ((n, 1) or (n, L);
+    ``csrc/spectral_dct_radix.cu``), x loaded through the read-only path if
+    ``ldg``, else evict-first; counts nothing."""
+    nb, n, cols = x.shape
+    dev = x.device
+    h = n // 2
+    plan = radix_plan(h)
+    with torch.cuda.device(dev):
+        err = _build.lib().ndfft_spectral_dct_radix(
+            x.data_ptr(), y.data_ptr(), hv.data_ptr(), hv.shape[1],
+            device_radix(h, -1, dev).data_ptr(), (ctypes.c_int * RADIX_MAX_STAGES)(*plan),
+            len(plan), _device_tw(n, dev).data_ptr(),
+            _device_twiddle("post", n, _scale(s2), dev).data_ptr(),
+            _device_ab(n, 1.0, dev).data_ptr(),
+            _device_twiddle("pre", n, _scale(s3), dev).data_ptr(), nb, n, cols, c, int(ldg),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ndfft_spectral_dct_radix")
 
 
 def spectral_dct_mid(x: torch.Tensor, hv: torch.Tensor, s2=None, s3=None) -> torch.Tensor:
     """s3 * DCT-III(H * s2 * DCT-II(x)) (the rustdct convention) along dim 1
     of a (B, n, L) float32 tensor, n = 128 * k in a form of :func:`dct_form`;
     H is a float32 (n, 1) or (n, L) tensor. A CPU tensor runs the plain
-    version; a CUDA tensor launches kernel 29 (the fixed core at h = n/2 =
-    128 * F, F in {2, 4, 8, 16}; the wide core's half-length form at other
-    F; the n-point form on the real tile at odd k <= 255) or raises."""
+    version; a CUDA tensor launches kernel 29 (on the radix column tile where
+    :func:`dct2_nat_radix` holds, counted in ``radix_launches`` as well;
+    else the wide core's half-length form at even k and the n-point form on
+    the real tile at odd k <= 255) or raises."""
     _check_form(x, False, "spectral_dct_mid")
     nb, n, cols = x.shape
-    hc = check_mult(hv, x, n, "spectral_dct_mid")
+    check_mult(hv, x, n, "spectral_dct_mid")
     if x.device.type == "cpu":
         return spectral_dct_mid_plain(x, hv, s2, s3)
     if x.device.type != "cuda":
@@ -934,43 +987,54 @@ def spectral_dct_mid(x: torch.Tensor, hv: torch.Tensor, s2=None, s3=None) -> tor
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
+    form = launch_form(n, False, False)
+    if form == "radix":
+        c = spectral_dct_cols(n // 2, nb, cols, num_sms(x.device))
+        spectral_dct_radix_launch(x, y, hv, s2, s3, c, ldg=c <= 2)
+        spectral_dct_mid.radix_launches += 1
+    else:
+        spectral_dct_bts2_launch(x, y, hv, s2, s3, form)
+        spectral_dct_mid.wide_launches += form == "wide"
+        spectral_dct_mid.npoint_launches += form == "npoint"
+    spectral_dct_mid.launches += 1
+    return y
+
+
+def spectral_dct_bts2_launch(x: torch.Tensor, y: torch.Tensor, hv: torch.Tensor, s2, s3,
+                             form: str) -> None:
+    """Launch kernel 29's bts2 ``form`` ("wide": the half length on the wide
+    core, or "npoint": the n-point form on the real tile, :func:`launch_form`'s
+    names) on the (B, n, L) float32 CUDA tensor x into y with the contiguous
+    float32 multiplier hv, at any n that :func:`dct_form` takes in that form
+    (``csrc/spectral_dct_mid.cu``); counts nothing. (The wrapper launches it
+    where :func:`dct2_nat_radix` fails; chip_smoke.py times the forms the
+    radix column tile replaced with it.)"""
+    nb, n, cols = x.shape
     dev = x.device
-    form, f = dct_form(n)
-    npoint = form == "npoint"
-    fixed = not npoint and f in CORE_F
-    a2, a3 = _scale(s2), _scale(s3)
-    post = _device_twiddle("post", n, a2, dev).data_ptr()
-    args = (x.data_ptr(), y.data_ptr(), hv.data_ptr(), hc)
     sms = num_sms(dev)
+    post = _device_twiddle("post", n, _scale(s2), dev).data_ptr()
+    args = (x.data_ptr(), y.data_ptr(), hv.data_ptr(), hv.shape[1])
     stream = torch.cuda.current_stream(dev).cuda_stream
-    lib = _build.lib()
     with torch.cuda.device(dev):
-        if npoint:
-            err = lib.ndfft_spectral_dct_mid_npoint(
+        if form == "npoint":
+            entry = "ndfft_spectral_dct_mid_npoint"
+            err = _build.lib().ndfft_spectral_dct_mid_npoint(
                 *args, device_wq(n, -1, 1.0, dev).data_ptr(), device_wide(n, -1, dev).data_ptr(),
-                post, _device_twiddle("chirp_npoint", n, a3, dev).data_ptr(), nb, n, cols,
-                wide_block(n, nb, cols, sms, wide_real_bytes), stream)
+                post, _device_twiddle("chirp_npoint", n, _scale(s3), dev).data_ptr(), nb, n,
+                cols, wide_block(n, nb, cols, sms, wide_real_bytes), stream)
         else:
             h = n // 2
-            wq_fwd, wq_inv = device_wq(h, -1, 1.0, dev), device_wq(h, +1, 1.0, dev)
-            tw, ab = _device_tw(n, dev).data_ptr(), _device_ab(n, 1.0, dev).data_ptr()
-            pre = _device_twiddle("pre", n, a3, dev).data_ptr()
-            if fixed:
-                err = lib.ndfft_spectral_dct_mid(
-                    *args, wq_fwd.data_ptr(), tw, post, wq_inv.data_ptr(), ab, pre, nb, n, cols,
-                    block_cols(h, nb, cols, sms), stream)
-            else:
-                err = lib.ndfft_spectral_dct_mid_wide(
-                    *args, wq_fwd.data_ptr(), device_wide(h, -1, dev).data_ptr(), tw, post,
-                    wq_inv.data_ptr(), device_wide(h, +1, dev).data_ptr(), ab, pre, nb, n,
-                    cols, wide_block(h, nb, cols, sms), stream)
-    _build.check(err, "spectral_dct_mid")
-    spectral_dct_mid.launches += 1
-    spectral_dct_mid.wide_launches += not (fixed or npoint)
-    spectral_dct_mid.npoint_launches += npoint
-    return y
+            entry = "ndfft_spectral_dct_mid_wide"
+            err = _build.lib().ndfft_spectral_dct_mid_wide(
+                *args, device_wq(h, -1, 1.0, dev).data_ptr(), device_wide(h, -1, dev).data_ptr(),
+                _device_tw(n, dev).data_ptr(), post, device_wq(h, +1, 1.0, dev).data_ptr(),
+                device_wide(h, +1, dev).data_ptr(), _device_ab(n, 1.0, dev).data_ptr(),
+                _device_twiddle("pre", n, _scale(s3), dev).data_ptr(), nb, n, cols,
+                wide_block(h, nb, cols, sms), stream)
+    _build.check(err, entry)
 
 
 spectral_dct_mid.launches = 0
 spectral_dct_mid.wide_launches = 0
 spectral_dct_mid.npoint_launches = 0
+spectral_dct_mid.radix_launches = 0

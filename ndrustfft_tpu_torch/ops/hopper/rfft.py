@@ -639,11 +639,12 @@ def _launch_dct1_mid(x: torch.Tensor, y: torch.Tensor, h: int, scale: float,
 PACKED_MID_MAX_C = 16   # kernel 18's widest tile from h = 1024 on (64 bytes a stream row)
 
 
-def packed_mid_cols(h: int, groups: int, cols: int, sms: int, wide_from: int = 1024) -> int:
+def packed_mid_cols(h: int, groups: int, cols: int, sms: int, wide_from: int = 1024,
+                    most: int = PACKED_MID_MAX_C) -> int:
     """Columns per tile of kernel 18 at half length h: below h = ``wide_from``
     :func:`r2c_mid_cols` at n = 2h (:func:`~.fft.radix_mid_cols` at h, the
-    16-element form); from there on the largest power of two up to
-    PACKED_MID_MAX_C whose tile a block takes in the 32- or 40-element form
+    16-element form); from there on the largest power of two up to ``most``
+    whose tile a block takes in the 32- or 40-element form
     (16 at h = 1024 and 1280, 8 to 2048, 4 to 4096, 2 to 10240, 1 above),
     halved while the grid would leave SMs idle. (On an H100,
     time_kernels.py --scan-cols and chip_smoke.py phase 5: at the Dirichlet
@@ -652,7 +653,7 @@ def packed_mid_cols(h: int, groups: int, cols: int, sms: int, wide_from: int = 1
     1.1-3.1x faster than the 16-element form's 1 or 2.)"""
     if h < wide_from:
         return r2c_mid_cols(2 * h, groups, cols, sms)
-    c = PACKED_MID_MAX_C
+    c = most
     while c > 1 and (h * c > RADIX_MAX_ELEMS or radix_cols_threads(h, c) > 2 * RADIX_MAX_THREADS):
         c //= 2
     while c > 1 and groups * -(-cols // c) < sms:

@@ -480,15 +480,14 @@ def test_real_step_768_runs_on_the_wide_kernels(dev):
 
 def test_dct23_kernels_match_plain_in_every_form(dev):
     """Kernels 23 to 26 in their forms (kernels 23 and 24 on the radix row
-    core and kernel 25 on the radix column tile where n/2 has a plan, else
-    the wide core's half length or the n-point form; kernel 26 on the fixed
-    core, the wide core's half length or the n-point form) and kernels
+    core and kernels 25 and 26 on the radix column tile where n/2 has a
+    plan, else the wide core's half length or the n-point form) and kernels
     16/17: ragged row and column tiles, prime F = 131 (the n-point form at
     k = 131 and the half length at k = 262, where n/2 has no plan), the
     largest tiles (n-point F = 159, half length F = 128: one transform per
     tile)."""
     g = torch.Generator(device=dev).manual_seed(12)
-    forms = {"fixed": 0, "wide": 0, "npoint": 0, "radix": 0}
+    forms = {"wide": 0, "npoint": 0, "radix": 0}
 
     def counts(wrapper):
         return (wrapper.launches, wrapper.wide_launches, wrapper.npoint_launches,
@@ -499,8 +498,8 @@ def test_dct23_kernels_match_plain_in_every_form(dev):
         got = wrapper(x, scale)
         assert _rel(got, plain(x, scale)) <= TOL, (wrapper.__name__, tuple(x.shape))
         d = [a - b for a, b in zip(counts(wrapper), before)]
-        assert d[0] == 1 and d[1] + d[2] + d[3] <= 1
-        forms["wide" if d[1] else "npoint" if d[2] else "radix" if d[3] else "fixed"] += 1
+        assert d[0] == 1 and d[1] + d[2] + d[3] == 1
+        forms["wide" if d[1] else "npoint" if d[2] else "radix"] += 1
 
     for t, n in ((130, 128), (7, 384), (130, 768), (33, 1536), (3, 1152), (2, 128 * 159),
                  (2, 128 * 131), (3, 32768), (130, 1024), (2, 128 * 262)):
@@ -513,9 +512,9 @@ def test_dct23_kernels_match_plain_in_every_form(dev):
         x = torch.randn(*shape, generator=g, device=dev)
         check(kdct.dct2_mid, kdct.dct2_mid_plain, x, 2.0)
         check(kdct.dct3_mid, kdct.dct3_mid_plain, x, None)
-    # kernels 23 to 25 on the radix cores but at n = 128 * 131 and 128 * 262
-    # (no plan of 64 * 131); kernel 26 off them everywhere
-    assert forms == {"fixed": 3, "wide": 7, "npoint": 5, "radix": 25}
+    # kernels 23 to 26 on the radix cores but at n = 128 * 131 and 128 * 262
+    # (no plan of 64 * 131)
+    assert forms == {"wide": 4, "npoint": 2, "radix": 34}
     before = [krfft.r2c_mid.radix_launches, krfft.c2r_mid.radix_launches]
     for shape in ((2, 768, 130), (1, 1280, 129), (1, 40960, 2)):
         x = torch.randn(*shape, generator=g, device=dev)
@@ -532,9 +531,9 @@ def test_dct23_kernels_match_plain_in_every_form(dev):
 
 
 def test_neumann_2d_runs_on_the_dct_kernels(dev):
-    """A 2-D Neumann solve at 1280 x 768 (K26 on the wide core, K25 on the
-    radix column tile, K23 and K24 on the radix row core) against its
-    analytic solution."""
+    """A 2-D Neumann solve at 1280 x 768 (K25 and K26 on the radix column
+    tile, K23 and K24 on the radix row core) against its analytic
+    solution."""
     n0, n1 = 1280, 768
     x0 = (torch.arange(n0, device=dev, dtype=torch.float64) + 0.5) / n0
     x1 = (torch.arange(n1, device=dev, dtype=torch.float64) + 0.5) / n1
@@ -543,7 +542,7 @@ def test_neumann_2d_runs_on_the_dct_kernels(dev):
     h0, h1 = nd.DctHandler(n0), nd.DctHandler(n1)
     h0i = h0.normalization(nd.Normalization.scalar(1 / n0))
     h1i = h1.normalization(nd.Normalization.scalar(1 / n1))
-    fns = ((kdct.dct2_mid, "radix_launches"), (kdct.dct3_mid, "wide_launches"),
+    fns = ((kdct.dct2_mid, "radix_launches"), (kdct.dct3_mid, "radix_launches"),
            (kdct.dct2_nat, "radix_launches"), (kdct.dct3_nat, "radix_launches"))
     before = [getattr(f, a) for f, a in fns]
     fh = nd.nddct2(nd.nddct2(f, h1, axis=1), h0, axis=0)
@@ -719,6 +718,68 @@ def test_dct2_mid_radix_matches_plain(dev):
     assert _rel(kdct.dct2_mid(x, 2.0), kdct.dct2_mid_plain(x, 2.0)) <= TOL
     assert (kdct.dct2_mid.radix_launches - before[0],
             kdct.dct2_mid.npoint_launches - before[1]) == (0, 1)
+
+
+# (B, n, L) shapes of kernels 26 and 29 on the radix column tile: odd and
+# even k, h = 64 ... 16384 (16, 32 and 40 elements a thread), ragged L,
+# B = 1 and 2
+_MID_RADIX_SHAPES = ((2, 128, 130), (1, 384, 5), (2, 1152, 130), (1, 1536, 130), (1, 2048, 33),
+                     (1, 8192, 5), (1, 128 * 159, 3), (1, 32768, 2), (1, 31104, 3))
+_MID_RADIX_COLS = ((1, False), (1, True), (2, False), (2, True), (4, False), (8, False),
+                   (16, False))
+
+
+def test_dct3_mid_radix_matches_plain(dev):
+    """Kernel 26 on the radix column tile (kernel 27's Makhoul C2R): every
+    column count C that fits a tile (at C <= 2 with both loads), every launch
+    counted in ``radix_launches``; the lengths without a plan keep the old
+    forms (n = 128 * 131: the n-point form, 128 * 262: the wide core)."""
+    g = torch.Generator(device=dev).manual_seed(29)
+    before = (kdct.dct3_mid.launches, kdct.dct3_mid.radix_launches)
+    for nb, n, cols in _MID_RADIX_SHAPES:
+        x = torch.randn(nb, n, cols, generator=g, device=dev)
+        for scale in (1.0 / n, None):
+            assert _rel(kdct.dct3_mid(x, scale), kdct.dct_radix_plain(x, 3, scale)) <= TOL, n
+        h = n // 2
+        for c, ldg in _MID_RADIX_COLS:
+            if h * c > kfft.RADIX_MAX_ELEMS or kfft.radix_cols_threads(h, c) > 512:
+                continue
+            y = torch.empty_like(x)
+            kdct.dct_radix_launch(x, y, 3, 0.5, c, ldg)
+            assert _rel(y, kdct.dct_radix_plain(x, 3, 0.5)) <= TOL, (n, c, ldg)
+    assert (kdct.dct3_mid.launches - before[0], kdct.dct3_mid.radix_launches - before[1]) == \
+        (18, 18)
+    before = (kdct.dct3_mid.radix_launches, kdct.dct3_mid.npoint_launches,
+              kdct.dct3_mid.wide_launches)
+    for n in (128 * 131, 128 * 262):
+        x = torch.randn(1, n, 3, generator=g, device=dev)
+        assert _rel(kdct.dct3_mid(x, 2.0), kdct.dct3_mid_plain(x, 2.0)) <= TOL
+    assert (kdct.dct3_mid.radix_launches - before[0], kdct.dct3_mid.npoint_launches - before[1],
+            kdct.dct3_mid.wide_launches - before[2]) == (0, 1, 1)
+
+
+def test_spectral_dct_radix_matches_plain(dev):
+    """Kernel 29 on the radix column tile: the forward Makhoul R2C, the pair
+    pass and the inverse on one tile, at every column count C that fits (at
+    C <= 2 with both loads), broadcast and lane-varying H, every launch
+    through the wrapper counted in ``radix_launches``."""
+    g = torch.Generator(device=dev).manual_seed(30)
+    before = (kdct.spectral_dct_mid.launches, kdct.spectral_dct_mid.radix_launches)
+    for nb, n, cols in _MID_RADIX_SHAPES:
+        x = torch.randn(nb, n, cols, generator=g, device=dev)
+        for hv, s2, s3 in ((torch.randn(n, 1, generator=g, device=dev), 2.0, 1.0 / n),
+                           (torch.randn(n, cols, generator=g, device=dev), None, 0.37)):
+            want = kdct.spectral_dct_mid_plain(x, hv, s2, s3)
+            assert _rel(kdct.spectral_dct_mid(x, hv, s2, s3), want) <= TOL, n
+            h = n // 2
+            for c, ldg in _MID_RADIX_COLS:
+                if h * c > kfft.RADIX_MAX_ELEMS or kfft.radix_cols_threads(h, c) > 512:
+                    continue
+                y = torch.empty_like(x)
+                kdct.spectral_dct_radix_launch(x, y, hv, s2, s3, c, ldg)
+                assert _rel(y, want) <= TOL, (n, c, ldg)
+    assert (kdct.spectral_dct_mid.launches - before[0],
+            kdct.spectral_dct_mid.radix_launches - before[1]) == (18, 18)
 
 
 def test_dct23_blue_radix_matches_plain(dev):
@@ -1209,15 +1270,16 @@ def _spectral_forms():
     return (kfft.spectral_c2c_mid.launches, kfft.spectral_c2c_mid.wide_launches,
             krfft.spectral_r2c_mid.launches, krfft.spectral_r2c_mid.wide_launches,
             kdct.spectral_dct_mid.launches, kdct.spectral_dct_mid.wide_launches,
-            kdct.spectral_dct_mid.npoint_launches)
+            kdct.spectral_dct_mid.npoint_launches, kdct.spectral_dct_mid.radix_launches)
 
 
 def test_spectral_kernels_match_plain_in_each_form(dev):
-    """Kernels 14, 22 and 29 on the fixed core and the wide core (K29 also
-    in the n-point form), ragged column tiles (L = 130, 17, 3), the largest
-    tiles (F = 160 for K14/K22, the n-point F = 159 and the half form
-    F = 128 for K29), broadcast and lane-varying H, real and complex
-    (K14, K22), against their plain versions."""
+    """Kernels 14 and 22 on the fixed core and the wide core, K29 on the
+    radix column tile (at the lengths of its old fixed, wide and n-point
+    forms: h = 64 ... 16384, the odd k included) and at the remnant's
+    n-point k = 131 and wide k = 262, ragged column tiles (L = 130, 17, 3),
+    the largest tiles (F = 160 for K14/K22), broadcast and lane-varying H,
+    real and complex (K14, K22), against their plain versions."""
     g = torch.Generator(device=dev).manual_seed(19)
 
     def randn(*shape):
@@ -1237,20 +1299,22 @@ def test_spectral_kernels_match_plain_in_each_form(dev):
             assert _rel(krfft.spectral_r2c_mid(x, hr, hi, n, s),
                         krfft.spectral_r2c_mid_plain(x, hr, hi, n, s)) <= TOL, (n, cols)
     for nb, n, cols in ((2, 512, 130), (1, 2048, 64), (2, 256, 130), (1, 1280, 130),
-                        (1, 32768, 2), (2, 128, 130), (2, 384, 130), (1, 20352, 3)):
+                        (1, 32768, 2), (2, 128, 130), (2, 384, 130), (1, 20352, 3),
+                        (1, 128 * 131, 3), (1, 128 * 262, 2)):
         x = randn(nb, n, cols)
         for hv, s2, s3 in ((randn(n, 1), 2.0, 2.0), (randn(n, cols), None, 0.37)):
             assert _rel(kdct.spectral_dct_mid(x, hv, s2, s3),
                         kdct.spectral_dct_mid_plain(x, hv, s2, s3)) <= TOL, (n, cols)
-    assert [a - b for a, b in zip(_spectral_forms(), before)] == [10, 6, 8, 4, 16, 6, 6]
+    assert [a - b for a, b in zip(_spectral_forms(), before)] == [10, 6, 8, 4, 20, 2, 2, 16]
 
 
 def test_spectral_functions_run_on_the_fused_kernels(dev):
     """ndspectral_c2c / r2c / dct / dst along axis 0 take one fused launch
     each and agree with the composition of the public transforms; along the
     last axis they compose. The
-    engine never runs; n = 128 * 161 takes one launch of the n-point form
-    (it raised before the long forms were ported)."""
+    engine never runs; n = 128 * 161 takes one launch on the radix column
+    tile (it raised before the long forms were ported, and took the n-point
+    form before kernel 29 moved to the radix column tile)."""
     g = torch.Generator(device=dev).manual_seed(20)
     calls = engine.c2c.calls
     before = _spectral_forms()
@@ -1274,22 +1338,22 @@ def test_spectral_functions_run_on_the_fused_kernels(dev):
     y = nd.ndspectral_dst(xr, hd, None, invs, axis=0)
     want = nd.nddst3(hd[:, None] * nd.nddst2(xr, axis=0), invs, axis=0)
     assert _rel(y, want) <= 1e-5
-    assert [a - b for a, b in zip(_spectral_forms(), before)] == [1, 0, 1, 0, 2, 0, 0]
+    assert [a - b for a, b in zip(_spectral_forms(), before)] == [1, 0, 1, 0, 2, 0, 0, 2]
     nd.ndspectral_r2c(xr.T.contiguous(), torch.ones(513, device=dev), axis=1)   # last axis
     assert krfft.spectral_r2c_mid.launches - before[2] == 1
     xl = torch.randn(128 * 161, 128, generator=g, device=dev)
     hl = torch.rand(128 * 161, generator=g, device=dev)
-    before = kdct.spectral_dct_mid.npoint_launches
+    before = kdct.spectral_dct_mid.radix_launches
     y = nd.ndspectral_dct(xl, hl, axis=0)
-    assert kdct.spectral_dct_mid.npoint_launches - before == 1
+    assert kdct.spectral_dct_mid.radix_launches - before == 1
     assert _rel(y, kdct.spectral_dct_mid_plain(xl[None], hl[:, None], 2.0, 2.0)[0]) <= TOL
     assert engine.c2c.calls == calls
 
 
 def test_long_forms_match_plain(dev):
     """Kernels 23 to 26 and 29 in the n-point form on the real tile at odd
-    k > 160 (n = 20608, 20864 with the prime k = 163, 32640 = 128 * 255;
-    kernel 23 only at 20864, the radix row core at the others), and kernel
+    k > 160 (n = 20864 with the prime k = 163; at n = 20608 and
+    32640 = 128 * 255 the radix cores), and kernel
     28's long form at F = 161, 163 and 256 (n = 41216, 41728,
     65536): one launch each, against the plain versions, with ragged
     column tiles and a broadcast and a lane-varying H."""
@@ -1315,8 +1379,7 @@ def test_long_forms_match_plain(dev):
     after = [(f.launches, f.npoint_launches) for f in
              (kdct.dct2_nat, kdct.dct3_nat, kdct.dct2_mid, kdct.dct3_mid,
               kdct.spectral_dct_mid)]
-    assert [(a - c, b - d) for (a, b), (c, d) in zip(after, before)] == \
-        [(6, 2)] * 3 + [(6, 6)] * 2
+    assert [(a - c, b - d) for (a, b), (c, d) in zip(after, before)] == [(6, 2)] * 5
     before = (kdct.dct4_mid.launches, kdct.dct4_mid.long_launches, kdct.dct4_mid.wide_launches)
     for n in (41216, 41728, 65536):
         x = randn(2, n, 130)

@@ -4,10 +4,9 @@ interpret mode on the CPU, where the wrappers run their plain versions:
 
 * ``dct2_mid`` / ``dct3_mid`` against ``dct2_pallas_mid`` /
   ``dct3_pallas_mid`` at n = 1152, 1280 and 2048, L = 128 and a ragged 130,
-  nb = 1 and 2: kernel 25 on the radix column tile at all three (the
-  n-point form, the wide core's half length and the fixed core until it
-  moved there), kernel 26 in the n-point form (F = 9), on the wide core's
-  half length (F = 5) and on the fixed core (F = 8);
+  nb = 1 and 2: kernels 25 and 26 on the radix column tile at all three
+  (the n-point form, the wide core's half length and the fixed core until
+  they moved there);
 * ``r2c_mid`` (the radix column tile) / ``c2r_mid`` (the wide core) against
   ``r2c_pallas_mid`` / ``c2r_pallas_mid`` at n = 768 and 1280;
 * ``dct2_nat`` / ``dct3_nat`` against ``dct2_pallas`` / ``dct3_pallas`` at
@@ -77,9 +76,7 @@ def _real(shape, seed):
 def test_mid_plain_matches_pallas(n, form, nb, cols, kernel, ref, scale):
     assert kdct.dct_form(n) == form
     type3 = kernel is kdct.dct3_mid
-    want = ("radix" if not type3 else form[0] if form[0] == "npoint"
-            else "fixed" if form[1] in kfft.CORE_F else "wide")
-    assert kdct.launch_form(n, type3, False) == want
+    assert kdct.launch_form(n, type3, False) == "radix"
     x = _real((nb, n, cols), n + nb + cols)
     got = kernel(torch.from_numpy(x), scale)             # CPU: the plain version
     assert got.dtype == F32 and got.shape == (nb, n, cols)
@@ -100,18 +97,12 @@ def test_mid_plain_matches_float64_oracle(n):
 
 
 def test_mid_is_the_row_kernels_on_a_transposed_view():
-    """Kernel 25 is kernel 23's Makhoul R2C on the radix core in the column
-    layout, and kernel 26 is kernel 24's bts2 arithmetic in the column
-    layout (kernel 24 keeps it at the lengths without a radix plan of n/2;
-    at these lengths it runs the radix row core, whose plain version
-    tests/test_torch_dct3_rows_radix.py holds against the JAX package)."""
-    def dct3_rows_bts2(r, scale):
-        return kdct._dct3_plain(r[:, :, None], scale)[:, :, 0]
-
+    """Kernels 25 and 26 are kernels 23's Makhoul R2C and 24's Makhoul C2R
+    on the radix core in the column layout."""
     for n in (1152, 1280, 2048):
         x = torch.from_numpy(_real((2, n, 3), n))
         rows = x.transpose(1, 2).reshape(6, n)
-        for mid, nat in ((kdct.dct2_mid, kdct.dct2_nat), (kdct.dct3_mid, dct3_rows_bts2)):
+        for mid, nat in ((kdct.dct2_mid, kdct.dct2_nat), (kdct.dct3_mid, kdct.dct3_nat)):
             torch.testing.assert_close(mid(x, 0.5).transpose(1, 2).reshape(6, n),
                                        nat(rows, 0.5), rtol=0, atol=1e-5)
 

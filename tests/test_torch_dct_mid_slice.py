@@ -8,11 +8,11 @@ port's kernel routes run their plain versions:
   (ragged columns) and (2048, 128), and along axis 1 of (2, 1152, 128),
   under the four normalizations (none, Default, scalar, custom): the
   DCT-II kinds on kernel 25's radix column tile, the DCT-III kinds on
-  kernel 26's n-point form, the wide core's half length and the fixed core;
-* the slice as a whole: 2-D Neumann Poisson solves at 1152 x 384 (K26 in
-  the n-point form; K25, K23 and K24 on the radix cores) and 1280 x 768
-  (K26 on the wide core's half length), against the JAX package and the
-  analytic solution.
+  kernel 26's (the lengths of its n-point form, the wide core's half
+  length and the fixed core until they moved there);
+* the slice as a whole: 2-D Neumann Poisson solves at 1152 x 384 and
+  1280 x 768 (K25, K26, K23 and K24 on the radix cores; K26's n-point and
+  wide forms before), against the JAX package and the analytic solution.
 
 Each case asserts its route on a CUDA tensor (api._route) and the form its
 kernel launches there (dct.py::launch_form). Tolerance:
@@ -84,9 +84,7 @@ def test_mid_matches_reference(shape, axis, form, name, norm):
         assert api._route(name[2:], shape, axis, F32, device_type) == route
     assert kdct.dct_form(n)[0] == form
     type3 = route == api.DCT3_MID
-    want = "radix" if not type3 else form if form == "npoint" else kdct.launch_form(n, True, False)
-    assert kdct.launch_form(n, type3, False) == want
-    assert want in (("npoint", "wide", "fixed") if type3 else ("radix",))
+    assert kdct.launch_form(n, type3, False) == "radix"
     rcls = ref.DctHandler if "dct" in name else ref.DstHandler
     pcls = port.DctHandler if "dct" in name else port.DstHandler
     rh = rcls(n).normalization(_norm(norm))
@@ -115,8 +113,8 @@ def _neumann_2d(mod, f, handlers):
 
 
 @pytest.mark.parametrize("shape,routes", [
-    ((1152, 384), ("npoint", "radix")),     # K26 in the n-point form; K25, K23, K24 radix
-    ((1280, 768), ("wide", "radix")),       # K26 on the wide core's half length
+    ((1152, 384), ("radix", "radix")),      # K26 at the n-point form's length; all radix
+    ((1280, 768), ("radix", "radix")),      # K26 at the wide core's half length; all radix
 ])
 def test_neumann_2d_matches_reference(shape, routes):
     n0, n1 = shape

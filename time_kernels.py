@@ -137,7 +137,10 @@ With --dct it times instead kernels 23 and 24 (dct2_nat, scale 2;
 dct3_nat, scale 1/n) at (262144, 512), (1048576, 1024), (2359296, 1536),
 (31104, 31104) and the odd-k (65536, 1152), kernels 25 and 26 (dct2_mid,
 dct3_mid) at the same solves' shapes along a middle axis and at
-(1, 2048, 2048) and (1, 1152, 1152), and kernel 12
+(1, 2048, 2048) and (1, 1152, 1152), kernel 29 (spectral_dct_mid, s2 = 2,
+s3 = 1/n) at S3's (1, 1024, 1048576) and G1's (1, 31104, 31104) with a
+lane-varying H and at (1, 2048, 4096), (8, 1280, 8192) and (1, 1152, 1152)
+with a broadcast one, and kernel 12
 (dct23_blue_mid, DCT-II with scale 2 and DCT-III) at (1, 2049, 524544)
 and (2049, 2049, 256), each with a digest of its output; kernel 11 (c2c_blue_mid) at (1, 509, 259081), kernel 20's
 chirp-z (r2c_dense_mid) at (1, 262, 65536), kernel 21's (c2r_dense_mid,
@@ -150,10 +153,18 @@ ndspectral_dct variant (nddct2 along axis 1, ndspectral_dct along axis 0
 with a lane-varying H, nddct3 back), the 1536^3 pair (nddct2 along
 axes 2, 1, 0, nddct3 back) and S3's 1024^3 Neumann solve (as with
 --dense), over --reps-big runs; then the registers and spill bytes
-(ptxas -v) of the wide and n-point DCT kernels (kernels 23 to 25's
-remnant and 26), the DCT kernels on the radix cores and on the fixed core
-and every chirp-z kernel (kernels 11, 20, 21, 15's rows and 12). It uses only public
+(ptxas -v) of the wide and n-point DCT kernels (kernels 23 to 26's
+remnant), the DCT kernels on the radix cores, kernel 29's and every
+chirp-z kernel (kernels 11, 20, 21, 15's rows and 12). It uses only public
 wrappers, so --root may name the parent tree.
+
+With --scan-dct-mid it times instead kernels 26 and 29 on the radix column
+tile at each column count C = 1 ... 16 that fits, at C <= 2 with both
+loads: kernel 26 at (1, 1536, 2359296),
+(1536, 1536, 1536), (1, 2048, 2048), (1, 1152, 1152) and (1, 31104, 31104),
+kernel 29 at the shapes of --dct; beside the counts dct.py::dct2_mid_cols
+and spectral_dct_cols pick, then both kernels' ptxas registers and spill
+bytes.
 
 With --scan-dense it times instead kernels 21 and 27 on the radix column
 tile at each column count C that fits, beside the counts that
@@ -191,6 +202,7 @@ def main() -> int:
     ap.add_argument("--dense", action="store_true")
     ap.add_argument("--dct", action="store_true")
     ap.add_argument("--scan-dense", action="store_true")
+    ap.add_argument("--scan-dct-mid", action="store_true")
     ap.add_argument("--route-dense", default=None, metavar="JSON")
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--route-kernels", nargs="*", default=[21, 27, 20, 15], type=int)
@@ -279,6 +291,8 @@ def main() -> int:
 
     if args.scan_dense:
         return scan_dense(torch, kfft, krfft, kdct, dev, gen, crandn, ms, card, root)
+    if args.scan_dct_mid:
+        return scan_dct_mid(torch, kfft, kdct, dev, gen, ms, args.reps_big, card, root)
     if args.route_dense:
         return route_dense(torch, kfft, krfft, kdct, dev, gen, crandn, ms, card, root,
                            args.route_dense, args.route_kernels)
@@ -287,7 +301,7 @@ def main() -> int:
         dct(torch, nd, kfft, krfft, kdct, dev, gen, crandn, ms, args.reps_big, out)
         print(json.dumps({"root": root, "card": card, "ms_and_digest": out,
                           "ptxas": ptxas_entries(("dct3", "Dct3", "dct2_mid", "dct2_wide",
-                                                  "dct2_npoint", "Makhoul",
+                                                  "dct2_npoint", "Makhoul", "spectral_dct",
                                                   "blue_radix_kernel"))}), flush=True)
         return 0
     if args.dense:
@@ -780,6 +794,56 @@ def scan_dense(torch, kfft, krfft, kdct, dev, gen, crandn, ms, card, root):
     return 0
 
 
+def scan_dct_mid(torch, kfft, kdct, dev, gen, ms, reps_big, card, root):
+    """Kernels 26 and 29 on the radix column tile at each column count
+    C = 1 ... 16 that fits (the 16- and the 32/40-element forms), at C <= 2
+    with both loads (evict-first and read-only), beside the counts
+    dct.py::dct2_mid_cols and spectral_dct_cols pick; then the ptxas
+    registers and spill bytes of both kernels' instantiations."""
+    sms = kfft.num_sms(dev)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def counts(h):
+        for c in (1, 2, 4, 8, 16):
+            if h * c <= kfft.RADIX_MAX_ELEMS and kfft.radix_cols_threads(h, c) <= 512:
+                for ldg in ((False, True) if c <= 2 else (False,)):
+                    yield c, ldg
+
+    scan = {}
+    for shape in ((1, 1536, 1536 * 1536), (1536, 1536, 1536), (1, 2048, 2048), (1, 1152, 1152),
+                  (1, 31104, 31104)):
+        nb, n, cols = shape
+        x = randn(*shape)
+        y = torch.empty_like(x)
+        reps = reps_big if x.numel() > 1 << 28 else None
+        by = {f"{c}{'_ldg' if ldg else ''}":
+              ms(lambda: kdct.dct_radix_launch(x, y, 3, 1.0 / n, c, ldg), reps)
+              for c, ldg in counts(n // 2)}
+        scan[f"dct3_mid_{nb}x{n}x{cols}"] = {
+            "ms_by_cols_per_tile": by, "chosen": kdct.dct2_mid_cols(n // 2, nb, cols, sms)}
+        del x, y
+        torch.cuda.empty_cache()
+    for shape, hcols in (((1, 1024, 1024 * 1024), 1024 * 1024), ((1, 2048, 4096), 1),
+                         ((8, 1280, 8192), 1), ((1, 1152, 1152), 1), ((1, 31104, 31104), 31104)):
+        nb, n, cols = shape
+        x = randn(*shape)
+        hv = randn(n, hcols)
+        y = torch.empty_like(x)
+        reps = reps_big if x.numel() > 1 << 28 else None
+        by = {f"{c}{'_ldg' if ldg else ''}":
+              ms(lambda: kdct.spectral_dct_radix_launch(x, y, hv, 2.0, 1.0 / n, c, ldg), reps)
+              for c, ldg in counts(n // 2)}
+        scan[f"spectral_dct_mid_{nb}x{n}x{cols}_h{hcols}"] = {
+            "ms_by_cols_per_tile": by, "chosen": kdct.spectral_dct_cols(n // 2, nb, cols, sms)}
+        del x, hv, y
+        torch.cuda.empty_cache()
+    print(json.dumps({"root": root, "card": card, "dct_mid_scan": scan,
+                      "ptxas": ptxas_entries(("spectral_dct", "Dct3ColILb"))}), flush=True)
+    return 0
+
+
 def route_dense(torch, kfft, krfft, kdct, dev, gen, crandn, ms, card, root, path, kernels):
     """Kernel 27 at every length with a radix plan, on the radix column
     tile (the wrapper's column count) and on the dense product; kernels 21
@@ -972,6 +1036,23 @@ def dct(torch, nd, kfft, krfft, kdct, dev, gen, crandn, ms, reps_big, out):
                 out[key(name, view)] = (ms(fn, big(x)), None, digest(fn()))
             del v
         del x
+        torch.cuda.empty_cache()
+    # kernel 29 at its main shapes: S3's (1, 1024, 1048576) and G1's
+    # (1, 31104, 31104) with a lane-varying H, the Dirichlet solve's
+    # (1, 2048, 4096), the spectral lengths' (8, 1280, 8192) and
+    # (1, 1152, 1152) with a broadcast one
+    for shape, hcols in (((1, 1024, 1024 * 1024), 1024 * 1024), ((1, 2048, 4096), 1),
+                         ((8, 1280, 8192), 1), ((1, 1152, 1152), 1), ((1, 31104, 31104), 31104)):
+        x = randn(*shape)
+        n = shape[1]
+        hv = randn(n, hcols)
+
+        def fused():
+            return kdct.spectral_dct_mid(x, hv, 2.0, 1.0 / n)
+
+        out[key("spectral_dct_mid", shape, f"h{hcols}")] = (ms(fused, big(x)), None,
+                                                             digest(fused()))
+        del x, hv
         torch.cuda.empty_cache()
     # kernel 12 and the permutations around it (ops/dct.py)
     from ndrustfft_tpu_torch.ops import dct as tdct
