@@ -12,7 +12,9 @@ without the final line):
      forms of kernels 20, 21, 15 and 12 at each column or row count a tile,
      kernels 23 and 24 on the radix row core at each count of rows a
      block, kernels 25, 26 and 29 on the radix column tile at each column
-     count C), and the census of kernels 24, 25, 26 and 29 against their
+     count C, kernel 28's four-step at forced short splits against its
+     plain version and the single pass's), and the census of kernels 24,
+     25, 26 and 29 against their
      plain versions at each of their 259 radix lengths (within 2e-6 of the
      peak; kernel 29, two transforms, within 5e-6);
   4. the main paths through the public functions, each with every launch
@@ -106,7 +108,8 @@ without the final line):
         axis 2), each forward spectrum against its exact sparse values and
         each solution against the analytic one, slab by slab in float64;
         DST-I, DCT-I, DCT-IV and DST-IV along axis 0 at 255 ... 40960
-        against float64 scipy.fft (DCT-IV at 41216 on K28's long form);
+        against float64 scipy.fft (DCT-IV at 41216 on K28's four-step,
+        41728 in its long form and 33536 on its wide core);
         each solve kernel at its shape against its plain version slice by
         slice, their times (K18 against torch.fft.rfft of the interleaved
         column), the solves' times and the Dirichlet solve against a
@@ -170,15 +173,16 @@ without the final line):
         Dirichlet leg's shape);
      m. the long DCT lengths (kernels 23 to 26 and 29 at n = 128 k, odd
         k > 160: on the radix cores where n/2 has a plan, in the n-point
-        form on the wide core's real tile at the prime k; kernel 28's
-        long form at n = 256 F, F > 160): G1, the cell-centred Neumann
+        form on the wide core's real tile at the prime k; kernel 28 at
+        n = 256 F, F > 160: the column four-step, the long form at a prime
+        F): G1, the cell-centred Neumann
         Poisson solve on a 31104^2 grid (F = 243) through dctn / idctn of
         type 2 (K23 on the radix row core and K25, then K26 on the radix
         column tile and K24 on the radix row core) and again with
         ndspectral_dct on axis 0 and the lane-varying H = 1/lambda (K23,
         K29 on the radix column tile, K24), its time against a float32
         torch.fft Makhoul solve; G2, the mixed Neumann-Dirichlet solve on
-        65536 x 8192 (DCT-IV on axis 0: K28 long, F = 256; DCT-II/III on
+        65536 x 8192 (DCT-IV on axis 0: K28's four-step, F = 256; DCT-II/III on
         axis 1: K23 on the radix row core, K24 wide);
         each against its exact spectrum and analytic solution, with its
         time and peak memory; DCT-II/III and DST-II/III at 20608 ... 32640,
@@ -325,20 +329,27 @@ without the final line):
      (129, 129, 129) and (1, 1025, 1025) (DCT-I) with each column count C;
      kernel 27 at each of those and its dense product at the DCT-IV of
      (1, 1024, 1024) and the odd DCT-II lengths, beside torch.matmul with
-     the scaled DCT matrix.
+     the scaled DCT matrix; kernel 28's single pass at (2048, 2048, 256),
+     (1, 2048, 524288), (1, 1536, 1536) and (1, 40960, 8192) and kernel 19
+     at (2049, 2049, 257), (1, 2049, 526593), (1, 1537, 1537) and
+     (1, 20481, 8192) with each
+     column count C (at C <= 2 with each load), and kernel 28's four-step
+     at (1, 65536, 8192), (1, 40960, 8192) and (1, 20480, 8192), each pass
+     at each split (h2 = 32 ... 256) and column count, beside the single
+     pass at the latter two.
 The kernels line gives each kernel's launches on its main path, its largest
 error against its plain version, its times, and its bound: the larger of
 the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its FP32 operations over 67 TFLOP/s (H100 SXM data
 sheet, 700 W). Its launches are the sum over the main paths of phase 4;
-kernels 13, 14, 19 and 22 on the bts2 core are two rows each, the
+kernels 13, 14 and 22 on the bts2 core are two rows each, the
 fixed core (launches - wide_launches) and the wide one (wide_launches;
 the K11 and K12 rows also give the bound of their two length-M FFTs per
 column, ``length_m_bound_ms``); kernels 10, 2, 3 and 15
 (``r2c_packed`` at h = 128 F), kernel 8 (its rows at n <= 256
 counted in c2c_dense_rows.radix_launches as well, above in
-``c2c_generic_rows``), kernels 1, 6, 4, 11, 12, 16, 17 and 18 (each counted
-in radix_launches as well) and kernel 15's generic form
+``c2c_generic_rows``), kernels 1, 6, 4, 11, 12, 16, 17, 18 and 19 (each
+counted in radix_launches as well) and kernel 15's generic form
 (``r2c_packed_generic``) run on the radix core, one row each; kernels 20,
 21 and 27 two each: the radix column tile (``r2c_dense_mid_radix``,
 ``c2r_dense_mid_radix``, ``dct_dense_mid_radix``; radix_launches) and the
@@ -355,7 +366,10 @@ radix core (``dct2_nat_radix``, ``dct3_nat_radix`` on rows,
 column tile; radix_launches), the wide core's
 half length and the n-point form at the 29 lengths without a plan; kernel 7 three: the
 fixed core, the wide core and the dense body (dense_launches); kernel 28
-three: the fixed core, the wide core and the long form (long_launches).
+four: the single pass and the four-step on the radix column tile
+(``dct4_mid_radix``, radix_launches; ``dct4_mid_fourstep``,
+fourstep_launches), the wide core and the long form at the prime F
+(``dct4_mid_wide``, ``dct4_mid_long``).
 The n-point rows give the long lengths' shapes (phase 4m) under
 ``solve_shapes``.
 The line before the last is the card as nvidia-smi names it; the last line
@@ -375,29 +389,32 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()
 TOL_KERNEL = 5e-6    # kernel vs plain, relative to max |plain| (both float32)
 TOL_PACKED = 2e-6    # kernel 15 (core, chirp-z) vs plain: sums of at most 2048 terms
 TOL_STEP = 1e-5      # step vs float64 oracle and round trip, relative
 # the forms that a wrapper counts apart beside ``launches`` (which counts
 # every launch): ``wide_launches``, for the DCT-II/III kernels
 # ``npoint_launches``, for kernel 7 ``dense_launches``, for kernel 28
-# ``long_launches``, for kernels 1, 10, 2, 3, 15 (``r2c_packed`` and
-# ``r2c_packed_dense``), 11, 8 (``c2c_dense_rows``), 6, 4, 16, 17, 18, 20, 21,
-# 23 to 27 and 29 ``radix_launches`` and for kernels 20, 21 and 15's dense rows
+# ``long_launches`` and ``fourstep_launches``, for kernels 1, 10, 2, 3, 15
+# (``r2c_packed`` and ``r2c_packed_dense``), 11, 8 (``c2c_dense_rows``), 6,
+# 4, 16 to 21, 23 to 29 ``radix_launches`` and for kernels 20, 21 and 15's
+# dense rows
 # ``chirp_launches``
-FORMS = ("wide", "npoint", "dense", "long", "radix", "chirp")
+FORMS = ("wide", "npoint", "dense", "long", "fourstep", "radix", "chirp")
 # the wrappers whose every launch is on the radix core: their
 # ``radix_launches`` equal their ``launches``
 RADIX_ONLY = ("c2c_axis_mid", "c2c_rows", "r2c_nat", "r2c_packed", "c2c_dense_rows",
               "c2c_generic_mid", "c2c_dense_mid", "c2c_blue_mid", "r2c_mid", "r2c_packed_mid",
-              "c2r_nat", "c2r_mid", "dct23_blue_mid")
+              "c2r_nat", "c2r_mid", "dct23_blue_mid", "dct1_mid")
 TOL_CENSUS = 1e-6    # the radix core's censuses (phases 4r to 4v)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, 700 W
 FP32_FLOP_PER_S = 67e12     # FP32 outside the tensor cores, same source
 
 
 def emit(**kw):
-    print(json.dumps(kw), flush=True)
+    """One JSON line, with ``t``: the seconds since the script started."""
+    print(json.dumps({**kw, "t": round(time.perf_counter() - T0, 1)}), flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -547,17 +564,27 @@ def work(name: str, shape, length_m: bool = False, mult=None, n=None, dct_type=2
                 + 8 * (len(radix_consts(h, -1)[0]) + h),
                 2.5 * 2 * h * math.log2(2 * h) * b * cols)
     if name.startswith(("dct1_mid", "dct4_mid")):
-        # K19 and K28: (B, n, L) in and out; the core's Wq and a twiddle of
-        # its length, the wide core's DFT-F, and K19 wide's (B, h, L)
-        # complex64 workspace, written once and read once
+        # K19 and K28: (B, n, L) in and out, the function's 2.5 * 2h log2 2h
+        # (K19, h = n - 1) or 5 hl log2 hl (K28, hl = n/2) per column. K19 on
+        # the radix column tile reads the radix table of h and the unpack
+        # twiddle (h); K28 its entry and exit chirps (2 hl) and, in the single
+        # pass, the radix table of hl, in the four-step those of h1 and h2
+        # and W_hl (hl); its remnant the core's Wq and the wide core's DFT-F.
+        # The four-step's second write and read of y are not the function's.
+        from ndrustfft_tpu_torch.ops.hopper.dct import dct4_split
+        from ndrustfft_tpu_torch.ops.hopper.fft import radix_consts
         b, w, cols = shape
         k28 = name.startswith("dct4")
         core = w // 2 if k28 else w - 1
         io = 8 * b * w * cols
-        tables = 8 * core * 128 + (16 if k28 else 8) * core
-        if name.endswith(("_wide", "_long")):
-            tables += 8 * (core // 128) ** 2
-            io += 16 * b * core * cols if name.startswith("dct1") else 0
+        if not k28:
+            tables = 8 * len(radix_consts(core, -1)[0]) + 8 * core
+        elif name.endswith("_radix"):
+            tables = 8 * len(radix_consts(core, -1)[0]) + 16 * core
+        elif name.endswith("_fourstep"):
+            tables = 8 * sum(len(radix_consts(h, -1)[0]) for h in dct4_split(core)) + 24 * core
+        else:
+            tables = 8 * core * 128 + 16 * core + 8 * (core // 128) ** 2
         flops = (5 * core * math.log2(core) if k28 else 2.5 * 2 * core * math.log2(2 * core))
         return io + tables, flops * b * cols
     if name in ("c2r_nat", "c2r_mid"):
@@ -803,8 +830,8 @@ def main() -> int:
             "dct3_nat_npoint": 0.0, "dct2_mid_radix": 0.0, "dct3_mid_radix": 0.0,
             "dct2_mid_wide": 0.0,
             "dct3_mid_wide": 0.0, "dct2_mid_npoint": 0.0, "dct3_mid_npoint": 0.0,
-            "r2c_packed_mid": 0.0, "dct1_mid": 0.0,
-            "dct1_mid_wide": 0.0, "dct4_mid": 0.0, "dct4_mid_wide": 0.0, "dct4_mid_long": 0.0,
+            "r2c_packed_mid": 0.0, "dct1_mid": 0.0, "dct4_mid_radix": 0.0,
+            "dct4_mid_fourstep": 0.0, "dct4_mid_wide": 0.0, "dct4_mid_long": 0.0,
             "c2c_blue_mid": 0.0, "dct23_blue_mid": 0.0,
             "fourstep_mid": 0.0, "fourstep_mid_wide": 0.0, "fourstep_mid_dense": 0.0,
             "rows_store_t": 0.0, "rows_store_t_wide": 0.0, "spectral_c2c_mid": 0.0,
@@ -1730,11 +1757,15 @@ def main() -> int:
                 del x
     # kernel 18 on the radix column tile at phase 4i's lengths, ragged
     # column tiles and the largest tiles (h = 10240 and 20480: DST-I at
-    # 10239 and 20479); kernels 19 and 28 on the fixed core and on the wide
-    # core: phase 4i's lengths, ragged column tiles, the prime F = 131 (K28)
-    # and the largest tiles (F = 160, one column per tile); K28's long form
-    # at F = 161, 163 (prime) and 256; the solves' shapes are checked in
-    # phases 4i and 4m, slice by slice
+    # 10239 and 20479); kernel 19 on the radix column tile (kernel 27's
+    # DCT-I) and kernel 28's single pass there: phase 4i's lengths, ragged
+    # column tiles and the largest tiles (h = 20480, one column per tile,
+    # read-only loads); kernel 28's four-step at F = 161, 162 and 256 (and at
+    # F = 160 where dct.py::dct4_form takes it) and at forced short splits
+    # (hl = 1024 = 32 * 32, 1280 = 10 * 128) against its plain version and
+    # the single pass's; its remnant on the wide core (the primes F = 131,
+    # 157) and in the long form (163, 251); the solves' shapes are checked
+    # in phases 4i and 4m, slice by slice
     for shape in ((2, 256, 130), (1, 1024, 1023), (1, 1024, 130), (3, 2048, 33), (1, 384, 383),
                   (1, 1536, 1535), (2, 1152, 130), (1, 20480, 128), (1, 10240, 130),
                   (1, 20480, 130)):
@@ -1746,22 +1777,43 @@ def main() -> int:
         del xe, xo
     for name, kern, plain, scales, shapes in (
             ("dct1_mid", krfft.dct1_mid, krfft.dct1_mid_plain, (1.0, 0.5),
-             ((1, 2049, 2049), (2, 2049, 130), (1, 1025, 257))),
-            ("dct1_mid_wide", krfft.dct1_mid, krfft.dct1_mid_plain, (1.0, 0.5),
-             ((1, 1153, 1153), (1, 1537, 1537), (2, 1153, 130), (1, 20481, 128))),
-            ("dct4_mid", kdct.dct4_mid, kdct.dct4_mid_plain, (2.0, None),
-             ((1, 2048, 2048), (1, 4096, 1024), (2, 2048, 130), (1, 1024, 257))),
+             ((1, 2049, 2049), (2, 2049, 130), (1, 1025, 257), (1, 1153, 1153),
+              (1, 1537, 1537), (2, 1153, 130), (1, 20481, 128), (1, 10241, 130))),
+            ("dct4_mid_radix", kdct.dct4_mid, kdct.dct4_mid_plain, (2.0, None),
+             ((1, 2048, 2048), (1, 4096, 1024), (2, 2048, 130), (1, 1024, 257),
+              (1, 1280, 1280), (1, 1536, 1536), (2, 1280, 130), (1, 20480, 130))),
+            ("dct4_mid_fourstep", kdct.dct4_mid, kdct.dct4_mid_plain, (2.0, None),
+             ((1, 256 * 161, 130), (2, 256 * 162, 3), (1, 65536, 33))),
             ("dct4_mid_wide", kdct.dct4_mid, kdct.dct4_mid_plain, (2.0, None),
-             ((1, 1280, 1280), (1, 1536, 1536), (2, 1280, 130), (1, 256 * 131, 3),
-              (1, 40960, 128))),
+             ((1, 256 * 131, 3), (2, 256 * 157, 130))),
             ("dct4_mid_long", kdct.dct4_mid, kdct.dct4_mid_plain, (2.0, None),
-             ((1, 256 * 161, 130), (2, 256 * 163, 3), (1, 65536, 33)))):
+             ((2, 256 * 163, 3), (1, 256 * 251, 33))),
+            (f"dct4_mid_{kdct.dct4_form(40960)}", kdct.dct4_mid, kdct.dct4_mid_plain,
+             (2.0, None), ((1, 40960, 128),))):
         for shape in shapes:
             x = randn(*shape)
             for scale in scales:
                 check_form(name, kern, lambda: kern(x, scale), lambda: plain(x, scale), shape,
                            scale=scale)
             del x
+    for shape, h2 in (((2, 2048, 130), 32), ((1, 2560, 33), 128), ((1, 2048, 257), 64)):
+        x = randn(*shape)
+        y = torch.empty_like(x)
+        hl = shape[1] // 2
+        c1 = kdct.dct4_fourstep_cols(hl // h2, shape[0] * h2, shape[2], kfft.num_sms(dev))
+        c2 = kdct.dct4_fourstep_cols(h2, shape[0] * (hl // h2), shape[2], kfft.num_sms(dev))
+        kdct.dct4_fourstep_launch(x, y, 2.0, c1, c2, h2)
+        for name, ref in (("dct4_mid_fourstep", kdct.dct4_fourstep_plain(x, 2.0, h2)),
+                          ("dct4_mid_radix", kdct.dct4_radix_plain(x, 2.0))):
+            torch.cuda.synchronize()
+            rel = abs_err(y, ref) / float(ref.abs().max())
+            errs["dct4_mid_fourstep"] = max(errs["dct4_mid_fourstep"], abs_err(y, ref))
+            emit(phase="kernel_vs_plain", kernel="dct4_mid_fourstep", shape=shape,
+                 split=[hl // h2, h2], columns=[c1, c2], plain=name, rel_err=rel)
+            if not rel <= TOL_KERNEL:
+                raise AssertionError(f"dct4_mid_fourstep {shape} split h2 = {h2} "
+                                     f"against {name}: {rel}")
+        del x, y
     # kernel 11 on the radix core's column tile at every F: the bts2 fixed
     # core's former factors (F = 4, 8, 16: n = 193, 509, 1021), F = 3, 17, 33
     # and the routes' largest, 106 (n = 131, 1031, 2049, 6781); kernel 12's
@@ -1935,14 +1987,16 @@ def main() -> int:
     forms = {f"{name}_{form}": (wrappers[name], f"{form}_launches")
              for name in (*RADIX_ONLY, *radix_too,
                           "dct2_nat", "dct3_nat", "dct2_mid",
-                          "dct3_mid", "dct1_mid", "dct4_mid", "fourstep_mid", "rows_store_t",
+                          "dct3_mid", "dct4_mid", "fourstep_mid", "rows_store_t",
                           "spectral_c2c_mid", "spectral_r2c_mid", "spectral_dct_mid")
              for form in FORMS
              if form == "wide" and name not in (*RADIX_ONLY, *radix_too)
              or form == "radix" and name in (*RADIX_ONLY, *radix_too, "dct2_nat", "dct3_nat",
-                                             "dct2_mid", "dct3_mid", "spectral_dct_mid")
+                                             "dct2_mid", "dct3_mid", "spectral_dct_mid",
+                                             "dct4_mid")
              or form == "npoint" and name.startswith(("dct2_", "dct3_", "spectral_dct"))
-             or form == "dense" and name == "fourstep_mid" or form == "long" and name == "dct4_mid"
+             or form == "dense" and name == "fourstep_mid"
+             or form in ("long", "fourstep") and name == "dct4_mid"
              or form == "chirp" and name in ("r2c_dense_mid", "c2r_dense_mid",
                                              "r2c_packed_dense")}
 
@@ -2667,10 +2721,11 @@ def main() -> int:
     # and (1, 1024, 1046529); 4.28 GB per field), its forward spectrum
     # against the exact sparse values and its solution against the analytic
     # one, slab by slab in float64. Then the vertex-centred Neumann solve on
-    # 2049 x 2049 x 257 (dctn / idctn of type 1: K19 fixed, F = 16, on axes 0
-    # and 1, K15 at h = 256 on axis 2), the mixed Neumann-Dirichlet
-    # cell-centred solve on 2048 x 2048 x 256 (type 4: K28 fixed, F = 8, on
-    # axes 0 and 1, the DCT-IV lane's K8 on 2 x 4194304 rows of 256 on axis
+    # 2049 x 2049 x 257 (dctn / idctn of type 1: K19 on the radix column
+    # tile, h = 2048, on axes 0 and 1, K15 at h = 256 on axis 2), the mixed
+    # Neumann-Dirichlet cell-centred solve on 2048 x 2048 x 256 (type 4: K28's
+    # single pass, hl = 1024, on axes 0 and 1, the DCT-IV lane's K8 on 2 x
+    # 4194304 rows of 256 on axis
     # 2), the lengths against float64 scipy.fft, each solve kernel at its
     # shape against its plain version slice by slice, and the times.
     def slab_ranges(n, step=32):
@@ -2854,7 +2909,7 @@ def main() -> int:
         [lambda m, p=p: torch.cos((m + 0.5) * math.pi * p) for p in mx_pts],
         [eigs(n, 0.5, n) for n in mx_grid], 0, float(2048 * 2048 * 256),
         lambda f: nd.dctn(f, 4), lambda fh: nd.idctn(fh, 4),
-        dict(dct4_mid=4, c2c_dense_rows=2))
+        dict(dct4_mid=4, dct4_mid_radix=4, c2c_dense_rows=2))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t_port = cuda_ms(lambda: solve_mx(f_mx), reps9, 1)
@@ -2867,17 +2922,20 @@ def main() -> int:
     # (F = 2), 383 (F = 3, wide), 1535, 20479 (F = 160) and 1023 with a
     # ragged L = 130; DCT-I at 1153 (F = 9), 1537, 20481 and the bench row
     # 2049^2; DCT-IV at 1280 (F = 5), 1536, 4096 (F = 16), 40960 (F = 160),
-    # the bench row 2048^2 and 41216 (F = 161, the long form); DST-IV at 2048
+    # the bench row 2048^2, 41216 (F = 161, the four-step), 41728 (163,
+    # the long form) and 33536 (131, the wide core); DST-IV at 2048
     len_in = {(kind, shape): randn(*shape) for kind, shapes in (
         ("dst1", ((255, 255), (383, 383), (1535, 1535), (20479, 128), (1023, 130))),
         ("dct1", ((1153, 1153), (1537, 1537), (20481, 128), (2049, 2049))),
         ("dct4", ((1280, 1280), (1536, 1536), (4096, 1024), (40960, 128), (2048, 2048),
-                  (41216, 128))),
+                  (41216, 128), (41728, 128), (33536, 128))),
         ("dst4", ((2048, 2048),))) for shape in shapes}
+    forms4 = [f"dct4_mid_{kdct.dct4_form(shape[0])}" for kind, shape in len_in
+              if kind.endswith("4")]
     reset_counts()
     len_out = {key: getattr(nd, f"nd{key[0]}")(x, axis=0) for key, x in len_in.items()}
-    read_counts("packed_mid_lengths", r2c_packed_mid=5, dct1_mid=4,
-                dct1_mid_wide=3, dct4_mid=7, dct4_mid_wide=3, dct4_mid_long=1)
+    read_counts("packed_mid_lengths", r2c_packed_mid=5, dct1_mid=4, dct4_mid=len(forms4),
+                **{f: forms4.count(f) for f in set(forms4)})
     for (kind, shape), y in len_out.items():
         oracle = sfft.dct if kind.startswith("dct") else sfft.dst
         check(f"{kind}_axis0", y, oracle(host64(len_in[(kind, shape)]), type=int(kind[3]),
@@ -2907,8 +2965,9 @@ def main() -> int:
              ("dct1_mid", krfft.dct1_mid, krfft.dct1_mid_plain, (nn_grid,), 0, (1.0,), None),
              ("dct1_mid", krfft.dct1_mid, krfft.dct1_mid_plain, ((1, 2049, 2049 * 257),), 2,
               (1.0,), None),
-             ("dct4_mid", kdct.dct4_mid, kdct.dct4_mid_plain, (mx_grid,), 0, (2.0,), None),
-             ("dct4_mid", kdct.dct4_mid, kdct.dct4_mid_plain, ((1, 2048, 2048 * 256),), 2,
+             ("dct4_mid_radix", kdct.dct4_mid, kdct.dct4_mid_plain, (mx_grid,), 0, (2.0,),
+              None),
+             ("dct4_mid_radix", kdct.dct4_mid, kdct.dct4_mid_plain, ((1, 2048, 2048 * 256),), 2,
               (2.0,), None))
     for name, kern, plain, shapes, dim, fargs, library in legs9:
         ins = [randn(*shape) for shape in shapes]
@@ -3621,8 +3680,9 @@ def main() -> int:
 
     # ---- 4m. the long DCT lengths: kernels 23 to 26 and 29 at n = 128 k with
     # odd k > 160 (on the radix cores where n/2 has a plan, in the n-point
-    # form on the wide core's real tile at the prime k), and kernel 28's long
-    # form (two passes of the real tile) at n = 256 F with F > 160. G1: the
+    # form on the wide core's real tile at the prime k), and kernel 28 at
+    # n = 256 F with F > 160 (the column four-step; the long form, two passes
+    # of the real tile, at a prime F). G1: the
     # cell-centred Neumann Poisson solve on a 31104^2 grid (31104 = 128 *
     # 243, F = 243; 3.87 GB per field), the pressure solve of a wall-bounded
     # 2-D box, through dctn / idctn of type 2 (K23 on the radix row core over
@@ -3632,8 +3692,9 @@ def main() -> int:
     # 1/lambda between the axis-1 DCTs (K23, K29 on the radix column tile,
     # K24); G2: the
     # mixed Neumann-Dirichlet solve on a 65536 x 8192 cell-centred channel
-    # (2.15 GB per field; DCT-IV along axis 0 on K28 long at (1, 65536,
-    # 8192), F = 256; DCT-II/III along axis 1 on K23 and K24 on the radix
+    # (2.15 GB per field; DCT-IV along axis 0 on K28's four-step at (1,
+    # 65536, 8192), F = 256, split (128, 256); DCT-II/III along axis 1 on K23
+    # and K24 on the radix
     # row core, h = 4096). Each against its exact spectrum (G1, G2) and its
     # analytic solution, slab by slab in float64, timed with its peak memory;
     # G1 against a float32 torch.fft Makhoul solve. Then the lengths against
@@ -3719,7 +3780,7 @@ def main() -> int:
         float(g2_grid[0] * g2_grid[1]),
         lambda f: nd.dctn(nd.dctn(f, 4, axes=(0,)), 2, axes=(1,)),
         lambda fh: nd.idctn(nd.idctn(fh, 2, axes=(1,)), 4, axes=(0,)),
-        dict(dct4_mid=2, dct4_mid_long=2, dct2_nat=1, dct2_nat_radix=1, dct3_nat=1,
+        dict(dct4_mid=2, dct4_mid_fourstep=2, dct2_nat=1, dct2_nat_radix=1, dct3_nat=1,
              dct3_nat_radix=1))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3727,7 +3788,7 @@ def main() -> int:
     t_g2 = cuda_ms(lambda: solve_g2(f_g2), reps_g, 1)
     emit(phase="time", path="G2_mixed_65536x8192", ms=t_g2,
          peak_bytes=torch.cuda.max_memory_allocated(), base_bytes=base, reps=reps_g, card=card)
-    check_sliced("dct4_mid_long", kdct.dct4_mid, kdct.dct4_mid_plain,
+    check_sliced("dct4_mid_fourstep", kdct.dct4_mid, kdct.dct4_mid_plain,
                  [f_g2.view(1, *g2_grid)], 2, (2.0,), reps_g)
     del f_g2, solve_g2
     torch.cuda.empty_cache()
@@ -3757,7 +3818,8 @@ def main() -> int:
     read_counts("long_dct_lengths", dct2_mid=16, dct2_mid_radix=12, dct2_mid_npoint=4,
                 dct3_mid=16, dct3_mid_radix=12, dct3_mid_npoint=4, dct2_nat=8, dct2_nat_radix=6,
                 dct2_nat_npoint=2, dct3_nat=8, dct3_nat_radix=6, dct3_nat_npoint=2, dct4_mid=16,
-                dct4_mid_long=16, spectral_dct_mid=12, spectral_dct_mid_radix=8,
+                dct4_mid_fourstep=12, dct4_mid_long=4, spectral_dct_mid=12,
+                spectral_dct_mid_radix=8,
                 spectral_dct_mid_npoint=4)
     for (kind, shape, axis), x, y in zip(len_cases, len_in, len_out):
         oracle = sfft.dct if kind.startswith("dct") else sfft.dst
@@ -4202,9 +4264,9 @@ def main() -> int:
                    "dct3_mid_radix": (1, 2048, 2048), "dct2_mid_wide": (1, 128 * 262, 2048),
                    "dct3_mid_wide": (1, 128 * 262, 2048), "dct2_mid_npoint": (1, 128 * 131, 4096),
                    "dct3_mid_npoint": (1, 128 * 131, 4096), "r2c_packed_mid": (1023, 1024, 1023),
-                   "dct1_mid": (2049, 2049, 257),
-                   "dct1_mid_wide": (1, 1537, 1537), "dct4_mid": (2048, 2048, 256),
-                   "dct4_mid_wide": (1, 1536, 1536), "dct4_mid_long": (1, 65536, 8192),
+                   "dct1_mid": (2049, 2049, 257), "dct4_mid_radix": (2048, 2048, 256),
+                   "dct4_mid_fourstep": (1, 65536, 8192), "dct4_mid_wide": (1, 256 * 131, 1024),
+                   "dct4_mid_long": (1, 256 * 163, 1024),
                    "c2c_blue_mid": (1, 509, 509 * 509), "dct23_blue_mid": (1, 2049, 2049 * 256),
                    "fourstep_mid": (256, 1024, 1024), "fourstep_mid_wide": (64, 384, 384),
                    "fourstep_mid_dense": (16385, 256, 128), "rows_store_t": (256, 1024, 1024),
@@ -4414,6 +4476,79 @@ def main() -> int:
              chosen=kdct.spectral_dct_cols(h, shape[0], shape[2], kfft.num_sms(dev)),
              parent_form_ms=parent, card=card)
         del x, y, hv
+        torch.cuda.empty_cache()
+    # kernel 28's single pass on the radix column tile at each column count
+    # C that fits (at C <= 2 also with the read-only load), at the mixed
+    # solve's (2048, 2048, 256) and (1, 2048, 524288), F = 6's (1, 1536,
+    # 1536) and the crossover's (1, 40960, 8192) (hl = 20480: one column a
+    # tile), beside the count that dct.py::dct4_mid_cols picks; kernel 19
+    # (kernel 27's DCT-I) likewise at the vertex-centred solve's (2049, 2049,
+    # 257) and (1, 2049, 526593) (ragged tiles: L = 257), F = 12's
+    # (1, 1537, 1537) and F = 160's (1, 20481, 8192) (one column a tile),
+    # beside rfft.py::dct1_mid_cols's count
+    sms = kfft.num_sms(dev)
+
+    def cols_scan(kernel, shape, h, launch, chosen):
+        x = randn(*shape)
+        y = torch.empty_like(x)
+        runs = 5 if x.numel() > 1 << 28 else reps
+        fits = [c for c in (1, 2, 4, 8, 16)
+                if h * c <= kfft.RADIX_MAX_ELEMS and kfft.radix_cols_threads(h, c) <= 512]
+        cols_ms = {c: cuda_ms(lambda: launch(x, y, c, False), runs) for c in fits}
+        ldg_ms = {c: cuda_ms(lambda: launch(x, y, c, True), runs) for c in (1, 2) if c in fits}
+        emit(phase="time", kernel=kernel, shape=shape, ms_by_cols=cols_ms,
+             read_only_load_ms_by_cols=ldg_ms, chosen=chosen, card=card)
+        del x, y
+        torch.cuda.empty_cache()
+
+    for shape in ((2048, 2048, 256), (1, 2048, 2048 * 256), (1, 1536, 1536), (1, 40960, 8192)):
+        hl = shape[1] // 2
+        cols_scan("dct4_mid_radix", shape, hl,
+                  lambda x, y, c, ldg: kdct.dct4_radix_launch(x, y, 2.0, c, ldg),
+                  kdct.dct4_mid_cols(hl, shape[0], shape[2], sms))
+    for shape in ((2049, 2049, 257), (1, 2049, 2049 * 257), (1, 1537, 1537), (1, 20481, 8192)):
+        h = shape[1] - 1
+        cols_scan("dct1_mid", shape, h,
+                  lambda x, y, c, ldg: kdct.dct_radix_launch(x, y, 1, 2.0, c, ldg),
+                  krfft.dct1_mid_cols(h, shape[0], shape[2], sms))
+    # kernel 28's four-step at G2's (1, 65536, 8192), the crossover's
+    # (1, 40960, 8192) and (1, 20480, 8192) (hl = 10240, the single pass's
+    # last two-column tile): each pass alone at each split hl = h1 h2 with
+    # h2 = 32, 64, 128 and 256 and each column count C that fits, beside
+    # the split and counts that dct.py::dct4_split and dct4_fourstep_cols
+    # pick, the four-step's whole call, and the single pass at the count
+    # that dct.py::dct4_mid_cols picks (dct.py::dct4_form)
+    for shape in ((1, 65536, 8192), (1, 40960, 8192), (1, 20480, 8192)):
+        x = randn(*shape)
+        y = torch.empty_like(x)
+        n = shape[1]
+        hl = n // 2
+        tw = kdct._device_dct4("fourstep_tw", n, 1.0, dev)
+        post = kdct._device_dct4("post", n, 2.0, dev)
+        splits = {}
+        for h2 in (32, 64, 128, 256):
+            h1 = hl // h2
+            if hl % h2 or kfft.radix_plan(h1) is None:
+                continue
+            splits[f"{h1}x{h2}"] = [
+                {c: cuda_ms(lambda: kdct._dct4_pass(step, x, y, length, t, c), 5)
+                 for c in (2, 4, 8, 16, 32, 64)
+                 if length * c <= kfft.RADIX_MAX_ELEMS
+                 and kfft.radix_cols_threads(length, c) <= 512}
+                for step, length, t in ((1, h1, tw), (2, h2, post))]
+        h1, h2 = kdct.dct4_split(hl)
+        c = kdct.dct4_mid_cols(hl, shape[0], shape[2], sms)
+        single = (cuda_ms(lambda: kdct.dct4_radix_launch(x, y, 2.0, c, c <= 2), 5)
+                  if hl <= kdct.DCT4_RADIX_MAX_HL else None)
+        emit(phase="time", kernel="dct4_mid_fourstep", shape=shape,
+             pass_ms_by_split_and_cols=splits, chosen_split=[h1, h2],
+             chosen_cols=[kdct.dct4_fourstep_cols(h1, h2, shape[2], sms),
+                          kdct.dct4_fourstep_cols(h2, h1, shape[2], sms)],
+             fourstep_call_ms=cuda_ms(lambda: kdct.dct4_fourstep_launch(
+                 x, y, 2.0, kdct.dct4_fourstep_cols(h1, h2, shape[2], sms),
+                 kdct.dct4_fourstep_cols(h2, h1, shape[2], sms)), 5),
+             single_pass_ms=single, form=kdct.dct4_form(n), card=card)
+        del x, y
         torch.cuda.empty_cache()
     # the remnant forms of kernels 23 to 26 (the 29 lengths without a plan
     # of n/2) at n = 128 * 131 (the n-point form) and 128 * 262 (the wide
@@ -4907,9 +5042,10 @@ def main() -> int:
             x = randn(*shape)
             time_kernel(name, shape, lambda: kern(x, 2.0), lambda: plain(x, 2.0))
             del x
-    # kernel 18 (the radix column tile) at h = 1536 and kernels 19 and 28 on
-    # the wide core at phase 4i's lengths (K18 at the Dirichlet solve's
-    # shapes and the fixed forms were timed there); K18's yardstick is
+    # kernel 18 (the radix column tile) at h = 1536 and kernels 19 and 28's
+    # single pass at phase 4i's lengths (K18, K19 and K28 at the solves'
+    # shapes were timed there), kernel 28's remnant on the wide core (prime
+    # F = 131) and in the long form (163); K18's yardstick is
     # torch.fft.rfft of the interleaved column
     xe, xo = randn(1, 1536, 1535), randn(1, 1536, 1535)
     col = torch.stack([xe, xo], dim=2).reshape(1, 3072, 1535)
@@ -4919,8 +5055,10 @@ def main() -> int:
                 lambda: torch.fft.rfft(col, dim=1))
     del xe, xo, col
     for name, kern, plain, shape, scale in (
-            ("dct1_mid_wide", krfft.dct1_mid, krfft.dct1_mid_plain, (1, 1537, 1537), 1.0),
-            ("dct4_mid_wide", kdct.dct4_mid, kdct.dct4_mid_plain, (1, 1536, 1536), 2.0)):
+            ("dct1_mid", krfft.dct1_mid, krfft.dct1_mid_plain, (1, 1537, 1537), 1.0),
+            ("dct4_mid_radix", kdct.dct4_mid, kdct.dct4_mid_plain, (1, 1536, 1536), 2.0),
+            ("dct4_mid_wide", kdct.dct4_mid, kdct.dct4_mid_plain, (1, 256 * 131, 1024), 2.0),
+            ("dct4_mid_long", kdct.dct4_mid, kdct.dct4_mid_plain, (1, 256 * 163, 1024), 2.0)):
         x = randn(*shape)
         time_kernel(name, shape, lambda: kern(x, scale), lambda: plain(x, scale))
         del x
@@ -5064,12 +5202,12 @@ def main() -> int:
                             "ndrustfft_tpu/ops/pallas/dct.py:351"),
         "r2c_packed_mid": ("ndrustfft_tpu_torch/csrc/rfft_mid_radix.cu",
                            "ndrustfft_tpu/ops/pallas/rfft.py:627"),
-        "dct1_mid": ("ndrustfft_tpu_torch/csrc/dct1_mid.cu",
+        "dct1_mid": ("ndrustfft_tpu_torch/csrc/dct_mid_radix.cu",
                      "ndrustfft_tpu/ops/pallas/rfft.py:724"),
-        "dct1_mid_wide": ("ndrustfft_tpu_torch/csrc/dct1_mid.cu",
-                          "ndrustfft_tpu/ops/pallas/rfft.py:724"),
-        "dct4_mid": ("ndrustfft_tpu_torch/csrc/dct4_mid.cu",
-                     "ndrustfft_tpu/ops/pallas/dct.py:670"),
+        "dct4_mid_radix": ("ndrustfft_tpu_torch/csrc/dct4_mid_radix.cu",
+                           "ndrustfft_tpu/ops/pallas/dct.py:670"),
+        "dct4_mid_fourstep": ("ndrustfft_tpu_torch/csrc/dct4_mid_radix.cu",
+                              "ndrustfft_tpu/ops/pallas/dct.py:670"),
         "dct4_mid_wide": ("ndrustfft_tpu_torch/csrc/dct4_mid.cu",
                           "ndrustfft_tpu/ops/pallas/dct.py:670"),
         "dct4_mid_long": ("ndrustfft_tpu_torch/csrc/dct4_mid.cu",
@@ -5132,7 +5270,8 @@ def main() -> int:
                      (list(shape), *timing[(name, shape)],
                       *bound(*work(name, shape, mult=spectral_h.get((name, shape)))))))
             for shape in sliced.get(name, ())]
-        if name in ("c2c_axis_mid", "r2c_packed_mid", "c2r_nat", "c2r_mid",
+        if name in ("c2c_axis_mid", "r2c_packed_mid", "dct1_mid", "dct4_mid_radix",
+                    "c2r_nat", "c2r_mid",
                     "r2c_dense_mid_chirp", "r2c_packed_dense_radix", "r2c_packed_dense_chirp",
                     "dct2_nat_radix", "dct3_nat_radix", "dct2_mid_radix", "dct3_mid_radix"):
             row["other_shapes"] = [

@@ -49,52 +49,14 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 w) {
 
 // X[k] of the R2C unpack from a = Z[k], b = Z[(h - k) mod h] and
 // w = W_n^k: X[k] = (Z[k] + C[k]) / 2 - i W_n^k (Z[k] - C[k]) / 2 with
-// C = conj b; `half` = 0.5 * scale gives scale * X[k] (the bts2 column
-// R2C of kernel 19 folds its scale into it).
-__device__ __forceinline__ float2 r2c_unpack_one(float2 a, float2 b, float2 w,
-                                                 float half = 0.5f) {
+// C = conj b.
+__device__ __forceinline__ float2 r2c_unpack_one(float2 a, float2 b, float2 w) {
+  constexpr float half = 0.5f;
   const float fer = half * (a.x + b.x);
   const float fei = half * (a.y - b.y);
   const float for_ = half * (a.y + b.y);    // Re(-i/2 (Z - C))
   const float foi = -half * (a.x - b.x);    // Im(-i/2 (Z - C))
   return make_float2(fer + for_ * w.x - foi * w.y, fei + for_ * w.y + foi * w.x);
-}
-
-// The R2C unpack of V transforms of Z: bin k of transform c at
-// zb + c * cs + k * ks holds Z[k] for k < h, and store(c, k, X[k]) takes
-//   X[k] = (Z[k] + C[k]) / 2 - i W_n^k (Z[k] - C[k]) / 2,  k < h,
-//   X[h] = Re Z[0] - Im Z[0],  C[k] = conj Z[(h - k) mod h],
-// with u[k] = W_n^k, all times `scale`. Each thread takes one mirror pair
-// {k, (h - k) mod h} and reads both bins before it stores either, so the
-// store may write the bins in place without a second buffer; k = 0 pairs
-// with itself and also stores X[h]. The pair loop k <= h/2 covers odd h.
-// kColsFast: consecutive threads take consecutive transforms (a column tile,
-// cs = 1), else consecutive pairs (rows). Call it behind a block barrier
-// that follows the writes of Z.
-template <bool kColsFast, class Store>
-__device__ __forceinline__ void r2c_unpack(const float2* zb, int h, int V, long long cs,
-                                           long long ks, const float2* __restrict__ u,
-                                           float scale, Store&& store) {
-  const int pairs = h / 2 + 1;
-  const float half = 0.5f * scale;
-  for (int idx = threadIdx.x; idx < pairs * V; idx += blockDim.x) {
-    const int c = kColsFast ? idx % V : idx / pairs;
-    const int k = kColsFast ? idx / V : idx % pairs;
-    const int k2 = (h - k) % h;
-    const float2 za = zb[c * cs + k * ks];
-    const float2 zm = zb[c * cs + k2 * ks];
-    store(c, k, r2c_unpack_one(za, zm, __ldg(u + k), half));
-    if (k2 != k) store(c, k2, r2c_unpack_one(zm, za, __ldg(u + k2), half));
-    if (k == 0) store(c, h, make_float2(scale * (za.x - za.y), 0.f));
-  }
-}
-
-// The same in place: X[k] replaces Z[k], X[h] goes to bin h.
-template <bool kColsFast>
-__device__ __forceinline__ void r2c_unpack(float2* ob, int h, int V, long long cs,
-                                           long long ks, const float2* __restrict__ u) {
-  r2c_unpack<kColsFast>(ob, h, V, cs, ks, u, 1.f,
-                        [=](int c, int k, float2 x) { ob[c * cs + k * ks] = x; });
 }
 
 // A sk + B conj sm with c = (A.re, A.im, B.re, B.im): one bin of the C2R's

@@ -1,21 +1,22 @@
-// Kernel 28: DCT-IV along the middle axis of a (B, n, L) float32 tensor,
-// even n = 2 hl, hl = 128 * F: F in {4, 8, 16} on the fixed core, every other
-// F <= 160 on the wide core (dct4_mid_wide_kernel), 160 < F <= 256 in the
-// long form on the wide core's real tile (dct4_mid_long_kernel, at the end
-// of this file). The routes send n > 1100 here (n = 1280 ... 65536); kernel
-// 27 takes the shorter lengths.
+// Kernel 28's remnant: DCT-IV along the middle axis of a (B, n, L) float32
+// tensor, even n = 2 hl, hl = 128 * F, at the 23 prime F whose hl has no
+// radix plan: 131, 137, 139, 149, 151 and 157 on the wide core
+// (dct4_mid_wide_kernel), 163 ... 251 in the long form on the wide core's
+// real tile (dct4_mid_long_kernel, at the end of this file). Every other F
+// runs on the radix column tile (dct4_mid_radix.cu).
 //
 // Replaces ndrustfft_tpu/ops/pallas/dct.py::_dct4_kernel_mid (built by
-// _build_dct4_mid, called by dct4_pallas_mid). It computes scale * DCT-IV
-// in the rustdct convention by the half-length complex factorization
+// _build_dct4_mid, called by dct4_pallas_mid) at those lengths. It computes
+// scale * DCT-IV in the rustdct convention by the half-length complex
+// factorization
 //   c_s = w_s (x[2s] + i x[n-1-2s]),  w_s = e^{-i pi (4s+1) / (4n)},
 //   D = FFT_hl(c),
 //   y[2k] = scale * Re(D_k e^{-i pi k / n}),
 //   y[n-1-2k] = -scale * Im(D_k e^{-i pi k / n}),
 // the algebra of the port's composite ops/dct.py::dct4_half_mid, fused into
 // one kernel: the load reads rows 2s and n - 1 - 2s and applies the entry
-// chirp (a host table), the core is kernel 1's C2C in the column layout
-// (bts2_core.cuh, bts2_wide.cuh), and the store applies the exit chirp
+// chirp (a host table), the core is kernel 1's first C2C in the column
+// layout (bts2_wide.cuh), and the store applies the exit chirp
 // (scale * (cos, sin)(pi k / n), a host table, the scale folded in as the
 // JAX kernel folds it) and writes both outputs of each k as two row stores.
 // Each output is written once; there is no mirror and no workspace.
@@ -53,29 +54,6 @@ __device__ __forceinline__ void dct4_exit(float* yc, long long L, int n, long lo
   yc[(n - 1 - 2 * k) * L] = d.x * p.y - d.y * p.x;
 }
 
-template <int F, int C>
-__global__ void __launch_bounds__(kThreads)
-dct4_mid_kernel(const float* __restrict__ x, float* __restrict__ y,
-                const float2* __restrict__ wq, const float2* __restrict__ chirp,
-                const float2* __restrict__ post, long long L, long long tiles) {
-  constexpr int HL = F * kM;
-  constexpr int NN = 2 * HL;
-  extern __shared__ float2 s[];
-  long long col0;
-  int valid;
-  const long long bb = fixed_tile<C>(L, tiles, col0, valid);
-  const float* xb = x + bb * NN * L + col0;
-  fixed_fill<C>(s, HL, valid, [&](int t, int c) { return dct4_entry(xb + c, L, NN, t, chirp); });
-  __syncthreads();
-  Bts2<F, C, false>::run(s, wq, -1.f);
-  float* yb = y + bb * NN * L + col0;
-  for (int idx = threadIdx.x; idx < HL * C; idx += kThreads) {
-    const int k = idx / C;
-    const int c = idx % C;
-    if (c < valid) dct4_exit(yb + c, L, NN, k, s[idx], __ldg(post + k));
-  }
-}
-
 // Kernel 28 on the wide core: the chirped column tile, the core, and the
 // exit chirp and interleave in the core's store callback.
 template <int C>
@@ -102,11 +80,12 @@ dct4_mid_wide_kernel(const float* __restrict__ x, float* __restrict__ y,
   });
 }
 
-// Kernel 28's long form, 160 < F <= 256 (n = 41216 ... 65536): the complex
-// tile of one column (8 hl bytes, 262 KB at hl = 32768) does not fit a
-// block. The FFT is linear, so D = FFT_hl(w a) + i FFT_hl(w b) with the two
-// real streams a_s = x[2s] and b_s = x[n-1-2s]: two passes of the core per
-// column on one real tile of hl floats (131 KB), each with the entry chirp
+// Kernel 28's long form, at the prime 160 < F <= 256 (n = 41728 ...
+// 64256): the complex tile of one column (8 hl bytes, 262 KB at
+// hl = 32768) does not fit a block. The FFT is linear, so
+// D = FFT_hl(w a) + i FFT_hl(w b) with the two real streams a_s = x[2s]
+// and b_s = x[n-1-2s]: two passes of the core per column on one real tile
+// of hl floats (131 KB), each with the entry chirp
 // w_s = e^{-i pi (4s+1)/(4n)}, separable over s = a * 128 + b as
 // e^{-i pi a / 2F} * e^{-i pi (4b+1)/(4n)} (ChirpIn). Pass 1 parks
 // A_k = FFT(w a)_k in y's own column: Re A_k at row 2k, Im A_k at row
@@ -157,28 +136,11 @@ dct4_mid_long_kernel(const float* __restrict__ x, float* y,
 
 }  // namespace ndfft
 
-// Kernel 28 on the fixed core: x, y: (B, n, L) float32, contiguous, n = 2 hl,
-// hl = 128 * F, F in {4, 8, 16}; wq: (F, 128, 128) complex64 for hl, sign -1,
-// unscaled; chirp: (hl,) complex64 e^{-i pi (4s+1)/(4n)}; post: (hl,)
-// complex64 scale * (cos, sin)(pi k / n). C: columns per block, a power of
-// two with hl * C <= 8192. Returns the cudaError_t of the launch (0 on
-// success).
-extern "C" int ndfft_dct4_mid(const void* x, void* y, const void* wq, const void* chirp,
-                              const void* post, long long B, int n, long long L, int C,
-                              void* stream) {
-  using namespace ndfft;
-  if (n % 2) return (int)cudaErrorInvalidValue;
-  return (int)fixed_dispatch<4>(n / 2, C, [&](auto f, auto c) {
-    constexpr int kF = decltype(f)::value, kC = decltype(c)::value;
-    return fixed_launch<kF, kC>(dct4_mid_kernel<kF, kC>, B, L, static_cast<cudaStream_t>(stream),
-                                static_cast<const float*>(x), static_cast<float*>(y),
-                                static_cast<const float2*>(wq), static_cast<const float2*>(chirp),
-                                static_cast<const float2*>(post), L);
-  });
-}
-
-// Kernel 28 on the wide core, hl = n / 2 = 128 * F with 1 <= F <= 160: x, y,
-// wq, chirp and post as above; wf: (F, F) complex64 DFT-F, sign -1. C:
+// Kernel 28 on the wide core, hl = n / 2 = 128 * F with 1 <= F <= 160 (the
+// prime F > 127 on the routes): x, y: (B, n, L) float32, contiguous; wq:
+// (F, 128, 128) complex64 for hl, sign -1, unscaled; chirp: (hl,) complex64
+// e^{-i pi (4s+1)/(4n)}; post: (hl,) complex64 scale * (cos, sin)(pi k / n);
+// wf: (F, F) complex64 DFT-F, sign -1. C:
 // columns per tile, a power of two <= 16 whose tile fits
 // (bts2_wide.cuh::wide_smem_bytes).
 extern "C" int ndfft_dct4_mid_wide(const void* x, void* y, const void* wq, const void* wf,
@@ -198,8 +160,8 @@ extern "C" int ndfft_dct4_mid_wide(const void* x, void* y, const void* wq, const
 }
 
 // Kernel 28's long form on the real tile, hl = n / 2 = 128 * F with
-// 1 <= F <= 256 (160 < F on the routes): x, y (distinct), wq, wf and post as
-// above; chirp: (F + 128,) complex64 e^{-i pi a / 2F}, then
+// 1 <= F <= 256 (the prime F > 160 on the routes): x, y (distinct), wq, wf
+// and post as above; chirp: (F + 128,) complex64 e^{-i pi a / 2F}, then
 // e^{-i pi (4b+1)/(4n)} (ops/hopper/dct.py::dct4_chirp_long). C: columns per
 // tile, a power of two <= 16 whose tile fits
 // (bts2_wide.cuh::wide_real_smem_bytes).

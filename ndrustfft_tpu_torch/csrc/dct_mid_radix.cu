@@ -41,6 +41,17 @@
 // (1, 31104, 31104), 330x its byte bound). The 29 lengths without a plan
 // keep the wide core's and the n-point forms (dct_mid.cu).
 //
+// Kernel 19, the DCT-I along a middle axis past n = 1100 (odd n = h + 1,
+// h = 128 F, every F <= 160 of its routes has a plan), runs the same DCT-I
+// form with `half` = its own scale (2 s times the rustdct DCT-I), columns
+// a tile by ops/hopper/rfft.py::dct1_mid_cols (kernel 18's rule, up to 16
+// in the 32/40-element form; one column above h = 10240, loaded through
+// the read-only path). It replaces ndrustfft_tpu/ops/pallas/rfft.py::
+// _dct1_kernel_mid (:724, called at :785); its first Hopper form ran the
+// bts2 column R2C (the fixed core's dense DFT-128 on the FP32 cores, 68.49
+// ms at (2049, 2049, 257), 26.6x its byte bound; the wide core through a
+// (B, h, L) complex64 workspace).
+//
 // What bounds it on this card: device memory. A column is read once and
 // written once, 8 n bytes: 0.321 ms at (1, 512, 262144) and 2.56 ms at
 // (1024, 1024, 1024) over 3.35 TB/s, against a real FFT's 2.5 n log2 n
@@ -87,7 +98,10 @@
 namespace ndfft {
 
 // DCT-I's columns: element t < h of column col of b as the pair
-// (e[2t], e[2t + 1]) of the even extension of x (B, h + 1, L).
+// (e[2t], e[2t + 1]) of the even extension of x (B, h + 1, L), loaded
+// evict-first or (kLdg) through the read-only path, as MakhoulCol (kernel
+// 19 at C <= 2).
+template <bool kLdg = false>
 struct EvenExtCol {
   const float* __restrict__ x;
   long long L;
@@ -96,8 +110,11 @@ struct EvenExtCol {
     return b * n * L + col;
   }
   __device__ __forceinline__ int src(int j) const { return j < n ? j : 2 * (n - 1) - j; }
+  __device__ __forceinline__ float ld(const float* q) const {
+    return kLdg ? __ldg(q) : __ldcs(q);
+  }
   __device__ __forceinline__ float2 at(long long p, int t) const {
-    return make_float2(__ldcs(x + p + src(2 * t) * L), __ldcs(x + p + src(2 * t + 1) * L));
+    return make_float2(ld(x + p + src(2 * t) * L), ld(x + p + src(2 * t + 1) * L));
   }
 };
 
@@ -134,8 +151,9 @@ struct Dct1Rows {
 // (type 2, ops/hopper/dct.py::dct2_post) or (h + 1,) Q[k] (type 3,
 // dct.py::dct3_pre), the scale s folded in; unused for type 1, whose
 // `half` is s / 2. C: columns per tile (ops/hopper/dct.py::dct_radix_cols,
-// dct2_mid_cols); ldg: 1 loads a type 2 or 3 x through the read-only path,
-// 0 evict-first. Returns the cudaError_t of the launch (0 on success).
+// dct2_mid_cols, ops/hopper/rfft.py::dct1_mid_cols); ldg: 1 loads x
+// through the read-only path, 0 evict-first. Returns the cudaError_t of
+// the launch (0 on success).
 extern "C" int ndfft_dct_mid_radix(int type, const void* x, void* y, const void* table,
                                    const int* radices, int stages, const void* c1,
                                    const void* c2, float half, long long B, int n, long long L,
@@ -150,10 +168,13 @@ extern "C" int ndfft_dct_mid_radix(int type, const void* x, void* y, const void*
   const auto yp = static_cast<float*>(y);
   const auto tp = static_cast<const float2*>(table);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (type == 1)
-    return (int)radix_cols_launch<-1>(EvenExtCol{xp, L, n},
-                                      Dct1Rows{yp, static_cast<const float2*>(c1), L, n, half},
-                                      tp, plan, B, h, L, C, 1.f, st);
+  if (type == 1) {
+    const Dct1Rows io{yp, static_cast<const float2*>(c1), L, n, half};
+    return ldg ? (int)radix_cols_launch<-1>(EvenExtCol<true>{xp, L, n}, io, tp, plan, B, h, L, C,
+                                            1.f, st)
+               : (int)radix_cols_launch<-1>(EvenExtCol<>{xp, L, n}, io, tp, plan, B, h, L, C,
+                                            1.f, st);
+  }
   if (type == 2) {
     const Dct2Rows io{yp, static_cast<const float2*>(c1), static_cast<const float2*>(c2), L, n};
     return ldg ? (int)radix_cols_launch<-1>(MakhoulCol<true>{xp, L, n}, io, tp, plan, B, h, L, C,

@@ -22,9 +22,12 @@
 // bins, and kernels 17 and 21 (the C2R along a middle axis) at the half
 // length with the inverse unpack as the prologue or, kernel 21 at an odd
 // length, on the column's Hermitian extension (rfft_mid_radix.cu); kernel
-// 27's DCT-I, DCT-II and DCT-III and kernel 25's DCT-II as load policies
-// and epilogues of the Makhoul passes around the half-length real FFT
-// (dct_mid_radix.cu).
+// 27's DCT-I, DCT-II and DCT-III, kernel 19's DCT-I and kernels 25 and 26's
+// DCT-II and DCT-III as load policies and epilogues of the Makhoul passes
+// around the half-length real FFT (dct_mid_radix.cu); and kernel 28's
+// DCT-IV as the chirped load and the exit chirp's epilogue around one
+// length-hl transform, or the two passes of a column four-step
+// (dct4_mid_radix.cu).
 //
 // Replaces, for the CUDA port, the JAX package's
 // ndrustfft_tpu/ops/pallas/fft.py::_kernel_twostep and
@@ -847,7 +850,9 @@ struct RealCol {
 // place t. The load policy gives the columns: ld.base(b, col) is column
 // col's handle and ld.at(p, r) its element r, a tile row (C columns) read by
 // consecutive threads, four elements in flight a thread; columns past the
-// valid ones are zero and neither loaded nor stored. A load policy with
+// valid ones are zero and neither loaded nor stored (the handle is a
+// long long offset, or a struct with operator+(int), as kernel 28's
+// Dct4Handle, whose transform index rides beside it). A load policy with
 // side slots (kSide = 1) also loads element n of each column into its side
 // slot, after the coefficient rows, and runs its prologue(s, side, cx) on
 // the loaded tile (as does one with kPrologue and no side slots). The Io
@@ -863,7 +868,7 @@ radix_cols_kernel(Load ld, Io io, const float2* __restrict__ tab, RadixPlan plan
   const long long tile = blockIdx.x % tiles;
   const long long col0 = tile * L / tiles;
   const int valid = (int)((tile + 1) * L / tiles - col0);
-  const long long base = ld.base(bb, col0);
+  const auto base = ld.base(bb, col0);
   const int tr = (n + kE - 1) / kE;
   const int cshift = 31 - __clz(C);   // C is a power of two: no division per element
   const int t = (int)threadIdx.x >> cshift, c = (int)threadIdx.x & (C - 1);

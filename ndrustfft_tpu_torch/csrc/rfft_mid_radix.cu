@@ -30,7 +30,7 @@
 // kernels ran the half-length FFT as the bts2 core's dense DFT-128 stage
 // (kernels 16, 17 and 18) and the whole R2C as one real product (kernel 20),
 // cheap on a 128 x 128 MXU. Their first Hopper forms ran the same on the
-// FP32 cores: kernels 16 and 18 on the bts2 core (r2c_col.cuh), bound by its
+// FP32 cores: kernels 16 and 18 on the bts2 column R2C, bound by its
 // stage-2 DFT-128 (kernel 16 at 7.6x its byte bound at (1, 512, 262144),
 // kernel 18 at 10.3x at (1023, 1024, 1023) and 33x on the wide core at
 // (1, 1536, 1535)), kernel 20 as one real SGEMM of 2 n (n + 2) operations

@@ -57,9 +57,7 @@ _SIGNATURES = {
     "ndfft_dct_nat_npoint": [_I, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "ndfft_dct_mid_wide": [_I, _P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_dct_mid_npoint": [_I, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
-    "ndfft_dct1_mid": [_P, _P, _P, _P, _F, _LL, _I, _LL, _I, _P],
-    "ndfft_dct1_mid_wide": [_P, _P, _P, _P, _P, _P, _F, _LL, _I, _LL, _I, _P],
-    "ndfft_dct4_mid": [_P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
+    "ndfft_dct4_mid_radix": [_I, _P, _P, _P, _P, _I, _P, _P, _LL, _I, _LL, _I, _I, _I, _P],
     "ndfft_dct4_mid_wide": [_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_dct4_mid_long": [_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_c2c_blue_radix": [_P] * 6 + [_I, _LL, _I, _I, _LL, _I, _F, _P],

@@ -1,4 +1,4 @@
-"""Kernels 23 to 27: the DCT kernels.
+"""Kernels 23 to 29 and 12: the DCT kernels.
 
 * Kernel 27, :func:`dct_dense_mid`: any DCT type along the middle axis of a
   (B, n, L) float32 tensor, 2 <= n <= 1100 (replaces the JAX package's
@@ -26,10 +26,13 @@
   :func:`dct2_mid_cols`; at the 29 others, ``csrc/dct_mid.cu``.
 * Kernel 28, :func:`dct4_mid`: DCT-IV along the middle axis of (B, n, L),
   n = 2 hl with hl = 128 * F, F <= 256, as one complex FFT of length hl
-  per column between an entry and an exit chirp (``csrc/dct4_mid.cu``, the
-  fixed core for F in {4, 8, 16}, the wide core up to F = 160, and beyond
-  it the long form: the FFTs of the two real streams in two passes of the
-  wide core's real tile; replaces ``dct.py::_dct4_kernel_mid``).
+  per column between an entry and an exit chirp (replaces
+  ``dct.py::_dct4_kernel_mid``), in the form :func:`dct4_form` names: on
+  the radix column tile (``csrc/dct4_mid_radix.cu``) as one pass at every
+  hl <= 10240 with a plan and as the two passes of a column four-step
+  above it, parked in y; at the 23 prime F without a plan on the wide
+  core (F <= 160) or in the long form, the FFTs of the two real streams in
+  two passes of the wide core's real tile (``csrc/dct4_mid.cu``).
 * Kernel 29, :func:`spectral_dct_mid`: the fused pipeline
   DCT-III(H * DCT-II(x)) along the middle axis of (B, n, L), kernel 25's
   forward, the multiply and kernel 26's inverse on one column tile
@@ -63,9 +66,9 @@ and their wrappers, whose ``launches`` attributes count kernel launches
 (kernels 23 to 26, 28 and 29 also count the wide core's (half-length)
 launches apart, in ``wide_launches``, kernels 23 to 26 and 29 the n-point
 ones in ``npoint_launches``, kernel 28 its long form's in
-``long_launches``, kernel 27 its radix column tile's, kernels 23 to 26 and
-29 their radix cores' and kernel 12 its chirp-z's (every one) in
-``radix_launches``). All
+``long_launches`` and its four-step's in ``fourstep_launches``, kernel 27
+its radix column tile's, kernels 23 to 26, 28 and 29 their radix cores'
+and kernel 12 its chirp-z's (every one) in ``radix_launches``). All
 transforms are in the rustdct convention (scipy's unnormalized DCT / 2)
 times ``scale``.
 """
@@ -80,9 +83,9 @@ import torch
 
 from ...plan import _cis, blue_h, chirp
 from . import _build
-from .fft import (C2C_F, M, RADIX_MAX_STAGES, RADIX_WIDE_N, REAL_MAX_F, WIDE_MAX_F,
-                  block_cols, bts2_plain, check_blue_n, check_cuda, check_mult,
-                  chirp_m, chirp_z_radix_plain, count_launch, dense_beats_radix, dense_tile,
+from .fft import (M, RADIX_MAX_STAGES, RADIX_WIDE_N, REAL_MAX_F, WIDE_MAX_F,
+                  bts2_plain, c2c_radix_mid_plain, check_blue_n, check_cuda, check_mult,
+                  chirp_m, chirp_z_radix_plain, dense_beats_radix, dense_tile,
                   device_radix, device_wide, device_wq, f32_pair, mult_planes, num_sms,
                   pair_tensor, radix_block, radix_mid_cols, radix_plan, wide_block,
                   wide_bytes, wide_real_bytes)
@@ -671,8 +674,8 @@ dct3_mid.radix_launches = 0
 
 def dct4_f(n: int):
     """F of the half length hl = n/2 = 128 * F where kernel 28 takes n
-    (1 <= F <= 256: the JAX gate dct4_mid_supported's split (128, F); the
-    long form beyond F = 160, n > 40960), else None."""
+    (1 <= F <= 256: the JAX gate dct4_mid_supported's split (128, F);
+    :func:`dct4_form` names the form), else None."""
     if n % 2 or (n // 2) % M:
         return None
     f = n // 2 // M
@@ -712,8 +715,17 @@ def dct4_chirp_long(n: int):
     return np.asarray(w.real, np.float32), np.asarray(w.imag, np.float32)
 
 
+def dct4_fourstep_tw(n: int):
+    """(re, im) float32 of kernel 28's four-step twiddle W_hl^u = e^{-2 pi i
+    u / hl}, u = 0..hl-1 (hl = n/2; pass 1 reads entry s2 k1), each part
+    rounded once."""
+    hl = n // 2
+    return f32_pair(_cis(2 * np.arange(hl, dtype=np.int64), hl, -1))
+
+
 _DCT4_TABLES = {"chirp": lambda n, scale: dct4_chirp(n),
-                "chirp_long": lambda n, scale: dct4_chirp_long(n), "post": dct4_post}
+                "chirp_long": lambda n, scale: dct4_chirp_long(n), "post": dct4_post,
+                "fourstep_tw": lambda n, scale: dct4_fourstep_tw(n)}
 
 
 @lru_cache(maxsize=64)
@@ -722,28 +734,231 @@ def _device_dct4(kind: str, n: int, scale: float, device: torch.device) -> torch
     return torch.complex(torch.from_numpy(re), torch.from_numpy(im)).to(device)
 
 
-def dct4_mid_plain(x: torch.Tensor, scale=None) -> torch.Tensor:
-    """Plain version of kernel 28: scale * DCT-IV along dim 1 of (B, n, L):
-    c_s = w_s (x[2s] + i x[n-1-2s]), D = the core's plain version of c, then
-    y[2k] = Re(D_k p_k*) and y[n-1-2k] = -Im(D_k p_k*) with the exit chirp
-    p_k = scale e^{i pi k/n}."""
-    nb, n, cols = x.shape
-    w = _device_dct4("chirp", n, 1.0, x.device)[:, None]
-    p = _device_dct4("post", n, _scale(scale), x.device)[:, None]
-    d = bts2_plain(torch.complex(x[:, 0::2], x.flip(1)[:, 0::2]) * w,
-                   device_wq(n // 2, -1, 1.0, x.device), -1)
+def _dct4_entry(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """c_s = w_s (x[2s] + i x[n-1-2s]) along dim 1 of (B, n, L)."""
+    return torch.complex(x[:, 0::2], x.flip(1)[:, 0::2]) * w[:, None]
+
+
+def _dct4_exit(d: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """y[2k] = Re(D_k conj p_k) and y[n-1-2k] = -Im(D_k conj p_k) from the
+    (B, hl, L) D and the exit chirp p."""
+    nb, hl, cols = d.shape
+    p = p[:, None]
     evens = d.real * p.real + d.imag * p.imag
     odds = (d.real * p.imag - d.imag * p.real).flip(1)
-    return torch.stack([evens, odds], dim=2).reshape(nb, n, cols)
+    return torch.stack([evens, odds], dim=2).reshape(nb, 2 * hl, cols)
+
+
+def _dct4_bts2_plain(x: torch.Tensor, scale=None) -> torch.Tensor:
+    """Plain version of kernel 28's remnant (the wide core and the long
+    form): the entry chirp, the bts2 core's plain version, the exit chirp."""
+    n = x.shape[1]
+    d = bts2_plain(_dct4_entry(x, _device_dct4("chirp", n, 1.0, x.device)),
+                   device_wq(n // 2, -1, 1.0, x.device), -1)
+    return _dct4_exit(d, _device_dct4("post", n, _scale(scale), x.device))
+
+
+def dct4_radix_plain(x: torch.Tensor, scale=None) -> torch.Tensor:
+    """Plain version of kernel 28's single pass on the radix column tile:
+    the entry chirp, the radix core's plain version of length hl
+    (:func:`~.fft.c2c_radix_mid_plain`), the exit chirp."""
+    n = x.shape[1]
+    d = c2c_radix_mid_plain(_dct4_entry(x, _device_dct4("chirp", n, 1.0, x.device)), -1)
+    return _dct4_exit(d, _device_dct4("post", n, _scale(scale), x.device))
+
+
+def _dct4_park(a: torch.Tensor) -> torch.Tensor:
+    """y with Re a[k'] at row 2k' and Im a[k'] at row n-1-2k' (pass 1's
+    store), from the (B, hl, L) a."""
+    nb, hl, cols = a.shape
+    return torch.stack([a.real, a.imag.flip(1)], dim=2).reshape(nb, 2 * hl, cols)
+
+
+def _dct4_fourstep(x: torch.Tensor, h2: int, w: torch.Tensor, tw: torch.Tensor,
+                   p: torch.Tensor, fft) -> torch.Tensor:
+    """Kernel 28's column four-step at hl = h1 h2 with the entry chirp w,
+    the twiddle W_hl^u (tw), the exit chirp p and ``fft``, the transform of
+    each column of a (B', len, L) tensor: pass 1, the length-h1 transforms
+    over s1 of c[s1 h2 + s2] times W_hl^{s2 k1}, parked in y as the kernel
+    parks them (Re at row 2k', Im at row n-1-2k', k' = k1 + h1 s2); pass 2
+    reads those rows back, runs the length-h2 transforms over s2 and applies
+    the exit chirp at k = k1 + h1 k2."""
+    nb, n, cols = x.shape
+    hl = n // 2
+    h1 = hl // h2
+    dev = x.device
+    a = fft(_dct4_entry(x, w).reshape(nb, h1, h2, cols).transpose(1, 2)
+            .reshape(nb * h2, h1, cols))
+    u = torch.outer(torch.arange(h2, device=dev), torch.arange(h1, device=dev))
+    y = _dct4_park((a.reshape(nb, h2, h1, cols) * tw[u][..., None]).reshape(nb, hl, cols))
+    a = torch.complex(y[:, 0::2], y.flip(1)[:, 0::2])
+    d = fft(a.reshape(nb, h2, h1, cols).transpose(1, 2).reshape(nb * h1, h2, cols))
+    return _dct4_exit(d.reshape(nb, h1, h2, cols).transpose(1, 2).reshape(nb, hl, cols), p)
+
+
+def dct4_fourstep_plain(x: torch.Tensor, scale=None, h2=None) -> torch.Tensor:
+    """Plain version of kernel 28's column four-step (:func:`_dct4_fourstep`)
+    at :func:`dct4_split` or, ``h2`` given, h1 = hl / h2, each pass on the
+    radix core's plain version (:func:`~.fft.c2c_radix_mid_plain`)."""
+    n = x.shape[1]
+    h2 = dct4_split(n // 2)[1] if h2 is None else h2
+    dev = x.device
+    return _dct4_fourstep(x, h2, _device_dct4("chirp", n, 1.0, dev),
+                          _device_dct4("fourstep_tw", n, 1.0, dev),
+                          _device_dct4("post", n, _scale(scale), dev),
+                          lambda v: c2c_radix_mid_plain(v, -1))
+
+
+DCT4_RADIX_MAX_HL = 20480   # the single pass's longest tile (csrc/fft_radix.cuh)
+DCT4_FOURSTEP_FROM = 10240  # the four-step above this half length
+DCT4_H2 = (256, 128)        # the four-step's pass-2 lengths, the first that divides hl
+
+
+def dct4_split(hl: int):
+    """(h1, h2) of kernel 28's column four-step at half length hl = 128 F:
+    h2 = 256 where it divides hl (even F), else 128, and h1 = hl / h2,
+    where h1 has a radix plan; else None. (On an NVIDIA H100 80GB HBM3 at
+    700 W, chip_smoke.py phase 5, the passes' best column counts summed:
+    at (1, 65536, 8192) 5.76 ms at (128, 256), 5.75 at (256, 128), 6.22 at
+    (512, 64) and 7.04 at (1024, 32); at (1, 40960, 8192) 3.92 at (80, 256)
+    and 4.16 at (160, 128).)"""
+    for h2 in DCT4_H2:
+        if hl % h2 == 0:
+            h1 = hl // h2
+            return (h1, h2) if radix_plan(h1) is not None else None
+    return None
+
+
+def dct4_form(n: int) -> str:
+    """The form kernel 28 takes at n = 2 hl (:func:`dct4_f`): "fourstep"
+    above hl = DCT4_FOURSTEP_FROM where :func:`dct4_split` has a split,
+    "radix" (the single pass) at hl <= DCT4_RADIX_MAX_HL with a plan, else
+    "wide" (F <= 160) or "long": the 23 prime F above 127. Above
+    hl = 10240 the single pass holds one column a tile (4-byte tile rows):
+    on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 5) it took
+    10.60 ms at (1, 40960, 8192) with the read-only load, 12.40 without,
+    the four-step 3.90 ms at (80, 256)."""
+    hl = n // 2
+    if hl > DCT4_FOURSTEP_FROM and dct4_split(hl) is not None:
+        return "fourstep"
+    if hl <= DCT4_RADIX_MAX_HL and radix_plan(hl) is not None:
+        return "radix"
+    return "long" if dct4_f(n) > WIDE_MAX_F else "wide"
+
+
+def dct4_mid_plain(x: torch.Tensor, scale=None) -> torch.Tensor:
+    """Plain version of kernel 28: scale * DCT-IV along dim 1 of (B, n, L)
+    in the form :func:`dct4_form` names: :func:`dct4_radix_plain`,
+    :func:`dct4_fourstep_plain`, or the bts2 core's for the remnant."""
+    form = dct4_form(x.shape[1])
+    if form == "radix":
+        return dct4_radix_plain(x, scale)
+    if form == "fourstep":
+        return dct4_fourstep_plain(x, scale)
+    return _dct4_bts2_plain(x, scale)
+
+
+def dct4_mid_cols(hl: int, groups: int, cols: int, sms: int) -> int:
+    """Columns per tile of kernel 28's single pass at half length hl:
+    kernel 25's :func:`dct2_mid_cols`, the same complex tile of hl. (On an
+    NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py phase 5, C = 1, 2, 4, 8,
+    16: at (2048, 2048, 256) 23.83, 14.16, 9.98, 8.68, 8.44 ms (22.10 and
+    13.10 read-only at C = 1, 2), at (1, 2048, 524288) 40.17, 19.05,
+    11.96, 8.78, 8.79, where the rule takes 16; at (1, 1536, 1536) 0.102,
+    0.068, 0.063, 0.069, 0.063, where it takes 8.)"""
+    return dct2_mid_cols(hl, groups, cols, sms)
+
+
+DCT4_FOURSTEP_MAX_C = 32    # the four-step's widest tile (128 bytes a tile row)
+
+
+def dct4_fourstep_cols(length: int, groups: int, cols: int, sms: int) -> int:
+    """Columns per tile of a pass of kernel 28's four-step at its transform
+    length: :func:`~.fft.radix_mid_cols` (the 16-element form: 16 columns
+    at 256, 32 at 128 and below). (On an NVIDIA H100 80GB HBM3 at 700 W,
+    chip_smoke.py phase 5, at (1, 65536, 8192), split (128, 256), C = 2 ...
+    64: pass 1 6.09, 4.48, 3.41, 3.30, 3.25, 4.00 ms, pass 2 8.30, 4.13,
+    2.59, 2.51, 2.66, 2.66; the rule's 32 and 16 ran fastest.)"""
+    return radix_mid_cols(length, groups, cols, sms, most=DCT4_FOURSTEP_MAX_C)
+
+
+def _dct4_pass(step: int, x: torch.Tensor, y: torch.Tensor, length: int, t: torch.Tensor,
+               c: int, ldg: bool = False) -> None:
+    """One launch of kernel 28 on the radix column tile
+    (``csrc/dct4_mid_radix.cu``): pass ``step`` (0 the single pass, 1 and 2
+    the four-step's) at transform length ``length``, t the exit chirp or
+    (pass 1) W_hl^u; counts nothing."""
+    nb, n, cols = x.shape
+    dev = x.device
+    plan = radix_plan(length)
+    with torch.cuda.device(dev):
+        err = _build.lib().ndfft_dct4_mid_radix(
+            step, x.data_ptr(), y.data_ptr(), device_radix(length, -1, dev).data_ptr(),
+            (ctypes.c_int * RADIX_MAX_STAGES)(*plan), len(plan),
+            _device_dct4("chirp", n, 1.0, dev).data_ptr(), t.data_ptr(), nb, n, cols, length, c,
+            int(ldg), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ndfft_dct4_mid_radix")
+
+
+def dct4_radix_launch(x: torch.Tensor, y: torch.Tensor, scale, c: int,
+                      ldg: bool = False) -> None:
+    """Launch kernel 28's single pass, ``c`` columns a tile
+    (:func:`dct4_mid_cols`), on the (B, n, L) float32 CUDA tensor x into y,
+    x loaded through the read-only path if ``ldg``; counts nothing."""
+    n = x.shape[1]
+    _dct4_pass(0, x, y, n // 2, _device_dct4("post", n, _scale(scale), x.device), c, ldg)
+
+
+def dct4_fourstep_launch(x: torch.Tensor, y: torch.Tensor, scale, c1: int, c2: int,
+                         h2=None) -> None:
+    """Launch kernel 28's two four-step passes on the (B, n, L) float32 CUDA
+    tensor x into y (distinct), ``c1`` and ``c2`` columns a tile
+    (:func:`dct4_fourstep_cols`), at :func:`dct4_split` or (h2 given)
+    h1 = hl / h2; counts nothing."""
+    n = x.shape[1]
+    hl = n // 2
+    h1, h2 = dct4_split(hl) if h2 is None else (hl // h2, h2)
+    dev = x.device
+    _dct4_pass(1, x, y, h1, _device_dct4("fourstep_tw", n, 1.0, dev), c1)
+    _dct4_pass(2, x, y, h2, _device_dct4("post", n, _scale(scale), dev), c2)
+
+
+def dct4_bts2_launch(x: torch.Tensor, y: torch.Tensor, scale, long_form: bool) -> None:
+    """Launch kernel 28's remnant on the wide core or (``long_form``) in the
+    long form (``csrc/dct4_mid.cu``); counts nothing."""
+    nb, n, cols = x.shape
+    dev = x.device
+    hl = n // 2
+    sms = num_sms(dev)
+    if long_form:
+        tile, entry = wide_block(hl, nb, cols, sms, wide_real_bytes), "ndfft_dct4_mid_long"
+    else:
+        tile, entry = wide_block(hl, nb, cols, sms), "ndfft_dct4_mid_wide"
+    with torch.cuda.device(dev):
+        err = getattr(_build.lib(), entry)(
+            x.data_ptr(), y.data_ptr(), device_wq(hl, -1, 1.0, dev).data_ptr(),
+            device_wide(hl, -1, dev).data_ptr(),
+            _device_dct4("chirp_long" if long_form else "chirp", n, 1.0, dev).data_ptr(),
+            _device_dct4("post", n, _scale(scale), dev).data_ptr(), nb, n, cols, tile,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, entry)
 
 
 def dct4_mid(x: torch.Tensor, scale=None) -> torch.Tensor:
     """scale * DCT-IV (the rustdct convention) along dim 1 of a (B, n, L)
     float32 tensor, n = 2 hl, hl = 128 * F, F <= 256 (:func:`dct4_f`). A CPU
-    tensor runs the plain version; a CUDA tensor launches kernel 28 (on the
-    fixed core for F in {4, 8, 16}, on the wide core up to F = 160, in the
-    long form beyond) or raises. The output is a new tensor (the long form
-    reads x after it has written y)."""
+    tensor runs the plain version; a CUDA tensor launches kernel 28 in the
+    form :func:`dct4_form` names (one launch a call, two for the four-step),
+    counted in ``launches`` and in ``radix_launches``,
+    ``fourstep_launches``, ``wide_launches`` or ``long_launches``, or
+    raises. The output is a new tensor (the four-step and the long form
+    write y while x is still read).
+
+    The forms: the single pass on the radix column tile at every hl <= 10240
+    with a plan, columns a tile by :func:`dct4_mid_cols`, x through the
+    read-only path at C <= 2; the two-pass column four-step above it
+    (:func:`dct4_split`), each pass's columns by :func:`dct4_fourstep_cols`;
+    the wide core and the long form at the 23 prime F without a plan."""
     if x.dim() != 3:
         raise ValueError(f"dct4_mid: expected (B, n, L), got {tuple(x.shape)}")
     nb, n, cols = x.shape
@@ -758,32 +973,26 @@ def dct4_mid(x: torch.Tensor, scale=None) -> torch.Tensor:
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    dev = x.device
+    form = dct4_form(n)
     hl = n // 2
-    long_form = f > WIDE_MAX_F
-    wide = f not in C2C_F and not long_form
-    consts = (device_wq(hl, -1, 1.0, dev).data_ptr(),)
-    if wide or long_form:
-        consts += (device_wide(hl, -1, dev).data_ptr(),)
-    consts += (_device_dct4("chirp_long" if long_form else "chirp", n, 1.0, dev).data_ptr(),
-               _device_dct4("post", n, _scale(scale), dev).data_ptr())
-    sms = num_sms(dev)
-    if long_form:
-        tile, entry = wide_block(hl, nb, cols, sms, wide_real_bytes), "ndfft_dct4_mid_long"
-    elif wide:
-        tile, entry = wide_block(hl, nb, cols, sms), "ndfft_dct4_mid_wide"
+    sms = num_sms(x.device)
+    if form == "radix":
+        c = dct4_mid_cols(hl, nb, cols, sms)
+        dct4_radix_launch(x, y, scale, c, ldg=c <= 2)
+    elif form == "fourstep":
+        h1, h2 = dct4_split(hl)
+        dct4_fourstep_launch(x, y, scale, dct4_fourstep_cols(h1, nb * h2, cols, sms),
+                             dct4_fourstep_cols(h2, nb * h1, cols, sms))
     else:
-        tile, entry = block_cols(hl, nb, cols, sms), "ndfft_dct4_mid"
-    with torch.cuda.device(dev):
-        err = getattr(_build.lib(), entry)(x.data_ptr(), y.data_ptr(), *consts, nb, n, cols,
-                                           tile, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, entry)
-    count_launch(dct4_mid, wide)
-    dct4_mid.long_launches += long_form
+        dct4_bts2_launch(x, y, scale, form == "long")
+    dct4_mid.launches += 1
+    setattr(dct4_mid, f"{form}_launches", getattr(dct4_mid, f"{form}_launches") + 1)
     return y
 
 
 dct4_mid.launches = 0
+dct4_mid.radix_launches = 0
+dct4_mid.fourstep_launches = 0
 dct4_mid.wide_launches = 0
 dct4_mid.long_launches = 0
 

@@ -40,9 +40,10 @@
   Kernel 18, the packed R2C of two (B, h, L) streams, z = xe + i xo
   (DST-I's odd extension), is kernel 16's column kernel with a two-stream
   load and the scale in its store (``csrc/rfft_mid_radix.cu``); kernel 19,
-  DCT-I of (B, h + 1, L) on its even extension, runs the bts2 column R2C
-  (``csrc/dct1_mid.cu`` on ``csrc/r2c_col.cuh``, the fixed core for F in
-  {2, 4, 8, 16}, the wide core for every other F <= 160).
+  DCT-I of (B, h + 1, L) on its even extension, runs kernel 27's DCT-I on
+  the same column tile (``csrc/dct_mid_radix.cu``: the extension's pairs
+  in the load, the unpack's real rows in the epilogue) at every F <= 160
+  of its routes, each with a plan.
 * Kernel 15, the packed R2C of contiguous (T, n) rows (replaces
   ``rfft.py::_r2c_kernel``), in three wrappers by half length h = n/2:
   :func:`r2c_packed` for h = 128 * F (kernel 2's code, with F = 1 added),
@@ -62,9 +63,9 @@
 
 This module holds their host-built constants, their plain PyTorch versions
 and their wrappers, whose ``launches`` attributes count kernel launches
-(kernels 19 and 22 on the bts2 core also count the wide core's launches
-apart, in ``wide_launches``; kernels 2, 3 and 15 at h = 128 * F and
-kernels 16, 17 and 18 count every launch in ``radix_launches`` as well,
+(kernel 22 on the bts2 core also counts the wide core's launches apart,
+in ``wide_launches``; kernels 2, 3 and 15 at h = 128 * F and kernels 16,
+17, 18 and 19 count every launch in ``radix_launches`` as well,
 kernels 20 and 21 their launches on the radix column tile and kernel 15's
 dense rows theirs on the radix row core; kernels 20 and 21 and kernel
 15's dense rows count their chirp-z's in ``chirp_launches``).
@@ -561,15 +562,14 @@ spectral_r2c_mid.wide_launches = 0
 
 
 # --------------------------------------------------------------------------
-# Kernel 18 on the radix column tile; kernel 19 on the bts2 core (fixed or
-# wide)
+# Kernels 18 and 19 on the radix column tile
 # --------------------------------------------------------------------------
 
 
 def _bts2_col_r2c_plain(xe: torch.Tensor, xo: torch.Tensor) -> torch.Tensor:
-    """The bts2 column R2C's plain version (kernels 19 and 22): the core's
-    plain version on xe + i xo, (B, h, L) float32, then the unpack with the
-    mirror row, (B, h+1, L) complex64."""
+    """The bts2 column R2C's plain version (kernel 22, kernel 25's remnant):
+    the core's plain version on xe + i xo, (B, h, L) float32, then the
+    unpack with the mirror row, (B, h+1, L) complex64."""
     h = xe.shape[1]
     zz = bts2_plain(torch.complex(xe, xo), device_wq(h, -1, 1.0, xe.device), -1)
     return _unpack(zz, _device_tw(2 * h, xe.device), 1)
@@ -590,13 +590,12 @@ def r2c_packed_mid_plain(xe: torch.Tensor, xo: torch.Tensor, scale=None) -> torc
 def dct1_mid_plain(x: torch.Tensor, scale=None) -> torch.Tensor:
     """Plain version of kernel 19: (B, n, L) float32 -> scale * Re of the R2C
     of length 2h of the even extension [x, x[h-1], .., x[1]] along dim 1,
-    h = n - 1: the core's plain version on the extension's pairs, then the
-    unpack's real rows."""
-    nb, n, cols = x.shape
-    h = n - 1
-    ext = torch.cat([x, x[:, 1:h].flip(1)], dim=1).reshape(nb, h, 2, cols)
-    re = _bts2_col_r2c_plain(ext[:, :, 0], ext[:, :, 1]).real
-    return re if scale is None else re * float(scale)
+    h = n - 1: kernel 27's DCT-I on the radix column tile (the R2C's plain
+    version, :func:`r2c_mid_radix_plain`, of the extension), its real
+    rows."""
+    n = x.shape[1]
+    re = r2c_mid_radix_plain(torch.cat([x, x[:, 1:n - 1].flip(1)], dim=1)).real
+    return re.contiguous() if scale is None else re * float(scale)
 
 
 def _check_half(h: int, what: str, name: str) -> int:
@@ -607,33 +606,6 @@ def _check_half(h: int, what: str, name: str) -> int:
         raise ValueError(f"{what}: {name}={h} is not 128 * F with a plan "
                          f"(128 <= {name} <= {GENERIC_MAX_N})")
     return f
-
-
-def _launch_dct1_mid(x: torch.Tensor, y: torch.Tensor, h: int, scale: float,
-                     workspace=None) -> None:
-    """Kernel 19 on the column tiles of (B, h + 1, L): the fixed core for F
-    in CORE_F, else the wide core with its (B, h, L) complex64
-    ``workspace``; adds one to :func:`dct1_mid`'s counts."""
-    nb, n, cols = x.shape
-    dev = x.device
-    wide = h // M not in CORE_F
-    entry = "ndfft_dct1_mid" + ("_wide" if wide else "")
-    wq = device_wq(h, -1, 1.0, dev).data_ptr()
-    tw = _device_tw(2 * h, dev).data_ptr()
-    sms = num_sms(dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        if wide:
-            err = _build.lib().ndfft_dct1_mid_wide(
-                x.data_ptr(), y.data_ptr(), workspace.data_ptr(), wq,
-                device_wide(h, -1, dev).data_ptr(), tw, scale, nb, n, cols,
-                wide_block(h, nb, cols, sms), stream)
-        else:
-            err = _build.lib().ndfft_dct1_mid(
-                x.data_ptr(), y.data_ptr(), wq, tw, scale, nb, n, cols,
-                block_cols(h, nb, cols, sms), stream)
-    _build.check(err, entry)
-    count_launch(dct1_mid, wide)
 
 
 PACKED_MID_MAX_C = 16   # kernel 18's widest tile from h = 1024 on (64 bytes a stream row)
@@ -710,12 +682,25 @@ r2c_packed_mid.launches = 0
 r2c_packed_mid.radix_launches = 0
 
 
+def dct1_mid_cols(h: int, groups: int, cols: int, sms: int) -> int:
+    """Columns per tile of kernel 19 at h = n - 1: kernel 18's
+    :func:`packed_mid_cols` at h, the same R2C of length 2h on the same
+    column tile. (On an NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py
+    phase 5, C = 1, 2, 4, 8: at (2049, 2049, 257) 36.78, 20.18, 13.84,
+    13.63 ms (32.59 and 17.65 read-only at C = 1, 2), at (1, 2049, 526593)
+    39.34, 23.02, 15.22, 14.12 and at (1, 1537, 1537) 0.127, 0.083, 0.089,
+    0.079: the rule's 8 ran fastest at each.)"""
+    return packed_mid_cols(h, groups, cols, sms)
+
+
 def dct1_mid(x: torch.Tensor, scale=None) -> torch.Tensor:
     """scale * Re of the R2C of length 2h of the even extension along dim 1
     of a (B, n, L) float32 tensor (2 * scale * the rustdct DCT-I), odd
-    n = h + 1, h = 128 * F. A CPU tensor runs the plain version; a CUDA tensor
-    launches kernel 19 (on the fixed core for F in {2, 4, 8, 16}, else on the
-    wide core with a (B, h, L) complex64 workspace) or raises."""
+    n = h + 1, h = 128 * F. A CPU tensor runs the plain version; a CUDA
+    tensor launches kernel 19, kernel 27's DCT-I on the radix column tile
+    (``csrc/dct_mid_radix.cu``, columns a tile by :func:`dct1_mid_cols`, x
+    through the read-only path at C <= 2), counted in ``launches`` and
+    ``radix_launches``, or raises."""
     _check_mid(x, torch.float32, "dct1_mid")
     nb, n, cols = x.shape
     _check_half(n - 1, "dct1_mid", "n - 1")
@@ -727,15 +712,18 @@ def dct1_mid(x: torch.Tensor, scale=None) -> torch.Tensor:
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    h = n - 1
-    ws = (None if h // M in CORE_F else
-          torch.empty((nb, h, cols), dtype=torch.complex64, device=x.device))
-    _launch_dct1_mid(x, y, h, 1.0 if scale is None else float(scale), ws)
+    from .dct import dct_radix_launch    # dct.py imports this module
+
+    c = dct1_mid_cols(n - 1, nb, cols, num_sms(x.device))
+    # kernel 27 stores (s / 2) Re X: s = 2 scale gives scale Re X
+    dct_radix_launch(x, y, 1, 2.0 * (1.0 if scale is None else float(scale)), c, ldg=c <= 2)
+    dct1_mid.launches += 1
+    dct1_mid.radix_launches += 1
     return y
 
 
 dct1_mid.launches = 0
-dct1_mid.wide_launches = 0
+dct1_mid.radix_launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -92,17 +92,17 @@ def test_unported_route_and_grad_raise(dev):
     assert kdct.dct2_nat.radix_launches - before == 1
     assert _rel(y, kdct.dct2_nat_plain(r, 2.0)) <= TOL
     # DST-I along axis 0 at 1023 runs kernel 18 (it raised before the kernel
-    # was ported); DCT-IV past n = 40960 runs kernel 28's long form (it
-    # raised before that form was ported)
+    # was ported); DCT-IV past n = 40960 runs kernel 28's four-step (it
+    # raised before the long form was ported)
     r = torch.randn(1023, 128, device=dev)
     before = krfft.r2c_packed_mid.launches
     y = nd.nddst1(r, axis=0)
     assert krfft.r2c_packed_mid.launches - before == 1
     assert _rel(y.double(), _dst1_oracle(r.double())) <= 1e-5
     r = torch.randn(256 * 161, 128, device=dev)
-    before = kdct.dct4_mid.long_launches
+    before = kdct.dct4_mid.fourstep_launches
     y = nd.nddct4(r, axis=0)
-    assert kdct.dct4_mid.long_launches - before == 1
+    assert kdct.dct4_mid.fourstep_launches - before == 1
     assert _rel(y, kdct.dct4_mid_plain(r[None], 2.0)[0]) <= TOL
     with pytest.raises(NotImplementedError, match="autograd"):
         nd.ndfft_r2c(torch.zeros(512, 512, device=dev, requires_grad=True), axis=1)
@@ -155,7 +155,8 @@ def test_unported_dct_route_raises(dev):
     assert nd.nddct2([1.0, 2.0, 3.0]).device.type == "cuda"   # non-tensor input
     # DCT-I at 2049 and DCT-IV at 2048 along axis 0 run kernels 19 and 28
     # (they raised before the kernels were ported), and so does DST-IV at
-    # 65536 (the long form, F = 256; it raised before that form was ported)
+    # 65536 (the four-step, F = 256; it raised before the long form was
+    # ported)
     x1 = torch.randn(2049, 128, device=dev)
     before = (krfft.dct1_mid.launches, kdct.dct4_mid.launches)
     y1 = nd.nddct1(x1, axis=0)
@@ -164,9 +165,9 @@ def test_unported_dct_route_raises(dev):
     assert _rel(y1, krfft.dct1_mid_plain(x1[None], 1.0)[0]) <= TOL
     assert _rel(y4, kdct.dct4_mid_plain(x[None], 2.0)[0]) <= TOL
     x4 = torch.randn(65536, 128, device=dev)
-    before = kdct.dct4_mid.long_launches
+    before = kdct.dct4_mid.fourstep_launches
     y4 = nd.nddst4(x4, axis=0)
-    assert kdct.dct4_mid.long_launches - before == 1
+    assert kdct.dct4_mid.fourstep_launches - before == 1
     alt = torch.ones(65536, 1, device=dev)
     alt[1::2] = -1
     assert _rel(y4, kdct.dct4_mid_plain(x4.flip(0)[None], 2.0)[0] * alt) <= TOL
@@ -556,13 +557,12 @@ def test_neumann_2d_runs_on_the_dct_kernels(dev):
 
 
 def test_packed_mid_kernels_match_plain_in_both_forms(dev):
-    """Kernels 19 and 28 on the fixed core and on the wide core, kernel 18
-    on the radix column tile at the same h: ragged column tiles, prime
-    F = 131 (K28), the largest tiles (F = 160: one column per tile), and
-    K19's workspace."""
+    """Kernels 18, 19 and 28's single pass on the radix column tile at the
+    same h: ragged column tiles, the largest tiles (h = 20480: one column
+    per tile, read-only loads), and K28's wide core at the prime F = 131."""
     g = torch.Generator(device=dev).manual_seed(13)
-    fns = ((krfft.r2c_packed_mid, "radix_launches"), (krfft.dct1_mid, "wide_launches"),
-           (kdct.dct4_mid, "wide_launches"))
+    fns = ((krfft.r2c_packed_mid, "radix_launches"), (krfft.dct1_mid, "radix_launches"),
+           (kdct.dct4_mid, "radix_launches"), (kdct.dct4_mid, "wide_launches"))
     before = [(f.launches, getattr(f, a)) for f, a in fns]
     for shape in ((2, 256, 130), (1, 1024, 257), (3, 2048, 33), (1, 384, 385), (2, 1152, 130),
                   (1, 20480, 3)):
@@ -576,13 +576,33 @@ def test_packed_mid_kernels_match_plain_in_both_forms(dev):
         x = torch.randn(*shape, generator=g, device=dev)
         for scale in (1.0, 0.25):
             assert _rel(krfft.dct1_mid(x, scale), krfft.dct1_mid_plain(x, scale)) <= TOL, shape
-    for shape in ((2, 2048, 130), (1, 4096, 33), (1, 1024, 257), (2, 1280, 130),
-                  (1, 1536, 129), (1, 256 * 131, 3), (1, 40960, 2)):
+    shapes4 = ((2, 2048, 130), (1, 4096, 33), (1, 1024, 257), (2, 1280, 130),
+               (1, 1536, 129), (1, 256 * 131, 3), (1, 40960, 2))
+    for shape in shapes4:
         x = torch.randn(*shape, generator=g, device=dev)
         for scale in (2.0, None):
             assert _rel(kdct.dct4_mid(x, scale), kdct.dct4_mid_plain(x, scale)) <= TOL, shape
+    radix4 = 2 * sum(kdct.dct4_form(shape[1]) == "radix" for shape in shapes4)
     assert [(f.launches - b0, getattr(f, a) - b1) for (f, a), (b0, b1) in zip(fns, before)] == \
-        [(12, 12), (10, 6), (14, 8)]
+        [(12, 12), (10, 10), (14, radix4), (14, 2)]
+
+
+def test_dct4_fourstep_matches_plain(dev):
+    """Kernel 28's four-step at forced splits of short lengths (hl = 1024 =
+    32 * 32, 1280 = 10 * 128, ragged column tiles) against its plain version
+    and the single pass, and at G2's length in place of the single pass's
+    reach."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    for shape, h2 in (((2, 2048, 130), 32), ((1, 2560, 33), 128), ((1, 65536, 40), 128)):
+        x = torch.randn(*shape, generator=g, device=dev)
+        y = torch.empty_like(x)
+        hl = shape[1] // 2
+        c1 = kdct.dct4_fourstep_cols(hl // h2, shape[0] * h2, shape[2], 132)
+        c2 = kdct.dct4_fourstep_cols(h2, shape[0] * (hl // h2), shape[2], 132)
+        kdct.dct4_fourstep_launch(x, y, 2.0, c1, c2, h2)
+        assert _rel(y, kdct.dct4_fourstep_plain(x, 2.0, h2)) <= TOL, shape
+        if hl <= kdct.DCT4_RADIX_MAX_HL:
+            assert _rel(y, kdct.dct4_radix_plain(x, 2.0)) <= TOL, shape
 
 
 def test_dirichlet_pair_runs_on_the_kernels(dev):
@@ -1354,9 +1374,10 @@ def test_long_forms_match_plain(dev):
     """Kernels 23 to 26 and 29 in the n-point form on the real tile at odd
     k > 160 (n = 20864 with the prime k = 163; at n = 20608 and
     32640 = 128 * 255 the radix cores), and kernel
-    28's long form at F = 161, 163 and 256 (n = 41216, 41728,
-    65536): one launch each, against the plain versions, with ragged
-    column tiles and a broadcast and a lane-varying H."""
+    28 past the complex tile at F = 161, 163 and 256 (n = 41216, 41728,
+    65536: the four-step, the long form at the prime, the four-step): one
+    call each, against the plain versions, with ragged column tiles and a
+    broadcast and a lane-varying H."""
     g = torch.Generator(device=dev).manual_seed(23)
 
     def randn(*shape):
@@ -1380,13 +1401,14 @@ def test_long_forms_match_plain(dev):
              (kdct.dct2_nat, kdct.dct3_nat, kdct.dct2_mid, kdct.dct3_mid,
               kdct.spectral_dct_mid)]
     assert [(a - c, b - d) for (a, b), (c, d) in zip(after, before)] == [(6, 2)] * 5
-    before = (kdct.dct4_mid.launches, kdct.dct4_mid.long_launches, kdct.dct4_mid.wide_launches)
+    counts = ("launches", "long_launches", "fourstep_launches", "wide_launches")
+    before = [getattr(kdct.dct4_mid, c) for c in counts]
     for n in (41216, 41728, 65536):
         x = randn(2, n, 130)
         for scale in (2.0, None):
             assert _rel(kdct.dct4_mid(x, scale), kdct.dct4_mid_plain(x, scale)) <= TOL, n
-    after = (kdct.dct4_mid.launches, kdct.dct4_mid.long_launches, kdct.dct4_mid.wide_launches)
-    assert [a - b for a, b in zip(after, before)] == [6, 6, 0]
+    after = [getattr(kdct.dct4_mid, c) for c in counts]
+    assert [a - b for a, b in zip(after, before)] == [6, 2, 4, 0]
 
 
 def _tile_fits(n, c):

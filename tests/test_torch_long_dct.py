@@ -103,7 +103,8 @@ def test_spectral_plain_matches_pallas(n, lane):
 @pytest.mark.parametrize("n", LONG_N4)
 @pytest.mark.parametrize("scale", [2.0, None])
 def test_dct4_plain_matches_pallas(n, scale):
-    """Kernel 28's long form, F = n/256 > 160."""
+    """Kernel 28 at F = n/256 > 160: the four-step at F = 161 and 256, the
+    long form at the prime 163."""
     assert kdct.dct4_f(n) == n // 256 > kfft.WIDE_MAX_F
     x = _real((1, n, 3), n + int(scale is None))
     _close(kdct.dct4_mid(torch.from_numpy(x), scale), ref_pdct.dct4_pallas_mid(jnp.asarray(x),
@@ -191,7 +192,8 @@ def test_dct4_long_chirps_are_the_jax_expressions(n):
 
 def test_long_forms_and_their_tiles():
     """Every odd k in 161 ... 255 is an n-point form and every F in
-    161 ... 256 a long DCT-IV; one real tile of the longest fits a block
+    161 ... 256 a DCT-IV factor past the complex tile (the four-step, or
+    the long form at a prime F); one real tile of the longest fits a block
     with room to spare, where a complex one would not, so the wrappers
     pick one transform per tile."""
     for k in range(161, 256, 2):
@@ -210,7 +212,8 @@ def test_long_forms_and_their_tiles():
 def test_long_wrappers_on_cpu_count_no_launch():
     before = [(w.launches, w.npoint_launches) for w in (kdct.dct2_mid, kdct.dct3_nat,
                                                         kdct.spectral_dct_mid)]
-    before4 = (kdct.dct4_mid.launches, kdct.dct4_mid.long_launches)
+    before4 = (kdct.dct4_mid.launches, kdct.dct4_mid.long_launches,
+               kdct.dct4_mid.fourstep_launches)
     x = torch.from_numpy(_real((1, 20608, 2), 7))
     kdct.dct2_mid(x, 2.0)
     kdct.dct3_nat(x[0].T.contiguous())
@@ -218,4 +221,5 @@ def test_long_wrappers_on_cpu_count_no_launch():
     kdct.dct4_mid(torch.from_numpy(_real((1, 41216, 2), 8)), 2.0)
     assert [(w.launches, w.npoint_launches) for w in (kdct.dct2_mid, kdct.dct3_nat,
                                                       kdct.spectral_dct_mid)] == before
-    assert (kdct.dct4_mid.launches, kdct.dct4_mid.long_launches) == before4
+    assert (kdct.dct4_mid.launches, kdct.dct4_mid.long_launches,
+            kdct.dct4_mid.fourstep_launches) == before4

@@ -5,10 +5,10 @@ interpret mode on the CPU, where the wrappers run their plain versions:
 * ``r2c_packed_mid`` (on the radix column tile) against
   ``r2c_pallas_packed_mid`` at h = 256 (F = 2), 384 (F = 3) and 1024
   (F = 8), with scale -0.5 (DST-I's) and 1;
-* ``dct1_mid`` against ``dct1_pallas_mid`` at n = 1153 (the wide core,
-  F = 9) and 2049 (the fixed core, F = 16);
-* ``dct4_mid`` against ``dct4_pallas_mid`` at n = 1280 (wide, F = 5), 1536
-  (wide, F = 6) and 2048 (fixed, F = 8);
+* ``dct1_mid`` against ``dct1_pallas_mid`` at n = 1153 (F = 9) and 2049
+  (F = 16), both on the radix column tile;
+* ``dct4_mid`` against ``dct4_pallas_mid`` at n = 1280 (F = 5), 1536
+  (F = 6) and 2048 (F = 8), all in the single pass;
 * each with nb = 1 and 2 and L = 128 and a ragged 130;
 * the host tables bit for bit against the JAX builders' expressions, the
   plain versions against float64 oracles, the wrappers' checks, launch
@@ -232,8 +232,9 @@ def test_packed_mid_wrappers_reject_other_types():
 
 
 def test_wrappers_on_cpu_count_no_launch():
-    fns = ((krfft.r2c_packed_mid, "radix_launches"), (krfft.dct1_mid, "wide_launches"),
-           (kdct.dct4_mid, "wide_launches"))
+    fns = ((krfft.r2c_packed_mid, "radix_launches"), (krfft.dct1_mid, "radix_launches"),
+           (kdct.dct4_mid, "radix_launches"), (kdct.dct4_mid, "fourstep_launches"),
+           (kdct.dct4_mid, "wide_launches"), (kdct.dct4_mid, "long_launches"))
     before = [(f.launches, getattr(f, a)) for f, a in fns]
     krfft.r2c_packed_mid(torch.zeros(1, 384, 3), torch.zeros(1, 384, 3), -0.5)
     krfft.dct1_mid(torch.zeros(1, 1153, 3))
@@ -246,10 +247,12 @@ def test_tile_sizes_of_the_paths():
     # (16 columns, 64 bytes a stream row)
     assert krfft.packed_mid_cols(1024, 1023, 1023, 132) == 16
     assert krfft.packed_mid_cols(1024, 1, 1023 * 1023, 132) == 16
-    # the 2049^2 x 257 Neumann solve: K19 at h = 2048 (4 columns)
-    assert kfft.block_cols(2048, 2049, 257, 132) == 4
-    # K19 wide at 1153 (h = 1152, F = 9) and 20481 (one column per tile)
+    # the 2049^2 x 257 Neumann solve: K19 at h = 2048 on the radix column
+    # tile (kernel 18's rule: 8 columns, 32 bytes a tile row)
+    assert krfft.dct1_mid_cols(2048, 2049, 257, 132) == 8
+    assert krfft.dct1_mid_cols(2048, 1, 2049 * 257, 132) == 8
+    # the wide core's tiles (K22's wide form, K28's remnant) at h = 1152
+    # (F = 9) and 20480 (one column per tile)
     assert kfft.wide_block(1152, 1, 1153, 132) == 4
     assert kfft.wide_block(20480, 1, 128, 132) == 1
-    # K28 wide at 40960 (hl = 20480): one column per tile
     assert kfft.wide_block(20480, 1, 130, 132) == 1

@@ -158,6 +158,19 @@ remnant), the DCT kernels on the radix cores, kernel 29's and every
 chirp-z kernel (kernels 11, 20, 21, 15's rows and 12). It uses only public
 wrappers, so --root may name the parent tree.
 
+With --dct14 it times instead kernel 28 (DCT-IV along a middle axis) at
+(2048, 2048, 256), (1, 2048, 524288), (1, 1536, 1536), (1, 65536, 8192),
+(1, 40960, 8192) and at the prime F = 131 and 163 over 1024 columns, and
+kernel 19 (DCT-I) at (2049, 2049, 257), (1, 2049, 526593) and
+(1, 1537, 1537), each with its output's digest; the other kernels on the
+radix column skeleton with digests (kernels 1, 4, 6, 16, 18, 20, 17, 21,
+27's DCT-I/II/III, 25, 26 at one main shape each); and the paths that run
+kernels 28 and 19: the type-1 dctn + idctn pair on 2049^2 x 257, the
+type-4 pair on 2048^2 x 256 and G2's pair on 65536 x 8192, over
+--reps-big runs; then the registers and spill bytes (ptxas -v) of every
+radix column kernel and kernel 28's. It uses only public wrappers, so
+--root may name the parent tree.
+
 With --scan-dct-mid it times instead kernels 26 and 29 on the radix column
 tile at each column count C = 1 ... 16 that fits, at C <= 2 with both
 loads: kernel 26 at (1, 1536, 2359296),
@@ -201,6 +214,7 @@ def main() -> int:
     ap.add_argument("--scan-c2r", action="store_true")
     ap.add_argument("--dense", action="store_true")
     ap.add_argument("--dct", action="store_true")
+    ap.add_argument("--dct14", action="store_true")
     ap.add_argument("--scan-dense", action="store_true")
     ap.add_argument("--scan-dct-mid", action="store_true")
     ap.add_argument("--route-dense", default=None, metavar="JSON")
@@ -303,6 +317,12 @@ def main() -> int:
                           "ptxas": ptxas_entries(("dct3", "Dct3", "dct2_mid", "dct2_wide",
                                                   "dct2_npoint", "Makhoul", "spectral_dct",
                                                   "blue_radix_kernel"))}), flush=True)
+        return 0
+    if args.dct14:
+        dct14(torch, nd, kfft, krfft, kdct, dev, gen, crandn, ms, args.reps_big, out)
+        print(json.dumps({"root": root, "card": card, "ms_and_digest": out,
+                          "ptxas": ptxas_entries(("radix_cols_kernel", "dct4", "Dct4"))}),
+              flush=True)
         return 0
     if args.dense:
         dense(torch, nd, krfft, kdct, dev, gen, crandn, ms, args.reps_big, out)
@@ -1113,6 +1133,92 @@ def dct(torch, nd, kfft, krfft, kdct, dev, gen, crandn, ms, reps_big, out):
         torch.cuda.empty_cache()
     out["S3_neumann_poisson_1024^3"] = neumann_cube_ms(torch, nd, dev, gen, 1024, True, ms,
                                                        reps_big)
+
+
+def dct14(torch, nd, kfft, krfft, kdct, dev, gen, crandn, ms, reps_big, out):
+    """Kernels 28 and 19 at their main shapes, the column tile's other
+    kernels with digests, and the paths that run kernels 28 and 19."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def key(name, shape, *tags):
+        return "_".join([name, "x".join(map(str, shape)), *map(str, tags)])
+
+    def big(x):
+        return reps_big if x.numel() > 1 << 28 else None
+
+    # kernel 28: the mixed solve's (2048, 2048, 256) and (1, 2048, 524288),
+    # F = 6's (1, 1536, 1536), G2's (1, 65536, 8192), the crossover's
+    # (1, 40960, 8192) and the remnant's prime F = 131 and 163; kernel 19:
+    # the vertex-centred solve's (2049, 2049, 257) and (1, 2049, 526593)
+    # and F = 12's (1, 1537, 1537)
+    for name, fn, shapes in (
+            ("dct4_mid", lambda x: kdct.dct4_mid(x, 2.0),
+             ((2048, 2048, 256), (1, 2048, 524288), (1, 1536, 1536), (1, 65536, 8192),
+              (1, 40960, 8192), (1, 256 * 131, 1024), (1, 256 * 163, 1024))),
+            ("dct1_mid", lambda x: krfft.dct1_mid(x, 0.5),
+             ((2049, 2049, 257), (1, 2049, 526593), (1, 1537, 1537)))):
+        for shape in shapes:
+            x = randn(*shape)
+            out[key(name, shape)] = (ms(lambda: fn(x), big(x)), None, digest(fn(x)))
+            del x
+            torch.cuda.empty_cache()
+    # the kernels on the same column skeleton (its load handle changed):
+    # kernels 1, 4, 6 (C2C), 16, 18, 20 (R2C), 17, 21 (C2R), 25, 26, 27
+    z = crandn(1, 4096, 4096)
+    out[key("c2c_axis_mid", z.shape)] = (ms(lambda: kfft.c2c_axis_mid(z, -1)), None,
+                                         digest(kfft.c2c_axis_mid(z, -1)))
+    z = crandn(1, 256, 65536)
+    out[key("c2c_dense_mid", z.shape)] = (ms(lambda: kfft.c2c_dense_mid(z, -1)), None,
+                                          digest(kfft.c2c_dense_mid(z, -1)))
+    z = crandn(600, 600, 301)
+    out[key("c2c_generic_mid", z.shape)] = (ms(lambda: kfft.c2c_generic_mid(z, -1)), None,
+                                            digest(kfft.c2c_generic_mid(z, -1)))
+    x = randn(1, 512, 262144)
+    for name, fn in (("r2c_mid", lambda: krfft.r2c_mid(x)),
+                     ("dct2_dense_mid", lambda: kdct.dct_dense_mid(x, 2, 2.0)),
+                     ("dct3_dense_mid", lambda: kdct.dct_dense_mid(x, 3, 2.0))):
+        out[key(name, x.shape)] = (ms(fn), None, digest(fn()))
+    xe, xo = randn(1023, 1024, 1023), randn(1023, 1024, 1023)
+    out[key("r2c_packed_mid", xe.shape)] = (
+        ms(lambda: krfft.r2c_packed_mid(xe, xo, -0.5), reps_big), None,
+        digest(krfft.r2c_packed_mid(xe, xo, -0.5)))
+    del xe, xo
+    x = randn(1, 256, 65536)
+    out[key("r2c_dense_mid", x.shape)] = (ms(lambda: krfft.r2c_dense_mid(x)), None,
+                                          digest(krfft.r2c_dense_mid(x)))
+    s = crandn(1, 257, 262144)
+    out[key("c2r_mid", s.shape)] = (ms(lambda: krfft.c2r_mid(s, 512, 1.0 / 512)), None,
+                                    digest(krfft.c2r_mid(s, 512, 1.0 / 512)))
+    s = crandn(1, 65, 65536)
+    out[key("c2r_dense_mid", s.shape, 129)] = (
+        ms(lambda: krfft.c2r_dense_mid(s, 129, 1.0 / 129)), None,
+        digest(krfft.c2r_dense_mid(s, 129, 1.0 / 129)))
+    x = randn(129, 129, 129)
+    out[key("dct1_dense_mid", x.shape)] = (ms(lambda: kdct.dct_dense_mid(x, 1, 2.0)), None,
+                                           digest(kdct.dct_dense_mid(x, 1, 2.0)))
+    x = randn(1, 2048, 2048)
+    for name, fn in (("dct2_mid", lambda: kdct.dct2_mid(x, 2.0)),
+                     ("dct3_mid", lambda: kdct.dct3_mid(x, 2.0))):
+        out[key(name, x.shape)] = (ms(fn), None, digest(fn()))
+    del x, z, s
+    torch.cuda.empty_cache()
+    # the paths: the vertex-centred Neumann pair (dctn, idctn of type 1) on
+    # 2049^2 x 257, the mixed pair of type 4 on 2048^2 x 256 and G2's on
+    # 65536 x 8192 (DCT-IV along axis 0, DCT-II along axis 1, and back);
+    # random fields (the kernels' time does not depend on them)
+    for name, shape, fwd, inv in (
+            ("neumann_vertex_pair_2049^2x257", (2049, 2049, 257), lambda f: nd.dctn(f, 1),
+             lambda f: nd.idctn(f, 1)),
+            ("mixed_pair_2048^2x256", (2048, 2048, 256), lambda f: nd.dctn(f, 4),
+             lambda f: nd.idctn(f, 4)),
+            ("G2_pair_65536x8192", (65536, 8192),
+             lambda f: nd.dctn(nd.dctn(f, 4, axes=(0,)), 2, axes=(1,)),
+             lambda f: nd.idctn(nd.idctn(f, 2, axes=(1,)), 4, axes=(0,)))):
+        f = randn(*shape)
+        out[name] = (ms(lambda: inv(fwd(f)), reps_big), None)
+        del f
+        torch.cuda.empty_cache()
 
 
 def axis_mid(torch, nd, kfft, krfft, dev, gen, crandn, ms, reps_big, out):
