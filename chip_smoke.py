@@ -132,13 +132,14 @@ without the final line):
      k. the four-step long C2C (kernel 7, the column FFT with the exit
         twiddle, and kernel 13, the row FFT with the transposed store;
         engine._fourstep): the 256 x 2^20 complex64 round trip along the
-        last axis (ndfft / ndifft: K7 fixed and K13 fixed, F = 8, split
-        (1024, 1024)) against complex128 torch.fft.fft on a slice of rows
+        last axis (ndfft / ndifft: K7 on the radix column tile and K13 on
+        the radix row core, split (1024, 1024)) against complex128
+        torch.fft.fft on a slice of rows
         and the round trip, its time and peak memory against torch.fft.fft
         + ifft; the 32768^2 real spectral step (K2 and K3 on the radix row
         core at h = 16384; the
-        C2C along axis 0 on the four-step (256, 128): K7 dense at
-        (16385, 256, 128), K13 wide, F = 1) against float64
+        C2C along axis 0 on the four-step (256, 128): K7 on the radix
+        column tile at (16385, 256, 128), K13 at n2 = 128) against float64
         torch.fft.rfftn with the round trip, its time against
         torch.fft.rfftn + irfftn and each public leg's; ndfft at 10007 (the
         lane's chirp-z at M = 20736 on the four-step), 36992 ... 786432 and
@@ -327,6 +328,11 @@ without the final line):
      product) beside torch.fft.irfft, and kernel 27 on it at
      (1, 512, 262144) and (1024, 1024, 1024) (DCT-II, DCT-III) and
      (129, 129, 129) and (1, 1025, 1025) (DCT-I) with each column count C;
+     kernel 7 on the radix column tile at (256, 1024, 1024) and
+     (16385, 256, 128) with each column count C (at C <= 2 with each load;
+     the form that stores from the last stage at the 16-element tiles) and
+     its dense remnant at (8, 131, 8192), and kernel 13 at the same two
+     shapes with each count of rows a block the row skeleton holds;
      kernel 27 at each of those and its dense product at the DCT-IV of
      (1, 1024, 1024) and the odd DCT-II lengths, beside torch.matmul with
      the scaled DCT matrix; kernel 28's single pass at (2048, 2048, 256),
@@ -342,7 +348,7 @@ error against its plain version, its times, and its bound: the larger of
 the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its FP32 operations over 67 TFLOP/s (H100 SXM data
 sheet, 700 W). Its launches are the sum over the main paths of phase 4;
-kernels 13, 14 and 22 on the bts2 core are two rows each, the
+kernels 14 and 22 on the bts2 core are two rows each, the
 fixed core (launches - wide_launches) and the wide one (wide_launches;
 the K11 and K12 rows also give the bound of their two length-M FFTs per
 column, ``length_m_bound_ms``); kernels 10, 2, 3 and 15
@@ -359,13 +365,15 @@ type under ``by_type``, kernels 20 and 21 a third, their chirp-z
 (``r2c_dense_mid_chirp``, ``c2r_dense_mid_chirp``; chirp_launches, with the
 bound of the two length-M FFTs), and kernel 15's dense rows two: the radix
 row core (``r2c_packed_dense_radix``; radix_launches) and the chirp-z
-(``r2c_packed_dense_chirp``; chirp_launches); and
+(``r2c_packed_dense_chirp``; chirp_launches); kernel 13 one, the radix row
+core (``rows_store_t``; radix_launches); and
 kernels 23 to 26 and 29 three each: the
 radix core (``dct2_nat_radix``, ``dct3_nat_radix`` on rows,
 ``dct2_mid_radix``, ``dct3_mid_radix``, ``spectral_dct_mid_radix`` on the
 column tile; radix_launches), the wide core's
-half length and the n-point form at the 29 lengths without a plan; kernel 7 three: the
-fixed core, the wide core and the dense body (dense_launches); kernel 28
+half length and the n-point form at the 29 lengths without a plan; kernel 7 two: the
+radix column tile (``fourstep_mid_radix``, radix_launches) and the dense
+product at the prime n1 (``fourstep_mid_dense``, dense_launches); kernel 28
 four: the single pass and the four-step on the radix column tile
 (``dct4_mid_radix``, radix_launches; ``dct4_mid_fourstep``,
 fourstep_launches), the wide core and the long form at the prime F
@@ -398,7 +406,7 @@ TOL_STEP = 1e-5      # step vs float64 oracle and round trip, relative
 # ``npoint_launches``, for kernel 7 ``dense_launches``, for kernel 28
 # ``long_launches`` and ``fourstep_launches``, for kernels 1, 10, 2, 3, 15
 # (``r2c_packed`` and ``r2c_packed_dense``), 11, 8 (``c2c_dense_rows``), 6,
-# 4, 16 to 21, 23 to 29 ``radix_launches`` and for kernels 20, 21 and 15's
+# 4, 7, 13, 16 to 21, 23 to 29 ``radix_launches`` and for kernels 20, 21 and 15's
 # dense rows
 # ``chirp_launches``
 FORMS = ("wide", "npoint", "dense", "long", "fourstep", "radix", "chirp")
@@ -406,7 +414,7 @@ FORMS = ("wide", "npoint", "dense", "long", "fourstep", "radix", "chirp")
 # ``radix_launches`` equal their ``launches``
 RADIX_ONLY = ("c2c_axis_mid", "c2c_rows", "r2c_nat", "r2c_packed", "c2c_dense_rows",
               "c2c_generic_mid", "c2c_dense_mid", "c2c_blue_mid", "r2c_mid", "r2c_packed_mid",
-              "c2r_nat", "c2r_mid", "dct23_blue_mid", "dct1_mid")
+              "c2r_nat", "c2r_mid", "dct23_blue_mid", "dct1_mid", "rows_store_t")
 TOL_CENSUS = 1e-6    # the radix core's censuses (phases 4r to 4v)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, 700 W
 FP32_FLOP_PER_S = 67e12     # FP32 outside the tensor cores, same source
@@ -477,9 +485,9 @@ def work(name: str, shape, length_m: bool = False, mult=None, n=None, dct_type=2
     ab rows and write the 2h reals. The four-step's kernel 7 on
     (B, n1, n2) reads x and the (n1, n2) exit twiddle and writes y, and does an n1-point complex FFT
     per column and a complex product (6 FLOPs) per element; its tables are
-    its body's (the core's Wq at n1, or the dense body's (n1, n1) matrix).
-    Kernel 13 reads (B, n1, n2) and writes (B, n2, n1) with Wq at n2, and
-    does an n2-point complex FFT per row. The fused spectral kernels (K14,
+    its form's (the radix table of n1, or the dense product's (n1, n1)
+    matrix). Kernel 13 reads (B, n1, n2) and writes (B, n2, n1) with the
+    radix table of n2, and does an n2-point complex FFT per row. The fused spectral kernels (K14,
     K22, K29) on (B, n, L) read x and their multiplier H (``mult`` = (hc,
     complex): rows x hc, hc = 1 or L, float32 or complex64) and write y,
     with both cores' tables (K29 on the radix column tile: the radix table
@@ -514,13 +522,12 @@ def work(name: str, shape, length_m: bool = False, mult=None, n=None, dct_type=2
         mult = (6 if cplx else 2) if (k14 or k22) else 1
         return io + h_bytes + tables, (2 * fft + mult * rows) * b * cols
     if name.startswith(("fourstep_mid", "rows_store_t")):
+        from ndrustfft_tpu_torch.ops.hopper.fft import radix_consts
         b, n1, n2 = shape
         io = 16 * b * n1 * n2
-        if name.startswith("rows_store_t"):
-            wide = 8 * (n2 // 128) ** 2 if name.endswith("_wide") else 0
-            return io + 8 * n2 * 128 + wide, 5 * n2 * math.log2(n2) * b * n1
-        body = (8 * n1 * n1 if name.endswith("_dense") else
-                8 * n1 * 128 + (8 * (n1 // 128) ** 2 if name.endswith("_wide") else 0))
+        if name == "rows_store_t":
+            return io + 8 * len(radix_consts(n2, 1)[0]), 5 * n2 * math.log2(n2) * b * n1
+        body = 8 * n1 * n1 if name.endswith("_dense") else 8 * len(radix_consts(n1, -1)[0])
         return io + 8 * n1 * n2 + body, (5 * n1 * math.log2(n1) + 6 * n1) * b * n2
     if "blue" in name:
         # K11 at M = 128 ceil((2n - 1) / 128), K12 at M = chirp_m(n), both
@@ -833,8 +840,8 @@ def main() -> int:
             "r2c_packed_mid": 0.0, "dct1_mid": 0.0, "dct4_mid_radix": 0.0,
             "dct4_mid_fourstep": 0.0, "dct4_mid_wide": 0.0, "dct4_mid_long": 0.0,
             "c2c_blue_mid": 0.0, "dct23_blue_mid": 0.0,
-            "fourstep_mid": 0.0, "fourstep_mid_wide": 0.0, "fourstep_mid_dense": 0.0,
-            "rows_store_t": 0.0, "rows_store_t_wide": 0.0, "spectral_c2c_mid": 0.0,
+            "fourstep_mid_radix": 0.0, "fourstep_mid_dense": 0.0,
+            "rows_store_t": 0.0, "spectral_c2c_mid": 0.0,
             "spectral_c2c_mid_wide": 0.0, "spectral_r2c_mid": 0.0, "spectral_r2c_mid_wide": 0.0,
             "spectral_dct_mid_radix": 0.0, "spectral_dct_mid_wide": 0.0,
             "spectral_dct_mid_npoint": 0.0}
@@ -1864,27 +1871,30 @@ def main() -> int:
                     raise AssertionError(f"dct23_blue_mid {shape} type {t} C {c}: {rel}")
             del ref
         del x, y
-    # kernel 7 in each body: dense (n1 = 144, 256), fixed (512, F = 4; 1024,
-    # F = 8) and wide (384, 640, F = 3, 5; 2176 with n2 = 17, a one-tile
-    # column; 4096, F = 32), ragged column tiles (n2 = 17, 33, 130, 160);
-    # kernel 13 on the wide core (n2 = 128, 256, 384, 768: F = 1, 2, 3, 6)
-    # and the fixed one (1024, 2048), with n1 = 144 (a block's rows cross a
-    # batch boundary) and 1024; both signs, K13 with the scale 1/n. The main
-    # paths' shapes are checked in phase 4k, slice by slice
-    for name, shapes in (("fourstep_mid_dense", ((2, 144, 144), (1, 256, 160), (3, 256, 128))),
-                         ("fourstep_mid", ((3, 512, 130), (1, 1024, 1024), (2, 1024, 33))),
-                         ("fourstep_mid_wide", ((2, 384, 384), (1, 640, 256), (2, 2176, 17),
-                                                (1, 4096, 33)))):
+    # kernel 7 on the radix column tile at the n1 of its old forms (the
+    # dense body's 144 and 256, the fixed core's 512 and 1024, the wide
+    # core's 384, 640, 2176 and 4096) and at the dense remnant's primes
+    # 131 and 251, ragged column tiles (n2 = 17: (2176, 17) and (144, 17)
+    # of the lengths 36992 and 10007's sub-FFTs, 33, 130, 160);
+    # kernel 13 at n2 = 128, 256, 384, 768, 1024, 2048 with n1 = 144 and 3
+    # (a block's rows cross batch boundaries) and 1024; both signs, K13
+    # with the scale 1/n. The main paths' shapes are checked in phase 4k,
+    # slice by slice
+    for name, shapes in (("fourstep_mid_radix", ((2, 144, 144), (1, 256, 160), (3, 256, 128),
+                                                 (2, 144, 17), (3, 512, 130), (1, 1024, 1024),
+                                                 (2, 1024, 33), (2, 384, 384), (1, 640, 256),
+                                                 (2, 2176, 17), (1, 4096, 33))),
+                         ("fourstep_mid_dense", ((2, 131, 130), (1, 251, 17)))):
         for shape in shapes:
             x = crandn(*shape)
             for sign in (-1, +1):
                 check_form(name, kfft.fourstep_mid, lambda: kfft.fourstep_mid(x, sign),
                            lambda: kfft.fourstep_mid_plain(x, sign), shape, sign=sign)
             del x
-    for name, shapes in (("rows_store_t_wide", ((3, 144, 128), (2, 1024, 128), (3, 144, 256),
-                                                (3, 144, 384), (2, 144, 768))),
-                         ("rows_store_t", ((3, 144, 1024), (1, 1024, 1024), (3, 144, 2048),
-                                           (2, 1024, 2048)))):
+    for name, shapes in (("rows_store_t", ((3, 144, 128), (2, 1024, 128), (3, 144, 256),
+                                           (3, 144, 384), (2, 144, 768), (5, 3, 128),
+                                           (3, 144, 1024), (1, 1024, 1024), (7, 3, 1024),
+                                           (3, 144, 2048), (2, 1024, 2048))),):
         for shape in shapes:
             x = crandn(*shape)
             n = shape[1] * shape[2]
@@ -1980,20 +1990,20 @@ def main() -> int:
                 "spectral_r2c_mid": krfft.spectral_r2c_mid,
                 "spectral_dct_mid": kdct.spectral_dct_mid}
     # the wide core's launches, the DCT kernels' n-point ones, kernel 7's
-    # dense ones and those of the radix-only wrappers and kernels 20, 21, 23
-    # to 27 and 29 on the radix core, counted apart by the same wrappers (their
+    # dense ones and those of the radix-only wrappers and kernels 7, 20, 21,
+    # 23 to 27 and 29 on the radix core, counted apart by the same wrappers (their
     # ``launches`` count every launch)
     radix_too = ("r2c_dense_mid", "c2r_dense_mid", "dct_dense_mid", "r2c_packed_dense")
     forms = {f"{name}_{form}": (wrappers[name], f"{form}_launches")
              for name in (*RADIX_ONLY, *radix_too,
                           "dct2_nat", "dct3_nat", "dct2_mid",
-                          "dct3_mid", "dct4_mid", "fourstep_mid", "rows_store_t",
+                          "dct3_mid", "dct4_mid", "fourstep_mid",
                           "spectral_c2c_mid", "spectral_r2c_mid", "spectral_dct_mid")
              for form in FORMS
-             if form == "wide" and name not in (*RADIX_ONLY, *radix_too)
+             if form == "wide" and name not in (*RADIX_ONLY, *radix_too, "fourstep_mid")
              or form == "radix" and name in (*RADIX_ONLY, *radix_too, "dct2_nat", "dct3_nat",
                                              "dct2_mid", "dct3_mid", "spectral_dct_mid",
-                                             "dct4_mid")
+                                             "dct4_mid", "fourstep_mid")
              or form == "npoint" and name.startswith(("dct2_", "dct3_", "spectral_dct"))
              or form == "dense" and name == "fourstep_mid"
              or form in ("long", "fourstep") and name == "dct4_mid"
@@ -3160,14 +3170,16 @@ def main() -> int:
     # of length n1 with the exit twiddle W_n^{k1 t2}, then K13, the row FFT
     # of length n2 with the scale, stored transposed). Path A: the 256 x 2^20
     # complex64 round trip along the last axis (ndfft, then ndifft with the
-    # Default norm; 2.15 GB per field; split (1024, 1024): K7 fixed, F = 8,
-    # at (256, 1024, 1024), K13 fixed, F = 8, over 262144 rows), the forward
+    # Default norm; 2.15 GB per field; split (1024, 1024): K7 on the radix
+    # column tile at (256, 1024, 1024), K13 on the radix row core over
+    # 262144 rows), the forward
     # against complex128 torch.fft.fft on a slice of rows and the round trip
     # against x; a batch of long 1-D fields, such as an ensemble of
     # split-step runs. Path B: the 32768^2 float32 real spectral step (4.3 GB
     # per field; R2C along the last axis on K2 wide, h = 16384, F = 128; the
-    # C2C along axis 0 after a moveaxis on the four-step (256, 128): K7
-    # dense at (16385, 256, 128), K13 wide, F = 1, over 4194560 rows; the
+    # C2C along axis 0 after a moveaxis on the four-step (256, 128): K7 on
+    # the radix column tile at (16385, 256, 128), K13 over 4194560 rows of
+    # 128; the
     # inverse chain, C2R on K3), against float64 torch.fft.rfftn and the
     # round trip; a periodic 2-D Navier-Stokes step at 32768^2. Then the
     # lengths against float64 oracles, each kernel at the paths' shapes
@@ -3181,7 +3193,7 @@ def main() -> int:
     reset_counts()
     ya = nd.ndfft(xa, ha, axis=1)
     backa = nd.ndifft(ya, ha, axis=1)
-    read_counts("c2c_256x2^20", fourstep_mid=2, rows_store_t=2)
+    read_counts("c2c_256x2^20", fourstep_mid=2, fourstep_mid_radix=2, rows_store_t=2)
     peak = torch.cuda.max_memory_allocated()
     rows = slice(0, b_a, b_a // 8)
     fwd = rel_err(ya[rows], torch.fft.fft(xa[rows].to(torch.complex128), dim=1))
@@ -3211,8 +3223,8 @@ def main() -> int:
     base = torch.cuda.memory_allocated()
     reset_counts()
     vb, backb = step2(xb, hbr, hbc)
-    read_counts("step_32768^2", r2c_nat=1, fourstep_mid=2,
-                fourstep_mid_dense=2, rows_store_t=2, rows_store_t_wide=2, c2r_nat=1)
+    read_counts("step_32768^2", r2c_nat=1, fourstep_mid=2, fourstep_mid_radix=2,
+                rows_store_t=2, c2r_nat=1)
     peak = torch.cuda.max_memory_allocated()
     rt = abs_err(backb, xb) / float(xb.abs().max())
     finite = bool(torch.isfinite(backb).all())
@@ -3238,18 +3250,18 @@ def main() -> int:
     del xb, vb, sb
     torch.cuda.empty_cache()
 
-    # the lengths against float64 oracles: ndfft at 10007 on 128 rows (the
-    # lane's chirp-z, its sub-FFTs at M = 20736 = (144, 144): K7 dense, then
-    # K8's rows of 144 and the swap); 40960 = (256, 160) along the last axis
-    # and along axis 0 of (40960, 128) (K7 dense, K8's rows of 160); 131072 =
-    # (512, 256: K7 fixed, F = 4; K13 wide, F = 2), 147456 = (384, 384: both
-    # wide, F = 3), 163840 = (640, 256: K7 wide, F = 5), 786432 = (1024,
-    # 768: K13 wide, F = 6) and 36992 = (2176, 17: K7 wide, F = 17, K8's rows
-    # of 17) over a few rows; one row of 2^22 = (2048, 2048: both fixed,
-    # F = 16); ndfft_r2c / ndifft_r2c at 65536 on 128 rows (the packed
-    # lane's C2C of 32768 and the Hermitian extension's of 65536: K7 dense,
-    # K13 wide); nddct4 at (256, 32768) and nddct2 / nddct3 at (128, 65536)
-    # (their C2Cs of 32768 and 65536: K7 dense, K13 wide)
+    # the lengths against float64 oracles (K7 on the radix column tile at
+    # every n1: a prime n1 = 131 ... 251 comes only with a length whose plan
+    # is Bluestein's): ndfft at 10007 on 128 rows (the lane's chirp-z, its
+    # sub-FFTs at M = 20736 = (144, 144): K7, then K8's rows of 144 and the
+    # swap); 40960 = (256, 160) along the last axis and along axis 0 of
+    # (40960, 128) (K7, K8's rows of 160); 131072 = (512, 256), 147456 =
+    # (384, 384), 163840 = (640, 256), 786432 = (1024, 768) (K7 and K13)
+    # and 36992 = (2176, 17: K7, K8's rows of 17) over a few rows; one row
+    # of 2^22 = (2048, 2048); ndfft_r2c / ndifft_r2c at 65536 on
+    # 128 rows (the packed lane's C2C of 32768 and the Hermitian
+    # extension's of 65536: K7, K13); nddct4 at (256, 32768) and nddct2 /
+    # nddct3 at (128, 65536) (their C2Cs of 32768 and 65536: K7, K13)
     c_in = {(10007, 1): crandn(128, 10007), (40960, 1): crandn(4, 40960),
             (40960, 0): crandn(40960, 128), (131072, 1): crandn(8, 131072),
             (147456, 1): crandn(64, 147456), (163840, 1): crandn(8, 163840),
@@ -3264,8 +3276,8 @@ def main() -> int:
     r_out = nd.ndfft_r2c(r_in, axis=1)
     s_out = nd.ndifft_r2c(s_in, nd.R2cFftHandler(65536), axis=1)
     d_out = {kind: getattr(nd, f"nd{kind}")(x, axis=1) for kind, x in d_in.items()}
-    read_counts("fourstep_lengths", fourstep_mid=15, fourstep_mid_dense=9, fourstep_mid_wide=3,
-                rows_store_t=10, rows_store_t_wide=9, c2c_dense_rows=5)
+    read_counts("fourstep_lengths", fourstep_mid=15, fourstep_mid_radix=15, rows_store_t=10,
+                c2c_dense_rows=5)
     for (n, axis), y in c_out.items():
         x = c_in[(n, axis)]
         check_c2c("fft_length", y, x, nd.ndifft(y, axis=axis), dims=(axis,), n=n, axis=axis)
@@ -3279,16 +3291,16 @@ def main() -> int:
     del c_in, c_out, r_in, r_out, s_in, s_out, d_in, d_out, want
 
     # each kernel of the main paths at its shape against its plain version,
-    # slice by slice, and their times: K7 fixed and K13 fixed at path A's
-    # (256, 1024, 1024), K7 dense and K13 wide at path B's (16385, 256, 128);
-    # no single PyTorch call computes either function (library_ms null)
-    legs11 = (("fourstep_mid", kfft.fourstep_mid, kfft.fourstep_mid_plain, (b_a, 1024, 1024),
-               (-1,)),
+    # slice by slice, and their times: K7 and K13 at path A's
+    # (256, 1024, 1024) and at path B's (16385, 256, 128); no single
+    # PyTorch call computes either function (library_ms null)
+    legs11 = (("fourstep_mid_radix", kfft.fourstep_mid, kfft.fourstep_mid_plain,
+               (b_a, 1024, 1024), (-1,)),
               ("rows_store_t", kfft.rows_store_t, kfft.rows_store_t_plain, (b_a, 1024, 1024),
                (+1, 1.0 / n_a)),
-              ("fourstep_mid_dense", kfft.fourstep_mid, kfft.fourstep_mid_plain,
+              ("fourstep_mid_radix", kfft.fourstep_mid, kfft.fourstep_mid_plain,
                (n_b // 2 + 1, 256, 128), (-1,)),
-              ("rows_store_t_wide", kfft.rows_store_t, kfft.rows_store_t_plain,
+              ("rows_store_t", kfft.rows_store_t, kfft.rows_store_t_plain,
                (n_b // 2 + 1, 256, 128), (+1, 1.0 / n_b)))
     for name, kern, plain, shape, fargs in legs11:
         x = crandn(*shape)
@@ -4268,9 +4280,8 @@ def main() -> int:
                    "dct4_mid_fourstep": (1, 65536, 8192), "dct4_mid_wide": (1, 256 * 131, 1024),
                    "dct4_mid_long": (1, 256 * 163, 1024),
                    "c2c_blue_mid": (1, 509, 509 * 509), "dct23_blue_mid": (1, 2049, 2049 * 256),
-                   "fourstep_mid": (256, 1024, 1024), "fourstep_mid_wide": (64, 384, 384),
-                   "fourstep_mid_dense": (16385, 256, 128), "rows_store_t": (256, 1024, 1024),
-                   "rows_store_t_wide": (16385, 256, 128),
+                   "fourstep_mid_radix": (256, 1024, 1024),
+                   "fourstep_mid_dense": (8, 131, 8192), "rows_store_t": (256, 1024, 1024),
                    "spectral_c2c_mid": (1, 1024, 1024 * 513),
                    "spectral_c2c_mid_wide": (8, 1280, 8192),
                    "spectral_r2c_mid": (1, 1024, 1024 * 1024),
@@ -5094,13 +5105,55 @@ def main() -> int:
              chosen=kdct.dct23_blue_cols(mk, shape[0], shape[2], kfft.num_sms(dev)), card=card)
         del x, y
         torch.cuda.empty_cache()
-    # kernel 7 on the wide core at phase 4k's length 147456 = (384, 384)
-    # over 64 rows (F = 3; the fixed and dense forms and kernel 13 were
-    # timed there, at the main paths' shapes)
-    x = crandn(64, 384, 384)
-    time_kernel("fourstep_mid_wide", (64, 384, 384), lambda: kfft.fourstep_mid(x, -1),
+    # kernel 7's dense remnant at the prime n1 = 131 over (8, 131, 8192) (the
+    # split of 1073152, whose plan is Bluestein's: no main path sends it);
+    # then kernels 7 and 13 at the main
+    # paths' shapes (timed through their wrappers in phase 4k) by tile:
+    # kernel 7 with each column count C that fits (at C <= 2 with each load;
+    # the form that stores from the last stage at the 16-element tiles),
+    # kernel 13 with each count of rows a block that the row skeleton
+    # holds, each output held against the wrapper's
+    x = crandn(8, 131, 8192)
+    time_kernel("fourstep_mid_dense", (8, 131, 8192), lambda: kfft.fourstep_mid(x, -1),
                 lambda: kfft.fourstep_mid_plain(x, -1))
     del x
+    sms = kfft.num_sms(dev)
+
+    def scan_check(name, got, want, tile):
+        rel = abs_err(got, want) / float(want.abs().max())
+        if not rel <= TOL_KERNEL:
+            raise AssertionError(f"{name} {tuple(want.shape)} tile {tile}: {rel}")
+
+    for shape in ((256, 1024, 1024), (16385, 256, 128)):
+        nb, n1, n2 = shape
+        x = crandn(*shape)
+        want = kfft.fourstep_mid(x, -1)
+        tw = kfft.device_fourstep_tw(n1, n2, -1, dev)
+        y = torch.empty_like(x)
+        cols_ms = {}
+        for c in (1, 2, 4, 8, 16, 32):
+            for ldg in (False, True):
+                if not tile_fits(n1, c) or ldg and c > 2:
+                    continue
+                key = f"{c}_ldg" if ldg else str(c)
+                cols_ms[key] = cuda_ms(lambda: kfft.fourstep_launch(x, y, -1, tw, c, ldg), 5)
+                scan_check("fourstep_mid_radix", y, want, key)
+        emit(phase="time", kernel="fourstep_mid_radix", shape=shape, ms_by_cols_per_tile=cols_ms,
+             chosen=list(kfft.axis_mid_tile(n1, nb, n2, sms)), card=card)
+        del y, want
+        scale = 1.0 / (n1 * n2)
+        want = kfft.rows_store_t(x, +1, scale)
+        y = torch.empty_like(want)
+        tr = -(-n2 // 16)
+        most = 1 if n2 > kfft.RADIX_WIDE_N else min(32, kfft.RADIX_MAX_THREADS // tr)
+        rows_ms = {}
+        for rows in range(1, most + 1):
+            rows_ms[rows] = cuda_ms(lambda: kfft.rows_store_t_launch(x, y, +1, scale, rows), 5)
+            scan_check("rows_store_t", y, want, rows)
+        emit(phase="time", kernel="rows_store_t", shape=shape, ms_by_rows_per_block=rows_ms,
+             chosen=kfft.store_t_rows(n2, nb * n1, sms), card=card)
+        del x, y, want
+        torch.cuda.empty_cache()
     # kernels 14, 22 and 29 in the forms the main paths do not take (K14's
     # and K22's fixed forms and K29 on the radix column tile were timed in
     # phase 4l, at the paths' shapes), with a broadcast real multiplier: K14
@@ -5216,16 +5269,12 @@ def main() -> int:
                          "ndrustfft_tpu/ops/pallas/fft.py:1277"),
         "dct23_blue_mid": ("ndrustfft_tpu_torch/csrc/dct_blue_radix.cu",
                            "ndrustfft_tpu/ops/pallas/fft.py:1473"),
-        "fourstep_mid": ("ndrustfft_tpu_torch/csrc/fft_fourstep.cu",
-                         "ndrustfft_tpu/ops/pallas/fft.py:1549"),
-        "fourstep_mid_wide": ("ndrustfft_tpu_torch/csrc/fft_fourstep.cu",
-                              "ndrustfft_tpu/ops/pallas/fft.py:1549"),
+        "fourstep_mid_radix": ("ndrustfft_tpu_torch/csrc/fft_fourstep.cu",
+                               "ndrustfft_tpu/ops/pallas/fft.py:1549"),
         "fourstep_mid_dense": ("ndrustfft_tpu_torch/csrc/fft_dense.cu",
                                "ndrustfft_tpu/ops/pallas/fft.py:1549"),
         "rows_store_t": ("ndrustfft_tpu_torch/csrc/fft_fourstep.cu",
                          "ndrustfft_tpu/ops/pallas/fft.py:1863"),
-        "rows_store_t_wide": ("ndrustfft_tpu_torch/csrc/fft_fourstep.cu",
-                              "ndrustfft_tpu/ops/pallas/fft.py:1863"),
         "spectral_c2c_mid": ("ndrustfft_tpu_torch/csrc/spectral_c2c_mid.cu",
                              "ndrustfft_tpu/ops/pallas/fft.py:2000"),
         "spectral_c2c_mid_wide": ("ndrustfft_tpu_torch/csrc/spectral_c2c_mid.cu",

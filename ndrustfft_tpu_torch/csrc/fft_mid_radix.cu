@@ -60,22 +60,6 @@
 
 namespace ndfft {
 
-// Kernels 1, 6 and 4's columns: element r of column col of b at
-// x[(b n + r) L + col], loaded evict-first or (kLdg) through the read-only
-// path.
-template <bool kLdg>
-struct CplxCol {
-  const float2* __restrict__ x;
-  long long L;
-  int n;
-  __device__ __forceinline__ long long base(long long b, long long col) const {
-    return b * n * L + col;
-  }
-  __device__ __forceinline__ float2 at(long long p, int r) const {
-    return kLdg ? __ldg(x + p + r * L) : __ldcs(x + p + r * L);
-  }
-};
-
 // The last stage's store: output k of column col of b at y[(b n + k) L + col].
 struct ColStore {
   float2* __restrict__ y;

@@ -24,10 +24,13 @@
 // length, on the column's Hermitian extension (rfft_mid_radix.cu); kernel
 // 27's DCT-I, DCT-II and DCT-III, kernel 19's DCT-I and kernels 25 and 26's
 // DCT-II and DCT-III as load policies and epilogues of the Makhoul passes
-// around the half-length real FFT (dct_mid_radix.cu); and kernel 28's
+// around the half-length real FFT (dct_mid_radix.cu); kernel 28's
 // DCT-IV as the chirped load and the exit chirp's epilogue around one
 // length-hl transform, or the two passes of a column four-step
-// (dct4_mid_radix.cu).
+// (dct4_mid_radix.cu); and the two passes of the four-step long C2C,
+// kernel 7's columns with the exit twiddle in an epilogue and kernel 13's
+// rows with the scale and the transposed store in an epilogue, on a tile
+// whose rows lie a pitch apart (fft_fourstep.cu).
 //
 // Replaces, for the CUDA port, the JAX package's
 // ndrustfft_tpu/ops/pallas/fft.py::_kernel_twostep and
@@ -98,9 +101,8 @@
 // barrier, runs its prologue on the tile in place (the C2R's inverse
 // unpack, c2r_prologue_tile) behind a second barrier.
 //
-// Left for later: cp.async or TMA prefetch of the next tile, twiddles
-// staged in shared memory, and the other routes that run dense stages
-// (kernel 13's rows, kernel 7's columns).
+// Left for later: cp.async or TMA prefetch of the next tile, and twiddles
+// staged in shared memory.
 #pragma once
 
 #include <cstdint>
@@ -166,6 +168,24 @@ struct RxPrologue : std::bool_constant<(RxSide<Load>::value > 0)> {};
 template <class Load>
 struct RxPrologue<Load, std::void_t<decltype(Load::kPrologue)>>
     : std::bool_constant<Load::kPrologue> {};
+
+// Whether a row load policy lays the tile's rows `pitch` elements apart
+// (static constexpr bool kPitched = true and an int member pitch, a
+// multiple of 32 no less than n) instead of n apart; rx_pitch gives the
+// distance.
+template <class Load, class = void>
+struct RxPitched : std::false_type {};
+template <class Load>
+struct RxPitched<Load, std::void_t<decltype(Load::kPitched)>>
+    : std::bool_constant<Load::kPitched> {};
+template <class Load>
+__host__ __device__ __forceinline__ int rx_pitch(const Load& ld, int n) {
+  if constexpr (RxPitched<Load>::value) {
+    return ld.pitch;
+  } else {
+    return n;
+  }
+}
 
 // A stage of radix r is a prime stage (not a codelet) for odd r >= 11.
 __host__ __device__ constexpr bool rx_prime(int r) { return r >= 11 && (r & 1); }
@@ -725,7 +745,8 @@ struct C2rRowLoad {
 // evenly over the `tiles` blocks; tr = ceil(n / kE) threads per row. The
 // table: the stage twiddles at 0 ... n - 2, then each prime stage's
 // coefficient row (ops/hopper/fft.py::radix_consts). The load policy fills
-// the tile (RowLoad: complex rows); the tile's rows past the valid ones
+// the tile (RowLoad: complex rows), row c at tile element c n or, for a
+// pitched policy, c pitch; the tile's rows past the valid ones
 // are neither loaded nor stored. A load policy with side slots gets them
 // after the coefficient rows and runs its prologue(s, side, cx) on the
 // loaded tile. An Io with kTileOut gets the tile of spectra, in natural
@@ -739,10 +760,11 @@ radix_rows_kernel(Load ld, Io io, const float2* __restrict__ tab, RadixPlan plan
   const int valid = (int)((blockIdx.x + 1) * T / tiles - row0);
   const int tr = (n + kE - 1) / kE;
   const int c = (int)threadIdx.x / tr;
-  const RadixCtx<RowLayout> cx{n, tr, (int)threadIdx.x - c * tr, RowLayout{c * n}, c < valid,
-                               row0 + c};
+  const int pitch = rx_pitch(ld, n);
+  const RadixCtx<RowLayout> cx{n, tr, (int)threadIdx.x - c * tr, RowLayout{c * pitch},
+                               c < valid, row0 + c};
   float2* s = smem;
-  float2* cs = smem + rx_tile_slots(rows * n);
+  float2* cs = smem + rx_tile_slots(rows * pitch);
   float2* side = cs + rx_coef_count(plan);
   int count[8];
   radix_prepare(count, cs, tab, plan, n);
@@ -756,10 +778,11 @@ radix_rows_kernel(Load ld, Io io, const float2* __restrict__ tab, RadixPlan plan
   if constexpr (RxTileOut<Io>::value) io.epilogue(s, cx);
 }
 
-// Dynamic shared memory of a block: the padded tile of `rows` rows, the
-// prime stages' coefficient rows and `side` slots a row.
-inline long long radix_smem_bytes(const RadixPlan& plan, int n, int rows, int side = 0) {
-  return (long long)(rx_tile_slots(rows * n) + rx_coef_count(plan) + side * rows) *
+// Dynamic shared memory of a block: the padded tile of `rows` rows `pitch`
+// elements apart, the prime stages' coefficient rows and `side` slots a
+// row.
+inline long long radix_smem_bytes(const RadixPlan& plan, int pitch, int rows, int side = 0) {
+  return (long long)(rx_tile_slots(rows * pitch) + rx_coef_count(plan) + side * rows) *
          sizeof(float2);
 }
 
@@ -768,7 +791,7 @@ cudaError_t radix_launch_es(Load ld, Io io, const float2* tab, const RadixPlan& 
                             long long T, int n, int rows, float scale, cudaStream_t stream) {
   const int tr = (n + kE - 1) / kE;
   const int threads = (rows * tr + 31) / 32 * 32;
-  const long long smem = radix_smem_bytes(plan, n, rows, RxSide<Load>::value);
+  const long long smem = radix_smem_bytes(plan, rx_pitch(ld, n), rows, RxSide<Load>::value);
   const long long tiles = (T + rows - 1) / rows;
   if (threads > kRadixMaxThreads<kE> || smem > kMaxSmemBytes || tiles > 0x7fffffffLL)
     return cudaErrorInvalidValue;
@@ -820,6 +843,22 @@ cudaError_t radix_rows_launch(Load ld, Io io, const float2* tab, const int* radi
        : e == 32 ? radix_launch_es<32, 1>(ld, io, tab, plan, T, n, rows, scale, stream)
                  : radix_launch_es<16, 1>(ld, io, tab, plan, T, n, rows, scale, stream);
 }
+
+// The column skeletons' complex load policy (kernels 1, 6, 4 and 7):
+// element r of column col of b at x[(b n + r) L + col], loaded evict-first
+// or (kLdg) through the read-only path.
+template <bool kLdg>
+struct CplxCol {
+  const float2* __restrict__ x;
+  long long L;
+  int n;
+  __device__ __forceinline__ long long base(long long b, long long col) const {
+    return b * n * L + col;
+  }
+  __device__ __forceinline__ float2 at(long long p, int r) const {
+    return kLdg ? __ldg(x + p + r * L) : __ldcs(x + p + r * L);
+  }
+};
 
 // The column skeletons' real load policy (kernels 16 and 20 on
 // radix_cols_kernel, kernel 20's chirp-z on fft_blue_radix.cu): the real

@@ -10,7 +10,7 @@
 // its inverse constants. H is (n, 1) or (n, L), real or complex
 // (spectral.cuh::SpecMult), the same block for every batch index.
 //
-// The fixed form is kernel 1's column tile (c2c_tile.cuh) with two cores:
+// The fixed form is the bts2 column tile (kernel 1's first form) with two cores:
 // the tile is loaded once, Bts2::run(s, wq_fwd, -1) works in place, each row
 // k of the tile is multiplied by H[k] (or H[k][col]) in place, the inverse
 // core runs on the same tile with its scaled Wq, and the tile is stored

@@ -132,7 +132,7 @@ def _fourstep(x: torch.Tensor, plan: C2CPlan, scale=None) -> torch.Tensor:
     ``engine._fourstep``), t = t1 n2 + t2 and k = k1 + n1 k2:
     X[k1 + n1 k2] = sum_t2 W_n2^{t2 k2} W_n^{t2 k1} sum_t1 W_n1^{t1 k1} x[t1 n2 + t2].
     Step 1+2 is kernel 7 on the (B, n1, n2) view, unscaled, the twiddle in
-    its store; step 3+4 is kernel 13 (n2 = 128 * F: the row FFT with the
+    its epilogue; step 3+4 is kernel 13 (n2 = 128 * F: the row FFT with the
     scale, stored transposed as (B, n2, n1)), or, where n2 has no twostep
     split (n2 <= 256), :func:`c2c` over the B n1 rows of n2 (kernel 8's
     dense product, or the chirp-z at a prime n2; n1 >= 128 at every such

@@ -65,10 +65,8 @@ _SIGNATURES = {
     "ndfft_c2r_blue_radix": [_P] * 7 + [_I, _F, _LL, _I, _I, _LL, _I, _P],
     "ndfft_r2c_blue_rows": [_P] * 7 + [_I, _LL, _I, _I, _I, _P],
     "ndfft_dct23_blue_radix": [_P] * 7 + [_I, _LL, _I, _I, _LL, _I, _P],
-    "ndfft_fourstep_mid": [_P, _P, _P, _P, _LL, _I, _LL, _I, _I, _P],
-    "ndfft_fourstep_mid_wide": [_P, _P, _P, _P, _P, _LL, _I, _LL, _I, _P],
-    "ndfft_rows_store_t": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
-    "ndfft_rows_store_t_wide": [_P, _P, _P, _P, _LL, _I, _I, _I, _P],
+    "ndfft_fourstep_mid": [_P, _P, _P, _P, _I, _P, _LL, _I, _LL, _I, _I, _I, _P],
+    "ndfft_rows_store_t": [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _F, _P],
     "ndfft_spectral_c2c_mid": [_P] * 4 + [_LL, _P, _P, _LL, _I, _LL, _I, _P],
     "ndfft_spectral_c2c_mid_wide": [_P] * 4 + [_LL] + [_P] * 4 + [_LL, _I, _LL, _I, _P],
     "ndfft_spectral_r2c_mid": [_P] * 4 + [_LL] + [_P] * 4 + [_LL, _I, _LL, _I, _P],

@@ -28,12 +28,13 @@
 * Kernels 7 and 13, :func:`fourstep_mid` and :func:`rows_store_t`: the two
   passes of the four-step long C2C (``ops/engine.py::_fourstep``). Kernel 7
   is the C2C of length n1 along dim 1 of the (B, n1, n2) view times the
-  exit twiddle W_n^{k1 t2} (the bts2 column tile of ``csrc/c2c_tile.cuh``
-  with a twiddle store on either core, or a dense product for n1 <= 256,
-  the twiddle in its epilogue; ``csrc/fft_fourstep.cu`` and
-  ``csrc/fft_dense.cu``; replaces ``fft.py::_kernel_exit_mul``). Kernel 13 is the row C2C of
-  length n2 = 128 * F on the bts2 core with the scale and a transposed
-  store, (B, n2, n1) (``csrc/fft_fourstep.cu``; replaces
+  exit twiddle W_n^{k1 t2}: kernel 1's radix column tile with the twiddle
+  in an epilogue wherever n1 has a radix plan, the dense product (the
+  twiddle in its epilogue) at the primes 131 ... 251
+  (``csrc/fft_fourstep.cu``, ``csrc/fft_dense.cu``; replaces
+  ``fft.py::_kernel_exit_mul``). Kernel 13 is the row C2C of length
+  n2 = 128 * F on the radix row core with the scale and a transposed store,
+  (B, n2, n1), in an epilogue (``csrc/fft_fourstep.cu``; replaces
   ``fft.py::_kernel_lane_store_t``).
 * Kernel 14, :func:`spectral_c2c_mid`: the fused pipeline IFFT(H * FFT(x))
   along the middle axis of (B, n, L), n = 128 * F, the diagonal multiply
@@ -43,11 +44,13 @@
 
 This module holds their host-built constants, their plain PyTorch versions
 and their wrappers, whose ``launches`` attributes count kernel launches
-(kernels 7, 13 and 14 also count the wide core's launches apart, in
-``wide_launches``, kernel 7 its dense body's, in ``dense_launches``;
-kernels 1, 10, 8, 6, 4 and 11 count every launch of ``c2c_axis_mid``,
-``c2c_rows``, ``c2c_dense_rows``, ``c2c_generic_mid``, ``c2c_dense_mid`` and
-``c2c_blue_mid`` in ``radix_launches`` beside ``launches``).
+(kernel 14 also counts the wide core's launches apart, in
+``wide_launches``; kernel 7 its radix and dense launches, in
+``radix_launches`` and ``dense_launches``; kernels 1, 10, 8, 6, 4, 11 and
+13 count every launch of ``c2c_axis_mid``, ``c2c_rows``,
+``c2c_dense_rows``, ``c2c_generic_mid``, ``c2c_dense_mid``,
+``c2c_blue_mid`` and ``rows_store_t`` in ``radix_launches`` beside
+``launches``).
 """
 
 from __future__ import annotations
@@ -65,7 +68,7 @@ from . import _build
 
 M = 128                 # stage-2 DFT length of the core
 CORE_F = (2, 4, 8, 16)  # butterfly factors the fixed core instantiates
-C2C_F = (4, 8, 16)      # factors kernels 7, 13 and 14 take on the fixed core
+C2C_F = (4, 8, 16)      # factors kernel 14 takes on the fixed core
 SMEM_ELEMS = 8192       # complex elements of one block's tile (64 KB)
 DENSE_MAX_N = 512       # longest transform kernels 4 and 8 take
 GENERIC_MAX_N = 20480   # the JAX package's kernel bound (fft._LIVE_COPIES)
@@ -173,16 +176,6 @@ def num_sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def block_rows(h: int, rows: int, sms: int) -> int:
-    """Rows per block of the row kernels: the largest power of two whose
-    h x R tile fits the shared-memory budget, halved while the grid would
-    leave SMs idle."""
-    r = SMEM_ELEMS // h
-    while r > 1 and -(-rows // r) < sms:
-        r //= 2
-    return r
-
-
 def block_cols(n: int, groups: int, cols: int, sms: int) -> int:
     """Columns per block: the largest power of two whose n x C tile fits the
     shared-memory budget, halved while the grid of ``groups`` times the
@@ -264,7 +257,8 @@ def count_launch(wrapper, wide: bool) -> None:
 
 def _bts2_rows_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
     """The bts2 core's plain version on the rows of a (T, n) tensor, n = 128
-    * F, on a (T, n, 1) view with the core's constants: kernel 13's rows."""
+    * F, on a (T, n, 1) view with the core's constants (the bts2 row tile's
+    arithmetic, which tests hold the radix core against)."""
     t, n = x.shape
     s = 1.0 if scale is None else float(scale)
     return bts2_plain(x.reshape(t, n, 1), device_wq(n, sign, s, x.device),
@@ -1027,17 +1021,15 @@ FOURSTEP_MAX_N1 = 4096      # the JAX package's fft._FOURSTEP_MAX_N1 (kernel 7's
 FOURSTEP_MAX_N2 = 16384     # fft._FOURSTEP_MAX_N2 (kernel 13's n2)
 
 
-def fourstep_body(n1: int):
-    """The body of kernel 7 at n1, as the JAX package's _build_call_axis_mid
-    picks it for a four-step stage: "dense" (the dense product) for
-    n1 <= 256, the bts2 core at n1 = 128 * F <= 4096, "fixed" for F in
-    {4, 8, 16} and "wide" otherwise; else None."""
-    if 1 <= n1 <= 256:
-        return "dense"
-    f = core_f(n1)
-    if f is None or n1 > FOURSTEP_MAX_N1:
+def fourstep_form(n1: int):
+    """The form of kernel 7 at n1: "radix" (the radix column tile) wherever
+    n1 has a :func:`radix_plan`, "dense" (the dense product, the JAX
+    package's dense body) at the other n1 <= 256 (the primes 131 ... 251,
+    and n1 = 1); None at the n1 that the four-step does not send (neither
+    <= 256 nor 128 * F <= 4096 with a twostep split)."""
+    if not 1 <= n1 <= FOURSTEP_MAX_N1 or n1 > 256 and core_f(n1) is None:
         return None
-    return "fixed" if f in C2C_F else "wide"
+    return "radix" if radix_plan(n1) else "dense"
 
 
 def fourstep_tw(n1: int, n2: int, sign: int):
@@ -1055,87 +1047,146 @@ def device_fourstep_tw(n1: int, n2: int, sign: int, device: torch.device) -> tor
 
 
 def _check_fourstep_n1(n1: int, what: str) -> str:
-    body = fourstep_body(n1)
-    if body is None:
+    form = fourstep_form(n1)
+    if form is None:
         raise ValueError(f"{what}: n1={n1} is neither <= 256 nor 128 * F <= "
                          f"{FOURSTEP_MAX_N1} with a plan")
-    return body
+    return form
 
 
 def fourstep_mid_plain(x: torch.Tensor, sign: int) -> torch.Tensor:
-    """Plain version of kernel 7: the plain version of its body (the dense
-    product's or the bts2 core's, unscaled) times the exit twiddle."""
+    """Plain version of kernel 7: the radix core's plain version along dim 1
+    (:func:`c2c_radix_mid_plain`, unscaled) where n1 has a plan, else the
+    dense product's (:func:`dense_body_plain`), times the exit twiddle."""
     nb, n1, n2 = x.shape
-    y = (dense_body_plain(x, sign) if n1 <= 256 else
-         bts2_plain(x, device_wq(n1, sign, 1.0, x.device), sign))
+    y = c2c_radix_mid_plain(x, sign) if radix_plan(n1) else dense_body_plain(x, sign)
     return y * device_fourstep_tw(n1, n2, sign, x.device)
+
+
+def fourstep_launch(x: torch.Tensor, y: torch.Tensor, sign: int, tw: torch.Tensor, c: int,
+                    ldg: bool) -> None:
+    """Launch kernel 7's radix column tile, ``c`` columns a tile, on the
+    (B, n1, n2) complex64 CUDA tensors x and y with the exit twiddle ``tw``;
+    x loaded through the read-only path if ``ldg``."""
+    nb, n1, n2 = x.shape
+    dev = x.device
+    plan = radix_plan(n1)
+    with torch.cuda.device(dev):
+        err = _build.lib().ndfft_fourstep_mid(
+            x.data_ptr(), y.data_ptr(), device_radix(n1, sign, dev).data_ptr(),
+            (ctypes.c_int * RADIX_MAX_STAGES)(*plan), len(plan), tw.data_ptr(), nb, n1, n2, c,
+            sign, int(ldg), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "fourstep_mid")
 
 
 def fourstep_mid(x: torch.Tensor, sign: int) -> torch.Tensor:
     """Step 1+2 of the four-step: the unscaled C2C along dim 1 of a
     (B, n1, n2) complex64 tensor, times W_n^{k1 t2} with n = n1 n2. A CPU
-    tensor runs the plain version; a CUDA tensor launches kernel 7 (its
-    dense body for n1 <= 256, else kernel 1's fixed or wide core) or
-    raises."""
+    tensor runs the plain version; a CUDA tensor launches kernel 7 or
+    raises: at every n1 with a plan the radix column tile with the twiddle
+    in its epilogue, columns a tile and load by kernel 1's rule
+    (:func:`axis_mid_tile`), counted in ``radix_launches``; at the primes
+    131 ... 251 the dense product, counted in ``dense_launches``.
+    ``launches`` counts both."""
     if x.dim() != 3:
         raise ValueError(f"fourstep_mid: expected (B, n1, n2), got {tuple(x.shape)}")
     nb, n1, n2 = x.shape
-    body = _check_fourstep_n1(n1, "fourstep_mid")
+    form = _check_fourstep_n1(n1, "fourstep_mid")
     if x.device.type == "cpu":
         return fourstep_mid_plain(x, sign)
     if x.device.type != "cuda":
         raise ValueError(f"fourstep_mid: unsupported device {x.device}")
     check_cuda(x, torch.complex64, "fourstep_mid")
     tw = device_fourstep_tw(n1, n2, sign, x.device)
-    if body == "dense":
+    if form == "dense":
         y = _dense_launch(x, sign, tw)
     else:
-        wq = device_wq(n1, sign, 1.0, x.device)
         y = torch.empty_like(x)
         if x.numel() == 0:
             return y
-        sms = num_sms(x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        with torch.cuda.device(x.device):
-            if body == "wide":
-                err = _build.lib().ndfft_fourstep_mid_wide(
-                    x.data_ptr(), y.data_ptr(), wq.data_ptr(),
-                    device_wide(n1, sign, x.device).data_ptr(), tw.data_ptr(), nb, n1, n2,
-                    wide_block(n1, nb, n2, sms), stream)
-            else:
-                err = _build.lib().ndfft_fourstep_mid(
-                    x.data_ptr(), y.data_ptr(), wq.data_ptr(), tw.data_ptr(), nb, n1, n2,
-                    block_cols(n1, nb, n2, sms), sign, stream)
-        _build.check(err, "fourstep_mid")
+        fourstep_launch(x, y, sign, tw, *axis_mid_tile(n1, nb, n2, num_sms(x.device)))
     if x.numel():
-        count_launch(fourstep_mid, body == "wide")
-        fourstep_mid.dense_launches += body == "dense"
+        fourstep_mid.launches += 1
+        fourstep_mid.radix_launches += form == "radix"
+        fourstep_mid.dense_launches += form == "dense"
     return y
 
 
 fourstep_mid.launches = 0
-fourstep_mid.wide_launches = 0
+fourstep_mid.radix_launches = 0
 fourstep_mid.dense_launches = 0
 
 
 def rows_store_t_plain(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
-    """Plain version of kernel 13: the bts2 core's plain version on the rows
-    (kernel 10's before the radix core), then the transpose."""
+    """Plain version of kernel 13: the radix core's plain version on the
+    rows (:func:`c2c_radix_rows_plain`, with the scale), then the
+    transpose."""
     nb, n1, n2 = x.shape
-    y = _bts2_rows_plain(x.reshape(nb * n1, n2), sign, scale)
+    y = c2c_radix_rows_plain(x.reshape(nb * n1, n2), sign, scale)
     return y.reshape(nb, n1, n2).transpose(1, 2).contiguous()
+
+
+STORE_T_ROWS = 4        # kernel 13's rows a block: a bin's run of 4 values fills a 32-byte sector
+
+
+def store_t_rows(n2: int, count: int, sms: int) -> int:
+    """Rows a block of kernel 13 over ``count`` rows of n2: STORE_T_ROWS,
+    or as many as the row skeleton holds where fewer (RADIX_MAX_THREADS
+    threads of 16 elements: 2 at n2 = 2048, 1 from 4096 on, runs of one
+    value), halved while the grid would leave SMs idle. (On an H100,
+    chip_smoke.py phase 5 over every count the skeleton holds: at
+    (16385, 256, 128) R = 1, 2, 4, 8, 16, 32 ran 11.54, 8.58, 3.83, 3.91,
+    3.89, 4.00 ms and the counts that are not powers of two 4.15-9.19; at
+    (256, 1024, 1024) R = 1 ... 4 8.51, 6.52, 5.22, 2.47.)"""
+    r = 1 if n2 > RADIX_WIDE_N else min(STORE_T_ROWS, RADIX_MAX_THREADS // -(-n2 // 16))
+    r = 1 << (r.bit_length() - 1)
+    while r > 1 and -(-count // r) < sms:
+        r //= 2
+    return r
+
+
+def store_t_pitch(n2: int, rows: int) -> int:
+    """The distance in elements of kernel 13's tile rows: n2 + 32 g, the
+    least g >= 0 under which the epilogue's reads meet no bank conflict.
+    Row c's bin k sits in slot c S + k + k // 32, S = 33 (n2 + 32 g) / 32
+    (the row layout pads one slot after every 32 elements); a half-warp's
+    sixteen 8-byte reads cover the 32 banks when their slots are distinct
+    mod 16, and it reads h = min(R', 16) rows (R' = ``rows`` rounded up to
+    a power of two) at 16 / h consecutive bins each, so the rows' starts
+    c S mod 16 must be distinct multiples of 16 / h. (n2 = 1024 and
+    R = 4: g = 4, S = 1188; n2 = 128 and R = 32: g = 1, S = 165.)"""
+    h = min(1 << (rows - 1).bit_length(), 16)
+    return next(n2 + 32 * g for g in range(16)   # 33 g runs over every residue mod 16
+                if len({(c * 33 * (n2 + 32 * g) // 32 + j) % 16
+                        for c in range(h) for j in range(16 // h)}) == 16)
+
+
+def rows_store_t_launch(x: torch.Tensor, y: torch.Tensor, sign: int, scale, rows: int) -> None:
+    """Launch kernel 13, ``rows`` rows a block, on the (B, n1, n2)
+    complex64 CUDA tensor x into y, (B, n2, n1)."""
+    nb, n1, n2 = x.shape
+    dev = x.device
+    plan = radix_plan(n2)
+    with torch.cuda.device(dev):
+        err = _build.lib().ndfft_rows_store_t(
+            x.data_ptr(), y.data_ptr(), device_radix(n2, sign, dev).data_ptr(),
+            (ctypes.c_int * RADIX_MAX_STAGES)(*plan), len(plan), nb * n1, n1, n2, rows,
+            store_t_pitch(n2, rows), sign, 1.0 if scale is None else float(scale),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "rows_store_t")
 
 
 def rows_store_t(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
     """Step 3+4 of the four-step: the C2C of length n2 = 128 * F <= 16384
     along dim 2 of a (B, n1, n2) complex64 tensor, times ``scale``, stored
     transposed as (B, n2, n1). A CPU tensor runs the plain version; a CUDA
-    tensor launches kernel 13 (on the fixed core for F in {4, 8, 16}, else
-    on the wide core) or raises."""
+    tensor launches kernel 13 on the radix row core with the transposed
+    store in its epilogue, :func:`store_t_rows` rows a block, counted in
+    ``launches`` and ``radix_launches``, or raises."""
     if x.dim() != 3:
         raise ValueError(f"rows_store_t: expected (B, n1, n2), got {tuple(x.shape)}")
     nb, n1, n2 = x.shape
-    f = check_core_n(n2, "rows_store_t")
+    check_core_n(n2, "rows_store_t")
     if n2 > FOURSTEP_MAX_N2:
         raise ValueError(f"rows_store_t: n2={n2} > {FOURSTEP_MAX_N2}")
     if x.device.type == "cpu":
@@ -1143,32 +1194,17 @@ def rows_store_t(x: torch.Tensor, sign: int, scale=None) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"rows_store_t: unsupported device {x.device}")
     check_cuda(x, torch.complex64, "rows_store_t")
-    s = 1.0 if scale is None else float(scale)
-    wq = device_wq(n2, sign, s, x.device)
     y = x.new_empty((nb, n2, n1))
-    t = nb * n1
-    if t == 0:
+    if nb * n1 == 0:
         return y
-    wide = f not in C2C_F
-    sms = num_sms(x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        if wide:
-            err = _build.lib().ndfft_rows_store_t_wide(
-                x.data_ptr(), y.data_ptr(), wq.data_ptr(),
-                device_wide(n2, sign, x.device).data_ptr(), t, n1, n2,
-                wide_block(n2, 1, t, sms), stream)
-        else:
-            err = _build.lib().ndfft_rows_store_t(
-                x.data_ptr(), y.data_ptr(), wq.data_ptr(), t, n1, n2,
-                block_rows(n2, t, sms), sign, stream)
-    _build.check(err, "rows_store_t")
-    count_launch(rows_store_t, wide)
+    rows_store_t_launch(x, y, sign, scale, store_t_rows(n2, nb * n1, num_sms(x.device)))
+    rows_store_t.launches += 1
+    rows_store_t.radix_launches += 1
     return y
 
 
 rows_store_t.launches = 0
-rows_store_t.wide_launches = 0
+rows_store_t.radix_launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -199,8 +199,5 @@ def test_c2c_wrappers_reject_what_the_kernels_do_not_take(call):
 
 
 def test_block_rows_fills_the_card():
-    assert kfft.block_rows(512, 262144, 132) == 16
-    assert kfft.block_rows(1024, 1024, 132) == 4      # 8 rows: 128 blocks < 132
-    assert kfft.block_rows(2048, 66, 132) == 1
     assert kfft.dense_tile(256, 1, 65536, 132) == 8   # 1024 blocks of 128 x 128
     assert kfft.dense_tile(264, 1, 264, 132) == 4     # 9 -> 25 blocks of 64 x 64

@@ -965,7 +965,7 @@ def test_dense_mid_radix_kernel_matches_plain(dev, monkeypatch):
     odd n, the dense route's longest n (511), ragged column counts (L = 129,
     257, and the 256^3 paths' (256, 256, 129) and (1, 256, 33024)), both
     signs and the scale 1/n; every launch of the wrapper counted as the
-    radix form, none through the dense product (kernel 7's body)."""
+    radix form, none through the dense product (kernel 7's dense remnant)."""
 
     def dense_product(*args):
         raise AssertionError("kernel 4 ran the dense product")
@@ -1237,39 +1237,78 @@ def test_prime_lengths_run_on_the_blue_kernels(dev):
 
 
 def _fourstep_forms():
-    return (kfft.fourstep_mid.launches, kfft.fourstep_mid.wide_launches,
+    return (kfft.fourstep_mid.launches, kfft.fourstep_mid.radix_launches,
             kfft.fourstep_mid.dense_launches, kfft.rows_store_t.launches,
-            kfft.rows_store_t.wide_launches)
+            kfft.rows_store_t.radix_launches)
 
 
 def test_fourstep_kernels_match_plain_in_each_form(dev):
-    """Kernel 7 in its dense (n1 = 144), fixed (512, 1024) and wide (384,
-    2176 with n2 = 17) bodies and kernel 13 on the fixed (n2 = 1024) and the
-    wide core (n2 = 128, F = 1, over rows that cross a batch boundary inside
-    a block), both signs, against their plain versions."""
+    """Kernel 7 on the radix column tile (n1 = 144, 512, 1024, 384, 2176
+    with n2 = 17: ragged and one-column tiles) and on the dense product at
+    the prime n1 = 131, and kernel 13 on the radix row core (n2 = 1024 and
+    128, over rows that cross a batch boundary inside a block: n1 = 144 and
+    3), both signs, against their plain versions."""
     g = torch.Generator(device=dev).manual_seed(17)
 
     def crandn(*shape):
         return torch.view_as_complex(torch.randn(*shape, 2, generator=g, device=dev))
 
     before = _fourstep_forms()
-    for shape in ((2, 144, 160), (3, 512, 130), (1, 1024, 1024), (2, 384, 384), (2, 2176, 17)):
+    for shape in ((2, 144, 160), (2, 131, 160), (3, 512, 130), (1, 1024, 1024), (2, 384, 384),
+                  (2, 2176, 17)):
         x = crandn(*shape)
         for sign in (-1, +1):
             assert _rel(kfft.fourstep_mid(x, sign), kfft.fourstep_mid_plain(x, sign)) <= TOL, \
                 (shape, sign)
-    for shape in ((3, 144, 1024), (3, 144, 128)):
+    for shape in ((3, 144, 1024), (3, 144, 128), (5, 3, 128)):
         x = crandn(*shape)
         for sign, scale in ((-1, None), (+1, 1 / (shape[1] * shape[2]))):
             y = kfft.rows_store_t(x, sign, scale)
             assert y.shape == (shape[0], shape[2], shape[1])
             assert _rel(y, kfft.rows_store_t_plain(x, sign, scale)) <= TOL, (shape, sign)
-    assert [a - b for a, b in zip(_fourstep_forms(), before)] == [10, 4, 2, 4, 2]
+    assert [a - b for a, b in zip(_fourstep_forms(), before)] == [12, 10, 2, 6, 6]
+
+
+def test_fourstep_launchers_at_every_tile(dev):
+    """Kernel 7's radix launcher at every column count C that fits (at
+    C <= 2 with both loads) and kernel 13's at every row count the
+    row skeleton holds (its pitch from fft.py::store_t_pitch), against the
+    plain versions, on ragged shapes and rows that cross batch
+    boundaries."""
+    g = torch.Generator(device=dev).manual_seed(29)
+
+    def crandn(*shape):
+        return torch.view_as_complex(torch.randn(*shape, 2, generator=g, device=dev))
+
+    for shape in ((3, 144, 130), (2, 1024, 33), (1, 4096, 17)):
+        x = crandn(*shape)
+        n1 = shape[1]
+        tw = kfft.device_fourstep_tw(n1, shape[2], -1, dev)
+        want = kfft.fourstep_mid_plain(x, -1)
+        for c in (1, 2, 4, 8, 16, 32):
+            if n1 * c > kfft.RADIX_MAX_ELEMS or kfft.radix_cols_threads(n1, c) > 512:
+                continue
+            for ldg in (False, True):
+                if ldg and c > 2:
+                    continue
+                y = torch.full_like(x, float("nan"))
+                kfft.fourstep_launch(x, y, -1, tw, c, ldg)
+                assert _rel(y, want) <= TOL, (shape, c, ldg)
+    for shape in ((3, 5, 128), (2, 144, 1024), (1, 3, 8192)):
+        x = crandn(*shape)
+        n2 = shape[2]
+        want = kfft.rows_store_t_plain(x, +1, 0.5)
+        most = 1 if n2 > kfft.RADIX_WIDE_N else min(32, kfft.RADIX_MAX_THREADS // -(-n2 // 16))
+        for rows in range(1, most + 1):
+            y = torch.full((shape[0], n2, shape[1]), float("nan"), dtype=x.dtype, device=dev)
+            kfft.rows_store_t_launch(x, y, +1, 0.5, rows)
+            assert _rel(y, want) <= TOL, (shape, rows)
 
 
 def test_long_lengths_run_on_the_fourstep_kernels(dev):
-    """One row of 2^20 (K7 and K13 fixed, F = 8) and 40960 along axis 0 of
-    (40960, 128) (K7 dense, K8's rows of 160 and the swap) round trip
+    """One row of 2^20 (K7 and K13 on the radix core, (1024, 1024)) and
+    40960 along axis 0 of (40960, 128) (K7 on the radix tile at n1 = 256,
+    K8's rows of 160 and the swap) round trip
     against torch.fft in complex128; ndfft at the prime 10007 runs the
     lane's chirp-z with its sub-FFTs on the four-step (it raised before K7
     was ported). The engine never runs."""
@@ -1282,7 +1321,7 @@ def test_long_lengths_run_on_the_fourstep_kernels(dev):
         back = nd.ndifft(y, axis=axis)
         ref = torch.fft.fft(x.to(torch.complex128), dim=axis)
         assert _rel(y.to(torch.complex128), ref) <= 1e-5 and _rel(back, x) <= 1e-5, shape
-    assert [a - b for a, b in zip(_fourstep_forms(), before)] == [2 + 2 + 4, 0, 2 + 4, 2, 0]
+    assert [a - b for a, b in zip(_fourstep_forms(), before)] == [2 + 2 + 4, 2 + 2 + 4, 0, 2, 2]
     assert engine.c2c.calls == calls
 
 

@@ -2,20 +2,20 @@
 JAX package, on the CPU, where the wrappers run their plain versions:
 
 * ``fourstep_mid`` (K7: the C2C along n1 of the (B, n1, n2) view times the
-  exit twiddle W_n^{k1 t2}) against ``_build_call_axis_mid(..., four_n=n)``
-  in interpret mode at n1 = 144 and 256 (the dense body), 384 and 640 (the
-  wide core, F = 3 and 5), 512 and 1024 (the fixed core) and 2176 (wide,
-  F = 17), with n2 = 17 ... 384 (ragged column tiles on the card), nb = 1
-  and 2, both signs;
-* ``rows_store_t`` (K13: the row C2C of length n2 with the scale, stored
-  transposed) against ``_build_call_lane_store_t`` at n2 = 128 (F = 1), 256,
-  384 and 1024 with n1 = 144 (rows that cross a batch boundary inside a
-  block on the card) and 256, scale 1 and 1/n;
+  exit twiddle W_n^{k1 t2}, on the radix column tile at every n1 here)
+  against ``_build_call_axis_mid(..., four_n=n)`` in interpret mode at
+  n1 = 144 and 256 (the JAX package's dense body), 384, 512, 640, 1024 and
+  2176 (its bts2 body, F = 3 ... 17), with n2 = 17 ... 384 (ragged column
+  tiles on the card), nb = 1 and 2, both signs;
+* ``rows_store_t`` (K13: the row C2C of length n2 on the radix row core
+  with the scale, stored transposed) against ``_build_call_lane_store_t``
+  at n2 = 128 (F = 1), 256, 384 and 1024 with n1 = 144 (rows that cross a
+  batch boundary inside a block on the card) and 256, scale 1 and 1/n;
 * the exit-twiddle table bit for bit against ``_add_exit_tw``'s constants,
   the four-step split against ``fft.fourstep_split`` over every n from
   20481 to 65536 and a sample up to 2^22, and the four-step gate against
   ``fft.fourstep_supported``;
-* the bodies the wrappers pick and the shapes they refuse.
+* the forms the wrappers pick and the shapes they refuse.
 
 Tolerance: max |port - JAX| <= 5e-6 * max |JAX| in float32 at the JAX
 package's "highest" tier.
@@ -153,19 +153,19 @@ def test_fourstep_gate_matches_the_jax_package():
 
 
 def test_fourstep_bodies():
-    assert [kfft.fourstep_body(n) for n in (17, 144, 256, 384, 512, 640, 1024, 2048,
-                                            2176, 4096)] == \
-        ["dense", "dense", "dense", "wide", "fixed", "wide", "fixed", "fixed", "wide", "wide"]
-    assert kfft.fourstep_body(300) is None          # neither dense nor 128 * F
-    assert kfft.fourstep_body(128 * 33) is None     # n1 > 4096
-    assert kfft.fourstep_body(0) is None
-    # every split's n1 has a body, and its n2 one where it has a twostep split
+    assert [kfft.fourstep_form(n) for n in (17, 131, 144, 251, 256, 384, 512, 640, 1024,
+                                            2048, 2176, 4096)] == \
+        ["radix", "dense", "radix", "dense"] + ["radix"] * 8
+    assert kfft.fourstep_form(300) is None          # neither <= 256 nor 128 * F
+    assert kfft.fourstep_form(128 * 33) is None     # n1 > 4096
+    assert kfft.fourstep_form(0) is None
+    # every split's n1 has a form, and its n2 one where it has a twostep split
     for n in range(20481, 65537, 7):
         split = gates._fourstep_split(n)
         if split is None:
             continue
         n1, n2 = split
-        assert kfft.fourstep_body(n1) is not None, n
+        assert kfft.fourstep_form(n1) is not None, n
         if gates._twostep_split(n2) is not None:
             assert kfft.core_f(n2) is not None and n2 <= kfft.FOURSTEP_MAX_N2, n
         else:

@@ -171,6 +171,17 @@ type-4 pair on 2048^2 x 256 and G2's pair on 65536 x 8192, over
 radix column kernel and kernel 28's. It uses only public wrappers, so
 --root may name the parent tree.
 
+With --fourstep it times instead kernels 7 and 13 (the four-step's two
+passes, through their wrappers fourstep_mid and rows_store_t, scale 1/n)
+at the main paths' shapes (256, 1024, 1024) and (16385, 256, 128), and
+kernel 7 at the prime n1 = 131 over (8, 131, 8192) (its dense product in
+both trees), each with its output's digest; then the paths that run them,
+the 256 x 2^20 complex64 round trip along the last axis (ndfft, ndifft)
+and the 32768^2 real step (ndfft_r2c along axis 1, ndfft along axis 0 and
+back), beside torch.fft, over --reps-big runs; then the registers and
+spill bytes (ptxas -v) of both kernels' entry functions. It uses only
+public wrappers, so --root may name the parent tree.
+
 With --scan-dct-mid it times instead kernels 26 and 29 on the radix column
 tile at each column count C = 1 ... 16 that fits, at C <= 2 with both
 loads: kernel 26 at (1, 1536, 2359296),
@@ -215,6 +226,7 @@ def main() -> int:
     ap.add_argument("--dense", action="store_true")
     ap.add_argument("--dct", action="store_true")
     ap.add_argument("--dct14", action="store_true")
+    ap.add_argument("--fourstep", action="store_true")
     ap.add_argument("--scan-dense", action="store_true")
     ap.add_argument("--scan-dct-mid", action="store_true")
     ap.add_argument("--route-dense", default=None, metavar="JSON")
@@ -323,6 +335,12 @@ def main() -> int:
         print(json.dumps({"root": root, "card": card, "ms_and_digest": out,
                           "ptxas": ptxas_entries(("radix_cols_kernel", "dct4", "Dct4"))}),
               flush=True)
+        return 0
+    if args.fourstep:
+        fourstep(torch, nd, kfft, dev, gen, crandn, ms, args.reps_big, out)
+        print(json.dumps({"root": root, "card": card, "ms_and_digest": out,
+                          "ptxas": ptxas_entries(("Fourstep", "StoreT", "TwStore",
+                                                  "TransposedStore"))}), flush=True)
         return 0
     if args.dense:
         dense(torch, nd, krfft, kdct, dev, gen, crandn, ms, args.reps_big, out)
@@ -1219,6 +1237,39 @@ def dct14(torch, nd, kfft, krfft, kdct, dev, gen, crandn, ms, reps_big, out):
         out[name] = (ms(lambda: inv(fwd(f)), reps_big), None)
         del f
         torch.cuda.empty_cache()
+
+
+def fourstep(torch, nd, kfft, dev, gen, crandn, ms, reps_big, out):
+    """Kernels 7 and 13 at the main paths' shapes with digests, kernel 7 at
+    a prime n1, and the two paths that run them (beside torch.fft)."""
+    for shape in ((256, 1024, 1024), (16385, 256, 128), (8, 131, 8192)):
+        x = crandn(*shape)
+        scale = 1.0 / (shape[1] * shape[2])
+        calls = [("fourstep_mid", lambda: kfft.fourstep_mid(x, -1))]
+        if shape[1] != 131:
+            calls.append(("rows_store_t", lambda: kfft.rows_store_t(x, +1, scale)))
+        for name, fn in calls:
+            out[name + "_" + "x".join(map(str, shape))] = (ms(fn), None, digest(fn()))
+        del x
+        torch.cuda.empty_cache()
+    xa = crandn(256, 1 << 20)
+    ha = nd.FftHandler(1 << 20)
+    out["c2c_256x2^20_round_trip"] = (
+        ms(lambda: nd.ndifft(nd.ndfft(xa, ha, axis=1), ha, axis=1), reps_big),
+        ms(lambda: torch.fft.ifft(torch.fft.fft(xa, dim=1), dim=1), reps_big))
+    del xa
+    torch.cuda.empty_cache()
+    r = torch.randn(32768, 32768, generator=gen, device=dev)
+    hr, hc = nd.R2cFftHandler(32768), nd.FftHandler(32768)
+
+    def step2():
+        v = nd.ndfft(nd.ndfft_r2c(r, hr, axis=1), hc, axis=0)
+        return nd.ndifft_r2c(nd.ndifft(v, hc, axis=0), hr, axis=1)
+
+    out["step_32768^2"] = (ms(step2, reps_big),
+                           ms(lambda: torch.fft.irfftn(torch.fft.rfftn(r), s=r.shape), reps_big))
+    del r
+    torch.cuda.empty_cache()
 
 
 def axis_mid(torch, nd, kfft, krfft, dev, gen, crandn, ms, reps_big, out):
