@@ -152,9 +152,11 @@ without the final line):
         ndspectral_c2c / ndspectral_r2c / ndspectral_dct / ndspectral_dst,
         three paths at 1024^3 float32: S1, the periodic pressure Poisson
         solve (K2 on axis 2, K1 on axis 1, ndspectral_c2c on axis 0 with
-        the lane-varying G = 1/|k|^2: K14 fixed, F = 8; K1 and K3 back);
+        the lane-varying G = 1/|k|^2: K14 on the radix column tile, n =
+        1024; K1 and K3 back);
         S2, a separable Gaussian LES test filter (ndspectral_r2c on axes 0
-        and 1: K22 fixed, h = 512; the composition K2, multiply, K3 on axis
+        and 1: K22 on the radix column tile, h = 512; the composition K2,
+        multiply, K3 on axis
         2) and a spectral derivative (the complex multiplier i k, K22); S3,
         the cell-centred Neumann Poisson solve (K23, K27, ndspectral_dct on
         axis 0 with the lane-varying H = 1/lambda: K29 on the radix column
@@ -166,8 +168,8 @@ without the final line):
         lowering for S3) and against the port's unfused composition (K1,
         a torch multiply, K1; K16, multiply, K17; K27 or K25, multiply,
         K27 or K26), each fused leg timed beside its unfused one; the
-        lengths K14 and K22 open on the wide core and K29 on the radix
-        column tile (K14 at 384 ... 20480, K22 at 512 ... 40960, K29 at 256
+        lengths K14, K22 and K29 open on the radix column tile (K14 at
+        384 ... 20480, K22 at 512 ... 40960, K29 at 256
         ... 32768 and 20608) against float64 oracles under
         Default, NONE and scalar norms; each fused kernel at its path's
         shape against its plain version slice by slice (K29 also at the
@@ -347,11 +349,10 @@ The kernels line gives each kernel's launches on its main path, its largest
 error against its plain version, its times, and its bound: the larger of
 the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its FP32 operations over 67 TFLOP/s (H100 SXM data
-sheet, 700 W). Its launches are the sum over the main paths of phase 4;
-kernels 14 and 22 on the bts2 core are two rows each, the
-fixed core (launches - wide_launches) and the wide one (wide_launches;
-the K11 and K12 rows also give the bound of their two length-M FFTs per
-column, ``length_m_bound_ms``); kernels 10, 2, 3 and 15
+sheet, 700 W). Its launches are the sum over the main paths of phase 4
+(the K11 and K12 rows also give the bound of their two length-M FFTs per
+column, ``length_m_bound_ms``); kernels 14 and 22 (each one form, on the
+radix column tile), kernels 10, 2, 3 and 15
 (``r2c_packed`` at h = 128 F), kernel 8 (its rows at n <= 256
 counted in c2c_dense_rows.radix_launches as well, above in
 ``c2c_generic_rows``), kernels 1, 6, 4, 11, 12, 16, 17, 18 and 19 (each
@@ -490,8 +491,10 @@ def work(name: str, shape, length_m: bool = False, mult=None, n=None, dct_type=2
     radix table of n2, and does an n2-point complex FFT per row. The fused spectral kernels (K14,
     K22, K29) on (B, n, L) read x and their multiplier H (``mult`` = (hc,
     complex): rows x hc, hc = 1 or L, float32 or complex64) and write y,
-    with both cores' tables (K29 on the radix column tile: the radix table
-    of n/2; and K22's and K29's twiddles), and do two
+    with their tables (on the radix column tile the radix tables of the
+    transform length, n for K14 and n/2 for K22 and K29, both signs for
+    K14 and K22; K29's remnant
+    forms both cores' tables; and K22's and K29's twiddles), and do two
     transforms of their kind per column (two complex FFTs of n; two real
     ones of n) and the multiply (6 FLOPs per
     complex product, 2 per complex-by-real, 1 per real)."""
@@ -505,11 +508,15 @@ def work(name: str, shape, length_m: bool = False, mult=None, n=None, dct_type=2
         npoint = name.endswith("_npoint")
         core = n if k14 or npoint else n // 2
         f = core // 128
-        if name.endswith("_radix"):
-            # K29 on the radix column tile: the radix table of h = n/2 (one:
-            # the inverse is the conjugate of the forward transform)
+        if name.endswith("_radix") or k14 or k22:
+            # K14, K22 and K29 on the radix column tile: the radix tables of
+            # their transform length (K14 and K22 two, the inverse on the
+            # sign +1 table; K29 one, its inverse the conjugate of the
+            # forward transform)
             from ndrustfft_tpu_torch.ops.hopper.fft import radix_consts
             tables = 8 * len(radix_consts(core, -1)[0])
+            if k14 or k22:
+                tables += 8 * len(radix_consts(core, +1)[0])
         else:
             tables = (1 if npoint else 2) * 8 * core * 128
             tables += 8 * f * f * (1 if npoint else 2) if name.endswith(("_wide",
@@ -841,8 +848,7 @@ def main() -> int:
             "dct4_mid_fourstep": 0.0, "dct4_mid_wide": 0.0, "dct4_mid_long": 0.0,
             "c2c_blue_mid": 0.0, "dct23_blue_mid": 0.0,
             "fourstep_mid_radix": 0.0, "fourstep_mid_dense": 0.0,
-            "rows_store_t": 0.0, "spectral_c2c_mid": 0.0,
-            "spectral_c2c_mid_wide": 0.0, "spectral_r2c_mid": 0.0, "spectral_r2c_mid_wide": 0.0,
+            "rows_store_t": 0.0, "spectral_c2c_mid": 0.0, "spectral_r2c_mid": 0.0,
             "spectral_dct_mid_radix": 0.0, "spectral_dct_mid_wide": 0.0,
             "spectral_dct_mid_npoint": 0.0}
     k1_shapes = [(1, 512, 257), (1, 1024, 513), (3, 2048, 130), (512, 512, 257),
@@ -1041,7 +1047,7 @@ def main() -> int:
                 raise AssertionError(f"dct2_mid_radix {shape} C = {c} ldg {ldg}: {rel}")
         del x, y, ref
     # kernels 26 and 29 on the radix column tile likewise (the wrappers take
-    # dct.py::dct2_mid_cols's and spectral_dct_cols's), kernel 29 with a
+    # dct.py::dct2_mid_cols's and rfft.py::spectral_cols's), kernel 29 with a
     # broadcast and a lane-varying H
     for shape in ((2, 128, 130), (1, 384, 129), (2, 1152, 130), (1, 1536, 257), (1, 2048, 33),
                   (1, 8192, 17), (1, 128 * 161, 5), (1, 31104, 3), (1, 40960, 2)):
@@ -1903,10 +1909,11 @@ def main() -> int:
                            lambda: kfft.rows_store_t_plain(x, sign, scale), shape, sign=sign,
                            scale=scale)
             del x
-    # kernels 14, 22 and 29 in each form: the fixed core at every F of its
-    # factors (K14 at n = 512, 1024, 2048; K22 at h = n/2 = 256, 512, 1024,
-    # 2048), the wide core (K14 at 384, 640, 1280, 16256 (F = 127) and 20480
-    # (F = 160); K22 at h = 384, 640, 20480), K29 on the radix column tile
+    # kernels 14 and 22 on the radix column tile through their wrappers at
+    # the lengths of their old fixed forms (K14 at n = 512, 1024, 2048; K22
+    # at h = n/2 = 256, 512, 1024, 2048) and wide forms (K14 at 384, 640,
+    # 1280, 16256 (F = 127) and 20480 (F = 160); K22 at h = 384, 640,
+    # 20480), and K29 on the radix column tile
     # at the lengths of its old forms (the fixed core's h = 256 ... 2048, the
     # wide half length's n = 256, 1280, 32768, the n-point form's n = 128,
     # 384, 1152, 20352, 20608, 32640) and at the remnant's wide F = 131, 157
@@ -1915,31 +1922,78 @@ def main() -> int:
     # broadcast and a lane-varying H, real and complex (K14, K22), the
     # scales 1, 1/n and a scalar. The main paths' shapes are checked in
     # phase 4l, slice by slice
-    for name, shapes in (("spectral_c2c_mid", ((2, 512, 130), (1, 1024, 257), (1, 2048, 64))),
-                         ("spectral_c2c_mid_wide", ((2, 384, 130), (1, 640, 130),
-                                                    (1, 1280, 257), (1, 16256, 8),
-                                                    (1, 20480, 3)))):
-        for nb, n, cols in shapes:
-            x = crandn(nb, n, cols)
-            for h, s in ((randn(n, 1), None), (crandn(n, cols), 1.0 / n), (randn(n, cols), 0.37)):
-                check_form(name, kfft.spectral_c2c_mid, lambda: kfft.spectral_c2c_mid(x, h, s),
-                           lambda: kfft.spectral_c2c_mid_plain(x, h, s), (nb, n, cols),
-                           h_shape=list(h.shape), h_complex=h.is_complex(), scale=s)
-            del x, h
-    for name, shapes in (("spectral_r2c_mid", ((2, 512, 130), (1, 1024, 257), (1, 2048, 130),
-                                               (1, 4096, 64))),
-                         ("spectral_r2c_mid_wide", ((2, 768, 130), (1, 1280, 130),
-                                                    (1, 40960, 3)))):
-        for nb, n, cols in shapes:
-            x = randn(nb, n, cols)
-            m = n // 2 + 1
-            for hr, hi, s in ((randn(m, 1), None, None), (randn(m, cols), randn(m, cols), 1.0 / n),
-                              (randn(m, 1), randn(m, 1), 0.37)):
-                check_form(name, krfft.spectral_r2c_mid,
-                           lambda: krfft.spectral_r2c_mid(x, hr, hi, n, s),
-                           lambda: krfft.spectral_r2c_mid_plain(x, hr, hi, n, s), (nb, n, cols),
-                           h_shape=list(hr.shape), h_complex=hi is not None, scale=s)
-            del x, hr, hi
+    for nb, n, cols in ((2, 512, 130), (1, 1024, 257), (1, 2048, 64), (2, 384, 130),
+                        (1, 640, 130), (1, 1280, 257), (1, 16256, 8), (1, 20480, 3)):
+        x = crandn(nb, n, cols)
+        for h, s in ((randn(n, 1), None), (crandn(n, cols), 1.0 / n), (randn(n, cols), 0.37)):
+            check_form("spectral_c2c_mid", kfft.spectral_c2c_mid,
+                       lambda: kfft.spectral_c2c_mid(x, h, s),
+                       lambda: kfft.spectral_c2c_mid_plain(x, h, s), (nb, n, cols),
+                       h_shape=list(h.shape), h_complex=h.is_complex(), scale=s)
+        del x, h
+    for nb, n, cols in ((2, 512, 130), (1, 1024, 257), (1, 2048, 130), (1, 4096, 64),
+                        (2, 768, 130), (1, 1280, 130), (1, 40960, 3)):
+        x = randn(nb, n, cols)
+        m = n // 2 + 1
+        for hr, hi, s in ((randn(m, 1), None, None), (randn(m, cols), randn(m, cols), 1.0 / n),
+                          (randn(m, 1), randn(m, 1), 0.37)):
+            check_form("spectral_r2c_mid", krfft.spectral_r2c_mid,
+                       lambda: krfft.spectral_r2c_mid(x, hr, hi, n, s),
+                       lambda: krfft.spectral_r2c_mid_plain(x, hr, hi, n, s), (nb, n, cols),
+                       h_shape=list(hr.shape), h_complex=hi is not None, scale=s)
+        del x, hr, hi
+    # kernels 14 and 22's launches at each column count C that phase 5 scans
+    # (C = 1 ... 16 where the tile fits; at C <= 2 with both loads), with a
+    # broadcast real and a lane-varying complex H, against the plain
+    # versions (the wrappers take fft.py::axis_mid_tile's and
+    # rfft.py::spectral_cols's)
+    scan_cols = ((1, False), (1, True), (2, False), (2, True), (4, False), (8, False),
+                 (16, False))
+
+    def tile_fits(length, c):
+        return length * c <= kfft.RADIX_MAX_ELEMS and kfft.radix_cols_threads(length, c) <= 512
+
+    for nb, n, cols in ((1, 1024, 257), (2, 1280, 130), (1, 384, 33)):
+        x = crandn(nb, n, cols)
+        y = torch.empty_like(x)
+        for hr, hi, s in ((randn(n, 1), None, 1.0), (randn(n, cols), randn(n, cols), 1.0 / n)):
+            ref = kfft.spectral_c2c_mid_plain(x, hr if hi is None else torch.complex(hr, hi), s)
+            for c, ldg in scan_cols:
+                if not tile_fits(n, c):
+                    continue
+                y.fill_(float("nan"))
+                kfft.spectral_c2c_launch(x, y, hr, hi, s, c, ldg)
+                torch.cuda.synchronize()
+                rel = abs_err(y, ref) / float(ref.abs().max())
+                errs["spectral_c2c_mid"] = max(errs["spectral_c2c_mid"], abs_err(y, ref))
+                emit(phase="kernel_vs_plain", kernel="spectral_c2c_mid", shape=(nb, n, cols),
+                     cols_per_tile=c, read_only_load=ldg, h_shape=list(hr.shape),
+                     h_complex=hi is not None, rel_err=rel)
+                if not rel <= TOL_KERNEL:
+                    raise AssertionError(f"spectral_c2c_mid {n} C = {c} ldg {ldg}: {rel}")
+            del ref
+        del x, y
+    for nb, n, cols in ((1, 1024, 257), (2, 768, 130), (1, 2048, 33), (1, 40960, 2)):
+        x = randn(nb, n, cols)
+        y = torch.empty_like(x)
+        m = n // 2 + 1
+        for hr, hi, s in ((randn(m, 1), None, 1.0 / n), (randn(m, cols), randn(m, cols), 0.5)):
+            ref = krfft.spectral_r2c_mid_plain(x, hr, hi, n, s)
+            for c, ldg in scan_cols:
+                if not tile_fits(n // 2, c):
+                    continue
+                y.fill_(float("nan"))
+                krfft.spectral_r2c_launch(x, y, hr, hi, n, s, c, ldg)
+                torch.cuda.synchronize()
+                rel = abs_err(y, ref) / float(ref.abs().max())
+                errs["spectral_r2c_mid"] = max(errs["spectral_r2c_mid"], abs_err(y, ref))
+                emit(phase="kernel_vs_plain", kernel="spectral_r2c_mid", shape=(nb, n, cols),
+                     cols_per_tile=c, read_only_load=ldg, h_shape=list(hr.shape),
+                     h_complex=hi is not None, rel_err=rel)
+                if not rel <= TOL_KERNEL:
+                    raise AssertionError(f"spectral_r2c_mid {n} C = {c} ldg {ldg}: {rel}")
+            del ref
+        del x, y
     for name, shapes in (("spectral_dct_mid_radix", ((2, 512, 130), (1, 1024, 257),
                                                      (1, 2048, 130), (1, 4096, 64),
                                                      (2, 256, 130), (1, 1280, 130), (1, 32768, 3),
@@ -1997,8 +2051,7 @@ def main() -> int:
     forms = {f"{name}_{form}": (wrappers[name], f"{form}_launches")
              for name in (*RADIX_ONLY, *radix_too,
                           "dct2_nat", "dct3_nat", "dct2_mid",
-                          "dct3_mid", "dct4_mid", "fourstep_mid",
-                          "spectral_c2c_mid", "spectral_r2c_mid", "spectral_dct_mid")
+                          "dct3_mid", "dct4_mid", "fourstep_mid", "spectral_dct_mid")
              for form in FORMS
              if form == "wide" and name not in (*RADIX_ONLY, *radix_too, "fourstep_mid")
              or form == "radix" and name in (*RADIX_ONLY, *radix_too, "dct2_nat", "dct3_nat",
@@ -3380,7 +3433,8 @@ def main() -> int:
     # u = sum amp cos(2 pi a x) sin(2 pi b y) cos(2 pi c z); K2 (h = 512) on
     # axis 2, K1 at (1024, 1024, 513) on axis 1, ndspectral_c2c on axis 0
     # with the lane-varying real G = 1/|k|^2 of shape (1024, 1024, 513)
-    # (K14 fixed, F = 8, at (1, 1024, 525312); G is 2.15 GB), K1 and K3 back
+    # (K14 on the radix column tile at (1, 1024, 525312); G is 2.15 GB), K1
+    # and K3 back
     p_modes = ((1, 2, 3, 1.0), (4, 1, 2, 0.5), (7, 5, 1, 0.25))
 
     def p_terms(lap):
@@ -3446,8 +3500,9 @@ def main() -> int:
     # S2: a separable Gaussian LES test filter, gain exp(-k^2 D^2 / 24) of the
     # angular wavenumber k = 2 pi m at the test-filter width D = 2 / 1024
     # (0.78 at m = 200, 0.19 at the Nyquist m = 512): ndspectral_r2c on axes
-    # 0 and 1 (K22 fixed, h = 512, F = 4, at (1, 1024, 1048576) and (1024,
-    # 1024, 1024)), on the last axis the composition (K2, the multiply, K3),
+    # 0 and 1 (K22 on the radix column tile, h = 512, at (1, 1024, 1048576)
+    # and (1024, 1024, 1024)), on the last axis the composition (K2, the
+    # multiply, K3),
     # as in the JAX package; then the spectral derivative d/dy of the
     # filtered field (the complex multiplier i k along axis 1, K22)
     delta = 2.0 / n_s
@@ -3631,10 +3686,10 @@ def main() -> int:
                  [xdk], 2, (hk.float().flip(0)[:, None], 2.0, 1.0 / n_d), reps_s, timed=False)
     del fd, xdk
 
-    # the lengths K14, K22 and K29 open, against float64 oracles: K14 on the
-    # wide core at 384, 640, 1280 (along axis 1 of (2, n, 130)), 16256 (F =
-    # 127) and 20480 (F = 160); K22 at 512 and 4096 (fixed) and 768 (axis 1)
-    # and 40960 (wide, F = 160); K29 on the radix column tile at the lengths
+    # the lengths K14, K22 and K29 open, against float64 oracles, all on the
+    # radix column tile: K14 at 384, 640, 1280 (along axis 1 of (2, n,
+    # 130)), 16256 (F = 127) and 20480 (F = 160); K22 at 512, 4096, 768
+    # (axis 1) and 40960 (h = 20480); K29 at the lengths
     # of its old wide and n-point forms: 256, 384 (axis 1), 1152, 20352,
     # 32768 and 20608 (h = 128 ... 16384); L = 130 (ragged), a broadcast and a lane-varying
     # multiplier, real and complex, under Default, NONE and scalar norms.
@@ -3666,8 +3721,7 @@ def main() -> int:
             hd_ = cls(n).normalization(norms[norm])
             y = getattr(nd, f"ndspectral_{kind}")(x, h, hd_, axis=axis)
             outs.append((kind, n, axis, lane, norm, x, hb, y))
-    read_counts("spectral_lengths", spectral_c2c_mid=5, spectral_c2c_mid_wide=5,
-                spectral_r2c_mid=4, spectral_r2c_mid_wide=2, spectral_dct_mid=6,
+    read_counts("spectral_lengths", spectral_c2c_mid=5, spectral_r2c_mid=4, spectral_dct_mid=6,
                 spectral_dct_mid_radix=6)
     for kind, n, axis, lane, norm, x, hb, y in outs:
         x64, h64 = x.to(torch.complex128 if kind == "c2c" else torch.float64), hb.to(
@@ -4283,9 +4337,7 @@ def main() -> int:
                    "fourstep_mid_radix": (256, 1024, 1024),
                    "fourstep_mid_dense": (8, 131, 8192), "rows_store_t": (256, 1024, 1024),
                    "spectral_c2c_mid": (1, 1024, 1024 * 513),
-                   "spectral_c2c_mid_wide": (8, 1280, 8192),
                    "spectral_r2c_mid": (1, 1024, 1024 * 1024),
-                   "spectral_r2c_mid_wide": (8, 768, 16384),
                    "spectral_dct_mid_radix": (1, 1024, 1024 * 1024),
                    "spectral_dct_mid_wide": (1, 128 * 262, 2048),
                    "spectral_dct_mid_npoint": (1, 128 * 131, 4096)}
@@ -4484,7 +4536,7 @@ def main() -> int:
                       x, y, hv, 2.0, 1.0 / n, "npoint" if form == "npoint" else "wide"), runs, 1)})
         emit(phase="time", kernel="spectral_dct_mid_radix", shape=shape, h_cols=hcols,
              ms_by_cols=cols_ms, read_only_load_ms_by_cols=ldg_ms,
-             chosen=kdct.spectral_dct_cols(h, shape[0], shape[2], kfft.num_sms(dev)),
+             chosen=krfft.spectral_cols(h, shape[0], shape[2], kfft.num_sms(dev)),
              parent_form_ms=parent, card=card)
         del x, y, hv
         torch.cuda.empty_cache()
@@ -5154,24 +5206,54 @@ def main() -> int:
              chosen=kfft.store_t_rows(n2, nb * n1, sms), card=card)
         del x, y, want
         torch.cuda.empty_cache()
-    # kernels 14, 22 and 29 in the forms the main paths do not take (K14's
-    # and K22's fixed forms and K29 on the radix column tile were timed in
-    # phase 4l, at the paths' shapes), with a broadcast real multiplier: K14
-    # wide at F = 10, K22 wide at h = 384 (F = 3), K29's remnant wide half
-    # form at F = 131 (n = 128 * 262) and n-point form at k = 131
-    for name, kern, plain, shape, cplx, extra_of in (
-            ("spectral_c2c_mid_wide", kfft.spectral_c2c_mid, kfft.spectral_c2c_mid_plain,
-             (8, 1280, 8192), True, lambda n: (randn(n, 1), 1.0 / n)),
-            ("spectral_r2c_mid_wide", krfft.spectral_r2c_mid, krfft.spectral_r2c_mid_plain,
-             (8, 768, 16384), False, lambda n: (randn(n // 2 + 1, 1), None, n, 1.0 / n)),
-            ("spectral_dct_mid_wide", kdct.spectral_dct_mid, kdct.spectral_dct_mid_plain,
-             (1, 128 * 262, 2048), False, lambda n: (randn(n, 1), 2.0, 1.0 / n)),
-            ("spectral_dct_mid_npoint", kdct.spectral_dct_mid, kdct.spectral_dct_mid_plain,
-             (1, 128 * 131, 4096), False, lambda n: (randn(n, 1), 2.0, 1.0 / n))):
-        x = crandn(*shape) if cplx else randn(*shape)
-        extra = extra_of(shape[1])
-        time_kernel(name, shape, lambda: kern(x, *extra), lambda: plain(x, *extra))
-        del x, extra
+    # kernels 14 and 22 on the radix column tile at each column count C = 1
+    # ... 16 that fits (at C <= 2 with both loads), beside the count that
+    # the wrappers take (fft.py::axis_mid_tile, rfft.py::spectral_cols):
+    # K14 at S1's (1, 1024, 525312) with its lane-varying real G and at
+    # (8, 1280, 8192) with a broadcast one, K22 at S2's (1, 1024, 1048576)
+    # and (1024, 1024, 1024) with the broadcast gain and at (8, 768, 16384)
+    for name, shape, hcols in (("spectral_c2c_mid", (1, 1024, 1024 * 513), 1024 * 513),
+                               ("spectral_c2c_mid", (8, 1280, 8192), 1),
+                               ("spectral_r2c_mid", (1, 1024, 1024 * 1024), 1),
+                               ("spectral_r2c_mid", (1024, 1024, 1024), 1),
+                               ("spectral_r2c_mid", (8, 768, 16384), 1)):
+        nb, n, cols = shape
+        k14 = name == "spectral_c2c_mid"
+        x = crandn(*shape) if k14 else randn(*shape)
+        y = torch.empty_like(x)
+        length = n if k14 else n // 2
+        hr = randn(length if k14 else length + 1, hcols)
+        runs = 5 if x.numel() > 1 << 28 else reps
+
+        def launch(c, ldg):
+            if k14:
+                return lambda: kfft.spectral_c2c_launch(x, y, hr, None, 1.0 / n, c, ldg)
+            return lambda: krfft.spectral_r2c_launch(x, y, hr, None, n, 1.0 / n, c, ldg)
+
+        cols_ms = {c: cuda_ms(launch(c, False), runs) for c, ldg in scan_cols
+                   if not ldg and tile_fits(length, c)}
+        ldg_ms = {c: cuda_ms(launch(c, True), runs) for c in (1, 2) if c in cols_ms}
+        if k14:
+            chosen, chosen_ldg = kfft.axis_mid_tile(n, nb, cols, sms)
+        else:
+            chosen = krfft.spectral_cols(length, nb, cols, sms)
+            chosen_ldg = chosen <= 2
+        emit(phase="time", kernel=name, shape=shape, h_cols=hcols, ms_by_cols=cols_ms,
+             read_only_load_ms_by_cols=ldg_ms, chosen=chosen, chosen_read_only=chosen_ldg,
+             card=card)
+        del x, y, hr
+        torch.cuda.empty_cache()
+    # kernel 29's remnant forms, which the main paths do not take, with a
+    # broadcast real multiplier: the wide half form at F = 131 (n = 128 *
+    # 262) and the n-point form at k = 131
+    for name, shape in (("spectral_dct_mid_wide", (1, 128 * 262, 2048)),
+                        ("spectral_dct_mid_npoint", (1, 128 * 131, 4096))):
+        x = randn(*shape)
+        n = shape[1]
+        hv = randn(n, 1)
+        time_kernel(name, shape, lambda: kdct.spectral_dct_mid(x, hv, 2.0, 1.0 / n),
+                    lambda: kdct.spectral_dct_mid_plain(x, hv, 2.0, 1.0 / n))
+        del x, hv
     torch.cuda.empty_cache()
     t_port = cuda_ms(lambda: dct_pair(xp), reps)
     t_yard = cuda_ms(lambda: yardstick_pair(xp), reps)
@@ -5275,14 +5357,10 @@ def main() -> int:
                                "ndrustfft_tpu/ops/pallas/fft.py:1549"),
         "rows_store_t": ("ndrustfft_tpu_torch/csrc/fft_fourstep.cu",
                          "ndrustfft_tpu/ops/pallas/fft.py:1863"),
-        "spectral_c2c_mid": ("ndrustfft_tpu_torch/csrc/spectral_c2c_mid.cu",
+        "spectral_c2c_mid": ("ndrustfft_tpu_torch/csrc/spectral_c2c_radix.cu",
                              "ndrustfft_tpu/ops/pallas/fft.py:2000"),
-        "spectral_c2c_mid_wide": ("ndrustfft_tpu_torch/csrc/spectral_c2c_mid.cu",
-                                  "ndrustfft_tpu/ops/pallas/fft.py:2000"),
-        "spectral_r2c_mid": ("ndrustfft_tpu_torch/csrc/spectral_r2c_mid.cu",
+        "spectral_r2c_mid": ("ndrustfft_tpu_torch/csrc/spectral_r2c_radix.cu",
                              "ndrustfft_tpu/ops/pallas/rfft.py:1021"),
-        "spectral_r2c_mid_wide": ("ndrustfft_tpu_torch/csrc/spectral_r2c_mid.cu",
-                                  "ndrustfft_tpu/ops/pallas/rfft.py:1021"),
         "spectral_dct_mid_radix": ("ndrustfft_tpu_torch/csrc/spectral_dct_radix.cu",
                                    "ndrustfft_tpu/ops/pallas/dct.py:779"),
         "spectral_dct_mid_wide": ("ndrustfft_tpu_torch/csrc/spectral_dct_mid.cu",

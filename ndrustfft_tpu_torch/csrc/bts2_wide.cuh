@@ -64,8 +64,8 @@
 // memory, bound them.
 //
 // Tile layouts (C = transforms of the tile, V <= C valid):
-//   kRows:  element (t, c) at s[c * n + t]   (contiguous rows: K13)
-//   cols:   element (t, c) at s[t * C + c]   (a column tile: K7, K14, K22, K28, K29)
+//   kRows:  element (t, c) at s[c * n + t]   (contiguous rows: K23, K24)
+//   cols:   element (t, c) at s[t * C + c]   (a column tile: K25, K26, K28, K29)
 #pragma once
 
 #include <type_traits>

@@ -861,11 +861,13 @@ struct CplxCol {
 };
 
 // The column skeletons' real load policy (kernels 16 and 20 on
-// radix_cols_kernel, kernel 20's chirp-z on fft_blue_radix.cu): the real
-// columns of (B, rows, L) float32: element r of column col of b
-// as the pair (x[2r], x[2r + 1]) of its rows (kPairs: the half-length
-// column of an even n) or as (x[r], 0).
-template <bool kPairs>
+// radix_cols_kernel, kernel 20's chirp-z on fft_blue_radix.cu, kernel 22 on
+// spectral_r2c_radix.cu): the real columns of (B, rows, L) float32: element
+// r of column col of b as the pair (x[2r], x[2r + 1]) of its rows (kPairs:
+// the half-length column of an even n) or as (x[r], 0), loaded evict-first
+// or (kLdg, kernel 22 at one or two columns a tile) through the read-only
+// path.
+template <bool kPairs, bool kLdg = false>
 struct RealCol {
   const float* __restrict__ x;
   long long L;
@@ -873,12 +875,15 @@ struct RealCol {
   __device__ __forceinline__ long long base(long long b, long long col) const {
     return b * rows * L + col;
   }
+  __device__ __forceinline__ static float get(const float* q) {
+    return kLdg ? __ldg(q) : __ldcs(q);
+  }
   __device__ __forceinline__ float2 at(long long p, int r) const {
     if constexpr (kPairs) {
       const float* q = x + p + 2 * r * L;
-      return make_float2(__ldcs(q), __ldcs(q + L));
+      return make_float2(get(q), get(q + L));
     } else {
-      return make_float2(__ldcs(x + p + r * L), 0.f);
+      return make_float2(get(x + p + r * L), 0.f);
     }
   }
 };

@@ -67,10 +67,10 @@ _SIGNATURES = {
     "ndfft_dct23_blue_radix": [_P] * 7 + [_I, _LL, _I, _I, _LL, _I, _P],
     "ndfft_fourstep_mid": [_P, _P, _P, _P, _I, _P, _LL, _I, _LL, _I, _I, _I, _P],
     "ndfft_rows_store_t": [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _F, _P],
-    "ndfft_spectral_c2c_mid": [_P] * 4 + [_LL, _P, _P, _LL, _I, _LL, _I, _P],
-    "ndfft_spectral_c2c_mid_wide": [_P] * 4 + [_LL] + [_P] * 4 + [_LL, _I, _LL, _I, _P],
-    "ndfft_spectral_r2c_mid": [_P] * 4 + [_LL] + [_P] * 4 + [_LL, _I, _LL, _I, _P],
-    "ndfft_spectral_r2c_mid_wide": [_P] * 4 + [_LL] + [_P] * 6 + [_LL, _I, _LL, _I, _P],
+    "ndfft_spectral_c2c_radix": ([_P] * 4 + [_LL] + [_P] * 3
+                                 + [_I, _LL, _I, _LL, _I, _F, _I, _P]),
+    "ndfft_spectral_r2c_radix": ([_P] * 4 + [_LL] + [_P] * 3
+                                 + [_I, _P, _P, _LL, _I, _LL, _I, _I, _P]),
     "ndfft_spectral_dct_radix": ([_P] * 3 + [_LL] + [_P] * 2 + [_I] + [_P] * 4
                                  + [_LL, _I, _LL, _I, _I, _P]),
     "ndfft_spectral_dct_mid_wide": [_P] * 3 + [_LL] + [_P] * 8 + [_LL, _I, _LL, _I, _P],

@@ -38,7 +38,7 @@
   forward, the multiply and kernel 26's inverse on one column tile
   (replaces ``dct.py::_spectral_dct_kernel_mid``): on the radix column tile
   at the lengths of :func:`dct2_nat_radix` (``csrc/spectral_dct_radix.cu``,
-  columns a tile by :func:`spectral_dct_cols`), in the bts2 forms of
+  columns a tile by :func:`~.rfft.spectral_cols`), in the bts2 forms of
   :func:`dct_form` at the 29 others (``csrc/spectral_dct_mid.cu``).
 * Kernel 12, :func:`dct23_blue_mid`: the Makhoul DCT-II/III core along the
   middle axis of a real (B, n, L) tensor at a Bluestein length, the
@@ -91,7 +91,7 @@ from .fft import (M, RADIX_MAX_STAGES, RADIX_WIDE_N, REAL_MAX_F, WIDE_MAX_F,
                   wide_bytes, wide_real_bytes)
 from .rfft import (_bts2_col_c2r_plain, _bts2_col_r2c_plain, _device_ab, _device_tw,
                    c2r_mid_cols, c2r_mid_plain, c2r_nat_plain, packed_mid_cols,
-                   r2c_mid_cols, r2c_mid_radix_plain, r2c_radix_plain)
+                   r2c_mid_cols, r2c_mid_radix_plain, r2c_radix_plain, spectral_cols)
 
 
 # --------------------------------------------------------------------------
@@ -1130,33 +1130,10 @@ def spectral_dct_mid_plain(x: torch.Tensor, hv: torch.Tensor, s2=None, s3=None) 
     return _dct3_plain(_dct2_plain(x, s2) * hv, s3)
 
 
-SPECTRAL_DCT_WIDE_H = 640   # kernel 29's wide column tiles from this half length on
-SPECTRAL_DCT_MAX_C = 8      # and at most this many columns in them
-
-
-def spectral_dct_cols(h: int, groups: int, cols: int, sms: int) -> int:
-    """Columns per tile of kernel 29 on the radix column tile at half length
-    h: kernel 18's rule (:func:`~.rfft.packed_mid_cols`) with wide tiles of
-    at most SPECTRAL_DCT_MAX_C columns from h = SPECTRAL_DCT_WIDE_H on: below
-    it :func:`~.fft.radix_mid_cols` (the 16-element form), from it the
-    largest power of two up to 8 whose tile a block takes in the 32- or
-    40-element form, halved while the grid would leave SMs idle; the
-    fastest at each shape timed. (On an NVIDIA H100 80GB HBM3 at 700 W,
-    time_kernels.py --scan-dct-mid, C = 1, 2, 4, 8, 16: at S3's
-    (1, 1024, 1048576) with a lane-varying H 56.4, 31.1, 21.1, 18.1, 18.2 ms
-    (takes 8); at (1, 2048, 4096) 0.363, 0.266, 0.234, 0.177, 0.177 (8); at
-    (8, 1280, 8192) 3.81, 2.79, 2.21, 1.60, 1.81 (8, where kernel 25's rule
-    took 4); at (1, 1152, 1152) 0.096, 0.072, 0.065, 0.081, 0.078 (h = 576:
-    4); one column at (1, 31104, 31104), 54.3 ms with the read-only load that
-    the wrapper takes at C <= 2, 57.7 evict-first.)"""
-    return packed_mid_cols(h, groups, cols, sms, wide_from=SPECTRAL_DCT_WIDE_H,
-                           most=SPECTRAL_DCT_MAX_C)
-
-
 def spectral_dct_radix_launch(x: torch.Tensor, y: torch.Tensor, hv: torch.Tensor, s2, s3,
                               c: int, ldg: bool = False) -> None:
     """Launch kernel 29 on the radix column tile, ``c`` columns a tile
-    (:func:`spectral_dct_cols`), on the (B, n, L) float32 CUDA tensor x into
+    (:func:`~.rfft.spectral_cols`), on the (B, n, L) float32 CUDA tensor x into
     y with the contiguous float32 multiplier hv ((n, 1) or (n, L);
     ``csrc/spectral_dct_radix.cu``), x loaded through the read-only path if
     ``ldg``, else evict-first; counts nothing."""
@@ -1198,7 +1175,7 @@ def spectral_dct_mid(x: torch.Tensor, hv: torch.Tensor, s2=None, s3=None) -> tor
         return y
     form = launch_form(n, False, False)
     if form == "radix":
-        c = spectral_dct_cols(n // 2, nb, cols, num_sms(x.device))
+        c = spectral_cols(n // 2, nb, cols, num_sms(x.device))
         spectral_dct_radix_launch(x, y, hv, s2, s3, c, ldg=c <= 2)
         spectral_dct_mid.radix_launches += 1
     else:

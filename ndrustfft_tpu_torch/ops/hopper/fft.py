@@ -37,20 +37,19 @@
   (B, n2, n1), in an epilogue (``csrc/fft_fourstep.cu``; replaces
   ``fft.py::_kernel_lane_store_t``).
 * Kernel 14, :func:`spectral_c2c_mid`: the fused pipeline IFFT(H * FFT(x))
-  along the middle axis of (B, n, L), n = 128 * F, the diagonal multiply
-  between two cores on one column tile (``csrc/spectral_c2c_mid.cu``, the
-  fixed core for F in {4, 8, 16}, the wide core otherwise; replaces
+  along the middle axis of (B, n, L), n = 128 * F: kernel 1's radix column
+  tile with two transforms and the diagonal multiply in between, the
+  inverse on the sign +1 table (``csrc/spectral_c2c_radix.cu``; replaces
   ``fft.py::_spectral_c2c_kernel_mid``).
 
 This module holds their host-built constants, their plain PyTorch versions
 and their wrappers, whose ``launches`` attributes count kernel launches
-(kernel 14 also counts the wide core's launches apart, in
-``wide_launches``; kernel 7 its radix and dense launches, in
-``radix_launches`` and ``dense_launches``; kernels 1, 10, 8, 6, 4, 11 and
-13 count every launch of ``c2c_axis_mid``, ``c2c_rows``,
-``c2c_dense_rows``, ``c2c_generic_mid``, ``c2c_dense_mid``,
-``c2c_blue_mid`` and ``rows_store_t`` in ``radix_launches`` beside
-``launches``).
+(kernel 7 its radix and dense launches, in ``radix_launches`` and
+``dense_launches``; kernels 1, 10, 8, 6, 4, 11 and 13 count every launch
+of ``c2c_axis_mid``, ``c2c_rows``, ``c2c_dense_rows``,
+``c2c_generic_mid``, ``c2c_dense_mid``, ``c2c_blue_mid`` and
+``rows_store_t`` in ``radix_launches`` beside ``launches``; kernel 14 has
+one form, counted in ``launches``).
 """
 
 from __future__ import annotations
@@ -67,9 +66,10 @@ from ...plan import blue_h, chirp, dft_matrix, factorize, prime_factors, stage_t
 from . import _build
 
 M = 128                 # stage-2 DFT length of the core
-CORE_F = (2, 4, 8, 16)  # butterfly factors the fixed core instantiates
-C2C_F = (4, 8, 16)      # factors kernel 14 takes on the fixed core
-SMEM_ELEMS = 8192       # complex elements of one block's tile (64 KB)
+# the butterfly factors of the retired bts2 fixed core (of a real, of a
+# complex tile): the censuses and tests still split the lengths by them
+CORE_F = (2, 4, 8, 16)
+C2C_F = (4, 8, 16)
 DENSE_MAX_N = 512       # longest transform kernels 4 and 8 take
 GENERIC_MAX_N = 20480   # the JAX package's kernel bound (fft._LIVE_COPIES)
 GENERIC_MAX_M = 224     # longest DFT-m of the JAX package's generic schedule (its gate)
@@ -176,16 +176,6 @@ def num_sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def block_cols(n: int, groups: int, cols: int, sms: int) -> int:
-    """Columns per block: the largest power of two whose n x C tile fits the
-    shared-memory budget, halved while the grid of ``groups`` times the
-    column tiles would leave SMs idle."""
-    c = SMEM_ELEMS // n
-    while c > 1 and groups * -(-cols // c) < sms:
-        c //= 2
-    return c
-
-
 def wide_bytes(n: int, c: int) -> int:
     """Dynamic shared memory of a wide-core tile of ``c`` transforms of
     length n (csrc/bts2_wide.cuh::wide_smem_bytes): the tile, the Y scratch
@@ -242,12 +232,6 @@ def check_core_n(n: int, what: str) -> int:
         raise ValueError(f"{what}: n={n} is not 128 * F with a twostep split and a "
                          f"plan (128 <= n <= {GENERIC_MAX_N}, prime factors <= 128)")
     return f
-
-
-def count_launch(wrapper, wide: bool) -> None:
-    """One launch of ``wrapper``'s kernel: on the wide core if ``wide``."""
-    wrapper.launches += 1
-    wrapper.wide_launches += wide
 
 
 # --------------------------------------------------------------------------
@@ -1238,26 +1222,45 @@ def mult_planes(hr: torch.Tensor, hi, what: str):
 
 
 def spectral_c2c_mid_plain(x: torch.Tensor, h: torch.Tensor, scale=None) -> torch.Tensor:
-    """Plain version of kernel 14: the core's plain forward transform along
-    dim 1 of (B, n, L), times H ((n, 1) or (n, L), real or complex), the
-    core's plain inverse with ``scale`` folded into its constants."""
-    n = x.shape[1]
-    s = 1.0 if scale is None else float(scale)
-    z = bts2_plain(x, device_wq(n, -1, 1.0, x.device), -1) * h
-    return bts2_plain(z, device_wq(n, +1, s, x.device), +1)
+    """Plain version of kernel 14 on the radix column tile: the radix core's
+    plain forward transform along dim 1 of (B, n, L)
+    (:func:`c2c_radix_mid_plain`, sign -1), times H ((n, 1) or (n, L), real
+    or complex), then its plain sign +1 transform times ``scale``."""
+    return c2c_radix_mid_plain(c2c_radix_mid_plain(x, -1) * h, +1, scale)
+
+
+def spectral_c2c_launch(x: torch.Tensor, y: torch.Tensor, hr: torch.Tensor, hi, scale: float,
+                        c: int, ldg: bool) -> None:
+    """Launch kernel 14 on the radix column tile, ``c`` columns a tile
+    (:func:`axis_mid_tile`), on the (B, n, L) complex64 CUDA tensors x
+    and y with the contiguous float32 multiplier planes hr, hi ((n, 1) or
+    (n, L); hi None for a real H); x loaded through the read-only path if
+    ``ldg``; the inverse on the sign +1 table. Counts nothing."""
+    nb, n, cols = x.shape
+    dev = x.device
+    plan = radix_plan(n)
+    with torch.cuda.device(dev):
+        err = _build.lib().ndfft_spectral_c2c_radix(
+            x.data_ptr(), y.data_ptr(), hr.data_ptr(), None if hi is None else hi.data_ptr(),
+            hr.shape[1], device_radix(n, -1, dev).data_ptr(), device_radix(n, +1, dev).data_ptr(),
+            (ctypes.c_int * RADIX_MAX_STAGES)(*plan), len(plan), nb, n, cols, c, scale, int(ldg),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ndfft_spectral_c2c_radix")
 
 
 def spectral_c2c_mid(x: torch.Tensor, h: torch.Tensor, scale=None) -> torch.Tensor:
     """IFFT(H * FFT(x)) along dim 1 of a (B, n, L) complex64 tensor, n = 128
     * F (:func:`core_f`): the forward unnormalized, the inverse times
     ``scale``; H is (n, 1) or (n, L), float32 or complex64. A CPU tensor runs
-    the plain version; a CUDA tensor launches kernel 14 (on the fixed core
-    for F in {4, 8, 16}, else on the wide core) or raises."""
+    the plain version; a CUDA tensor launches kernel 14 on the radix column
+    tile (columns a tile and load by kernel 1's rule, :func:`axis_mid_tile`,
+    which ran fastest of C = 1 ... 16 at both of chip_smoke.py phase 5's
+    shapes; the inverse on the sign +1 table) or raises."""
     if x.dim() != 3:
         raise ValueError(f"spectral_c2c_mid: expected (B, n, L), got {tuple(x.shape)}")
     nb, n, cols = x.shape
-    f = check_core_n(n, "spectral_c2c_mid")
-    hc = check_mult(h, x, n, "spectral_c2c_mid")
+    check_core_n(n, "spectral_c2c_mid")
+    check_mult(h, x, n, "spectral_c2c_mid")
     if x.device.type == "cpu":
         return spectral_c2c_mid_plain(x, h, scale)
     if x.device.type != "cuda":
@@ -1265,31 +1268,13 @@ def spectral_c2c_mid(x: torch.Tensor, h: torch.Tensor, scale=None) -> torch.Tens
     check_cuda(x, torch.complex64, "spectral_c2c_mid")
     hr, hi = mult_planes(*((h.real, h.imag) if h.is_complex() else (h, None)),
                          "spectral_c2c_mid")
-    s = 1.0 if scale is None else float(scale)
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    dev = x.device
-    wide = f not in C2C_F
-    mult = (hr.data_ptr(), None if hi is None else hi.data_ptr(), hc)
-    wq_fwd, wq_inv = device_wq(n, -1, 1.0, dev), device_wq(n, +1, s, dev)
-    sms = num_sms(dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        if wide:
-            err = _build.lib().ndfft_spectral_c2c_mid_wide(
-                x.data_ptr(), y.data_ptr(), *mult, wq_fwd.data_ptr(),
-                device_wide(n, -1, dev).data_ptr(), wq_inv.data_ptr(),
-                device_wide(n, +1, dev).data_ptr(), nb, n, cols, wide_block(n, nb, cols, sms),
-                stream)
-        else:
-            err = _build.lib().ndfft_spectral_c2c_mid(
-                x.data_ptr(), y.data_ptr(), *mult, wq_fwd.data_ptr(), wq_inv.data_ptr(), nb, n,
-                cols, block_cols(n, nb, cols, sms), stream)
-    _build.check(err, "spectral_c2c_mid")
-    count_launch(spectral_c2c_mid, wide)
+    spectral_c2c_launch(x, y, hr, hi, 1.0 if scale is None else float(scale),
+                        *axis_mid_tile(n, nb, cols, num_sms(x.device)))
+    spectral_c2c_mid.launches += 1
     return y
 
 
 spectral_c2c_mid.launches = 0
-spectral_c2c_mid.wide_launches = 0

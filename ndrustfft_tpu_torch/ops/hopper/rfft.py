@@ -56,15 +56,16 @@
   131 ... 251 (``csrc/rfft_blue_radix.cu``), as :func:`packed_dense_form`
   names.
 * Kernel 22, :func:`spectral_r2c_mid`: the fused pipeline C2R(H * R2C(x))
-  along the middle axis of (B, n, L), kernel 16's forward, the multiply and
-  kernel 17's inverse on one column tile (``csrc/spectral_r2c_mid.cu``, the
-  fixed core for F in {2, 4, 8, 16}, the wide core for every other F <= 160;
-  replaces ``rfft.py::_spectral_kernel_mid``).
+  along the middle axis of (B, n, L), kernel 16's load and half-length
+  transform, the pair pass (unpack, multiply, inverse unpack) and kernel
+  17's half-length inverse and store on one radix column tile, the inverse
+  on the sign +1 table (``csrc/spectral_r2c_radix.cu``; replaces
+  ``rfft.py::_spectral_kernel_mid``).
 
 This module holds their host-built constants, their plain PyTorch versions
 and their wrappers, whose ``launches`` attributes count kernel launches
-(kernel 22 on the bts2 core also counts the wide core's launches apart,
-in ``wide_launches``; kernels 2, 3 and 15 at h = 128 * F and kernels 16,
+(kernel 22 has one form, counted in ``launches``; kernels 2, 3 and 15 at
+h = 128 * F and kernels 16,
 17, 18 and 19 count every launch in ``radix_launches`` as well,
 kernels 20 and 21 their launches on the radix column tile and kernel 15's
 dense rows theirs on the radix row core; kernels 20 and 21 and kernel
@@ -81,13 +82,13 @@ import torch
 
 from ...plan import _cis, blue_h, chirp
 from . import _build
-from .fft import (CORE_F, GENERIC_MAX_N, M, RADIX_CODELETS, RADIX_MAX_ELEMS, RADIX_MAX_P,
-                  RADIX_MAX_STAGES, RADIX_MAX_THREADS, RADIX_SMALL_TILE, block_cols, bts2_plain,
+from .fft import (GENERIC_MAX_N, M, RADIX_CODELETS, RADIX_MAX_ELEMS, RADIX_MAX_P,
+                  RADIX_MAX_STAGES, RADIX_MAX_THREADS, RADIX_SMALL_TILE, bts2_plain,
                   c2c_radix_mid_plain, c2c_radix_rows_plain, check_cuda, check_mult, chirp_m,
-                  chirp_z_radix_plain, core_f, count_launch, dense_beats_radix, dense_tile,
-                  device_radix, device_wide, device_wq, generic_split, idle_lanes, mult_planes,
+                  chirp_z_radix_plain, core_f, dense_beats_radix, dense_tile,
+                  device_radix, device_wq, generic_split, idle_lanes, mult_planes,
                   num_sms, pair_tensor, radix_block, radix_cols_threads, radix_mid_cols,
-                  radix_plan, spread_rows, wide_block)
+                  radix_plan, spread_rows)
 
 # lengths kernels 20 and 21 take: the JAX package's rfft_dense_mid_supported
 # (its _DENSE_RFFT_MAX), which the routes mirror
@@ -393,8 +394,8 @@ def c2r_mid_plain(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
 
 
 def _bts2_col_c2r_plain(s: torch.Tensor, n: int, scale=None) -> torch.Tensor:
-    """The bts2 column C2R's plain version (kernels 22 and 26, whose inverse
-    runs the bts2 core): (B, n/2+1, L) complex64 -> (B, n, L) float32, the
+    """The bts2 column C2R's plain version (kernel 26's remnant, whose
+    inverse runs the bts2 core): (B, n/2+1, L) complex64 -> (B, n, L) float32, the
     inverse unpack G, then the core's plain version with the sign +1 Wq,
     z[l] as real rows 2l and 2l + 1."""
     nb, _, cols = s.shape
@@ -496,15 +497,61 @@ c2r_mid.radix_launches = 0
 
 def spectral_r2c_mid_plain(x: torch.Tensor, hr: torch.Tensor, hi, n: int,
                            scale=None) -> torch.Tensor:
-    """Plain version of kernel 22: the bts2 column R2C on the even and odd
-    samples (:func:`_bts2_col_r2c_plain`, kernel 22's forward arithmetic),
-    the product with H = hr + i hi ((m, 1) or (m, L), m = n/2 + 1; hi None
-    for a real H), then the bts2 column C2R (:func:`_bts2_col_c2r_plain`,
-    kernel 22's inverse arithmetic), which ignores the product's DC and
-    Nyquist imaginary parts (the JAX kernel's mask and its Nyquist row
-    Re(H[h]) X[h])."""
-    spec = _bts2_col_r2c_plain(x[:, 0::2], x[:, 1::2])
-    return _bts2_col_c2r_plain(spec * (hr if hi is None else torch.complex(hr, hi)), n, scale)
+    """Plain version of kernel 22 on the radix column tile: the R2C on the
+    radix column tile's plain version (:func:`r2c_mid_radix_plain`), the
+    product with H = hr + i hi ((m, 1) or (m, L), m = n/2 + 1; hi None for
+    a real H), then kernel 17's plain version (:func:`c2r_mid_plain`), which
+    ignores the product's DC and Nyquist imaginary parts (the JAX kernel's
+    mask and its Nyquist row Re(H[h]) X[h])."""
+    spec = r2c_mid_radix_plain(x) * (hr if hi is None else torch.complex(hr, hi))
+    return c2r_mid_plain(spec, n, scale)
+
+
+SPECTRAL_WIDE_H = 640   # kernels 22 and 29's wide column tiles from this half length on
+SPECTRAL_MAX_C = 8      # and at most this many columns in them
+
+
+def spectral_cols(h: int, groups: int, cols: int, sms: int) -> int:
+    """Columns per tile of kernels 22 and 29 on the radix column tile at
+    half length h (the same (h, C) tile and two transforms): kernel 18's
+    rule (:func:`packed_mid_cols`) with wide tiles of at most
+    SPECTRAL_MAX_C columns from h = SPECTRAL_WIDE_H on: below it
+    :func:`~.fft.radix_mid_cols` (the 16-element form), from it the largest
+    power of two up to 8 whose tile a block takes in the 32- or 40-element
+    form, halved while the grid would leave SMs idle; the fastest at each
+    shape timed. (On an NVIDIA H100 80GB HBM3 at 700 W, C = 1, 2, 4, 8, 16:
+    kernel 29 by time_kernels.py --scan-dct-mid, at S3's (1, 1024,
+    1048576) with a lane-varying H 56.4, 31.1, 21.1, 18.1, 18.2 ms (takes
+    8); at (1, 2048, 4096) 0.363, 0.266, 0.234, 0.177, 0.177 (8); at
+    (8, 1280, 8192) 3.81, 2.79, 2.21, 1.60, 1.81 (8, where kernel 25's rule
+    took 4); at (1, 1152, 1152) 0.096, 0.072, 0.065, 0.081, 0.078 (h = 576:
+    4); one column at (1, 31104, 31104), 54.3 ms with the read-only load
+    that the wrapper takes at C <= 2, 57.7 evict-first. Kernel 22 by
+    chip_smoke.py phase 5: at S2's (1, 1024, 1048576) 39.4, 22.8, 14.5,
+    10.0, 11.8 ms (8); at (1024, 1024, 1024) 29.7, 17.6, 11.5, 9.81, 10.6
+    (8); at (8, 768, 16384) 3.01, 1.96, 1.38, 1.03, 1.22 (8).)"""
+    return packed_mid_cols(h, groups, cols, sms, wide_from=SPECTRAL_WIDE_H, most=SPECTRAL_MAX_C)
+
+
+def spectral_r2c_launch(x: torch.Tensor, y: torch.Tensor, hr: torch.Tensor, hi, n: int, scale,
+                        c: int, ldg: bool) -> None:
+    """Launch kernel 22 on the radix column tile, ``c`` columns a tile
+    (:func:`spectral_cols`), on the (B, n, L) float32 CUDA tensor x into
+    y with the contiguous float32 multiplier planes hr, hi ((n/2 + 1, 1) or
+    (n/2 + 1, L); hi None for a real H); x loaded through the read-only path
+    if ``ldg``; the inverse on the sign +1 table. Counts nothing."""
+    nb, _, cols = x.shape
+    dev = x.device
+    h = n // 2
+    plan = radix_plan(h)
+    ab = _device_ab(n, 1.0 if scale is None else float(scale), dev)
+    with torch.cuda.device(dev):
+        err = _build.lib().ndfft_spectral_r2c_radix(
+            x.data_ptr(), y.data_ptr(), hr.data_ptr(), None if hi is None else hi.data_ptr(),
+            hr.shape[1], device_radix(h, -1, dev).data_ptr(), device_radix(h, +1, dev).data_ptr(),
+            (ctypes.c_int * RADIX_MAX_STAGES)(*plan), len(plan), _device_tw(n, dev).data_ptr(),
+            ab.data_ptr(), nb, n, cols, c, int(ldg), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ndfft_spectral_r2c_radix")
 
 
 def spectral_r2c_mid(x: torch.Tensor, hr: torch.Tensor, hi, n: int, scale=None) -> torch.Tensor:
@@ -512,14 +559,15 @@ def spectral_r2c_mid(x: torch.Tensor, hr: torch.Tensor, hi, n: int, scale=None) 
     ``scale`` (the C2R's), h = n/2 = 128 * F (:func:`_check_nat`); H =
     hr + i hi, float32 planes of shape (n/2 + 1, 1) or (n/2 + 1, L), hi None
     for a real H. A CPU tensor runs the plain version; a CUDA tensor
-    launches kernel 22 (on the fixed core for F in {2, 4, 8, 16}, else on
-    the wide core) or raises."""
+    launches kernel 22 on the radix column tile (columns a tile
+    :func:`spectral_cols`, the read-only load at C <= 2, the inverse on
+    the sign +1 table) or raises."""
     _check_mid(x, torch.float32, "spectral_r2c_mid")
     nb, _, cols = x.shape
-    f = _check_nat(n, "spectral_r2c_mid")
+    _check_nat(n, "spectral_r2c_mid")
     if x.shape[1] != n:
         raise ValueError(f"spectral_r2c_mid: expected (B, {n}, L), got {tuple(x.shape)}")
-    hc = check_mult(hr, x, n // 2 + 1, "spectral_r2c_mid")
+    check_mult(hr, x, n // 2 + 1, "spectral_r2c_mid")
     if hi is not None and hi.shape != hr.shape:
         raise ValueError(f"spectral_r2c_mid: planes {tuple(hr.shape)} and {tuple(hi.shape)}")
     if x.device.type == "cpu":
@@ -528,37 +576,16 @@ def spectral_r2c_mid(x: torch.Tensor, hr: torch.Tensor, hi, n: int, scale=None) 
         raise ValueError(f"spectral_r2c_mid: unsupported device {x.device}")
     check_cuda(x, torch.float32, "spectral_r2c_mid")
     hr, hi = mult_planes(hr, hi, "spectral_r2c_mid")
-    sc = 1.0 if scale is None else float(scale)
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    dev = x.device
-    h = n // 2
-    wide = f not in CORE_F
-    mult = (hr.data_ptr(), None if hi is None else hi.data_ptr(), hc)
-    wq_fwd, wq_inv = device_wq(h, -1, 1.0, dev), device_wq(h, +1, 1.0, dev)
-    tw, ab = _device_tw(n, dev), _device_ab(n, sc, dev)
-    sms = num_sms(dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        if wide:
-            err = _build.lib().ndfft_spectral_r2c_mid_wide(
-                x.data_ptr(), y.data_ptr(), *mult, wq_fwd.data_ptr(),
-                device_wide(h, -1, dev).data_ptr(), tw.data_ptr(), wq_inv.data_ptr(),
-                device_wide(h, +1, dev).data_ptr(), ab.data_ptr(), nb, n, cols,
-                wide_block(h, nb, cols, sms), stream)
-        else:
-            err = _build.lib().ndfft_spectral_r2c_mid(
-                x.data_ptr(), y.data_ptr(), *mult, wq_fwd.data_ptr(), tw.data_ptr(),
-                wq_inv.data_ptr(), ab.data_ptr(), nb, n, cols, block_cols(h, nb, cols, sms),
-                stream)
-    _build.check(err, "spectral_r2c_mid")
-    count_launch(spectral_r2c_mid, wide)
+    c = spectral_cols(n // 2, nb, cols, num_sms(x.device))
+    spectral_r2c_launch(x, y, hr, hi, n, scale, c, c <= 2)
+    spectral_r2c_mid.launches += 1
     return y
 
 
 spectral_r2c_mid.launches = 0
-spectral_r2c_mid.wide_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -567,7 +594,7 @@ spectral_r2c_mid.wide_launches = 0
 
 
 def _bts2_col_r2c_plain(xe: torch.Tensor, xo: torch.Tensor) -> torch.Tensor:
-    """The bts2 column R2C's plain version (kernel 22, kernel 25's remnant):
+    """The bts2 column R2C's plain version (kernel 25's remnant):
     the core's plain version on xe + i xo, (B, h, L) float32, then the
     unpack with the mirror row, (B, h+1, L) complex64."""
     h = xe.shape[1]

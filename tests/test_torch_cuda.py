@@ -802,6 +802,49 @@ def test_spectral_dct_radix_matches_plain(dev):
             kdct.spectral_dct_mid.radix_launches - before[1]) == (18, 18)
 
 
+def test_spectral_c2c_r2c_radix_match_plain(dev):
+    """Kernels 14 and 22 on the radix column tile: the forward transform,
+    the multiply (K22: the pair pass) and the inverse on one tile, at every
+    column count C that fits (at C <= 2 with both loads), broadcast and
+    lane-varying H, real and complex, at n = 128 ... 20480 (K14) and
+    h = 128 ... 20480 (K22, n = 2h); every launch through a wrapper counted
+    in ``launches``."""
+    g = torch.Generator(device=dev).manual_seed(31)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    before = (kfft.spectral_c2c_mid.launches, krfft.spectral_r2c_mid.launches)
+    for nb, n, cols in ((2, 128, 33), (1, 384, 130), (2, 1024, 17), (1, 1280, 9),
+                        (1, 16256, 3), (1, 20480, 2)):
+        x = torch.complex(randn(nb, n, cols), randn(nb, n, cols))
+        for h, s in ((randn(n, 1), None), (torch.complex(randn(n, cols), randn(n, cols)), 1 / n)):
+            want = kfft.spectral_c2c_mid_plain(x, h, s)
+            assert _rel(kfft.spectral_c2c_mid(x, h, s), want) <= TOL, n
+            hr, hi = (h.real.contiguous(), h.imag.contiguous()) if h.is_complex() else (h, None)
+            for c, ldg in _MID_RADIX_COLS:
+                if n * c > kfft.RADIX_MAX_ELEMS or kfft.radix_cols_threads(n, c) > 512:
+                    continue
+                y = torch.empty_like(x)
+                kfft.spectral_c2c_launch(x, y, hr, hi, 1.0 if s is None else s, c, ldg)
+                assert _rel(y, want) <= TOL, (n, c, ldg)
+    for nb, n, cols in ((2, 256, 33), (1, 512, 130), (2, 768, 17), (1, 2048, 9),
+                        (1, 40960, 2)):
+        x = randn(nb, n, cols)
+        m = n // 2 + 1
+        for hr, hi, s in ((randn(m, 1), None, None), (randn(m, cols), randn(m, cols), 0.5)):
+            want = krfft.spectral_r2c_mid_plain(x, hr, hi, n, s)
+            assert _rel(krfft.spectral_r2c_mid(x, hr, hi, n, s), want) <= TOL, n
+            for c, ldg in _MID_RADIX_COLS:
+                if n // 2 * c > kfft.RADIX_MAX_ELEMS or kfft.radix_cols_threads(n // 2, c) > 512:
+                    continue
+                y = torch.empty_like(x)
+                krfft.spectral_r2c_launch(x, y, hr, hi, n, s, c, ldg)
+                assert _rel(y, want) <= TOL, (n, c, ldg)
+    assert (kfft.spectral_c2c_mid.launches - before[0],
+            krfft.spectral_r2c_mid.launches - before[1]) == (12, 10)
+
+
 def test_dct23_blue_radix_matches_plain(dev):
     """Kernel 12 on kernel 11's column kernel at every column count C that
     fits a tile, ragged L (5 and 130 columns): M = 288, 2304, 4608 and
@@ -1326,19 +1369,20 @@ def test_long_lengths_run_on_the_fourstep_kernels(dev):
 
 
 def _spectral_forms():
-    return (kfft.spectral_c2c_mid.launches, kfft.spectral_c2c_mid.wide_launches,
-            krfft.spectral_r2c_mid.launches, krfft.spectral_r2c_mid.wide_launches,
+    return (kfft.spectral_c2c_mid.launches, krfft.spectral_r2c_mid.launches,
             kdct.spectral_dct_mid.launches, kdct.spectral_dct_mid.wide_launches,
             kdct.spectral_dct_mid.npoint_launches, kdct.spectral_dct_mid.radix_launches)
 
 
 def test_spectral_kernels_match_plain_in_each_form(dev):
-    """Kernels 14 and 22 on the fixed core and the wide core, K29 on the
-    radix column tile (at the lengths of its old fixed, wide and n-point
+    """Kernels 14 and 22 on the radix column tile (at the lengths of their
+    old fixed and wide forms: n = 384 ... 20480, h = 256 ... 20480), K29 on
+    the radix column tile (at the lengths of its old fixed, wide and n-point
     forms: h = 64 ... 16384, the odd k included) and at the remnant's
     n-point k = 131 and wide k = 262, ragged column tiles (L = 130, 17, 3),
     the largest tiles (F = 160 for K14/K22), broadcast and lane-varying H,
-    real and complex (K14, K22), against their plain versions."""
+    real and complex (K14, K22), against their plain versions; neither K14
+    nor K22 keeps a wide counter."""
     g = torch.Generator(device=dev).manual_seed(19)
 
     def randn(*shape):
@@ -1364,7 +1408,9 @@ def test_spectral_kernels_match_plain_in_each_form(dev):
         for hv, s2, s3 in ((randn(n, 1), 2.0, 2.0), (randn(n, cols), None, 0.37)):
             assert _rel(kdct.spectral_dct_mid(x, hv, s2, s3),
                         kdct.spectral_dct_mid_plain(x, hv, s2, s3)) <= TOL, (n, cols)
-    assert [a - b for a, b in zip(_spectral_forms(), before)] == [10, 6, 8, 4, 20, 2, 2, 16]
+    assert [a - b for a, b in zip(_spectral_forms(), before)] == [10, 8, 20, 2, 2, 16]
+    assert not hasattr(kfft.spectral_c2c_mid, "wide_launches")
+    assert not hasattr(krfft.spectral_r2c_mid, "wide_launches")
 
 
 def test_spectral_functions_run_on_the_fused_kernels(dev):
@@ -1397,9 +1443,9 @@ def test_spectral_functions_run_on_the_fused_kernels(dev):
     y = nd.ndspectral_dst(xr, hd, None, invs, axis=0)
     want = nd.nddst3(hd[:, None] * nd.nddst2(xr, axis=0), invs, axis=0)
     assert _rel(y, want) <= 1e-5
-    assert [a - b for a, b in zip(_spectral_forms(), before)] == [1, 0, 1, 0, 2, 0, 0, 2]
+    assert [a - b for a, b in zip(_spectral_forms(), before)] == [1, 1, 2, 0, 0, 2]
     nd.ndspectral_r2c(xr.T.contiguous(), torch.ones(513, device=dev), axis=1)   # last axis
-    assert krfft.spectral_r2c_mid.launches - before[2] == 1
+    assert krfft.spectral_r2c_mid.launches - before[1] == 1
     xl = torch.randn(128 * 161, 128, generator=g, device=dev)
     hl = torch.rand(128 * 161, generator=g, device=dev)
     before = kdct.spectral_dct_mid.radix_launches

@@ -223,5 +223,3 @@ def test_tile_sizes_of_the_new_forms():
     assert kfft.wide_block(1152, 1, 4096, 132) == 4
     assert kfft.wide_block(128 * 159, 1, 3, 132) == 1
     assert kfft.wide_bytes(128 * 159, 1) <= kfft.MAX_SMEM
-    # kernel 26's fixed core at 2048 (h = 1024): 8 columns of 64 KB
-    assert kfft.block_cols(1024, 2048, 2048, 132) == 8

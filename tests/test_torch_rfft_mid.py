@@ -277,4 +277,4 @@ def test_mid_route_outside_the_core_factors_raises(kind, n):
     want = api.R2C_MID if kind == "r2c" else api.C2R_MID
     assert api._route(kind, shape, 0, dtype, "cuda", n=n) == want
     assert api._route(kind, shape, 0, dtype, "cpu", n=n) == want
-    assert krfft.core_f(n // 2) not in krfft.CORE_F
+    assert kfft.core_f(n // 2) not in kfft.CORE_F

@@ -18,7 +18,7 @@ where the wrapper runs its plain version:
 * a remnant length, k = 131 (n = 16768, L = 1; no radix plan of 64 k: the
   n-point form), against float64;
 * the form at all 288 lengths of ``dct_form``, the column count
-  ``spectral_dct_cols`` at the main shapes and the wrapper's CPU route.
+  ``rfft.spectral_cols`` at the main shapes and the wrapper's CPU route.
 
 Tolerance: max |port - JAX| <= 5e-6 * max |JAX| in float32 at the JAX
 package's "highest" tier; 2e-6 of the peak against float64; 1e-12 for the
@@ -41,6 +41,7 @@ from ndrustfft_tpu_torch import api
 from ndrustfft_tpu_torch.ops import engine
 from ndrustfft_tpu_torch.ops.hopper import dct as kdct
 from ndrustfft_tpu_torch.ops.hopper import fft as kfft
+from ndrustfft_tpu_torch.ops.hopper import rfft as krfft
 
 torch.set_num_threads(1)
 
@@ -214,7 +215,7 @@ def test_form_at_every_length():
 
 
 def test_column_counts_at_the_main_shapes():
-    """spectral_dct_cols at the shapes the main paths give kernel 29 on an
+    """rfft.spectral_cols at the shapes the main paths give kernel 29 on an
     H100 (132 SMs), the fastest counts of time_kernels.py --scan-dct-mid
     (8 and 16 tie at (1, 2048, 4096)): each a power of two whose tile fits
     a block; 8 columns from h = 640 on, the 16-element form below."""
@@ -222,7 +223,7 @@ def test_column_counts_at_the_main_shapes():
                              ((8, 1280, 8192), 8), ((1, 1152, 1152), 4),
                              ((1, 31104, 31104), 1)):
         h = n // 2
-        got = kdct.spectral_dct_cols(h, nb, cols, 132)
+        got = krfft.spectral_cols(h, nb, cols, 132)
         assert got == c, (n, got)
         assert h * got <= kfft.RADIX_MAX_ELEMS
         assert kfft.radix_cols_threads(h, got) <= 2 * kfft.RADIX_MAX_THREADS

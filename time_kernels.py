@@ -187,8 +187,22 @@ tile at each column count C = 1 ... 16 that fits, at C <= 2 with both
 loads: kernel 26 at (1, 1536, 2359296),
 (1536, 1536, 1536), (1, 2048, 2048), (1, 1152, 1152) and (1, 31104, 31104),
 kernel 29 at the shapes of --dct; beside the counts dct.py::dct2_mid_cols
-and spectral_dct_cols pick, then both kernels' ptxas registers and spill
+and rfft.py::spectral_cols pick, then both kernels' ptxas registers and spill
 bytes.
+
+With --spectral it times instead kernels 14 and 22 through their wrappers
+at their main shapes, each with a digest of its output: kernel 14
+(spectral_c2c_mid, scale 1/n) at S1's (1, 1024, 525312) with its
+lane-varying real G and at (8, 1280, 8192) with a broadcast real H, kernel
+22 (spectral_r2c_mid, scale 1/n) at S2's (1, 1024, 1048576) and (1024,
+1024, 1024) with the broadcast Gaussian gain and at (8, 768, 16384); then
+the paths that run them, S1's 1024^3 periodic Poisson solve beside
+torch.fft.rfftn * G + irfftn and S2's 1024^3 LES filter (ndspectral_r2c
+along axes 0, 1 and 2) beside torch.fft.rfftn, the three gains, irfftn,
+over --reps-big runs; then the registers and spill bytes (ptxas -v) of
+both kernels' entry functions and kernel 29's, and the spill bytes of the
+out-of-line transforms each of them calls. It uses only public wrappers,
+so --root may name the parent tree.
 
 With --scan-dense it times instead kernels 21 and 27 on the radix column
 tile at each column count C that fits, beside the counts that
@@ -229,6 +243,7 @@ def main() -> int:
     ap.add_argument("--fourstep", action="store_true")
     ap.add_argument("--scan-dense", action="store_true")
     ap.add_argument("--scan-dct-mid", action="store_true")
+    ap.add_argument("--spectral", action="store_true")
     ap.add_argument("--route-dense", default=None, metavar="JSON")
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--route-kernels", nargs="*", default=[21, 27, 20, 15], type=int)
@@ -318,7 +333,7 @@ def main() -> int:
     if args.scan_dense:
         return scan_dense(torch, kfft, krfft, kdct, dev, gen, crandn, ms, card, root)
     if args.scan_dct_mid:
-        return scan_dct_mid(torch, kfft, kdct, dev, gen, ms, args.reps_big, card, root)
+        return scan_dct_mid(torch, kfft, krfft, kdct, dev, gen, ms, args.reps_big, card, root)
     if args.route_dense:
         return route_dense(torch, kfft, krfft, kdct, dev, gen, crandn, ms, card, root,
                            args.route_dense, args.route_kernels)
@@ -341,6 +356,15 @@ def main() -> int:
         print(json.dumps({"root": root, "card": card, "ms_and_digest": out,
                           "ptxas": ptxas_entries(("Fourstep", "StoreT", "TwStore",
                                                   "TransposedStore"))}), flush=True)
+        return 0
+    if args.spectral:
+        spectral(torch, nd, kfft, krfft, dev, gen, crandn, ms, args.reps_big, out)
+        print(json.dumps({"root": root, "card": card, "ms_and_digest": out,
+                          "ptxas": ptxas_entries(("spectral_c2c", "spectral_r2c",
+                                                  "spectral_dct_radix")),
+                          "ptxas_callees": ptxas_callees(("spectral_c2c_radix",
+                                                          "spectral_r2c_radix",
+                                                          "spectral_dct_radix"))}), flush=True)
         return 0
     if args.dense:
         dense(torch, nd, krfft, kdct, dev, gen, crandn, ms, args.reps_big, out)
@@ -656,6 +680,64 @@ def s1(torch, nd, dev, gen, ms, reps_big, out):
     torch.cuda.empty_cache()
 
 
+def spectral(torch, nd, kfft, krfft, dev, gen, crandn, ms, reps_big, out):
+    """Kernels 14 and 22 at their main shapes with digests, and the paths
+    S1 and S2 that run them (beside torch.fft)."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def key(name, shape):
+        return name + "_" + "x".join(map(str, shape))
+
+    n = 1024
+    kc = torch.fft.fftfreq(n, 1.0 / n, device=dev) ** 2
+    kr = torch.arange(n // 2 + 1, device=dev, dtype=torch.float32) ** 2
+    g1 = (kc[:, None, None] + kc[None, :, None] + kr[None, None, :]).reciprocal_()
+    g1[0, 0, 0] = 0.0
+    g1 = g1.reshape(n, -1)          # S1's lane-varying G, (1024, 525312)
+    for shape, h in (((1, n, n * 513), g1), ((8, 1280, 8192), None)):
+        x = crandn(*shape)
+        h = randn(shape[1], 1) if h is None else h
+        s = 1.0 / shape[1]
+        out[key("spectral_c2c_mid", shape)] = (
+            ms(lambda: kfft.spectral_c2c_mid(x, h, s), reps_big if x.numel() > 1 << 28 else None),
+            None, digest(kfft.spectral_c2c_mid(x, h, s)))
+        del x
+        torch.cuda.empty_cache()
+    del g1
+    m = torch.arange(n // 2 + 1, device=dev, dtype=torch.float64)
+    gain = torch.exp(-(2 * math.pi * m * (2.0 / n)) ** 2 / 24).float()    # S2's, (513,)
+    for shape in ((1, n, n * n), (n, n, n), (8, 768, 16384)):
+        x = randn(*shape)
+        nn = shape[1]
+        hr = gain[:, None] if nn == n else randn(nn // 2 + 1, 1)
+        out[key("spectral_r2c_mid", shape)] = (
+            ms(lambda: krfft.spectral_r2c_mid(x, hr, None, nn, 1.0 / nn),
+               reps_big if x.numel() > 1 << 28 else None),
+            None, digest(krfft.spectral_r2c_mid(x, hr, None, nn, 1.0 / nn)))
+        del x
+        torch.cuda.empty_cache()
+    s1(torch, nd, dev, gen, ms, reps_big, out)
+    f = randn(n, n, n)
+    hr = nd.R2cFftHandler(n)
+    gf = torch.exp(-(2 * math.pi * torch.fft.fftfreq(n, 1.0 / n, device=dev).double()
+                     * (2.0 / n)) ** 2 / 24).float()
+
+    def s2():
+        y = nd.ndspectral_r2c(f, gain, hr, axis=0)
+        y = nd.ndspectral_r2c(y, gain, hr, axis=1)
+        return nd.ndspectral_r2c(y, gain, hr, axis=2)
+
+    def s2_torch():
+        sp = torch.fft.rfftn(f)
+        sp.mul_(gf[:, None, None]).mul_(gf[None, :, None]).mul_(gain[None, None, :])
+        return torch.fft.irfftn(sp, s=f.shape)
+
+    out["S2_les_filter_1024^3"] = (ms(s2, reps_big), ms(s2_torch, reps_big))
+    del f
+    torch.cuda.empty_cache()
+
+
 def dense(torch, nd, krfft, kdct, dev, gen, crandn, ms, reps_big, out):
     """Kernels 21 and 27 at their main shapes, kernels 16, 17, 18 and 20
     with digests, and the paths that run kernels 21 and 27."""
@@ -832,11 +914,11 @@ def scan_dense(torch, kfft, krfft, kdct, dev, gen, crandn, ms, card, root):
     return 0
 
 
-def scan_dct_mid(torch, kfft, kdct, dev, gen, ms, reps_big, card, root):
+def scan_dct_mid(torch, kfft, krfft, kdct, dev, gen, ms, reps_big, card, root):
     """Kernels 26 and 29 on the radix column tile at each column count
     C = 1 ... 16 that fits (the 16- and the 32/40-element forms), at C <= 2
     with both loads (evict-first and read-only), beside the counts
-    dct.py::dct2_mid_cols and spectral_dct_cols pick; then the ptxas
+    dct.py::dct2_mid_cols and rfft.py::spectral_cols pick; then the ptxas
     registers and spill bytes of both kernels' instantiations."""
     sms = kfft.num_sms(dev)
 
@@ -874,7 +956,7 @@ def scan_dct_mid(torch, kfft, kdct, dev, gen, ms, reps_big, card, root):
               ms(lambda: kdct.spectral_dct_radix_launch(x, y, hv, 2.0, 1.0 / n, c, ldg), reps)
               for c, ldg in counts(n // 2)}
         scan[f"spectral_dct_mid_{nb}x{n}x{cols}_h{hcols}"] = {
-            "ms_by_cols_per_tile": by, "chosen": kdct.spectral_dct_cols(n // 2, nb, cols, sms)}
+            "ms_by_cols_per_tile": by, "chosen": krfft.spectral_cols(n // 2, nb, cols, sms)}
         del x, hv, y
         torch.cuda.empty_cache()
     print(json.dumps({"root": root, "card": card, "dct_mid_scan": scan,
@@ -1029,6 +1111,28 @@ def ptxas_entries(parts=None) -> dict:
         entries[name] = [int(regs.group(1)) if regs else None,
                          sum(map(int, spill.groups())) if spill else 0]
     return entries
+
+
+def ptxas_callees(parts) -> dict:
+    """Each entry function of the tree's build whose mangled name holds one
+    of ``parts`` -> {callee: spill bytes} of the out-of-line functions it
+    calls, as ptxas -v lists them after the entry (a function's spill
+    depends on its callers: ptxas allocates it for each)."""
+    import re
+
+    from ndrustfft_tpu_torch.ops.hopper import _build
+
+    log = (_build.build().parent / "nvcc.log").read_text()
+    out = {}
+    for entry in log.split("Compiling entry function '")[1:]:
+        name = entry.split("'")[0]
+        if not any(p in name for p in parts):
+            continue
+        out[name] = {
+            fn: int(st) + int(ld) for fn, st, ld in re.findall(
+                r"Function properties for (\S+)\n\s*\d+ bytes stack frame, (\d+) bytes spill "
+                r"stores, (\d+) bytes spill loads", entry) if fn != name}
+    return out
 
 
 def ptxas(root) -> int:
